@@ -1,0 +1,141 @@
+"""Dense retrieval entry point of the port: encode → index → search.
+
+Counterpart of ``matchmaker_tpu/cli/dense_retrieval.py``, same modes, config
+keys and run-folder files:
+
+    encode+index+search : encode the corpus, build the index, search the query sets
+    index+search        : reuse the encoded vector blocks of the run folder
+    search              : reuse the saved index of the run folder
+
+Extra key: ``device`` (default ``"cuda"``). Weights come from
+``trained_model`` (a ``best-model.npz`` file or the folder holding one; see
+models/weights.py); without it the model starts from seeded random weights.
+
+Usage:
+    python -m matchmaker_tpu_torch.cli.dense_retrieval encode+index+search \\
+        --config-file cfg.yaml --run-name my_index
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+import sys
+import traceback
+
+import torch
+
+from matchmaker_tpu.metrics import calculate_metrics_plain, load_qrels, print_metric_summary, unrolled_to_ranked_result
+from matchmaker_tpu.obs.perf_monitor import PerformanceMonitor
+
+from matchmaker_tpu_torch.data.tokenization import build_tokenizer
+from matchmaker_tpu_torch.evaluation import save_sorted_results
+from matchmaker_tpu_torch.models import get_model, init_params
+from matchmaker_tpu_torch.models.weights import load_npz
+from matchmaker_tpu_torch.retrieval.encode import encode_corpus, load_encoded
+from matchmaker_tpu_torch.retrieval.indexes import build_index
+from matchmaker_tpu_torch.retrieval.search import search_queries
+
+
+def make_encode_fn(model, sequence_type: str):
+    """(ids, mask) → vectors, without autograd."""
+
+    def encode(ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return model.encode(ids, mask, sequence_type)
+
+    return encode
+
+
+def _trained_weights(path: str):
+    ckpt = os.path.join(path, "best-model.npz") if os.path.isdir(path) else path
+    if not os.path.isfile(ckpt):
+        raise FileNotFoundError(f"trained_model: no weights at {ckpt} (expected best-model.npz)")
+    return load_npz(ckpt)
+
+
+def run(mode: str, config, run_folder: str) -> int:
+    perf = PerformanceMonitor.get()
+    device = torch.device(config.get("device", "cuda"))
+    tokenizer = build_tokenizer(config)
+    model = get_model(config, tokenizer)
+    seed = config.get("random_seed", 42)
+    init_params(model, config, torch.Generator().manual_seed(seed))
+    trained_model = config.get("trained_model")
+    if trained_model:
+        model.load_state_dict(_trained_weights(trained_model))
+    else:
+        print(f"[dense_retrieval] no trained_model: random weights from seed {seed}")
+    model.to(device).eval()
+
+    encode_folder = os.path.join(run_folder, "encoded")
+    if "encode" in mode:
+        cfg_enc = dict(config)
+        cfg_enc["batch_size_inference"] = config.get("collection_batch_size", 128)
+        encode_corpus(make_encode_fn(model, "doc_encode"), cfg_enc, tokenizer, config["collection_tsv"],
+                      encode_folder, device, sequence_type="doc")
+
+    index_folder = os.path.join(run_folder, "index")
+    indexer = build_index(config, device)
+    if "index" in mode:
+        perf.start_block("indexing")
+        vectors, row_ids = load_encoded(encode_folder)
+        indexer.prepare(vectors.shape[1])
+        indexer.index(row_ids, vectors)
+        perf.stop_block("indexing", vectors.shape[0])
+        indexer.save(index_folder)
+    else:
+        indexer.load(index_folder)
+
+    multi_vector = bool(config.get("multi_vector_corpus", False))
+    cfg_q = dict(config)
+    cfg_q["batch_size_inference"] = config.get("query_batch_size", 32)
+    for name, qset in (config.get("query_sets") or {}).items():
+        results = search_queries(make_encode_fn(model, "query_encode"), cfg_q, tokenizer, indexer,
+                                 qset["queries_tsv"], top_n=qset.get("top_n", 100), device=device,
+                                 dedup=multi_vector)
+        save_sorted_results(results, os.path.join(run_folder, f"{name}-output.txt"))
+        if qset.get("qrels"):
+            metrics = calculate_metrics_plain(
+                unrolled_to_ranked_result(results),
+                load_qrels(qset["qrels"]),
+                qset.get("binarization_point", 1.0),
+            )
+            with open(os.path.join(run_folder, f"{name}-metrics.csv"), "w", newline="") as f:
+                w = csv.writer(f)
+                w.writerow(list(metrics.keys()))
+                w.writerow(list(metrics.values()))
+            print(f"[{name}]", end=" ")
+            print_metric_summary(metrics)
+
+    perf.save_summary(os.path.join(run_folder, "efficiency-metrics.json"))
+    perf.print_summary()
+    return 0
+
+
+def main() -> int:
+    # YAML config handling and argument parsing live in the JAX package's
+    # host modules; imported here only, so importing this module needs no yaml
+    from matchmaker_tpu.config import get_config
+    from matchmaker_tpu.experiment import get_parser, prepare_experiment
+
+    parser = get_parser()
+    parser.add_argument("mode", choices=["encode+index+search", "index+search", "search"])
+    args = parser.parse_args()
+    if args.continue_folder:
+        run_folder = args.continue_folder
+        config = get_config([os.path.join(run_folder, "config.yaml")] + (args.config_file or []),
+                            args.config_overwrites)
+    else:
+        config = get_config(args.config_file, args.config_overwrites)
+        run_folder = prepare_experiment(config["expirement_base_path"], args.run_name, config)
+    print(f"[matchmaker-tpu-torch] dense retrieval ({args.mode}) run folder: {run_folder}")
+    try:
+        return run(args.mode, config, run_folder)
+    except Exception:
+        traceback.print_exc()
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
