@@ -7,9 +7,12 @@ Phases (any failed check raises, and the script exits non-zero):
 1. the card's name and power limit; no CUDA device → exit 1;
 2. build the CUDA kernels from ``matchmaker_tpu_torch/csrc``;
 3. every kernel against its plain PyTorch version on the card, at the main
-   path's shapes: the encoder halves at DistilBERT width for (B, L) =
-   (256, 128), (256, 200), (64, 30); the binmax scan, level 2 and unpack on
-   262,144 x 768 rows and 256 queries; with CUDA-event timings of both;
+   paths' shapes: the encoder halves at DistilBERT width for (B, L) =
+   (256, 128), (256, 200), (64, 30); their backward kernels (K11, K12) at the
+   training shapes (64, 200) and (32, 30), at (256, 200) and at an odd
+   L = 77 with padded keys, every gradient compared; the binmax scan, level 2
+   and unpack on 262,144 x 768 rows and 256 queries; with CUDA-event timings
+   of both;
 4. the main path, ``cli.dense_retrieval.run("encode+index+search")``, on a
    seeded 16,384-passage collection with a DistilBERT-width BERT_DOT
    (random weights from a seed), searching one query set at top-100 and one
@@ -17,7 +20,18 @@ Phases (any failed check raises, and the script exits non-zero):
    launch count of every kernel in that run, recall against an exact search
    of the same bf16 rows, and a re-encode with the plain versions;
 5. ``FlatIndex`` search at 1,048,576 x 768 rows, Q = 256, k = 1000 (the
-   keep-8/32 level-2 path): recall@1000 against an exact search and QPS.
+   keep-8/32 level-2 path): recall@1000 against an exact search and QPS;
+6. the training path, ``cli.train``'s ``Trainer``: a DistilBERT-width
+   BERT_DOT (bf16, fused layers, random weights from a seed) takes 100
+   Margin-MSE + in-batch-negative steps of 32 seeded synthetic triples with
+   teacher scores (query 30, doc 200 tokens), validates by re-ranking at
+   steps 50 and 100, keeps the best checkpoint, runs the test pass and hands
+   ``best-model.npz`` to the dense-retrieval CLI; checked: the launch count of
+   K1, K2, K11 and K12 against the prediction, a finite loss every step, the
+   run-folder files; then one step with the kernels against one with the
+   plain versions (loss and every parameter's gradient), a one-batch overfit
+   (30 steps halve Margin-MSE), device-only triples/s and a profile of three
+   steps.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Details go to build/chip_smoke.json.
@@ -44,6 +58,11 @@ FULL = dict(
     passages=16_384, queries=256, doc_len=128, top_n=100, top_n_small=10, batch=256,
     scale_rows=1_048_576, scale_k=1000, scale_clusters=1024,
     reps=10,
+    bwd_shapes=[(64, 200), (32, 30), (256, 200), (16, 77)],  # (B, L) of the backward kernels
+    bwd_reps=5,
+    train_batches=100, train_batch=32, train_query_len=30, train_doc_len=200, validate_every=50,
+    val_queries=32, val_docs=10, eval_batch=256, dr_passages=2048, dr_queries=64, dr_top_n=10, dr_batch=256,
+    overfit_steps=30,
 )
 
 
@@ -154,6 +173,99 @@ def phase_encoder_kernels(sz, device):
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
             _record(out[name], [b, l, sz["hid"]], lambda k=kernel, a=args: k(x, *a),
                     lambda p=plain, a=args: p(x, *a), device, sz["reps"], headline=i == 0)
+    return out
+
+
+def grads_close(got, want, scale_of=None):
+    """Per-tensor check of a backward kernel's gradients against the plain
+    version's: cosine >= 0.999 and max |d| <= 2e-2 * max |plain| (f32 sums
+    over up to 51,200 rows in another order, bf16 rounding of dz/dq/dk/dv at
+    the same points). A gradient that is zero in exact arithmetic holds only
+    rounding noise; ``scale_of`` names the gradient whose size bounds it.
+    Returns the largest max |d| over the tensors."""
+    import torch
+
+    worst = 0.0
+    for name, g in got.items():
+        a, b = g.float().reshape(-1), want[name].float().reshape(-1)
+        err = float((a - b).abs().max())
+        worst = max(worst, err)
+        if scale_of and name in scale_of:
+            ref = float(want[scale_of[name]].float().abs().max())
+            check(err <= 2e-2 * ref, f"{name}: max |d| {err} vs {ref} (a zero gradient's noise)")
+            continue
+        cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+        check(cos >= 0.999 and err <= 2e-2 * float(b.abs().max()),
+              f"{name}: cosine {cos}, max |d| {err}, max |plain| {float(b.abs().max())}")
+    return worst
+
+
+_ATTN_GRADS = ("dx", "dwq", "dwk", "dwv", "dwo", "dbq", "dbk", "dbv", "dbo", "dg", "dbe")
+_MLP_GRADS = ("dx", "dw1", "db1", "dw2", "db2", "dg", "dbe")
+
+
+def _zero_attention_grads(l):
+    """The attention gradients that are zero in exact arithmetic, each with
+    the gradient whose size bounds its rounding noise: the key bias always
+    (each softmax row's gradient sums to zero); with one key (L = 1) the
+    softmax is constant, so all of dq and dk."""
+    if l == 1:
+        return {"dwq": "dwv", "dwk": "dwv", "dbq": "dbv", "dbk": "dbv"}
+    return {"dbk": "dbq"}
+
+
+def _named_attention_grads(dx, dwqkv, dbqkv, dwo, dbo, dg, dbe):
+    out = dict(dx=dx, dwo=dwo, dbo=dbo, dg=dg, dbe=dbe)
+    for i, n in enumerate("qkv"):
+        out[f"dw{n}"] = dwqkv.chunk(3, dim=1)[i]
+        out[f"db{n}"] = dbqkv.chunk(3)[i]
+    return out
+
+
+def phase_backward_kernels(sz, device):
+    """K12 and K11 against their plain versions on the same inputs: the
+    kernels after the K1/K2 training forward, the plain backward after the
+    plain forward."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import fused_attention as fa
+    from matchmaker_tpu_torch.ops import fused_backward as fb
+
+    attn, ln1, mlp, ln2 = _layer_params(sz, device, seed=13)
+    wq, wk, wv, wo, bq, bk, bv, bo = attn
+    wqkv, bqkv = torch.cat([wq, wk, wv], dim=1), torch.cat([bq, bk, bv])
+    heads = sz["heads"]
+    out = {"fused_attention_block_bwd": {"max_abs_err": 0.0}, "fused_mlp_block_bwd": {"max_abs_err": 0.0}}
+    for i, (b, l) in enumerate(sz["bwd_shapes"]):
+        g = torch.Generator(device=device).manual_seed(200 + i)
+        x = torch.randn(b, l, sz["hid"], generator=g, device=device).to(torch.bfloat16)
+        dy = torch.randn(b, l, sz["hid"], generator=g, device=device).to(torch.bfloat16)
+        lengths = torch.randint(max(1, l // 4), l + 1, (b,), generator=g, device=device)
+        mask = (torch.arange(l, device=device)[None, :] < lengths[:, None]).float()
+        _, a_saved = fb.attention_block_fwd(x, wqkv, bqkv, wo, bo, mask, heads, *ln1)
+        _, a_acc = fa.reference_attention_block(x, *attn, mask, heads, *ln1, save_acc=True)
+        _, m_saved = fb.mlp_block_fwd(x, *mlp, *ln2)
+        _, m_acc = fa.reference_mlp_block(x, *mlp, *ln2, save_acc=True)
+        w1, b1, w2, _ = mlp
+        cases = (
+            ("fused_attention_block_bwd",
+             lambda: fb.attention_block_bwd(x, wqkv, bqkv, wo, mask, heads, ln1[0], dy, a_saved),
+             lambda: fb.reference_attention_block_bwd(x, wq, wk, wv, wo, bq, bk, bv, mask, heads, ln1[0], dy, a_acc),
+             lambda r: _named_attention_grads(*r), lambda r: dict(zip(_ATTN_GRADS, r)), _zero_attention_grads(l)),
+            ("fused_mlp_block_bwd",
+             lambda: fb.mlp_block_bwd(x, w1, b1, w2, ln2[0], dy, m_saved),
+             lambda: fb.reference_mlp_block_bwd(x, w1, b1, w2, ln2[0], dy, m_acc),
+             lambda r: dict(zip(_MLP_GRADS, r)), lambda r: dict(zip(_MLP_GRADS, r)), None),
+        )
+        for name, kernel, plain, name_k, name_p, scale_of in cases:
+            got, want = name_k(kernel()), name_p(plain())
+            check(got["dx"].shape == x.shape and all(bool(torch.isfinite(t).all()) for t in got.values()),
+                  f"{name} gradients at {(b, l)}")
+            err = grads_close(got, want, scale_of)
+            print(f"[kernels] {name} B={b} L={l}: {len(got)} gradients within cosine 0.999, "
+                  f"max |d| <= 2e-2 max |plain| (largest |d| {err:.4g})")
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+            _record(out[name], [b, l, sz["hid"]], kernel, plain, device, sz["bwd_reps"], headline=i == 0)
     return out
 
 
@@ -282,7 +394,9 @@ QUERY_SETS = (("dev", "top_n", 0.97), ("dev_top10", "top_n_small", 0.95))
 
 @contextlib.contextmanager
 def plain_encoder_blocks():
-    """Route the encoder's fused halves to their plain versions."""
+    """Route the encoder's fused halves to their plain versions: the plain
+    forwards, and under autograd the plain forwards differentiated by
+    PyTorch (in place of K1/K2 with K12/K11)."""
     import matchmaker_tpu_torch.models.encoder as enc
     from matchmaker_tpu_torch.ops import fused_attention as fa
 
@@ -291,12 +405,16 @@ def plain_encoder_blocks():
         bq, bk, bv = bqkv.chunk(3)
         return fa.reference_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, *rest)
 
-    saved = enc.fused_attention_block_qkv, enc.fused_mlp_block
-    enc.fused_attention_block_qkv, enc.fused_mlp_block = plain_attention, fa.reference_mlp_block
+    names = ("fused_attention_block_qkv", "fused_mlp_block", "fused_attention_block_qkv_train",
+             "fused_mlp_block_train")
+    saved = {n: getattr(enc, n) for n in names}
+    for n, fn in zip(names, (plain_attention, fa.reference_mlp_block) * 2):
+        setattr(enc, n, fn)
     try:
         yield
     finally:
-        enc.fused_attention_block_qkv, enc.fused_mlp_block = saved
+        for n, fn in saved.items():
+            setattr(enc, n, fn)
 
 
 def _encode_file(model, config, tokenizer, path, seq_type, batch, device, limit=None):
@@ -354,7 +472,7 @@ def phase_main_path(sz, device, root):
         check(len(ranking) == sz["queries"] and all(len(v) == sz[key] for v in ranking.values()),
               f"every query of {name} must have {sz[key]} hits")
     if device.type == "cuda":
-        for name in launches:  # every kernel of the path, level 2 through the top-10 set
+        for name in SERVING:  # every kernel of the path, level 2 through the top-10 set
             check(launches[name] > 0, f"the main path launched no {name} kernel")
     with open(os.path.join(run_folder, "efficiency-metrics.json")) as f:
         perf = json.load(f)[-1]["blocks"]
@@ -462,6 +580,273 @@ def phase_scale(sz, device):
             "device_qps": len(queries) / ms * 1e3, "per_bin": per_bin}
 
 
+# ---- phase 6: the training path through cli.train's Trainer ----------------
+
+def _write_train_data(root, sz, seed=2):
+    """Seeded synthetic triples with teacher scores, a re-rank validation
+    set (its first document per query relevant: it holds the query's words)
+    and a collection with queries for the dense retrieval at the end."""
+    rng = np.random.default_rng(seed)
+    words = np.array([f"t{i}" for i in range(20_000)])
+
+    def text(lo, hi):
+        return " ".join(words[rng.integers(0, len(words), size=int(rng.integers(lo, hi)))])
+
+    paths = {k: os.path.join(root, f) for k, f in (("train", "train.tsv"), ("val", "val.tsv"),
+                                                    ("val_qrels", "val_qrels.txt"))}
+    with open(paths["train"], "w") as f:
+        for _ in range(sz["train_batches"] * sz["train_batch"]):
+            f.write(f"{rng.uniform(5, 10):.3f}\t{rng.uniform(0, 5):.3f}\t{text(3, 12)}\t{text(150, 260)}"
+                    f"\t{text(150, 260)}\n")
+    with open(paths["val"], "w") as fv, open(paths["val_qrels"], "w") as fq:
+        for qi in range(sz["val_queries"]):
+            rel = text(150, 260)
+            query = " ".join(rng.choice(rel.split(), size=5))
+            for di in range(sz["val_docs"]):
+                fv.write(f"q{qi}\td{qi}_{di}\t{query}\t{rel if di == 0 else text(150, 260)}\n")
+            fq.write(f"q{qi} 0 d{qi}_0 1\n")
+    dr_root = os.path.join(root, "dr")
+    os.makedirs(dr_root)
+    _write_collection(dr_root, dict(sz, passages=sz["dr_passages"], queries=sz["dr_queries"]), seed=3)
+    paths.update(collection=os.path.join(dr_root, "collection.tsv"), queries=os.path.join(dr_root, "queries.tsv"),
+                 qrels=os.path.join(dr_root, "qrels.txt"))
+    return paths
+
+
+def _train_config(paths, sz, device):
+    """configs/train/defaults.yaml + configs/train/models/bert_dot.yaml at
+    DistilBERT width, fused layers, with gradient clipping at 1.0, the run cut
+    to ``train_batches`` steps with two validations, and the dense retrieval
+    at the end."""
+    return {
+        "model": "bert_dot", "bert_pretrained_model": sz["model_name"], "random_seed": 1234, "use_fp16": True,
+        "encoder_fused_attention": True, "device": str(device), "enable_tensorboard": False,
+        "loss": "margin-mse", "train_pairwise_distillation": True, "in_batch_negatives": True,
+        "in_batch_neg_loss": "margin-mse", "in_batch_neg_weight": 1.0, "in_batch_main_weight": 1.0,
+        "param_group0_learning_rate": 7.0e-6, "param_group1_learning_rate": 7.0e-4,
+        "embedding_optimizer_learning_rate": 7.0e-6, "weight_decay": 0.0, "lr_schedule": "cosine",
+        "optimizer_warmup_steps": 1000, "max_training_steps": 300000, "gradient_clip_norm": 1.0,
+        "batch_size_train": sz["train_batch"], "batch_size_eval": sz["eval_batch"],
+        "max_query_length": sz["train_query_len"], "max_doc_length": sz["train_doc_len"], "epochs": 1,
+        "validate_every_n_batches": sz["validate_every"], "max_training_batches": sz["train_batches"],
+        "validation_metric": "MRR@10", "early_stopping_patience": 30, "train_tsv": paths["train"],
+        "validation_cont": {"tsv": paths["val"], "qrels": paths["val_qrels"], "binarization_point": 1},
+        "test": {"synthetic": {"tsv": paths["val"], "qrels": paths["val_qrels"], "binarization_point": 1}},
+        "run_dense_retrieval_eval": True, "collection_tsv": paths["collection"], "collection_batch_size": sz["dr_batch"],
+        "query_batch_size": 32, "faiss_index_type": "flat", "mips_quantization": "float16", "mips_kernel": "binmax",
+        "token_dtype": "float16",
+        "query_sets": {"dr_dev": {"queries_tsv": paths["queries"], "qrels": paths["qrels"], "top_n": sz["dr_top_n"],
+                                  "binarization_point": 1}},
+    }
+
+
+def predicted_train_launches(sz):
+    """K1/K2 launch once per layer and encode: two encodes (queries, packed
+    docs) per training step, per eval batch and per test batch; one per
+    corpus and query batch of the dense retrieval. K11/K12: once per layer
+    and encode of a training step."""
+    layers = sz["n_layers"]
+    train = sz["train_batches"] * layers * 2
+    eval_batches = -(-sz["val_queries"] * sz["val_docs"] // sz["eval_batch"])
+    evals = (sz["train_batches"] // sz["validate_every"] + 1) * eval_batches * 2 * layers
+    dense = (-(-sz["dr_passages"] // sz["dr_batch"]) + -(-sz["dr_queries"] // 32)) * layers
+    forward = train + evals + dense
+    return {"fused_attention_block": forward, "fused_mlp_block": forward,
+            "fused_attention_block_bwd": train, "fused_mlp_block_bwd": train}
+
+
+def _device_batch(config, tokenizer, path, device):
+    import torch
+
+    from matchmaker_tpu.data.loaders import triple_training_loader
+
+    batch = next(iter(triple_training_loader(config, tokenizer, path)))
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _profile_steps(step, batch, step_ms, n=3):
+    """Device time by kernel over n training steps (torch.profiler), and the
+    device's busy share of ``step_ms``, the step time CUDA events measured
+    without the profiler (whose own overhead stretches the wall time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        # kernels only: a kernel launched through ctypes is also counted as
+        # self device time of the CPU range around it (the autograd Function),
+        # and a GPU user annotation (Optimizer.step) spans kernels of its own
+        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((ev.key, dev_us / 1e3 / n, ev.count // n))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    print(f"[train] profile of {n} steps: kernels {busy:.2f} ms a step, {busy / step_ms:.1%} of the "
+          f"{step_ms:.2f} ms step without the profiler ({wall_ms / n:.2f} ms wall under it)")
+    for key, ms, count in rows[:14]:
+        print(f"[train]   {ms:8.3f} ms/step {ms / busy if busy else 0:6.1%}  x{count:<4d} {key[:110]}")
+    return {"device_ms_per_step": busy, "busy_share": busy / step_ms, "profiled_wall_ms_per_step": wall_ms / n,
+            "top": [{"kernel": k[:200], "ms_per_step": ms, "calls_per_step": c} for k, ms, c in rows[:25]]}
+
+
+def _hardest_negatives(model, batch):
+    """Each query's in-batch hardest negative (column of q·[d_pos; d_neg]ᵀ
+    outside the diagonal), as the in-batch loss picks it."""
+    import torch
+
+    with torch.no_grad():
+        pos, neg = model.forward_triple(batch)
+    q = pos["query_vecs"].float()
+    scores = q @ torch.cat([pos["doc_vecs"], neg["doc_vecs"]]).float().t()
+    b = q.shape[0]
+    scores[:, :b] = scores[:, :b].masked_fill(torch.eye(b, dtype=torch.bool, device=q.device), float("-inf"))
+    return scores.argmax(dim=1)
+
+
+def _kernels_vs_plain_step(model, config, batch):
+    """One step's loss and gradients from the same parameters through the
+    kernels and through the plain versions. The loss with in-batch negatives
+    is compared as it is (relative gap <= 1e-2). The gradients are compared
+    under its Margin-MSE part (cosine >= 0.99 for every parameter): the
+    in-batch loss picks each query's hardest negative by an argmax, and a
+    score difference at bf16 rounding level can move that pick to another
+    document, which changes the gradient whatever the kernels compute; the
+    number of picks that move is reported."""
+    import torch
+
+    from matchmaker_tpu_torch.losses import get_loss
+    from matchmaker_tpu_torch.training.train_step import make_loss_fn
+
+    full = make_loss_fn(model, get_loss(config), config)
+    smooth = make_loss_fn(model, get_loss(dict(config, in_batch_negatives=False)), config)
+
+    def run():
+        with torch.no_grad():
+            loss = float(full(batch)[0])
+        model.zero_grad(set_to_none=True)
+        smooth(batch)[0].backward()
+        grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
+        return loss, grads, _hardest_negatives(model, batch)
+
+    lk, gk, hk = run()
+    with plain_encoder_blocks():
+        lp, gp, hp = run()
+    model.zero_grad(set_to_none=True)
+    rel = abs(lk - lp) / max(abs(lp), 1e-12)
+    moved = int((hk != hp).sum())
+    cosines = {}
+    for name, a in gk.items():
+        b = gp[name]
+        if name.endswith("attention.key.bias"):
+            # zero in exact arithmetic (each softmax row's gradient sums to
+            # zero): rounding noise, bounded by the query bias's gradient
+            ref = float(gp[name.replace("key.bias", "query.bias")].abs().max())
+            check(float((a - b).abs().max()) <= 2e-2 * ref, f"{name}: gradient noise above 2e-2 of the query bias's")
+            continue
+        cosines[name] = float(torch.nn.functional.cosine_similarity(a.reshape(-1), b.reshape(-1), dim=0))
+    worst = sorted(cosines.items(), key=lambda kv: kv[1])[:3]
+    print(f"[train] one step, kernels vs plain: loss {lk:.6g} vs {lp:.6g} (relative gap {rel:.3g}); in-batch "
+          f"hardest negative moved for {moved} of {len(hk)} queries; Margin-MSE gradients of {len(cosines)} "
+          f"parameters, worst cosines " + ", ".join(f"{n} {c:.6f}" for n, c in worst))
+    check(rel <= 1e-2, f"loss with the kernels {lk} vs plain {lp}")
+    check(worst[0][1] >= 0.99, f"gradient cosine {worst[0][1]} at {worst[0][0]}")
+    return rel, worst[0][1], moved
+
+
+def phase_train(sz, device, root):
+    import torch
+
+    from matchmaker_tpu_torch.ops import _build
+    from matchmaker_tpu_torch.training.optim import build_optimizer
+    from matchmaker_tpu_torch.training.train_step import make_train_step
+    from matchmaker_tpu_torch.training.trainer import Trainer
+
+    paths = _write_train_data(root, sz)
+    config = _train_config(paths, sz, device)
+    run_folder = os.path.join(root, "train_run")
+    os.makedirs(run_folder)
+    trainer = Trainer(config, run_folder)
+    step_losses = []
+    trainer_step = trainer.train_step
+
+    def recording_step(batch):
+        stats = trainer_step(batch)
+        step_losses.append(stats["loss"])
+        return stats
+
+    trainer.train_step = recording_step
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    trainer.train_step = trainer_step
+    print(f"[train] launches in the cli.train run: {launches}")
+    result = {"wall_s": wall, "launches": launches, "steps": trainer.global_step}
+    check(trainer.global_step == sz["train_batches"] and len(step_losses) == sz["train_batches"],
+          f"{trainer.global_step} training steps, {len(step_losses)} losses")
+    losses = torch.stack(step_losses).float().cpu()
+    check(bool(torch.isfinite(losses).all()), "a non-finite training loss")
+    result.update(loss_first=float(losses[0]), loss_last=float(losses[-1]))
+    if device.type == "cuda":
+        want = predicted_train_launches(sz)
+        for name, n in want.items():
+            check(launches[name] == n, f"{name}: {launches[name]} launches, predicted {n}")
+        for name in ("binmax_candidates", "unpack_candidates"):
+            check(launches[name] > 0, f"the dense retrieval after training launched no {name} kernel")
+    for rel in ("training-loss.csv", "validation-metrics-cont.csv", "best-model.npz", "best-info.csv",
+                "efficiency-metrics.json", "test-synthetic-output.txt", "test-synthetic-metrics.csv",
+                "dense-retrieval/dr_dev-output.txt", "dense-retrieval/dr_dev-metrics.csv"):
+        check(os.path.isfile(os.path.join(run_folder, rel)), f"missing {rel} in the training run folder")
+    with open(os.path.join(run_folder, "validation-metrics-cont.csv")) as f:
+        check(len(f.read().strip().splitlines()) == 1 + sz["train_batches"] // sz["validate_every"],
+              "one validation row per validation")
+    with open(os.path.join(run_folder, "efficiency-metrics.json")) as f:
+        train_block = json.load(f)[-1]["blocks"]["train"]
+    result["cli_triples_per_s"] = sz["train_batches"] * sz["train_batch"] / train_block["total_seconds"]
+
+    batch = _device_batch(config, trainer.tokenizer, paths["train"], device)
+    ms = _time_ms(lambda: trainer.train_step(batch), device, sz["reps"])
+    result.update(step_ms=ms, device_triples_per_s=sz["train_batch"] / ms * 1e3)
+    print(f"[train] {trainer.global_step} steps: loss {result['loss_first']:.4f} -> {result['loss_last']:.4f}; "
+          f"{result['cli_triples_per_s']:.1f} triples/s through the Trainer (validation included), "
+          f"{result['device_triples_per_s']:.1f} device-only ({ms:.2f} ms a step)")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        result["profile"] = _profile_steps(trainer.train_step, batch, ms)
+        result["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[train] peak device memory over the profiled steps {result['peak_mem_gb']:.2f} GB")
+    result["plain_loss_gap"], result["plain_grad_cos"], result["hardest_negatives_moved"] = \
+        _kernels_vs_plain_step(trainer.model, config, batch)
+
+    # one-batch overfit: no warmup, a constant learning rate
+    fit_config = dict(config, lr_schedule="constant", optimizer_warmup_steps=0, param_group0_learning_rate=1e-4,
+                      embedding_optimizer_learning_rate=1e-4, param_group1_learning_rate=1e-3)
+    fit_step = make_train_step(trainer.model, trainer.losses, build_optimizer(fit_config, trainer.model), fit_config)
+    fit = [float(fit_step(batch)["ranking_loss"]) for _ in range(sz["overfit_steps"])]
+    result.update(overfit_first=fit[0], overfit_last=fit[-1])
+    print(f"[train] one-batch overfit, {sz['overfit_steps']} steps: Margin-MSE {fit[0]:.4f} -> {fit[-1]:.4f}")
+    check(fit[-1] <= 0.5 * fit[0], f"overfitting one batch took Margin-MSE only from {fit[0]} to {fit[-1]}")
+    return result
+
+
+SERVING = ("fused_attention_block", "fused_mlp_block", "binmax_candidates", "level2_reduce", "unpack_candidates")
+
 KERNELS = [  # name, source, TPU kernel it replaces, TPU kernels folded into it
     ("fused_attention_block", "matchmaker_tpu_torch/csrc/encoder_kernels.cu",
      "matchmaker_tpu/ops/fused_attention.py:186", None),
@@ -473,6 +858,10 @@ KERNELS = [  # name, source, TPU kernel it replaces, TPU kernels folded into it
      "matchmaker_tpu/ops/mips_binmax.py:327", None),
     ("unpack_candidates", "matchmaker_tpu_torch/csrc/binmax_kernels.cu",
      "matchmaker_tpu/ops/mips_binmax.py:139", None),
+    ("fused_mlp_block_bwd", "matchmaker_tpu_torch/csrc/encoder_backward_kernels.cu",
+     "matchmaker_tpu/ops/fused_backward.py:124", None),
+    ("fused_attention_block_bwd", "matchmaker_tpu_torch/csrc/encoder_backward_kernels.cu",
+     "matchmaker_tpu/ops/fused_backward.py:290", None),
 ]
 
 
@@ -488,16 +877,24 @@ def run_phases(sz, device, card: str) -> dict:
         report["build_s"] = time.perf_counter() - t0
         print(f"[build] kernels built and loaded in {report['build_s']:.1f} s ({_build.library_path().name})")
     kern = phase_encoder_kernels(sz, device)
+    kern.update(phase_backward_kernels(sz, device))
     kern.update(phase_binmax_kernels(sz, device))
     with tempfile.TemporaryDirectory() as root:
         report["main"] = phase_main_path(sz, device, root)
     report["scale"] = phase_scale(sz, device)
+    with tempfile.TemporaryDirectory() as root:
+        report["train"] = phase_train(sz, device, root)
     check(set(report["main"]["launches"]) == {k[0] for k in KERNELS}, "a kernel without an entry")
-    report["kernels"] = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep, **({"includes": inc} if inc else {}),
-         "launches": report["main"]["launches"][name], "launches_scale": report["scale"]["launches"][name],
-         "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"]}
-        for name, src, rep, inc in KERNELS]
+    report["kernels"] = []
+    for name, src, rep, inc in KERNELS:
+        # "launches": the run of the kernel's own path (serving or training)
+        path = "serve" if name in SERVING else "train"
+        runs = {"serve": report["main"]["launches"][name], "train": report["train"]["launches"][name]}
+        report["kernels"].append(
+            {"name": name, "route": "cuda", "source": src, "replaces": rep, **({"includes": inc} if inc else {}),
+             "path": path, "launches": runs[path], "launches_serve": runs["serve"],
+             "launches_train": runs["train"], "launches_scale": report["scale"]["launches"][name],
+             "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"]})
     report["kernel_timings"] = {k[0]: kern[k[0]]["timings"] for k in KERNELS}
     report["torch"] = torch.__version__
     return report
@@ -525,10 +922,14 @@ def main() -> int:
     print(f"[{card}] search {main_['search_qps']:.1f} QPS in the CLI (16,384 rows, top-{FULL['top_n']} and "
           f"top-{FULL['top_n_small']} sets, query encode included); {scale['qps']:.1f} QPS FlatIndex.search_rows and "
           f"{scale['device_qps']:.1f} QPS device-only at {FULL['scale_rows']} rows, k={FULL['scale_k']}")
+    train = report["train"]
+    print(f"[{card}] train {train['cli_triples_per_s']:.1f} triples/s through cli.train's Trainer (validation "
+          f"included), {train['device_triples_per_s']:.1f} triples/s device-only at batch {FULL['train_batch']} "
+          f"(query {FULL['train_query_len']}, doc {FULL['train_doc_len']})")
     for k in report["kernels"]:
         print(f"[{card}] {k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
-              f"max |d| {k['max_abs_err']:.3g}, launches {k['launches']} in the CLI run, "
-              f"{k['launches_scale']} in the scale search")
+              f"max |d| {k['max_abs_err']:.3g}, launches {k['launches_serve']} in the serving CLI run, "
+              f"{k['launches_train']} in the training run, {k['launches_scale']} in the scale search")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -3,11 +3,13 @@
 Independent query/doc encoder passes, the CLS vector (optionally linearly
 compressed, optionally L2-normalised), dot-product score.
 ``BertDotDualEncoder`` keeps separate query and document towers.
+``forward_triple`` is the training step's packed triple forward: one query
+pass and one 2B-row pass over the positive and negative documents.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
@@ -58,11 +60,25 @@ class _DotEncoder(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         q_vecs = self.encode(batch["query_ids"], batch["query_mask"], "query")
         d_vecs = self.encode(batch["doc_ids"], batch["doc_mask"], "doc")
+        return self._outputs(q_vecs, d_vecs)
+
+    def _outputs(self, q_vecs: torch.Tensor, d_vecs: torch.Tensor) -> Dict[str, torch.Tensor]:
         out = {"score": (q_vecs.float() * d_vecs.float()).sum(dim=-1)}
         if self.return_vecs:
             out["query_vecs"] = q_vecs
             out["doc_vecs"] = d_vecs
         return out
+
+    def forward_triple(self, batch: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """Packed triple forward: the query tower runs once and the positive
+        and negative documents go through one 2B-row encode. Returns
+        (pos_out, neg_out) with ``forward``'s keys."""
+        q_vecs = self.encode(batch["query_ids"], batch["query_mask"], "query")
+        d_ids = torch.cat([batch["doc_pos_ids"], batch["doc_neg_ids"]], dim=0)
+        d_mask = torch.cat([batch["doc_pos_mask"], batch["doc_neg_mask"]], dim=0)
+        d_vecs = self.encode(d_ids, d_mask, "doc")
+        b = q_vecs.shape[0]
+        return self._outputs(q_vecs, d_vecs[:b]), self._outputs(q_vecs, d_vecs[b:])
 
 
 class BertDot(_DotEncoder):

@@ -10,8 +10,14 @@ f32.
 
 ``fused_attention`` runs each layer as the two fused halves of
 ops/fused_attention.py (the hand-written CUDA kernels on a card, bf16 only);
-otherwise the layer follows the flax modules' dtype semantics in plain
-PyTorch. The port is inference-only so far: no dropout is applied.
+with autograd on they are the differentiable halves of ops/fused_backward.py,
+whose backward is a hand-written kernel too. Otherwise the layer follows the
+flax modules' dtype semantics in plain PyTorch, differentiated by autograd.
+
+No dropout is applied: like the JAX package's BERT_DOT training, every pass
+is deterministic (see ROADMAP.md §3); a non-deterministic pass with dropout
+> 0 warns on the fused layers, as the JAX package does, and is refused on the
+unfused ones, whose dropout is not ported.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import warnings
 from dataclasses import dataclass
 from typing import Optional
 
@@ -27,6 +34,29 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from matchmaker_tpu_torch.ops.fused_attention import fused_attention_block_qkv, fused_mlp_block
+from matchmaker_tpu_torch.ops.fused_backward import fused_attention_block_qkv_train, fused_mlp_block_train
+
+_warned_fused_dropout = False
+
+
+def _warn_fused_dropout_noop():
+    """One-time warning: fused layers silently skip dropout while training.
+
+    The fused layer halves (ops/fused_attention.py / fused_backward.py) do not
+    implement attention or hidden dropout; a user training with
+    ``dropout > 0`` and ``encoder_fused_attention: true`` must see the
+    regularization change."""
+    global _warned_fused_dropout
+    if not _warned_fused_dropout:
+        _warned_fused_dropout = True
+        warnings.warn(
+            "encoder_fused_attention is enabled with dropout > 0 in a "
+            "non-deterministic (training) pass: dropout is a NO-OP inside the "
+            "fused layers. Set dropout: 0.0 to silence, or disable "
+            "encoder_fused_attention to train with dropout.",
+            UserWarning,
+            stacklevel=3,
+        )
 
 
 @dataclass(frozen=True)
@@ -199,9 +229,11 @@ class EncoderLayer(nn.Module):
 
     def _fused_weights(self):
         """The fused halves' weights: Q/K/V packed, kernels in the compute
-        dtype. Without autograd they are built once and kept until a
-        parameter moves (``.to``) or is written (``load_state_dict``), which
-        changes its data pointer or version counter."""
+        dtype. With autograd they are built on every call, so the packing
+        and casts carry gradients back to the f32 parameters. Without
+        autograd they are built once and kept until a parameter moves
+        (``.to``) or is written (``load_state_dict``), which changes its data
+        pointer or version counter."""
         cd, a = self.compute_dtype, self.attention
         params = (a.query.kernel, a.key.kernel, a.value.kernel, a.query.bias, a.key.bias, a.value.bias,
                   a.out.kernel, self.mlp_in.kernel, self.mlp_out.kernel)
@@ -217,12 +249,18 @@ class EncoderLayer(nn.Module):
         return self._fused_cache[1]
 
     def _fused(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+        """The two fused halves: under autograd the differentiable ones (K1/K2
+        forward, K12/K11 backward on a card); without it the forward kernels
+        alone on cached weights."""
         cfg, cd, a = self.cfg, self.compute_dtype, self.attention
         wqkv, bqkv, wo, w1, w2 = self._fused_weights()
-        x = fused_attention_block_qkv(
+        grad = torch.is_grad_enabled()
+        attention = fused_attention_block_qkv_train if grad else fused_attention_block_qkv
+        mlp = fused_mlp_block_train if grad else fused_mlp_block
+        x = attention(
             x.to(cd), wqkv, bqkv, wo, a.out.bias, key_mask, cfg.num_heads,
             self.attention_norm.scale, self.attention_norm.bias, cfg.layer_norm_eps)
-        return fused_mlp_block(
+        return mlp(
             x.to(cd), w1, self.mlp_in.bias, w2, self.mlp_out.bias,
             self.mlp_norm.scale, self.mlp_norm.bias, cfg.layer_norm_eps)
 
@@ -255,8 +293,16 @@ class TransformerEncoderLM(nn.Module):
         return self.embeddings_norm(x, cfg.layer_norm_eps, ln_dtype)
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor,
-                type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Final hidden states (B, L, H), f32; mask (B, L), >0 = real token."""
+                type_ids: Optional[torch.Tensor] = None, deterministic: bool = True) -> torch.Tensor:
+        """Final hidden states (B, L, H), f32; mask (B, L), >0 = real token.
+        ``deterministic=False`` asks for dropout, which the port does not
+        apply: the fused layers warn once (as the JAX package's do), the
+        unfused ones raise."""
+        if not deterministic and self.cfg.dropout > 0:
+            if not self.cfg.fused_attention:
+                raise NotImplementedError(
+                    "dropout on the unfused encoder is not ported yet (ROADMAP.md, queue 1 item 2)")
+            _warn_fused_dropout_noop()
         key_mask = (mask > 0).float()
         x = self.embed(ids, type_ids).to(self.compute_dtype)
         for i in range(self.cfg.num_layers):

@@ -1,9 +1,11 @@
 """Build and bind the port's CUDA kernels (``matchmaker_tpu_torch/csrc``).
 
-At first use the ``.cu`` sources are compiled with ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface, under ``build/kernels/``
-at the root of the checkout, named by a hash of the sources and flags (a
-changed source builds anew; an unchanged one loads the cached library). The
+At first use each ``.cu`` source is compiled with ``nvcc`` for ``sm_90a`` to
+an object, all sources at once in parallel processes, and the objects are
+linked into one shared library with a plain C interface, under
+``build/kernels/`` at the root of the checkout, named by a hash of the
+sources and flags (a changed source builds anew; an unchanged one loads the
+cached library). The
 library is loaded with ``ctypes``: pointers and the stream travel as
 ``c_void_p``, and every entry point returns ``cudaGetLastError()``, which
 :func:`call` turns into an exception.
@@ -26,8 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 # one counter per ported TPU kernel (see PERF.md for the table)
 LAUNCHES = {
@@ -36,7 +37,12 @@ LAUNCHES = {
     "binmax_candidates": 0,  # K3, with K5's transpose folded into its store
     "level2_reduce": 0,  # K4
     "unpack_candidates": 0,  # K6
+    "fused_mlp_block_bwd": 0,  # K11
+    "fused_attention_block_bwd": 0,  # K12
 }
+
+# rows of one ln_bwd_kernel block (csrc/encoder_backward_kernels.cu:LNB_ROWS)
+LN_BWD_ROWS = 32
 
 _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -46,6 +52,11 @@ _SIGNATURES = {
     "mm_binmax_scan": [_p, _p, _p, _i, _i, _i, _i, _i, _i, _i64, _p],
     "mm_level2": [_p, _p, _i, _i, _i, _i64, _i64, _p],
     "mm_unpack": [_p, _p, _p, _p, _i64, _i, _i, _i, _p],
+    "mm_bwd_gemm": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p],
+    "mm_gemm_tn": [_p, _p, _p, _p, _i, _i, _i, _i, _p],
+    "mm_colsum": [_p, _p, _p, _i, _i, _i, _i, _p],
+    "mm_ln_bwd": [_p, _p, _p, _p, _p, _p, _i, _i, _f, _p],
+    "mm_attention_bwd": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _p],
 }
 
 _lib = None
@@ -77,18 +88,43 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel processes; raise on the first failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{stdout}\n{stderr}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
-    """Compile the sources unless the library for their hash exists."""
+    """Compile the sources unless the library for their hash exists: one
+    nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [str(p) for p in _sources() if p.suffix == ".cu"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    tag = f"{out.stem}.{os.getpid()}"
+    objects = []
+    compiles = []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objects.append(obj)
+        compiles.append([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+    try:
+        _run_all(compiles)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp)] + [str(o) for o in objects]])
+        os.replace(tmp, out)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return out
 
 

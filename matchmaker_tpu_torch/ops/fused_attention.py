@@ -18,6 +18,10 @@ product; the LayerNorm in f32 with the residual sum. The gelu is the one the
 TPU kernel picks for the dtype (:func:`_gelu_for`): the FMA-only polynomial
 for bf16, the A&S erf for f32 — so unlike JAX's ``reference_mlp_block`` no
 exact erf is used.
+
+``save_acc=True`` also returns the f32 pre-LN residual sum, the training
+forward's residual for the backward (ops/fused_backward.py). The JAX kernels
+return it in the compute dtype; the port keeps the f32 sum it computes.
 """
 
 from __future__ import annotations
@@ -84,7 +88,7 @@ def _layer_norm_f32(acc: torch.Tensor, ln_scale, ln_bias, ln_eps: float) -> torc
 
 
 def reference_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, mask, n_heads,
-                              ln_scale, ln_bias, ln_eps: float = 1e-12):
+                              ln_scale, ln_bias, ln_eps: float = 1e-12, save_acc: bool = False):
     """Plain version of the attention-half kernel (same math, same casts)."""
     b, l, hid = x.shape
     d = hid // n_heads
@@ -103,17 +107,23 @@ def reference_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, mask, n_heads,
     p = p / p.sum(dim=-1, keepdim=True)
     a = matmul_f32(p, v).to(cd).transpose(1, 2).reshape(b * l, hid)
     acc = x2.float() + bo.float() + matmul_f32(a, wo)
-    return _layer_norm_f32(acc, ln_scale, ln_bias, ln_eps).to(cd).reshape(b, l, hid)
+    return _finish(acc, ln_scale, ln_bias, ln_eps, cd, (b, l, hid), save_acc)
 
 
-def reference_mlp_block(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps: float = 1e-12):
+def reference_mlp_block(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps: float = 1e-12,
+                        save_acc: bool = False):
     """Plain version of the MLP-half kernel (same math, same casts)."""
     b, l, hid = x.shape
     cd = x.dtype
     x2 = x.reshape(b * l, hid)
     h = _gelu_for(cd)(matmul_f32(x2, w1) + b1.float()).to(cd)
     acc = x2.float() + b2.float() + matmul_f32(h, w2)
-    return _layer_norm_f32(acc, ln_scale, ln_bias, ln_eps).to(cd).reshape(b, l, hid)
+    return _finish(acc, ln_scale, ln_bias, ln_eps, cd, (b, l, hid), save_acc)
+
+
+def _finish(acc, ln_scale, ln_bias, ln_eps, cd, shape, save_acc):
+    out = _layer_norm_f32(acc, ln_scale, ln_bias, ln_eps).to(cd).reshape(shape)
+    return (out, acc.reshape(shape)) if save_acc else out
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -135,7 +145,11 @@ def _gemm(a, w, bias, out, epilogue, resid=None):
                 _build.ptr(out), m, n, k, epilogue, _build.stream(a.device))
 
 
-def _attention_block_cuda(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bias, ln_eps):
+def _attention_block_cuda(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bias, ln_eps,
+                          save: bool = False):
+    """K1 on the card. ``save``: also return (acc, qkv, attn), the f32 pre-LN
+    sums and the bf16 QKV projections and attention output the backward
+    (K12) reads instead of recomputing them."""
     b, l, hid = x.shape
     if hid % n_heads or hid // n_heads != _KERNEL_HEAD_DIM:
         raise ValueError(f"fused_attention_block: the CUDA kernel takes head width "
@@ -158,10 +172,12 @@ def _attention_block_cuda(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bia
         _build.call("mm_layernorm", _build.ptr(acc), _build.ptr(_f32(ln_scale)), _build.ptr(_f32(ln_bias)),
                     _build.ptr(out), b * l, hid, ln_eps, _build.stream(x.device))
     _build.LAUNCHES["fused_attention_block"] += 1
-    return out
+    return (out, (acc, qkv, attn)) if save else out
 
 
-def _mlp_block_cuda(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps):
+def _mlp_block_cuda(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps, save: bool = False):
+    """K2 on the card. ``save``: also return (acc, h), the f32 pre-LN sums and
+    the bf16 gelu output the backward (K11) reads."""
     b, l, hid = x.shape
     ff = w1.shape[1]
     _check_gemm_dims("fused_mlp_block", hid, ff)
@@ -178,23 +194,31 @@ def _mlp_block_cuda(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps):
         _build.call("mm_layernorm", _build.ptr(acc), _build.ptr(_f32(ln_scale)), _build.ptr(_f32(ln_bias)),
                     _build.ptr(out), b * l, hid, ln_eps, _build.stream(x.device))
     _build.LAUNCHES["fused_mlp_block"] += 1
-    return out
+    return (out, (acc, h)) if save else out
+
+
+def _acc_only(result, save_acc):
+    if not save_acc:
+        return result
+    out, saved = result
+    return out, saved[0]
 
 
 def fused_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, mask, n_heads,
-                          ln_scale, ln_bias, ln_eps: float = 1e-12):
+                          ln_scale, ln_bias, ln_eps: float = 1e-12, save_acc: bool = False):
     """LN(x + OutProj(MHA(QKV-proj(x)))): x (B, L, HID); wq/wk/wv/wo (HID, HID)
     in x's dtype; biases and LN params (HID,); mask (B, L), 1 = real key.
-    CUDA tensors: bf16, head width 64, 1 <= L <= 512."""
+    CUDA tensors: bf16, head width 64, 1 <= L <= 512. ``save_acc``: return
+    (out, acc) with acc the f32 pre-LN sum (B, L, HID)."""
     if not x.is_cuda:
         return reference_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, mask, n_heads,
-                                         ln_scale, ln_bias, ln_eps)
-    return _attention_block_cuda(x, torch.cat([wq, wk, wv], dim=1), torch.cat([bq, bk, bv]), wo, bo,
-                                 mask, n_heads, ln_scale, ln_bias, ln_eps)
+                                         ln_scale, ln_bias, ln_eps, save_acc)
+    return _acc_only(_attention_block_cuda(x, torch.cat([wq, wk, wv], dim=1), torch.cat([bq, bk, bv]), wo, bo,
+                                           mask, n_heads, ln_scale, ln_bias, ln_eps, save_acc), save_acc)
 
 
 def fused_attention_block_qkv(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bias,
-                              ln_eps: float = 1e-12):
+                              ln_eps: float = 1e-12, save_acc: bool = False):
     """:func:`fused_attention_block` with the Q, K and V projections packed
     side by side: wqkv (HID, 3·HID), bqkv (3·HID,). The encoder keeps them
     packed once per set of weights, so no call concatenates them."""
@@ -202,13 +226,15 @@ def fused_attention_block_qkv(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln
         wq, wk, wv = wqkv.chunk(3, dim=1)
         bq, bk, bv = bqkv.chunk(3)
         return reference_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, mask, n_heads,
-                                         ln_scale, ln_bias, ln_eps)
-    return _attention_block_cuda(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bias, ln_eps)
+                                         ln_scale, ln_bias, ln_eps, save_acc)
+    return _acc_only(_attention_block_cuda(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bias, ln_eps,
+                                           save_acc), save_acc)
 
 
-def fused_mlp_block(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps: float = 1e-12):
+def fused_mlp_block(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps: float = 1e-12, save_acc: bool = False):
     """LN(x + W2·gelu(W1·x + b1) + b2): x (B, L, HID); w1 (HID, FF) and
-    w2 (FF, HID) in x's dtype. CUDA tensors: bf16."""
+    w2 (FF, HID) in x's dtype. CUDA tensors: bf16. ``save_acc``: return
+    (out, acc) with acc the f32 pre-LN sum."""
     if not x.is_cuda:
-        return reference_mlp_block(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps)
-    return _mlp_block_cuda(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps)
+        return reference_mlp_block(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps, save_acc)
+    return _acc_only(_mlp_block_cuda(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps, save_acc), save_acc)

@@ -1,0 +1,103 @@
+"""The training step: counterpart of ``matchmaker_tpu/training/train_step.py``,
+single process.
+
+One step is the packed triple forward (``forward_triple``: one query pass,
+one 2B-row document pass), the ranking loss, the optional pairwise in-batch
+negative loss over the q·[d_pos; d_neg]ᵀ score matrix, backward (through the
+fused layers' backward kernels on a card), the global gradient norm before
+clipping, and the optimizer update. The branches of the JAX loss that the
+port does not run yet raise ``NotImplementedError`` naming their ROADMAP.md
+item: list batches, per-term distillation, cross-encoder triples, passage
+losses, sparsity (listwise, QA and listwise in-batch losses already raise in
+``get_loss``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from matchmaker_tpu_torch.losses import LossBundle
+from matchmaker_tpu_torch.training.optim import Optimizer
+
+_QUEUE1_ITEM6 = "(ROADMAP.md, queue 1 item 6)"
+
+
+def make_loss_fn(model, losses: LossBundle, config):
+    """``loss_fn(batch) -> (loss, stats)`` with the JAX loss's triple branch
+    (through the model's packed ``forward_triple``) and pairwise in-batch
+    branch."""
+    if config.get("minimize_sparsity_weight", 0.0) > 0.0:
+        raise NotImplementedError("the sparsity loss is not ported yet (ROADMAP.md, queue 1 item 10)")
+    ib_main_weight = config.get("in_batch_main_weight", 1.0)
+    ib_weight = config.get("in_batch_neg_weight", 1.0)
+
+    def loss_fn(batch):
+        if "list_doc_ids" in batch:
+            raise NotImplementedError(f"list batches (listwise training) are not ported yet {_QUEUE1_ITEM6}")
+        if "dyn_teacher_pos_per_term" in batch:
+            raise NotImplementedError("per-term distillation is not ported yet (ROADMAP.md, queue 1 item 8)")
+        if "pos_ids" in batch:
+            raise NotImplementedError("concatenated (cross-encoder) triples are not ported yet "
+                                      "(ROADMAP.md, queue 1 item 10)")
+        if losses.is_passage_loss:
+            raise NotImplementedError(f"passage losses are not ported yet {_QUEUE1_ITEM6}")
+        pos_out, neg_out = model.forward_triple(batch)
+        pos_score, neg_score = pos_out["score"], neg_out["score"]
+        valid = batch.get("valid")
+        if valid is None:
+            valid = torch.ones_like(pos_score)
+        t_pos = batch.get("pos_score", torch.zeros_like(pos_score))
+        t_neg = batch.get("neg_score", torch.zeros_like(neg_score))
+        loss = losses.ranking_loss(pos_score, neg_score, t_pos, t_neg, valid)
+        stats = {"ranking_loss": loss}
+
+        if losses.inbatch_loss is not None and "query_vecs" in pos_out:
+            q = pos_out["query_vecs"].float()
+            d_all = torch.cat([pos_out["doc_vecs"], neg_out["doc_vecs"]], dim=0).float()
+            # a plain product, as the JAX package leaves this einsum to XLA
+            ib_scores = torch.matmul(q, d_all.t())
+            b = q.shape[0]
+            # positive = diagonal; hardest negative over the off-diagonal
+            # in-batch docs and the explicit negatives
+            pos_diag = torch.diagonal(ib_scores[:, :b])
+            eye = torch.eye(b, dtype=torch.bool, device=q.device)
+            off_diag = ib_scores[:, :b].masked_fill(eye, float("-inf"))
+            neg_max = torch.maximum(off_diag.amax(dim=1), ib_scores[:, b:].amax(dim=1))
+            ib_loss = losses.inbatch_loss(pos_diag, neg_max, t_pos, t_neg, valid)
+            stats["inbatch_loss"] = ib_loss
+            loss = ib_main_weight * loss + ib_weight * ib_loss
+
+        stats["loss"] = loss
+        stats["score_pos_mean"] = (pos_score * valid).sum() / torch.clamp(valid.sum(), min=1)
+        stats["score_neg_mean"] = (neg_score * valid).sum() / torch.clamp(valid.sum(), min=1)
+        return loss, stats
+
+    return loss_fn
+
+
+def make_train_step(model, losses: LossBundle, optimizer: Optimizer, config):
+    """``step(batch) -> stats``: forward, backward, global norm of the
+    gradients before clipping (``grad_norm``), update. Parameters and
+    optimizer state change in place."""
+    loss_fn = make_loss_fn(model, losses, config)
+
+    def step(batch):
+        optimizer.zero_grad()
+        loss, stats = loss_fn(batch)
+        loss.backward()
+        stats = {k: v.detach() for k, v in stats.items()}
+        stats["grad_norm"] = optimizer.global_norm()
+        optimizer.step(stats["grad_norm"])
+        return stats
+
+    return step
+
+
+def make_eval_step(model):
+    """``step(batch) -> outputs`` without autograd (re-ranking evaluation)."""
+
+    def step(batch):
+        with torch.inference_mode():
+            return model(batch)
+
+    return step
