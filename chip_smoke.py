@@ -7,20 +7,30 @@ Phases (any failed check raises, and the script exits non-zero):
 1. the card's name and power limit; no CUDA device → exit 1;
 2. build the CUDA kernels from ``matchmaker_tpu_torch/csrc``;
 3. every kernel against its plain PyTorch version on the card, at the main
-   paths' shapes: the encoder halves at DistilBERT width for (B, L) =
-   (256, 128), (256, 200), (64, 30); their backward kernels (K11, K12) at the
-   training shapes (64, 200) and (32, 30), at (256, 200) and at an odd
-   L = 77 with padded keys, every gradient compared; the binmax scan, level 2
+   paths' shapes: the encoder halves (bf16 K1/K2 and int8 K10/K9) at
+   DistilBERT width for (B, L) = (256, 128), (256, 200), (64, 30); their
+   backward kernels (K11, K12) at the training shapes (64, 200) and
+   (32, 30), at (256, 200) and at an odd L = 77 with padded keys, every
+   gradient compared; the binmax scan (bf16 K3, mixed K8, int8 K7), level 2
    and unpack on 262,144 x 768 rows and 256 queries; with CUDA-event timings
-   of both;
+   of both and each kernel's bound (bytes or operations at the H100's
+   data-sheet rates);
 4. the main path, ``cli.dense_retrieval.run("encode+index+search")``, on a
    seeded 16,384-passage collection with a DistilBERT-width BERT_DOT
    (random weights from a seed), searching one query set at top-100 and one
    at top-10 (the latter takes the level-2 tournament): output files, the
    launch count of every kernel in that run, recall against an exact search
    of the same bf16 rows, and a re-encode with the plain versions;
+   4b. the int8 serving path through the same CLI: ``encoder_int8`` with an
+   int8 index, searched with ``mips_int8_queries: float`` (K8) and with int8
+   queries plus ``mips_twostage`` (K7 + rescore): launch counts of K9/K10
+   (6 x encode batches) and of the scan kernels, recall against an exact
+   search of the int8-encoded rows, their cosine to phase 4's bf16 encode,
+   device-only encode psg/s with the int8 halves;
 5. ``FlatIndex`` search at 1,048,576 x 768 rows, Q = 256, k = 1000 (the
    keep-8/32 level-2 path): recall@1000 against an exact search and QPS;
+   5b. the same rows in an int8 ``FlatIndex``, searched by the mixed and the
+   int8 + two-stage routes: recall@1000 and QPS;
 6. the training path, ``cli.train``'s ``Trainer``: a DistilBERT-width
    BERT_DOT (bf16, fused layers, random weights from a seed) takes 100
    Margin-MSE + in-batch-negative steps of 32 seeded synthetic triples with
@@ -107,14 +117,54 @@ def _pair_ms(kernel, plain, device, reps):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def _record(entry, shape, kernel, plain, device, reps, headline):
+# H100 SXM data-sheet peaks (dense): the card's memory rate and each input
+# type's tensor-core rate, for the least time a kernel's work could take
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+
+
+def bound(n_bytes, **ops):
+    """(bound_ms, bound_by): the larger of the bytes the function must move
+    over the memory rate and its operations, by input type, over that
+    type's peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    """Bytes of tensors (each read or written once); nested tuples and
+    lists count their tensors, anything else counts nothing."""
+    total = 0
+    for t in tensors:
+        if isinstance(t, (tuple, list)):
+            total += nbytes(*t)
+        elif hasattr(t, "element_size"):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def _record(entry, shape, kernel, plain, device, reps, headline, bound_of=None):
     """Time kernel and plain at one shape into entry["timings"]; the
-    headline shape also gives the entry's "ms" / "plain_ms"."""
+    headline shape also gives the entry's "ms" / "plain_ms" and, from
+    ``bound_of`` = (bound_ms, bound_by), its bound."""
     ms, plain_ms = _pair_ms(kernel, plain, device, reps)
-    entry.setdefault("timings", []).append({"shape": shape, "ms": ms, "plain_ms": plain_ms})
-    print(f"[kernels]   timed {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    timing = {"shape": shape, "ms": ms, "plain_ms": plain_ms}
+    if bound_of:
+        timing.update(bound_ms=bound_of[0], bound_by=bound_of[1])
+    entry.setdefault("timings", []).append(timing)
+    print(f"[kernels]   timed {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+          + (f", bound {bound_of[0]:.4f} ms ({bound_of[1]})" if bound_of else ""))
     if headline:
         entry.update(ms=ms, plain_ms=plain_ms, timed_shape=shape)
+        if bound_of:
+            entry.update(bound_ms=bound_of[0], bound_by=bound_of[1])
+
+
+def _attention_ops(b, l, hid, heads):
+    """(projection, attention-core) operations of an attention half."""
+    m = b * l
+    return 2 * m * hid * 3 * hid + 2 * m * hid * hid, 4 * b * heads * l * l * (hid // heads)
 
 
 def _rows_close(a, b):
@@ -124,6 +174,19 @@ def _rows_close(a, b):
     b = b.float().reshape(-1, b.shape[-1])
     cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
     return float(cos.min()), float((a - b).abs().max())
+
+
+# The int8 halves' plain versions repeat the kernels' rounding step by step,
+# so kernel and plain differ only where a rounding flips on a few elements
+# (mean |d| <= 3e-6 on an H100). A wrong scale granularity (gelu codes per
+# row instead of per row and FF chunk, attention codes per row instead of
+# per head group) moves most elements and the mean |d| to >= 1e-3 at this
+# width, while the row cosine stays above 0.99998: the mean is the tight bar.
+INT8_HALF_MEAN_ABS = 5e-5
+
+
+def _mean_abs(a, b):
+    return float((a.float() - b.float()).abs().mean())
 
 
 # ---- phase 3: kernels against their plain versions ------------------------
@@ -162,9 +225,12 @@ def phase_encoder_kernels(sz, device):
         mask = (torch.arange(l, device=device)[None, :] < lengths[:, None]).float()
         a_args = (*attn, mask, sz["heads"], *ln1)
         m_args = (*mlp, *ln2)
-        cases = (("fused_attention_block", fa.fused_attention_block, fa.reference_attention_block, a_args),
-                 ("fused_mlp_block", fa.fused_mlp_block, fa.reference_mlp_block, m_args))
-        for name, kernel, plain, args in cases:
+        proj, core = _attention_ops(b, l, sz["hid"], sz["heads"])
+        cases = (("fused_attention_block", fa.fused_attention_block, fa.reference_attention_block, a_args,
+                  dict(bf16=proj + core)),
+                 ("fused_mlp_block", fa.fused_mlp_block, fa.reference_mlp_block, m_args,
+                  dict(bf16=4 * b * l * sz["hid"] * sz["ff"])))
+        for name, kernel, plain, args, ops in cases:
             got, want = kernel(x, *args), plain(x, *args)
             cos, err = _rows_close(got, want)
             print(f"[kernels] {name} B={b} L={l}: min row cosine {cos:.6f}, max |d| {err:.4g}")
@@ -172,7 +238,8 @@ def phase_encoder_kernels(sz, device):
             check(cos >= 0.999 and err <= 0.1, f"{name} vs plain at {(b, l)}: cos {cos}, max |d| {err}")
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
             _record(out[name], [b, l, sz["hid"]], lambda k=kernel, a=args: k(x, *a),
-                    lambda p=plain, a=args: p(x, *a), device, sz["reps"], headline=i == 0)
+                    lambda p=plain, a=args: p(x, *a), device, sz["reps"], headline=i == 0,
+                    bound_of=bound(nbytes(x, args, got), **ops))
     return out
 
 
@@ -257,6 +324,15 @@ def phase_backward_kernels(sz, device):
              lambda: fb.reference_mlp_block_bwd(x, w1, b1, w2, ln2[0], dy, m_acc),
              lambda r: dict(zip(_MLP_GRADS, r)), lambda r: dict(zip(_MLP_GRADS, r)), None),
         )
+        m, hid, ff = b * l, sz["hid"], sz["ff"]
+        proj, core = _attention_ops(b, l, hid, heads)
+        # weight and input gradients of every projection (2x the forward's
+        # projections), and the attention core's S recompute, dP, dV, dQ, dK
+        ops = {"fused_attention_block_bwd": dict(bf16=2 * proj + 5 * core // 2),
+               # dW2, the gelu' recompute, dz, dW1, dx: five M x HID x FF products
+               "fused_mlp_block_bwd": dict(bf16=10 * m * hid * ff)}
+        inputs = {"fused_attention_block_bwd": (x, wqkv, bqkv, wo, mask, ln1[0], dy, a_saved),
+                  "fused_mlp_block_bwd": (x, w1, b1, w2, ln2[0], dy, m_saved)}
         for name, kernel, plain, name_k, name_p, scale_of in cases:
             got, want = name_k(kernel()), name_p(plain())
             check(got["dx"].shape == x.shape and all(bool(torch.isfinite(t).all()) for t in got.values()),
@@ -265,7 +341,8 @@ def phase_backward_kernels(sz, device):
             print(f"[kernels] {name} B={b} L={l}: {len(got)} gradients within cosine 0.999, "
                   f"max |d| <= 2e-2 max |plain| (largest |d| {err:.4g})")
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
-            _record(out[name], [b, l, sz["hid"]], kernel, plain, device, sz["bwd_reps"], headline=i == 0)
+            _record(out[name], [b, l, sz["hid"]], kernel, plain, device, sz["bwd_reps"], headline=i == 0,
+                    bound_of=bound(nbytes(inputs[name], list(got.values())), **ops[name]))
     return out
 
 
@@ -315,7 +392,8 @@ def phase_binmax_kernels(sz, device):
         out["binmax_candidates"]["max_abs_err"] = max(out["binmax_candidates"]["max_abs_err"], err)
         _record(out["binmax_candidates"], [n, sz["hid"], sz["scan_queries"], per_bin],
                 lambda pb=per_bin: mb.binmax_candidates(qb, c, n_valid=n, per_bin=pb),
-                lambda pb=per_bin: mb._scan_plain(qb, c, n, pb, tile), device, sz["reps"], headline=per_bin == 8)
+                lambda pb=per_bin: mb._scan_plain(qb, c, n, pb, tile), device, sz["reps"], headline=per_bin == 8,
+                bound_of=bound(nbytes(qb, c, got), bf16=2 * qb.shape[0] * n * sz["hid"]))
         packed8 = got
     for width in (mb.L2_MID, mb.L2_WIDE):
         got = mb._level2_reduce(packed8, width)
@@ -328,7 +406,7 @@ def phase_binmax_kernels(sz, device):
         out["level2_reduce"]["max_abs_err"] = max(out["level2_reduce"]["max_abs_err"], err)
         _record(out["level2_reduce"], list(packed8.shape) + [width],
                 lambda w=width: mb._level2_reduce(packed8, w), lambda w=width: mb._level2_plain(packed8, w),
-                device, sz["reps"], headline=width == mb.L2_MID)
+                device, sz["reps"], headline=width == mb.L2_MID, bound_of=bound(nbytes(packed8, got)))
     k = sz["scan_k"]
     reduced = mb._level2_reduce(packed8, mb.L2_MID)
     top, pos = torch.topk(reduced, k, dim=1)
@@ -337,7 +415,8 @@ def phase_binmax_kernels(sz, device):
     check(bool(torch.equal(gi, wi)), "unpack ids differ from the plain version")
     out["unpack_candidates"]["max_abs_err"] = float((gv - wv).abs().max())
     _record(out["unpack_candidates"], list(top.shape), lambda: mb.unpack_candidates(top, pos, tile, 8, mb.L2_MID),
-            lambda: mb._unpack_plain(top, pos, tile, 8, mb.L2_MID), device, sz["reps"], headline=True)
+            lambda: mb._unpack_plain(top, pos, tile, 8, mb.L2_MID), device, sz["reps"], headline=True,
+            bound_of=bound(nbytes(top, pos, gv, gi)))
     # the whole scan through the kernels against the plain pipeline
     for per_bin, kk in ((2, k), (4, k), (8, k), (8, k // 10)):
         _, ids = mb.binmax_scan_topk(qb, c, kk, n_valid=n, per_bin=per_bin)
@@ -351,6 +430,107 @@ def phase_binmax_kernels(sz, device):
         ov = _overlap(ids.cpu().numpy(), pids.cpu().numpy())
         print(f"[kernels] binmax_scan_topk per_bin={per_bin} k={kk} level2={level2}: id overlap {ov:.6f}")
         check(ov >= 0.999, f"binmax top-{kk} overlap {ov} at per_bin {per_bin}")
+    return out
+
+
+def _int8_layer_params(sz, device, seed):
+    """Per-column int8 codes and f32 scales of random f32 weights (the
+    encoder quantizes its f32 parameters the same way), f32 biases and LN."""
+    import torch
+
+    from matchmaker_tpu_torch.ops.fused_int8 import quantize_weights_per_col
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    hid, ff = sz["hid"], sz["ff"]
+
+    def q(rows, cols):
+        return quantize_weights_per_col(torch.randn(rows, cols, generator=g, device=device) * rows ** -0.5)
+
+    def v(n, std, mean=0.0):
+        return torch.randn(n, generator=g, device=device) * std + mean
+
+    attn = (*q(hid, hid), *q(hid, hid), *q(hid, hid), *q(hid, hid), v(hid, 0.02), v(hid, 0.02), v(hid, 0.02),
+            v(hid, 0.02))
+    mlp = (*q(hid, ff), v(ff, 0.02), *q(ff, hid), v(hid, 0.02))
+    return attn, mlp, (v(hid, 0.1, 1.0), v(hid, 0.1)), (v(hid, 0.1, 1.0), v(hid, 0.1))
+
+
+def phase_int8_encoder_kernels(sz, device):
+    """K10 and K9 against their plain versions at the encoder halves' shapes,
+    held to K1/K2's bar (row cosine >= 0.999, max |d| <= 0.1) and to a mean
+    |d| <= INT8_HALF_MEAN_ABS."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import fused_int8 as fi
+
+    attn, mlp, ln1, ln2 = _int8_layer_params(sz, device, seed=12)
+    out = {name: {"max_abs_err": 0.0, "mean_abs_err": 0.0}
+           for name in ("fused_attention_int8_block", "fused_mlp_int8_block")}
+    for i, (b, l) in enumerate(sz["layer_shapes"]):
+        g = torch.Generator(device=device).manual_seed(300 + i)
+        x = torch.randn(b, l, sz["hid"], generator=g, device=device).to(torch.bfloat16)
+        lengths = torch.randint(max(1, l // 4), l + 1, (b,), generator=g, device=device)
+        mask = (torch.arange(l, device=device)[None, :] < lengths[:, None]).float()
+        proj, core = _attention_ops(b, l, sz["hid"], sz["heads"])
+        cases = (("fused_attention_int8_block", fi.fused_attention_int8_block, fi.reference_attention_int8_block,
+                  (*attn, mask, sz["heads"], *ln1), dict(int8=proj, bf16=core)),
+                 ("fused_mlp_int8_block", fi.fused_mlp_int8_block, fi.reference_mlp_int8_block, (*mlp, *ln2),
+                  dict(int8=4 * b * l * sz["hid"] * sz["ff"])))
+        for name, kernel, plain, args, ops in cases:
+            got, want = kernel(x, *args), plain(x, *args)
+            cos, err = _rows_close(got, want)
+            mean = _mean_abs(got, want)
+            print(f"[kernels] {name} B={b} L={l}: min row cosine {cos:.6f}, max |d| {err:.4g}, mean |d| {mean:.4g}")
+            check(got.shape == x.shape and bool(torch.isfinite(got.float()).all()), f"{name} output at {(b, l)}")
+            check(cos >= 0.999 and err <= 0.1, f"{name} vs plain at {(b, l)}: cos {cos}, max |d| {err}")
+            check(mean <= INT8_HALF_MEAN_ABS, f"{name} vs plain at {(b, l)}: mean |d| {mean} > {INT8_HALF_MEAN_ABS}")
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+            out[name]["mean_abs_err"] = max(out[name]["mean_abs_err"], mean)
+            _record(out[name], [b, l, sz["hid"]], lambda k=kernel, a=args: k(x, *a),
+                    lambda p=plain, a=args: p(x, *a), device, sz["reps"], headline=i == 0,
+                    bound_of=bound(nbytes(x, args, got), **ops))
+    return out
+
+
+def phase_int8_binmax_kernels(sz, device):
+    """K8 (bf16 queries) and K7 (int8 query codes) against their plain
+    versions over an int8 corpus: >= 99.9 % identical candidates."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import mips_binmax as mb
+    from matchmaker_tpu_torch.ops.mips_quant import quantize_corpus_binwise, quantize_queries
+
+    n, tile = sz["scan_rows"], 2048
+    rows, q = _clustered(n, sz["hid"], 256, device, seed=6, n_queries=sz["scan_queries"])
+    codes, scales = (torch.from_numpy(a).to(device) for a in quantize_corpus_binwise(rows.cpu().numpy()))
+    del rows
+    qb = q.to(torch.bfloat16)
+    q8, qs = quantize_queries(q)
+    out = {"binmax_candidates_int8f": {"max_abs_err": 0.0}, "binmax_candidates_int8": {"max_abs_err": 0.0}}
+    cases = (("binmax_candidates_int8f", qb, None, "bf16",
+              lambda pb: mb._scan_int8f_plain(qb, codes, scales, n, pb, tile)),
+             ("binmax_candidates_int8", q8, qs, "int8",
+              lambda pb: mb._scan_int8_plain(q8, codes, scales, qs, n, pb, tile)))
+    for name, queries, q_scales, kind, plain in cases:
+        for per_bin in (2, 4, 8):
+            def kernel(pb=per_bin, qq=queries, qsc=q_scales):
+                return mb.binmax_candidates(qq, codes, n_valid=n, per_bin=pb, corpus_scales=scales,
+                                            query_scales=qsc)
+
+            got, want = kernel(), plain(per_bin)
+            pos = torch.arange(got.shape[1], device=device).expand_as(got).contiguous()
+            gv, gi = mb._unpack_plain(got, pos, tile, per_bin)
+            wv, wi = mb._unpack_plain(want, pos, tile, per_bin)
+            same = gi == wi
+            err = float((gv - wv).abs()[same & torch.isfinite(wv)].max())
+            share = float(same.float().mean())
+            print(f"[kernels] {name} per_bin={per_bin}: identical candidates {share:.6f}, max |d| {err:.3g}")
+            check(share >= 0.999, f"{name} per_bin {per_bin}: {share} identical")
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+            _record(out[name], [n, sz["hid"], sz["scan_queries"], per_bin], kernel,
+                    lambda pb=per_bin: plain(pb), device, sz["reps"], headline=per_bin == 8,
+                    bound_of=bound(nbytes(queries, q_scales, codes, scales, got),
+                                   **{kind: 2 * queries.shape[0] * n * sz["hid"]}))
     return out
 
 
@@ -534,6 +714,132 @@ def phase_main_path(sz, device, root):
     return result
 
 
+# the int8 serving runs: encoder_int8 with an int8 index, searched with bf16
+# queries against the codes (K8), then with int8 queries and the exact
+# rescore (K7 + rescore)
+INT8_RUNS = (("mixed", {"mips_int8_queries": "float"}, "binmax_candidates_int8f"),
+             ("int8_twostage", {"mips_int8_queries": "int8", "mips_twostage": True}, "binmax_candidates_int8"))
+
+
+def predicted_int8_serving_launches(sz):
+    """K9/K10 launch once per layer and encode batch: the collection's
+    batches and each query set's batches of 32 (the CLI's query_batch_size)."""
+    batches = -(-sz["passages"] // sz["batch"]) + len(QUERY_SETS) * -(-sz["queries"] // 32)
+    return sz["n_layers"] * batches
+
+
+def phase_main_path_int8(sz, device, root, bf16_run):
+    """The int8 serving path through cli.dense_retrieval.run on phase 4's
+    collection: launch counts; recall against an exact search of the
+    unquantized encoded rows and against one of the rows the int8 index
+    holds (the encoded rows' codes times their bin scales, which both
+    routes' final scores are exact products of), each held to the bf16
+    route's floors; the cosine of the int8-encoded vectors to phase 4's bf16
+    encode; device-only encode psg/s with the int8 halves."""
+    import torch
+
+    from matchmaker_tpu_torch.cli.dense_retrieval import run
+    from matchmaker_tpu_torch.data.tokenization import build_tokenizer
+    from matchmaker_tpu_torch.models import get_model, init_params
+    from matchmaker_tpu_torch.ops import _build
+    from matchmaker_tpu_torch.retrieval.encode import load_encoded
+    from matchmaker_tpu_torch.retrieval.indexes import FlatIndex
+
+    base = dict(_main_config(root, sz, device), encoder_int8=True, mips_quantization="int8")
+    result = {}
+    vectors = row_ids = None
+    for name, extra, scan in INT8_RUNS:
+        config = dict(base, **extra)
+        folder = os.path.join(root, f"run_{name}")
+        os.makedirs(folder)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        check(run("encode+index+search", dict(config), folder) == 0, f"int8 run {name} returned non-zero")
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        out = result[name] = {"wall_s": time.perf_counter() - t0, "launches": launches}
+        print(f"[main-int8] {name}: launches {launches}")
+        if device.type == "cuda":
+            want = predicted_int8_serving_launches(sz)
+            for k in ("fused_attention_int8_block", "fused_mlp_int8_block"):
+                check(launches[k] == want, f"{name}: {k} launched {launches[k]} times, predicted {want}")
+            check(launches["fused_attention_block"] == launches["fused_mlp_block"] == 0,
+                  f"{name}: a bf16 encoder half ran in the int8 encode")
+            needed = (scan, "unpack_candidates") + (("level2_reduce",) if name == "mixed" else ())
+            for k in needed:
+                check(launches[k] > 0, f"{name}: the int8 path launched no {k} kernel")
+        with open(os.path.join(folder, "efficiency-metrics.json")) as f:
+            perf = json.load(f)[-1]["blocks"]
+        out.update(encode_psg_per_s=perf["encode"]["items_per_second"],
+                   search_qps=perf["search_total"]["items_per_second"])
+        if vectors is None:
+            vectors, row_ids = load_encoded(os.path.join(folder, "encoded"))
+            check(vectors.shape == (sz["passages"], sz["hid"]) and bool(np.isfinite(vectors).all()),
+                  "int8-encoded vectors")
+        out["rankings"] = {}
+        for qname, _, _ in QUERY_SETS:
+            ranking = out["rankings"][qname] = {}
+            with open(os.path.join(folder, f"{qname}-output.txt")) as f:
+                for line in f:
+                    qid, did, _, _ = line.split()
+                    ranking.setdefault(qid, []).append(did)
+
+    # per-passage cosine against phase 4's bf16-kernel encode of the same passages
+    bf16_vectors, bf16_ids = load_encoded(os.path.join(bf16_run, "encoded"))
+    check(list(bf16_ids) == list(row_ids), "the two encodes list the passages in another order")
+    a, b = torch.from_numpy(vectors).float(), torch.from_numpy(bf16_vectors).float()
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=1).min())
+    result["vs_bf16_min_cos"] = cos
+    print(f"[main-int8] int8 vs bf16 encode of {len(a)} passages: min cosine {cos:.6f}")
+    check(cos >= 0.99, f"int8-encoded passages vs the bf16 encode: min cosine {cos}")
+
+    # exact searches with the int8 encoder's queries: over the rows the index
+    # holds (its permuted codes times bin scales) and over the encoded rows
+    config = dict(base, **INT8_RUNS[0][1])
+    tokenizer = build_tokenizer(config)
+    model = get_model(config, tokenizer)
+    init_params(model, config, torch.Generator().manual_seed(config["random_seed"]))
+    model.to(device).eval()
+    q_vecs, qids = _encode_file(model, config, tokenizer, os.path.join(root, "queries.tsv"), "query", 32, device)
+    index = FlatIndex(config, device)
+    index.index(row_ids, vectors)
+    index._ensure_device()
+    codes, bin_scales, _ = index._device_vectors
+    held = (codes.float() * bin_scales[:, 0].repeat_interleave(128)[:, None])[:len(row_ids)]
+    qf = q_vecs.to(torch.bfloat16).float()
+    with torch.inference_mode():
+        exact_scores = {"held": (qf @ held.T, index.row_ids),
+                        "encoded": (qf @ torch.from_numpy(vectors).to(device).to(torch.bfloat16).float().T, row_ids)}
+    for name, _, _ in INT8_RUNS:
+        for qname, key, floor in QUERY_SETS:
+            k = sz[key]
+            ranking = result[name]["rankings"][qname]
+            for against, (scores, ids) in exact_scores.items():
+                top = torch.topk(scores, k, dim=1).indices.cpu().tolist()
+                exact = {qid: [str(ids[i]) for i in idx] for qid, idx in zip(qids, top)}
+                recall = float(np.mean([len(set(exact[q]) & set(ranking[q])) / k for q in exact]))
+                result[name][f"recall@{k}_vs_{against}"] = recall
+                print(f"[main-int8] {name} {qname}: recall@{k} vs exact search of the {against} rows {recall:.4f}")
+                check(recall >= floor, f"int8 {name} {qname}: recall@{k} vs the {against} rows {recall} < {floor}")
+        del result[name]["rankings"]
+
+    batch_ids = torch.randint(104, sz["vocab"], (sz["batch"], sz["doc_len"]), device=device)
+    batch_mask = torch.ones(sz["batch"], sz["doc_len"], device=device)
+
+    def encode_once():
+        with torch.inference_mode():
+            model.encode(batch_ids, batch_mask, "doc_encode")
+
+    ms = _time_ms(encode_once, device, sz["reps"])
+    result["encode_device_psg_per_s"] = sz["batch"] / ms * 1e3
+    print(f"[main-int8] device-only encode with the int8 halves at {sz['batch']}x{sz['doc_len']}: "
+          f"{result['encode_device_psg_per_s']:.1f} psg/s")
+    if device.type == "cuda":
+        result["encode_profile"] = _profile_steps(lambda _: encode_once(), None, ms, tag="main-int8")
+    return result
+
+
 # ---- phase 5: search at scale ----------------------------------------------
 
 def phase_scale(sz, device):
@@ -578,6 +884,53 @@ def phase_scale(sz, device):
     check(recall >= 0.95, f"recall@{k} {recall} < 0.95")
     return {"launches": launches, "recall": recall, "qps": qps, "device_ms": ms,
             "device_qps": len(queries) / ms * 1e3, "per_bin": per_bin}
+
+
+def phase_scale_int8(sz, device):
+    """FlatIndex int8 search at scale: the mixed route (K8) and the int8 +
+    two-stage route (K7 + rescore), each an index built from its config,
+    recall@k against an exact search of the unquantized rows and QPS."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import _build
+    from matchmaker_tpu_torch.retrieval.indexes import FlatIndex
+
+    n, k = sz["scale_rows"], sz["scale_k"]
+    rows, q = _clustered(n, sz["hid"], sz["scale_clusters"], device, seed=9, n_queries=256)
+    queries = q.cpu().numpy()
+    with torch.inference_mode():
+        exact = torch.topk(q.to(torch.bfloat16).float() @ rows.to(torch.bfloat16).float().T, k,
+                           dim=1).indices.cpu().numpy()
+    vectors = rows.cpu().numpy()
+    del rows
+    result = {}
+    for name, extra, scan in INT8_RUNS:
+        index = FlatIndex({"token_dtype": "float16", "mips_quantization": "int8", "mips_kernel": "binmax", **extra},
+                          device)
+        index.prepare(vectors.shape[1])
+        index.index(np.arange(n), vectors)
+        index._ensure_device()
+        _build.reset_launches()
+        scores, ids = index.search(queries, k)
+        launches = dict(_build.LAUNCHES)
+        check(np.isfinite(scores).all() and ((ids >= 0) & (ids < n)).all(), f"int8 {name}: padding leaked")
+        if device.type == "cuda":
+            check(launches[scan] > 0, f"int8 {name} at scale launched no {scan} kernel")
+        recall = _overlap(ids, exact)
+        qb = torch.from_numpy(queries).to(device)
+        start = time.perf_counter()
+        reps = 5
+        for _ in range(reps):
+            index.search_rows(queries, k)
+        qps = len(queries) * reps / (time.perf_counter() - start)
+        ms = _time_ms(lambda: index._search_int8(qb, k), device, sz["reps"])
+        print(f"[scale-int8] {name}: {n} rows x {sz['hid']}, Q={len(queries)}, k={k}: recall@{k} {recall:.4f}, "
+              f"search_rows {qps:.1f} QPS, device search {ms:.3f} ms ({len(queries) / ms * 1e3:.1f} QPS)")
+        check(recall >= 0.95, f"int8 {name}: recall@{k} {recall} < 0.95")
+        result[name] = {"launches": launches, "recall": recall, "qps": qps, "device_ms": ms,
+                        "device_qps": len(queries) / ms * 1e3}
+        del index
+    return result
 
 
 # ---- phase 6: the training path through cli.train's Trainer ----------------
@@ -658,16 +1011,17 @@ def predicted_train_launches(sz):
 def _device_batch(config, tokenizer, path, device):
     import torch
 
-    from matchmaker_tpu.data.loaders import triple_training_loader
+    from matchmaker_tpu_torch.data.loaders import triple_training_loader
 
     batch = next(iter(triple_training_loader(config, tokenizer, path)))
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def _profile_steps(step, batch, step_ms, n=3):
-    """Device time by kernel over n training steps (torch.profiler), and the
-    device's busy share of ``step_ms``, the step time CUDA events measured
-    without the profiler (whose own overhead stretches the wall time)."""
+def _profile_steps(step, batch, step_ms, n=3, tag="train"):
+    """Device time by kernel over n calls of ``step(batch)`` (torch.profiler),
+    and the device's busy share of ``step_ms``, the call's time CUDA events
+    measured without the profiler (whose own overhead stretches the wall
+    time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -694,10 +1048,10 @@ def _profile_steps(step, batch, step_ms, n=3):
             rows.append((ev.key, dev_us / 1e3 / n, ev.count // n))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    print(f"[train] profile of {n} steps: kernels {busy:.2f} ms a step, {busy / step_ms:.1%} of the "
-          f"{step_ms:.2f} ms step without the profiler ({wall_ms / n:.2f} ms wall under it)")
+    print(f"[{tag}] profile of {n} calls: kernels {busy:.2f} ms a call, {busy / step_ms:.1%} of the "
+          f"{step_ms:.2f} ms call without the profiler ({wall_ms / n:.2f} ms wall under it)")
     for key, ms, count in rows[:14]:
-        print(f"[train]   {ms:8.3f} ms/step {ms / busy if busy else 0:6.1%}  x{count:<4d} {key[:110]}")
+        print(f"[{tag}]   {ms:8.3f} ms/call {ms / busy if busy else 0:6.1%}  x{count:<4d} {key[:110]}")
     return {"device_ms_per_step": busy, "busy_share": busy / step_ms, "profiled_wall_ms_per_step": wall_ms / n,
             "top": [{"kernel": k[:200], "ms_per_step": ms, "calls_per_step": c} for k, ms, c in rows[:25]]}
 
@@ -846,6 +1200,8 @@ def phase_train(sz, device, root):
 
 
 SERVING = ("fused_attention_block", "fused_mlp_block", "binmax_candidates", "level2_reduce", "unpack_candidates")
+SERVING_INT8 = ("fused_attention_int8_block", "fused_mlp_int8_block", "binmax_candidates_int8f",
+                "binmax_candidates_int8")
 
 KERNELS = [  # name, source, TPU kernel it replaces, TPU kernels folded into it
     ("fused_attention_block", "matchmaker_tpu_torch/csrc/encoder_kernels.cu",
@@ -862,6 +1218,14 @@ KERNELS = [  # name, source, TPU kernel it replaces, TPU kernels folded into it
      "matchmaker_tpu/ops/fused_backward.py:124", None),
     ("fused_attention_block_bwd", "matchmaker_tpu_torch/csrc/encoder_backward_kernels.cu",
      "matchmaker_tpu/ops/fused_backward.py:290", None),
+    ("fused_mlp_int8_block", "matchmaker_tpu_torch/csrc/encoder_int8_kernels.cu",
+     "matchmaker_tpu/ops/fused_int8.py:72", None),
+    ("fused_attention_int8_block", "matchmaker_tpu_torch/csrc/encoder_int8_kernels.cu",
+     "matchmaker_tpu/ops/fused_int8.py:163", None),
+    ("binmax_candidates_int8f", "matchmaker_tpu_torch/csrc/binmax_kernels.cu",
+     "matchmaker_tpu/ops/mips_binmax.py:288", None),
+    ("binmax_candidates_int8", "matchmaker_tpu_torch/csrc/binmax_kernels.cu",
+     "matchmaker_tpu/ops/mips_binmax.py:259", None),
 ]
 
 
@@ -879,22 +1243,41 @@ def run_phases(sz, device, card: str) -> dict:
     kern = phase_encoder_kernels(sz, device)
     kern.update(phase_backward_kernels(sz, device))
     kern.update(phase_binmax_kernels(sz, device))
+    kern.update(phase_int8_encoder_kernels(sz, device))
+    kern.update(phase_int8_binmax_kernels(sz, device))
     with tempfile.TemporaryDirectory() as root:
         report["main"] = phase_main_path(sz, device, root)
+        report["main_int8"] = phase_main_path_int8(sz, device, root, os.path.join(root, "run"))
     report["scale"] = phase_scale(sz, device)
+    report["scale_int8"] = phase_scale_int8(sz, device)
     with tempfile.TemporaryDirectory() as root:
         report["train"] = phase_train(sz, device, root)
     check(set(report["main"]["launches"]) == {k[0] for k in KERNELS}, "a kernel without an entry")
     report["kernels"] = []
     for name, src, rep, inc in KERNELS:
-        # "launches": the run of the kernel's own path (serving or training)
-        path = "serve" if name in SERVING else "train"
-        runs = {"serve": report["main"]["launches"][name], "train": report["train"]["launches"][name]}
+        # "launches": the run of the kernel's own path: the bf16 serving run,
+        # the int8 serving run that uses it (K9/K10 and K8: the mixed run,
+        # K7: the two-stage run) or the training run; "launches_scale": the
+        # scale search of the same route (bf16 or int8; training: the bf16)
+        runs = {"serve": report["main"]["launches"][name], "train": report["train"]["launches"][name],
+                **{f"serve_int8_{r}": report["main_int8"][r]["launches"][name] for r, _, _ in INT8_RUNS}}
+        scale_runs = {"scale_bf16": report["scale"]["launches"][name],
+                      **{f"scale_int8_{r}": report["scale_int8"][r]["launches"][name] for r, _, _ in INT8_RUNS}}
+        if name in SERVING:
+            path, scale_path = "serve", "scale_bf16"
+        elif name == "binmax_candidates_int8":
+            path, scale_path = "serve_int8_int8_twostage", "scale_int8_int8_twostage"
+        elif name in SERVING_INT8:
+            path, scale_path = "serve_int8_mixed", "scale_int8_mixed"
+        else:
+            path, scale_path = "train", "scale_bf16"
         report["kernels"].append(
             {"name": name, "route": "cuda", "source": src, "replaces": rep, **({"includes": inc} if inc else {}),
-             "path": path, "launches": runs[path], "launches_serve": runs["serve"],
-             "launches_train": runs["train"], "launches_scale": report["scale"]["launches"][name],
-             "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"]})
+             "path": path, "launches": runs[path], **{f"launches_{r}": v for r, v in runs.items()},
+             "launches_scale": scale_runs[scale_path], **{f"launches_{r}": v for r, v in scale_runs.items()},
+             "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"],
+             "bound_ms": kern[name]["bound_ms"], "bound_by": kern[name]["bound_by"], "library_ms": None,
+             "timed_shape": kern[name]["timed_shape"]})
     report["kernel_timings"] = {k[0]: kern[k[0]]["timings"] for k in KERNELS}
     report["torch"] = torch.__version__
     return report
@@ -926,10 +1309,17 @@ def main() -> int:
     print(f"[{card}] train {train['cli_triples_per_s']:.1f} triples/s through cli.train's Trainer (validation "
           f"included), {train['device_triples_per_s']:.1f} triples/s device-only at batch {FULL['train_batch']} "
           f"(query {FULL['train_query_len']}, doc {FULL['train_doc_len']})")
+    int8, scale8 = report["main_int8"], report["scale_int8"]
+    print(f"[{card}] int8 encode {int8['mixed']['encode_psg_per_s']:.1f} psg/s end to end in the CLI, "
+          f"{int8['encode_device_psg_per_s']:.1f} psg/s device-only at {FULL['batch']}x{FULL['doc_len']} "
+          f"(bf16 halves: {main_['encode_device_psg_per_s']:.1f}); int8 search at {FULL['scale_rows']} rows, "
+          f"k={FULL['scale_k']}: " + ", ".join(
+              f"{r} recall@{FULL['scale_k']} {scale8[r]['recall']:.4f}, {scale8[r]['qps']:.1f} QPS search_rows, "
+              f"{scale8[r]['device_qps']:.1f} device-only" for r, _, _ in INT8_RUNS))
     for k in report["kernels"]:
-        print(f"[{card}] {k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
-              f"max |d| {k['max_abs_err']:.3g}, launches {k['launches_serve']} in the serving CLI run, "
-              f"{k['launches_train']} in the training run, {k['launches_scale']} in the scale search")
+        print(f"[{card}] {k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
+              f"{k['bound_ms']:.4f} ms ({k['bound_by']}) at {k['timed_shape']}, max |d| {k['max_abs_err']:.3g}, "
+              f"launches {k['launches']} in its path's run ({k['path']}), {k['launches_scale']} in the scale search")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

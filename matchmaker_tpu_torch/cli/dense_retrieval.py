@@ -25,13 +25,14 @@ import traceback
 
 import torch
 
-from matchmaker_tpu.metrics import calculate_metrics_plain, load_qrels, print_metric_summary, unrolled_to_ranked_result
-from matchmaker_tpu.obs.perf_monitor import PerformanceMonitor
-
+from matchmaker_tpu_torch.config import get_config
 from matchmaker_tpu_torch.data.tokenization import build_tokenizer
 from matchmaker_tpu_torch.evaluation import save_sorted_results
+from matchmaker_tpu_torch.experiment import get_parser, prepare_experiment
+from matchmaker_tpu_torch.metrics import calculate_metrics_plain, load_qrels, print_metric_summary, unrolled_to_ranked_result
 from matchmaker_tpu_torch.models import get_model, init_params
 from matchmaker_tpu_torch.models.weights import load_npz
+from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
 from matchmaker_tpu_torch.retrieval.encode import encode_corpus, load_encoded
 from matchmaker_tpu_torch.retrieval.indexes import build_index
 from matchmaker_tpu_torch.retrieval.search import search_queries
@@ -114,11 +115,6 @@ def run(mode: str, config, run_folder: str) -> int:
 
 
 def main() -> int:
-    # YAML config handling and argument parsing live in the JAX package's
-    # host modules; imported here only, so importing this module needs no yaml
-    from matchmaker_tpu.config import get_config
-    from matchmaker_tpu.experiment import get_parser, prepare_experiment
-
     parser = get_parser()
     parser.add_argument("mode", choices=["encode+index+search", "index+search", "search"])
     args = parser.parse_args()

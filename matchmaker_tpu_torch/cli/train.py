@@ -17,18 +17,14 @@ import os
 import sys
 import traceback
 
-from matchmaker_tpu.obs.perf_monitor import PerformanceMonitor
-
+from matchmaker_tpu_torch.config import get_config, get_config_single
+from matchmaker_tpu_torch.experiment import get_parser, prepare_experiment
+from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
 from matchmaker_tpu_torch.training.checkpoints import BEST_MODEL, load_params
 from matchmaker_tpu_torch.training.trainer import Trainer
 
 
 def main() -> int:
-    # YAML config handling and argument parsing live in the JAX package's
-    # host modules; imported here only, so importing this module needs no yaml
-    from matchmaker_tpu.config import get_config, get_config_single
-    from matchmaker_tpu.experiment import get_parser, prepare_experiment
-
     args = get_parser().parse_args()
     perf = PerformanceMonitor.get()
     perf.start_block("startup")

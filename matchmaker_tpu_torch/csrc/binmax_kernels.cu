@@ -1,7 +1,11 @@
 // The binmax MIPS scan, written for Hopper.
 //
 // Replaces the Pallas kernels of matchmaker_tpu/ops/mips_binmax.py:
-//   K3 _binmax_kernel + _topk_per_bin_t   -> binmax_kernel
+//   K3 _binmax_kernel + _topk_per_bin_t   -> binmax_kernel<P, SCAN_BF16>
+//   K8 _binmax_kernel_int8f (int8 corpus, bf16 queries)
+//                                         -> binmax_kernel<P, SCAN_INT8F>
+//   K7 _binmax_kernel_int8 (int8 corpus, int8 queries)
+//                                         -> binmax_kernel<P, SCAN_INT8>
 //   K5 _transpose_kernel                  -> folded into binmax_kernel's store
 //   K4 _make_level2_kernel (level 2)      -> level2_kernel
 //   K6 _unpack_kernel                     -> unpack_kernel
@@ -15,11 +19,18 @@
 // the TPU path only reaches after its transpose pass: column =
 // tile*(per_bin*nb) + rank*nb + bin, nb = tile_rows/128.
 //
-// What bounds it on the card: the corpus read (N*D*2 bytes per 128 queries)
-// against 2*N*D flops per query — at Q = 256 the scan is compute bound on
-// the tensor cores, and the selection (128 shared-memory reads per thread and
-// rank) is a small fraction of it. The per-bin candidates are 1/16..1/64 of
-// the scores, so the (Q, N) score matrix never reaches device memory.
+// The int8 modes score the same way before the same selection: K8 turns the
+// int8 codes into bf16 (exact) on their way to shared memory and multiplies
+// the bf16 product by the bin's scale; K7 multiplies int8 codes by int8
+// query codes into int32 (exact), then f32(raw) * bin scale * query scale,
+// in that order and rounded at each step, as the TPU kernel does.
+//
+// What bounds it on the card: the corpus read (N*D*2 bytes per 128 queries,
+// N*D for int8) against 2*N*D operations per query — at Q = 256 the scan is
+// compute bound on the tensor cores (bf16 rate for K3/K8, int8 rate for K7),
+// and the selection (128 shared-memory reads per thread and rank) is a small
+// fraction of it. The per-bin candidates are 1/16..1/64 of the scores, so
+// the (Q, N) score matrix never reaches device memory.
 #include "tile_mma.cuh"
 
 #include <math.h>
@@ -28,7 +39,8 @@ namespace mm {
 
 constexpr int BIN = 128;
 constexpr int S_LD = TILE_N + 4;  // score tile row stride (floats)
-constexpr int BINMAX_SMEM = TILE_SMEM_BYTES > TILE_M * S_LD * 4 ? TILE_SMEM_BYTES : TILE_M * S_LD * 4;
+constexpr int BINMAX_RING = TILE_SMEM_BYTES > S8_SMEM_BYTES ? TILE_SMEM_BYTES : S8_SMEM_BYTES;
+constexpr int BINMAX_SMEM = BINMAX_RING > TILE_M * S_LD * 4 ? BINMAX_RING : TILE_M * S_LD * 4;
 constexpr int L2_BLOCK = 1024;  // level-2 column block (matchmaker_tpu _L2_BLOCK)
 constexpr int L2_KEEP = 8;      // candidates kept per level-2 group (LEVEL2_PER_BIN)
 
@@ -61,29 +73,55 @@ __device__ __forceinline__ void insert_top(float (&tv)[P], int (&ti)[P], float v
   }
 }
 
-// grid (NR/128 bins, ceil(NQ/128) query tiles)
-template <int P>
-__global__ void __launch_bounds__(TILE_THREADS) binmax_kernel(const bf16* __restrict__ queries,
-                                                               const bf16* __restrict__ corpus,
+enum ScanMode : int { SCAN_BF16 = 0, SCAN_INT8F = 1, SCAN_INT8 = 2 };
+
+// grid (NR/128 bins, ceil(NQ/128) query tiles). queries: (NQ, D) bf16
+// (SCAN_BF16, SCAN_INT8F) or int8 (SCAN_INT8); corpus: (NR, D) bf16
+// (SCAN_BF16) or int8; bin_scales (NR/128) f32 and query_scales (NQ) f32 for
+// the int8 modes that read them.
+template <int P, int MODE>
+__global__ void __launch_bounds__(TILE_THREADS) binmax_kernel(const void* __restrict__ queries,
+                                                               const void* __restrict__ corpus,
+                                                               const float* __restrict__ bin_scales,
+                                                               const float* __restrict__ query_scales,
                                                                float* __restrict__ out, int NQ, int NR, int D,
                                                                int n_valid, int nb, long long ld_out) {
   extern __shared__ __align__(128) char smem[];
   const int m0 = blockIdx.x * BIN, n0 = blockIdx.y * TILE_N;
-  FragC acc[FRAG_M][FRAG_N];
-  tile_mma<true>(corpus, NR, queries, NQ, D, m0, n0, smem, acc);
-
   float* S = reinterpret_cast<float*>(smem);  // [128 rows][S_LD], rows = corpus, columns = queries
   const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
+  if constexpr (MODE == SCAN_INT8) {
+    FragCi acc[FRAG_M][FRAG_N];
+    tile_mma_s8<true>(static_cast<const int8_t*>(corpus), NR, D, static_cast<const int8_t*>(queries), NQ, 0, D,
+                      m0, n0, smem, acc);
+    int* Si = reinterpret_cast<int*>(smem);  // the same cells, read as int32 below
 #pragma unroll
-  for (int i = 0; i < FRAG_M; ++i)
+    for (int i = 0; i < FRAG_M; ++i)
 #pragma unroll
-    for (int j = 0; j < FRAG_N; ++j)
-      wmma::store_matrix_sync(S + (wm * WARP_M + i * 16) * S_LD + wn * WARP_N + j * 16, acc[i][j], S_LD,
-                              wmma::mem_row_major);
+      for (int j = 0; j < FRAG_N; ++j)
+        wmma::store_matrix_sync(Si + (wm * WARP_M + i * 16) * S_LD + wn * WARP_N + j * 16, acc[i][j], S_LD,
+                                wmma::mem_row_major);
+  } else {
+    FragC acc[FRAG_M][FRAG_N];
+    if constexpr (MODE == SCAN_INT8F)
+      tile_mma<true, int8_t>(static_cast<const int8_t*>(corpus), NR, static_cast<const bf16*>(queries), NQ, D, m0,
+                             n0, smem, acc);
+    else
+      tile_mma<true>(static_cast<const bf16*>(corpus), NR, static_cast<const bf16*>(queries), NQ, D, m0, n0, smem,
+                     acc);
+#pragma unroll
+    for (int i = 0; i < FRAG_M; ++i)
+#pragma unroll
+      for (int j = 0; j < FRAG_N; ++j)
+        wmma::store_matrix_sync(S + (wm * WARP_M + i * 16) * S_LD + wn * WARP_N + j * 16, acc[i][j], S_LD,
+                                wmma::mem_row_major);
+  }
   __syncthreads();
 
   const int q = threadIdx.x;
   if (q >= TILE_N || n0 + q >= NQ) return;
+  const float cs = MODE == SCAN_BF16 ? 1.0f : bin_scales[blockIdx.x];
+  const float qs = MODE == SCAN_INT8 ? query_scales[n0 + q] : 1.0f;
   float tv[P];
   int ti[P];
 #pragma unroll
@@ -92,8 +130,14 @@ __global__ void __launch_bounds__(TILE_THREADS) binmax_kernel(const bf16* __rest
     ti[j] = 0;
   }
   for (int r = 0; r < BIN; ++r) {
-    const float v = m0 + r < n_valid ? S[r * S_LD + q] : -INFINITY;
-    insert_top<P>(tv, ti, v, r);
+    float v;
+    if constexpr (MODE == SCAN_INT8)
+      v = __fmul_rn(__fmul_rn(static_cast<float>(reinterpret_cast<const int*>(S)[r * S_LD + q]), cs), qs);
+    else if constexpr (MODE == SCAN_INT8F)
+      v = __fmul_rn(S[r * S_LD + q], cs);
+    else
+      v = S[r * S_LD + q];
+    insert_top<P>(tv, ti, m0 + r < n_valid ? v : -INFINITY, r);
   }
   const int tile = blockIdx.x / nb, bin = blockIdx.x % nb;
   float* o = out + (size_t)(n0 + q) * ld_out + (size_t)tile * P * nb + bin;
@@ -148,14 +192,27 @@ __global__ void __launch_bounds__(256) unpack_kernel(const float* __restrict__ v
   out_ids[i] = finite ? tile * tile_rows + bin * BIN + (bits & 127) : -1;
 }
 
-template <int P>
-int launch_binmax(const bf16* q, const bf16* c, float* out, int NQ, int NR, int D, int n_valid, int nb,
-                  long long ld_out, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(binmax_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, BINMAX_SMEM);
+template <int P, int MODE>
+int launch_binmax(const void* q, const void* c, const float* bs, const float* qs, float* out, int NQ, int NR, int D,
+                  int n_valid, int nb, long long ld_out, cudaStream_t s) {
+  cudaError_t err =
+      cudaFuncSetAttribute(binmax_kernel<P, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, BINMAX_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(NR / BIN, (NQ + TILE_N - 1) / TILE_N);
-  binmax_kernel<P><<<grid, TILE_THREADS, BINMAX_SMEM, s>>>(q, c, out, NQ, NR, D, n_valid, nb, ld_out);
+  binmax_kernel<P, MODE><<<grid, TILE_THREADS, BINMAX_SMEM, s>>>(q, c, bs, qs, out, NQ, NR, D, n_valid, nb, ld_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE>
+int launch_binmax_mode(const void* q, const void* c, const float* bs, const float* qs, float* out, int NQ, int NR,
+                       int D, int n_valid, int per_bin, int nb, long long ld_out, cudaStream_t s) {
+  switch (per_bin) {
+    case 1: return launch_binmax<1, MODE>(q, c, bs, qs, out, NQ, NR, D, n_valid, nb, ld_out, s);
+    case 2: return launch_binmax<2, MODE>(q, c, bs, qs, out, NQ, NR, D, n_valid, nb, ld_out, s);
+    case 4: return launch_binmax<4, MODE>(q, c, bs, qs, out, NQ, NR, D, n_valid, nb, ld_out, s);
+    case 8: return launch_binmax<8, MODE>(q, c, bs, qs, out, NQ, NR, D, n_valid, nb, ld_out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace mm
@@ -168,17 +225,24 @@ extern "C" {
 // queries (NQ, D) bf16; NR % 128 == 0, per_bin in {1, 2, 4, 8}.
 int mm_binmax_scan(const void* queries, const void* corpus, void* out, int NQ, int NR, int D, int n_valid,
                    int per_bin, int nb, long long ld_out, void* stream) {
-  const bf16* q = static_cast<const bf16*>(queries);
-  const bf16* c = static_cast<const bf16*>(corpus);
+  return launch_binmax_mode<SCAN_BF16>(queries, corpus, nullptr, nullptr, static_cast<float*>(out), NQ, NR, D,
+                                       n_valid, per_bin, nb, ld_out, static_cast<cudaStream_t>(stream));
+}
+
+// The same over an int8 corpus (NR, D) with bin scales (NR/128) f32: mixed = 1
+// takes bf16 queries (K8); mixed = 0 takes int8 query codes with their
+// scales (NQ) f32 (K7).
+int mm_binmax_scan_int8(const void* queries, const void* corpus, const void* bin_scales, const void* query_scales,
+                        void* out, int NQ, int NR, int D, int n_valid, int per_bin, int nb, long long ld_out,
+                        int mixed, void* stream) {
+  const float* bs = static_cast<const float*>(bin_scales);
+  const float* qs = static_cast<const float*>(query_scales);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (per_bin) {
-    case 1: return launch_binmax<1>(q, c, o, NQ, NR, D, n_valid, nb, ld_out, s);
-    case 2: return launch_binmax<2>(q, c, o, NQ, NR, D, n_valid, nb, ld_out, s);
-    case 4: return launch_binmax<4>(q, c, o, NQ, NR, D, n_valid, nb, ld_out, s);
-    case 8: return launch_binmax<8>(q, c, o, NQ, NR, D, n_valid, nb, ld_out, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (mixed)
+    return launch_binmax_mode<SCAN_INT8F>(queries, corpus, bs, qs, o, NQ, NR, D, n_valid, per_bin, nb, ld_out, s);
+  if (D % S8_TILE_K) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_binmax_mode<SCAN_INT8>(queries, corpus, bs, qs, o, NQ, NR, D, n_valid, per_bin, nb, ld_out, s);
 }
 
 // out (NQ, ld_out) f32: level-2 reduction of in (NQ, ld_in) over c_pad

@@ -20,6 +20,7 @@
 // tile's score rows for all keys in shared memory (L <= 512).
 // Unlike the TPU kernel, the (B*L, 3072) gelu output and the (B*L, 768) f32
 // pre-LN sums do go through device memory; keeping them on chip is later work.
+#include "encoder_common.cuh"
 #include "tile_mma.cuh"
 
 #include <math.h>
@@ -27,24 +28,6 @@
 namespace mm {
 
 enum Epilogue : int { EPI_BIAS_BF16 = 0, EPI_BIAS_GELU_BF16 = 1, EPI_BIAS_RESID_F32 = 2 };
-
-// FMA-only erf polynomial of matchmaker_tpu/ops/fused_attention.py
-// (_ERF_FASTPOLY, _erf_fastpoly, _gelu_poly): the bf16 gelu of both kernels.
-__device__ __forceinline__ float gelu_poly(float h) {
-  const float u = h * 0.7071067811865476f;
-  const float uc = fminf(fmaxf(u, -3.4f), 3.4f);
-  const float v = uc * uc;
-  float p = 1.2036946e-08f;
-  p = p * v + -7.4665718e-07f;
-  p = p * v + 2.0221069e-05f;
-  p = p * v + -0.00031579041f;
-  p = p * v + 0.0031725222f;
-  p = p * v + -0.021726243f;
-  p = p * v + 0.10513879f;
-  p = p * v + -0.37025923f;
-  p = p * v + 1.1268175f;
-  return 0.5f * h * (1.0f + p * uc);
-}
 
 // C = A(M,K) . B(K,N) + bias, then the epilogue. Grid (N/128, M/128).
 template <int EPI>
@@ -97,7 +80,8 @@ __global__ void __launch_bounds__(TILE_THREADS) gemm_kernel(const bf16* __restri
 // ---- attention core -------------------------------------------------------
 // One block per (64-query tile, head, example). qkv is the QKV GEMM's output
 // (B, L, 3*HID) with the head split read straight from its columns; out is
-// (B, L, HID) bf16, each head's slice cast to bf16 as the TPU kernel does.
+// (B, L, HID): bf16, each head's slice cast as the TPU kernel K1 does, or
+// f32 for the int8 attention half (K10 re-quantizes the f32 output).
 constexpr int HD = 64;         // head width
 constexpr int QT = 64;         // query rows per block
 constexpr int KC = 64;         // keys per shared-memory chunk
@@ -110,9 +94,10 @@ inline size_t att_smem_bytes(int L) {
   return (size_t)2 * QT * HD_LD * 2 + (size_t)QT * att_s_ld(L) * 4 + (size_t)att_keys_padded(L) * 4;
 }
 
+template <typename OutT>
 __global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(const bf16* __restrict__ qkv,
                                                                       const float* __restrict__ mask,
-                                                                      bf16* __restrict__ out, int L, int H,
+                                                                      OutT* __restrict__ out, int L, int H,
                                                                       float scale) {
   extern __shared__ __align__(128) char smem[];
   const int LKP = att_keys_padded(L), SLD = att_s_ld(L);
@@ -218,10 +203,15 @@ __global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(const bf16*
   for (int i = 0; i < 8; ++i) {
     const int q = q0 + g + 8 * i;
     if (q < L) {
-      __align__(8) bf16 o[4];
+      OutT* dst = out + ((size_t)b * L + q) * HID + h * HD + c0;
+      if constexpr (sizeof(OutT) == 4) {
+        *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      } else {
+        __align__(8) bf16 o[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[e] = __float2bfloat16(acc[i][e]);
-      *reinterpret_cast<uint2*>(out + ((size_t)b * L + q) * HID + h * HD + c0) = *reinterpret_cast<const uint2*>(o);
+        for (int e = 0; e < 4; ++e) o[e] = __float2bfloat16(acc[i][e]);
+        *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(o);
+      }
     }
   }
 }
@@ -250,6 +240,19 @@ __global__ void __launch_bounds__(256) layernorm_kernel(const float* __restrict_
   const float inv = rsqrtf(q / N + eps);
   for (int j = lane; j < N; j += 32)
     out[(size_t)row * N + j] = __float2bfloat16((xr[j] - mean) * inv * gamma[j] + beta[j]);
+}
+
+template <typename OutT>
+int launch_attention_core(const void* qkv, const void* mask, void* out, int B, int L, int H, float scale,
+                                 void* stream) {
+  const size_t smem = att_smem_bytes(L);
+  cudaError_t err =
+      cudaFuncSetAttribute(attention_core_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L + QT - 1) / QT, H, B);
+  attention_core_kernel<OutT><<<grid, ATT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(mask), static_cast<OutT*>(out), L, H, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace mm
@@ -289,14 +292,13 @@ int mm_gemm(const void* A, const void* B, const void* bias, const void* resid, v
 // out (B,L,H*64) bf16 = per-head softmax(QK^T*scale + mask) V from qkv (B,L,3*H*64).
 int mm_attention_core(const void* qkv, const void* mask, void* out, int B, int L, int H, float scale,
                       void* stream) {
-  const size_t smem = att_smem_bytes(L);
-  cudaError_t err =
-      cudaFuncSetAttribute(attention_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + QT - 1) / QT, H, B);
-  attention_core_kernel<<<grid, ATT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(mask), static_cast<bf16*>(out), L, H, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_attention_core<bf16>(qkv, mask, out, B, L, H, scale, stream);
+}
+
+// The same with out (B,L,H*64) f32, P.V's f32 sums uncast (int8 attention half).
+int mm_attention_core_f32(const void* qkv, const void* mask, void* out, int B, int L, int H, float scale,
+                          void* stream) {
+  return launch_attention_core<float>(qkv, mask, out, B, L, H, scale, stream);
 }
 
 // out (M,N) bf16 = LayerNorm(x (M,N) f32) * gamma + beta

@@ -1,2 +1,2 @@
-"""Host data path of the port: the JAX package's jax-free tokenizers and
-loaders, plus a device prefetch for torch tensors."""
+"""Host data path of the port: readers, batching, tokenizers, loaders and a
+device prefetch for torch tensors (copies of the JAX package's host code)."""

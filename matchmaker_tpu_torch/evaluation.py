@@ -19,17 +19,15 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from matchmaker_tpu.data.loaders import reranking_inference_loader
-from matchmaker_tpu.metrics import (
+from matchmaker_tpu_torch.data.loaders import device_prefetch, reranking_inference_loader
+from matchmaker_tpu_torch.experiment import parse_candidate_set
+from matchmaker_tpu_torch.metrics import (
     calculate_metrics_along_candidate_depth,
     calculate_metrics_plain,
     load_qrels,
     unrolled_to_ranked_result,
 )
-from matchmaker_tpu.obs.perf_monitor import PerformanceMonitor
-
-from matchmaker_tpu_torch.data.loaders import device_prefetch
-from matchmaker_tpu_torch.experiment import parse_candidate_set
+from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1 item 10)"
 

@@ -1,21 +1,82 @@
-"""Early stopping and best-checkpoint bookkeeping: counterpart of the
-jax-free parts of ``matchmaker_tpu/experiment.py``.
+"""Experiment/run-folder management, early stopping and best-checkpoint
+bookkeeping: the port's copy of ``matchmaker_tpu/experiment.py``.
 
-The JAX module imports ``matchmaker_tpu.config``, which imports PyYAML, so
-the port keeps its own copies of the pieces the trainer and the evaluation
-run (``EarlyStopping``, ``save_best_info``, ``read_best_info``,
-``parse_candidate_set``); the command-line
-parser and run-folder creation are imported from the JAX package inside
-``cli/train.py:main`` only.
+``prepare_experiment`` creates a timestamped run folder, saves the merged
+config (PyYAML, imported by ``config.save_config`` when it runs) and
+snapshots the source; ``EarlyStopping`` tracks a validation metric with a
+patience budget and stops at once on NaN; ``best-info.csv`` records the best
+metric with its epoch/batch position.
 """
 
 from __future__ import annotations
 
+import argparse
 import csv
+import json
 import math
 import os
+import subprocess
+import time
+import zipfile
 from dataclasses import dataclass, field
-from typing import Dict, Tuple
+from typing import Any, Dict, Mapping, Tuple
+
+from matchmaker_tpu_torch.config import save_config
+
+
+def get_parser() -> argparse.ArgumentParser:
+    """CLI surface shared by all entry points (reference utils/utils.py:32-69)."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config-file", nargs="+", action="extend", help="YAML config files (merged in order)")
+    parser.add_argument("--run-name", type=str, help="experiment name; run folder = <expirement_base_path>/<ts>_<name>")
+    parser.add_argument("--config-overwrites", type=str, default=None, help='"key: value,key2: value2" overrides')
+    parser.add_argument("--continue-folder", type=str, default=None, help="resume/evaluate an existing run folder")
+    return parser
+
+
+def _git_commit(repo_root: str) -> str:
+    try:
+        return (
+            subprocess.run(
+                ["git", "rev-parse", "HEAD"], cwd=repo_root, capture_output=True, text=True, timeout=10
+            ).stdout.strip()
+            or "unknown"
+        )
+    except Exception:
+        return "unknown"
+
+
+def snapshot_source(run_folder: str) -> None:
+    """Zip the matchmaker_tpu_torch package into the run folder (reproducibility
+    equivalent of the reference's full source-tree copy, utils/utils.py:78-85)."""
+    pkg_dir = os.path.dirname(os.path.abspath(__file__))
+    repo_root = os.path.dirname(pkg_dir)
+    archive = os.path.join(run_folder, "source-snapshot.zip")
+    with zipfile.ZipFile(archive, "w", zipfile.ZIP_DEFLATED) as zf:
+        for root, _dirs, files in os.walk(pkg_dir):
+            if "__pycache__" in root:
+                continue
+            for fname in files:
+                full = os.path.join(root, fname)
+                zf.write(full, os.path.relpath(full, repo_root))
+    with open(os.path.join(run_folder, "run-info.json"), "w", encoding="utf-8") as f:
+        json.dump({"git_commit": _git_commit(repo_root), "created": time.time()}, f)
+
+
+def prepare_experiment(base_path: str, run_name: str, config: Mapping[str, Any]) -> str:
+    """Create ``<base_path>/<YYYY-MM-DD_HHMMSS>_<run_name>/`` and persist config + source."""
+    stamp = time.strftime("%Y-%m-%d_%H%M%S")
+    run_folder = os.path.join(base_path, f"{stamp}_{run_name}")
+    suffix = 0
+    while os.path.exists(run_folder):  # same-second collision
+        suffix += 1
+        run_folder = os.path.join(base_path, f"{stamp}_{run_name}-{suffix}")
+    os.makedirs(run_folder, exist_ok=False)
+    save_config(config, os.path.join(run_folder, "config.yaml"))
+    snapshot_source(run_folder)
+    return run_folder
+
+
 
 
 @dataclass

@@ -11,7 +11,12 @@ f32.
 ``fused_attention`` runs each layer as the two fused halves of
 ops/fused_attention.py (the hand-written CUDA kernels on a card, bf16 only);
 with autograd on they are the differentiable halves of ops/fused_backward.py,
-whose backward is a hand-written kernel too. Otherwise the layer follows the
+whose backward is a hand-written kernel too. ``int8_mlp`` /
+``int8_attention`` swap a half for its int8 counterpart of
+ops/fused_int8.py when autograd is off (the JAX rule "int8 and
+deterministic"): weights quantized per output column from the f32
+parameters, kept until a parameter moves. The int8 halves are forward-only,
+so with autograd on an int8 flag is refused. Otherwise the layer follows the
 flax modules' dtype semantics in plain PyTorch, differentiated by autograd.
 
 No dropout is applied: like the JAX package's BERT_DOT training, every pass
@@ -35,6 +40,11 @@ import torch.nn.functional as F
 
 from matchmaker_tpu_torch.ops.fused_attention import fused_attention_block_qkv, fused_mlp_block
 from matchmaker_tpu_torch.ops.fused_backward import fused_attention_block_qkv_train, fused_mlp_block_train
+from matchmaker_tpu_torch.ops.fused_int8 import (
+    fused_attention_int8_block_qkv,
+    fused_mlp_int8_block,
+    quantize_weights_per_col,
+)
 
 _warned_fused_dropout = False
 
@@ -74,10 +84,12 @@ class EncoderConfig:
     norms_in_compute_dtype: bool = False
     # each layer as the two fused halves (ops/fused_attention.py)
     fused_attention: bool = False
-    # int8 inference kernels of the JAX package; not ported yet (ROADMAP.md)
+    # int8 inference halves (ops/fused_int8.py), without autograd only
     int8_mlp: bool = False
     int8_attention: bool = False
-    # TPU tile geometry of the JAX kernels; kept for config parity, unused here
+    # TPU tile geometry of the JAX kernels; kept for config parity, unused
+    # here (the int8 halves use the JAX kernels' defaults: 4 FF chunks,
+    # 2 heads a group, as the JAX encoder passes neither)
     fused_block_b: int = 8
     fused_ff_chunks: int = 4
 
@@ -202,6 +214,7 @@ class EncoderLayer(nn.Module):
         self.mlp_out = Dense(ff, hid)
         self.mlp_norm = LayerNorm(hid)
         self._fused_cache = None
+        self._int8_cache = None
 
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
         """x (B, L, HID); key_mask (B, L) f32, 1 = real token."""
@@ -248,28 +261,55 @@ class EncoderLayer(nn.Module):
             self._fused_cache = (key, weights)
         return self._fused_cache[1]
 
+    def _int8_weights(self):
+        """The int8 halves' weights: per-output-column codes and f32 scales
+        quantized from the f32 parameters (as the JAX encoder does, not from
+        their bf16 casts), Q/K/V packed. Built without autograd, kept until a
+        parameter moves or is written, like :meth:`_fused_weights`."""
+        a = self.attention
+        kernels = (a.query.kernel, a.key.kernel, a.value.kernel, a.out.kernel, self.mlp_in.kernel,
+                   self.mlp_out.kernel)
+        biases = (a.query.bias, a.key.bias, a.value.bias)
+        key = tuple((p.data_ptr(), p._version) for p in kernels + biases)
+        if self._int8_cache is None or self._int8_cache[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                q, k, v, o, w1, w2 = (quantize_weights_per_col(p) for p in kernels)
+                weights = dict(wqkv=torch.cat([q[0], k[0], v[0]], dim=1), sqkv=torch.cat([q[1], k[1], v[1]]),
+                               bqkv=torch.cat(biases), wo=o[0], so=o[1], w1=w1[0], s1=w1[1], w2=w2[0], s2=w2[1])
+            self._int8_cache = (key, weights)
+        return self._int8_cache[1]
+
     def _fused(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
         """The two fused halves: under autograd the differentiable ones (K1/K2
         forward, K12/K11 backward on a card); without it the forward kernels
-        alone on cached weights."""
+        alone on cached weights, int8 ones (K10/K9) where a flag asks."""
         cfg, cd, a = self.cfg, self.compute_dtype, self.attention
-        wqkv, bqkv, wo, w1, w2 = self._fused_weights()
         grad = torch.is_grad_enabled()
-        attention = fused_attention_block_qkv_train if grad else fused_attention_block_qkv
+        if grad and (cfg.int8_mlp or cfg.int8_attention):
+            raise NotImplementedError(
+                "the int8 layer halves are forward-only: run int8_mlp / int8_attention without autograd "
+                "(torch.no_grad or torch.inference_mode); see ROADMAP.md §3")
+        q8 = self._int8_weights() if cfg.int8_mlp or cfg.int8_attention else None
+        if not (cfg.int8_mlp and cfg.int8_attention):  # a bf16 half runs
+            wqkv, bqkv, wo, w1, w2 = self._fused_weights()
+        ln1 = (self.attention_norm.scale, self.attention_norm.bias, cfg.layer_norm_eps)
+        ln2 = (self.mlp_norm.scale, self.mlp_norm.bias, cfg.layer_norm_eps)
+        if cfg.int8_attention:
+            x = fused_attention_int8_block_qkv(x.to(cd), q8["wqkv"], q8["sqkv"], q8["bqkv"], q8["wo"], q8["so"],
+                                               a.out.bias, key_mask, cfg.num_heads, *ln1)
+        else:
+            attention = fused_attention_block_qkv_train if grad else fused_attention_block_qkv
+            x = attention(x.to(cd), wqkv, bqkv, wo, a.out.bias, key_mask, cfg.num_heads, *ln1)
+        if cfg.int8_mlp:
+            return fused_mlp_int8_block(x.to(cd), q8["w1"], q8["s1"], self.mlp_in.bias, q8["w2"], q8["s2"],
+                                        self.mlp_out.bias, *ln2)
         mlp = fused_mlp_block_train if grad else fused_mlp_block
-        x = attention(
-            x.to(cd), wqkv, bqkv, wo, a.out.bias, key_mask, cfg.num_heads,
-            self.attention_norm.scale, self.attention_norm.bias, cfg.layer_norm_eps)
-        return mlp(
-            x.to(cd), w1, self.mlp_in.bias, w2, self.mlp_out.bias,
-            self.mlp_norm.scale, self.mlp_norm.bias, cfg.layer_norm_eps)
+        return mlp(x.to(cd), w1, self.mlp_in.bias, w2, self.mlp_out.bias, *ln2)
 
 
 class TransformerEncoderLM(nn.Module):
     def __init__(self, cfg: EncoderConfig, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.int8_mlp or cfg.int8_attention:
-            raise NotImplementedError("the int8 encoder kernels are not ported yet (ROADMAP.md)")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.word_embeddings = Embed(cfg.vocab_size, cfg.hidden_size)

@@ -19,3 +19,26 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.matmul(a.float(), b.float())
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+def over_127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127 as a true IEEE division, as the kernels divide and as the CPU
+    divides in both packages. PyTorch's CUDA division by a Python scalar
+    multiplies by its reciprocal, which differs in the last bit for about
+    one value in twenty; a divisor tensor on the same device keeps the
+    division."""
+    return t / torch.full((), 127.0, dtype=t.dtype, device=t.device)
+
+
+# an f32 product of int8 codes is exact while every partial sum stays below
+# 2**24: 127 * 127 * K < 2**24
+_EXACT_CODES_DEPTH = (1 << 24) // (127 * 127)
+
+
+def matmul_codes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., K) @ b (K, N) of int8 codes: the int32 sums of an int8 x int8
+    product, as exact f32 (K <= 1040, checked)."""
+    if a.shape[-1] > _EXACT_CODES_DEPTH:
+        raise ValueError(f"an f32 product of int8 codes is exact up to depth {_EXACT_CODES_DEPTH}, "
+                         f"got {a.shape[-1]}")
+    return matmul_f32(a, b)

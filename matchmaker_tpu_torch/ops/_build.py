@@ -39,6 +39,10 @@ LAUNCHES = {
     "unpack_candidates": 0,  # K6
     "fused_mlp_block_bwd": 0,  # K11
     "fused_attention_block_bwd": 0,  # K12
+    "fused_mlp_int8_block": 0,  # K9
+    "fused_attention_int8_block": 0,  # K10
+    "binmax_candidates_int8f": 0,  # K8: int8 corpus, bf16 queries
+    "binmax_candidates_int8": 0,  # K7: int8 corpus, int8 queries
 }
 
 # rows of one ln_bwd_kernel block (csrc/encoder_backward_kernels.cu:LNB_ROWS)
@@ -48,8 +52,12 @@ _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_fl
 _SIGNATURES = {
     "mm_gemm": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p],
     "mm_attention_core": [_p, _p, _p, _i, _i, _i, _f, _p],
+    "mm_attention_core_f32": [_p, _p, _p, _i, _i, _i, _f, _p],
+    "mm_quant_groups": [_p, _p, _p, _i, _i, _i, _i, _p],
+    "mm_gemm_s8": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
     "mm_layernorm": [_p, _p, _p, _p, _i, _i, _f, _p],
     "mm_binmax_scan": [_p, _p, _p, _i, _i, _i, _i, _i, _i, _i64, _p],
+    "mm_binmax_scan_int8": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i64, _i, _p],
     "mm_level2": [_p, _p, _i, _i, _i, _i64, _i64, _p],
     "mm_unpack": [_p, _p, _p, _p, _i64, _i, _i, _i, _p],
     "mm_bwd_gemm": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p],

@@ -1,0 +1,246 @@
+"""The encoder's int8 layer halves (inference only): counterpart of
+``matchmaker_tpu/ops/fused_int8.py``.
+
+- :func:`fused_mlp_int8_block`: LN(x + W2q·gelu(W1q·x + b1) + b2) with both
+  products int8 × int8 → int32 (TPU kernel K9, ``_mlp_int8_kernel``);
+- :func:`fused_attention_int8_block`: LN(x + OutProj(MHA(QKV-proj(x))))
+  with the four projections int8 and the attention core in bf16/f32 (TPU
+  kernel K10, ``_attn_int8_kernel``); :func:`fused_attention_int8_block_qkv`
+  takes the Q/K/V codes packed.
+
+Weights are quantized per output column (:func:`quantize_weights_per_col`,
+symmetric, absmax/127) from the f32 parameters, outside the kernels.
+Activations are quantized per row (:func:`_quant_rows`): x once per row,
+the gelu output per row and FF chunk (``ff_chunks`` = 4: 768 columns at
+DistilBERT width), the attention output per row and group of
+``group_heads`` = 2 heads (128 columns). Every product's int32 sum is
+dequantized by (row scale × column scale) and a chunk's or group's partial
+is added onto x + bias in f32 with its own row scale. Biases, the gelu
+(FMA-only polynomial), residual and LayerNorm run in f32; the output is in
+x's dtype.
+
+On a CUDA tensor each half runs the hand-written kernels of
+``csrc/encoder_int8_kernels.cu`` (bf16 x, int8 codes, f32 scales and
+biases; head width 64). On a CPU tensor each runs its plain version,
+:func:`reference_mlp_int8_block` / :func:`reference_attention_int8_block`,
+which repeat the kernels' arithmetic: the int8 products as f32 products of
+the codes, exact while 127²·K < 2²⁴ (K ≤ 1040, checked), with TF32 kept out
+(``ops.matmul_codes``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from matchmaker_tpu_torch.ops import _build, matmul_codes, matmul_f32, over_127
+from matchmaker_tpu_torch.ops.fused_attention import _f32, _gelu_poly, _layer_norm_f32
+
+# Epilogues of mm_gemm_s8 (csrc/encoder_int8_kernels.cu)
+_EPI_S8_BIAS_BF16, _EPI_S8_BIAS_GELU_F32, _EPI_S8_CHUNKS_RESID_F32 = 0, 1, 2
+_KERNEL_HEAD_DIM = 64
+_KERNEL_MAX_LEN = 512
+_S8_TILE_K = 64  # K bytes per step of csrc/tile_mma.cuh:tile_mma_s8
+
+
+def quantize_weights_per_col(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-column int8 codes of a (IN, OUT) weight and the
+    (OUT,) f32 scales, max(absmax / 127, 1e-12); codes rounded half to even."""
+    wf = w.float()
+    scale = torch.clamp(over_127(wf.abs().amax(dim=0)), min=1e-12)
+    wq = torch.clamp(torch.round(wf / scale[None, :]), -127, 127).to(torch.int8)
+    return wq, scale
+
+
+def _quant_rows(xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (last-axis) symmetric int8 codes and (..., 1) scales."""
+    rs = torch.clamp(over_127(xf.abs().amax(dim=-1, keepdim=True)), min=1e-12)
+    xq = torch.clamp(torch.round(xf / rs), -127, 127).to(torch.int8)
+    return xq, rs
+
+
+def reference_mlp_int8_block(x, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias, ln_eps: float = 1e-12,
+                             ff_chunks: int = 4):
+    """Plain version of the int8 MLP-half kernel (same math, same order)."""
+    b, l, hid = x.shape
+    xf = x.float().reshape(b * l, hid)
+    xq, rs = _quant_rows(xf)
+    ch = w1q.shape[1] // ff_chunks
+    acc = xf + b2.float()
+    for c in range(ff_chunks):
+        sl = slice(c * ch, (c + 1) * ch)
+        h = matmul_codes(xq, w1q[:, sl]) * (rs * s1[sl].float()) + b1[sl].float()
+        hq, hs = _quant_rows(_gelu_poly(h))
+        acc = acc + matmul_codes(hq, w2q[sl, :]) * (hs * s2.float())
+    return _layer_norm_f32(acc, ln_scale, ln_bias, ln_eps).to(x.dtype).reshape(b, l, hid)
+
+
+def reference_attention_int8_block(x, wqq, sq, wkq, sk, wvq, sv, woq, so, bq, bk, bv, bo, mask, n_heads,
+                                   ln_scale, ln_bias, ln_eps: float = 1e-12, group_heads: int = 2):
+    """Plain version of the int8 attention-half kernel (same math, same order)."""
+    b, l, hid = x.shape
+    d = hid // n_heads
+    xf = x.float().reshape(b * l, hid)
+    neg = (mask.float() - 1.0) * 1e9
+    acc = xf + bo.float()
+    xq, rs = _quant_rows(xf)
+    gw = group_heads * d
+    for g in range(n_heads // group_heads):
+        gl = slice(g * gw, (g + 1) * gw)
+
+        def proj(wq_, s_, b_):  # (B, heads of the group, L, d) in x's dtype
+            h = (matmul_codes(xq, wq_[:, gl]) * (rs * s_[gl].float()) + b_[gl].float()).to(x.dtype)
+            return h.reshape(b, l, group_heads, d).transpose(1, 2)
+
+        qg, kg, vg = proj(wqq, sq, bq), proj(wkq, sk, bk), proj(wvq, sv, bv)
+        s = matmul_f32(qg, kg.transpose(-1, -2)) * (1.0 / d ** 0.5)
+        s = s + neg[:, None, None, :]
+        s = s - s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s)
+        p = p / p.sum(dim=-1, keepdim=True)  # f32 into the attend product
+        a = matmul_f32(p, vg).transpose(1, 2).reshape(b * l, gw)
+        aq, as_ = _quant_rows(a)
+        acc = acc + matmul_codes(aq, woq[gl, :]) * (as_ * so.float())
+    return _layer_norm_f32(acc, ln_scale, ln_bias, ln_eps).to(x.dtype).reshape(b, l, hid)
+
+
+def _quant_groups_cuda(x2: torch.Tensor, groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M, G·W) bf16 or f32 → int8 codes (M, G·W) and scales (M, G), per row
+    and group of W columns."""
+    m, n = x2.shape
+    q = torch.empty((m, n), dtype=torch.int8, device=x2.device)
+    s = torch.empty((m, groups), dtype=torch.float32, device=x2.device)
+    _build.call("mm_quant_groups", _build.ptr(x2), _build.ptr(q), _build.ptr(s), m, groups, n // groups,
+                int(x2.dtype == torch.float32), _build.stream(x2.device))
+    return q, s
+
+
+def _gemm_s8(a, w, row_scale, col_scale, bias, out, epilogue, chunk, resid=None):
+    """out = dequant(a (M, K) · w (K, N)) + epilogue (csrc mm_gemm_s8); the
+    K axis in chunks of ``chunk`` columns, row_scale (M, K / chunk)."""
+    k, n = w.shape
+    _build.call("mm_gemm_s8", _build.ptr(a), _build.ptr(w), _build.ptr(row_scale), _build.ptr(col_scale),
+                _build.ptr(bias), _build.ptr(resid) if resid is not None else ctypes.c_void_p(), _build.ptr(out),
+                a.numel() // k, n, k, chunk, epilogue, _build.stream(a.device))
+
+
+def _check_s8_dims(name: str, k: int, n: int, chunk: int) -> None:
+    # tile_mma_s8: K chunks in steps of 64 bytes, 16-byte rows and column slabs
+    if chunk % _S8_TILE_K or k % chunk or n % 16:
+        raise ValueError(f"{name}: the CUDA kernel needs chunk % 64 == 0, K % chunk == 0 and N % 16 == 0, "
+                         f"got K={k}, N={n}, chunk={chunk}")
+
+
+def _check_int8_weights(name: str, **weights) -> None:
+    for wname, t in weights.items():
+        _build.check_cuda(t, f"{name}.{wname}", torch.int8)
+
+
+def _f32_on_card(name: str, *vectors):
+    """Scales, biases and LN parameters as contiguous f32 tensors, checked
+    to lie on the card (the kernels read them through raw pointers)."""
+    out = [_f32(v) for v in vectors]
+    for i, t in enumerate(out):
+        _build.check_cuda(t, f"{name}[{i}]", torch.float32)
+    return out
+
+
+def _mlp_int8_cuda(x, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias, ln_eps, ff_chunks):
+    """K9 on the card."""
+    b, l, hid = x.shape
+    ff = w1q.shape[1]
+    ch = ff // ff_chunks
+    _check_s8_dims("fused_mlp_int8_block", hid, ff, hid)
+    _check_s8_dims("fused_mlp_int8_block", ff, hid, ch)
+    _build.check_cuda(x, "fused_mlp_int8_block.x", torch.bfloat16)
+    _check_int8_weights("fused_mlp_int8_block", w1q=w1q, w2q=w2q)
+    s1, b1, s2, b2, ln_scale, ln_bias = _f32_on_card("fused_mlp_int8_block", s1, b1, s2, b2, ln_scale, ln_bias)
+    m = b * l
+    with torch.cuda.device(x.device):
+        xq, rs = _quant_groups_cuda(x.reshape(m, hid), 1)
+        h = torch.empty((m, ff), dtype=torch.float32, device=x.device)
+        _gemm_s8(xq, w1q, rs, s1, b1, h, _EPI_S8_BIAS_GELU_F32, hid)
+        hq, hs = _quant_groups_cuda(h, ff_chunks)
+        acc = torch.empty((m, hid), dtype=torch.float32, device=x.device)
+        _gemm_s8(hq, w2q, hs, s2, b2, acc, _EPI_S8_CHUNKS_RESID_F32, ch, resid=x)
+        out = torch.empty_like(x)
+        _build.call("mm_layernorm", _build.ptr(acc), _build.ptr(ln_scale), _build.ptr(ln_bias),
+                    _build.ptr(out), m, hid, ln_eps, _build.stream(x.device))
+    _build.LAUNCHES["fused_mlp_int8_block"] += 1
+    return out
+
+
+def _attention_int8_cuda(x, wqkv_q, sqkv, bqkv, woq, so, bo, mask, n_heads, ln_scale, ln_bias, ln_eps,
+                         group_heads):
+    """K10 on the card."""
+    b, l, hid = x.shape
+    if hid % n_heads or hid // n_heads != _KERNEL_HEAD_DIM or n_heads % group_heads:
+        raise ValueError(f"fused_attention_int8_block: the CUDA kernel takes head width {_KERNEL_HEAD_DIM} and "
+                         f"whole head groups, got {hid}/{n_heads}, group_heads={group_heads}")
+    if not 1 <= l <= _KERNEL_MAX_LEN:
+        raise ValueError(f"fused_attention_int8_block: the CUDA kernel takes 1 <= L <= {_KERNEL_MAX_LEN}, got {l}")
+    gw = group_heads * _KERNEL_HEAD_DIM
+    _check_s8_dims("fused_attention_int8_block", hid, 3 * hid, hid)
+    _check_s8_dims("fused_attention_int8_block", hid, hid, gw)
+    _build.check_cuda(x, "fused_attention_int8_block.x", torch.bfloat16)
+    _check_int8_weights("fused_attention_int8_block", wqkv_q=wqkv_q, woq=woq)
+    sqkv, bqkv, so, bo, mask, ln_scale, ln_bias = _f32_on_card(
+        "fused_attention_int8_block", sqkv, bqkv, so, bo, mask, ln_scale, ln_bias)
+    m = b * l
+    with torch.cuda.device(x.device):
+        xq, rs = _quant_groups_cuda(x.reshape(m, hid), 1)
+        qkv = torch.empty((b, l, 3 * hid), dtype=torch.bfloat16, device=x.device)
+        _gemm_s8(xq, wqkv_q, rs, sqkv, bqkv, qkv, _EPI_S8_BIAS_BF16, hid)
+        attn = torch.empty((m, hid), dtype=torch.float32, device=x.device)
+        _build.call("mm_attention_core_f32", _build.ptr(qkv), _build.ptr(mask), _build.ptr(attn),
+                    b, l, n_heads, 1.0 / _KERNEL_HEAD_DIM ** 0.5, _build.stream(x.device))
+        aq, as_ = _quant_groups_cuda(attn, n_heads // group_heads)
+        acc = torch.empty((m, hid), dtype=torch.float32, device=x.device)
+        _gemm_s8(aq, woq, as_, so, bo, acc, _EPI_S8_CHUNKS_RESID_F32, gw, resid=x)
+        out = torch.empty_like(x)
+        _build.call("mm_layernorm", _build.ptr(acc), _build.ptr(ln_scale), _build.ptr(ln_bias),
+                    _build.ptr(out), m, hid, ln_eps, _build.stream(x.device))
+    _build.LAUNCHES["fused_attention_int8_block"] += 1
+    return out
+
+
+def fused_mlp_int8_block(x, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias, ln_eps: float = 1e-12,
+                         ff_chunks: int = 4):
+    """LN(x + W2q·gelu(W1q·x + b1) + b2): x (B, L, HID); w1q (HID, FF) and
+    w2q (FF, HID) int8 with (FF,) / (HID,) f32 column scales; biases and LN
+    parameters f32. CUDA tensors: x bf16, FF / ff_chunks and HID multiples
+    of 64."""
+    if not x.is_cuda:
+        return reference_mlp_int8_block(x, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias, ln_eps, ff_chunks)
+    return _mlp_int8_cuda(x, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias, ln_eps, ff_chunks)
+
+
+def fused_attention_int8_block(x, wqq, sq, wkq, sk, wvq, sv, woq, so, bq, bk, bv, bo, mask, n_heads,
+                               ln_scale, ln_bias, ln_eps: float = 1e-12, group_heads: int = 2):
+    """LN(x + OutProj(MHA(QKV-proj(x)))) with int8 projections: x (B, L,
+    HID); wqq/wkq/wvq/woq (HID, HID) int8 with (HID,) f32 column scales;
+    biases and LN parameters (HID,); mask (B, L), 1 = real key. CUDA
+    tensors: x bf16, head width 64, 1 <= L <= 512."""
+    if not x.is_cuda:
+        return reference_attention_int8_block(x, wqq, sq, wkq, sk, wvq, sv, woq, so, bq, bk, bv, bo, mask,
+                                              n_heads, ln_scale, ln_bias, ln_eps, group_heads)
+    return _attention_int8_cuda(x, torch.cat([wqq, wkq, wvq], dim=1), torch.cat([sq, sk, sv]),
+                                torch.cat([bq, bk, bv]), woq, so, bo, mask, n_heads, ln_scale, ln_bias, ln_eps,
+                                group_heads)
+
+
+def fused_attention_int8_block_qkv(x, wqkv_q, sqkv, bqkv, woq, so, bo, mask, n_heads, ln_scale, ln_bias,
+                                   ln_eps: float = 1e-12, group_heads: int = 2):
+    """:func:`fused_attention_int8_block` with the Q, K and V codes packed
+    side by side: wqkv_q (HID, 3·HID) int8, sqkv and bqkv (3·HID,). The
+    encoder keeps them packed once per set of weights."""
+    if not x.is_cuda:
+        wqq, wkq, wvq = wqkv_q.chunk(3, dim=1)
+        sq, sk, sv = sqkv.chunk(3)
+        bq, bk, bv = bqkv.chunk(3)
+        return reference_attention_int8_block(x, wqq, sq, wkq, sk, wvq, sv, woq, so, bq, bk, bv, bo, mask,
+                                              n_heads, ln_scale, ln_bias, ln_eps, group_heads)
+    return _attention_int8_cuda(x, wqkv_q, sqkv, bqkv, woq, so, bo, mask, n_heads, ln_scale, ln_bias, ln_eps,
+                                group_heads)

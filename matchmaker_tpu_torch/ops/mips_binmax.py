@@ -14,23 +14,34 @@ On a GPU the bit tricks are exact (``Tensor.view(torch.int32)``,
 
 Kernels (``csrc/binmax_kernels.cu``), each with its plain version here:
 
-- :func:`_scan_cuda` / :func:`_scan_plain`: level-1 candidates (TPU K3
-  ``_binmax_kernel`` + ``_topk_per_bin_t``, with K5 ``_transpose_kernel``
-  folded into the store);
+- :func:`_scan_cuda` / :func:`_scan_plain`: level-1 candidates over a bf16
+  corpus (TPU K3 ``_binmax_kernel`` + ``_topk_per_bin_t``, with K5
+  ``_transpose_kernel`` folded into the store);
+- :func:`_scan_int8f_cuda` / :func:`_scan_int8f_plain`: the same over an
+  int8 corpus with one scale per 128-row bin, bf16 queries (TPU K8
+  ``_binmax_kernel_int8f``): codes × queries in f32, × bin scale;
+- :func:`_scan_int8_cuda` / :func:`_scan_int8_plain`: int8 corpus and int8
+  query codes (TPU K7 ``_binmax_kernel_int8``): exact int32 sums, then
+  (raw × bin scale) × query scale;
 - :func:`_level2_cuda` / :func:`_level2_plain`: level 2 (TPU K4);
 - :func:`_unpack_cuda` / :func:`_unpack_plain`: decode (TPU K6).
 
 The final top-k is ``torch.topk``, as JAX leaves it to XLA.
+:func:`binmax_rescore_topk` rescores an int8 scan's oversampled candidates
+exactly (a gather and a bf16 product with f32 sums in torch ops, as JAX
+leaves it to XLA).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from matchmaker_tpu_torch.ops import _build, matmul_f32
+from matchmaker_tpu_torch.ops import _build, matmul_codes, matmul_f32
+from matchmaker_tpu_torch.ops.mips_quant import quantize_queries
 
 BIN_WIDTH = 128
 LANE_BITS = 7
@@ -83,43 +94,116 @@ def _topk_per_bin_t(scores_t: torch.Tensor, base: int, n_valid: int, per_bin: in
     return top.transpose(1, 2).reshape(q, -1).T
 
 
-def _scan_plain(queries: torch.Tensor, corpus: torch.Tensor, n_valid: int, per_bin: int,
-                tile_rows: int) -> torch.Tensor:
-    """Plain level-1 candidates: queries (Q, D) bf16, corpus (N, D) bf16 with
-    N % tile_rows == 0 → (Q, N/128·per_bin) f32."""
-    q = queries.shape[0]
-    n = corpus.shape[0]
+def _select_plain(scores: torch.Tensor, n_valid: int, per_bin: int, tile_rows: int) -> torch.Tensor:
+    """(Q, N) f32 scores, N % tile_rows == 0 → (Q, N/128·per_bin) packed
+    level-1 candidates, rows at/after ``n_valid`` masked."""
+    q, n = scores.shape
     nb = tile_rows // BIN_WIDTH
-    scores = matmul_f32(queries, corpus.T)  # (Q, N) f32 of bf16 operands
     cols = torch.arange(n, device=scores.device)
     scores = torch.where(cols < n_valid, scores, _NEG_INF)
     top = _group_topk(scores.reshape(q, n // tile_rows, nb, BIN_WIDTH), per_bin, 0)
     return top.transpose(2, 3).reshape(q, -1)  # (Q, tiles, per_bin, nb) flattened
 
 
-def _scan_cuda(queries: torch.Tensor, corpus: torch.Tensor, n_valid: int, per_bin: int,
-               tile_rows: int, width: Optional[int] = None) -> torch.Tensor:
-    """Level-1 candidates on the card; ``width`` ≥ N/128·per_bin columns are
-    allocated and those past the candidates filled with -inf (level 2's
-    padding, without a copy)."""
+def _row_scales(bin_scales: torch.Tensor) -> torch.Tensor:
+    """(N/128, 1) bin scales → (N,) per-row scales."""
+    return bin_scales.reshape(-1).float().repeat_interleave(BIN_WIDTH)
+
+
+def _scan_plain(queries: torch.Tensor, corpus: torch.Tensor, n_valid: int, per_bin: int,
+                tile_rows: int) -> torch.Tensor:
+    """Plain level-1 candidates: queries (Q, D) bf16, corpus (N, D) bf16 with
+    N % tile_rows == 0 → (Q, N/128·per_bin) f32."""
+    return _select_plain(matmul_f32(queries, corpus.T), n_valid, per_bin, tile_rows)
+
+
+def _scan_int8f_plain(queries: torch.Tensor, corpus: torch.Tensor, bin_scales: torch.Tensor, n_valid: int,
+                      per_bin: int, tile_rows: int) -> torch.Tensor:
+    """Plain mixed candidates: queries (Q, D) bf16, corpus (N, D) int8 codes
+    (exact in bf16), bin_scales (N/128, 1) f32: (codes · queries in f32) × bin scale."""
+    scores = matmul_f32(queries, corpus.to(torch.bfloat16).T) * _row_scales(bin_scales)[None, :]
+    return _select_plain(scores, n_valid, per_bin, tile_rows)
+
+
+def _scan_int8_plain(queries: torch.Tensor, corpus: torch.Tensor, bin_scales: torch.Tensor,
+                     query_scales: torch.Tensor, n_valid: int, per_bin: int, tile_rows: int) -> torch.Tensor:
+    """Plain int8 candidates: query codes (Q, D) int8 with scales (Q, 1),
+    corpus codes (N, D) int8 with bin scales (N/128, 1): (raw × bin scale) ×
+    query scale, raw the exact int32 sum."""
+    raw = matmul_codes(queries, corpus.T)
+    scores = raw * _row_scales(bin_scales)[None, :] * query_scales.reshape(-1, 1).float()
+    return _select_plain(scores, n_valid, per_bin, tile_rows)
+
+
+def _scan_output(name: str, queries: torch.Tensor, corpus: torch.Tensor, per_bin: int, tile_rows: int,
+                 width: Optional[int], dim_grain: int) -> torch.Tensor:
+    """Check a scan's geometry and allocate its (Q, width) output; columns
+    past the N/128·per_bin candidates are -inf (level 2's padding, without
+    a copy)."""
     q, dim = queries.shape
     n = corpus.shape[0]
-    if per_bin not in (1, 2, 4, 8) or dim % 32 or n % tile_rows or tile_rows % BIN_WIDTH:
-        raise ValueError(f"binmax scan: the CUDA kernel needs per_bin in (1, 2, 4, 8), D % 32 == 0 and "
+    if per_bin not in (1, 2, 4, 8) or dim % dim_grain or n % tile_rows or tile_rows % BIN_WIDTH:
+        raise ValueError(f"{name}: the CUDA kernel needs per_bin in (1, 2, 4, 8), D % {dim_grain} == 0 and "
                          f"N % tile_rows == 0; got per_bin={per_bin}, D={dim}, N={n}, tile_rows={tile_rows}")
+    n_cands = n // BIN_WIDTH * per_bin
+    out = torch.empty((q, width or n_cands), dtype=torch.float32, device=corpus.device)
+    if out.shape[1] > n_cands:
+        out[:, n_cands:].fill_(_NEG_INF)
+    return out
+
+
+def _scan_cuda(queries: torch.Tensor, corpus: torch.Tensor, n_valid: int, per_bin: int,
+               tile_rows: int, width: Optional[int] = None) -> torch.Tensor:
+    """Level-1 candidates of a bf16 corpus on the card (K3), ``width`` ≥
+    N/128·per_bin output columns."""
     _build.check_cuda(queries, "binmax_candidates.queries", torch.bfloat16)
     _build.check_cuda(corpus, "binmax_candidates.corpus", torch.bfloat16)
-    n_cands = n // BIN_WIDTH * per_bin
-    width = width or n_cands
+    q, dim = queries.shape
+    n = corpus.shape[0]
     with torch.cuda.device(corpus.device):
-        out = torch.empty((q, width), dtype=torch.float32, device=corpus.device)
-        if width > n_cands:
-            out[:, n_cands:].fill_(_NEG_INF)
+        out = _scan_output("binmax scan", queries, corpus, per_bin, tile_rows, width, 32)
         _build.call("mm_binmax_scan", _build.ptr(queries), _build.ptr(corpus), _build.ptr(out),
-                    q, n, dim, min(n_valid, n), per_bin, tile_rows // BIN_WIDTH, width,
+                    q, n, dim, min(n_valid, n), per_bin, tile_rows // BIN_WIDTH, out.shape[1],
                     _build.stream(corpus.device))
     _build.LAUNCHES["binmax_candidates"] += 1
     return out
+
+
+def _scan_int8_launch(queries, corpus, bin_scales, query_scales, n_valid, per_bin, tile_rows, width, mixed):
+    name = "binmax_candidates_int8f" if mixed else "binmax_candidates_int8"
+    _build.check_cuda(queries, f"{name}.queries", torch.bfloat16 if mixed else torch.int8)
+    _build.check_cuda(corpus, f"{name}.corpus", torch.int8)
+    q, dim = queries.shape
+    n = corpus.shape[0]
+    bin_scales = bin_scales.reshape(-1).float().contiguous()
+    _build.check_cuda(bin_scales, f"{name}.bin_scales", torch.float32)
+    if bin_scales.shape[0] != n // BIN_WIDTH:
+        raise ValueError(f"{name}: {bin_scales.shape[0]} bin scales for {n} rows")
+    # held in a name until the launch: the kernel reads it on the stream
+    q_scales = None if mixed else query_scales.reshape(-1).float().contiguous()
+    if not mixed:
+        _build.check_cuda(q_scales, f"{name}.query_scales", torch.float32)
+        if q_scales.shape[0] != q:
+            raise ValueError(f"{name}: {q_scales.shape[0]} query scales for {q} queries")
+    with torch.cuda.device(corpus.device):
+        out = _scan_output(name, queries, corpus, per_bin, tile_rows, width, 32 if mixed else 64)
+        qs = ctypes.c_void_p() if mixed else _build.ptr(q_scales)
+        _build.call("mm_binmax_scan_int8", _build.ptr(queries), _build.ptr(corpus), _build.ptr(bin_scales), qs,
+                    _build.ptr(out), q, n, dim, min(n_valid, n), per_bin, tile_rows // BIN_WIDTH, out.shape[1],
+                    int(mixed), _build.stream(corpus.device))
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def _scan_int8f_cuda(queries, corpus, bin_scales, n_valid, per_bin, tile_rows, width=None):
+    """Mixed candidates on the card (K8): bf16 queries, int8 corpus codes."""
+    return _scan_int8_launch(queries, corpus, bin_scales, None, n_valid, per_bin, tile_rows, width, True)
+
+
+def _scan_int8_cuda(queries, corpus, bin_scales, query_scales, n_valid, per_bin, tile_rows, width=None):
+    """Int8 candidates on the card (K7): int8 query codes, int8 corpus codes."""
+    return _scan_int8_launch(queries, corpus, bin_scales, query_scales, n_valid, per_bin, tile_rows, width,
+                             False)
 
 
 def _level2_width(c: int, bin_width: int) -> int:
@@ -165,24 +249,49 @@ def _level2_reduce(packed: torch.Tensor, bin_width: int = L2_WIDE) -> torch.Tens
 
 def binmax_candidates(queries: torch.Tensor, corpus: torch.Tensor, n_valid: Optional[int] = None,
                       per_bin: int = 2, tile_rows: int = 2048,
-                      level2: Optional[int] = None) -> torch.Tensor:
+                      level2: Optional[int] = None,
+                      corpus_scales: Optional[torch.Tensor] = None,
+                      query_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Packed per-bin candidates over the whole corpus, (Q, N/128·per_bin)
     f32 (or the level-2 reduction when ``level2`` is the group width).
-    Store the corpus bf16 and padded to :func:`padding_grain` to avoid a copy."""
+    Store the corpus bf16 (or int8) and padded to :func:`padding_grain` to
+    avoid a copy.
+
+    An int8 corpus needs ``corpus_scales`` (N/128, 1) f32, one per 128-row
+    bin (:func:`ops.mips_quant.quantize_corpus_binwise`). With
+    ``query_scales`` (Q, 1) the queries are int8 codes (K7); without, float
+    queries are taken in bf16 against the codes (the mixed mode, K8)."""
     n = corpus.shape[0]
-    if corpus.dtype != torch.bfloat16:
+    int8_mode = corpus.dtype == torch.int8
+    mixed = int8_mode and query_scales is None
+    if int8_mode:
+        if corpus_scales is None or n % BIN_WIDTH or corpus_scales.shape[0] != n // BIN_WIDTH:
+            raise ValueError("an int8 corpus needs (N/128, 1) bin scales and N % 128 == 0 "
+                             "(quantize_corpus_binwise pads)")
+    elif corpus.dtype != torch.bfloat16:
         corpus = corpus.to(torch.bfloat16)
     grain = padding_grain(tile_rows, per_bin)
     if n % grain:
         corpus = F.pad(corpus, (0, 0, 0, grain - n % grain))
+        if int8_mode:  # padded bins: scale 0, so scores exactly 0, masked by n_valid
+            corpus_scales = F.pad(corpus_scales.reshape(-1, 1), (0, 0, 0, (grain - n % grain) // BIN_WIDTH))
     n_valid = n if n_valid is None else n_valid
-    qb = queries.to(torch.bfloat16).contiguous()
+    qb = queries.contiguous() if int8_mode and not mixed else queries.to(torch.bfloat16).contiguous()
     if corpus.is_cuda:
         width = None
         if level2:
             n_cands = corpus.shape[0] // BIN_WIDTH * per_bin
             width = -(-n_cands // _L2_BLOCK) * _L2_BLOCK
-        packed = _scan_cuda(qb, corpus, n_valid, per_bin, tile_rows, width)
+        if mixed:
+            packed = _scan_int8f_cuda(qb, corpus, corpus_scales, n_valid, per_bin, tile_rows, width)
+        elif int8_mode:
+            packed = _scan_int8_cuda(qb, corpus, corpus_scales, query_scales, n_valid, per_bin, tile_rows, width)
+        else:
+            packed = _scan_cuda(qb, corpus, n_valid, per_bin, tile_rows, width)
+    elif mixed:
+        packed = _scan_int8f_plain(qb, corpus, corpus_scales, n_valid, per_bin, tile_rows)
+    elif int8_mode:
+        packed = _scan_int8_plain(qb, corpus, corpus_scales, query_scales, n_valid, per_bin, tile_rows)
     else:
         packed = _scan_plain(qb, corpus, n_valid, per_bin, tile_rows)
     if level2:
@@ -234,11 +343,17 @@ def unpack_candidates(packed_vals: torch.Tensor, positions: torch.Tensor, tile_r
 
 def binmax_scan_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                      n_valid: Optional[int] = None, per_bin: int = 2,
-                     tile_rows: int = 2048) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k over a bf16 corpus: candidate scan + one exact top-k; the same
-    (values, ids) contract as :func:`f16_scan_topk` (ids int64, -1 for
-    empty slots). The tournament level follows the real pool size
-    (``n_valid`` rows), as in JAX."""
+                     tile_rows: int = 2048, corpus_scales: Optional[torch.Tensor] = None,
+                     mixed_queries: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over a bf16 (or int8 + bin scales) corpus: candidate scan + one
+    exact top-k; the same (values, ids) contract as :func:`f16_scan_topk`
+    (ids int64, -1 for empty slots). The tournament level follows the real
+    pool size (``n_valid`` rows), as in JAX. Over an int8 corpus, float
+    queries are quantized per row here (scale max(absmax / 127, 1e-10)),
+    unless ``mixed_queries`` keeps them bf16 against the codes."""
+    query_scales = None
+    if corpus.dtype == torch.int8 and not mixed_queries:
+        queries, query_scales = quantize_queries(queries)
     n_cands = (corpus.shape[0] if n_valid is None else n_valid) // BIN_WIDTH * per_bin
     if n_cands >= 128 * k:
         level2 = L2_WIDE
@@ -247,6 +362,50 @@ def binmax_scan_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     else:
         level2 = None
     packed = binmax_candidates(queries, corpus, n_valid=n_valid, per_bin=per_bin,
-                               tile_rows=tile_rows, level2=level2)
+                               tile_rows=tile_rows, level2=level2, corpus_scales=corpus_scales,
+                               query_scales=query_scales)
     top_packed, pos = torch.topk(packed, min(k, packed.shape[1]), dim=1)
     return unpack_candidates(top_packed, pos, tile_rows, per_bin, level2)
+
+
+# rows of the (queries, fetch, D) rescore gather held at once
+_RESCORE_GATHER_ELEMENTS = 1 << 26
+
+
+def binmax_rescore_topk(queries: torch.Tensor, values: torch.Tensor, bin_scales: torch.Tensor, k: int,
+                        oversample: int = 4, per_bin: int = 4, n_valid: Optional[int] = None,
+                        rescore_corpus: Optional[torch.Tensor] = None,
+                        tile_rows: int = 2048) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Int8 binmax candidates + an exact rescore of oversample·k of them.
+
+    The int8 scan (K7) fetches the candidates; each fetched row is then
+    scored again as bf16(query) · its row in f32 sums: the int8 codes
+    (exact in bf16) × the bin scale, or the 16-bit ``rescore_corpus`` row.
+    The gather runs in query chunks to bound its memory."""
+    n = values.shape[0]
+    pool = max((n // BIN_WIDTH) * per_bin, 1)
+    fetch = min(max(k * oversample, k), n, max(pool, k))
+    cand_vals, cand_idx = binmax_scan_topk(queries, values, fetch, n_valid=n_valid, per_bin=per_bin,
+                                           tile_rows=tile_rows, corpus_scales=bin_scales)
+    valid = torch.isfinite(cand_vals) & (cand_idx >= 0)
+    safe = cand_idx.clamp(0, n - 1)
+    qf = queries.to(torch.bfloat16)
+    source = values if rescore_corpus is None else rescore_corpus
+    scales = bin_scales.reshape(-1).float()
+    exact = torch.empty(cand_vals.shape, dtype=torch.float32, device=cand_vals.device)
+    chunk = max(1, _RESCORE_GATHER_ELEMENTS // (fetch * values.shape[1]))
+    for s in range(0, qf.shape[0], chunk):
+        rows = source[safe[s:s + chunk]].to(torch.bfloat16)  # (chunk, fetch, D)
+        part = matmul_f32(rows, qf[s:s + chunk, :, None])[..., 0]
+        if rescore_corpus is None:
+            part = part * scales[safe[s:s + chunk] // BIN_WIDTH]
+        exact[s:s + chunk] = part
+    exact = torch.where(valid, exact, _NEG_INF)
+    k_eff = min(k, fetch)
+    vals, pos = torch.topk(exact, k_eff, dim=1)
+    idx = torch.gather(cand_idx, 1, pos)
+    idx = torch.where(torch.isfinite(vals), idx, -1)
+    if k_eff < k:
+        vals = F.pad(vals, (0, k - k_eff), value=_NEG_INF)
+        idx = F.pad(idx, (0, k - k_eff), value=-1)
+    return vals, idx

@@ -14,9 +14,8 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from matchmaker_tpu.obs.perf_monitor import PerformanceMonitor
-
 from matchmaker_tpu_torch.data.loaders import device_prefetch, single_sequence_loader
+from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
 
 
 class BlockWriter:

@@ -1,8 +1,8 @@
 """The training driver: counterpart of ``matchmaker_tpu/training/trainer.py``,
 single process on one device.
 
-Config-driven build, epoch loop over the triple loader (the JAX package's
-jax-free ``triple_training_loader``, batches placed on the device ahead by
+Config-driven build, epoch loop over the triple loader
+(``data/loaders.py:triple_training_loader``, batches placed on the device ahead by
 ``device_prefetch``), continuous validation every ``validate_every_n_batches``
 and at each epoch's end with best-checkpoint saving and rotation, early
 stopping, the loss CSV every 100 steps, ``max_training_batches``, an
@@ -27,15 +27,13 @@ from typing import Dict
 
 import torch
 
-from matchmaker_tpu.data.loaders import triple_training_loader
-from matchmaker_tpu.obs.perf_monitor import PerformanceMonitor
-
-from matchmaker_tpu_torch.data.loaders import device_prefetch
+from matchmaker_tpu_torch.data.loaders import device_prefetch, triple_training_loader
 from matchmaker_tpu_torch.data.tokenization import build_tokenizer
 from matchmaker_tpu_torch.evaluation import evaluate_model, save_sorted_results, test_model, validate_model
 from matchmaker_tpu_torch.experiment import EarlyStopping, save_best_info
 from matchmaker_tpu_torch.losses import get_loss
 from matchmaker_tpu_torch.models import get_model, init_params
+from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
 from matchmaker_tpu_torch.obs.scalars import ScalarWriter, collect_learned_scalars
 from matchmaker_tpu_torch.training.checkpoints import (
     BEST_MODEL,

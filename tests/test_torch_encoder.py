@@ -167,8 +167,11 @@ def test_unported_models_raise():
     for model in ("knrm", "colbert", "maxP->bert_dot"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(_bert_dot_config(model=model), tok)
+    # the int8 halves are ported for inference; under autograd they are refused
+    enc = TransformerEncoderLM(EncoderConfig.tiny(fused_attention=True, int8_mlp=True))
+    ids, mask = _ids_mask(2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerEncoderLM(EncoderConfig.tiny(int8_mlp=True))
+        enc(torch.from_numpy(ids).long(), torch.from_numpy(mask))
 
 
 def test_device_prefetch_keeps_order_and_raises():

@@ -1,0 +1,218 @@
+"""The port's int8 encoder halves (matchmaker_tpu_torch/ops/fused_int8.py) and
+the int8 encoder against the JAX package.
+
+On CPU tensors the port's wrappers run their plain versions, which repeat
+the CUDA kernels' arithmetic; the JAX side runs its Pallas kernels in
+interpret mode. Sizes and tolerances are the JAX tests' own
+(tests/test_fused_encoder.py: B 4, L 24, HID 64, FF 128, 4 heads, a padded
+mask row; atol 2e-4, rtol 1e-4)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from matchmaker_tpu.models.encoder import EncoderConfig as JaxEncoderConfig
+from matchmaker_tpu.models.encoder import TransformerEncoderLM as JaxEncoder
+from matchmaker_tpu.ops import fused_int8 as jf
+from matchmaker_tpu_torch.models.encoder import EncoderConfig, TransformerEncoderLM
+from matchmaker_tpu_torch.models.weights import flax_to_state_dict
+from matchmaker_tpu_torch.ops import _build, matmul_codes
+from matchmaker_tpu_torch.ops import fused_int8 as tf
+
+B, L, HID, FF, NH = 4, 24, 64, 128, 4
+
+
+def _layer_inputs(seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(B, L, HID)) * 0.5).astype(np.float32)
+    ws = [(rng.normal(size=(HID, HID)) * 0.1).astype(np.float32) for _ in range(4)]
+    bs = [(rng.normal(size=(HID,)) * 0.05).astype(np.float32) for _ in range(4)]
+    w1 = (rng.normal(size=(HID, FF)) * 0.1).astype(np.float32)
+    w2 = (rng.normal(size=(FF, HID)) * 0.1).astype(np.float32)
+    b1 = (rng.normal(size=(FF,)) * 0.05).astype(np.float32)
+    b2 = (rng.normal(size=(HID,)) * 0.05).astype(np.float32)
+    g = (rng.normal(size=(HID,)) * 0.1 + 1).astype(np.float32)
+    be = (rng.normal(size=(HID,)) * 0.1).astype(np.float32)
+    mask = np.ones((B, L), np.float32)
+    mask[2, 18:] = 0
+    return dict(x=x, ws=ws, bs=bs, w1=w1, w2=w2, b1=b1, b2=b2, g=g, be=be, mask=mask)
+
+
+def _quantized(w):
+    """The JAX package's codes and scales of a weight, as numpy."""
+    return [np.asarray(a) for a in jf.quantize_weights_per_col(jnp.asarray(w))]
+
+
+def _t(arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def _j(arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+@pytest.mark.parametrize("shape,scale", [((64, 128), 0.1), ((768, 96), 0.02), ((32, 16), 0.0)])
+def test_quantize_weights_per_col_bit_identical(shape, scale):
+    """Codes and scales from the f32 weights equal the JAX package's bit for
+    bit (a zero weight takes the 1e-12 scale floor)."""
+    w = (np.random.default_rng(5).normal(size=shape) * scale).astype(np.float32)
+    jq, js = _quantized(w)
+    tq, ts = tf.quantize_weights_per_col(torch.from_numpy(w))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), jq)
+    np.testing.assert_array_equal(ts.numpy().view(np.int32), js.view(np.int32))
+
+
+@pytest.mark.parametrize("ff_chunks", [2, 4])
+def test_mlp_int8_block_matches_jax_kernel(ff_chunks):
+    """K9's plain version against the interpreted Pallas kernel."""
+    p = _layer_inputs(2)
+    w1q, s1 = _quantized(p["w1"])
+    w2q, s2 = _quantized(p["w2"])
+    args = (p["x"], w1q, s1, p["b1"], w2q, s2, p["b2"], p["g"], p["be"])
+    want = np.asarray(jf.fused_mlp_int8_block(*_j(args), ff_chunks=ff_chunks))
+    _build.reset_launches()
+    got = tf.fused_mlp_int8_block(*_t(args), ff_chunks=ff_chunks)
+    assert _build.LAUNCHES["fused_mlp_int8_block"] == 0  # CPU tensor → plain version
+    assert got.shape == (B, L, HID) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_attention_int8_block_matches_jax_kernel(packed):
+    """K10's plain version (unpacked and Q/K/V-packed entry points) against
+    the interpreted Pallas kernel, with a padded example."""
+    p = _layer_inputs(4)
+    quant = [_quantized(w) for w in p["ws"]]
+    qargs = [a for pair in quant for a in pair]
+    want = np.asarray(jf.fused_attention_int8_block(
+        *_j([p["x"], *qargs, *p["bs"], p["mask"]]), NH, jnp.asarray(p["g"]), jnp.asarray(p["be"])))
+    _build.reset_launches()
+    x, mask, g, be = _t([p["x"], p["mask"], p["g"], p["be"]])
+    if packed:
+        wqkv = torch.from_numpy(np.concatenate([quant[i][0] for i in range(3)], axis=1))
+        sqkv = torch.from_numpy(np.concatenate([quant[i][1] for i in range(3)]))
+        bqkv = torch.from_numpy(np.concatenate(p["bs"][:3]))
+        got = tf.fused_attention_int8_block_qkv(x, wqkv, sqkv, bqkv, *_t(quant[3]), torch.from_numpy(p["bs"][3]),
+                                                mask, NH, g, be)
+    else:
+        got = tf.fused_attention_int8_block(x, *_t(qargs), *_t(p["bs"]), mask, NH, g, be)
+    assert _build.LAUNCHES["fused_attention_int8_block"] == 0
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=1e-4)
+
+
+def test_int8_dot_refuses_an_inexact_depth():
+    with pytest.raises(ValueError, match="exact"):
+        matmul_codes(torch.ones(2, 2048, dtype=torch.int8), torch.ones(2048, 3, dtype=torch.int8))
+
+
+def _ids_mask(seed, b=4, l=24, vocab=900):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(2, vocab, size=(b, l)).astype(np.int32)
+    mask = np.ones((b, l), np.float32)
+    mask[1, 15:] = 0
+    mask[3, 5:] = 0
+    ids[mask == 0] = 0
+    return ids, mask
+
+
+def _token_cosine(a, b):
+    a = a.reshape(-1, a.shape[-1]).astype(np.float64)
+    b = b.reshape(-1, b.shape[-1]).astype(np.float64)
+    return ((a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))).min()
+
+
+@pytest.mark.parametrize("flags", [dict(int8_mlp=True), dict(int8_mlp=True, int8_attention=True)])
+def test_int8_encoder_matches_flax(flags):
+    """A tiny int8 encoder with the JAX parameters carried across by
+    models/weights.py: per-token cosine >= 0.9999 against JAX's."""
+    kw = dict(fused_attention=True, **flags)
+    ids, mask = _ids_mask(0)
+    jm = JaxEncoder(JaxEncoderConfig.tiny(**kw), jnp.float32)
+    params = jm.init(jax.random.PRNGKey(1), ids, mask)["params"]
+    want = np.asarray(jm.apply({"params": params}, ids, mask))
+    tm = TransformerEncoderLM(EncoderConfig.tiny(**kw), torch.float32)
+    tm.load_state_dict(flax_to_state_dict(params))
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(ids).long(), torch.from_numpy(mask)).numpy()
+    assert _token_cosine(got, want) >= 0.9999
+    np.testing.assert_allclose(got, want, atol=2e-3)
+
+
+def test_int8_encoder_refuses_autograd_and_caches_codes():
+    """The int8 halves are forward-only: with autograd on the layer raises.
+    Without it the codes are quantized once from the f32 parameters and
+    rebuilt after the parameters are written."""
+    ids, mask = _ids_mask(3)
+    ids, mask = torch.from_numpy(ids).long(), torch.from_numpy(mask)
+    tm = TransformerEncoderLM(EncoderConfig.tiny(fused_attention=True, int8_mlp=True, int8_attention=True),
+                              torch.float32)
+    g = torch.Generator().manual_seed(0)
+    tm.load_state_dict({k: torch.randn(v.shape, generator=g) * 0.1 for k, v in tm.state_dict().items()})
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        tm(ids, mask)
+    with torch.no_grad():
+        first = tm(ids, mask)
+        cached = tm.layer_0._int8_cache[1]
+        assert tm.layer_0._int8_weights() is cached
+        w1q, s1 = tf.quantize_weights_per_col(tm.layer_0.mlp_in.kernel)
+        assert torch.equal(cached["w1"], w1q) and torch.equal(cached["s1"], s1)
+        tm.load_state_dict({k: v * 0.5 for k, v in tm.state_dict().items()})
+        second = tm(ids, mask)
+        assert tm.layer_0._int8_cache[1] is not cached
+    assert not torch.allclose(first, second)
+
+
+def _mlp_int8_per_row_gelu_codes(x, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias, ff_chunks=4):
+    """The int8 MLP half with one gelu scale per row over all FF chunks: the
+    wrong granularity (the kernel scales per row and chunk)."""
+    b, l, hid = x.shape
+    xf = x.float().reshape(b * l, hid)
+    xq, rs = tf._quant_rows(xf)
+    ch = w1q.shape[1] // ff_chunks
+    chunks = [slice(c * ch, (c + 1) * ch) for c in range(ff_chunks)]
+    gelu = [tf._gelu_poly(matmul_codes(xq, w1q[:, sl]) * (rs * s1[sl]) + b1[sl]) for sl in chunks]
+    _, hs = tf._quant_rows(torch.cat(gelu, dim=1))
+    acc = xf + b2
+    for sl, h in zip(chunks, gelu):
+        hq = torch.clamp(torch.round(h / hs), -127, 127).to(torch.int8)
+        acc = acc + matmul_codes(hq, w2q[sl, :]) * (hs * s2)
+    return tf._layer_norm_f32(acc, ln_scale, ln_bias, 1e-12).to(x.dtype).reshape(b, l, hid)
+
+
+@pytest.mark.parametrize("half", ["mlp", "attention"])
+def test_card_bar_catches_a_wrong_scale_granularity(half):
+    """The card checks hold K9/K10 to a mean |d| <= 5e-5 against their plain
+    versions, beside K1/K2's row cosine >= 0.999 and max |d| <= 0.1. At
+    DistilBERT width a wrong scale granularity (gelu codes per row instead
+    of per row and FF chunk; attention codes per row instead of per group of
+    2 heads) passes the cosine and max bars but not the mean one."""
+    hid, ff, heads, b, l = 768, 3072, 12, 4, 30
+    rng = np.random.default_rng(11)
+
+    def q(rows, cols):
+        return tf.quantize_weights_per_col(torch.from_numpy(rng.normal(size=(rows, cols)).astype(np.float32)
+                                                            * rows ** -0.5))
+
+    def v(n, std, mean=0.0):
+        return torch.from_numpy((rng.normal(size=n) * std + mean).astype(np.float32))
+
+    x = torch.from_numpy(rng.normal(size=(b, l, hid)).astype(np.float32)).to(torch.bfloat16)
+    ln = (v(hid, 0.1, 1.0), v(hid, 0.1))
+    if half == "mlp":
+        mlp = (*q(hid, ff), v(ff, 0.05), *q(ff, hid), v(hid, 0.05))
+        right, wrong = tf.reference_mlp_int8_block(x, *mlp, *ln), _mlp_int8_per_row_gelu_codes(x, *mlp, *ln)
+    else:
+        mask = torch.ones(b, l)
+        mask[0, l // 2:] = 0.0
+        attn = (*q(hid, hid), *q(hid, hid), *q(hid, hid), *q(hid, hid), *(v(hid, 0.05) for _ in range(4)), mask,
+                heads)
+        right = tf.reference_attention_int8_block(x, *attn, *ln)
+        wrong = tf.reference_attention_int8_block(x, *attn, *ln, group_heads=heads)
+    d = (wrong.float() - right.float()).abs()
+    cos = torch.nn.functional.cosine_similarity(wrong.float().reshape(-1, hid), right.float().reshape(-1, hid), dim=-1)
+    print(f"{half}: min row cosine {float(cos.min())}, max |d| {float(d.max())}, mean |d| {float(d.mean())}")
+    assert float(cos.min()) >= 0.999 and float(d.max()) <= 0.1
+    assert float(d.mean()) >= 20 * 5e-5

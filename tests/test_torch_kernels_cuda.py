@@ -21,7 +21,9 @@ from matchmaker_tpu_torch.models.weights import init_parameters
 from matchmaker_tpu_torch.ops import _build
 from matchmaker_tpu_torch.ops import fused_attention as fa
 from matchmaker_tpu_torch.ops import fused_backward as fb
+from matchmaker_tpu_torch.ops import fused_int8 as fi
 from matchmaker_tpu_torch.ops import mips_binmax as mb
+from matchmaker_tpu_torch.ops import mips_quant as mq
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -345,13 +347,123 @@ def test_wrappers_count_launches(device):
     assert _build.LAUNCHES["binmax_candidates"] == 1
 
 
+# ---- the int8 serving kernels (K9, K10, K8, K7) -------------------------------
+
+def _int8_layer(hid, ff, device, seed):
+    """Per-column codes and scales of random f32 weights, f32 biases and LN."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def q(rows, cols):
+        return fi.quantize_weights_per_col(torch.randn(rows, cols, generator=g, device=device) * rows ** -0.5)
+
+    def v(n, std, mean=0.0):
+        return torch.randn(n, generator=g, device=device) * std + mean
+
+    attn = [*q(hid, hid), *q(hid, hid), *q(hid, hid), *q(hid, hid), v(hid, 0.05), v(hid, 0.05), v(hid, 0.05),
+            v(hid, 0.05)]
+    mlp = [*q(hid, ff), v(ff, 0.05), *q(ff, hid), v(hid, 0.05)]
+    return attn, mlp, (v(hid, 0.1, 1.0), v(hid, 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l", [(4, 128), (3, 200), (5, 30), (256, 128)])
+def test_int8_halves_kernels_match_plain(device, b, l):
+    """K10 and K9 at DistilBERT width against their plain versions on the
+    card: row cosine >= 0.999, max |d| <= 0.1, the bar K1/K2 meet, and a
+    mean |d| <= 5e-5. The plain versions round step by step as the kernels
+    do, so only rare rounding flips differ; a wrong scale granularity (gelu
+    codes per row instead of per FF chunk, attention codes per row instead
+    of per head group) moves the mean |d| to >= 1e-3 at this width."""
+    hid, heads = 768, 12
+    attn, mlp, ln = _int8_layer(hid, 3072, device, seed=b * 1000 + l)
+    x = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    mask = torch.ones(b, l, device=device)
+    mask[0, l // 2 + 1:] = 0.0
+    for kernel, plain, args in ((fi.fused_attention_int8_block, fi.reference_attention_int8_block,
+                                 (*attn, mask, heads, *ln)),
+                                (fi.fused_mlp_int8_block, fi.reference_mlp_int8_block, (*mlp, *ln))):
+        got, want = kernel(x, *args), plain(x, *args)
+        torch.cuda.synchronize()
+        assert got.shape == x.shape and got.dtype == torch.bfloat16
+        cos, err = _rows_close(got, want)
+        mean = float((got.float() - want.float()).abs().mean())
+        print(f"{kernel.__name__} B={b} L={l}: min row cosine {cos}, max |d| {err}, mean |d| {mean}")
+        assert cos >= 0.999 and err <= 0.1, (kernel.__name__, cos, err)
+        assert mean <= 5e-5, (kernel.__name__, mean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,cols,groups", [(torch.bfloat16, 768, 1), (torch.float32, 3072, 4),
+                                               (torch.float32, 768, 6)])
+def test_int8_quantize_kernel_matches_plain_bit_for_bit(device, dtype, cols, groups):
+    """The activation quantizer of K9/K10 (x per row, gelu per row and FF
+    chunk, attention output per row and head group): codes and scales equal
+    the plain version's, the scale an IEEE division by 127."""
+    x = (torch.randn(1000, cols, device=device) * 3).to(dtype)
+    x[7] = 0.0  # an all-zero row takes the 1e-12 floor
+    q, s = fi._quant_groups_cuda(x, groups)
+    w = cols // groups
+    parts = [fi._quant_rows(x[:, g * w:(g + 1) * w].float()) for g in range(groups)]
+    assert torch.equal(s, torch.cat([p[1] for p in parts], dim=1))
+    assert torch.equal(q, torch.cat([p[0] for p in parts], dim=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("n,per_bin", [(16_384, 2), (262_144, 8)])
+def test_int8_scan_kernels_match_plain(device, mixed, n, per_bin):
+    """K8 (bf16 queries) and K7 (int8 queries) against their plain versions:
+    >= 99.9 % identical candidates."""
+    q, c = _corpus(n, 768, device, seed=per_bin)
+    values, scales = mq.quantize_corpus_binwise(c.float().cpu().numpy())
+    values, scales = torch.from_numpy(values).to(device), torch.from_numpy(scales).to(device)
+    if mixed:
+        got = mb._scan_int8f_cuda(q, values, scales, n, per_bin, 2048)
+        want = mb._scan_int8f_plain(q, values, scales, n, per_bin, 2048)
+    else:
+        q8, qs = mq.quantize_queries(q)
+        got = mb._scan_int8_cuda(q8, values, scales, qs, n, per_bin, 2048)
+        want = mb._scan_int8_plain(q8, values, scales, qs, n, per_bin, 2048)
+    torch.cuda.synchronize()
+    share, _ = _candidate_agreement(got, want, 2048, per_bin)
+    assert share >= 0.999, share
+
+
+@pytest.mark.cuda
+def test_int8_wrappers_count_cuda_launches_only(device):
+    """K7-K10 count one launch per wrapper call on the card; a CPU call runs
+    the plain version and counts nothing."""
+    _build.reset_launches()
+    attn, mlp, ln = _int8_layer(768, 3072, device, seed=3)
+    x = torch.randn(2, 64, 768, device=device).to(torch.bfloat16)
+    mask = torch.ones(2, 64, device=device)
+    fi.fused_attention_int8_block(x, *attn, mask, 12, *ln)
+    fi.fused_mlp_int8_block(x, *mlp, *ln)
+    q, c = _corpus(16_384, 768, device, seed=5)
+    values, scales = mq.quantize_corpus_binwise(c.float().cpu().numpy())
+    values, scales = torch.from_numpy(values).to(device), torch.from_numpy(scales).to(device)
+    mb.binmax_scan_topk(q, values, 10, per_bin=2, corpus_scales=scales)
+    mb.binmax_scan_topk(q, values, 10, per_bin=2, corpus_scales=scales, mixed_queries=True)
+    torch.cuda.synchronize()
+    want = {"fused_attention_int8_block": 1, "fused_mlp_int8_block": 1, "binmax_candidates_int8": 1,
+            "binmax_candidates_int8f": 1}
+    assert {k: _build.LAUNCHES[k] for k in want} == want
+    cpu = lambda t: t.cpu()  # noqa: E731
+    fi.fused_mlp_int8_block(x.cpu(), *map(cpu, mlp), *map(cpu, ln))
+    mb.binmax_scan_topk(q.cpu(), values.cpu(), 10, per_bin=2, corpus_scales=scales.cpu())
+    assert {k: _build.LAUNCHES[k] for k in want} == want
+
+
 @pytest.mark.parametrize("module", ["matchmaker_tpu_torch.cli.dense_retrieval", "matchmaker_tpu_torch.cli.train",
-                                    "matchmaker_tpu_torch.training.trainer"])
+                                    "matchmaker_tpu_torch.training.trainer", "matchmaker_tpu_torch.retrieval.indexes",
+                                    "matchmaker_tpu_torch.ops.fused_int8"])
 def test_cli_import_loads_no_jax_flax_or_yaml(module):
-    """The machine with the card has no jax, flax, optax or PyYAML: the port's
-    entry points must import none of them."""
+    """The machine with the card has no jax, flax, optax or PyYAML, and the
+    port depends on nothing of the JAX package: the port's entry points must
+    import none of them, ``matchmaker_tpu`` included."""
     code = (f"import sys, {module}; "
-            "print(sorted(m for m in ('jax', 'flax', 'optax', 'yaml') if m in sys.modules))")
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'flax', 'optax', 'yaml', 'matchmaker_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120, check=True)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
