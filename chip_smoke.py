@@ -12,9 +12,14 @@ Phases (any failed check raises, and the script exits non-zero):
    backward kernels (K11, K12) at the training shapes (64, 200) and
    (32, 30), at (256, 200) and at an odd L = 77 with padded keys, every
    gradient compared; the binmax scan (bf16 K3, mixed K8, int8 K7), level 2
-   and unpack on 262,144 x 768 rows and 256 queries; with CUDA-event timings
-   of both and each kernel's bound (bytes or operations at the H100's
-   data-sheet rates);
+   and unpack on 262,144 x 768 rows and 256 queries; ColBERT's all-pairs
+   MaxSim (K14) at (Bq, Lq, Bd, Ld, D) = (128, 32, 256, 200, 128),
+   (32, 32, 64, 200, 128), the exact rescore's (1, 32, 64, 128, 128) with
+   fill -inf and an odd (7, 30, 21, 77, 128) with dots below -1000 (rtol =
+   atol = 1e-4); the standalone attention K13 at (B, L) = (256, 128) and
+   (64, 30), 12 heads x 64, beside one scaled_dot_product_attention call;
+   with CUDA-event timings of both and each kernel's bound (bytes or
+   operations at the H100's data-sheet rates);
 4. the main path, ``cli.dense_retrieval.run("encode+index+search")``, on a
    seeded 16,384-passage collection with a DistilBERT-width BERT_DOT
    (random weights from a seed), searching one query set at top-100 and one
@@ -27,6 +32,17 @@ Phases (any failed check raises, and the script exits non-zero):
    (6 x encode batches) and of the scan kernels, recall against an exact
    search of the int8-encoded rows, their cosine to phase 4's bf16 encode,
    device-only encode psg/s with the int8 halves;
+   4c. ColBERT serving through the same CLI on the same collection and
+   queries: a DistilBERT-width ``ColBert`` (bf16, compression 128, 8 query
+   [MASK]s, random weights from a seed) encodes per-token vectors into a
+   binmax token index (per_bin 1, 4096-row tiles), every query token
+   searches 48 candidates, the device merges them by MaxSim and K14 rescores
+   64 of them exactly: files, token rows and index bytes, launch counts
+   against the prediction (K13: none), per-token recall@48 against an exact
+   search (>= 0.95), the device merge against the host merge, the run's
+   scores against the plain exact MaxSim, recall@10 against an exhaustive
+   exact MaxSim over all passages (reported), encode psg/s, search QPS and
+   device-only per-token search QPS;
 5. ``FlatIndex`` search at 1,048,576 x 768 rows, Q = 256, k = 1000 (the
    keep-8/32 level-2 path): recall@1000 against an exact search and QPS;
    5b. the same rows in an int8 ``FlatIndex``, searched by the mixed and the
@@ -73,6 +89,15 @@ FULL = dict(
     train_batches=100, train_batch=32, train_query_len=30, train_doc_len=200, validate_every=50,
     val_queries=32, val_docs=10, eval_batch=256, dr_passages=2048, dr_queries=64, dr_top_n=10, dr_batch=256,
     overfit_steps=30,
+    # K14 (Bq, Lq, Bd, Ld, D, fill, live dots below -1000): the headline of
+    # matchmaker_tpu/ops/pallas_kernels.py:17, the teacher shape, the exact
+    # rescore (1 query, colbert_rescore_n docs, the store's padded tokens),
+    # an odd padded shape
+    maxsim_shapes=[(128, 32, 256, 200, 128, -1000.0, False), (32, 32, 64, 200, 128, -1000.0, False),
+                   (1, 32, 64, 128, 128, float("-inf"), False), (7, 30, 21, 77, 128, -1000.0, True)],
+    mha_shapes=[(256, 128), (64, 30)],  # (B, L) of K13 at 12 heads x 64
+    colbert_dim=128, colbert_query_len=32, colbert_query_batch=256, colbert_candidates=48, colbert_rescore_n=64,
+    colbert_top_n=10, colbert_checked_queries=32,
 )
 
 
@@ -120,7 +145,7 @@ def _pair_ms(kernel, plain, device, reps):
 # H100 SXM data-sheet peaks (dense): the card's memory rate and each input
 # type's tensor-core rate, for the least time a kernel's work could take
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def bound(n_bytes, **ops):
@@ -187,6 +212,15 @@ INT8_HALF_MEAN_ABS = 5e-5
 
 def _mean_abs(a, b):
     return float((a.float() - b.float()).abs().mean())
+
+
+def fresh_perf_monitor() -> None:
+    """The CLIs and the Trainer record into a process-wide PerformanceMonitor
+    whose blocks add up over every run in the process; each run here starts
+    a fresh one, so its efficiency-metrics.json holds its own blocks alone."""
+    from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
+
+    PerformanceMonitor._instance = None
 
 
 # ---- phase 3: kernels against their plain versions ------------------------
@@ -534,6 +568,96 @@ def phase_int8_binmax_kernels(sz, device):
     return out
 
 
+def _maxsim_inputs(bq, lq, bd, ld, dim, below_fill, device, seed):
+    """Random f32 token vectors and masks with zeros (one all-padding query
+    row, one all-padding doc); ``below_fill``: every third doc's live dots
+    below -1000 (raw ColBERT dots reach |s| ~ 7000)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(bq, lq, dim, generator=g, device=device)
+    d = torch.randn(bd, ld, dim, generator=g, device=device)
+    if below_fill:
+        q, d[::3] = q.abs() * 5, -d[::3].abs() * 40
+    q_mask = (torch.rand(bq, lq, generator=g, device=device) > 0.2).float()
+    d_mask = (torch.rand(bd, ld, generator=g, device=device) > 0.2).float()
+    q_mask[:, 0] = d_mask[:, 0] = 1.0
+    q_mask[-1, lq // 2:] = 0.0
+    d_mask[-1] = 0.0
+    return q, d, q_mask, d_mask
+
+
+def phase_maxsim_kernel(sz, device):
+    """K14 against its plain version at the ColBERT shapes, rtol = atol =
+    1e-4 (the bar of tests/test_perf_ops.py:91), with fill -1000 and -inf.
+    Bound: the live (query token, doc token) pairs' f32 FMAs at the FP32
+    rate, or the bytes."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import maxsim as ms
+
+    out = {"maxsim_all_pairs": {"max_abs_err": 0.0}}
+    for i, (bq, lq, bd, ld, dim, fill, below) in enumerate(sz["maxsim_shapes"]):
+        q, d, qm, dm = _maxsim_inputs(bq, lq, bd, ld, dim, below, device, seed=400 + i)
+        got = ms.maxsim_all_pairs(q, d, qm, dm, fill=fill)
+        want = ms.reference_maxsim_all_pairs(q, d, qm, dm, fill)
+        fin = torch.isfinite(want)
+        check(got.shape == (bq, bd) and torch.equal(fin, torch.isfinite(got))
+              and torch.equal(got[~fin], want[~fin]), f"K14 non-finite entries at {(bq, lq, bd, ld)}")
+        err = float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
+        rel_ok = bool(((got - want).abs()[fin] <= 1e-4 + 1e-4 * want.abs()[fin]).all())
+        print(f"[kernels] maxsim_all_pairs {(bq, lq, bd, ld, dim)} fill {fill}: max |d| {err:.4g}, "
+              f"max |plain| {float(want[fin].abs().max()) if bool(fin.any()) else 0.0:.4g}")
+        check(rel_ok, f"K14 vs plain at {(bq, lq, bd, ld, dim)}: max |d| {err}")
+        out["maxsim_all_pairs"]["max_abs_err"] = max(out["maxsim_all_pairs"]["max_abs_err"], err)
+        ops = 2 * dim * int((qm > 0).sum()) * int((dm > 0).sum())
+        _record(out["maxsim_all_pairs"], [bq, lq, bd, ld, dim], lambda a=(q, d, qm, dm), f=fill: ms.maxsim_all_pairs(
+                    *a, fill=f), lambda a=(q, d, qm, dm), f=fill: ms.reference_maxsim_all_pairs(*a, f), device,
+                sz["reps"], headline=i == 0, bound_of=bound(nbytes(q, d, qm, dm, got), f32=ops))
+    return out
+
+
+def phase_mha_kernel(sz, device):
+    """K13 (no caller on any path) against its plain version at 12 heads x
+    64, held to the encoder halves' bar; library_ms: one
+    scaled_dot_product_attention call with the same additive mask at the
+    headline shape (a yardstick the port never calls)."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import fused_attention as fa
+
+    out = {"fused_mha": {"max_abs_err": 0.0}}
+    heads, hid = sz["heads"], sz["hid"]
+    for i, (b, l) in enumerate(sz["mha_shapes"]):
+        g = torch.Generator(device=device).manual_seed(500 + i)
+        q, k, v = (torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
+        lengths = torch.randint(max(1, l // 4), l + 1, (b,), generator=g, device=device)
+        mask = (torch.arange(l, device=device)[None, :] < lengths[:, None]).float()
+        got, want = fa.fused_mha(q, k, v, mask, heads), fa.mha_reference(q, k, v, mask, heads)
+        cos, err = _rows_close(got, want)
+        print(f"[kernels] fused_mha B={b} L={l}: min row cosine {cos:.6f}, max |d| {err:.4g}")
+        check(got.shape == q.shape and bool(torch.isfinite(got.float()).all()), f"fused_mha output at {(b, l)}")
+        check(cos >= 0.999 and err <= 0.1, f"fused_mha vs plain at {(b, l)}: cos {cos}, max |d| {err}")
+        out["fused_mha"]["max_abs_err"] = max(out["fused_mha"]["max_abs_err"], err)
+        ops = 4 * heads * (hid // heads) * l * int(mask.sum())  # QK^T and PV over the live keys
+        _record(out["fused_mha"], [b, l, hid], lambda a=(q, k, v, mask): fa.fused_mha(*a, heads),
+                lambda a=(q, k, v, mask): fa.mha_reference(*a, heads), device, sz["reps"], headline=i == 0,
+                bound_of=bound(nbytes(q, k, v, mask, got), bf16=ops))
+        if i == 0 and device.type == "cuda":
+            def split(t):
+                return t.view(b, l, heads, hid // heads).transpose(1, 2)
+
+            qs, ks, vs = split(q), split(k), split(v)
+            add = ((mask - 1.0) * 1e9).to(torch.bfloat16)[:, None, None, :]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib = sdpa(qs, ks, vs, attn_mask=add).transpose(1, 2).reshape(b, l, hid)
+            lcos, _ = _rows_close(lib, want)
+            out["fused_mha"]["library_ms"] = _time_ms(lambda: sdpa(qs, ks, vs, attn_mask=add), device, sz["reps"])
+            print(f"[kernels]   library scaled_dot_product_attention {out['fused_mha']['library_ms']:.4f} ms "
+                  f"(min row cosine to plain {lcos:.6f})")
+    return out
+
+
 # ---- phase 4: the main path through the CLI --------------------------------
 
 def _write_collection(root, sz, seed=1):
@@ -628,6 +752,7 @@ def phase_main_path(sz, device, root):
     config = _main_config(root, sz, device)
     run_folder = os.path.join(root, "run")
     os.makedirs(run_folder)
+    fresh_perf_monitor()
     _build.reset_launches()
     t0 = time.perf_counter()
     check(run("encode+index+search", dict(config), run_folder) == 0, "run() returned non-zero")
@@ -752,6 +877,7 @@ def phase_main_path_int8(sz, device, root, bf16_run):
         config = dict(base, **extra)
         folder = os.path.join(root, f"run_{name}")
         os.makedirs(folder)
+        fresh_perf_monitor()
         _build.reset_launches()
         t0 = time.perf_counter()
         check(run("encode+index+search", dict(config), folder) == 0, f"int8 run {name} returned non-zero")
@@ -837,6 +963,251 @@ def phase_main_path_int8(sz, device, root, bf16_run):
           f"{result['encode_device_psg_per_s']:.1f} psg/s")
     if device.type == "cuda":
         result["encode_profile"] = _profile_steps(lambda _: encode_once(), None, ms, tag="main-int8")
+    return result
+
+
+# ---- phase 4c: ColBERT serving through the same CLI --------------------------
+
+def _colbert_config(root, sz, device):
+    """The DistilBERT-width ColBERT of configs/train/models/colbert.yaml
+    (compression 128, 8 query [MASK]s), bf16 fused layers, random weights
+    from a seed; a binmax token index with the CLI's ColBERT defaults
+    (per_bin 1, 4096-row tiles, 48 candidates a token, the device merge) and
+    the exact rescore of 64 candidates."""
+    return dict(_main_config(root, sz, device), model="colbert", colbert_compression_dim=sz["colbert_dim"],
+                query_augment_mask_number=8, max_query_length=sz["colbert_query_len"],
+                query_batch_size=sz["colbert_query_batch"], colbert_rescore_n=sz["colbert_rescore_n"],
+                query_sets={"colbert": {"queries_tsv": os.path.join(root, "queries.tsv"),
+                                        "qrels": os.path.join(root, "qrels.txt"), "top_n": sz["colbert_top_n"],
+                                        "binarization_point": 1}})
+
+
+def predicted_colbert_launches(sz):
+    """K1/K2 once per layer and encode batch (the collection's and the
+    queries'); K3, K4 (the pool oversamples 48 by >= 128x) and K6 once per
+    query batch; K14 once per query (each has candidates); K13 and every
+    kernel not named here never."""
+    q_batches = -(-sz["queries"] // sz["colbert_query_batch"])
+    encode = sz["n_layers"] * (-(-sz["passages"] // sz["batch"]) + q_batches)
+    return {"fused_attention_block": encode, "fused_mlp_block": encode, "binmax_candidates": q_batches,
+            "level2_reduce": q_batches, "unpack_candidates": q_batches, "maxsim_all_pairs": sz["queries"],
+            "fused_mha": 0}
+
+
+def _padded_docs(folder, device):
+    """Every stored document's token vectors as one padded (N, T, D) f32
+    tensor with its mask and ids (T the store's padded max tokens)."""
+    import torch
+
+    from matchmaker_tpu_torch.retrieval.encode import load_encoded
+
+    with open(os.path.join(folder, "encode_meta.json")) as f:
+        n_blocks = json.load(f)["blocks"]
+    sizes = [np.load(os.path.join(folder, f"token_reps_{i}.npy"), mmap_mode="r").shape[0] for i in range(n_blocks)]
+    base = np.cumsum([0] + sizes)
+    data = np.load(os.path.join(folder, "doc_infos.npz"), allow_pickle=True)
+    ids, spans = data["ids"], data["spans"]
+    vectors, _ = load_encoded(folder)
+    starts = base[spans[:, 0]] + spans[:, 1]
+    lengths = spans[:, 2] - spans[:, 1]
+    t = -(-int(lengths.max()) // 8) * 8
+    doc = np.repeat(np.arange(len(ids)), lengths)
+    pos = np.arange(len(doc)) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+    rows = np.repeat(starts, lengths) + pos
+    docs = torch.zeros((len(ids), t, vectors.shape[1]), dtype=torch.float32, device=device)
+    mask = torch.zeros((len(ids), t), dtype=torch.float32, device=device)
+    di, pi = torch.from_numpy(doc).to(device), torch.from_numpy(pos).to(device)
+    docs[di, pi] = torch.from_numpy(vectors[rows]).to(device).float()
+    mask[di, pi] = 1.0
+    return docs, mask, [str(x) for x in ids]
+
+
+def phase_colbert(sz, device, root):
+    """ColBERT serving, ``cli.dense_retrieval.run("encode+index+search")``
+    on phase 4's collection and queries: run-folder files, token rows and
+    the index's device bytes, the launch count of every kernel against
+    predicted_colbert_launches; for one query batch, per-token recall@48 of
+    ``search_rows`` against an exact search of the same bf16 token rows
+    (>= 0.95, tests/test_binmax_recall.py:99) and the device merge against
+    the host merge; every (query, doc, score) of the run file for 32 queries
+    against the plain exact MaxSim of the re-encoded query and the stored
+    document (rtol 1e-4); recall@10 of the run against an exhaustive exact
+    MaxSim over every passage through K14 (reported, not gated); encode
+    psg/s and search QPS through the CLI, device-only per-token search QPS."""
+    import torch
+
+    from matchmaker_tpu_torch.cli.dense_retrieval import run
+    from matchmaker_tpu_torch.data.loaders import single_sequence_loader
+    from matchmaker_tpu_torch.data.tokenization import build_tokenizer
+    from matchmaker_tpu_torch.models import get_model, init_params
+    from matchmaker_tpu_torch.ops import _build
+    from matchmaker_tpu_torch.ops import maxsim as ms
+    from matchmaker_tpu_torch.retrieval import colbert_search as cs
+    from matchmaker_tpu_torch.retrieval.encode import load_encoded
+    from matchmaker_tpu_torch.retrieval.indexes import build_index
+
+    config = _colbert_config(root, sz, device)
+    folder = os.path.join(root, "run_colbert")
+    os.makedirs(folder)
+    fresh_perf_monitor()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    check(run("encode+index+search", dict(config), folder) == 0, "ColBERT run() returned non-zero")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    result = {"wall_s": time.perf_counter() - t0, "launches": launches}
+    print(f"[colbert] launches in the CLI run: {launches}")
+    for rel in ("efficiency-metrics.json", "encoded/encode_meta.json", "encoded/doc_infos.npz",
+                "index/flat_vectors.npy", "index/flat_ids.npy", "colbert-output.txt", "colbert-metrics.csv"):
+        check(os.path.isfile(os.path.join(folder, rel)), f"colbert: missing {rel}")
+    if device.type == "cuda":
+        want = dict.fromkeys(launches, 0)  # every other kernel: none
+        want.update(predicted_colbert_launches(sz))
+        for name, n in want.items():
+            check(launches[name] == n, f"colbert: {name} launched {launches[name]} times, predicted {n}")
+    with open(os.path.join(folder, "efficiency-metrics.json")) as f:
+        perf = json.load(f)[-1]["blocks"]
+    result.update(encode_psg_per_s=perf["encode"]["items_per_second"],
+                  search_qps=perf["search_total"]["items_per_second"],
+                  search_blocks_s={k: perf[k]["total_seconds"] for k in perf if k.startswith("search_")})
+    print(f"[colbert] CLI search blocks (s): {result['search_blocks_s']}")
+    with open(os.path.join(folder, "colbert-metrics.csv")) as f:
+        head, vals = [line.strip().split(",") for line in f][:2]
+    result["metrics"] = dict(zip(head, map(float, vals)))
+    run_file = {}
+    with open(os.path.join(folder, "colbert-output.txt")) as f:
+        for line in f:
+            qid, did, _, score = line.split()
+            run_file.setdefault(qid, []).append((did, float(score)))
+    check(len(run_file) == sz["queries"] and all(len(v) == sz["colbert_top_n"] for v in run_file.values()),
+          f"colbert: every query must have {sz['colbert_top_n']} hits")
+
+    # the token index as the CLI built it (the same config, rows and permutation)
+    enc = os.path.join(folder, "encoded")
+    vectors, row_ids = load_encoded(enc)
+    check(vectors.shape[1] == sz["colbert_dim"] and bool(np.isfinite(vectors).all()), "colbert token vectors")
+    index_cfg = dict(config, mips_per_bin=1, mips_tile_rows=4096)
+    index = build_index(index_cfg, device)
+    index.prepare(vectors.shape[1])
+    index.index(row_ids, vectors)
+    index._ensure_device()
+    result.update(token_rows=int(vectors.shape[0]), tokens_per_passage=vectors.shape[0] / sz["passages"],
+                  index_device_bytes=index._device_vectors.numel() * index._device_vectors.element_size())
+    print(f"[colbert] {result['token_rows']} token rows ({result['tokens_per_passage']:.2f} a passage), "
+          f"index on the device {result['index_device_bytes'] / 1e9:.3f} GB")
+
+    # the queries re-encoded as the CLI encodes them (one batch of 256)
+    tokenizer = build_tokenizer(config)
+    model = get_model(config, tokenizer)
+    init_params(model, config, torch.Generator().manual_seed(config["random_seed"]))
+    model.to(device).eval()
+    cfg_q = dict(config, batch_size_inference=sz["colbert_query_batch"])
+    batch, qids = next(iter(single_sequence_loader(cfg_q, tokenizer, os.path.join(root, "queries.tsv"), "query")))
+    with torch.inference_mode():
+        q_vecs = model.encode(torch.from_numpy(batch["seq_ids"]).to(device),
+                              torch.from_numpy(batch["seq_mask"]).to(device), "query_encode").float()
+    q_mask = batch["seq_mask"]
+    b, lq, dim = q_vecs.shape
+    flat = q_vecs.reshape(b * lq, dim)
+    k = sz["colbert_candidates"]
+
+    # per-token search against an exact search of the same bf16 rows (live query tokens)
+    scores, rows = index.search_rows(flat.cpu().numpy(), k)
+    live = np.flatnonzero(q_mask.reshape(-1) > 0)
+    corpus = index._device_vectors[:index._row_count].float()
+    qb = flat.to(torch.bfloat16).float()
+    hits = 0
+    for s in range(0, len(live), 512):
+        part = torch.from_numpy(live[s:s + 512]).to(device)
+        with torch.inference_mode():
+            exact = torch.topk(qb[part] @ corpus.T, k, dim=1).indices.cpu().numpy()
+        hits += sum(len(set(a) & set(e)) for a, e in zip(rows[live[s:s + 512]].tolist(), exact.tolist()))
+    result["token_recall"] = hits / (len(live) * k)
+    print(f"[colbert] per-token recall@{k} of search_rows vs exact bf16 search over {len(live)} live query "
+          f"tokens: {result['token_recall']:.4f}")
+    check(result["token_recall"] >= 0.95, f"colbert per-token recall@{k} {result['token_recall']}")
+
+    # the device merge against the host merge on that batch
+    vocab, row_slot = np.unique(np.asarray(index.row_ids).astype(str), return_inverse=True)
+    slots = np.where(rows >= 0, row_slot[np.clip(rows, 0, len(row_slot) - 1)], -1).reshape(b, lq, k)
+    keep = max(sz["colbert_top_n"], sz["colbert_rescore_n"])
+    t0 = time.perf_counter()
+    dev = cs.aggregate_maxsim_device(scores.reshape(b, lq, k), slots, q_mask, keep, vocab=vocab, device=device)
+    t1 = time.perf_counter()
+    host = cs.aggregate_maxsim_batch(scores.reshape(b, lq, k), slots, q_mask, keep, vocab=vocab)
+    result.update(device_merge_s=t1 - t0, host_merge_s=time.perf_counter() - t1)
+    # unpacked candidate scores keep 16 mantissa bits (the lane bits are
+    # cleared), so totals tie often: a document may differ only where it ties
+    # with the last kept score (1e-5 relative)
+    worst, swapped = 0.0, 0
+    for qi, (d_row, h_row) in enumerate(zip(dev, host)):
+        dd, hd = dict(d_row), dict(h_row)
+        check(len(dd) == len(hd), f"colbert: merges of query {qi} keep {len(dd)} and {len(hd)} docs")
+        worst = max([worst] + [abs(v - hd[x]) / max(abs(hd[x]), 1e-30) for x, v in d_row if x in hd])
+        for row, other in ((dd, hd), (hd, dd)):
+            cut = min(row.values())
+            for x in set(row) - set(other):
+                swapped += 1
+                check(abs(row[x] - cut) <= 1e-5 * abs(cut), f"colbert: merges of query {qi} differ above the "
+                      f"cut: {x} at {row[x]}, cut {cut}")
+    result.update(merge_max_rel=worst, merge_tie_swaps=swapped)
+    print(f"[colbert] device merge vs host merge over {b} queries, {keep} kept: max relative |d| {worst:.3g}; "
+          f"{swapped} documents differ, each tied with its list's last score")
+    check(worst <= 1e-5, f"colbert: device vs host merge relative |d| {worst}")
+
+    # the run file's rescored scores against the plain exact MaxSim
+    store = cs.TokenVectorStore(enc)
+    pad_t = -(-store.max_tokens // 8) * 8
+    result["store_padded_tokens"] = pad_t
+    q_host = q_vecs.cpu().numpy()
+    t0 = time.perf_counter()
+    for qi in range(sz["colbert_checked_queries"]):
+        cs.exact_rescore(q_host[qi], q_mask[qi], dev[qi][:sz["colbert_rescore_n"]], store, sz["colbert_top_n"],
+                         sz["colbert_rescore_n"], pad_t, device)
+    result["rescore_ms_per_query"] = (time.perf_counter() - t0) * 1e3 / sz["colbert_checked_queries"]
+    print(f"[colbert] host clock: device merge {result['device_merge_s'] * 1e3:.1f} ms and host merge "
+          f"{result['host_merge_s'] * 1e3:.1f} ms for {b} queries; exact rescore "
+          f"{result['rescore_ms_per_query']:.3f} ms a query")
+    check(pad_t == sz["maxsim_shapes"][2][3], f"colbert: the store's padded tokens {pad_t} are not phase 3's "
+          f"rescore shape")
+    worst = 0.0
+    for qi in range(sz["colbert_checked_queries"]):
+        docs = run_file[qids[qi]]
+        d = torch.zeros((len(docs), pad_t, dim), device=device)
+        dm = torch.zeros((len(docs), pad_t), device=device)
+        for j, (did, _) in enumerate(docs):
+            v = torch.from_numpy(store.get(did)).to(device)
+            d[j, :len(v)], dm[j, :len(v)] = v, 1.0
+        qm = torch.from_numpy((q_mask[qi:qi + 1] > 0).astype(np.float32)).to(device)
+        plain = ms.reference_maxsim_all_pairs(q_vecs[qi:qi + 1], d, qm, dm, float("-inf"))[0].cpu().numpy()
+        got = np.array([sc for _, sc in docs])
+        worst = max(worst, float((np.abs(got - plain) / np.maximum(np.abs(plain), 1.0)).max()))
+        check(np.allclose(got, plain, rtol=1e-4, atol=1e-4), f"colbert: rescored scores of query {qids[qi]}")
+    result["rescore_max_rel"] = worst
+    print(f"[colbert] rescored run scores of {sz['colbert_checked_queries']} queries vs plain exact MaxSim: "
+          f"max relative |d| {worst:.3g}")
+
+    # recall@10 against an exhaustive exact MaxSim over every passage (K14)
+    docs, dmask, doc_ids = _padded_docs(enc, device)
+    qm_all = torch.from_numpy((q_mask > 0).astype(np.float32)).to(device)
+    with torch.inference_mode():
+        full = torch.cat([ms.maxsim_all_pairs(q_vecs, docs[s:s + 2048], qm_all, dmask[s:s + 2048],
+                                              fill=float("-inf")) for s in range(0, len(doc_ids), 2048)], dim=1)
+    top = torch.topk(full, sz["colbert_top_n"], dim=1).indices.cpu().tolist()
+    recall = float(np.mean([len({doc_ids[i] for i in top[qi]} & {x for x, _ in run_file[qid]}) / sz["colbert_top_n"]
+                            for qi, qid in enumerate(qids)]))
+    result["recall@10_vs_exhaustive"] = recall
+    print(f"[colbert] recall@{sz['colbert_top_n']} of the run vs exhaustive exact MaxSim over {len(doc_ids)} "
+          f"passages: {recall:.4f} (reported, not gated)")
+    del docs, dmask, full
+
+    # device-only per-token search of one query batch
+    ms_search = _time_ms(lambda: index._search_device(flat, k), device, sz["reps"])
+    result.update(token_search_ms=ms_search, token_search_device_qps=b / ms_search * 1e3)
+    print(f"[colbert] encode {result['encode_psg_per_s']:.1f} psg/s and search {result['search_qps']:.1f} QPS "
+          f"through the CLI; device-only per-token search of {b * lq} query rows {ms_search:.3f} ms "
+          f"({result['token_search_device_qps']:.1f} QPS)")
     return result
 
 
@@ -1132,6 +1503,7 @@ def phase_train(sz, device, root):
     config = _train_config(paths, sz, device)
     run_folder = os.path.join(root, "train_run")
     os.makedirs(run_folder)
+    fresh_perf_monitor()
     trainer = Trainer(config, run_folder)
     step_losses = []
     trainer_step = trainer.train_step
@@ -1226,6 +1598,10 @@ KERNELS = [  # name, source, TPU kernel it replaces, TPU kernels folded into it
      "matchmaker_tpu/ops/mips_binmax.py:288", None),
     ("binmax_candidates_int8", "matchmaker_tpu_torch/csrc/binmax_kernels.cu",
      "matchmaker_tpu/ops/mips_binmax.py:259", None),
+    ("maxsim_all_pairs", "matchmaker_tpu_torch/csrc/maxsim_kernels.cu",
+     "matchmaker_tpu/ops/pallas_kernels.py:62", None),
+    ("fused_mha", "matchmaker_tpu_torch/csrc/encoder_kernels.cu",
+     "matchmaker_tpu/ops/fused_attention.py:49", None),
 ]
 
 
@@ -1245,9 +1621,12 @@ def run_phases(sz, device, card: str) -> dict:
     kern.update(phase_binmax_kernels(sz, device))
     kern.update(phase_int8_encoder_kernels(sz, device))
     kern.update(phase_int8_binmax_kernels(sz, device))
+    kern.update(phase_maxsim_kernel(sz, device))
+    kern.update(phase_mha_kernel(sz, device))
     with tempfile.TemporaryDirectory() as root:
         report["main"] = phase_main_path(sz, device, root)
         report["main_int8"] = phase_main_path_int8(sz, device, root, os.path.join(root, "run"))
+        report["colbert"] = phase_colbert(sz, device, root)
     report["scale"] = phase_scale(sz, device)
     report["scale_int8"] = phase_scale_int8(sz, device)
     with tempfile.TemporaryDirectory() as root:
@@ -1257,10 +1636,12 @@ def run_phases(sz, device, card: str) -> dict:
     for name, src, rep, inc in KERNELS:
         # "launches": the run of the kernel's own path: the bf16 serving run,
         # the int8 serving run that uses it (K9/K10 and K8: the mixed run,
-        # K7: the two-stage run) or the training run; "launches_scale": the
-        # scale search of the same route (bf16 or int8; training: the bf16)
+        # K7: the two-stage run), the ColBERT serving run (K14) or the
+        # training run; K13 lies on no path; "launches_scale": the scale
+        # search of the same route (bf16 or int8; training: the bf16)
         runs = {"serve": report["main"]["launches"][name], "train": report["train"]["launches"][name],
-                **{f"serve_int8_{r}": report["main_int8"][r]["launches"][name] for r, _, _ in INT8_RUNS}}
+                **{f"serve_int8_{r}": report["main_int8"][r]["launches"][name] for r, _, _ in INT8_RUNS},
+                "serve_colbert": report["colbert"]["launches"][name]}
         scale_runs = {"scale_bf16": report["scale"]["launches"][name],
                       **{f"scale_int8_{r}": report["scale_int8"][r]["launches"][name] for r, _, _ in INT8_RUNS}}
         if name in SERVING:
@@ -1269,14 +1650,19 @@ def run_phases(sz, device, card: str) -> dict:
             path, scale_path = "serve_int8_int8_twostage", "scale_int8_int8_twostage"
         elif name in SERVING_INT8:
             path, scale_path = "serve_int8_mixed", "scale_int8_mixed"
+        elif name == "maxsim_all_pairs":
+            path, scale_path = "serve_colbert", "scale_bf16"
+        elif name == "fused_mha":
+            path, scale_path = None, "scale_bf16"
         else:
             path, scale_path = "train", "scale_bf16"
         report["kernels"].append(
             {"name": name, "route": "cuda", "source": src, "replaces": rep, **({"includes": inc} if inc else {}),
-             "path": path, "launches": runs[path], **{f"launches_{r}": v for r, v in runs.items()},
+             "path": path, "launches": runs[path] if path else 0, **{f"launches_{r}": v for r, v in runs.items()},
              "launches_scale": scale_runs[scale_path], **{f"launches_{r}": v for r, v in scale_runs.items()},
              "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"],
-             "bound_ms": kern[name]["bound_ms"], "bound_by": kern[name]["bound_by"], "library_ms": None,
+             "bound_ms": kern[name]["bound_ms"], "bound_by": kern[name]["bound_by"],
+             "library_ms": kern[name].get("library_ms"),
              "timed_shape": kern[name]["timed_shape"]})
     report["kernel_timings"] = {k[0]: kern[k[0]]["timings"] for k in KERNELS}
     report["torch"] = torch.__version__
@@ -1316,6 +1702,12 @@ def main() -> int:
           f"k={FULL['scale_k']}: " + ", ".join(
               f"{r} recall@{FULL['scale_k']} {scale8[r]['recall']:.4f}, {scale8[r]['qps']:.1f} QPS search_rows, "
               f"{scale8[r]['device_qps']:.1f} device-only" for r, _, _ in INT8_RUNS))
+    col = report["colbert"]
+    print(f"[{card}] colbert: {col['token_rows']} token rows ({col['index_device_bytes'] / 1e9:.3f} GB bf16 on the "
+          f"card), encode {col['encode_psg_per_s']:.1f} psg/s and search {col['search_qps']:.1f} QPS in the CLI "
+          f"(rescore included), device-only per-token search {col['token_search_device_qps']:.1f} QPS; per-token "
+          f"recall@{FULL['colbert_candidates']} {col['token_recall']:.4f}, recall@{FULL['colbert_top_n']} vs "
+          f"exhaustive MaxSim {col['recall@10_vs_exhaustive']:.4f}")
     for k in report["kernels"]:
         print(f"[{card}] {k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}) at {k['timed_shape']}, max |d| {k['max_abs_err']:.3g}, "

@@ -11,6 +11,15 @@ Extra key: ``device`` (default ``"cuda"``). Weights come from
 ``trained_model`` (a ``best-model.npz`` file or the folder holding one; see
 models/weights.py); without it the model starts from seeded random weights.
 
+``model: colbert`` serves late interaction: the corpus is encoded into
+per-token vectors (``multi_vector_corpus`` is on for ColBERT and ``->``
+models), the index defaults to ``mips_per_bin: 1`` and
+``mips_tile_rows: 4096`` (YAML keys override), and every query token
+searches it for ``colbert_per_token_candidates`` (48) rows, merged by MaxSim
+on the device (``colbert_device_merge``, default on) and rescored exactly
+from the run's ``encoded/`` folder when ``colbert_rescore_n`` > 0
+(retrieval/colbert_search.py).
+
 Usage:
     python -m matchmaker_tpu_torch.cli.dense_retrieval encode+index+search \\
         --config-file cfg.yaml --run-name my_index
@@ -25,7 +34,7 @@ import traceback
 
 import torch
 
-from matchmaker_tpu_torch.config import get_config
+from matchmaker_tpu_torch.config import get_config, model_base_name
 from matchmaker_tpu_torch.data.tokenization import build_tokenizer
 from matchmaker_tpu_torch.evaluation import save_sorted_results
 from matchmaker_tpu_torch.experiment import get_parser, prepare_experiment
@@ -33,6 +42,7 @@ from matchmaker_tpu_torch.metrics import calculate_metrics_plain, load_qrels, pr
 from matchmaker_tpu_torch.models import get_model, init_params
 from matchmaker_tpu_torch.models.weights import load_npz
 from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
+from matchmaker_tpu_torch.retrieval.colbert_search import TokenVectorStore, colbert_search_queries
 from matchmaker_tpu_torch.retrieval.encode import encode_corpus, load_encoded
 from matchmaker_tpu_torch.retrieval.indexes import build_index
 from matchmaker_tpu_torch.retrieval.search import search_queries
@@ -76,8 +86,16 @@ def run(mode: str, config, run_folder: str) -> int:
         encode_corpus(make_encode_fn(model, "doc_encode"), cfg_enc, tokenizer, config["collection_tsv"],
                       encode_folder, device, sequence_type="doc")
 
+    colbert = model_base_name(config.get("model", "")) == "colbert"
+    index_cfg = dict(config)
+    if colbert:
+        # the JAX package's ColBERT token-index operating point: per_bin 1
+        # and 4096-row tiles (its candidate pool oversamples the per-token k
+        # by > 100x); YAML keys still override
+        index_cfg.setdefault("mips_per_bin", 1)
+        index_cfg.setdefault("mips_tile_rows", 4096)
     index_folder = os.path.join(run_folder, "index")
-    indexer = build_index(config, device)
+    indexer = build_index(index_cfg, device)
     if "index" in mode:
         perf.start_block("indexing")
         vectors, row_ids = load_encoded(encode_folder)
@@ -88,13 +106,27 @@ def run(mode: str, config, run_folder: str) -> int:
     else:
         indexer.load(index_folder)
 
-    multi_vector = bool(config.get("multi_vector_corpus", False))
+    multi_vector = bool(config.get("multi_vector_corpus", colbert or "->" in config.get("model", "")))
     cfg_q = dict(config)
     cfg_q["batch_size_inference"] = config.get("query_batch_size", 32)
+    rescore_n = int(config.get("colbert_rescore_n", 0))
+    rescore_store = None
+    if colbert and rescore_n > 0 and os.path.isdir(encode_folder):
+        rescore_store = TokenVectorStore(encode_folder)
     for name, qset in (config.get("query_sets") or {}).items():
-        results = search_queries(make_encode_fn(model, "query_encode"), cfg_q, tokenizer, indexer,
-                                 qset["queries_tsv"], top_n=qset.get("top_n", 100), device=device,
-                                 dedup=multi_vector)
+        if colbert:
+            # late interaction: per-token candidate search, MaxSim merge, and
+            # the optional exact rescore from the stored doc vectors
+            results = colbert_search_queries(
+                make_encode_fn(model, "query_encode"), cfg_q, tokenizer, indexer, qset["queries_tsv"],
+                top_n=qset.get("top_n", 100), device=device,
+                per_token_candidates=config.get("colbert_per_token_candidates", 48),
+                rescore_store=rescore_store, rescore_n=rescore_n,
+                device_merge=bool(config.get("colbert_device_merge", True)))
+        else:
+            results = search_queries(make_encode_fn(model, "query_encode"), cfg_q, tokenizer, indexer,
+                                     qset["queries_tsv"], top_n=qset.get("top_n", 100), device=device,
+                                     dedup=multi_vector)
         save_sorted_results(results, os.path.join(run_folder, f"{name}-output.txt"))
         if qset.get("qrels"):
             metrics = calculate_metrics_plain(

@@ -3,6 +3,8 @@
 // Replaces the Pallas kernels of matchmaker_tpu/ops/fused_attention.py:
 //   K1 _block_kernel (attention half): LN(x + Wo.MHA(xWq+bq, xWk+bk, xWv+bv) + bo)
 //   K2 _mlp_kernel   (MLP half):       LN(x + gelu(xW1+b1)W2 + b2)
+//   K13 _attn_kernel (fused_mha, standalone multi-head attention over separate
+//                     Q, K, V): mm_fused_mha, the attention core below
 // The function computed is the same; the fusion boundaries are not. Each
 // half runs as a few launches:
 //   K1: mm_gemm (QKV, bias, bf16 out) -> mm_attention_core -> mm_gemm
@@ -78,10 +80,13 @@ __global__ void __launch_bounds__(TILE_THREADS) gemm_kernel(const bf16* __restri
 }
 
 // ---- attention core -------------------------------------------------------
-// One block per (64-query tile, head, example). qkv is the QKV GEMM's output
-// (B, L, 3*HID) with the head split read straight from its columns; out is
-// (B, L, HID): bf16, each head's slice cast as the TPU kernel K1 does, or
-// f32 for the int8 attention half (K10 re-quantizes the f32 output).
+// One block per (64-query tile, head, example). q, k and v are (B, L, *) bf16
+// with row stride ld and the head split read straight from their columns: for
+// K1 the QKV GEMM's output (B, L, 3*HID), ld = 3*HID; for K13 three separate
+// (B, L, HID) tensors, ld = HID. out is (B, L, HID): bf16, each head's slice
+// cast as the TPU kernels do, or f32 for the int8 attention half (K10
+// re-quantizes the f32 output). ROUND_P rounds the f32 probabilities to bf16
+// before P.V, as K13's TPU kernel does (p.astype(v.dtype)); K1 keeps them f32.
 constexpr int HD = 64;         // head width
 constexpr int QT = 64;         // query rows per block
 constexpr int KC = 64;         // keys per shared-memory chunk
@@ -94,8 +99,10 @@ inline size_t att_smem_bytes(int L) {
   return (size_t)2 * QT * HD_LD * 2 + (size_t)QT * att_s_ld(L) * 4 + (size_t)att_keys_padded(L) * 4;
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(const bf16* __restrict__ qkv,
+template <typename OutT, bool ROUND_P>
+__global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(const bf16* __restrict__ q_in,
+                                                                      const bf16* __restrict__ k_in,
+                                                                      const bf16* __restrict__ v_in, int ld,
                                                                       const float* __restrict__ mask,
                                                                       OutT* __restrict__ out, int L, int H,
                                                                       float scale) {
@@ -107,8 +114,9 @@ __global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(const bf16*
   float* neg = S + QT * SLD;
 
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const int HID = H * HD, ROW = 3 * HID;
-  const bf16* base = qkv + (size_t)b * L * ROW;
+  const int HID = H * HD;
+  const size_t head = (size_t)b * L * ld + h * HD;
+  const bf16 *qb = q_in + head, *kb = k_in + head, *vb = v_in + head;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   for (int j = tid; j < LKP; j += ATT_THREADS)
@@ -117,7 +125,7 @@ __global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(const bf16*
   for (int c = tid; c < QT * HD / 8; c += ATT_THREADS) {
     const int row = c >> 3, col = (c & 7) * 8;
     *reinterpret_cast<uint4*>(Qs + row * HD_LD + col) =
-        load16(base + (size_t)(q0 + row) * ROW + h * HD + col, q0 + row < L);
+        load16(qb + (size_t)(q0 + row) * ld + col, q0 + row < L);
   }
   __syncthreads();
   FragA qf[HD / 16];
@@ -129,7 +137,7 @@ __global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(const bf16*
     for (int c = tid; c < KC * HD / 8; c += ATT_THREADS) {
       const int row = c >> 3, col = (c & 7) * 8;
       *reinterpret_cast<uint4*>(Ks + row * HD_LD + col) =
-          load16(base + (size_t)(kc + row) * ROW + HID + h * HD + col, kc + row < L);
+          load16(kb + (size_t)(kc + row) * ld + col, kc + row < L);
     }
     __syncthreads();
 #pragma unroll
@@ -166,7 +174,10 @@ __global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(const bf16*
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    for (int j = lane; j < LKP; j += 32) srow[j] = j < L ? srow[j] / sum : 0.0f;
+    for (int j = lane; j < LKP; j += 32) {
+      const float p = j < L ? srow[j] / sum : 0.0f;
+      srow[j] = ROUND_P ? __bfloat162float(__float2bfloat16(p)) : p;
+    }
   }
   __syncthreads();
 
@@ -181,7 +192,7 @@ __global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(const bf16*
     for (int c = tid; c < KC * HD / 8; c += ATT_THREADS) {
       const int row = c >> 3, col = (c & 7) * 8;
       *reinterpret_cast<uint4*>(Ks + row * HD_LD + col) =
-          load16(base + (size_t)(kc + row) * ROW + 2 * HID + h * HD + col, kc + row < L);
+          load16(vb + (size_t)(kc + row) * ld + col, kc + row < L);
     }
     __syncthreads();
     for (int j = 0; j < KC; ++j) {
@@ -242,17 +253,26 @@ __global__ void __launch_bounds__(256) layernorm_kernel(const float* __restrict_
     out[(size_t)row * N + j] = __float2bfloat16((xr[j] - mean) * inv * gamma[j] + beta[j]);
 }
 
-template <typename OutT>
-int launch_attention_core(const void* qkv, const void* mask, void* out, int B, int L, int H, float scale,
-                                 void* stream) {
+template <typename OutT, bool ROUND_P>
+int launch_attention_core(const bf16* q, const bf16* k, const bf16* v, int ld, const void* mask, void* out, int B,
+                          int L, int H, float scale, void* stream) {
   const size_t smem = att_smem_bytes(L);
-  cudaError_t err =
-      cudaFuncSetAttribute(attention_core_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(attention_core_kernel<OutT, ROUND_P>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((L + QT - 1) / QT, H, B);
-  attention_core_kernel<OutT><<<grid, ATT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(mask), static_cast<OutT*>(out), L, H, scale);
+  attention_core_kernel<OutT, ROUND_P><<<grid, ATT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, ld, static_cast<const float*>(mask), static_cast<OutT*>(out), L, H, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1's packed QKV GEMM output (B, L, 3*HID): Q, K, V side by side in a row
+template <typename OutT>
+int launch_packed_attention_core(const void* qkv, const void* mask, void* out, int B, int L, int H, float scale,
+                                 void* stream) {
+  const bf16* p = static_cast<const bf16*>(qkv);
+  const int hid = H * HD;
+  return launch_attention_core<OutT, false>(p, p + hid, p + 2 * hid, 3 * hid, mask, out, B, L, H, scale, stream);
 }
 
 }  // namespace mm
@@ -292,13 +312,21 @@ int mm_gemm(const void* A, const void* B, const void* bias, const void* resid, v
 // out (B,L,H*64) bf16 = per-head softmax(QK^T*scale + mask) V from qkv (B,L,3*H*64).
 int mm_attention_core(const void* qkv, const void* mask, void* out, int B, int L, int H, float scale,
                       void* stream) {
-  return launch_attention_core<bf16>(qkv, mask, out, B, L, H, scale, stream);
+  return launch_packed_attention_core<bf16>(qkv, mask, out, B, L, H, scale, stream);
 }
 
 // The same with out (B,L,H*64) f32, P.V's f32 sums uncast (int8 attention half).
 int mm_attention_core_f32(const void* qkv, const void* mask, void* out, int B, int L, int H, float scale,
                           void* stream) {
-  return launch_attention_core<float>(qkv, mask, out, B, L, H, scale, stream);
+  return launch_packed_attention_core<float>(qkv, mask, out, B, L, H, scale, stream);
+}
+
+// K13: out (B,L,H*64) bf16 = per-head softmax(QK^T*scale + mask) V from
+// separate q, k, v (B,L,H*64) bf16, the probabilities rounded to bf16.
+int mm_fused_mha(const void* q, const void* k, const void* v, const void* mask, void* out, int B, int L, int H,
+                 float scale, void* stream) {
+  return launch_attention_core<bf16, true>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                           static_cast<const bf16*>(v), H * HD, mask, out, B, L, H, scale, stream);
 }
 
 // out (M,N) bf16 = LayerNorm(x (M,N) f32) * gamma + beta

@@ -1,6 +1,6 @@
 """Model factory: counterpart of ``matchmaker_tpu/models/__init__.py``.
 
-Only the BERT_DOT family is ported; every other model raises
+The BERT_DOT family and ColBERT are ported; every other model raises
 ``NotImplementedError`` (the queue is in ROADMAP.md).
 """
 
@@ -13,11 +13,13 @@ import torch
 import torch.nn as nn
 
 from matchmaker_tpu_torch.models.bert_dot import BertDot, BertDotDualEncoder
+from matchmaker_tpu_torch.models.colbert import ColBert
 from matchmaker_tpu_torch.models.weights import init_parameters
 
 _REGISTRY = {
     "bert_dot": BertDot,
     "bert_dot_dualencoder": BertDotDualEncoder,
+    "colbert": ColBert,
 }
 
 

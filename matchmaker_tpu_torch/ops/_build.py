@@ -43,6 +43,8 @@ LAUNCHES = {
     "fused_attention_int8_block": 0,  # K10
     "binmax_candidates_int8f": 0,  # K8: int8 corpus, bf16 queries
     "binmax_candidates_int8": 0,  # K7: int8 corpus, int8 queries
+    "maxsim_all_pairs": 0,  # K14
+    "fused_mha": 0,  # K13
 }
 
 # rows of one ln_bwd_kernel block (csrc/encoder_backward_kernels.cu:LNB_ROWS)
@@ -53,6 +55,8 @@ _SIGNATURES = {
     "mm_gemm": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p],
     "mm_attention_core": [_p, _p, _p, _i, _i, _i, _f, _p],
     "mm_attention_core_f32": [_p, _p, _p, _i, _i, _i, _f, _p],
+    "mm_fused_mha": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _p],
+    "mm_maxsim": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _p],
     "mm_quant_groups": [_p, _p, _p, _i, _i, _i, _i, _p],
     "mm_gemm_s8": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
     "mm_layernorm": [_p, _p, _p, _p, _i, _i, _f, _p],

@@ -5,7 +5,10 @@
   attention half of a post-norm layer (TPU kernel K1, ``_block_kernel``);
   :func:`fused_attention_block_qkv` takes the Q/K/V weights packed;
 - :func:`fused_mlp_block`: LN(x + W2·gelu(W1·x + b1) + b2), the MLP half
-  (TPU kernel K2, ``_mlp_kernel``).
+  (TPU kernel K2, ``_mlp_kernel``);
+- :func:`fused_mha`: standalone multi-head attention over separate Q, K, V
+  (B, L, H·D) (TPU kernel K13, ``_attn_kernel``). No encoder path calls it,
+  in either package; its plain version is :func:`mha_reference`.
 
 On a CUDA tensor each runs the hand-written kernels of
 ``csrc/encoder_kernels.cu`` (bf16 activations and weights, f32 biases and
@@ -229,6 +232,58 @@ def fused_attention_block_qkv(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln
                                          ln_scale, ln_bias, ln_eps, save_acc)
     return _acc_only(_attention_block_cuda(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bias, ln_eps,
                                            save_acc), save_acc)
+
+
+def mha_reference(q, k, v, mask, n_heads):
+    """Plain version of K13, the function the kernel computes: per head, f32
+    logits QKᵀ scaled after the product, plus (mask − 1)·1e9, an f32 softmax
+    with the max subtracted, the probabilities rounded to v's dtype before
+    P·V (f32 sums), the output in q's dtype. JAX's ``mha_reference`` rounds
+    the logits to the input dtype first; this follows its kernel, ``fused_mha``."""
+    b, l, hd = q.shape
+    d = hd // n_heads
+
+    def split(t):  # (B, H, L, D)
+        return t.reshape(b, l, n_heads, d).transpose(1, 2)
+
+    s = matmul_f32(split(q), split(k).transpose(-1, -2)) * (1.0 / d ** 0.5)
+    s = s + ((mask.float() - 1.0) * 1e9)[:, None, None, :]
+    s = s - s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s)
+    p = p / p.sum(dim=-1, keepdim=True)
+    o = matmul_f32(p.to(v.dtype), split(v)).to(q.dtype)
+    return o.transpose(1, 2).reshape(b, l, hd)
+
+
+def _mha_cuda(q, k, v, mask, n_heads):
+    """K13 on the card: K1's attention core reading separate Q, K, V with
+    row stride H·D, probabilities rounded to bf16 (csrc mm_fused_mha)."""
+    b, l, hd = q.shape
+    if hd % n_heads or hd // n_heads != _KERNEL_HEAD_DIM:
+        raise ValueError(f"fused_mha: the CUDA kernel takes head width {_KERNEL_HEAD_DIM}, got {hd}/{n_heads}")
+    if not 1 <= l <= _KERNEL_MAX_LEN:
+        raise ValueError(f"fused_mha: the CUDA kernel takes 1 <= L <= {_KERNEL_MAX_LEN}, got {l}")
+    if k.shape != q.shape or v.shape != q.shape or tuple(mask.shape) != (b, l):
+        raise ValueError(f"fused_mha: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} and mask "
+                         f"{tuple(mask.shape)} do not fit")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.check_cuda(t, f"fused_mha.{name}", torch.bfloat16)
+    mask = _f32(mask)  # held in a name until the launch: the kernel reads it on the stream
+    with torch.cuda.device(q.device):
+        out = torch.empty_like(q)
+        _build.call("mm_fused_mha", _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask), _build.ptr(out),
+                    b, l, n_heads, 1.0 / _KERNEL_HEAD_DIM ** 0.5, _build.stream(q.device))
+    _build.LAUNCHES["fused_mha"] += 1
+    return out
+
+
+def fused_mha(q, k, v, mask, n_heads):
+    """Multi-head self-attention, forward only: q, k, v (B, L, H·D), mask
+    (B, L) with 1 = real key; output (B, L, H·D) in q's dtype. CUDA tensors:
+    bf16, head width 64, 1 <= L <= 512."""
+    if not q.is_cuda:
+        return mha_reference(q, k, v, mask, n_heads)
+    return _mha_cuda(q, k, v, mask, n_heads)
 
 
 def fused_mlp_block(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps: float = 1e-12, save_acc: bool = False):

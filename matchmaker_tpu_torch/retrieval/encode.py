@@ -2,7 +2,9 @@
 ``matchmaker_tpu/retrieval/encode.py``, with the same files:
 ``token_reps_N.npy`` blocks of ``token_block_size`` rows, ``doc_infos.npz``
 (sequence id → (block, start, end)) and ``encode_meta.json``.
-Single-vector models only (multi-vector corpora come with ColBERT).
+Multi-vector models (ColBERT's per-token vectors) keep each sequence's
+non-zero rows (the first row of a sequence without one), as the JAX package
+does.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ def encode_corpus(encode_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor
                   input_path: str, out_folder: str, device: torch.device,
                   sequence_type: str = "doc") -> Dict[str, tuple]:
     """Encode an ``id \\t text`` file into blocks + doc_infos; returns doc_infos.
-    ``encode_fn(ids, mask)`` → (B, D) vectors."""
+    ``encode_fn(ids, mask)`` → (B, D) vectors or (B, L, D) per-token vectors."""
     perf = PerformanceMonitor.get()
     dtype = np.float16 if config.get("token_dtype", "float16") == "float16" else np.float32
     block_rows = config.get("token_block_size", 50000)
@@ -70,12 +72,16 @@ def encode_corpus(encode_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor
     loader = single_sequence_loader(config, tokenizer, input_path, sequence_type)
     perf.start_block("encode")
     for batch, seq_ids in device_prefetch(loader, device):
-        reps = encode_fn(batch["seq_ids"], batch["seq_mask"])
-        if reps.dim() != 2:
-            raise NotImplementedError("multi-vector corpora are not ported yet (ROADMAP.md)")
-        rows = reps[:len(seq_ids)].float().cpu().numpy().astype(dtype)
+        reps = encode_fn(batch["seq_ids"], batch["seq_mask"])[:len(seq_ids)].float().cpu().numpy()
         if writer is None:
-            writer = BlockWriter(out_folder, rows.shape[-1], block_rows, dtype)
+            writer = BlockWriter(out_folder, reps.shape[-1], block_rows, dtype)
+        if reps.ndim == 3:
+            for sid, vecs in zip(seq_ids, reps):
+                kept = vecs[np.abs(vecs).sum(axis=-1) > 0]
+                doc_infos[sid] = writer.append((kept if kept.shape[0] else vecs[:1]).astype(dtype))
+            n_seqs += len(seq_ids)
+            continue
+        rows = reps.astype(dtype)
         i = 0
         while i < len(seq_ids):
             take = min(writer.block_rows - writer.row_in_block, len(seq_ids) - i) \

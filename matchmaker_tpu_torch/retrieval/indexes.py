@@ -21,6 +21,13 @@
 - ``mips_quantization: none``: rows stored f32, exact blocked scan
   (ops/mips.py).
 
+The binmax routes honour ``mips_per_bin`` and ``mips_tile_rows`` (the
+corpus tile of the candidate layout, 2048 rows by default; it sets the
+padding grain and, for per_bin > 1, which candidates share a level-2 group,
+so it changes results) as the JAX FlatIndex does. ``mips_q_chunk`` is
+accepted and unused: the JAX kernels split the query rows into launches of
+that many only to fit VMEM, which changes no result.
+
 Not ported yet (ROADMAP.md): ``mips_twostage`` with ``mips_kernel: scan``
 (ops/mips_twostage.py), the float16 XLA-scan route and the other index
 types.
@@ -82,8 +89,6 @@ class BaseNNIndexer:
 class FlatIndex(BaseNNIndexer):
     """MIPS over the full corpus matrix on one device."""
 
-    _TILE_ROWS = 2048
-
     def __init__(self, config=None, device="cuda"):
         super().__init__(config, device)
         config = config or {}
@@ -107,6 +112,7 @@ class FlatIndex(BaseNNIndexer):
         self.binmax = (quant == "float16" or self.quantized) and self.mips_kernel == "binmax"
         self.block_size = config.get("mips_block_size", 65536)
         self.per_bin_override = config.get("mips_per_bin")
+        self.tile_rows = config.get("mips_tile_rows") or 2048
         self._vectors: Optional[np.ndarray] = None
         self._ids: Optional[np.ndarray] = None
         self._device_vectors = None
@@ -132,7 +138,7 @@ class FlatIndex(BaseNNIndexer):
         if self.binmax:
             # one grain for per_bin 2..8, so the scan never re-pads the corpus
             pbs = [self.per_bin_override] if self.per_bin_override else [2, 4, 8]
-            grain = max(padding_grain(self._TILE_ROWS, pb) for pb in pbs)
+            grain = max(padding_grain(self.tile_rows, pb) for pb in pbs)
             pad_to = grain * -(-vectors.shape[0] // grain)
         if self.binmax and self.quantized:
             padded = np.zeros((pad_to, vectors.shape[1]), dtype=np.float32)
@@ -175,7 +181,7 @@ class FlatIndex(BaseNNIndexer):
         per_bin = self._per_bin(k)
         if per_bin is None:
             return f16_scan_topk(q, corpus, k, n_valid=rows)
-        return binmax_scan_topk(q, corpus, k, n_valid=rows, per_bin=per_bin, tile_rows=self._TILE_ROWS)
+        return binmax_scan_topk(q, corpus, k, n_valid=rows, per_bin=per_bin, tile_rows=self.tile_rows)
 
     def _search_int8(self, q: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """The int8 routes (module docstring), as the JAX FlatIndex runs them
@@ -189,7 +195,7 @@ class FlatIndex(BaseNNIndexer):
         if per_bin is None:  # exact int8 scan over the bin scales expanded to rows
             row_scales = bin_scales[:, 0].repeat_interleave(BIN_WIDTH)[:values.shape[0]]
             return quantized_blocked_topk(q, values, row_scales, k, block_size=self.block_size, n_valid=rows)
-        geom = dict(n_valid=rows, tile_rows=self._TILE_ROWS)
+        geom = dict(n_valid=rows, tile_rows=self.tile_rows)
         if self.int8_queries == "float":
             return binmax_scan_topk(q, values, k, per_bin=per_bin, corpus_scales=bin_scales, mixed_queries=True,
                                     **geom)

@@ -13,7 +13,7 @@ validation/test/leaderboard passes, ``efficiency-metrics.json`` and, with
 weights. Extra config key: ``device`` (default ``"cuda"``).
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP.md item: ``dynamic_teacher``, ``dynamic_sampler``,
+ROADMAP.md item: ColBERT, ``dynamic_teacher``, ``dynamic_sampler``,
 ``submodel_train_cache_path``, warm starts from JAX checkpoints and
 multi-process launches.
 """
@@ -32,7 +32,7 @@ from matchmaker_tpu_torch.data.tokenization import build_tokenizer
 from matchmaker_tpu_torch.evaluation import evaluate_model, save_sorted_results, test_model, validate_model
 from matchmaker_tpu_torch.experiment import EarlyStopping, save_best_info
 from matchmaker_tpu_torch.losses import get_loss
-from matchmaker_tpu_torch.models import get_model, init_params
+from matchmaker_tpu_torch.models import get_model, init_params, model_base_name
 from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
 from matchmaker_tpu_torch.obs.scalars import ScalarWriter, collect_learned_scalars
 from matchmaker_tpu_torch.training.checkpoints import (
@@ -56,6 +56,9 @@ _UNPORTED = {
 
 
 def _refuse_unported(config) -> None:
+    if model_base_name(config.get("model", "")) == "colbert":
+        raise NotImplementedError("ColBERT training (forward_triple, the MaxSim backward) is not ported yet "
+                                  "(ROADMAP.md, queue 1 item 9)")
     for key, item in _UNPORTED.items():
         if config.get(key):
             raise NotImplementedError(f"{key} is not ported yet (ROADMAP.md, {item})")

@@ -22,6 +22,7 @@ from matchmaker_tpu_torch.models import get_model, init_params
 from matchmaker_tpu_torch.models.bert_dot import BertDot, BertDotDualEncoder
 from matchmaker_tpu_torch.models.encoder import EncoderConfig, TransformerEncoderLM, encoder_config_from_model_name
 from matchmaker_tpu_torch.models.weights import flatten_params, flax_to_state_dict, load_npz, save_npz
+from matchmaker_tpu_torch.training.trainer import _refuse_unported
 
 
 def _ids_mask(seed, b=4, l=24, vocab=900):
@@ -164,9 +165,12 @@ def test_config_from_model_name_matches_jax(name):
 
 def test_unported_models_raise():
     tok = build_tokenizer(_bert_dot_config())
-    for model in ("knrm", "colbert", "maxP->bert_dot"):
+    for model in ("knrm", "bert_cat", "maxP->bert_dot"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(_bert_dot_config(model=model), tok)
+    # ColBERT serves on the port; its training is refused
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _refuse_unported(_bert_dot_config(model="colbert"))
     # the int8 halves are ported for inference; under autograd they are refused
     enc = TransformerEncoderLM(EncoderConfig.tiny(fused_attention=True, int8_mlp=True))
     ids, mask = _ids_mask(2)

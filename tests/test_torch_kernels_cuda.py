@@ -22,6 +22,7 @@ from matchmaker_tpu_torch.ops import _build
 from matchmaker_tpu_torch.ops import fused_attention as fa
 from matchmaker_tpu_torch.ops import fused_backward as fb
 from matchmaker_tpu_torch.ops import fused_int8 as fi
+from matchmaker_tpu_torch.ops import maxsim as ms
 from matchmaker_tpu_torch.ops import mips_binmax as mb
 from matchmaker_tpu_torch.ops import mips_quant as mq
 
@@ -454,9 +455,81 @@ def test_int8_wrappers_count_cuda_launches_only(device):
     assert {k: _build.LAUNCHES[k] for k in want} == want
 
 
+# ---- ColBERT MaxSim (K14) and the standalone attention (K13) -----------------
+
+def _maxsim_case(bq, lq, bd, ld, dim, device, seed, below_fill=False):
+    """Random f32 token vectors and masks with zeros; one all-padding doc and
+    one all-padding query; ``below_fill``: every third doc's live dots below
+    −1000."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(bq, lq, dim, generator=g, device=device)
+    d = torch.randn(bd, ld, dim, generator=g, device=device)
+    if below_fill:
+        q, d[::3] = q.abs() * 5, -d[::3].abs() * 40
+    q_mask = (torch.rand(bq, lq, generator=g, device=device) > 0.2).float()
+    d_mask = (torch.rand(bd, ld, generator=g, device=device) > 0.2).float()
+    q_mask[:, 0] = d_mask[:, 0] = 1.0
+    d_mask[min(1, bd - 1)] = 0.0
+    q_mask[-1] = 0.0
+    return q, d, q_mask, d_mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,fill,below", [((128, 32, 256, 200, 128), ms.NEG_FILL, False),
+                                              ((32, 32, 64, 200, 128), ms.NEG_FILL, False),
+                                              ((1, 32, 64, 128, 128), float("-inf"), False),
+                                              ((3, 13, 21, 77, 128), ms.NEG_FILL, True),
+                                              ((3, 13, 21, 77, 128), float("-inf"), True),
+                                              ((5, 40, 9, 30, 32), ms.NEG_FILL, False)])
+def test_maxsim_kernel_matches_plain(device, shape, fill, below):
+    """K14 against its plain version on the card (rtol = atol = 1e-4, the
+    bar of tests/test_perf_ops.py:91): the phase-3 shapes, the exact
+    rescore's fill −inf, dots below −1000, all-padding docs and queries."""
+    q, d, qm, dm = _maxsim_case(*shape, device, seed=sum(shape), below_fill=below)
+    _build.reset_launches()
+    got = ms.maxsim_all_pairs(q, d, qm, dm, fill=fill)
+    want = ms.reference_maxsim_all_pairs(q, d, qm, dm, fill)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["maxsim_all_pairs"] == 1
+    assert got.shape == (shape[0], shape[2])
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got)) and torch.equal(got[~fin], want[~fin])
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-4, atol=1e-4)
+    assert bool((got[-1] == 0).all())
+
+
+@pytest.mark.cuda
+def test_maxsim_kernel_refuses_autograd_and_bad_shapes(device):
+    q, d, qm, dm = _maxsim_case(2, 8, 3, 16, 32, device, seed=1)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        ms.maxsim_all_pairs(q.requires_grad_(), d, qm, dm)
+    with pytest.raises(ValueError, match="D % 8"):
+        ms.maxsim_all_pairs(q.detach()[..., :12], d[..., :12], qm, dm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l", [(256, 128), (64, 30), (3, 200), (2, 1)])
+def test_fused_mha_kernel_matches_plain(device, b, l):
+    """K13 against its plain version on the card at head width 64, 12 heads,
+    with padded keys: the encoder halves' bar (row cosine >= 0.999, max |d|
+    <= 0.1)."""
+    g = torch.Generator(device=device).manual_seed(b + l)
+    q, k, v = (torch.randn(b, l, 768, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones(b, l, device=device)
+    mask[0, l // 2 + 1:] = 0.0
+    _build.reset_launches()
+    got = fa.fused_mha(q, k, v, mask, 12)
+    want = fa.mha_reference(q, k, v, mask, 12)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_mha"] == 1 and got.dtype == torch.bfloat16
+    cos, err = _rows_close(got, want)
+    assert cos >= 0.999 and err <= 0.1, (cos, err)
+
+
 @pytest.mark.parametrize("module", ["matchmaker_tpu_torch.cli.dense_retrieval", "matchmaker_tpu_torch.cli.train",
                                     "matchmaker_tpu_torch.training.trainer", "matchmaker_tpu_torch.retrieval.indexes",
-                                    "matchmaker_tpu_torch.ops.fused_int8"])
+                                    "matchmaker_tpu_torch.ops.fused_int8",
+                                    "matchmaker_tpu_torch.retrieval.colbert_search"])
 def test_cli_import_loads_no_jax_flax_or_yaml(module):
     """The machine with the card has no jax, flax, optax or PyYAML, and the
     port depends on nothing of the JAX package: the port's entry points must
