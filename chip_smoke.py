@@ -11,9 +11,12 @@ Phases (any failed check raises, and the script exits non-zero):
    DistilBERT width for (B, L) = (256, 128), (256, 200), (64, 30); their
    backward kernels (K11, K12) at the training shapes (64, 200) and
    (32, 30), at (256, 200) and at an odd L = 77 with padded keys, every
-   gradient compared; the binmax scan (bf16 K3, mixed K8, int8 K7), level 2
-   and unpack on 262,144 x 768 rows and 256 queries; ColBERT's all-pairs
-   MaxSim (K14) at (Bq, Lq, Bd, Ld, D) = (128, 32, 256, 200, 128),
+   gradient compared; at the training rows, each backward product of the
+   Hopper GEMM beside torch.matmul of the same shapes, and the attention-core
+   backward alone against its plain version and bound; the binmax scan (bf16
+   K3, mixed K8, int8 K7), level 2 and unpack on 262,144 x 768 rows and 256
+   queries; ColBERT's all-pairs MaxSim (K14) at (Bq, Lq, Bd, Ld, D) =
+   (128, 32, 256, 200, 128),
    (32, 32, 64, 200, 128), the exact rescore's (1, 32, 64, 128, 128) with
    fill -inf and an odd (7, 30, 21, 77, 128) with dots below -1000 (rtol =
    atol = 1e-4); the standalone attention K13 at (B, L) = (256, 128) and
@@ -377,6 +380,81 @@ def phase_backward_kernels(sz, device):
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
             _record(out[name], [b, l, sz["hid"]], kernel, plain, device, sz["bwd_reps"], headline=i == 0,
                     bound_of=bound(nbytes(inputs[name], list(got.values())), **ops[name]))
+    return out
+
+
+def phase_backward_parts(sz, device):
+    """K11's and K12's parts alone at the main path's rows (docs (64, 200),
+    queries (32, 30)): every product of the Hopper GEMM beside one
+    torch.matmul of each of its products (a yardstick; the port never calls
+    it), and the attention-core backward against its plain version and its
+    bound."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import fused_backward as fb
+
+    hid, ff, heads = sz["hid"], sz["ff"], sz["heads"]
+    out = {"products": [], "attention_core": []}
+    for b, l in sz["bwd_shapes"][:2]:
+        m = b * l
+        g = torch.Generator(device=device).manual_seed(300 + m)
+
+        def rand(*shape, std=1.0):
+            return (torch.randn(*shape, generator=g, device=device) * std).to(torch.bfloat16)
+
+        x, dacc, a = rand(m, hid), rand(m, hid), rand(m, hid)
+        dqkv, dz, h = rand(m, 3 * hid), rand(m, ff), rand(m, ff)
+        wo, wqkv = rand(hid, hid, std=hid ** -0.5), rand(hid, 3 * hid, std=hid ** -0.5)
+        w1, w2 = rand(hid, ff, std=hid ** -0.5), rand(ff, hid, std=ff ** -0.5)
+        b1 = torch.randn(ff, generator=g, device=device) * 0.05
+        aux = torch.randn(m, hid, generator=g, device=device)
+        y = torch.empty((m, hid), dtype=torch.bfloat16, device=device)
+        # (name, flops, kernel, the same products through torch.matmul)
+        cases = [
+            ("K12 da = dacc.Wo^T", 2 * m * hid * hid, lambda: fb._bwd_gemm(dacc, wo, y, fb._EPI_BF16),
+             lambda: torch.matmul(dacc, wo.t())),
+            ("K12 dx = dqkv.Wqkv^T + dacc", 2 * m * hid * 3 * hid,
+             lambda: fb._bwd_gemm(dqkv, wqkv, y, fb._EPI_RESID_BF16, aux=aux), lambda: torch.matmul(dqkv, wqkv.t())),
+            ("K12 dWo = a^T.dacc", 2 * m * hid * hid, lambda: fb._wgrad(a, dacc), lambda: torch.matmul(a.t(), dacc)),
+            ("K12 dWqkv = x^T.dqkv", 2 * m * hid * 3 * hid, lambda: fb._wgrad(x, dqkv),
+             lambda: torch.matmul(x.t(), dqkv)),
+            ("K11 dz = (dacc.W2^T) * gelu'(x.W1 + b1)", 4 * m * hid * ff, lambda: fb._gelu_dz(x, w1, b1, dacc, w2),
+             lambda: (torch.matmul(dacc, w2.t()), torch.matmul(x, w1))),
+            ("K11 dx = dz.W1^T + dacc", 2 * m * hid * ff, lambda: fb._bwd_gemm(dz, w1, y, fb._EPI_RESID_BF16, aux=aux),
+             lambda: torch.matmul(dz, w1.t())),
+            ("K11 dW2 = h^T.dacc", 2 * m * hid * ff, lambda: fb._wgrad(h, dacc), lambda: torch.matmul(h.t(), dacc)),
+            ("K11 dW1 = x^T.dz", 2 * m * hid * ff, lambda: fb._wgrad(x, dz), lambda: torch.matmul(x.t(), dz)),
+        ]
+        for name, flops, kernel, library in cases if device.type == "cuda" else ():  # card-only wrappers
+            ms, lib_ms = _pair_ms(kernel, library, device, sz["reps"])
+            rec = {"product": name, "rows": m, "ms": ms, "tflops": flops / ms / 1e9, "matmul_ms": lib_ms,
+                   "matmul_tflops": flops / lib_ms / 1e9}
+            out["products"].append(rec)
+            print(f"[kernels] backward product {name}, M={m}: {ms:.4f} ms ({rec['tflops']:.1f} TFLOP/s); "
+                  f"torch.matmul {lib_ms:.4f} ms ({rec['matmul_tflops']:.1f} TFLOP/s)")
+
+        # the attention core alone, at the half's shapes
+        d = hid // heads
+        qkv, da = rand(b, l, 3 * hid), rand(b, l, hid)
+        lengths = torch.randint(max(1, l // 4), l + 1, (b,), generator=g, device=device)
+        mask = (torch.arange(l, device=device)[None, :] < lengths[:, None]).float()
+        q, k, v = (t.reshape(b, l, heads, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+        dah = da.reshape(b, l, heads, d).transpose(1, 2)
+        got = fb.attention_core_bwd(qkv, mask, da, heads)
+        want = torch.cat([t.transpose(1, 2).reshape(b, l, hid)
+                          for t in fb._attention_core_plain(q, k, v, dah, mask, d ** -0.5)[1:]], dim=-1)
+        err = grads_close(dict(zip(("dq", "dk", "dv"), got.chunk(3, dim=-1))),
+                          dict(zip(("dq", "dk", "dv"), want.chunk(3, dim=-1))))
+        ms, plain_ms = _pair_ms(lambda: fb.attention_core_bwd(qkv, mask, da, heads),
+                                lambda: fb._attention_core_plain(q, k, v, dah, mask, d ** -0.5), device, sz["reps"])
+        flops = 10 * b * heads * l * l * d  # S, dP, dV, dQ, dK
+        bound_ms, bound_by = bound(nbytes(qkv, mask, da, got), bf16=flops)
+        rec = {"shape": [b, l, hid], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "tflops": flops / ms / 1e9, "max_abs_err": err}
+        out["attention_core"].append(rec)
+        print(f"[kernels] attention-core backward B={b} L={l}: {ms:.4f} ms ({rec['tflops']:.1f} TFLOP/s of its five "
+              f"products), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); dq/dk/dv within cosine "
+              f"0.999 of plain (largest |d| {err:.4g})")
     return out
 
 
@@ -1472,23 +1550,25 @@ def _kernels_vs_plain_step(model, config, batch):
     model.zero_grad(set_to_none=True)
     rel = abs(lk - lp) / max(abs(lp), 1e-12)
     moved = int((hk != hp).sum())
-    cosines = {}
+    cosines, key_bias = {}, 0.0
     for name, a in gk.items():
         b = gp[name]
         if name.endswith("attention.key.bias"):
             # zero in exact arithmetic (each softmax row's gradient sums to
             # zero): rounding noise, bounded by the query bias's gradient
-            ref = float(gp[name.replace("key.bias", "query.bias")].abs().max())
-            check(float((a - b).abs().max()) <= 2e-2 * ref, f"{name}: gradient noise above 2e-2 of the query bias's")
+            ratio = float((a - b).abs().max()) / float(gp[name.replace("key.bias", "query.bias")].abs().max())
+            key_bias = max(key_bias, ratio)
+            check(ratio <= 2e-2, f"{name}: gradient noise {ratio:.4g} of the query bias's, above 2e-2")
             continue
         cosines[name] = float(torch.nn.functional.cosine_similarity(a.reshape(-1), b.reshape(-1), dim=0))
     worst = sorted(cosines.items(), key=lambda kv: kv[1])[:3]
     print(f"[train] one step, kernels vs plain: loss {lk:.6g} vs {lp:.6g} (relative gap {rel:.3g}); in-batch "
           f"hardest negative moved for {moved} of {len(hk)} queries; Margin-MSE gradients of {len(cosines)} "
-          f"parameters, worst cosines " + ", ".join(f"{n} {c:.6f}" for n, c in worst))
+          f"parameters, worst cosines " + ", ".join(f"{n} {c:.6f}" for n, c in worst)
+          + f"; key-bias noise {key_bias:.4g} of the query bias's (bar 2e-2)")
     check(rel <= 1e-2, f"loss with the kernels {lk} vs plain {lp}")
     check(worst[0][1] >= 0.99, f"gradient cosine {worst[0][1]} at {worst[0][0]}")
-    return rel, worst[0][1], moved
+    return rel, worst[0][1], moved, key_bias
 
 
 def phase_train(sz, device, root):
@@ -1557,7 +1637,8 @@ def phase_train(sz, device, root):
         result["profile"] = _profile_steps(trainer.train_step, batch, ms)
         result["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         print(f"[train] peak device memory over the profiled steps {result['peak_mem_gb']:.2f} GB")
-    result["plain_loss_gap"], result["plain_grad_cos"], result["hardest_negatives_moved"] = \
+    (result["plain_loss_gap"], result["plain_grad_cos"], result["hardest_negatives_moved"],
+     result["key_bias_noise"]) = \
         _kernels_vs_plain_step(trainer.model, config, batch)
 
     # one-batch overfit: no warmup, a constant learning rate
@@ -1618,6 +1699,7 @@ def run_phases(sz, device, card: str) -> dict:
         print(f"[build] kernels built and loaded in {report['build_s']:.1f} s ({_build.library_path().name})")
     kern = phase_encoder_kernels(sz, device)
     kern.update(phase_backward_kernels(sz, device))
+    report["backward_parts"] = phase_backward_parts(sz, device)
     kern.update(phase_binmax_kernels(sz, device))
     kern.update(phase_int8_encoder_kernels(sz, device))
     kern.update(phase_int8_binmax_kernels(sz, device))

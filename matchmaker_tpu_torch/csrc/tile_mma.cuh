@@ -1,9 +1,9 @@
 // Shared 128x128 tile products on the tensor cores (nvcuda::wmma), used by
-// the encoder GEMMs (encoder_kernels.cu, encoder_backward_kernels.cu,
-// encoder_int8_kernels.cu) and the binmax scan (binmax_kernels.cu):
+// the forward encoder GEMMs (encoder_kernels.cu, encoder_int8_kernels.cu) and
+// the binmax scan (binmax_kernels.cu); the backward's products run on
+// wgmma_gemm.cuh:
 //   bf16 x bf16 -> f32: A.B and A.B^T (tile_mma; A may be int8 codes, which
-//                       become bf16 exactly on their way to shared memory),
-//                       A^T.B (tile_mma_tn);
+//                       become bf16 exactly on their way to shared memory);
 //   int8 x int8 -> int32: A.B and A.B^T (tile_mma_s8), exact.
 //
 // Bound: at the main path's shapes (M = B*L rows >= 7680, N = 768..3072,
@@ -145,80 +145,6 @@ __device__ __forceinline__ void tile_mma(const AT* __restrict__ A, int M, const 
     }
   }
   __syncthreads();  // the ring may be reused by the caller's epilogue
-}
-
-// The transposed-A tile for weight gradients (encoder_backward_kernels.cu):
-// C[i0:i0+128, j0:j0+128] = sum over rows r in [r_begin, r_end) of
-// A[r][i] * B[r][j], i.e. A^T . B contracting the row dimension. A (R, I) and
-// B (R, J) row-major. Rows outside [r_begin, r_end) read as zero, so the row
-// count needs no alignment; I and J are multiples of 8 (16-byte chunks).
-// A's K-step tile is staged [k][i] in shared memory and read as a col-major
-// matrix_a fragment, so no transpose pass exists.
-constexpr int AT_LD = TILE_M + 8;  // A^T staged [K][M]: 272-byte rows
-using FragAcol = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-
-__device__ __forceinline__ void tile_mma_tn(const bf16* __restrict__ A, int I, const bf16* __restrict__ B, int J,
-                                            int r_begin, int r_end, int i0, int j0, char* smem,
-                                            FragC (&acc)[FRAG_M][FRAG_N]) {
-  static_assert(2 * TILE_K * AT_LD * 2 + 2 * TILE_K * BKN_LD * 2 <= TILE_SMEM_BYTES, "A^T ring too large");
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + 2 * TILE_K * AT_LD;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
-
-#pragma unroll
-  for (int i = 0; i < FRAG_M; ++i)
-#pragma unroll
-    for (int j = 0; j < FRAG_N; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  // per K step: 32 rows x 128 columns of A and of B, two 16-byte chunks of each per thread
-  uint4 ra[2], rb[2];
-  auto fetch = [&](int r0) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int chunk = tid + c * TILE_THREADS;  // 0..511
-      const int row = chunk >> 4, col = (chunk & 15) * 8;
-      const bool in_rows = r0 + row < r_end;
-      ra[c] = load16(A + (size_t)(r0 + row) * I + i0 + col, in_rows && i0 + col < I);
-      rb[c] = load16(B + (size_t)(r0 + row) * J + j0 + col, in_rows && j0 + col < J);
-    }
-  };
-  auto stash = [&](int buf) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int chunk = tid + c * TILE_THREADS;
-      const int row = chunk >> 4, col = (chunk & 15) * 8;
-      *reinterpret_cast<uint4*>(As + buf * TILE_K * AT_LD + row * AT_LD + col) = ra[c];
-      *reinterpret_cast<uint4*>(Bs + buf * TILE_K * BKN_LD + row * BKN_LD + col) = rb[c];
-    }
-  };
-
-  const int steps = (r_end - r_begin + TILE_K - 1) / TILE_K;
-  if (steps > 0) fetch(r_begin);
-  for (int s = 0; s < steps; ++s) {
-    const int buf = s & 1;
-    stash(buf);
-    __syncthreads();
-    if (s + 1 < steps) fetch(r_begin + (s + 1) * TILE_K);
-    const bf16* a_base = As + buf * TILE_K * AT_LD + wm * WARP_M;
-    const bf16* b_base = Bs + buf * TILE_K * BKN_LD + wn * WARP_N;
-#pragma unroll
-    for (int kk = 0; kk < TILE_K; kk += 16) {
-      FragAcol fa[FRAG_M];
-#pragma unroll
-      for (int i = 0; i < FRAG_M; ++i) wmma::load_matrix_sync(fa[i], a_base + kk * AT_LD + i * 16, AT_LD);
-#pragma unroll
-      for (int j = 0; j < FRAG_N; ++j) {
-        FragBrow fb;
-        wmma::load_matrix_sync(fb, b_base + kk * BKN_LD + j * 16, BKN_LD);
-#pragma unroll
-        for (int i = 0; i < FRAG_M; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();
 }
 
 // ---- int8 x int8 -> int32 ----------------------------------------------

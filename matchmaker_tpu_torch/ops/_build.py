@@ -8,7 +8,8 @@ sources and flags (a changed source builds anew; an unchanged one loads the
 cached library). The
 library is loaded with ``ctypes``: pointers and the stream travel as
 ``c_void_p``, and every entry point returns ``cudaGetLastError()``, which
-:func:`call` turns into an exception.
+:func:`call` turns into an exception (the ``_bytes`` ones return the bytes
+of workspace their launch needs, :func:`workspace_bytes`).
 
 ``LAUNCHES`` counts, per ported TPU kernel, the calls of its wrapper that
 launched the CUDA kernels (a wrapper given CPU tensors runs its plain version
@@ -47,9 +48,6 @@ LAUNCHES = {
     "fused_mha": 0,  # K13
 }
 
-# rows of one ln_bwd_kernel block (csrc/encoder_backward_kernels.cu:LNB_ROWS)
-LN_BWD_ROWS = 32
-
 _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "mm_gemm": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p],
@@ -64,11 +62,17 @@ _SIGNATURES = {
     "mm_binmax_scan_int8": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i64, _i, _p],
     "mm_level2": [_p, _p, _i, _i, _i, _i64, _i64, _p],
     "mm_unpack": [_p, _p, _p, _p, _i64, _i, _i, _i, _p],
-    "mm_bwd_gemm": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p],
-    "mm_gemm_tn": [_p, _p, _p, _p, _i, _i, _i, _i, _p],
-    "mm_colsum": [_p, _p, _p, _i, _i, _i, _i, _p],
-    "mm_ln_bwd": [_p, _p, _p, _p, _p, _p, _i, _i, _f, _p],
+    "mm_wg_gemm": [_p, _p, _p, _p, _i, _i, _i, _i, _p],
+    "mm_wg_gemm_dz": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
+    "mm_wg_wgrad": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
     "mm_attention_bwd": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _p],
+    "mm_attention_block_bwd": [_p] * 14 + [_i, _i, _i, _i, _f, _f, _i, _i, _i, _i, _p],
+    "mm_mlp_block_bwd": [_p] * 13 + [_i, _i, _i, _f, _i, _i, _i, _i, _p],
+}
+# entry points that return the bytes of workspace a launch above needs
+_SIZE_SIGNATURES = {
+    "mm_attention_block_bwd_bytes": [_i] * 6,
+    "mm_mlp_block_bwd_bytes": [_i] * 5,
 }
 
 _lib = None
@@ -145,10 +149,11 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            for signatures, restype in ((_SIGNATURES, ctypes.c_int), (_SIZE_SIGNATURES, ctypes.c_longlong)):
+                for name, argtypes in signatures.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
             lib.mm_error_string.argtypes = [ctypes.c_int]
             lib.mm_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -165,11 +170,17 @@ def stream(device: torch.device) -> ctypes.c_void_p:
 
 def call(name: str, *args) -> None:
     """Run one C entry point; raise on a launch or configuration error."""
-    lib = library()
+    lib = _lib if _lib is not None else library()
     err = getattr(lib, name)(*args)
     if err != 0:
         msg = lib.mm_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def workspace_bytes(name: str, *args) -> int:
+    """The bytes of workspace one of the ``_SIZE_SIGNATURES`` entry points
+    reports for these sizes."""
+    return int(getattr(library(), name)(*args))
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:

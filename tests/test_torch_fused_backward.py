@@ -234,3 +234,82 @@ def test_encoder_dropout_request_warns_or_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TransformerEncoderLM(EncoderConfig.tiny())(ids, mask, deterministic=False)
     TransformerEncoderLM(EncoderConfig.tiny(dropout=0.0))(ids, mask, deterministic=False)
+
+
+# weight gradients of one layer: (name, I, J); rows of the four backward shapes
+# (64, 200), (32, 30), (256, 200), (16, 77)
+WGRADS = [("dWo", 768, 768), ("dWqkv", 768, 2304), ("dW1", 768, 3072), ("dW2", 3072, 768)]
+WGRAD_ROWS = {12800: {"dWo": (3, 67), "dW1": (4, 50), "dW2": (4, 50)},
+              960: {"dWo": (3, 5), "dW1": (3, 5), "dW2": (3, 5)},
+              51200: {"dWo": (3, 267), "dW1": (4, 200), "dW2": (4, 200)},
+              1232: {"dWo": (3, 7), "dW1": (4, 5), "dW2": (4, 5)}}
+
+
+@pytest.mark.parametrize("r", sorted(WGRAD_ROWS))
+@pytest.mark.parametrize("name,i,j", WGRADS)
+def test_wgrad_plan_splits_rows_in_a_fixed_order(r, name, i, j, monkeypatch):
+    """The split plan of a weight gradient at the main path's rows: dWo (36
+    output tiles) splits its rows three ways, dW1 and dW2 (144 tiles, one
+    more round than 132 SMs) four ways where the rows allow, dWqkv (108
+    tiles) not at all; the splits' row-tile ranges cover every row tile once,
+    in order, none empty; _wgrad hands the plan to the kernel with an
+    (splits, I, J) partial buffer only when it splits."""
+    splits, per = tfb.wgrad_plan(r, i, j)
+    k_tiles = -(-r // 64)
+    assert (splits, per) == WGRAD_ROWS[r].get(name, (1, k_tiles))
+    ranges = [(z * per, min(k_tiles, (z + 1) * per)) for z in range(splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == k_tiles
+    assert all(hi - lo >= 4 for lo, hi in ranges) and all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+    seen = []
+    monkeypatch.setattr(_build, "ptr", lambda t: seen.append(tuple(t.shape)) or 0)
+    monkeypatch.setattr(_build, "stream", lambda device: 0)
+    monkeypatch.setattr(_build, "call", lambda fn, *args: seen.append((fn, *args[4:9])))
+    out = tfb._wgrad(torch.zeros(r, i, dtype=torch.bfloat16), torch.zeros(r, j, dtype=torch.bfloat16))
+    assert out.shape == (i, j) and out.dtype == torch.float32
+    partial = (splits, i, j) if splits > 1 else (i, j)
+    assert seen == [(r, i), (r, j), partial, (i, j), ("mm_wg_wgrad", r, i, j, splits, per)]
+
+
+@pytest.mark.parametrize("half", ["attention", "mlp"])
+def test_each_backward_half_is_one_c_call(half, monkeypatch):
+    """On the card each half is one call of its C entry point, with as many
+    arguments as its ctypes signature, the weight gradients' split plans of
+    wgrad_plan, a workspace of the size its _bytes companion reports, and the
+    column sums split out of one output vector; the half counts one launch.
+    The card itself is faked: this checks the Python side of the call."""
+    import contextlib
+
+    b, l, hid, ff, heads = 2, 5, 768, 3072, 12
+    m = b * l
+    calls, sized = [], []
+    monkeypatch.setattr(_build, "check_cuda", lambda *args: None)
+    monkeypatch.setattr(_build, "stream", lambda device: 0)
+    monkeypatch.setattr(_build, "workspace_bytes", lambda name, *sizes: sized.append((name, *sizes)) or 4096)
+    monkeypatch.setattr(_build, "call", lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    tfb._workspace.cache_clear()
+    _build.reset_launches()
+    bf = torch.bfloat16
+    x, dy = torch.zeros(b, l, hid, dtype=bf), torch.zeros(b, l, hid, dtype=bf)
+    acc, g = torch.zeros(b, l, hid), torch.ones(hid)
+    if half == "attention":
+        qkv, attn = torch.zeros(b, l, 3 * hid, dtype=bf), torch.zeros(b, l, hid, dtype=bf)
+        out = tfb._attention_block_bwd_cuda(x, torch.zeros(hid, 3 * hid, dtype=bf), torch.zeros(hid, hid, dtype=bf),
+                                            torch.ones(b, l), heads, g, dy, (acc, qkv, attn), 1e-12)
+        name, plans = "mm_attention_block_bwd", tfb.wgrad_plan(m, hid, hid) + tfb.wgrad_plan(m, hid, 3 * hid)
+        want_sizes = (name + "_bytes", b, l, heads, hid, plans[0], plans[2])
+        shapes = [(b, l, hid), (hid, 3 * hid), (3 * hid,), (hid, hid), (hid,), (hid,), (hid,)]
+    else:
+        out = tfb._mlp_block_bwd_cuda(x, torch.zeros(hid, ff, dtype=bf), torch.zeros(ff), torch.zeros(ff, hid, dtype=bf),
+                                      g, dy, (acc, torch.zeros(b, l, ff, dtype=bf)), 1e-12)
+        name, plans = "mm_mlp_block_bwd", tfb.wgrad_plan(m, ff, hid) + tfb.wgrad_plan(m, hid, ff)
+        want_sizes = (name + "_bytes", m, hid, ff, plans[0], plans[2])
+        shapes = [(b, l, hid), (hid, ff), (ff,), (ff, hid), (hid,), (hid,), (hid,)]
+    assert [c[0] for c in calls] == [name]
+    args = calls[0][1]
+    assert len(args) == len(_build._SIGNATURES[name])
+    assert tuple(args[-5:-1]) == plans
+    assert sized == [want_sizes] and len(want_sizes) - 1 == len(_build._SIZE_SIGNATURES[want_sizes[0]])
+    assert [tuple(t.shape) for t in out] == shapes
+    assert _build.LAUNCHES[f"fused_{half}_block_bwd"] == 1

@@ -1,5 +1,5 @@
-"""Import hygiene of the port: ``matchmaker_tpu_torch`` and ``chip_smoke.py``
-import nothing of JAX, flax, optax or the JAX package ``matchmaker_tpu`` (the
+"""Import hygiene of the port: ``matchmaker_tpu_torch``, ``chip_smoke.py`` and
+``tools/train_step_ab.py`` import nothing of JAX, flax, optax or the JAX package ``matchmaker_tpu`` (the
 port keeps its own copies of the host code it needs). An AST scan of every
 source file catches an import wherever it sits: at module level, inside a
 function, or behind a condition."""
@@ -14,7 +14,7 @@ FORBIDDEN = ("jax", "flax", "optax", "matchmaker_tpu")
 
 
 def _sources():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tools", "train_step_ab.py")]
     for root, _, files in os.walk(os.path.join(REPO, "matchmaker_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)

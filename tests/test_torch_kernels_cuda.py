@@ -270,6 +270,103 @@ def test_fused_encoder_backward_fills_every_grad(device):
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
 
 
+def _close_to_matmul(got, want, rel):
+    """got (the kernel's output) against want, an f32 torch.matmul of the same
+    bf16 inputs: cosine >= 0.99999 and max |d| <= rel * max |want| (rel 8e-3
+    for a bf16 output, one rounding; 1e-4 for f32 sums in another order)."""
+    a, b = got.float().reshape(-1), want.float().reshape(-1)
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+    err = float((a - b).abs().max())
+    assert cos >= 0.99999 and err <= rel * float(b.abs().max()), (cos, err, float(b.abs().max()))
+
+
+GEMM_ROWS = [960, 1232, 12800]  # queries (32, 30), (16, 77), docs (64, 200)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", GEMM_ROWS)
+@pytest.mark.parametrize("form", ["da", "dx_attention", "dx_mlp", "dz"])
+def test_wgmma_gemm_products_match_matmul(device, m, form):
+    """Each backward product of the Hopper GEMM with its epilogue, against an
+    f32 torch.matmul of the same bf16 inputs (DistilBERT widths)."""
+    g = torch.Generator(device=device).manual_seed(m + len(form))
+    hid, ff = 768, 3072
+
+    def rand(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=device) * std).to(torch.bfloat16)
+
+    if form == "dz":
+        x, dacc = rand(m, hid), rand(m, hid)
+        w1, w2 = rand(hid, ff, std=hid ** -0.5), rand(ff, hid, std=ff ** -0.5)
+        b1 = torch.randn(ff, generator=g, device=device) * 0.05
+        got = fb._gelu_dz(x, w1, b1, dacc, w2)
+        want = torch.matmul(dacc.float(), w2.float().t()) * fb._gelu_grad_poly(torch.matmul(x.float(), w1.float()) + b1)
+        _close_to_matmul(got, want, 8e-3)
+        return
+    k = {"da": hid, "dx_attention": 3 * hid, "dx_mlp": ff}[form]
+    a, w = rand(m, k), rand(hid, k, std=k ** -0.5)
+    want = torch.matmul(a.float(), w.float().t())
+    out = torch.empty((m, hid), dtype=torch.bfloat16, device=device)
+    if form == "da":
+        fb._bwd_gemm(a, w, out, fb._EPI_BF16)
+    else:
+        aux = torch.randn(m, hid, generator=g, device=device)
+        fb._bwd_gemm(a, w, out, fb._EPI_RESID_BF16, aux=aux)
+        want = want + aux
+    _close_to_matmul(out, want, 8e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", GEMM_ROWS)
+@pytest.mark.parametrize("i,j", [(768, 768), (768, 2304), (768, 3072), (3072, 768)])
+def test_wgmma_weight_gradients_match_matmul(device, m, i, j):
+    """The weight-gradient form aᵀ·b (both operands read MN-major, split along
+    the rows by wgrad_plan) against an f32 torch.matmul."""
+    g = torch.Generator(device=device).manual_seed(m + i + j)
+    a = torch.randn(m, i, generator=g, device=device).to(torch.bfloat16)
+    b = torch.randn(m, j, generator=g, device=device).to(torch.bfloat16)
+    got = fb._wgrad(a, b)
+    assert got.dtype == torch.float32 and got.shape == (i, j)
+    _close_to_matmul(got, torch.matmul(a.float().t(), b.float()), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [1, 30, 77, 200, 512])
+def test_attention_core_bwd_matches_plain(device, l):
+    """The tensor-core attention-core backward alone against its plain
+    version: padded keys in one example, a single live key in another."""
+    b, heads, hid = 3, 12, 768
+    g = torch.Generator(device=device).manual_seed(l)
+    qkv = torch.randn(b, l, 3 * hid, generator=g, device=device).to(torch.bfloat16)
+    da = torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
+    mask = torch.ones(b, l, device=device)
+    mask[0, l // 2 + 1:] = 0.0
+    mask[1, 1:] = 0.0
+    got = fb.attention_core_bwd(qkv, mask, da, heads)
+    want = fb.attention_core_bwd(qkv.cpu(), mask.cpu(), da.cpu(), heads)
+    torch.cuda.synchronize()
+    got = dict(zip(("dq", "dk", "dv"), got.chunk(3, dim=-1)))
+    want = dict(zip(("dq", "dk", "dv"), want.to(device).chunk(3, dim=-1)))
+    grads_close(got, want, scale_of={"dq": "dv", "dk": "dv"} if l == 1 else None)
+
+
+@pytest.mark.cuda
+def test_backward_halves_are_bit_identical_run_to_run(device):
+    """Two backward calls of each half on the same inputs give the same bits:
+    every sum runs in a fixed order, no float atomics."""
+    hid, heads, b, l = 768, 12, 8, 200
+    attn, mlp = _layer_weights(hid, 3072, device, seed=31)
+    x = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    dy = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    mask = torch.ones(b, l, device=device)
+    mask[0, 50:] = 0.0
+    first, second = ((attention_bwd_pair(x, attn, mask, heads, dy)[0], mlp_bwd_pair(x, mlp, dy)[0])
+                     for _ in range(2))
+    for one, two in zip(first, second):
+        for name in one:
+            assert torch.equal(one[name], two[name]), name
+
+
 def _corpus(n, d, device, seed):
     g = torch.Generator(device=device).manual_seed(seed)
     c = torch.randn(n, d, generator=g, device=device)
