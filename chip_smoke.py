@@ -16,13 +16,20 @@ Phases (any failed check raises, and the script exits non-zero):
    backward alone against its plain version and bound; the binmax scan (bf16
    K3, mixed K8, int8 K7), level 2 and unpack on 262,144 x 768 rows and 256
    queries; ColBERT's all-pairs MaxSim (K14) at (Bq, Lq, Bd, Ld, D) =
-   (128, 32, 256, 200, 128),
+   (128, 32, 256, 200, 128) (also with D streamed in slabs, the same bits),
    (32, 32, 64, 200, 128), the exact rescore's (1, 32, 64, 128, 128) with
-   fill -inf and an odd (7, 30, 21, 77, 128) with dots below -1000 (rtol =
-   atol = 1e-4); the standalone attention K13 at (B, L) = (256, 128) and
-   (64, 30), 12 heads x 64, beside one scaled_dot_product_attention call;
-   with CUDA-event timings of both and each kernel's bound (bytes or
-   operations at the H100's data-sheet rates);
+   fill -inf, an odd (7, 30, 21, 77, 128) with dots below -1000, the exact
+   rescore at the public checkpoint's width (1, 32, 64, 128, 768) and 200
+   query tokens (8, 200, 64, 200, 128) (rtol = atol = 1e-4); the standalone
+   attention K13 at (B, L) = (256, 128) and (64, 30), 12 heads x 64, beside
+   one scaled_dot_product_attention call; the probes' kernels: the
+   attention inner loop K15 (three variants) at (256, 200) and (16, 77) with
+   padded keys beside K13 and scaled_dot_product_attention, the int8 product
+   K16 (bit-identical) at 16,384 x 768 x 3,072 and M = 1,000 beside
+   torch._int_mm, the row-packed MLP K17/K18 at every row tile at
+   (256, 200) and (16, 77) beside K2 and the bf16 torch.matmul chain; with
+   CUDA-event timings of both and each kernel's bound (bytes or operations
+   at the H100's data-sheet rates);
 4. the main path, ``cli.dense_retrieval.run("encode+index+search")``, on a
    seeded 16,384-passage collection with a DistilBERT-width BERT_DOT
    (random weights from a seed), searching one query set at top-100 and one
@@ -60,7 +67,11 @@ Phases (any failed check raises, and the script exits non-zero):
    run-folder files; then one step with the kernels against one with the
    plain versions (loss and every parameter's gradient), a one-batch overfit
    (30 steps halve Margin-MSE), device-only triples/s and a profile of three
-   steps.
+   steps;
+7. the probes' own path: ``python -m matchmaker_tpu_torch.probes.<name>``'s
+   main() for attn_inner (K15), int8_matmul (K16) and mlp_rows (K17/K18) at
+   the JAX probes' shapes, the launch counts set to 0 before each and read
+   after (every probe kernel launched), their JSON lines in the report.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Details go to build/chip_smoke.json.
@@ -95,12 +106,22 @@ FULL = dict(
     # K14 (Bq, Lq, Bd, Ld, D, fill, live dots below -1000): the headline of
     # matchmaker_tpu/ops/pallas_kernels.py:17, the teacher shape, the exact
     # rescore (1 query, colbert_rescore_n docs, the store's padded tokens),
-    # an odd padded shape
+    # an odd padded shape, the exact rescore at the public checkpoint's
+    # width 768 (D streamed in slabs), 200 query tokens (two row tiles)
     maxsim_shapes=[(128, 32, 256, 200, 128, -1000.0, False), (32, 32, 64, 200, 128, -1000.0, False),
-                   (1, 32, 64, 128, 128, float("-inf"), False), (7, 30, 21, 77, 128, -1000.0, True)],
+                   (1, 32, 64, 128, 128, float("-inf"), False), (7, 30, 21, 77, 128, -1000.0, True),
+                   (1, 32, 64, 128, 768, float("-inf"), False), (8, 200, 64, 200, 128, -1000.0, False)],
     mha_shapes=[(256, 128), (64, 30)],  # (B, L) of K13 at 12 heads x 64
     colbert_dim=128, colbert_query_len=32, colbert_query_batch=256, colbert_candidates=48, colbert_rescore_n=64,
     colbert_top_n=10, colbert_checked_queries=32,
+    # the probes' kernels (K15-K18) at each probe's headline shape and an odd
+    # one: K15 (B, L, masked keys), K16 (M, K, N), K17/K18 (B, L)
+    probe_attn_shapes=[(256, 200, False), (16, 77, True)],
+    probe_int8_shapes=[(16384, 768, 3072), (1000, 768, 3072)],
+    probe_mlp_shapes=[(256, 200), (16, 77)],
+    # phase 7: each probe's main() with these arguments (the defaults: the
+    # JAX probes' own shapes)
+    probe_args={"attn_inner": [], "int8_matmul": [], "mlp_rows": []},
 )
 
 
@@ -692,6 +713,16 @@ def phase_maxsim_kernel(sz, device):
         _record(out["maxsim_all_pairs"], [bq, lq, bd, ld, dim], lambda a=(q, d, qm, dm), f=fill: ms.maxsim_all_pairs(
                     *a, fill=f), lambda a=(q, d, qm, dm), f=fill: ms.reference_maxsim_all_pairs(*a, f), device,
                 sz["reps"], headline=i == 0, bound_of=bound(nbytes(q, d, qm, dm, got), f32=ops))
+        if i == 0 and device.type == "cuda":
+            # the same shape with D streamed in slabs, the form D > 256 takes: the same bits, and its time
+            streamed = ms._maxsim_cuda(q, d, qm, dm, fill, stream_d=True)
+            check(torch.equal(streamed, got), "K14 streamed and resident forms differ at the headline shape")
+            resident_ms = _time_ms(lambda a=(q, d, qm, dm): ms.maxsim_all_pairs(*a, fill=fill), device, sz["reps"])
+            streamed_ms = _time_ms(lambda a=(q, d, qm, dm): ms._maxsim_cuda(*a, fill, stream_d=True), device,
+                                   sz["reps"])
+            out["maxsim_all_pairs"].update(resident_ms=resident_ms, streamed_ms=streamed_ms)
+            print(f"[kernels]   headline with D resident {resident_ms:.4f} ms, streamed in slabs {streamed_ms:.4f} ms "
+                  f"(the same bits)")
     return out
 
 
@@ -703,6 +734,7 @@ def phase_mha_kernel(sz, device):
     import torch
 
     from matchmaker_tpu_torch.ops import fused_attention as fa
+    from matchmaker_tpu_torch.probes import attn_inner as ai
 
     out = {"fused_mha": {"max_abs_err": 0.0}}
     heads, hid = sz["heads"], sz["hid"]
@@ -722,17 +754,123 @@ def phase_mha_kernel(sz, device):
                 lambda a=(q, k, v, mask): fa.mha_reference(*a, heads), device, sz["reps"], headline=i == 0,
                 bound_of=bound(nbytes(q, k, v, mask, got), bf16=ops))
         if i == 0 and device.type == "cuda":
-            def split(t):
-                return t.view(b, l, heads, hid // heads).transpose(1, 2)
-
-            qs, ks, vs = split(q), split(k), split(v)
-            add = ((mask - 1.0) * 1e9).to(torch.bfloat16)[:, None, None, :]
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            lib = sdpa(qs, ks, vs, attn_mask=add).transpose(1, 2).reshape(b, l, hid)
-            lcos, _ = _rows_close(lib, want)
-            out["fused_mha"]["library_ms"] = _time_ms(lambda: sdpa(qs, ks, vs, attn_mask=add), device, sz["reps"])
+            lcos, _ = _rows_close(ai.sdpa(q, k, v, mask, heads), want)
+            out["fused_mha"]["library_ms"] = _time_ms(lambda a=(q, k, v, mask): ai.sdpa(*a, heads), device,
+                                                      sz["reps"])
             print(f"[kernels]   library scaled_dot_product_attention {out['fused_mha']['library_ms']:.4f} ms "
                   f"(min row cosine to plain {lcos:.6f})")
+    return out
+
+
+# ---- phase 3, the probes' kernels (K15-K18) ---------------------------------
+
+def _probe_mlp_weights(sz, device, seed):
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    hid, ff = sz["hid"], sz["ff"]
+    w1 = (torch.randn(hid, ff, generator=g, device=device) * hid ** -0.5).to(torch.bfloat16)
+    w2 = (torch.randn(ff, hid, generator=g, device=device) * ff ** -0.5).to(torch.bfloat16)
+    b1, b2 = (torch.randn(n, generator=g, device=device) * 0.02 for n in (ff, hid))
+    ln_scale = torch.randn(hid, generator=g, device=device) * 0.1 + 1.0
+    ln_bias = torch.randn(hid, generator=g, device=device) * 0.1
+    return w1, b1, w2, b2, ln_scale, ln_bias
+
+
+def phase_probe_kernels(sz, device):
+    """The probes' kernels against their plain versions at each probe's
+    headline shape and an odd one. K15: each variant against its own plain
+    version (f32_p against the f32-P one, the stub against the stub) at
+    K13's bar; beside it K13's fused_mha and, as library_ms, one
+    scaled_dot_product_attention call. K16: bit-identical; library_ms one
+    torch._int_mm call on the same operands. K17/K18 at every row tile, at
+    K2's bar; no single library call computes the MLP half, so library_ms is
+    None and chain_ms times the bf16 torch.matmul chain, fused_mlp_block_ms
+    K2, at the headline. Bounds: the live keys' products (K15), the int8
+    products or the bytes (K16), the live rows' products (K17/K18)."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import fused_attention as fa
+    from matchmaker_tpu_torch.probes import attn_inner as ai
+    from matchmaker_tpu_torch.probes import int8_matmul as im
+    from matchmaker_tpu_torch.probes import mlp_rows as mr
+
+    out = {name: {"max_abs_err": 0.0} for name in ("attn_inner", "int8_matmul", "mlp_rows2d", "mlp_rowsblk")}
+    hid, heads = sz["hid"], sz["heads"]
+    on_card = device.type == "cuda"
+
+    entry = out["attn_inner"]
+    for i, (b, l, masked) in enumerate(sz["probe_attn_shapes"]):
+        g = torch.Generator(device=device).manual_seed(600 + i)
+        q, k, v = ((torch.randn(b, l, hid, generator=g, device=device) * 0.3).to(torch.bfloat16) for _ in range(3))
+        mask = torch.ones(b, l, device=device)
+        if masked:
+            lengths = torch.randint(max(1, l // 4), l + 1, (b,), generator=g, device=device)
+            mask = (torch.arange(l, device=device)[None, :] < lengths[:, None]).float()
+        ops = 4 * hid * l * int(mask.sum())  # QK^T and PV over the live keys, every head
+        for variant in ai.VARIANTS:
+            got, want = ai.attn_inner(q, k, v, mask, variant, heads), ai.reference_attn_inner(q, k, v, mask, variant,
+                                                                                              heads)
+            cos, err = _rows_close(got, want)
+            print(f"[kernels] attn_inner {variant} B={b} L={l}: min row cosine {cos:.6f}, max |d| {err:.4g}")
+            check(got.shape == q.shape and bool(torch.isfinite(got.float()).all()), f"attn_inner {variant} output")
+            check(cos >= 0.999 and err <= 0.1, f"attn_inner {variant} vs plain at {(b, l)}: cos {cos}, max |d| {err}")
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            _record(entry, [b, l, hid, variant], lambda a=(q, k, v, mask), vr=variant: ai.attn_inner(*a, vr, heads),
+                    lambda a=(q, k, v, mask), vr=variant: ai.reference_attn_inner(*a, vr, heads), device, sz["reps"],
+                    headline=i == 0 and variant == "batched", bound_of=bound(nbytes(q, k, v, mask, got), bf16=ops))
+        if i == 0:
+            # P kept f32 (hi + lo) against rounded to bf16, both against the f32-P plain version
+            want = ai.reference_attn_inner(q, k, v, mask, "f32_p", heads)
+            entry.update({f"{vr}_vs_f32_plain_mean_abs": _mean_abs(ai.attn_inner(q, k, v, mask, vr, heads), want)
+                          for vr in ("f32_p", "batched")})
+            print(f"[kernels]   mean |d| to the f32-P plain version: f32_p {entry['f32_p_vs_f32_plain_mean_abs']:.4g}, "
+                  f"batched {entry['batched_vs_f32_plain_mean_abs']:.4g}")
+            entry["fused_mha_ms"] = _time_ms(lambda a=(q, k, v, mask): fa.fused_mha(*a, heads), device, sz["reps"])
+            if on_card:
+                entry["library_ms"] = _time_ms(lambda a=(q, k, v, mask): ai.sdpa(*a, heads), device, sz["reps"])
+                print(f"[kernels]   K13 fused_mha {entry['fused_mha_ms']:.4f} ms, library "
+                      f"scaled_dot_product_attention {entry['library_ms']:.4f} ms")
+
+    entry = out["int8_matmul"]
+    for i, (m, k, n) in enumerate(sz["probe_int8_shapes"]):
+        g = torch.Generator(device=device).manual_seed(700 + i)
+        xq = torch.randint(-127, 128, (m, k), generator=g, device=device, dtype=torch.int8)
+        wq_t = torch.randint(-127, 128, (n, k), generator=g, device=device, dtype=torch.int8)
+        got = im.int8_matmul(xq, wq_t)
+        check(torch.equal(got, im.reference_int8_matmul(xq, wq_t)), f"int8_matmul not bit-identical at {(m, k, n)}")
+        print(f"[kernels] int8_matmul {(m, k, n)}: bit-identical to the plain version")
+        _record(entry, [m, k, n], lambda a=(xq, wq_t): im.int8_matmul(*a),
+                lambda a=(xq, wq_t): im.reference_int8_matmul(*a), device, sz["reps"], headline=i == 0,
+                bound_of=bound(nbytes(xq, wq_t, got), int8=2 * m * k * n))
+        if i == 0 and on_card:
+            check(torch.equal(torch._int_mm(xq, wq_t.T), got), "torch._int_mm disagrees with the kernel")
+            entry["library_ms"] = _time_ms(lambda: torch._int_mm(xq, wq_t.T), device, sz["reps"])
+            print(f"[kernels]   library torch._int_mm {entry['library_ms']:.4f} ms")
+
+    weights = _probe_mlp_weights(sz, device, 800)
+    for i, (b, l) in enumerate(sz["probe_mlp_shapes"]):
+        g = torch.Generator(device=device).manual_seed(810 + i)
+        x = torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
+        want = mr.reference_mlp_rows(x, *weights)
+        ops = 4 * b * l * hid * sz["ff"]
+        for name, fn in (("mlp_rows2d", mr.mlp_rows2d), ("mlp_rowsblk", mr.mlp_rowsblk)):
+            for r in mr.ROW_TILES:
+                got = fn(x, *weights, row_tile=r)
+                cos, err = _rows_close(got, want)
+                print(f"[kernels] {name} row tile {r} B={b} L={l}: min row cosine {cos:.6f}, max |d| {err:.4g}")
+                check(got.shape == x.shape and bool(torch.isfinite(got.float()).all()), f"{name} output")
+                check(cos >= 0.999 and err <= 0.1, f"{name} row tile {r} vs plain at {(b, l)}: cos {cos}, max |d| {err}")
+                out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+                _record(out[name], [b, l, hid, r], lambda f=fn, rt=r: f(x, *weights, row_tile=rt),
+                        lambda: mr.reference_mlp_rows(x, *weights), device, sz["reps"], headline=i == 0 and r == 64,
+                        bound_of=bound(nbytes(x, weights, got), bf16=ops))
+        if i == 0:
+            chain_ms = _time_ms(lambda: mr.matmul_chain(x, *weights), device, sz["reps"])
+            k2_ms = _time_ms(lambda: fa.fused_mlp_block(x, *weights), device, sz["reps"])
+            for name in ("mlp_rows2d", "mlp_rowsblk"):
+                out[name].update(library_ms=None, chain_ms=chain_ms, fused_mlp_block_ms=k2_ms)
+            print(f"[kernels]   bf16 torch.matmul chain {chain_ms:.4f} ms, K2 fused_mlp_block {k2_ms:.4f} ms")
     return out
 
 
@@ -1652,6 +1790,58 @@ def phase_train(sz, device, root):
     return result
 
 
+# ---- phase 7: the probes' own path ---------------------------------------------
+
+# the probe that launches each probe kernel
+PROBE_OF = {"attn_inner": "attn_inner", "int8_matmul": "int8_matmul", "mlp_rows2d": "mlp_rows",
+            "mlp_rowsblk": "mlp_rows"}
+
+
+def phase_probes(sz, device):
+    """Each probe as a user runs it, ``python -m
+    matchmaker_tpu_torch.probes.<name>`` (its main()), at the JAX probes'
+    shapes: the launch counts set to 0 just before each probe and read just
+    after, every kernel of that probe launched; its JSON line kept in the
+    report."""
+    import importlib
+    import io
+
+    import torch
+
+    from matchmaker_tpu_torch.ops import _build
+
+    result = {"launches": {}, "results": {}}
+    for name, args in sz["probe_args"].items():
+        probe = importlib.import_module(f"matchmaker_tpu_torch.probes.{name}")
+        _build.reset_launches()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            line = probe.main(args + ["--device", device.type])
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        check(json.loads(printed.getvalue().strip().splitlines()[-1]) == line, f"probe {name}: its JSON line")
+        for kernel, owner in PROBE_OF.items():
+            if owner == name:
+                check(launches[kernel] > 0 or device.type != "cuda", f"probe {name} launched no {kernel} kernel")
+                result["launches"][kernel] = launches[kernel]
+        others = {k: v for k, v in launches.items() if v and PROBE_OF.get(k) != name}
+        result["results"][name] = line
+        print(f"[probes] {name}: launches {({k: launches[k] for k, o in PROBE_OF.items() if o == name})}, "
+              f"other kernels {others}")
+    res = result["results"]
+    print(f"[probes] attn_inner ms: " + ", ".join(f"{k} {v['ms']:.4f}" for k, v in res["attn_inner"].items()
+                                                  if isinstance(v, dict)))
+    print(f"[probes] int8_matmul ms: {res['int8_matmul']['ms']}, int8_vs_bf16 {res['int8_matmul']['int8_vs_bf16']:.3f},"
+          f" chain_vs_bf16 {res['int8_matmul']['chain_vs_bf16']:.3f}")
+    for shape in res["mlp_rows"]["shapes"]:
+        print(f"[probes] mlp_rows {shape['shape']} ms: prod_3d {shape['prod_3d']['ms']:.4f}, chain "
+              f"{shape['chain']['ms']:.4f}, " + ", ".join(f"{key} {tile} {t['ms']:.4f}" for key in
+                                                            ("rows2d", "rowsblk_1024", "rowsblk_2048")
+                                                            for tile, t in shape[key].items()))
+    return result
+
+
 SERVING = ("fused_attention_block", "fused_mlp_block", "binmax_candidates", "level2_reduce", "unpack_candidates")
 SERVING_INT8 = ("fused_attention_int8_block", "fused_mlp_int8_block", "binmax_candidates_int8f",
                 "binmax_candidates_int8")
@@ -1683,7 +1873,17 @@ KERNELS = [  # name, source, TPU kernel it replaces, TPU kernels folded into it
      "matchmaker_tpu/ops/pallas_kernels.py:62", None),
     ("fused_mha", "matchmaker_tpu_torch/csrc/encoder_kernels.cu",
      "matchmaker_tpu/ops/fused_attention.py:49", None),
+    ("attn_inner", "matchmaker_tpu_torch/csrc/probe_attn_inner.cu", "benchmarks/attn_inner_probe.py:56",
+     "benchmarks/attn_inner_probe.py:75,90,109 (k_unrolled, k_allheads, k_blockdiag: the same function)"),
+    ("int8_matmul", "matchmaker_tpu_torch/csrc/probe_int8_matmul.cu", "benchmarks/int8_matmul_probe.py:97", None),
+    ("mlp_rows2d", "matchmaker_tpu_torch/csrc/probe_mlp_rows.cu", "benchmarks/mlp_rows_probe.py:43", None),
+    ("mlp_rowsblk", "matchmaker_tpu_torch/csrc/probe_mlp_rows.cu", "benchmarks/mlp_rows_probe.py:101", None),
 ]
+
+
+# other times and agreements measured beside a kernel, carried into its entry
+BESIDE = ("resident_ms", "streamed_ms", "fused_mha_ms", "chain_ms", "fused_mlp_block_ms",
+          "f32_p_vs_f32_plain_mean_abs", "batched_vs_f32_plain_mean_abs")
 
 
 def run_phases(sz, device, card: str) -> dict:
@@ -1705,6 +1905,9 @@ def run_phases(sz, device, card: str) -> dict:
     kern.update(phase_int8_binmax_kernels(sz, device))
     kern.update(phase_maxsim_kernel(sz, device))
     kern.update(phase_mha_kernel(sz, device))
+    t0 = time.perf_counter()
+    kern.update(phase_probe_kernels(sz, device))
+    report["probe_kernels_s"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as root:
         report["main"] = phase_main_path(sz, device, root)
         report["main_int8"] = phase_main_path_int8(sz, device, root, os.path.join(root, "run"))
@@ -1713,17 +1916,24 @@ def run_phases(sz, device, card: str) -> dict:
     report["scale_int8"] = phase_scale_int8(sz, device)
     with tempfile.TemporaryDirectory() as root:
         report["train"] = phase_train(sz, device, root)
+    t0 = time.perf_counter()
+    report["probes"] = phase_probes(sz, device)
+    report["probes_s"] = time.perf_counter() - t0
+    print(f"[probes] the probes' kernels against their plain versions took {report['probe_kernels_s']:.1f} s, "
+          f"their own path {report['probes_s']:.1f} s")
     check(set(report["main"]["launches"]) == {k[0] for k in KERNELS}, "a kernel without an entry")
     report["kernels"] = []
     for name, src, rep, inc in KERNELS:
         # "launches": the run of the kernel's own path: the bf16 serving run,
         # the int8 serving run that uses it (K9/K10 and K8: the mixed run,
         # K7: the two-stage run), the ColBERT serving run (K14) or the
-        # training run; K13 lies on no path; "launches_scale": the scale
-        # search of the same route (bf16 or int8; training: the bf16)
+        # training run, or for K15-K18 their probe's run; K13 lies on no
+        # path; "launches_scale": the scale search of the same route (bf16
+        # or int8; training and the probes: the bf16)
         runs = {"serve": report["main"]["launches"][name], "train": report["train"]["launches"][name],
                 **{f"serve_int8_{r}": report["main_int8"][r]["launches"][name] for r, _, _ in INT8_RUNS},
-                "serve_colbert": report["colbert"]["launches"][name]}
+                "serve_colbert": report["colbert"]["launches"][name],
+                "probes": report["probes"]["launches"].get(name, 0)}
         scale_runs = {"scale_bf16": report["scale"]["launches"][name],
                       **{f"scale_int8_{r}": report["scale_int8"][r]["launches"][name] for r, _, _ in INT8_RUNS}}
         if name in SERVING:
@@ -1736,6 +1946,8 @@ def run_phases(sz, device, card: str) -> dict:
             path, scale_path = "serve_colbert", "scale_bf16"
         elif name == "fused_mha":
             path, scale_path = None, "scale_bf16"
+        elif name in PROBE_OF:
+            path, scale_path = "probes", "scale_bf16"
         else:
             path, scale_path = "train", "scale_bf16"
         report["kernels"].append(
@@ -1745,7 +1957,7 @@ def run_phases(sz, device, card: str) -> dict:
              "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"],
              "bound_ms": kern[name]["bound_ms"], "bound_by": kern[name]["bound_by"],
              "library_ms": kern[name].get("library_ms"),
-             "timed_shape": kern[name]["timed_shape"]})
+             "timed_shape": kern[name]["timed_shape"], **{k: kern[name][k] for k in BESIDE if k in kern[name]}})
     report["kernel_timings"] = {k[0]: kern[k[0]]["timings"] for k in KERNELS}
     report["torch"] = torch.__version__
     return report

@@ -40,6 +40,7 @@
 // keys and loops over the query tiles with kernel 1's row statistics, so dK
 // and dV sum over every query in one block, without atomics. No L-wide row
 // is ever held in shared memory.
+#include "mma_sync.cuh"
 #include "wgmma_gemm.cuh"
 
 #include <math.h>
@@ -47,7 +48,6 @@
 namespace mm {
 
 using bf16 = __nv_bfloat16;
-using wg::smem_u32;
 
 // out[e] = sum over s of partial[s][e], in order of s
 __global__ void __launch_bounds__(256) sum_splits_kernel(const float* __restrict__ partial, float* __restrict__ out,
@@ -194,16 +194,6 @@ constexpr int MAX_KEYS = 512;
 constexpr size_t DQ_SMEM_BYTES = (size_t)6 * TILE_ELEMS * 2 + MAX_KEYS * 4;
 constexpr size_t DKV_SMEM_BYTES = (size_t)6 * TILE_ELEMS * 2 + 2 * 3 * AT * 4;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // rows [r0, r0 + 64) of one head's 64 columns (column offset col0 in rows of
 // row_w) into a [64][T_LD] tile; rows past L read as zero
 __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* base, int row_w, int col0, int r0, int L) {
@@ -212,28 +202,6 @@ __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* base, int row_
     const bool ok = r0 + row < L;
     cp_async16(dst + row * T_LD + col, base + (size_t)(ok ? r0 + row : 0) * row_w + col0 + col, ok);
   }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // A fragments (16 rows x 64 columns, four 16-deep blocks) of a [row][col] tile

@@ -46,6 +46,10 @@ LAUNCHES = {
     "binmax_candidates_int8": 0,  # K7: int8 corpus, int8 queries
     "maxsim_all_pairs": 0,  # K14
     "fused_mha": 0,  # K13
+    "attn_inner": 0,  # K15 (probes/attn_inner.py)
+    "int8_matmul": 0,  # K16 (probes/int8_matmul.py)
+    "mlp_rows2d": 0,  # K17 (probes/mlp_rows.py)
+    "mlp_rowsblk": 0,  # K18 (probes/mlp_rows.py)
 }
 
 _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -54,7 +58,7 @@ _SIGNATURES = {
     "mm_attention_core": [_p, _p, _p, _i, _i, _i, _f, _p],
     "mm_attention_core_f32": [_p, _p, _p, _i, _i, _i, _f, _p],
     "mm_fused_mha": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _p],
-    "mm_maxsim": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _p],
+    "mm_maxsim": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p],
     "mm_quant_groups": [_p, _p, _p, _i, _i, _i, _i, _p],
     "mm_gemm_s8": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
     "mm_layernorm": [_p, _p, _p, _p, _i, _i, _f, _p],
@@ -68,6 +72,9 @@ _SIGNATURES = {
     "mm_attention_bwd": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _p],
     "mm_attention_block_bwd": [_p] * 14 + [_i, _i, _i, _i, _f, _f, _i, _i, _i, _i, _p],
     "mm_mlp_block_bwd": [_p] * 13 + [_i, _i, _i, _f, _i, _i, _i, _i, _p],
+    "mm_probe_attn_inner": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _i, _p],
+    "mm_probe_int8_matmul": [_p, _p, _p, _i, _i, _i, _p],
+    "mm_probe_mlp_rows": [_p] * 8 + [_i, _i, _f, _i, _p],
 }
 # entry points that return the bytes of workspace a launch above needs
 _SIZE_SIGNATURES = {

@@ -12,8 +12,10 @@ tokens weighted by the query mask, a masked query token adding exactly 0.
 - :func:`maxsim_all_pairs`: the (Bq, Bd) matrix. CPU tensors run the plain
   version :func:`reference_maxsim_all_pairs`; CUDA tensors launch the
   hand-written kernel of ``csrc/maxsim_kernels.cu`` (K14) or raise. The
-  kernel is forward-only: on the card, inputs that require grad are refused
-  (the MaxSim backward comes with ColBERT training).
+  kernel takes any D % 8 == 0 (D above 256 streamed through shared memory in
+  slabs) and 1 <= Lq <= 512 (:func:`check_kernel_geometry`, which runs on
+  any device); it is forward-only: on the card, inputs that require grad are
+  refused (the MaxSim backward comes with ColBERT training).
 
 Every product is f32 (no TF32), as the TPU kernel's default
 ``compute_dtype=float32``. ``fill`` reaches the kernel: −1000 (``NEG_FILL``,
@@ -29,9 +31,9 @@ import torch
 from matchmaker_tpu_torch.ops import _build, matmul_f32
 
 NEG_FILL = -1000.0
-# csrc/maxsim_kernels.cu: query rows per block and the largest D it holds
-_KERNEL_ROWS = 128
-_KERNEL_MAX_DIM = 256
+# csrc/maxsim_kernels.cu: the most query rows a block sums (the encoder's
+# position limit); D is any multiple of 8
+_KERNEL_MAX_LQ = 512
 
 
 def maxsim_pairwise(q_vecs: torch.Tensor, d_vecs: torch.Tensor, q_mask: torch.Tensor,
@@ -62,15 +64,26 @@ def reference_maxsim_all_pairs(q_vecs: torch.Tensor, d_vecs: torch.Tensor, q_mas
     return _terms(best, q_mask[:, :, None]).sum(dim=1)
 
 
-def _maxsim_cuda(q_vecs, d_vecs, q_mask, d_mask, fill):
+def check_kernel_geometry(q_vecs, d_vecs, q_mask, d_mask) -> None:
+    """Raise ValueError unless K14 takes these shapes: q (Bq, Lq, D), d
+    (Bd, Ld, D), masks (Bq, Lq) / (Bd, Ld), D % 8 == 0 and 1 <= Lq <= 512.
+    Reads shapes only, so it runs on tensors on any device."""
     bq, lq, dim = q_vecs.shape
     bd, ld, dim_d = d_vecs.shape
-    if dim != dim_d or q_mask.shape != (bq, lq) or d_mask.shape != (bd, ld):
+    if dim != dim_d or tuple(q_mask.shape) != (bq, lq) or tuple(d_mask.shape) != (bd, ld):
         raise ValueError(f"maxsim_all_pairs: shapes q {tuple(q_vecs.shape)}, d {tuple(d_vecs.shape)}, "
                          f"q_mask {tuple(q_mask.shape)}, d_mask {tuple(d_mask.shape)} do not fit")
-    if dim % 8 or dim > _KERNEL_MAX_DIM or not 1 <= lq <= _KERNEL_ROWS:
-        raise ValueError(f"maxsim_all_pairs: the CUDA kernel takes D % 8 == 0, D <= {_KERNEL_MAX_DIM} and "
-                         f"1 <= Lq <= {_KERNEL_ROWS}, got D={dim}, Lq={lq}")
+    if dim < 8 or dim % 8 or not 1 <= lq <= _KERNEL_MAX_LQ:
+        raise ValueError(f"maxsim_all_pairs: the CUDA kernel takes D % 8 == 0 and 1 <= Lq <= {_KERNEL_MAX_LQ}, "
+                         f"got D={dim}, Lq={lq}")
+
+
+def _maxsim_cuda(q_vecs, d_vecs, q_mask, d_mask, fill, stream_d: bool = False):
+    """K14 on the card. ``stream_d``: stream D in slabs even where D <= 256
+    would stay resident (the same bits; chip_smoke.py times both forms)."""
+    check_kernel_geometry(q_vecs, d_vecs, q_mask, d_mask)
+    bq, lq, dim = q_vecs.shape
+    bd, ld, _ = d_vecs.shape
     if any(t.requires_grad for t in (q_vecs, d_vecs, q_mask, d_mask)):
         raise NotImplementedError("maxsim_all_pairs: the CUDA kernel is forward-only; the MaxSim backward "
                                   "comes with ColBERT training (ROADMAP.md)")
@@ -84,7 +97,7 @@ def _maxsim_cuda(q_vecs, d_vecs, q_mask, d_mask, fill):
         out = torch.empty((bq, bd), dtype=f32, device=q.device)
         if bq and bd:
             _build.call("mm_maxsim", _build.ptr(q), _build.ptr(d), _build.ptr(qm), _build.ptr(dm), _build.ptr(out),
-                        bq, lq, bd, ld, dim, float(fill), _build.stream(q.device))
+                        bq, lq, bd, ld, dim, float(fill), int(stream_d), _build.stream(q.device))
             _build.LAUNCHES["maxsim_all_pairs"] += 1
     return out
 
@@ -93,8 +106,8 @@ def maxsim_all_pairs(q_vecs: torch.Tensor, d_vecs: torch.Tensor, q_mask: torch.T
                      *, fill: float = NEG_FILL) -> torch.Tensor:
     """All-pairs MaxSim matrix (Bq, Bd) f32: q_vecs (Bq, Lq, D), d_vecs
     (Bd, Ld, D), q_mask (Bq, Lq), d_mask (Bd, Ld). Padded doc tokens
-    (mask <= 0) take ``fill``. CUDA tensors: D % 8 == 0, D <= 256,
-    Lq <= 128, no autograd."""
+    (mask <= 0) take ``fill``. CUDA tensors: D % 8 == 0, 1 <= Lq <= 512,
+    no autograd."""
     if not q_vecs.is_cuda:
         return reference_maxsim_all_pairs(q_vecs, d_vecs, q_mask, d_mask, fill)
     return _maxsim_cuda(q_vecs, d_vecs, q_mask, d_mask, fill)

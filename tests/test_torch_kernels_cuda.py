@@ -623,10 +623,195 @@ def test_fused_mha_kernel_matches_plain(device, b, l):
     assert cos >= 0.999 and err <= 0.1, (cos, err)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("bq,lq,bd,ld,dim", [(1, 32, 64, 128, 768), (2, 200, 9, 77, 768), (3, 129, 5, 40, 1024),
+                                             (2, 512, 3, 64, 8), (4, 13, 7, 30, 264)])
+def test_maxsim_kernel_takes_wide_and_long_queries(device, bq, lq, bd, ld, dim):
+    """K14 past its old limits (D <= 256, Lq <= 128): D = 768 (ColBERT's
+    default width) and 1,024 streamed in slabs, Lq > 128 in several row
+    tiles, up to 512; rtol = atol = 1e-4 against the plain version."""
+    q, d, qm, dm = _maxsim_case(bq, lq, bd, ld, dim, device, seed=lq + dim)
+    for fill in (ms.NEG_FILL, float("-inf")):
+        got = ms.maxsim_all_pairs(q, d, qm, dm, fill=fill)
+        want = ms.reference_maxsim_all_pairs(q, d, qm, dm, fill)
+        fin = torch.isfinite(want)
+        assert torch.equal(fin, torch.isfinite(got)) and torch.equal(got[~fin], want[~fin])
+        torch.testing.assert_close(got[fin], want[fin], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_maxsim_all_pairs_at_200_query_tokens_matches_plain(device):
+    """maxsim_all_pairs with Lq = 200 (two row tiles a query) at the ColBERT
+    width 128 against the plain version, rtol = atol = 1e-4."""
+    q, d, qm, dm = _maxsim_case(6, 200, 33, 180, 128, device, seed=200)
+    got = ms.maxsim_all_pairs(q, d, qm, dm)
+    torch.testing.assert_close(got, ms.reference_maxsim_all_pairs(q, d, qm, dm), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [128, 768])
+def test_maxsim_kernel_reruns_are_bit_identical(device, dim):
+    """Lq > 128: each query sums its row tiles' maxima in a fixed order, so
+    two runs give the same bits; at D <= 256 the streamed and the resident
+    forms give the same bits too."""
+    q, d, qm, dm = _maxsim_case(3, 300, 17, 90, dim, device, seed=dim)
+    first = ms.maxsim_all_pairs(q, d, qm, dm)
+    assert torch.equal(first, ms.maxsim_all_pairs(q, d, qm, dm))
+    assert torch.equal(first, ms._maxsim_cuda(q, d, qm, dm, ms.NEG_FILL, stream_d=True))
+
+
+def _write_token_store(folder, rng, dim, n_docs=40):
+    """An encode folder by hand (token_reps blocks, doc_infos, encode_meta):
+    docs of 1-150 float16 token vectors, doc 5 with none."""
+    import json
+
+    import numpy as np
+
+    os.makedirs(folder, exist_ok=True)
+    parts, spans, ids, start = [], [], [], 0
+    for i in range(n_docs):
+        n = 0 if i == 5 else int(rng.integers(1, 151))
+        parts.append(rng.normal(size=(n, dim)).astype(np.float16))
+        spans.append((0, start, start + n))
+        ids.append(f"d{i}")
+        start += n
+    np.save(os.path.join(folder, "token_reps_0.npy"), np.concatenate(parts))
+    np.savez_compressed(os.path.join(folder, "doc_infos.npz"), ids=np.array(ids), spans=np.array(spans))
+    with open(os.path.join(folder, "encode_meta.json"), "w") as f:
+        json.dump({"dim": dim, "dtype": "float16", "blocks": 1, "sequences": n_docs}, f)
+    return ids
+
+
+@pytest.mark.cuda
+def test_exact_rescore_at_768_wide_matches_plain(device, tmp_path):
+    """The repaired fault: ColBERT's exact rescore with 768-wide token
+    vectors (colbert_compression_dim 768) runs K14 on the card and agrees
+    with the plain version on the CPU, rtol = atol = 1e-4; a document with
+    no token scores 0."""
+    import numpy as np
+
+    from matchmaker_tpu_torch.retrieval import colbert_search as cs
+
+    rng = np.random.default_rng(768)
+    ids = _write_token_store(str(tmp_path), rng, 768)
+    store = cs.TokenVectorStore(str(tmp_path))
+    q = rng.normal(size=(32, 768)).astype(np.float32)
+    qm = np.ones(32, np.float32)
+    qm[20:] = 0
+    cands = [(doc, 0.0) for doc in ids]
+    _build.reset_launches()
+    got = cs.exact_rescore(q, qm, cands, store, 40, 64, 128, device=device)
+    assert _build.LAUNCHES["maxsim_all_pairs"] == 1
+    want = cs.exact_rescore(q, qm, cands, store, 40, 64, 128, device=torch.device("cpu"))
+    assert {d for d, _ in got} == {d for d, _ in want} and dict(got)["d5"] == 0.0
+    np.testing.assert_allclose([dict(got)[d] for d, _ in want], [s for _, s in want], rtol=1e-4, atol=1e-4)
+
+
+# ---- the probes' kernels (K15-K18) ---------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["batched", "f32_p", "softmax_stub"])
+@pytest.mark.parametrize("b,l", [(2, 200), (3, 77), (1, 512), (2, 1)])
+def test_probe_attn_inner_kernel_matches_plain(device, variant, b, l):
+    """K15 against its plain version, each variant against its own (the
+    stub against the stub), padded keys in example 0: K13's bar (row cosine
+    >= 0.999, max |d| <= 0.1)."""
+    from matchmaker_tpu_torch.probes import attn_inner as ai
+
+    g = torch.Generator(device=device).manual_seed(b * 1000 + l)
+    q, k, v = (torch.randn(b, l, 768, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones(b, l, device=device)
+    mask[0, l // 2 + 1:] = 0.0
+    _build.reset_launches()
+    got = ai.attn_inner(q, k, v, mask, variant)
+    want = ai.reference_attn_inner(q, k, v, mask, variant)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["attn_inner"] == 1 and got.dtype == torch.bfloat16
+    cos, err = _rows_close(got, want)
+    assert cos >= 0.999 and err <= 0.1, (cos, err)
+
+
+@pytest.mark.cuda
+def test_probe_attn_inner_f32_p_keeps_the_f32_agreement(device):
+    """P as bf16 hi + lo carries 16 mantissa bits: against the f32-P plain
+    version the f32_p kernel is closer than the bf16-P kernel."""
+    from matchmaker_tpu_torch.probes import attn_inner as ai
+
+    g = torch.Generator(device=device).manual_seed(7)
+    q, k, v = (torch.randn(4, 200, 768, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones(4, 200, device=device)
+    want = ai.reference_attn_inner(q, k, v, mask, "f32_p").float()
+    err_hi_lo = float((ai.attn_inner(q, k, v, mask, "f32_p").float() - want).abs().mean())
+    err_bf16 = float((ai.attn_inner(q, k, v, mask, "batched").float() - want).abs().mean())
+    assert err_hi_lo < err_bf16, (err_hi_lo, err_bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(16384, 768, 3072), (1000, 768, 3072), (129, 96, 40), (1, 32, 8)])
+def test_probe_int8_matmul_kernel_is_exact(device, m, k, n):
+    """K16 bit-identical to its plain version (a float64 product, exact
+    here), ragged M and N tiles and a K tail of 32 included."""
+    from matchmaker_tpu_torch.probes import int8_matmul as im
+
+    g = torch.Generator(device=device).manual_seed(m + k + n)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=device, dtype=torch.int8)
+    wq_t = torch.randint(-127, 128, (n, k), generator=g, device=device, dtype=torch.int8)
+    _build.reset_launches()
+    got = im.int8_matmul(xq, wq_t)
+    assert _build.LAUNCHES["int8_matmul"] == 1 and got.dtype == torch.int32
+    assert torch.equal(got, im.reference_int8_matmul(xq, wq_t))
+    with pytest.raises(ValueError, match="K % 32"):
+        im.int8_matmul(xq[:, :16].contiguous(), wq_t[:, :16].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_tile", [16, 32, 64])
+@pytest.mark.parametrize("b,l", [(16, 77), (4, 200), (3, 30)])
+def test_probe_mlp_rows_kernels_match_plain(device, row_tile, b, l):
+    """K17 and K18 (one kernel, three row tiles) against their plain
+    version through both wrappers' paddings: K2's bar (row cosine >= 0.999,
+    max |d| <= 0.1)."""
+    from matchmaker_tpu_torch.probes import mlp_rows as mr
+
+    _, mlp = _layer_weights(768, 3072, device, seed=row_tile + b + l)
+    weights = (mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"], mlp["ln_scale"], mlp["ln_bias"])
+    x = torch.randn(b, l, 768, device=device).to(torch.bfloat16)
+    want = mr.reference_mlp_rows(x, *weights)
+    _build.reset_launches()
+    for name, fn in (("mlp_rows2d", mr.mlp_rows2d), ("mlp_rowsblk", mr.mlp_rowsblk)):
+        got = fn(x, *weights, row_tile=row_tile)
+        torch.cuda.synchronize()
+        assert got.shape == x.shape and got.dtype == torch.bfloat16
+        cos, err = _rows_close(got, want)
+        assert cos >= 0.999 and err <= 0.1, (name, cos, err)
+    assert _build.LAUNCHES["mlp_rows2d"] == 1 and _build.LAUNCHES["mlp_rowsblk"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["attn_inner", "int8_matmul", "mlp_rows"])
+def test_probe_main_runs_on_the_card(device, name, capsys):
+    """Each probe's main() on the card at a small shape: its kernel launched,
+    one JSON line with the card's rates."""
+    import importlib
+    import json
+
+    probe = importlib.import_module(f"matchmaker_tpu_torch.probes.{name}")
+    argv = {"attn_inner": ["--rows", "8", "--len", "77"], "int8_matmul": ["--m", "1000"],
+            "mlp_rows": ["--batch", "4"]}[name] + ["--iters", "3"]
+    _build.reset_launches()
+    result = probe.main(argv)
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == result
+    counters = {"attn_inner": ["attn_inner"], "int8_matmul": ["int8_matmul"],
+                "mlp_rows": ["mlp_rows2d", "mlp_rowsblk"]}[name]
+    assert all(_build.LAUNCHES[c] > 0 for c in counters)
+
+
 @pytest.mark.parametrize("module", ["matchmaker_tpu_torch.cli.dense_retrieval", "matchmaker_tpu_torch.cli.train",
                                     "matchmaker_tpu_torch.training.trainer", "matchmaker_tpu_torch.retrieval.indexes",
                                     "matchmaker_tpu_torch.ops.fused_int8",
-                                    "matchmaker_tpu_torch.retrieval.colbert_search"])
+                                    "matchmaker_tpu_torch.retrieval.colbert_search",
+                                    "matchmaker_tpu_torch.probes.attn_inner", "matchmaker_tpu_torch.probes.int8_matmul",
+                                    "matchmaker_tpu_torch.probes.mlp_rows"])
 def test_cli_import_loads_no_jax_flax_or_yaml(module):
     """The machine with the card has no jax, flax, optax or PyYAML, and the
     port depends on nothing of the JAX package: the port's entry points must

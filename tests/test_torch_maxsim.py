@@ -139,6 +139,42 @@ def test_exact_rescore_matches_jax(tmp_path, pad_tokens):
     assert min(s for _, s in full) < -1000  # the −inf fill keeps a live max below −1000
 
 
+@pytest.mark.parametrize("bq,lq,dim", [(1, 32, 768), (64, 180, 768), (2, 200, 768), (1, 512, 1024), (3, 7, 8)])
+def test_kernel_geometry_takes_wide_and_long_queries(bq, lq, dim):
+    """K14's geometry check reads shapes only, so it runs here on CPU
+    tensors: ColBERT's default width 768 and query rows past one 128-row
+    tile, up to the encoder's 512 positions, are taken."""
+    tms.check_kernel_geometry(torch.zeros(bq, lq, dim), torch.zeros(5, 13, dim), torch.ones(bq, lq),
+                              torch.ones(5, 13))
+
+
+@pytest.mark.parametrize("q_shape,d_shape,match", [((1, 32, 12), (5, 13, 12), "D % 8"),
+                                                   ((1, 32, 4), (5, 13, 4), "D % 8"),
+                                                   ((1, 513, 768), (5, 13, 768), "Lq <= 512"),
+                                                   ((1, 32, 768), (5, 13, 128), "do not fit")])
+def test_kernel_geometry_refuses_what_the_kernel_cannot_take(q_shape, d_shape, match):
+    with pytest.raises(ValueError, match=match):
+        tms.check_kernel_geometry(torch.zeros(q_shape), torch.zeros(d_shape), torch.ones(q_shape[:2]),
+                                  torch.ones(d_shape[:2]))
+
+
+def test_exact_rescore_at_768_wide_and_200_query_tokens_matches_jax(tmp_path):
+    """The geometry K14 now takes on the card (768-wide token vectors, the
+    public ColBERT checkpoint's width; 200 query tokens) through the plain
+    path, against JAX's exact rescore: the same order and scores."""
+    rng = np.random.default_rng(9)
+    ids = _token_store(str(tmp_path), rng, dim=768)
+    q = rng.normal(size=(200, 768)).astype(np.float32)
+    qm = np.ones(200, np.float32)
+    qm[150:] = 0
+    cands = [(ids[i], 0.0) for i in rng.permutation(30)[:20]] + [("d5", 0.0)]
+    got = tcs.exact_rescore(q, qm, cands, tcs.TokenVectorStore(str(tmp_path)), 21, 24, 16,
+                            device=torch.device("cpu"))
+    want = jcs.exact_rescore(q, qm, cands, jcs.TokenVectorStore(str(tmp_path)), 21, 24, 16)
+    assert [d for d, _ in got] == [d for d, _ in want] and dict(got)["d5"] == 0.0
+    np.testing.assert_allclose([s for _, s in got], [s for _, s in want], rtol=RTOL, atol=ATOL)
+
+
 def _mha_inputs(seed, b=3, l=13, heads=4, d=16):
     rng = np.random.default_rng(seed)
     q, k, v = (rng.normal(size=(b, l, heads * d)).astype(np.float32) for _ in range(3))
