@@ -29,7 +29,10 @@ Phases (any failed check raises, and the script exits non-zero):
    torch._int_mm, the row-packed MLP K17/K18 at every row tile at
    (256, 200) and (16, 77) beside K2 and the bf16 torch.matmul chain; with
    CUDA-event timings of both and each kernel's bound (bytes or operations
-   at the H100's data-sheet rates);
+   at the H100's data-sheet rates); at the int8 halves' headline (256, 128)
+   each launch of K10 and K9 alone (x quantization, each int8 product with
+   its TOP/s beside one torch._int_mm call on codes of the same K-major
+   shapes, the attention core, the group quantization, the LayerNorm);
 4. the main path, ``cli.dense_retrieval.run("encode+index+search")``, on a
    seeded 16,384-passage collection with a DistilBERT-width BERT_DOT
    (random weights from a seed), searching one query set at top-100 and one
@@ -588,15 +591,128 @@ def _int8_layer_params(sz, device, seed):
     return attn, mlp, (v(hid, 0.1, 1.0), v(hid, 0.1)), (v(hid, 0.1, 1.0), v(hid, 0.1))
 
 
+def _int8_kmajor(fi, attn, mlp):
+    """The halves' weights as the encoder holds them: K-major codes, Q/K/V
+    packed (attention: wqkv_t, sqkv, bqkv, wo_t, so, bo; MLP: w1_t, s1, b1,
+    w2_t, s2, b2)."""
+    w1q, s1, b1, w2q, s2, b2 = mlp
+    return fi.kmajor_attention_weights(*attn), (fi.kmajor_codes(w1q), s1, b1, fi.kmajor_codes(w2q), s2, b2)
+
+
+def _launch_parts_ms(fn, device, reps):
+    """Each C launch of one call of ``fn`` alone: CUDA events around every
+    ``_build.call`` over ``reps`` calls, queued behind a sleeping kernel so
+    that the host's launch gaps do not reach the card's clock. Returns
+    ([(entry point, mean ms)] in call order, mean ms of a whole call)."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import _build
+
+    if device.type != "cuda":  # the plain versions: no launches to time
+        return [], _time_ms(fn, device, reps)
+    real_call, events = _build.call, []
+
+    def timed_call(entry, *args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        real_call(entry, *args)
+        end.record()
+        events.append((entry, start, end))
+
+    fn()
+    torch.cuda.synchronize()
+    begin, finish = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    _build.call = timed_call
+    try:
+        torch.cuda._sleep(50_000_000)
+        begin.record()
+        for _ in range(reps):
+            fn()
+        finish.record()
+    finally:
+        _build.call = real_call
+    torch.cuda.synchronize()
+    n = len(events) // reps
+    parts = [(events[j][0], sum(events[r * n + j][1].elapsed_time(events[r * n + j][2]) for r in range(reps)) / reps)
+             for j in range(n)]
+    return parts, begin.elapsed_time(finish) / reps
+
+
+# the int8 products of each half in launch order: (name, K, N) in units of
+# (hid, ff); and the quantizations in launch order
+INT8_PRODUCTS = {"fused_attention_int8_block": (("QKV", "hid", "3hid"), ("Wo", "hid", "hid")),
+                 "fused_mlp_int8_block": (("W1", "hid", "ff"), ("W2", "ff", "hid"))}
+INT8_QUANTS = {"fused_attention_int8_block": ("x quantization", "attention-output quantization (row, head group)"),
+               "fused_mlp_int8_block": ("x quantization", "gelu-output quantization (row, FF chunk)")}
+INT8_OTHER_PARTS = {"mm_attention_core_f32": "attention core", "mm_layernorm": "LayerNorm"}
+
+
+def int8_half_parts(fi, sz, b, l, device, reps, seed=12):
+    """Where K10's and K9's time goes at (B, L): each launch alone (see
+    _launch_parts_ms), each int8 product's TOP/s against the card's 1,979,
+    and beside it one torch._int_mm call on codes of the same K-major shapes
+    (a yardstick; the port never calls it). ``fi`` is a checkout's
+    ``ops.fused_int8``; one without the K-major entry points (an earlier
+    tree) runs its public functions."""
+    import torch
+
+    attn, mlp, ln1, ln2 = _int8_layer_params(sz, device, seed)
+    g = torch.Generator(device=device).manual_seed(300)
+    x = torch.randn(b, l, sz["hid"], generator=g, device=device).to(torch.bfloat16)
+    lengths = torch.randint(max(1, l // 4), l + 1, (b,), generator=g, device=device)
+    mask = (torch.arange(l, device=device)[None, :] < lengths[:, None]).float()
+    heads, m = sz["heads"], b * l
+    if hasattr(fi, "fused_mlp_int8_block_kmajor"):
+        attn_t, mlp_t = _int8_kmajor(fi, attn, mlp)
+        halves = {"fused_attention_int8_block":
+                  lambda: fi.fused_attention_int8_block_qkv_kmajor(x, *attn_t, mask, heads, *ln1),
+                  "fused_mlp_int8_block": lambda: fi.fused_mlp_int8_block_kmajor(x, *mlp_t, *ln2)}
+    else:
+        halves = {"fused_attention_int8_block": lambda: fi.fused_attention_int8_block(x, *attn, mask, heads, *ln1),
+                  "fused_mlp_int8_block": lambda: fi.fused_mlp_int8_block(x, *mlp, *ln2)}
+    dims = {"hid": sz["hid"], "3hid": 3 * sz["hid"], "ff": sz["ff"]}
+    out = {}
+    for name, fn in halves.items():
+        launches, total = _launch_parts_ms(fn, device, reps)
+        products, quants = list(INT8_PRODUCTS[name]), list(INT8_QUANTS[name])
+        parts = []
+        for entry, ms in launches:
+            rec = {"entry": entry, "ms": ms}
+            if "gemm" in entry:
+                label, k, n = products.pop(0)
+                k, n = dims[k], dims[n]
+                a = torch.randint(-127, 128, (m, k), generator=g, device=device, dtype=torch.int8)
+                w_t = torch.randint(-127, 128, (n, k), generator=g, device=device, dtype=torch.int8)
+                lib = _time_ms(lambda: torch._int_mm(a, w_t.t()), device, reps)
+                ops = 2 * m * k * n
+                rec.update(part=f"{label} product ({m} x {k} x {n})", tops=ops / ms / 1e9, int_mm_ms=lib,
+                           int_mm_tops=ops / lib / 1e9, peak_share=ops / ms / 1e9 / (PEAK_OPS_PER_S["int8"] / 1e12))
+            elif entry == "mm_quant_groups":
+                rec["part"] = quants.pop(0)
+            else:
+                rec["part"] = INT8_OTHER_PARTS.get(entry, entry)
+            parts.append(rec)
+            print(f"[kernels]   {name} part {rec['part']} ({entry}): {ms:.4f} ms"
+                  + (f", {rec['tops']:.1f} TOP/s ({100 * rec['peak_share']:.1f} % of 1,979); torch._int_mm "
+                     f"{rec['int_mm_ms']:.4f} ms ({rec['int_mm_tops']:.1f} TOP/s)" if "tops" in rec else ""))
+        print(f"[kernels]   {name} at {(b, l)}: {total:.4f} ms a call, {sum(r['ms'] for r in parts):.4f} ms in "
+              f"its {len(parts)} launches")
+        out[name] = {"parts": parts, "parts_total_ms": total}
+    return out
+
+
 def phase_int8_encoder_kernels(sz, device):
     """K10 and K9 against their plain versions at the encoder halves' shapes,
     held to K1/K2's bar (row cosine >= 0.999, max |d| <= 0.1) and to a mean
-    |d| <= INT8_HALF_MEAN_ABS."""
+    |d| <= INT8_HALF_MEAN_ABS. The kernels run as the encoder runs them
+    (K-major codes, Q/K/V packed); at the headline shape each launch is
+    also timed alone (int8_half_parts)."""
     import torch
 
     from matchmaker_tpu_torch.ops import fused_int8 as fi
 
     attn, mlp, ln1, ln2 = _int8_layer_params(sz, device, seed=12)
+    attn_t, mlp_t = _int8_kmajor(fi, attn, mlp)
     out = {name: {"max_abs_err": 0.0, "mean_abs_err": 0.0}
            for name in ("fused_attention_int8_block", "fused_mlp_int8_block")}
     for i, (b, l) in enumerate(sz["layer_shapes"]):
@@ -605,12 +721,16 @@ def phase_int8_encoder_kernels(sz, device):
         lengths = torch.randint(max(1, l // 4), l + 1, (b,), generator=g, device=device)
         mask = (torch.arange(l, device=device)[None, :] < lengths[:, None]).float()
         proj, core = _attention_ops(b, l, sz["hid"], sz["heads"])
-        cases = (("fused_attention_int8_block", fi.fused_attention_int8_block, fi.reference_attention_int8_block,
-                  (*attn, mask, sz["heads"], *ln1), dict(int8=proj, bf16=core)),
-                 ("fused_mlp_int8_block", fi.fused_mlp_int8_block, fi.reference_mlp_int8_block, (*mlp, *ln2),
+        heads = sz["heads"]
+        cases = (("fused_attention_int8_block",
+                  lambda: fi.fused_attention_int8_block_qkv_kmajor(x, *attn_t, mask, heads, *ln1),
+                  lambda: fi.reference_attention_int8_block(x, *attn, mask, heads, *ln1),
+                  (x, attn_t, mask, ln1), dict(int8=proj, bf16=core)),
+                 ("fused_mlp_int8_block", lambda: fi.fused_mlp_int8_block_kmajor(x, *mlp_t, *ln2),
+                  lambda: fi.reference_mlp_int8_block(x, *mlp, *ln2), (x, mlp_t, ln2),
                   dict(int8=4 * b * l * sz["hid"] * sz["ff"])))
-        for name, kernel, plain, args, ops in cases:
-            got, want = kernel(x, *args), plain(x, *args)
+        for name, kernel, plain, inputs, ops in cases:
+            got, want = kernel(), plain()
             cos, err = _rows_close(got, want)
             mean = _mean_abs(got, want)
             print(f"[kernels] {name} B={b} L={l}: min row cosine {cos:.6f}, max |d| {err:.4g}, mean |d| {mean:.4g}")
@@ -619,9 +739,11 @@ def phase_int8_encoder_kernels(sz, device):
             check(mean <= INT8_HALF_MEAN_ABS, f"{name} vs plain at {(b, l)}: mean |d| {mean} > {INT8_HALF_MEAN_ABS}")
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
             out[name]["mean_abs_err"] = max(out[name]["mean_abs_err"], mean)
-            _record(out[name], [b, l, sz["hid"]], lambda k=kernel, a=args: k(x, *a),
-                    lambda p=plain, a=args: p(x, *a), device, sz["reps"], headline=i == 0,
-                    bound_of=bound(nbytes(x, args, got), **ops))
+            _record(out[name], [b, l, sz["hid"]], kernel, plain, device, sz["reps"], headline=i == 0,
+                    bound_of=bound(nbytes(inputs, got), **ops))
+        if i == 0:
+            for name, rec in int8_half_parts(fi, sz, b, l, device, sz["reps"]).items():
+                out[name].update(rec)
     return out
 
 
@@ -1883,7 +2005,7 @@ KERNELS = [  # name, source, TPU kernel it replaces, TPU kernels folded into it
 
 # other times and agreements measured beside a kernel, carried into its entry
 BESIDE = ("resident_ms", "streamed_ms", "fused_mha_ms", "chain_ms", "fused_mlp_block_ms",
-          "f32_p_vs_f32_plain_mean_abs", "batched_vs_f32_plain_mean_abs")
+          "f32_p_vs_f32_plain_mean_abs", "batched_vs_f32_plain_mean_abs", "parts", "parts_total_ms")
 
 
 def run_phases(sz, device, card: str) -> dict:
@@ -1992,7 +2114,9 @@ def main() -> int:
     int8, scale8 = report["main_int8"], report["scale_int8"]
     print(f"[{card}] int8 encode {int8['mixed']['encode_psg_per_s']:.1f} psg/s end to end in the CLI, "
           f"{int8['encode_device_psg_per_s']:.1f} psg/s device-only at {FULL['batch']}x{FULL['doc_len']} "
-          f"(bf16 halves: {main_['encode_device_psg_per_s']:.1f}); int8 search at {FULL['scale_rows']} rows, "
+          f"(bf16 halves: {main_['encode_device_psg_per_s']:.1f}, int8 / bf16 "
+          f"{int8['encode_device_psg_per_s'] / main_['encode_device_psg_per_s']:.3f}); int8 search at "
+          f"{FULL['scale_rows']} rows, "
           f"k={FULL['scale_k']}: " + ", ".join(
               f"{r} recall@{FULL['scale_k']} {scale8[r]['recall']:.4f}, {scale8[r]['qps']:.1f} QPS search_rows, "
               f"{scale8[r]['device_qps']:.1f} device-only" for r, _, _ in INT8_RUNS))

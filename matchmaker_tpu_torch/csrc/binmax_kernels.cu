@@ -92,8 +92,8 @@ __global__ void __launch_bounds__(TILE_THREADS) binmax_kernel(const void* __rest
   const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
   if constexpr (MODE == SCAN_INT8) {
     FragCi acc[FRAG_M][FRAG_N];
-    tile_mma_s8<true>(static_cast<const int8_t*>(corpus), NR, D, static_cast<const int8_t*>(queries), NQ, 0, D,
-                      m0, n0, smem, acc);
+    tile_mma_s8(static_cast<const int8_t*>(corpus), NR, D, static_cast<const int8_t*>(queries), NQ, 0, D,
+                m0, n0, smem, acc);
     int* Si = reinterpret_cast<int*>(smem);  // the same cells, read as int32 below
 #pragma unroll
     for (int i = 0; i < FRAG_M; ++i)

@@ -1,10 +1,10 @@
 // Shared 128x128 tile products on the tensor cores (nvcuda::wmma), used by
-// the forward encoder GEMMs (encoder_kernels.cu, encoder_int8_kernels.cu) and
-// the binmax scan (binmax_kernels.cu); the backward's products run on
-// wgmma_gemm.cuh:
+// the bf16 forward encoder GEMMs (encoder_kernels.cu) and the binmax scans
+// (binmax_kernels.cu); the backward's products and the int8 encoder halves
+// run on wgmma (wgmma_gemm.cuh, encoder_int8_kernels.cu):
 //   bf16 x bf16 -> f32: A.B and A.B^T (tile_mma; A may be int8 codes, which
 //                       become bf16 exactly on their way to shared memory);
-//   int8 x int8 -> int32: A.B and A.B^T (tile_mma_s8), exact.
+//   int8 x int8 -> int32: A.B^T (tile_mma_s8, the K7 scan), exact.
 //
 // Bound: at the main path's shapes (M = B*L rows >= 7680, N = 768..3072,
 // K = 768/3072) every product here is compute bound on the card. This first
@@ -154,16 +154,13 @@ __device__ __forceinline__ void tile_mma(const AT* __restrict__ A, int M, const 
 // slabs: slab s holds bytes [16s, 16s+16) of every row, rows 16 bytes apart
 // (ldm = 16). A slab's stride is padded by 32 bytes so neighbouring threads'
 // 16-byte stores land on different banks.
-constexpr int S8_TILE_K = 64;                    // K bytes per step: 4 slabs
-constexpr int S8_SLAB_ROWS = TILE_M * 16 + 32;   // slab of 128 rows (A, or B stored [N][K])
-constexpr int S8_SLAB_KN = S8_TILE_K * 16 + 32;  // slab of 64 k-rows (B stored [K][N])
+constexpr int S8_TILE_K = 64;                   // K bytes per step: 4 slabs
+constexpr int S8_SLAB_ROWS = TILE_M * 16 + 32;  // slab of 128 rows (A, or B stored [N][K])
 constexpr int S8_A_BUF = (S8_TILE_K / 16) * S8_SLAB_ROWS;
-constexpr int S8_BKN_BUF = (TILE_N / 16) * S8_SLAB_KN;
-constexpr int S8_B_BUF = S8_A_BUF > S8_BKN_BUF ? S8_A_BUF : S8_BKN_BUF;
+constexpr int S8_B_BUF = S8_A_BUF;              // TILE_N == TILE_M rows
 constexpr int S8_SMEM_BYTES = 2 * S8_A_BUF + 2 * S8_B_BUF;  // both buffers of A and of B
 
 using FragA8 = wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>;
-using FragB8row = wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::row_major>;
 using FragB8col = wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major>;
 using FragCi = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
 
@@ -171,13 +168,11 @@ __device__ __forceinline__ uint4 load16b(const int8_t* p, bool ok) {
   return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
 }
 
-// C[m0:m0+128, n0:n0+128] = A[m0:, k_begin:k_end] . B[k_begin:k_end, :] in
-// int32, exact. A: (M, lda) int8 row-major. B_NK=false: B is (K, N) int8
-// row-major (weights, (in, out)); B_NK=true: B is (N, lda) row-major (the
-// product is A . B^T). Rows past M and columns past N read as zero;
+// C[m0:m0+128, n0:n0+128] = A[m0:, k_begin:k_end] . B[n0:, k_begin:k_end]^T
+// in int32, exact. A: (M, lda) int8 row-major; B: (N, lda) int8 row-major
+// (queries' codes). Rows past M and columns past N read as zero;
 // (k_end - k_begin) % 64 == 0, lda % 16 == 0 and N % 16 == 0 (checked by the
 // Python wrappers). Ends with __syncthreads: the caller may reuse smem.
-template <bool B_NK>
 __device__ __forceinline__ void tile_mma_s8(const int8_t* __restrict__ A, int M, int lda,
                                             const int8_t* __restrict__ B, int N, int k_begin, int k_end,
                                             int m0, int n0, char* smem, FragCi (&acc)[FRAG_M][FRAG_N]) {
@@ -201,12 +196,7 @@ __device__ __forceinline__ void tile_mma_s8(const int8_t* __restrict__ A, int M,
       const int chunk = tid + c * TILE_THREADS;  // 0..511
       const int row = chunk >> 2, slab = chunk & 3;
       ra[c] = load16b(A + (size_t)(m0 + row) * lda + k0 + slab * 16, m0 + row < M);
-      if (B_NK) {
-        rb[c] = load16b(B + (size_t)(n0 + row) * lda + k0 + slab * 16, n0 + row < N);
-      } else {
-        const int krow = chunk >> 3, nslab = chunk & 7;
-        rb[c] = load16b(B + (size_t)(k0 + krow) * N + n0 + nslab * 16, n0 + nslab * 16 < N);
-      }
+      rb[c] = load16b(B + (size_t)(n0 + row) * lda + k0 + slab * 16, n0 + row < N);
     }
   };
   auto stash = [&](int buf) {
@@ -215,12 +205,7 @@ __device__ __forceinline__ void tile_mma_s8(const int8_t* __restrict__ A, int M,
       const int chunk = tid + c * TILE_THREADS;
       const int row = chunk >> 2, slab = chunk & 3;
       *reinterpret_cast<uint4*>(As + buf * S8_A_BUF + slab * S8_SLAB_ROWS + row * 16) = ra[c];
-      if (B_NK) {
-        *reinterpret_cast<uint4*>(Bs + buf * S8_B_BUF + slab * S8_SLAB_ROWS + row * 16) = rb[c];
-      } else {
-        const int krow = chunk >> 3, nslab = chunk & 7;
-        *reinterpret_cast<uint4*>(Bs + buf * S8_B_BUF + nslab * S8_SLAB_KN + krow * 16) = rb[c];
-      }
+      *reinterpret_cast<uint4*>(Bs + buf * S8_B_BUF + slab * S8_SLAB_ROWS + row * 16) = rb[c];
     }
   };
 
@@ -242,17 +227,10 @@ __device__ __forceinline__ void tile_mma_s8(const int8_t* __restrict__ A, int M,
 #pragma unroll
       for (int j = 0; j < FRAG_N; ++j) {
         const int ncol = wn * WARP_N + j * 16;
-        if (B_NK) {
-          FragB8col fb;  // element (k, n) at slab ks, row n
-          wmma::load_matrix_sync(fb, b_base + ks * S8_SLAB_ROWS + ncol * 16, 16);
+        FragB8col fb;  // element (k, n) at slab ks, row n
+        wmma::load_matrix_sync(fb, b_base + ks * S8_SLAB_ROWS + ncol * 16, 16);
 #pragma unroll
-          for (int i = 0; i < FRAG_M; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-        } else {
-          FragB8row fb;  // element (k, n) at slab n/16, row k
-          wmma::load_matrix_sync(fb, b_base + (ncol / 16) * S8_SLAB_KN + ks * 16 * 16, 16);
-#pragma unroll
-          for (int i = 0; i < FRAG_M; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-        }
+        for (int i = 0; i < FRAG_M; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
       }
     }
   }

@@ -3,9 +3,11 @@
 // producer warpgroup (a single thread issues the copies) and two consumer
 // warpgroups that run wgmma.mma_async (bf16 in, f32 accumulate) on 64 rows of
 // a 128 x 128 output tile each. One CTA per SM walks over the output tiles
-// (persistent), so the next tile's loads overlap this one's epilogue. Used
-// only by the backward of the fused halves (K11, K12); the forward kernels
-// keep tile_mma.cuh.
+// (persistent), so the next tile's loads overlap this one's epilogue. The
+// GEMM kernel serves the backward of the fused halves (K11, K12); the int8
+// forward halves (K9, K10, encoder_int8_kernels.cu) build their own kernels
+// from the pieces here (mbarriers, TMA, descriptors, the s8 wgmma below,
+// tensor maps of int8 codes); the bf16 forward keeps tile_mma.cuh.
 //
 // Operands are bf16 and row-major in device memory. Each may be read
 //   K-major:  stored (rows, K), K contiguous: one TMA box {64, 128} a stage,
@@ -140,6 +142,44 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "n"(TA), "n"(TB), "r"(1));
+}
+
+// d (64 x 128 s32 per warpgroup) = A (64 x 32) . B (32 x 128) (+ d when
+// accumulate), s8 x s8 codes, both K-major in shared memory (for 8-bit types
+// wgmma takes no transposed form); every sum is exact in int32. The operands
+// come as shared-memory addresses: the asm builds their K-major descriptors
+// (make_desc<false>) itself, so no 64-bit descriptor stays live in
+// registers beside up to 192 accumulators
+__device__ __forceinline__ void wgmma_m64n128_s8(int (&d)[64], uint32_t a_addr, uint32_t b_addr, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 la, lb, hi;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "bfe.u32 la, %64, 4, 14;\nbfe.u32 lb, %65, 4, 14;\n"
+      "or.b32 la, la, 0x10000;\nor.b32 lb, lb, 0x10000;\n"  // leading byte offset 16
+      "mov.b32 hi, 0x40000040;\n"                               // stride 1024 bytes, 128-byte swizzle
+      "mov.b64 da, {la, hi};\nmov.b64 db, {lb, hi};\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+      "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63}, da, db, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a_addr), "r"(b_addr), "r"(accumulate));
+}
+
+// pin accumulator registers after a wgmma.wait_group: the compiler may not
+// move their reads above this point
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // one 16-deep slice of the stage: A rows [64c, 64c + 64), all 128 B columns
@@ -330,17 +370,22 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a row-major bf16 (outer, inner) matrix read as an operand: K-major when
-// inner is K (box {64, 128}), MN-major when inner is the rows of the product
-// (box {64, 64}); 128-byte swizzle, zero fill past the edges
-inline bool make_map(CUtensorMap* map, const void* ptr, int inner, int outer, bool mn_major) {
+// a row-major (outer, inner) matrix read as an operand, one 128-byte row of
+// inner a box row: K-major when inner is K (box {128 bytes, box_rows}),
+// MN-major when inner is the rows of the product (box {128 bytes, 64});
+// 128-byte swizzle, zero fill past the edges. bf16 (a box row holds 64
+// elements) or int8 codes (type UINT8: 128 elements, the same bytes, so the
+// shared layout and the descriptors are those of bf16)
+inline bool make_map(CUtensorMap* map, const void* ptr, int inner, int outer, bool mn_major,
+                     CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, int box_rows = BM) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
+  const int elem_bytes = type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)(mn_major ? 64 : BM)};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)(mn_major ? 64 : box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

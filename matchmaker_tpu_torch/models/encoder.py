@@ -41,8 +41,10 @@ import torch.nn.functional as F
 from matchmaker_tpu_torch.ops.fused_attention import fused_attention_block_qkv, fused_mlp_block
 from matchmaker_tpu_torch.ops.fused_backward import fused_attention_block_qkv_train, fused_mlp_block_train
 from matchmaker_tpu_torch.ops.fused_int8 import (
-    fused_attention_int8_block_qkv,
-    fused_mlp_int8_block,
+    fused_attention_int8_block_qkv_kmajor,
+    fused_mlp_int8_block_kmajor,
+    kmajor_attention_weights,
+    kmajor_codes,
     quantize_weights_per_col,
 )
 
@@ -264,8 +266,10 @@ class EncoderLayer(nn.Module):
     def _int8_weights(self):
         """The int8 halves' weights: per-output-column codes and f32 scales
         quantized from the f32 parameters (as the JAX encoder does, not from
-        their bf16 casts), Q/K/V packed. Built without autograd, kept until a
-        parameter moves or is written, like :meth:`_fused_weights`."""
+        their bf16 casts), Q/K/V packed, each weight's codes K-major ((OUT,
+        IN) contiguous, the transpose of ``quantize_weights_per_col``'s) as
+        the card's int8 products read them. Built without autograd, kept
+        until a parameter moves or is written, like :meth:`_fused_weights`."""
         a = self.attention
         kernels = (a.query.kernel, a.key.kernel, a.value.kernel, a.out.kernel, self.mlp_in.kernel,
                    self.mlp_out.kernel)
@@ -274,8 +278,9 @@ class EncoderLayer(nn.Module):
         if self._int8_cache is None or self._int8_cache[0] != key:
             with torch.inference_mode(False), torch.no_grad():
                 q, k, v, o, w1, w2 = (quantize_weights_per_col(p) for p in kernels)
-                weights = dict(wqkv=torch.cat([q[0], k[0], v[0]], dim=1), sqkv=torch.cat([q[1], k[1], v[1]]),
-                               bqkv=torch.cat(biases), wo=o[0], so=o[1], w1=w1[0], s1=w1[1], w2=w2[0], s2=w2[1])
+                wqkv_t, sqkv, bqkv, wo_t, so, _ = kmajor_attention_weights(*q, *k, *v, *o, *biases, None)
+                weights = dict(wqkv_t=wqkv_t, sqkv=sqkv, bqkv=bqkv, wo_t=wo_t, so=so, w1_t=kmajor_codes(w1[0]),
+                               s1=w1[1], w2_t=kmajor_codes(w2[0]), s2=w2[1])
             self._int8_cache = (key, weights)
         return self._int8_cache[1]
 
@@ -295,14 +300,14 @@ class EncoderLayer(nn.Module):
         ln1 = (self.attention_norm.scale, self.attention_norm.bias, cfg.layer_norm_eps)
         ln2 = (self.mlp_norm.scale, self.mlp_norm.bias, cfg.layer_norm_eps)
         if cfg.int8_attention:
-            x = fused_attention_int8_block_qkv(x.to(cd), q8["wqkv"], q8["sqkv"], q8["bqkv"], q8["wo"], q8["so"],
-                                               a.out.bias, key_mask, cfg.num_heads, *ln1)
+            x = fused_attention_int8_block_qkv_kmajor(x.to(cd), q8["wqkv_t"], q8["sqkv"], q8["bqkv"], q8["wo_t"],
+                                                      q8["so"], a.out.bias, key_mask, cfg.num_heads, *ln1)
         else:
             attention = fused_attention_block_qkv_train if grad else fused_attention_block_qkv
             x = attention(x.to(cd), wqkv, bqkv, wo, a.out.bias, key_mask, cfg.num_heads, *ln1)
         if cfg.int8_mlp:
-            return fused_mlp_int8_block(x.to(cd), q8["w1"], q8["s1"], self.mlp_in.bias, q8["w2"], q8["s2"],
-                                        self.mlp_out.bias, *ln2)
+            return fused_mlp_int8_block_kmajor(x.to(cd), q8["w1_t"], q8["s1"], self.mlp_in.bias, q8["w2_t"],
+                                               q8["s2"], self.mlp_out.bias, *ln2)
         mlp = fused_mlp_block_train if grad else fused_mlp_block
         return mlp(x.to(cd), w1, self.mlp_in.bias, w2, self.mlp_out.bias, *ln2)
 

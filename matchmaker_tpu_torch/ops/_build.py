@@ -60,7 +60,8 @@ _SIGNATURES = {
     "mm_fused_mha": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _p],
     "mm_maxsim": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p],
     "mm_quant_groups": [_p, _p, _p, _i, _i, _i, _i, _p],
-    "mm_gemm_s8": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
+    "mm_wg_gemm_s8": [_p] * 7 + [_i] * 5 + [_p],
+    "mm_wg_gemm_s8_gelu_quant": [_p] * 7 + [_i] * 4 + [_p],
     "mm_layernorm": [_p, _p, _p, _p, _i, _i, _f, _p],
     "mm_binmax_scan": [_p, _p, _p, _i, _i, _i, _i, _i, _i, _i64, _p],
     "mm_binmax_scan_int8": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i64, _i, _p],

@@ -21,7 +21,14 @@ x's dtype.
 
 On a CUDA tensor each half runs the hand-written kernels of
 ``csrc/encoder_int8_kernels.cu`` (bf16 x, int8 codes, f32 scales and
-biases; head width 64). On a CPU tensor each runs its plain version,
+biases; head width 64): int8 ``wgmma`` products fed by TMA, which take both
+operands K-major, so the weights' codes go in transposed, (OUT, IN).
+:func:`fused_mlp_int8_block_kmajor` and
+:func:`fused_attention_int8_block_qkv_kmajor` take them so (the encoder
+keeps them transposed once per set of weights); the public functions keep
+the JAX layout and transpose on the card. :func:`check_mlp_int8_geometry`
+and :func:`check_attention_int8_geometry` say which shapes the card path
+takes. On a CPU tensor each half runs its plain version,
 :func:`reference_mlp_int8_block` / :func:`reference_attention_int8_block`,
 which repeat the kernels' arithmetic: the int8 products as f32 products of
 the codes, exact while 127²·K < 2²⁴ (K ≤ 1040, checked), with TF32 kept out
@@ -38,11 +45,11 @@ import torch
 from matchmaker_tpu_torch.ops import _build, matmul_codes, matmul_f32, over_127
 from matchmaker_tpu_torch.ops.fused_attention import _f32, _gelu_poly, _layer_norm_f32
 
-# Epilogues of mm_gemm_s8 (csrc/encoder_int8_kernels.cu)
-_EPI_S8_BIAS_BF16, _EPI_S8_BIAS_GELU_F32, _EPI_S8_CHUNKS_RESID_F32 = 0, 1, 2
+# Epilogues of mm_wg_gemm_s8 (csrc/encoder_int8_kernels.cu)
+_EPI_S8_BIAS_BF16, _EPI_S8_CHUNKS_RESID_F32 = 0, 1
 _KERNEL_HEAD_DIM = 64
 _KERNEL_MAX_LEN = 512
-_S8_TILE_K = 64  # K bytes per step of csrc/tile_mma.cuh:tile_mma_s8
+_CHUNK_STEP = 64  # a K chunk of the card's products: whole 64-code steps
 
 
 def quantize_weights_per_col(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -117,20 +124,62 @@ def _quant_groups_cuda(x2: torch.Tensor, groups: int) -> Tuple[torch.Tensor, tor
     return q, s
 
 
-def _gemm_s8(a, w, row_scale, col_scale, bias, out, epilogue, chunk, resid=None):
-    """out = dequant(a (M, K) · w (K, N)) + epilogue (csrc mm_gemm_s8); the
-    K axis in chunks of ``chunk`` columns, row_scale (M, K / chunk)."""
-    k, n = w.shape
-    _build.call("mm_gemm_s8", _build.ptr(a), _build.ptr(w), _build.ptr(row_scale), _build.ptr(col_scale),
+def _gemm_s8(a, w_t, row_scale, col_scale, bias, out, epilogue, chunk, resid=None):
+    """out = dequant(a (M, K) · w_t (N, K)ᵀ) + epilogue (csrc mm_wg_gemm_s8,
+    both operands K-major); the K axis in chunks of ``chunk`` codes,
+    row_scale (M, K / chunk)."""
+    n, k = w_t.shape
+    _build.call("mm_wg_gemm_s8", _build.ptr(a), _build.ptr(w_t), _build.ptr(row_scale), _build.ptr(col_scale),
                 _build.ptr(bias), _build.ptr(resid) if resid is not None else ctypes.c_void_p(), _build.ptr(out),
                 a.numel() // k, n, k, chunk, epilogue, _build.stream(a.device))
 
 
-def _check_s8_dims(name: str, k: int, n: int, chunk: int) -> None:
-    # tile_mma_s8: K chunks in steps of 64 bytes, 16-byte rows and column slabs
-    if chunk % _S8_TILE_K or k % chunk or n % 16:
-        raise ValueError(f"{name}: the CUDA kernel needs chunk % 64 == 0, K % chunk == 0 and N % 16 == 0, "
-                         f"got K={k}, N={n}, chunk={chunk}")
+def _gemm_s8_gelu_quant(xq, w1_t, rs, s1, b1, ff_chunks):
+    """The W1 product of K9 with its epilogue (csrc mm_wg_gemm_s8_gelu_quant):
+    the per-(row, FF chunk) int8 codes (M, FF) and scales (M, ff_chunks) of
+    gelu(dequant(xq · w1_t ᵀ) + b1); the f32 gelu output stays on chip."""
+    m = xq.shape[0]
+    ff, hid = w1_t.shape
+    hq = torch.empty((m, ff), dtype=torch.int8, device=xq.device)
+    hs = torch.empty((m, ff_chunks), dtype=torch.float32, device=xq.device)
+    _build.call("mm_wg_gemm_s8_gelu_quant", _build.ptr(xq), _build.ptr(w1_t), _build.ptr(rs), _build.ptr(s1),
+                _build.ptr(b1), _build.ptr(hq), _build.ptr(hs), m, ff, hid, ff // ff_chunks, _build.stream(xq.device))
+    return hq, hs
+
+
+def _check_chunked_dims(name: str, k: int, n: int, chunk: int) -> None:
+    if chunk <= 0 or chunk % _CHUNK_STEP or k % chunk or n % 16:
+        raise ValueError(f"{name}: the CUDA kernel needs chunk % {_CHUNK_STEP} == 0, K % chunk == 0 and "
+                         f"N % 16 == 0, got K={k}, N={n}, chunk={chunk}")
+
+
+def check_mlp_int8_geometry(hid: int, ff: int, ff_chunks: int) -> None:
+    """Raise ValueError, with the reason, unless the card path of
+    :func:`fused_mlp_int8_block` takes this layer: the W1 product over HID
+    as one chunk, the W2 product over FF in ``ff_chunks`` chunks of whole
+    64-code steps (any chunk width: the W1 kernel runs a chunk wider than
+    768 columns in passes)."""
+    name = "fused_mlp_int8_block"
+    if ff_chunks <= 0:
+        raise ValueError(f"{name}: ff_chunks must be positive, got {ff_chunks}")
+    _check_chunked_dims(name, hid, ff, hid)
+    _check_chunked_dims(name, ff, hid, ff // ff_chunks)
+
+
+def check_attention_int8_geometry(hid: int, n_heads: int, group_heads: int, length: int) -> None:
+    """Raise ValueError, with the reason, unless the card path of
+    :func:`fused_attention_int8_block` takes this layer: head width 64
+    (K1's attention core), whole groups of heads, 1 <= L <= 512, and the Wo
+    product over HID in chunks of one head group."""
+    name = "fused_attention_int8_block"
+    if n_heads <= 0 or group_heads <= 0 or hid % n_heads or hid // n_heads != _KERNEL_HEAD_DIM \
+            or n_heads % group_heads:
+        raise ValueError(f"{name}: the CUDA kernel takes head width {_KERNEL_HEAD_DIM} and whole head groups, "
+                         f"got {hid}/{n_heads}, group_heads={group_heads}")
+    if not 1 <= length <= _KERNEL_MAX_LEN:
+        raise ValueError(f"{name}: the CUDA kernel takes 1 <= L <= {_KERNEL_MAX_LEN}, got {length}")
+    _check_chunked_dims(name, hid, 3 * hid, hid)
+    _check_chunked_dims(name, hid, hid, group_heads * _KERNEL_HEAD_DIM)
 
 
 def _check_int8_weights(name: str, **weights) -> None:
@@ -147,63 +196,77 @@ def _f32_on_card(name: str, *vectors):
     return out
 
 
-def _mlp_int8_cuda(x, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias, ln_eps, ff_chunks):
-    """K9 on the card."""
+def _check_kmajor(name: str, wname: str, w_t: torch.Tensor, out_dim: int, in_dim: int) -> None:
+    if tuple(w_t.shape) != (out_dim, in_dim):
+        raise ValueError(f"{name}.{wname}: expected K-major codes of shape {(out_dim, in_dim)} (OUT, IN), "
+                         f"got {tuple(w_t.shape)}")
+
+
+def _mlp_int8_cuda(x, w1_t, s1, b1, w2_t, s2, b2, ln_scale, ln_bias, ln_eps, ff_chunks):
+    """K9 on the card: w1_t (FF, HID) and w2_t (HID, FF) K-major codes."""
+    name = "fused_mlp_int8_block"
     b, l, hid = x.shape
-    ff = w1q.shape[1]
-    ch = ff // ff_chunks
-    _check_s8_dims("fused_mlp_int8_block", hid, ff, hid)
-    _check_s8_dims("fused_mlp_int8_block", ff, hid, ch)
-    _build.check_cuda(x, "fused_mlp_int8_block.x", torch.bfloat16)
-    _check_int8_weights("fused_mlp_int8_block", w1q=w1q, w2q=w2q)
-    s1, b1, s2, b2, ln_scale, ln_bias = _f32_on_card("fused_mlp_int8_block", s1, b1, s2, b2, ln_scale, ln_bias)
+    ff = w1_t.shape[0]
+    check_mlp_int8_geometry(hid, ff, ff_chunks)
+    _check_kmajor(name, "w1_t", w1_t, ff, hid)
+    _check_kmajor(name, "w2_t", w2_t, hid, ff)
+    _build.check_cuda(x, f"{name}.x", torch.bfloat16)
+    _check_int8_weights(name, w1_t=w1_t, w2_t=w2_t)
+    s1, b1, s2, b2, ln_scale, ln_bias = _f32_on_card(name, s1, b1, s2, b2, ln_scale, ln_bias)
     m = b * l
     with torch.cuda.device(x.device):
         xq, rs = _quant_groups_cuda(x.reshape(m, hid), 1)
-        h = torch.empty((m, ff), dtype=torch.float32, device=x.device)
-        _gemm_s8(xq, w1q, rs, s1, b1, h, _EPI_S8_BIAS_GELU_F32, hid)
-        hq, hs = _quant_groups_cuda(h, ff_chunks)
+        hq, hs = _gemm_s8_gelu_quant(xq, w1_t, rs, s1, b1, ff_chunks)
         acc = torch.empty((m, hid), dtype=torch.float32, device=x.device)
-        _gemm_s8(hq, w2q, hs, s2, b2, acc, _EPI_S8_CHUNKS_RESID_F32, ch, resid=x)
+        _gemm_s8(hq, w2_t, hs, s2, b2, acc, _EPI_S8_CHUNKS_RESID_F32, ff // ff_chunks, resid=x)
         out = torch.empty_like(x)
         _build.call("mm_layernorm", _build.ptr(acc), _build.ptr(ln_scale), _build.ptr(ln_bias),
                     _build.ptr(out), m, hid, ln_eps, _build.stream(x.device))
-    _build.LAUNCHES["fused_mlp_int8_block"] += 1
+    _build.LAUNCHES[name] += 1
     return out
 
 
-def _attention_int8_cuda(x, wqkv_q, sqkv, bqkv, woq, so, bo, mask, n_heads, ln_scale, ln_bias, ln_eps,
+def _attention_int8_cuda(x, wqkv_t, sqkv, bqkv, wo_t, so, bo, mask, n_heads, ln_scale, ln_bias, ln_eps,
                          group_heads):
-    """K10 on the card."""
+    """K10 on the card: wqkv_t (3·HID, HID) and wo_t (HID, HID) K-major codes."""
+    name = "fused_attention_int8_block"
     b, l, hid = x.shape
-    if hid % n_heads or hid // n_heads != _KERNEL_HEAD_DIM or n_heads % group_heads:
-        raise ValueError(f"fused_attention_int8_block: the CUDA kernel takes head width {_KERNEL_HEAD_DIM} and "
-                         f"whole head groups, got {hid}/{n_heads}, group_heads={group_heads}")
-    if not 1 <= l <= _KERNEL_MAX_LEN:
-        raise ValueError(f"fused_attention_int8_block: the CUDA kernel takes 1 <= L <= {_KERNEL_MAX_LEN}, got {l}")
+    check_attention_int8_geometry(hid, n_heads, group_heads, l)
+    _check_kmajor(name, "wqkv_t", wqkv_t, 3 * hid, hid)
+    _check_kmajor(name, "wo_t", wo_t, hid, hid)
     gw = group_heads * _KERNEL_HEAD_DIM
-    _check_s8_dims("fused_attention_int8_block", hid, 3 * hid, hid)
-    _check_s8_dims("fused_attention_int8_block", hid, hid, gw)
-    _build.check_cuda(x, "fused_attention_int8_block.x", torch.bfloat16)
-    _check_int8_weights("fused_attention_int8_block", wqkv_q=wqkv_q, woq=woq)
-    sqkv, bqkv, so, bo, mask, ln_scale, ln_bias = _f32_on_card(
-        "fused_attention_int8_block", sqkv, bqkv, so, bo, mask, ln_scale, ln_bias)
+    _build.check_cuda(x, f"{name}.x", torch.bfloat16)
+    _check_int8_weights(name, wqkv_t=wqkv_t, wo_t=wo_t)
+    sqkv, bqkv, so, bo, mask, ln_scale, ln_bias = _f32_on_card(name, sqkv, bqkv, so, bo, mask, ln_scale, ln_bias)
     m = b * l
     with torch.cuda.device(x.device):
         xq, rs = _quant_groups_cuda(x.reshape(m, hid), 1)
         qkv = torch.empty((b, l, 3 * hid), dtype=torch.bfloat16, device=x.device)
-        _gemm_s8(xq, wqkv_q, rs, sqkv, bqkv, qkv, _EPI_S8_BIAS_BF16, hid)
+        _gemm_s8(xq, wqkv_t, rs, sqkv, bqkv, qkv, _EPI_S8_BIAS_BF16, hid)
         attn = torch.empty((m, hid), dtype=torch.float32, device=x.device)
         _build.call("mm_attention_core_f32", _build.ptr(qkv), _build.ptr(mask), _build.ptr(attn),
                     b, l, n_heads, 1.0 / _KERNEL_HEAD_DIM ** 0.5, _build.stream(x.device))
         aq, as_ = _quant_groups_cuda(attn, n_heads // group_heads)
         acc = torch.empty((m, hid), dtype=torch.float32, device=x.device)
-        _gemm_s8(aq, woq, as_, so, bo, acc, _EPI_S8_CHUNKS_RESID_F32, gw, resid=x)
+        _gemm_s8(aq, wo_t, as_, so, bo, acc, _EPI_S8_CHUNKS_RESID_F32, gw, resid=x)
         out = torch.empty_like(x)
         _build.call("mm_layernorm", _build.ptr(acc), _build.ptr(ln_scale), _build.ptr(ln_bias),
                     _build.ptr(out), m, hid, ln_eps, _build.stream(x.device))
-    _build.LAUNCHES["fused_attention_int8_block"] += 1
+    _build.LAUNCHES[name] += 1
     return out
+
+
+def kmajor_codes(w: torch.Tensor) -> torch.Tensor:
+    """(IN, OUT) codes as the card's products read them: (OUT, IN), contiguous."""
+    return w.t().contiguous()
+
+
+def kmajor_attention_weights(wqq, sq, wkq, sk, wvq, sv, woq, so, bq, bk, bv, bo):
+    """The attention half's weights in :func:`fused_attention_int8_block`'s
+    order, as :func:`fused_attention_int8_block_qkv_kmajor` takes them:
+    (wqkv_t, sqkv, bqkv, wo_t, so, bo), Q/K/V packed, codes K-major."""
+    return (kmajor_codes(torch.cat([wqq, wkq, wvq], dim=1)), torch.cat([sq, sk, sv]), torch.cat([bq, bk, bv]),
+            kmajor_codes(woq), so, bo)
 
 
 def fused_mlp_int8_block(x, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias, ln_eps: float = 1e-12,
@@ -214,7 +277,19 @@ def fused_mlp_int8_block(x, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias, ln_eps:
     of 64."""
     if not x.is_cuda:
         return reference_mlp_int8_block(x, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias, ln_eps, ff_chunks)
-    return _mlp_int8_cuda(x, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias, ln_eps, ff_chunks)
+    return _mlp_int8_cuda(x, kmajor_codes(w1q), s1, b1, kmajor_codes(w2q), s2, b2, ln_scale, ln_bias, ln_eps,
+                          ff_chunks)
+
+
+def fused_mlp_int8_block_kmajor(x, w1_t, s1, b1, w2_t, s2, b2, ln_scale, ln_bias, ln_eps: float = 1e-12,
+                                ff_chunks: int = 4):
+    """:func:`fused_mlp_int8_block` with the weight codes K-major, as the
+    card's products read them: w1_t (FF, HID) = w1qᵀ and w2_t (HID, FF) =
+    w2qᵀ, contiguous. The encoder keeps them so once per set of weights."""
+    if not x.is_cuda:
+        return reference_mlp_int8_block(x, w1_t.t(), s1, b1, w2_t.t(), s2, b2, ln_scale, ln_bias, ln_eps,
+                                        ff_chunks)
+    return _mlp_int8_cuda(x, w1_t, s1, b1, w2_t, s2, b2, ln_scale, ln_bias, ln_eps, ff_chunks)
 
 
 def fused_attention_int8_block(x, wqq, sq, wkq, sk, wvq, sv, woq, so, bq, bk, bv, bo, mask, n_heads,
@@ -226,9 +301,8 @@ def fused_attention_int8_block(x, wqq, sq, wkq, sk, wvq, sv, woq, so, bq, bk, bv
     if not x.is_cuda:
         return reference_attention_int8_block(x, wqq, sq, wkq, sk, wvq, sv, woq, so, bq, bk, bv, bo, mask,
                                               n_heads, ln_scale, ln_bias, ln_eps, group_heads)
-    return _attention_int8_cuda(x, torch.cat([wqq, wkq, wvq], dim=1), torch.cat([sq, sk, sv]),
-                                torch.cat([bq, bk, bv]), woq, so, bo, mask, n_heads, ln_scale, ln_bias, ln_eps,
-                                group_heads)
+    return _attention_int8_cuda(x, *kmajor_attention_weights(wqq, sq, wkq, sk, wvq, sv, woq, so, bq, bk, bv, bo),
+                                mask, n_heads, ln_scale, ln_bias, ln_eps, group_heads)
 
 
 def fused_attention_int8_block_qkv(x, wqkv_q, sqkv, bqkv, woq, so, bo, mask, n_heads, ln_scale, ln_bias,
@@ -242,5 +316,18 @@ def fused_attention_int8_block_qkv(x, wqkv_q, sqkv, bqkv, woq, so, bo, mask, n_h
         bq, bk, bv = bqkv.chunk(3)
         return reference_attention_int8_block(x, wqq, sq, wkq, sk, wvq, sv, woq, so, bq, bk, bv, bo, mask,
                                               n_heads, ln_scale, ln_bias, ln_eps, group_heads)
-    return _attention_int8_cuda(x, wqkv_q, sqkv, bqkv, woq, so, bo, mask, n_heads, ln_scale, ln_bias, ln_eps,
+    return _attention_int8_cuda(x, kmajor_codes(wqkv_q), sqkv, bqkv, kmajor_codes(woq), so, bo, mask, n_heads,
+                                ln_scale, ln_bias, ln_eps, group_heads)
+
+
+def fused_attention_int8_block_qkv_kmajor(x, wqkv_t, sqkv, bqkv, wo_t, so, bo, mask, n_heads, ln_scale, ln_bias,
+                                          ln_eps: float = 1e-12, group_heads: int = 2):
+    """:func:`fused_attention_int8_block_qkv` with the weight codes K-major,
+    as the card's products read them: wqkv_t (3·HID, HID) = wqkv_qᵀ and
+    wo_t (HID, HID) = woqᵀ, contiguous. The encoder keeps them so once per
+    set of weights."""
+    if not x.is_cuda:
+        return fused_attention_int8_block_qkv(x, wqkv_t.t(), sqkv, bqkv, wo_t.t(), so, bo, mask, n_heads,
+                                              ln_scale, ln_bias, ln_eps, group_heads)
+    return _attention_int8_cuda(x, wqkv_t, sqkv, bqkv, wo_t, so, bo, mask, n_heads, ln_scale, ln_bias, ln_eps,
                                 group_heads)

@@ -158,7 +158,7 @@ def test_int8_encoder_refuses_autograd_and_caches_codes():
         cached = tm.layer_0._int8_cache[1]
         assert tm.layer_0._int8_weights() is cached
         w1q, s1 = tf.quantize_weights_per_col(tm.layer_0.mlp_in.kernel)
-        assert torch.equal(cached["w1"], w1q) and torch.equal(cached["s1"], s1)
+        assert torch.equal(cached["w1_t"], w1q.t()) and torch.equal(cached["s1"], s1)
         tm.load_state_dict({k: v * 0.5 for k, v in tm.state_dict().items()})
         second = tm(ids, mask)
         assert tm.layer_0._int8_cache[1] is not cached
@@ -216,3 +216,160 @@ def test_card_bar_catches_a_wrong_scale_granularity(half):
     print(f"{half}: min row cosine {float(cos.min())}, max |d| {float(d.max())}, mean |d| {float(d.mean())}")
     assert float(cos.min()) >= 0.999 and float(d.max()) <= 0.1
     assert float(d.mean()) >= 20 * 5e-5
+
+
+# ---- the K-major entry points, the encoder's K-major cache, the card's geometry ----
+
+@pytest.mark.parametrize("ff_chunks", [2, 4])
+def test_mlp_int8_block_kmajor_matches_jax_kernel(ff_chunks):
+    """The encoder's K-major entry point (codes transposed, (OUT, IN)) on the
+    CPU against the interpreted Pallas kernel, at the public function's
+    tolerance, and equal to the public function bit for bit."""
+    p = _layer_inputs(2)
+    w1q, s1 = _quantized(p["w1"])
+    w2q, s2 = _quantized(p["w2"])
+    args = (p["x"], w1q, s1, p["b1"], w2q, s2, p["b2"], p["g"], p["be"])
+    want = np.asarray(jf.fused_mlp_int8_block(*_j(args), ff_chunks=ff_chunks))
+    x, w1q_, s1_, b1, w2q_, s2_, b2, g, be = _t(args)
+    _build.reset_launches()
+    got = tf.fused_mlp_int8_block_kmajor(x, tf.kmajor_codes(w1q_), s1_, b1, tf.kmajor_codes(w2q_), s2_, b2, g, be,
+                                         ff_chunks=ff_chunks)
+    assert _build.LAUNCHES["fused_mlp_int8_block"] == 0  # CPU tensor → plain version
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=1e-4)
+    assert torch.equal(got, tf.fused_mlp_int8_block(*_t(args), ff_chunks=ff_chunks))
+
+
+def test_attention_int8_block_qkv_kmajor_matches_jax_kernel():
+    """The encoder's K-major attention entry point (Q/K/V codes packed and
+    transposed, Wo's transposed) on the CPU against the interpreted Pallas
+    kernel, with a padded example, and equal to the packed public function
+    bit for bit."""
+    p = _layer_inputs(4)
+    quant = [_quantized(w) for w in p["ws"]]
+    qargs = [a for pair in quant for a in pair]
+    want = np.asarray(jf.fused_attention_int8_block(
+        *_j([p["x"], *qargs, *p["bs"], p["mask"]]), NH, jnp.asarray(p["g"]), jnp.asarray(p["be"])))
+    x, mask, g, be = _t([p["x"], p["mask"], p["g"], p["be"]])
+    wqkv = torch.from_numpy(np.concatenate([quant[i][0] for i in range(3)], axis=1))
+    sqkv = torch.from_numpy(np.concatenate([quant[i][1] for i in range(3)]))
+    bqkv = torch.from_numpy(np.concatenate(p["bs"][:3]))
+    woq, so = _t(quant[3])
+    bo = torch.from_numpy(p["bs"][3])
+    _build.reset_launches()
+    got = tf.fused_attention_int8_block_qkv_kmajor(x, tf.kmajor_codes(wqkv), sqkv, bqkv, tf.kmajor_codes(woq), so, bo,
+                                                   mask, NH, g, be)
+    assert _build.LAUNCHES["fused_attention_int8_block"] == 0
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=1e-4)
+    assert torch.equal(got, tf.fused_attention_int8_block_qkv(x, wqkv, sqkv, bqkv, woq, so, bo, mask, NH, g, be))
+
+
+def test_encoder_int8_cache_holds_kmajor_transposes_of_jax_codes():
+    """The int8 encoder's cached codes are the transposes of the JAX
+    package's quantize_weights_per_col codes of the same f32 parameters, bit
+    for bit ((OUT, IN), contiguous, Q/K/V packed along OUT), and the scales
+    are JAX's."""
+    kw = dict(fused_attention=True, int8_mlp=True, int8_attention=True)
+    ids, mask = _ids_mask(5)
+    jm = JaxEncoder(JaxEncoderConfig.tiny(**kw), jnp.float32)
+    params = jm.init(jax.random.PRNGKey(7), ids, mask)["params"]
+    tm = TransformerEncoderLM(EncoderConfig.tiny(**kw), torch.float32)
+    tm.load_state_dict(flax_to_state_dict(params))
+    with torch.no_grad():
+        tm(torch.from_numpy(ids).long(), torch.from_numpy(mask))
+    state = {k: v.numpy() for k, v in tm.state_dict().items()}
+    layer = tm.layer_0
+    cached = layer._int8_cache[1]
+    prefix = next(k for k in state if k.endswith("attention.query.kernel")).rsplit("attention.query.kernel", 1)[0]
+
+    def jax_codes(name):
+        return _quantized(state[prefix + name])
+
+    q, k, v = (jax_codes(f"attention.{n}.kernel") for n in ("query", "key", "value"))
+    want = {"wqkv_t": (np.concatenate([q[0], k[0], v[0]], axis=1).T, np.concatenate([q[1], k[1], v[1]])),
+            "wo_t": jax_codes("attention.out.kernel"), "w1_t": jax_codes("mlp_in.kernel"),
+            "w2_t": jax_codes("mlp_out.kernel")}
+    want["wo_t"], want["w1_t"], want["w2_t"] = ((c.T, s) for c, s in (want["wo_t"], want["w1_t"], want["w2_t"]))
+    for name, scale in (("wqkv_t", "sqkv"), ("wo_t", "so"), ("w1_t", "s1"), ("w2_t", "s2")):
+        codes = cached[name]
+        assert codes.dtype == torch.int8 and codes.is_contiguous(), name
+        np.testing.assert_array_equal(codes.numpy(), want[name][0], err_msg=name)
+        np.testing.assert_array_equal(cached[scale].numpy().view(np.int32), want[name][1].view(np.int32),
+                                      err_msg=scale)
+
+
+def _seed_mlp_rule(hid, ff, ff_chunks):
+    """The card path's MLP geometry as the earlier wmma kernels took it:
+    chunk % 64 == 0, K % chunk == 0 and N % 16 == 0 for both products."""
+    ch = ff // ff_chunks
+    return hid % 64 == 0 and ff % 16 == 0 and ch % 64 == 0 and ff % ch == 0 and hid % 16 == 0
+
+
+def _seed_attention_rule(hid, n_heads, group_heads, length):
+    return (hid % n_heads == 0 and hid // n_heads == 64 and n_heads % group_heads == 0
+            and 1 <= length <= 512 and hid % 64 == 0)
+
+
+def _accepts(check, *args):
+    try:
+        check(*args)
+    except ValueError as e:
+        assert "CUDA kernel" in str(e) or "positive" in str(e), str(e)
+        return False
+    return True
+
+
+def test_mlp_int8_card_geometry_accepts_what_the_earlier_kernels_took():
+    """check_mlp_int8_geometry (the card path's own check, callable on any
+    machine) accepts exactly the layers the earlier card path took, over a
+    grid of widths, FF sizes and chunk counts: the card path did not
+    shrink. Every refusal says why."""
+    seen = {True: 0, False: 0}
+    for hid in (32, 64, 96, 128, 192, 256, 320, 768, 1024):
+        for ff in (64, 128, 192, 256, 384, 512, 768, 1024, 1536, 3072, 4096):
+            for ff_chunks in range(1, 9):
+                if ff_chunks > ff:
+                    continue
+                want = _seed_mlp_rule(hid, ff, ff_chunks)
+                assert _accepts(tf.check_mlp_int8_geometry, hid, ff, ff_chunks) == want, (hid, ff, ff_chunks)
+                seen[want] += 1
+    assert seen[True] > 50 and seen[False] > 50
+
+
+def test_attention_int8_card_geometry_accepts_what_the_earlier_kernels_took():
+    seen = {True: 0, False: 0}
+    for hid in (64, 128, 192, 384, 512, 768, 1024):
+        for n_heads in (1, 2, 3, 4, 6, 8, 12, 16):
+            for group_heads in (1, 2, 3, 4):
+                for length in (1, 5, 512, 513):
+                    want = _seed_attention_rule(hid, n_heads, group_heads, length)
+                    got = _accepts(tf.check_attention_int8_geometry, hid, n_heads, group_heads, length)
+                    assert got == want, (hid, n_heads, group_heads, length)
+                    seen[want] += 1
+    assert seen[True] > 20 and seen[False] > 100
+
+
+@pytest.mark.parametrize("check,args,match", [
+    (tf.check_mlp_int8_geometry, (768, 3072, 4), None),  # DistilBERT: chunks of 768, one W1 pass
+    (tf.check_mlp_int8_geometry, (1024, 4096, 4), None),  # BERT-large: chunks of 1,024, two W1 passes
+    (tf.check_mlp_int8_geometry, (64, 256, 4), None),  # chunks of 64: half a stage
+    (tf.check_mlp_int8_geometry, (768, 3072, 8), None),  # chunks of 384: half a W1 pass
+    (tf.check_mlp_int8_geometry, (768, 3072, 5), "chunk % 64"),  # chunks of 614
+    (tf.check_mlp_int8_geometry, (768, 3072, 0), "positive"),
+    (tf.check_mlp_int8_geometry, (96, 384, 4), "chunk % 64"),
+    (tf.check_attention_int8_geometry, (768, 12, 2, 128), None),
+    (tf.check_attention_int8_geometry, (768, 12, 1, 1), None),  # Wo chunks of one head: 64 codes
+    (tf.check_attention_int8_geometry, (768, 24, 2, 128), "head width 64"),
+    (tf.check_attention_int8_geometry, (768, 12, 5, 128), "whole head groups"),
+    (tf.check_attention_int8_geometry, (768, 12, 0, 128), "whole head groups"),
+    (tf.check_attention_int8_geometry, (768, 12, 2, 513), "L <= 512"),
+    (tf.check_attention_int8_geometry, (768, 12, 2, 0), "L <= 512"),
+])
+def test_int8_card_geometry_check_runs_on_the_cpu(check, args, match):
+    """The card path's geometry checks are plain functions of the shapes: on
+    a machine without a card they accept the encoder layers the kernels
+    take and refuse the others with a message naming the rule."""
+    if match is None:
+        check(*args)
+    else:
+        with pytest.raises(ValueError, match=match):
+            check(*args)

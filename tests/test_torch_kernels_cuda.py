@@ -463,31 +463,168 @@ def _int8_layer(hid, ff, device, seed):
     return attn, mlp, (v(hid, 0.1, 1.0), v(hid, 0.1))
 
 
+def _int8_kmajor(attn, mlp):
+    """The weights as the encoder holds them for the card: K-major codes,
+    Q/K/V packed."""
+    w1q, s1, b1, w2q, s2, b2 = mlp
+    return fi.kmajor_attention_weights(*attn), (fi.kmajor_codes(w1q), s1, b1, fi.kmajor_codes(w2q), s2, b2)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l", [(4, 128), (3, 200), (5, 30), (256, 128)])
-def test_int8_halves_kernels_match_plain(device, b, l):
-    """K10 and K9 at DistilBERT width against their plain versions on the
-    card: row cosine >= 0.999, max |d| <= 0.1, the bar K1/K2 meet, and a
-    mean |d| <= 5e-5. The plain versions round step by step as the kernels
-    do, so only rare rounding flips differ; a wrong scale granularity (gelu
-    codes per row instead of per FF chunk, attention codes per row instead
-    of per head group) moves the mean |d| to >= 1e-3 at this width."""
-    hid, heads = 768, 12
-    attn, mlp, ln = _int8_layer(hid, 3072, device, seed=b * 1000 + l)
+@pytest.mark.parametrize("hid,ff", [(768, 3072), (1024, 4096)])
+@pytest.mark.parametrize("b,l", [(4, 128), (3, 200), (5, 30), (256, 128), (16, 77), (1, 5)])
+def test_int8_halves_kernels_match_plain(device, b, l, hid, ff):
+    """K10 and K9 at DistilBERT width, and at BERT-large width (16 heads,
+    FF chunks of 1,024 columns: the W1 kernel's two-pass path), against
+    their plain versions on the card, through the public functions and the
+    encoder's K-major entry points (the same bits): row cosine >= 0.999,
+    max |d| <= 0.1, the bar K1/K2 meet, and a mean |d| <= 5e-5. The plain
+    versions round step by step as the kernels do, so only rare rounding
+    flips differ; a wrong scale granularity (gelu codes per row instead of
+    per FF chunk, attention codes per row instead of per head group) moves
+    the mean |d| to >= 1e-3 at this width."""
+    heads = hid // 64
+    attn, mlp, ln = _int8_layer(hid, ff, device, seed=b * 1000 + l)
     x = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
     mask = torch.ones(b, l, device=device)
     mask[0, l // 2 + 1:] = 0.0
-    for kernel, plain, args in ((fi.fused_attention_int8_block, fi.reference_attention_int8_block,
-                                 (*attn, mask, heads, *ln)),
-                                (fi.fused_mlp_int8_block, fi.reference_mlp_int8_block, (*mlp, *ln))):
+    attn_t, mlp_t = _int8_kmajor(attn, mlp)
+    for kernel, kmajor, plain, args, args_t in (
+            (fi.fused_attention_int8_block, fi.fused_attention_int8_block_qkv_kmajor,
+             fi.reference_attention_int8_block, (*attn, mask, heads, *ln), (*attn_t, mask, heads, *ln)),
+            (fi.fused_mlp_int8_block, fi.fused_mlp_int8_block_kmajor, fi.reference_mlp_int8_block, (*mlp, *ln),
+             (*mlp_t, *ln))):
         got, want = kernel(x, *args), plain(x, *args)
         torch.cuda.synchronize()
         assert got.shape == x.shape and got.dtype == torch.bfloat16
+        assert torch.equal(kmajor(x, *args_t), got)
         cos, err = _rows_close(got, want)
         mean = float((got.float() - want.float()).abs().mean())
-        print(f"{kernel.__name__} B={b} L={l}: min row cosine {cos}, max |d| {err}, mean |d| {mean}")
+        print(f"{kernel.__name__} B={b} L={l} HID={hid}: min row cosine {cos}, max |d| {err}, mean |d| {mean}")
         assert cos >= 0.999 and err <= 0.1, (kernel.__name__, cos, err)
         assert mean <= 5e-5, (kernel.__name__, mean)
+
+
+@pytest.mark.cuda
+def test_int8_halves_are_bit_identical_run_to_run(device):
+    """No atomics and a fixed order of every sum: K10 and K9 give the same
+    bits twice on the same inputs."""
+    attn, mlp, ln = _int8_layer(768, 3072, device, seed=21)
+    x = torch.randn(64, 128, 768, device=device).to(torch.bfloat16)
+    mask = torch.ones(64, 128, device=device)
+    mask[::3, 90:] = 0.0
+    attn_t, mlp_t = _int8_kmajor(attn, mlp)
+    a1 = fi.fused_attention_int8_block_qkv_kmajor(x, *attn_t, mask, 12, *ln)
+    m1 = fi.fused_mlp_int8_block_kmajor(x, *mlp_t, *ln)
+    a2 = fi.fused_attention_int8_block_qkv_kmajor(x, *attn_t, mask, 12, *ln)
+    m2 = fi.fused_mlp_int8_block_kmajor(x, *mlp_t, *ln)
+    torch.cuda.synchronize()
+    assert torch.equal(a1, a2) and torch.equal(m1, m2)
+
+
+def _codes(m, k, device, gen):
+    return torch.randint(-127, 128, (m, k), generator=gen, device=device, dtype=torch.int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4096, 77, 1])
+@pytest.mark.parametrize("form,k,n,chunk", [("qkv", 768, 2304, 768), ("w1", 768, 3072, 768), ("w2", 3072, 768, 768),
+                                            ("wo", 768, 768, 128), ("wo_odd", 384, 256, 128),
+                                            ("ragged", 192, 48, 64)])
+def test_int8_wgmma_gemm_is_exact(device, form, k, n, chunk, m):
+    """The int8 wgmma GEMM alone (mm_wg_gemm_s8) at the products' shapes of
+    K10 (QKV, Wo: six chunks of one 128-deep stage; three of them) and K9
+    (W1, W2), and a ragged one (K and N not multiples of the 128-wide tile,
+    chunks of 64, half a stage), at M = 4096 and a ragged M: each K
+    chunk's int32 sum equals the float64 product of the codes exactly
+    (|sum| <= 1,024 * 127^2 < 2^24, so its f32 is exact too), and the
+    epilogue's f32 arithmetic repeats bit for bit in f32 on the same
+    device: bf16(dq + bias) for one chunk (QKV, W1), (resid + bias) + dq_0 +
+    dq_1 + ... in order for several (W2, Wo), dq_c = f32(sum_c) * (row
+    scale * column scale)."""
+    gen = torch.Generator(device=device).manual_seed(m * 7 + k + n)
+    a, w_t = _codes(m, k, device, gen), _codes(n, k, device, gen)
+    nchunks = k // chunk
+    rs = torch.rand(m, nchunks, generator=gen, device=device) * 0.02 + 1e-3
+    cs = torch.rand(n, generator=gen, device=device) * 0.01 + 1e-4
+    bias = torch.randn(n, generator=gen, device=device) * 0.05
+    sums = [(a[:, c * chunk:(c + 1) * chunk].double() @ w_t[:, c * chunk:(c + 1) * chunk].double().t()).float()
+            for c in range(nchunks)]
+    if nchunks == 1:
+        out = torch.empty(m, n, dtype=torch.bfloat16, device=device)
+        fi._gemm_s8(a, w_t, rs, cs, bias, out, fi._EPI_S8_BIAS_BF16, chunk)
+        want = (sums[0] * (rs * cs[None, :]) + bias).to(torch.bfloat16)
+    else:
+        resid = torch.randn(m, n, generator=gen, device=device).to(torch.bfloat16)
+        out = torch.empty(m, n, dtype=torch.float32, device=device)
+        fi._gemm_s8(a, w_t, rs, cs, bias, out, fi._EPI_S8_CHUNKS_RESID_F32, chunk, resid=resid)
+        want = resid.float() + bias
+        for c, acc in enumerate(sums):
+            want = want + acc * (rs[:, c:c + 1] * cs[None, :])
+    torch.cuda.synchronize()
+    assert torch.equal(out, want), float((out.float() - want.float()).abs().max())
+
+
+def _gelu_poly_fma(h):
+    """csrc/encoder_common.cuh:gelu_poly as the card computes it: each
+    ``p * v + c`` (and ``1 + p * uc``) contracted to one fused multiply-add,
+    emulated in float64 (exact product, one rounding, then f32)."""
+    def fma(a, b, c):
+        return (a.double() * b.double() + c).float()
+
+    def f32(c):
+        return float(torch.tensor(c, dtype=torch.float32))
+
+    uc = torch.clamp(h * 0.7071067811865476, -3.4, 3.4)
+    v = uc * uc
+    p = torch.full_like(v, f32(1.2036946e-08))
+    for c in (-7.4665718e-07, 2.0221069e-05, -0.00031579041, 0.0031725222, -0.021726243, 0.10513879, -0.37025923,
+              1.1268175):
+        p = fma(p, v, f32(c))
+    return (0.5 * h) * fma(p, uc, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4096, 77, 1])
+@pytest.mark.parametrize("hid,ff", [(768, 3072), (1024, 4096), (64, 256)])
+def test_int8_w1_epilogue_codes_are_bit_identical(device, hid, ff, m):
+    """K9's W1 kernel (mm_wg_gemm_s8_gelu_quant) writes, per FF chunk, the
+    codes and scales _quant_rows makes of gelu_poly(dequant + b1), bit for
+    bit: chunks of 768 (one pass), 1,024 (two passes: amax first, then the
+    codes) and 64 (a chunk narrower than one 128-wide box). The reference's
+    gelu contracts to FMAs as the card's does (_gelu_poly_fma)."""
+    gen = torch.Generator(device=device).manual_seed(m + hid)
+    x = (torch.randn(m, hid, generator=gen, device=device) * 2).to(torch.bfloat16)
+    w1q, s1 = fi.quantize_weights_per_col(torch.randn(hid, ff, generator=gen, device=device) * hid ** -0.5)
+    b1 = torch.randn(ff, generator=gen, device=device) * 0.05
+    xq, rs = fi._quant_groups_cuda(x, 1)
+    hq, hs = fi._gemm_s8_gelu_quant(xq, fi.kmajor_codes(w1q), rs, s1, b1, 4)
+    ch = ff // 4
+    for c in range(4):
+        sl = slice(c * ch, (c + 1) * ch)
+        acc = (xq.double() @ w1q[:, sl].double()).float()
+        want_q, want_s = fi._quant_rows(_gelu_poly_fma(acc * (rs * s1[sl]) + b1[sl]))
+        assert torch.equal(hs[:, c:c + 1], want_s), c
+        assert torch.equal(hq[:, sl], want_q), (c, int((hq[:, sl] != want_q).sum()))
+
+
+@pytest.mark.cuda
+def test_mlp_int8_half_keeps_the_gelu_output_on_chip(device):
+    """K9 allocates no (M, FF) f32 tensor on the card: its peak memory over
+    the call stays below the f32 gelu output's bytes (M x FF x 4), which the
+    earlier design wrote and read twice."""
+    attn, mlp, ln = _int8_layer(768, 3072, device, seed=8)
+    x = torch.randn(64, 128, 768, device=device).to(torch.bfloat16)
+    _, mlp_t = _int8_kmajor(attn, mlp)
+    fi.fused_mlp_int8_block_kmajor(x, *mlp_t, *ln)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fi.fused_mlp_int8_block_kmajor(x, *mlp_t, *ln)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak < 64 * 128 * 3072 * 4, peak
+    assert torch.isfinite(out.float()).all()
 
 
 @pytest.mark.cuda
@@ -529,25 +666,31 @@ def test_int8_scan_kernels_match_plain(device, mixed, n, per_bin):
 
 @pytest.mark.cuda
 def test_int8_wrappers_count_cuda_launches_only(device):
-    """K7-K10 count one launch per wrapper call on the card; a CPU call runs
-    the plain version and counts nothing."""
+    """K7-K10 count one launch per wrapper call on the card (K9/K10 through
+    the public functions and the K-major entry points alike); a CPU call
+    runs the plain version and counts nothing."""
     _build.reset_launches()
     attn, mlp, ln = _int8_layer(768, 3072, device, seed=3)
     x = torch.randn(2, 64, 768, device=device).to(torch.bfloat16)
     mask = torch.ones(2, 64, device=device)
     fi.fused_attention_int8_block(x, *attn, mask, 12, *ln)
     fi.fused_mlp_int8_block(x, *mlp, *ln)
+    attn_t, mlp_t = _int8_kmajor(attn, mlp)
+    fi.fused_attention_int8_block_qkv_kmajor(x, *attn_t, mask, 12, *ln)
+    fi.fused_mlp_int8_block_kmajor(x, *mlp_t, *ln)
     q, c = _corpus(16_384, 768, device, seed=5)
     values, scales = mq.quantize_corpus_binwise(c.float().cpu().numpy())
     values, scales = torch.from_numpy(values).to(device), torch.from_numpy(scales).to(device)
     mb.binmax_scan_topk(q, values, 10, per_bin=2, corpus_scales=scales)
     mb.binmax_scan_topk(q, values, 10, per_bin=2, corpus_scales=scales, mixed_queries=True)
     torch.cuda.synchronize()
-    want = {"fused_attention_int8_block": 1, "fused_mlp_int8_block": 1, "binmax_candidates_int8": 1,
+    want = {"fused_attention_int8_block": 2, "fused_mlp_int8_block": 2, "binmax_candidates_int8": 1,
             "binmax_candidates_int8f": 1}
     assert {k: _build.LAUNCHES[k] for k in want} == want
     cpu = lambda t: t.cpu()  # noqa: E731
     fi.fused_mlp_int8_block(x.cpu(), *map(cpu, mlp), *map(cpu, ln))
+    fi.fused_mlp_int8_block_kmajor(x.cpu(), *map(cpu, mlp_t), *map(cpu, ln))
+    fi.fused_attention_int8_block_qkv_kmajor(x.cpu(), *map(cpu, attn_t), mask.cpu(), 12, *map(cpu, ln))
     mb.binmax_scan_topk(q.cpu(), values.cpu(), 10, per_bin=2, corpus_scales=scales.cpu())
     assert {k: _build.LAUNCHES[k] for k in want} == want
 
