@@ -29,10 +29,13 @@ Phases (any failed check raises, and the script exits non-zero):
    torch._int_mm, the row-packed MLP K17/K18 at every row tile at
    (256, 200) and (16, 77) beside K2 and the bf16 torch.matmul chain; with
    CUDA-event timings of both and each kernel's bound (bytes or operations
-   at the H100's data-sheet rates); at the int8 halves' headline (256, 128)
-   each launch of K10 and K9 alone (x quantization, each int8 product with
-   its TOP/s beside one torch._int_mm call on codes of the same K-major
-   shapes, the attention core, the group quantization, the LayerNorm);
+   at the H100's data-sheet rates); at the encoder halves' headline
+   (256, 128) each launch of K1, K2, K10 and K9 alone (each bf16 product
+   with its TFLOP/s beside one torch.addmm call of the same shapes, each
+   int8 product with its TOP/s beside one torch._int_mm call on codes of
+   the same K-major shapes, the attention core beside one
+   scaled_dot_product_attention call, the quantizations, the LayerNorm) and
+   K1 and K2 beside their chains of PyTorch calls;
 4. the main path, ``cli.dense_retrieval.run("encode+index+search")``, on a
    seeded 16,384-passage collection with a DistilBERT-width BERT_DOT
    (random weights from a seed), searching one query set at top-100 and one
@@ -280,10 +283,7 @@ def phase_encoder_kernels(sz, device):
     attn, ln1, mlp, ln2 = _layer_params(sz, device, seed=11)
     out = {"fused_attention_block": {"max_abs_err": 0.0}, "fused_mlp_block": {"max_abs_err": 0.0}}
     for i, (b, l) in enumerate(sz["layer_shapes"]):
-        g = torch.Generator(device=device).manual_seed(100 + i)
-        x = torch.randn(b, l, sz["hid"], generator=g, device=device).to(torch.bfloat16)
-        lengths = torch.randint(max(1, l // 4), l + 1, (b,), generator=g, device=device)
-        mask = (torch.arange(l, device=device)[None, :] < lengths[:, None]).float()
+        x, mask, _ = _half_inputs(sz, b, l, device, 100 + i)
         a_args = (*attn, mask, sz["heads"], *ln1)
         m_args = (*mlp, *ln2)
         proj, core = _attention_ops(b, l, sz["hid"], sz["heads"])
@@ -301,6 +301,130 @@ def phase_encoder_kernels(sz, device):
             _record(out[name], [b, l, sz["hid"]], lambda k=kernel, a=args: k(x, *a),
                     lambda p=plain, a=args: p(x, *a), device, sz["reps"], headline=i == 0,
                     bound_of=bound(nbytes(x, args, got), **ops))
+        if i == 0:
+            for name, rec in bf16_half_parts(fa, sz, b, l, device, sz["reps"]).items():
+                out[name].update(rec)
+    return out
+
+
+def _half_inputs(sz, b, l, device, seed):
+    """x (B, L, HID) bf16 and a ragged key mask (B, L), from a seed."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(b, l, sz["hid"], generator=g, device=device).to(torch.bfloat16)
+    lengths = torch.randint(max(1, l // 4), l + 1, (b,), generator=g, device=device)
+    mask = (torch.arange(l, device=device)[None, :] < lengths[:, None]).float()
+    return x, mask, g
+
+
+# the products of each encoder half (bf16 and int8) in launch order: (name,
+# K, N) in units of (hid, ff); the other launches by entry point
+_ATTENTION_PRODUCTS = (("QKV", "hid", "3hid"), ("Wo", "hid", "hid"))
+_MLP_PRODUCTS = (("W1", "hid", "ff"), ("W2", "ff", "hid"))
+HALF_PRODUCTS = {"fused_attention_block": _ATTENTION_PRODUCTS, "fused_mlp_block": _MLP_PRODUCTS,
+                 "fused_attention_int8_block": _ATTENTION_PRODUCTS, "fused_mlp_int8_block": _MLP_PRODUCTS}
+HALF_OTHER_PARTS = {"mm_attention_core": "attention core", "mm_attention_core_f32": "attention core",
+                    "mm_layernorm": "LayerNorm"}
+
+
+def _core_part(rec, sz, b, l, mask, g, device, reps):
+    """The attention core's TFLOP/s (QK^T and P.V over all L keys) and one
+    scaled_dot_product_attention call on inputs of its shape beside it."""
+    import torch
+
+    from matchmaker_tpu_torch.probes import attn_inner as ai
+
+    heads, hid = sz["heads"], sz["hid"]
+    ops = 4 * b * heads * l * l * (hid // heads)
+    q, k, v = (torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
+    lib = _time_ms(lambda: ai.sdpa(q, k, v, mask, heads), device, reps)
+    rec.update(tflops=ops / rec["ms"] / 1e9, sdpa_ms=lib, sdpa_tflops=ops / lib / 1e9,
+               peak_share=ops / rec["ms"] / 1e9 / (PEAK_OPS_PER_S["bf16"] / 1e12))
+    return (f", {rec['tflops']:.1f} TFLOP/s ({100 * rec['peak_share']:.1f} % of 989); "
+            f"scaled_dot_product_attention {lib:.4f} ms ({rec['sdpa_tflops']:.1f} TFLOP/s)")
+
+
+def _library_chains(sz, b, l, x, mask, attn, ln1, mlp, ln2, device, reps):
+    """Each bf16 half as a chain of PyTorch calls in bf16 (a yardstick the
+    port never calls): K1 addmm (QKV), scaled_dot_product_attention, the
+    residual add, addmm (Wo), layer_norm; K2 addmm (W1), gelu, the residual
+    add, addmm (W2), layer_norm. Returns {half: ms}."""
+    import torch
+    import torch.nn.functional as F
+
+    from matchmaker_tpu_torch.probes import attn_inner as ai
+
+    bf, hid, heads, m = torch.bfloat16, sz["hid"], sz["heads"], b * l
+    wq, wk, wv, wo, bq, bk, bv, bo = attn
+    wqkv, bqkv = torch.cat([wq, wk, wv], dim=1), torch.cat([bq, bk, bv]).to(bf)
+    w1, b1, w2, b2 = mlp
+    x2 = x.reshape(m, hid)
+    g1, be1, g2, be2 = (t.to(bf) for t in (*ln1, *ln2))
+    bo, b1, b2 = bo.to(bf), b1.to(bf), b2.to(bf)
+
+    def attention():
+        q, k, v = torch.addmm(bqkv, x2, wqkv).view(b, l, 3 * hid).chunk(3, dim=-1)
+        a = ai.sdpa(q, k, v, mask, heads).reshape(m, hid)
+        return F.layer_norm(torch.addmm(x2 + bo, a, wo), (hid,), g1, be1)
+
+    def mlp_half():
+        h = F.gelu(torch.addmm(b1, x2, w1))
+        return F.layer_norm(torch.addmm(x2 + b2, h, w2), (hid,), g2, be2)
+
+    return {"fused_attention_block": _time_ms(attention, device, reps),
+            "fused_mlp_block": _time_ms(mlp_half, device, reps)}
+
+
+def bf16_half_parts(fa, sz, b, l, device, reps, seed=11):
+    """Where K1's and K2's time goes at (B, L): each launch alone (see
+    _launch_parts_ms), each product's TFLOP/s against the card's 989 with
+    one torch.addmm call of the same shapes beside it, the attention core
+    beside one scaled_dot_product_attention call, and the whole half beside
+    its chain of PyTorch calls (library_chain_ms); yardsticks the port never
+    calls. ``fa`` is a checkout's ``ops.fused_attention``; K1 runs through
+    the encoder's packed entry."""
+    import torch
+
+    attn, ln1, mlp, ln2 = _layer_params(sz, device, seed)
+    x, mask, g = _half_inputs(sz, b, l, device, 200)
+    wq, wk, wv, wo, bq, bk, bv, bo = attn
+    wqkv, bqkv = torch.cat([wq, wk, wv], dim=1), torch.cat([bq, bk, bv])
+    heads, m = sz["heads"], b * l
+    halves = {"fused_attention_block": lambda: fa.fused_attention_block_qkv(x, wqkv, bqkv, wo, bo, mask, heads,
+                                                                            *ln1),
+              "fused_mlp_block": lambda: fa.fused_mlp_block(x, *mlp, *ln2)}
+    chains = _library_chains(sz, b, l, x, mask, attn, ln1, mlp, ln2, device, reps) if device.type == "cuda" else {}
+    dims = {"hid": sz["hid"], "3hid": 3 * sz["hid"], "ff": sz["ff"]}
+    out = {}
+    for name, fn in halves.items():
+        launches, total = _launch_parts_ms(fn, device, reps)
+        products, parts = list(HALF_PRODUCTS[name]), []
+        for entry, ms in launches:
+            rec, note = {"entry": entry, "ms": ms}, ""
+            if "gemm" in entry:
+                label, k, n = products.pop(0)
+                k, n = dims[k], dims[n]
+                a = torch.randn(m, k, generator=g, device=device).to(torch.bfloat16)
+                w = (torch.randn(k, n, generator=g, device=device) * k ** -0.5).to(torch.bfloat16)
+                bias = torch.zeros(n, device=device, dtype=torch.bfloat16)
+                lib = _time_ms(lambda: torch.addmm(bias, a, w), device, reps)
+                ops = 2 * m * k * n
+                rec.update(part=f"{label} product ({m} x {k} x {n})", tflops=ops / ms / 1e9, addmm_ms=lib,
+                           addmm_tflops=ops / lib / 1e9, peak_share=ops / ms / 1e9 / (PEAK_OPS_PER_S["bf16"] / 1e12))
+                note = (f", {rec['tflops']:.1f} TFLOP/s ({100 * rec['peak_share']:.1f} % of 989); torch.addmm "
+                        f"{lib:.4f} ms ({rec['addmm_tflops']:.1f} TFLOP/s)")
+            else:
+                rec["part"] = HALF_OTHER_PARTS.get(entry, entry)
+                if rec["part"] == "attention core":
+                    note = _core_part(rec, sz, b, l, mask, g, device, reps)
+            parts.append(rec)
+            print(f"[kernels]   {name} part {rec['part']} ({entry}): {ms:.4f} ms{note}")
+        out[name] = {"parts": parts, "parts_total_ms": total}
+        if name in chains:
+            out[name]["library_chain_ms"] = chains[name]
+        print(f"[kernels]   {name} at {(b, l)}: {total:.4f} ms a call, {sum(r['ms'] for r in parts):.4f} ms in "
+              f"its {len(parts)} launches" + (f"; PyTorch chain {chains[name]:.4f} ms" if name in chains else ""))
     return out
 
 
@@ -638,13 +762,9 @@ def _launch_parts_ms(fn, device, reps):
     return parts, begin.elapsed_time(finish) / reps
 
 
-# the int8 products of each half in launch order: (name, K, N) in units of
-# (hid, ff); and the quantizations in launch order
-INT8_PRODUCTS = {"fused_attention_int8_block": (("QKV", "hid", "3hid"), ("Wo", "hid", "hid")),
-                 "fused_mlp_int8_block": (("W1", "hid", "ff"), ("W2", "ff", "hid"))}
+# the quantizations of each int8 half in launch order
 INT8_QUANTS = {"fused_attention_int8_block": ("x quantization", "attention-output quantization (row, head group)"),
                "fused_mlp_int8_block": ("x quantization", "gelu-output quantization (row, FF chunk)")}
-INT8_OTHER_PARTS = {"mm_attention_core_f32": "attention core", "mm_layernorm": "LayerNorm"}
 
 
 def int8_half_parts(fi, sz, b, l, device, reps, seed=12):
@@ -657,10 +777,7 @@ def int8_half_parts(fi, sz, b, l, device, reps, seed=12):
     import torch
 
     attn, mlp, ln1, ln2 = _int8_layer_params(sz, device, seed)
-    g = torch.Generator(device=device).manual_seed(300)
-    x = torch.randn(b, l, sz["hid"], generator=g, device=device).to(torch.bfloat16)
-    lengths = torch.randint(max(1, l // 4), l + 1, (b,), generator=g, device=device)
-    mask = (torch.arange(l, device=device)[None, :] < lengths[:, None]).float()
+    x, mask, g = _half_inputs(sz, b, l, device, 300)
     heads, m = sz["heads"], b * l
     if hasattr(fi, "fused_mlp_int8_block_kmajor"):
         attn_t, mlp_t = _int8_kmajor(fi, attn, mlp)
@@ -674,10 +791,10 @@ def int8_half_parts(fi, sz, b, l, device, reps, seed=12):
     out = {}
     for name, fn in halves.items():
         launches, total = _launch_parts_ms(fn, device, reps)
-        products, quants = list(INT8_PRODUCTS[name]), list(INT8_QUANTS[name])
+        products, quants = list(HALF_PRODUCTS[name]), list(INT8_QUANTS[name])
         parts = []
         for entry, ms in launches:
-            rec = {"entry": entry, "ms": ms}
+            rec, note = {"entry": entry, "ms": ms}, ""
             if "gemm" in entry:
                 label, k, n = products.pop(0)
                 k, n = dims[k], dims[n]
@@ -687,14 +804,16 @@ def int8_half_parts(fi, sz, b, l, device, reps, seed=12):
                 ops = 2 * m * k * n
                 rec.update(part=f"{label} product ({m} x {k} x {n})", tops=ops / ms / 1e9, int_mm_ms=lib,
                            int_mm_tops=ops / lib / 1e9, peak_share=ops / ms / 1e9 / (PEAK_OPS_PER_S["int8"] / 1e12))
+                note = (f", {rec['tops']:.1f} TOP/s ({100 * rec['peak_share']:.1f} % of 1,979); torch._int_mm "
+                        f"{rec['int_mm_ms']:.4f} ms ({rec['int_mm_tops']:.1f} TOP/s)")
             elif entry == "mm_quant_groups":
                 rec["part"] = quants.pop(0)
             else:
-                rec["part"] = INT8_OTHER_PARTS.get(entry, entry)
+                rec["part"] = HALF_OTHER_PARTS.get(entry, entry)
+                if rec["part"] == "attention core":
+                    note = _core_part(rec, sz, b, l, mask, g, device, reps)
             parts.append(rec)
-            print(f"[kernels]   {name} part {rec['part']} ({entry}): {ms:.4f} ms"
-                  + (f", {rec['tops']:.1f} TOP/s ({100 * rec['peak_share']:.1f} % of 1,979); torch._int_mm "
-                     f"{rec['int_mm_ms']:.4f} ms ({rec['int_mm_tops']:.1f} TOP/s)" if "tops" in rec else ""))
+            print(f"[kernels]   {name} part {rec['part']} ({entry}): {ms:.4f} ms{note}")
         print(f"[kernels]   {name} at {(b, l)}: {total:.4f} ms a call, {sum(r['ms'] for r in parts):.4f} ms in "
               f"its {len(parts)} launches")
         out[name] = {"parts": parts, "parts_total_ms": total}
@@ -716,10 +835,7 @@ def phase_int8_encoder_kernels(sz, device):
     out = {name: {"max_abs_err": 0.0, "mean_abs_err": 0.0}
            for name in ("fused_attention_int8_block", "fused_mlp_int8_block")}
     for i, (b, l) in enumerate(sz["layer_shapes"]):
-        g = torch.Generator(device=device).manual_seed(300 + i)
-        x = torch.randn(b, l, sz["hid"], generator=g, device=device).to(torch.bfloat16)
-        lengths = torch.randint(max(1, l // 4), l + 1, (b,), generator=g, device=device)
-        mask = (torch.arange(l, device=device)[None, :] < lengths[:, None]).float()
+        x, mask, _ = _half_inputs(sz, b, l, device, 300 + i)
         proj, core = _attention_ops(b, l, sz["hid"], sz["heads"])
         heads = sz["heads"]
         cases = (("fused_attention_int8_block",
@@ -2004,8 +2120,22 @@ KERNELS = [  # name, source, TPU kernel it replaces, TPU kernels folded into it
 
 
 # other times and agreements measured beside a kernel, carried into its entry
+# the design of the kernels redesigned for Hopper since their first port
+DESIGN = {
+    "fused_attention_block": "QKV and Wo on the persistent wgmma/TMA GEMM (wgmma_gemm.cuh, bias and bias + residual "
+                             "epilogues, weights read MN-major where they lie); attention core on mma.sync with each "
+                             "64-key tile's scores in registers, two passes, f32 p as a bf16 hi + lo pair, key tiles "
+                             "past the last unmasked key skipped; LayerNorm",
+    "fused_mlp_block": "W1 and W2 on the persistent wgmma/TMA GEMM (wgmma_gemm.cuh, bias + gelu poly and bias + "
+                       "residual epilogues, weights read MN-major where they lie); LayerNorm",
+    "fused_mha": "K1's register-resident mma.sync attention core, the normalised p rounded to bf16",
+    "fused_attention_int8_block": "s8 wgmma/TMA products (encoder_int8_kernels.cu); K1's register-resident "
+                                  "attention core with an f32 output, p as three bf16 terms",
+}
+
 BESIDE = ("resident_ms", "streamed_ms", "fused_mha_ms", "chain_ms", "fused_mlp_block_ms",
-          "f32_p_vs_f32_plain_mean_abs", "batched_vs_f32_plain_mean_abs", "parts", "parts_total_ms")
+          "f32_p_vs_f32_plain_mean_abs", "batched_vs_f32_plain_mean_abs", "parts", "parts_total_ms",
+          "library_chain_ms")
 
 
 def run_phases(sz, device, card: str) -> dict:
@@ -2074,6 +2204,7 @@ def run_phases(sz, device, card: str) -> dict:
             path, scale_path = "train", "scale_bf16"
         report["kernels"].append(
             {"name": name, "route": "cuda", "source": src, "replaces": rep, **({"includes": inc} if inc else {}),
+             **({"design": DESIGN[name]} if name in DESIGN else {}),
              "path": path, "launches": runs[path] if path else 0, **{f"launches_{r}": v for r, v in runs.items()},
              "launches_scale": scale_runs[scale_path], **{f"launches_{r}": v for r, v in scale_runs.items()},
              "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"],

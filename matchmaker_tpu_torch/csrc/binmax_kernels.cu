@@ -104,11 +104,10 @@ __global__ void __launch_bounds__(TILE_THREADS) binmax_kernel(const void* __rest
   } else {
     FragC acc[FRAG_M][FRAG_N];
     if constexpr (MODE == SCAN_INT8F)
-      tile_mma<true, int8_t>(static_cast<const int8_t*>(corpus), NR, static_cast<const bf16*>(queries), NQ, D, m0,
-                             n0, smem, acc);
+      tile_mma<int8_t>(static_cast<const int8_t*>(corpus), NR, static_cast<const bf16*>(queries), NQ, D, m0, n0,
+                       smem, acc);
     else
-      tile_mma<true>(static_cast<const bf16*>(corpus), NR, static_cast<const bf16*>(queries), NQ, D, m0, n0, smem,
-                     acc);
+      tile_mma(static_cast<const bf16*>(corpus), NR, static_cast<const bf16*>(queries), NQ, D, m0, n0, smem, acc);
 #pragma unroll
     for (int i = 0; i < FRAG_M; ++i)
 #pragma unroll

@@ -7,222 +7,270 @@
 //                     Q, K, V): mm_fused_mha, the attention core below
 // The function computed is the same; the fusion boundaries are not. Each
 // half runs as a few launches:
-//   K1: mm_gemm (QKV, bias, bf16 out) -> mm_attention_core -> mm_gemm
-//       (out projection, bias + residual, f32 out) -> mm_layernorm
-//   K2: mm_gemm (W1, bias + gelu poly, bf16 out) -> mm_gemm (W2, bias +
-//       residual, f32 out) -> mm_layernorm
+//   K1: mm_wg_gemm_fwd (QKV, bias, bf16 out) -> mm_attention_core ->
+//       mm_wg_gemm_fwd (Wo, bias + residual, f32 out) -> mm_layernorm
+//   K2: mm_wg_gemm_fwd (W1, bias + gelu poly, bf16 out) -> mm_wg_gemm_fwd
+//       (W2, bias + residual, f32 out) -> mm_layernorm
 //
-// What bounds them on the card: the four projection GEMMs are compute bound
-// (2*M*K*N flops on M = B*L >= 7680 rows against 1.2-4.7 MB of weights), so
-// they run on the tensor cores (tile_mma.cuh). The attention core is small
-// per (example, head) but its probabilities must stay f32 into P.V as on the
-// TPU: S = QK^T runs on the tensor cores (bf16 in, f32 out) while P.V runs as
-// f32 FMAs from shared memory, since wmma has no f32 x bf16 product. The
-// (B, L, L) scores never reach device memory: a block keeps one 64-query
-// tile's score rows for all keys in shared memory (L <= 512).
+// What bounds them on the card, and what the design does about it:
+// - The four projections are compute bound (2*M*K*N flops on M = B*L >=
+//   7680 rows against 1.2-4.7 MB of weights). They run on the persistent
+//   TMA/mbarrier/wgmma GEMM of wgmma_gemm.cuh (128 x 128 tiles, one producer
+//   and two consumer warpgroups) with the bias, gelu and residual in its
+//   epilogue. The weights are stored (K, N) and read MN-major in place
+//   (wgmma's transposed shared-memory form), so no call transposes them.
+// - LayerNorm needs a whole 768-wide row, which one 128-wide output tile
+//   never holds: it stays a launch of its own over the f32 pre-LN sums.
+// - The attention core is bound by its bytes (Q, K, V in and the output
+//   out: 0.06 ms at (256, 128) against 12.9 GFLOP of tensor-core work). It
+//   keeps the (L, L) scores out of device memory and out of shared memory:
+//   each warp holds its 16 query rows' scores for one 64-key tile in the
+//   mma.sync accumulators and forms the probabilities there (see below).
 // Unlike the TPU kernel, the (B*L, 3072) gelu output and the (B*L, 768) f32
 // pre-LN sums do go through device memory; keeping them on chip is later work.
-#include "encoder_common.cuh"
-#include "tile_mma.cuh"
+#include "mma_sync.cuh"
+#include "wgmma_gemm.cuh"
 
 #include <math.h>
 
 namespace mm {
 
-enum Epilogue : int { EPI_BIAS_BF16 = 0, EPI_BIAS_GELU_BF16 = 1, EPI_BIAS_RESID_F32 = 2 };
+using bf16 = __nv_bfloat16;
 
-// C = A(M,K) . B(K,N) + bias, then the epilogue. Grid (N/128, M/128).
-template <int EPI>
-__global__ void __launch_bounds__(TILE_THREADS) gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                                                             const float* __restrict__ bias,
-                                                             const bf16* __restrict__ resid, void* __restrict__ C,
-                                                             int M, int N, int K) {
-  __shared__ __align__(128) char smem[TILE_SMEM_BYTES];
-  const int m0 = blockIdx.y * TILE_M, n0 = blockIdx.x * TILE_N;
-  FragC acc[FRAG_M][FRAG_N];
-  tile_mma<false>(A, M, B, N, K, m0, n0, smem, acc);
+// ---- attention core -------------------------------------------------------
+// One block of 4 warps per (64-query tile, head, example), 16 query rows a
+// warp. q, k and v are (B, L, *) bf16 with row stride ld and the head split
+// read straight from their columns: for K1 and K10 the QKV product's output
+// (B, L, 3*HID), ld = 3*HID; for K13 three separate (B, L, HID) tensors,
+// ld = HID. out is (B, L, HID): bf16, or f32 for the int8 attention half
+// (K10 re-quantizes the f32 output).
+//
+// Both products run on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+// sums, operands through ldmatrix) over 64-key tiles of K and V streamed
+// through a double cp.async buffer. Two passes over the keys keep the plain
+// versions' rounding points:
+//   pass 1: S = QK^T * scale + (m - 1) * 1e9 per tile, in registers; each
+//           row's running max and sum of exp(s - max) (the sum rescaled
+//           when the max grows);
+//   pass 2: S again (the same instructions, the same bits), p = exp(s - max)
+//           / sum normalised in registers, and O += P.V with P's A fragments
+//           taken straight from the score accumulators.
+// ROUND_P rounds the normalised p to bf16, as K13's TPU kernel does
+// (p.astype(v.dtype)); otherwise (K1, K10) p stays f32 into P.V, entered as
+// bf16 terms into one f32 accumulator: for K1 a hi + lo pair (hi = bf16(p),
+// lo = bf16(p - hi): 16 significant bits, two products; its output is
+// rounded to bf16), for K10 hi + mid + lo (all 24 bits, three products: its
+// f32 output is re-quantized, and 16 bits of p flip a few int8 codes against
+// the plain version's f32 p). Keys past L (up to a multiple of 64) take
+// p = 0, key tiles past an example's last unmasked key are skipped; query
+// rows past L are not stored. Shared memory (Q, two K and two V tiles, the
+// mask row) does not grow with L.
+constexpr int HD = 64;          // head width
+constexpr int QT = 64;          // query rows a block
+constexpr int KT = 64;          // keys a tile
+constexpr int ATT_THREADS = 128;
+constexpr int MAX_KEYS = 512;
+constexpr int T_LD = HD + 8;    // bf16 tile rows of 144 bytes: ldmatrix rows on distinct banks
+constexpr int TILE = KT * T_LD;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  float* st = reinterpret_cast<float*>(smem) + warp * 256;  // the ring is free after tile_mma
-  const int r = lane >> 1, c8 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < FRAG_M; ++i) {
-#pragma unroll
-    for (int j = 0; j < FRAG_N; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gm = m0 + wm * WARP_M + i * 16 + r;
-      const int gn = n0 + wn * WARP_N + j * 16 + c8;
-      if (gm < M && gn < N) {
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = st[r * 16 + c8 + e] + bias[gn + e];
-        if (EPI == EPI_BIAS_RESID_F32) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(resid + (size_t)gm * N + gn);
-          const bf16* rb = reinterpret_cast<const bf16*>(&raw);
-          float* out = reinterpret_cast<float*>(C) + (size_t)gm * N + gn;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] += __bfloat162float(rb[e]);
-          *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
-          *reinterpret_cast<float4*>(out + 4) = make_float4(v[4], v[5], v[6], v[7]);
-        } else {
-          __align__(16) bf16 o[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16(EPI == EPI_BIAS_GELU_BF16 ? gelu_poly(v[e]) : v[e]);
-          *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(C) + (size_t)gm * N + gn) =
-              *reinterpret_cast<const uint4*>(o);
-        }
-      }
-      __syncwarp();
-    }
+// rows [r0, r0 + 64) of one head's 64 columns (rows ld apart) into a
+// [64][T_LD] tile; rows past L read as zero
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* base, int ld, int r0, int L) {
+  for (int c = threadIdx.x; c < KT * HD / 8; c += ATT_THREADS) {
+    const int row = c >> 3, col = (c & 7) * 8;
+    const bool ok = r0 + row < L;
+    cp_async16(dst + row * T_LD + col, base + (size_t)(ok ? r0 + row : 0) * ld + col, ok);
   }
 }
 
-// ---- attention core -------------------------------------------------------
-// One block per (64-query tile, head, example). q, k and v are (B, L, *) bf16
-// with row stride ld and the head split read straight from their columns: for
-// K1 the QKV GEMM's output (B, L, 3*HID), ld = 3*HID; for K13 three separate
-// (B, L, HID) tensors, ld = HID. out is (B, L, HID): bf16, each head's slice
-// cast as the TPU kernels do, or f32 for the int8 attention half (K10
-// re-quantizes the f32 output). ROUND_P rounds the f32 probabilities to bf16
-// before P.V, as K13's TPU kernel does (p.astype(v.dtype)); K1 keeps them f32.
-constexpr int HD = 64;         // head width
-constexpr int QT = 64;         // query rows per block
-constexpr int KC = 64;         // keys per shared-memory chunk
-constexpr int ATT_THREADS = 128;
-constexpr int HD_LD = HD + 8;  // padded bf16 rows (144 bytes)
-
-__host__ __device__ inline int att_keys_padded(int L) { return (L + KC - 1) / KC * KC; }
-__host__ __device__ inline int att_s_ld(int L) { return att_keys_padded(L) + 4; }
-inline size_t att_smem_bytes(int L) {
-  return (size_t)2 * QT * HD_LD * 2 + (size_t)QT * att_s_ld(L) * 4 + (size_t)att_keys_padded(L) * 4;
+// s (16 query rows x 64 keys of the warp) = Q K^T * scale + neg, fragment
+// [j][2i + e] at row lane/4 + 8i, key 8j + 2(lane%4) + e of the tile
+__device__ __forceinline__ void score_tile(float (&s)[8][4], const uint32_t (&fq)[4][4], const bf16* kt,
+                                           const float* neg, float scale, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bb[4];
+      ldsm_x4(bb, kt + (16 * np + (lane & 7) + ((lane >> 4) << 3)) * T_LD + kb * 16 + ((lane >> 3) & 1) * 8);
+      mma16816(s[2 * np], fq[kb], bb[0], bb[1]);
+      mma16816(s[2 * np + 1], fq[kb], bb[2], bb[3]);
+    }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 n = *reinterpret_cast<const float2*>(neg + 8 * j + 2 * (lane & 3));
+    s[j][0] = s[j][0] * scale + n.x;
+    s[j][1] = s[j][1] * scale + n.y;
+    s[j][2] = s[j][2] * scale + n.x;
+    s[j][3] = s[j][3] * scale + n.y;
+  }
 }
 
-template <typename OutT, bool ROUND_P>
-__global__ void __launch_bounds__(ATT_THREADS) attention_core_kernel(const bf16* __restrict__ q_in,
-                                                                      const bf16* __restrict__ k_in,
-                                                                      const bf16* __restrict__ v_in, int ld,
-                                                                      const float* __restrict__ mask,
-                                                                      OutT* __restrict__ out, int L, int H,
-                                                                      float scale) {
-  extern __shared__ __align__(128) char smem[];
-  const int LKP = att_keys_padded(L), SLD = att_s_ld(L);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + QT * HD_LD;  // K chunk, later the V chunk
-  float* S = reinterpret_cast<float*>(Ks + QT * HD_LD);
-  float* neg = S + QT * SLD;
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
 
+// four blocks an SM: 48 KB of shared memory and at most 128 registers a thread each
+template <typename OutT, bool ROUND_P>
+__global__ void __launch_bounds__(ATT_THREADS, 4)
+    attention_core_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in, const bf16* __restrict__ v_in,
+                          int ld, const float* __restrict__ mask, OutT* __restrict__ out, int L, int H, float scale) {
+  __shared__ __align__(128) bf16 Qs[TILE];
+  __shared__ __align__(128) bf16 Kb[2 * TILE];
+  __shared__ __align__(128) bf16 Vb[2 * TILE];
+  __shared__ float neg[MAX_KEYS];
+  __shared__ int live[2 * ATT_THREADS / 32];
+
+  // bf16 terms of p into P.V: the rounded p (K13); hi + lo, 16 significant
+  // bits, under a bf16 output (K1); hi + mid + lo, all 24 of f32, under the
+  // f32 output that K10 re-quantizes
+  constexpr int P_TERMS = ROUND_P ? 1 : (sizeof(OutT) == 4 ? 3 : 2);
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
   const int HID = H * HD;
   const size_t head = (size_t)b * L * ld + h * HD;
   const bf16 *qb = q_in + head, *kb = k_in + head, *vb = v_in + head;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  for (int j = tid; j < LKP; j += ATT_THREADS)
-    neg[j] = j < L ? (mask[(size_t)b * L + j] - 1.0f) * 1e9f : 0.0f;
-  // Q tile: 64 rows x 64 bf16 = 512 chunks of 16 bytes
-  for (int c = tid; c < QT * HD / 8; c += ATT_THREADS) {
-    const int row = c >> 3, col = (c & 7) * 8;
-    *reinterpret_cast<uint4*>(Qs + row * HD_LD + col) =
-        load16(qb + (size_t)(q0 + row) * ld + col, q0 + row < L);
+  // (m - 1) * 1e9 per key as the plain version adds it; -inf past L (p = 0).
+  // Where some key has m = 1, a key with m = 0 takes exp(-1e9 + ...) = 0
+  // exactly, so the tiles past the last key with m != 0 add nothing to either
+  // pass and are skipped (the same values); without a key of m = 1 every tile
+  // runs.
+  int last = 0, one = 0;
+  for (int j = tid; j < (L + KT - 1) / KT * KT; j += ATT_THREADS) {
+    const float mj = j < L ? mask[(size_t)b * L + j] : 0.0f;
+    neg[j] = j < L ? (mj - 1.0f) * 1e9f : -INFINITY;
+    if (mj != 0.0f) last = j + 1;
+    one |= mj == 1.0f;
+  }
+  last = __reduce_max_sync(0xffffffffu, last);
+  one = __reduce_or_sync(0xffffffffu, one);
+  if (lane == 0) {
+    live[warp] = last;
+    live[ATT_THREADS / 32 + warp] = one;
   }
   __syncthreads();
-  FragA qf[HD / 16];
+  int tiles = (L + KT - 1) / KT, end = 0, any_one = 0;
 #pragma unroll
-  for (int k = 0; k < HD / 16; ++k) wmma::load_matrix_sync(qf[k], Qs + warp * 16 * HD_LD + k * 16, HD_LD);
+  for (int w = 0; w < ATT_THREADS / 32; ++w) {
+    end = max(end, live[w]);
+    any_one |= live[ATT_THREADS / 32 + w];
+  }
+  if (any_one) tiles = (end + KT - 1) / KT;
+  stage_tile(Qs, qb, ld, q0, L);
+  stage_tile(Kb, kb, ld, 0, L);
+  cp_async_commit();
 
-  // S = Q K^T on the tensor cores, one 64-key chunk at a time
-  for (int kc = 0; kc < LKP; kc += KC) {
-    for (int c = tid; c < KC * HD / 8; c += ATT_THREADS) {
-      const int row = c >> 3, col = (c & 7) * 8;
-      *reinterpret_cast<uint4*>(Ks + row * HD_LD + col) =
-          load16(kb + (size_t)(kc + row) * ld + col, kc + row < L);
+  // pass 1: each row's max and sum of exponentials. m is the same in the
+  // four lanes of a quad (they hold one row); l is this lane's share of the
+  // sum until the quad adds its shares after the last tile.
+  uint32_t fq[4][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {
+      stage_tile(Kb + ((t + 1) & 1) * TILE, kb, ld, (t + 1) * KT, L);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    if (t == 0)
 #pragma unroll
-    for (int j = 0; j < KC / 16; ++j) {
-      FragC sf;
-      wmma::fill_fragment(sf, 0.0f);
+      for (int k = 0; k < 4; ++k) ldsm_x4(fq[k], Qs + (warp * 16 + (lane & 15)) * T_LD + k * 16 + (lane >> 4) * 8);
+    float s[8][4];
+    score_tile(s, fq, Kb + (t & 1) * TILE, neg + t * KT, scale, lane);
 #pragma unroll
-      for (int k = 0; k < HD / 16; ++k) {
-        FragBcol kf;  // element (d, key) at Ks[key * HD_LD + d]
-        wmma::load_matrix_sync(kf, Ks + j * 16 * HD_LD + k * 16, HD_LD);
-        wmma::mma_sync(sf, qf[k], kf, sf);
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      mx = quad_max(mx);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sum += expf(s[j][2 * i] - mx) + expf(s[j][2 * i + 1] - mx);
+      l[i] = l[i] * expf(m[i] - mx) + sum;  // the first tile: 0 * exp(-inf) + sum
+      m[i] = mx;
+    }
+    __syncthreads();  // the buffer is refilled two tiles on
+  }
+  float den[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) den[i] = quad_sum(l[i]);
+
+  // pass 2: O = P V
+  stage_tile(Kb, kb, ld, 0, L);
+  stage_tile(Vb, vb, ld, 0, L);
+  cp_async_commit();
+  float o[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {
+      stage_tile(Kb + ((t + 1) & 1) * TILE, kb, ld, (t + 1) * KT, L);
+      stage_tile(Vb + ((t + 1) & 1) * TILE, vb, ld, (t + 1) * KT, L);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float s[8][4];
+    score_tile(s, fq, Kb + (t & 1) * TILE, neg + t * KT, scale, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = expf(s[j][e] - m[e >> 1]) / den[e >> 1];
+    const bf16* vt = Vb + (t & 1) * TILE;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      // keys 16k .. 16k + 15: the score fragments of n-blocks 2k, 2k + 1 are
+      // the A fragment of a 16 x 16 block of P, split into its bf16 terms
+      uint32_t pt[P_TERMS][4];
+      float2 r[4] = {make_float2(s[2 * k][0], s[2 * k][1]), make_float2(s[2 * k][2], s[2 * k][3]),
+                     make_float2(s[2 * k + 1][0], s[2 * k + 1][1]), make_float2(s[2 * k + 1][2], s[2 * k + 1][3])};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int n = 0; n < P_TERMS; ++n) {
+          const __nv_bfloat162 t = __floats2bfloat162_rn(r[e].x, r[e].y);
+          pt[n][e] = *reinterpret_cast<const uint32_t*>(&t);
+          r[e] = make_float2(r[e].x - __low2float(t), r[e].y - __high2float(t));  // exact
+        }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, vt + (16 * k + (lane & 7) + (((lane >> 3) & 1) << 3)) * T_LD + 16 * np + (lane >> 4) * 8);
+#pragma unroll
+        for (int n = 0; n < P_TERMS; ++n) {
+          mma16816(o[2 * np], pt[n], bb[0], bb[1]);
+          mma16816(o[2 * np + 1], pt[n], bb[2], bb[3]);
+        }
       }
-      wmma::store_matrix_sync(S + warp * 16 * SLD + kc + j * 16, sf, SLD, wmma::mem_row_major);
     }
     __syncthreads();
   }
 
-  // f32 softmax over the L real keys; padded key columns get probability 0
-  for (int rr = 0; rr < 16; ++rr) {
-    float* srow = S + (warp * 16 + rr) * SLD;
-    float mx = -INFINITY;
-    for (int j = lane; j < L; j += 32) {
-      const float s = srow[j] * scale + neg[j];
-      srow[j] = s;
-      mx = fmaxf(mx, s);
-    }
+  // fragment [j][2i + e] holds row lane/4 + 8i, column 8j + 2(lane%4) + e
+  const int r_lo = warp * 16 + (lane >> 2);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.0f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(srow[j] - mx);
-      srow[j] = e;
-      sum += e;
-    }
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r_lo + 8 * i;
+    if (row >= L) continue;
+    OutT* dst = out + ((size_t)b * L + row) * HID + h * HD + 2 * (lane & 3);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    for (int j = lane; j < LKP; j += 32) {
-      const float p = j < L ? srow[j] / sum : 0.0f;
-      srow[j] = ROUND_P ? __bfloat162float(__float2bfloat16(p)) : p;
-    }
-  }
-  __syncthreads();
-
-  // O = P V with P in f32: thread owns rows g + 8*i (i < 8) and 4 columns
-  const int g = tid >> 4, c0 = (tid & 15) * 4;
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-  for (int kc = 0; kc < LKP; kc += KC) {
-    for (int c = tid; c < KC * HD / 8; c += ATT_THREADS) {
-      const int row = c >> 3, col = (c & 7) * 8;
-      *reinterpret_cast<uint4*>(Ks + row * HD_LD + col) =
-          load16(vb + (size_t)(kc + row) * ld + col, kc + row < L);
-    }
-    __syncthreads();
-    for (int j = 0; j < KC; ++j) {
-      const uint2 raw = *reinterpret_cast<const uint2*>(Ks + j * HD_LD + c0);
-      const bf16* vb = reinterpret_cast<const bf16*>(&raw);
-      float v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = __bfloat162float(vb[e]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float p = S[(g + 8 * i) * SLD + kc + j];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(p, v[e], acc[i][e]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int q = q0 + g + 8 * i;
-    if (q < L) {
-      OutT* dst = out + ((size_t)b * L + q) * HID + h * HD + c0;
-      if constexpr (sizeof(OutT) == 4) {
-        *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      } else {
-        __align__(8) bf16 o[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[e] = __float2bfloat16(acc[i][e]);
-        *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(o);
-      }
+    for (int j = 0; j < 8; ++j) {
+      if constexpr (sizeof(OutT) == 4)
+        *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(o[j][2 * i], o[j][2 * i + 1]);
+      else
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(o[j][2 * i], o[j][2 * i + 1]);
     }
   }
 }
@@ -256,17 +304,14 @@ __global__ void __launch_bounds__(256) layernorm_kernel(const float* __restrict_
 template <typename OutT, bool ROUND_P>
 int launch_attention_core(const bf16* q, const bf16* k, const bf16* v, int ld, const void* mask, void* out, int B,
                           int L, int H, float scale, void* stream) {
-  const size_t smem = att_smem_bytes(L);
-  cudaError_t err = cudaFuncSetAttribute(attention_core_kernel<OutT, ROUND_P>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B < 1 || H < 1 || L < 1 || L > MAX_KEYS) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((L + QT - 1) / QT, H, B);
-  attention_core_kernel<OutT, ROUND_P><<<grid, ATT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  attention_core_kernel<OutT, ROUND_P><<<grid, ATT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       q, k, v, ld, static_cast<const float*>(mask), static_cast<OutT*>(out), L, H, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1's packed QKV GEMM output (B, L, 3*HID): Q, K, V side by side in a row
+// K1's packed QKV product output (B, L, 3*HID): Q, K, V side by side in a row
 template <typename OutT>
 int launch_packed_attention_core(const void* qkv, const void* mask, void* out, int B, int L, int H, float scale,
                                  void* stream) {
@@ -283,30 +328,28 @@ extern "C" {
 
 const char* mm_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// C = A.B + bias (+ epilogue); A (M,K) bf16, B (K,N) bf16, bias (N) f32,
-// resid (M,N) bf16 for EPI_BIAS_RESID_F32 (C f32), C bf16 otherwise.
-int mm_gemm(const void* A, const void* B, const void* bias, const void* resid, void* C, int M, int N, int K,
-            int epilogue, void* stream) {
-  const dim3 grid((N + TILE_N - 1) / TILE_N, (M + TILE_M - 1) / TILE_M);
+// C = A.B + bias, then the epilogue (wgmma_gemm.cuh): A (M,K) bf16, B (K,N)
+// bf16 (read MN-major), bias (N) f32; wg::EPI_BIAS_BF16 and
+// EPI_BIAS_GELU_BF16 write C bf16, EPI_BIAS_RESID_F32 writes C f32 =
+// (resid + bias) + A.B with resid (M,N) bf16. K and N multiples of 8.
+int mm_wg_gemm_fwd(const void* A, const void* B, const void* bias, const void* resid, void* C, int M, int N, int K,
+                   int epilogue, void* stream) {
+  CUtensorMap ta, tb;
+  if (!wg::make_map(&ta, A, K, M, false) || !wg::make_map(&tb, B, N, K, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const wg::Params p{M, N, K, (K + wg::BK - 1) / wg::BK, C, nullptr, static_cast<const float*>(bias),
+                     static_cast<const bf16*>(resid)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* a = static_cast<const bf16*>(A);
-  const bf16* b = static_cast<const bf16*>(B);
-  const float* bi = static_cast<const float*>(bias);
-  const bf16* r = static_cast<const bf16*>(resid);
   switch (epilogue) {
-    case EPI_BIAS_BF16:
-      gemm_kernel<EPI_BIAS_BF16><<<grid, TILE_THREADS, 0, s>>>(a, b, bi, r, C, M, N, K);
-      break;
-    case EPI_BIAS_GELU_BF16:
-      gemm_kernel<EPI_BIAS_GELU_BF16><<<grid, TILE_THREADS, 0, s>>>(a, b, bi, r, C, M, N, K);
-      break;
-    case EPI_BIAS_RESID_F32:
-      gemm_kernel<EPI_BIAS_RESID_F32><<<grid, TILE_THREADS, 0, s>>>(a, b, bi, r, C, M, N, K);
-      break;
+    case wg::EPI_BIAS_BF16:
+      return static_cast<int>(wg::launch<false, true, false, wg::EPI_BIAS_BF16>(ta, tb, ta, tb, p, 1, s));
+    case wg::EPI_BIAS_GELU_BF16:
+      return static_cast<int>(wg::launch<false, true, false, wg::EPI_BIAS_GELU_BF16>(ta, tb, ta, tb, p, 1, s));
+    case wg::EPI_BIAS_RESID_F32:
+      return static_cast<int>(wg::launch<false, true, false, wg::EPI_BIAS_RESID_F32>(ta, tb, ta, tb, p, 1, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // out (B,L,H*64) bf16 = per-head softmax(QK^T*scale + mask) V from qkv (B,L,3*H*64).

@@ -1,8 +1,8 @@
 // mma.sync building blocks for kernels that feed the tensor cores from
 // shared memory without wgmma: cp.async copies, ldmatrix fragment loads, and
 // the bf16 (m16n8k16) and int8 (m16n8k32) products. Used by the attention
-// core's backward (encoder_backward_kernels.cu) and the probes' kernels
-// (probe_*.cu).
+// core (encoder_kernels.cu: K1, K13, K10) and its backward
+// (encoder_backward_kernels.cu), and the probes' kernels (probe_*.cu).
 #pragma once
 
 #include <cuda_bf16.h>

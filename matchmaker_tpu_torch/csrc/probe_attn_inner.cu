@@ -25,9 +25,10 @@
 // sum, normalise), so only __syncwarp orders it; pass 3 streams V tiles the
 // same way and builds P's A fragments from the f32 rows. Padded keys (past
 // L, up to a multiple of 64) take p = 0, so no (B, L, L) tensor reaches
-// device memory. It does not share attention_core_kernel (K1, K13), which
-// runs P.V as f32 FMAs on the CUDA cores and is one of the rows this kernel
-// is timed against.
+// device memory. It does not share attention_core_kernel (K1, K13, K10;
+// encoder_kernels.cu), which keeps each 64-key tile's scores in registers
+// over two passes instead of whole rows in shared memory; the two are timed
+// side by side.
 #include "mma_sync.cuh"
 
 #include <cuda_runtime.h>

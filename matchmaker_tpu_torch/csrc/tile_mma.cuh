@@ -1,13 +1,12 @@
 // Shared 128x128 tile products on the tensor cores (nvcuda::wmma), used by
-// the bf16 forward encoder GEMMs (encoder_kernels.cu) and the binmax scans
-// (binmax_kernels.cu); the backward's products and the int8 encoder halves
-// run on wgmma (wgmma_gemm.cuh, encoder_int8_kernels.cu):
-//   bf16 x bf16 -> f32: A.B and A.B^T (tile_mma; A may be int8 codes, which
+// the binmax scans (binmax_kernels.cu); the encoder's products run on wgmma
+// (wgmma_gemm.cuh, encoder_int8_kernels.cu):
+//   bf16 x bf16 -> f32: A.B^T (tile_mma; A may be int8 codes, which
 //                       become bf16 exactly on their way to shared memory);
 //   int8 x int8 -> int32: A.B^T (tile_mma_s8, the K7 scan), exact.
 //
-// Bound: at the main path's shapes (M = B*L rows >= 7680, N = 768..3072,
-// K = 768/3072) every product here is compute bound on the card. This first
+// Bound: at the scans' shapes (262,144 x 768 rows against 256 queries) every
+// product here is compute bound on the card. This first
 // version stages tiles through registers into a double-buffered shared-memory
 // ring (one __syncthreads per K step) and issues mma.sync through wmma;
 // wgmma and TMA are left for a later version.
@@ -32,15 +31,12 @@ constexpr int WARP_N = 64;         // columns of C per warp
 constexpr int FRAG_M = WARP_M / 16;
 constexpr int FRAG_N = WARP_N / 16;
 constexpr int A_LD = TILE_K + 8;   // padded rows: 80 bytes, fragment starts stay 32-byte aligned
-constexpr int BKN_LD = TILE_N + 8; // B stored [K][N] (weights, row-major (in, out))
 constexpr int BNK_LD = TILE_K + 8; // B stored [N][K] (queries, row-major (Q, D))
 
 // shared bytes the ring needs (both buffers of A and of B)
-constexpr int TILE_SMEM_BYTES =
-    2 * TILE_M * A_LD * 2 + 2 * (TILE_K * BKN_LD > TILE_N * BNK_LD ? TILE_K * BKN_LD : TILE_N * BNK_LD) * 2;
+constexpr int TILE_SMEM_BYTES = 2 * TILE_M * A_LD * 2 + 2 * TILE_N * BNK_LD * 2;
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBrow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBcol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
@@ -61,17 +57,16 @@ __device__ __forceinline__ uint4 load8_as_bf16(const int8_t* p, bool ok) {
   return *reinterpret_cast<const uint4*>(v);
 }
 
-// C[m0:m0+128, n0:n0+128] = A[m0:, :K] . B, accumulated into acc.
-// A: (M, K) row-major, lda = K, bf16 or int8 codes (AT). B_NK=false: B is
-// (K, N) row-major; B_NK=true: B is (N, K) row-major (the product is A . B^T).
-// Rows of A past M and columns past N read as zero. K % 32 == 0, rows
-// 16-byte aligned (checked by the Python wrappers).
-template <bool B_NK, typename AT = bf16>
+// C[m0:m0+128, n0:n0+128] = A[m0:, :K] . B^T, accumulated into acc.
+// A: (M, K) row-major, lda = K, bf16 or int8 codes (AT); B: (N, K)
+// row-major. Rows of A past M and rows of B past N read as zero. K % 32 ==
+// 0, rows 16-byte aligned (checked by the Python wrappers).
+template <typename AT = bf16>
 __device__ __forceinline__ void tile_mma(const AT* __restrict__ A, int M, const bf16* __restrict__ B, int N,
                                          int K, int m0, int n0, char* smem, FragC (&acc)[FRAG_M][FRAG_N]) {
   bf16* As = reinterpret_cast<bf16*>(smem);
   bf16* Bs = As + 2 * TILE_M * A_LD;
-  constexpr int B_BUF = B_NK ? TILE_N * BNK_LD : TILE_K * BKN_LD;
+  constexpr int B_BUF = TILE_N * BNK_LD;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int wm = warp >> 1;  // 0..3
@@ -90,12 +85,7 @@ __device__ __forceinline__ void tile_mma(const AT* __restrict__ A, int M, const 
       int chunk = tid + c * TILE_THREADS;  // 0..511
       int row = chunk >> 2, col = (chunk & 3) * 8;
       ra[c] = load8_as_bf16(A + (size_t)(m0 + row) * K + k0 + col, m0 + row < M);
-      if (B_NK) {
-        rb[c] = load16(B + (size_t)(n0 + row) * K + k0 + col, n0 + row < N);
-      } else {
-        int brow = chunk >> 4, bcol = (chunk & 15) * 8;
-        rb[c] = load16(B + (size_t)(k0 + brow) * N + n0 + bcol, n0 + bcol < N);
-      }
+      rb[c] = load16(B + (size_t)(n0 + row) * K + k0 + col, n0 + row < N);
     }
   };
   auto stash = [&](int buf) {
@@ -104,12 +94,7 @@ __device__ __forceinline__ void tile_mma(const AT* __restrict__ A, int M, const 
       int chunk = tid + c * TILE_THREADS;
       int row = chunk >> 2, col = (chunk & 3) * 8;
       *reinterpret_cast<uint4*>(As + buf * TILE_M * A_LD + row * A_LD + col) = ra[c];
-      if (B_NK) {
-        *reinterpret_cast<uint4*>(Bs + buf * B_BUF + row * BNK_LD + col) = rb[c];
-      } else {
-        int brow = chunk >> 4, bcol = (chunk & 15) * 8;
-        *reinterpret_cast<uint4*>(Bs + buf * B_BUF + brow * BKN_LD + bcol) = rb[c];
-      }
+      *reinterpret_cast<uint4*>(Bs + buf * B_BUF + row * BNK_LD + col) = rb[c];
     }
   };
 
@@ -130,17 +115,10 @@ __device__ __forceinline__ void tile_mma(const AT* __restrict__ A, int M, const 
 #pragma unroll
       for (int j = 0; j < FRAG_N; ++j) {
         const int ncol = wn * WARP_N + j * 16;
-        if (B_NK) {
-          FragBcol fb;
-          wmma::load_matrix_sync(fb, b_base + ncol * BNK_LD + kk, BNK_LD);
+        FragBcol fb;
+        wmma::load_matrix_sync(fb, b_base + ncol * BNK_LD + kk, BNK_LD);
 #pragma unroll
-          for (int i = 0; i < FRAG_M; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-        } else {
-          FragBrow fb;
-          wmma::load_matrix_sync(fb, b_base + kk * BKN_LD + ncol, BKN_LD);
-#pragma unroll
-          for (int i = 0; i < FRAG_M; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-        }
+        for (int i = 0; i < FRAG_M; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
       }
     }
   }

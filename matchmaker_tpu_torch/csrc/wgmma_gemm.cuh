@@ -1,13 +1,15 @@
-// A Hopper GEMM for the encoder backward's products (encoder_backward_kernels.cu):
-// TMA fills a ring of shared-memory stages, signalled through mbarriers; one
-// producer warpgroup (a single thread issues the copies) and two consumer
-// warpgroups that run wgmma.mma_async (bf16 in, f32 accumulate) on 64 rows of
-// a 128 x 128 output tile each. One CTA per SM walks over the output tiles
-// (persistent), so the next tile's loads overlap this one's epilogue. The
-// GEMM kernel serves the backward of the fused halves (K11, K12); the int8
-// forward halves (K9, K10, encoder_int8_kernels.cu) build their own kernels
-// from the pieces here (mbarriers, TMA, descriptors, the s8 wgmma below,
-// tensor maps of int8 codes); the bf16 forward keeps tile_mma.cuh.
+// A Hopper GEMM for the encoder's bf16 products: TMA fills a ring of
+// shared-memory stages, signalled through mbarriers; one producer warpgroup
+// (a single thread issues the copies) and two consumer warpgroups that run
+// wgmma.mma_async (bf16 in, f32 accumulate) on 64 rows of a 128 x 128 output
+// tile each. One CTA per SM walks over the output tiles (persistent), so the
+// next tile's loads overlap this one's epilogue. The GEMM kernel serves the
+// bf16 forward halves (K1's QKV and Wo, K2's W1 and W2, encoder_kernels.cu,
+// with a bias, gelu or bias + residual epilogue) and the backward of the
+// fused halves (K11, K12); the int8 forward halves (K9, K10,
+// encoder_int8_kernels.cu) build their own kernels from the pieces here
+// (mbarriers, TMA, descriptors, the s8 wgmma below, tensor maps of int8
+// codes).
 //
 // Operands are bf16 and row-major in device memory. Each may be read
 //   K-major:  stored (rows, K), K contiguous: one TMA box {64, 128} a stage,
@@ -16,11 +18,12 @@
 //             stage (64 columns each), read by wgmma's transposed (MN-major)
 //             shared-memory form, so no transpose pass exists.
 // So C = A . B^T (both K-major: dx, da, dacc.W2^T), A . B with B (K, N)
-// (x.W1 for gelu'), and A^T . B contracting the rows of two row-major
-// matrices (the weight gradients) are one kernel template. A second operand
-// pair with its own accumulator (DUAL) fuses the two products that meet in
-// dz = (dacc.W2^T) * gelu'(x.W1 + b1): the f32 gelu' never reaches device
-// memory.
+// (x.W1 for gelu', and every forward product: the weights are stored
+// (K, N) and read MN-major where they lie), and A^T . B contracting the
+// rows of two row-major matrices (the weight gradients) are one kernel
+// template. A second operand pair with its own accumulator (DUAL) fuses the
+// two products that meet in dz = (dacc.W2^T) * gelu'(x.W1 + b1): the f32
+// gelu' never reaches device memory.
 //
 // Ragged edges: TMA fills rows and columns past the tensor's extent with
 // zeros, so M, N and K need no multiple of the tile; the epilogue masks its
@@ -35,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "encoder_common.cuh"
+
 namespace mm {
 namespace wg {
 
@@ -44,14 +49,25 @@ constexpr int THREADS = 128 * (CONSUMERS + 1);     // + the producer warpgroup
 constexpr int OPERAND_BYTES = BM * BK * 2;         // one operand's stage (BN == BM): 16 KB
 constexpr int CHUNK_BYTES = 64 * 128;              // 64 rows of 128 bytes
 
-enum Epilogue : int { EPI_BF16 = 0, EPI_RESID_BF16 = 1, EPI_F32 = 2, EPI_GELU_DZ = 3 };
+// backward: EPI_BF16 .. EPI_GELU_DZ; forward: the last three, each adding
+// the (N) f32 bias to the product first
+enum Epilogue : int {
+  EPI_BF16 = 0,
+  EPI_RESID_BF16 = 1,
+  EPI_F32 = 2,
+  EPI_GELU_DZ = 3,
+  EPI_BIAS_BF16 = 4,       // bf16(product + bias)                  (K1's QKV)
+  EPI_BIAS_GELU_BF16 = 5,  // bf16(gelu_poly(product + bias))       (K2's W1)
+  EPI_BIAS_RESID_F32 = 6,  // f32((resid + bias) + product)         (K1's Wo, K2's W2)
+};
 
 struct Params {
   int M, N, K;              // C (M, N); K the contraction length
   int k_tiles_per_split;    // split z contracts K tiles [z * this, (z + 1) * this)
-  void* C;                  // bf16 (M, N), or f32 (M, N) per split for EPI_F32
+  void* C;                  // bf16 (M, N), or f32 (M, N) per split for EPI_F32, f32 for EPI_BIAS_RESID_F32
   const float* aux;         // EPI_RESID_BF16: (M, N) f32 added to the product
-  const float* bias;        // EPI_GELU_DZ: (N) f32, b1
+  const float* bias;        // (N) f32: b1 for EPI_GELU_DZ, the forward epilogues' bias
+  const __nv_bfloat16* resid;  // EPI_BIAS_RESID_F32: (M, N) bf16, the half's input x
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -320,10 +336,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 
       // accumulator layout: element (row w*16 + lane/4 + 8i, column 8j + 2(lane%4) + e) at [4j + 2i + e]
       const int row0 = w.m0 + warpgroup * 64 + warp * 16 + lane / 4;
+      constexpr bool FWD = EPI >= EPI_BIAS_BF16;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int col = w.n0 + 8 * j + 2 * (lane & 3);
         if (col >= p.N) continue;
+        float2 bias = make_float2(0.0f, 0.0f);
+        if constexpr (FWD) bias = *reinterpret_cast<const float2*>(p.bias + col);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int row = row0 + 8 * i;
@@ -333,6 +352,20 @@ __global__ void __launch_bounds__(THREADS, 1)
           if constexpr (EPI == EPI_F32) {
             float* out = static_cast<float*>(p.C) + (size_t)w.split * p.M * p.N + off;
             *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+          } else if constexpr (EPI == EPI_BIAS_RESID_F32) {
+            // the plain version's order: (x + bias) + product
+            const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(p.resid + off);
+            *reinterpret_cast<float2*>(static_cast<float*>(p.C) + off) =
+                make_float2((__low2float(r) + bias.x) + v0, (__high2float(r) + bias.y) + v1);
+          } else if constexpr (FWD) {
+            v0 += bias.x;
+            v1 += bias.y;
+            if constexpr (EPI == EPI_BIAS_GELU_BF16) {
+              v0 = gelu_poly(v0);
+              v1 = gelu_poly(v1);
+            }
+            *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.C) + off) =
+                __floats2bfloat162_rn(v0, v1);
           } else {
             if constexpr (EPI == EPI_RESID_BF16) {
               const float2 a = *reinterpret_cast<const float2*>(p.aux + off);

@@ -54,7 +54,6 @@ LAUNCHES = {
 
 _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "mm_gemm": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p],
     "mm_attention_core": [_p, _p, _p, _i, _i, _i, _f, _p],
     "mm_attention_core_f32": [_p, _p, _p, _i, _i, _i, _f, _p],
     "mm_fused_mha": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _p],
@@ -68,6 +67,7 @@ _SIGNATURES = {
     "mm_level2": [_p, _p, _i, _i, _i, _i64, _i64, _p],
     "mm_unpack": [_p, _p, _p, _p, _i64, _i, _i, _i, _p],
     "mm_wg_gemm": [_p, _p, _p, _p, _i, _i, _i, _i, _p],
+    "mm_wg_gemm_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p],
     "mm_wg_gemm_dz": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
     "mm_wg_wgrad": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
     "mm_attention_bwd": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _p],

@@ -35,8 +35,8 @@ import torch
 
 from matchmaker_tpu_torch.ops import _build, matmul_f32
 
-# Epilogues of mm_gemm (csrc/encoder_kernels.cu)
-_EPI_BIAS_BF16, _EPI_BIAS_GELU_BF16, _EPI_BIAS_RESID_F32 = 0, 1, 2
+# The forward epilogues of the wgmma GEMM (csrc/wgmma_gemm.cuh, wg::Epilogue)
+_EPI_BIAS_BF16, _EPI_BIAS_GELU_BF16, _EPI_BIAS_RESID_F32 = 4, 5, 6
 _KERNEL_HEAD_DIM = 64
 _KERNEL_MAX_LEN = 512
 
@@ -130,20 +130,24 @@ def _finish(acc, ln_scale, ln_bias, ln_eps, cd, shape, save_acc):
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.float32).contiguous()
+    """f32, contiguous, 16-byte aligned (the kernels read biases in pairs)."""
+    t = t.to(torch.float32).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_gemm_dims(name: str, k: int, n: int) -> None:
-    # tile_mma.cuh: K in steps of 32, 16-byte rows, columns in chunks of 8
-    if k % 32 or n % 8:
-        raise ValueError(f"{name}: the CUDA kernel needs K % 32 == 0 and N % 8 == 0, got K={k}, N={n}")
+    # the TMA tensor maps of wgmma_gemm.cuh: rows of A (K) and of the weight
+    # (N) a multiple of 16 bytes
+    if k % 8 or n % 8:
+        raise ValueError(f"{name}: the CUDA kernel needs K % 8 == 0 and N % 8 == 0, got K={k}, N={n}")
 
 
 def _gemm(a, w, bias, out, epilogue, resid=None):
-    """out = a (M, K) · w (K, N) + bias, then the epilogue (csrc mm_gemm)."""
+    """out = a (M, K) · w (K, N) + bias, then the epilogue (csrc
+    mm_wg_gemm_fwd: the wgmma GEMM reading w MN-major where it lies)."""
     k, n = w.shape
     m = a.numel() // k
-    _build.call("mm_gemm", _build.ptr(a), _build.ptr(w), _build.ptr(bias),
+    _build.call("mm_wg_gemm_fwd", _build.ptr(a), _build.ptr(w), _build.ptr(bias),
                 _build.ptr(resid) if resid is not None else ctypes.c_void_p(),
                 _build.ptr(out), m, n, k, epilogue, _build.stream(a.device))
 
@@ -257,7 +261,8 @@ def mha_reference(q, k, v, mask, n_heads):
 
 def _mha_cuda(q, k, v, mask, n_heads):
     """K13 on the card: K1's attention core reading separate Q, K, V with
-    row stride H·D, probabilities rounded to bf16 (csrc mm_fused_mha)."""
+    row stride H·D, the normalised probabilities rounded to bf16 (csrc
+    mm_fused_mha)."""
     b, l, hd = q.shape
     if hd % n_heads or hd // n_heads != _KERNEL_HEAD_DIM:
         raise ValueError(f"fused_mha: the CUDA kernel takes head width {_KERNEL_HEAD_DIM}, got {hd}/{n_heads}")

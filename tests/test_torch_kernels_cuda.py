@@ -132,6 +132,143 @@ def test_encoder_kernels_reject_f32(device):
                                  torch.ones(2, 8, device=device), 12, attn["ln_scale"], attn["ln_bias"])
 
 
+def _ragged_mask(b, l, device):
+    """A ragged example, an example without a live key, full ones."""
+    mask = torch.ones(b, l, device=device)
+    mask[0, l // 2 + 1:] = 0.0
+    mask[1] = 0.0
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [30, 77, 200, 512])
+def test_bf16_halves_and_mha_match_plain_with_ragged_masks(device, l):
+    """K1 (packed Q/K/V, as the encoder calls it), K2 and K13 at B = 3 (M =
+    B*L rows not a multiple of the 128-row tile for L = 30, 77, 200) with a
+    ragged and an all-masked example, each launching once, held to the
+    encoder halves' bar (row cosine >= 0.999, max |d| <= 0.1)."""
+    hid, heads, b = 768, 12, 3
+    attn, mlp = _layer_weights(hid, 3072, device, seed=40 + l)
+    g = torch.Generator(device=device).manual_seed(l)
+    x = torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
+    mask = _ragged_mask(b, l, device)
+    wqkv = torch.cat([attn["wq"], attn["wk"], attn["wv"]], dim=1)
+    bqkv = torch.cat([attn["bq"], attn["bk"], attn["bv"]])
+    ln1 = (attn["ln_scale"], attn["ln_bias"])
+    q, k, v = (torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
+    mlp_args = (mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"], mlp["ln_scale"], mlp["ln_bias"])
+    _build.reset_launches()
+    got = {"fused_attention_block": fa.fused_attention_block_qkv(x, wqkv, bqkv, attn["wo"], attn["bo"], mask, heads,
+                                                                 *ln1),
+           "fused_mlp_block": fa.fused_mlp_block(x, *mlp_args),
+           "fused_mha": fa.fused_mha(q, k, v, mask, heads)}
+    want = {"fused_attention_block": fa.reference_attention_block(
+                x, attn["wq"], attn["wk"], attn["wv"], attn["wo"], attn["bq"], attn["bk"], attn["bv"], attn["bo"],
+                mask, heads, *ln1),
+            "fused_mlp_block": fa.reference_mlp_block(x, *mlp_args),
+            "fused_mha": fa.mha_reference(q, k, v, mask, heads)}
+    torch.cuda.synchronize()
+    for name in got:
+        assert _build.LAUNCHES[name] == 1, name
+        assert got[name].shape == (b, l, hid) and got[name].dtype == torch.bfloat16, name
+        assert bool(torch.isfinite(got[name].float()).all()), name
+        cos, err = _rows_close(got[name], want[name])
+        assert cos >= 0.999 and err <= 0.1, (name, cos, err)
+    # the all-masked example attends uniformly over its L keys
+    mean_v = v[1].float().mean(dim=0).expand(l, hid)
+    cos, err = _rows_close(got["fused_mha"][1], mean_v)
+    assert cos >= 0.999 and err <= 0.02, (cos, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4096, 90, 1])
+@pytest.mark.parametrize("form", ["qkv", "w1", "wo", "w2"])
+def test_forward_gemm_epilogues_match_matmul(device, m, form):
+    """Each forward product of the Hopper GEMM with its epilogue (bias; bias
+    + gelu poly; bias + bf16 residual, f32 out) against an f32 torch.matmul
+    of the same bf16 inputs, the weight read (K, N) where it lies."""
+    hid, ff = 768, 3072
+    k, n = {"qkv": (hid, 3 * hid), "w1": (hid, ff), "wo": (hid, hid), "w2": (ff, hid)}[form]
+    g = torch.Generator(device=device).manual_seed(m + k + n)
+    a = torch.randn(m, k, generator=g, device=device).to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=g, device=device) * k ** -0.5).to(torch.bfloat16)
+    bias = torch.randn(n, generator=g, device=device) * 0.05
+    want = torch.matmul(a.float(), w.float()) + bias
+    if form in ("qkv", "w1"):
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=device)
+        if form == "w1":
+            fa._gemm(a, w, bias, out, fa._EPI_BIAS_GELU_BF16)
+            want = fa._gelu_poly(want)
+        else:
+            fa._gemm(a, w, bias, out, fa._EPI_BIAS_BF16)
+        _close_to_matmul(out, want, 8e-3)
+    else:
+        resid = torch.randn(m, n, generator=g, device=device).to(torch.bfloat16)
+        out = torch.empty((m, n), dtype=torch.float32, device=device)
+        fa._gemm(a, w, bias, out, fa._EPI_BIAS_RESID_F32, resid=resid)
+        _close_to_matmul(out, want + resid.float(), 1e-4)
+
+
+@pytest.mark.cuda
+def test_bf16_halves_and_mha_are_bit_identical_run_to_run(device):
+    """Two calls of K1, K2 and K13 on the same inputs give the same bits."""
+    hid, heads, b, l = 768, 12, 8, 200
+    attn, mlp = _layer_weights(hid, 3072, device, seed=32)
+    x = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    mask = _ragged_mask(b, l, device)
+    a_args = (attn["wq"], attn["wk"], attn["wv"], attn["wo"], attn["bq"], attn["bk"], attn["bv"], attn["bo"], mask,
+              heads, attn["ln_scale"], attn["ln_bias"])
+    m_args = (mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"], mlp["ln_scale"], mlp["ln_bias"])
+    q, k, v = (torch.randn(b, l, hid, device=device).to(torch.bfloat16) for _ in range(3))
+    first, second = ((fa.fused_attention_block(x, *a_args), fa.fused_mlp_block(x, *m_args),
+                      fa.fused_mha(q, k, v, mask, heads)) for _ in range(2))
+    for one, two in zip(first, second):
+        assert torch.equal(one, two)
+
+
+def _plain_attention_saved(x, wqkv, bqkv, mask, heads):
+    """The plain versions' qkv (bf16, after the bias) and attention output
+    (f32 p into P.V, cast to bf16) of an attention half."""
+    b, l, hid = x.shape
+    d = hid // heads
+    qkv = (torch.matmul(x.reshape(b * l, hid).float(), wqkv.float()) + bqkv).to(torch.bfloat16).reshape(b, l, -1)
+    q, k, v = (t.float().reshape(b, l, heads, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    s = torch.matmul(q, k.transpose(-1, -2)) * d ** -0.5 + ((mask - 1.0) * 1e9)[:, None, None, :]
+    attn = torch.matmul(torch.softmax(s, dim=-1), v).to(torch.bfloat16).transpose(1, 2).reshape(b, l, hid)
+    return qkv, attn
+
+
+@pytest.mark.cuda
+def test_training_forward_saves_what_the_plain_versions_compute(device):
+    """The training forward's saved tensors, which the backward kernels read
+    instead of recomputing: the attention half's (acc, qkv, attn) and the MLP
+    half's (acc, h) against the plain versions."""
+    hid, heads, b, l = 768, 12, 3, 77
+    attn, mlp = _layer_weights(hid, 3072, device, seed=33)
+    x = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    mask = _ragged_mask(b, l, device)
+    wqkv = torch.cat([attn["wq"], attn["wk"], attn["wv"]], dim=1)
+    bqkv = torch.cat([attn["bq"], attn["bk"], attn["bv"]])
+    out, (acc, qkv, a) = fb.attention_block_fwd(x, wqkv, bqkv, attn["wo"], attn["bo"], mask, heads,
+                                                attn["ln_scale"], attn["ln_bias"])
+    want_out, want_acc = fa.reference_attention_block(
+        x, attn["wq"], attn["wk"], attn["wv"], attn["wo"], attn["bq"], attn["bk"], attn["bv"], attn["bo"], mask,
+        heads, attn["ln_scale"], attn["ln_bias"], save_acc=True)
+    want_qkv, want_a = _plain_attention_saved(x, wqkv, bqkv, mask, heads)
+    torch.cuda.synchronize()
+    assert acc.dtype == torch.float32 and qkv.dtype == a.dtype == torch.bfloat16
+    for got, want, rel in ((acc, want_acc, 1e-3), (qkv, want_qkv, 8e-3), (a, want_a, 2e-2), (out, want_out, 2e-2)):
+        _close_to_matmul(got, want, rel)
+    out, (acc, h) = fb.mlp_block_fwd(x, mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"], mlp["ln_scale"], mlp["ln_bias"])
+    want_out, want_acc = fa.reference_mlp_block(x, mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"], mlp["ln_scale"],
+                                                mlp["ln_bias"], save_acc=True)
+    want_h = fa._gelu_poly(torch.matmul(x.reshape(b * l, hid).float(), mlp["w1"].float()) + mlp["b1"])
+    torch.cuda.synchronize()
+    assert acc.dtype == torch.float32 and h.dtype == torch.bfloat16
+    for got, want, rel in ((acc, want_acc, 1e-3), (h, want_h, 8e-3), (out, want_out, 2e-2)):
+        _close_to_matmul(got, want, rel)
+
+
 def grads_close(got, want, scale_of=None):
     """Per-tensor check of a backward kernel's gradients against the plain
     version's: cosine >= 0.999 and max |d| <= 2e-2 * max |plain| (f32 sums

@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""Time the int8 encoder halves' launches (K10, K9) of two checkouts on one card, in turns.
+"""Time the encoder halves' launches (bf16 K1, K2; int8 K10, K9) of two checkouts on one card, in turns.
 
-    python3 tools/int8_parts_ab.py BASE_DIR NEW_DIR [--turns ABBA] [--reps 10] [--out FILE]
+    python3 tools/encoder_parts_ab.py BASE_DIR NEW_DIR [--turns ABBA] [--reps 10] [--out FILE]
 
 BASE_DIR and NEW_DIR are roots of checkouts of this repository (for example
 a parent commit unpacked with ``git archive`` under ``build/``, and ``.``).
 Each turn is a fresh process that imports ``matchmaker_tpu_torch`` from its
 checkout, so its kernels build from that checkout's sources into that
-checkout's ``build/``, and runs ``chip_smoke.py``'s ``int8_half_parts`` (of
-this checkout) on it: K10 and K9 at DistilBERT width at the headline
-(B, L) = (256, 128) of phase 3, random weights from a seed, each C launch
-timed alone with CUDA events (x quantization, each int8 product with its
-TOP/s and one ``torch._int_mm`` call of the same shapes beside it, the
-attention core, the output quantizations, the LayerNorm) and the whole
-call.
+checkout's ``build/``, and runs ``chip_smoke.py``'s ``bf16_half_parts`` and
+``int8_half_parts`` (of this checkout) on it: the four halves at DistilBERT
+width at the headline (B, L) = (256, 128) of phase 3, random weights from a
+seed, each C launch timed alone with CUDA events (each product with its
+TFLOP/s or TOP/s and one ``torch.addmm`` or ``torch._int_mm`` call of the
+same shapes beside it, the attention core beside one
+``scaled_dot_product_attention`` call, the quantizations, the LayerNorm)
+and the whole call.
 
 The turns run in the order of ``--turns`` (A = BASE_DIR, B = NEW_DIR), so
 both checkouts meet the same card. One JSON line per turn, then the card's
@@ -38,19 +39,20 @@ TURN_TAG = "TURN "
 
 def _chip_smoke():
     """This checkout's chip_smoke.py, for its phase 3 timing of the halves."""
-    spec = importlib.util.spec_from_file_location("_int8_parts_ab_chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    spec = importlib.util.spec_from_file_location("_encoder_parts_ab_chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
 
 
 def run_turn(checkout: str, reps: int, device_name: str, tiny: bool) -> dict:
-    """Time the int8 halves of the port in ``checkout`` (this process)."""
+    """Time the encoder halves of the port in ``checkout`` (this process)."""
     sys.path.insert(0, os.path.abspath(checkout))
     import torch
 
     import matchmaker_tpu_torch
     from matchmaker_tpu_torch.ops import _build
+    from matchmaker_tpu_torch.ops import fused_attention as fa
     from matchmaker_tpu_torch.ops import fused_int8 as fi
 
     where = os.path.dirname(os.path.dirname(os.path.abspath(matchmaker_tpu_torch.__file__)))
@@ -61,12 +63,12 @@ def run_turn(checkout: str, reps: int, device_name: str, tiny: bool) -> dict:
     sz = dict(cs.FULL)
     b, l = sz["layer_shapes"][0]
     if tiny:
-        sz.update(hid=64, heads=1, ff=256)
+        sz.update(hid=128, heads=2, ff=256)
         b, l = 2, 16
     if device.type == "cuda":
         _build.library()
     torch.set_float32_matmul_precision("highest")
-    halves = cs.int8_half_parts(fi, sz, b, l, device, reps)
+    halves = {**cs.bf16_half_parts(fa, sz, b, l, device, reps), **cs.int8_half_parts(fi, sz, b, l, device, reps)}
     return {"checkout": checkout, "shape": [b, l, sz["hid"]], "halves": halves}
 
 
@@ -83,7 +85,7 @@ def main() -> int:
     ap.add_argument("--turns", default="ABBA", help="order of the turns (letters A and B)")
     ap.add_argument("--reps", type=int, default=10, help="timed calls of each half a turn")
     ap.add_argument("--device", default="cuda", help="cuda, or cpu for a rehearsal with --tiny")
-    ap.add_argument("--tiny", action="store_true", help="a 64-wide layer and a small batch")
+    ap.add_argument("--tiny", action="store_true", help="a 128-wide layer (two heads) and a small batch")
     ap.add_argument("--out", help="write the turns and the means to this JSON file")
     ap.add_argument("--turn", help=argparse.SUPPRESS)  # one turn in this process: the checkout's root
     args = ap.parse_args()
