@@ -15,9 +15,12 @@ Phases (any failed check raises, and the script exits non-zero):
    Hopper GEMM beside torch.matmul of the same shapes, and the attention-core
    backward alone against its plain version and bound; the binmax scan (bf16
    K3, mixed K8, int8 K7), level 2 and unpack on 262,144 x 768 rows and 256
-   queries; ColBERT's all-pairs MaxSim (K14) at (Bq, Lq, Bd, Ld, D) =
-   (128, 32, 256, 200, 128) (also with D streamed in slabs, the same bits),
-   (32, 32, 64, 200, 128), the exact rescore's (1, 32, 64, 128, 128) with
+   queries (K7 bit-identical; K3 and K7 beside one torch.matmul /
+   torch._int_mm of the product alone; K3 also at ColBERT's token scan,
+   8,192 query rows of width 128, per_bin 1, 4096-row tiles); ColBERT's
+   all-pairs MaxSim (K14) at (Bq, Lq, Bd, Ld, D) = (128, 32, 256, 200, 128)
+   (also with D streamed in slabs, the same bits), (32, 32, 64, 200, 128),
+   the exact rescore's (1, 32, 64, 128, 128) with
    fill -inf, an odd (7, 30, 21, 77, 128) with dots below -1000, the exact
    rescore at the public checkpoint's width (1, 32, 64, 128, 768) and 200
    query tokens (8, 200, 64, 200, 128) (rtol = atol = 1e-4); the standalone
@@ -61,8 +64,9 @@ Phases (any failed check raises, and the script exits non-zero):
    device-only per-token search QPS;
 5. ``FlatIndex`` search at 1,048,576 x 768 rows, Q = 256, k = 1000 (the
    keep-8/32 level-2 path): recall@1000 against an exact search and QPS;
-   5b. the same rows in an int8 ``FlatIndex``, searched by the mixed and the
-   int8 + two-stage routes: recall@1000 and QPS;
+   5b. the same rows in an int8 ``FlatIndex``, searched by the mixed, the
+   int8 + two-stage and the default int8 (K7 alone; recall reported, not
+   gated) routes: recall@1000 and QPS;
 6. the training path, ``cli.train``'s ``Trainer``: a DistilBERT-width
    BERT_DOT (bf16, fused layers, random weights from a seed) takes 100
    Margin-MSE + in-batch-negative steps of 32 seeded synthetic triples with
@@ -627,6 +631,40 @@ def _overlap(a, b):
     return float(np.mean([len(set(x) & set(y)) / k for x, y in zip(a.tolist(), b.tolist())]))
 
 
+def colbert_scan_check(entry, sz, device):
+    """K3 at ColBERT's token scan: 8,192 query rows (256 queries x 32
+    tokens) of width colbert_dim over the phase's rows, per_bin 1,
+    4096-row tiles, n_valid mid-bin: >= 99.9 % identical candidates against
+    the plain version (run in 1,024-row query chunks), and both timed."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import mips_binmax as mb
+
+    n, tile, dim = sz["scan_rows"], 4096, sz["colbert_dim"]
+    n_q = sz["colbert_query_batch"] * sz["colbert_query_len"]
+    rows, q = _clustered(n, dim, 256, device, seed=7, n_queries=n_q)
+    c, qb = rows.to(torch.bfloat16), q.to(torch.bfloat16)
+    del rows
+    n_valid = n - 1000
+
+    def plain():
+        return torch.cat([mb._scan_plain(qb[i:i + 1024], c, n_valid, 1, tile) for i in range(0, n_q, 1024)])
+
+    got, want = mb.binmax_candidates(qb, c, n_valid=n_valid, per_bin=1, tile_rows=tile), plain()
+    pos = torch.arange(got.shape[1], device=device).expand_as(got).contiguous()
+    _, gi = mb._unpack_plain(got, pos, tile, 1)
+    _, wi = mb._unpack_plain(want, pos, tile, 1)
+    share = float((gi == wi).float().mean())
+    del pos, gi, wi, want
+    print(f"[kernels] binmax scan at ColBERT's token scan ({n_q} query rows x {dim}, per_bin 1, tiles of {tile}): "
+          f"identical candidates {share:.6f}")
+    check(share >= 0.999, f"binmax scan at ColBERT's shape: {share} identical")
+    entry["colbert_shape_identical"] = share
+    _record(entry, [n, dim, n_q, 1, tile],
+            lambda: mb.binmax_candidates(qb, c, n_valid=n_valid, per_bin=1, tile_rows=tile), plain, device,
+            max(2, sz["reps"] // 5), headline=False, bound_of=bound(nbytes(qb, c, got), bf16=2 * n_q * n * dim))
+
+
 def phase_binmax_kernels(sz, device):
     import torch
 
@@ -655,6 +693,14 @@ def phase_binmax_kernels(sz, device):
                 lambda pb=per_bin: mb._scan_plain(qb, c, n, pb, tile), device, sz["reps"], headline=per_bin == 8,
                 bound_of=bound(nbytes(qb, c, got), bf16=2 * qb.shape[0] * n * sz["hid"]))
         packed8 = got
+    # the product alone, a yardstick for the scan's tensor-core work, not a
+    # bound: it writes the (Q, N) scores and selects nothing
+    product_ms = _time_ms(lambda: torch.matmul(qb, c.T), device, sz["reps"])
+    out["binmax_candidates"].update(product_library_ms=product_ms,
+                                    product_library_call="torch.matmul(queries, corpus.T), bf16 (the product alone)")
+    print(f"[kernels]   product alone: torch.matmul {product_ms:.4f} ms "
+          f"({2 * qb.shape[0] * n * sz['hid'] / product_ms / 1e9:.1f} TFLOP/s)")
+    colbert_scan_check(out["binmax_candidates"], sz, device)
     for width in (mb.L2_MID, mb.L2_WIDE):
         got = mb._level2_reduce(packed8, width)
         want = mb._level2_plain(packed8, width)
@@ -895,13 +941,24 @@ def phase_int8_binmax_kernels(sz, device):
             same = gi == wi
             err = float((gv - wv).abs()[same & torch.isfinite(wv)].max())
             share = float(same.float().mean())
-            print(f"[kernels] {name} per_bin={per_bin}: identical candidates {share:.6f}, max |d| {err:.3g}")
+            bits = float((got.view(torch.int32) == want.view(torch.int32)).float().mean())
+            print(f"[kernels] {name} per_bin={per_bin}: identical candidates {share:.6f}, max |d| {err:.3g}, "
+                  f"bit-identical packed values {bits:.6f}")
             check(share >= 0.999, f"{name} per_bin {per_bin}: {share} identical")
+            if q_scales is not None:  # K7: exact sums, the plain version's rounding and tie rule
+                check(bits == 1.0, f"{name} per_bin {per_bin}: {bits} of the packed values bit-identical")
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
             _record(out[name], [n, sz["hid"], sz["scan_queries"], per_bin], kernel,
                     lambda pb=per_bin: plain(pb), device, sz["reps"], headline=per_bin == 8,
                     bound_of=bound(nbytes(queries, q_scales, codes, scales, got),
                                    **{kind: 2 * queries.shape[0] * n * sz["hid"]}))
+    if device.type == "cuda":  # torch._int_mm needs the card
+        product_ms = _time_ms(lambda: torch._int_mm(q8, codes.T), device, sz["reps"])
+        out["binmax_candidates_int8"].update(
+            product_library_ms=product_ms, product_library_call="torch._int_mm(query codes, corpus codes.T) "
+                                                                "(the product alone)")
+        print(f"[kernels]   product alone: torch._int_mm {product_ms:.4f} ms "
+              f"({2 * q8.shape[0] * n * sz['hid'] / product_ms / 1e9:.1f} TOP/s)")
     return out
 
 
@@ -1298,6 +1355,10 @@ def phase_main_path(sz, device, root):
 # rescore (K7 + rescore)
 INT8_RUNS = (("mixed", {"mips_int8_queries": "float"}, "binmax_candidates_int8f"),
              ("int8_twostage", {"mips_int8_queries": "int8", "mips_twostage": True}, "binmax_candidates_int8"))
+# phase 5b also searches the default int8 route (int8 queries, K7 alone);
+# its recall is reported, not gated: K7 is bit-identical to its plain version
+SCALE_INT8_RUNS = INT8_RUNS + (("int8", {"mips_int8_queries": "int8"}, "binmax_candidates_int8"),)
+GATED_INT8_RUNS = {name for name, _, _ in INT8_RUNS}
 
 
 def predicted_int8_serving_launches(sz):
@@ -1712,9 +1773,11 @@ def phase_scale(sz, device):
 
 
 def phase_scale_int8(sz, device):
-    """FlatIndex int8 search at scale: the mixed route (K8) and the int8 +
-    two-stage route (K7 + rescore), each an index built from its config,
-    recall@k against an exact search of the unquantized rows and QPS."""
+    """FlatIndex int8 search at scale: the mixed route (K8), the int8 +
+    two-stage route (K7 + rescore) and the default int8 route (K7 alone),
+    each an index built from its config, recall@k against an exact search
+    of the unquantized rows (>= 0.95 for the mixed and two-stage routes;
+    reported for the default route) and QPS."""
     import torch
 
     from matchmaker_tpu_torch.ops import _build
@@ -1729,7 +1792,7 @@ def phase_scale_int8(sz, device):
     vectors = rows.cpu().numpy()
     del rows
     result = {}
-    for name, extra, scan in INT8_RUNS:
+    for name, extra, scan in SCALE_INT8_RUNS:
         index = FlatIndex({"token_dtype": "float16", "mips_quantization": "int8", "mips_kernel": "binmax", **extra},
                           device)
         index.prepare(vectors.shape[1])
@@ -1751,7 +1814,8 @@ def phase_scale_int8(sz, device):
         ms = _time_ms(lambda: index._search_int8(qb, k), device, sz["reps"])
         print(f"[scale-int8] {name}: {n} rows x {sz['hid']}, Q={len(queries)}, k={k}: recall@{k} {recall:.4f}, "
               f"search_rows {qps:.1f} QPS, device search {ms:.3f} ms ({len(queries) / ms * 1e3:.1f} QPS)")
-        check(recall >= 0.95, f"int8 {name}: recall@{k} {recall} < 0.95")
+        if name in GATED_INT8_RUNS:
+            check(recall >= 0.95, f"int8 {name}: recall@{k} {recall} < 0.95")
         result[name] = {"launches": launches, "recall": recall, "qps": qps, "device_ms": ms,
                         "device_qps": len(queries) / ms * 1e3}
         del index
@@ -2131,11 +2195,17 @@ DESIGN = {
     "fused_mha": "K1's register-resident mma.sync attention core, the normalised p rounded to bf16",
     "fused_attention_int8_block": "s8 wgmma/TMA products (encoder_int8_kernels.cu); K1's register-resident "
                                   "attention core with an f32 output, p as three bf16 terms",
+    "binmax_candidates": "persistent warp-specialised scan (binmax_kernels.cu scan_kernel): TMA ring of queries "
+                         "(wgmma A, 128 or 256 a unit) and one 128-row bin (B), m64n128k16 bf16 -> f32, each bin's "
+                         "top per_bin selected in registers by the quad of lanes holding a query row, merged with "
+                         "two xor shuffles, stored packed into the (Q, C) layout",
+    "binmax_candidates_int8": "the same scan with m64n128k32 s8 -> s32 products, f32(raw) * bin scale * query "
+                              "scale before the selection; bit-identical to its plain version",
 }
 
 BESIDE = ("resident_ms", "streamed_ms", "fused_mha_ms", "chain_ms", "fused_mlp_block_ms",
           "f32_p_vs_f32_plain_mean_abs", "batched_vs_f32_plain_mean_abs", "parts", "parts_total_ms",
-          "library_chain_ms")
+          "library_chain_ms", "product_library_ms", "product_library_call", "colbert_shape_identical")
 
 
 def run_phases(sz, device, card: str) -> dict:
@@ -2187,11 +2257,12 @@ def run_phases(sz, device, card: str) -> dict:
                 "serve_colbert": report["colbert"]["launches"][name],
                 "probes": report["probes"]["launches"].get(name, 0)}
         scale_runs = {"scale_bf16": report["scale"]["launches"][name],
-                      **{f"scale_int8_{r}": report["scale_int8"][r]["launches"][name] for r, _, _ in INT8_RUNS}}
+                      **{f"scale_int8_{r}": report["scale_int8"][r]["launches"][name]
+                         for r, _, _ in SCALE_INT8_RUNS}}
         if name in SERVING:
             path, scale_path = "serve", "scale_bf16"
         elif name == "binmax_candidates_int8":
-            path, scale_path = "serve_int8_int8_twostage", "scale_int8_int8_twostage"
+            path, scale_path = "serve_int8_int8_twostage", "scale_int8_int8"
         elif name in SERVING_INT8:
             path, scale_path = "serve_int8_mixed", "scale_int8_mixed"
         elif name == "maxsim_all_pairs":
@@ -2250,7 +2321,7 @@ def main() -> int:
           f"{FULL['scale_rows']} rows, "
           f"k={FULL['scale_k']}: " + ", ".join(
               f"{r} recall@{FULL['scale_k']} {scale8[r]['recall']:.4f}, {scale8[r]['qps']:.1f} QPS search_rows, "
-              f"{scale8[r]['device_qps']:.1f} device-only" for r, _, _ in INT8_RUNS))
+              f"{scale8[r]['device_qps']:.1f} device-only" for r, _, _ in SCALE_INT8_RUNS))
     col = report["colbert"]
     print(f"[{card}] colbert: {col['token_rows']} token rows ({col['index_device_bytes'] / 1e9:.3f} GB bf16 on the "
           f"card), encode {col['encode_psg_per_s']:.1f} psg/s and search {col['search_qps']:.1f} QPS in the CLI "

@@ -1,46 +1,84 @@
-// The binmax MIPS scan, written for Hopper.
+// The binmax MIPS scans, written for Hopper.
 //
 // Replaces the Pallas kernels of matchmaker_tpu/ops/mips_binmax.py:
-//   K3 _binmax_kernel + _topk_per_bin_t   -> binmax_kernel<P, SCAN_BF16>
+//   K3 _binmax_kernel + _topk_per_bin_t (bf16 corpus, bf16 queries)
+//                                         -> scan_kernel<P, SCAN_BF16, SLABS>
+//   K7 _binmax_kernel_int8 (int8 corpus, int8 query codes)
+//                                         -> scan_kernel<P, SCAN_INT8, SLABS>
 //   K8 _binmax_kernel_int8f (int8 corpus, bf16 queries)
-//                                         -> binmax_kernel<P, SCAN_INT8F>
-//   K7 _binmax_kernel_int8 (int8 corpus, int8 queries)
-//                                         -> binmax_kernel<P, SCAN_INT8>
-//   K5 _transpose_kernel                  -> folded into binmax_kernel's store
+//                                         -> binmax_int8f_kernel<P> (tile_mma.cuh)
+//   K5 _transpose_kernel                  -> folded into the scans' stores
 //   K4 _make_level2_kernel (level 2)      -> level2_kernel
 //   K6 _unpack_kernel                     -> unpack_kernel
 //
-// binmax_kernel: one block scores one 128-row corpus bin against 128 queries
-// on the tensor cores (bf16 in, f32 out), keeps the 128x128 score tile in
-// shared memory, masks rows >= n_valid to -inf, and each of 128 threads keeps
-// its query's top `per_bin` rows of the bin (ties to the lowest row offset,
-// the TPU kernel's first-argmax rule), packing the 7-bit offset into the low
-// mantissa bits of finite scores. It stores straight into the (Q, C) layout
-// the TPU path only reaches after its transpose pass: column =
-// tile*(per_bin*nb) + rank*nb + bin, nb = tile_rows/128.
+// Every scan keeps, for each query and each 128-row corpus bin, the bin's
+// top `per_bin` scores (ties to the lowest row offset: repeated
+// first-argmax, the TPU kernel's rule), rows >= n_valid masked to -inf
+// first, and packs the 7-bit offset into the low mantissa bits of finite
+// scores. It stores straight into the (Q, C) layout the TPU path only
+// reaches after its transpose pass: column = tile*(per_bin*nb) + rank*nb +
+// bin, nb = tile_rows/128. K7 scores are exact int32 sums, then
+// f32(raw) * bin scale * query scale, in that order and rounded at each
+// step, as the TPU kernel does; K8 multiplies bf16 products of the codes
+// (exact in bf16) by the bin scale.
 //
-// The int8 modes score the same way before the same selection: K8 turns the
-// int8 codes into bf16 (exact) on their way to shared memory and multiplies
-// the bf16 product by the bin's scale; K7 multiplies int8 codes by int8
-// query codes into int32 (exact), then f32(raw) * bin scale * query scale,
-// in that order and rounded at each step, as the TPU kernel does.
+// What bounds the scans on the card: at Q = 256 over 262,144 x 768 rows the
+// corpus read (N*D*2 bytes for K3, N*D for K7: 0.125 / 0.065 ms at 3.35
+// TB/s) sets the floor, with the tensor cores' 2*Q*N*D operations close
+// behind (0.104 ms bf16, 0.052 ms int8); the per-bin selection is ALU work
+// that grows with Q*N*per_bin: at per_bin 8 about half of K3's time and 70 %
+// of K7's (ptxas recomputes a compare for each select of the insertion).
 //
-// What bounds it on the card: the corpus read (N*D*2 bytes per 128 queries,
-// N*D for int8) against 2*N*D operations per query — at Q = 256 the scan is
-// compute bound on the tensor cores (bf16 rate for K3/K8, int8 rate for K7),
-// and the selection (128 shared-memory reads per thread and rank) is a small
-// fraction of it. The per-bin candidates are 1/16..1/64 of the scores, so
-// the (Q, N) score matrix never reaches device memory.
+// scan_kernel (K3, K7) is one persistent, warp-specialised kernel on the
+// pieces of wgmma_gemm.cuh. The queries are the wgmma A operand (m64
+// slabs), one 128-row corpus bin the B operand (n128); both are K-major
+// where they lie, (Q, D) and (N, D) row-major, so no copy is made. One
+// producer thread keeps TMA loads of 128-byte-deep stages (64 bf16 or 128
+// int8 codes of K) in flight through an mbarrier ring; two consumer
+// warpgroups each multiply SLABS m64 slabs of queries by the bin (K3:
+// m64n128k16 bf16 -> f32, K7: m64n128k32 s8 -> s32), so a unit is one bin
+// against 128 * SLABS queries and the whole bin's scores of a query row sit
+// in the registers of one quad of lanes. One CTA per SM walks over the
+// units, query blocks of a bin back to back (the bin's second read hits
+// L2; at Q <= 256 a launch reads the corpus from device memory once), and
+// the producer loads the next unit while the consumers select.
+//
+// Selection in registers: in the accumulator layout a lane holds, for each
+// of its query rows, the bin columns {8j + 2t, 8j + 2t + 1}, j = 0..15,
+// t = lane % 4 (the column map tests/test_torch_binmax_selection.py
+// emulates). Each lane keeps the top P of its 32 columns in ascending
+// offset order with a strict '>' (insert_top's rule, branch-free), then two
+// __shfl_xor_sync rounds (xor 1, xor 2) merge the quad's sorted lists
+// (value descending, offset ascending on equal values; a bitonic split and
+// sort), and the quad's lanes store the P packed candidates. The score tile
+// never reaches shared memory and every consumer thread selects. A thread
+// interleaves the insertions of its two rows of a slab (two independent
+// chains), and a lane position rides as an f32 immediate (select_slab).
+//
+// Kept by measurement (tools/binmax_scan_ab.py, one call, H100): both
+// consumer warpgroups on one unit of 256 queries, the corpus bin shared.
+// Tried and dropped: a ping-pong in which each warpgroup owns units of 128
+// queries and a ring of its own, so one selects while the other multiplies
+// (K3 per_bin 2 14 % slower: each bin crosses L2 twice; K7 4 % faster); a
+// values-first selection (max/min networks, then each value's column, the
+// exact path for a row holding a value twice) (K7 per_bin 8 47 % slower:
+// equal int32 sums in a bin send whole warps down the exact path).
+//
+// SLABS = 1 (a unit of 128 queries, for Q <= 128) or 2 (256 queries). Query
+// rows past Q and K past D arrive as zeros (TMA's fill); their stores are
+// masked.
 #include "tile_mma.cuh"
+#include "wgmma_gemm.cuh"
 
 #include <math.h>
+#include <type_traits>
 
 namespace mm {
 
 constexpr int BIN = 128;
-constexpr int S_LD = TILE_N + 4;  // score tile row stride (floats)
-constexpr int BINMAX_RING = TILE_SMEM_BYTES > S8_SMEM_BYTES ? TILE_SMEM_BYTES : S8_SMEM_BYTES;
-constexpr int BINMAX_SMEM = BINMAX_RING > TILE_M * S_LD * 4 ? BINMAX_RING : TILE_M * S_LD * 4;
+constexpr int S_LD = TILE_N + 4;  // K8's score tile row stride (floats)
+constexpr int BINMAX_INT8F_SMEM =
+    TILE_SMEM_BYTES > TILE_M * S_LD * 4 ? TILE_SMEM_BYTES : TILE_M * S_LD * 4;
 constexpr int L2_BLOCK = 1024;  // level-2 column block (matchmaker_tpu _L2_BLOCK)
 constexpr int L2_KEEP = 8;      // candidates kept per level-2 group (LEVEL2_PER_BIN)
 
@@ -73,54 +111,35 @@ __device__ __forceinline__ void insert_top(float (&tv)[P], int (&ti)[P], float v
   }
 }
 
-enum ScanMode : int { SCAN_BF16 = 0, SCAN_INT8F = 1, SCAN_INT8 = 2 };
-
-// grid (NR/128 bins, ceil(NQ/128) query tiles). queries: (NQ, D) bf16
-// (SCAN_BF16, SCAN_INT8F) or int8 (SCAN_INT8); corpus: (NR, D) bf16
-// (SCAN_BF16) or int8; bin_scales (NR/128) f32 and query_scales (NQ) f32 for
-// the int8 modes that read them.
-template <int P, int MODE>
-__global__ void __launch_bounds__(TILE_THREADS) binmax_kernel(const void* __restrict__ queries,
-                                                               const void* __restrict__ corpus,
-                                                               const float* __restrict__ bin_scales,
-                                                               const float* __restrict__ query_scales,
-                                                               float* __restrict__ out, int NQ, int NR, int D,
-                                                               int n_valid, int nb, long long ld_out) {
+// ---- K8: the mixed scan on the wmma tiles of tile_mma.cuh ---------------------
+// grid (NR/128 bins, ceil(NQ/128) query tiles). queries (NQ, D) bf16, corpus
+// (NR, D) int8 codes, bin_scales (NR/128) f32. One block scores one bin
+// against 128 queries, keeps the 128x128 score tile in shared memory, and
+// each of 128 threads selects its query's top P of the bin.
+template <int P>
+__global__ void __launch_bounds__(TILE_THREADS) binmax_int8f_kernel(const bf16* __restrict__ queries,
+                                                                     const int8_t* __restrict__ corpus,
+                                                                     const float* __restrict__ bin_scales,
+                                                                     float* __restrict__ out, int NQ, int NR,
+                                                                     int D, int n_valid, int nb,
+                                                                     long long ld_out) {
   extern __shared__ __align__(128) char smem[];
   const int m0 = blockIdx.x * BIN, n0 = blockIdx.y * TILE_N;
   float* S = reinterpret_cast<float*>(smem);  // [128 rows][S_LD], rows = corpus, columns = queries
   const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
-  if constexpr (MODE == SCAN_INT8) {
-    FragCi acc[FRAG_M][FRAG_N];
-    tile_mma_s8(static_cast<const int8_t*>(corpus), NR, D, static_cast<const int8_t*>(queries), NQ, 0, D,
-                m0, n0, smem, acc);
-    int* Si = reinterpret_cast<int*>(smem);  // the same cells, read as int32 below
+  FragC acc[FRAG_M][FRAG_N];
+  tile_mma(corpus, NR, queries, NQ, D, m0, n0, smem, acc);
 #pragma unroll
-    for (int i = 0; i < FRAG_M; ++i)
+  for (int i = 0; i < FRAG_M; ++i)
 #pragma unroll
-      for (int j = 0; j < FRAG_N; ++j)
-        wmma::store_matrix_sync(Si + (wm * WARP_M + i * 16) * S_LD + wn * WARP_N + j * 16, acc[i][j], S_LD,
-                                wmma::mem_row_major);
-  } else {
-    FragC acc[FRAG_M][FRAG_N];
-    if constexpr (MODE == SCAN_INT8F)
-      tile_mma<int8_t>(static_cast<const int8_t*>(corpus), NR, static_cast<const bf16*>(queries), NQ, D, m0, n0,
-                       smem, acc);
-    else
-      tile_mma(static_cast<const bf16*>(corpus), NR, static_cast<const bf16*>(queries), NQ, D, m0, n0, smem, acc);
-#pragma unroll
-    for (int i = 0; i < FRAG_M; ++i)
-#pragma unroll
-      for (int j = 0; j < FRAG_N; ++j)
-        wmma::store_matrix_sync(S + (wm * WARP_M + i * 16) * S_LD + wn * WARP_N + j * 16, acc[i][j], S_LD,
-                                wmma::mem_row_major);
-  }
+    for (int j = 0; j < FRAG_N; ++j)
+      wmma::store_matrix_sync(S + (wm * WARP_M + i * 16) * S_LD + wn * WARP_N + j * 16, acc[i][j], S_LD,
+                              wmma::mem_row_major);
   __syncthreads();
 
   const int q = threadIdx.x;
   if (q >= TILE_N || n0 + q >= NQ) return;
-  const float cs = MODE == SCAN_BF16 ? 1.0f : bin_scales[blockIdx.x];
-  const float qs = MODE == SCAN_INT8 ? query_scales[n0 + q] : 1.0f;
+  const float cs = bin_scales[blockIdx.x];
   float tv[P];
   int ti[P];
 #pragma unroll
@@ -129,13 +148,7 @@ __global__ void __launch_bounds__(TILE_THREADS) binmax_kernel(const void* __rest
     ti[j] = 0;
   }
   for (int r = 0; r < BIN; ++r) {
-    float v;
-    if constexpr (MODE == SCAN_INT8)
-      v = __fmul_rn(__fmul_rn(static_cast<float>(reinterpret_cast<const int*>(S)[r * S_LD + q]), cs), qs);
-    else if constexpr (MODE == SCAN_INT8F)
-      v = __fmul_rn(S[r * S_LD + q], cs);
-    else
-      v = S[r * S_LD + q];
+    const float v = __fmul_rn(S[r * S_LD + q], cs);
     insert_top<P>(tv, ti, m0 + r < n_valid ? v : -INFINITY, r);
   }
   const int tile = blockIdx.x / nb, bin = blockIdx.x % nb;
@@ -143,6 +156,359 @@ __global__ void __launch_bounds__(TILE_THREADS) binmax_kernel(const void* __rest
 #pragma unroll
   for (int j = 0; j < P; ++j) o[(size_t)j * nb] = pack_lane(tv[j], ti[j], 0);
 }
+
+// ---- K3, K7: the persistent wgmma/TMA scan ------------------------------------
+namespace scan {
+
+using namespace wg;  // mbarriers, TMA, tensor maps, wgmma fences
+
+enum ScanMode : int { SCAN_BF16 = 0, SCAN_INT8 = 1 };
+
+constexpr int ROW_BYTES = 128;               // bytes of K a stage: one 128-byte swizzled row
+constexpr int SLAB_BYTES = 64 * ROW_BYTES;   // one m64 slab of query rows: 8 KB
+constexpr int BIN_BYTES = BIN * ROW_BYTES;   // one corpus bin: 16 KB
+constexpr int CONSUMERS = 2;                 // consumer warpgroups, beside one producer warpgroup
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+
+template <int SLABS>
+__host__ __device__ constexpr int query_rows() {  // queries a unit
+  return CONSUMERS * SLABS * 64;
+}
+template <int SLABS>
+__host__ __device__ constexpr int stage_bytes() {  // the query block's rows and the bin's
+  return CONSUMERS * SLABS * SLAB_BYTES + BIN_BYTES;
+}
+template <int SLABS>
+__host__ __device__ constexpr int ring_stages() {  // a ring of 192 KB
+  return 196608 / stage_bytes<SLABS>();
+}
+template <int SLABS>
+__host__ __device__ constexpr int ring_smem_bytes() {
+  return ring_stages<SLABS>() * stage_bytes<SLABS>() + 1024 /* alignment */ + 2 * ring_stages<SLABS>() * 8;
+}
+
+struct Params {
+  int NQ, NR, n_valid, nb;
+  int q_blocks;             // ceil(NQ / query_rows)
+  int k_steps;              // 128-byte stages of K
+  long long ld_out;
+  const float* bin_scales;    // (NR/128) f32, K7
+  const float* query_scales;  // (NQ) f32, K7
+  float* out;                 // (NQ, ld_out) f32
+};
+
+// d (64 x 128 f32) (+)= A (64 x 16) . B (128 x 16)^T, bf16, both K-major
+// 128-byte-swizzled in shared memory; the asm builds the descriptors from
+// the addresses (as wgmma_m64n128_s8), so no 64-bit descriptor stays live
+// beside the accumulators
+__device__ __forceinline__ void wgmma_m64n128_bf16(float (&d)[64], uint32_t a_addr, uint32_t b_addr,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 la, lb, hi;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "bfe.u32 la, %64, 4, 14;\nbfe.u32 lb, %65, 4, 14;\n"
+      "or.b32 la, la, 0x10000;\nor.b32 lb, lb, 0x10000;\n"  // leading byte offset 16
+      "mov.b32 hi, 0x40000040;\n"                               // stride 1024 bytes, 128-byte swizzle
+      "mov.b64 da, {la, hi};\nmov.b64 db, {lb, hi};\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+      "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63}, da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a_addr), "r"(b_addr), "r"(accumulate));
+}
+
+// one 32-byte k slice of a stage: 16 bf16 (K3) or 32 int8 codes (K7)
+__device__ __forceinline__ void mma_step(float (&d)[64], uint32_t a, uint32_t b, int accumulate) {
+  wgmma_m64n128_bf16(d, a, b, accumulate);
+}
+__device__ __forceinline__ void mma_step(int (&d)[64], uint32_t a, uint32_t b, int accumulate) {
+  wgmma_m64n128_s8(d, a, b, accumulate);
+}
+
+// pin accumulator registers after wgmma.wait_group (fence_regs for f32)
+__device__ __forceinline__ void pin(float (&r)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void pin(int (&r)[64]) { fence_regs(r); }
+
+// a score of the accumulators: K3 as it is; K7 f32(raw) * bin scale *
+// query scale, each product rounded (the TPU kernel's order)
+__device__ __forceinline__ float score(float acc, float, float) { return acc; }
+__device__ __forceinline__ float score(int acc, float cs, float qs) {
+  return __fmul_rn(__fmul_rn(static_cast<float>(acc), cs), qs);
+}
+
+// insert_top's rule without a branch: with c[j] = v > tv[j] (the list
+// before), slot j takes tv[j - 1] if c[j - 1], else v if c[j], else keeps
+// its own; j runs downwards so tv[j - 1] is still the old value. In the
+// scan a warp's lanes insert eight rows' scores at once, so insert_top's
+// early-out diverges on nearly every score (tried: K3 per_bin 8 2.7x
+// slower); level 2 and K8, one thread a row, keep it.
+template <int P, typename I>
+__device__ __forceinline__ void insert_sorted(float (&tv)[P], I (&ti)[P], float v, I idx) {
+#pragma unroll
+  for (int j = P - 1; j > 0; --j) {
+    const bool above = v > tv[j - 1], here = v > tv[j];
+    tv[j] = above ? tv[j - 1] : (here ? v : tv[j]);
+    ti[j] = above ? ti[j - 1] : (here ? idx : ti[j]);
+  }
+  const bool first = v > tv[0];
+  tv[0] = first ? v : tv[0];
+  ti[0] = first ? idx : ti[0];
+}
+
+// (a, ai) before (b, bi): value descending, offset ascending on equal values
+__device__ __forceinline__ bool before(float a, int ai, float b, int bi) {
+  return a > b || (a == b && ai < bi);
+}
+
+// merge this lane's sorted top P with that of lane ^ m: the better of each
+// pair (r, P-1-r) holds the top P of both lists as a bitonic sequence,
+// which a bitonic network sorts; both lanes end with the same list
+template <int P>
+__device__ __forceinline__ void merge_lanes(float (&tv)[P], int (&ti)[P], int m) {
+  float ov[P];
+  int oi[P];
+#pragma unroll
+  for (int r = 0; r < P; ++r) {
+    ov[r] = __shfl_xor_sync(0xffffffffu, tv[r], m);
+    oi[r] = __shfl_xor_sync(0xffffffffu, ti[r], m);
+  }
+#pragma unroll
+  for (int r = 0; r < P; ++r) {
+    if (!before(tv[r], ti[r], ov[P - 1 - r], oi[P - 1 - r])) {
+      tv[r] = ov[P - 1 - r];
+      ti[r] = oi[P - 1 - r];
+    }
+  }
+#pragma unroll
+  for (int h = P / 2; h > 0; h /= 2) {
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      if ((r & h) == 0 && before(tv[r + h], ti[r + h], tv[r], ti[r])) {
+        const float fv = tv[r];
+        tv[r] = tv[r + h];
+        tv[r + h] = fv;
+        const int fi = ti[r];
+        ti[r] = ti[r + h];
+        ti[r + h] = fi;
+      }
+    }
+  }
+}
+
+// The lane's top P of each of its two rows of a slab (accumulator element
+// (row 16 * warp + lane / 4 + 8i, column 8j + 2 * quad + e) at [4j + 2i +
+// e]), the two rows interleaved so their insertions overlap; a lane
+// position 2j + e rides as an f32 immediate and becomes its bin column at
+// the end. MASKED: columns at or past `live` score -inf.
+template <int P, bool MASKED, typename Acc>
+__device__ __forceinline__ void select_slab(const Acc (&a)[64], float cs, const float (&qs)[2], int live, int quad,
+                                            float (&tv)[2][P], int (&ti)[2][P]) {
+  float tp[2][P];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      tv[i][r] = -INFINITY;
+      tp[i][r] = 0.0f;
+    }
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float v = score(a[4 * j + 2 * i + e], cs, qs[i]);
+        if (MASKED && 8 * j + 2 * quad + e >= live) v = -INFINITY;
+        insert_sorted<P>(tv[i], tp[i], v, static_cast<float>(2 * j + e));
+      }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      const int c = static_cast<int>(tp[i][r]);
+      ti[i][r] = 8 * (c >> 1) + 2 * quad + (c & 1);
+    }
+}
+
+// Persistent: CTA b takes units b, b + gridDim.x, ...; unit u scores bin
+// u / q_blocks against query block u % q_blocks. tq: queries (NQ, D), box
+// {128 bytes, query_rows}; tc: corpus (NR, D), box {128 bytes, 128}.
+template <int P, int MODE, int SLABS>
+__global__ void __launch_bounds__(THREADS, 1)
+    scan_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tc, const Params p,
+                int units) {
+  using Acc = typename std::conditional<MODE == SCAN_INT8, int, float>::type;
+  constexpr int STAGES = ring_stages<SLABS>();
+  constexpr int STAGE = stage_bytes<SLABS>();
+  constexpr int QROWS = query_rows<SLABS>();
+  constexpr int A_BYTES = CONSUMERS * SLABS * SLAB_BYTES;
+  constexpr int K_ELEMS = MODE == SCAN_INT8 ? ROW_BYTES : ROW_BYTES / 2;  // K elements a stage
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzled TMA destinations want 1024-byte alignment
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  const int warpgroup = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warpgroup == CONSUMERS) {
+    // producer: one thread keeps the ring full, running ahead into the next
+    // unit while the consumers select
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == CONSUMERS * 128) {
+      int it = 0;  // stages loaded so far, over all units
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int q0 = (u % p.q_blocks) * QROWS, r0 = (u / p.q_blocks) * BIN;
+        for (int t = 0; t < p.k_steps; ++t, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+          mbar_expect_tx(&full[s], STAGE);
+          uint8_t* st = smem + s * STAGE;
+          tma_load(&tq, st, &full[s], t * K_ELEMS, q0);
+          tma_load(&tc, st + A_BYTES, &full[s], t * K_ELEMS, r0);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x & 127) >> 5, quad = lane & 3;
+  int it = 0;  // stages consumed so far, over all units
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int q0 = (u % p.q_blocks) * QROWS, bin_g = u / p.q_blocks, r0 = bin_g * BIN;
+    Acc acc[SLABS][64];
+    for (int t = 0; t < p.k_steps; ++t, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      const uint32_t st = smem_u32(smem + s * STAGE);
+      const uint32_t a_st = st + warpgroup * SLABS * SLAB_BYTES, b_st = st + A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < ROW_BYTES / 32; ++k)  // a unit's first slice overwrites the sums (scale-d = 0)
+#pragma unroll
+        for (int sl = 0; sl < SLABS; ++sl)
+          mma_step(acc[sl], a_st + sl * SLAB_BYTES + 32 * k, b_st + 32 * k, t > 0 || k > 0);
+      wgmma_commit();
+      // keep this stage's products in flight; the previous stage's are
+      // done, so it goes back to the producer
+      wgmma_wait<1>();
+      if (t > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    if (threadIdx.x % 128 == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+#pragma unroll
+    for (int sl = 0; sl < SLABS; ++sl) pin(acc[sl]);
+
+    // select each slab's rows, merge over the quads, store
+    const float cs = MODE == SCAN_INT8 ? p.bin_scales[bin_g] : 1.0f;
+    const int live = min(BIN, p.n_valid - r0);  // columns at or past it are masked
+    const int tile = bin_g / p.nb, bin = bin_g % p.nb;
+#pragma unroll
+    for (int sl = 0; sl < SLABS; ++sl) {
+      const int row0 = q0 + (warpgroup * SLABS + sl) * 64 + warp * 16 + (lane >> 2);
+      float qs[2] = {1.0f, 1.0f};
+      if (MODE == SCAN_INT8) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (row0 + 8 * i < p.NQ) qs[i] = p.query_scales[row0 + 8 * i];
+      }
+      float tv[2][P];
+      int ti[2][P];
+      if (live >= BIN)
+        select_slab<P, false>(acc[sl], cs, qs, live, quad, tv, ti);
+      else
+        select_slab<P, true>(acc[sl], cs, qs, live, quad, tv, ti);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        merge_lanes<P>(tv[i], ti[i], 1);
+        merge_lanes<P>(tv[i], ti[i], 2);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + 8 * i;
+        if (row < p.NQ) {
+          float* o = p.out + (size_t)row * p.ld_out + (size_t)tile * P * p.nb + bin;
+#pragma unroll
+          for (int r = 0; r < P; ++r)
+            if ((r & 3) == quad) o[(size_t)r * p.nb] = pack_lane(tv[i][r], ti[i][r], 0);
+        }
+      }
+    }
+  }
+}
+
+template <int P, int MODE, int SLABS>
+int launch_scan(const void* q, const void* c, const float* bs, const float* qs, float* out, int NQ, int NR, int D,
+                int n_valid, int nb, long long ld_out, cudaStream_t stream) {
+  constexpr int bytes = ring_smem_bytes<SLABS>();
+  auto kernel = scan_kernel<P, MODE, SLABS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const CUtensorMapDataType type =
+      MODE == SCAN_INT8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap tq, tc;
+  if (!make_map(&tq, q, D, NQ, false, type, query_rows<SLABS>()) || !make_map(&tc, c, D, NR, false, type, BIN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  p.NQ = NQ;
+  p.NR = NR;
+  p.n_valid = n_valid;
+  p.nb = nb;
+  p.q_blocks = (NQ + query_rows<SLABS>() - 1) / query_rows<SLABS>();
+  p.k_steps = (D * (MODE == SCAN_INT8 ? 1 : 2) + ROW_BYTES - 1) / ROW_BYTES;
+  p.ld_out = ld_out;
+  p.bin_scales = bs;
+  p.query_scales = qs;
+  p.out = out;
+  const int units = p.q_blocks * (NR / BIN);
+  if (units <= 0) return static_cast<int>(cudaSuccess);
+  const int grid = units < sm_count() ? units : sm_count();
+  kernel<<<grid, THREADS, bytes, stream>>>(tq, tc, p, units);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// per_bin and the query block (128 queries a unit up to Q = 128, else 256)
+template <int MODE>
+int launch_mode(const void* q, const void* c, const float* bs, const float* qs, float* out, int NQ, int NR, int D,
+                int n_valid, int per_bin, int nb, long long ld_out, cudaStream_t s) {
+  const bool wide = NQ > query_rows<1>();
+#define MM_SCAN_CASE(P)                                                                    \
+  case P:                                                                                  \
+    return wide ? launch_scan<P, MODE, 2>(q, c, bs, qs, out, NQ, NR, D, n_valid, nb, ld_out, s) \
+                : launch_scan<P, MODE, 1>(q, c, bs, qs, out, NQ, NR, D, n_valid, nb, ld_out, s);
+  switch (per_bin) {
+    MM_SCAN_CASE(1)
+    MM_SCAN_CASE(2)
+    MM_SCAN_CASE(4)
+    MM_SCAN_CASE(8)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef MM_SCAN_CASE
+}
+
+}  // namespace scan
 
 // Level 2 over (NQ, C_pad) level-1 candidates: every `w` consecutive columns
 // keep their top 8, offset packed at bits [7, 14), written rank-major within
@@ -191,27 +557,16 @@ __global__ void __launch_bounds__(256) unpack_kernel(const float* __restrict__ v
   out_ids[i] = finite ? tile * tile_rows + bin * BIN + (bits & 127) : -1;
 }
 
-template <int P, int MODE>
-int launch_binmax(const void* q, const void* c, const float* bs, const float* qs, float* out, int NQ, int NR, int D,
-                  int n_valid, int nb, long long ld_out, cudaStream_t s) {
-  cudaError_t err =
-      cudaFuncSetAttribute(binmax_kernel<P, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, BINMAX_SMEM);
+template <int P>
+int launch_int8f(const bf16* q, const int8_t* c, const float* bs, float* out, int NQ, int NR, int D, int n_valid,
+                 int nb, long long ld_out, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(binmax_int8f_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         BINMAX_INT8F_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(NR / BIN, (NQ + TILE_N - 1) / TILE_N);
-  binmax_kernel<P, MODE><<<grid, TILE_THREADS, BINMAX_SMEM, s>>>(q, c, bs, qs, out, NQ, NR, D, n_valid, nb, ld_out);
+  binmax_int8f_kernel<P><<<grid, TILE_THREADS, BINMAX_INT8F_SMEM, s>>>(q, c, bs, out, NQ, NR, D, n_valid, nb,
+                                                                        ld_out);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int MODE>
-int launch_binmax_mode(const void* q, const void* c, const float* bs, const float* qs, float* out, int NQ, int NR,
-                       int D, int n_valid, int per_bin, int nb, long long ld_out, cudaStream_t s) {
-  switch (per_bin) {
-    case 1: return launch_binmax<1, MODE>(q, c, bs, qs, out, NQ, NR, D, n_valid, nb, ld_out, s);
-    case 2: return launch_binmax<2, MODE>(q, c, bs, qs, out, NQ, NR, D, n_valid, nb, ld_out, s);
-    case 4: return launch_binmax<4, MODE>(q, c, bs, qs, out, NQ, NR, D, n_valid, nb, ld_out, s);
-    case 8: return launch_binmax<8, MODE>(q, c, bs, qs, out, NQ, NR, D, n_valid, nb, ld_out, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace mm
@@ -221,27 +576,37 @@ using namespace mm;
 extern "C" {
 
 // out (NQ, ld_out) f32: level-1 packed candidates of corpus (NR, D) bf16 for
-// queries (NQ, D) bf16; NR % 128 == 0, per_bin in {1, 2, 4, 8}.
+// queries (NQ, D) bf16 (K3); NR % 128 == 0, D % 32 == 0, per_bin in
+// {1, 2, 4, 8}.
 int mm_binmax_scan(const void* queries, const void* corpus, void* out, int NQ, int NR, int D, int n_valid,
                    int per_bin, int nb, long long ld_out, void* stream) {
-  return launch_binmax_mode<SCAN_BF16>(queries, corpus, nullptr, nullptr, static_cast<float*>(out), NQ, NR, D,
-                                       n_valid, per_bin, nb, ld_out, static_cast<cudaStream_t>(stream));
+  if (D <= 0 || D % 32 || NR % BIN) return static_cast<int>(cudaErrorInvalidValue);
+  return scan::launch_mode<scan::SCAN_BF16>(queries, corpus, nullptr, nullptr, static_cast<float*>(out), NQ, NR,
+                                            D, n_valid, per_bin, nb, ld_out, static_cast<cudaStream_t>(stream));
 }
 
 // The same over an int8 corpus (NR, D) with bin scales (NR/128) f32: mixed = 1
-// takes bf16 queries (K8); mixed = 0 takes int8 query codes with their
-// scales (NQ) f32 (K7).
+// takes bf16 queries (K8, D % 32 == 0); mixed = 0 takes int8 query codes with
+// their scales (NQ) f32 (K7, D % 64 == 0).
 int mm_binmax_scan_int8(const void* queries, const void* corpus, const void* bin_scales, const void* query_scales,
                         void* out, int NQ, int NR, int D, int n_valid, int per_bin, int nb, long long ld_out,
                         int mixed, void* stream) {
   const float* bs = static_cast<const float*>(bin_scales);
-  const float* qs = static_cast<const float*>(query_scales);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mixed)
-    return launch_binmax_mode<SCAN_INT8F>(queries, corpus, bs, qs, o, NQ, NR, D, n_valid, per_bin, nb, ld_out, s);
-  if (D % S8_TILE_K) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_binmax_mode<SCAN_INT8>(queries, corpus, bs, qs, o, NQ, NR, D, n_valid, per_bin, nb, ld_out, s);
+  if (D <= 0 || D % (mixed ? 32 : 64) || NR % BIN) return static_cast<int>(cudaErrorInvalidValue);
+  if (!mixed)
+    return scan::launch_mode<scan::SCAN_INT8>(queries, corpus, bs, static_cast<const float*>(query_scales), o, NQ,
+                                              NR, D, n_valid, per_bin, nb, ld_out, s);
+  const bf16* q = static_cast<const bf16*>(queries);
+  const int8_t* c = static_cast<const int8_t*>(corpus);
+  switch (per_bin) {
+    case 1: return launch_int8f<1>(q, c, bs, o, NQ, NR, D, n_valid, nb, ld_out, s);
+    case 2: return launch_int8f<2>(q, c, bs, o, NQ, NR, D, n_valid, nb, ld_out, s);
+    case 4: return launch_int8f<4>(q, c, bs, o, NQ, NR, D, n_valid, nb, ld_out, s);
+    case 8: return launch_int8f<8>(q, c, bs, o, NQ, NR, D, n_valid, nb, ld_out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // out (NQ, ld_out) f32: level-2 reduction of in (NQ, ld_in) over c_pad

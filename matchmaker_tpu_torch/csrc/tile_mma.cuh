@@ -1,15 +1,14 @@
-// Shared 128x128 tile products on the tensor cores (nvcuda::wmma), used by
-// the binmax scans (binmax_kernels.cu); the encoder's products run on wgmma
-// (wgmma_gemm.cuh, encoder_int8_kernels.cu):
-//   bf16 x bf16 -> f32: A.B^T (tile_mma; A may be int8 codes, which
-//                       become bf16 exactly on their way to shared memory);
-//   int8 x int8 -> int32: A.B^T (tile_mma_s8, the K7 scan), exact.
+// The 128x128 tile product on the tensor cores (nvcuda::wmma) of the mixed
+// binmax scan K8 (binmax_int8f_kernel, binmax_kernels.cu), its only user:
+// C = A.B^T with A int8 codes, which become bf16 exactly on their way to
+// shared memory, B bf16, f32 sums. The bf16 (K3) and int8 (K7) scans and the
+// encoder's products run on wgmma (wgmma_gemm.cuh, encoder_int8_kernels.cu).
 //
-// Bound: at the scans' shapes (262,144 x 768 rows against 256 queries) every
-// product here is compute bound on the card. This first
-// version stages tiles through registers into a double-buffered shared-memory
-// ring (one __syncthreads per K step) and issues mma.sync through wmma;
-// wgmma and TMA are left for a later version.
+// Bound: at K8's shape (262,144 x 768 rows against 256 queries) the product
+// is compute bound on the card. It stages tiles through registers into a
+// double-buffered shared-memory ring (one __syncthreads per K step) and
+// issues mma.sync through wmma; K8's move to the wgmma/TMA scan is the next
+// redesign (ROADMAP.md).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,9 +43,8 @@ __device__ __forceinline__ uint4 load16(const bf16* p, bool ok) {
   return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
 }
 
-// eight consecutive A elements as eight bf16: bf16 as they are, int8 codes
-// converted (|code| <= 127 fits bf16's 8-bit significand, so exactly)
-__device__ __forceinline__ uint4 load8_as_bf16(const bf16* p, bool ok) { return load16(p, ok); }
+// eight consecutive int8 codes as eight bf16 (|code| <= 127 fits bf16's
+// 8-bit significand, so exactly)
 __device__ __forceinline__ uint4 load8_as_bf16(const int8_t* p, bool ok) {
   if (!ok) return make_uint4(0u, 0u, 0u, 0u);
   const uint2 raw = *reinterpret_cast<const uint2*>(p);
@@ -58,11 +56,10 @@ __device__ __forceinline__ uint4 load8_as_bf16(const int8_t* p, bool ok) {
 }
 
 // C[m0:m0+128, n0:n0+128] = A[m0:, :K] . B^T, accumulated into acc.
-// A: (M, K) row-major, lda = K, bf16 or int8 codes (AT); B: (N, K)
-// row-major. Rows of A past M and rows of B past N read as zero. K % 32 ==
-// 0, rows 16-byte aligned (checked by the Python wrappers).
-template <typename AT = bf16>
-__device__ __forceinline__ void tile_mma(const AT* __restrict__ A, int M, const bf16* __restrict__ B, int N,
+// A: (M, K) row-major int8 codes, lda = K; B: (N, K) row-major bf16. Rows
+// of A past M and rows of B past N read as zero. K % 32 == 0, rows 16-byte
+// aligned (checked by the Python wrappers).
+__device__ __forceinline__ void tile_mma(const int8_t* __restrict__ A, int M, const bf16* __restrict__ B, int N,
                                          int K, int m0, int n0, char* smem, FragC (&acc)[FRAG_M][FRAG_N]) {
   bf16* As = reinterpret_cast<bf16*>(smem);
   bf16* Bs = As + 2 * TILE_M * A_LD;
@@ -123,96 +120,6 @@ __device__ __forceinline__ void tile_mma(const AT* __restrict__ A, int M, const 
     }
   }
   __syncthreads();  // the ring may be reused by the caller's epilogue
-}
-
-// ---- int8 x int8 -> int32 ----------------------------------------------
-// wmma's signed-char 16x16x16 product with an int accumulator. Fragment
-// pointers must be 32-byte aligned, and a 16-byte k step of a row-major int8
-// tile is not, so every int8 tile is staged in shared memory as 16-byte-wide
-// slabs: slab s holds bytes [16s, 16s+16) of every row, rows 16 bytes apart
-// (ldm = 16). A slab's stride is padded by 32 bytes so neighbouring threads'
-// 16-byte stores land on different banks.
-constexpr int S8_TILE_K = 64;                   // K bytes per step: 4 slabs
-constexpr int S8_SLAB_ROWS = TILE_M * 16 + 32;  // slab of 128 rows (A, or B stored [N][K])
-constexpr int S8_A_BUF = (S8_TILE_K / 16) * S8_SLAB_ROWS;
-constexpr int S8_B_BUF = S8_A_BUF;              // TILE_N == TILE_M rows
-constexpr int S8_SMEM_BYTES = 2 * S8_A_BUF + 2 * S8_B_BUF;  // both buffers of A and of B
-
-using FragA8 = wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>;
-using FragB8col = wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major>;
-using FragCi = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
-
-__device__ __forceinline__ uint4 load16b(const int8_t* p, bool ok) {
-  return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
-}
-
-// C[m0:m0+128, n0:n0+128] = A[m0:, k_begin:k_end] . B[n0:, k_begin:k_end]^T
-// in int32, exact. A: (M, lda) int8 row-major; B: (N, lda) int8 row-major
-// (queries' codes). Rows past M and columns past N read as zero;
-// (k_end - k_begin) % 64 == 0, lda % 16 == 0 and N % 16 == 0 (checked by the
-// Python wrappers). Ends with __syncthreads: the caller may reuse smem.
-__device__ __forceinline__ void tile_mma_s8(const int8_t* __restrict__ A, int M, int lda,
-                                            const int8_t* __restrict__ B, int N, int k_begin, int k_end,
-                                            int m0, int n0, char* smem, FragCi (&acc)[FRAG_M][FRAG_N]) {
-  int8_t* As = reinterpret_cast<int8_t*>(smem);
-  int8_t* Bs = As + 2 * S8_A_BUF;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1;
-  const int wn = warp & 1;
-
-#pragma unroll
-  for (int i = 0; i < FRAG_M; ++i)
-#pragma unroll
-    for (int j = 0; j < FRAG_N; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-  // per K step 128 rows x 64 bytes of A and 512 16-byte chunks of B: two of each per thread
-  uint4 ra[2], rb[2];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int chunk = tid + c * TILE_THREADS;  // 0..511
-      const int row = chunk >> 2, slab = chunk & 3;
-      ra[c] = load16b(A + (size_t)(m0 + row) * lda + k0 + slab * 16, m0 + row < M);
-      rb[c] = load16b(B + (size_t)(n0 + row) * lda + k0 + slab * 16, n0 + row < N);
-    }
-  };
-  auto stash = [&](int buf) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int chunk = tid + c * TILE_THREADS;
-      const int row = chunk >> 2, slab = chunk & 3;
-      *reinterpret_cast<uint4*>(As + buf * S8_A_BUF + slab * S8_SLAB_ROWS + row * 16) = ra[c];
-      *reinterpret_cast<uint4*>(Bs + buf * S8_B_BUF + slab * S8_SLAB_ROWS + row * 16) = rb[c];
-    }
-  };
-
-  const int steps = (k_end - k_begin) / S8_TILE_K;
-  if (steps > 0) fetch(k_begin);
-  for (int s = 0; s < steps; ++s) {
-    const int buf = s & 1;
-    stash(buf);
-    __syncthreads();
-    if (s + 1 < steps) fetch(k_begin + (s + 1) * S8_TILE_K);
-    const int8_t* a_base = As + buf * S8_A_BUF + (wm * WARP_M) * 16;
-    const int8_t* b_base = Bs + buf * S8_B_BUF;
-#pragma unroll
-    for (int ks = 0; ks < S8_TILE_K / 16; ++ks) {
-      FragA8 fa[FRAG_M];
-#pragma unroll
-      for (int i = 0; i < FRAG_M; ++i)
-        wmma::load_matrix_sync(fa[i], a_base + ks * S8_SLAB_ROWS + i * 16 * 16, 16);
-#pragma unroll
-      for (int j = 0; j < FRAG_N; ++j) {
-        const int ncol = wn * WARP_N + j * 16;
-        FragB8col fb;  // element (k, n) at slab ks, row n
-        wmma::load_matrix_sync(fb, b_base + ks * S8_SLAB_ROWS + ncol * 16, 16);
-#pragma unroll
-        for (int i = 0; i < FRAG_M; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();
 }
 
 }  // namespace mm

@@ -582,6 +582,96 @@ def test_wrappers_count_launches(device):
     assert _build.LAUNCHES["binmax_candidates"] == 1
 
 
+# ---- the wgmma/TMA scans K3 and K7 at every geometry they take ----------------
+
+SCAN_ROWS = 16_384  # four 4096-row tiles
+
+
+def _scan_case(q_rows, dim, device, seed, n=SCAN_ROWS):
+    """Normalised corpus rows and queries near random rows."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    c = torch.randn(n, dim, generator=g, device=device)
+    c = c / c.norm(dim=1, keepdim=True)
+    q = c[torch.randint(0, n, (q_rows,), generator=g, device=device)] + 0.05 * torch.randn(
+        q_rows, dim, generator=g, device=device)
+    return q, c
+
+
+def _int8_scan_case(q_rows, n, device, seed):
+    """Int8 query codes with their scales, corpus codes with bin scales."""
+    q, c = _scan_case(q_rows, 768, device, seed, n)
+    values, scales = mq.quantize_corpus_binwise(c.cpu().numpy())
+    q8, qs = mq.quantize_queries(q)
+    return q8, qs, torch.from_numpy(values).to(device), torch.from_numpy(scales).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_bin", [1, 2, 4, 8])
+@pytest.mark.parametrize("tile", [2048, 4096])
+@pytest.mark.parametrize("dim", [128, 768])
+@pytest.mark.parametrize("q_rows", [1, 77, 256, 300])
+def test_binmax_scan_geometries_match_plain(device, q_rows, dim, tile, per_bin):
+    """K3 at one query, one and two 128-query slabs and a ragged second
+    256-query block, both widths, the tile sizes the port runs and every
+    per_bin, with n_valid mid-bin and at a bin's first row: >= 99.9 %
+    identical candidates."""
+    q, c = _scan_case(q_rows, dim, device, seed=q_rows + dim + per_bin)
+    q, c = q.to(torch.bfloat16), c.to(torch.bfloat16)
+    for n_valid in (SCAN_ROWS - 1000, SCAN_ROWS - 3 * 128):
+        got = mb._scan_cuda(q, c, n_valid, per_bin, tile)
+        want = mb._scan_plain(q, c, n_valid, per_bin, tile)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (q_rows, SCAN_ROWS // 128 * per_bin)
+        same, rel = _candidate_agreement(got, want, tile, per_bin)
+        assert same >= 0.999 and rel <= 1e-4, (n_valid, same, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_bin", [1, 2, 4, 8])
+def test_binmax_scan_ties_match_plain_exactly(device, per_bin):
+    """Runs of four identical corpus rows (exact ties inside a lane and
+    across the lanes of a quad) on dyadic inputs, whose f32 sums are exact
+    in any order: K3's packed candidates equal the plain version's bit for
+    bit, ties to the lowest offset."""
+    g = torch.Generator(device=device).manual_seed(per_bin)
+    n, dim = 8192, 768
+    c = (torch.randint(-4, 5, (n // 4, dim), generator=g, device=device) / 8.0).repeat_interleave(4, dim=0)
+    q = torch.randint(-4, 5, (300, dim), generator=g, device=device) / 8.0
+    c, q = c.to(torch.bfloat16), q.to(torch.bfloat16)
+    n_valid = n - 300
+    got = mb._scan_cuda(q, c, n_valid, per_bin, 2048)
+    want = mb._scan_plain(q, c, n_valid, per_bin, 2048)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,per_bin,q_rows", [(16_384, 2, 200), (262_144, 8, 256), (16_384, 4, 300),
+                                              (16_384, 1, 77), (16_384, 8, 1)])
+def test_int8_scan_kernel_is_bit_identical_to_plain(device, n, per_bin, q_rows):
+    """K7: exact int32 sums, the plain version's rounding order and tie
+    rule, so its packed candidates equal the plain version's as int32."""
+    q8, qs, values, scales = _int8_scan_case(q_rows, n, device, seed=per_bin + q_rows)
+    n_valid = n - 1000
+    got = mb._scan_int8_cuda(q8, values, scales, qs, n_valid, per_bin, 2048)
+    want = mb._scan_int8_plain(q8, values, scales, qs, n_valid, per_bin, 2048)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_binmax_scans_are_bit_identical_run_to_run(device):
+    """K3 and K7 twice on the same inputs: the same bits."""
+    q, c = _scan_case(300, 768, device, seed=3)
+    q, c = q.to(torch.bfloat16), c.to(torch.bfloat16)
+    runs = [mb._scan_cuda(q, c, SCAN_ROWS - 77, 8, 2048) for _ in range(2)]
+    q8, qs, values, scales = _int8_scan_case(300, SCAN_ROWS, device, seed=4)
+    runs8 = [mb._scan_int8_cuda(q8, values, scales, qs, SCAN_ROWS - 77, 8, 2048) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32))
+    assert torch.equal(runs8[0].view(torch.int32), runs8[1].view(torch.int32))
+
+
 # ---- the int8 serving kernels (K9, K10, K8, K7) -------------------------------
 
 def _int8_layer(hid, ff, device, seed):
@@ -785,7 +875,7 @@ def test_int8_quantize_kernel_matches_plain_bit_for_bit(device, dtype, cols, gro
 @pytest.mark.parametrize("n,per_bin", [(16_384, 2), (262_144, 8)])
 def test_int8_scan_kernels_match_plain(device, mixed, n, per_bin):
     """K8 (bf16 queries) and K7 (int8 queries) against their plain versions:
-    >= 99.9 % identical candidates."""
+    >= 99.9 % identical candidates, and K7 bit-identical."""
     q, c = _corpus(n, 768, device, seed=per_bin)
     values, scales = mq.quantize_corpus_binwise(c.float().cpu().numpy())
     values, scales = torch.from_numpy(values).to(device), torch.from_numpy(scales).to(device)
@@ -799,6 +889,8 @@ def test_int8_scan_kernels_match_plain(device, mixed, n, per_bin):
     torch.cuda.synchronize()
     share, _ = _candidate_agreement(got, want, 2048, per_bin)
     assert share >= 0.999, share
+    if not mixed:  # K7's sums are exact and its rounding is the plain version's
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
