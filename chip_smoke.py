@@ -17,13 +17,16 @@ Phases (any failed check raises, and the script exits non-zero):
    K3, mixed K8, int8 K7), level 2 and unpack on 262,144 x 768 rows and 256
    queries (K7 bit-identical; K3 and K7 beside one torch.matmul /
    torch._int_mm of the product alone; K3 also at ColBERT's token scan,
-   8,192 query rows of width 128, per_bin 1, 4096-row tiles); ColBERT's
-   all-pairs MaxSim (K14) at (Bq, Lq, Bd, Ld, D) = (128, 32, 256, 200, 128)
-   (also with D streamed in slabs, the same bits), (32, 32, 64, 200, 128),
-   the exact rescore's (1, 32, 64, 128, 128) with
-   fill -inf, an odd (7, 30, 21, 77, 128) with dots below -1000, the exact
-   rescore at the public checkpoint's width (1, 32, 64, 128, 768) and 200
-   query tokens (8, 200, 64, 200, 128) (rtol = atol = 1e-4); the standalone
+   8,192 query rows of width 128, per_bin 1, 4096-row tiles; K8 beside
+   torch.matmul of the bf16-converted codes); ColBERT's MaxSim (K14), all
+   pairs at (Bq, Lq, Bd, Ld, D) = (128, 32, 256, 200, 128), (32, 32, 64,
+   200, 128), the single-query rescore shape (1, 32, 64, 128, 128) with
+   fill -inf, an odd (7, 30, 21, 77, 128) with dots below -1000, the
+   public checkpoint's width (1, 32, 64, 128, 768) and 200 query tokens
+   (8, 200, 64, 200, 128), and its gathered form at the ColBERT run's
+   batched rescore (256 queries x 32 tokens against their own 64 candidates
+   of float16 token rows, 128 slots) (rtol = atol = 1e-4, reruns
+   bit-identical); the standalone
    attention K13 at (B, L) = (256, 128) and (64, 30), 12 heads x 64, beside
    one scaled_dot_product_attention call; the probes' kernels: the
    attention inner loop K15 (three variants) at (256, 200) and (16, 77) with
@@ -113,11 +116,12 @@ FULL = dict(
     train_batches=100, train_batch=32, train_query_len=30, train_doc_len=200, validate_every=50,
     val_queries=32, val_docs=10, eval_batch=256, dr_passages=2048, dr_queries=64, dr_top_n=10, dr_batch=256,
     overfit_steps=30,
-    # K14 (Bq, Lq, Bd, Ld, D, fill, live dots below -1000): the headline of
-    # matchmaker_tpu/ops/pallas_kernels.py:17, the teacher shape, the exact
-    # rescore (1 query, colbert_rescore_n docs, the store's padded tokens),
-    # an odd padded shape, the exact rescore at the public checkpoint's
-    # width 768 (D streamed in slabs), 200 query tokens (two row tiles)
+    # K14 all pairs (Bq, Lq, Bd, Ld, D, fill, live dots below -1000): the
+    # headline of matchmaker_tpu/ops/pallas_kernels.py:17, the teacher
+    # shape, one query's rescore (colbert_rescore_n docs, the store's padded
+    # tokens: the gathered form's slots), an odd padded shape, one query's
+    # rescore at the public checkpoint's width 768, 200 query tokens (two
+    # row tiles)
     maxsim_shapes=[(128, 32, 256, 200, 128, -1000.0, False), (32, 32, 64, 200, 128, -1000.0, False),
                    (1, 32, 64, 128, 128, float("-inf"), False), (7, 30, 21, 77, 128, -1000.0, True),
                    (1, 32, 64, 128, 768, float("-inf"), False), (8, 200, 64, 200, 128, -1000.0, False)],
@@ -179,7 +183,7 @@ def _pair_ms(kernel, plain, device, reps):
 # H100 SXM data-sheet peaks (dense): the card's memory rate and each input
 # type's tensor-core rate, for the least time a kernel's work could take
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 67e12}
 
 
 def bound(n_bytes, **ops):
@@ -952,6 +956,16 @@ def phase_int8_binmax_kernels(sz, device):
                     lambda pb=per_bin: plain(pb), device, sz["reps"], headline=per_bin == 8,
                     bound_of=bound(nbytes(queries, q_scales, codes, scales, got),
                                    **{kind: 2 * queries.shape[0] * n * sz["hid"]}))
+    # the products alone, yardsticks for the scans' tensor-core work, not
+    # bounds: they write the (Q, N) scores and select nothing
+    c16 = codes.to(torch.bfloat16)
+    product_ms = _time_ms(lambda: torch.matmul(qb, c16.T), device, sz["reps"])
+    del c16
+    out["binmax_candidates_int8f"].update(
+        product_library_ms=product_ms, product_library_call="torch.matmul(queries, codes.to(bf16).T) (the product "
+                                                            "alone)")
+    print(f"[kernels]   product alone: torch.matmul of the bf16 codes {product_ms:.4f} ms "
+          f"({2 * qb.shape[0] * n * sz['hid'] / product_ms / 1e9:.1f} TFLOP/s)")
     if device.type == "cuda":  # torch._int_mm needs the card
         product_ms = _time_ms(lambda: torch._int_mm(q8, codes.T), device, sz["reps"])
         out["binmax_candidates_int8"].update(
@@ -981,43 +995,96 @@ def _maxsim_inputs(bq, lq, bd, ld, dim, below_fill, device, seed):
     return q, d, q_mask, d_mask
 
 
+def _gathered_inputs(sz, device, seed):
+    """The batched rescore's launch at the ColBERT run's shapes: a query
+    batch (colbert_query_batch x colbert_query_len, width colbert_dim, 8
+    padded query tokens in every fourth query), a float16 token matrix of
+    ``passages`` documents of 1..T tokens (T the store's padded tokens,
+    maxsim_shapes[2][3]) and each query's colbert_rescore_n candidate spans,
+    drawn with replacement, on the CPU as maxsim_gathered takes them."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, lq, c, dim, pad = (sz["colbert_query_batch"], sz["colbert_query_len"], sz["colbert_rescore_n"],
+                          sz["colbert_dim"], sz["maxsim_shapes"][2][3])
+    counts = torch.randint(1, pad + 1, (sz["passages"],), generator=g, device=device)
+    starts = torch.cumsum(counts, 0) - counts
+    tokens = (torch.randn(int(counts.sum()), dim, generator=g, device=device) * 2).half()
+    pick = torch.randint(0, sz["passages"], (b, c), generator=g, device=device)
+    q = torch.randn(b, lq, dim, generator=g, device=device) * 2
+    qm = torch.ones(b, lq, device=device)
+    qm[::4, lq - 8:] = 0.0
+    return q, qm, tokens, starts[pick].cpu(), counts[pick].int().cpu(), pad
+
+
+def _k14_check(out, got, want, shape, fill):
+    """K14 against its plain version: non-finite entries identical, the rest
+    within rtol = atol = 1e-4 (the bar of tests/test_perf_ops.py:91)."""
+    import torch
+
+    fin = torch.isfinite(want)
+    check(got.shape == want.shape and torch.equal(fin, torch.isfinite(got))
+          and torch.equal(got[~fin], want[~fin]), f"K14 non-finite entries at {shape}")
+    err = float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
+    rel_ok = bool(((got - want).abs()[fin] <= 1e-4 + 1e-4 * want.abs()[fin]).all())
+    print(f"[kernels] maxsim {shape} fill {fill}: max |d| {err:.4g}, "
+          f"max |plain| {float(want[fin].abs().max()) if bool(fin.any()) else 0.0:.4g}")
+    check(rel_ok, f"K14 vs plain at {shape}: max |d| {err}")
+    out["max_abs_err"] = max(out["max_abs_err"], err)
+
+
 def phase_maxsim_kernel(sz, device):
-    """K14 against its plain version at the ColBERT shapes, rtol = atol =
-    1e-4 (the bar of tests/test_perf_ops.py:91), with fill -1000 and -inf.
-    Bound: the live (query token, doc token) pairs' f32 FMAs at the FP32
-    rate, or the bytes."""
+    """K14 against its plain version, rtol = atol = 1e-4 (the bar of
+    tests/test_perf_ops.py:91): the all-pairs form at the ColBERT shapes
+    with fill -1000 and -inf (f32 docs), and the gathered form at the
+    ColBERT run's batched rescore (its launch on the main path: 256 queries
+    against their own 64 candidates of float16 token rows, fill -inf), the
+    headline. Bound: the bytes, or the TF32 products the split issues (3 for
+    f32 docs, 2 for float16) over the live (query token, doc token) pairs
+    at the TF32 rate."""
     import torch
 
     from matchmaker_tpu_torch.ops import maxsim as ms
 
     out = {"maxsim_all_pairs": {"max_abs_err": 0.0}}
+    entry = out["maxsim_all_pairs"]
     for i, (bq, lq, bd, ld, dim, fill, below) in enumerate(sz["maxsim_shapes"]):
         q, d, qm, dm = _maxsim_inputs(bq, lq, bd, ld, dim, below, device, seed=400 + i)
         got = ms.maxsim_all_pairs(q, d, qm, dm, fill=fill)
         want = ms.reference_maxsim_all_pairs(q, d, qm, dm, fill)
-        fin = torch.isfinite(want)
-        check(got.shape == (bq, bd) and torch.equal(fin, torch.isfinite(got))
-              and torch.equal(got[~fin], want[~fin]), f"K14 non-finite entries at {(bq, lq, bd, ld)}")
-        err = float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
-        rel_ok = bool(((got - want).abs()[fin] <= 1e-4 + 1e-4 * want.abs()[fin]).all())
-        print(f"[kernels] maxsim_all_pairs {(bq, lq, bd, ld, dim)} fill {fill}: max |d| {err:.4g}, "
-              f"max |plain| {float(want[fin].abs().max()) if bool(fin.any()) else 0.0:.4g}")
-        check(rel_ok, f"K14 vs plain at {(bq, lq, bd, ld, dim)}: max |d| {err}")
-        out["maxsim_all_pairs"]["max_abs_err"] = max(out["maxsim_all_pairs"]["max_abs_err"], err)
+        _k14_check(entry, got, want, (bq, lq, bd, ld, dim), fill)
+        check(torch.equal(got, ms.maxsim_all_pairs(q, d, qm, dm, fill=fill)), f"K14 reruns differ at {(bq, lq)}")
         ops = 2 * dim * int((qm > 0).sum()) * int((dm > 0).sum())
-        _record(out["maxsim_all_pairs"], [bq, lq, bd, ld, dim], lambda a=(q, d, qm, dm), f=fill: ms.maxsim_all_pairs(
-                    *a, fill=f), lambda a=(q, d, qm, dm), f=fill: ms.reference_maxsim_all_pairs(*a, f), device,
-                sz["reps"], headline=i == 0, bound_of=bound(nbytes(q, d, qm, dm, got), f32=ops))
-        if i == 0 and device.type == "cuda":
-            # the same shape with D streamed in slabs, the form D > 256 takes: the same bits, and its time
-            streamed = ms._maxsim_cuda(q, d, qm, dm, fill, stream_d=True)
-            check(torch.equal(streamed, got), "K14 streamed and resident forms differ at the headline shape")
-            resident_ms = _time_ms(lambda a=(q, d, qm, dm): ms.maxsim_all_pairs(*a, fill=fill), device, sz["reps"])
-            streamed_ms = _time_ms(lambda a=(q, d, qm, dm): ms._maxsim_cuda(*a, fill, stream_d=True), device,
-                                   sz["reps"])
-            out["maxsim_all_pairs"].update(resident_ms=resident_ms, streamed_ms=streamed_ms)
-            print(f"[kernels]   headline with D resident {resident_ms:.4f} ms, streamed in slabs {streamed_ms:.4f} ms "
-                  f"(the same bits)")
+        _record(entry, [bq, lq, bd, ld, dim], lambda a=(q, d, qm, dm), f=fill: ms.maxsim_all_pairs(*a, fill=f),
+                lambda a=(q, d, qm, dm), f=fill: ms.reference_maxsim_all_pairs(*a, f), device, sz["reps"],
+                headline=False, bound_of=bound(nbytes(q, d, qm, dm, got), tf32=3 * ops))
+    q, qm, tokens, first, count, pad = _gathered_inputs(sz, device, seed=409)
+    fill = float("-inf")
+
+    def plain():
+        slots = torch.arange(pad, device=device)
+        rows = first.to(device)[..., None] + slots
+        live = (slots < count.to(device)[..., None]).float()
+        return torch.stack([ms.reference_maxsim_all_pairs(q[i:i + 1], tokens[rows[i].clamp(max=len(tokens) - 1)]
+                                                          .float(), qm[i:i + 1], live[i], fill)[0]
+                            for i in range(q.shape[0])])
+
+    got = ms.maxsim_gathered(q, qm, tokens, first, count, pad, fill=fill)
+    shape = [q.shape[0], q.shape[1], first.shape[1], pad, q.shape[2]]
+    _k14_check(entry, got, plain(), ("gathered", *shape), fill)
+    check(torch.equal(got, ms.maxsim_gathered(q, qm, tokens, first, count, pad, fill=fill)),
+          "K14's gathered form: reruns differ")
+    live_q = (qm > 0).sum(1).double().cpu()
+    ops = int(2 * q.shape[2] * float((live_q * count.double().sum(1)).sum()))
+    # the token rows of the distinct spans, once each (a document drawn twice
+    # is read from device memory once; its second use can come from L2)
+    distinct = torch.unique(torch.stack([first.flatten(), count.flatten().long()], 1), dim=0)
+    read = int(distinct[:, 1].sum()) * q.shape[2] * tokens.element_size()
+    _record(entry, ["gathered", *shape], lambda: ms.maxsim_gathered(q, qm, tokens, first, count, pad, fill=fill),
+            plain, device, sz["reps"], headline=True,
+            bound_of=bound(read + nbytes(q, qm, first, count, got), tf32=2 * ops))
+    entry["headline"] = ("the ColBERT run's batched rescore: one launch for a query batch against each query's own "
+                         "candidates (float16 token spans)")
     return out
 
 
@@ -1500,12 +1567,12 @@ def _colbert_config(root, sz, device):
 def predicted_colbert_launches(sz):
     """K1/K2 once per layer and encode batch (the collection's and the
     queries'); K3, K4 (the pool oversamples 48 by >= 128x) and K6 once per
-    query batch; K14 once per query (each has candidates); K13 and every
-    kernel not named here never."""
+    query batch; K14 once per query batch (the batched rescore); K13 and
+    every kernel not named here never."""
     q_batches = -(-sz["queries"] // sz["colbert_query_batch"])
     encode = sz["n_layers"] * (-(-sz["passages"] // sz["batch"]) + q_batches)
     return {"fused_attention_block": encode, "fused_mlp_block": encode, "binmax_candidates": q_batches,
-            "level2_reduce": q_batches, "unpack_candidates": q_batches, "maxsim_all_pairs": sz["queries"],
+            "level2_reduce": q_batches, "unpack_candidates": q_batches, "maxsim_all_pairs": q_batches,
             "fused_mha": 0}
 
 
@@ -1671,21 +1738,39 @@ def phase_colbert(sz, device, root):
           f"{swapped} documents differ, each tied with its list's last score")
     check(worst <= 1e-5, f"colbert: device vs host merge relative |d| {worst}")
 
-    # the run file's rescored scores against the plain exact MaxSim
+    # the batched rescore (the CLI's: one K14 launch for the batch) against
+    # the per-query rescore, then the run file's scores against the plain
+    # exact MaxSim
     store = cs.TokenVectorStore(enc)
     pad_t = -(-store.max_tokens // 8) * 8
     result["store_padded_tokens"] = pad_t
-    q_host = q_vecs.cpu().numpy()
-    t0 = time.perf_counter()
-    for qi in range(sz["colbert_checked_queries"]):
-        cs.exact_rescore(q_host[qi], q_mask[qi], dev[qi][:sz["colbert_rescore_n"]], store, sz["colbert_top_n"],
-                         sz["colbert_rescore_n"], pad_t, device)
-    result["rescore_ms_per_query"] = (time.perf_counter() - t0) * 1e3 / sz["colbert_checked_queries"]
-    print(f"[colbert] host clock: device merge {result['device_merge_s'] * 1e3:.1f} ms and host merge "
-          f"{result['host_merge_s'] * 1e3:.1f} ms for {b} queries; exact rescore "
-          f"{result['rescore_ms_per_query']:.3f} ms a query")
     check(pad_t == sz["maxsim_shapes"][2][3], f"colbert: the store's padded tokens {pad_t} are not phase 3's "
           f"rescore shape")
+    rescore_n, top_n = sz["colbert_rescore_n"], sz["colbert_top_n"]
+    lists = [row[:rescore_n] for row in dev]
+    rows_dev = store.device_rows(device)  # the store's float16 rows, uploaded once
+    batched = cs.exact_rescore_batch(q_vecs, q_mask, lists, store, top_n, rescore_n, pad_t, rows_dev)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cs.exact_rescore_batch(q_vecs, q_mask, lists, store, top_n, rescore_n, pad_t, rows_dev)
+    result["rescore_ms_per_batch"] = (time.perf_counter() - t0) * 1e3
+    q_host = q_vecs.cpu().numpy()
+    t0 = time.perf_counter()
+    worst = 0.0
+    for qi in range(sz["colbert_checked_queries"]):
+        one = cs.exact_rescore(q_host[qi], q_mask[qi], lists[qi], store, top_n, rescore_n, pad_t, device)
+        check([d for d, _ in one] == [d for d, _ in batched[qi]], f"colbert: batched and per-query rescores "
+              f"of query {qi} rank different documents")
+        worst = max([worst] + [abs(a - c) / max(abs(c), 1e-30) for (_, a), (_, c) in zip(batched[qi], one)])
+    result["rescore_ms_per_query"] = (time.perf_counter() - t0) * 1e3 / sz["colbert_checked_queries"]
+    result["batched_vs_per_query_max_rel"] = worst
+    print(f"[colbert] host clock: device merge {result['device_merge_s'] * 1e3:.1f} ms and host merge "
+          f"{result['host_merge_s'] * 1e3:.1f} ms for {b} queries; batched exact rescore "
+          f"{result['rescore_ms_per_batch']:.3f} ms for the batch of {b} ({result['rescore_ms_per_batch'] / b:.4f} "
+          f"ms a query), the per-query rescore {result['rescore_ms_per_query']:.3f} ms a query; the same documents, "
+          f"scores within {worst:.3g} relative")
+    check(worst <= 1e-5, f"colbert: batched vs per-query rescore relative |d| {worst}")
     worst = 0.0
     for qi in range(sz["colbert_checked_queries"]):
         docs = run_file[qids[qi]]
@@ -2201,9 +2286,16 @@ DESIGN = {
                          "two xor shuffles, stored packed into the (Q, C) layout",
     "binmax_candidates_int8": "the same scan with m64n128k32 s8 -> s32 products, f32(raw) * bin scale * query "
                               "scale before the selection; bit-identical to its plain version",
+    "binmax_candidates_int8f": "the same scan (SCAN_MIXED): the bin's int8 codes by TMA into a staging area, turned "
+                               "into the 128-byte-swizzled bf16 B operand by the producer warpgroup's three idle warps "
+                               "(exact), m64n128k16 bf16 -> f32 products, f32 sum * bin scale before the selection",
+    "maxsim_all_pairs": "split-TF32 mma.sync m16n8k8 (hi + lo of each f32 operand, three products; two for float16 "
+                        "tokens), whole queries packed in row tiles of Lq rounded to 16, token chunks of 64 through a "
+                        "3-stage cp.async ring, the max in registers, across the quad by shuffles and across warps in "
+                        "shared memory; one launch serves a query batch's gathered candidate spans or all pairs",
 }
 
-BESIDE = ("resident_ms", "streamed_ms", "fused_mha_ms", "chain_ms", "fused_mlp_block_ms",
+BESIDE = ("headline", "fused_mha_ms", "chain_ms", "fused_mlp_block_ms",
           "f32_p_vs_f32_plain_mean_abs", "batched_vs_f32_plain_mean_abs", "parts", "parts_total_ms",
           "library_chain_ms", "product_library_ms", "product_library_call", "colbert_shape_identical")
 
@@ -2325,7 +2417,8 @@ def main() -> int:
     col = report["colbert"]
     print(f"[{card}] colbert: {col['token_rows']} token rows ({col['index_device_bytes'] / 1e9:.3f} GB bf16 on the "
           f"card), encode {col['encode_psg_per_s']:.1f} psg/s and search {col['search_qps']:.1f} QPS in the CLI "
-          f"(rescore included), device-only per-token search {col['token_search_device_qps']:.1f} QPS; per-token "
+          f"(rescore included: {col['rescore_ms_per_batch']:.3f} ms a batch of {FULL['colbert_query_batch']} "
+          f"queries), device-only per-token search {col['token_search_device_qps']:.1f} QPS; per-token "
           f"recall@{FULL['colbert_candidates']} {col['token_recall']:.4f}, recall@{FULL['colbert_top_n']} vs "
           f"exhaustive MaxSim {col['recall@10_vs_exhaustive']:.4f}")
     for k in report["kernels"]:

@@ -6,7 +6,7 @@
 //   K7 _binmax_kernel_int8 (int8 corpus, int8 query codes)
 //                                         -> scan_kernel<P, SCAN_INT8, SLABS>
 //   K8 _binmax_kernel_int8f (int8 corpus, bf16 queries)
-//                                         -> binmax_int8f_kernel<P> (tile_mma.cuh)
+//                                         -> scan_kernel<P, SCAN_MIXED, SLABS>
 //   K5 _transpose_kernel                  -> folded into the scans' stores
 //   K4 _make_level2_kernel (level 2)      -> level2_kernel
 //   K6 _unpack_kernel                     -> unpack_kernel
@@ -19,29 +19,41 @@
 // reaches after its transpose pass: column = tile*(per_bin*nb) + rank*nb +
 // bin, nb = tile_rows/128. K7 scores are exact int32 sums, then
 // f32(raw) * bin scale * query scale, in that order and rounded at each
-// step, as the TPU kernel does; K8 multiplies bf16 products of the codes
-// (exact in bf16) by the bin scale.
+// step, as the TPU kernel does; K8 multiplies the f32 sum of bf16 products
+// of the codes (exact in bf16) and the queries by the bin scale, rounded
+// once (mips_binmax.py:312-313).
 //
 // What bounds the scans on the card: at Q = 256 over 262,144 x 768 rows the
-// corpus read (N*D*2 bytes for K3, N*D for K7: 0.125 / 0.065 ms at 3.35
-// TB/s) sets the floor, with the tensor cores' 2*Q*N*D operations close
-// behind (0.104 ms bf16, 0.052 ms int8); the per-bin selection is ALU work
-// that grows with Q*N*per_bin: at per_bin 8 about half of K3's time and 70 %
-// of K7's (ptxas recomputes a compare for each select of the insertion).
+// corpus read (N*D*2 bytes for K3, N*D for K7 and K8: 0.125 / 0.065 ms at
+// 3.35 TB/s) sets the floor, with the tensor cores' 2*Q*N*D operations
+// close behind (0.104 ms bf16, K3 and K8; 0.052 ms int8); the per-bin
+// selection is ALU work that grows with Q*N*per_bin: at per_bin 8 about
+// half of K3's time and 70 % of K7's (ptxas recomputes a compare for each
+// select of the insertion).
 //
-// scan_kernel (K3, K7) is one persistent, warp-specialised kernel on the
-// pieces of wgmma_gemm.cuh. The queries are the wgmma A operand (m64
-// slabs), one 128-row corpus bin the B operand (n128); both are K-major
-// where they lie, (Q, D) and (N, D) row-major, so no copy is made. One
-// producer thread keeps TMA loads of 128-byte-deep stages (64 bf16 or 128
-// int8 codes of K) in flight through an mbarrier ring; two consumer
-// warpgroups each multiply SLABS m64 slabs of queries by the bin (K3:
-// m64n128k16 bf16 -> f32, K7: m64n128k32 s8 -> s32), so a unit is one bin
-// against 128 * SLABS queries and the whole bin's scores of a query row sit
-// in the registers of one quad of lanes. One CTA per SM walks over the
-// units, query blocks of a bin back to back (the bin's second read hits
-// L2; at Q <= 256 a launch reads the corpus from device memory once), and
-// the producer loads the next unit while the consumers select.
+// scan_kernel is one persistent, warp-specialised kernel on the pieces of
+// wgmma_gemm.cuh. The queries are the wgmma A operand (m64 slabs), one
+// 128-row corpus bin the B operand (n128); both are K-major where they lie,
+// (Q, D) and (N, D) row-major, so no copy is made. One producer thread
+// keeps TMA loads of 128-byte-deep stages (64 bf16 or 128 int8 codes of K)
+// in flight through an mbarrier ring; two consumer warpgroups each multiply
+// SLABS m64 slabs of queries by the bin (K3 and K8: m64n128k16 bf16 -> f32,
+// K7: m64n128k32 s8 -> s32), so a unit is one bin against 128 * SLABS
+// queries and the whole bin's scores of a query row sit in the registers
+// of one quad of lanes. One CTA per SM walks over the units, query blocks
+// of a bin back to back (the bin's second read hits L2; at Q <= 256 a
+// launch reads the corpus from device memory once), and the producer loads
+// the next unit while the consumers select.
+//
+// K8 (SCAN_MIXED): a stage holds 64 of K, the queries as K3 loads them and
+// the bin's 128 x 64 int8 codes, by TMA as they lie (no swizzle) into a
+// staging area with a barrier of its own. The producer warpgroup's three
+// idle warps (96 threads) turn them into bf16 in the 128-byte-swizzled
+// layout TMA gives K3's corpus operand (exact: |code| <= 127), fence the
+// writes for the async proxy, and arrive on the stage's full barrier beside
+// the queries' transaction bytes; the consumers run K3's products,
+// selection and stores unchanged. A stage is 32 + 16 + 8 KB at 256 queries,
+// four in a 224 KB ring.
 //
 // Selection in registers: in the accumulator layout a lane holds, for each
 // of its query rows, the bin columns {8j + 2t, 8j + 2t + 1}, j = 0..15,
@@ -67,7 +79,6 @@
 // SLABS = 1 (a unit of 128 queries, for Q <= 128) or 2 (256 queries). Query
 // rows past Q and K past D arrive as zeros (TMA's fill); their stores are
 // masked.
-#include "tile_mma.cuh"
 #include "wgmma_gemm.cuh"
 
 #include <math.h>
@@ -76,9 +87,6 @@
 namespace mm {
 
 constexpr int BIN = 128;
-constexpr int S_LD = TILE_N + 4;  // K8's score tile row stride (floats)
-constexpr int BINMAX_INT8F_SMEM =
-    TILE_SMEM_BYTES > TILE_M * S_LD * 4 ? TILE_SMEM_BYTES : TILE_M * S_LD * 4;
 constexpr int L2_BLOCK = 1024;  // level-2 column block (matchmaker_tpu _L2_BLOCK)
 constexpr int L2_KEEP = 8;      // candidates kept per level-2 group (LEVEL2_PER_BIN)
 
@@ -111,80 +119,37 @@ __device__ __forceinline__ void insert_top(float (&tv)[P], int (&ti)[P], float v
   }
 }
 
-// ---- K8: the mixed scan on the wmma tiles of tile_mma.cuh ---------------------
-// grid (NR/128 bins, ceil(NQ/128) query tiles). queries (NQ, D) bf16, corpus
-// (NR, D) int8 codes, bin_scales (NR/128) f32. One block scores one bin
-// against 128 queries, keeps the 128x128 score tile in shared memory, and
-// each of 128 threads selects its query's top P of the bin.
-template <int P>
-__global__ void __launch_bounds__(TILE_THREADS) binmax_int8f_kernel(const bf16* __restrict__ queries,
-                                                                     const int8_t* __restrict__ corpus,
-                                                                     const float* __restrict__ bin_scales,
-                                                                     float* __restrict__ out, int NQ, int NR,
-                                                                     int D, int n_valid, int nb,
-                                                                     long long ld_out) {
-  extern __shared__ __align__(128) char smem[];
-  const int m0 = blockIdx.x * BIN, n0 = blockIdx.y * TILE_N;
-  float* S = reinterpret_cast<float*>(smem);  // [128 rows][S_LD], rows = corpus, columns = queries
-  const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
-  FragC acc[FRAG_M][FRAG_N];
-  tile_mma(corpus, NR, queries, NQ, D, m0, n0, smem, acc);
-#pragma unroll
-  for (int i = 0; i < FRAG_M; ++i)
-#pragma unroll
-    for (int j = 0; j < FRAG_N; ++j)
-      wmma::store_matrix_sync(S + (wm * WARP_M + i * 16) * S_LD + wn * WARP_N + j * 16, acc[i][j], S_LD,
-                              wmma::mem_row_major);
-  __syncthreads();
-
-  const int q = threadIdx.x;
-  if (q >= TILE_N || n0 + q >= NQ) return;
-  const float cs = bin_scales[blockIdx.x];
-  float tv[P];
-  int ti[P];
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    tv[j] = -INFINITY;
-    ti[j] = 0;
-  }
-  for (int r = 0; r < BIN; ++r) {
-    const float v = __fmul_rn(S[r * S_LD + q], cs);
-    insert_top<P>(tv, ti, m0 + r < n_valid ? v : -INFINITY, r);
-  }
-  const int tile = blockIdx.x / nb, bin = blockIdx.x % nb;
-  float* o = out + (size_t)(n0 + q) * ld_out + (size_t)tile * P * nb + bin;
-#pragma unroll
-  for (int j = 0; j < P; ++j) o[(size_t)j * nb] = pack_lane(tv[j], ti[j], 0);
-}
-
-// ---- K3, K7: the persistent wgmma/TMA scan ------------------------------------
+// ---- K3, K7, K8: the persistent wgmma/TMA scan ------------------------------------
 namespace scan {
 
 using namespace wg;  // mbarriers, TMA, tensor maps, wgmma fences
 
-enum ScanMode : int { SCAN_BF16 = 0, SCAN_INT8 = 1 };
+enum ScanMode : int { SCAN_BF16 = 0, SCAN_INT8 = 1, SCAN_MIXED = 2 };
 
 constexpr int ROW_BYTES = 128;               // bytes of K a stage: one 128-byte swizzled row
 constexpr int SLAB_BYTES = 64 * ROW_BYTES;   // one m64 slab of query rows: 8 KB
 constexpr int BIN_BYTES = BIN * ROW_BYTES;   // one corpus bin: 16 KB
+constexpr int CODE_BYTES = BIN * 64;         // K8: a bin's int8 codes of a stage (64 of K): 8 KB
 constexpr int CONSUMERS = 2;                 // consumer warpgroups, beside one producer warpgroup
+constexpr int CONVERTERS = 96;               // K8: the producer warpgroup's warps 1-3
 constexpr int THREADS = 128 * (CONSUMERS + 1);
 
 template <int SLABS>
 __host__ __device__ constexpr int query_rows() {  // queries a unit
   return CONSUMERS * SLABS * 64;
 }
-template <int SLABS>
-__host__ __device__ constexpr int stage_bytes() {  // the query block's rows and the bin's
-  return CONSUMERS * SLABS * SLAB_BYTES + BIN_BYTES;
+template <int MODE, int SLABS>
+__host__ __device__ constexpr int stage_bytes() {  // the query block's rows and the bin's (K8: + its codes)
+  return CONSUMERS * SLABS * SLAB_BYTES + BIN_BYTES + (MODE == SCAN_MIXED ? CODE_BYTES : 0);
 }
-template <int SLABS>
-__host__ __device__ constexpr int ring_stages() {  // a ring of 192 KB
-  return 196608 / stage_bytes<SLABS>();
+template <int MODE, int SLABS>
+__host__ __device__ constexpr int ring_stages() {  // a ring of 192 KB (K8: 224 KB, four stages at 256 queries)
+  return (MODE == SCAN_MIXED ? 229376 : 196608) / stage_bytes<MODE, SLABS>();
 }
-template <int SLABS>
-__host__ __device__ constexpr int ring_smem_bytes() {
-  return ring_stages<SLABS>() * stage_bytes<SLABS>() + 1024 /* alignment */ + 2 * ring_stages<SLABS>() * 8;
+template <int MODE, int SLABS>
+__host__ __device__ constexpr int ring_smem_bytes() {  // + alignment, + 2 (K8: 3) barriers a stage
+  return ring_stages<MODE, SLABS>() * stage_bytes<MODE, SLABS>() + 1024 +
+         (MODE == SCAN_MIXED ? 3 : 2) * ring_stages<MODE, SLABS>() * 8;
 }
 
 struct Params {
@@ -192,7 +157,7 @@ struct Params {
   int q_blocks;             // ceil(NQ / query_rows)
   int k_steps;              // 128-byte stages of K
   long long ld_out;
-  const float* bin_scales;    // (NR/128) f32, K7
+  const float* bin_scales;    // (NR/128) f32, K7 and K8
   const float* query_scales;  // (NQ) f32, K7
   float* out;                 // (NQ, ld_out) f32
 };
@@ -226,7 +191,7 @@ __device__ __forceinline__ void wgmma_m64n128_bf16(float (&d)[64], uint32_t a_ad
       : "r"(a_addr), "r"(b_addr), "r"(accumulate));
 }
 
-// one 32-byte k slice of a stage: 16 bf16 (K3) or 32 int8 codes (K7)
+// one 32-byte k slice of a stage: 16 bf16 (K3, K8) or 32 int8 codes (K7)
 __device__ __forceinline__ void mma_step(float (&d)[64], uint32_t a, uint32_t b, int accumulate) {
   wgmma_m64n128_bf16(d, a, b, accumulate);
 }
@@ -241,11 +206,43 @@ __device__ __forceinline__ void pin(float (&r)[64]) {
 }
 __device__ __forceinline__ void pin(int (&r)[64]) { fence_regs(r); }
 
-// a score of the accumulators: K3 as it is; K7 f32(raw) * bin scale *
-// query scale, each product rounded (the TPU kernel's order)
-__device__ __forceinline__ float score(float acc, float, float) { return acc; }
+// a score of the accumulators: K3 as it is; K8 the f32 sum * bin scale;
+// K7 f32(raw) * bin scale * query scale; each product rounded (the TPU
+// kernels' order)
+template <int MODE>
+__device__ __forceinline__ float score(float acc, float cs, float) {
+  return MODE == SCAN_MIXED ? __fmul_rn(acc, cs) : acc;
+}
+template <int MODE>
 __device__ __forceinline__ float score(int acc, float cs, float qs) {
   return __fmul_rn(__fmul_rn(static_cast<float>(acc), cs), qs);
+}
+
+// K8: eight int8 codes (two words) -> eight bf16 (a 16-byte chunk), exact.
+// A code x becomes f32 by its bits: 0x4B000000 | (x ^ 0x80) is 2^23 + 128 +
+// x, less 2^23 + 128; the bf16 is that f32's high half, its low half being
+// zero (|x| <= 127 needs 7 bits of mantissa).
+__device__ __forceinline__ uint32_t code_bits(uint32_t flipped, uint32_t byte) {
+  return __float_as_uint(__uint_as_float(__byte_perm(flipped, 0x4B000000u, 0x7440u | byte)) - 8388736.0f);
+}
+__device__ __forceinline__ uint2 codes_to_bf16(uint32_t w) {
+  const uint32_t f = w ^ 0x80808080u;
+  return make_uint2(__byte_perm(code_bits(f, 0), code_bits(f, 1), 0x7632u),
+                    __byte_perm(code_bits(f, 2), code_bits(f, 3), 0x7632u));
+}
+
+// K8: a stage's codes (128 rows x 64, as TMA lays them without a swizzle)
+// into the bf16 B operand, 16-byte chunk c of row r at chunk c ^ (r % 8):
+// the 128-byte swizzle TMA gives K3's corpus. Converter thread ct of 96
+// takes chunks ct, ct + 96, ...; a warp reads 256 contiguous bytes and
+// writes four whole 128-byte rows, so neither side has bank conflicts.
+__device__ __forceinline__ void convert_codes(const uint8_t* codes, uint8_t* tile, int ct) {
+  for (int i = ct; i < BIN * 8; i += CONVERTERS) {
+    const int r = i >> 3, c = i & 7;
+    const uint2 w = *reinterpret_cast<const uint2*>(codes + r * 64 + c * 8);
+    const uint2 lo = codes_to_bf16(w.x), hi = codes_to_bf16(w.y);
+    *reinterpret_cast<uint4*>(tile + r * 128 + ((c ^ (r & 7)) << 4)) = make_uint4(lo.x, lo.y, hi.x, hi.y);
+  }
 }
 
 // insert_top's rule without a branch: with c[j] = v > tv[j] (the list
@@ -253,7 +250,7 @@ __device__ __forceinline__ float score(int acc, float cs, float qs) {
 // its own; j runs downwards so tv[j - 1] is still the old value. In the
 // scan a warp's lanes insert eight rows' scores at once, so insert_top's
 // early-out diverges on nearly every score (tried: K3 per_bin 8 2.7x
-// slower); level 2 and K8, one thread a row, keep it.
+// slower); level 2, one thread a row, keeps it.
 template <int P, typename I>
 __device__ __forceinline__ void insert_sorted(float (&tv)[P], I (&ti)[P], float v, I idx) {
 #pragma unroll
@@ -312,7 +309,7 @@ __device__ __forceinline__ void merge_lanes(float (&tv)[P], int (&ti)[P], int m)
 // e]), the two rows interleaved so their insertions overlap; a lane
 // position 2j + e rides as an f32 immediate and becomes its bin column at
 // the end. MASKED: columns at or past `live` score -inf.
-template <int P, bool MASKED, typename Acc>
+template <int P, int MODE, bool MASKED, typename Acc>
 __device__ __forceinline__ void select_slab(const Acc (&a)[64], float cs, const float (&qs)[2], int live, int quad,
                                             float (&tv)[2][P], int (&ti)[2][P]) {
   float tp[2][P];
@@ -329,7 +326,7 @@ __device__ __forceinline__ void select_slab(const Acc (&a)[64], float cs, const 
     for (int e = 0; e < 2; ++e)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        float v = score(a[4 * j + 2 * i + e], cs, qs[i]);
+        float v = score<MODE>(a[4 * j + 2 * i + e], cs, qs[i]);
         if (MASKED && 8 * j + 2 * quad + e >= live) v = -INFINITY;
         insert_sorted<P>(tv[i], tp[i], v, static_cast<float>(2 * j + e));
       }
@@ -344,14 +341,17 @@ __device__ __forceinline__ void select_slab(const Acc (&a)[64], float cs, const 
 
 // Persistent: CTA b takes units b, b + gridDim.x, ...; unit u scores bin
 // u / q_blocks against query block u % q_blocks. tq: queries (NQ, D), box
-// {128 bytes, query_rows}; tc: corpus (NR, D), box {128 bytes, 128}.
+// {128 bytes, query_rows}; tc: corpus (NR, D), box {128 bytes, 128} (K8:
+// its codes, box {64 bytes, 128}, no swizzle). A stage: the queries at 0,
+// the bin's B operand at A_BYTES (K8: its codes at A_BYTES + BIN_BYTES).
 template <int P, int MODE, int SLABS>
 __global__ void __launch_bounds__(THREADS, 1)
     scan_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tc, const Params p,
                 int units) {
   using Acc = typename std::conditional<MODE == SCAN_INT8, int, float>::type;
-  constexpr int STAGES = ring_stages<SLABS>();
-  constexpr int STAGE = stage_bytes<SLABS>();
+  constexpr bool MIXED = MODE == SCAN_MIXED;
+  constexpr int STAGES = ring_stages<MODE, SLABS>();
+  constexpr int STAGE = stage_bytes<MODE, SLABS>();
   constexpr int QROWS = query_rows<SLABS>();
   constexpr int A_BYTES = CONSUMERS * SLABS * SLAB_BYTES;
   constexpr int K_ELEMS = MODE == SCAN_INT8 ? ROW_BYTES : ROW_BYTES / 2;  // K elements a stage
@@ -360,12 +360,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
   uint64_t* empty = full + STAGES;
+  uint64_t* codes_full = empty + STAGES;  // K8: a stage's codes have landed
   const int warpgroup = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], 1 + (MIXED ? CONVERTERS : 0));
       mbar_init(&empty[s], CONSUMERS);
+      if (MIXED) mbar_init(&codes_full[s], 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -373,19 +375,43 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   if (warpgroup == CONSUMERS) {
     // producer: one thread keeps the ring full, running ahead into the next
-    // unit while the consumers select
+    // unit while the consumers select; K8: warps 1-3 convert the codes
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
-    if (threadIdx.x == CONSUMERS * 128) {
+    const int ptid = threadIdx.x - CONSUMERS * 128;
+    if (ptid == 0) {
       int it = 0;  // stages loaded so far, over all units
       for (int u = blockIdx.x; u < units; u += gridDim.x) {
         const int q0 = (u % p.q_blocks) * QROWS, r0 = (u / p.q_blocks) * BIN;
         for (int t = 0; t < p.k_steps; ++t, ++it) {
           const int s = it % STAGES;
           if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
-          mbar_expect_tx(&full[s], STAGE);
           uint8_t* st = smem + s * STAGE;
-          tma_load(&tq, st, &full[s], t * K_ELEMS, q0);
-          tma_load(&tc, st + A_BYTES, &full[s], t * K_ELEMS, r0);
+          if (MIXED) {
+            mbar_expect_tx(&full[s], A_BYTES);
+            tma_load(&tq, st, &full[s], t * K_ELEMS, q0);
+            mbar_expect_tx(&codes_full[s], CODE_BYTES);
+            tma_load(&tc, st + A_BYTES + BIN_BYTES, &codes_full[s], t * K_ELEMS, r0);
+          } else {
+            mbar_expect_tx(&full[s], STAGE);
+            tma_load(&tq, st, &full[s], t * K_ELEMS, q0);
+            tma_load(&tc, st + A_BYTES, &full[s], t * K_ELEMS, r0);
+          }
+        }
+      }
+    } else if (MIXED && ptid >= 32) {
+      // the stage's bf16 tile is free: the producer reloads a stage's codes
+      // only after the consumers released it
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        for (int t = 0; t < p.k_steps; ++t, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&codes_full[s], (it / STAGES) & 1);
+          uint8_t* st = smem + s * STAGE;
+          convert_codes(st + A_BYTES + BIN_BYTES, st + A_BYTES, ptid - 32);
+          // the tile was written through the generic proxy; wgmma reads it
+          // through the async proxy
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          mbar_arrive(&full[s]);
         }
       }
     }
@@ -421,7 +447,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int sl = 0; sl < SLABS; ++sl) pin(acc[sl]);
 
     // select each slab's rows, merge over the quads, store
-    const float cs = MODE == SCAN_INT8 ? p.bin_scales[bin_g] : 1.0f;
+    const float cs = MODE != SCAN_BF16 ? p.bin_scales[bin_g] : 1.0f;
     const int live = min(BIN, p.n_valid - r0);  // columns at or past it are masked
     const int tile = bin_g / p.nb, bin = bin_g % p.nb;
 #pragma unroll
@@ -436,9 +462,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       float tv[2][P];
       int ti[2][P];
       if (live >= BIN)
-        select_slab<P, false>(acc[sl], cs, qs, live, quad, tv, ti);
+        select_slab<P, MODE, false>(acc[sl], cs, qs, live, quad, tv, ti);
       else
-        select_slab<P, true>(acc[sl], cs, qs, live, quad, tv, ti);
+        select_slab<P, MODE, true>(acc[sl], cs, qs, live, quad, tv, ti);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         merge_lanes<P>(tv[i], ti[i], 1);
@@ -458,18 +484,33 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// K8's codes: (NR, D) int8 row-major, box {64 codes, 128 rows} laid out as
+// they lie (no swizzle: the converters read them), zeros past D
+inline bool make_codes_map(CUtensorMap* map, const void* ptr, int D, int NR) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)NR};
+  const cuuint64_t strides[1] = {(cuuint64_t)D};
+  const cuuint32_t box[2] = {64, BIN};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int P, int MODE, int SLABS>
 int launch_scan(const void* q, const void* c, const float* bs, const float* qs, float* out, int NQ, int NR, int D,
                 int n_valid, int nb, long long ld_out, cudaStream_t stream) {
-  constexpr int bytes = ring_smem_bytes<SLABS>();
+  constexpr int bytes = ring_smem_bytes<MODE, SLABS>();
   auto kernel = scan_kernel<P, MODE, SLABS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const CUtensorMapDataType type =
+  const CUtensorMapDataType type =  // the queries' (and K3's, K7's corpus)
       MODE == SCAN_INT8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tq, tc;
-  if (!make_map(&tq, q, D, NQ, false, type, query_rows<SLABS>()) || !make_map(&tc, c, D, NR, false, type, BIN))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const bool mapped = make_map(&tq, q, D, NQ, false, type, query_rows<SLABS>()) &&
+                      (MODE == SCAN_MIXED ? make_codes_map(&tc, c, D, NR) : make_map(&tc, c, D, NR, false, type, BIN));
+  if (!mapped) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.NQ = NQ;
   p.NR = NR;
@@ -557,18 +598,6 @@ __global__ void __launch_bounds__(256) unpack_kernel(const float* __restrict__ v
   out_ids[i] = finite ? tile * tile_rows + bin * BIN + (bits & 127) : -1;
 }
 
-template <int P>
-int launch_int8f(const bf16* q, const int8_t* c, const float* bs, float* out, int NQ, int NR, int D, int n_valid,
-                 int nb, long long ld_out, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(binmax_int8f_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         BINMAX_INT8F_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(NR / BIN, (NQ + TILE_N - 1) / TILE_N);
-  binmax_int8f_kernel<P><<<grid, TILE_THREADS, BINMAX_INT8F_SMEM, s>>>(q, c, bs, out, NQ, NR, D, n_valid, nb,
-                                                                        ld_out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace mm
 
 using namespace mm;
@@ -598,15 +627,8 @@ int mm_binmax_scan_int8(const void* queries, const void* corpus, const void* bin
   if (!mixed)
     return scan::launch_mode<scan::SCAN_INT8>(queries, corpus, bs, static_cast<const float*>(query_scales), o, NQ,
                                               NR, D, n_valid, per_bin, nb, ld_out, s);
-  const bf16* q = static_cast<const bf16*>(queries);
-  const int8_t* c = static_cast<const int8_t*>(corpus);
-  switch (per_bin) {
-    case 1: return launch_int8f<1>(q, c, bs, o, NQ, NR, D, n_valid, nb, ld_out, s);
-    case 2: return launch_int8f<2>(q, c, bs, o, NQ, NR, D, n_valid, nb, ld_out, s);
-    case 4: return launch_int8f<4>(q, c, bs, o, NQ, NR, D, n_valid, nb, ld_out, s);
-    case 8: return launch_int8f<8>(q, c, bs, o, NQ, NR, D, n_valid, nb, ld_out, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return scan::launch_mode<scan::SCAN_MIXED>(queries, corpus, bs, nullptr, o, NQ, NR, D, n_valid, per_bin, nb,
+                                             ld_out, s);
 }
 
 // out (NQ, ld_out) f32: level-2 reduction of in (NQ, ld_in) over c_pad

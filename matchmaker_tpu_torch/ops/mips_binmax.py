@@ -26,10 +26,11 @@ Kernels (``csrc/binmax_kernels.cu``), each with its plain version here:
 - :func:`_level2_cuda` / :func:`_level2_plain`: level 2 (TPU K4);
 - :func:`_unpack_cuda` / :func:`_unpack_plain`: decode (TPU K6).
 
-K3 and K7 are one persistent wgmma/TMA scan on the card that keeps each
-bin's scores in registers and selects there (the kernel's selection is
-emulated on the CPU in ``tests/test_torch_binmax_selection.py``); K7 is
-bit-identical to its plain version. K8 still runs on a wmma tile.
+K3, K7 and K8 are one persistent wgmma/TMA scan on the card that keeps
+each bin's scores in registers and selects there (the kernel's selection,
+and K8's conversion of the codes to bf16 and its score order, are emulated
+on the CPU in ``tests/test_torch_binmax_selection.py``); K7 is
+bit-identical to its plain version, K8 wherever its f32 sums are exact.
 
 The final top-k is ``torch.topk``, as JAX leaves it to XLA.
 :func:`binmax_rescore_topk` rescores an int8 scan's oversampled candidates

@@ -10,10 +10,15 @@ phase 2  per (query, doc) the retrieved per-token scores are combined with
          the true MaxSim), on the device (:func:`aggregate_maxsim_device`) or
          on the host (:func:`aggregate_maxsim_batch`);
 optional exact MaxSim rescoring of the top candidates with the stored doc
-vectors (:func:`exact_rescore`, the all-pairs MaxSim K14 on a card).
+vectors: :func:`exact_rescore_batch` rescores a whole query batch in one K14
+launch on a card (``ops/maxsim.py:maxsim_gathered``), the candidates given
+as spans of the store's token rows, which go to the card once
+(:meth:`TokenVectorStore.device_rows`, a second copy of the token vectors
+beside the index's); :func:`exact_rescore`, one query in padded
+shapes as JAX computes it, stays as the counterpart of JAX's
+``exact_rescore``. Both give the same ordering and scores (non-finite → 0).
 
-The per-query rescore gather from the memmapped blocks and the per-document
-result lists are Python loops, as in the JAX package.
+The per-document result lists are Python loops, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 from matchmaker_tpu_torch.data.loaders import device_prefetch, single_sequence_loader
 from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
 from matchmaker_tpu_torch.ops import matmul_f32
-from matchmaker_tpu_torch.ops.maxsim import maxsim_all_pairs
+from matchmaker_tpu_torch.ops.maxsim import maxsim_all_pairs, maxsim_gathered
 
 
 class TokenVectorStore:
@@ -46,10 +51,47 @@ class TokenVectorStore:
         self._span = {str(sid): tuple(span) for sid, span in zip(ids, spans)}
         self.dim = int(meta["dim"])
         self.max_tokens = int(max((e - s for _, s, e in self._span.values()), default=1))
+        # the blocks' first rows in their concatenation (retrieval/encode.py:load_encoded's order)
+        self._offsets = np.cumsum([0] + [b.shape[0] for b in self._blocks])
+        self.rows = int(self._offsets[-1])
+        self._device_rows: Dict[str, torch.Tensor] = {}
 
     def get(self, doc_id: str) -> np.ndarray:
         block, start, end = self._span[str(doc_id)]
         return np.asarray(self._blocks[block][start:end], dtype=np.float32)
+
+    def span(self, doc_id: str) -> Tuple[int, int]:
+        """(first row, token count) of a document in the blocks' concatenation."""
+        block, start, end = self._span[str(doc_id)]
+        return int(self._offsets[block]) + int(start), int(end) - int(start)
+
+    def device_rows(self, device: torch.device) -> torch.Tensor:
+        """Every token row, in the blocks' order and their dtype (float16 by
+        default), on ``device``: uploaded once, at the first call, block by
+        block into one tensor, so the host holds one block at a time, never
+        a second copy of the store. The rescore reads these rows and not the
+        index's: the binmax routes hold the rows permuted by a seeded
+        permutation, padded to the tile grain and as bf16 (3 mantissa bits
+        fewer than float16) or int8 codes, and the exact route as f32. So on
+        a card the store takes its own rows × D × 2 bytes (float16) beside
+        the index; where that exceeds the memory the card has free, a
+        MemoryError names both sizes before anything is allocated."""
+        device = torch.device(device)
+        key = str(device)
+        if key not in self._device_rows:
+            dtype = torch.from_numpy(np.zeros(0, dtype=self._blocks[0].dtype)).dtype
+            need = self.rows * self.dim * dtype.itemsize
+            if device.type == "cuda":
+                free = torch.cuda.mem_get_info(device)[0]
+                free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+                if need > free:
+                    raise MemoryError(f"the token store's {self.rows} rows x {self.dim} ({need / 2**30:.2f} GiB "
+                                      f"of {dtype}) do not fit the {free / 2**30:.2f} GiB free on {device}")
+            rows = torch.empty((self.rows, self.dim), dtype=dtype, device=device)
+            for block, first in zip(self._blocks, self._offsets):
+                rows[int(first):int(first) + block.shape[0]].copy_(torch.from_numpy(np.array(block)))
+            self._device_rows[key] = rows
+        return self._device_rows[key]
 
 
 def exact_rescore(q_vecs: np.ndarray, q_mask: np.ndarray, candidates: List[Tuple[str, float]],
@@ -75,6 +117,38 @@ def exact_rescore(q_vecs: np.ndarray, q_mask: np.ndarray, candidates: List[Tuple
     rescored = [(candidates[i][0], float(scores[i])) for i in range(c)]
     rescored.sort(key=lambda kv: kv[1], reverse=True)
     return rescored[:top_n]
+
+
+def exact_rescore_batch(q_vecs, q_mask: np.ndarray, candidates: List[List[Tuple[str, float]]],
+                        store: TokenVectorStore, top_n: int, pad_candidates: int, pad_tokens: int,
+                        tokens: torch.Tensor) -> List[List[Tuple[str, float]]]:
+    """:func:`exact_rescore` for a batch of queries in one K14 launch and one
+    download: q_vecs (B, Lq, D) (a tensor on ``tokens``' device or an
+    array), q_mask (B, Lq), each query's first ``pad_candidates``
+    candidates given as spans of ``tokens`` (the store's rows,
+    :meth:`TokenVectorStore.device_rows`) cut to ``pad_tokens``; padded doc slots take
+    −inf, a padded query token adds 0, a non-finite score (a document
+    without a live token) becomes 0, and each list is sorted as
+    :func:`exact_rescore` sorts it (stable, score descending)."""
+    kept = [cands[:pad_candidates] for cands in candidates]
+    first = np.zeros((len(kept), pad_candidates), dtype=np.int64)
+    count = np.zeros((len(kept), pad_candidates), dtype=np.int32)
+    for i, cands in enumerate(kept):
+        for j, (doc_id, _) in enumerate(cands):
+            start, n = store.span(doc_id)
+            first[i, j], count[i, j] = start, min(n, pad_tokens)
+    q = torch.as_tensor(q_vecs, dtype=torch.float32).to(tokens.device)
+    qm = torch.from_numpy((np.asarray(q_mask) > 0).astype(np.float32)).to(tokens.device)
+    with torch.inference_mode():
+        scores = maxsim_gathered(q, qm, tokens, torch.from_numpy(first), torch.from_numpy(count), pad_tokens,
+                                 fill=float("-inf"))
+        scores = torch.where(torch.isfinite(scores), scores, 0.0).cpu().numpy()
+    out = []
+    for i, cands in enumerate(kept):
+        rescored = [(doc_id, float(scores[i, j])) for j, (doc_id, _) in enumerate(cands)]
+        rescored.sort(key=lambda kv: kv[1], reverse=True)
+        out.append(rescored[:top_n])
+    return out
 
 
 def aggregate_maxsim_batch(
@@ -238,9 +312,11 @@ def colbert_search_queries(
     results: Dict[str, List[Tuple[str, float]]] = {}
     rescore = rescore_store is not None and rescore_n > 0
     if rescore:
-        # fixed padded shapes, as the JAX package keeps one compile
+        # the JAX package's padded shapes: rescore_n candidates, the longest
+        # document's tokens rounded up to 8
         pad_c = rescore_n
         pad_t = -(-rescore_store.max_tokens // 8) * 8
+        rescore_rows = rescore_store.device_rows(device)  # the store's rows, uploaded once
 
     loader = single_sequence_loader(config, tokenizer, query_path, "query")
     # integer path: factorize the index's per-row ids once, search raw rows,
@@ -253,7 +329,8 @@ def colbert_search_queries(
     n = 0
     for batch, qids in device_prefetch(loader, device):
         perf.start_block("search_query_encode")
-        q_vecs = encode_fn(batch["seq_ids"], batch["seq_mask"]).float().cpu().numpy()  # (B, Lq, D)
+        q_dev = encode_fn(batch["seq_ids"], batch["seq_mask"]).float()  # (B, Lq, D)
+        q_vecs = q_dev.cpu().numpy()
         perf.stop_block("search_query_encode", len(qids))
         b, lq, dim = q_vecs.shape
         mask = batch["seq_mask"].cpu().numpy()  # (B, Lq)
@@ -275,13 +352,11 @@ def colbert_search_queries(
             merged = aggregate_maxsim_device(scores, ids, mask, keep, vocab=slot_vocab, device=device)
         else:
             merged = aggregate_maxsim_batch(scores, ids, mask, keep, vocab=slot_vocab)
+        if rescore:  # one launch for the batch
+            merged = exact_rescore_batch(q_dev[:len(qids)], mask[:len(qids)], merged[:len(qids)], rescore_store,
+                                         top_n, pad_c, pad_t, rescore_rows)
         for q_idx, qid in enumerate(qids):
-            cands = merged[q_idx]
-            if rescore and cands:
-                results[qid] = exact_rescore(q_vecs[q_idx], mask[q_idx], cands[:rescore_n], rescore_store,
-                                             top_n, pad_c, pad_t, device)
-            else:
-                results[qid] = cands[:top_n]
+            results[qid] = merged[q_idx][:top_n]
         perf.stop_block("search_aggregation", len(qids))
         n += len(qids)
     perf.stop_block("search_total", n)

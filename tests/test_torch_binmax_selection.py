@@ -1,7 +1,11 @@
-"""The binmax scans' register selection (K3, K7 in
+"""The binmax scans' register selection (K3, K7, K8 in
 matchmaker_tpu_torch/csrc/binmax_kernels.cu, ``scan_kernel``), emulated in
 torch on the CPU and held to the plain selection (``_select_plain``) bit
-for bit, and for one case to JAX's ``_topk_per_bin_t``.
+for bit, and for one case to JAX's ``_topk_per_bin_t``; and K8's mode
+(``SCAN_MIXED``): its conversion of the int8 codes to bf16 by their bits
+and its score order (the f32 sum of bf16 products, times the bin scale,
+rounded once) through the same selection, against ``_scan_int8f_plain`` and
+JAX's interpreted Pallas K8.
 
 The kernel's lane-to-column map: in the wgmma m64n128 accumulator layout,
 lane t = lane % 4 of a quad holds, for each of its query rows, the bin
@@ -20,6 +24,8 @@ import pytest
 import torch
 
 from matchmaker_tpu.ops import mips_binmax as jmb
+from matchmaker_tpu.ops import mips_quant as jmq
+from matchmaker_tpu_torch.ops import matmul_f32
 from matchmaker_tpu_torch.ops import mips_binmax as tmb
 
 BIN = 128
@@ -164,3 +170,62 @@ def test_lane_columns_cover_each_bin_once():
     assert cols == list(range(BIN))
     for t in range(4):
         assert _lane_columns(t) == sorted(_lane_columns(t))  # ascending offsets: '>' keeps the lowest
+
+
+def code_to_bf16_bits(codes: np.ndarray) -> np.ndarray:
+    """K8's conversion (binmax_kernels.cu ``code_bits`` / ``codes_to_bf16``):
+    the code's byte with its sign bit flipped under 0x4B000000 is the f32
+    2^23 + 128 + x; less 2^23 + 128 it is x, and the bf16 is that f32's high
+    half."""
+    flipped = (codes.astype(np.int8).view(np.uint8) ^ np.uint8(0x80)).astype(np.uint32)
+    value = (np.uint32(0x4B000000) | flipped).view(np.float32) - np.float32(8388736.0)
+    return (value.astype(np.float32).view(np.uint32) >> np.uint32(16)).astype(np.uint16)
+
+
+def test_mixed_code_conversion_is_exact_for_every_code():
+    """Every int8 value becomes the bf16 torch makes of it, the low half of
+    the f32 being zero (|x| <= 127 needs 7 mantissa bits)."""
+    codes = np.arange(-128, 128, dtype=np.int8)
+    flipped = (codes.view(np.uint8) ^ np.uint8(0x80)).astype(np.uint32)
+    value = (np.uint32(0x4B000000) | flipped).view(np.float32) - np.float32(8388736.0)
+    assert (value.view(np.uint32) & np.uint32(0xFFFF) == 0).all()
+    want = torch.from_numpy(codes).to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    assert np.array_equal(code_to_bf16_bits(codes), want)
+
+
+def emulate_mixed_scan(queries, codes, bin_scales, n_valid, per_bin, tile_rows):
+    """K8 as the kernel computes it: codes to bf16 by their bits, the f32
+    sum of bf16 products, times the bin scale (one f32 rounding), then the
+    register selection."""
+    c16 = torch.from_numpy(code_to_bf16_bits(codes.numpy()).view(np.int16)).view(torch.bfloat16)
+    raw = matmul_f32(queries, c16.T)
+    scores = raw * bin_scales.reshape(-1).float().repeat_interleave(BIN)[None, :]
+    return emulate_register_selection(scores, n_valid, per_bin, tile_rows)
+
+
+@pytest.mark.parametrize("per_bin", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", ["integer", "random"])
+def test_mixed_scan_emulation_matches_plain_and_jax(per_bin, kind):
+    """K8's mode against ``_scan_int8f_plain`` bit for bit, n_valid mid-bin;
+    with integer-valued bf16 queries (exact sums, many exact ties) also bit
+    for bit against JAX's interpreted Pallas K8 (``_binmax_kernel_int8f``)."""
+    rng = np.random.default_rng(per_bin + (100 if kind == "integer" else 0))
+    codes, scales = jmq.quantize_corpus_binwise(rng.normal(size=(2048, 64)).astype(np.float32))
+    if kind == "integer":
+        q = rng.integers(-3, 4, size=(7, 64)).astype(np.float32)
+    else:
+        q = rng.normal(size=(7, 64)).astype(np.float32)
+    qb = torch.from_numpy(q).to(torch.bfloat16)
+    n_valid = 2048 - 77
+    got = emulate_mixed_scan(qb, torch.from_numpy(codes), torch.from_numpy(scales), n_valid, per_bin, 1024)
+    want = tmb._scan_int8f_plain(qb, torch.from_numpy(codes), torch.from_numpy(scales), n_valid, per_bin, 1024)
+    assert got.shape == want.shape == (7, 2048 // BIN * per_bin)
+    assert torch.equal(_bits(got), _bits(want))
+    if kind == "integer":
+        jax_k8 = np.asarray(jmb.binmax_candidates(jnp.asarray(qb.float().numpy(), dtype=jnp.bfloat16),
+                                                  jnp.asarray(codes), n_valid=n_valid, per_bin=per_bin,
+                                                  tile_rows=1024, corpus_scales=jnp.asarray(scales),
+                                                  interpret=True))
+        # JAX pads the corpus to its candidate grain: whole tiles of -inf past ours
+        assert np.isneginf(jax_k8[:, got.shape[1]:]).all()
+        assert np.array_equal(_bits(got).numpy(), np.ascontiguousarray(jax_k8[:, :got.shape[1]]).view(np.int32))

@@ -661,15 +661,65 @@ def test_int8_scan_kernel_is_bit_identical_to_plain(device, n, per_bin, q_rows):
 
 @pytest.mark.cuda
 def test_binmax_scans_are_bit_identical_run_to_run(device):
-    """K3 and K7 twice on the same inputs: the same bits."""
+    """K3, K7 and K8 twice on the same inputs: the same bits."""
     q, c = _scan_case(300, 768, device, seed=3)
     q, c = q.to(torch.bfloat16), c.to(torch.bfloat16)
     runs = [mb._scan_cuda(q, c, SCAN_ROWS - 77, 8, 2048) for _ in range(2)]
     q8, qs, values, scales = _int8_scan_case(300, SCAN_ROWS, device, seed=4)
     runs8 = [mb._scan_int8_cuda(q8, values, scales, qs, SCAN_ROWS - 77, 8, 2048) for _ in range(2)]
+    runs8f = [mb._scan_int8f_cuda(q, values, scales, SCAN_ROWS - 77, 8, 2048) for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32))
     assert torch.equal(runs8[0].view(torch.int32), runs8[1].view(torch.int32))
+    assert torch.equal(runs8f[0].view(torch.int32), runs8f[1].view(torch.int32))
+
+
+def _mixed_scan_case(q_rows, dim, device, seed, n=SCAN_ROWS):
+    """bf16 queries, corpus codes with bin scales (K8's inputs)."""
+    q, c = _scan_case(q_rows, dim, device, seed, n)
+    values, scales = mq.quantize_corpus_binwise(c.cpu().numpy())
+    return q.to(torch.bfloat16), torch.from_numpy(values).to(device), torch.from_numpy(scales).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_bin", [1, 2, 4, 8])
+@pytest.mark.parametrize("tile", [2048, 4096])
+@pytest.mark.parametrize("dim", [96, 768])
+@pytest.mark.parametrize("q_rows", [1, 77, 256, 300])
+def test_mixed_scan_geometries_match_plain(device, q_rows, dim, tile, per_bin):
+    """K8 on the persistent scan (SCAN_MIXED) at one query, one and two
+    128-query slabs and a ragged second 256-query block, D 768 and 96 (a
+    last stage half past D, zero-filled), both tile sizes and every per_bin,
+    n_valid mid-bin and at a bin's first row: >= 99.9 % identical candidates
+    against its plain version."""
+    q, values, scales = _mixed_scan_case(q_rows, dim, device, seed=q_rows + dim + per_bin + 1)
+    for n_valid in (SCAN_ROWS - 1000, SCAN_ROWS - 3 * 128):
+        got = mb._scan_int8f_cuda(q, values, scales, n_valid, per_bin, tile)
+        want = mb._scan_int8f_plain(q, values, scales, n_valid, per_bin, tile)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (q_rows, SCAN_ROWS // 128 * per_bin)
+        same, rel = _candidate_agreement(got, want, tile, per_bin)
+        assert same >= 0.999 and rel <= 1e-4, (n_valid, same, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_bin", [1, 2, 4, 8])
+@pytest.mark.parametrize("q_rows", [77, 300])
+def test_mixed_scan_ties_match_plain_exactly(device, per_bin, q_rows):
+    """K8 with integer-valued bf16 queries and runs of four identical code
+    rows: every f32 sum is exact in any order, so the packed candidates
+    equal the plain version's bit for bit, exact ties to the lowest offset."""
+    g = torch.Generator(device=device).manual_seed(per_bin + q_rows)
+    n, dim = 8192, 768
+    codes = torch.randint(-127, 128, (n // 4, dim), generator=g, device=device, dtype=torch.int8)
+    codes = codes.repeat_interleave(4, dim=0)
+    scales = torch.rand(n // 128, 1, generator=g, device=device) * 0.01 + 1e-3
+    q = torch.randint(-3, 4, (q_rows, dim), generator=g, device=device).to(torch.bfloat16)
+    n_valid = n - 300
+    got = mb._scan_int8f_cuda(q, codes, scales, n_valid, per_bin, 2048)
+    want = mb._scan_int8f_plain(q, codes, scales, n_valid, per_bin, 2048)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 # ---- the int8 serving kernels (K9, K10, K8, K7) -------------------------------
@@ -1024,12 +1074,103 @@ def test_maxsim_all_pairs_at_200_query_tokens_matches_plain(device):
 @pytest.mark.parametrize("dim", [128, 768])
 def test_maxsim_kernel_reruns_are_bit_identical(device, dim):
     """Lq > 128: each query sums its row tiles' maxima in a fixed order, so
-    two runs give the same bits; at D <= 256 the streamed and the resident
-    forms give the same bits too."""
+    two runs give the same bits; the all-pairs form (queries packed in a
+    tile, docs shared) and the gathered form (one query a block, each
+    query's own spans) of the same docs, padded at the end, give the same
+    bits too: every row's sums run in the same order."""
     q, d, qm, dm = _maxsim_case(3, 300, 17, 90, dim, device, seed=dim)
     first = ms.maxsim_all_pairs(q, d, qm, dm)
     assert torch.equal(first, ms.maxsim_all_pairs(q, d, qm, dm))
-    assert torch.equal(first, ms._maxsim_cuda(q, d, qm, dm, ms.NEG_FILL, stream_d=True))
+    for lq in (32, 300):
+        count = torch.randint(0, 91, (17,), device=device, dtype=torch.int32)
+        prefix = (torch.arange(90, device=device)[None, :] < count[:, None]).float()
+        spans = (torch.arange(17, device=device) * 90)[None, :].expand(3, 17)
+        pairs = ms.maxsim_all_pairs(q[:, :lq], d, qm[:, :lq], prefix, fill=float("-inf"))
+        gathered = ms.maxsim_gathered(q[:, :lq], qm[:, :lq], d.reshape(-1, dim), spans.cpu(),
+                                      count[None, :].expand(3, 17).cpu(), 90, fill=float("-inf"))
+        torch.cuda.synchronize()
+        assert torch.equal(pairs, gathered)
+
+
+def _gathered_case(b, lq, c, dim, pad, device, seed, f16=True):
+    """Queries with padded tokens, a token matrix (float16 or f32) of 50
+    documents of 0..pad tokens and each query's own candidate spans, one
+    of them empty (count 0), on the CPU as maxsim_gathered takes them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    counts = torch.randint(0, pad + 1, (50,), generator=g, device=device)
+    counts[3] = 0
+    starts = torch.cumsum(counts, 0) - counts
+    tokens = torch.randn(int(counts.sum()), dim, generator=g, device=device) * 3
+    tokens = tokens.half() if f16 else tokens
+    pick = torch.randint(0, 50, (b, c), generator=g, device=device)
+    pick[0, 0] = 3
+    q = torch.randn(b, lq, dim, generator=g, device=device) * 3
+    qm = (torch.rand(b, lq, generator=g, device=device) > 0.2).float()
+    qm[:, 0] = 1.0
+    return q, qm, tokens, starts[pick].cpu(), counts[pick].int().cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,c,dim,pad", [(256, 32, 64, 128, 128), (5, 32, 64, 768, 128), (3, 200, 17, 128, 77),
+                                            (2, 512, 9, 768, 40), (7, 13, 33, 264, 200)])
+@pytest.mark.parametrize("f16", [True, False])
+def test_maxsim_gathered_matches_plain_on_the_padded_copy(device, b, lq, c, dim, pad, f16):
+    """K14's gathered form (the batched rescore's: a query's own candidate
+    spans of one token matrix, padded slots -inf or -1000) against
+    reference_maxsim_all_pairs on the padded copy of each query's
+    candidates: rtol = atol = 1e-4, non-finite entries identical (an empty
+    candidate with fill -inf); 768 wide, Lq 200 and 512; float16 and f32
+    tokens; one launch; reruns bit-identical; spans on the card refused
+    (they are checked on the CPU before the launch)."""
+    q, qm, tokens, first, count = _gathered_case(b, lq, c, dim, pad, device, seed=b + lq + dim)
+    if not f16:
+        tokens = tokens.float()
+    with pytest.raises(ValueError, match="on the CPU"):
+        ms.maxsim_gathered(q, qm, tokens, first.to(device), count.to(device), pad)
+    for fill in (ms.NEG_FILL, float("-inf")):
+        _build.reset_launches()
+        got = ms.maxsim_gathered(q, qm, tokens, first, count, pad, fill=fill)
+        assert _build.LAUNCHES["maxsim_all_pairs"] == 1
+        slots = torch.arange(pad, device=device)
+        rows = (first.to(device)[..., None] + slots).clamp(max=tokens.shape[0] - 1)
+        live = (slots < count.to(device)[..., None]).float()
+        want = torch.stack([ms.reference_maxsim_all_pairs(q[i:i + 1], tokens[rows[i]].float(), qm[i:i + 1],
+                                                          live[i], fill)[0]
+                            for i in range(b)])
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want)
+        assert torch.equal(fin, torch.isfinite(got)) and torch.equal(got[~fin], want[~fin])
+        torch.testing.assert_close(got[fin], want[fin], rtol=1e-4, atol=1e-4)
+        assert torch.equal(got, ms.maxsim_gathered(q, qm, tokens, first, count, pad, fill=fill))
+    assert bool(torch.isneginf(got[0, 0]))  # the empty candidate, fill -inf
+
+
+@pytest.mark.cuda
+def test_batched_rescore_matches_the_per_query_rescore(device, tmp_path):
+    """The ColBERT CLI's batched rescore (one K14 launch for the batch, the
+    store's float16 rows uploaded once) against the per-query exact_rescore
+    on the card (one launch each): the same documents in the same order,
+    scores within 1e-5 relative."""
+    import numpy as np
+
+    from matchmaker_tpu_torch.retrieval import colbert_search as cs
+
+    rng = np.random.default_rng(128)
+    ids = _write_token_store(str(tmp_path), rng, 128)
+    store = cs.TokenVectorStore(str(tmp_path))
+    q = rng.normal(size=(24, 32, 128)).astype(np.float32)
+    qm = np.ones((24, 32), np.float32)
+    qm[:, 20:] = 0
+    cands = [[(ids[i], 0.0) for i in rng.permutation(40)[:rng.integers(1, 41)]] for _ in range(24)]
+    pad_t = -(-store.max_tokens // 8) * 8
+    _build.reset_launches()
+    got = cs.exact_rescore_batch(torch.from_numpy(q).to(device), qm, cands, store, 10, 32, pad_t,
+                                 store.device_rows(device))
+    assert _build.LAUNCHES["maxsim_all_pairs"] == 1
+    for i in range(24):
+        want = cs.exact_rescore(q[i], qm[i], cands[i], store, 10, 32, pad_t, device=device)
+        assert [d for d, _ in got[i]] == [d for d, _ in want]
+        np.testing.assert_allclose([s for _, s in got[i]], [s for _, s in want], rtol=1e-5, atol=0)
 
 
 def _write_token_store(folder, rng, dim, n_docs=40):

@@ -1,5 +1,5 @@
 """The port's MaxSim ops (ops/maxsim.py, the plain version of K14), the exact
-rescore of retrieval/colbert_search.py and the standalone attention
+rescores of retrieval/colbert_search.py (per query and batched) and the standalone attention
 (ops/fused_attention.py:fused_mha, the plain version of K13) against the JAX
 package on the CPU: the same numpy inputs go to both."""
 
@@ -93,14 +93,23 @@ def test_maxsim_pairwise_matches_jax():
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
-def _token_store(folder, rng, dim=16):
+def _token_store(folder, rng, dim=16, twins=()):
     """An encode folder by hand: docs of 1-9 token vectors in two blocks,
     one doc with no token at all (an all-padding candidate), every third doc
-    with large negative vectors."""
+    with large negative vectors; a doc in ``twins`` repeats the vectors of
+    the doc before it (equal scores)."""
     os.makedirs(folder, exist_ok=True)
     blocks, spans, ids = [[], []], [], []
+    vecs = None
     for i in range(30):
         n = 0 if i == 5 else int(rng.integers(1, 10))
+        if i in twins:
+            vecs = vecs.copy()
+            blocks[i % 2].append(vecs)
+            start = sum(len(v) for v in blocks[i % 2][:-1])
+            spans.append((i % 2, start, start + len(vecs)))
+            ids.append(f"d{i}")
+            continue
         vecs = rng.normal(size=(n, dim)).astype(np.float16)
         if i % 3 == 0:
             vecs = -np.abs(vecs) * 40
@@ -137,6 +146,91 @@ def test_exact_rescore_matches_jax(tmp_path, pad_tokens):
                              device=torch.device("cpu"))
     assert dict(full)["d5"] == 0.0
     assert min(s for _, s in full) < -1000  # the −inf fill keeps a live max below −1000
+
+
+@pytest.mark.parametrize("pad_tokens", [8, 16])
+def test_exact_rescore_batch_matches_jax_query_by_query(tmp_path, pad_tokens):
+    """The batched rescore (one K14 launch a query batch on the card; its
+    plain version here) against JAX's ``exact_rescore`` query by query, and
+    bit for bit against the port's per-query ``exact_rescore``: fewer
+    candidates than ``pad_candidates`` (20 of 24), more (truncated), a
+    document with no token (d5, score 0), two documents with equal vectors
+    (d17 repeats d16: equal scores, kept in candidate order as the stable
+    sort keeps them), a query without candidates, padded query tokens."""
+    rng = np.random.default_rng(11)
+    ids = _token_store(str(tmp_path), rng, twins=(17,))
+    q = (np.abs(rng.normal(size=(4, 9, 16))) * 5).astype(np.float32)
+    qm = np.ones((4, 9), np.float32)
+    qm[1, 6:] = 0
+    qm[3, 2:] = 0
+    perm = rng.permutation(30)
+    cands = [[(ids[i], 0.0) for i in perm[:20]],
+             [(ids[i], 0.0) for i in rng.permutation(30)],
+             [("d17", 0.0), ("d5", 0.0), ("d16", 0.0)] + [(ids[i], 0.0) for i in perm[20:27]],
+             []]
+    store = tcs.TokenVectorStore(str(tmp_path))
+    _build.reset_launches()
+    got = tcs.exact_rescore_batch(torch.from_numpy(q), qm, cands, store, 12, 24, pad_tokens,
+                                  store.device_rows(torch.device("cpu")))
+    assert _build.LAUNCHES["maxsim_all_pairs"] == 0
+    jstore = jcs.TokenVectorStore(str(tmp_path))
+    for b in range(4):
+        want = jcs.exact_rescore(q[b], qm[b], cands[b], jstore, 12, 24, pad_tokens) if cands[b] else []
+        assert [d for d, _ in got[b]] == [d for d, _ in want]
+        np.testing.assert_allclose([s for _, s in got[b]], [s for _, s in want], rtol=RTOL, atol=ATOL)
+        if cands[b]:
+            assert got[b] == tcs.exact_rescore(q[b], qm[b], cands[b], store, 12, 24, pad_tokens,
+                                               device=torch.device("cpu"))
+    full = tcs.exact_rescore_batch(q[2:3], qm[2:3], [cands[2]], store, 30, 24, pad_tokens,
+                                   store.device_rows(torch.device("cpu")))[0]
+    scores = dict(full)
+    assert scores["d5"] == 0.0 and scores["d16"] == scores["d17"]
+    order = [d for d, _ in full]
+    assert order.index("d17") < order.index("d16")  # equal scores keep the candidates' order
+
+
+def test_device_rows_upload_the_store_block_by_block(tmp_path):
+    """The batched rescore's token rows: both blocks of the store, in the
+    blocks' order (a document's span indexes them), float16 as stored, one
+    tensor made once."""
+    rng = np.random.default_rng(12)
+    ids = _token_store(str(tmp_path), rng)
+    store = tcs.TokenVectorStore(str(tmp_path))
+    cpu = torch.device("cpu")
+    rows = store.device_rows(cpu)
+    blocks = [np.load(os.path.join(str(tmp_path), f"token_reps_{b}.npy")) for b in range(2)]
+    assert rows.dtype == torch.float16 and rows.shape == (store.rows, 16) and store.device_rows(cpu) is rows
+    assert np.array_equal(rows.numpy(), np.concatenate(blocks))
+    for doc_id in ids:
+        first, n = store.span(doc_id)
+        assert np.array_equal(rows[first:first + n].float().numpy(), store.get(doc_id))
+
+
+def test_device_rows_refuse_a_store_larger_than_the_free_card_memory(tmp_path, monkeypatch):
+    """Before it allocates anything on a card, the upload checks the store's
+    bytes against the card's free memory (with what the caching allocator
+    holds unused) and names both in the error."""
+    _token_store(str(tmp_path), np.random.default_rng(13))
+    store = tcs.TokenVectorStore(str(tmp_path))
+    need = store.rows * 16 * 2
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (need // 2, 80 << 30))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device=None: need // 4)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device=None: 0)
+    with pytest.raises(MemoryError, match=f"{store.rows} rows x 16"):
+        store.device_rows(torch.device("cuda"))
+
+
+@pytest.mark.parametrize("first,count", [(0, 17), (-1, 3), (4, -1), ("last", 2)])
+def test_maxsim_gathered_refuses_spans_outside_the_tokens(first, count):
+    """The spans are checked on the CPU before any launch: a count past the
+    slots, a negative row or count, a span past the last token row."""
+    tokens = torch.zeros(40, 8)
+    f = torch.zeros(2, 3, dtype=torch.int64)
+    c = torch.ones(2, 3, dtype=torch.int32)
+    f[1, 2] = tokens.shape[0] - 1 if first == "last" else first
+    c[1, 2] = count
+    with pytest.raises(ValueError, match="spans outside the 40 token rows or past 16 slots"):
+        tms.maxsim_gathered(torch.zeros(2, 4, 8), torch.ones(2, 4), tokens, f, c, 16)
 
 
 @pytest.mark.parametrize("bq,lq,dim", [(1, 32, 768), (64, 180, 768), (2, 200, 768), (1, 512, 1024), (3, 7, 8)])

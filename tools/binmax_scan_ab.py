@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the binmax scans (bf16 K3, int8 K7) and the 1M-row searches of two checkouts on one card, in turns.
+"""Time the binmax scans (bf16 K3, int8 K7, mixed K8) and the 1M-row searches of two checkouts on one card, in turns.
 
     python3 tools/binmax_scan_ab.py BASE_DIR NEW_DIR [--turns ABBA] [--reps 10] [--out FILE]
 
@@ -12,11 +12,13 @@ and on data made from seeds as ``chip_smoke.py`` makes it (its
 ``_clustered`` rows, of this checkout):
 
 - ``binmax_candidates`` over 262,144 x 768 rows and 256 queries: K3 (bf16
-  rows and queries) and K7 (int8 codes with bin scales, int8 query codes)
-  at per_bin 2 and 8, the shapes of ``chip_smoke.py`` phase 3;
+  rows and queries), K7 (int8 codes with bin scales, int8 query codes) and
+  K8 (the same codes, bf16 queries) at per_bin 2 and 8, the shapes of
+  ``chip_smoke.py`` phase 3;
 - ``FlatIndex`` device searches (scan, level 2, top-k, unpack) of 256
   queries at k 1000 over 1,048,576 x 768 rows, the rows of phase 5: the
-  bf16 route (K3) and the default int8 route (int8 queries, K7 alone).
+  bf16 route (K3), the default int8 route (int8 queries, K7 alone) and the
+  mixed route (``mips_int8_queries: float``, K8).
 
 The turns run in the order of ``--turns`` (A = BASE_DIR, B = NEW_DIR), so
 both checkouts meet the same card. One JSON line per turn, then the card's
@@ -83,6 +85,9 @@ def run_turn(checkout: str, reps: int, device_name: str, tiny: bool) -> dict:
         scans[f"K7 per_bin {per_bin}"] = cs._time_ms(
             lambda pb=per_bin: mb.binmax_candidates(q8, codes, n_valid=n, per_bin=pb, corpus_scales=scales,
                                                     query_scales=qs), device, reps)
+        scans[f"K8 per_bin {per_bin}"] = cs._time_ms(
+            lambda pb=per_bin: mb.binmax_candidates(qb, codes, n_valid=n, per_bin=pb, corpus_scales=scales),
+            device, reps)
     del c, codes
 
     n, k = sz["scale_rows"], sz["scale_k"]
@@ -91,7 +96,8 @@ def run_turn(checkout: str, reps: int, device_name: str, tiny: bool) -> dict:
     del rows
     searches = {}
     for name, quant in (("bf16", {"mips_quantization": "float16"}),
-                        ("int8", {"mips_quantization": "int8", "mips_int8_queries": "int8"})):
+                        ("int8", {"mips_quantization": "int8", "mips_int8_queries": "int8"}),
+                        ("mixed", {"mips_quantization": "int8", "mips_int8_queries": "float"})):
         index = FlatIndex({"token_dtype": "float16", "mips_kernel": "binmax", **quant}, device)
         index.prepare(hid)
         index.index(np.arange(n), vectors)
