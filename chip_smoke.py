@@ -18,7 +18,14 @@ Phases (any failed check raises, and the script exits non-zero):
    queries (K7 bit-identical; K3 and K7 beside one torch.matmul /
    torch._int_mm of the product alone; K3 also at ColBERT's token scan,
    8,192 query rows of width 128, per_bin 1, 4096-row tiles; K8 beside
-   torch.matmul of the bf16-converted codes); ColBERT's MaxSim (K14), all
+   torch.matmul of the bf16-converted codes); level 2 (K4) bit for bit at
+   widths 32 and 128 over the per_bin-8 candidates (256 x 16,384), at
+   width 128 over ColBERT's per-token scan of 1.35M token rows (8,192 x
+   11,264) and, in phase 5, at width 32 over the 1M-row search's own
+   candidates; unpack (K6) exact at (256, 1000), (256, 4000) and (8,192,
+   48); each with its device time (kernel durations from torch.profiler),
+   its CUDA-event and host time a call, beside K4 torch.topk of the groups
+   and beside K6 an empty kernel at its grid; ColBERT's MaxSim (K14), all
    pairs at (Bq, Lq, Bd, Ld, D) = (128, 32, 256, 200, 128), (32, 32, 64,
    200, 128), the single-query rescore shape (1, 32, 64, 128, 128) with
    fill -inf, an odd (7, 30, 21, 77, 128) with dots below -1000, the
@@ -61,7 +68,8 @@ Phases (any failed check raises, and the script exits non-zero):
    searches 48 candidates, the device merges them by MaxSim and K14 rescores
    64 of them exactly: files, token rows and index bytes, launch counts
    against the prediction (K13: none), per-token recall@48 against an exact
-   search (>= 0.95), the device merge against the host merge, the run's
+   search (>= 0.95) with the misses' causes counted (token_recall_causes),
+   the device merge against the host merge, the run's
    scores against the plain exact MaxSim, recall@10 against an exhaustive
    exact MaxSim over all passages (reported), encode psg/s, search QPS and
    device-only per-token search QPS;
@@ -126,6 +134,7 @@ FULL = dict(
                    (1, 32, 64, 128, 128, float("-inf"), False), (7, 30, 21, 77, 128, -1000.0, True),
                    (1, 32, 64, 128, 768, float("-inf"), False), (8, 200, 64, 200, 128, -1000.0, False)],
     mha_shapes=[(256, 128), (64, 30)],  # (B, L) of K13 at 12 heads x 64
+    colbert_token_rows=1_350_000,  # phase 4c's token rows, the per-token search's K4/K6 shapes in phase 3
     colbert_dim=128, colbert_query_len=32, colbert_query_batch=256, colbert_candidates=48, colbert_rescore_n=64,
     colbert_top_n=10, colbert_checked_queries=32,
     # the probes' kernels (K15-K18) at each probe's headline shape and an odd
@@ -169,6 +178,95 @@ def _time_ms(fn, device, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return begin.elapsed_time(end) / reps
+
+
+def _kernel_times(prof):
+    """(name, device us, launches) of each kernel a torch.profiler window
+    recorded. Kernels only: a kernel launched through ctypes is also counted
+    as self device time of the CPU range around it (the autograd Function),
+    and a GPU user annotation (Optimizer.step) spans kernels of its own."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((ev.key, dev_us, ev.count))
+    return rows
+
+
+def _device_ms(fn, device, reps: int = 100):
+    """Device time per call of ``fn``: the durations of the kernels it
+    launches, from torch.profiler over ``reps`` calls after two warm-up
+    calls. Unlike ``_time_ms`` the host's time between launches does not
+    count, so a launch of a few us is measured, not its wrapper. Now and
+    then the profiler hands back a window without its kernels: after three
+    such windows, ``_graph_ms``. None off the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return None
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(us for _, us, _ in _kernel_times(prof))
+        if total_us > 0:
+            return total_us / 1e3 / reps
+    return _graph_ms(fn, reps)
+
+
+def _graph_ms(fn, reps: int = 100):
+    """Device time per call of ``fn`` without the profiler: ``reps`` calls
+    captured in one CUDA graph on a side stream, one replay timed with CUDA
+    events (a replay launches them back to back, with no host in between)."""
+    import torch
+
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(reps):
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    begin.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return begin.elapsed_time(end) / reps
+
+
+def _host_ms(fn, device, reps: int = 100):
+    """Host time per call of ``fn`` (the wrapper's checks, allocation and
+    launch, not the kernel): the host clock around ``reps`` calls queued
+    behind a sleeping kernel, so that no call waits for the card."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - start) * 1e3 / reps
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return host
 
 
 def _pair_ms(kernel, plain, device, reps):
@@ -222,6 +320,116 @@ def _record(entry, shape, kernel, plain, device, reps, headline, bound_of=None):
         entry.update(ms=ms, plain_ms=plain_ms, timed_shape=shape)
         if bound_of:
             entry.update(bound_ms=bound_of[0], bound_by=bound_of[1])
+
+
+def _library_level2(x, width):
+    """The nearest library call to K4: each group's 8 largest values and
+    their offsets, ``torch.topk(x.view(Q, G, w), 8)``, with ties in no set
+    order and nothing packed (a yardstick; the port never calls it)."""
+    import torch
+
+    return torch.topk(x.view(x.shape[0], -1, width), 8, dim=-1)
+
+
+def level2_timings(mb, packed, width, device, reps):
+    """K4 (``mb._level2_reduce``, ``mb`` a checkout's ops.mips_binmax) at one
+    shape: its share of output elements bit-identical (int32 view) to
+    ``_level2_plain``, its device time (``_device_ms``), the CUDA-event time
+    over back-to-back calls (``_time_ms``: the wrapper's per-call time when
+    the host is the slower), its host time a call, its byte bound, and the
+    ``torch.topk`` yardstick's device and event times."""
+    import torch
+    import torch.nn.functional as F
+
+    x = F.pad(packed, (0, -packed.shape[1] % 1024), value=float("-inf"))  # _level2_reduce's own padding
+    got = mb._level2_reduce(packed, width)
+    want = mb._level2_plain(x, width)
+    fin = torch.isfinite(want)
+    rec = {"shape": [*packed.shape, width],
+           "identical": float((got.view(torch.int32) == want.view(torch.int32)).float().mean()),
+           "max_abs_err": float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0}
+    del want, fin
+
+    def kernel():
+        return mb._level2_reduce(packed, width)
+
+    rec.update(device_ms=_device_ms(kernel, device), ms=_time_ms(kernel, device, reps),
+               host_ms=_host_ms(kernel, device),
+               library_device_ms=_device_ms(lambda: _library_level2(x, width), device),
+               library_ms=_time_ms(lambda: _library_level2(x, width), device, reps))
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes(packed, got))
+    return rec
+
+
+def unpack_timings(mb, build, top, pos, tile, per_bin, level2, device, reps):
+    """K6 (``mb.unpack_candidates``; ``build`` the checkout's ops._build) on
+    selected candidates at one shape: ids equal to ``_unpack_plain``'s and
+    values bit for bit, its device, event and host times, its byte bound,
+    and, where the checkout has ``mm_unpack_floor``, the device time of an
+    empty kernel at K6's grid: the floor the card gives a launch there."""
+    import torch
+
+    gv, gi = mb.unpack_candidates(top, pos, tile, per_bin, level2)
+    wv, wi = mb._unpack_plain(top, pos, tile, per_bin, level2)
+    rec = {"shape": list(top.shape), "per_bin": per_bin, "level2": level2,
+           "exact": bool(torch.equal(gi, wi) and torch.equal(gv.view(torch.int32), wv.view(torch.int32)))}
+
+    def kernel():
+        return mb.unpack_candidates(top, pos, tile, per_bin, level2)
+
+    rec.update(device_ms=_device_ms(kernel, device), ms=_time_ms(kernel, device, reps),
+               host_ms=_host_ms(kernel, device), floor_device_ms=None)
+    if device.type == "cuda" and "mm_unpack_floor" in build._SIGNATURES:
+        rec["floor_device_ms"] = _device_ms(
+            lambda: build.call("mm_unpack_floor", top.numel(), build.stream(device)), device)
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes(top, pos, gv, gi))
+    return rec
+
+
+def _fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def time_level2(entry, mb, packed, width, device, reps, headline):
+    """level2_timings, held bit for bit and recorded beside the plain
+    version's time (_record) into ``entry``."""
+    import torch.nn.functional as F
+
+    rec = level2_timings(mb, packed, width, device, reps)
+    print(f"[kernels] level 2 width={width} over {list(packed.shape)}: identical {rec['identical']:.6f}; device "
+          f"{_fmt(rec['device_ms'])}, events {_fmt(rec['ms'])}, host {_fmt(rec['host_ms'])} a call, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); torch.topk yardstick device "
+          f"{_fmt(rec['library_device_ms'])}, events {_fmt(rec['library_ms'])}")
+    check(rec["identical"] == 1.0, f"level 2 width {width} over {list(packed.shape)}: {rec['identical']} identical")
+    entry["max_abs_err"] = max(entry["max_abs_err"], rec["max_abs_err"])
+    x = F.pad(packed, (0, -packed.shape[1] % 1024), value=float("-inf"))
+    _record(entry, rec["shape"], lambda: mb._level2_reduce(packed, width), lambda: mb._level2_plain(x, width),
+            device, reps, headline, bound_of=(rec["bound_ms"], rec["bound_by"]))
+    extra = {key: rec[key] for key in ("device_ms", "host_ms", "library_device_ms", "library_ms")}
+    entry["timings"][-1].update(extra)
+    if headline:
+        entry.update(extra, library_call="torch.topk(x.view(Q, C/w, w), 8, dim=-1): values and int64 offsets, "
+                                         "ties unordered, nothing packed")
+
+
+def time_unpack(entry, mb, build, packed, k, tile, per_bin, level2, device, reps, headline):
+    """unpack_timings on the top k of ``packed`` (level-1 or level-2
+    candidates), held exact and recorded beside the plain version's time."""
+    import torch
+
+    top, pos = torch.topk(packed, k, dim=1)
+    rec = unpack_timings(mb, build, top, pos, tile, per_bin, level2, device, reps)
+    print(f"[kernels] unpack {list(top.shape)} (per_bin {per_bin}, level 2 {level2}): exact {rec['exact']}; device "
+          f"{_fmt(rec['device_ms'])}, events {_fmt(rec['ms'])}, host {_fmt(rec['host_ms'])} a call, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), empty kernel at its grid {_fmt(rec['floor_device_ms'])}")
+    check(rec["exact"], f"unpack at {list(top.shape)}: ids or values differ from the plain version")
+    _record(entry, rec["shape"] + [per_bin, level2], lambda: mb.unpack_candidates(top, pos, tile, per_bin, level2),
+            lambda: mb._unpack_plain(top, pos, tile, per_bin, level2), device, reps, headline,
+            bound_of=(rec["bound_ms"], rec["bound_by"]))
+    extra = {key: rec[key] for key in ("device_ms", "host_ms", "floor_device_ms")}
+    entry["timings"][-1].update(extra)
+    if headline:
+        entry.update(extra)
 
 
 def _attention_ops(b, l, hid, heads):
@@ -635,15 +843,22 @@ def _overlap(a, b):
     return float(np.mean([len(set(x) & set(y)) / k for x, y in zip(a.tolist(), b.tolist())]))
 
 
-def colbert_scan_check(entry, sz, device):
+def colbert_scan_check(out, sz, device):
     """K3 at ColBERT's token scan: 8,192 query rows (256 queries x 32
     tokens) of width colbert_dim over the phase's rows, per_bin 1,
     4096-row tiles, n_valid mid-bin: >= 99.9 % identical candidates against
-    the plain version (run in 1,024-row query chunks), and both timed."""
+    the plain version (run in 1,024-row query chunks), and both timed. Then
+    K4 (width 128) and K6 (the top colbert_candidates) at ColBERT's
+    per-token search over colbert_token_rows rows (the phase 4c index's
+    1.35M): on the scan's own output, bit for bit against their plain
+    versions, timed on the card (time_level2, time_unpack)."""
     import torch
+    import torch.nn.functional as F
 
+    from matchmaker_tpu_torch.ops import _build
     from matchmaker_tpu_torch.ops import mips_binmax as mb
 
+    entry = out["binmax_candidates"]
     n, tile, dim = sz["scan_rows"], 4096, sz["colbert_dim"]
     n_q = sz["colbert_query_batch"] * sz["colbert_query_len"]
     rows, q = _clustered(n, dim, 256, device, seed=7, n_queries=n_q)
@@ -667,11 +882,29 @@ def colbert_scan_check(entry, sz, device):
     _record(entry, [n, dim, n_q, 1, tile],
             lambda: mb.binmax_candidates(qb, c, n_valid=n_valid, per_bin=1, tile_rows=tile), plain, device,
             max(2, sz["reps"] // 5), headline=False, bound_of=bound(nbytes(qb, c, got), bf16=2 * n_q * n * dim))
+    del c, got
+
+    # the per-token search's level 2 and unpack: the scan writes its
+    # candidates -inf-padded to a multiple of 1,024 columns (binmax_candidates
+    # with level2), so K4 takes them without a copy
+    n_tok = sz["colbert_token_rows"]
+    rows, _ = _clustered(n_tok, dim, 1024, device, seed=8, n_queries=1)
+    tokens = rows.to(torch.bfloat16)
+    del rows
+    tokens = F.pad(tokens, (0, 0, 0, -n_tok % mb.padding_grain(tile, 1)))
+    packed = mb.binmax_candidates(qb, tokens, n_valid=n_tok, per_bin=1, tile_rows=tile)
+    packed = F.pad(packed, (0, -packed.shape[1] % 1024), value=float("-inf"))
+    del tokens
+    reps = max(2, sz["reps"] // 5)
+    time_level2(out["level2_reduce"], mb, packed, mb.L2_WIDE, device, reps, headline=False)
+    time_unpack(out["unpack_candidates"], mb, _build, mb._level2_reduce(packed, mb.L2_WIDE),
+                sz["colbert_candidates"], tile, 1, mb.L2_WIDE, device, reps, headline=False)
 
 
 def phase_binmax_kernels(sz, device):
     import torch
 
+    from matchmaker_tpu_torch.ops import _build
     from matchmaker_tpu_torch.ops import mips_binmax as mb
 
     n, tile = sz["scan_rows"], 2048
@@ -679,7 +912,7 @@ def phase_binmax_kernels(sz, device):
     c, qb = rows.to(torch.bfloat16), q.to(torch.bfloat16)
     out = {"binmax_candidates": {"max_abs_err": 0.0}, "level2_reduce": {"max_abs_err": 0.0},
            "unpack_candidates": {"max_abs_err": 0.0}}
-    packed8 = None
+    packed = {}
     for per_bin in (2, 4, 8):
         got = mb.binmax_candidates(qb, c, n_valid=n, per_bin=per_bin)
         want = mb._scan_plain(qb, c, n, per_bin, tile)
@@ -696,7 +929,7 @@ def phase_binmax_kernels(sz, device):
                 lambda pb=per_bin: mb.binmax_candidates(qb, c, n_valid=n, per_bin=pb),
                 lambda pb=per_bin: mb._scan_plain(qb, c, n, pb, tile), device, sz["reps"], headline=per_bin == 8,
                 bound_of=bound(nbytes(qb, c, got), bf16=2 * qb.shape[0] * n * sz["hid"]))
-        packed8 = got
+        packed[per_bin] = got
     # the product alone, a yardstick for the scan's tensor-core work, not a
     # bound: it writes the (Q, N) scores and selects nothing
     product_ms = _time_ms(lambda: torch.matmul(qb, c.T), device, sz["reps"])
@@ -704,29 +937,17 @@ def phase_binmax_kernels(sz, device):
                                     product_library_call="torch.matmul(queries, corpus.T), bf16 (the product alone)")
     print(f"[kernels]   product alone: torch.matmul {product_ms:.4f} ms "
           f"({2 * qb.shape[0] * n * sz['hid'] / product_ms / 1e9:.1f} TFLOP/s)")
-    colbert_scan_check(out["binmax_candidates"], sz, device)
+    colbert_scan_check(out, sz, device)
+    # K4 at both widths over the per_bin-8 candidates; K6 on the top k of the
+    # width-32 reduction, and on the top 4k of the per_bin-4 candidates (the
+    # two-stage route's fetch, no level 2)
     for width in (mb.L2_MID, mb.L2_WIDE):
-        got = mb._level2_reduce(packed8, width)
-        want = mb._level2_plain(packed8, width)
-        share = float((got.view(torch.int32) == want.view(torch.int32)).float().mean())
-        fin = torch.isfinite(want)
-        err = float((got - want)[fin].abs().max())
-        print(f"[kernels] level 2 width={width}: identical {share:.6f}, max |d| {err:.3g}")
-        check(share >= 0.999, f"level 2 width {width}: {share} identical")
-        out["level2_reduce"]["max_abs_err"] = max(out["level2_reduce"]["max_abs_err"], err)
-        _record(out["level2_reduce"], list(packed8.shape) + [width],
-                lambda w=width: mb._level2_reduce(packed8, w), lambda w=width: mb._level2_plain(packed8, w),
-                device, sz["reps"], headline=width == mb.L2_MID, bound_of=bound(nbytes(packed8, got)))
+        time_level2(out["level2_reduce"], mb, packed[8], width, device, sz["reps"], headline=width == mb.L2_MID)
     k = sz["scan_k"]
-    reduced = mb._level2_reduce(packed8, mb.L2_MID)
-    top, pos = torch.topk(reduced, k, dim=1)
-    gv, gi = mb.unpack_candidates(top, pos, tile, 8, mb.L2_MID)
-    wv, wi = mb._unpack_plain(top, pos, tile, 8, mb.L2_MID)
-    check(bool(torch.equal(gi, wi)), "unpack ids differ from the plain version")
-    out["unpack_candidates"]["max_abs_err"] = float((gv - wv).abs().max())
-    _record(out["unpack_candidates"], list(top.shape), lambda: mb.unpack_candidates(top, pos, tile, 8, mb.L2_MID),
-            lambda: mb._unpack_plain(top, pos, tile, 8, mb.L2_MID), device, sz["reps"], headline=True,
-            bound_of=bound(nbytes(top, pos, gv, gi)))
+    time_unpack(out["unpack_candidates"], mb, _build, mb._level2_reduce(packed[8], mb.L2_MID), k, tile, 8, mb.L2_MID,
+                device, sz["reps"], headline=True)
+    time_unpack(out["unpack_candidates"], mb, _build, packed[4], 4 * k, tile, 4, None, device, sz["reps"],
+                headline=False)
     # the whole scan through the kernels against the plain pipeline
     for per_bin, kk in ((2, k), (4, k), (8, k), (8, k // 10)):
         _, ids = mb.binmax_scan_topk(qb, c, kk, n_valid=n, per_bin=per_bin)
@@ -1604,6 +1825,61 @@ def _padded_docs(folder, device):
     return docs, mask, [str(x) for x in ids]
 
 
+def token_recall_causes(q, corpus, found, k, bin_rows=128, keep=8, group=128):
+    """Why a per-token binmax search (per_bin 1, keep-8-of-128 level 2)
+    misses rows of the exact top k: ``q`` (T, D) query rows as searched,
+    ``corpus`` (N, D) the index's rows in its own order, ``found`` (T, k)
+    the search's rows. Counts over all T tokens: the misses; the exact top
+    k's rows that share a 128-row bin with a better one (level 1 keeps one
+    a bin: level1_collisions); the rows of bins past the 8th best in one
+    level-2 group of 128 bins (with per_bin 1 a candidate's column is its
+    bin: level2_overflow); the tokens whose k-th and (k+1)-th exact scores
+    tie; the found rows outside the exact top k that score exactly the
+    k-th score (a tie swapped, no loss); the other misses that such a found
+    row passed in the final top-k because their scores agree once the low
+    14 mantissa bits, where levels 1 and 2 pack their offsets, are dropped
+    (packing_order); and the misses none of these explains."""
+    import torch
+
+    def packed(x):  # a score as the final top-k of packed candidates compares it
+        return (x.contiguous().view(torch.int32) & ~0x3FFF).view(torch.float32)
+
+    out = dict.fromkeys(("misses", "level1_collisions", "level2_overflow", "ties_at_k", "tie_swaps",
+                         "packing_order", "unexplained"), 0)
+    out.update(tokens=int(q.shape[0]), k=k)
+    for s in range(0, q.shape[0], 512):
+        scores = q[s:s + 512] @ corpus.T
+        top_vals, top = torch.topk(scores, k + 1, dim=1)
+        exact, kth = top[:, :k].cpu().numpy(), top_vals[:, k - 1]
+        out["ties_at_k"] += int((top_vals[:, k] == kth).sum())
+        got_scores = scores.gather(1, torch.from_numpy(np.clip(found[s:s + 512], 0, None)).to(scores.device))
+        for row, (e, f) in enumerate(zip(exact.tolist(), found[s:s + 512].tolist())):
+            lost, bins, per_group = set(), set(), {}
+            for r in e:  # best first
+                b = r // bin_rows
+                if b in bins:
+                    lost.add(r)
+                    out["level1_collisions"] += 1
+                    continue
+                bins.add(b)
+                per_group[b // group] = per_group.get(b // group, 0) + 1
+                if per_group[b // group] > keep:
+                    lost.add(r)
+                    out["level2_overflow"] += 1
+            missed = sorted(set(e) - set(f) - lost)
+            out["misses"] += len(set(e) - set(f))
+            swapped = [j for j, r in enumerate(f) if r >= 0 and r not in set(e)]
+            passed = 0
+            if swapped:
+                out["tie_swaps"] += int((got_scores[row, swapped] == kth[row]).sum())
+                if missed:
+                    top_swapped = packed(got_scores[row, swapped]).max()
+                    passed = int((packed(scores[row, missed]) <= top_swapped).sum())
+            out["packing_order"] += passed
+            out["unexplained"] += len(missed) - passed
+    return out
+
+
 def phase_colbert(sz, device, root):
     """ColBERT serving, ``cli.dense_retrieval.run("encode+index+search")``
     on phase 4's collection and queries: run-folder files, token rows and
@@ -1709,6 +1985,8 @@ def phase_colbert(sz, device, root):
     print(f"[colbert] per-token recall@{k} of search_rows vs exact bf16 search over {len(live)} live query "
           f"tokens: {result['token_recall']:.4f}")
     check(result["token_recall"] >= 0.95, f"colbert per-token recall@{k} {result['token_recall']}")
+    result["token_recall_causes"] = token_recall_causes(qb[torch.from_numpy(live).to(device)], corpus, rows[live], k)
+    print(f"[colbert] where recall@{k} falls short: {json.dumps(result['token_recall_causes'])}")
 
     # the device merge against the host merge on that batch
     vocab, row_slot = np.unique(np.asarray(index.row_ids).astype(str), return_inverse=True)
@@ -1845,16 +2123,28 @@ def phase_scale(sz, device):
         index.search_rows(queries, k)
     qps = len(queries) * reps / (time.perf_counter() - start)
     qb = torch.from_numpy(queries).to(device)
-    from matchmaker_tpu_torch.ops.mips_binmax import binmax_scan_topk
+    from matchmaker_tpu_torch.ops import mips_binmax as mb
 
     per_bin = index._per_bin(k)
-    ms = _time_ms(lambda: binmax_scan_topk(qb, index._device_vectors, k, n_valid=n, per_bin=per_bin),
+    ms = _time_ms(lambda: mb.binmax_scan_topk(qb, index._device_vectors, k, n_valid=n, per_bin=per_bin),
                   device, sz["reps"])
     print(f"[scale] {n} rows x {sz['hid']}, Q={len(queries)}, k={k}, per_bin={per_bin}: recall@{k} {recall:.4f}, "
           f"search_rows {qps:.1f} QPS, device scan+top-k {ms:.3f} ms ({len(queries) / ms * 1e3:.1f} QPS)")
     check(recall >= 0.95, f"recall@{k} {recall} < 0.95")
+    # K4 at this search's own candidates (its level 2 follows the pool size)
+    n_cands = n // 128 * per_bin
+    level2 = mb.L2_WIDE if n_cands >= 128 * k else (mb.L2_MID if n_cands >= 16 * k else None)
+    l2 = None
+    if level2:
+        cands = mb.binmax_candidates(qb, index._device_vectors, n_valid=n, per_bin=per_bin)
+        l2 = level2_timings(mb, cands, level2, device, sz["reps"])
+        print(f"[scale] level 2 width={level2} over the search's candidates {list(cands.shape)}: identical "
+              f"{l2['identical']:.6f}; device {_fmt(l2['device_ms'])}, events {_fmt(l2['ms'])}, host "
+              f"{_fmt(l2['host_ms'])} a call, bound {l2['bound_ms']:.4f} ms; torch.topk yardstick device "
+              f"{_fmt(l2['library_device_ms'])}")
+        check(l2["identical"] == 1.0, f"level 2 at the scale search's candidates: {l2['identical']} identical")
     return {"launches": launches, "recall": recall, "qps": qps, "device_ms": ms,
-            "device_qps": len(queries) / ms * 1e3, "per_bin": per_bin}
+            "device_qps": len(queries) / ms * 1e3, "per_bin": per_bin, "level2_reduce": l2}
 
 
 def phase_scale_int8(sz, device):
@@ -1997,7 +2287,6 @@ def _profile_steps(step, batch, step_ms, n=3, tag="train"):
     measured without the profiler (whose own overhead stretches the wall
     time)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step(batch)
@@ -2008,19 +2297,7 @@ def _profile_steps(step, batch, step_ms, n=3, tag="train"):
             step(batch)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        # kernels only: a kernel launched through ctypes is also counted as
-        # self device time of the CPU range around it (the autograd Function),
-        # and a GPU user annotation (Optimizer.step) spans kernels of its own
-        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((ev.key, dev_us / 1e3 / n, ev.count // n))
-    rows.sort(key=lambda r: -r[1])
+    rows = sorted(((key, us / 1e3 / n, count // n) for key, us, count in _kernel_times(prof)), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     print(f"[{tag}] profile of {n} calls: kernels {busy:.2f} ms a call, {busy / step_ms:.1%} of the "
           f"{step_ms:.2f} ms call without the profiler ({wall_ms / n:.2f} ms wall under it)")
@@ -2295,7 +2572,8 @@ DESIGN = {
                         "shared memory; one launch serves a query batch's gathered candidate spans or all pairs",
 }
 
-BESIDE = ("headline", "fused_mha_ms", "chain_ms", "fused_mlp_block_ms",
+BESIDE = ("headline", "fused_mha_ms", "chain_ms", "fused_mlp_block_ms", "device_ms", "host_ms", "library_device_ms",
+          "library_call", "floor_device_ms",
           "f32_p_vs_f32_plain_mean_abs", "batched_vs_f32_plain_mean_abs", "parts", "parts_total_ms",
           "library_chain_ms", "product_library_ms", "product_library_call", "colbert_shape_identical")
 
@@ -2375,6 +2653,8 @@ def run_phases(sz, device, card: str) -> dict:
              "library_ms": kern[name].get("library_ms"),
              "timed_shape": kern[name]["timed_shape"], **{k: kern[name][k] for k in BESIDE if k in kern[name]}})
     report["kernel_timings"] = {k[0]: kern[k[0]]["timings"] for k in KERNELS}
+    if report["scale"]["level2_reduce"]:
+        report["kernel_timings"]["level2_reduce"].append(dict(report["scale"]["level2_reduce"], path="scale_bf16"))
     report["torch"] = torch.__version__
     return report
 

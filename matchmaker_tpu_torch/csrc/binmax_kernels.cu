@@ -8,8 +8,8 @@
 //   K8 _binmax_kernel_int8f (int8 corpus, bf16 queries)
 //                                         -> scan_kernel<P, SCAN_MIXED, SLABS>
 //   K5 _transpose_kernel                  -> folded into the scans' stores
-//   K4 _make_level2_kernel (level 2)      -> level2_kernel
-//   K6 _unpack_kernel                     -> unpack_kernel
+//   K4 _make_level2_kernel (level 2)      -> l2::level2_kernel<W>
+//   K6 _unpack_kernel                     -> unpack::unpack_kernel
 //
 // Every scan keeps, for each query and each 128-row corpus bin, the bin's
 // top `per_bin` scores (ties to the lowest row offset: repeated
@@ -59,7 +59,7 @@
 // of its query rows, the bin columns {8j + 2t, 8j + 2t + 1}, j = 0..15,
 // t = lane % 4 (the column map tests/test_torch_binmax_selection.py
 // emulates). Each lane keeps the top P of its 32 columns in ascending
-// offset order with a strict '>' (insert_top's rule, branch-free), then two
+// offset order with a strict '>' (insert_sorted, branch-free), then two
 // __shfl_xor_sync rounds (xor 1, xor 2) merge the quad's sorted lists
 // (value descending, offset ascending on equal values; a bitonic split and
 // sort), and the quad's lanes store the P packed candidates. The score tile
@@ -81,6 +81,7 @@
 // masked.
 #include "wgmma_gemm.cuh"
 
+#include <climits>
 #include <math.h>
 #include <type_traits>
 
@@ -95,28 +96,6 @@ __device__ __forceinline__ float pack_lane(float v, int lane, int shift) {
   if (!isfinite(v)) return v;
   const int bits = (__float_as_int(v) & ~(127 << shift)) | (lane << shift);
   return __int_as_float(bits);
-}
-
-// keep the P largest (value desc, offset asc among equal values): offsets
-// arrive in ascending order and a newcomer only passes strictly smaller
-// values, which is repeated first-argmax selection
-template <int P>
-__device__ __forceinline__ void insert_top(float (&tv)[P], int (&ti)[P], float v, int idx) {
-  if (v > tv[P - 1]) {
-    tv[P - 1] = v;
-    ti[P - 1] = idx;
-#pragma unroll
-    for (int j = P - 1; j > 0; --j) {
-      if (tv[j] > tv[j - 1]) {
-        const float fv = tv[j];
-        tv[j] = tv[j - 1];
-        tv[j - 1] = fv;
-        const int fi = ti[j];
-        ti[j] = ti[j - 1];
-        ti[j - 1] = fi;
-      }
-    }
-  }
 }
 
 // ---- K3, K7, K8: the persistent wgmma/TMA scan ------------------------------------
@@ -245,12 +224,15 @@ __device__ __forceinline__ void convert_codes(const uint8_t* codes, uint8_t* til
   }
 }
 
-// insert_top's rule without a branch: with c[j] = v > tv[j] (the list
+// Keep the P largest (value descending, offset ascending among equal
+// values): offsets arrive in ascending order and a newcomer passes only
+// strictly smaller values, which is repeated first-argmax selection (the
+// TPU kernels' rule). Without a branch: with c[j] = v > tv[j] (the list
 // before), slot j takes tv[j - 1] if c[j - 1], else v if c[j], else keeps
 // its own; j runs downwards so tv[j - 1] is still the old value. In the
-// scan a warp's lanes insert eight rows' scores at once, so insert_top's
-// early-out diverges on nearly every score (tried: K3 per_bin 8 2.7x
-// slower); level 2, one thread a row, keeps it.
+// scan a warp's lanes insert eight rows' scores at once, so an early-out
+// (v > tv[P - 1]) diverges on nearly every score (tried: K3 per_bin 8 2.7x
+// slower). Level 2's exact path uses it too.
 template <int P, typename I>
 __device__ __forceinline__ void insert_sorted(float (&tv)[P], I (&ti)[P], float v, I idx) {
 #pragma unroll
@@ -551,52 +533,295 @@ int launch_mode(const void* q, const void* c, const float* bs, const float* qs, 
 
 }  // namespace scan
 
-// Level 2 over (NQ, C_pad) level-1 candidates: every `w` consecutive columns
-// keep their top 8, offset packed at bits [7, 14), written rank-major within
-// each 1024-column block (the layout of matchmaker_tpu _level2_reduce).
-__global__ void __launch_bounds__(256) level2_kernel(const float* __restrict__ in, float* __restrict__ out,
-                                                      int NQ, int groups, int w, long long ld_in,
-                                                      long long ld_out) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)NQ * groups) return;
-  const int q = (int)(t / groups), g = (int)(t % groups);
-  const int nb2 = L2_BLOCK / w, blk = g / nb2, grp = g % nb2;
-  const float* src = in + (size_t)q * ld_in + (size_t)g * w;
-  float tv[L2_KEEP];
-  int ti[L2_KEEP];
-#pragma unroll
-  for (int j = 0; j < L2_KEEP; ++j) {
-    tv[j] = -INFINITY;
-    ti[j] = 0;
-  }
-  for (int j = 0; j < w; ++j) insert_top<L2_KEEP>(tv, ti, src[j], j);
-  float* dst = out + (size_t)q * ld_out + (size_t)blk * nb2 * L2_KEEP + grp;
-#pragma unroll
-  for (int r = 0; r < L2_KEEP; ++r) dst[(size_t)r * nb2] = pack_lane(tv[r], ti[r], 7);
+// ---- K4: level 2 -----------------------------------------------------------------
+//
+// Over (NQ, C_pad) level-1 candidates, every W (32 or 128) consecutive
+// columns keep their top 8 (value descending, ties to the lowest offset:
+// insert_sorted's strict '>'), the offset packed at mantissa bits [7, 14) and
+// written rank-major within each 1,024-column block: column blk*(1024/W)*8 +
+// rank*(1024/W) + group (matchmaker_tpu _level2_reduce). Output columns from
+// C_pad/W*8 to ld_out are -inf (the padding to a multiple of 128).
+//
+// What bounds it: the bytes, NQ*C_pad*4 read and a quarter (W = 32) or a
+// sixteenth (W = 128) of that written: 6.3 us at (256, 16,384), W = 32, and
+// 118 us at ColBERT's (8,192, 11,264), W = 128, at 3.35 TB/s. Selecting
+// with insert_sorted costs about 40 compare and select instructions a score,
+// which at the card's compare/select rate is as long as the bytes (one
+// thread a group so, with scalar loads, took 0.0195 and 0.381 ms there on
+// an H100; this design 0.0080 and 0.142, 1.3x and 1.2x the bound; PERF.md).
+// The design reads coalesced and halves the selection's instructions:
+// - a warp takes one (query row, 1024-column block): eight 16-byte loads a
+//   lane (512 contiguous bytes a warp instruction) into the warp's own
+//   shared-memory rows, one 32-column sub-group a lane, each padded to 36
+//   floats so the lanes' 16-byte reads hit distinct banks;
+// - each lane selects from its 32 columns by int32 keys: the score's bits
+//   made signed-ordered, the low BITS = log2(W) bits replaced by W-1-offset,
+//   so a key carries its offset and max/min (IMNMX) order keys by (score,
+//   then lower offset); chunks of 8 are sorted by a 19-comparator network
+//   and merged into the running top 8 by one bitonic step, which also
+//   yields the 9th key (the largest dropped); for W = 128 the four lanes of
+//   a quad merge their top 8 with two xor shuffles;
+// - keys that agree above their low BITS bits (a near tie: scores within
+//   2^-16 relative of each other, equal scores, +0 beside -0) are in
+//   offset order (+0's before -0's), which need not be the scores' order
+//   (value descending, offset ascending). So the kept list is exact unless
+//   two neighbours among the top 8 tie near out of the scores' order, the
+//   8th and the 9th key tie near (the run may go on past the 9th), or a
+//   kept score is NaN (two -inf are no tie: they are written -inf whatever
+//   their offset); then
+//   the whole warp selects again by insert_sorted's rule (with
+//   scan::merge_lanes for W = 128), so the output stays bit-identical to
+//   _level2_plain. Scores of real searches rarely tie near
+//   (tests/test_torch_mips_binmax.py emulates both paths);
+// - stores: each rank's columns of a block are contiguous, so a warp
+//   stores 128 bytes (W = 32) or 256 bytes (W = 128) an instruction, and
+//   the warp of a row's last block writes the row's -inf tail columns.
+namespace l2 {
+
+constexpr int WARPS = 8;           // warps a CTA, one (query row, block) each
+constexpr int SUB = 32;            // columns a lane selects from
+constexpr int SUB_STRIDE = SUB + 4;  // floats between sub-groups in shared memory
+
+// the float's bits as an int32 of the same order (-0 just below +0)
+__device__ __forceinline__ int ordered(float v) {
+  const int b = __float_as_int(v);
+  return b ^ ((b >> 31) & 0x7fffffff);
 }
 
-// (value, corpus row id) of selected packed candidates (unpack_candidates)
-__global__ void __launch_bounds__(256) unpack_kernel(const float* __restrict__ vals, const long long* __restrict__ pos,
-                                                     float* __restrict__ out_vals, long long* __restrict__ out_ids,
-                                                     long long n, int tile_rows, int per_bin, int level2) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float v = vals[i];
-  const long long p = pos[i];
-  const int bits = __float_as_int(v);
-  const bool finite = isfinite(v);
-  const int clear = level2 ? (127 | (127 << 7)) : 127;
-  out_vals[i] = finite ? __int_as_float(bits & ~clear) : v;
-  long long rc = p;
-  if (level2) {
-    const int nb2 = L2_BLOCK / level2;
-    const long long blk = p / (nb2 * L2_KEEP), bin2 = p % nb2;
-    rc = blk * L2_BLOCK + bin2 * level2 + ((bits >> 7) & 127);
-  }
-  const int nb = tile_rows / BIN;
-  const long long tile = rc / ((long long)per_bin * nb), bin = rc % nb;
-  out_ids[i] = finite ? tile * tile_rows + bin * BIN + (bits & 127) : -1;
+__device__ __forceinline__ void cx(int& a, int& b) {  // a >= b after
+  const int hi = max(a, b), lo = min(a, b);
+  a = hi;
+  b = lo;
 }
+
+// descending sort of 8 keys: an optimal 19-comparator network, depth 6
+__device__ __forceinline__ void sort8(int (&k)[8]) {
+  cx(k[0], k[2]); cx(k[1], k[3]); cx(k[4], k[6]); cx(k[5], k[7]);
+  cx(k[0], k[4]); cx(k[1], k[5]); cx(k[2], k[6]); cx(k[3], k[7]);
+  cx(k[0], k[1]); cx(k[2], k[3]); cx(k[4], k[5]); cx(k[6], k[7]);
+  cx(k[2], k[4]); cx(k[3], k[5]);
+  cx(k[1], k[4]); cx(k[3], k[6]);
+  cx(k[1], k[2]); cx(k[3], k[4]); cx(k[5], k[6]);
+}
+
+// a := the top 8 of sorted a and sorted b, sorted; rej := the largest of
+// rej and the keys dropped. The larger of each pair (i, 7 - i) are the top
+// 8 as a bitonic sequence, which three half-cleaner stages sort.
+__device__ __forceinline__ void merge8(int (&a)[8], const int (&b)[8], int& rej) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int x = a[i], y = b[7 - i];
+    a[i] = max(x, y);
+    rej = max(rej, min(x, y));
+  }
+#pragma unroll
+  for (int h = 4; h > 0; h /= 2)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if ((i & h) == 0) cx(a[i], a[i + h]);
+}
+
+// a key's score bits above its offset, +0's and -0's families made equal
+template <int BITS>
+__device__ __forceinline__ int high(int key) {
+  const int h = key & ~((1 << BITS) - 1);
+  return h == -(1 << BITS) ? 0 : h;
+}
+
+template <int W>
+__global__ void __launch_bounds__(WARPS * 32) level2_kernel(const float* __restrict__ in, float* __restrict__ out,
+                                                            int NQ, int nblk, long long ld_in, long long ld_out,
+                                                            int tail) {
+  constexpr int BITS = W == 32 ? 5 : 7, M = (1 << BITS) - 1;
+  constexpr int GROUPS = L2_BLOCK / W, OUT = GROUPS * L2_KEEP;  // groups and output columns a block
+  __shared__ __align__(16) float rows[WARPS][SUB * SUB_STRIDE];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long item = (long long)blockIdx.x * WARPS + warp;
+  if (item >= (long long)NQ * nblk) return;
+  const int q = (int)(item / nblk), blk = (int)(item % nblk);
+  float* s = rows[warp];
+
+  // the block's 1024 columns: lane l loads columns 4l + 128i
+  const float4* src = reinterpret_cast<const float4*>(in + (size_t)q * ld_in + (size_t)blk * L2_BLOCK);
+  float4 v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = __ldg(src + lane + 32 * i);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    *reinterpret_cast<float4*>(s + (lane / 8 + 4 * i) * SUB_STRIDE + 4 * (lane % 8)) = v[i];
+  __syncwarp();
+
+  // this lane's top 8 keys of its sub-group, and the 9th
+  const float* mine = s + lane * SUB_STRIDE;
+  const int base = W == 32 ? 0 : SUB * (lane & 3);  // the sub-group's first offset in its group
+  int a[8], rej = INT_MIN;
+#pragma unroll
+  for (int c = 0; c < SUB / 8; ++c) {
+    const float4 x0 = *reinterpret_cast<const float4*>(mine + 8 * c);
+    const float4 x1 = *reinterpret_cast<const float4*>(mine + 8 * c + 4);
+    const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    int b[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) b[e] = (ordered(x[e]) | M) - (base + 8 * c + e);
+    sort8(b);
+    if (c == 0) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) a[e] = b[e];
+    } else {
+      merge8(a, b, rej);
+    }
+  }
+  if (W == 128) {  // the quad's four sub-groups make one group
+#pragma unroll
+    for (int m = 1; m <= 2; m *= 2) {
+      int o[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = __shfl_xor_sync(0xffffffffu, a[e], m);
+      rej = max(rej, __shfl_xor_sync(0xffffffffu, rej, m));
+      merge8(a, o, rej);
+    }
+  }
+
+  // the kept scores, and whether the keys' order may differ from the scores'
+  const float* grp = s + (W == 32 ? lane : lane & ~3) * SUB_STRIDE;  // the group's first sub-group
+  constexpr int HIGH_NEG_INF = (int)(0x807fffffu & ~(unsigned)M);    // high<BITS>(key of -inf)
+  float kept[8];
+  int off[8];
+  bool redo = false;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    off[r] = M - (a[r] & M);
+    kept[r] = grp[(off[r] / SUB) * SUB_STRIDE + off[r] % SUB];
+    redo |= isnan(kept[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {  // inside a run of equal high parts the keys' order need not be the scores'
+    const int h = high<BITS>(a[r]);
+    if (r < 7)
+      redo |= h == high<BITS>(a[r + 1]) && h != HIGH_NEG_INF && !scan::before(kept[r], off[r], kept[r + 1], off[r + 1]);
+    else  // the 8th beside the 9th: the run may go on past the 9th
+      redo |= h == high<BITS>(rej) && h != HIGH_NEG_INF;
+  }
+  if (__any_sync(0xffffffffu, redo)) {  // exact: insert_sorted's rule over the scores
+    float tv[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      tv[r] = -INFINITY;
+      off[r] = 0;
+    }
+#pragma unroll
+    for (int j = 0; j < SUB; ++j) scan::insert_sorted<8, int>(tv, off, mine[j], base + j);
+    if (W == 128) {
+      scan::merge_lanes<8>(tv, off, 1);
+      scan::merge_lanes<8>(tv, off, 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) kept[r] = tv[r];
+  }
+
+  float* dst = out + (size_t)q * ld_out + (size_t)blk * OUT;
+  if (W == 32) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) dst[r * GROUPS + lane] = pack_lane(kept[r], off[r], 7);
+  } else {  // lane 4g + t stores group g's ranks 2t and 2t + 1
+    const int t = lane & 3, g = lane >> 2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float kv = kept[i];
+      int ko = off[i];
+#pragma unroll
+      for (int u = 1; u < 4; ++u)
+        if (t == u) {
+          kv = kept[2 * u + i];
+          ko = off[2 * u + i];
+        }
+      dst[(2 * t + i) * GROUPS + g] = pack_lane(kv, ko, 7);
+    }
+  }
+  if (blk == nblk - 1)
+    for (int c = lane; c < tail; c += 32) out[(size_t)q * ld_out + (size_t)nblk * OUT + c] = -INFINITY;
+}
+
+}  // namespace l2
+
+// ---- K6: unpack -------------------------------------------------------------------
+//
+// (value, corpus row id) of selected packed candidates (unpack_candidates):
+// n elements, each read once (f32 value, int64 column) and written once
+// (f32 value, int64 id): 24 bytes an element, 1.8 us at (256, 1000) at
+// 3.35 TB/s, so a launch is as short as the card's launch itself (an empty
+// kernel at this grid takes about 1 us). The column arithmetic is 32-bit
+// (columns are below 2^31): the level-2 block and group by shifts
+// (1024/W*8 and 1024/W are powers of two), the tile and bin by one
+// multiply-shift division by nb = tile_rows/128 (FastDiv; nb need not be a
+// power of two) and a shift by log2(per_bin), since c / (per_bin*nb) =
+// (c / nb) / per_bin. Only tile * tile_rows + bin * 128 + lane is 64-bit.
+// One element a thread: measured on an H100 against four a thread with
+// 16-byte loads and stores (in grids capped at 8 or 16 CTAs an SM, or not
+// capped), it was as fast at (256, 1000) and (8,192, 48) and faster at
+// (256, 4000).
+namespace unpack {
+
+// n / d for 0 <= n < 2^31 by a multiply and a shift (cutlass::FastDivmod's
+// round-up method): mul = ceil(2^(31 + l) / d), l = ceil(log2 d); exact
+// because the rounding error n * (mul * d - 2^(31 + l)) / 2^(31 + l) stays
+// below 1/d
+struct FastDiv {
+  unsigned mul;
+  int shift, d;
+  __device__ __forceinline__ int div(int n) const {
+    return d == 1 ? n : (int)(__umulhi((unsigned)n, mul) >> shift);
+  }
+};
+
+inline int ceil_log2(int x) {
+  int l = 0;
+  while ((1 << l) < x) ++l;
+  return l;
+}
+
+inline FastDiv make_fastdiv(int d) {
+  if (d == 1) return {0u, 0, 1};
+  const int p = 31 + ceil_log2(d);
+  return {(unsigned)(((1ull << p) + (unsigned)d - 1) / (unsigned)d), p - 32, d};
+}
+
+struct Geometry {
+  FastDiv nb;          // divides by tile_rows / 128
+  int per_bin_shift;   // log2(per_bin)
+  long long tile_rows;
+  int level2_shift;    // log2(1024 / W * 8): the level-2 block of a column
+  int group_mask;      // 1024 / W - 1: its group
+  int width_shift;     // log2(W); -1 without level 2
+  int clear;           // the packed lane bits
+};
+
+__device__ __forceinline__ long long row_id(const Geometry& g, float v, int col, float& val) {
+  const int bits = __float_as_int(v);
+  const bool finite = (bits & 0x7f800000) != 0x7f800000;
+  val = finite ? __int_as_float(bits & ~g.clear) : v;
+  int rc = col;  // the level-1 column
+  if (g.width_shift >= 0)
+    rc = ((col >> g.level2_shift) << 10) + ((col & g.group_mask) << g.width_shift) + ((bits >> 7) & 127);
+  const int t = g.nb.div(rc), bin = rc - t * g.nb.d;
+  return finite ? (long long)(t >> g.per_bin_shift) * g.tile_rows + (bin << 7) + (bits & 127) : -1;
+}
+
+constexpr int THREADS = 256;
+
+__global__ void __launch_bounds__(THREADS) unpack_kernel(const float* __restrict__ vals,
+                                                         const long long* __restrict__ pos,
+                                                         float* __restrict__ out_vals,
+                                                         long long* __restrict__ out_ids, long long n, Geometry g) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i < n) out_ids[i] = row_id(g, vals[i], (int)pos[i], out_vals[i]);
+}
+
+__global__ void empty_kernel() {}
+
+inline unsigned grid(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
+
+}  // namespace unpack
 
 }  // namespace mm
 
@@ -632,24 +857,53 @@ int mm_binmax_scan_int8(const void* queries, const void* corpus, const void* bin
 }
 
 // out (NQ, ld_out) f32: level-2 reduction of in (NQ, ld_in) over c_pad
-// columns (c_pad % 1024 == 0), groups of `width` in {32, 128}.
+// columns (c_pad % 1024 == 0), groups of `width` in {32, 128}; columns from
+// c_pad / width * 8 to ld_out are written -inf. in, out 16-byte aligned.
 int mm_level2(const void* in, void* out, int NQ, int c_pad, int width, long long ld_in, long long ld_out,
               void* stream) {
-  const int groups = c_pad / width;
-  const long long total = (long long)NQ * groups;
-  const unsigned blocks = (unsigned)((total + 255) / 256);
-  level2_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), static_cast<float*>(out), NQ, groups, width, ld_in, ld_out);
+  const int nblk = c_pad / L2_BLOCK;
+  const long long tail = ld_out - (long long)c_pad / width * L2_KEEP;
+  if (c_pad <= 0 || c_pad % L2_BLOCK || (width != 32 && width != 128) || tail < 0 || ld_in < c_pad || ld_in % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (NQ <= 0) return static_cast<int>(cudaSuccess);
+  const unsigned blocks = (unsigned)(((long long)NQ * nblk + l2::WARPS - 1) / l2::WARPS);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* i = static_cast<const float*>(in);
+  float* o = static_cast<float*>(out);
+  if (width == 32)
+    l2::level2_kernel<32><<<blocks, l2::WARPS * 32, 0, s>>>(i, o, NQ, nblk, ld_in, ld_out, (int)tail);
+  else
+    l2::level2_kernel<128><<<blocks, l2::WARPS * 32, 0, s>>>(i, o, NQ, nblk, ld_in, ld_out, (int)tail);
   return static_cast<int>(cudaGetLastError());
 }
 
-// vals/pos: n selected candidates (f32, int64 columns) -> values, int64 corpus rows
+// vals/pos: n selected candidates (f32, int64 columns below 2^31) -> values,
+// int64 corpus rows; tile_rows % 128 == 0, per_bin in {1, 2, 4, 8}, level2
+// 0 (none), 32 or 128.
 int mm_unpack(const void* vals, const void* pos, void* out_vals, void* out_ids, long long n, int tile_rows,
               int per_bin, int level2, void* stream) {
-  const unsigned blocks = (unsigned)((n + 255) / 256);
-  unpack_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (tile_rows <= 0 || tile_rows % BIN || (per_bin & (per_bin - 1)) || per_bin < 1 || per_bin > 8 ||
+      (level2 != 0 && level2 != 32 && level2 != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  unpack::Geometry g;
+  g.nb = unpack::make_fastdiv(tile_rows / BIN);
+  g.per_bin_shift = unpack::ceil_log2(per_bin);
+  g.tile_rows = tile_rows;
+  g.level2_shift = level2 ? unpack::ceil_log2(L2_BLOCK / level2 * L2_KEEP) : 0;
+  g.group_mask = level2 ? L2_BLOCK / level2 - 1 : 0;
+  g.width_shift = level2 ? unpack::ceil_log2(level2) : -1;
+  g.clear = level2 ? (127 | (127 << 7)) : 127;
+  unpack::unpack_kernel<<<unpack::grid(n), unpack::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(vals), static_cast<const long long*>(pos), static_cast<float*>(out_vals),
-      static_cast<long long*>(out_ids), n, tile_rows, per_bin, level2);
+      static_cast<long long*>(out_ids), n, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// an empty kernel at mm_unpack's grid for n candidates: the floor the card
+// gives that launch (chip_smoke.py and tools/binmax_scan_ab.py time it)
+int mm_unpack_floor(long long n, void* stream) {
+  unpack::empty_kernel<<<unpack::grid(n), unpack::THREADS, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,7 @@ and counts nothing).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -66,6 +67,7 @@ _SIGNATURES = {
     "mm_binmax_scan_int8": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i64, _i, _p],
     "mm_level2": [_p, _p, _i, _i, _i, _i64, _i64, _p],
     "mm_unpack": [_p, _p, _p, _p, _i64, _i, _i, _i, _p],
+    "mm_unpack_floor": [_i64, _p],
     "mm_wg_gemm": [_p, _p, _p, _p, _i, _i, _i, _i, _p],
     "mm_wg_gemm_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p],
     "mm_wg_gemm_dz": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
@@ -172,8 +174,18 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as the int a ``c_void_p``
+    argument takes: PyTorch's raw-stream query, without the
+    ``torch.cuda.Stream`` object ``current_stream`` builds on every call."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device() if device.index is None else device.index)
+
+
+def on(device: torch.device):
+    """The device context a launch on ``device`` needs: none when it is the
+    current device already (entering ``torch.cuda.device`` switches the
+    device twice, which costs host time on every call)."""
+    return contextlib.nullcontext() if device.index == torch.cuda.current_device() else torch.cuda.device(device)
 
 
 def call(name: str, *args) -> None:

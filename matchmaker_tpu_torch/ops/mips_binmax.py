@@ -23,8 +23,17 @@ Kernels (``csrc/binmax_kernels.cu``), each with its plain version here:
 - :func:`_scan_int8_cuda` / :func:`_scan_int8_plain`: int8 corpus and int8
   query codes (TPU K7 ``_binmax_kernel_int8``): exact int32 sums, then
   (raw × bin scale) × query scale;
-- :func:`_level2_cuda` / :func:`_level2_plain`: level 2 (TPU K4);
-- :func:`_unpack_cuda` / :func:`_unpack_plain`: decode (TPU K6).
+- :func:`_level2_cuda` / :func:`_level2_plain`: level 2 (TPU K4): a warp
+  reads a (query row, 1024-column block) coalesced into shared memory and
+  selects by int32 keys that carry each score's offset in their low bits,
+  with an exact path for near ties (emulated on the CPU in
+  ``tests/test_torch_mips_binmax.py``);
+- :func:`_unpack_cuda` / :func:`_unpack_plain`: decode (TPU K6), 32-bit
+  column arithmetic with a multiply-shift division (also emulated there).
+
+``binmax_candidates`` and ``binmax_scan_topk`` hand the scan's output to K4,
+and ``torch.topk``'s to K6, through ``_level2_launch`` / ``_unpack_launch``
+without the checks the scan and topk already make true.
 
 K3, K7 and K8 are one persistent wgmma/TMA scan on the card that keeps
 each bin's scores in registers and selects there (the kernel's selection,
@@ -227,21 +236,25 @@ def _level2_plain(packed: torch.Tensor, bin_width: int) -> torch.Tensor:
     return F.pad(out, (0, _level2_width(c, bin_width) - out.shape[1]), value=_NEG_INF)
 
 
-def _level2_cuda(packed: torch.Tensor, bin_width: int) -> torch.Tensor:
+def _level2_launch(packed: torch.Tensor, bin_width: int) -> torch.Tensor:
+    """K4 on a scan's output as the scan leaves it (contiguous f32 on the
+    card, C % 1024 == 0): one allocation and one C call; the kernel writes
+    the -inf tail columns itself."""
     q, c = packed.shape
-    if bin_width not in (L2_MID, L2_WIDE) or c % _L2_BLOCK:
-        raise ValueError(f"level 2: the CUDA kernel takes widths 32/128 over C % 1024 == 0, got {bin_width}, {c}")
-    _build.check_cuda(packed, "level2_reduce.packed", torch.float32)
-    width = _level2_width(c, bin_width)
-    n_out = c // bin_width * LEVEL2_PER_BIN
-    with torch.cuda.device(packed.device):
-        out = torch.empty((q, width), dtype=torch.float32, device=packed.device)
-        if width > n_out:
-            out[:, n_out:].fill_(_NEG_INF)
-        _build.call("mm_level2", _build.ptr(packed), _build.ptr(out), q, c, bin_width, c, width,
+    out = torch.empty((q, _level2_width(c, bin_width)), dtype=torch.float32, device=packed.device)
+    with _build.on(packed.device):
+        _build.call("mm_level2", packed.data_ptr(), out.data_ptr(), q, c, bin_width, c, out.shape[1],
                     _build.stream(packed.device))
     _build.LAUNCHES["level2_reduce"] += 1
     return out
+
+
+def _level2_cuda(packed: torch.Tensor, bin_width: int) -> torch.Tensor:
+    c = packed.shape[1]
+    if bin_width not in (L2_MID, L2_WIDE) or c % _L2_BLOCK:
+        raise ValueError(f"level 2: the CUDA kernel takes widths 32/128 over C % 1024 == 0, got {bin_width}, {c}")
+    _build.check_cuda(packed, "level2_reduce.packed", torch.float32)
+    return _level2_launch(packed, bin_width)
 
 
 def _level2_reduce(packed: torch.Tensor, bin_width: int = L2_WIDE) -> torch.Tensor:
@@ -300,8 +313,8 @@ def binmax_candidates(queries: torch.Tensor, corpus: torch.Tensor, n_valid: Opti
         packed = _scan_int8_plain(qb, corpus, corpus_scales, query_scales, n_valid, per_bin, tile_rows)
     else:
         packed = _scan_plain(qb, corpus, n_valid, per_bin, tile_rows)
-    if level2:
-        packed = _level2_reduce(packed, level2)
+    if level2:  # on the card the scan's output is K4's input as it lies
+        packed = _level2_launch(packed, level2) if packed.is_cuda else _level2_reduce(packed, level2)
     return packed
 
 
@@ -323,20 +336,26 @@ def _unpack_plain(packed_vals: torch.Tensor, positions: torch.Tensor, tile_rows:
     return vals, torch.where(finite, ids, -1)
 
 
+def _unpack_launch(packed_vals: torch.Tensor, positions: torch.Tensor, tile_rows: int,
+                   per_bin: int, level2: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 on ``torch.topk``'s output as it lies (contiguous f32 values and
+    int64 columns of one shape on the card): two allocations, one C call."""
+    vals = torch.empty_like(packed_vals)
+    ids = torch.empty_like(positions)
+    with _build.on(packed_vals.device):
+        _build.call("mm_unpack", packed_vals.data_ptr(), positions.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+                    packed_vals.numel(), tile_rows, per_bin, level2 or 0, _build.stream(packed_vals.device))
+    _build.LAUNCHES["unpack_candidates"] += 1
+    return vals, ids
+
+
 def _unpack_cuda(packed_vals: torch.Tensor, positions: torch.Tensor, tile_rows: int,
                  per_bin: int, level2: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     _build.check_cuda(packed_vals, "unpack_candidates.packed_vals", torch.float32)
     _build.check_cuda(positions, "unpack_candidates.positions", torch.int64)
     if packed_vals.shape != positions.shape:
         raise ValueError("unpack_candidates: values and positions differ in shape")
-    with torch.cuda.device(packed_vals.device):
-        vals = torch.empty_like(packed_vals)
-        ids = torch.empty_like(positions)
-        _build.call("mm_unpack", _build.ptr(packed_vals), _build.ptr(positions), _build.ptr(vals),
-                    _build.ptr(ids), packed_vals.numel(), tile_rows, per_bin, level2 or 0,
-                    _build.stream(packed_vals.device))
-    _build.LAUNCHES["unpack_candidates"] += 1
-    return vals, ids
+    return _unpack_launch(packed_vals, positions, tile_rows, per_bin, level2)
 
 
 def unpack_candidates(packed_vals: torch.Tensor, positions: torch.Tensor, tile_rows: int,
@@ -371,7 +390,9 @@ def binmax_scan_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                                tile_rows=tile_rows, level2=level2, corpus_scales=corpus_scales,
                                query_scales=query_scales)
     top_packed, pos = torch.topk(packed, min(k, packed.shape[1]), dim=1)
-    return unpack_candidates(top_packed, pos, tile_rows, per_bin, level2)
+    if top_packed.is_cuda:  # topk's outputs are what K6 takes
+        return _unpack_launch(top_packed, pos, tile_rows, per_bin, level2)
+    return _unpack_plain(top_packed, pos, tile_rows, per_bin, level2)
 
 
 # rows of the (queries, fetch, D) rescore gather held at once

@@ -243,6 +243,32 @@ def test_flat_index_honours_mips_tile_rows(per_bin):
         assert (old != want).any()
 
 
+def test_per_token_search_matches_jax_at_the_cli_colbert_geometry():
+    """ColBERT's per-token search as the CLI configures it (per_bin 1,
+    4096-row tiles, float16 store, bf16 index), 48 candidates a query token
+    over 800,000 unit token rows: 6,250 bins >= 128 x 48, so the route takes
+    the keep-8-of-128 level 2. The port's ``search_rows`` returns JAX's rows
+    and scores for every query token: the per-token recall gap of the CLI's
+    ColBERT run (ROADMAP.md, queue 3) is no difference from JAX's route."""
+    rng = np.random.default_rng(11)
+    n, dim, k = 800_000, 16, 48
+    centers = rng.normal(size=(512, dim))
+    vectors = (centers[rng.integers(0, 512, n)] + 0.3 * rng.normal(size=(n, dim))).astype(np.float32)
+    vectors /= np.linalg.norm(vectors, axis=1, keepdims=True)
+    queries = (vectors[rng.integers(0, n, 64)] + 0.05 * rng.normal(size=(64, dim))).astype(np.float32)
+    config = {"token_dtype": "float16", "mips_quantization": "float16", "mips_kernel": "binmax",
+              "mips_per_bin": 1, "mips_tile_rows": 4096}
+    assert n // 128 >= 128 * k
+    found = []
+    for index in (JaxFlatIndex(config, mesh=None), FlatIndex(config, CPU)):
+        index.prepare(dim)
+        index.index(np.arange(n), vectors)
+        found.append(index.search_rows(queries, k))
+    (want_scores, want_rows), (got_scores, got_rows) = found
+    np.testing.assert_array_equal(got_rows, want_rows)
+    np.testing.assert_array_equal(got_scores, want_scores)
+
+
 # ---- the slice end to end through both CLIs ------------------------------------
 
 N_PASSAGES, N_QUERIES, TOP_N, CANDIDATES, RESCORE_N = 1024, 32, 10, 16, 24

@@ -575,11 +575,104 @@ def test_unpack_kernel_matches_plain_and_topk_overlaps(device, level2):
 def test_wrappers_count_launches(device):
     _build.reset_launches()
     q, c = _corpus(16_384, 768, device, seed=17)
-    mb.binmax_scan_topk(q, c, 10, per_bin=2)
+    mb.binmax_scan_topk(q, c, 10, per_bin=2)  # 256 candidates >= 16 x 10: keep-8/32
     assert _build.LAUNCHES["binmax_candidates"] == 1
+    assert _build.LAUNCHES["level2_reduce"] == 1
     assert _build.LAUNCHES["unpack_candidates"] == 1
     mb.binmax_scan_topk(q.cpu(), c.cpu(), 10, per_bin=2)  # plain: not counted
     assert _build.LAUNCHES["binmax_candidates"] == 1
+    assert _build.LAUNCHES["level2_reduce"] == 1
+    assert _build.LAUNCHES["unpack_candidates"] == 1
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_level2_kernel_at_colbert_geometry_is_bit_identical(device):
+    """K4 at width 128 on the candidates of ColBERT's per-token scan (per_bin
+    1, 4096-row tiles, n_valid mid-bin, width-128 queries), at 1,024 query
+    rows over 300,000 rows (ColBERT's 8,192 over 1.35M, cut)."""
+    g = torch.Generator(device=device).manual_seed(31)
+    n, n_valid = 311_296, 300_000 - 57  # 19 grains of 16,384 rows (per_bin 1 at 4096-row tiles)
+    c = torch.randn(n, 128, generator=g, device=device)
+    c = (c / c.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    q = (c[torch.randint(0, n_valid, (1024,), generator=g, device=device)].float()
+         + 0.05 * torch.randn(1024, 128, generator=g, device=device)).to(torch.bfloat16)
+    packed = mb.binmax_candidates(q, c, n_valid=n_valid, per_bin=1, tile_rows=4096)
+    got = mb._level2_reduce(packed, mb.L2_WIDE)
+    want = mb._level2_plain(torch.nn.functional.pad(packed, (0, -packed.shape[1] % 1024), value=float("-inf")),
+                            mb.L2_WIDE)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and _bits_equal(got, want)
+    # the same through binmax_candidates' own route (the scan writes K4's padded input)
+    assert _bits_equal(mb.binmax_candidates(q, c, n_valid=n_valid, per_bin=1, tile_rows=4096, level2=mb.L2_WIDE),
+                       want)
+
+
+def _level2_case(kind, q, c, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    if kind == "ties":  # small integers: exact ties in nearly every group
+        return torch.randint(-3, 4, (q, c), generator=g, device=device).float()
+    if kind == "near_ties":  # equal but for the low 5 mantissa bits: the kernel's exact path
+        x = torch.randint(1, 4, (q, c), generator=g, device=device).float()
+        low = torch.randint(0, 32, (q, c), generator=g, device=device, dtype=torch.int32)
+        return (x.view(torch.int32) | low).view(torch.float32)
+    if kind == "signed_zero_pairs":  # each 32 columns: -0.0 and +0.0 at random offsets, else -inf
+        x = torch.full((q, -(-c // 32), 32), float("-inf"), device=device)
+        order = torch.rand(x.shape, generator=g, device=device).argsort(-1)
+        x.scatter_(-1, order[..., :1], -0.0)
+        x.scatter_(-1, order[..., 1:2], 0.0)
+        return x.reshape(q, -1)[:, :c].contiguous()
+    if kind == "zeros_and_inf":  # +0 ties -0; whole groups of -inf
+        choice = torch.tensor([-0.0, 0.0, 1.0, float("-inf"), float("-inf"), float("-inf")], device=device)
+        x = choice[torch.randint(0, 6, (q, c), generator=g, device=device)]
+        x[:, 64:192] = float("-inf")
+        return x
+    return torch.randn(q, c, generator=g, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [mb.L2_MID, mb.L2_WIDE])
+@pytest.mark.parametrize("kind", ["normal", "ties", "near_ties", "zeros_and_inf", "signed_zero_pairs"])
+@pytest.mark.parametrize("c", [3 * 1024, 3 * 1024 - 200])
+def test_level2_kernel_ties_and_padding_are_bit_identical(device, width, kind, c):
+    """K4 bit for bit (int32 view) against ``_level2_plain`` with exact ties
+    and near ties inside groups, +0 beside -0 (and alone together, where the
+    keys put +0 first whatever the offsets), all -inf groups, and an input
+    that is no multiple of 1,024 columns (padded -inf by _level2_reduce; at
+    width 128 over 3,072 columns the output's last 64 columns are the -inf
+    padding the kernel writes)."""
+    x = _level2_case(kind, 37, c, device, seed=c + width)
+    got = mb._level2_reduce(x, width)
+    want = mb._level2_reduce(x.cpu(), width)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and _bits_equal(got.cpu(), want)
+    if width == mb.L2_WIDE:
+        assert torch.isneginf(got[:, 192:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_rows,k,per_bin,level2,tile", [(256, 4000, 4, None, 2048), (8192, 48, 1, mb.L2_WIDE, 4096),
+                                                          (256, 1000, 2, mb.L2_MID, 3072), (3, 5, 8, None, 1152)])
+def test_unpack_kernel_is_exact_at_the_paths_shapes(device, q_rows, k, per_bin, level2, tile):
+    """K6 at the two-stage route's (256, 4000), ColBERT's (8192, 48), and
+    odd geometries (3,072- and 1,152-row tiles: nb not a power of two; 15
+    elements): ids equal, values bit for bit, -inf slots -1."""
+    g = torch.Generator(device=device).manual_seed(k)
+    n_cols = 1 << 20
+    vals = torch.randn(q_rows, k, generator=g, device=device)
+    vals[torch.rand(q_rows, k, generator=g, device=device) < 0.05] = float("-inf")
+    lanes = torch.randint(0, 128, (q_rows, k), generator=g, device=device, dtype=torch.int32) | (
+        torch.randint(0, level2 or 128, (q_rows, k), generator=g, device=device, dtype=torch.int32) << 7)
+    vals = torch.where(torch.isfinite(vals), ((vals.view(torch.int32) & ~0x3FFF) | lanes).view(torch.float32), vals)
+    pos = torch.randint(0, n_cols, (q_rows, k), generator=g, device=device)
+    gv, gi = mb.unpack_candidates(vals, pos, tile, per_bin, level2)
+    wv, wi = mb._unpack_plain(vals, pos, tile, per_bin, level2)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi) and _bits_equal(gv, wv)
+    assert (gi[torch.isneginf(vals)] == -1).all()
 
 
 # ---- the wgmma/TMA scans K3 and K7 at every geometry they take ----------------
