@@ -322,6 +322,18 @@ def _record(entry, shape, kernel, plain, device, reps, headline, bound_of=None):
             entry.update(bound_ms=bound_of[0], bound_by=bound_of[1])
 
 
+def _device_beside(entry, kernel, device, headline):
+    """The device time of ``kernel`` (``_device_ms``) and its multiple of
+    the bound, into the timing _record just wrote and, at the headline,
+    into the entry."""
+    timing = entry["timings"][-1]
+    dev = _device_ms(kernel, device)
+    timing.update(device_ms=dev, x_bound=dev / timing["bound_ms"] if dev is not None else None)
+    print(f"[kernels]   device {_fmt(dev)}" + (f", {timing['x_bound']:.2f}x bound" if dev is not None else ""))
+    if headline:
+        entry.update(device_ms=dev, x_bound=timing["x_bound"])
+
+
 def _library_level2(x, width):
     """The nearest library call to K4: each group's 8 largest values and
     their offsets, ``torch.topk(x.view(Q, G, w), 8)``, with ties in no set
@@ -1365,9 +1377,11 @@ def phase_probe_kernels(sz, device):
     headline shape and an odd one. K15: each variant against its own plain
     version (f32_p against the f32-P one, the stub against the stub) at
     K13's bar; beside it K13's fused_mha and, as library_ms, one
-    scaled_dot_product_attention call. K16: bit-identical; library_ms one
-    torch._int_mm call on the same operands. K17/K18 at every row tile, at
-    K2's bar; no single library call computes the MLP half, so library_ms is
+    scaled_dot_product_attention call. K16: bit-identical, and equal to
+    one torch._int_mm call on the same operands, its library_ms. K15, K16
+    and their library calls also by device time (_device_ms) at both
+    shapes, each kernel's with its multiple of the bound. K17/K18 at every
+    row tile, at K2's bar; no single library call computes the MLP half, so library_ms is
     None and chain_ms times the bf16 torch.matmul chain, fused_mlp_block_ms
     K2, at the headline. Bounds: the live keys' products (K15), the int8
     products or the bytes (K16), the live rows' products (K17/K18)."""
@@ -1402,18 +1416,29 @@ def phase_probe_kernels(sz, device):
             _record(entry, [b, l, hid, variant], lambda a=(q, k, v, mask), vr=variant: ai.attn_inner(*a, vr, heads),
                     lambda a=(q, k, v, mask), vr=variant: ai.reference_attn_inner(*a, vr, heads), device, sz["reps"],
                     headline=i == 0 and variant == "batched", bound_of=bound(nbytes(q, k, v, mask, got), bf16=ops))
+            _device_beside(entry, lambda a=(q, k, v, mask), vr=variant: ai.attn_inner(*a, vr, heads), device,
+                           headline=i == 0 and variant == "batched")
+        # the yardsticks at this shape, beside each variant's row
+        lib = {"fused_mha_ms": _time_ms(lambda a=(q, k, v, mask): fa.fused_mha(*a, heads), device, sz["reps"]),
+               "fused_mha_device_ms": _device_ms(lambda a=(q, k, v, mask): fa.fused_mha(*a, heads), device),
+               "library_ms": None, "library_device_ms": None}
+        if on_card:
+            lib.update(library_ms=_time_ms(lambda a=(q, k, v, mask): ai.sdpa(*a, heads), device, sz["reps"]),
+                       library_device_ms=_device_ms(lambda a=(q, k, v, mask): ai.sdpa(*a, heads), device))
+        for timing in entry["timings"][-len(ai.VARIANTS):]:
+            timing.update(lib)
+        print(f"[kernels]   B={b} L={l}: K13 fused_mha device {_fmt(lib['fused_mha_device_ms'])}, events "
+              f"{_fmt(lib['fused_mha_ms'])}; library scaled_dot_product_attention device "
+              f"{_fmt(lib['library_device_ms'])}, events {_fmt(lib['library_ms'])}")
         if i == 0:
+            entry.update(lib, library_call="torch.nn.functional.scaled_dot_product_attention, the same additive "
+                                           "mask in bf16")
             # P kept f32 (hi + lo) against rounded to bf16, both against the f32-P plain version
             want = ai.reference_attn_inner(q, k, v, mask, "f32_p", heads)
             entry.update({f"{vr}_vs_f32_plain_mean_abs": _mean_abs(ai.attn_inner(q, k, v, mask, vr, heads), want)
                           for vr in ("f32_p", "batched")})
             print(f"[kernels]   mean |d| to the f32-P plain version: f32_p {entry['f32_p_vs_f32_plain_mean_abs']:.4g}, "
                   f"batched {entry['batched_vs_f32_plain_mean_abs']:.4g}")
-            entry["fused_mha_ms"] = _time_ms(lambda a=(q, k, v, mask): fa.fused_mha(*a, heads), device, sz["reps"])
-            if on_card:
-                entry["library_ms"] = _time_ms(lambda a=(q, k, v, mask): ai.sdpa(*a, heads), device, sz["reps"])
-                print(f"[kernels]   K13 fused_mha {entry['fused_mha_ms']:.4f} ms, library "
-                      f"scaled_dot_product_attention {entry['library_ms']:.4f} ms")
 
     entry = out["int8_matmul"]
     for i, (m, k, n) in enumerate(sz["probe_int8_shapes"]):
@@ -1426,10 +1451,18 @@ def phase_probe_kernels(sz, device):
         _record(entry, [m, k, n], lambda a=(xq, wq_t): im.int8_matmul(*a),
                 lambda a=(xq, wq_t): im.reference_int8_matmul(*a), device, sz["reps"], headline=i == 0,
                 bound_of=bound(nbytes(xq, wq_t, got), int8=2 * m * k * n))
-        if i == 0 and on_card:
-            check(torch.equal(torch._int_mm(xq, wq_t.T), got), "torch._int_mm disagrees with the kernel")
-            entry["library_ms"] = _time_ms(lambda: torch._int_mm(xq, wq_t.T), device, sz["reps"])
-            print(f"[kernels]   library torch._int_mm {entry['library_ms']:.4f} ms")
+        _device_beside(entry, lambda a=(xq, wq_t): im.int8_matmul(*a), device, headline=i == 0)
+        if on_card:
+            check(torch.equal(torch._int_mm(xq, wq_t.T), got),
+                  f"torch._int_mm disagrees with the kernel at {(m, k, n)}")
+            lib = {"library_ms": _time_ms(lambda a=(xq, wq_t): torch._int_mm(a[0], a[1].T), device, sz["reps"]),
+                   "library_device_ms": _device_ms(lambda a=(xq, wq_t): torch._int_mm(a[0], a[1].T), device)}
+            entry["timings"][-1].update(lib)
+            if i == 0:
+                entry.update(lib, library_call="torch._int_mm(xq, wq_t.T): the same operands, B K-major")
+            print(f"[kernels]   library torch._int_mm device {_fmt(lib['library_device_ms'])}, events "
+                  f"{_fmt(lib['library_ms'])}")
+        del xq, wq_t, got
 
     weights = _probe_mlp_weights(sz, device, 800)
     for i, (b, l) in enumerate(sz["probe_mlp_shapes"]):
@@ -2495,7 +2528,7 @@ def phase_probes(sz, device):
               f"other kernels {others}")
     res = result["results"]
     print(f"[probes] attn_inner ms: " + ", ".join(f"{k} {v['ms']:.4f}" for k, v in res["attn_inner"].items()
-                                                  if isinstance(v, dict)))
+                                                  if isinstance(v, dict) and "ms" in v))
     print(f"[probes] int8_matmul ms: {res['int8_matmul']['ms']}, int8_vs_bf16 {res['int8_matmul']['int8_vs_bf16']:.3f},"
           f" chain_vs_bf16 {res['int8_matmul']['chain_vs_bf16']:.3f}")
     for shape in res["mlp_rows"]["shapes"]:
@@ -2566,14 +2599,22 @@ DESIGN = {
     "binmax_candidates_int8f": "the same scan (SCAN_MIXED): the bin's int8 codes by TMA into a staging area, turned "
                                "into the 128-byte-swizzled bf16 B operand by the producer warpgroup's three idle warps "
                                "(exact), m64n128k16 bf16 -> f32 products, f32 sum * bin scale before the selection",
+    "attn_inner": "one warpgroup a (head, example), two CTAs an SM: Q tiles, K and V by TMA through 3-D maps "
+                  "(rows past L zero on loads, clipped on stores), read once; S = Q.K^T by wgmma m64n64k16 with the "
+                  "whole row (<= 256 keys) in registers, softmax in registers over the quad of lanes, p as register-A "
+                  "bf16 fragments (hi + lo for f32_p) into wgmma m64n64k16 against V MN-major; past 256 keys two "
+                  "halves (max and sum, then S again); the output tile through shared memory by TMA store",
+    "int8_matmul": "persistent s8 wgmma/TMA GEMM: a producer warp keeps a 5-stage ring of both K-major operands "
+                   "and runs into the next tile; two consumer warpgroups of m64n128k32; the int32 tile through a "
+                   "swizzled shared-memory buffer a warpgroup to TMA stores that run under the next tile's mainloop",
     "maxsim_all_pairs": "split-TF32 mma.sync m16n8k8 (hi + lo of each f32 operand, three products; two for float16 "
                         "tokens), whole queries packed in row tiles of Lq rounded to 16, token chunks of 64 through a "
                         "3-stage cp.async ring, the max in registers, across the quad by shuffles and across warps in "
                         "shared memory; one launch serves a query batch's gathered candidate spans or all pairs",
 }
 
-BESIDE = ("headline", "fused_mha_ms", "chain_ms", "fused_mlp_block_ms", "device_ms", "host_ms", "library_device_ms",
-          "library_call", "floor_device_ms",
+BESIDE = ("headline", "fused_mha_ms", "fused_mha_device_ms", "x_bound", "chain_ms", "fused_mlp_block_ms",
+          "device_ms", "host_ms", "library_device_ms", "library_call", "floor_device_ms",
           "f32_p_vs_f32_plain_mean_abs", "batched_vs_f32_plain_mean_abs", "parts", "parts_total_ms",
           "library_chain_ms", "product_library_ms", "product_library_call", "colbert_shape_identical")
 
@@ -2702,7 +2743,9 @@ def main() -> int:
           f"recall@{FULL['colbert_candidates']} {col['token_recall']:.4f}, recall@{FULL['colbert_top_n']} vs "
           f"exhaustive MaxSim {col['recall@10_vs_exhaustive']:.4f}")
     for k in report["kernels"]:
-        print(f"[{card}] {k['name']}: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
+        device = (f" (device {k['device_ms']:.4f} ms, {k['x_bound']:.2f}x bound; library device "
+                  f"{_fmt(k.get('library_device_ms'))})" if k.get("x_bound") else "")
+        print(f"[{card}] {k['name']}: kernel {k['ms']:.4f} ms{device}, plain {k['plain_ms']:.4f} ms, bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}) at {k['timed_shape']}, max |d| {k['max_abs_err']:.3g}, "
               f"launches {k['launches']} in its path's run ({k['path']}), {k['launches_scale']} in the scale search")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)

@@ -4,22 +4,34 @@
 //   K16 pk (inside mm_int8_pallas) -> int8_matmul_kernel
 // out (M, N) int32 = xq (M, K) int8 . wq (K, N) int8, exact. The weight
 // codes come K-major, as wq^T (N, K), the way a serving path would store
-// them once: both operands then feed mma.sync's row.col form through
-// ldmatrix without a transpose.
+// them once: wgmma takes 8-bit operands K-major only, so both feed it
+// untransposed.
 //
 // What bounds it on the card: 2*M*K*N int8 operations against
 // M*K + K*N + 4*M*N bytes; at the probe's MLP shape (16,384 x 768 x 3,072)
 // the int32 output alone is 201 MB, so the bytes bound it (0.065 ms at
-// 3.35 TB/s against 0.039 ms of int8 tensor-core work at 1,979 TOP/s).
+// 3.35 TB/s against 0.039 ms of int8 tensor-core work at 1,979 TOP/s): the
+// kernel has to keep the output stream running while it multiplies.
 //
-// Design (a simple tensor-core kernel, not yet tuned): one block of 8 warps
-// per 128 x 128 output tile; K comes through a 3-stage cp.async ring of
-// 64-byte slices of both operands (80-byte shared rows, so ldmatrix's eight
-// row addresses fall on distinct banks); each warp owns 64 x 32 of the tile:
-// per 32-deep step four A and two B ldmatrix.x4 loads feed 16
-// mma.sync.m16n8k32.s8 products into 64 int32 accumulators. Rows past M,
-// columns past N and a K tail of 32 are zero-filled by the copies.
-#include "mma_sync.cuh"
+// Design: persistent and warp-specialised (wgmma_gemm.cuh's pieces). One
+// CTA an SM walks the 128 x 128 output tiles (along N first, so concurrent
+// tiles share their A rows in L2). A producer warp keeps TMA loads of both
+// K-major operands (128-byte-deep stages, 128-byte swizzle) in a 5-stage
+// mbarrier ring and runs ahead into the next tile while the consumers
+// finish this one. The ring sets the speed: the operands come from L2 and
+// the mainloop waits on them unless 160 KB are in flight (on an H100, 4
+// stages took 0.114 ms, 5 stages 0.086; 256 x 128 tiles with 2 stages,
+// 0.134). Two consumer warpgroups own 64 rows each: wgmma
+// m64n128k32 s8 x s8 -> s32, four a stage. The epilogue goes through
+// shared memory: each consumer writes its 64 x 128 int32 accumulators into
+// its own 32 KB buffer, swizzled as the store's four 64 x 32 boxes, and
+// one thread stores them by TMA (cp.async.bulk.tensor, a bulk group), so
+// the store stream runs under the next tile's mainloop; the buffer is
+// written again only once that group has been read. The tensor maps clip
+// rows past M and columns past N (N % 8 == 0 keeps the row pitch a multiple
+// of 16 bytes, so every N takes TMA stores: no plain-store tail), and fill
+// K past its end with zeros (K % 32 == 0; the zeros add nothing).
+#include "wgmma_gemm.cuh"
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,90 +39,123 @@
 namespace mm {
 namespace probe_i8 {
 
-constexpr int BM = 128, BN = 128, BK = 64;  // tile rows, columns and bytes of K a stage
-constexpr int LDS = BK + 16;                 // 80-byte shared rows
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;
-constexpr int STAGE_BYTES = (BM + BN) * LDS;
-constexpr size_t SMEM_BYTES = (size_t)STAGES * STAGE_BYTES;
+using namespace wg;
 
-__device__ __forceinline__ void load_stage(int8_t* st, const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-                                           int M, int N, int K, int m0, int n0, int k0) {
-  for (int c = threadIdx.x; c < (BM + BN) * (BK / 16); c += THREADS) {
-    const int row = c >> 2, col = (c & 3) * 16;  // rows [0, BM) of A, then BN rows of B
-    const bool is_b = row >= BM;
-    const int g = is_b ? n0 + row - BM : m0 + row;
-    const bool ok = g < (is_b ? N : M) && k0 + col < K;
-    const int8_t* src = (is_b ? B : A) + (ok ? (size_t)g * K + k0 + col : 0);
-    cp_async16(st + row * LDS + col, src, ok);
-  }
+constexpr int BM = 128, BN = 128, BK = 128;  // tile rows, columns and bytes of K a stage
+constexpr int CONSUMERS = 2;                 // warpgroups of 64 rows, beside the producer's
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int STAGES = 5;
+constexpr int BOX_BYTES = 128 * BK;          // one operand's stage: 16 KB
+constexpr int STAGE_BYTES = 2 * BOX_BYTES;
+constexpr int OUT_BYTES = 64 * BN * 4;       // a consumer's int32 tile: 32 KB
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + CONSUMERS * OUT_BYTES + 1024 /* alignment */ + 2 * STAGES * 8;
+
+// the consumer warpgroup's own barrier (ids 0 and 1 are taken elsewhere)
+__device__ __forceinline__ void warpgroup_sync(int warpgroup) {
+  asm volatile("bar.sync %0, 128;" ::"r"(2 + warpgroup) : "memory");
 }
 
-__global__ void __launch_bounds__(THREADS, 2) int8_matmul_kernel(const int8_t* __restrict__ A,
-                                                                  const int8_t* __restrict__ B,
-                                                                  int* __restrict__ C, int M, int N, int K) {
-  extern __shared__ __align__(128) int8_t smem[];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int k_tiles = (K + BK - 1) / BK;
+__global__ void __launch_bounds__(THREADS, 1)
+    int8_matmul_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                       const __grid_constant__ CUtensorMap tc, int N, int K, int units) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* out_buf = smem + STAGES * STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(out_buf + CONSUMERS * OUT_BYTES);
+  uint64_t* empty = full + STAGES;
+  const int warpgroup = threadIdx.x / 128;
+  const int tiles_n = (N + BN - 1) / BN, k_tiles = (K + BK - 1) / BK;
 
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < k_tiles) load_stage(smem + s * STAGE_BYTES, A, B, M, N, K, m0, n0, s * BK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed; every warp is done with stage kt - 1
-    const int next = kt + STAGES - 1;
-    if (next < k_tiles) load_stage(smem + (next % STAGES) * STAGE_BYTES, A, B, M, N, K, m0, n0, next * BK);
-    cp_async_commit();
-    const int8_t* As = smem + (kt % STAGES) * STAGE_BYTES;
-    const int8_t* Bs = As + BM * LDS;
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      uint32_t a[4][4], b[2][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ldsm_x4(a[i], As + (wm + 16 * i + (lane & 15)) * LDS + ks + (lane >> 4) * 16);
-#pragma unroll
-      for (int p = 0; p < 2; ++p)
-        ldsm_x4(b[p], Bs + (wn + 16 * p + (lane & 7) + ((lane >> 4) << 3)) * LDS + ks + ((lane >> 3) & 1) * 16);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          mma16832_s8(acc[i][2 * p], a[i], b[p][0], b[p][1]);
-          mma16832_s8(acc[i][2 * p + 1], a[i], b[p][2], b[p][3]);
-        }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  cp_async_wait<0>();
-  // fragment [i][j][2h + e] holds row wm + 16i + lane/4 + 8h, column wn + 8j + 2(lane%4) + e
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm + 16 * i + (lane >> 2) + 8 * h;
-      if (row >= M) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + wn + 8 * j + 2 * (lane & 3);
-        if (col < N) *reinterpret_cast<int2*>(C + (size_t)row * N + col) = make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+  __syncthreads();
+
+  if (warpgroup == CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == CONSUMERS * 128) {  // one thread keeps the ring full, across tiles
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int m0 = (u / tiles_n) * BM, n0 = (u % tiles_n) * BN;
+        for (int t = 0; t < k_tiles; ++t, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+          mbar_expect_tx(&full[s], STAGE_BYTES);
+          uint8_t* st = smem + s * STAGE_BYTES;
+          tma_load(&ta, st, &full[s], t * BK, m0);
+          tma_load(&tb, st + BOX_BYTES, &full[s], t * BK, n0);
+        }
       }
     }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x & 127) >> 5;
+  const bool leader = threadIdx.x % 128 == 0;
+  uint8_t* buf = out_buf + warpgroup * OUT_BYTES;
+  int it = 0;  // K tiles consumed so far, over all tiles
+  bool stored = false;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int m0 = (u / tiles_n) * BM, n0 = (u % tiles_n) * BN;
+    int acc[64];
+    for (int t = 0; t < k_tiles; ++t, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      const uint32_t a_st = smem_u32(smem + s * STAGE_BYTES) + warpgroup * (64 * BK);
+      const uint32_t b_st = smem_u32(smem + s * STAGE_BYTES + BOX_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < BK / 32; ++k)  // the tile's first product overwrites the sums (scale-d = 0)
+        wgmma_m64n128_s8(acc, a_st + 32 * k, b_st + 32 * k, t > 0 || k > 0);
+      wgmma_commit();
+      // keep this stage's products in flight; the previous stage's are done
+      wgmma_wait<1>();
+      if (t > 0 && leader) mbar_arrive(&empty[(it - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (leader) {
+      mbar_arrive(&empty[(it - 1) % STAGES]);
+      if (stored) tma_store_wait_read<0>();  // the previous tile's store has left the buffer
+    }
+    warpgroup_sync(warpgroup);
+    stage_acc_m64n128(buf, acc, warp, lane);
+    fence_proxy_async();
+    warpgroup_sync(warpgroup);
+    if (leader) {
+#pragma unroll
+      for (int b = 0; b < BN / 32; ++b) tma_store(&tc, buf + b * 8192, n0 + 32 * b, m0 + 64 * warpgroup);
+      tma_store_commit();
+    }
+    stored = true;
+  }
+  if (leader) tma_store_wait<0>();
+}
+
+// the launch for the extern "C" entry below (inside the namespace: wg's
+// names of the same spelling stay out of the way)
+inline cudaError_t launch(const void* xq, const void* wq_t, void* out, int M, int N, int K, cudaStream_t stream) {
+  CUtensorMap ta, tb, tc;
+  if (!make_map(&ta, xq, K, M, false, CU_TENSOR_MAP_DATA_TYPE_UINT8, BM) ||
+      !make_map(&tb, wq_t, K, N, false, CU_TENSOR_MAP_DATA_TYPE_UINT8, BN) ||
+      !make_store_map(&tc, out, N, M, CU_TENSOR_MAP_DATA_TYPE_INT32))
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(int8_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const int units = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const int grid = units < sm_count() ? units : sm_count();
+  int8_matmul_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(ta, tb, tc, N, K, units);
+  return cudaGetLastError();
 }
 
 }  // namespace probe_i8
 }  // namespace mm
-
-using namespace mm::probe_i8;
 
 extern "C" {
 
@@ -119,13 +164,7 @@ extern "C" {
 int mm_probe_int8_matmul(const void* xq, const void* wq_t, void* out, int M, int N, int K, void* stream) {
   if (M < 0 || N < 8 || K < 32 || N % 8 || K % 32) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return static_cast<int>(cudaSuccess);
-  cudaError_t err =
-      cudaFuncSetAttribute(int8_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  int8_matmul_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wq_t), static_cast<int*>(out), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(mm::probe_i8::launch(xq, wq_t, out, M, N, K, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -9,7 +9,10 @@
 // fused halves (K11, K12); the int8 forward halves (K9, K10,
 // encoder_int8_kernels.cu) build their own kernels from the pieces here
 // (mbarriers, TMA, descriptors, the s8 wgmma below, tensor maps of int8
-// codes).
+// codes), and so do the probes' K15 and K16 (probe_attn_inner.cu: the
+// m64n64 forms with A from shared memory or from registers;
+// probe_int8_matmul.cu: the epilogue through shared memory by TMA store,
+// which none of the GEMMs here uses yet).
 //
 // Operands are bf16 and row-major in device memory. Each may be read
 //   K-major:  stored (rows, K), K contiguous: one TMA box {64, 128} a stage,
@@ -196,6 +199,92 @@ template <int N>
 __device__ __forceinline__ void fence_regs(int (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 64 f32 per warpgroup) = A (64 x 16) . B (16 x 64) (+ d when
+// accumulate), bf16, both K-major in shared memory (descriptors as
+// make_desc<false>)
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 f32 per warpgroup) = A (64 x 16 bf16, in registers) . B (16 x
+// 64) (+ d when accumulate), B MN-major in shared memory (make_desc<true>).
+// A's fragment is the
+// m64nNk16 accumulator's layout over 16 of its columns: a[0] = (row
+// 16 w + lane/4, columns 2 (lane%4) + {0, 1}), a[1] the same 8 rows on,
+// a[2] and a[3] the same 8 columns on, each a bf16 pair
+__device__ __forceinline__ void wgmma_m64n64_rs_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// ---- TMA stores: an epilogue through shared memory -------------------------
+// The tile goes to shared memory in the 128-byte-swizzled layout of the
+// store's boxes (rows of 128 bytes, the 16-byte chunk c of row r at chunk
+// c ^ (r % 8), boxes 1024-byte aligned); every writing thread fences its
+// writes for the async proxy and the writers meet at a barrier; then one
+// thread issues the boxes and commits them as a bulk group. Before the
+// buffer is written again, that thread waits until the group has been read
+// (tma_store_wait_read), and before the CTA ends until it is done. Rows and
+// columns past the tensor map's extent are not written.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() { asm volatile("cp.async.bulk.commit_group;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// a warpgroup's 64 x 128 accumulator of 4-byte values (wgmma m64n128
+// layout: element (row 16 warp + lane/4 + 8i, column 8j + 2 (lane%4) + e)
+// at [4j + 2i + e]) into four swizzled boxes of 64 rows x 32 columns, box b
+// holding columns [32b, 32b + 32) at buf + 8192 b; each 8-byte pair lands
+// so that a warp's stores of one j fill every bank twice
+template <typename T>
+__device__ __forceinline__ void stage_acc_m64n128(uint8_t* buf, const T (&acc)[64], int warp, int lane) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = warp * 16 + (lane >> 2) + 8 * i;
+      const int byte = 32 * (j & 3) + 8 * (lane & 3);  // within the box's 128-byte row
+      uint8_t* dst = buf + (j >> 2) * 8192 + row * 128 + ((((byte >> 4) ^ (row & 7))) << 4) + (byte & 15);
+      T pair[2] = {acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]};
+      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(pair);
+    }
 }
 
 // one 16-deep slice of the stage: A rows [64c, 64c + 64), all 128 B columns
@@ -420,6 +509,22 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int inner, int outer, bo
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a row-major (rows, cols) matrix of 4-byte elements (int32 or f32) as the
+// destination of TMA stores: boxes of 32 columns (128 bytes) x 64 rows,
+// 128-byte swizzle, the layout stage_acc_m64n128 writes; rows and columns
+// past the extent are not stored. cols * 4 must be a multiple of 16 bytes.
+inline bool make_store_map(CUtensorMap* map, void* ptr, int cols, int rows, CUtensorMapDataType type) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {32, 64};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, ptr, dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -14,7 +14,9 @@ layout, in one of three variants:
   attributing time, as in the TPU probe.
 
 CUDA tensors (bf16, head width 64, 1 <= L <= 512) launch the kernel of
-``csrc/probe_attn_inner.cu``; CPU tensors run :func:`reference_attn_inner`.
+``csrc/probe_attn_inner.cu`` (one warpgroup a (head, example), the scores
+in registers, both products on ``wgmma``; :func:`kernel_plan` says how it
+takes L); CPU tensors run :func:`reference_attn_inner`.
 
     python -m matchmaker_tpu_torch.probes.attn_inner [--rows 256] [--len 200] [--iters 30] [--device cpu]
 
@@ -23,7 +25,8 @@ cores) and ``scaled_dot_product_attention`` with the same additive mask (a
 yardstick the port never calls) on q = k = v as the TPU probe does, and
 prints one JSON line keyed by the TPU probe's names (``batched(current)``,
 ``batched_SOFTMAX_STUB``, ``batched_f32_p``), each {ms, tflops,
-eff_vs_peak} against the H100's 989 TFLOP/s, FLOPs = 4·B·L²·64·12.
+eff_vs_peak} against the H100's 989 TFLOP/s, FLOPs = 4·B·L²·64·12, and
+the kernel's plan for L.
 """
 
 from __future__ import annotations
@@ -41,6 +44,29 @@ from matchmaker_tpu_torch.probes import card, device_of, median_ms, rate
 VARIANTS = {"batched": 0, "f32_p": 1, "softmax_stub": 2}
 HEAD_DIM = 64
 _KERNEL_MAX_LEN = 512
+_CHUNK = 64  # keys of a wgmma accumulator, rows of a query tile and of a TMA box
+_CHUNKS_IN_REGISTERS = 4  # 64-key chunks a thread's registers hold a pass
+
+
+def kernel_plan(length: int, batch: int = 1, n_heads: int = 12) -> dict:
+    """How the card's kernel takes L keys (``csrc/probe_attn_inner.cu``,
+    ``launch_for``): one CTA of 128 threads a (head, example); ⌈L/64⌉
+    query tiles of 64 rows; K and V in 64-key boxes, zero past L, their
+    keys padded to a multiple of 64 with p = 0; up to 256 keys one pass
+    with the whole row in registers (``chunks`` accumulators of 64 keys),
+    past 256 two halves of four chunks (max and sum first, then S again);
+    the dynamic shared memory of Q tiles, K and V boxes, the additive mask
+    and the mbarriers."""
+    if not 1 <= length <= _KERNEL_MAX_LEN:
+        raise ValueError(f"attn_inner: the CUDA kernel takes 1 <= L <= {_KERNEL_MAX_LEN}, got {length}")
+    tiles = -(-length // _CHUNK)
+    halves = 1 if tiles <= _CHUNKS_IN_REGISTERS else 2
+    chunks = tiles if halves == 1 else _CHUNKS_IN_REGISTERS
+    boxes = chunks * halves
+    box_bytes = _CHUNK * HEAD_DIM * 2
+    return {"q_tiles": tiles, "chunks": chunks, "halves": halves, "keys_padded": _CHUNK * boxes,
+            "grid": [n_heads, batch], "threads": 128,
+            "smem_bytes": 1024 + (tiles + 2 * boxes) * box_bytes + boxes * _CHUNK * 4 + (2 + tiles) * 8}
 
 
 def reference_attn_inner(q, k, v, mask, variant: str = "batched", n_heads: int = 12) -> torch.Tensor:
@@ -131,7 +157,7 @@ def main(argv=None) -> dict:
             "fused_mha(K13)": lambda: fa.fused_mha(x, x, x, mask, h),
             "sdpa": lambda: sdpa(x, x, x, mask, h)}
     result = {name: rate(flops, median_ms(fn, device, args.iters), "bf16", device) for name, fn in rows.items()}
-    result.update(shape=[b, l, h * HEAD_DIM], device=card(device))
+    result.update(shape=[b, l, h * HEAD_DIM], device=card(device), plan=kernel_plan(l, b, h))
     print(json.dumps(result), flush=True)
     return result
 

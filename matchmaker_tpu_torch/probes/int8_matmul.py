@@ -4,8 +4,10 @@ and of its TPU kernel K16 (``pk`` inside ``mm_int8_pallas``).
 :func:`int8_matmul` computes xq (M, K) int8 · wq (K, N) int8 → (M, N)
 int32, exactly. The weight codes are passed K-major, as ``wq_t`` = wqᵀ
 (N, K), the way a serving path stores them once; CUDA tensors launch the
-tensor-core kernel of ``csrc/probe_int8_matmul.cu`` (K % 32 == 0,
-N % 8 == 0, any M), CPU tensors run :func:`reference_int8_matmul`.
+kernel of ``csrc/probe_int8_matmul.cu`` (K % 32 == 0, N % 8 == 0, any M;
+persistent s8 ``wgmma`` with TMA loads and a TMA-store epilogue, its walk
+over the output tiles :func:`tile_schedule`), CPU tensors run
+:func:`reference_int8_matmul`.
 :func:`int8_chain` is the int8 MLP product a serving path pays for:
 per-row activation quantization, the product, dequantization.
 
@@ -31,6 +33,22 @@ import torch
 
 from matchmaker_tpu_torch.ops import _build, over_127
 from matchmaker_tpu_torch.probes import PEAK, card, device_of, median_ms
+
+
+TILE_M, TILE_N = 128, 128  # output tile rows and columns
+SMS = 132  # the H100 SXM's streaming multiprocessors: one CTA each
+
+
+def tile_schedule(m: int, n: int) -> list:
+    """The kernel's persistent walk: CTA c of min(tiles, SMS) takes the
+    tiles c, c + grid, ... of the ⌈M/128⌉ × ⌈N/128⌉ output tiles, along N
+    first (concurrent CTAs share their rows of xq in L2); each tile as its
+    (first row, first column)."""
+    tiles_n = -(-n // TILE_N)
+    units = -(-m // TILE_M) * tiles_n
+    grid = min(units, SMS)
+    return [[((u // tiles_n) * TILE_M, (u % tiles_n) * TILE_N) for u in range(c, units, grid)]
+            for c in range(grid)]
 
 
 def reference_int8_matmul(xq: torch.Tensor, wq_t: torch.Tensor) -> torch.Tensor:
@@ -102,6 +120,7 @@ def main(argv=None) -> dict:
     wscale = torch.ones(n, device=device)
 
     exact = bool(torch.equal(int8_matmul(xq, wq_t), reference_int8_matmul(xq, wq_t)))
+    schedule = tile_schedule(m, n)
     t_bf16 = median_ms(lambda: torch.matmul(x, w), device, args.iters)
     t_kernel = median_ms(lambda: int8_matmul(xq, wq_t), device, args.iters)
     t_chain = median_ms(lambda: int8_chain(x, wq_t, wscale), device, args.iters)
@@ -122,6 +141,7 @@ def main(argv=None) -> dict:
         "ms": {"bf16_matmul": t_bf16, "int_mm": t_int_mm, "int_mm_row_major_b": t_int_mm_kn, "kernel": t_kernel,
                "chain": t_chain},
         "shape": [m, k, n], "exact": exact, "device": card(device),
+        "ctas": len(schedule), "tiles_per_cta": max(len(c) for c in schedule),
     }
     print(json.dumps(result), flush=True)
     return result

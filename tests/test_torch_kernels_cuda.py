@@ -1353,6 +1353,96 @@ def test_probe_attn_inner_f32_p_keeps_the_f32_agreement(device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["batched", "f32_p", "softmax_stub"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("l", [1, 16, 64, 65, 77, 200, 208, 256, 257, 512])
+def test_probe_attn_inner_kernel_at_every_key_chunking(device, variant, masked, l):
+    """K15 at the lengths where its plan changes (one to four 64-key chunks
+    in registers, the two-half form past 256 keys, partial and whole
+    8-key groups past L), masked (a random length >= L/4 a row) and not,
+    against its plain version at K13's bar; q, k, v as the probe draws
+    them."""
+    from matchmaker_tpu_torch.probes import attn_inner as ai
+
+    g = torch.Generator(device=device).manual_seed(l * 10 + masked)
+    b = 3
+    q, k, v = ((torch.randn(b, l, 768, generator=g, device=device) * 0.3).to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones(b, l, device=device)
+    if masked:
+        lengths = torch.randint(max(1, l // 4), l + 1, (b,), generator=g, device=device)
+        mask = (torch.arange(l, device=device)[None, :] < lengths[:, None]).float()
+    _build.reset_launches()
+    got = ai.attn_inner(q, k, v, mask, variant)
+    want = ai.reference_attn_inner(q, k, v, mask, variant)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["attn_inner"] == 1 and got.shape == q.shape and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
+    cos, err = _rows_close(got, want)
+    assert cos >= 0.999 and err <= 0.1, (cos, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["batched", "f32_p"])
+@pytest.mark.parametrize("l", [77, 200, 300])
+def test_probe_attn_inner_all_masked_row_is_the_uniform_average(device, variant, l):
+    """An example whose keys are all masked: every score takes the same
+    additive -1e9, so its rows average v over the L keys, as the plain
+    version does (padding past L takes -inf and stays out)."""
+    from matchmaker_tpu_torch.probes import attn_inner as ai
+
+    g = torch.Generator(device=device).manual_seed(l)
+    q, k, v = ((torch.randn(2, l, 768, generator=g, device=device) * 0.3).to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones(2, l, device=device)
+    mask[1] = 0.0
+    got = ai.attn_inner(q, k, v, mask, variant)
+    want = ai.reference_attn_inner(q, k, v, mask, variant)
+    mean_v = v[1].float().mean(dim=0, keepdim=True).expand(l, -1)
+    cos, err = _rows_close(got, want)
+    assert cos >= 0.999 and err <= 0.1, (cos, err)
+    cos, err = _rows_close(got[1], mean_v)
+    assert cos >= 0.999 and err <= 0.02, (cos, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [200, 512])
+def test_probe_kernels_reruns_are_bit_identical(device, l):
+    """K15 (each variant) and K16 give the same bits on a rerun: no atomics,
+    no order that depends on scheduling."""
+    from matchmaker_tpu_torch.probes import attn_inner as ai
+    from matchmaker_tpu_torch.probes import int8_matmul as im
+
+    g = torch.Generator(device=device).manual_seed(l)
+    q, k, v = ((torch.randn(4, l, 768, generator=g, device=device) * 0.3).to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones(4, l, device=device)
+    mask[0, l // 3:] = 0.0
+    for variant in ai.VARIANTS:
+        first = ai.attn_inner(q, k, v, mask, variant)
+        assert torch.equal(first, ai.attn_inner(q, k, v, mask, variant)), variant
+    xq = torch.randint(-127, 128, (4 * l, 768), generator=g, device=device, dtype=torch.int8)
+    wq_t = torch.randint(-127, 128, (3072, 768), generator=g, device=device, dtype=torch.int8)
+    assert torch.equal(im.int8_matmul(xq, wq_t), im.int8_matmul(xq, wq_t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 127, 129, 1000])
+@pytest.mark.parametrize("n", [8, 40, 264])
+@pytest.mark.parametrize("k", [32, 96, 768])
+def test_probe_int8_matmul_at_tile_and_box_edges(device, m, n, k):
+    """K16 bit-identical to its plain version where a 128-row tile, a
+    128-column tile, a 32-column store box or a 128-byte K stage is cut by
+    the tensor's edge."""
+    from matchmaker_tpu_torch.probes import int8_matmul as im
+
+    g = torch.Generator(device=device).manual_seed(m * 7 + n * 3 + k)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=device, dtype=torch.int8)
+    wq_t = torch.randint(-127, 128, (n, k), generator=g, device=device, dtype=torch.int8)
+    _build.reset_launches()
+    got = im.int8_matmul(xq, wq_t)
+    assert _build.LAUNCHES["int8_matmul"] == 1 and got.shape == (m, n) and got.dtype == torch.int32
+    assert torch.equal(got, im.reference_int8_matmul(xq, wq_t))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(16384, 768, 3072), (1000, 768, 3072), (129, 96, 40), (1, 32, 8)])
 def test_probe_int8_matmul_kernel_is_exact(device, m, k, n):
     """K16 bit-identical to its plain version (a float64 product, exact

@@ -6,8 +6,8 @@
 BASE_DIR and NEW_DIR are roots of checkouts of this repository (for example
 a parent commit unpacked with ``git archive`` under ``build/``, and ``.``).
 Each turn is a fresh process that imports ``matchmaker_tpu_torch`` from its
-checkout, so its kernels build from that checkout's sources into that
-checkout's ``build/``, and times, with CUDA events after two warm-up calls
+checkout (the turn loop of ``tools/ab_turns.py``), so its kernels build from
+that checkout's sources into that checkout's ``build/``, and times, with CUDA events after two warm-up calls
 and on data made from seeds as ``chip_smoke.py`` makes it (its
 ``_clustered`` rows, of this checkout):
 
@@ -47,13 +47,12 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
-import json
 import os
-import subprocess
 import sys
 
+import ab_turns
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TURN_TAG = "TURN "
 
 
 def _chip_smoke():
@@ -66,19 +65,15 @@ def _chip_smoke():
 
 def run_turn(checkout: str, reps: int, device_name: str, tiny: bool) -> dict:
     """Time the scans and searches of the port in ``checkout`` (this process)."""
-    sys.path.insert(0, os.path.abspath(checkout))
+    ab_turns.import_port(checkout)
     import numpy as np
     import torch
 
-    import matchmaker_tpu_torch
     from matchmaker_tpu_torch.ops import _build
     from matchmaker_tpu_torch.ops import mips_binmax as mb
     from matchmaker_tpu_torch.ops.mips_quant import quantize_corpus_binwise, quantize_queries
     from matchmaker_tpu_torch.retrieval.indexes import FlatIndex
 
-    where = os.path.dirname(os.path.dirname(os.path.abspath(matchmaker_tpu_torch.__file__)))
-    if where != os.path.abspath(checkout):
-        raise RuntimeError(f"imported matchmaker_tpu_torch from {where}, not from {checkout}")
     cs = _chip_smoke()
     device = torch.device(device_name)
     sz = dict(cs.FULL)
@@ -178,69 +173,6 @@ def run_turn(checkout: str, reps: int, device_name: str, tiny: bool) -> dict:
             "ms": {**scans, **searches}, "device_ms": dev, "host_ms": host, "bound_ms": bounds}
 
 
-def _card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("base", nargs="?", help="root of the checkout measured as A")
-    ap.add_argument("new", nargs="?", help="root of the checkout measured as B")
-    ap.add_argument("--turns", default="ABBA", help="order of the turns (letters A and B)")
-    ap.add_argument("--reps", type=int, default=10, help="timed calls of each scan and search a turn")
-    ap.add_argument("--device", default="cuda", help="cuda, or cpu for a rehearsal with --tiny")
-    ap.add_argument("--tiny", action="store_true", help="a 64-wide corpus of a few thousand rows")
-    ap.add_argument("--out", help="write the turns and the means to this JSON file")
-    ap.add_argument("--turn", help=argparse.SUPPRESS)  # one turn in this process: the checkout's root
-    args = ap.parse_args()
-
-    if args.turn:
-        print(TURN_TAG + json.dumps(run_turn(args.turn, args.reps, args.device, args.tiny)), flush=True)
-        return 0
-    if not (args.base and args.new) or set(args.turns) - set("AB"):
-        ap.error("give BASE_DIR, NEW_DIR and turns of A and B")
-    if args.device == "cuda":
-        import torch
-
-        if not torch.cuda.is_available():
-            print("no CUDA device", file=sys.stderr)
-            return 1
-    checkouts = {"A": args.base, "B": args.new}
-    turns = []
-    for letter in args.turns:
-        cmd = [sys.executable, os.path.abspath(__file__), "--turn", checkouts[letter], "--reps", str(args.reps),
-               "--device", args.device] + (["--tiny"] if args.tiny else [])
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(TURN_TAG)]
-        if proc.returncode != 0 or not lines:
-            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
-            raise RuntimeError(f"turn {letter} ({checkouts[letter]}) failed with exit code {proc.returncode}")
-        turn = dict(json.loads(lines[-1][len(TURN_TAG):]), turn=letter)
-        turns.append(turn)
-        print(json.dumps(turn), flush=True)
-
-    def mean(values):
-        values = [v for v in values if v is not None]
-        return sum(values) / len(values) if values else None
-
-    means = {}
-    for letter in sorted(set(args.turns)):
-        mine = [t for t in turns if t["turn"] == letter]
-        means[letter] = {"checkout": checkouts[letter], **{name: mean(t["ms"][name] for t in mine)
-                                                           for name in mine[0]["ms"]},
-                         **{kind: {name: mean(t[kind].get(name) for t in mine) for name in mine[0][kind]}
-                            for kind in ("device_ms", "host_ms")}}
-    card = _card_line() if args.device == "cuda" else "cpu"
-    print(card)
-    summary = {"card": card, "reps": args.reps, "turns": args.turns, "means": means}
-    print(json.dumps(summary))
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump({"summary": summary, "turns": turns}, f, indent=1)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_turns.main(argparse.ArgumentParser(description=__doc__.split("\n\n")[0]), run_turn,
+                           kinds=("device_ms", "host_ms")))
