@@ -39,10 +39,11 @@ Phases (any failed check raises, and the script exits non-zero):
    attention inner loop K15 (three variants) at (256, 200) and (16, 77) with
    padded keys beside K13 and scaled_dot_product_attention, the int8 product
    K16 (bit-identical) at 16,384 x 768 x 3,072 and M = 1,000 beside
-   torch._int_mm, the row-packed MLP K17/K18 at every row tile at
-   (256, 200) and (16, 77) beside K2 and the bf16 torch.matmul chain; with
-   CUDA-event timings of both and each kernel's bound (bytes or operations
-   at the H100's data-sheet rates); at the encoder halves' headline
+   torch._int_mm, the row-packed MLP K17/K18 (one cluster kernel) at
+   (256, 200) and (16, 77) by device time beside K2 and the bf16
+   torch.matmul chain; with CUDA-event timings of both and each kernel's
+   bound (bytes or operations at the H100's data-sheet rates); at the
+   encoder halves' headline
    (256, 128) each launch of K1, K2, K10 and K9 alone (each bf16 product
    with its TFLOP/s beside one torch.addmm call of the same shapes, each
    int8 product with its TOP/s beside one torch._int_mm call on codes of
@@ -1380,11 +1381,13 @@ def phase_probe_kernels(sz, device):
     scaled_dot_product_attention call. K16: bit-identical, and equal to
     one torch._int_mm call on the same operands, its library_ms. K15, K16
     and their library calls also by device time (_device_ms) at both
-    shapes, each kernel's with its multiple of the bound. K17/K18 at every
-    row tile, at K2's bar; no single library call computes the MLP half, so library_ms is
-    None and chain_ms times the bf16 torch.matmul chain, fused_mlp_block_ms
-    K2, at the headline. Bounds: the live keys' products (K15), the int8
-    products or the bytes (K16), the live rows' products (K17/K18)."""
+    shapes, each kernel's with its multiple of the bound. K17/K18 at K2's
+    bar, by device time at both shapes; no single library call computes the
+    MLP half, so library_ms is None, and beside each wrapper's row stand the
+    chain of bf16 torch.matmul calls (chain_ms, chain_device_ms) and K2
+    (fused_mlp_block_ms, fused_mlp_block_device_ms). Bounds: the live keys'
+    products (K15), the int8 products or the bytes (K16), the live rows'
+    products (K17/K18)."""
     import torch
 
     from matchmaker_tpu_torch.ops import fused_attention as fa
@@ -1471,22 +1474,28 @@ def phase_probe_kernels(sz, device):
         want = mr.reference_mlp_rows(x, *weights)
         ops = 4 * b * l * hid * sz["ff"]
         for name, fn in (("mlp_rows2d", mr.mlp_rows2d), ("mlp_rowsblk", mr.mlp_rowsblk)):
-            for r in mr.ROW_TILES:
-                got = fn(x, *weights, row_tile=r)
-                cos, err = _rows_close(got, want)
-                print(f"[kernels] {name} row tile {r} B={b} L={l}: min row cosine {cos:.6f}, max |d| {err:.4g}")
-                check(got.shape == x.shape and bool(torch.isfinite(got.float()).all()), f"{name} output")
-                check(cos >= 0.999 and err <= 0.1, f"{name} row tile {r} vs plain at {(b, l)}: cos {cos}, max |d| {err}")
-                out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
-                _record(out[name], [b, l, hid, r], lambda f=fn, rt=r: f(x, *weights, row_tile=rt),
-                        lambda: mr.reference_mlp_rows(x, *weights), device, sz["reps"], headline=i == 0 and r == 64,
-                        bound_of=bound(nbytes(x, weights, got), bf16=ops))
-        if i == 0:
-            chain_ms = _time_ms(lambda: mr.matmul_chain(x, *weights), device, sz["reps"])
-            k2_ms = _time_ms(lambda: fa.fused_mlp_block(x, *weights), device, sz["reps"])
-            for name in ("mlp_rows2d", "mlp_rowsblk"):
-                out[name].update(library_ms=None, chain_ms=chain_ms, fused_mlp_block_ms=k2_ms)
-            print(f"[kernels]   bf16 torch.matmul chain {chain_ms:.4f} ms, K2 fused_mlp_block {k2_ms:.4f} ms")
+            got = fn(x, *weights)
+            cos, err = _rows_close(got, want)
+            print(f"[kernels] {name} B={b} L={l}: min row cosine {cos:.6f}, max |d| {err:.4g}")
+            check(got.shape == x.shape and bool(torch.isfinite(got.float()).all()), f"{name} output")
+            check(cos >= 0.999 and err <= 0.1, f"{name} vs plain at {(b, l)}: cos {cos}, max |d| {err}")
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+            _record(out[name], [b, l, hid], lambda f=fn: f(x, *weights), lambda: mr.reference_mlp_rows(x, *weights),
+                    device, sz["reps"], headline=i == 0, bound_of=bound(nbytes(x, weights, got), bf16=ops))
+            _device_beside(out[name], lambda f=fn: f(x, *weights), device, headline=i == 0)
+        # the yardsticks at this shape, beside each wrapper's row
+        lib = {"chain_ms": _time_ms(lambda: mr.matmul_chain(x, *weights), device, sz["reps"]),
+               "chain_device_ms": _device_ms(lambda: mr.matmul_chain(x, *weights), device),
+               "fused_mlp_block_ms": _time_ms(lambda: fa.fused_mlp_block(x, *weights), device, sz["reps"]),
+               "fused_mlp_block_device_ms": _device_ms(lambda: fa.fused_mlp_block(x, *weights), device),
+               "library_ms": None}
+        for name in ("mlp_rows2d", "mlp_rowsblk"):
+            out[name]["timings"][-1].update(lib)
+            if i == 0:
+                out[name].update(lib)
+        print(f"[kernels]   B={b} L={l}: bf16 torch.matmul chain device {_fmt(lib['chain_device_ms'])}, events "
+              f"{_fmt(lib['chain_ms'])}; K2 fused_mlp_block device {_fmt(lib['fused_mlp_block_device_ms'])}, events "
+              f"{_fmt(lib['fused_mlp_block_ms'])}")
     return out
 
 
@@ -2532,10 +2541,8 @@ def phase_probes(sz, device):
     print(f"[probes] int8_matmul ms: {res['int8_matmul']['ms']}, int8_vs_bf16 {res['int8_matmul']['int8_vs_bf16']:.3f},"
           f" chain_vs_bf16 {res['int8_matmul']['chain_vs_bf16']:.3f}")
     for shape in res["mlp_rows"]["shapes"]:
-        print(f"[probes] mlp_rows {shape['shape']} ms: prod_3d {shape['prod_3d']['ms']:.4f}, chain "
-              f"{shape['chain']['ms']:.4f}, " + ", ".join(f"{key} {tile} {t['ms']:.4f}" for key in
-                                                            ("rows2d", "rowsblk_1024", "rowsblk_2048")
-                                                            for tile, t in shape[key].items()))
+        print(f"[probes] mlp_rows {shape['shape']} ms: " + ", ".join(
+            f"{key} {shape[key]['ms']:.4f}" for key in ("prod_3d", "rows2d", "rowsblk_1024", "rowsblk_2048", "chain")))
     return result
 
 
@@ -2607,13 +2614,22 @@ DESIGN = {
     "int8_matmul": "persistent s8 wgmma/TMA GEMM: a producer warp keeps a 5-stage ring of both K-major operands "
                    "and runs into the next tile; two consumer warpgroups of m64n128k32; the int32 tile through a "
                    "swizzled shared-memory buffer a warpgroup to TMA stores that run under the next tile's mainloop",
+    "mlp_rows2d": "a cluster of 4 CTAs a 128-row tile, each owning 192 output columns: per round of 256 FF "
+                  "columns each CTA computes a 64-column chunk of h = gelu(x.W1 + b1) by wgmma m64n64k16 (x "
+                  "multicast by TMA to the four CTAs), rounds it to bf16 and copies it into its peers' shared "
+                  "memory (cp.async.bulk, double-buffered), then every CTA adds h.W2 for its columns by wgmma "
+                  "m64n192k16; the LayerNorm's row sums and centred squares exchanged over distributed shared "
+                  "memory and added in CTA order; y out by TMA store; neither h nor the pre-LN sums reach device "
+                  "memory",
     "maxsim_all_pairs": "split-TF32 mma.sync m16n8k8 (hi + lo of each f32 operand, three products; two for float16 "
                         "tokens), whole queries packed in row tiles of Lq rounded to 16, token chunks of 64 through a "
                         "3-stage cp.async ring, the max in registers, across the quad by shuffles and across warps in "
                         "shared memory; one launch serves a query batch's gathered candidate spans or all pairs",
 }
+DESIGN["mlp_rowsblk"] = DESIGN["mlp_rows2d"]  # one kernel behind both wrappers
 
 BESIDE = ("headline", "fused_mha_ms", "fused_mha_device_ms", "x_bound", "chain_ms", "fused_mlp_block_ms",
+          "chain_device_ms", "fused_mlp_block_device_ms",
           "device_ms", "host_ms", "library_device_ms", "library_call", "floor_device_ms",
           "f32_p_vs_f32_plain_mean_abs", "batched_vs_f32_plain_mean_abs", "parts", "parts_total_ms",
           "library_chain_ms", "product_library_ms", "product_library_call", "colbert_shape_identical")

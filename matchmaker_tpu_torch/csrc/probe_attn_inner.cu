@@ -94,11 +94,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // S (64 query rows x NC chunks of 64 keys) = Q . K^T: chunk c at s[c], the
 // wgmma accumulator layout (row 16 warp + lane/4 + 8i, key 64c + 8j +
 // 2 (lane%4) + e at [c][4j + 2i + e])

@@ -50,11 +50,6 @@ constexpr int STAGE_BYTES = 2 * BOX_BYTES;
 constexpr int OUT_BYTES = 64 * BN * 4;       // a consumer's int32 tile: 32 KB
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + CONSUMERS * OUT_BYTES + 1024 /* alignment */ + 2 * STAGES * 8;
 
-// the consumer warpgroup's own barrier (ids 0 and 1 are taken elsewhere)
-__device__ __forceinline__ void warpgroup_sync(int warpgroup) {
-  asm volatile("bar.sync %0, 128;" ::"r"(2 + warpgroup) : "memory");
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
     int8_matmul_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                        const __grid_constant__ CUtensorMap tc, int N, int K, int units) {

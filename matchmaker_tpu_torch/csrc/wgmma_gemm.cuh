@@ -12,7 +12,9 @@
 // codes), and so do the probes' K15 and K16 (probe_attn_inner.cu: the
 // m64n64 forms with A from shared memory or from registers;
 // probe_int8_matmul.cu: the epilogue through shared memory by TMA store,
-// which none of the GEMMs here uses yet).
+// which none of the GEMMs here uses yet; probe_mlp_rows.cu: a thread-block
+// cluster exchanging tiles through distributed shared memory, with the
+// cluster pieces and the m64n64 / m64n192 forms with B MN-major below).
 //
 // Operands are bf16 and row-major in device memory. Each may be read
 //   K-major:  stored (rows, K), K contiguous: one TMA box {64, 128} a stage,
@@ -207,19 +209,20 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 
 // d (64 x 64 f32 per warpgroup) = A (64 x 16) . B (16 x 64) (+ d when
-// accumulate), bf16, both K-major in shared memory (descriptors as
-// make_desc<false>)
+// accumulate), bf16 in shared memory: A K-major (make_desc<false>), B
+// K-major, or MN-major when TB (make_desc<true>)
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
-      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
 }
 
 // d (64 x 64 f32 per warpgroup) = A (64 x 16 bf16, in registers) . B (16 x
@@ -240,6 +243,99 @@ __device__ __forceinline__ void wgmma_m64n64_rs_tb(float (&d)[32], const uint32_
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 192 f32 per warpgroup) = A (64 x 16) . B (16 x 192) (+ d when
+// accumulate), bf16; A K-major (make_desc<false>), B MN-major
+// (make_desc<true>: three 64-wide chunks CHUNK_BYTES apart) in shared memory
+__device__ __forceinline__ void wgmma_m64n192_ss_tb(float (&d)[96], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
+      "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, "
+      "%81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// ---- thread-block clusters ---------------------------------------------------
+// The CTAs of a cluster run at once on neighbouring SMs. Each reaches the
+// others' shared memory (distributed shared memory) through shared::cluster
+// addresses from mapa: it arrives on their mbarriers, stores into their
+// buffers, copies a buffer of its own into theirs (cp.async.bulk, the bytes
+// completing on the receiver's mbarrier), and one TMA load it issues can
+// land at the same offset in several CTAs (multicast), completing on each
+// one's mbarrier at the same offset. Remote arrivals keep the default
+// (CTA-scope) release and are waited on with mbar_wait, as CUTLASS's
+// cluster pipelines do: on an H100 a release at cluster scope on each of
+// them made K17 2x slower (2.28 against 1.14 ms at 51,200 rows).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  return rank;
+}
+// every thread of every CTA in the cluster: what each wrote before it (to
+// its own or another CTA's shared memory) is seen by every read after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;" ::: "memory");
+}
+// the shared::cluster address of this CTA's shared-memory location p in CTA rank
+__device__ __forceinline__ uint32_t map_to_rank(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+// arrive on an mbarrier of any CTA of the cluster (a shared::cluster address)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
+}
+// one TMA box into dst's offset in every CTA of mask (bit i: cluster rank i),
+// its bytes completing on the mbarrier at bar's offset in each
+__device__ __forceinline__ void tma_load_multicast(const CUtensorMap* map, void* dst, uint64_t* bar, int c0, int c1,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1, {%3, %4}], [%2], %5;" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+// bytes (a multiple of 16) of this CTA's shared memory at src into another
+// CTA's at the shared::cluster address dst, completing on its mbarrier bar
+// (a shared::cluster address); src must have been fenced for the async
+// proxy (fence_proxy_async) by the threads that wrote it
+__device__ __forceinline__ void bulk_copy_to_cluster(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+                   dst),
+               "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
+// a consumer warpgroup's own named barrier (ids 0 and 1 are taken elsewhere)
+__device__ __forceinline__ void warpgroup_sync(int warpgroup) {
+  asm volatile("bar.sync %0, 128;" ::"r"(2 + warpgroup) : "memory");
+}
+
+// two floats as a bf16 pair (round to nearest), lo in the low half
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // ---- TMA stores: an epilogue through shared memory -------------------------
@@ -512,16 +608,18 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int inner, int outer, bo
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// a row-major (rows, cols) matrix of 4-byte elements (int32 or f32) as the
-// destination of TMA stores: boxes of 32 columns (128 bytes) x 64 rows,
-// 128-byte swizzle, the layout stage_acc_m64n128 writes; rows and columns
-// past the extent are not stored. cols * 4 must be a multiple of 16 bytes.
+// a row-major (rows, cols) matrix of 4-byte elements (int32 or f32) or of
+// bf16 as the destination of TMA stores: boxes of 128 bytes (32 or 64
+// columns) x 64 rows, 128-byte swizzle, the layout stage_acc_m64n128 writes
+// for 4-byte values; rows and columns past the extent are not stored. The
+// row pitch must be a multiple of 16 bytes.
 inline bool make_store_map(CUtensorMap* map, void* ptr, int cols, int rows, CUtensorMapDataType type) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
+  const int elem_bytes = type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2 : 4;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
-  const cuuint32_t box[2] = {32, 64};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), 64};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, type, 2, ptr, dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,

@@ -77,7 +77,7 @@ _SIGNATURES = {
     "mm_mlp_block_bwd": [_p] * 13 + [_i, _i, _i, _f, _i, _i, _i, _i, _p],
     "mm_probe_attn_inner": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _i, _p],
     "mm_probe_int8_matmul": [_p, _p, _p, _i, _i, _i, _p],
-    "mm_probe_mlp_rows": [_p] * 8 + [_i, _i, _f, _i, _p],
+    "mm_probe_mlp_rows": [_p] * 8 + [_i, _i, _f, _p],
 }
 # entry points that return the bytes of workspace a launch above needs
 _SIZE_SIGNATURES = {

@@ -1,7 +1,7 @@
 """Import hygiene of the port: ``matchmaker_tpu_torch``, ``chip_smoke.py``,
 ``tools/train_step_ab.py``, ``tools/encoder_parts_ab.py``,
 ``tools/binmax_scan_ab.py``, ``tools/maxsim_ab.py``,
-``tools/maxsim_shapes.py``, ``tools/probe_ab.py`` and its turn loop
+``tools/maxsim_shapes.py``, ``tools/mlp_rows_variants.py``, ``tools/probe_ab.py`` and its turn loop
 ``tools/ab_turns.py`` import nothing
 of JAX, flax, optax or the JAX package ``matchmaker_tpu`` (the
 port keeps its own copies of the host code it needs). An AST scan of every
@@ -21,7 +21,8 @@ def _sources():
     paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tools", "train_step_ab.py"),
              os.path.join(REPO, "tools", "encoder_parts_ab.py"), os.path.join(REPO, "tools", "binmax_scan_ab.py"),
              os.path.join(REPO, "tools", "maxsim_ab.py"), os.path.join(REPO, "tools", "maxsim_shapes.py"),
-             os.path.join(REPO, "tools", "probe_ab.py"), os.path.join(REPO, "tools", "ab_turns.py")]
+             os.path.join(REPO, "tools", "mlp_rows_variants.py"), os.path.join(REPO, "tools", "probe_ab.py"),
+             os.path.join(REPO, "tools", "ab_turns.py")]
     for root, _, files in os.walk(os.path.join(REPO, "matchmaker_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)

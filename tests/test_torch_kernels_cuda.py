@@ -1406,10 +1406,12 @@ def test_probe_attn_inner_all_masked_row_is_the_uniform_average(device, variant,
 @pytest.mark.cuda
 @pytest.mark.parametrize("l", [200, 512])
 def test_probe_kernels_reruns_are_bit_identical(device, l):
-    """K15 (each variant) and K16 give the same bits on a rerun: no atomics,
-    no order that depends on scheduling."""
+    """K15 (each variant), K16, K17 and K18 (one launch a call) give the
+    same bits on a rerun: no atomics, no order that depends on
+    scheduling."""
     from matchmaker_tpu_torch.probes import attn_inner as ai
     from matchmaker_tpu_torch.probes import int8_matmul as im
+    from matchmaker_tpu_torch.probes import mlp_rows as mr
 
     g = torch.Generator(device=device).manual_seed(l)
     q, k, v = ((torch.randn(4, l, 768, generator=g, device=device) * 0.3).to(torch.bfloat16) for _ in range(3))
@@ -1421,6 +1423,15 @@ def test_probe_kernels_reruns_are_bit_identical(device, l):
     xq = torch.randint(-127, 128, (4 * l, 768), generator=g, device=device, dtype=torch.int8)
     wq_t = torch.randint(-127, 128, (3072, 768), generator=g, device=device, dtype=torch.int8)
     assert torch.equal(im.int8_matmul(xq, wq_t), im.int8_matmul(xq, wq_t))
+    # K17/K18: the cluster's LayerNorm sums its four CTAs' partials in one order
+    _, mlp = _layer_weights(768, 3072, device, seed=l)
+    weights = (mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"], mlp["ln_scale"], mlp["ln_bias"])
+    x = torch.randn(4, l, 768, generator=g, device=device).to(torch.bfloat16)
+    for name, fn in (("mlp_rows2d", mr.mlp_rows2d), ("mlp_rowsblk", mr.mlp_rowsblk)):
+        _build.reset_launches()
+        first = fn(x, *weights)
+        assert _build.LAUNCHES[name] == 1, name
+        assert torch.equal(first, fn(x, *weights)), name
 
 
 @pytest.mark.cuda
@@ -1461,26 +1472,37 @@ def test_probe_int8_matmul_kernel_is_exact(device, m, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("row_tile", [16, 32, 64])
-@pytest.mark.parametrize("b,l", [(16, 77), (4, 200), (3, 30)])
-def test_probe_mlp_rows_kernels_match_plain(device, row_tile, b, l):
-    """K17 and K18 (one kernel, three row tiles) against their plain
-    version through both wrappers' paddings: K2's bar (row cosine >= 0.999,
-    max |d| <= 0.1)."""
+@pytest.mark.parametrize("ff", [3072, 1536])
+@pytest.mark.parametrize("b,l,block_r", [(1, 1, 1), (1, 127, 1), (1, 128, 1), (1, 129, 1), (1, 513, 1),
+                                         (16, 77, 1024), (3, 30, 1024)])
+def test_probe_mlp_rows_kernels_match_plain(device, b, l, block_r, ff):
+    """K17 and K18 (one cluster kernel) against their plain version through
+    both wrappers' paddings: K2's bar (row cosine >= 0.999, max |d| <= 0.1).
+    K18 with block_r 1 hands the kernel exactly B*L rows: one row, a
+    128-row cluster tile short by one, whole, one over, and four tiles and
+    one row; 16 x 77 and 3 x 30 are the probes' odd shapes (K17 pads them to
+    1,280 and 256 rows). FF 1,536 takes six rounds of 256 instead of
+    twelve."""
     from matchmaker_tpu_torch.probes import mlp_rows as mr
 
-    _, mlp = _layer_weights(768, 3072, device, seed=row_tile + b + l)
+    _, mlp = _layer_weights(768, ff, device, seed=b + l + ff)
     weights = (mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"], mlp["ln_scale"], mlp["ln_bias"])
     x = torch.randn(b, l, 768, device=device).to(torch.bfloat16)
     want = mr.reference_mlp_rows(x, *weights)
     _build.reset_launches()
-    for name, fn in (("mlp_rows2d", mr.mlp_rows2d), ("mlp_rowsblk", mr.mlp_rowsblk)):
-        got = fn(x, *weights, row_tile=row_tile)
+    for name, got in (("mlp_rows2d", mr.mlp_rows2d(x, *weights)),
+                      ("mlp_rowsblk", mr.mlp_rowsblk(x, *weights, block_r=block_r))):
         torch.cuda.synchronize()
         assert got.shape == x.shape and got.dtype == torch.bfloat16
         cos, err = _rows_close(got, want)
         assert cos >= 0.999 and err <= 0.1, (name, cos, err)
     assert _build.LAUNCHES["mlp_rows2d"] == 1 and _build.LAUNCHES["mlp_rowsblk"] == 1
+    with pytest.raises(ValueError, match="hid 768"):
+        mr.mlp_rowsblk(x[..., :512].contiguous(), mlp["w1"][:512].contiguous(), mlp["b1"],
+                       mlp["w2"][:, :512].contiguous(), *(t[:512] for t in weights[3:]))
+    with pytest.raises(ValueError, match="multiple of 256"):
+        mr.mlp_rowsblk(x, mlp["w1"][:, :128].contiguous(), mlp["b1"][:128], mlp["w2"][:128].contiguous(),
+                       *weights[3:])
 
 
 @pytest.mark.cuda

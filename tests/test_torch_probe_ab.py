@@ -1,9 +1,10 @@
 """tools/probe_ab.py, rehearsed on the CPU at a tiny size: both turns run
 in their own processes against a checkout's port (the turn loop of
 tools/ab_turns.py), and the summary holds each checkout's time of K15's
-three variants and K13 at both shapes and of K16 at both shapes (on the
-CPU the plain versions run), the agreements each turn checked, the bounds,
-and no device time off the card."""
+three variants and K13 at both shapes, of K16 at both shapes, and of K17,
+K18, K2 and the chain of PyTorch calls at both MLP shapes (on the CPU the
+plain versions run), the agreements each turn checked, the bounds, and no
+device time off the card."""
 
 import json
 import os
@@ -12,8 +13,12 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = ("(2, 9)", "(2, 7, masked)")
+MLP_SHAPES = ("(2, 9)", "(2, 7)")
 KERNELS = tuple(f"K15 {v} {s}" for s in SHAPES for v in ("batched", "f32_p", "softmax_stub")) + (
-    "K16 (40, 64, 24)", "K16 (9, 32, 8)")
+    "K16 (40, 64, 24)", "K16 (9, 32, 8)") + tuple(f"{k} {s}" for s in MLP_SHAPES
+                                                  for k in ("K17 mlp_rows2d", "K18 mlp_rowsblk"))
+YARDSTICKS = tuple(f"K13 fused_mha {s}" for s in SHAPES) + tuple(f"{k} {s}" for s in MLP_SHAPES
+                                                                 for k in ("K2 fused_mlp_block", "chain"))
 
 
 def test_probe_ab_times_two_checkouts_in_turns(tmp_path):
@@ -37,7 +42,7 @@ def test_probe_ab_times_two_checkouts_in_turns(tmp_path):
     for letter in "AB":
         means = summary["means"][letter]
         assert means["checkout"] == ROOT
-        for name in KERNELS + tuple(f"K13 fused_mha {s}" for s in SHAPES):
+        for name in KERNELS + YARDSTICKS:
             assert means[name] > 0 and means["device_ms"][name] is None, name
         assert not any(name.startswith(("sdpa", "torch._int_mm")) for name in means)
 

@@ -2,11 +2,16 @@
 plan for L keys (``probes.attn_inner.kernel_plan``: key padding, the
 two-half form past 256 keys, query tiles, grid, shared memory), K16's
 persistent walk over the output tiles (``probes.int8_matmul.tile_schedule``),
-and K15's rounding order, emulated in numpy: past 256 keys the card's
-kernel takes each half's max and sum and combines them, so its softmax
-denominator rounds otherwise than one sum over the row. The emulation is
-held to the port's plain version and to the TPU probe's ``k_batched``
-(interpret mode) at lengths on both sides of 256."""
+K17/K18's cluster plan and geometry check (``probes.mlp_rows.kernel_plan``,
+``check_geometry``), and two rounding orders emulated in numpy. K15: past
+256 keys the card's kernel takes each half's max and sum and combines them,
+so its softmax denominator rounds otherwise than one sum over the row; the
+emulation is held to the port's plain version and to the TPU probe's
+``k_batched`` (interpret mode) at lengths on both sides of 256. K17/K18:
+h rounded to bf16 a 64-column chunk at a time, the second product's chunks
+summed in the kernel's order, each row's LayerNorm sums taken over each
+CTA's 192 columns and combined c = 0..3; held to the plain version and to
+the TPU probe's ``_mlp_kernel_rows2d`` / ``_mlp_kernel_rowsblk``."""
 
 import functools
 
@@ -16,8 +21,10 @@ import pytest
 import torch
 
 from matchmaker_tpu_torch.probes import attn_inner as tai
+from matchmaker_tpu_torch.ops import fused_attention as tfa
 from matchmaker_tpu_torch.probes import int8_matmul as tim
-from tests.test_torch_probes import ATTN_ATOL, SCALE, _interpret_attn, jattn
+from matchmaker_tpu_torch.probes import mlp_rows as tmr
+from tests.test_torch_probes import ATTN_ATOL, MLP_ATOL, SCALE, _interpret_attn, _mlp_inputs, jattn, jmlp
 
 LENGTHS = [1, 16, 64, 65, 77, 200, 208, 256, 257, 512]
 
@@ -158,3 +165,141 @@ def test_two_half_denominator_is_a_few_ulps_off_one_sum():
     lh = [np.exp(h - x, dtype=np.float32).sum(axis=-1, dtype=np.float32) for h, x in zip(halves, mh)]
     two = sum(l_ * np.exp(x[:, 0] - m[:, 0], dtype=np.float32) for l_, x in zip(lh, mh)).astype(np.float32)
     assert np.max(np.abs(two - one) / one) < 8 * np.finfo(np.float32).eps
+
+
+# ---- K17/K18's cluster plan ------------------------------------------------------
+
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 1232, 51_200])
+def test_mlp_rows_plan_covers_every_row_once_within_the_budget(m):
+    """Cluster t of the grid owns rows [128t, 128t + 128), CTA c of it the
+    columns [192c, 192c + 192): every (row, column) of the (M, 768) output
+    falls to exactly one CTA, no cluster is empty, and a CTA fits the
+    H100's shared memory and, one CTA an SM, its registers."""
+    plan = tmr.kernel_plan(m)
+    (grid, gy, gz), cluster = plan["grid"], plan["cluster"]
+    assert cluster == [4, 1, 1] and (gy, gz) == (1, 1) and grid % 4 == 0 and plan["threads"] == 384
+    rows, cols = plan["rows_per_cluster"], plan["cols_per_cta"]
+    row_hits = np.zeros(m, np.int64)
+    col_hits = {}
+    for b in range(grid):
+        tile, rank = divmod(b, cluster[0])
+        lo, hi = tile * rows, min(m, tile * rows + rows)
+        assert lo < hi  # no cluster without rows
+        if rank == 0:
+            row_hits[lo:hi] += 1
+        col_hits.setdefault(tile, np.zeros(768, np.int64))[rank * cols:(rank + 1) * cols] += 1
+    assert (row_hits == 1).all()
+    assert all((hits == 1).all() for hits in col_hits.values()) and len(col_hits) == -(-m // 128)
+    assert plan["smem_bytes"] <= 232_448 and plan["registers_per_sm"] <= 65_536
+
+
+def test_mlp_rows_plan_at_the_headline_and_refusals():
+    """At (256, 200) = 51,200 rows: 400 clusters, twelve rounds of 256 FF
+    columns, 230,528 B of shared memory, 64,512 registers an SM, and 4.88 GB
+    between L2 and the SMs a call: below the 7.55 GB the first port's
+    64-row blocks pulled (all of W1 and W2, 9.4 MB, each 64 rows)."""
+    plan = tmr.kernel_plan(51_200)
+    assert plan["grid"] == [1600, 1, 1] and plan["rounds"] == 12
+    assert plan["smem_bytes"] == 4 * 24_576 + 2 * 65_536 + 16 * 8 + 1024 == 230_528
+    assert plan["registers_per_sm"] == 2 * 128 * 232 + 128 * 40
+    first_port = (51_200 // 64) * 2 * 768 * 3072 * 2
+    assert plan["l2_bytes"] == 400 * (12 * 128 * 768 * 2 + 2 * 768 * 3072 * 2 + 2 * 128 * 768 * 2)
+    assert plan["l2_bytes"] < 7.5e9 < first_port
+    assert tmr.kernel_plan(0)["grid"] == [0, 1, 1] and tmr.kernel_plan(1232, 1536)["rounds"] == 6
+    with pytest.raises(ValueError, match="multiple of 256"):
+        tmr.kernel_plan(128, 1000)
+
+
+@pytest.mark.parametrize("hid,ff,match", [(768, 3072, None), (768, 1536, None), (768, 256, None),
+                                          (512, 3072, "hid 768"), (64, 256, "hid 768"), (768, 128, "multiple of 256"),
+                                          (768, 3000, "multiple of 256"), (768, 0, "multiple of 256")])
+def test_mlp_rows_geometry_check_names_what_it_refuses(hid, ff, match):
+    """The wrappers' check before a launch, callable on any machine: hid
+    768 and FF a whole number of 256-column rounds, each refusal naming
+    which."""
+    if match is None:
+        tmr.check_geometry(hid, ff)
+    else:
+        with pytest.raises(ValueError, match=match):
+            tmr.check_geometry(hid, ff)
+
+
+# ---- K17/K18's rounding order, emulated --------------------------------------------
+
+def emulate_mlp_rows(x, w1, b1, w2, b2, g, be, eps=1e-12, cluster=4, chunk=64):
+    """The card kernel's order in numpy f32 on bf16 values: per round of
+    cluster x chunk FF columns, chunk s of it h_s = bf16(gelu(x.W1[:, s] +
+    b1[s])) and acc += h_s.W2[s, :] (acc f32, chunks in order); v = (x + b2)
+    + acc; the row sum over each CTA's hid / cluster columns, the partials
+    added c = 0..cluster-1 and times 1 / hid (the mean); the same for the
+    centred squares; y = bf16((v - mean) * rstd * g + be)."""
+    m, hid = x.shape
+    ff = w1.shape[1]
+    cols = hid // cluster
+
+    def gelu(h):
+        return tfa._gelu_poly(torch.from_numpy(h)).numpy()
+
+    acc = np.zeros((m, hid), np.float32)
+    for lo in range(0, ff, chunk):
+        sl = slice(lo, lo + chunk)
+        h = _bf16(gelu((x @ w1[:, sl]).astype(np.float32) + b1[sl]))
+        acc = (acc + (h @ w2[sl, :]).astype(np.float32)).astype(np.float32)
+    v = ((x + b2).astype(np.float32) + acc).astype(np.float32)
+
+    def over_ctas(a):
+        total = a[:, :cols].sum(axis=1, dtype=np.float32)
+        for c in range(1, cluster):
+            total = (total + a[:, c * cols:(c + 1) * cols].sum(axis=1, dtype=np.float32)).astype(np.float32)
+        return total
+
+    mean = (over_ctas(v) * np.float32(1.0 / hid)).astype(np.float32)
+    d = (v - mean[:, None]).astype(np.float32)
+    rstd = (1.0 / np.sqrt(over_ctas(d * d) * np.float32(1.0 / hid) + np.float32(eps))).astype(np.float32)
+    return _bf16((d * rstd[:, None] * g + be).astype(np.float32))
+
+
+def _bf16_ulp(*ys):
+    """One bf16 unit in the last place (8 significant bits) at the largest
+    |y| of each element, and at least at 1: y = (v - mean) * rstd * g + be
+    near 0 is a difference of terms of O(0.1-1), whose own roundings stay."""
+    top = np.maximum.reduce([np.abs(y) for y in ys] + [np.ones_like(ys[0])])
+    return np.exp2(np.floor(np.log2(top)) - 7).astype(np.float32)
+
+
+@pytest.mark.parametrize("wrapper", ["mlp_rows2d", "mlp_rowsblk"])
+@pytest.mark.parametrize("hid,ff", [(64, 256), (768, 3072)])
+def test_mlp_rows_cluster_order_matches_plain_and_the_tpu_kernels(wrapper, hid, ff):
+    """The emulated kernel order through each wrapper's padding (K17: L 30
+    to 32, B 3 to 8; K18: 90 rows to 1,024) against the port's plain
+    version and the TPU probe's kernel in interpret mode, bf16. At hid 64 /
+    FF 256 (16 columns a CTA, one round) at the bar of
+    test_mlp_rows_wrappers_match_jax (2^-6: one bf16 ulp below 4); at the
+    kernel's 768 / 3,072, where |y| passes 4, one bf16 ulp at the larger
+    |y| of the pair and at least at 1 (2^-7): the orders differ only in f32
+    sums, which can flip a rounding of h or of y. The plain version and the
+    TPU kernel are held to each other at the same bar."""
+    x, w = _mlp_inputs(11, hid=hid, ff=ff)
+    x = _bf16(x)
+    w = [_bf16(w[0]), w[1], _bf16(w[2])] + list(w[3:])
+    b, l, _ = x.shape
+    if wrapper == "mlp_rows2d":
+        rows = np.zeros((8, 32, hid), np.float32)
+        rows[:b, :l] = x
+    else:
+        rows = np.zeros((1024 // l + 1, l, hid), np.float32).reshape(-1, hid)[:1024].reshape(1024, 1, hid)
+        rows[:b * l, 0] = x.reshape(-1, hid)
+    got = emulate_mlp_rows(rows.reshape(-1, hid), *w)
+    got = got.reshape(8, 32, hid)[:b, :l] if wrapper == "mlp_rows2d" else got[:b * l].reshape(b, l, hid)
+    tw = [torch.from_numpy(w[0]).to(torch.bfloat16), torch.from_numpy(w[1]),
+          torch.from_numpy(w[2]).to(torch.bfloat16)] + [torch.from_numpy(a) for a in w[3:]]
+    plain = tmr.reference_mlp_rows(torch.from_numpy(x).to(torch.bfloat16), *tw).float().numpy()
+    jw = [jnp.asarray(w[0], jnp.bfloat16), jnp.asarray(w[1]), jnp.asarray(w[2], jnp.bfloat16)] + \
+        [jnp.asarray(a) for a in w[3:]]
+    tpu = getattr(jmlp, wrapper)(jnp.asarray(x, jnp.bfloat16), *jw)
+    tpu = np.asarray(jnp.asarray(tpu, jnp.float32))
+    for a, want in ((got, plain), (got, tpu), (plain, tpu)):
+        if hid == 64:
+            np.testing.assert_allclose(a, want, atol=MLP_ATOL["bf16"], rtol=0)
+        else:
+            assert np.all(np.abs(a - want) <= _bf16_ulp(a, want)), np.max(np.abs(a - want))

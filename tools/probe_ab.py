@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the probes' K15 (attention inner loop) and K16 (int8 product) of two checkouts on one card, in turns.
+"""Time the probes' K15-K18 of two checkouts on one card, in turns.
 
     python3 tools/probe_ab.py BASE_DIR NEW_DIR [--turns ABBA] [--reps 10] [--out FILE]
 
@@ -15,7 +15,12 @@ makes them:
   12 heads of 64; beside it K13's ``fused_mha`` and one
   ``scaled_dot_product_attention`` call with the same additive mask;
 - K16 (``probes.int8_matmul.int8_matmul``) at 16,384 x 768 x 3,072 and
-  1,000 x 768 x 3,072; beside it ``torch._int_mm`` on the same operands.
+  1,000 x 768 x 3,072; beside it ``torch._int_mm`` on the same operands;
+- K17 (``probes.mlp_rows.mlp_rows2d``) and K18 (``mlp_rowsblk``, block_r
+  1024) at (B, L) = (256, 200) and (16, 77), 768 wide, FF 3,072, with the
+  weights ``chip_smoke._probe_mlp_weights`` draws, each wrapper called with
+  its defaults; beside them K2's ``fused_mlp_block`` and the chain of bf16
+  PyTorch calls (``probes.mlp_rows.matmul_chain``).
 
 Each row gets its device time (``chip_smoke._device_ms``: the kernels'
 durations from torch.profiler, a CUDA graph replay as its fallback) under
@@ -24,8 +29,10 @@ durations from torch.profiler, a CUDA graph replay as its fallback) under
 bound under "bound_ms". A turn fails if a kernel misses its bar against its
 plain version (K15: row cosine >= 0.999 and max |d| <= 0.1 for each
 variant against its own; K16: bit-identical, and equal to ``torch._int_mm``
-on the card); "checks" holds the agreements, among them each checkout's
-mean |d| of batched and f32_p to the f32-P plain version at (256, 200).
+on the card; K17/K18: K2's bar, row cosine >= 0.999 and max |d| <= 0.1,
+against ``reference_mlp_rows``); "checks" holds the agreements, among them
+each checkout's mean |d| of batched and f32_p to the f32-P plain version
+at (256, 200).
 ``--device cpu --tiny`` rehearses the script on a CPU at a small size (the
 plain versions; no device time).
 """
@@ -40,8 +47,10 @@ import sys
 import ab_turns
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FULL = dict(heads=12, attn=[(256, 200, False), (16, 77, True)], int8=[(16384, 768, 3072), (1000, 768, 3072)])
-TINY = dict(heads=2, attn=[(2, 9, False), (2, 7, True)], int8=[(40, 64, 24), (9, 32, 8)])
+FULL = dict(heads=12, attn=[(256, 200, False), (16, 77, True)], int8=[(16384, 768, 3072), (1000, 768, 3072)],
+            hid=768, ff=3072, mlp=[(256, 200), (16, 77)])
+TINY = dict(heads=2, attn=[(2, 9, False), (2, 7, True)], int8=[(40, 64, 24), (9, 32, 8)],
+            hid=128, ff=256, mlp=[(2, 9), (2, 7)])
 
 
 def _chip_smoke():
@@ -76,8 +85,16 @@ def int8_inputs(m, k, n, device, seed):
     return xq, wq_t
 
 
+def mlp_inputs(b, l, hid, device, seed):
+    """x (B, L, hid) bf16, N(0, 1), as chip_smoke.py phase 3 draws it."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
+
+
 def run_turn(checkout: str, reps: int, device_name: str, tiny: bool) -> dict:
-    """Time K15 and K16 of the port in ``checkout`` (this process)."""
+    """Time K15, K16, K17 and K18 of the port in ``checkout`` (this process)."""
     ab_turns.import_port(checkout)
     import torch
 
@@ -85,6 +102,7 @@ def run_turn(checkout: str, reps: int, device_name: str, tiny: bool) -> dict:
     from matchmaker_tpu_torch.ops import fused_attention as fa
     from matchmaker_tpu_torch.probes import attn_inner as ai
     from matchmaker_tpu_torch.probes import int8_matmul as im
+    from matchmaker_tpu_torch.probes import mlp_rows as mr
 
     cs = _chip_smoke()
     device = torch.device(device_name)
@@ -139,6 +157,25 @@ def run_turn(checkout: str, reps: int, device_name: str, tiny: bool) -> dict:
         if on_card:
             timed(f"torch._int_mm ({m}, {k}, {n})", lambda: torch._int_mm(xq, wq_t.T))
         del xq, wq_t, got
+
+    weights = cs._probe_mlp_weights(sz, device, 800)
+    for i, (b, l) in enumerate(sz["mlp"]):
+        x = mlp_inputs(b, l, sz["hid"], device, seed=810 + i)
+        tag = f"({b}, {l})"
+        want = mr.reference_mlp_rows(x, *weights)
+        ops = 4 * b * l * sz["hid"] * sz["ff"]  # two products over the live rows
+        for kernel, fn in (("K17 mlp_rows2d", mr.mlp_rows2d), ("K18 mlp_rowsblk", mr.mlp_rowsblk)):
+            got = fn(x, *weights)
+            cos, err = cs._rows_close(got, want)
+            if not (got.shape == x.shape and cos >= 0.999 and err <= 0.1):
+                raise RuntimeError(f"{kernel} {tag}: row cosine {cos}, max |d| {err}")
+            name = f"{kernel} {tag}"
+            checks[name] = {"min_row_cosine": cos, "max_abs_err": err}
+            timed(name, lambda f=fn: f(x, *weights))
+            bounds[name] = cs.bound(cs.nbytes(x, weights, got), bf16=ops)[0]
+        timed(f"K2 fused_mlp_block {tag}", lambda: fa.fused_mlp_block(x, *weights))
+        timed(f"chain {tag}", lambda: mr.matmul_chain(x, *weights))
+        del x, want, got
     return {"checkout": checkout, "ms": ms, "device_ms": dev, "bound_ms": bounds, "checks": checks}
 
 
