@@ -33,7 +33,14 @@ Phases (any failed check raises, and the script exits non-zero):
    (8, 200, 64, 200, 128), and its gathered form at the ColBERT run's
    batched rescore (256 queries x 32 tokens against their own 64 candidates
    of float16 token rows, 128 slots) (rtol = atol = 1e-4, reruns
-   bit-identical); the standalone
+   bit-identical); K14's training form (all pairs, each max's doc token
+   saved) and the MaxSim backward kernel against plain autograd at the
+   ColBERT training shape (32, 30, 64, 200, 128), an odd (7, 30, 21, 77,
+   128) with dots below -1000 and a shape with exact ties (the forward at
+   rtol = atol = 1e-4, the saved tokens equal to the plain argmax on >=
+   99.99 % of (b, l, k) and near ties elsewhere, dq and dd at rtol = atol =
+   1e-4 where the tokens agree, ties split evenly, reruns bit-identical);
+   the standalone
    attention K13 at (B, L) = (256, 128) and (64, 30), 12 heads x 64, beside
    one scaled_dot_product_attention call; the probes' kernels: the
    attention inner loop K15 (three variants) at (256, 200) and (16, 77) with
@@ -90,10 +97,28 @@ Phases (any failed check raises, and the script exits non-zero):
    plain versions (loss and every parameter's gradient), a one-batch overfit
    (30 steps halve Margin-MSE), device-only triples/s and a profile of three
    steps;
+   6b. ColBERT training through the same Trainer: a DistilBERT-width
+   ``ColBert`` (configs/train/defaults.yaml + models/colbert.yaml:
+   compression 128, 8 query [MASK]s, in-batch margin-mse over the
+   all-pairs MaxSim; bf16, fused layers) takes 30 steps of phase 6's
+   triples, validates once and runs the test pass: launch counts against
+   the prediction (K14's training form and the backward kernel once a
+   step), a finite loss every step, the run-folder files, triples/s through
+   the Trainer and device-only, one step with the kernels against one with
+   the plain versions (loss within 1e-2; every gradient's cosine >= 0.99
+   under Margin-MSE + in-batch KLDivTeacherList), a one-batch overfit (30
+   steps halve Margin-MSE);
 7. the probes' own path: ``python -m matchmaker_tpu_torch.probes.<name>``'s
    main() for attn_inner (K15), int8_matmul (K16) and mlp_rows (K17/K18) at
    the JAX probes' shapes, the launch counts set to 0 before each and read
-   after (every probe kernel launched), their JSON lines in the report.
+   after (every probe kernel launched), their JSON lines in the report;
+8. the TAS-Balanced recipe, ``cli/tasb_recipe.py``'s run_recipe with the JAX
+   recipe's configuration (mini-lm) cut in scale (``recipe_args``): every
+   stage's wall time, the teacher's pairwise accuracy, the cluster count,
+   MRR@10 >= 0.2 and Recall@100 >= 0.6 (tests/test_tasb_recipe.py:31-32),
+   K14's training form, backward and plain launch and the search's scan
+   launched; then the effectiveness check at 1,500 docs, MRR@10 >= 0.5
+   (tests/test_effectiveness.py:45).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Details go to build/chip_smoke.json.
@@ -134,6 +159,18 @@ FULL = dict(
     maxsim_shapes=[(128, 32, 256, 200, 128, -1000.0, False), (32, 32, 64, 200, 128, -1000.0, False),
                    (1, 32, 64, 128, 128, float("-inf"), False), (7, 30, 21, 77, 128, -1000.0, True),
                    (1, 32, 64, 128, 768, float("-inf"), False), (8, 200, 64, 200, 128, -1000.0, False)],
+    # K14's training form and the backward kernel (Bq, Lq, Bd, Ld, D, fill,
+    # live dots below -1000, exact ties): the ColBERT training phase's
+    # in-batch shape (the headline), an odd padded shape, exact ties
+    maxsim_train_shapes=[(32, 30, 64, 200, 128, -1000.0, False, False), (7, 30, 21, 77, 128, -1000.0, True, False),
+                         (4, 30, 16, 200, 128, -1000.0, False, True)],
+    colbert_train_batches=30,
+    # phase 8: cli/tasb_recipe.py's run_recipe (the JAX recipe's own
+    # configuration, mini-lm) cut in scale to fit the time limit, and the
+    # effectiveness check at tests/test_effectiveness.py:38-45's scale
+    recipe_args=dict(n_docs=20_000, n_train_queries=400, n_eval_queries=100, mlm_steps=300, teacher_epochs=6,
+                     tas_batches_per_epoch=100, student_epochs=3),
+    effectiveness_args=dict(n_docs=1500, n_train_queries=150, n_eval_queries=20, epochs=6),
     mha_shapes=[(256, 128), (64, 30)],  # (B, L) of K13 at 12 heads x 64
     colbert_token_rows=1_350_000,  # phase 4c's token rows, the per-token search's K4/K6 shapes in phase 3
     colbert_dim=128, colbert_query_len=32, colbert_query_batch=256, colbert_candidates=48, colbert_rescore_n=64,
@@ -1322,6 +1359,96 @@ def phase_maxsim_kernel(sz, device):
     return out
 
 
+def _maxsim_training_inputs(bq, lq, bd, ld, dim, below_fill, ties, device, seed):
+    """_maxsim_inputs' tensors; ``ties``: in every doc token 5 repeats token
+    3, the sum of the batch's query rows, so the two tie exactly, for the
+    kernel and the plain dots alike, at the max of many (query token, doc)
+    pairs."""
+    q, d, qm, dm = _maxsim_inputs(bq, lq, bd, ld, dim, below_fill, device, seed)
+    if ties:
+        d[:, 3] = q.sum(dim=(0, 1))
+        d[:, 5] = d[:, 3]
+        dm[:, 3] = dm[:, 5] = 1.0
+    return q, d, qm, dm
+
+
+def phase_maxsim_training(sz, device):
+    """K14's training form (the all-pairs launch that also saves each (query
+    token, doc)'s max doc token) and the backward kernel against plain
+    autograd through reference_maxsim_all_pairs, at the ColBERT training
+    phase's shape (the headline), an odd shape with live dots below -1000
+    and a shape with exact ties. Gates: the forward at K14's bar (rtol =
+    atol = 1e-4); the saved tokens equal to the plain argmax on >= 99.99 %
+    of (b, l, k), every other one a near tie (|top1 - top2| <= 1e-5 |top1|);
+    dq and dd within rtol = atol = 1e-4 on the query rows and docs whose
+    tokens all agree; the tie's two rows equal dd; reruns bit-identical.
+    Bounds: the training form as K14 (its TF32 products over the live
+    pairs), plus its int32 tokens; the backward by its bytes (q, docs, the
+    tokens and g read once, dq and dd written once) against its f32 FMAs
+    over the (b, l, k) whose max is a live token. No single library call
+    computes either."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import maxsim as ms
+
+    out = {name: {"max_abs_err": 0.0, "library_ms": None} for name in ("maxsim_all_pairs_argmax",
+                                                                        "maxsim_all_pairs_bwd")}
+    fwd, bwd = out["maxsim_all_pairs_argmax"], out["maxsim_all_pairs_bwd"]
+    agreement = []
+    for i, (bq, lq, bd, ld, dim, fill, below, ties) in enumerate(sz["maxsim_train_shapes"]):
+        shape = [bq, lq, bd, ld, dim]
+        q, d, qm, dm = _maxsim_training_inputs(bq, lq, bd, ld, dim, below, ties, device, seed=500 + i)
+        g = torch.randn(bq, bd, generator=torch.Generator(device=device).manual_seed(7 + i), device=device)
+        got, idx = ms.maxsim_all_pairs_argmax(q, d, qm, dm, fill)
+        want, want_idx, top1, top2 = ms.reference_maxsim_argmax(q, d, qm, dm, fill, with_top2=True)
+        _k14_check(fwd, got, want, shape, fill)
+        agree = idx == want_idx
+        share = float(agree.float().mean())
+        near = bool(((top1 - top2).abs() <= 1e-5 * top1.abs())[~agree].all())
+        print(f"[kernels] maxsim training form {shape}: tokens agree on {share:.6f} of (b, l, k), "
+              f"{int((~agree).sum())} differ, all near ties: {near}")
+        check(share >= 0.9999 and near, f"K14's training form at {shape}: tokens agree on {share}, near ties {near}")
+        dq, dd = ms.maxsim_all_pairs_bwd(q, d, qm, dm, idx, g)
+        qg, dg = q.clone().requires_grad_(), d.clone().requires_grad_()
+        ref = ms.reference_maxsim_all_pairs(qg, dg, qm, dm, fill)
+        pq, pd = torch.autograd.grad(ref, (qg, dg), g, retain_graph=True)
+        rows, docs = agree.all(dim=2), agree.all(dim=(0, 1))
+        err = 0.0
+        for name, a, b in (("dq", dq[rows], pq[rows]), ("dd", dd[docs], pd[docs])):
+            close = bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs()).all())
+            err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
+            check(close, f"the MaxSim backward's {name} at {shape}: max |d| {err}")
+        check(bool((dd[dm <= 0] == 0).all()), f"a gradient reached a masked doc token at {shape}")
+        if ties:
+            check(bool(docs.all()) and bool((idx == 3).any()) and torch.equal(dd[:, 3], dd[:, 5])
+                  and bool(dd[:, 3].abs().max() > 0), f"the exact ties did not split evenly at {shape}")
+        again = ms.maxsim_all_pairs_argmax(q, d, qm, dm, fill)
+        check(torch.equal(again[0], got) and torch.equal(again[1], idx), f"the training form's reruns differ at {shape}")
+        again = ms.maxsim_all_pairs_bwd(q, d, qm, dm, idx, g)
+        check(torch.equal(again[0], dq) and torch.equal(again[1], dd), f"the backward's reruns differ at {shape}")
+        bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
+        print(f"[kernels] maxsim backward {shape}: dq on {int(rows.sum())} of {rows.numel()} query rows, dd on "
+              f"{int(docs.sum())} of {bd} docs, max |d| {err:.4g}; max |plain| dq "
+              f"{float(pq.abs().max()):.4g}, dd {float(pd.abs().max()):.4g}")
+        agreement.append({"shape": shape, "tokens_agree": share, "differ": int((~agree).sum()), "ties": ties})
+        headline = i == 0
+        live = 2 * dim * int((qm > 0).sum()) * int((dm > 0).sum())
+        _record(fwd, shape, lambda a=(q, d, qm, dm), f=fill: ms.maxsim_all_pairs_argmax(*a, f),
+                lambda a=(q, d, qm, dm), f=fill: ms.reference_maxsim_argmax(*a, f), device, sz["reps"], headline,
+                bound_of=bound(nbytes(q, d, qm, dm, got, idx), tf32=3 * live))
+        _device_beside(fwd, lambda a=(q, d, qm, dm), f=fill: ms.maxsim_all_pairs_argmax(*a, f), device, headline)
+        used = int(((g[:, None, :] * qm[:, :, None] != 0) & (idx >= 0)).sum())
+        _record(bwd, shape, lambda a=(q, d, qm, dm, idx, g): ms.maxsim_all_pairs_bwd(*a),
+                lambda a=(q, d, qm, dm, idx, g): ms.reference_maxsim_bwd(*a), device, sz["reps"], headline,
+                bound_of=bound(nbytes(q, d, qm, dm, idx, g, dq, dd), f32=4 * dim * used))
+        _device_beside(bwd, lambda a=(q, d, qm, dm, idx, g): ms.maxsim_all_pairs_bwd(*a), device, headline)
+    fwd["headline"] = ("the ColBERT training phase's in-batch all-pairs MaxSim (32 queries x 30 tokens against "
+                       "64 docs x 200), forward with each max's doc token saved")
+    bwd["headline"] = "its backward at the same shape"
+    fwd["token_agreement"] = agreement
+    return out
+
+
 def phase_mha_kernel(sz, device):
     """K13 (no caller on any path) against its plain version at 12 heads x
     64, held to the encoder halves' bar; library_ms: one
@@ -2350,35 +2477,60 @@ def _profile_steps(step, batch, step_ms, n=3, tag="train"):
 
 
 def _hardest_negatives(model, batch):
-    """Each query's in-batch hardest negative (column of q·[d_pos; d_neg]ᵀ
-    outside the diagonal), as the in-batch loss picks it."""
+    """Each query's in-batch hardest negative (column of the B x 2B score
+    matrix outside the diagonal: q.[d_pos; d_neg]^T, or the all-pairs
+    MaxSim for token vectors), as the in-batch loss picks it."""
     import torch
+
+    from matchmaker_tpu_torch.ops import maxsim as ms
 
     with torch.no_grad():
         pos, neg = model.forward_triple(batch)
-    q = pos["query_vecs"].float()
-    scores = q @ torch.cat([pos["doc_vecs"], neg["doc_vecs"]]).float().t()
+        q = pos["query_vecs"].float()
+        d = torch.cat([pos["doc_vecs"], neg["doc_vecs"]]).float()
+        if q.dim() == 3:
+            scores = ms.maxsim_all_pairs(q, d, pos["query_vecs_mask"],
+                                         torch.cat([pos["doc_vecs_mask"], neg["doc_vecs_mask"]]))
+        else:
+            scores = q @ d.t()
     b = q.shape[0]
     scores[:, :b] = scores[:, :b].masked_fill(torch.eye(b, dtype=torch.bool, device=q.device), float("-inf"))
     return scores.argmax(dim=1)
 
 
-def _kernels_vs_plain_step(model, config, batch):
+@contextlib.contextmanager
+def plain_maxsim():
+    """Route the training step's all-pairs MaxSim to its plain version,
+    differentiated by PyTorch (in place of K14's training form and the
+    backward kernel)."""
+    import matchmaker_tpu_torch.training.train_step as ts
+    from matchmaker_tpu_torch.ops import maxsim as ms
+
+    saved = ts.maxsim_all_pairs
+    ts.maxsim_all_pairs = ms.reference_maxsim_all_pairs
+    try:
+        yield
+    finally:
+        ts.maxsim_all_pairs = saved
+
+
+def _kernels_vs_plain_step(model, config, batch, smooth_config, tag):
     """One step's loss and gradients from the same parameters through the
-    kernels and through the plain versions. The loss with in-batch negatives
-    is compared as it is (relative gap <= 1e-2). The gradients are compared
-    under its Margin-MSE part (cosine >= 0.99 for every parameter): the
-    in-batch loss picks each query's hardest negative by an argmax, and a
-    score difference at bf16 rounding level can move that pick to another
-    document, which changes the gradient whatever the kernels compute; the
-    number of picks that move is reported."""
+    kernels and through the plain versions (encoder halves, and the
+    all-pairs MaxSim where the model has one). The configured loss is
+    compared as it is (relative gap <= 1e-2). The gradients are compared
+    under ``smooth_config``'s loss (cosine >= 0.99 for every parameter): the
+    in-batch pairwise loss picks each query's hardest negative by an argmax,
+    and a score difference at bf16 rounding level can move that pick to
+    another document, which changes the gradient whatever the kernels
+    compute; the number of picks that move is reported."""
     import torch
 
     from matchmaker_tpu_torch.losses import get_loss
     from matchmaker_tpu_torch.training.train_step import make_loss_fn
 
     full = make_loss_fn(model, get_loss(config), config)
-    smooth = make_loss_fn(model, get_loss(dict(config, in_batch_negatives=False)), config)
+    smooth = make_loss_fn(model, get_loss(smooth_config), smooth_config)
 
     def run():
         with torch.no_grad():
@@ -2389,7 +2541,7 @@ def _kernels_vs_plain_step(model, config, batch):
         return loss, grads, _hardest_negatives(model, batch)
 
     lk, gk, hk = run()
-    with plain_encoder_blocks():
+    with plain_encoder_blocks(), plain_maxsim():
         lp, gp, hp = run()
     model.zero_grad(set_to_none=True)
     rel = abs(lk - lp) / max(abs(lp), 1e-12)
@@ -2406,26 +2558,26 @@ def _kernels_vs_plain_step(model, config, batch):
             continue
         cosines[name] = float(torch.nn.functional.cosine_similarity(a.reshape(-1), b.reshape(-1), dim=0))
     worst = sorted(cosines.items(), key=lambda kv: kv[1])[:3]
-    print(f"[train] one step, kernels vs plain: loss {lk:.6g} vs {lp:.6g} (relative gap {rel:.3g}); in-batch "
-          f"hardest negative moved for {moved} of {len(hk)} queries; Margin-MSE gradients of {len(cosines)} "
-          f"parameters, worst cosines " + ", ".join(f"{n} {c:.6f}" for n, c in worst)
+    print(f"[{tag}] one step, kernels vs plain: loss {lk:.6g} vs {lp:.6g} (relative gap {rel:.3g}); in-batch "
+          f"hardest negative moved for {moved} of {len(hk)} queries; gradients of {len(cosines)} parameters "
+          f"under {smooth_config.get('in_batch_neg_loss') if smooth_config.get('in_batch_negatives') else 'no'} "
+          f"in-batch loss, worst cosines " + ", ".join(f"{n} {c:.6f}" for n, c in worst)
           + f"; key-bias noise {key_bias:.4g} of the query bias's (bar 2e-2)")
-    check(rel <= 1e-2, f"loss with the kernels {lk} vs plain {lp}")
-    check(worst[0][1] >= 0.99, f"gradient cosine {worst[0][1]} at {worst[0][0]}")
-    return rel, worst[0][1], moved, key_bias
+    check(rel <= 1e-2, f"{tag}: loss with the kernels {lk} vs plain {lp}")
+    check(worst[0][1] >= 0.99, f"{tag}: gradient cosine {worst[0][1]} at {worst[0][0]}")
+    return {"plain_loss_gap": rel, "plain_grad_cos": worst[0][1], "hardest_negatives_moved": moved,
+            "key_bias_noise": key_bias}
 
 
-def phase_train(sz, device, root):
+def _train_through_trainer(sz, device, config, run_folder, steps, tag):
+    """cli.train's Trainer on ``config`` for ``steps`` steps, its step
+    recorded: the launch counts of the run, a finite loss every step, the
+    Trainer's triples/s (validation included); the trainer, the result."""
     import torch
 
     from matchmaker_tpu_torch.ops import _build
-    from matchmaker_tpu_torch.training.optim import build_optimizer
-    from matchmaker_tpu_torch.training.train_step import make_train_step
     from matchmaker_tpu_torch.training.trainer import Trainer
 
-    paths = _write_train_data(root, sz)
-    config = _train_config(paths, sz, device)
-    run_folder = os.path.join(root, "train_run")
     os.makedirs(run_folder)
     fresh_perf_monitor()
     trainer = Trainer(config, run_folder)
@@ -2446,13 +2598,52 @@ def phase_train(sz, device, root):
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     trainer.train_step = trainer_step
-    print(f"[train] launches in the cli.train run: {launches}")
+    print(f"[{tag}] launches in the cli.train run: {launches}")
     result = {"wall_s": wall, "launches": launches, "steps": trainer.global_step}
-    check(trainer.global_step == sz["train_batches"] and len(step_losses) == sz["train_batches"],
-          f"{trainer.global_step} training steps, {len(step_losses)} losses")
+    check(trainer.global_step == steps and len(step_losses) == steps,
+          f"{tag}: {trainer.global_step} training steps, {len(step_losses)} losses")
     losses = torch.stack(step_losses).float().cpu()
-    check(bool(torch.isfinite(losses).all()), "a non-finite training loss")
+    check(bool(torch.isfinite(losses).all()), f"{tag}: a non-finite training loss")
     result.update(loss_first=float(losses[0]), loss_last=float(losses[-1]))
+    with open(os.path.join(run_folder, "efficiency-metrics.json")) as f:
+        train_block = json.load(f)[-1]["blocks"]["train"]
+    result["cli_triples_per_s"] = steps * sz["train_batch"] / train_block["total_seconds"]
+    return trainer, result
+
+
+def _step_speed(sz, device, trainer, batch, tag):
+    """Device-only triples/s of the Trainer's step on one batch (CUDA
+    events) and, on a card, a profile of three steps."""
+    ms = _time_ms(lambda: trainer.train_step(batch), device, sz["reps"])
+    result = {"step_ms": ms, "device_triples_per_s": sz["train_batch"] / ms * 1e3}
+    if device.type == "cuda":
+        result["profile"] = _profile_steps(trainer.train_step, batch, ms, tag=tag)
+    return result
+
+
+def _overfit(sz, trainer, config, batch, tag):
+    """A one-batch overfit from the current weights, no warmup, a constant
+    learning rate: ``overfit_steps`` (30) steps must halve Margin-MSE."""
+    from matchmaker_tpu_torch.training.optim import build_optimizer
+    from matchmaker_tpu_torch.training.train_step import make_train_step
+
+    fit_config = dict(config, lr_schedule="constant", optimizer_warmup_steps=0, param_group0_learning_rate=1e-4,
+                      embedding_optimizer_learning_rate=1e-4, param_group1_learning_rate=1e-3)
+    fit_step = make_train_step(trainer.model, trainer.losses, build_optimizer(fit_config, trainer.model), fit_config)
+    fit = [float(fit_step(batch)["ranking_loss"]) for _ in range(sz["overfit_steps"])]
+    print(f"[{tag}] one-batch overfit, {sz['overfit_steps']} steps: Margin-MSE {fit[0]:.4f} -> {fit[-1]:.4f}")
+    check(fit[-1] <= 0.5 * fit[0], f"{tag}: overfitting one batch took Margin-MSE only from {fit[0]} to {fit[-1]}")
+    return {"overfit_first": fit[0], "overfit_last": fit[-1]}
+
+
+def phase_train(sz, device, root):
+    import torch
+
+    paths = _write_train_data(root, sz)
+    config = _train_config(paths, sz, device)
+    run_folder = os.path.join(root, "train_run")
+    trainer, result = _train_through_trainer(sz, device, config, run_folder, sz["train_batches"], "train")
+    launches = result["launches"]
     if device.type == "cuda":
         want = predicted_train_launches(sz)
         for name, n in want.items():
@@ -2466,33 +2657,132 @@ def phase_train(sz, device, root):
     with open(os.path.join(run_folder, "validation-metrics-cont.csv")) as f:
         check(len(f.read().strip().splitlines()) == 1 + sz["train_batches"] // sz["validate_every"],
               "one validation row per validation")
-    with open(os.path.join(run_folder, "efficiency-metrics.json")) as f:
-        train_block = json.load(f)[-1]["blocks"]["train"]
-    result["cli_triples_per_s"] = sz["train_batches"] * sz["train_batch"] / train_block["total_seconds"]
 
     batch = _device_batch(config, trainer.tokenizer, paths["train"], device)
-    ms = _time_ms(lambda: trainer.train_step(batch), device, sz["reps"])
-    result.update(step_ms=ms, device_triples_per_s=sz["train_batch"] / ms * 1e3)
-    print(f"[train] {trainer.global_step} steps: loss {result['loss_first']:.4f} -> {result['loss_last']:.4f}; "
-          f"{result['cli_triples_per_s']:.1f} triples/s through the Trainer (validation included), "
-          f"{result['device_triples_per_s']:.1f} device-only ({ms:.2f} ms a step)")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-        result["profile"] = _profile_steps(trainer.train_step, batch, ms)
+    result.update(_step_speed(sz, device, trainer, batch, "train"))
+    print(f"[train] {trainer.global_step} steps: loss {result['loss_first']:.4f} -> {result['loss_last']:.4f}; "
+          f"{result['cli_triples_per_s']:.1f} triples/s through the Trainer (validation included), "
+          f"{result['device_triples_per_s']:.1f} device-only ({result['step_ms']:.2f} ms a step)")
+    if device.type == "cuda":
         result["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         print(f"[train] peak device memory over the profiled steps {result['peak_mem_gb']:.2f} GB")
-    (result["plain_loss_gap"], result["plain_grad_cos"], result["hardest_negatives_moved"],
-     result["key_bias_noise"]) = \
-        _kernels_vs_plain_step(trainer.model, config, batch)
+    # the gradients under Margin-MSE alone (the in-batch loss's hardest negative is an argmax)
+    result.update(_kernels_vs_plain_step(trainer.model, config, batch, dict(config, in_batch_negatives=False),
+                                         "train"))
+    result.update(_overfit(sz, trainer, config, batch, "train"))
+    return result
 
-    # one-batch overfit: no warmup, a constant learning rate
-    fit_config = dict(config, lr_schedule="constant", optimizer_warmup_steps=0, param_group0_learning_rate=1e-4,
-                      embedding_optimizer_learning_rate=1e-4, param_group1_learning_rate=1e-3)
-    fit_step = make_train_step(trainer.model, trainer.losses, build_optimizer(fit_config, trainer.model), fit_config)
-    fit = [float(fit_step(batch)["ranking_loss"]) for _ in range(sz["overfit_steps"])]
-    result.update(overfit_first=fit[0], overfit_last=fit[-1])
-    print(f"[train] one-batch overfit, {sz['overfit_steps']} steps: Margin-MSE {fit[0]:.4f} -> {fit[-1]:.4f}")
-    check(fit[-1] <= 0.5 * fit[0], f"overfitting one batch took Margin-MSE only from {fit[0]} to {fit[-1]}")
+
+# ---- phase 6b: ColBERT training through the same Trainer -----------------------
+
+def _colbert_train_config(paths, sz, device):
+    """configs/train/defaults.yaml + configs/train/models/colbert.yaml (model
+    colbert, compression 128, 8 query [MASK]s, in-batch margin-mse) at
+    DistilBERT width, fused layers, as phase 6's config: the run cut to
+    ``colbert_train_batches`` steps with one validation and the test pass,
+    no dense retrieval."""
+    return dict(_train_config(paths, sz, device), model="colbert", colbert_compression_dim=128,
+                query_augment_mask_number=8, in_batch_negatives=True, in_batch_neg_loss="margin-mse",
+                validate_every_n_batches=sz["colbert_train_batches"], max_training_batches=sz["colbert_train_batches"],
+                run_dense_retrieval_eval=False)
+
+
+def predicted_colbert_train_launches(sz):
+    """K1/K2 once per layer and encode: two encodes (queries, packed docs) a
+    training step, an eval batch and a test batch; K11/K12 once per layer
+    and encode of a training step; K14's training form and the backward
+    kernel once a step (the in-batch all-pairs MaxSim); K14's plain launch
+    never (re-ranking scores pairs in torch, as JAX does in jnp)."""
+    layers, steps = sz["n_layers"], sz["colbert_train_batches"]
+    eval_batches = -(-sz["val_queries"] * sz["val_docs"] // sz["eval_batch"])
+    forward = steps * layers * 2 + 2 * eval_batches * 2 * layers
+    return {"fused_attention_block": forward, "fused_mlp_block": forward,
+            "fused_attention_block_bwd": steps * layers * 2, "fused_mlp_block_bwd": steps * layers * 2,
+            "maxsim_all_pairs_argmax": steps, "maxsim_all_pairs_bwd": steps, "maxsim_all_pairs": 0}
+
+
+def phase_train_colbert(sz, device, root):
+    """ColBERT training through cli.train's Trainer at DistilBERT width
+    (phase 6's data and checks): launch counts against the prediction, a
+    finite loss every step, the run-folder files, triples/s through the
+    Trainer and device-only, one step with the kernels against one with the
+    plain versions, and a one-batch overfit (30 steps halve Margin-MSE).
+    The gradients are compared under Margin-MSE plus the in-batch
+    KLDivTeacherList over the same all-pairs MaxSim (against JAX's [I | 0]
+    teacher): smooth in the scores, unlike the in-batch margin-mse's
+    hardest-negative argmax, and it keeps K14's training form and backward
+    kernel in the comparison."""
+    steps = sz["colbert_train_batches"]
+    paths = _write_train_data(root, dict(sz, train_batches=steps))
+    config = _colbert_train_config(paths, sz, device)
+    run_folder = os.path.join(root, "colbert_train_run")
+    trainer, result = _train_through_trainer(sz, device, config, run_folder, steps, "train_colbert")
+    launches = result["launches"]
+    if device.type == "cuda":
+        for name, n in predicted_colbert_train_launches(sz).items():
+            check(launches[name] == n, f"ColBERT training: {name} {launches[name]} launches, predicted {n}")
+    for rel in ("validation-metrics-cont.csv", "best-model.npz", "best-info.csv", "efficiency-metrics.json",
+                "test-synthetic-output.txt", "test-synthetic-metrics.csv"):
+        check(os.path.isfile(os.path.join(run_folder, rel)), f"missing {rel} in the ColBERT training run folder")
+
+    batch = _device_batch(config, trainer.tokenizer, paths["train"], device)
+    result.update(_step_speed(sz, device, trainer, batch, "train_colbert"))
+    print(f"[train_colbert] {steps} steps: loss {result['loss_first']:.4f} -> {result['loss_last']:.4f}; "
+          f"{result['cli_triples_per_s']:.1f} triples/s through the Trainer (validation included), "
+          f"{result['device_triples_per_s']:.1f} device-only ({result['step_ms']:.2f} ms a step)")
+    result.update(_kernels_vs_plain_step(trainer.model, config, batch, dict(config, in_batch_neg_loss="KLDivTeacherList"),
+                                         "train_colbert"))
+    result.update(_overfit(sz, trainer, config, batch, "train_colbert"))
+    return result
+
+
+# ---- phase 8: the TAS-Balanced recipe and the effectiveness check --------------
+
+def phase_recipe(sz, device, root):
+    """cli/tasb_recipe.py's run_recipe with the JAX recipe's configuration
+    (the mini-lm encoder, MLM warm start, a normalized ColBERT teacher, the
+    TAS-Balanced student with the dynamic in-batch teacher, the scann
+    search) at ``recipe_args``' scale, on the card: each stage's wall time,
+    the teacher's pairwise accuracy, the cluster count, MRR@10 and
+    Recall@100, gated on tests/test_tasb_recipe.py:31-32 (>= 0.2, >= 0.6);
+    the launches of the whole run, K14's training form and backward (the
+    teacher's training), its plain launch (the teacher's in-batch matrix)
+    and the search's K3/K6 at least once each. Then cli/effectiveness_check
+    at tests/test_effectiveness.py:38-45's scale, gated on MRR@10 >= 0.5."""
+    from matchmaker_tpu_torch.cli.effectiveness_check import run_check
+    from matchmaker_tpu_torch.cli.tasb_recipe import run_recipe, summarize
+    from matchmaker_tpu_torch.ops import _build
+
+    result = {}
+    work = os.path.join(root, "tasb")
+    fresh_perf_monitor()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = run_recipe(work, device=str(device), **sz["recipe_args"])
+    result["recipe_wall_s"] = time.perf_counter() - t0
+    result["launches"] = launches = dict(_build.LAUNCHES)
+    result.update(out, **summarize(work))
+    print(f"[recipe] {sz['recipe_args']}: stages (s) {out['timings_s']}, {result['recipe_wall_s']:.1f} s in all; "
+          f"teacher pairwise accuracy {result['teacher_pairwise_accuracy']:.4f} (margin "
+          f"{result['teacher_margin_mean']:.3f} +/- {result['teacher_margin_std']:.3f} over "
+          f"{result['scored_pairs']} pairs), {result['clusters']} clusters; MRR@10 {out['MRR@10']:.4f}, "
+          f"Recall@100 {out['Recall@100']:.4f} over {out['QueriesRanked']:.0f} queries")
+    print(f"[recipe] launches: {({k: v for k, v in launches.items() if v})}")
+    check(out["MRR@10"] >= 0.2 and out["Recall@100"] >= 0.6,
+          f"the recipe's MRR@10 {out['MRR@10']} / Recall@100 {out['Recall@100']} below 0.2 / 0.6")
+    if device.type == "cuda":
+        for name in ("maxsim_all_pairs_argmax", "maxsim_all_pairs_bwd", "maxsim_all_pairs", "binmax_candidates",
+                     "unpack_candidates"):
+            check(launches[name] > 0, f"the recipe launched no {name} kernel")
+    fresh_perf_monitor()
+    t0 = time.perf_counter()
+    check_out = run_check(os.path.join(root, "eff"), device=str(device), **sz["effectiveness_args"])
+    result["effectiveness"] = dict(check_out, wall_s=time.perf_counter() - t0)
+    print(f"[recipe] effectiveness check {sz['effectiveness_args']}: MRR@10 {check_out['MRR@10']:.4f}, "
+          f"Recall@100 {check_out['Recall@100']:.4f} in {result['effectiveness']['wall_s']:.1f} s")
+    check(check_out["MRR@10"] >= 0.5, f"the effectiveness check's MRR@10 {check_out['MRR@10']} below 0.5")
     return result
 
 
@@ -2575,6 +2865,13 @@ KERNELS = [  # name, source, TPU kernel it replaces, TPU kernels folded into it
      "matchmaker_tpu/ops/mips_binmax.py:259", None),
     ("maxsim_all_pairs", "matchmaker_tpu_torch/csrc/maxsim_kernels.cu",
      "matchmaker_tpu/ops/pallas_kernels.py:62", None),
+    ("maxsim_all_pairs_argmax", "matchmaker_tpu_torch/csrc/maxsim_kernels.cu",
+     "matchmaker_tpu/ops/pallas_kernels.py:62",
+     "matchmaker_tpu/ops/maxsim.py:34 (the jnp all-pairs MaxSim JAX trains through: K14's all-pairs form that also "
+     "saves each max's doc token; no pallas_call of its own)"),
+    ("maxsim_all_pairs_bwd", "matchmaker_tpu_torch/csrc/maxsim_kernels.cu", "matchmaker_tpu/ops/maxsim.py:34",
+     "the gradient JAX takes by autodiff of the jnp all-pairs MaxSim (matchmaker_tpu/training/train_step.py:212-221);"
+     " no pallas_call"),
     ("fused_mha", "matchmaker_tpu_torch/csrc/encoder_kernels.cu",
      "matchmaker_tpu/ops/fused_attention.py:49", None),
     ("attn_inner", "matchmaker_tpu_torch/csrc/probe_attn_inner.cu", "benchmarks/attn_inner_probe.py:56",
@@ -2621,6 +2918,14 @@ DESIGN = {
                   "m64n192k16; the LayerNorm's row sums and centred squares exchanged over distributed shared "
                   "memory and added in CTA order; y out by TMA store; neither h nor the pre-LN sums reach device "
                   "memory",
+    "maxsim_all_pairs_argmax": "K14's all-pairs kernel (ARGMAX instances): each running max carries its doc token "
+                               "through the lanes, the quad shuffles and the warps' shared-memory merge (the first "
+                               "of equal maxima, -1 where the fill wins), written as int32 (Bq, Lq, Bd)",
+    "maxsim_all_pairs_bwd": "one launch, two block roles, no float atomics: a block a (doc, 128-column slab) holds "
+                            "the doc's dd rows in shared memory and adds g[b,k] w(b,l) q[b,l] into the saved token's "
+                            "row over (b, l) in order, exact ties (bit-equal rows, found by a hash and a compare) "
+                            "sharing w / count; a block of four warps owns 8 dq rows, each summed over the docs in "
+                            "order from the saved tokens' rows",
     "maxsim_all_pairs": "split-TF32 mma.sync m16n8k8 (hi + lo of each f32 operand, three products; two for float16 "
                         "tokens), whole queries packed in row tiles of Lq rounded to 16, token chunks of 64 through a "
                         "3-stage cp.async ring, the max in registers, across the quad by shuffles and across warps in "
@@ -2653,6 +2958,7 @@ def run_phases(sz, device, card: str) -> dict:
     kern.update(phase_int8_encoder_kernels(sz, device))
     kern.update(phase_int8_binmax_kernels(sz, device))
     kern.update(phase_maxsim_kernel(sz, device))
+    kern.update(phase_maxsim_training(sz, device))
     kern.update(phase_mha_kernel(sz, device))
     t0 = time.perf_counter()
     kern.update(phase_probe_kernels(sz, device))
@@ -2665,11 +2971,15 @@ def run_phases(sz, device, card: str) -> dict:
     report["scale_int8"] = phase_scale_int8(sz, device)
     with tempfile.TemporaryDirectory() as root:
         report["train"] = phase_train(sz, device, root)
+    with tempfile.TemporaryDirectory() as root:
+        report["train_colbert"] = phase_train_colbert(sz, device, root)
     t0 = time.perf_counter()
     report["probes"] = phase_probes(sz, device)
     report["probes_s"] = time.perf_counter() - t0
     print(f"[probes] the probes' kernels against their plain versions took {report['probe_kernels_s']:.1f} s, "
           f"their own path {report['probes_s']:.1f} s")
+    with tempfile.TemporaryDirectory() as root:
+        report["recipe"] = phase_recipe(sz, device, root)
     check(set(report["main"]["launches"]) == {k[0] for k in KERNELS}, "a kernel without an entry")
     report["kernels"] = []
     for name, src, rep, inc in KERNELS:
@@ -2682,6 +2992,8 @@ def run_phases(sz, device, card: str) -> dict:
         runs = {"serve": report["main"]["launches"][name], "train": report["train"]["launches"][name],
                 **{f"serve_int8_{r}": report["main_int8"][r]["launches"][name] for r, _, _ in INT8_RUNS},
                 "serve_colbert": report["colbert"]["launches"][name],
+                "train_colbert": report["train_colbert"]["launches"][name],
+                "recipe": report["recipe"]["launches"][name],
                 "probes": report["probes"]["launches"].get(name, 0)}
         scale_runs = {"scale_bf16": report["scale"]["launches"][name],
                       **{f"scale_int8_{r}": report["scale_int8"][r]["launches"][name]
@@ -2694,6 +3006,8 @@ def run_phases(sz, device, card: str) -> dict:
             path, scale_path = "serve_int8_mixed", "scale_int8_mixed"
         elif name == "maxsim_all_pairs":
             path, scale_path = "serve_colbert", "scale_bf16"
+        elif name in ("maxsim_all_pairs_argmax", "maxsim_all_pairs_bwd"):
+            path, scale_path = "train_colbert", "scale_bf16"
         elif name == "fused_mha":
             path, scale_path = None, "scale_bf16"
         elif name in PROBE_OF:
@@ -2742,6 +3056,17 @@ def main() -> int:
     print(f"[{card}] train {train['cli_triples_per_s']:.1f} triples/s through cli.train's Trainer (validation "
           f"included), {train['device_triples_per_s']:.1f} triples/s device-only at batch {FULL['train_batch']} "
           f"(query {FULL['train_query_len']}, doc {FULL['train_doc_len']})")
+    tc = report["train_colbert"]
+    print(f"[{card}] ColBERT train {tc['cli_triples_per_s']:.1f} triples/s through cli.train's Trainer (validation "
+          f"included), {tc['device_triples_per_s']:.1f} triples/s device-only at batch {FULL['train_batch']} "
+          f"(query {FULL['train_query_len']}, doc {FULL['train_doc_len']}, compression 128); kernels vs plain: loss "
+          f"gap {tc['plain_loss_gap']:.3g}, worst gradient cosine {tc['plain_grad_cos']:.6f}; overfit "
+          f"{tc['overfit_first']:.4g} -> {tc['overfit_last']:.4g}")
+    rc = report["recipe"]
+    print(f"[{card}] TAS-B recipe ({rc['n_docs']} docs, {rc['model']}): MRR@10 {rc['MRR@10']:.4f}, Recall@100 "
+          f"{rc['Recall@100']:.4f}, teacher pairwise accuracy {rc['teacher_pairwise_accuracy']:.4f}, "
+          f"{rc['clusters']} clusters, stages (s) {rc['timings_s']}; effectiveness check MRR@10 "
+          f"{rc['effectiveness']['MRR@10']:.4f}")
     int8, scale8 = report["main_int8"], report["scale_int8"]
     print(f"[{card}] int8 encode {int8['mixed']['encode_psg_per_s']:.1f} psg/s end to end in the CLI, "
           f"{int8['encode_device_psg_per_s']:.1f} psg/s device-only at {FULL['batch']}x{FULL['doc_len']} "

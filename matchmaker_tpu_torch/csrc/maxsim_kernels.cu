@@ -12,6 +12,13 @@
 // ops/maxsim.py, the docs flattened and masked, doc c the Lpad rows from
 // c * Lpad for every query.
 //
+// Training (ColBERT's in-batch all-pairs loss) adds two launches, neither
+// with a Pallas counterpart (JAX differentiates its jnp MaxSim): the
+// all-pairs form that also writes each row max's doc token
+// (mm_maxsim_argmax, the ARGMAX instances of maxsim_kernel), and the
+// backward kernel that turns those tokens into dq and dd (mm_maxsim_bwd,
+// maxsim_bwd_kernel, at the end of this file).
+//
 // What bounds it on the card: 2*B*Lq*C*Ld*D operations against the token
 // rows' bytes. At the all-pairs shapes (D 128-768, Lq 32, Ld 200) a token
 // row is used by every query row of the batch and the function is compute
@@ -50,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace mm {
 namespace msim {
@@ -90,6 +99,7 @@ struct Params {
   const long long* first;  // candidates' first token rows, (B, C) or (C); null: candidate c is rows [c Lpad, +Lpad)
   const int* count;        // candidates' token counts (<= Lpad), the same shape
   float* out;              // (B, C) f32
+  int* argmax;             // (B, Lq, C) int32 or null: each row max's doc token (all pairs only)
   int B, Lq, C, D, Lpad;
   int cand_stride;         // C: per-query spans; 0: all pairs over dense docs
   int ldq;                 // query row stride in shared memory (floats), % 32 == 8
@@ -196,10 +206,16 @@ __device__ __forceinline__ void load_queries(const Params& p, int b0, int row0, 
   }
 }
 
+// which of two equal maxima a row keeps: the lower doc token, a filled
+// slot (-1, compared unsigned) after every live token
+__device__ __forceinline__ bool before(int a, int b) { return (unsigned)a < (unsigned)b; }
+
 // MSW strips of 16 rows x NTW n8 token tiles a warp; WT warps across a
 // chunk's tokens, WARPS / WT across the tile's rows. FULL: every strip of
-// every tile holds query rows, so the products test none
-template <typename DT, int MSW, int NTW, bool FULL>
+// every tile holds query rows, so the products test none. ARGMAX: each
+// row's max also carries its doc token (the first of equal maxima, -1 for
+// a filled slot) into p.argmax, for the backward kernel below
+template <typename DT, int MSW, int NTW, bool FULL, bool ARGMAX>
 __global__ void __launch_bounds__(THREADS) maxsim_kernel(const Params p) {
   constexpr int KS = Tok<DT>::KS, LD = Tok<DT>::LD, PRODUCTS = Tok<DT>::PRODUCTS;
   constexpr int WT = TOK / (8 * NTW);
@@ -212,6 +228,7 @@ __global__ void __launch_bounds__(THREADS) maxsim_kernel(const Params p) {
   float* red = reinterpret_cast<float*>(ring + STAGES * stage_elems<DT>());  // [WT][rows]
   float* best = red + WT * p.rows;                                           // [max(rows, Lq)]
   float* wts = best + max(p.rows, p.Lq);                                     // the queries' masks, [nq * Lq]
+  int* red_idx = reinterpret_cast<int*>(wts + max(p.rows, p.Lq));            // ARGMAX: [WT][rows]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wt = warp % WT, strip0 = (warp / WT) * MSW;
@@ -245,10 +262,12 @@ __global__ void __launch_bounds__(THREADS) maxsim_kernel(const Params p) {
   }
 
   float acc[MSW][NTW][4], rmax[MSW][2];
+  int ridx[MSW][2];   // ARGMAX: the doc token of each running max
   bool live[NTW][2];  // the chunk's tokens of this lane: inside the span and not masked
 #pragma unroll
   for (int s = 0; s < MSW; ++s) {
     rmax[s][0] = rmax[s][1] = -INFINITY;
+    ridx[s][0] = ridx[s][1] = -1;
 #pragma unroll
     for (int n = 0; n < NTW; ++n)
 #pragma unroll
@@ -349,7 +368,15 @@ __global__ void __launch_bounds__(THREADS) maxsim_kernel(const Params p) {
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const float v = live[n][e] ? acc[s][n][2 * h + e] : (inside ? p.fill : -INFINITY);
-              rmax[s][h] = fmaxf(rmax[s][h], v);
+              if constexpr (ARGMAX) {
+                const int idx = live[n][e] ? tok0 + n * 8 + e : -1;
+                if (v > rmax[s][h] || (v == rmax[s][h] && before(idx, ridx[s][h]))) {
+                  rmax[s][h] = v;
+                  ridx[s][h] = idx;
+                }
+              } else {
+                rmax[s][h] = fmaxf(rmax[s][h], v);
+              }
             }
         }
 #pragma unroll
@@ -367,8 +394,23 @@ __global__ void __launch_bounds__(THREADS) maxsim_kernel(const Params p) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             float m = rmax[s][h];
-            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+            if constexpr (ARGMAX) {
+              int i = ridx[s][h];
+#pragma unroll
+              for (int x = 1; x <= 2; x <<= 1) {
+                const float om = __shfl_xor_sync(0xffffffffu, m, x);
+                const int oi = __shfl_xor_sync(0xffffffffu, i, x);
+                if (om > m || (om == m && before(oi, i))) {
+                  m = om;
+                  i = oi;
+                }
+              }
+              if (t == 0 && (FULL || s < my_strips)) red_idx[wt * p.rows + (strip0 + s) * 16 + g + 8 * h] = i;
+              ridx[s][h] = -1;
+            } else {
+              m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+              m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+            }
             if (t == 0 && (FULL || s < my_strips)) red[wt * p.rows + (strip0 + s) * 16 + g + 8 * h] = m;
             rmax[s][h] = -INFINITY;
           }
@@ -376,8 +418,25 @@ __global__ void __launch_bounds__(THREADS) maxsim_kernel(const Params p) {
         const int row_off = cons.tile * p.rows;
         for (int r = threadIdx.x; r < tile_rows; r += THREADS) {
           float m = red[r];
-          for (int w = 1; w < WT; ++w) m = fmaxf(m, red[w * p.rows + r]);
-          if (cons.count < p.Lpad) m = fmaxf(m, p.fill);
+          if constexpr (ARGMAX) {
+            int i = red_idx[r];
+            for (int w = 1; w < WT; ++w) {
+              const float om = red[w * p.rows + r];
+              const int oi = red_idx[w * p.rows + r];
+              if (om > m || (om == m && before(oi, i))) {
+                m = om;
+                i = oi;
+              }
+            }
+            if (cons.count < p.Lpad && p.fill > m) {
+              m = p.fill;
+              i = -1;
+            }
+            p.argmax[((size_t)b0 * p.Lq + row_off + r) * p.C + cons.c] = i;
+          } else {
+            for (int w = 1; w < WT; ++w) m = fmaxf(m, red[w * p.rows + r]);
+            if (cons.count < p.Lpad) m = fmaxf(m, p.fill);
+          }
           best[row_off + r] = m;
         }
         if (cons.tile == p.tiles - 1) {
@@ -405,7 +464,11 @@ cudaError_t launch(const Params& p, size_t smem, dim3 grid, cudaStream_t stream)
   // that many rows, or tiles of it that divide Lq
   constexpr int STRIPS = MSW * (WARPS / (TOK / (8 * NTW)));
   const bool full = p.rows == STRIPS * 16 && (p.tiles == 1 ? p.qpb * p.Lq == p.rows : p.Lq % p.rows == 0);
-  auto kernel = full ? maxsim_kernel<DT, MSW, NTW, true> : maxsim_kernel<DT, MSW, NTW, false>;
+  auto kernel = full ? maxsim_kernel<DT, MSW, NTW, true, false> : maxsim_kernel<DT, MSW, NTW, false, false>;
+  if constexpr (std::is_same<DT, float>::value) {  // the training form: f32 docs, all pairs
+    if (p.argmax)
+      kernel = full ? maxsim_kernel<DT, MSW, NTW, true, true> : maxsim_kernel<DT, MSW, NTW, false, true>;
+  }
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, THREADS, smem, stream>>>(p);
@@ -448,9 +511,9 @@ extern "C" {
 // candidates (the caller checks that the spans lie inside tokens); both
 // null: candidate c the Lpad rows from c * Lpad for every query (all pairs
 // over dense docs). D % 8 == 0, D <= 2048, 1 <= Lq <= 512.
-int mm_maxsim(const void* q, const void* q_mask, const void* tokens, const void* tok_mask, const void* first,
-              const void* count, void* out, int B, int Lq, int C, int D, int Lpad, int tok_f16, float fill,
-              void* stream) {
+static int maxsim_entry(const void* q, const void* q_mask, const void* tokens, const void* tok_mask,
+                        const void* first, const void* count, void* out, void* argmax, int B, int Lq, int C, int D,
+                        int Lpad, int tok_f16, float fill, void* stream) {
   if (D < 8 || D % 8 || D > 2048 || Lq < 1 || Lq > MAX_LQ || Lpad < 0 || (first == nullptr) != (count == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || C <= 0) return static_cast<int>(cudaSuccess);
@@ -462,6 +525,7 @@ int mm_maxsim(const void* q, const void* q_mask, const void* tokens, const void*
   p.first = static_cast<const long long*>(first);
   p.count = static_cast<const int*>(count);
   p.out = static_cast<float*>(out);
+  p.argmax = static_cast<int*>(argmax);
   p.B = B;
   p.Lq = Lq;
   p.C = C;
@@ -471,7 +535,8 @@ int mm_maxsim(const void* q, const void* q_mask, const void* tokens, const void*
   p.fill = fill;
   p.ldq = D + (40 - D % 32) % 32;  // % 32 == 8: a warp's float2 A loads hit distinct banks
   const size_t ring = (size_t)STAGES * TOK * (tok_f16 ? Tok<__half>::LD * 2 : Tok<float>::LD * 4);
-  const size_t fixed = (size_t)MAX_CPB * 12 + ring + (size_t)(WARPS + 1) * MAX_ROWS * 4 + (size_t)MAX_LQ * 8;
+  const size_t red_idx = argmax ? (size_t)WARPS * MAX_ROWS * 4 : 0;  // the argmax form's row tokens
+  const size_t fixed = (size_t)MAX_CPB * 12 + ring + (size_t)(WARPS + 1) * MAX_ROWS * 4 + (size_t)MAX_LQ * 8 + red_idx;
   const int fit = (int)((SMEM_MAX - fixed) / ((size_t)p.ldq * 4)) / 16 * 16;  // rows the tile can hold
   const int max_rows = fit < MAX_ROWS ? fit : MAX_ROWS;
   if (max_rows < 16) return static_cast<int>(cudaErrorInvalidValue);
@@ -495,10 +560,233 @@ int mm_maxsim(const void* q, const void* q_mask, const void* tokens, const void*
   const int wt = p.rows <= 32 ? 4 : 2;  // warps across a chunk's tokens (launch_rows)
   const int best = Lq > p.rows ? Lq : p.rows;  // + the queries' masks, as many
   const size_t spans = (size_t)MAX_CPB * 12;
-  const size_t smem = spans + (size_t)p.rows * p.ldq * 4 + ring + (size_t)wt * p.rows * 4 + (size_t)best * 8;
+  const size_t smem = spans + (size_t)p.rows * p.ldq * 4 + ring + (size_t)wt * p.rows * 4 + (size_t)best * 8 +
+                      (argmax ? (size_t)wt * p.rows * 4 : 0);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = tok_f16 ? launch_rows<__half>(p, smem, grid, s) : launch_rows<float>(p, smem, grid, s);
   return static_cast<int>(err);
+}
+
+int mm_maxsim(const void* q, const void* q_mask, const void* tokens, const void* tok_mask, const void* first,
+              const void* count, void* out, int B, int Lq, int C, int D, int Lpad, int tok_f16, float fill,
+              void* stream) {
+  return maxsim_entry(q, q_mask, tokens, tok_mask, first, count, out, nullptr, B, Lq, C, D, Lpad, tok_f16, fill,
+                      stream);
+}
+
+// the training form of the all-pairs launch: mm_maxsim over f32 dense docs
+// (first/count null) that also writes argmax (B, Lq, C) int32, each (query
+// row, doc)'s max doc token: the first of exactly equal maxima, -1 where the
+// fill is the max (a masked or padded slot; no gradient goes there)
+int mm_maxsim_argmax(const void* q, const void* q_mask, const void* tokens, const void* tok_mask, void* out,
+                     void* argmax, int B, int Lq, int C, int D, int Lpad, float fill, void* stream) {
+  if (argmax == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return maxsim_entry(q, q_mask, tokens, tok_mask, nullptr, nullptr, out, argmax, B, Lq, C, D, Lpad, 0, fill,
+                      stream);
+}
+
+}  // extern "C"
+
+// ---- the backward of the all-pairs form --------------------------------------
+//
+// Given g = dL/dout (Bq, Bd) and the argmax the training form saved, the
+// gradients of out[b][k] = sum_l w(b,l) max_m (q[b,l] . d[k,m]):
+//   dq[b,l,:] = w(b,l) sum_k g[b,k] d[k, a(b,l,k), :]
+//   dd[k,m,:] = sum over (b,l) whose max for doc k sits on m of g[b,k] w(b,l) q[b,l,:]
+// with a = -1 (the fill won) giving nothing. Exactly equal maxima split
+// their gradient evenly, as torch.amax's backward (and JAX's max) does: the
+// forward keeps the first of them, and the rows of the doc that are bit for
+// bit equal to it (the ties its products can make, a token repeated in a
+// document) share w / count each. No float atomics: blocks [0, Bd * chunks)
+// each own a doc's dd rows for `cw` columns, held in shared memory and
+// summed over (b, l) in order; the other blocks own 8 rows of dq each, a
+// warp two rows, summed over k in order. Reruns give identical bits.
+
+namespace mm {
+namespace msim_bwd {
+
+constexpr int THREADS = 128;
+constexpr int ROWS_PER_WARP = 2;
+constexpr int DQ_ROWS = ROWS_PER_WARP * THREADS / 32;  // dq rows a block
+constexpr int TILE = 256;                              // (b, l) entries a dd block stages at once
+constexpr int SMEM_MAX = 232448;
+
+struct Params {
+  const float* q;       // (Bq, Lq, D)
+  const float* q_mask;  // (Bq, Lq)
+  const float* d;       // (Bd, Ld, D)
+  const float* d_mask;  // (Bd, Ld)
+  const int* argmax;    // (Bq, Lq, Bd)
+  const float* g;       // (Bq, Bd)
+  float* dq;            // (Bq, Lq, D)
+  float* dd;            // (Bd, Ld, D)
+  int Bq, Lq, Bd, Ld, D;
+  int cw, chunks, dd_blocks;
+};
+
+__device__ __forceinline__ uint32_t row_hash(const float* row, int D) {
+  uint32_t h = 2166136261u;
+  for (int i = 0; i < D; ++i) h = (h ^ __float_as_uint(row[i])) * 16777619u;
+  return h;
+}
+
+__device__ __forceinline__ bool rows_equal(const float* a, const float* b, int D) {
+  for (int i = 0; i < D; ++i)
+    if (__float_as_uint(a[i]) != __float_as_uint(b[i])) return false;
+  return true;
+}
+
+__device__ void dd_block(const Params& p, int blk, char* smem) {
+  const int k = blk / p.chunks, col = (blk % p.chunks) * p.cw + threadIdx.x;
+  const int Ld = p.Ld, D = p.D, cw = p.cw, E = p.Bq * p.Lq;
+  float* acc = reinterpret_cast<float*>(smem);                   // [Ld][cw]
+  int* lead = reinterpret_cast<int*>(acc + (size_t)Ld * cw);     // [Ld] the first row equal to this one
+  int* next = lead + Ld;                                         // [Ld] the next row equal to it, or -1
+  int* cnt = next + Ld;                                          // [Ld] rows equal to it
+  uint32_t* hsh = reinterpret_cast<uint32_t*>(cnt + Ld);         // [Ld]
+  int* s_a = reinterpret_cast<int*>(hsh + Ld);                   // [TILE]
+  float* s_w = reinterpret_cast<float*>(s_a + TILE);             // [TILE]
+  const float* doc = p.d + (size_t)k * Ld * D;
+  const float* dm = p.d_mask + (size_t)k * Ld;
+
+  // the doc's classes of bit-equal live rows
+  for (int m = threadIdx.x; m < Ld; m += THREADS) hsh[m] = dm[m] > 0.0f ? row_hash(doc + (size_t)m * D, D) : 0u;
+  for (int i = threadIdx.x; i < Ld * cw; i += THREADS) acc[i] = 0.0f;
+  __syncthreads();
+  for (int m = threadIdx.x; m < Ld; m += THREADS) {
+    int first = m;
+    if (dm[m] > 0.0f)
+      for (int m2 = 0; m2 < m; ++m2)
+        if (dm[m2] > 0.0f && hsh[m2] == hsh[m] && rows_equal(doc + (size_t)m2 * D, doc + (size_t)m * D, D)) {
+          first = m2;
+          break;
+        }
+    lead[m] = first;
+  }
+  __syncthreads();
+  for (int m = threadIdx.x; m < Ld; m += THREADS) {
+    int n = -1, c = 0;
+    for (int m2 = Ld - 1; m2 >= 0; --m2)
+      if (lead[m2] == lead[m]) {
+        ++c;
+        if (m2 > m) n = m2;
+      }
+    next[m] = n;
+    cnt[m] = c;
+  }
+
+  const bool mine = threadIdx.x < cw && col < D;
+  for (int e0 = 0; e0 < E; e0 += TILE) {
+    __syncthreads();  // the classes are built; the previous tile is consumed
+    const int n = min(TILE, E - e0);
+    for (int i = threadIdx.x; i < n; i += THREADS) {
+      const int e = e0 + i;
+      const float w = p.g[(size_t)(e / p.Lq) * p.Bd + k] * p.q_mask[e];
+      const int a = p.argmax[(size_t)e * p.Bd + k];
+      s_a[i] = w != 0.0f && a >= 0 ? a : -1;
+      s_w[i] = w;
+    }
+    __syncthreads();
+    if (!mine) continue;
+    const float* qcol = p.q + (size_t)e0 * D + col;
+#pragma unroll 4
+    for (int i = 0; i < n; ++i) {
+      const float qv = qcol[(size_t)i * D];
+      const int a = s_a[i];
+      if (a < 0) continue;
+      const int first = lead[a], c = cnt[first];
+      if (c == 1) {
+        acc[a * cw + threadIdx.x] += s_w[i] * qv;
+      } else {
+        const float v = (s_w[i] / (float)c) * qv;
+        for (int m = first; m >= 0; m = next[m]) acc[m * cw + threadIdx.x] += v;
+      }
+    }
+  }
+  if (mine)
+    for (int m = 0; m < Ld; ++m) p.dd[((size_t)k * Ld + m) * D + col] = acc[m * cw + threadIdx.x];
+}
+
+__device__ void dq_block(const Params& p, int blk) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, E = p.Bq * p.Lq, D4 = p.D / 4;
+  for (int r = 0; r < ROWS_PER_WARP; ++r) {
+    const int e = (blk * (THREADS / 32) + warp) * ROWS_PER_WARP + r;  // query row (b, l)
+    if (e >= E) return;
+    const int b = e / p.Lq;
+    const float wq = p.q_mask[e];
+    const int* a_row = p.argmax + (size_t)e * p.Bd;
+    const float* g_row = p.g + (size_t)b * p.Bd;
+    for (int d4 = lane; d4 < D4; d4 += 32) {
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (wq != 0.0f) {
+#pragma unroll 4
+        for (int k = 0; k < p.Bd; ++k) {
+          const int a = a_row[k];
+          if (a < 0) continue;
+          const float w = g_row[k] * wq;
+          const float4 v = *reinterpret_cast<const float4*>(p.d + ((size_t)k * p.Ld + a) * p.D + d4 * 4);
+          acc.x += w * v.x;
+          acc.y += w * v.y;
+          acc.z += w * v.z;
+          acc.w += w * v.w;
+        }
+      }
+      *reinterpret_cast<float4*>(p.dq + (size_t)e * p.D + d4 * 4) = acc;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) maxsim_bwd_kernel(const Params p) {
+  extern __shared__ __align__(16) char smem[];
+  if ((int)blockIdx.x < p.dd_blocks)
+    dd_block(p, blockIdx.x, smem);
+  else
+    dq_block(p, blockIdx.x - p.dd_blocks);
+}
+
+inline size_t dd_smem(int Ld, int cw) { return (size_t)Ld * cw * 4 + (size_t)Ld * 16 + (size_t)TILE * 8; }
+
+}  // namespace msim_bwd
+}  // namespace mm
+
+extern "C" {
+
+// dq (Bq, Lq, D) and dd (Bd, Ld, D) f32 from g (Bq, Bd) and the argmax
+// (Bq, Lq, Bd) of mm_maxsim_argmax over the same q (Bq, Lq, D), q_mask
+// (Bq, Lq), docs (Bd, Ld, D) and d_mask (Bd, Ld), all f32 but argmax.
+// D % 8 == 0, D <= 2048, Lq >= 1, 1 <= Ld <= 1024.
+int mm_maxsim_bwd(const void* q, const void* q_mask, const void* d, const void* d_mask, const void* argmax,
+                  const void* g, void* dq, void* dd, int Bq, int Lq, int Bd, int Ld, int D, void* stream) {
+  namespace bw = mm::msim_bwd;
+  if (D < 8 || D % 8 || D > 2048 || Lq < 1 || Ld < 1 || Ld > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (Bq <= 0 || Bd <= 0) return static_cast<int>(cudaSuccess);
+  bw::Params p;
+  p.q = static_cast<const float*>(q);
+  p.q_mask = static_cast<const float*>(q_mask);
+  p.d = static_cast<const float*>(d);
+  p.d_mask = static_cast<const float*>(d_mask);
+  p.argmax = static_cast<const int*>(argmax);
+  p.g = static_cast<const float*>(g);
+  p.dq = static_cast<float*>(dq);
+  p.dd = static_cast<float*>(dd);
+  p.Bq = Bq;
+  p.Lq = Lq;
+  p.Bd = Bd;
+  p.Ld = Ld;
+  p.D = D;
+  p.cw = bw::THREADS;  // the widest column slab whose rows fit shared memory
+  while (p.cw > 32 && bw::dd_smem(Ld, p.cw) > (size_t)bw::SMEM_MAX) p.cw /= 2;
+  p.chunks = (D + p.cw - 1) / p.cw;
+  p.dd_blocks = Bd * p.chunks;
+  const long long dq_blocks = ((long long)Bq * Lq + bw::DQ_ROWS - 1) / bw::DQ_ROWS;
+  if (p.dd_blocks + dq_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = bw::dd_smem(Ld, p.cw);
+  cudaError_t err =
+      cudaFuncSetAttribute(bw::maxsim_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bw::maxsim_bwd_kernel<<<(unsigned)(p.dd_blocks + dq_blocks), bw::THREADS, smem, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

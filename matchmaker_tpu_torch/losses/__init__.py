@@ -1,6 +1,6 @@
 """Ranking losses of the port: counterpart of ``matchmaker_tpu/losses``
-(the pairwise losses and the dispatch; listwise and QA losses are queued in
-ROADMAP.md)."""
+(the pairwise and listwise losses and the dispatch; the QA losses are queued
+in ROADMAP.md)."""
 
 from matchmaker_tpu_torch.losses.pairwise import (
     kldiv_teacher_pointwise,
@@ -12,5 +12,13 @@ from matchmaker_tpu_torch.losses.pairwise import (
     mse_teacher_pointwise_passages,
     ranknet,
     ranknet_teacher,
+)
+from matchmaker_tpu_torch.losses.listwise import (
+    kldiv_teacher_list,
+    lambda_loss,
+    lambda_loss_teacher,
+    listnet,
+    smooth_mrr,
+    soft_cross_entropy,
 )
 from matchmaker_tpu_torch.losses.dispatch import LossBundle, get_loss, merge_loss

@@ -1,8 +1,11 @@
 """Loss config dispatch and the uncertainty-weighted multi-loss merge:
 counterpart of ``matchmaker_tpu/losses/dispatch.py``, same config names.
 
-The listwise losses and the QA loss are not ported yet: their names raise
-``NotImplementedError`` (ROADMAP.md, queue 1 item 6) instead of falling back.
+The top-level listwise losses (``loss: mrr | listnet | lambdarank``) train on
+list batches, whose sampler and loss branch are not ported yet, and the QA
+loss is not ported yet: their names raise ``NotImplementedError`` naming
+their ROADMAP.md item instead of falling back. The in-batch listwise losses
+(``KLDivTeacherList``, ``listnet``, ``lambdarank``) are ported.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
-from matchmaker_tpu_torch.losses import pairwise
+from matchmaker_tpu_torch.losses import listwise, pairwise
 
 
 @dataclass(frozen=True)
@@ -45,35 +48,42 @@ _INBATCH_PAIRWISE = {
     "margin-mse": pairwise.margin_mse,
 }
 
-_INBATCH_LISTWISE = ("KLDivTeacherList", "listnet", "lambdarank")
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1 item 6)"
+_INBATCH_LISTWISE = {
+    "KLDivTeacherList": listwise.kldiv_teacher_list,
+    "listnet": listwise.listnet,
+    "lambdarank": lambda s, t, valid=None: listwise.lambda_loss_teacher(s, t, valid, scheme="ndcgLoss2"),
+}
 
 
 def get_loss(config) -> LossBundle:
     name = config["loss"]
     if name in _LISTWISE:
-        raise NotImplementedError(f"listwise loss {name!r} {_NOT_PORTED}")
+        raise NotImplementedError(f"listwise loss {name!r}: its list batches (data/list_sampler.py) are not "
+                                  "ported yet (ROADMAP.md, queue 1 item 6)")
     if name not in _PAIRWISE:
         raise ValueError(f"Loss not known: {name}")
     if config.get("train_qa_spans", False):
-        raise NotImplementedError(f"the QA loss {config.get('qa_loss')!r} {_NOT_PORTED}")
+        raise NotImplementedError(f"the QA loss {config.get('qa_loss')!r} is not ported yet "
+                                  "(ROADMAP.md, queue 1 item 6)")
 
     inbatch = None
+    use_inbatch_list = False
     if config.get("in_batch_negatives", False):
         ib_name = config.get("in_batch_neg_loss")
-        if ib_name in _INBATCH_LISTWISE:
-            raise NotImplementedError(f"in-batch listwise loss {ib_name!r} {_NOT_PORTED}")
-        if ib_name not in _INBATCH_PAIRWISE:
+        if ib_name in _INBATCH_PAIRWISE:
+            inbatch = _INBATCH_PAIRWISE[ib_name]
+        elif ib_name in _INBATCH_LISTWISE:
+            inbatch = _INBATCH_LISTWISE[ib_name]
+            use_inbatch_list = True
+        else:
             raise ValueError(f"in_batch_neg_loss not known: {ib_name}")
-        inbatch = _INBATCH_PAIRWISE[ib_name]
 
     return LossBundle(
         ranking_loss=_PAIRWISE[name],
         qa_loss=None,
         inbatch_loss=inbatch,
         use_list_loss=False,
-        use_inbatch_list_loss=False,
+        use_inbatch_list_loss=use_inbatch_list,
         is_passage_loss=name in ("MSETeacherPointwisePassages", "MarginMSE_InterPassageLoss"),
     )
 

@@ -5,14 +5,15 @@ Per-token encoder vectors, a linear compressor to ``colbert_compression_dim``
 (f32, flax ``Dense`` promotion), optional L2 normalisation
 (``colbert_normalize``), vectors zeroed by mask when encoding for storage
 (``sequence_type`` ``doc_encode`` / ``query_encode``), MaxSim scoring
-(ops/maxsim.py) and the in-batch all-pairs MaxSim (K14 on a card).
-
-``forward_triple`` comes with ColBERT training (ROADMAP.md).
+(ops/maxsim.py) and the in-batch all-pairs MaxSim (K14 on a card; under
+autograd its training form and backward kernel), the per-query-term MaxSim
+scores (``return_per_term``, for term-level distillation) and the training
+step's packed triple forward (``forward_triple``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
@@ -66,20 +67,37 @@ class ColBert(nn.Module):
         """(Bq, Bd) all-pairs MaxSim (the dynamic teacher's matrix)."""
         return maxsim_all_pairs(q_vecs, d_vecs, q_mask, d_mask)
 
-    def forward(self, batch: Dict[str, torch.Tensor], output_secondary: bool = False) -> dict:
-        q_vecs = self.encode(batch["query_ids"], batch["query_mask"])
-        d_vecs = self.encode(batch["doc_ids"], batch["doc_mask"])
-        out = {"score": maxsim_pairwise(q_vecs, d_vecs, batch["query_mask"], batch["doc_mask"])}
+    def _outputs(self, q_vecs, q_mask, d_vecs, d_mask) -> dict:
+        out = {"score": maxsim_pairwise(q_vecs, d_vecs, q_mask, d_mask)}
         if self.return_per_term:
             # each query token's MaxSim contribution (the dynamic teacher's per-term scores)
             per_term = matmul_f32(q_vecs, d_vecs.transpose(-1, -2))
-            per_term = torch.where(batch["doc_mask"][:, None, :] > 0, per_term, NEG_FILL)
-            out["per_term_scores"] = per_term.amax(dim=-1) * batch["query_mask"]
+            per_term = torch.where(d_mask[:, None, :] > 0, per_term, NEG_FILL)
+            out["per_term_scores"] = per_term.amax(dim=-1) * q_mask
         if self.return_vecs:
             out["query_vecs"] = q_vecs
             out["doc_vecs"] = d_vecs
-            out["query_vecs_mask"] = batch["query_mask"]
-            out["doc_vecs_mask"] = batch["doc_mask"]
+            out["query_vecs_mask"] = q_mask
+            out["doc_vecs_mask"] = d_mask
+        return out
+
+    def forward(self, batch: Dict[str, torch.Tensor], output_secondary: bool = False) -> dict:
+        q_vecs = self.encode(batch["query_ids"], batch["query_mask"])
+        d_vecs = self.encode(batch["doc_ids"], batch["doc_mask"])
+        out = self._outputs(q_vecs, batch["query_mask"], d_vecs, batch["doc_mask"])
         if output_secondary:
             out["secondary"] = {}
         return out
+
+    def forward_triple(self, batch: Dict[str, torch.Tensor]) -> Tuple[dict, dict]:
+        """Packed triple forward: the query tokens encoded once, the positive
+        and negative documents in one 2B-row encoder pass; the MaxSim runs per
+        half. Returns (pos_out, neg_out) with ``forward``'s keys."""
+        q_vecs = self.encode(batch["query_ids"], batch["query_mask"])
+        d_ids = torch.cat([batch["doc_pos_ids"], batch["doc_neg_ids"]], dim=0)
+        d_mask = torch.cat([batch["doc_pos_mask"], batch["doc_neg_mask"]], dim=0)
+        d_vecs = self.encode(d_ids, d_mask)
+        b = q_vecs.shape[0]
+        q_mask = batch["query_mask"]
+        return (self._outputs(q_vecs, q_mask, d_vecs[:b], d_mask[:b]),
+                self._outputs(q_vecs, q_mask, d_vecs[b:], d_mask[b:]))

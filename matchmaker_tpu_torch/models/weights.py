@@ -6,7 +6,10 @@ The port names each parameter after its flax path with ``.`` for ``/``
 ``encoder.layer_0.attention.query.kernel``). The attention projections are
 stored 2-D, with the reshapes of ``matchmaker_tpu/models/encoder.py``
 (FusedMHABlock): query/key/value kernels (hid, h, d) → (hid, hid), their
-biases (h, d) → (hid,), the out kernel (h, d, hid) → (hid, hid). A ``.npz``
+biases (h, d) → (hid,), the out kernel (h, d, hid) → (hid, hid). Every
+other parameter keeps its flax shape: ColBERT's ``compressor`` kernel (hid,
+dim) and bias, the MLM head's ``mlm_transform`` / ``mlm_norm`` and its
+top-level vocabulary bias ``mlm_bias`` (``modules/mlm_head.py``). A ``.npz``
 holds the port's arrays keyed by the flax path.
 """
 
@@ -81,7 +84,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             p.normal_(0.0, (1.0 / p.shape[1]) ** 0.5, generator=generator)
         elif leaf == "scale":
             p.fill_(1.0)
-        elif leaf == "bias":
+        elif leaf == "bias" or leaf.endswith("_bias"):  # mlm_bias: the MLM head's vocabulary bias
             p.zero_()
         else:
             raise ValueError(f"no initialiser for parameter {name}")

@@ -46,6 +46,8 @@ LAUNCHES = {
     "binmax_candidates_int8f": 0,  # K8: int8 corpus, bf16 queries
     "binmax_candidates_int8": 0,  # K7: int8 corpus, int8 queries
     "maxsim_all_pairs": 0,  # K14
+    "maxsim_all_pairs_argmax": 0,  # K14's training form (all pairs + each row max's doc token)
+    "maxsim_all_pairs_bwd": 0,  # the backward of K14's all-pairs form
     "fused_mha": 0,  # K13
     "attn_inner": 0,  # K15 (probes/attn_inner.py)
     "int8_matmul": 0,  # K16 (probes/int8_matmul.py)
@@ -59,6 +61,8 @@ _SIGNATURES = {
     "mm_attention_core_f32": [_p, _p, _p, _i, _i, _i, _f, _p],
     "mm_fused_mha": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _p],
     "mm_maxsim": [_p] * 7 + [_i] * 6 + [_f, _p],
+    "mm_maxsim_argmax": [_p] * 6 + [_i] * 5 + [_f, _p],
+    "mm_maxsim_bwd": [_p] * 8 + [_i] * 5 + [_p],
     "mm_quant_groups": [_p, _p, _p, _i, _i, _i, _i, _p],
     "mm_wg_gemm_s8": [_p] * 7 + [_i] * 5 + [_p],
     "mm_wg_gemm_s8_gelu_quant": [_p] * 7 + [_i] * 4 + [_p],

@@ -28,6 +28,12 @@ so it changes results) as the JAX FlatIndex does. ``mips_q_chunk`` is
 accepted and unused: the JAX kernels split the query rows into launches of
 that many only to fit VMEM, which changes no result.
 
+``kmeans`` / ``assign_clusters`` (Lloyd from a random and, for k <= 2048,
+a k-means++ init, the lower-distortion solution kept; nearest-centroid
+assignment in blocks) and ``DynamicClusterIndex`` (TAS-Balanced's query
+clusters, cli/cluster_queries.py) run in torch on the index's device, drawn
+from an explicit ``torch.Generator``.
+
 Not ported yet (ROADMAP.md): ``mips_twostage`` with ``mips_kernel: scan``
 (ops/mips_twostage.py), the float16 XLA-scan route and the other index
 types.
@@ -42,6 +48,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from matchmaker_tpu_torch.ops import matmul_f32
 from matchmaker_tpu_torch.ops.mips import blocked_topk_scores
 from matchmaker_tpu_torch.ops.mips_binmax import BIN_WIDTH, binmax_rescore_topk, binmax_scan_topk, padding_grain
 from matchmaker_tpu_torch.ops.mips_f16 import f16_scan_topk
@@ -104,7 +111,7 @@ class FlatIndex(BaseNNIndexer):
         self.twostage = config.get("mips_twostage", False)
         if self.quantized and self.twostage and self.mips_kernel == "scan":
             raise NotImplementedError("mips_twostage with mips_kernel: scan needs ops/mips_twostage.py, "
-                                      "not ported yet (ROADMAP.md, queue 1 item 11)")
+                                      "not ported yet (ROADMAP.md, queue 1 item 5)")
         self.oversample = config.get("mips_oversample", 4)
         self.rescore_dtype = config.get("mips_rescore_dtype", "int8")  # int8 | float16
         self.int8_queries = config.get("mips_int8_queries", "int8")  # int8 | float (the mixed scan)
@@ -242,6 +249,137 @@ class FlatIndex(BaseNNIndexer):
         self._vectors = np.load(os.path.join(folder, "flat_vectors.npy"))
         self._ids = np.load(os.path.join(folder, "flat_ids.npy"))
         self._device_vectors = None
+
+
+def _kmeanspp_init(vectors: torch.Tensor, k: int, generator: torch.Generator) -> torch.Tensor:
+    """k-means++ (D² sampling) seeds: the first row uniform, each next one
+    drawn with probability proportional to its squared distance to the
+    nearest seed so far."""
+    n = vectors.shape[0]
+    x = vectors.float()
+    centers = torch.empty((k, vectors.shape[1]), dtype=vectors.dtype, device=vectors.device)
+    first = torch.randint(0, n, (), generator=generator, device=vectors.device)
+    centers[0] = vectors[first]
+    d2 = torch.full((n,), float("inf"), device=vectors.device)
+    for i in range(1, k):
+        d2 = torch.minimum(d2, ((x - centers[i - 1].float()) ** 2).sum(-1))
+        idx = torch.multinomial(torch.clamp(d2, min=1e-30), 1, generator=generator)[0]
+        centers[i] = vectors[idx]
+    return centers
+
+
+def _scores(block: torch.Tensor, centroids: torch.Tensor, c_sq: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distance up to each row's own |x|²: -2 x·c + |c|²."""
+    return -2 * matmul_f32(block, centroids.t()) + c_sq[None, :]
+
+
+def kmeans(vectors: torch.Tensor, k: int, iters: int = 10, seed: int = 42,
+           block_size: int = 131072) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k-means on the vectors' device → (centroids (k, d), assignment (n,)),
+    the assignment being the last Lloyd step's (to the centroids before its
+    update), as the JAX package returns it.
+
+    Lloyd runs from a random init (k distinct rows) and, for k <= 2048, from
+    a k-means++ init; the solution with the lower distortion wins (random
+    init suits noise-like data, k-means++ skewed data). Assignment runs in
+    row blocks (memory O(block · k)); the centroid update sums each cluster's
+    rows by one-hot products, in a fixed order. Draws come from a
+    ``torch.Generator`` on the device, seeded with ``seed``."""
+    n, d = vectors.shape
+    vectors = vectors.float()
+    generator = torch.Generator(device=vectors.device).manual_seed(seed)
+    inits = [vectors[torch.randperm(n, generator=generator, device=vectors.device)[:k]]]
+    if k <= 2048:
+        inits.append(_kmeanspp_init(vectors, k, generator))
+    blocks = torch.split(vectors, block_size)
+
+    def step(centroids):
+        c_sq = (centroids ** 2).sum(-1)
+        assign = torch.cat([torch.argmin(_scores(b, centroids, c_sq), dim=1) for b in blocks])
+        sums = torch.zeros_like(centroids)
+        counts = torch.zeros((k, 1), device=vectors.device)
+        for b, a in zip(blocks, torch.split(assign, block_size)):
+            one_hot = torch.nn.functional.one_hot(a, k).float()
+            sums += matmul_f32(one_hot.t(), b)
+            counts += one_hot.sum(0)[:, None]
+        return torch.where(counts > 0, sums / torch.clamp(counts, min=1), centroids), assign
+
+    def distortion(centroids):
+        # comparable across candidate solutions: the dropped |x|² is the same for all
+        c_sq = (centroids ** 2).sum(-1)
+        return float(sum(_scores(b, centroids, c_sq).amin(dim=1).sum() for b in blocks))
+
+    best = None
+    for centroids in inits:
+        assign = None
+        for _ in range(iters):
+            centroids, assign = step(centroids)
+        d_val = distortion(centroids) if len(inits) > 1 else 0.0
+        if best is None or d_val < best[0]:
+            best = (d_val, centroids, assign)
+    return best[1], best[2]
+
+
+def assign_clusters(vectors: np.ndarray, centroids, block_size: int = 262144, device="cuda") -> np.ndarray:
+    """Nearest-centroid id (int32) of each host row, the rows sent to the
+    device in blocks and only the ids brought back."""
+    device = torch.device(device)
+    c = torch.as_tensor(np.asarray(centroids, np.float32), device=device)
+    c_sq = (c ** 2).sum(-1)
+    out = np.empty(len(vectors), dtype=np.int32)
+    for start in range(0, len(vectors), block_size):
+        blk = torch.as_tensor(np.asarray(vectors[start:start + block_size], np.float32), device=device)
+        out[start:start + len(blk)] = torch.argmin(_scores(blk, c, c_sq), dim=1).cpu().numpy()
+    return out
+
+
+class DynamicClusterIndex(BaseNNIndexer):
+    """Query-clustering index for TAS-Balanced: k-means centroids of the
+    indexed vectors, each row's centroid, per-centroid member lists and
+    re-assignment updates (``faiss_ivf_list_count`` clusters,
+    ``ivf_train_iters`` Lloyd steps)."""
+
+    def __init__(self, config=None, device="cuda"):
+        super().__init__(config, device)
+        config = config or {}
+        self.n_clusters = config.get("faiss_ivf_list_count", 2000)
+        self.train_iters = config.get("ivf_train_iters", 10)
+        self._centroids = None
+        self._assignments = None  # row -> centroid
+        self._ids = None
+
+    def index_all(self, ids: np.ndarray, vectors: np.ndarray) -> None:
+        self._ids = np.asarray(ids)
+        k = min(self.n_clusters, len(ids))
+        centroids, assign = kmeans(torch.as_tensor(np.asarray(vectors, np.float32), device=self.device), k,
+                                   self.train_iters)
+        self._centroids = centroids.cpu().numpy()
+        self._assignments = assign.cpu().numpy()
+
+    def assign(self, vectors: np.ndarray, block: int = 65536) -> np.ndarray:
+        """Nearest centroid id of each vector (L2, as the k-means trains)."""
+        return assign_clusters(vectors, self._centroids, block, self.device).astype(np.int64)
+
+    def cluster_members(self, cluster_id: int) -> np.ndarray:
+        return self._ids[self._assignments == cluster_id]
+
+    def update(self, ids: np.ndarray, vectors: np.ndarray) -> None:
+        """Re-assign the given rows."""
+        new_assign = self.assign(vectors)
+        id_to_pos = {i: p for p, i in enumerate(self._ids)}
+        for i, a in zip(ids, new_assign):
+            self._assignments[id_to_pos[i]] = a
+
+    def save(self, folder: str) -> None:
+        os.makedirs(folder, exist_ok=True)
+        np.savez_compressed(os.path.join(folder, "dynamic_index.npz"), centroids=self._centroids,
+                            assignments=self._assignments, ids=self._ids)
+
+    def load(self, folder: str) -> None:
+        data = np.load(os.path.join(folder, "dynamic_index.npz"), allow_pickle=True)
+        self._centroids = data["centroids"]
+        self._assignments = data["assignments"]
+        self._ids = data["ids"]
 
 
 def build_index(config, device="cuda") -> BaseNNIndexer:

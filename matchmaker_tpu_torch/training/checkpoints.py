@@ -3,6 +3,9 @@
 - best-model snapshots are ``.npz`` files of the parameters keyed by their
   flax paths (models/weights.py), which the port's dense-retrieval CLI loads
   (``trained_model``), with best-checkpoint rotation;
+- :func:`load_encoder_subtree` grafts a snapshot's encoder into a ranker
+  whose heads stay fresh (``warmstart_encoder_path``, e.g. from an MLM
+  pre-train run of cli/pretrain.py);
 - :class:`TrainStateCheckpointer` keeps the full train state for a mid-run
   resume: model and optimizer state, step, epoch and the batches consumed in
   that epoch (the data cursor), one ``torch.save`` file per step.
@@ -27,6 +30,33 @@ def save_params(path: str, model: torch.nn.Module) -> None:
 def load_params(path: str, model: torch.nn.Module) -> None:
     """Load a ``.npz`` snapshot into the model (strict: same parameter set)."""
     model.load_state_dict(load_npz(path))
+
+
+_ENCODER_SLOTS = ("encoder", "query_encoder", "doc_encoder")
+
+
+def load_encoder_subtree(path: str, model: torch.nn.Module) -> None:
+    """Copy the ``encoder`` tensors of a ``.npz`` snapshot (all of it when it
+    has no ``encoder`` subtree) into every encoder slot of ``model``
+    (``encoder`` / ``query_encoder`` / ``doc_encoder``); every other
+    parameter keeps its value. The snapshot must hold each tensor of a
+    slot, at its shape."""
+    saved = load_npz(path)
+    prefix = "encoder." if any(k.startswith("encoder.") for k in saved) else ""
+    enc = {k[len(prefix):]: v for k, v in saved.items() if k.startswith(prefix)}
+    state = model.state_dict()
+    slots = sorted({k.split(".", 1)[0] for k in state if k.split(".", 1)[0] in _ENCODER_SLOTS})
+    if not slots:
+        raise ValueError(f"no encoder subtree in the model to graft {path} into")
+    graft = {}
+    for slot in slots:
+        for key, value in state.items():
+            if key.startswith(slot + "."):
+                name = key[len(slot) + 1:]
+                if name not in enc or tuple(enc[name].shape) != tuple(value.shape):
+                    raise ValueError(f"{path}: no encoder tensor {name!r} of shape {tuple(value.shape)}")
+                graft[key] = enc[name]
+    model.load_state_dict(graft, strict=False)
 
 
 def rotate_best(run_folder: str, n_best: int) -> None:

@@ -1,9 +1,14 @@
 """The training driver: counterpart of ``matchmaker_tpu/training/trainer.py``,
 single process on one device.
 
-Config-driven build, epoch loop over the triple loader
-(``data/loaders.py:triple_training_loader``, batches placed on the device ahead by
-``device_prefetch``), continuous validation every ``validate_every_n_batches``
+Config-driven build (BERT_DOT or ColBERT; ``warmstart_encoder_path`` grafts
+an encoder snapshot, e.g. an MLM pre-train's, into the fresh model), epoch
+loop over the triple loader (``data/loaders.py:triple_training_loader``) or,
+with ``dynamic_sampler: true``, the TAS-Balanced sampler
+(``data/tas_balanced.py``, ``tas_batches_per_epoch`` batches an epoch),
+batches placed on the device ahead by ``device_prefetch`` and, with
+``dynamic_teacher``, scored by the dynamic teacher
+(``distillation/dynamic_teacher.py``) before the step, continuous validation every ``validate_every_n_batches``
 and at each epoch's end with best-checkpoint saving and rotation, early
 stopping, the loss CSV every 100 steps, ``max_training_batches``, an
 optional full train-state snapshot with the mid-epoch data cursor, a device
@@ -13,14 +18,14 @@ validation/test/leaderboard passes, ``efficiency-metrics.json`` and, with
 weights. Extra config key: ``device`` (default ``"cuda"``).
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP.md item: ColBERT, ``dynamic_teacher``, ``dynamic_sampler``,
-``submodel_train_cache_path``, warm starts from JAX checkpoints and
-multi-process launches.
+ROADMAP.md item: ``dynamic_sampler: listwise``, ``submodel_train_cache_path``,
+``warmstart_model_path`` and multi-process launches.
 """
 
 from __future__ import annotations
 
 import csv
+import itertools
 import math
 import os
 from typing import Dict
@@ -32,12 +37,13 @@ from matchmaker_tpu_torch.data.tokenization import build_tokenizer
 from matchmaker_tpu_torch.evaluation import evaluate_model, save_sorted_results, test_model, validate_model
 from matchmaker_tpu_torch.experiment import EarlyStopping, save_best_info
 from matchmaker_tpu_torch.losses import get_loss
-from matchmaker_tpu_torch.models import get_model, init_params, model_base_name
+from matchmaker_tpu_torch.models import get_model, init_params
 from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
 from matchmaker_tpu_torch.obs.scalars import ScalarWriter, collect_learned_scalars
 from matchmaker_tpu_torch.training.checkpoints import (
     BEST_MODEL,
     TrainStateCheckpointer,
+    load_encoder_subtree,
     load_params,
     rotate_best,
     save_params,
@@ -47,18 +53,15 @@ from matchmaker_tpu_torch.training.train_step import make_eval_step, make_train_
 
 # config keys of JAX-package features the port does not run yet
 _UNPORTED = {
-    "dynamic_teacher": "queue 1 item 8",
-    "dynamic_sampler": "queue 1 item 8",
     "submodel_train_cache_path": "queue 1 item 10",
     "warmstart_model_path": "queue 1 item 2",
-    "warmstart_encoder_path": "queue 1 item 8",
 }
 
 
 def _refuse_unported(config) -> None:
-    if model_base_name(config.get("model", "")) == "colbert":
-        raise NotImplementedError("ColBERT training (forward_triple, the MaxSim backward) is not ported yet "
-                                  "(ROADMAP.md, queue 1 item 9)")
+    if config.get("dynamic_sampler") == "listwise":
+        raise NotImplementedError("dynamic_sampler: listwise needs data/list_sampler.py and the list-batch loss, "
+                                  "which are not ported yet (ROADMAP.md, queue 1 item 6)")
     for key, item in _UNPORTED.items():
         if config.get(key):
             raise NotImplementedError(f"{key} is not ported yet (ROADMAP.md, {item})")
@@ -68,16 +71,23 @@ def _refuse_unported(config) -> None:
 
 
 class Trainer:
-    def __init__(self, config, run_folder: str):
+    def __init__(self, config, run_folder: str, teacher_config=None):
+        """``teacher_config``: the dynamic teacher's config, when the caller
+        holds it (else it is read from ``dynamic_teacher_path``'s
+        ``config.yaml``)."""
         _refuse_unported(config)
         self.config = config
         self.run_folder = run_folder
+        self.teacher_config = teacher_config
         self.perf = PerformanceMonitor.get()
         self.device = torch.device(config.get("device", "cuda"))
 
         self.tokenizer = build_tokenizer(config)
         self.model = get_model(config, self.tokenizer)
         init_params(self.model, config, torch.Generator().manual_seed(config.get("random_seed", 42)))
+        if config.get("warmstart_encoder_path"):
+            # an encoder-only graft (e.g. from an MLM pre-train run): the heads stay fresh
+            load_encoder_subtree(config["warmstart_encoder_path"], self.model)
         self.model.to(self.device)
         self.optimizer = build_optimizer(config, self.model)
         self.losses = get_loss(config)
@@ -169,23 +179,58 @@ class Trainer:
         return True
 
     # ------------------------------------------------------------------
+    def _tas_sampler(self):
+        from matchmaker_tpu_torch.data.tas_balanced import TASBalancedSampler
+
+        config = self.config
+        return TASBalancedSampler(
+            collection_file=config["dynamic_sampler_collection"],
+            query_file=config["dynamic_sampler_queries"],
+            pairs_with_teacher_scores=config["dynamic_sampler_pairs_with_teacher_scores"],
+            query_cluster_file=config["dynamic_sampler_query_cluster_file"],
+            batch_size=config.get("batch_size_train", 32),
+            clusters_per_batch=config.get("tas_balanced_clusters_per_batch", 1),
+            pair_balancing_strategy="bins" if config.get("tas_balanced_pair_strategy", "random") != "random"
+            else "random",
+            seed=config.get("random_seed", 42),
+        )
+
+    def _epoch_batches(self, sampler, teacher):
+        """One epoch's batches on the device, from the current data cursor:
+        the TAS-Balanced sampler's or the triple file's, scored by the
+        dynamic teacher when there is one."""
+        config = self.config
+        if sampler is not None:
+            loader = itertools.islice(sampler.batches(config, self.tokenizer,
+                                                      max_batches=config.get("tas_batches_per_epoch", 1000)),
+                                      self._epoch_batch, None)
+        else:
+            loader = triple_training_loader(config, self.tokenizer, config["train_tsv"],
+                                            batch_size=config.get("batch_size_train", 32),
+                                            skip_batches=self._epoch_batch)
+        batches = device_prefetch(loader, self.device)
+        return teacher.wrap(batches) if teacher is not None else batches
+
     def train(self) -> None:
         config = self.config
         validate_every = config.get("validate_every_n_batches", 4000)
         epochs = config.get("epochs", 1)
-        batch_size = config.get("batch_size_train", 32)
         max_batches = config.get("max_training_batches", 0)
         stopped = False
+        teacher = None
+        if config.get("dynamic_teacher", False):
+            from matchmaker_tpu_torch.distillation.dynamic_teacher import DynamicTeacher
+
+            teacher = DynamicTeacher(config, teacher_config=self.teacher_config)
+        sampler = self._tas_sampler() if config.get("dynamic_sampler", False) else None
         self.model.train()
         self.perf.start_block("train")
         for epoch in range(self._epoch, epochs):
             if stopped:
                 break
             self._epoch = epoch
-            loader = triple_training_loader(config, self.tokenizer, config["train_tsv"], batch_size=batch_size,
-                                            skip_batches=self._epoch_batch)
             recent_failures = []
-            for batch in device_prefetch(loader, self.device):
+            for batch in self._epoch_batches(sampler, teacher):
                 self._epoch_batch += 1
                 try:
                     stats = self.train_step(batch)

@@ -168,9 +168,10 @@ def test_unported_models_raise():
     for model in ("knrm", "bert_cat", "maxP->bert_dot"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(_bert_dot_config(model=model), tok)
-    # ColBERT serves on the port; its training is refused
+    # ColBERT serves and trains on the port; listwise dynamic sampling is refused
+    _refuse_unported(_bert_dot_config(model="colbert"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _refuse_unported(_bert_dot_config(model="colbert"))
+        _refuse_unported(_bert_dot_config(model="colbert", dynamic_sampler="listwise"))
     # the int8 halves are ported for inference; under autograd they are refused
     enc = TransformerEncoderLM(EncoderConfig.tiny(fused_attention=True, int8_mlp=True))
     ids, mask = _ids_mask(2)

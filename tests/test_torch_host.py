@@ -146,3 +146,16 @@ def test_scalar_writer_and_perf_monitor(tmp_path):
     perf.save_summary(str(tmp_path / "efficiency-metrics.json"))
     stats = perf.summary()["encode"]
     assert stats["instances"] == 10 and stats["calls"] == 1 and stats["items_per_second"] > 0
+
+
+@pytest.mark.parametrize("module", ["data/mlm.py", "data/synthetic.py", "data/tas_balanced.py"])
+def test_verbatim_copies_differ_only_in_imports(module):
+    """The MLM loader, the planted corpora and the TAS-Balanced sampler are
+    the JAX package's modules with only ``matchmaker_tpu.`` imports turned
+    into ``matchmaker_tpu_torch.`` ones (their behaviour is held to the
+    originals in tests/test_torch_tasb.py)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "matchmaker_tpu", module), encoding="utf-8") as f:
+        original = f.read().replace("matchmaker_tpu.", "matchmaker_tpu_torch.")
+    with open(os.path.join(repo, "matchmaker_tpu_torch", module), encoding="utf-8") as f:
+        assert f.read() == original

@@ -1112,11 +1112,102 @@ def test_maxsim_kernel_matches_plain(device, shape, fill, below):
 
 @pytest.mark.cuda
 def test_maxsim_kernel_refuses_autograd_and_bad_shapes(device):
+    """The gathered form is forward-only; the all-pairs form under autograd
+    launches the training form and its backward kernel, never the plain
+    version; shapes the kernels cannot take raise."""
     q, d, qm, dm = _maxsim_case(2, 8, 3, 16, 32, device, seed=1)
+    first, count = torch.zeros(2, 3, dtype=torch.int64), torch.full((2, 3), 16, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="forward-only"):
-        ms.maxsim_all_pairs(q.requires_grad_(), d, qm, dm)
+        ms.maxsim_gathered(q.clone().requires_grad_(), qm, d.reshape(-1, 32), first, count, 16)
+    _build.reset_launches()
+    ms.maxsim_all_pairs(q.clone().requires_grad_(), d, qm, dm).sum().backward()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["maxsim_all_pairs_argmax"] == 1 and _build.LAUNCHES["maxsim_all_pairs_bwd"] == 1
+    assert _build.LAUNCHES["maxsim_all_pairs"] == 0
     with pytest.raises(ValueError, match="D % 8"):
         ms.maxsim_all_pairs(q.detach()[..., :12], d[..., :12], qm, dm)
+    with pytest.raises(ValueError, match="D % 8"):
+        ms.maxsim_all_pairs(q[..., :12].clone().requires_grad_(), d[..., :12], qm, dm)
+    long_d = torch.randn(3, 1025, 32, device=device)
+    with pytest.raises(ValueError, match="Ld <= 1024"):
+        ms.maxsim_all_pairs(q.clone().requires_grad_(), long_d, qm, torch.ones(3, 1025, device=device))
+
+
+def _maxsim_training_case(bq, lq, bd, ld, dim, device, seed, below_fill=False, ties=False):
+    """_maxsim_case's inputs; ``ties``: in every doc token 5 repeats token 3,
+    the sum of the batch's query rows (so the two hold the max of many
+    (query token, doc) pairs), an exact tie for the kernel and for the plain
+    dots alike."""
+    q, d, qm, dm = _maxsim_case(bq, lq, bd, ld, dim, device, seed=seed, below_fill=below_fill)
+    if ties:
+        d[:, 3] = q.sum(dim=(0, 1))
+        d[:, 5] = d[:, 3]
+        dm[:, 3] = dm[:, 5] = 1.0
+    return q, d, qm, dm
+
+
+def _plain_maxsim_grads(q, d, qm, dm, g, fill):
+    q, d = q.clone().requires_grad_(), d.clone().requires_grad_()
+    (ms.reference_maxsim_all_pairs(q, d, qm, dm, fill) * g).sum().backward()
+    return q.grad, d.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,below,ties", [((32, 30, 64, 200, 128), False, False),
+                                              ((7, 30, 21, 77, 128), True, False),
+                                              ((4, 16, 6, 40, 64), False, True)])
+def test_maxsim_training_form_and_backward_match_plain(device, shape, below, ties):
+    """K14's training form and the backward kernel against plain autograd
+    through reference_maxsim_all_pairs: the forward at K14's bar (rtol =
+    atol = 1e-4), the saved doc tokens equal to the plain argmax but for
+    near ties, dq and dd at rtol = atol = 1e-4 on the rows whose tokens
+    agree, the exact ties split evenly, reruns bit-identical."""
+    fill = ms.NEG_FILL
+    q, d, qm, dm = _maxsim_training_case(*shape, device, seed=sum(shape), below_fill=below, ties=ties)
+    g = torch.randn(shape[0], shape[2], device=device, generator=torch.Generator(device=device).manual_seed(3))
+    _build.reset_launches()
+    out, argmax = ms._launch_argmax(q, qm, d, dm, fill)
+    torch.testing.assert_close(out, ms.reference_maxsim_all_pairs(q, d, qm, dm, fill), rtol=1e-4, atol=1e-4)
+    _, want_idx, top1, top2 = ms.reference_maxsim_argmax(q, d, qm, dm, fill, with_top2=True)
+    agree = argmax == want_idx
+    assert float(agree.float().mean()) >= 0.9999
+    assert bool(((top1 - top2).abs() <= 1e-5 * top1.abs())[~agree].all())
+    dq, dd = ms._launch_bwd(q, qm, d, dm, argmax, g)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["maxsim_all_pairs_argmax"] == 1 and _build.LAUNCHES["maxsim_all_pairs_bwd"] == 1
+    pq, pd = _plain_maxsim_grads(q, d, qm, dm, g, fill)
+    rows_q = agree.all(dim=2)  # (Bq, Lq)
+    docs = agree.all(dim=(0, 1))  # (Bd,)
+    torch.testing.assert_close(dq[rows_q], pq[rows_q], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dd[docs], pd[docs], rtol=1e-4, atol=1e-4)
+    assert bool((dd[dm <= 0] == 0).all())
+    if ties:
+        assert bool(docs.all()) and bool((argmax == 3).any())
+        assert torch.equal(dd[:, 3], dd[:, 5]) and bool(dd[:, 3].abs().max() > 0)
+    again_out, again_idx = ms._launch_argmax(q, qm, d, dm, fill)
+    assert torch.equal(again_out, out) and torch.equal(again_idx, argmax)
+    again_q, again_d = ms._launch_bwd(q, qm, d, dm, argmax, g)
+    assert torch.equal(again_q, dq) and torch.equal(again_d, dd)
+
+
+@pytest.mark.cuda
+def test_maxsim_all_pairs_under_autograd_matches_plain_autograd(device):
+    """maxsim_all_pairs on CUDA tensors that require grad: the gradients of
+    a loss through it against the plain autograd gradients, and a no-grad
+    call keeps K14's plain launch."""
+    q, d, qm, dm = _maxsim_training_case(8, 30, 16, 200, 128, device, seed=5)
+    qg, dg = q.clone().requires_grad_(), d.clone().requires_grad_()
+    _build.reset_launches()
+    torch.logsumexp(ms.maxsim_all_pairs(qg, dg, qm, dm), dim=1).sum().backward()
+    pq, pd = q.clone().requires_grad_(), d.clone().requires_grad_()
+    torch.logsumexp(ms.reference_maxsim_all_pairs(pq, pd, qm, dm), dim=1).sum().backward()
+    torch.testing.assert_close(qg.grad, pq.grad, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dg.grad, pd.grad, rtol=1e-4, atol=1e-4)
+    with torch.no_grad():
+        ms.maxsim_all_pairs(qg, dg, qm, dm)
+    torch.cuda.synchronize()
+    assert (_build.LAUNCHES["maxsim_all_pairs_argmax"], _build.LAUNCHES["maxsim_all_pairs_bwd"],
+            _build.LAUNCHES["maxsim_all_pairs"]) == (1, 1, 1)
 
 
 @pytest.mark.cuda

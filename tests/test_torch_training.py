@@ -60,7 +60,8 @@ def test_pairwise_loss_matches_jax(name):
 
 
 @pytest.mark.parametrize("loss,ib", [("margin-mse", "margin-mse"), ("ranknet", "ranknet"),
-                                     ("MarginMSE_InterPassageLoss", None)])
+                                     ("MarginMSE_InterPassageLoss", None), ("margin-mse", "KLDivTeacherList"),
+                                     ("ranknet", "listnet")])
 def test_get_loss_dispatch_matches_jax(loss, ib):
     config = {"loss": loss, "in_batch_negatives": ib is not None, "in_batch_neg_loss": ib}
     jb, tb = jdispatch.get_loss(config), tdispatch.get_loss(config)
@@ -82,8 +83,8 @@ def test_merge_loss_matches_jax():
 
 
 def test_unported_losses_raise():
-    for config in ({"loss": "listnet"}, {"loss": "margin-mse", "train_qa_spans": True, "qa_loss": "StartEndCrossEntropy"},
-                   {"loss": "margin-mse", "in_batch_negatives": True, "in_batch_neg_loss": "KLDivTeacherList"}):
+    for config in ({"loss": "listnet"}, {"loss": "mrr"}, {"loss": "lambdarank"},
+                   {"loss": "margin-mse", "train_qa_spans": True, "qa_loss": "StartEndCrossEntropy"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdispatch.get_loss(config)
     with pytest.raises(ValueError, match="not known"):
@@ -324,9 +325,14 @@ def test_trainer_resume_continues_exactly(tiny_scored, tmp_path):
 
 
 def test_unported_trainer_options_raise(tiny_scored, tmp_path, monkeypatch):
-    for key in ("dynamic_teacher", "dynamic_sampler", "submodel_train_cache_path"):
+    for key, value in (("dynamic_sampler", "listwise"), ("submodel_train_cache_path", True),
+                       ("warmstart_model_path", "model.flax")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(_trainer_config(tiny_scored, **{key: True}), str(tmp_path))
+            Trainer(_trainer_config(tiny_scored, **{key: value}), str(tmp_path))
+    hub = "sebastian-hofstaetter/colbert-distilbert-margin_mse-T2-msmarco"
+    hub_teacher = Trainer(_trainer_config(tiny_scored, dynamic_teacher=True, dynamic_teacher_path=hub), str(tmp_path))
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        hub_teacher.train()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(_trainer_config(tiny_scored, gradient_accumulation_steps=4), str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
