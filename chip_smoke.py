@@ -56,7 +56,10 @@ Phases (any failed check raises, and the script exits non-zero):
    int8 product with its TOP/s beside one torch._int_mm call on codes of
    the same K-major shapes, the attention core beside one
    scaled_dot_product_attention call, the quantizations, the LayerNorm) and
-   K1 and K2 beside their chains of PyTorch calls;
+   K1 and K2 beside their chains of PyTorch calls; and K1, K2, K12 and K11
+   at the re-rankers' (B, L) = (16, 230) (a BERT_CAT training batch of 30 +
+   200 tokens), (128, 230) (its eval batch) and (64, 94) (the maxP / PARADE
+   chunks of a training batch), each with its device time and bound;
 4. the main path, ``cli.dense_retrieval.run("encode+index+search")``, on a
    seeded 16,384-passage collection with a DistilBERT-width BERT_DOT
    (random weights from a seed), searching one query set at top-100 and one
@@ -118,7 +121,26 @@ Phases (any failed check raises, and the script exits non-zero):
    MRR@10 >= 0.2 and Recall@100 >= 0.6 (tests/test_tasb_recipe.py:31-32),
    K14's training form, backward and plain launch and the search's scan
    launched; then the effectiveness check at 1,500 docs, MRR@10 >= 0.5
-   (tests/test_effectiveness.py:45).
+   (tests/test_effectiveness.py:45);
+9. cross-encoder re-ranking and the Margin-MSE loop on the planted corpus
+   (data/synthetic.py), DistilBERT width, bf16, fused layers: (a) a seeded
+   DistilBERT checkpoint written as ``pytorch_model.bin`` and as a
+   hand-written ``model.safetensors``, both imported (models/hf_import.py)
+   bit for bit, without ``transformers``; (b) BERT_CAT (ranknet, batch 16,
+   query 30 / doc 200) warm-started from it through cli.train's Trainer:
+   launch counts of K1, K2, K11 and K12 against the prediction, a finite
+   loss every step, the re-ranking run files, one step with the kernels
+   against one with the plain versions (loss within 1e-2, every gradient's
+   cosine >= 0.99 under a pointwise loss), a one-batch overfit, triples/s;
+   (c) cli.score_teacher's score_triples with that run as the teacher over
+   the train triples, against the plain versions' scores (cosine >= 0.999,
+   max |d| <= 0.1), pairwise accuracy, and pairs/s over the train triples
+   repeated to ``rerank_timing_triples``; (d) a BERT_DOT student
+   trained with Margin-MSE on that file, its dense retrieval's run files;
+   (e) PreTTR, PARADE (tf, 2 aggregator layers, secondary outputs saved),
+   maxP->bert_cat and meanP->bert_cat, 10 steps each and the test pass:
+   launch counts against the prediction, one eval batch's scores against
+   the plain versions'.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Details go to build/chip_smoke.json.
@@ -183,6 +205,17 @@ FULL = dict(
     # phase 7: each probe's main() with these arguments (the defaults: the
     # JAX probes' own shapes)
     probe_args={"attn_inner": [], "int8_matmul": [], "mlp_rows": []},
+    # phase 3: K1, K2, K12 and K11 at the re-rankers' (B, L): a BERT_CAT
+    # training batch (16 x (30 + 200)), its eval batch, the maxP / PARADE
+    # chunks of a training batch (16 x 4 chunks of 30 + 50 + 2 x 7 tokens)
+    rerank_shapes=[(16, 230), (128, 230), (64, 94)],
+    # phase 9: the re-rankers on the planted corpus (data/synthetic.py)
+    rerank_batch=16, rerank_query_len=30, rerank_doc_len=200, rerank_steps=40, rerank_validate_every=20,
+    rerank_eval_batch=128, rerank_val_queries=32, rerank_val_docs=8, rerank_docs=2048, rerank_other_steps=10,
+    student_steps=10, prettr_join=3, chunk_size=50, chunk_overlap=7,
+    # phase 9 (c): the teacher-scoring rate over the train triples repeated
+    # to at least this many (the parity check scores them once)
+    rerank_timing_triples=4096,
 )
 
 
@@ -2538,14 +2571,14 @@ def _kernels_vs_plain_step(model, config, batch, smooth_config, tag):
         model.zero_grad(set_to_none=True)
         smooth(batch)[0].backward()
         grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
-        return loss, grads, _hardest_negatives(model, batch)
+        return loss, grads, _hardest_negatives(model, batch) if config.get("in_batch_negatives") else None
 
     lk, gk, hk = run()
     with plain_encoder_blocks(), plain_maxsim():
         lp, gp, hp = run()
     model.zero_grad(set_to_none=True)
     rel = abs(lk - lp) / max(abs(lp), 1e-12)
-    moved = int((hk != hp).sum())
+    moved = int((hk != hp).sum()) if hk is not None else 0
     cosines, key_bias = {}, 0.0
     for name, a in gk.items():
         b = gp[name]
@@ -2558,8 +2591,9 @@ def _kernels_vs_plain_step(model, config, batch, smooth_config, tag):
             continue
         cosines[name] = float(torch.nn.functional.cosine_similarity(a.reshape(-1), b.reshape(-1), dim=0))
     worst = sorted(cosines.items(), key=lambda kv: kv[1])[:3]
+    n_queries = len(hk) if hk is not None else 0
     print(f"[{tag}] one step, kernels vs plain: loss {lk:.6g} vs {lp:.6g} (relative gap {rel:.3g}); in-batch "
-          f"hardest negative moved for {moved} of {len(hk)} queries; gradients of {len(cosines)} parameters "
+          f"hardest negative moved for {moved} of {n_queries} queries; gradients of {len(cosines)} parameters "
           f"under {smooth_config.get('in_batch_neg_loss') if smooth_config.get('in_batch_negatives') else 'no'} "
           f"in-batch loss, worst cosines " + ", ".join(f"{n} {c:.6f}" for n, c in worst)
           + f"; key-bias noise {key_bias:.4g} of the query bias's (bar 2e-2)")
@@ -2621,18 +2655,21 @@ def _step_speed(sz, device, trainer, batch, tag):
     return result
 
 
-def _overfit(sz, trainer, config, batch, tag):
+def _overfit(sz, trainer, config, batch, tag, lr=1e-4):
     """A one-batch overfit from the current weights, no warmup, a constant
-    learning rate: ``overfit_steps`` (30) steps must halve Margin-MSE."""
+    learning rate: ``overfit_steps`` (30) steps must halve the ranking loss
+    (Margin-MSE, RankNet). ``lr``: the encoder's learning rate, the heads'
+    ten times it."""
     from matchmaker_tpu_torch.training.optim import build_optimizer
     from matchmaker_tpu_torch.training.train_step import make_train_step
 
-    fit_config = dict(config, lr_schedule="constant", optimizer_warmup_steps=0, param_group0_learning_rate=1e-4,
-                      embedding_optimizer_learning_rate=1e-4, param_group1_learning_rate=1e-3)
+    fit_config = dict(config, lr_schedule="constant", optimizer_warmup_steps=0, param_group0_learning_rate=lr,
+                      embedding_optimizer_learning_rate=lr, param_group1_learning_rate=10 * lr)
     fit_step = make_train_step(trainer.model, trainer.losses, build_optimizer(fit_config, trainer.model), fit_config)
     fit = [float(fit_step(batch)["ranking_loss"]) for _ in range(sz["overfit_steps"])]
-    print(f"[{tag}] one-batch overfit, {sz['overfit_steps']} steps: Margin-MSE {fit[0]:.4f} -> {fit[-1]:.4f}")
-    check(fit[-1] <= 0.5 * fit[0], f"{tag}: overfitting one batch took Margin-MSE only from {fit[0]} to {fit[-1]}")
+    print(f"[{tag}] one-batch overfit, {sz['overfit_steps']} steps: {config['loss']} {fit[0]:.4f} -> {fit[-1]:.4f}")
+    check(fit[-1] <= 0.5 * fit[0], f"{tag}: overfitting one batch took {config['loss']} only from {fit[0]} to "
+          f"{fit[-1]}")
     return {"overfit_first": fit[0], "overfit_last": fit[-1]}
 
 
@@ -2783,6 +2820,379 @@ def phase_recipe(sz, device, root):
     print(f"[recipe] effectiveness check {sz['effectiveness_args']}: MRR@10 {check_out['MRR@10']:.4f}, "
           f"Recall@100 {check_out['Recall@100']:.4f} in {result['effectiveness']['wall_s']:.1f} s")
     check(check_out["MRR@10"] >= 0.5, f"the effectiveness check's MRR@10 {check_out['MRR@10']} below 0.5")
+    return result
+
+
+# ---- phase 3, the re-rankers' shapes -------------------------------------------
+
+def phase_rerank_kernels(sz, device, kern):
+    """K1, K2, K12 and K11 against their plain versions at the re-rankers'
+    shapes (``rerank_shapes``: a BERT_CAT training batch of 30 + 200 = 230
+    tokens, its eval batch, the 94-token maxP / PARADE chunks of a training
+    batch), ragged masks; each timed beside its plain version, with its
+    device time and bound, into the kernel's timings (``path: rerank``)."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import fused_attention as fa
+    from matchmaker_tpu_torch.ops import fused_backward as fb
+
+    attn, ln1, mlp, ln2 = _layer_params(sz, device, seed=17)
+    wq, wk, wv, wo, bq, bk, bv, bo = attn
+    wqkv, bqkv = torch.cat([wq, wk, wv], dim=1), torch.cat([bq, bk, bv])
+    w1, b1, w2, _ = mlp
+    heads, hid, ff = sz["heads"], sz["hid"], sz["ff"]
+    for i, (b, l) in enumerate(sz["rerank_shapes"]):
+        x, mask, g = _half_inputs(sz, b, l, device, 300 + i)
+        dy = torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
+        a_args, m_args = (*attn, mask, heads, *ln1), (*mlp, *ln2)
+        proj, core = _attention_ops(b, l, hid, heads)
+        for name, kernel, plain, args, ops in (
+                ("fused_attention_block", fa.fused_attention_block, fa.reference_attention_block, a_args,
+                 dict(bf16=proj + core)),
+                ("fused_mlp_block", fa.fused_mlp_block, fa.reference_mlp_block, m_args, dict(bf16=4 * b * l * hid * ff))):
+            got, want = kernel(x, *args), plain(x, *args)
+            cos, err = _rows_close(got, want)
+            print(f"[kernels] {name} B={b} L={l} (re-rankers): min row cosine {cos:.6f}, max |d| {err:.4g}")
+            check(got.shape == x.shape and bool(torch.isfinite(got.float()).all()), f"{name} output at {(b, l)}")
+            check(cos >= 0.999 and err <= 0.1, f"{name} vs plain at {(b, l)}: cos {cos}, max |d| {err}")
+            entry = kern[name]
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            run = lambda k=kernel, a=args: k(x, *a)  # noqa: E731
+            _record(entry, [b, l, hid], run, lambda p=plain, a=args: p(x, *a), device, sz["reps"], headline=False,
+                    bound_of=bound(nbytes(x, args, got), **ops))
+            _device_beside(entry, run, device, headline=False)
+            entry["timings"][-1]["path"] = "rerank"
+        _, a_saved = fb.attention_block_fwd(x, wqkv, bqkv, wo, bo, mask, heads, *ln1)
+        _, a_acc = fa.reference_attention_block(x, *attn, mask, heads, *ln1, save_acc=True)
+        _, m_saved = fb.mlp_block_fwd(x, *mlp, *ln2)
+        _, m_acc = fa.reference_mlp_block(x, *mlp, *ln2, save_acc=True)
+        m = b * l
+        for name, kernel, plain, name_k, name_p, scale_of, inputs, ops in (
+                ("fused_attention_block_bwd",
+                 lambda: fb.attention_block_bwd(x, wqkv, bqkv, wo, mask, heads, ln1[0], dy, a_saved),
+                 lambda: fb.reference_attention_block_bwd(x, wq, wk, wv, wo, bq, bk, bv, mask, heads, ln1[0], dy,
+                                                          a_acc),
+                 lambda r: _named_attention_grads(*r), lambda r: dict(zip(_ATTN_GRADS, r)), _zero_attention_grads(l),
+                 (x, wqkv, bqkv, wo, mask, ln1[0], dy, a_saved), dict(bf16=2 * proj + 5 * core // 2)),
+                ("fused_mlp_block_bwd", lambda: fb.mlp_block_bwd(x, w1, b1, w2, ln2[0], dy, m_saved),
+                 lambda: fb.reference_mlp_block_bwd(x, w1, b1, w2, ln2[0], dy, m_acc),
+                 lambda r: dict(zip(_MLP_GRADS, r)), lambda r: dict(zip(_MLP_GRADS, r)), None,
+                 (x, w1, b1, w2, ln2[0], dy, m_saved), dict(bf16=10 * m * hid * ff))):
+            got, want = name_k(kernel()), name_p(plain())
+            check(got["dx"].shape == x.shape and all(bool(torch.isfinite(t).all()) for t in got.values()),
+                  f"{name} gradients at {(b, l)}")
+            err = grads_close(got, want, scale_of)
+            print(f"[kernels] {name} B={b} L={l} (re-rankers): {len(got)} gradients within cosine 0.999, "
+                  f"max |d| <= 2e-2 max |plain| (largest |d| {err:.4g})")
+            entry = kern[name]
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            _record(entry, [b, l, hid], kernel, plain, device, sz["bwd_reps"], headline=False,
+                    bound_of=bound(nbytes(inputs, list(got.values())), **ops))
+            _device_beside(entry, kernel, device, headline=False)
+            entry["timings"][-1]["path"] = "rerank"
+    return kern
+
+
+# ---- phase 9: cross-encoder re-ranking and the Margin-MSE loop ------------------
+
+RERANK_MODELS = ("prettr", "parade", "maxP->bert_cat", "meanP->bert_cat")
+
+
+def _rerank_data(root, sz):
+    """The planted corpus (data/synthetic.py): train triples for the
+    re-rankers' steps, a collection of ``rerank_docs`` passages with queries
+    and qrels for the student's dense retrieval, and a re-ranking tuple file
+    (each eval query's relevant passage and ``rerank_val_docs`` - 1 others)
+    for validation and test."""
+    import random
+
+    from matchmaker_tpu_torch.data.synthetic import make_planted_corpus
+
+    n_triples = sz["rerank_steps"] * sz["rerank_batch"]
+    paths = make_planted_corpus(os.path.join(root, "corpus"), n_train_queries=-(-n_triples // 3),
+                                n_eval_queries=sz["rerank_val_queries"], n_docs=sz["rerank_docs"], seed=9)
+    with open(paths["collection"]) as f:
+        docs = dict(line.rstrip("\n").split("\t", 1) for line in f)
+    with open(paths["queries"]) as f:
+        queries = dict(line.rstrip("\n").split("\t", 1) for line in f)
+    with open(paths["qrels"]) as f:
+        rel = {line.split()[0]: line.split()[2] for line in f}
+    rng = random.Random(10)
+    ids = sorted(docs)
+    paths["val"] = os.path.join(root, "val_tuples.tsv")
+    with open(paths["val"], "w") as f:
+        for qid, query in queries.items():
+            others = [d for d in rng.sample(ids, sz["rerank_val_docs"]) if d != rel[qid]][:sz["rerank_val_docs"] - 1]
+            for did in [rel[qid]] + others:
+                f.write(f"{qid}\t{did}\t{query}\t{docs[did]}\n")
+    return paths
+
+
+def _rerank_config(paths, sz, device, model, ckpt, steps, **kw):
+    """configs/train/defaults.yaml + configs/train/models/<model>.yaml
+    (bert_cat: ranknet, batch 16; prettr: joined after layer 3; parade: tf
+    with 2 aggregator layers; maxP / meanP over chunks of 50 + 2 x 7) at
+    DistilBERT width, fused layers, warm-started from the imported
+    checkpoint, query 30 / doc 200, the run cut to ``steps`` steps with one
+    validation each ``rerank_validate_every`` and the test pass."""
+    from matchmaker_tpu_torch.config import auto_fill
+
+    val = {"tsv": paths["val"], "qrels": paths["qrels"], "binarization_point": 1}
+    return auto_fill({
+        "model": model, "bert_pretrained_model": ckpt, "random_seed": 1234, "use_fp16": True,
+        "encoder_fused_attention": True, "device": str(device), "enable_tensorboard": False, "loss": "ranknet",
+        "param_group0_learning_rate": 7.0e-6, "param_group1_learning_rate": 7.0e-4,
+        "embedding_optimizer_learning_rate": 7.0e-6, "weight_decay": 0.0, "lr_schedule": "cosine",
+        "optimizer_warmup_steps": 1000, "max_training_steps": 300000, "gradient_clip_norm": 1.0,
+        "batch_size_train": sz["rerank_batch"], "batch_size_eval": sz["rerank_eval_batch"],
+        "max_query_length": sz["rerank_query_len"], "max_doc_length": sz["rerank_doc_len"], "epochs": 1,
+        "validate_every_n_batches": min(steps, sz["rerank_validate_every"]), "max_training_batches": steps,
+        "validation_metric": "MRR@10", "early_stopping_patience": 30, "train_tsv": paths["train_tsv"],
+        "prettr_join_layer_idx": sz["prettr_join"], "parade_aggregate_type": "tf", "parade_aggregate_layers": 2,
+        "idcm_chunk_size": sz["chunk_size"], "idcm_overlap": sz["chunk_overlap"],
+        "validation_cont": val, "test": {"planted": dict(val)}, **kw})
+
+
+def predicted_rerank_launches(sz, model, steps, validations):
+    """K1/K2 once per layer and pass, K11/K12 once per layer and pass of a
+    training step. A step scores the positive and the negative pairs in two
+    passes, an eval batch (validations and the test pass) in one. A pass runs
+    each layer once (BERT_CAT, PARADE and the chunk adapters over the B x C
+    chunk rows), PreTTR's its first ``prettr_join`` layers twice (the query
+    and the document towers) and the rest once (their join)."""
+    per_pass = sz["n_layers"] + (sz["prettr_join"] if model == "prettr" else 0)
+    eval_batches = -(-sz["rerank_val_queries"] * sz["rerank_val_docs"] // sz["rerank_eval_batch"])
+    train = steps * 2 * per_pass
+    forward = train + (validations + 1) * eval_batches * per_pass
+    return {"fused_attention_block": forward, "fused_mlp_block": forward,
+            "fused_attention_block_bwd": train, "fused_mlp_block_bwd": train}
+
+
+def _check_launches(launches, want, tag, device):
+    if device.type == "cuda":
+        for name, n in want.items():
+            check(launches[name] == n, f"{tag}: {name} {launches[name]} launches, predicted {n}")
+
+
+def _import_checkpoints(sz, root):
+    """Part (a): a seeded DistilBERT checkpoint at the phase's width written
+    twice, ``pytorch_model.bin`` (torch.save, Hugging Face names with the
+    ``distilbert.`` prefix) and a hand-written ``model.safetensors``; both
+    imported (models/hf_import.py) to the same tensors bit for bit, each the
+    checkpoint's own; and through ``bert_pretrained_model: <dir>`` into a
+    BERT_CAT's encoder; importing both in a fresh interpreter loads no
+    ``transformers`` module."""
+    import importlib.util
+
+    import torch
+
+    from matchmaker_tpu_torch.data.tokenization import HashBertTokenizer
+    from matchmaker_tpu_torch.models import get_model, hf_import, init_params
+    from matchmaker_tpu_torch.models.encoder import EncoderConfig
+
+    cfg = EncoderConfig(vocab_size=sz["vocab"], hidden_size=sz["hid"], num_layers=sz["n_layers"],
+                        num_heads=sz["heads"], intermediate_size=sz["ff"], max_position_embeddings=512)
+    config, sd = hf_import.seeded_distilbert_checkpoint(cfg, seed=15)
+    dirs = {"bin": os.path.join(root, "ckpt_bin"), "safetensors": os.path.join(root, "ckpt_safetensors")}
+    t0 = time.perf_counter()
+    hf_import.save_hf_checkpoint(dirs["bin"], config, {"distilbert." + k: v for k, v in sd.items()}, False)
+    hf_import.save_hf_checkpoint(dirs["safetensors"], config, sd, True)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (c_bin, s_bin), (c_st, s_st) = (hf_import.load_hf_encoder(d) for d in (dirs["bin"], dirs["safetensors"]))
+    read_s = time.perf_counter() - t0
+    check(c_bin == c_st and (c_bin.hidden_size, c_bin.num_layers) == (sz["hid"], sz["n_layers"]),
+          f"checkpoint configs {c_bin} / {c_st}")
+    check(set(s_bin) == set(s_st) and all(torch.equal(s_bin[k], s_st[k]) for k in s_bin),
+          "the .bin and .safetensors imports differ")
+    check(torch.equal(s_st["layer_0.attention.query.kernel"], sd["transformer.layer.0.attention.q_lin.weight"].t())
+          and torch.equal(s_st["word_embeddings.embedding"], sd["embeddings.word_embeddings.weight"]),
+          "the import is not the checkpoint's tensors")
+    bert_cat = {"model": "bert_cat", "model_input_type": "concatenated", "bert_pretrained_model": dirs["safetensors"]}
+    model = get_model(bert_cat, HashBertTokenizer(sz["vocab"]))
+    init_params(model, bert_cat, torch.Generator().manual_seed(0))
+    enc = model.encoder.state_dict()
+    check(set(enc) == set(s_st) and all(torch.equal(enc[k], s_st[k]) for k in enc),
+          "bert_pretrained_model: <dir> did not fill the BERT_CAT encoder")
+    # in a fresh interpreter: an earlier phase's tokenizer factory may have
+    # imported transformers where the machine has it
+    code = ("import sys; from matchmaker_tpu_torch.models import hf_import; "
+            + "".join(f"hf_import.load_hf_encoder({d!r}); " for d in dirs.values())
+            + "sys.exit(3 if 'transformers' in sys.modules else 0)")
+    fresh = subprocess.run([sys.executable, "-c", code], cwd=ROOT, timeout=600)
+    check(fresh.returncode == 0, f"importing the checkpoints in a fresh interpreter: exit {fresh.returncode} (3: "
+          "it loaded transformers)")
+    n_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+    print(f"[rerank] (a) checkpoint of {n_bytes / 1e6:.1f} MB written as .bin and .safetensors in {write_s:.2f} s, "
+          f"both imported in {read_s:.2f} s, bit for bit; a fresh interpreter importing both loads no transformers "
+          f"(installed here: {importlib.util.find_spec('transformers') is not None})")
+    return dirs, {"checkpoint_mb": n_bytes / 1e6, "write_s": write_s, "import_s": read_s}
+
+
+def _eval_batch_vs_plain(trainer, path, device, tag):
+    """The scores of the first eval batch of ``path`` with the kernels and
+    with the plain versions (valid rows): cosine >= 0.999, max |d| <= 0.1."""
+    import torch
+
+    from matchmaker_tpu_torch.data.loaders import reranking_inference_loader
+
+    batch, _, _ = next(iter(reranking_inference_loader(trainer.config, trainer.tokenizer, path)))
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    valid = batch["valid"] > 0
+    trainer.model.eval()
+    got = trainer.eval_step(batch)["score"].float()[valid]
+    with plain_encoder_blocks():
+        want = trainer.eval_step(batch)["score"].float()[valid]
+    cos = float(torch.nn.functional.cosine_similarity(got, want, dim=0))
+    err = float((got - want).abs().max())
+    print(f"[rerank] {tag}: one eval batch ({int(valid.sum())} pairs), kernels vs plain: cosine {cos:.6f}, "
+          f"max |d| {err:.4g}")
+    check(cos >= 0.999 and err <= 0.1, f"{tag}: eval scores, kernels vs plain: cosine {cos}, max |d| {err}")
+    return {"eval_cos": cos, "eval_max_abs": err}
+
+
+def _free(trainer, device):
+    import torch
+
+    del trainer
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_rerank(sz, device, root):
+    """Phase 9: (a) checkpoint import; (b) BERT_CAT training through
+    cli.train's Trainer; (c) teacher scoring (cli.score_teacher's
+    score_triples) with (b)'s run; (d) a BERT_DOT student trained with
+    Margin-MSE on (c)'s file, its dense retrieval at the end; (e) PreTTR,
+    PARADE, maxP->bert_cat and meanP->bert_cat through the Trainer."""
+    import torch
+
+    from matchmaker_tpu_torch.cli.score_teacher import score_triples
+    from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
+
+    result = {"launches": {}}
+
+    def add_launches(launches):
+        for k, v in launches.items():
+            result["launches"][k] = result["launches"].get(k, 0) + v
+
+    paths = _rerank_data(root, sz)
+    dirs, result["import"] = _import_checkpoints(sz, root)
+    ckpt = dirs["safetensors"]
+    rsz = dict(sz, train_batch=sz["rerank_batch"])
+
+    # (b) BERT_CAT
+    steps = sz["rerank_steps"]
+    config = _rerank_config(paths, sz, device, "bert_cat", ckpt, steps)
+    run_folder = os.path.join(root, "bert_cat_run")
+    trainer, res = _train_through_trainer(rsz, device, config, run_folder, steps, "rerank bert_cat")
+    add_launches(res["launches"])
+    _check_launches(res["launches"], predicted_rerank_launches(sz, "bert_cat", steps,
+                                                               steps // config["validate_every_n_batches"]),
+                    "BERT_CAT training", device)
+    for rel in ("validation-metrics-cont.csv", "best-model.npz", "best-info.csv", "test-planted-output.txt",
+                "test-planted-metrics.csv"):
+        check(os.path.isfile(os.path.join(run_folder, rel)), f"missing {rel} in the BERT_CAT run folder")
+    batch = _device_batch(config, trainer.tokenizer, paths["train_tsv"], device)
+    res.update(_step_speed(rsz, device, trainer, batch, "rerank bert_cat"))
+    print(f"[rerank] (b) BERT_CAT {steps} steps: loss {res['loss_first']:.4f} -> {res['loss_last']:.4f}; "
+          f"{res['cli_triples_per_s']:.1f} triples/s through the Trainer (validation included), "
+          f"{res['device_triples_per_s']:.1f} device-only ({res['step_ms']:.2f} ms a step of "
+          f"{sz['rerank_batch']} x 2 x {sz['rerank_query_len'] + sz['rerank_doc_len']} tokens)")
+    # gradients under a pointwise loss: a pairwise loss's gradient is the
+    # difference of the positive and the negative pass's, which cancels for
+    # parameters that move both scores alike (exactly, for the last
+    # LayerNorm's bias: it shifts both CLS vectors by the same amount), so
+    # what is left of it is bf16 rounding whatever the kernels compute
+    res.update(_kernels_vs_plain_step(trainer.model, config, batch, dict(config, loss="MSETeacherPointwise"),
+                                      "rerank bert_cat"))
+    # 3e-4: a cross-encoder's RankNet starts at ln 2 with the two scores of a
+    # triple alike, and only its encoder can tell the passages apart
+    res.update(_overfit(rsz, trainer, config, batch, "rerank bert_cat", lr=3e-4))
+    res.update(_eval_batch_vs_plain(trainer, paths["val"], device, "bert_cat"))
+    result["bert_cat"] = res
+    _free(trainer, device)
+
+    # (c) teacher scoring
+    scored = {}
+    for plain in (False, True):
+        fresh_perf_monitor()
+        out = os.path.join(root, f"teacher_scores{'_plain' if plain else ''}.tsv")
+        with plain_encoder_blocks() if plain else contextlib.nullcontext():
+            n = score_triples(run_folder, paths["train_tsv"], out, batch_size=sz["rerank_eval_batch"], config=config,
+                              device=str(device))
+        block = PerformanceMonitor.get().summary()["teacher_scoring"]
+        with open(out) as f:
+            rows = [line.rstrip("\n").split("\t") for line in f]
+        with open(paths["train_tsv"]) as f:
+            n_triples = sum(1 for _ in f)
+        check(n == len(rows) == n_triples and all(len(r) == 5 for r in rows),
+              f"teacher scoring wrote {len(rows)} rows for {n} of {n_triples} triples")
+        scored[plain] = (torch.tensor([[float(r[0]), float(r[1])] for r in rows]), block["total_seconds"], out)
+    (got, secs, score_file), (want, _, _) = scored[False], scored[True]
+    cos = float(torch.nn.functional.cosine_similarity(got.reshape(-1), want.reshape(-1), dim=0))
+    err = float((got - want).abs().max())
+    acc = float((got[:, 0] > got[:, 1]).float().mean())
+    check(cos >= 0.999 and err <= 0.1, f"teacher scores, kernels vs plain: cosine {cos}, max |d| {err}")
+    # the rate: the train triples repeated, so that the first batch's cold
+    # costs are a small share of the window
+    timing = os.path.join(root, "timing_triples.tsv")
+    with open(paths["train_tsv"]) as f:
+        lines = f.readlines()
+    with open(timing, "w") as f:
+        f.writelines(lines * -(-sz["rerank_timing_triples"] // len(lines)))
+    fresh_perf_monitor()
+    n_timed = score_triples(run_folder, timing, os.path.join(root, "timing_scores.tsv"),
+                            batch_size=sz["rerank_eval_batch"], config=config, device=str(device))
+    timed_secs = PerformanceMonitor.get().summary()["teacher_scoring"]["total_seconds"]
+    result["teacher"] = {"triples": n, "parity_pairs_per_s": 2 * n / secs, "timed_triples": n_timed,
+                         "pairs_per_s": 2 * n_timed / timed_secs, "pairwise_accuracy": acc, "scores_cos": cos,
+                         "scores_max_abs": err, "seconds": timed_secs}
+    print(f"[rerank] (c) score_triples: {2 * n_timed / timed_secs:.1f} pairs/s over {n_timed} triples (batch "
+          f"{sz['rerank_eval_batch']}, tokenization included; {2 * n / secs:.1f} over the {n} of the parity check), "
+          f"teacher pairwise accuracy {acc:.4f}; kernels vs plain scores: cosine {cos:.6f}, max |d| {err:.4g}")
+
+    # (d) the Margin-MSE student
+    s_steps = sz["student_steps"]
+    student = dict(_rerank_config(paths, sz, device, "bert_dot", ckpt, s_steps), model="bert_dot",
+                   model_input_type="independent", loss="margin-mse", train_pairwise_distillation=True,
+                   train_tsv=score_file, run_dense_retrieval_eval=True, collection_tsv=paths["collection"],
+                   collection_batch_size=sz["dr_batch"], query_batch_size=32, faiss_index_type="flat",
+                   mips_quantization="float16", mips_kernel="binmax", token_dtype="float16",
+                   query_sets={"dr_dev": {"queries_tsv": paths["queries"], "qrels": paths["qrels"],
+                                          "top_n": sz["dr_top_n"], "binarization_point": 1}})
+    s_folder = os.path.join(root, "student_run")
+    trainer, res = _train_through_trainer(rsz, device, student, s_folder, s_steps, "rerank student")
+    add_launches(res["launches"])
+    for rel in ("best-model.npz", "test-planted-output.txt", "dense-retrieval/dr_dev-output.txt",
+                "dense-retrieval/dr_dev-metrics.csv"):
+        check(os.path.isfile(os.path.join(s_folder, rel)), f"missing {rel} in the student's run folder")
+    if device.type == "cuda":
+        for name in ("fused_attention_block", "fused_attention_block_bwd", "binmax_candidates"):
+            check(res["launches"][name] > 0, f"the student's run launched no {name} kernel")
+    print(f"[rerank] (d) BERT_DOT student, Margin-MSE on the teacher's file, {s_steps} steps: loss "
+          f"{res['loss_first']:.4f} -> {res['loss_last']:.4f}, dense retrieval files present")
+    result["student"] = res
+    _free(trainer, device)
+
+    # (e) the other re-rankers
+    o_steps = sz["rerank_other_steps"]
+    for model in RERANK_MODELS:
+        kw = {"test": {"planted": {"tsv": paths["val"], "qrels": paths["qrels"], "binarization_point": 1,
+                                   "save_secondary_output": True}}} if model == "parade" else {}
+        cfg = _rerank_config(paths, sz, device, model, ckpt, o_steps, **kw)
+        folder = os.path.join(root, model.replace("->", "_") + "_run")
+        trainer, res = _train_through_trainer(rsz, device, cfg, folder, o_steps, f"rerank {model}")
+        add_launches(res["launches"])
+        _check_launches(res["launches"], predicted_rerank_launches(sz, model, o_steps, 1), model, device)
+        for rel in ("validation-metrics-cont.csv", "test-planted-output.txt", "test-planted-metrics.csv") + (
+                ("test-planted-secondary.npz",) if model == "parade" else ()):
+            check(os.path.isfile(os.path.join(folder, rel)), f"missing {rel} in the {model} run folder")
+        res.update(_eval_batch_vs_plain(trainer, paths["val"], device, model))
+        print(f"[rerank] (e) {model} {o_steps} steps: loss {res['loss_first']:.4f} -> {res['loss_last']:.4f}, "
+              f"{res['cli_triples_per_s']:.1f} triples/s through the Trainer (validation included)")
+        result[model] = res
+        _free(trainer, device)
     return result
 
 
@@ -2960,6 +3370,7 @@ def run_phases(sz, device, card: str) -> dict:
     kern.update(phase_maxsim_kernel(sz, device))
     kern.update(phase_maxsim_training(sz, device))
     kern.update(phase_mha_kernel(sz, device))
+    phase_rerank_kernels(sz, device, kern)
     t0 = time.perf_counter()
     kern.update(phase_probe_kernels(sz, device))
     report["probe_kernels_s"] = time.perf_counter() - t0
@@ -2980,6 +3391,10 @@ def run_phases(sz, device, card: str) -> dict:
           f"their own path {report['probes_s']:.1f} s")
     with tempfile.TemporaryDirectory() as root:
         report["recipe"] = phase_recipe(sz, device, root)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        report["rerank"] = phase_rerank(sz, device, root)
+    report["rerank_s"] = time.perf_counter() - t0
     check(set(report["main"]["launches"]) == {k[0] for k in KERNELS}, "a kernel without an entry")
     report["kernels"] = []
     for name, src, rep, inc in KERNELS:
@@ -2987,14 +3402,16 @@ def run_phases(sz, device, card: str) -> dict:
         # the int8 serving run that uses it (K9/K10 and K8: the mixed run,
         # K7: the two-stage run), the ColBERT serving run (K14) or the
         # training run, or for K15-K18 their probe's run; K13 lies on no
-        # path; "launches_scale": the scale search of the same route (bf16
+        # path; "launches_rerank": phase 9's runs (K1, K2, K11, K12 and the
+        # student's dense retrieval); "launches_scale": the scale search of the same route (bf16
         # or int8; training and the probes: the bf16)
         runs = {"serve": report["main"]["launches"][name], "train": report["train"]["launches"][name],
                 **{f"serve_int8_{r}": report["main_int8"][r]["launches"][name] for r, _, _ in INT8_RUNS},
                 "serve_colbert": report["colbert"]["launches"][name],
                 "train_colbert": report["train_colbert"]["launches"][name],
                 "recipe": report["recipe"]["launches"][name],
-                "probes": report["probes"]["launches"].get(name, 0)}
+                "probes": report["probes"]["launches"].get(name, 0),
+                "rerank": report["rerank"]["launches"].get(name, 0)}
         scale_runs = {"scale_bf16": report["scale"]["launches"][name],
                       **{f"scale_int8_{r}": report["scale_int8"][r]["launches"][name]
                          for r, _, _ in SCALE_INT8_RUNS}}
@@ -3030,6 +3447,24 @@ def run_phases(sz, device, card: str) -> dict:
     return report
 
 
+def print_rerank(card, report) -> None:
+    rr = report["rerank"]
+    bc, te, st = rr["bert_cat"], rr["teacher"], rr["student"]
+    print(f"[{card}] BERT_CAT train {bc['cli_triples_per_s']:.1f} triples/s through cli.train's Trainer (validation "
+          f"included), {bc['device_triples_per_s']:.1f} triples/s device-only at batch {FULL['rerank_batch']} "
+          f"({FULL['rerank_query_len']} + {FULL['rerank_doc_len']} tokens, two passes a triple); kernels vs plain: "
+          f"loss gap {bc['plain_loss_gap']:.3g}, worst gradient cosine {bc['plain_grad_cos']:.6f}; overfit "
+          f"{bc['overfit_first']:.4g} -> {bc['overfit_last']:.4g}")
+    print(f"[{card}] teacher scoring {te['pairs_per_s']:.1f} pairs/s through score_triples ({te['timed_triples']} "
+          f"triples), pairwise accuracy {te['pairwise_accuracy']:.4f}, scores vs plain cosine {te['scores_cos']:.6f} "
+          f"max |d| {te['scores_max_abs']:.4g}; Margin-MSE student loss {st['loss_first']:.4f} -> "
+          f"{st['loss_last']:.4f}")
+    for model in RERANK_MODELS:
+        r = rr[model]
+        print(f"[{card}] {model}: {r['cli_triples_per_s']:.1f} triples/s through the Trainer, eval scores vs plain "
+              f"cosine {r['eval_cos']:.6f} max |d| {r['eval_max_abs']:.4g}")
+
+
 def main() -> int:
     import torch
 
@@ -3044,6 +3479,7 @@ def main() -> int:
     print(card)
     torch.set_float32_matmul_precision("highest")
     device = torch.device("cuda")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     report = run_phases(FULL, device, card)
     main_, scale = report["main"], report["scale"]
     print(f"[{card}] encode {main_['encode_psg_per_s']:.1f} psg/s end to end in the CLI "
@@ -3083,13 +3519,14 @@ def main() -> int:
           f"queries), device-only per-token search {col['token_search_device_qps']:.1f} QPS; per-token "
           f"recall@{FULL['colbert_candidates']} {col['token_recall']:.4f}, recall@{FULL['colbert_top_n']} vs "
           f"exhaustive MaxSim {col['recall@10_vs_exhaustive']:.4f}")
+    print_rerank(card, report)
     for k in report["kernels"]:
         device = (f" (device {k['device_ms']:.4f} ms, {k['x_bound']:.2f}x bound; library device "
                   f"{_fmt(k.get('library_device_ms'))})" if k.get("x_bound") else "")
         print(f"[{card}] {k['name']}: kernel {k['ms']:.4f} ms{device}, plain {k['plain_ms']:.4f} ms, bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}) at {k['timed_shape']}, max |d| {k['max_abs_err']:.3g}, "
-              f"launches {k['launches']} in its path's run ({k['path']}), {k['launches_scale']} in the scale search")
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+              f"launches {k['launches']} in its path's run ({k['path']}), {k['launches_rerank']} in phase 9's runs, "
+              f"{k['launches_scale']} in the scale search")
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({"kernels": report["kernels"]}))

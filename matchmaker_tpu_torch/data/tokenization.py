@@ -238,7 +238,7 @@ def build_tokenizer(config):
     name = config.get("bert_pretrained_model", "distilbert-base-uncased")
     try:
         return HuggingfaceTokenizer(name)
-    except (ImportError, OSError, ValueError):
+    except (ImportError, OSError, ValueError, TypeError):  # TypeError: a checkpoint directory without a vocabulary
         from matchmaker_tpu_torch.models.encoder import encoder_config_from_model_name
 
         return HashBertTokenizer(encoder_config_from_model_name(config).vocab_size)

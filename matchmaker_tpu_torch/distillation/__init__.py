@@ -1,3 +1,3 @@
 """Knowledge distillation of the port: counterpart of
-``matchmaker_tpu/distillation`` (the dynamic teacher; the score files are
-queued in ROADMAP.md)."""
+``matchmaker_tpu/distillation`` (the dynamic teacher and the static score
+files' utilities)."""

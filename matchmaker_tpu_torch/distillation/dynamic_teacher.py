@@ -13,8 +13,11 @@ stream ahead of the student's step (the host never waits for its scores).
 The teacher's config comes from the caller (``teacher_config``; the TAS-B
 recipe keeps each stage's config in process) or, when a user names a run
 folder, from its ``config.yaml`` (which needs PyYAML); its weights from the
-folder's ``best-model.npz``. A Hugging Face hub teacher needs checkpoint
-import, which is not ported yet (ROADMAP.md, queue 1 item 2).
+folder's ``best-model.npz``. A teacher without a packed ``forward_triple``
+(a cross-encoder, PreTTR, a chunk adapter) scores the positive and the
+negative pairs in two passes, as the training step does. A Hugging Face hub
+teacher (a config stub whose weights come from the local cache, heads
+included) is not ported yet (ROADMAP.md, queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -42,8 +45,8 @@ def load_teacher(teacher_path: str, overrides: Optional[dict] = None, config=Non
     elif os.path.isdir(teacher_path):
         config = get_config_single(os.path.join(teacher_path, "config.yaml"))
     elif resolve_hub_config(teacher_path):
-        raise NotImplementedError(f"the hub teacher {teacher_path!r} needs Hugging Face checkpoint import, which "
-                                  "is not ported yet (ROADMAP.md, queue 1 item 2)")
+        raise NotImplementedError(f"the hub teacher {teacher_path!r} (a config stub with the cached checkpoint's "
+                                  "heads) is not ported yet (ROADMAP.md, queue 1 item 2)")
     else:
         raise FileNotFoundError(f"teacher {teacher_path} is neither a run folder nor a known hub config")
     if overrides:
@@ -74,8 +77,9 @@ class DynamicTeacher:
     @torch.inference_mode()
     def _score(self, batch: dict) -> dict:
         from matchmaker_tpu_torch.ops.maxsim import maxsim_all_pairs
+        from matchmaker_tpu_torch.training.train_step import forward_triple
 
-        pos_out, neg_out = self.model.forward_triple(batch)
+        pos_out, neg_out = forward_triple(self.model, batch)
         out = {"pos": pos_out["score"], "neg": neg_out["score"]}
         if self.per_term_scores and "per_term_scores" in pos_out:
             out["pos_per_term"] = pos_out["per_term_scores"]

@@ -4,10 +4,13 @@
 ``evaluate_model`` scores every (query, doc) tuple of a file through an eval
 step (a model forward without autograd), ``validate_model`` adds the metric
 battery and the candidate-depth sweep and appends the metrics CSV,
-``test_model`` writes the ranked run file and its metrics. Tokenized batches
-can be kept across validations in a cache the caller owns. The port runs one
-process, so every file is written by it. QA answer evaluation and secondary
-(interpretability) outputs are not ported yet (ROADMAP.md, queue 1 item 10).
+``test_model`` writes the ranked run file and its metrics and, with
+``save_secondary_output``, the model's secondary (interpretability) tensors
+of each query's top-ranked pairs as ``<test name>-secondary.npz``. Tokenized
+batches can be kept across validations in a cache the caller owns. The port
+runs one process, so every file is written by it. QA answer evaluation is
+not ported yet (ROADMAP.md, queue 1 item 6), nor is the submodel validation
+cache (queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from matchmaker_tpu_torch.data.loaders import device_prefetch, reranking_inference_loader
@@ -29,15 +33,17 @@ from matchmaker_tpu_torch.metrics import (
 )
 from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1 item 10)"
+_QA_NOT_PORTED = "QA answer evaluation is not ported yet (ROADMAP.md, queue 1 item 6)"
 
 
 def evaluate_model(eval_step: Callable, config, tokenizer, tuples_path: str, device: torch.device,
-                   cache: Optional[Dict[str, list]] = None) -> Dict[str, List[Tuple[str, float]]]:
+                   cache: Optional[Dict[str, list]] = None, output_secondary: bool = False):
     """Score all (query, doc) tuples; returns {qid: [(did, score)]}. With a
-    ``cache`` dict the tokenized batches of ``tuples_path`` are kept in it."""
+    ``cache`` dict the tokenized batches of ``tuples_path`` are kept in it.
+    With ``output_secondary`` returns (results, secondary), the latter
+    {"qid<->did": {name: array}} from the model's ``secondary`` outputs."""
     if config.get("submodel_validation_cache_path"):
-        raise NotImplementedError(f"the submodel validation cache {_NOT_PORTED}")
+        raise NotImplementedError("the submodel validation cache is not ported yet (ROADMAP.md, queue 1 item 10)")
     perf = PerformanceMonitor.get()
     if cache is not None and tuples_path in cache:
         batches = cache[tuples_path]
@@ -46,15 +52,22 @@ def evaluate_model(eval_step: Callable, config, tokenizer, tuples_path: str, dev
         if cache is not None:
             batches = cache[tuples_path] = list(batches)
     results: Dict[str, List[Tuple[str, float]]] = {}
+    secondary: Dict[str, dict] = {}
     n = 0
     perf.start_block("eval")
     for batch, qids, dids in device_prefetch(iter(batches), device):
-        scores = eval_step(batch)["score"].float().cpu().numpy()
+        out = eval_step(batch, output_secondary=True) if output_secondary else eval_step(batch)
+        scores = out["score"].float().cpu().numpy()
         for i, (qid, did) in enumerate(zip(qids, dids)):
             results.setdefault(qid, []).append((did, float(scores[i])))
             n += 1
+        if output_secondary and "secondary" in out:
+            sec = {k: v.float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy()
+                   for k, v in out["secondary"].items()}
+            for i, (qid, did) in enumerate(zip(qids, dids)):
+                secondary[f"{qid}<->{did}"] = {k: v[i] for k, v in sec.items()}
     perf.stop_block("eval", n)
-    return results
+    return (results, secondary) if output_secondary else results
 
 
 def validate_model(kind: str, eval_step, config, tokenizer, run_folder: str, validation_config: dict,
@@ -63,7 +76,7 @@ def validate_model(kind: str, eval_step, config, tokenizer, run_folder: str, val
     """Score + metric battery + CSV bookkeeping. Returns (metrics, the
     validation metric's value, ranked results)."""
     if config.get("train_qa_spans", False) and validation_config.get("qa_answers"):
-        raise NotImplementedError(f"QA answer evaluation {_NOT_PORTED}")
+        raise NotImplementedError(_QA_NOT_PORTED)
     results = evaluate_model(eval_step, config, tokenizer, validation_config["tsv"], device, cache)
     ranked = unrolled_to_ranked_result(results)
     qrels = load_qrels(validation_config["qrels"])
@@ -88,14 +101,28 @@ def validate_model(kind: str, eval_step, config, tokenizer, run_folder: str, val
 
 
 def test_model(eval_step, config, tokenizer, run_folder: str, test_name: str, test_config: dict,
-               device: torch.device) -> Dict[str, float]:
+               device: torch.device, model: Optional[torch.nn.Module] = None) -> Dict[str, float]:
     """End-of-training test evaluation: ranked output and metrics CSV (and
-    the candidate-depth sweep where configured)."""
-    if test_config.get("save_secondary_output", False):
-        raise NotImplementedError(f"secondary outputs {_NOT_PORTED}")
+    the candidate-depth sweep where configured); with
+    ``save_secondary_output`` the secondary tensors of each query's top
+    ``secondary_output.top_n`` (100) ranked pairs, and the small parameters
+    of ``model``, in ``<test_name>-secondary.npz``."""
     if config.get("train_qa_spans", False) and test_config.get("qa_answers"):
-        raise NotImplementedError(f"QA answer evaluation {_NOT_PORTED}")
-    results = evaluate_model(eval_step, config, tokenizer, test_config["tsv"], device)
+        raise NotImplementedError(_QA_NOT_PORTED)
+    want_secondary = bool(test_config.get("save_secondary_output", False))
+    results = evaluate_model(eval_step, config, tokenizer, test_config["tsv"], device,
+                             output_secondary=want_secondary)
+    if want_secondary:
+        results, secondary = results
+        if secondary:
+            top_n = config.get_path("secondary_output.top_n", 100) if hasattr(config, "get_path") else 100
+            limited = {}
+            for qid, doc_ids in unrolled_to_ranked_result(results).items():
+                for did in doc_ids[:top_n]:
+                    key = f"{qid}<->{did}"
+                    if key in secondary:
+                        limited[key] = secondary[key]
+            save_secondary_output(limited, os.path.join(run_folder, f"{test_name}-secondary.npz"), model)
     save_sorted_results(results, os.path.join(run_folder, f"{test_name}-output.txt"))
     metrics: Dict[str, float] = {}
     if test_config.get("qrels"):
@@ -111,6 +138,19 @@ def test_model(eval_step, config, tokenizer, run_folder: str, test_name: str, te
             for depth, m in sweep.items():
                 append_metrics_csv(os.path.join(run_folder, f"{test_name}-metrics-cs_{depth}.csv"), m, -1, -1)
     return metrics
+
+
+def save_secondary_output(secondary: Dict[str, dict], path: str, model: Optional[torch.nn.Module] = None,
+                          max_param_size: int = 4096) -> None:
+    """Interpretability dumps as a compressed ``.npz``: ``<qid<->did>::<name>``
+    per pair and, with ``model``, each parameter of at most
+    ``max_param_size`` elements under ``model::<flax path>``."""
+    flat = {f"{pair}::{name}": arr for pair, tensors in secondary.items() for name, arr in tensors.items()}
+    if model is not None:
+        for name, p in model.state_dict().items():
+            if p.numel() <= max_param_size:
+                flat[f"model::{name.replace('.', '/')}"] = p.detach().float().cpu().numpy()
+    np.savez_compressed(path, **flat)
 
 
 def save_sorted_results(results: Dict[str, List[Tuple[str, float]]], path: str, until_rank: int = -1) -> None:

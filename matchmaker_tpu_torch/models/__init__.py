@@ -1,26 +1,42 @@
 """Model factory: counterpart of ``matchmaker_tpu/models/__init__.py``.
 
-The BERT_DOT family and ColBERT are ported; every other model raises
-``NotImplementedError`` (the queue is in ROADMAP.md).
+The BERT_DOT family, ColBERT and the transformer re-rankers (BERT_CAT,
+PreTTR, PARADE) are ported, as are the ``maxP->`` / ``meanP->`` chunk
+adapters around any of them. Every other model raises
+``NotImplementedError`` naming the ROADMAP.md item that holds it. A local
+Hugging Face checkpoint named by ``bert_pretrained_model`` is imported into
+every encoder of the model (models/hf_import.py).
 """
 
 from __future__ import annotations
 
-import os
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn as nn
 
+from matchmaker_tpu_torch.models.adapters import ChunkPoolAdapter
+from matchmaker_tpu_torch.models.bert_cat import BertCat
 from matchmaker_tpu_torch.models.bert_dot import BertDot, BertDotDualEncoder
 from matchmaker_tpu_torch.models.colbert import ColBert
+from matchmaker_tpu_torch.models.hf_import import encoder_checkpoint_available, load_hf_encoder
+from matchmaker_tpu_torch.models.parade import Parade
+from matchmaker_tpu_torch.models.prettr import PreTTR
 from matchmaker_tpu_torch.models.weights import init_parameters
 
 _REGISTRY = {
+    "bert_cat": BertCat,
     "bert_dot": BertDot,
     "bert_dot_dualencoder": BertDotDualEncoder,
     "colbert": ColBert,
+    "parade": Parade,
+    "prettr": PreTTR,
 }
+# the JAX package's other models, by the ROADMAP.md item that holds them
+_QUEUED = dict.fromkeys(("knrm", "conv_knrm", "tk", "tkl", "tk_sparse", "idcm", "idcm_inference_only", "pacrr",
+                         "co_pacrr", "duet", "drmm", "matchpyramid"), "queue 1 item 10")
+_ENCODER_SLOTS = ("encoder", "query_encoder", "doc_encoder")
 
 
 def model_base_name(name: str) -> str:
@@ -31,38 +47,66 @@ def model_base_name(name: str) -> str:
 def get_model(config, tokenizer) -> nn.Module:
     """The model module named by ``config['model']``, parameters uninitialised."""
     name = model_base_name(config["model"])
-    if "->" in config["model"] or name not in _REGISTRY:
-        raise NotImplementedError(f"model {config['model']!r} is not ported yet (ROADMAP.md)")
+    wrapper = config["model"].split("->")[0].strip().lower() if "->" in config["model"] else None
+    if name not in _REGISTRY:
+        if name in _QUEUED:
+            raise NotImplementedError(f"model {config['model']!r} is not ported yet (ROADMAP.md, {_QUEUED[name]})")
+        raise ValueError(f"Model not known: {config['model']}")
+    if wrapper not in (None, "maxp", "meanp"):
+        raise ValueError(f"unknown model adapter {wrapper!r} in {config['model']!r}")
     if config.get("token_embedder_type") in ("embedding", "bert_embedding", "bert_vectors"):
         raise NotImplementedError(
-            f"token_embedder_type {config['token_embedder_type']!r} is not ported yet (ROADMAP.md)")
+            f"token_embedder_type {config['token_embedder_type']!r} is not ported yet (ROADMAP.md, queue 1 item 10)")
     model = _REGISTRY[name].from_config(config)
     vocab = model.encoder_cfg.vocab_size
     if tokenizer.vocab_size > vocab:
         raise ValueError(f"tokenizer vocabulary {tokenizer.vocab_size} exceeds the encoder's {vocab}")
+    if wrapper is not None:
+        model = ChunkPoolAdapter.from_config(config, model, pool=wrapper[:-1])
     return model
 
 
-def _hf_checkpoint_available(name: str) -> bool:
-    if os.path.isdir(name):
-        return True
-    try:
-        from transformers import AutoConfig
-
-        AutoConfig.from_pretrained(name, local_files_only=True)
-        return True
-    except (ImportError, OSError, ValueError):
-        return False
-
-
+@torch.no_grad()
 def init_params(model: nn.Module, config, generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """Fill the model's parameters with the JAX package's initialisers from
-    ``generator``; returns its state_dict. A locally available Hugging Face
-    checkpoint (which the JAX package would load) is refused: its import is
-    not ported yet, and the port never silently serves other weights."""
-    name = str(config.get("bert_pretrained_model", ""))
-    if name and _hf_checkpoint_available(name):
-        raise NotImplementedError(
-            f"loading the Hugging Face checkpoint {name!r} is not ported yet (ROADMAP.md)")
+    ``generator``; where ``bert_pretrained_model`` names a locally available
+    Hugging Face checkpoint, every encoder (``encoder``, ``query_encoder``,
+    ``doc_encoder``, also inside a chunk adapter's ``inner``) takes its
+    tensors instead. Returns the model's state_dict."""
     init_parameters(model, generator)
+    name = str(config.get("bert_pretrained_model", ""))
+    if config.get("token_embedder_type") != "embedding" and name and encoder_checkpoint_available(name):
+        _, enc = load_hf_encoder(name)
+        state = model.state_dict()
+        graft = {}
+        for key in state:
+            parts = key.split(".")
+            for i, part in enumerate(parts[:-1]):
+                if part in _ENCODER_SLOTS:
+                    rest = ".".join(parts[i + 1:])
+                    if rest not in enc or tuple(enc[rest].shape) != tuple(state[key].shape):
+                        raise ValueError(f"the checkpoint {name!r} holds no encoder tensor {rest!r} of shape "
+                                         f"{tuple(state[key].shape)}")
+                    graft[key] = enc[rest]
+                    break
+        model.load_state_dict(graft, strict=False)
     return model.state_dict()
+
+
+def example_batch(config, batch_size: int = 2) -> Dict[str, np.ndarray]:
+    """Zero batch with the model input's keys and shapes."""
+    max_q = config.get("max_query_length", 30)
+    max_d = config.get("max_doc_length", 200)
+    if config.get("model_input_type") == "concatenated":
+        length = max_q + max_d
+        return {
+            "seq_ids": np.zeros((batch_size, length), np.int32),
+            "seq_mask": np.ones((batch_size, length), np.float32),
+            "seq_type_ids": np.zeros((batch_size, length), np.int32),
+        }
+    return {
+        "query_ids": np.zeros((batch_size, max_q), np.int32),
+        "query_mask": np.ones((batch_size, max_q), np.float32),
+        "doc_ids": np.zeros((batch_size, max_d), np.int32),
+        "doc_mask": np.ones((batch_size, max_d), np.float32),
+    }

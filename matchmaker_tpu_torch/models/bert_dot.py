@@ -12,8 +12,8 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
-import torch.nn as nn
 
+from matchmaker_tpu_torch.models.base import Ranker
 from matchmaker_tpu_torch.models.encoder import (
     Dense,
     EncoderConfig,
@@ -32,7 +32,7 @@ def _kwargs_from_config(config, return_vecs: bool) -> dict:
     )
 
 
-class _DotEncoder(nn.Module):
+class _DotEncoder(Ranker):
     """CLS → optional compressor → optional normalisation; dot scores."""
 
     def __init__(self, encoder_cfg: EncoderConfig, compress_dim: int = -1, return_vecs: bool = True,
@@ -57,10 +57,13 @@ class _DotEncoder(nn.Module):
             vec = vec / torch.clamp(vec.float().norm(dim=-1, keepdim=True), min=1e-6).to(vec.dtype)
         return vec
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward(self, batch: Dict[str, torch.Tensor], output_secondary: bool = False) -> Dict[str, torch.Tensor]:
         q_vecs = self.encode(batch["query_ids"], batch["query_mask"], "query")
         d_vecs = self.encode(batch["doc_ids"], batch["doc_mask"], "doc")
-        return self._outputs(q_vecs, d_vecs)
+        out = self._outputs(q_vecs, d_vecs)
+        if output_secondary:
+            out["secondary"] = {}
+        return out
 
     def _outputs(self, q_vecs: torch.Tensor, d_vecs: torch.Tensor) -> Dict[str, torch.Tensor]:
         out = {"score": (q_vecs.float() * d_vecs.float()).sum(dim=-1)}

@@ -16,14 +16,14 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
-import torch.nn as nn
 
+from matchmaker_tpu_torch.models.base import Ranker
 from matchmaker_tpu_torch.models.encoder import Dense, EncoderConfig, TransformerEncoderLM, encoder_config_from_model_name
 from matchmaker_tpu_torch.ops import matmul_f32
 from matchmaker_tpu_torch.ops.maxsim import NEG_FILL, maxsim_all_pairs, maxsim_pairwise
 
 
-class ColBert(nn.Module):
+class ColBert(Ranker):
     def __init__(self, encoder_cfg: EncoderConfig, compression_dim: int = 768, return_vecs: bool = True,
                  return_per_term: bool = False, compute_dtype: torch.dtype = torch.bfloat16,
                  normalize: bool = False):

@@ -123,13 +123,15 @@ class EncoderConfig:
 
 
 def encoder_config_from_model_name(config) -> EncoderConfig:
-    """The encoder size from ``bert_pretrained_model`` (name heuristics) plus
-    the YAML inference options, as in the JAX package."""
+    """The encoder size from ``bert_pretrained_model`` (a local Hugging Face
+    checkpoint directory's ``config.json``, else name heuristics) plus the
+    YAML inference options, as in the JAX package."""
     name = str(config.get("bert_pretrained_model", "distilbert-base-uncased"))
     if os.path.isdir(name):
-        raise NotImplementedError(
-            "reading a Hugging Face checkpoint's config is not ported yet (ROADMAP.md)")
-    if "tiny" in name:
+        from matchmaker_tpu_torch.models.hf_import import load_hf_encoder_config
+
+        cfg = load_hf_encoder_config(name)
+    elif "tiny" in name:
         cfg = EncoderConfig.tiny()
     elif "mini" in name:
         cfg = EncoderConfig.mini()
@@ -325,11 +327,16 @@ class TransformerEncoderLM(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", EncoderLayer(cfg, compute_dtype))
 
-    def embed(self, ids: torch.Tensor, type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """word + position (+ type) embeddings → LayerNorm."""
+    def embed(self, ids: torch.Tensor, type_ids: Optional[torch.Tensor] = None, skip_position: bool = False,
+              position_offset: int = 0) -> torch.Tensor:
+        """word (+ position, + type) embeddings → LayerNorm. ``position_offset``
+        shifts the position ids (PreTTR's document tower starts at the query
+        length); ``skip_position`` leaves the position embeddings out."""
         cfg = self.cfg
-        positions = torch.arange(ids.shape[1], device=ids.device)
-        x = self.word_embeddings(ids) + self.position_embeddings(positions)[None]
+        x = self.word_embeddings(ids)
+        if not skip_position:
+            positions = torch.arange(ids.shape[1], device=ids.device) + position_offset
+            x = x + self.position_embeddings(positions)[None]
         if cfg.type_vocab_size > 0:
             if type_ids is None:
                 type_ids = torch.zeros_like(ids)
@@ -337,19 +344,28 @@ class TransformerEncoderLM(nn.Module):
         ln_dtype = self.compute_dtype if cfg.norms_in_compute_dtype else None
         return self.embeddings_norm(x, cfg.layer_norm_eps, ln_dtype)
 
-    def forward(self, ids: torch.Tensor, mask: torch.Tensor,
-                type_ids: Optional[torch.Tensor] = None, deterministic: bool = True) -> torch.Tensor:
-        """Final hidden states (B, L, H), f32; mask (B, L), >0 = real token.
-        ``deterministic=False`` asks for dropout, which the port does not
-        apply: the fused layers warn once (as the JAX package's do), the
-        unfused ones raise."""
+    def encode_layers(self, x: torch.Tensor, mask: torch.Tensor, start: int, end: int) -> torch.Tensor:
+        """Layers [start, end) on embedded inputs x (B, L, H); mask (B, L), >0
+        = real token; f32 out. Each layer runs as in a full pass (the fused
+        halves where configured), so PreTTR's towers and its join take the
+        same kernels."""
+        key_mask = (mask > 0).float()
+        x = x.to(self.compute_dtype).contiguous()
+        for i in range(start, end):
+            x = getattr(self, f"layer_{i}")(x, key_mask)
+        return x.float()
+
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor, type_ids: Optional[torch.Tensor] = None,
+                deterministic: bool = True, num_layers: Optional[int] = None, skip_position: bool = False,
+                position_offset: int = 0) -> torch.Tensor:
+        """Final hidden states (B, L, H), f32; mask (B, L), >0 = real token;
+        ``num_layers`` runs only the first N layers. ``deterministic=False``
+        asks for dropout, which the port does not apply: the fused layers warn
+        once (as the JAX package's do), the unfused ones raise."""
         if not deterministic and self.cfg.dropout > 0:
             if not self.cfg.fused_attention:
                 raise NotImplementedError(
                     "dropout on the unfused encoder is not ported yet (ROADMAP.md, queue 1 item 2)")
             _warn_fused_dropout_noop()
-        key_mask = (mask > 0).float()
-        x = self.embed(ids, type_ids).to(self.compute_dtype)
-        for i in range(self.cfg.num_layers):
-            x = getattr(self, f"layer_{i}")(x, key_mask)
-        return x.float()
+        x = self.embed(ids, type_ids, skip_position, position_offset)
+        return self.encode_layers(x, mask, 0, self.cfg.num_layers if num_layers is None else num_layers)

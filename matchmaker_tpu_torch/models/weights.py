@@ -6,11 +6,17 @@ The port names each parameter after its flax path with ``.`` for ``/``
 ``encoder.layer_0.attention.query.kernel``). The attention projections are
 stored 2-D, with the reshapes of ``matchmaker_tpu/models/encoder.py``
 (FusedMHABlock): query/key/value kernels (hid, h, d) → (hid, hid), their
-biases (h, d) → (hid,), the out kernel (h, d, hid) → (hid, hid). Every
+biases (h, d) → (hid,), the out kernel (h, d, hid) → (hid, hid). The
+``self_attention`` projections of modules/transformer.py (flax
+``MultiHeadDotProductAttention``'s ``DenseGeneral`` kernels, PARADE's
+aggregator) are stored as ``F.linear`` reads them, (out, in): query/key/value
+(D, h, d) → (h·d, D), out (h, d, D) → (D, h·d), biases flattened. Every
 other parameter keeps its flax shape: ColBERT's ``compressor`` kernel (hid,
-dim) and bias, the MLM head's ``mlm_transform`` / ``mlm_norm`` and its
-top-level vocabulary bias ``mlm_bias`` (``modules/mlm_head.py``). A ``.npz``
-holds the port's arrays keyed by the flax path.
+dim) and bias, the re-rankers' ``score_layer`` / ``score_reduction`` kernels
+(hid, 1), PARADE's ``agg_cls`` (1, 1, hid), the MLM head's ``mlm_transform``
+/ ``mlm_norm`` and its top-level vocabulary bias ``mlm_bias``
+(``modules/mlm_head.py``). A chunk adapter's inner model sits under
+``inner``. A ``.npz`` holds the port's arrays keyed by the flax path.
 """
 
 from __future__ import annotations
@@ -40,6 +46,13 @@ def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def _port_shape(path: str, arr: np.ndarray) -> np.ndarray:
     parts = path.split("/")
+    if len(parts) >= 3 and parts[-3] == "self_attention":
+        proj, leaf = parts[-2], parts[-1]
+        if leaf == "bias":
+            return arr.reshape(-1)
+        if proj == "out":  # (h, d, D) → (D, h·d)
+            return arr.reshape(-1, arr.shape[-1]).T
+        return arr.reshape(arr.shape[0], -1).T  # (D, h, d) → (h·d, D)
     if len(parts) >= 3 and parts[-3] == "attention":
         proj, leaf = parts[-2], parts[-1]
         if proj == "out" and leaf == "kernel" and arr.ndim == 3:  # (h, d, hid)
@@ -73,15 +86,20 @@ def load_npz(path: str) -> Dict[str, torch.Tensor]:
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initialiser distributions, drawn from ``generator``:
     kernels lecun-normal (truncated normal, std sqrt(1/fan_in)/0.8796,
-    cut at ±2 std), embeddings normal with std sqrt(1/features), biases
+    cut at ±2 std; fan_in the input width, rows of an (in, out) kernel,
+    columns of an (out, in) ``self_attention`` one), embeddings normal with
+    std sqrt(1/features), PARADE's ``agg_cls`` normal with std 0.02, biases
     zero, LayerNorm scales one."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "kernel":
-            std = (1.0 / p.shape[0]) ** 0.5 / _TRUNC_STD
+            fan_in = p.shape[1] if ".self_attention." in name else p.shape[0]
+            std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
             nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
         elif leaf == "embedding":
             p.normal_(0.0, (1.0 / p.shape[1]) ** 0.5, generator=generator)
+        elif leaf == "agg_cls":
+            p.normal_(0.0, 0.02, generator=generator)
         elif leaf == "scale":
             p.fill_(1.0)
         elif leaf == "bias" or leaf.endswith("_bias"):  # mlm_bias: the MLM head's vocabulary bias

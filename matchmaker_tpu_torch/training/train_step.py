@@ -2,7 +2,10 @@
 single process.
 
 One step is the packed triple forward (``forward_triple``: one query pass,
-one 2B-row document pass), the ranking loss, the optional term-level
+one 2B-row document pass) where the model has one (BERT_DOT, ColBERT), else
+two passes, one over the positive and one over the negative pairs
+(``split_triple_batch``: concatenated cross-encoder triples, PreTTR, PARADE,
+the chunk adapters), the ranking loss, the optional term-level
 distillation (the student's per-term MaxSim against a dynamic teacher's),
 the optional in-batch negative loss over the B × 2B score matrix of the
 queries against [d_pos; d_neg] (q·dᵀ for single vectors, the all-pairs
@@ -12,9 +15,8 @@ listwise against the dynamic teacher's matrix (``[I | 0]`` without one),
 backward (through the fused layers' backward kernels on a card), the global
 gradient norm before clipping, and the optimizer update. The branches of
 the JAX loss that the port does not run yet raise ``NotImplementedError``
-naming their ROADMAP.md item: list batches, cross-encoder triples, passage
-losses, sparsity (the top-level listwise and the QA losses already raise in
-``get_loss``).
+naming their ROADMAP.md item: list batches, passage losses, sparsity (the
+top-level listwise and the QA losses already raise in ``get_loss``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,30 @@ import torch
 from matchmaker_tpu_torch.losses import LossBundle
 from matchmaker_tpu_torch.ops.maxsim import maxsim_all_pairs
 from matchmaker_tpu_torch.training.optim import Optimizer
+
+
+def split_triple_batch(batch):
+    """Triple batch → (positive pairs' batch, negative pairs' batch): the
+    concatenated sequences of a cross-encoder's triples, or the query with
+    each document."""
+    if "pos_ids" in batch:  # concatenated input
+        pos = {"seq_ids": batch["pos_ids"], "seq_mask": batch["pos_mask"], "seq_type_ids": batch["pos_type_ids"]}
+        neg = {"seq_ids": batch["neg_ids"], "seq_mask": batch["neg_mask"], "seq_type_ids": batch["neg_type_ids"]}
+    else:
+        query = {"query_ids": batch["query_ids"], "query_mask": batch["query_mask"]}
+        pos = {**query, "doc_ids": batch["doc_pos_ids"], "doc_mask": batch["doc_pos_mask"]}
+        neg = {**query, "doc_ids": batch["doc_neg_ids"], "doc_mask": batch["doc_neg_mask"]}
+    return pos, neg
+
+
+def forward_triple(model, batch):
+    """(pos_out, neg_out) of a triple batch: the model's packed
+    ``forward_triple`` where it has one and the batch has separate
+    documents, else two passes."""
+    if hasattr(model, "forward_triple") and "doc_pos_ids" in batch:
+        return model.forward_triple(batch)
+    pos_batch, neg_batch = split_triple_batch(batch)
+    return model(pos_batch), model(neg_batch)
 
 
 def make_loss_fn(model, losses: LossBundle, config):
@@ -40,12 +66,9 @@ def make_loss_fn(model, losses: LossBundle, config):
         if "list_doc_ids" in batch:
             raise NotImplementedError("list batches (listwise training, data/list_sampler.py) are not ported yet "
                                       "(ROADMAP.md, queue 1 item 6)")
-        if "pos_ids" in batch:
-            raise NotImplementedError("concatenated (cross-encoder) triples are not ported yet "
-                                      "(ROADMAP.md, queue 1 item 10)")
         if losses.is_passage_loss:
             raise NotImplementedError("passage losses are not ported yet (ROADMAP.md, queue 1 item 7)")
-        pos_out, neg_out = model.forward_triple(batch)
+        pos_out, neg_out = forward_triple(model, batch)
         pos_score, neg_score = pos_out["score"], neg_out["score"]
         valid = batch.get("valid")
         if valid is None:
@@ -118,11 +141,13 @@ def make_train_step(model, losses: LossBundle, optimizer: Optimizer, config):
     return step
 
 
-def make_eval_step(model):
-    """``step(batch) -> outputs`` without autograd (re-ranking evaluation)."""
+def make_eval_step(model, output_secondary: bool = False):
+    """``step(batch, output_secondary=...) -> outputs`` without autograd
+    (re-ranking evaluation); ``output_secondary`` asks for the model's
+    ``secondary`` tensors, by default as the step was made."""
 
-    def step(batch):
+    def step(batch, output_secondary: bool = output_secondary):
         with torch.inference_mode():
-            return model(batch)
+            return model(batch, output_secondary=output_secondary)
 
     return step

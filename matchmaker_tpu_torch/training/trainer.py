@@ -1,8 +1,11 @@
 """The training driver: counterpart of ``matchmaker_tpu/training/trainer.py``,
 single process on one device.
 
-Config-driven build (BERT_DOT or ColBERT; ``warmstart_encoder_path`` grafts
-an encoder snapshot, e.g. an MLM pre-train's, into the fresh model), epoch
+Config-driven build (BERT_DOT, ColBERT or a transformer re-ranker; a local
+Hugging Face checkpoint in ``bert_pretrained_model`` fills every encoder,
+``warmstart_model_path`` loads a whole ``.npz`` snapshot and
+``warmstart_encoder_path`` grafts an encoder snapshot, e.g. an MLM
+pre-train's, into the fresh model), epoch
 loop over the triple loader (``data/loaders.py:triple_training_loader``) or,
 with ``dynamic_sampler: true``, the TAS-Balanced sampler
 (``data/tas_balanced.py``, ``tas_batches_per_epoch`` batches an epoch),
@@ -19,7 +22,8 @@ weights. Extra config key: ``device`` (default ``"cuda"``).
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP.md item: ``dynamic_sampler: listwise``, ``submodel_train_cache_path``,
-``warmstart_model_path`` and multi-process launches.
+a JAX checkpoint (``.flax``) as ``warmstart_model_path`` and multi-process
+launches.
 """
 
 from __future__ import annotations
@@ -54,7 +58,6 @@ from matchmaker_tpu_torch.training.train_step import make_eval_step, make_train_
 # config keys of JAX-package features the port does not run yet
 _UNPORTED = {
     "submodel_train_cache_path": "queue 1 item 10",
-    "warmstart_model_path": "queue 1 item 2",
 }
 
 
@@ -65,6 +68,9 @@ def _refuse_unported(config) -> None:
     for key, item in _UNPORTED.items():
         if config.get(key):
             raise NotImplementedError(f"{key} is not ported yet (ROADMAP.md, {item})")
+    if str(config.get("warmstart_model_path") or "").endswith(".flax"):
+        raise NotImplementedError("warmstart_model_path: reading a JAX checkpoint (.flax) is not ported yet; the "
+                                  "port loads its own .npz snapshots (ROADMAP.md, queue 1 item 2)")
     # the JAX package's multi-process launch (parallel/multihost.py)
     if os.environ.get("MATCHMAKER_COORDINATOR") or os.environ.get("MATCHMAKER_MULTIHOST"):
         raise NotImplementedError("multi-process training is not ported yet (ROADMAP.md, queue 1 item 11)")
@@ -85,6 +91,8 @@ class Trainer:
         self.tokenizer = build_tokenizer(config)
         self.model = get_model(config, self.tokenizer)
         init_params(self.model, config, torch.Generator().manual_seed(config.get("random_seed", 42)))
+        if config.get("warmstart_model_path"):
+            load_params(config["warmstart_model_path"], self.model)
         if config.get("warmstart_encoder_path"):
             # an encoder-only graft (e.g. from an MLM pre-train run): the heads stay fresh
             load_encoder_subtree(config["warmstart_encoder_path"], self.model)
@@ -290,7 +298,7 @@ class Trainer:
         for section, kind in (("validation_end", "end"), ("test", "test")):
             for name, entry in (config.get(section) or {}).items():
                 metrics = test_model(self.eval_step, config, self.tokenizer, self.run_folder, f"{kind}-{name}",
-                                     entry, self.device)
+                                     entry, self.device, self.model)
                 if metrics:
                     headline = config.get("validation_metric", "MRR@10")
                     print(f"[{kind}:{name}] {headline}={metrics.get(headline, float('nan')):.4f}")

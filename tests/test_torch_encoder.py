@@ -165,9 +165,11 @@ def test_config_from_model_name_matches_jax(name):
 
 def test_unported_models_raise():
     tok = build_tokenizer(_bert_dot_config())
-    for model in ("knrm", "bert_cat", "maxP->bert_dot"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for model in ("knrm", "tk", "tkl", "tk_sparse", "conv_knrm", "idcm", "maxP->knrm", "pacrr", "duet"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 10"):
             get_model(_bert_dot_config(model=model), tok)
+    for model in ("bert_cat", "prettr", "parade", "maxP->bert_cat", "meanP->bert_cat", "maxP->bert_dot"):
+        get_model(_bert_dot_config(model=model), tok)  # ported since the re-rankers' slice
     # ColBERT serves and trains on the port; listwise dynamic sampling is refused
     _refuse_unported(_bert_dot_config(model="colbert"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -148,14 +148,44 @@ def test_scalar_writer_and_perf_monitor(tmp_path):
     assert stats["instances"] == 10 and stats["calls"] == 1 and stats["items_per_second"] > 0
 
 
-@pytest.mark.parametrize("module", ["data/mlm.py", "data/synthetic.py", "data/tas_balanced.py"])
+@pytest.mark.parametrize("module", ["data/mlm.py", "data/synthetic.py", "data/tas_balanced.py",
+                                    "distillation/score_files.py"])
 def test_verbatim_copies_differ_only_in_imports(module):
-    """The MLM loader, the planted corpora and the TAS-Balanced sampler are
-    the JAX package's modules with only ``matchmaker_tpu.`` imports turned
-    into ``matchmaker_tpu_torch.`` ones (their behaviour is held to the
-    originals in tests/test_torch_tasb.py)."""
+    """The MLM loader, the planted corpora, the TAS-Balanced sampler and the
+    teacher score files' utilities are the JAX package's modules with only
+    ``matchmaker_tpu.`` imports turned into ``matchmaker_tpu_torch.`` ones
+    (the first three are held to the originals' behaviour in
+    tests/test_torch_tasb.py, the last in test_score_files_equal)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(repo, "matchmaker_tpu", module), encoding="utf-8") as f:
         original = f.read().replace("matchmaker_tpu.", "matchmaker_tpu_torch.")
     with open(os.path.join(repo, "matchmaker_tpu_torch", module), encoding="utf-8") as f:
         assert f.read() == original
+
+
+def test_score_files_equal(tmp_path):
+    """distillation/score_files.py: the mean ensemble of two teachers' files
+    (a row only one of them scored dropped) and the text <-> id conversions
+    write the originals' bytes."""
+    from matchmaker_tpu.distillation import score_files as jsf
+    from matchmaker_tpu_torch.distillation import score_files as tsf
+
+    rng = np.random.default_rng(3)
+    queries = {f"q{i}": _text(rng, 2, 6) for i in range(5)}
+    docs = {f"d{i}": _text(rng, 5, 12) for i in range(9)}
+    for name, table in (("queries.tsv", queries), ("collection.tsv", docs)):
+        (tmp_path / name).write_text("".join(f"{k}\t{v}\n" for k, v in table.items()))
+    rows = [(f"q{i % 5}", f"d{i % 9}", f"d{(i * 4 + 1) % 9}") for i in range(12)]
+    for t in range(2):
+        lines = [f"{rng.uniform(0, 9):.4f}\t{rng.uniform(0, 9):.4f}\t{queries[q]}\t{docs[p]}\t{docs[n]}\n"
+                 for q, p, n in rows[: 12 - t]]
+        (tmp_path / f"teacher{t}.tsv").write_text("".join(lines) + "malformed line\n")
+    teachers = [str(tmp_path / f"teacher{t}.tsv") for t in range(2)]
+    args = (str(tmp_path / "queries.tsv"), str(tmp_path / "collection.tsv"))
+    for pkg in ("jax", "torch"):
+        sf = jsf if pkg == "jax" else tsf
+        assert sf.ensemble_score_files(teachers, str(tmp_path / f"{pkg}_ens.tsv")) == 11
+        assert sf.text_scores_to_ids(str(tmp_path / f"{pkg}_ens.tsv"), *args, str(tmp_path / f"{pkg}_ids.tsv")) == 11
+        assert sf.id_scores_to_text(str(tmp_path / f"{pkg}_ids.tsv"), *args, str(tmp_path / f"{pkg}_text.tsv")) == 11
+    for out in ("ens", "ids", "text"):
+        assert (tmp_path / f"torch_{out}.tsv").read_bytes() == (tmp_path / f"jax_{out}.tsv").read_bytes()

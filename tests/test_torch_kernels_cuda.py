@@ -1631,3 +1631,128 @@ def test_cli_import_loads_no_jax_flax_or_yaml(module):
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120, check=True)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+# ---- the re-rankers' shapes (cross-encoder 30 + 200 = 230 tokens, maxP /
+# PARADE chunks 30 + 50 + 2 x 7 = 94, PreTTR's towers and their join) --------
+
+RERANK_SHAPES = [(16, 230), (3, 230), (64, 94), (5, 94)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l", RERANK_SHAPES)
+def test_halves_and_backward_at_the_rerankers_lengths(device, b, l):
+    """K1/K2 and K12/K11 at L = 230 (a partial 64-key tile, 3,680 rows at
+    B = 16: a partial 128-row GEMM tile) and L = 94, padded keys in one
+    example, against the plain versions at the encoder halves' bars."""
+    hid, heads = 768, 12
+    attn, mlp = _layer_weights(hid, 3072, device, seed=b * 1000 + l + 7)
+    x = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    dy = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    mask = torch.ones(b, l, device=device)
+    mask[0, 31:] = 0.0  # a query with an empty document
+    mask[-1, l - 17:] = 0.0
+    args = (attn["wq"], attn["wk"], attn["wv"], attn["wo"], attn["bq"], attn["bk"], attn["bv"], attn["bo"], mask,
+            heads, attn["ln_scale"], attn["ln_bias"])
+    margs = (mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"], mlp["ln_scale"], mlp["ln_bias"])
+    for got, want in ((fa.fused_attention_block(x, *args), fa.reference_attention_block(x, *args)),
+                      (fa.fused_mlp_block(x, *margs), fa.reference_mlp_block(x, *margs))):
+        cos, err = _rows_close(got, want)
+        assert cos >= 0.999 and err <= 0.1, (cos, err)
+    grads_close(*attention_bwd_pair(x, attn, mask, heads, dy), scale_of=zero_attention_grads(l))
+    grads_close(*mlp_bwd_pair(x, mlp, dy))
+
+
+def _plain_halves(monkeypatch):
+    """Route the encoder's fused halves to their plain versions (forward and,
+    under autograd, PyTorch's own backward), on the card."""
+    import matchmaker_tpu_torch.models.encoder as enc
+
+    def plain_attention(x, wqkv, bqkv, wo, bo, *rest):
+        wq, wk, wv = wqkv.chunk(3, dim=1)
+        bq, bk, bv = bqkv.chunk(3)
+        return fa.reference_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, *rest)
+
+    for name, fn in (("fused_attention_block_qkv", plain_attention), ("fused_mlp_block", fa.reference_mlp_block),
+                     ("fused_attention_block_qkv_train", plain_attention),
+                     ("fused_mlp_block_train", fa.reference_mlp_block)):
+        monkeypatch.setattr(enc, name, fn)
+
+
+@pytest.mark.cuda
+def test_prettr_join_through_the_fused_halves(device, monkeypatch):
+    """A DistilBERT-width PreTTR (2 layers, joined after 1): the towers at 30
+    and 200 tokens and their join at 230 through K1/K2 and K12/K11. A
+    non-contiguous join gives the same bits as a contiguous one; the score
+    and every gradient agree with the plain versions'."""
+    from matchmaker_tpu_torch.models.prettr import PreTTR
+
+    model = PreTTR(EncoderConfig.distilbert(fused_attention=True, num_layers=2), 1, torch.bfloat16)
+    init_parameters(model, torch.Generator().manual_seed(3))
+    model.to(device)
+    g = torch.Generator(device=device).manual_seed(4)
+    batch = {"query_ids": torch.randint(1000, 30522, (4, 30), generator=g, device=device),
+             "doc_ids": torch.randint(1000, 30522, (4, 200), generator=g, device=device),
+             "query_mask": torch.ones(4, 30, device=device), "doc_mask": torch.ones(4, 200, device=device)}
+    batch["query_mask"][1, 6:] = 0
+    batch["doc_mask"][2, 90:] = 0
+    enc = model.encoder
+    with torch.no_grad():
+        low = enc.encode_layers(enc.embed(batch["doc_ids"]), batch["doc_mask"], 0, 1)
+        strided = low.transpose(0, 1).contiguous().transpose(0, 1)
+        assert not strided.is_contiguous()
+        assert torch.equal(enc.encode_layers(strided, batch["doc_mask"], 1, 2),
+                           enc.encode_layers(low, batch["doc_mask"], 1, 2))
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        score = model(batch)["score"]
+        score.float().square().sum().backward()
+        return score.detach().float(), {n: p.grad.float().clone() for n, p in model.named_parameters()}
+
+    _build.reset_launches()
+    got, got_g = run()
+    assert _build.LAUNCHES["fused_attention_block"] == 3 and _build.LAUNCHES["fused_attention_block_bwd"] == 3
+    _plain_halves(monkeypatch)
+    want, want_g = run()
+    assert float((got - want).abs().max()) <= 0.1 * max(1.0, float(want.abs().max()))
+    for name, a in got_g.items():
+        if name.endswith("attention.key.bias"):
+            continue  # zero in exact arithmetic: rounding noise only
+        cos = float(torch.nn.functional.cosine_similarity(a.reshape(-1), want_g[name].reshape(-1), dim=0))
+        assert cos >= 0.99, (name, cos)
+
+
+@pytest.mark.cuda
+def test_score_triples_on_the_card_matches_plain(device, tmp_path, monkeypatch):
+    """cli.score_teacher's score_triples with a DistilBERT BERT_CAT (230
+    tokens) on the card against the plain versions' scores of the same
+    pairs: cosine >= 0.999, max |d| <= 0.1 x max(1, max |score|) (the
+    encoder halves' bar, relative as in the PreTTR join's test: a score
+    head of std 1 gives scores of tens)."""
+    from matchmaker_tpu_torch.cli.score_teacher import score_triples
+    from matchmaker_tpu_torch.data.synthetic import make_planted_corpus
+    from matchmaker_tpu_torch.models.bert_cat import BertCat
+    from matchmaker_tpu_torch.models.weights import save_npz
+
+    config = {"model": "bert_cat", "model_input_type": "concatenated", "bert_pretrained_model": "distilbert-base-uncased",
+              "encoder_fused_attention": True, "use_fp16": True, "max_query_length": 30, "max_doc_length": 200,
+              "device": "cuda"}
+    teacher = BertCat(EncoderConfig.distilbert(fused_attention=True), torch.bfloat16)
+    init_parameters(teacher, torch.Generator().manual_seed(5))
+    torch.nn.init.normal_(teacher.score_layer.kernel, std=1.0, generator=torch.Generator().manual_seed(6))
+    save_npz(str(tmp_path / "best-model.npz"), teacher.state_dict())
+    paths = make_planted_corpus(str(tmp_path / "corpus"), n_train_queries=20, n_eval_queries=2, n_docs=50, seed=6)
+    scores = []
+    for plain in (False, True):
+        if plain:
+            _plain_halves(monkeypatch)
+        out = tmp_path / f"scores_{plain}.tsv"
+        _build.reset_launches()
+        assert score_triples(str(tmp_path), paths["train_tsv"], str(out), batch_size=16, config=config) == 60
+        assert (_build.LAUNCHES["fused_attention_block"] > 0) != plain
+        with open(out) as f:
+            scores.append(torch.tensor([[float(c) for c in line.split("\t")[:2]] for line in f]).reshape(-1))
+    cos = float(torch.nn.functional.cosine_similarity(scores[0], scores[1], dim=0))
+    err = float((scores[0] - scores[1]).abs().max())
+    assert cos >= 0.999 and err <= 0.1 * max(1.0, float(scores[1].abs().max())), (cos, err)
