@@ -58,8 +58,11 @@ Phases (any failed check raises, and the script exits non-zero):
    scaled_dot_product_attention call, the quantizations, the LayerNorm) and
    K1 and K2 beside their chains of PyTorch calls; and K1, K2, K12 and K11
    at the re-rankers' (B, L) = (16, 230) (a BERT_CAT training batch of 30 +
-   200 tokens), (128, 230) (its eval batch) and (64, 94) (the maxP / PARADE
-   chunks of a training batch), each with its device time and bound;
+   200 tokens), (128, 230) (its eval batch), (64, 94) (the maxP / PARADE
+   chunks of a training batch), (384, 94) (IDCM's cascade at eval batch
+   128: 3 chunks a document) and (640, 94) (IDCM's 40 chunks a document at
+   batch 16: stage 1's and the full path's pass), each with its device time
+   and bound;
 4. the main path, ``cli.dense_retrieval.run("encode+index+search")``, on a
    seeded 16,384-passage collection with a DistilBERT-width BERT_DOT
    (random weights from a seed), searching one query set at top-100 and one
@@ -140,7 +143,33 @@ Phases (any failed check raises, and the script exits non-zero):
    (e) PreTTR, PARADE (tf, 2 aggregator layers, secondary outputs saved),
    maxP->bert_cat and meanP->bert_cat, 10 steps each and the test pass:
    launch counts against the prediction, one eval batch's scores against
-   the plain versions'.
+   the plain versions';
+10. the kernel-pooling family and IDCM on the planted corpus, a vocabulary
+   of 400,000 entries (GloVe 6B's size; the corpus's words first) with
+   300-d embeddings from a text-format embedding file the phase writes from
+   a seed, and documents of 2,000 tokens (the planted document in a random
+   chunk of noise-vocabulary filler) for TKL and IDCM: (a) KNRM, Conv-KNRM,
+   TK, TK-Sparse (sparsity weight 0.4) and TKL (log saturation) with their
+   configs/train/models files, 40 steps of 32 triples each through
+   cli.train's Trainer with one validation and the test pass: a finite loss
+   every step, no kernel launched, the run files, one batch scored on the
+   card and on the CPU from the same weights (cosine >= 0.9999, max |d| <=
+   1e-3), the exact-match kernel's activation of each token against itself
+   >= 0.99 on the card (the TF32 guard); TK and KNRM also a one-batch
+   overfit (30 steps halve the loss) and triples/s device-only; (b) IDCM
+   at DistilBERT width (bf16, fused layers, random weights from a seed),
+   models/idcm.yaml: stage 1 (``sample_n`` -1, BERT on all 40 chunks, 10
+   steps of 16 with MSETeacherPointwisePassages over teacher passage scores
+   the phase writes): K1/K2/K11/K12 launches against the prediction, one
+   step's gradients against the plain versions' (cosine >= 0.99); stage 2
+   (selection training, kldivloss) warm-started from stage 1, writing then
+   replaying ``submodel_train_cache_path`` (the replay launches no K1/K2,
+   its losses the write run's), ``submodel_validation_cache_path`` written
+   and replayed the same way; the cascade re-ranking at eval batch 128 (K1
+   and K2 six times a batch, the CK sampler none; one batch's scores
+   against the plain versions' at the encoder halves' bar; MRR@10) and the
+   full path (``sample_n`` -1, batch 16) over the same documents, each
+   one's pairs/s over the tuples repeated to ``idcm_timing_pairs``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Details go to build/chip_smoke.json.
@@ -208,7 +237,7 @@ FULL = dict(
     # phase 3: K1, K2, K12 and K11 at the re-rankers' (B, L): a BERT_CAT
     # training batch (16 x (30 + 200)), its eval batch, the maxP / PARADE
     # chunks of a training batch (16 x 4 chunks of 30 + 50 + 2 x 7 tokens)
-    rerank_shapes=[(16, 230), (128, 230), (64, 94)],
+    rerank_shapes=[(16, 230), (128, 230), (64, 94), (384, 94), (640, 94)],
     # phase 9: the re-rankers on the planted corpus (data/synthetic.py)
     rerank_batch=16, rerank_query_len=30, rerank_doc_len=200, rerank_steps=40, rerank_validate_every=20,
     rerank_eval_batch=128, rerank_val_queries=32, rerank_val_docs=8, rerank_docs=2048, rerank_other_steps=10,
@@ -216,6 +245,16 @@ FULL = dict(
     # phase 9 (c): the teacher-scoring rate over the train triples repeated
     # to at least this many (the parity check scores them once)
     rerank_timing_triples=4096,
+    # phase 10: the kernel-pooling family (batch 32, query 30, doc 200, TKL's
+    # and IDCM's documents 2,000 tokens) over a vocabulary of GloVe 6B's
+    # size, 300-d embeddings (the first pool_glove_rows words in the
+    # embedding file, the rest seeded as load_glove_embeddings seeds unseen
+    # words); IDCM at DistilBERT width, stage 1 and 2 at batch 16, the
+    # cascade's and the full path's rates over the re-ranking tuples
+    # repeated to idcm_timing_pairs (the checks score them once)
+    pool_steps=40, pool_batch=32, pool_eval_batch=128, pool_val_queries=32, pool_val_docs=8, pool_docs=2048,
+    pool_long_words=2000, pool_vocab=400_000, pool_glove_rows=20_000, pool_dim=300, pool_cpu_rows=16,
+    idcm_batch=16, idcm_steps=10, idcm_grad_rows=4, idcm_timing_pairs=4096,
 )
 
 
@@ -2547,7 +2586,7 @@ def plain_maxsim():
         ts.maxsim_all_pairs = saved
 
 
-def _kernels_vs_plain_step(model, config, batch, smooth_config, tag):
+def _kernels_vs_plain_step(model, config, batch, smooth_config, tag, unreached=()):
     """One step's loss and gradients from the same parameters through the
     kernels and through the plain versions (encoder halves, and the
     all-pairs MaxSim where the model has one). The configured loss is
@@ -2556,7 +2595,10 @@ def _kernels_vs_plain_step(model, config, batch, smooth_config, tag):
     in-batch pairwise loss picks each query's hardest negative by an argmax,
     and a score difference at bf16 rounding level can move that pick to
     another document, which changes the gradient whatever the kernels
-    compute; the number of picks that move is reported."""
+    compute; the number of picks that move is reported. Every parameter
+    gets a gradient in both runs but those whose names start with one of
+    ``unreached`` (the parts of the model the loss does not reach), which
+    get none in either."""
     import torch
 
     from matchmaker_tpu_torch.losses import get_loss
@@ -2570,13 +2612,18 @@ def _kernels_vs_plain_step(model, config, batch, smooth_config, tag):
             loss = float(full(batch)[0])
         model.zero_grad(set_to_none=True)
         smooth(batch)[0].backward()
-        grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
+        grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters() if p.grad is not None}
         return loss, grads, _hardest_negatives(model, batch) if config.get("in_batch_negatives") else None
 
     lk, gk, hk = run()
     with plain_encoder_blocks(), plain_maxsim():
         lp, gp, hp = run()
     model.zero_grad(set_to_none=True)
+    names = {n for n, _ in model.named_parameters()}
+    expected = {n for n in names if n.startswith(tuple(unreached))}
+    for run_name, grads in (("kernels", gk), ("plain", gp)):
+        check(names - set(grads) == expected, f"{tag}: the {run_name} run left {sorted(names - set(grads))} without "
+              f"a gradient; expected {sorted(expected)}")
     rel = abs(lk - lp) / max(abs(lp), 1e-12)
     moved = int((hk != hp).sum()) if hk is not None else 0
     cosines, key_bias = {}, 0.0
@@ -3196,6 +3243,422 @@ def phase_rerank(sz, device, root):
     return result
 
 
+# ---- phase 10: the kernel-pooling family and IDCM -------------------------------
+
+POOLING_MODELS = ("knrm", "conv_knrm", "tk", "tk_sparse", "tkl")
+# configs/train/models/<model>.yaml; Conv-KNRM has no file: the JAX defaults
+POOLING_CONFIGS = {
+    "knrm": {"knrm_kernels": 11, "loss": "margin", "param_group1_learning_rate": 1.0e-3},
+    "conv_knrm": {"conv_knrm_ngrams": 3, "conv_knrm_kernels": 11, "conv_knrm_conv_out_dim": 128},
+    "tk": {"tk_att_heads": 10, "tk_att_layer": 2, "tk_att_ff_dim": 100, "tk_use_diff_posencoding": True,
+           "tk_mix_hybrid_context": True, "tk_kernels_mu": [1.0, 0.9, 0.7, 0.5, 0.3, 0.1, -0.1, -0.3, -0.5, -0.7, -0.9],
+           "tk_kernels_sigma": [0.0001] + [0.1] * 10},
+    "tk_sparse": {"minimize_sparsity_weight": 0.4, "tk_att_heads": 10, "tk_att_layer": 2, "tk_att_ff_dim": 100},
+    "tkl": {"max_doc_length": 2000, "tkl_chunk_size": 40, "tkl_overlap": 5, "tkl_sliding_window_size": 30,
+            "tkl_top_k_chunks": 3, "tkl_saturation": "log", "tk_att_heads": 10, "tk_att_layer": 2,
+            "tk_att_ff_dim": 100},
+}
+IDCM_CONFIG = {"max_doc_length": 2000, "idcm_chunk_size": 50, "idcm_overlap": 7, "idcm_sample_n": 3,
+               "idcm_top_k_chunks": 3, "idcm_sample_context": "ck", "idcm_sample_train_type": "kldivloss",
+               "idcm_train_selection": False}
+# what stage 1's loss does not reach: the sampler (``sample_n`` -1 skips
+# it) and the top-k weights (a passage loss reads the chunk scores alone)
+IDCM_STAGE1_UNREACHED = ("kernel_alpha_scaler", "sampling_binweights.", "sample_cnn3.", "sample_projector.",
+                         "tk_projector.", "tk_contextualizer.", "top_k_scoring")
+
+
+def _long_doc(rng, text, words, noise, chunk):
+    """A document of ``words`` noise-vocabulary words with ``text`` placed
+    at the start (plus 5 words) of a random chunk of ``chunk`` tokens; the
+    text's first word index."""
+    filler = [rng.choice(noise) for _ in range(words)]
+    planted = text.split()
+    start = rng.randrange(0, words // chunk) * chunk + 5
+    filler[start:start + len(planted)] = planted
+    return " ".join(filler[:words]), start
+
+
+def _pooling_data(root, sz):
+    """The planted corpus (data/synthetic.py): train triples and a re-ranking
+    tuple file (each eval query's relevant document and ``pool_val_docs`` - 1
+    others); the same triples and tuples with documents of
+    ``pool_long_words`` words (the planted document in a random chunk of
+    noise-vocabulary filler) for TKL and IDCM, the IDCM triples with teacher
+    passage scores (the planted chunk 8, every other chunk 1); a vocabulary
+    of ``pool_vocab`` entries (the corpus's 800 words first) and a
+    text-format embedding file of its first ``pool_glove_rows`` words
+    (``pool_dim`` wide), written from a seed."""
+    import random
+
+    from matchmaker_tpu_torch.data.synthetic import make_planted_corpus
+
+    n_triples = sz["pool_steps"] * sz["pool_batch"]
+    paths = make_planted_corpus(os.path.join(root, "corpus"), n_train_queries=-(-n_triples // 3),
+                                n_eval_queries=sz["pool_val_queries"], n_docs=sz["pool_docs"], seed=11)
+    with open(paths["collection"]) as f:
+        docs = dict(line.rstrip("\n").split("\t", 1) for line in f)
+    with open(paths["queries"]) as f:
+        queries = dict(line.rstrip("\n").split("\t", 1) for line in f)
+    with open(paths["qrels"]) as f:
+        rel = {line.split()[0]: line.split()[2] for line in f}
+    rng = random.Random(12)
+    ids = sorted(docs)
+    tuples = []
+    for qid, query in queries.items():
+        others = [d for d in rng.sample(ids, sz["pool_val_docs"]) if d != rel[qid]][:sz["pool_val_docs"] - 1]
+        tuples += [(qid, did, query, docs[did]) for did in [rel[qid]] + others]
+    paths["val"] = os.path.join(root, "val_tuples.tsv")
+    with open(paths["val"], "w") as f:
+        f.writelines(f"{q}\t{d}\t{qt}\t{dt}\n" for q, d, qt, dt in tuples)
+
+    noise = [f"noise{i}" for i in range(400)]
+    words, chunk = sz["pool_long_words"], sz["chunk_size"]
+    n_chunks = -(-words // chunk)
+    paths["long_val"] = os.path.join(root, "long_val_tuples.tsv")
+    with open(paths["long_val"], "w") as f:
+        for q, d, qt, dt in tuples:
+            f.write(f"{q}\t{d}\t{qt}\t{_long_doc(rng, dt, words, noise, chunk)[0]}\n")
+    paths["long_train"] = os.path.join(root, "long_train.tsv")
+    paths["idcm_train"] = os.path.join(root, "idcm_train.tsv")
+    with open(paths["train_tsv"]) as f, open(paths["long_train"], "w") as lt, open(paths["idcm_train"], "w") as it:
+        for line in f:
+            query, pos, neg = line.rstrip("\n").split("\t")
+            pos_long, start = _long_doc(rng, pos, words, noise, chunk)
+            neg_long = _long_doc(rng, neg, words, noise, chunk)[0]
+            lt.write(f"{query}\t{pos_long}\t{neg_long}\n")
+            # HashBertTokenizer puts [CLS] first: word w is token w + 1
+            psg = ["1.0"] * n_chunks
+            psg[(start + 1) // chunk] = "8.0"
+            it.write(f"8.0\t{' '.join(psg)}\t1.0\t{' '.join(['1.0'] * n_chunks)}\t{query}\t{pos_long}\t{neg_long}\n")
+
+    with open(paths["vocab"]) as f:
+        corpus_words = [w for w in f.read().split("\n") if w]
+    paths["pool_vocab"] = os.path.join(root, "vocab_400k.txt")
+    with open(paths["pool_vocab"], "w") as f:
+        f.write("\n".join(corpus_words + [f"x{i}" for i in range(sz["pool_vocab"] - 2 - len(corpus_words))]) + "\n")
+    vocab_words = corpus_words + [f"x{i}" for i in range(sz["pool_glove_rows"] - len(corpus_words))]
+    vectors = np.random.default_rng(13).normal(0.0, 0.4, size=(len(vocab_words), sz["pool_dim"])).astype(np.float32)
+    paths["glove"] = os.path.join(root, "glove.txt")
+    with open(paths["glove"], "w") as f:
+        for w, row in zip(vocab_words, np.char.mod("%.5f", vectors)):
+            f.write(w + " " + " ".join(row) + "\n")
+    return paths
+
+
+def _pooling_config(paths, sz, device, model):
+    """configs/train/defaults.yaml + the model's file, 300-d embeddings from
+    the seeded embedding file over the 400,000-entry vocabulary, batch 32,
+    query 30 / doc 200 (TKL 2,000), the run cut to ``pool_steps`` steps with
+    one validation at the end and the test pass."""
+    from matchmaker_tpu_torch.config import auto_fill
+
+    long_docs = model == "tkl"
+    val = {"tsv": paths["long_val" if long_docs else "val"], "qrels": paths["qrels"], "binarization_point": 1}
+    steps = sz["pool_steps"]
+    return auto_fill({
+        "model": model, "random_seed": 1234, "device": str(device), "enable_tensorboard": False,
+        "token_embedder_type": "embedding", "vocab_directory": paths["pool_vocab"],
+        "pre_trained_embedding": paths["glove"], "token_embedding_size": sz["pool_dim"], "loss": "ranknet",
+        "param_group0_learning_rate": 7.0e-6, "param_group1_learning_rate": 7.0e-4,
+        "embedding_optimizer_learning_rate": 7.0e-6, "weight_decay": 0.0, "lr_schedule": "cosine",
+        "optimizer_warmup_steps": 1000, "max_training_steps": 300000,
+        "batch_size_train": sz["pool_batch"], "batch_size_eval": sz["pool_eval_batch"],
+        "max_query_length": sz["rerank_query_len"], "max_doc_length": sz["rerank_doc_len"], "epochs": 1,
+        "validate_every_n_batches": steps, "max_training_batches": steps, "validation_metric": "MRR@10",
+        "train_tsv": paths["long_train" if long_docs else "train_tsv"], "validation_cont": val,
+        "test": {"planted": dict(val)}, **POOLING_CONFIGS[model],
+        **({"max_doc_length": sz["pool_long_words"]} if long_docs else {})})
+
+
+def _exact_match_acts(model, name, ids, mask):
+    """The exact-match kernel's (mu 1, sigma 1e-4) activation of each live
+    token against itself (query and document the same tokens) through the
+    model's representation and ``cosine_match_matrix``: KNRM's embeddings,
+    Conv-KNRM's 2-gram convolution, TK's, TK-Sparse's and TKL's
+    contextualization (both sides at the query's positions)."""
+    import torch
+
+    from matchmaker_tpu_torch.ops.kernel_pooling import cosine_match_matrix, kernel_activations
+
+    with torch.no_grad():
+        emb = model.embedder(ids, mask)
+        if name == "knrm":
+            rep = emb
+        elif name == "conv_knrm":
+            rep = torch.relu(model.conv_2gram(emb))
+        else:
+            rep = model.contextualize(emb, mask, model.pos_q)
+        acts = kernel_activations(cosine_match_matrix(rep, rep), model.mu, model.sigma)[..., 0]
+    return torch.diagonal(acts, dim1=1, dim2=2)[mask > 0]
+
+
+def _card_vs_cpu(trainer, path, device, name, rows):
+    """The first eval batch of ``path`` (its first ``rows`` pairs) scored on
+    the card and on the CPU from the same weights: cosine >= 0.9999, max |d|
+    <= 1e-3; the exact-match guard on its queries (>= 0.99)."""
+    import copy
+
+    import torch
+
+    from matchmaker_tpu_torch.data.loaders import reranking_inference_loader
+
+    batch, _, _ = next(iter(reranking_inference_loader(trainer.config, trainer.tokenizer, path)))
+    batch = {k: torch.from_numpy(v[:rows]) for k, v in batch.items()}
+    trainer.model.eval()
+    cpu_model = copy.deepcopy(trainer.model).cpu()
+    with torch.inference_mode():
+        got = trainer.model({k: v.to(device) for k, v in batch.items()})["score"].float().cpu()
+        want = cpu_model(batch)["score"].float()
+    del cpu_model
+    cos = float(torch.nn.functional.cosine_similarity(got, want, dim=0))
+    err = float((got - want).abs().max())
+    acts = _exact_match_acts(trainer.model, name, batch["query_ids"].to(device), batch["query_mask"].to(device))
+    print(f"[pooling] {name}: {rows} pairs on the card vs the CPU: cosine {cos:.7f}, max |d| {err:.4g}; "
+          f"exact-match kernel activation of a token against itself: min {float(acts.min()):.6f} over {acts.numel()}")
+    check(cos >= 0.9999 and err <= 1e-3, f"{name}: card vs CPU scores: cosine {cos}, max |d| {err}")
+    check(float(acts.min()) >= 0.99, f"{name}: exact-match activation {float(acts.min())} on the card")
+    return {"cpu_cos": cos, "cpu_max_abs": err, "exact_match_min": float(acts.min())}
+
+
+def phase_pooling(sz, device, paths):
+    """Phase 10 (a): each kernel-pooling model through cli.train's Trainer
+    (``pool_steps`` steps, one validation, the test pass): a finite loss
+    every step, no encoder kernel launched, the run files, the scores of
+    one batch on the card against the CPU and the exact-match guard; TK and
+    KNRM also their triples/s device-only (CUDA events over 10 steps) and a
+    one-batch overfit (30 steps halve the loss)."""
+    result = {}
+    psz = dict(sz, train_batch=sz["pool_batch"])
+    for name in POOLING_MODELS:
+        config = _pooling_config(paths, sz, device, name)
+        folder = os.path.join(os.path.dirname(paths["glove"]), f"{name}_run")
+        trainer, res = _train_through_trainer(psz, device, config, folder, sz["pool_steps"], f"pooling {name}")
+        check(not any(res["launches"].values()), f"{name}: a kernel launched in a kernel-pooling run: "
+              f"{res['launches']}")
+        for rel in ("validation-metrics-cont.csv", "best-model.npz", "test-planted-output.txt",
+                    "test-planted-metrics.csv"):
+            check(os.path.isfile(os.path.join(folder, rel)), f"missing {rel} in the {name} run folder")
+        check(tuple(trainer.model.embedder.token_embedding.embedding.shape) == (sz["pool_vocab"], sz["pool_dim"]),
+              f"{name}: token table {tuple(trainer.model.embedder.token_embedding.embedding.shape)}")
+        res.update(_card_vs_cpu(trainer, config["test"]["planted"]["tsv"], device, name, sz["pool_cpu_rows"]))
+        if name in ("tk", "knrm"):
+            batch = _device_batch(config, trainer.tokenizer, config["train_tsv"], device)
+            res.update(_step_speed(psz, device, trainer, batch, f"pooling {name}"))
+            res.update(_overfit(psz, trainer, config, batch, f"pooling {name}", lr=1e-3))
+        print(f"[pooling] {name} {sz['pool_steps']} steps: loss {res['loss_first']:.4f} -> {res['loss_last']:.4f}, "
+              f"{res['cli_triples_per_s']:.1f} triples/s through the Trainer (validation included)"
+              + (f", {res['device_triples_per_s']:.1f} device-only" if "device_triples_per_s" in res else ""))
+        res.pop("profile", None)
+        result[name] = res
+        _free(trainer, device)
+    return result
+
+
+def _idcm_config(paths, sz, device, **kw):
+    """configs/train/defaults.yaml + models/idcm.yaml over a DistilBERT-width
+    encoder (random weights from a seed), bf16, fused layers, documents of
+    2,000 tokens (chunks of 50 + 2 x 7), query 30; no validation (the
+    phases below evaluate through evaluate_model)."""
+    from matchmaker_tpu_torch.config import auto_fill
+
+    return auto_fill({
+        "model": "idcm", "bert_pretrained_model": sz["model_name"], "random_seed": 1234, "use_fp16": True,
+        "encoder_fused_attention": True, "device": str(device), "enable_tensorboard": False, "loss": "ranknet",
+        "param_group0_learning_rate": 7.0e-6, "param_group1_learning_rate": 7.0e-4,
+        "embedding_optimizer_learning_rate": 7.0e-6, "weight_decay": 0.0, "lr_schedule": "cosine",
+        "optimizer_warmup_steps": 1000, "max_training_steps": 300000,
+        "batch_size_train": sz["idcm_batch"], "batch_size_eval": sz["rerank_eval_batch"],
+        "max_query_length": sz["rerank_query_len"], "epochs": 1, "validate_every_n_batches": -1,
+        "max_training_batches": sz["idcm_steps"], "train_tsv": paths["long_train"], "validation_metric": "MRR@10",
+        **IDCM_CONFIG, "max_doc_length": sz["pool_long_words"], "idcm_chunk_size": sz["chunk_size"],
+        "idcm_overlap": sz["chunk_overlap"], **kw})
+
+
+def predicted_idcm_launches(sz, train_steps=0, backward=True, eval_batches=0):
+    """K1/K2 once a layer and pass, K11/K12 once a layer and pass of a step
+    that trains BERT: a training step has two passes (positive, negative),
+    an eval batch one (the cascade over its B x sample_n selected chunks,
+    the full path over its B x C chunks); the CK sampler launches none."""
+    forward = (2 * train_steps + eval_batches) * sz["n_layers"]
+    train = 2 * train_steps * sz["n_layers"] if backward else 0
+    return {"fused_attention_block": forward, "fused_mlp_block": forward, "fused_attention_block_bwd": train,
+            "fused_mlp_block_bwd": train}
+
+
+def _eval_rate(step, config, tokenizer, path, device, tag, pairs):
+    """Pairs/s of evaluate_model over the tuples of ``path`` repeated to
+    about ``pairs`` (tokenized once beforehand, so the rate is the device
+    path and the batches' host work; a first pass over ``path`` alone takes
+    the cold costs outside the window) and its launches."""
+    import torch
+
+    from matchmaker_tpu_torch.data.loaders import reranking_inference_loader
+    from matchmaker_tpu_torch.evaluation import evaluate_model
+    from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
+    from matchmaker_tpu_torch.ops import _build
+
+    batches = list(reranking_inference_loader(config, tokenizer, path))
+    cache = {path: batches}
+    evaluate_model(step, config, tokenizer, path, device, cache)
+    cache[path] = batches * max(1, round(pairs / sum(len(qids) for _, qids, _ in batches)))
+    fresh_perf_monitor()
+    _build.reset_launches()
+    results = evaluate_model(step, config, tokenizer, path, device, cache)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    block = PerformanceMonitor.get().summary()["eval"]
+    n = sum(len(v) for v in results.values())
+    rate = n / block["total_seconds"]
+    print(f"[idcm] {tag}: {rate:.1f} pairs/s over {n} pairs ({len(cache[path])} batches of "
+          f"{config['batch_size_eval']}); launches {launches}")
+    return rate, launches, len(cache[path]), n
+
+
+def phase_idcm(sz, device, paths):
+    """Phase 10 (b): IDCM's two training stages and its cascade through
+    cli.train's Trainer and evaluate_model, DistilBERT width: stage 1 (BERT
+    on every chunk, MSETeacherPointwisePassages over the smoke's teacher
+    passage scores) with its launches and one step's gradients against the
+    plain versions'; stage 2 (selection training, kldivloss) warm-started
+    from stage 1 writing then replaying ``submodel_train_cache_path`` (the
+    replay launches no encoder kernel and gives the same losses); the
+    validation cache written then replayed; the cascade re-ranking at eval
+    batch 128 (launches, scores against the plain versions', MRR) and the
+    full path (``sample_n`` -1) over the same documents, each one's pairs/s
+    over the tuples repeated to ``idcm_timing_pairs``."""
+    import torch
+
+    from matchmaker_tpu_torch.evaluation import evaluate_model, validate_model
+    from matchmaker_tpu_torch.ops import _build
+    from matchmaker_tpu_torch.training.trainer import Trainer
+
+    result = {"launches": {}}
+    root = os.path.dirname(paths["glove"])
+    n_chunks = -(-sz["pool_long_words"] // sz["chunk_size"])
+    isz = dict(sz, train_batch=sz["idcm_batch"])
+    steps = sz["idcm_steps"]
+
+    def add(launches):
+        for k, v in launches.items():
+            result["launches"][k] = result["launches"].get(k, 0) + v
+
+    # stage 1
+    s1 = _idcm_config(paths, sz, device, idcm_sample_n=-1, loss="MSETeacherPointwisePassages",
+                      train_pairwise_distillation=True, max_training_passages=n_chunks,
+                      train_tsv=paths["idcm_train"])
+    s1_folder = os.path.join(root, "idcm_stage1")
+    trainer, res = _train_through_trainer(isz, device, s1, s1_folder, steps, "idcm stage 1")
+    add(res["launches"])
+    _check_launches(res["launches"], predicted_idcm_launches(sz, steps), "IDCM stage 1", device)
+    batch = _device_batch(s1, trainer.tokenizer, s1["train_tsv"], device)
+    check(tuple(batch["pos_passage_scores"].shape) == (sz["idcm_batch"], n_chunks), "teacher passage scores")
+    res.update(_step_speed(isz, device, trainer, batch, "idcm stage 1"))
+    res.pop("profile", None)
+    # the gradients on the batch's first rows: the plain versions under
+    # autograd keep f32 intermediates of every layer (the whole batch's two
+    # passes at (640, 94) would not fit on the card)
+    grad_batch = {k: v[:sz["idcm_grad_rows"]] for k, v in batch.items()}
+    res.update(_kernels_vs_plain_step(trainer.model, s1, grad_batch, s1, "idcm stage 1",
+                                      unreached=IDCM_STAGE1_UNREACHED))
+    print(f"[idcm] stage 1, {steps} steps of {sz['idcm_batch']} triples ({sz['idcm_batch']} x {n_chunks} chunks of "
+          f"{sz['rerank_query_len']} + {sz['chunk_size']} + 2 x {sz['chunk_overlap']} tokens a pass): loss "
+          f"{res['loss_first']:.4f} -> {res['loss_last']:.4f}, {res['cli_triples_per_s']:.1f} triples/s through the "
+          f"Trainer, {res['device_triples_per_s']:.1f} device-only")
+    result["stage1"] = res
+    stage1_weights = os.path.join(s1_folder, "best-model.npz")
+    _free(trainer, device)
+
+    # stage 2: write, then replay the train cache
+    cache = os.path.join(root, "idcm_train_cache")
+    s2 = _idcm_config(paths, sz, device, idcm_train_selection=True, warmstart_model_path=stage1_weights,
+                      submodel_train_cache_path=cache, batch_size_eval=sz["idcm_batch"])
+    runs = {}
+    for name in ("write", "replay"):
+        folder = os.path.join(root, f"idcm_stage2_{name}")
+        trainer, res = _train_through_trainer(isz, device, s2, folder, steps, f"idcm stage 2 {name}")
+        add(res["launches"])
+        _check_launches(res["launches"], predicted_idcm_launches(sz, steps if name == "write" else 0, False),
+                        f"IDCM stage 2 ({name})", device)
+        check(os.path.isfile(os.path.join(cache, "cache-meta.json")), "no train cache written")
+        with open(os.path.join(folder, "efficiency-metrics.json")) as f:
+            res["train_seconds"] = json.load(f)[-1]["blocks"]["train"]["total_seconds"]
+        runs[name] = (trainer, res)
+        if name == "write":
+            _free(trainer, device)
+    trainer, replay = runs["replay"]
+    write = runs["write"][1]
+    gap = abs(write["loss_last"] - replay["loss_last"]) / max(abs(write["loss_last"]), 1e-12)
+    print(f"[idcm] stage 2 (selection training, kldivloss), {steps} steps: write run {write['cli_triples_per_s']:.1f} "
+          f"triples/s, replay run {replay['cli_triples_per_s']:.1f} (no BERT); last loss {write['loss_last']:.6f} vs "
+          f"{replay['loss_last']:.6f}")
+    check(gap <= 1e-3, f"IDCM stage 2: the replay's last loss {replay['loss_last']} vs the write run's "
+          f"{write['loss_last']}")
+    result["stage2"] = {"write": write, "replay": replay, "loss_gap": gap}
+
+    # the validation cache: written, then replayed
+    vconfig = dict(s2, submodel_validation_cache_path=os.path.join(root, "idcm_val_cache"))
+    trainer.model.eval()
+    val = {}
+    for name in ("write", "replay"):
+        _build.reset_launches()
+        val[name] = evaluate_model(trainer.eval_step, vconfig, trainer.tokenizer, paths["long_val"], device)
+        launches = dict(_build.LAUNCHES)
+        add(launches)
+        n_batches = -(-sum(len(v) for v in val[name].values()) // vconfig["batch_size_eval"])
+        _check_launches(launches, predicted_idcm_launches(sz, eval_batches=n_batches if name == "write" else 0,
+                                                          backward=False), f"validation cache ({name})", device)
+    diff = max(abs(a[1] - b[1]) for q in val["write"] for a, b in zip(val["write"][q], val["replay"][q]))
+    check(diff <= 1e-5, f"the validation cache's replay moved a score by {diff}")
+    print(f"[idcm] validation cache written ({n_batches} batches of {vconfig['batch_size_eval']}, BERT on every "
+          f"chunk) and replayed with no encoder kernel; largest score change {diff:.3g}")
+    stage2_weights = os.path.join(root, "idcm_stage2_replay", "best-model.npz")
+    _free(trainer, device)
+
+    # the cascade and the full path over the same documents
+    rates = {}
+    for name, kw in (("cascade", {}), ("full", {"idcm_sample_n": -1, "batch_size_eval": sz["idcm_batch"]})):
+        config = _idcm_config(paths, sz, device, warmstart_model_path=stage2_weights, **kw)
+        os.makedirs(os.path.join(root, f"idcm_{name}"))
+        trainer = Trainer(config, os.path.join(root, f"idcm_{name}"))
+        trainer.model.eval()
+        rate, launches, n_batches, n_timed = _eval_rate(trainer.eval_step, config, trainer.tokenizer,
+                                                        paths["long_val"], device, name, sz["idcm_timing_pairs"])
+        add(launches)
+        _check_launches(launches, predicted_idcm_launches(sz, eval_batches=n_batches, backward=False),
+                        f"IDCM {name}", device)
+        rates[name] = {"pairs_per_s": rate, "timed_pairs": n_timed, "eval_batch": config["batch_size_eval"],
+                       "launches": launches}
+        if name == "cascade":
+            rates[name].update(_eval_batch_vs_plain(trainer, paths["long_val"], device, "idcm cascade"))
+            metrics, _, _ = validate_model("end", trainer.eval_step, config, trainer.tokenizer, trainer.run_folder,
+                                           {"tsv": paths["long_val"], "qrels": paths["qrels"],
+                                            "binarization_point": 1}, device)
+            rates[name]["MRR@10"] = float(metrics["MRR@10"])
+        _free(trainer, device)
+    result.update(rates)
+    print(f"[idcm] re-ranking {sz['pool_val_queries']} x {sz['pool_val_docs']} documents of "
+          f"{sz['pool_long_words']} tokens, the rates over {rates['cascade']['timed_pairs']} pairs: cascade "
+          f"(sample_n 3, batch {rates['cascade']['eval_batch']}) "
+          f"{rates['cascade']['pairs_per_s']:.1f} pairs/s, MRR@10 {rates['cascade']['MRR@10']:.4f}; full path "
+          f"(BERT on all {n_chunks} chunks, batch {rates['full']['eval_batch']}) {rates['full']['pairs_per_s']:.1f} "
+          f"pairs/s")
+    return result
+
+
+def phase_kernel_pooling(sz, device, root):
+    """Phase 10: (a) the kernel-pooling family, (b) IDCM."""
+    t0 = time.perf_counter()
+    paths = _pooling_data(root, sz)
+    data_s = time.perf_counter() - t0
+    print(f"[pooling] data written in {data_s:.1f} s: a {sz['pool_vocab']}-entry vocabulary, {sz['pool_glove_rows']} "
+          f"embedding rows of {sz['pool_dim']}, documents of {sz['pool_long_words']} tokens for TKL and IDCM")
+    result = {"data_s": data_s, "pooling": phase_pooling(sz, device, paths)}
+    result["idcm"] = phase_idcm(sz, device, paths)
+    result["launches"] = result["idcm"]["launches"]
+    return result
+
+
 # ---- phase 7: the probes' own path ---------------------------------------------
 
 # the probe that launches each probe kernel
@@ -3395,6 +3858,10 @@ def run_phases(sz, device, card: str) -> dict:
     with tempfile.TemporaryDirectory() as root:
         report["rerank"] = phase_rerank(sz, device, root)
     report["rerank_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        report["pooling"] = phase_kernel_pooling(sz, device, root)
+    report["pooling_s"] = time.perf_counter() - t0
     check(set(report["main"]["launches"]) == {k[0] for k in KERNELS}, "a kernel without an entry")
     report["kernels"] = []
     for name, src, rep, inc in KERNELS:
@@ -3403,7 +3870,8 @@ def run_phases(sz, device, card: str) -> dict:
         # K7: the two-stage run), the ColBERT serving run (K14) or the
         # training run, or for K15-K18 their probe's run; K13 lies on no
         # path; "launches_rerank": phase 9's runs (K1, K2, K11, K12 and the
-        # student's dense retrieval); "launches_scale": the scale search of the same route (bf16
+        # student's dense retrieval); "launches_phase10": phase 10's IDCM runs
+        # (K1, K2, K11, K12); "launches_scale": the scale search of the same route (bf16
         # or int8; training and the probes: the bf16)
         runs = {"serve": report["main"]["launches"][name], "train": report["train"]["launches"][name],
                 **{f"serve_int8_{r}": report["main_int8"][r]["launches"][name] for r, _, _ in INT8_RUNS},
@@ -3411,7 +3879,8 @@ def run_phases(sz, device, card: str) -> dict:
                 "train_colbert": report["train_colbert"]["launches"][name],
                 "recipe": report["recipe"]["launches"][name],
                 "probes": report["probes"]["launches"].get(name, 0),
-                "rerank": report["rerank"]["launches"].get(name, 0)}
+                "rerank": report["rerank"]["launches"].get(name, 0),
+                "phase10": report["pooling"]["launches"].get(name, 0)}
         scale_runs = {"scale_bf16": report["scale"]["launches"][name],
                       **{f"scale_int8_{r}": report["scale_int8"][r]["launches"][name]
                          for r, _, _ in SCALE_INT8_RUNS}}
@@ -3463,6 +3932,31 @@ def print_rerank(card, report) -> None:
         r = rr[model]
         print(f"[{card}] {model}: {r['cli_triples_per_s']:.1f} triples/s through the Trainer, eval scores vs plain "
               f"cosine {r['eval_cos']:.6f} max |d| {r['eval_max_abs']:.4g}")
+
+
+def print_pooling(card, report) -> None:
+    pool, idcm = report["pooling"]["pooling"], report["pooling"]["idcm"]
+    for name in ("tk", "knrm"):
+        r = pool[name]
+        print(f"[{card}] {name.upper()} train {r['cli_triples_per_s']:.1f} triples/s through cli.train's Trainer "
+              f"(validation included), {r['device_triples_per_s']:.1f} triples/s device-only at batch "
+              f"{FULL['pool_batch']} (query {FULL['rerank_query_len']}, doc {FULL['rerank_doc_len']}, "
+              f"{FULL['pool_vocab']} x {FULL['pool_dim']} embeddings); overfit {r['overfit_first']:.4g} -> "
+              f"{r['overfit_last']:.4g}")
+    print(f"[{card}] kernel pooling, card vs CPU scores (worst cosine "
+          f"{min(pool[n]['cpu_cos'] for n in POOLING_MODELS):.7f}, max |d| "
+          f"{max(pool[n]['cpu_max_abs'] for n in POOLING_MODELS):.3g}); exact-match activation min "
+          f"{min(pool[n]['exact_match_min'] for n in POOLING_MODELS):.6f}; TKL "
+          f"{pool['tkl']['cli_triples_per_s']:.1f} triples/s through the Trainer")
+    s1 = idcm["stage1"]
+    print(f"[{card}] IDCM cascade {idcm['cascade']['pairs_per_s']:.1f} pairs/s at batch "
+          f"{idcm['cascade']['eval_batch']}, full path {idcm['full']['pairs_per_s']:.1f} pairs/s at batch "
+          f"{idcm['full']['eval_batch']} ({FULL['pool_long_words']}-token documents); cascade vs plain cosine "
+          f"{idcm['cascade']['eval_cos']:.6f} max |d| {idcm['cascade']['eval_max_abs']:.4g}; stage 1 "
+          f"{s1['device_triples_per_s']:.1f} triples/s device-only, {s1['cli_triples_per_s']:.1f} through the "
+          f"Trainer, worst gradient cosine {s1['plain_grad_cos']:.6f}; stage 2 replay "
+          f"{idcm['stage2']['replay']['cli_triples_per_s']:.1f} triples/s (write "
+          f"{idcm['stage2']['write']['cli_triples_per_s']:.1f})")
 
 
 def main() -> int:
@@ -3520,12 +4014,14 @@ def main() -> int:
           f"recall@{FULL['colbert_candidates']} {col['token_recall']:.4f}, recall@{FULL['colbert_top_n']} vs "
           f"exhaustive MaxSim {col['recall@10_vs_exhaustive']:.4f}")
     print_rerank(card, report)
+    print_pooling(card, report)
     for k in report["kernels"]:
         device = (f" (device {k['device_ms']:.4f} ms, {k['x_bound']:.2f}x bound; library device "
                   f"{_fmt(k.get('library_device_ms'))})" if k.get("x_bound") else "")
         print(f"[{card}] {k['name']}: kernel {k['ms']:.4f} ms{device}, plain {k['plain_ms']:.4f} ms, bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}) at {k['timed_shape']}, max |d| {k['max_abs_err']:.3g}, "
               f"launches {k['launches']} in its path's run ({k['path']}), {k['launches_rerank']} in phase 9's runs, "
+              f"{k['launches_phase10']} in phase 10's, "
               f"{k['launches_scale']} in the scale search")
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

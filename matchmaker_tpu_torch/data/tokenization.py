@@ -1,12 +1,15 @@
 """Host-side tokenization producing fixed-shape int32 arrays: the port's copy
-of the transformer half of ``matchmaker_tpu/data/tokenization.py``.
+of ``matchmaker_tpu/data/tokenization.py``.
 
+- ``Vocabulary`` / ``VocabTokenizer``: word tokenization and a vocabulary
+  lookup (ids 0/1 reserved for PAD/OOV) for the vocabulary-embedding models
+  (KNRM, TK, ...), with ``mask_oov`` and a per-token idf table
+  (``idf_path``, TKL's ``query_idfs``);
 - ``HuggingfaceTokenizer``: a locally available Hugging Face ``AutoTokenizer``
   (``transformers`` imported when one is built);
 - ``HashBertTokenizer``: the offline stand-in with BERT's special-token
   layout, words hashed into the vocabulary;
-- ``build_tokenizer``: the factory; vocabulary-embedding models
-  (``token_embedder_type: embedding``) are not ported yet.
+- ``build_tokenizer``: the factory, keyed on ``token_embedder_type``.
 
 Everything returns (ids, mask) numpy arrays already padded to the configured
 max length.
@@ -15,7 +18,7 @@ max length.
 from __future__ import annotations
 
 import re
-from typing import List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -30,6 +33,105 @@ class WhitespaceTokenizer:
 
     def tokenize(self, text: str) -> List[str]:
         return _WORD_RE.findall(text.lower())
+
+
+class Vocabulary:
+    """token -> id mapping with reserved PAD=0 and OOV=1."""
+
+    def __init__(self, tokens: Optional[Iterable[str]] = None):
+        self.token_to_id: Dict[str, int] = {"@@PADDING@@": PAD_ID, "@@UNKNOWN@@": OOV_ID}
+        if tokens is not None:
+            for t in tokens:
+                self.add(t)
+
+    def add(self, token: str) -> int:
+        if token not in self.token_to_id:
+            self.token_to_id[token] = len(self.token_to_id)
+        return self.token_to_id[token]
+
+    def __len__(self) -> int:
+        return len(self.token_to_id)
+
+    def __getitem__(self, token: str) -> int:
+        return self.token_to_id.get(token, OOV_ID)
+
+    @classmethod
+    def from_file(cls, path: str) -> "Vocabulary":
+        """One token per line (reference vocab-file format, preprocessing/generate_vocab.py)."""
+        v = cls()
+        with open(path, "r", encoding="utf-8") as f:
+            for line in f:
+                tok = line.rstrip("\n")
+                if tok and tok not in ("@@PADDING@@", "@@UNKNOWN@@"):
+                    v.add(tok)
+        return v
+
+    def save(self, path: str) -> None:
+        with open(path, "w", encoding="utf-8") as f:
+            for tok, idx in sorted(self.token_to_id.items(), key=lambda kv: kv[1]):
+                if idx >= 2:
+                    f.write(tok + "\n")
+
+
+class VocabTokenizer:
+    """Whitespace tokenization + vocab lookup → fixed-shape (ids, mask).
+
+    ``mask_oov`` replicates the reference's GloVe-model mask rule of treating
+    OOV like padding in the match matrix (modules/neuralIR_encoder.py:29-43).
+    """
+
+    def __init__(self, vocab: Vocabulary, mask_oov: bool = False, idf_path: Optional[str] = None):
+        self.vocab = vocab
+        self.words = WhitespaceTokenizer()
+        self.mask_oov = mask_oov
+        # per-token idf table for PACRR/CO-PACRR/Duet (reference
+        # models/all.py:106-117 loads idfs as a 1-dim pretrained embedding)
+        self.idf_lookup: Optional[np.ndarray] = None
+        if idf_path:
+            self.idf_lookup = np.zeros(len(vocab), dtype=np.float32)
+            with open(idf_path, "r", encoding="utf-8") as f:
+                for line in f:
+                    parts = line.rstrip("\n").split(" ")
+                    if len(parts) == 2 and parts[0] in vocab.token_to_id:
+                        self.idf_lookup[vocab.token_to_id[parts[0]]] = float(parts[1])
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.vocab)
+
+    @property
+    def pad_id(self) -> int:
+        return PAD_ID
+
+    def encode(self, text: str, max_length: int) -> Tuple[np.ndarray, np.ndarray]:
+        ids = np.full(max_length, PAD_ID, dtype=np.int32)
+        toks = self.words.tokenize(text)[:max_length]
+        for i, t in enumerate(toks):
+            ids[i] = self.vocab[t]
+        mask = ids != PAD_ID
+        if self.mask_oov:
+            mask &= ids != OOV_ID
+        return ids, mask.astype(np.float32)
+
+    def encode_with_offsets(self, text: str, max_length: int):
+        ids, mask = self.encode(text, max_length)
+        offsets = [(m.start(), m.end()) for m in _WORD_RE.finditer(text.lower())][:max_length]
+        offsets += [None] * (max_length - len(offsets))
+        return ids, mask, offsets
+
+    def encode_batch(self, texts, max_length: int):
+        ids = np.full((len(texts), max_length), PAD_ID, dtype=np.int32)
+        for t, text in enumerate(texts):
+            toks = self.words.tokenize(text)[:max_length]
+            for i, tok in enumerate(toks):
+                ids[t, i] = self.vocab[tok]
+        mask = ids != PAD_ID
+        if self.mask_oov:
+            mask &= ids != OOV_ID
+        return ids, mask.astype(np.float32)
+
+    def encode_pair(self, query: str, doc: str, max_q: int, max_d: int):
+        raise NotImplementedError("embedding-based models use independent inputs")
 
 
 def char_spans_to_token_labels(
@@ -228,13 +330,18 @@ class HashBertTokenizer:
 
 
 def build_tokenizer(config):
-    """Tokenizer factory keyed on ``token_embedder_type``: a local Hugging
-    Face tokenizer, else the hash-vocab tokenizer sized to the encoder's
+    """Tokenizer factory keyed on ``token_embedder_type``: a vocabulary
+    tokenizer for ``embedding`` (``vocab_directory`` or ``vocab_path``), a
+    local Hugging Face tokenizer, else the hash-vocab tokenizer sized to the encoder's
     vocabulary so ids stay in range (zero-egress fallback, as in the JAX
     package)."""
     kind = config.get("token_embedder_type", "huggingface_bpe")
     if kind == "embedding":
-        raise NotImplementedError("vocabulary-embedding models are not ported yet (ROADMAP.md)")
+        vocab_path = config.get("vocab_directory") or config.get("vocab_path")
+        if vocab_path is None:
+            raise ValueError("embedding token_embedder_type requires vocab_path")
+        return VocabTokenizer(Vocabulary.from_file(vocab_path), mask_oov=config.get("mask_oov", False),
+                              idf_path=config.get("idf_path"))
     name = config.get("bert_pretrained_model", "distilbert-base-uncased")
     try:
         return HuggingfaceTokenizer(name)

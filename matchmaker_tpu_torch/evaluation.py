@@ -8,9 +8,12 @@ battery and the candidate-depth sweep and appends the metrics CSV,
 ``save_secondary_output``, the model's secondary (interpretability) tensors
 of each query's top-ranked pairs as ``<test name>-secondary.npz``. Tokenized
 batches can be kept across validations in a cache the caller owns. The port
-runs one process, so every file is written by it. QA answer evaluation is
-not ported yet (ROADMAP.md, queue 1 item 6), nor is the submodel validation
-cache (queue 1 item 10).
+runs one process, so every file is written by it. With
+``submodel_validation_cache_path`` the first pass writes IDCM's chunk scores
+(the model's ``passage_scores``) to a replay cache and every later pass
+(also in a later run) hands them back to the model as ``bert_part_cached``,
+batch by batch in the same order (utils/replay_cache.py). QA answer
+evaluation is not ported yet (ROADMAP.md, queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from matchmaker_tpu_torch.metrics import (
     unrolled_to_ranked_result,
 )
 from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
+from matchmaker_tpu_torch.utils.replay_cache import CrossExperimentReplayCache
 
 _QA_NOT_PORTED = "QA answer evaluation is not ported yet (ROADMAP.md, queue 1 item 6)"
 
@@ -42,8 +46,6 @@ def evaluate_model(eval_step: Callable, config, tokenizer, tuples_path: str, dev
     ``cache`` dict the tokenized batches of ``tuples_path`` are kept in it.
     With ``output_secondary`` returns (results, secondary), the latter
     {"qid<->did": {name: array}} from the model's ``secondary`` outputs."""
-    if config.get("submodel_validation_cache_path"):
-        raise NotImplementedError("the submodel validation cache is not ported yet (ROADMAP.md, queue 1 item 10)")
     perf = PerformanceMonitor.get()
     if cache is not None and tuples_path in cache:
         batches = cache[tuples_path]
@@ -51,12 +53,22 @@ def evaluate_model(eval_step: Callable, config, tokenizer, tuples_path: str, dev
         batches = reranking_inference_loader(config, tokenizer, tuples_path)
         if cache is not None:
             batches = cache[tuples_path] = list(batches)
+    replay, replay_write = None, False
+    replay_path = config.get("submodel_validation_cache_path")
+    if replay_path:
+        replay_write = not os.path.exists(os.path.join(replay_path, "cache-meta.json"))
+        replay = CrossExperimentReplayCache(replay_path, write=replay_write)
+        if not replay_write:
+            batches = replay_cached(batches, replay, lambda item, scores: (dict(item[0], bert_part_cached=scores),
+                                                                           *item[1:]))
     results: Dict[str, List[Tuple[str, float]]] = {}
     secondary: Dict[str, dict] = {}
     n = 0
     perf.start_block("eval")
     for batch, qids, dids in device_prefetch(iter(batches), device):
         out = eval_step(batch, output_secondary=True) if output_secondary else eval_step(batch)
+        if replay_write and "passage_scores" in out:
+            replay.cache(out["passage_scores"].float().cpu().numpy())
         scores = out["score"].float().cpu().numpy()
         for i, (qid, did) in enumerate(zip(qids, dids)):
             results.setdefault(qid, []).append((did, float(scores[i])))
@@ -67,7 +79,18 @@ def evaluate_model(eval_step: Callable, config, tokenizer, tuples_path: str, dev
             for i, (qid, did) in enumerate(zip(qids, dids)):
                 secondary[f"{qid}<->{did}"] = {k: v[i] for k, v in sec.items()}
     perf.stop_block("eval", n)
+    if replay_write:
+        replay.finish()
     return (results, secondary) if output_secondary else results
+
+
+def replay_cached(items, replay, attach):
+    """Each of ``items`` with the replay cache's next chunk scores (f32)
+    attached by ``attach(item, scores)``, which the model reads in place of
+    its BERT part (IDCM's ``bert_part_cached``)."""
+    for item in items:
+        cached = replay.get_next()
+        yield item if cached is None else attach(item, np.array(cached, np.float32))
 
 
 def validate_model(kind: str, eval_step, config, tokenizer, run_folder: str, validation_config: dict,

@@ -1,11 +1,16 @@
 """Model factory: counterpart of ``matchmaker_tpu/models/__init__.py``.
 
-The BERT_DOT family, ColBERT and the transformer re-rankers (BERT_CAT,
-PreTTR, PARADE) are ported, as are the ``maxP->`` / ``meanP->`` chunk
-adapters around any of them. Every other model raises
-``NotImplementedError`` naming the ROADMAP.md item that holds it. A local
-Hugging Face checkpoint named by ``bert_pretrained_model`` is imported into
-every encoder of the model (models/hf_import.py).
+The BERT_DOT family, ColBERT, the transformer re-rankers (BERT_CAT,
+PreTTR, PARADE), the kernel-pooling family (KNRM, Conv-KNRM, TK, TKL,
+TK-Sparse) and IDCM are ported, as are the ``maxP->`` / ``meanP->`` chunk
+adapters around any of them. Every other model, and the
+``bert_embedding`` / ``bert_vectors`` token embedders, raise
+``NotImplementedError`` naming the ROADMAP.md item that holds them. The
+vocabulary models take ``token_embedder_type: embedding`` with an optional
+text-format ``pre_trained_embedding`` file (GloVe's format,
+``load_glove_embeddings``). A local Hugging Face checkpoint named by
+``bert_pretrained_model`` is imported into every encoder of the model
+(models/hf_import.py).
 """
 
 from __future__ import annotations
@@ -20,9 +25,15 @@ from matchmaker_tpu_torch.models.adapters import ChunkPoolAdapter
 from matchmaker_tpu_torch.models.bert_cat import BertCat
 from matchmaker_tpu_torch.models.bert_dot import BertDot, BertDotDualEncoder
 from matchmaker_tpu_torch.models.colbert import ColBert
+from matchmaker_tpu_torch.models.conv_knrm import ConvKNRM
 from matchmaker_tpu_torch.models.hf_import import encoder_checkpoint_available, load_hf_encoder
+from matchmaker_tpu_torch.models.idcm import IDCM, IDCMInferenceOnly
+from matchmaker_tpu_torch.models.knrm import KNRM
 from matchmaker_tpu_torch.models.parade import Parade
 from matchmaker_tpu_torch.models.prettr import PreTTR
+from matchmaker_tpu_torch.models.tk import TK
+from matchmaker_tpu_torch.models.tk_sparse import TKSparse
+from matchmaker_tpu_torch.models.tkl import TKL
 from matchmaker_tpu_torch.models.weights import init_parameters
 
 _REGISTRY = {
@@ -32,16 +43,39 @@ _REGISTRY = {
     "colbert": ColBert,
     "parade": Parade,
     "prettr": PreTTR,
+    "idcm": IDCM,
+    "idcm_inference_only": IDCMInferenceOnly,
+    "knrm": KNRM,
+    "conv_knrm": ConvKNRM,
+    "tk": TK,
+    "tkl": TKL,
+    "tk_sparse": TKSparse,
 }
 # the JAX package's other models, by the ROADMAP.md item that holds them
-_QUEUED = dict.fromkeys(("knrm", "conv_knrm", "tk", "tkl", "tk_sparse", "idcm", "idcm_inference_only", "pacrr",
-                         "co_pacrr", "duet", "drmm", "matchpyramid"), "queue 1 item 10")
+_QUEUED = dict.fromkeys(("pacrr", "co_pacrr", "duet", "drmm", "matchpyramid"), "queue 1 item 10")
 _ENCODER_SLOTS = ("encoder", "query_encoder", "doc_encoder")
 
 
 def model_base_name(name: str) -> str:
     """Strip adapter prefixes: ``maxP->bert_dot`` → ``bert_dot``."""
     return name.split("->")[-1].strip().lower()
+
+
+def load_glove_embeddings(path: str, vocab, dim: int) -> np.ndarray:
+    """Text-format embedding file (``token v1 v2 ...``) → (vocab, dim) matrix.
+    Unseen tokens get small random vectors; PAD row stays zero."""
+    rng = np.random.default_rng(42)
+    mat = rng.normal(0.0, 0.1, size=(len(vocab), dim)).astype(np.float32)
+    mat[0] = 0.0
+    with open(path, "r", encoding="utf-8") as f:
+        for line in f:
+            parts = line.rstrip("\n").split(" ")
+            if len(parts) != dim + 1:
+                continue
+            tok = parts[0]
+            if tok in vocab.token_to_id:
+                mat[vocab.token_to_id[tok]] = np.asarray(parts[1:], dtype=np.float32)
+    return mat
 
 
 def get_model(config, tokenizer) -> nn.Module:
@@ -54,13 +88,19 @@ def get_model(config, tokenizer) -> nn.Module:
         raise ValueError(f"Model not known: {config['model']}")
     if wrapper not in (None, "maxp", "meanp"):
         raise ValueError(f"unknown model adapter {wrapper!r} in {config['model']!r}")
-    if config.get("token_embedder_type") in ("embedding", "bert_embedding", "bert_vectors"):
+    if config.get("token_embedder_type") in ("bert_embedding", "bert_vectors"):
         raise NotImplementedError(
             f"token_embedder_type {config['token_embedder_type']!r} is not ported yet (ROADMAP.md, queue 1 item 10)")
-    model = _REGISTRY[name].from_config(config)
-    vocab = model.encoder_cfg.vocab_size
-    if tokenizer.vocab_size > vocab:
-        raise ValueError(f"tokenizer vocabulary {tokenizer.vocab_size} exceeds the encoder's {vocab}")
+    pretrained = None
+    if config.get("token_embedder_type") == "embedding" and config.get("pre_trained_embedding"):
+        pretrained = load_glove_embeddings(config["pre_trained_embedding"], tokenizer.vocab,
+                                           config.get("token_embedding_size", 300))
+    # as in the JAX package: the vocabulary models size their token table by
+    # ``_vocab_size``; the encoder models ignore it and ``pretrained``
+    model = _REGISTRY[name].from_config(dict(config, _vocab_size=tokenizer.vocab_size), pretrained)
+    encoder_cfg = getattr(model, "encoder_cfg", None)
+    if encoder_cfg is not None and tokenizer.vocab_size > encoder_cfg.vocab_size:
+        raise ValueError(f"tokenizer vocabulary {tokenizer.vocab_size} exceeds the encoder's {encoder_cfg.vocab_size}")
     if wrapper is not None:
         model = ChunkPoolAdapter.from_config(config, model, pool=wrapper[:-1])
     return model

@@ -45,7 +45,7 @@ class BertCat(Ranker):
         self.score_layer = ScoreLayer(encoder_cfg.hidden_size, use_bias=False)
 
     @classmethod
-    def from_config(cls, config):
+    def from_config(cls, config, pretrained=None):
         if config.get("train_qa_spans", False):
             raise NotImplementedError("the QA heads of bert_cat (train_qa_spans) are not ported yet "
                                       "(ROADMAP.md, queue 1 item 6)")

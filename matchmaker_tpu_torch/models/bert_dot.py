@@ -92,7 +92,7 @@ class BertDot(_DotEncoder):
         self.encoder = TransformerEncoderLM(encoder_cfg, self.compute_dtype)
 
     @classmethod
-    def from_config(cls, config):
+    def from_config(cls, config, pretrained=None):
         return cls(**_kwargs_from_config(
             config, config.get("in_batch_negatives", False) or config.get("_always_return_vecs", False)))
 
@@ -109,7 +109,7 @@ class BertDotDualEncoder(_DotEncoder):
         self.doc_encoder = TransformerEncoderLM(encoder_cfg, self.compute_dtype)
 
     @classmethod
-    def from_config(cls, config):
+    def from_config(cls, config, pretrained=None):
         return cls(**_kwargs_from_config(config, config.get("in_batch_negatives", False)))
 
     def tower(self, sequence_type: str) -> TransformerEncoderLM:

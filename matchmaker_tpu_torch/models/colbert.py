@@ -38,7 +38,7 @@ class ColBert(Ranker):
         self.compressor = Dense(encoder_cfg.hidden_size, compression_dim)
 
     @classmethod
-    def from_config(cls, config):
+    def from_config(cls, config, pretrained=None):
         return cls(
             encoder_cfg=encoder_config_from_model_name(config),
             compression_dim=config.get("colbert_compression_dim", 768),

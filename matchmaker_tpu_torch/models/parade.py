@@ -43,7 +43,7 @@ class Parade(Ranker):
         self.score_reduction = ScoreLayer(hid, use_bias=True)
 
     @classmethod
-    def from_config(cls, config):
+    def from_config(cls, config, pretrained=None):
         return cls(encoder_config_from_model_name(config), config.get("parade_aggregate_type", "tf"),
                    config.get("parade_aggregate_layers", 2), config.get("idcm_chunk_size", 50),
                    config.get("idcm_overlap", 7), compute_dtype_of(config))

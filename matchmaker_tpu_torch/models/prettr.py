@@ -29,7 +29,7 @@ class PreTTR(Ranker):
         self.score_layer = ScoreLayer(encoder_cfg.hidden_size, use_bias=False)
 
     @classmethod
-    def from_config(cls, config):
+    def from_config(cls, config, pretrained=None):
         return cls(encoder_config_from_model_name(config), config.get("prettr_join_layer_idx", 3),
                    compute_dtype_of(config))
 

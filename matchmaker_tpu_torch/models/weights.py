@@ -15,8 +15,15 @@ other parameter keeps its flax shape: ColBERT's ``compressor`` kernel (hid,
 dim) and bias, the re-rankers' ``score_layer`` / ``score_reduction`` kernels
 (hid, 1), PARADE's ``agg_cls`` (1, 1, hid), the MLM head's ``mlm_transform``
 / ``mlm_norm`` and its top-level vocabulary bias ``mlm_bias``
-(``modules/mlm_head.py``). A chunk adapter's inner model sits under
-``inner``. A ``.npz`` holds the port's arrays keyed by the flax path.
+(``modules/mlm_head.py``). A flax ``nn.Conv`` kernel (n, in, out) is
+stored (out, in, n), as ``nn.Conv1d`` stores its weight (Conv-KNRM's
+``conv_{n}gram``, IDCM's ``sample_cnn3``: modules/conv.py). The kernel-pooling
+family's scalars and rows (``mixer``, ``mixer_stop``,
+``kernel_alpha_scaler``, ``kernel_mult``, ``chunk_scoring``,
+``top_k_scoring``) and the token table
+(``embedder/token_embedding/embedding``) keep their flax shapes. A chunk
+adapter's inner model sits under ``inner``. A ``.npz`` holds the port's
+arrays keyed by the flax path.
 """
 
 from __future__ import annotations
@@ -30,6 +37,13 @@ import torch.nn as nn
 # flax's truncated-normal variance scaling divides by this (std of a unit
 # normal truncated to [-2, 2])
 _TRUNC_STD = 0.87962566103423978
+# the JAX modules' own initialisers, by the parameter's last two path parts
+# (or its name): U(-a, a) kernels of the kernel-pooling heads, the
+# constants of the learned scalars and rows, TK-Sparse's gate bias 1, the
+# token table's normal(0.1)
+_UNIFORM = {"kernel_weights.kernel": 0.014, "kernel_bin_weights.kernel": 0.014, "sampling_binweights.kernel": 0.01}
+_CONSTANT = {"mixer": 0.5, "mixer_stop": 0.5, "kernel_alpha_scaler": 1.0, "kernel_mult": 1.0, "chunk_scoring": 1.0,
+             "top_k_scoring": 1.0, "stop_word_reducer2.bias": 1.0}
 
 
 def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -62,6 +76,8 @@ def _port_shape(path: str, arr: np.ndarray) -> np.ndarray:
                 return arr.reshape(arr.shape[0], -1)
             if leaf == "bias" and arr.ndim == 2:  # (h, d)
                 return arr.reshape(-1)
+    if parts[-1] == "kernel" and arr.ndim == 3:  # a Conv's (n, in, out)
+        return arr.transpose(2, 1, 0)
     return arr
 
 
@@ -87,12 +103,27 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initialiser distributions, drawn from ``generator``:
     kernels lecun-normal (truncated normal, std sqrt(1/fan_in)/0.8796,
     cut at ±2 std; fan_in the input width, rows of an (in, out) kernel,
-    columns of an (out, in) ``self_attention`` one), embeddings normal with
-    std sqrt(1/features), PARADE's ``agg_cls`` normal with std 0.02, biases
-    zero, LayerNorm scales one."""
+    columns of an (out, in) ``self_attention`` one, in x n of an (out, in, n)
+    convolution), embeddings normal with std sqrt(1/features), PARADE's
+    ``agg_cls`` normal with std 0.02, biases zero, LayerNorm scales one; the
+    kernel-pooling family's own (``_UNIFORM``, ``_CONSTANT``, the token
+    table normal(0.1)), then a ``TokenEmbedder``'s ``pretrained`` matrix
+    (GloVe) copied into its table."""
+    from matchmaker_tpu_torch.modules.embedder import TokenEmbedder
+
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "kernel":
+        last_two = ".".join(name.split(".")[-2:])
+        if last_two in _UNIFORM:
+            p.uniform_(-_UNIFORM[last_two], _UNIFORM[last_two], generator=generator)
+        elif leaf in _CONSTANT or last_two in _CONSTANT:
+            p.fill_(_CONSTANT.get(last_two, _CONSTANT.get(leaf)))
+        elif last_two == "token_embedding.embedding":
+            p.normal_(0.0, 0.1, generator=generator)
+        elif leaf == "kernel" and p.dim() == 3:  # a convolution's (out, in, n)
+            std = (1.0 / (p.shape[1] * p.shape[2])) ** 0.5 / _TRUNC_STD
+            nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        elif leaf == "kernel":
             fan_in = p.shape[1] if ".self_attention." in name else p.shape[0]
             std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
             nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
@@ -106,3 +137,6 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
             p.zero_()
         else:
             raise ValueError(f"no initialiser for parameter {name}")
+    for module in model.modules():
+        if isinstance(module, TokenEmbedder) and module.pretrained is not None:
+            module.token_embedding.embedding.copy_(torch.from_numpy(module.pretrained))

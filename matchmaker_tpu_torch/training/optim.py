@@ -13,7 +13,10 @@ labels "embedding", "encoder" and "head". Here the same update, step for step:
   as optax evaluates it, so step 0 of a warmup runs at lr 0;
 - ``torch.optim.AdamW`` per group computes optax's ``adamw`` update
   ``-lr·(adam + wd·p)`` from the pre-step parameters (every parameter of a
-  group decayed, the "embedding" group with weight decay 0);
+  group decayed, the "embedding" group with weight decay 0); a parameter
+  the loss does not reach (IDCM's sampler in stage 1) gets a zero gradient,
+  as optax sees it, so it is decayed and its step count kept with the
+  others' (``torch.optim.AdamW`` skips a parameter without a gradient);
 - clipping scales every gradient by ``max/norm`` when ``norm > max``
   (optax's formula, not ``clip_grad_norm_``'s ``max/(norm + 1e-6)``).
 """
@@ -99,6 +102,9 @@ class Optimizer:
             for p in self.params:
                 if p.grad is not None:
                     p.grad.mul_(factor)
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         for group in self.adamw.param_groups:
             group["lr"] = self.schedules[group["label"]](self.count)
         self.adamw.step()

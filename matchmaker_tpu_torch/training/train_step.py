@@ -5,18 +5,25 @@ One step is the packed triple forward (``forward_triple``: one query pass,
 one 2B-row document pass) where the model has one (BERT_DOT, ColBERT), else
 two passes, one over the positive and one over the negative pairs
 (``split_triple_batch``: concatenated cross-encoder triples, PreTTR, PARADE,
-the chunk adapters), the ranking loss, the optional term-level
+the chunk adapters, the kernel-pooling family, IDCM), the ranking loss (a
+passage loss, ``MSETeacherPointwisePassages`` or
+``MarginMSE_InterPassageLoss``, over the models' per-chunk
+``passage_scores`` against the batch's teacher passage scores), IDCM's
+``selection_loss`` (the mean of the two passes'), the optional term-level
 distillation (the student's per-term MaxSim against a dynamic teacher's),
 the optional in-batch negative loss over the B × 2B score matrix of the
 queries against [d_pos; d_neg] (q·dᵀ for single vectors, the all-pairs
 MaxSim for ColBERT's token vectors: K14's training form and its backward
 kernel on a card), pairwise (positive = diagonal, hardest negative) or
 listwise against the dynamic teacher's matrix (``[I | 0]`` without one),
-backward (through the fused layers' backward kernels on a card), the global
-gradient norm before clipping, and the optimizer update. The branches of
-the JAX loss that the port does not run yet raise ``NotImplementedError``
-naming their ROADMAP.md item: list batches, passage losses, sparsity (the
-top-level listwise and the QA losses already raise in ``get_loss``).
+TK-Sparse's sparsity loss (``minimize_sparsity_weight`` x the mean |gate|
+of the two passes), backward (through the fused layers' backward kernels on
+a card), the global gradient norm before clipping, and the optimizer
+update, in the JAX loss's order. With ``submodel_train_cache_path`` the
+passage scores are handed to the trainer's replay cache (``_cache_*``
+stats). List batches raise ``NotImplementedError`` naming their ROADMAP.md
+item (the top-level listwise and the QA losses already raise in
+``get_loss``).
 """
 
 from __future__ import annotations
@@ -37,8 +44,14 @@ def split_triple_batch(batch):
         neg = {"seq_ids": batch["neg_ids"], "seq_mask": batch["neg_mask"], "seq_type_ids": batch["neg_type_ids"]}
     else:
         query = {"query_ids": batch["query_ids"], "query_mask": batch["query_mask"]}
+        if "query_idfs" in batch:
+            query["query_idfs"] = batch["query_idfs"]
         pos = {**query, "doc_ids": batch["doc_pos_ids"], "doc_mask": batch["doc_pos_mask"]}
         neg = {**query, "doc_ids": batch["doc_neg_ids"], "doc_mask": batch["doc_neg_mask"]}
+        # IDCM's chunk scores replayed from the train cache
+        if "bert_part_cached_pos" in batch:
+            pos["bert_part_cached"] = batch["bert_part_cached_pos"]
+            neg["bert_part_cached"] = batch["bert_part_cached_neg"]
     return pos, neg
 
 
@@ -54,10 +67,11 @@ def forward_triple(model, batch):
 
 def make_loss_fn(model, losses: LossBundle, config):
     """``loss_fn(batch) -> (loss, stats)`` with the JAX loss's triple branch
-    (through the model's packed ``forward_triple``), term-level distillation
-    and in-batch branches."""
-    if config.get("minimize_sparsity_weight", 0.0) > 0.0:
-        raise NotImplementedError("the sparsity loss is not ported yet (ROADMAP.md, queue 1 item 10)")
+    (through the model's packed ``forward_triple``), passage-loss,
+    selection-loss, term-level distillation, in-batch and sparsity
+    branches, in the JAX loss's order."""
+    sparsity_weight = config.get("minimize_sparsity_weight", 0.0)
+    cache_passage_scores = bool(config.get("submodel_train_cache_path"))
     ib_main_weight = config.get("in_batch_main_weight", 1.0)
     ib_weight = config.get("in_batch_neg_weight", 1.0)
     per_term_weight = config.get("per_term_loss_weight", 0.5)
@@ -66,8 +80,6 @@ def make_loss_fn(model, losses: LossBundle, config):
         if "list_doc_ids" in batch:
             raise NotImplementedError("list batches (listwise training, data/list_sampler.py) are not ported yet "
                                       "(ROADMAP.md, queue 1 item 6)")
-        if losses.is_passage_loss:
-            raise NotImplementedError("passage losses are not ported yet (ROADMAP.md, queue 1 item 7)")
         pos_out, neg_out = forward_triple(model, batch)
         pos_score, neg_score = pos_out["score"], neg_out["score"]
         valid = batch.get("valid")
@@ -75,8 +87,25 @@ def make_loss_fn(model, losses: LossBundle, config):
             valid = torch.ones_like(pos_score)
         t_pos = batch.get("pos_score", torch.zeros_like(pos_score))
         t_neg = batch.get("neg_score", torch.zeros_like(neg_score))
-        loss = losses.ranking_loss(pos_score, neg_score, t_pos, t_neg, valid)
+        if losses.is_passage_loss:
+            if "passage_scores" not in pos_out:
+                raise ValueError(f"the passage loss {config.get('loss')!r} needs a model with passage scores")
+            pos_psg, neg_psg = pos_out["passage_scores"], neg_out["passage_scores"]
+            loss = losses.ranking_loss(pos_psg, neg_psg, batch.get("pos_passage_scores", torch.zeros_like(pos_psg)),
+                                       batch.get("neg_passage_scores", torch.zeros_like(neg_psg)), valid)
+        else:
+            loss = losses.ranking_loss(pos_score, neg_score, t_pos, t_neg, valid)
         stats = {"ranking_loss": loss}
+
+        if "selection_loss" in pos_out:
+            sel = (pos_out["selection_loss"] + neg_out["selection_loss"]) / 2.0
+            stats["selection_loss"] = sel
+            loss = loss + sel
+
+        if cache_passage_scores and "passage_scores" in pos_out:
+            # for the trainer's replay cache, which pops them before logging
+            stats["_cache_pos_passage_scores"] = pos_out["passage_scores"]
+            stats["_cache_neg_passage_scores"] = neg_out["passage_scores"]
 
         if "dyn_teacher_pos_per_term" in batch and "per_term_scores" in pos_out:
             # term-level distillation: the student's per-term MaxSim against
@@ -114,6 +143,11 @@ def make_loss_fn(model, losses: LossBundle, config):
                 ib_loss = losses.inbatch_loss(pos_diag, neg_max, t_pos, t_neg, valid)
             stats["inbatch_loss"] = ib_loss
             loss = ib_main_weight * loss + ib_weight * ib_loss
+
+        if sparsity_weight > 0.0 and "sparsity" in pos_out:
+            sp = (pos_out["sparsity"].abs().mean() + neg_out["sparsity"].abs().mean()) / 2.0
+            stats["sparsity_loss"] = sp
+            loss = loss + sparsity_weight * sp
 
         stats["loss"] = loss
         stats["score_pos_mean"] = (pos_score * valid).sum() / torch.clamp(valid.sum(), min=1)

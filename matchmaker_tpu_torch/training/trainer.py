@@ -15,15 +15,17 @@ batches placed on the device ahead by ``device_prefetch`` and, with
 and at each epoch's end with best-checkpoint saving and rotation, early
 stopping, the loss CSV every 100 steps, ``max_training_batches``, an
 optional full train-state snapshot with the mid-epoch data cursor, a device
-out-of-memory step skipped unless two fail within four steps, then the final
+out-of-memory step skipped unless two fail within four steps,
+``submodel_train_cache_path`` (IDCM's chunk scores written to a replay cache
+by the first run, replayed into the batches of every later one in the same
+order, utils/replay_cache.py), then the final
 validation/test/leaderboard passes, ``efficiency-metrics.json`` and, with
 ``run_dense_retrieval_eval``, the port's dense-retrieval CLI on the best
 weights. Extra config key: ``device`` (default ``"cuda"``).
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP.md item: ``dynamic_sampler: listwise``, ``submodel_train_cache_path``,
-a JAX checkpoint (``.flax``) as ``warmstart_model_path`` and multi-process
-launches.
+ROADMAP.md item: ``dynamic_sampler: listwise``, a JAX checkpoint (``.flax``)
+as ``warmstart_model_path`` and multi-process launches.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ import torch
 
 from matchmaker_tpu_torch.data.loaders import device_prefetch, triple_training_loader
 from matchmaker_tpu_torch.data.tokenization import build_tokenizer
-from matchmaker_tpu_torch.evaluation import evaluate_model, save_sorted_results, test_model, validate_model
+from matchmaker_tpu_torch.evaluation import (evaluate_model, replay_cached, save_sorted_results, test_model,
+                                             validate_model)
 from matchmaker_tpu_torch.experiment import EarlyStopping, save_best_info
 from matchmaker_tpu_torch.losses import get_loss
 from matchmaker_tpu_torch.models import get_model, init_params
@@ -54,20 +57,15 @@ from matchmaker_tpu_torch.training.checkpoints import (
 )
 from matchmaker_tpu_torch.training.optim import build_optimizer
 from matchmaker_tpu_torch.training.train_step import make_eval_step, make_train_step
+from matchmaker_tpu_torch.utils.replay_cache import CrossExperimentReplayCache
 
-# config keys of JAX-package features the port does not run yet
-_UNPORTED = {
-    "submodel_train_cache_path": "queue 1 item 10",
-}
+_CACHE_KEYS = ("_cache_pos_passage_scores", "_cache_neg_passage_scores")
 
 
 def _refuse_unported(config) -> None:
     if config.get("dynamic_sampler") == "listwise":
         raise NotImplementedError("dynamic_sampler: listwise needs data/list_sampler.py and the list-batch loss, "
                                   "which are not ported yet (ROADMAP.md, queue 1 item 6)")
-    for key, item in _UNPORTED.items():
-        if config.get(key):
-            raise NotImplementedError(f"{key} is not ported yet (ROADMAP.md, {item})")
     if str(config.get("warmstart_model_path") or "").endswith(".flax"):
         raise NotImplementedError("warmstart_model_path: reading a JAX checkpoint (.flax) is not ported yet; the "
                                   "port loads its own .npz snapshots (ROADMAP.md, queue 1 item 2)")
@@ -203,10 +201,30 @@ class Trainer:
             seed=config.get("random_seed", 42),
         )
 
-    def _epoch_batches(self, sampler, teacher):
+    def _submodel_cache(self):
+        """(cache, writing) for ``submodel_train_cache_path``: a run finding
+        no ``cache-meta.json`` there writes the cache, every later run
+        replays it (the same data, seed and batch size give the same batch
+        order); (None, False) without the key."""
+        path = self.config.get("submodel_train_cache_path")
+        if not path:
+            return None, False
+        write = not os.path.exists(os.path.join(path, "cache-meta.json"))
+        print(f"[trainer] submodel train cache {'WRITE' if write else 'REPLAY'}: {path}")
+        return CrossExperimentReplayCache(path, write=write), write
+
+    @staticmethod
+    def _split_cached(batch, scores):
+        """A host batch with its cached chunk scores: positive rows, then
+        negative rows."""
+        b = batch[next(iter(batch))].shape[0]
+        return dict(batch, bert_part_cached_pos=scores[:b], bert_part_cached_neg=scores[b:])
+
+    def _epoch_batches(self, sampler, teacher, replay=None):
         """One epoch's batches on the device, from the current data cursor:
-        the TAS-Balanced sampler's or the triple file's, scored by the
-        dynamic teacher when there is one."""
+        the TAS-Balanced sampler's or the triple file's, with ``replay``'s
+        cached chunk scores, scored by the dynamic teacher when there is
+        one."""
         config = self.config
         if sampler is not None:
             loader = itertools.islice(sampler.batches(config, self.tokenizer,
@@ -216,6 +234,8 @@ class Trainer:
             loader = triple_training_loader(config, self.tokenizer, config["train_tsv"],
                                             batch_size=config.get("batch_size_train", 32),
                                             skip_batches=self._epoch_batch)
+        if replay is not None:
+            loader = replay_cached(loader, replay, self._split_cached)
         batches = device_prefetch(loader, self.device)
         return teacher.wrap(batches) if teacher is not None else batches
 
@@ -231,6 +251,7 @@ class Trainer:
 
             teacher = DynamicTeacher(config, teacher_config=self.teacher_config)
         sampler = self._tas_sampler() if config.get("dynamic_sampler", False) else None
+        cache, cache_write = self._submodel_cache()
         self.model.train()
         self.perf.start_block("train")
         for epoch in range(self._epoch, epochs):
@@ -238,7 +259,7 @@ class Trainer:
                 break
             self._epoch = epoch
             recent_failures = []
-            for batch in self._epoch_batches(sampler, teacher):
+            for batch in self._epoch_batches(sampler, teacher, None if cache_write else cache):
                 self._epoch_batch += 1
                 try:
                     stats = self.train_step(batch)
@@ -251,6 +272,9 @@ class Trainer:
                         raise
                     continue
                 self.global_step += 1
+                cached = [stats.pop(k) for k in _CACHE_KEYS if k in stats]
+                if cache_write and cached:
+                    cache.cache(torch.cat(cached).float().cpu().numpy())
                 if self.global_step % 100 == 0:
                     self._log_loss(epoch, stats)
                 if validate_every > 0 and self.global_step % validate_every == 0:
@@ -266,6 +290,8 @@ class Trainer:
                 # end-of-epoch validation keeps short epochs honest
                 stopped = self._validate(epoch) or stopped
                 self._epoch_batch = 0  # the next epoch starts at its first batch
+        if cache_write:
+            cache.finish()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.perf.stop_block("train", self.global_step)

@@ -165,11 +165,16 @@ def test_config_from_model_name_matches_jax(name):
 
 def test_unported_models_raise():
     tok = build_tokenizer(_bert_dot_config())
-    for model in ("knrm", "tk", "tkl", "tk_sparse", "conv_knrm", "idcm", "maxP->knrm", "pacrr", "duet"):
+    for model in ("pacrr", "co_pacrr", "duet", "drmm", "matchpyramid", "maxP->pacrr"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 10"):
             get_model(_bert_dot_config(model=model), tok)
+    for embedder in ("bert_embedding", "bert_vectors"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 10"):
+            get_model(_bert_dot_config(model="tk", token_embedder_type=embedder), tok)
     for model in ("bert_cat", "prettr", "parade", "maxP->bert_cat", "meanP->bert_cat", "maxP->bert_dot"):
         get_model(_bert_dot_config(model=model), tok)  # ported since the re-rankers' slice
+    for model in ("knrm", "conv_knrm", "tk", "tkl", "tk_sparse", "idcm", "idcm_inference_only", "maxP->knrm"):
+        get_model(_bert_dot_config(model=model), tok)  # ported since the kernel-pooling slice
     # ColBERT serves and trains on the port; listwise dynamic sampling is refused
     _refuse_unported(_bert_dot_config(model="colbert"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -149,13 +149,15 @@ def test_scalar_writer_and_perf_monitor(tmp_path):
 
 
 @pytest.mark.parametrize("module", ["data/mlm.py", "data/synthetic.py", "data/tas_balanced.py",
-                                    "distillation/score_files.py"])
+                                    "distillation/score_files.py", "utils/replay_cache.py"])
 def test_verbatim_copies_differ_only_in_imports(module):
-    """The MLM loader, the planted corpora, the TAS-Balanced sampler and the
-    teacher score files' utilities are the JAX package's modules with only
-    ``matchmaker_tpu.`` imports turned into ``matchmaker_tpu_torch.`` ones
-    (the first three are held to the originals' behaviour in
-    tests/test_torch_tasb.py, the last in test_score_files_equal)."""
+    """The MLM loader, the planted corpora, the TAS-Balanced sampler, the
+    teacher score files' utilities and the replay cache are the JAX
+    package's modules with only ``matchmaker_tpu.`` imports turned into
+    ``matchmaker_tpu_torch.`` ones (the first three are held to the
+    originals' behaviour in tests/test_torch_tasb.py, the score files in
+    test_score_files_equal, the replay cache in
+    test_replay_cache_writes_and_replays_as_the_original)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(repo, "matchmaker_tpu", module), encoding="utf-8") as f:
         original = f.read().replace("matchmaker_tpu.", "matchmaker_tpu_torch.")
@@ -189,3 +191,94 @@ def test_score_files_equal(tmp_path):
         assert sf.id_scores_to_text(str(tmp_path / f"{pkg}_ids.tsv"), *args, str(tmp_path / f"{pkg}_text.tsv")) == 11
     for out in ("ens", "ids", "text"):
         assert (tmp_path / f"torch_{out}.tsv").read_bytes() == (tmp_path / f"jax_{out}.tsv").read_bytes()
+
+
+def _vocab_files(tmp_path):
+    words = [f"w{i}" for i in range(120)] + ["hello", "world", ",", "!"]
+    vocab_path, idf_path = str(tmp_path / "vocab.txt"), str(tmp_path / "idf.txt")
+    with open(vocab_path, "w", encoding="utf-8") as f:
+        f.write("@@PADDING@@\n" + "\n".join(words) + "\n\n")
+    rng = np.random.default_rng(7)
+    with open(idf_path, "w", encoding="utf-8") as f:
+        for w in words[::3] + ["absent"]:
+            f.write(f"{w} {rng.uniform(0, 9):.5f}\n")
+        f.write("malformed line here\n")
+    return vocab_path, idf_path
+
+
+@pytest.mark.parametrize("mask_oov,with_idf", [(False, False), (True, True)])
+def test_vocab_tokenizer_equals_the_original(tmp_path, mask_oov, with_idf):
+    """Vocabulary (file, reserved ids, save round trip) and VocabTokenizer
+    (ids, masks with and without ``mask_oov``, offsets, the idf table) built
+    by both ``build_tokenizer``s from the same files: equal."""
+    from matchmaker_tpu.data.tokenization import build_tokenizer as jax_build_tokenizer
+    from matchmaker_tpu_torch.data.tokenization import Vocabulary, VocabTokenizer, build_tokenizer
+
+    vocab_path, idf_path = _vocab_files(tmp_path)
+    config = {"token_embedder_type": "embedding", "vocab_directory": vocab_path, "mask_oov": mask_oov,
+              **({"idf_path": idf_path} if with_idf else {})}
+    j, t = jax_build_tokenizer(config), build_tokenizer(config)
+    assert isinstance(t, VocabTokenizer) and t.vocab.token_to_id == j.vocab.token_to_id
+    assert t.vocab_size == j.vocab_size == 126 and t.pad_id == j.pad_id == 0
+    if with_idf:
+        np.testing.assert_array_equal(t.idf_lookup, j.idf_lookup)
+    else:
+        assert t.idf_lookup is None and j.idf_lookup is None
+    rng = np.random.default_rng(8)
+    texts = [_text(rng, 0, 40) + " hello, World! unknownword" for _ in range(12)]
+    for text in texts:
+        for a, b in zip(j.encode(text, 32), t.encode(text, 32)):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        assert j.encode_with_offsets(text, 16)[2] == t.encode_with_offsets(text, 16)[2]
+    for a, b in zip(j.encode_batch(texts, 48), t.encode_batch(texts, 48)):
+        np.testing.assert_array_equal(a, b)
+    t.vocab.save(str(tmp_path / "saved.txt"))
+    assert Vocabulary.from_file(str(tmp_path / "saved.txt")).token_to_id == t.vocab.token_to_id
+    with pytest.raises(ValueError, match="vocab_path"):
+        build_tokenizer({"token_embedder_type": "embedding"})
+
+
+def test_triple_loader_with_idfs_gives_equal_batches(files, tmp_path):
+    """The triple loader with a vocabulary tokenizer and an idf table hands
+    both packages' batches the same ``query_idfs`` (TKL's idf saturation)."""
+    from matchmaker_tpu.data.tokenization import build_tokenizer as jax_build_tokenizer
+    from matchmaker_tpu_torch.data.tokenization import build_tokenizer
+
+    vocab_path, idf_path = _vocab_files(tmp_path)
+    tok_config = {"token_embedder_type": "embedding", "vocab_directory": vocab_path, "idf_path": idf_path}
+    config = {"batch_size_train": 8, "max_query_length": 12, "max_doc_length": 40}
+    got = list(tloaders.triple_training_loader(config, build_tokenizer(tok_config), files["triples"]))
+    want = list(jloaders.triple_training_loader(config, jax_build_tokenizer(tok_config), files["triples"]))
+    assert "query_idfs" in got[0]
+    _assert_batches_equal(got, want)
+
+
+def test_replay_cache_writes_and_replays_as_the_original(tmp_path):
+    """CrossExperimentReplayCache: arrays of changing shapes written by the
+    copy replay in order through the original and the other way round, past
+    a block's end; RunningAverage's means equal."""
+    from matchmaker_tpu.utils import replay_cache as jrc
+    from matchmaker_tpu_torch.utils import replay_cache as trc
+
+    rng = np.random.default_rng(9)
+    arrays = [rng.normal(size=(int(rng.integers(1, 5)), int(rng.integers(1, 7)))).astype(np.float32)
+              for _ in range(9)]
+    for writer, reader in ((trc, jrc), (jrc, trc)):
+        path = str(tmp_path / writer.__name__.split(".")[0])
+        w = writer.CrossExperimentReplayCache(path, write=True)
+        w._current = np.zeros(40, np.float32)  # a small block: the arrays span three
+        for a in arrays:
+            if w.offset + a.size > 40:
+                w._flush_block()
+                w._current = np.zeros(40, np.float32)
+            w.cache(a)
+        w.finish()
+        r = reader.CrossExperimentReplayCache(path, write=False)
+        for a in arrays:
+            np.testing.assert_array_equal(r.get_next(), a)
+        assert r.get_next() is None
+    ja, ta = jrc.RunningAverage(4), trc.RunningAverage(4)
+    for v in (1.0, 3.0, 2.5, -1.0, 7.0, 0.5):
+        assert ta.add(v) == ja.add(v)
+    assert trc.RunningAverage(3).mean() == 0.0

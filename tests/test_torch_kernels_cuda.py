@@ -1756,3 +1756,97 @@ def test_score_triples_on_the_card_matches_plain(device, tmp_path, monkeypatch):
     cos = float(torch.nn.functional.cosine_similarity(scores[0], scores[1], dim=0))
     err = float((scores[0] - scores[1]).abs().max())
     assert cos >= 0.999 and err <= 0.1 * max(1.0, float(scores[1].abs().max())), (cos, err)
+
+
+# ---- the kernel-pooling family and IDCM ------------------------------------------
+
+def exact_match_activations(model, name, ids, mask):
+    """The exact-match kernel's (mu 1, sigma 1e-4) activation of each live
+    token against itself, query and document the same tokens, through the
+    model's own representation and ``cosine_match_matrix``: KNRM's
+    embeddings, Conv-KNRM's 2-gram convolution, TK's contextualization
+    (document positions as the query's, so the two sides are the same)."""
+    from matchmaker_tpu_torch.ops.kernel_pooling import cosine_match_matrix, kernel_activations
+
+    with torch.no_grad():
+        emb = model.embedder(ids, mask)
+        if name == "knrm":
+            q = d = emb
+        elif name == "conv_knrm":
+            q = d = torch.relu(model.conv_2gram(emb))
+        else:
+            q = d = model.contextualize(emb, mask, model.pos_q)
+        acts = kernel_activations(cosine_match_matrix(q, d), model.mu, model.sigma)[..., 0]
+    return torch.diagonal(acts, dim1=1, dim2=2)[mask > 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["knrm", "conv_knrm", "tk"])
+def test_exact_match_kernel_survives_on_the_card(device, name):
+    """300-d embeddings (configs/train/defaults.yaml), the repo's TK (2
+    layers, 10 heads, FF 100): every live token's exact-match activation
+    against itself >= 0.99 on the card (the cosine and the convolutions are
+    full f32); the same cosine as a TF32 product turns the kernel off for
+    some token, which is what the guard is for."""
+    from matchmaker_tpu_torch.models import conv_knrm, knrm, tk
+
+    cls = {"knrm": knrm.KNRM, "conv_knrm": conv_knrm.ConvKNRM, "tk": tk.TK}[name]
+    kw = dict(att_heads=10, att_ff_dim=100, use_diff_posencoding=False) if name == "tk" else {}
+    model = cls(5000, 300, **kw)
+    init_parameters(model, torch.Generator().manual_seed(1))
+    model.to(device)
+    g = torch.Generator(device=device).manual_seed(2)
+    ids = torch.randint(2, 5000, (8, 30), generator=g, device=device)
+    mask = torch.ones(8, 30, device=device)
+    mask[3, 11:] = 0
+    ids[mask == 0] = 0
+    acts = exact_match_activations(model, name, ids, mask)
+    assert float(acts.min()) >= 0.99, float(acts.min())
+    if name == "knrm":
+        from matchmaker_tpu_torch.ops.kernel_pooling import l2_normalize_rows
+
+        emb = l2_normalize_rows(model.embedder(ids, mask).detach())
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+        try:
+            tf32 = torch.matmul(emb, emb.transpose(1, 2))
+        finally:
+            torch.set_float32_matmul_precision(prev)
+        tf32_acts = torch.exp(-((torch.diagonal(tf32, dim1=1, dim2=2)[mask > 0] - 1.0) ** 2) / (2 * 1e-4 ** 2))
+        assert float(tf32_acts.min()) < 0.99, float(tf32_acts.min())
+
+
+@pytest.mark.cuda
+def test_idcm_cascade_on_the_card_matches_plain(device, monkeypatch):
+    """A DistilBERT-width IDCM (2 layers, bf16, fused halves, ``ck``
+    sampler, ``sample_n`` 3) over documents of 400 tokens (8 chunks of 50 +
+    2 x 7), one with a single live chunk: K1/K2 once a layer for the
+    selected chunks (B x 3 rows of 30 + 64 tokens), the sampler none; the
+    scores against the plain versions' at the encoder halves' bar, relative
+    as in the PreTTR join's test."""
+    from matchmaker_tpu_torch.models.idcm import IDCM
+
+    model = IDCM(EncoderConfig.distilbert(fused_attention=True, num_layers=2), sample_n=3, compute_dtype=torch.bfloat16)
+    init_parameters(model, torch.Generator().manual_seed(3))
+    torch.nn.init.normal_(model.classification_layer.kernel, std=1.0, generator=torch.Generator().manual_seed(4))
+    model.to(device).eval()
+    g = torch.Generator(device=device).manual_seed(5)
+    batch = {"query_ids": torch.randint(1000, 30522, (16, 30), generator=g, device=device),
+             "doc_ids": torch.randint(1000, 30522, (16, 400), generator=g, device=device),
+             "query_mask": torch.ones(16, 30, device=device), "doc_mask": torch.ones(16, 400, device=device)}
+    batch["query_mask"][1, 6:] = 0
+    batch["doc_mask"][2, 40:] = 0
+    scores = []
+    for plain in (False, True):
+        if plain:
+            _plain_halves(monkeypatch)
+        _build.reset_launches()
+        with torch.inference_mode():
+            out = model(batch)
+        assert _build.LAUNCHES["fused_attention_block"] == (0 if plain else 2)
+        assert _build.LAUNCHES["fused_mlp_block"] == (0 if plain else 2)
+        assert out["passage_scores"].shape == (16, 3)
+        scores.append(out["score"].float())
+    cos = float(torch.nn.functional.cosine_similarity(scores[0], scores[1], dim=0))
+    err = float((scores[0] - scores[1]).abs().max())
+    assert cos >= 0.999 and err <= 0.1 * max(1.0, float(scores[1].abs().max())), (cos, err)

@@ -27,6 +27,7 @@ from matchmaker_tpu_torch.training import optim as toptim
 from matchmaker_tpu_torch.training.train_step import make_train_step
 from matchmaker_tpu_torch.training.trainer import Trainer
 from tests.make_tiny_dataset import make_tiny_dataset
+from tests._torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PAIRWISE = sorted(jdispatch._PAIRWISE)
 PASSAGE = ("MSETeacherPointwisePassages", "MarginMSE_InterPassageLoss")
@@ -325,8 +326,7 @@ def test_trainer_resume_continues_exactly(tiny_scored, tmp_path):
 
 
 def test_unported_trainer_options_raise(tiny_scored, tmp_path, monkeypatch):
-    for key, value in (("dynamic_sampler", "listwise"), ("submodel_train_cache_path", True),
-                       ("warmstart_model_path", "model.flax")):
+    for key, value in (("dynamic_sampler", "listwise"), ("warmstart_model_path", "model.flax")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(_trainer_config(tiny_scored, **{key: value}), str(tmp_path))
     hub = "sebastian-hofstaetter/colbert-distilbert-margin_mse-T2-msmarco"
@@ -335,8 +335,9 @@ def test_unported_trainer_options_raise(tiny_scored, tmp_path, monkeypatch):
         hub_teacher.train()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(_trainer_config(tiny_scored, gradient_accumulation_steps=4), str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(None, tdispatch.get_loss({"loss": "margin-mse"}), None, {"minimize_sparsity_weight": 0.1})
+    # the sparsity loss and the submodel train cache are ported (the kernel-pooling slice)
+    assert callable(make_train_step(None, tdispatch.get_loss({"loss": "margin-mse"}), None,
+                                    {"minimize_sparsity_weight": 0.1, "submodel_train_cache_path": "cache"}))
     monkeypatch.setenv("MATCHMAKER_COORDINATOR", "localhost:1234")
     with pytest.raises(NotImplementedError, match="multi-process"):
         Trainer(_trainer_config(tiny_scored), str(tmp_path))
