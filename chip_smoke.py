@@ -171,6 +171,27 @@ Phases (any failed check raises, and the script exits non-zero):
    full path (``sample_n`` -1, batch 16) over the same documents, each
    one's pairs/s over the tuples repeated to ``idcm_timing_pairs``.
 
+11. the rest of the index layer: (a) ``cli.dense_retrieval.run``
+   ("encode+index+search", then "search" from the saved index) over phase
+   4's collection and model once per index kind: IVF (64 lists, 8 probed),
+   ScaNN tree-AH (sqrt N leaves, 100 searched), HNSW (M 16, efC 80,
+   efSearch 128) and streaming (the encode folder's blocks): the run and
+   index files, K1/K2 launches as predicted and no other kernel, the
+   reloaded index ranking as the first run, the four encodes identical,
+   recall@100 against the exact f32 search of the stored rows (streaming:
+   no miss past a near-tie); (b) at phase 5's 1,048,576 x 768 clustered
+   rows, Q 256, k 1000: IVF (2,048 lists, 64 probed: the reference's mean
+   list size), tree-AH (1,024 leaves, 100 searched, reorder x1), FlatIndex
+   float16 + scan (no miss past a near-tie against the exact search of the
+   same bf16-rounded rows), int8 + scan + two-stage (oversample 4, float16
+   rescore; recall@1000 >= 0.99 against exact f32) and streaming over
+   float16 blocks of 50,000 rows written under build/ (no miss past a
+   near-tie against the exact search of the stored rows), each with its
+   build seconds, index bytes, recall and QPS, and HNSW on the host at
+   65,536 rows (adds/s); (c) each route's state in a port index on the
+   CPU: 8 queries' scores within 1e-3 relative and no miss past a 1e-3
+   near-tie.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Details go to build/chip_smoke.json.
 """
@@ -255,6 +276,11 @@ FULL = dict(
     pool_steps=40, pool_batch=32, pool_eval_batch=128, pool_val_queries=32, pool_val_docs=8, pool_docs=2048,
     pool_long_words=2000, pool_vocab=400_000, pool_glove_rows=20_000, pool_dim=300, pool_cpu_rows=16,
     idcm_batch=16, idcm_steps=10, idcm_grad_rows=4, idcm_timing_pairs=4096,
+    # phase 11 (b): the index routes at scale_rows (IVF at the reference's
+    # mean list size: 8.8M rows / 20,000 lists ~ 1M / 2,048), the streaming
+    # index's blocks, HNSW on the host at hnsw_rows; (c) the CPU's queries
+    scale_ivf_lists=2048, scale_ivf_nprobe=64, scale_ah_leaves=1024, scale_ah_search=100, stream_block_rows=50_000,
+    hnsw_rows=65_536, index_cpu_queries=8,
 )
 
 
@@ -3659,6 +3685,333 @@ def phase_kernel_pooling(sz, device, root):
     return result
 
 
+# ---- phase 11: the index layer through the CLI and at 1M rows ------------------
+
+# (a) the CLI's other index kinds over phase 4's collection; the files each saves
+CLI_INDEX_KINDS = {
+    "ivf": ({"faiss_index_type": "ivf", "faiss_ivf_list_count": 64, "faiss_ivf_nprobe": 8}, ("ivf_index.npz",)),
+    "tree_ah": ({"faiss_index_type": "scann", "scann_backend": "tree_ah"}, ("ivf_index.npz", "scann_ah.npz")),
+    "hnsw": ({"faiss_index_type": "hnsw", "faiss_hnsw_graph_neighbors": 16, "hnsw_ef_construction": 80,
+              "hnsw_ef_search": 128}, ("hnsw_graph.bin", "hnsw_ids.npy")),
+    "streaming": ({"faiss_index_type": "streaming"}, ("streaming_meta.json",)),
+}
+# |d score| within this share of the score: a near-tie, which sums in another order may swap
+NEAR_TIE_REL = 1e-6
+
+
+def predicted_index_cli_launches(sz, encode):
+    """K1 and K2 once per layer and encode batch: the collection's batches
+    (when the run encodes) and the query set's batches of 32; no other
+    kernel (none of these indexes runs a binmax scan)."""
+    batches = (-(-sz["passages"] // sz["batch"]) if encode else 0) + -(-sz["queries"] // 32)
+    return {"fused_attention_block": sz["n_layers"] * batches, "fused_mlp_block": sz["n_layers"] * batches}
+
+
+def _read_run(path):
+    ids, scores = {}, {}
+    with open(path) as f:
+        for line in f:
+            qid, did, _, score = line.split()
+            ids.setdefault(qid, []).append(did)
+            scores.setdefault(qid, []).append(float(score))
+    return ids, scores
+
+
+def _misses_past_ties(got_ids, want_ids, want_scores, rel=NEAR_TIE_REL):
+    """Hits of the reference a search missed whose score clears the
+    reference's last kept score by more than ``rel`` of the query's largest
+    |score| (a near-tie at the edge may be traded: f32 sums in another order
+    differ by about that much of the terms, not of the sum), summed over the
+    queries."""
+    misses = 0
+    for g, w, s in zip(got_ids, want_ids, want_scores):
+        edge, scale = s[-1], max(abs(v) for v in s if np.isfinite(v))
+        got = set(g)
+        misses += sum(1 for x, v in zip(w, s) if x not in got and v - edge > rel * scale)
+    return misses
+
+
+def _exact_topk(q, rows, k):
+    """Exact top-k (f32 sums, ties to the lower row) → host (scores, rows)."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import matmul_f32, topk_lowest_first
+
+    with torch.inference_mode():
+        v, i = topk_lowest_first(matmul_f32(q, rows.T), k)
+    return v.cpu().numpy(), i.cpu().numpy()
+
+
+def phase_index_cli(sz, device, root):
+    """Phase 11 (a): ``run("encode+index+search")`` once per index kind, then
+    ``run("search")`` from the saved index."""
+    import torch
+
+    from matchmaker_tpu_torch.cli.dense_retrieval import run
+    from matchmaker_tpu_torch.data.tokenization import build_tokenizer
+    from matchmaker_tpu_torch.models import get_model, init_params
+    from matchmaker_tpu_torch.ops import _build
+    from matchmaker_tpu_torch.retrieval.encode import load_encoded
+
+    _write_collection(root, sz)
+    base = _main_config(root, sz, device)
+    base["query_sets"] = {"dev": base["query_sets"]["dev"]}
+    k = sz["top_n"]
+    result, total = {}, {}
+    vectors = None
+    for kind, (extra, files) in CLI_INDEX_KINDS.items():
+        config = dict(base, **extra)
+        folder = os.path.join(root, f"run_{kind}")
+        os.makedirs(folder)
+        rec = {}
+        for mode in ("encode+index+search", "search"):
+            fresh_perf_monitor()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            check(run(mode, dict(config), folder) == 0, f"{kind}: run({mode}) returned non-zero")
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            for name, n in launches.items():
+                total[name] = total.get(name, 0) + n
+            want = predicted_index_cli_launches(sz, "encode" in mode)
+            _check_launches(launches, want, f"{kind} {mode}", device)
+            if device.type == "cuda":
+                check(not any(n for name, n in launches.items() if name not in want), f"{kind}: {launches}")
+            with open(os.path.join(folder, "efficiency-metrics.json")) as f:
+                blocks = json.load(f)[-1]["blocks"]
+            ranking = _read_run(os.path.join(folder, "dev-output.txt"))
+            check(len(ranking[0]) == sz["queries"] and all(len(v) == k for v in ranking[0].values()),
+                  f"{kind} {mode}: every query must have {k} hits")
+            rec[mode] = {"wall_s": wall, "launches": {n: launches[n] for n in want},
+                         "search_qps": blocks["search_total"]["items_per_second"],
+                         "indexing_s": blocks["indexing"]["total_seconds"] if "indexing" in blocks else None}
+            if mode == "encode+index+search":
+                first = ranking
+                os.remove(os.path.join(folder, "dev-output.txt"))
+        for rel in ("encoded/encode_meta.json", "dev-metrics.csv") + tuple(f"index/{f}" for f in files):
+            check(os.path.isfile(os.path.join(folder, rel)), f"{kind}: missing {rel}")
+        check(ranking[0] == first[0], f"{kind}: the search from the saved index ranks otherwise")
+        v, row_ids = load_encoded(os.path.join(folder, "encoded"))
+        if vectors is None:
+            vectors = v
+        check(np.array_equal(v, vectors), f"{kind}: the encode differs from the first kind's")
+        rec["ranking"] = first
+        result[kind] = rec
+
+    # the exact f32 top-k over the stored rows, the queries encoded as the CLI encodes them
+    tokenizer = build_tokenizer(base)
+    model = get_model(base, tokenizer)
+    init_params(model, base, torch.Generator().manual_seed(base["random_seed"]))
+    model.to(device).eval()
+    q_vecs, qids = _encode_file(model, base, tokenizer, os.path.join(root, "queries.tsv"), "query", 32, device)
+    ex_v, ex_i = _exact_topk(q_vecs.float(), torch.from_numpy(vectors).to(device).float(), k)
+    exact_ids = [[str(row_ids[i]) for i in row] for row in ex_i]
+    for kind, rec in result.items():
+        ids, scores = rec.pop("ranking")
+        got = [ids[q] for q in qids]
+        rec["recall@%d" % k] = float(np.mean([len(set(g) & set(w)) / k for g, w in zip(got, exact_ids)]))
+        rec["misses_past_ties"] = _misses_past_ties(got, exact_ids, ex_v.tolist())
+        print(f"[index-cli] {kind}: recall@{k} vs the exact f32 search of the stored rows {rec['recall@%d' % k]:.4f}"
+              f" ({rec['misses_past_ties']} misses past near-ties); indexing {rec['encode+index+search']['indexing_s']:.3f} s,"
+              f" search {rec['encode+index+search']['search_qps']:.1f} QPS in the CLI, {rec['search']['search_qps']:.1f}"
+              f" QPS from the saved index; K1/K2 launches {rec['encode+index+search']['launches']['fused_attention_block']}"
+              f" + {rec['search']['launches']['fused_attention_block']} (as predicted)")
+        if kind == "streaming":
+            check(rec["misses_past_ties"] == 0, f"streaming: {rec['misses_past_ties']} misses against the exact search")
+            # rank by rank, the run file's scores are the exact ones (near-ties may trade places)
+            rel = max(float(np.abs(np.asarray(scores[q]) - ex_v[qi]).max() / np.abs(ex_v[qi]).max())
+                      for qi, q in enumerate(qids))
+            check(rel <= 1e-5, f"streaming: scores {rel} of the largest off the exact ones")
+            rec["scores_max_rel"] = rel
+            rec["queries_ranked_identically"] = sum(g == w for g, w in zip(got, exact_ids))
+    result["launches"] = total
+    return result
+
+
+def _device_bytes(index):
+    import torch
+
+    state = index._device_vectors
+    return int(sum(t.numel() * t.element_size() for t in (state if isinstance(state, tuple) else (state,))
+                   if isinstance(t, torch.Tensor)))
+
+
+def _on_cpu(index, config, cls):
+    """A port index on the CPU with the card index's state, handed over in
+    memory: IVF / tree-AH the arrays ``save`` writes (compressing ~1.5 GB
+    into the JAX format's .npz would take most of the phase; phase 11 (a)
+    saves and loads at 16,384 rows), FlatIndex its device tensors (its
+    quantization on the host again would take ~10 s)."""
+    import torch
+
+    cpu = cls(config, "cpu")
+    for name in ("_centroids", "_sorted_vectors", "_sorted_rows", "_offsets", "_ids", "n_clusters_eff", "_codes",
+                 "_scales", "_leaf_of_row", "_vectors", "_row_count"):
+        if hasattr(index, name):
+            setattr(cpu, name, getattr(index, name))
+    if hasattr(index, "_device_vectors"):
+        state = index._device_vectors
+        cpu._device_vectors = (tuple(t.cpu() if isinstance(t, torch.Tensor) else t for t in state)
+                               if isinstance(state, tuple) else state.cpu())
+    return cpu
+
+
+def _write_blocks(folder, vectors, block_rows):
+    """vectors as the encode folder holds them: float16 blocks, one sequence a row."""
+    from matchmaker_tpu_torch.retrieval.encode import BlockWriter
+
+    writer = BlockWriter(folder, vectors.shape[1], block_rows)
+    spans = [writer.append(vectors[i:i + block_rows]) for i in range(0, len(vectors), block_rows)]
+    writer.flush()
+    ids = np.arange(len(vectors))
+    starts = np.concatenate([np.arange(s, e) for _, s, e in spans])
+    blocks = np.repeat([b for b, _, _ in spans], [e - s for _, s, e in spans])
+    np.savez_compressed(os.path.join(folder, "doc_infos.npz"), ids=ids,
+                        spans=np.stack([blocks, starts, starts + 1], axis=1).astype(np.int64))
+    with open(os.path.join(folder, "encode_meta.json"), "w") as f:
+        json.dump({"dim": vectors.shape[1], "dtype": "float16", "blocks": writer.block_num,
+                   "sequences": len(vectors)}, f)
+    return sum(os.path.getsize(os.path.join(folder, f"token_reps_{i}.npy")) for i in range(writer.block_num))
+
+
+def phase_index_scale(sz, device, root):
+    """Phase 11 (b) and (c): each route at phase 5's clustered rows, and the
+    card's results against a port index on the CPU with the same state."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import _build
+    from matchmaker_tpu_torch.retrieval.hnsw import HNSWIndex
+    from matchmaker_tpu_torch.retrieval.indexes import FlatIndex, IVFIndex, StreamingFlatIndex
+    from matchmaker_tpu_torch.retrieval.scann_tree_ah import ScaNNTreeAHIndex
+
+    n, k = sz["scale_rows"], sz["scale_k"]
+    rows, q = _clustered(n, sz["hid"], sz["scale_clusters"], device, seed=9, n_queries=256)
+    # the references: exact f32 over the rows, over the float16-stored rows,
+    # and over the bf16-rounded float16 rows with bf16 queries (the float16 scan's operands)
+    refs = {"f32": _exact_topk(q, rows, k), "stored": _exact_topk(q, rows.half().float(), k),
+            "bf16": _exact_topk(q.bfloat16().float(), rows.half().bfloat16().float(), k)}
+    vectors, queries = rows.cpu().numpy(), q.cpu().numpy()
+    del rows, q
+    ids = np.arange(n)
+    stream_dir = os.path.join(root, "stream_blocks")
+    routes = {
+        "ivf": (IVFIndex, {"faiss_ivf_list_count": sz["scale_ivf_lists"], "faiss_ivf_nprobe": sz["scale_ivf_nprobe"]},
+                "f32"),
+        "tree_ah": (ScaNNTreeAHIndex, {"scann_num_leaves": sz["scale_ah_leaves"], "scann_leaves_to_search":
+                                       sz["scale_ah_search"], "scann_reorder_mult": 1}, "f32"),
+        "float16_scan": (FlatIndex, {"mips_quantization": "float16", "mips_kernel": "scan"}, "bf16"),
+        "int8_twostage": (FlatIndex, {"mips_quantization": "int8", "mips_kernel": "scan", "mips_twostage": True,
+                                      "mips_oversample": 4, "mips_rescore_dtype": "float16"}, "f32"),
+        "streaming": (StreamingFlatIndex, {}, "stored"),
+    }
+    result = {}
+    for name, (cls, extra, ref) in routes.items():
+        config = {"token_dtype": "float16", **extra}
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        index = cls(config, device)
+        if cls is StreamingFlatIndex:
+            nbytes = _write_blocks(stream_dir, vectors, sz["stream_block_rows"])
+            index.index_from_folder(stream_dir)
+        else:
+            index.prepare(vectors.shape[1])
+            index.index(ids, vectors)
+            if cls is FlatIndex:
+                index._ensure_device()
+                nbytes = _device_bytes(index)
+            else:
+                index._device_state("centroids", "offsets", *(("codes", "scales", "leaf", "stored")
+                                                              if cls is ScaNNTreeAHIndex else ("corpus",)))
+                nbytes = index.storage_bytes()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        scores, got = index.search(queries, k)  # warm
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            scores, got = index.search(queries, k)
+        qps = len(queries) * reps / (time.perf_counter() - t0)
+        check(not any(_build.LAUNCHES.values()), f"{name}: a kernel was launched: {_build.LAUNCHES}")
+        ref_v, ref_i = refs[ref]
+        got = got.astype(np.int64)
+        recall = _overlap(got, ref_i)
+        rec = {"build_s": build_s, "index_bytes": nbytes, "qps": qps, "reference": ref, f"recall@{k}": recall,
+               f"recall@{k}_f32": _overlap(got, refs["f32"][1]),
+               "misses_past_ties": _misses_past_ties(got.tolist(), ref_i.tolist(), ref_v.tolist())}
+        # (c) the same state in a port index on the CPU, 8 queries
+        m = sz["index_cpu_queries"]
+        if cls is StreamingFlatIndex:
+            cpu = StreamingFlatIndex(config, "cpu")
+            cpu.index_from_folder(stream_dir)
+        else:
+            cpu = _on_cpu(index, config, cls)
+        t0 = time.perf_counter()
+        cpu_scores, cpu_got = cpu.search(queries[:m], k)
+        rec["cpu_s"] = time.perf_counter() - t0
+        # relative to each query's largest |score| (f32 sums in another order differ by that much of the terms)
+        rel = np.abs(scores[:m] - cpu_scores) / np.abs(cpu_scores).max(axis=1, keepdims=True)
+        rec["cpu_max_rel"] = float(rel.max())
+        rec["cpu_misses_past_ties"] = _misses_past_ties(got[:m].tolist(), cpu_got.astype(np.int64).tolist(),
+                                                        cpu_scores.tolist(), rel=1e-3)
+        check(rec["cpu_max_rel"] <= 1e-3 and rec["cpu_misses_past_ties"] == 0,
+              f"{name}: card vs CPU max rel {rec['cpu_max_rel']}, misses {rec['cpu_misses_past_ties']}")
+        print(f"[index-scale] {name}: {n} x {sz['hid']}, Q={len(queries)}, k={k}: build {build_s:.2f} s, "
+              f"{nbytes / 1e9:.3f} GB, {qps:.1f} QPS (search, host clock), recall@{k} {recall:.4f} vs exact "
+              f"({ref}; {rec['misses_past_ties']} misses past near-ties), {rec[f'recall@{k}_f32']:.4f} vs exact f32; "
+              f"card vs CPU on {m} queries: max rel {rec['cpu_max_rel']:.3g}, misses {rec['cpu_misses_past_ties']}")
+        if name == "float16_scan":
+            check(rec["misses_past_ties"] == 0, f"float16 scan: {rec['misses_past_ties']} misses past near-ties")
+        if name == "int8_twostage":
+            check(recall >= 0.99, f"int8 two-stage: recall@{k} {recall} < 0.99")
+        if name == "streaming":
+            check(rec["misses_past_ties"] == 0, f"streaming: {rec['misses_past_ties']} misses past near-ties")
+            rec["identical_places"] = float(np.mean(got == ref_i))
+        result[name] = rec
+        del index, cpu
+    del vectors
+
+    # HNSW on the host at hnsw_rows
+    rows, q = _clustered(sz["hnsw_rows"], sz["hid"], sz["scale_clusters"], device, seed=10, n_queries=256)
+    ref_v, ref_i = _exact_topk(q, rows, k)
+    vectors, queries = rows.cpu().numpy(), q.cpu().numpy()
+    del rows, q
+    index = HNSWIndex({"faiss_hnsw_graph_neighbors": 16, "hnsw_ef_construction": 80, "hnsw_ef_search": 128}, device)
+    t0 = time.perf_counter()
+    index.index(np.arange(len(vectors)), vectors)
+    build_s = time.perf_counter() - t0
+    index.save(os.path.join(root, "hnsw"))
+    index.search(queries, k)
+    t0 = time.perf_counter()
+    _, got = index.search(queries, k)
+    qps = len(queries) / (time.perf_counter() - t0)
+    recall = _overlap(got.astype(np.int64), ref_i)
+    nbytes = sum(os.path.getsize(os.path.join(root, "hnsw", f)) for f in os.listdir(os.path.join(root, "hnsw")))
+    result["hnsw"] = {"rows": len(vectors), "build_s": build_s, "adds_per_s": len(vectors) / build_s,
+                      "index_bytes": nbytes, "qps": qps, f"recall@{k}": recall, "reference": "f32",
+                      "ef_search_used": max(128, k)}
+    print(f"[index-scale] hnsw (host, M 16, efC 80, efSearch max(128, k)): {len(vectors)} x {sz['hid']}: build "
+          f"{build_s:.2f} s ({len(vectors) / build_s:.1f} adds/s), {nbytes / 1e9:.3f} GB, {qps:.1f} QPS, "
+          f"recall@{k} {recall:.4f} vs exact f32")
+    return result
+
+
+def phase_indexes(sz, device, root):
+    """Phase 11: (a) the CLI's index kinds, (b) the routes at 1M rows, (c)
+    the card against the CPU."""
+    t0 = time.perf_counter()
+    result = {"cli": phase_index_cli(sz, device, root)}
+    result["cli_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result["scale"] = phase_index_scale(sz, device, root)
+    result["scale_s"] = time.perf_counter() - t0
+    result["launches"] = result["cli"]["launches"]
+    print(f"[indexes] phase 11: the CLI runs {result['cli_s']:.1f} s, the 1M-row routes {result['scale_s']:.1f} s")
+    return result
+
+
 # ---- phase 7: the probes' own path ---------------------------------------------
 
 # the probe that launches each probe kernel
@@ -3862,6 +4215,11 @@ def run_phases(sz, device, card: str) -> dict:
     with tempfile.TemporaryDirectory() as root:
         report["pooling"] = phase_kernel_pooling(sz, device, root)
     report["pooling_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as root:  # the streaming blocks on disk
+        report["indexes"] = phase_indexes(sz, device, root)
+    report["indexes_s"] = time.perf_counter() - t0
     check(set(report["main"]["launches"]) == {k[0] for k in KERNELS}, "a kernel without an entry")
     report["kernels"] = []
     for name, src, rep, inc in KERNELS:
@@ -3871,7 +4229,8 @@ def run_phases(sz, device, card: str) -> dict:
         # training run, or for K15-K18 their probe's run; K13 lies on no
         # path; "launches_rerank": phase 9's runs (K1, K2, K11, K12 and the
         # student's dense retrieval); "launches_phase10": phase 10's IDCM runs
-        # (K1, K2, K11, K12); "launches_scale": the scale search of the same route (bf16
+        # (K1, K2, K11, K12); "launches_phase11": phase 11's CLI runs over the IVF,
+        # tree-AH, HNSW and streaming indexes (K1, K2); "launches_scale": the scale search of the same route (bf16
         # or int8; training and the probes: the bf16)
         runs = {"serve": report["main"]["launches"][name], "train": report["train"]["launches"][name],
                 **{f"serve_int8_{r}": report["main_int8"][r]["launches"][name] for r, _, _ in INT8_RUNS},
@@ -3880,7 +4239,8 @@ def run_phases(sz, device, card: str) -> dict:
                 "recipe": report["recipe"]["launches"][name],
                 "probes": report["probes"]["launches"].get(name, 0),
                 "rerank": report["rerank"]["launches"].get(name, 0),
-                "phase10": report["pooling"]["launches"].get(name, 0)}
+                "phase10": report["pooling"]["launches"].get(name, 0),
+                "phase11": report["indexes"]["launches"].get(name, 0)}
         scale_runs = {"scale_bf16": report["scale"]["launches"][name],
                       **{f"scale_int8_{r}": report["scale_int8"][r]["launches"][name]
                          for r, _, _ in SCALE_INT8_RUNS}}
@@ -3959,6 +4319,17 @@ def print_pooling(card, report) -> None:
           f"{idcm['stage2']['write']['cli_triples_per_s']:.1f})")
 
 
+def print_indexes(card, report) -> None:
+    ix = report["indexes"]
+    k, n = FULL["scale_k"], FULL["scale_rows"]
+    print(f"[{card}] index kinds through the CLI ({FULL['passages']} passages, top-{FULL['top_n']}): " + ", ".join(
+        f"{kind} recall {r['recall@%d' % FULL['top_n']]:.4f}, {r['encode+index+search']['search_qps']:.1f} QPS"
+        for kind, r in ix["cli"].items() if kind != "launches"))
+    print(f"[{card}] index routes at {n} x {FULL['hid']}, Q 256, k {k}: " + ", ".join(
+        f"{name} build {r['build_s']:.2f} s, {r['index_bytes'] / 1e9:.3f} GB, {r['qps']:.1f} QPS, recall@{k} "
+        f"{r[f'recall@{k}']:.4f} ({r['reference']})" for name, r in ix["scale"].items()))
+
+
 def main() -> int:
     import torch
 
@@ -4015,13 +4386,14 @@ def main() -> int:
           f"exhaustive MaxSim {col['recall@10_vs_exhaustive']:.4f}")
     print_rerank(card, report)
     print_pooling(card, report)
+    print_indexes(card, report)
     for k in report["kernels"]:
         device = (f" (device {k['device_ms']:.4f} ms, {k['x_bound']:.2f}x bound; library device "
                   f"{_fmt(k.get('library_device_ms'))})" if k.get("x_bound") else "")
         print(f"[{card}] {k['name']}: kernel {k['ms']:.4f} ms{device}, plain {k['plain_ms']:.4f} ms, bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}) at {k['timed_shape']}, max |d| {k['max_abs_err']:.3g}, "
               f"launches {k['launches']} in its path's run ({k['path']}), {k['launches_rerank']} in phase 9's runs, "
-              f"{k['launches_phase10']} in phase 10's, "
+              f"{k['launches_phase10']} in phase 10's, {k['launches_phase11']} in phase 11's, "
               f"{k['launches_scale']} in the scale search")
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

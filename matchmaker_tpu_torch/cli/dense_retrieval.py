@@ -11,6 +11,12 @@ Extra key: ``device`` (default ``"cuda"``). Weights come from
 ``trained_model`` (a ``best-model.npz`` file or the folder holding one; see
 models/weights.py); without it the model starts from seeded random weights.
 
+Every ``faiss_index_type`` of retrieval/indexes.py:build_index is served
+(``flat``, ``scann`` binmax or ``tree_ah``, ``ivf``, ``hnsw``,
+``streaming`` / ``sharded_ondisk``); a streaming index is the run's
+``encoded/`` folder itself, read block by block at search time, and
+``search`` mode reloads any of them from the run's ``index/`` folder.
+
 ``model: colbert`` serves late interaction: the corpus is encoded into
 per-token vectors (``multi_vector_corpus`` is on for ColBERT and ``->``
 models), the index defaults to ``mips_per_bin: 1`` and
@@ -44,7 +50,7 @@ from matchmaker_tpu_torch.models.weights import load_npz
 from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
 from matchmaker_tpu_torch.retrieval.colbert_search import TokenVectorStore, colbert_search_queries
 from matchmaker_tpu_torch.retrieval.encode import encode_corpus, load_encoded
-from matchmaker_tpu_torch.retrieval.indexes import build_index
+from matchmaker_tpu_torch.retrieval.indexes import StreamingFlatIndex, build_index
 from matchmaker_tpu_torch.retrieval.search import search_queries
 
 
@@ -98,10 +104,17 @@ def run(mode: str, config, run_folder: str) -> int:
     indexer = build_index(index_cfg, device)
     if "index" in mode:
         perf.start_block("indexing")
-        vectors, row_ids = load_encoded(encode_folder)
-        indexer.prepare(vectors.shape[1])
-        indexer.index(row_ids, vectors)
-        perf.stop_block("indexing", vectors.shape[0])
+        if isinstance(indexer, StreamingFlatIndex):
+            # the encode folder's blocks on disk are the index
+            indexer.encode_folder = encode_folder
+            indexer.index_from_folder(encode_folder)
+            n_rows = len(indexer.row_ids)
+        else:
+            vectors, row_ids = load_encoded(encode_folder)
+            indexer.prepare(vectors.shape[1])
+            indexer.index(row_ids, vectors)
+            n_rows = vectors.shape[0]
+        perf.stop_block("indexing", n_rows)
         indexer.save(index_folder)
     else:
         indexer.load(index_folder)

@@ -42,3 +42,18 @@ def matmul_codes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"an f32 product of int8 codes is exact up to depth {_EXACT_CODES_DEPTH}, "
                          f"got {a.shape[-1]}")
     return matmul_f32(a, b)
+
+
+def topk_lowest_first(x: torch.Tensor, k: int):
+    """``torch.topk(x, k, dim=1)`` with ties to the lower index, the order
+    ``jax.lax.top_k`` gives (``torch.topk`` promises none on a card): each
+    f32 score becomes an order-keeping int32, widened to an int64 key with
+    the complement of its column below it, so no two keys tie. → (values
+    f32, int64 indices), largest first."""
+    x = x.float().contiguous()
+    bits = x.view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()  # IEEE order as integer order
+    col = torch.arange(x.shape[1], device=x.device)
+    key = key * (1 << 32) + ((1 << 32) - 1 - col)
+    idx = torch.topk(key, k, dim=1).indices
+    return torch.gather(x, 1, idx), idx

@@ -17,7 +17,9 @@ DistilBERT width), the attention output per row and group of
 dequantized by (row scale × column scale) and a chunk's or group's partial
 is added onto x + bias in f32 with its own row scale. Biases, the gelu
 (FMA-only polynomial), residual and LayerNorm run in f32; the output is in
-x's dtype.
+x's dtype. The plain gelu rounds its multiply-adds once each, as the
+kernel's fused ones do (:func:`_gelu_poly_fma`), so the gelu output's codes
+and scales are the kernel's bit for bit.
 
 On a CUDA tensor each half runs the hand-written kernels of
 ``csrc/encoder_int8_kernels.cu`` (bf16 x, int8 codes, f32 scales and
@@ -43,7 +45,7 @@ from typing import Tuple
 import torch
 
 from matchmaker_tpu_torch.ops import _build, matmul_codes, matmul_f32, over_127
-from matchmaker_tpu_torch.ops.fused_attention import _f32, _gelu_poly, _layer_norm_f32
+from matchmaker_tpu_torch.ops.fused_attention import _ERF_FASTPOLY, _f32, _layer_norm_f32
 
 # Epilogues of mm_wg_gemm_s8 (csrc/encoder_int8_kernels.cu)
 _EPI_S8_BIAS_BF16, _EPI_S8_CHUNKS_RESID_F32 = 0, 1
@@ -59,6 +61,30 @@ def quantize_weights_per_col(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     scale = torch.clamp(over_127(wf.abs().amax(dim=0)), min=1e-12)
     wq = torch.clamp(torch.round(wf / scale[None, :]), -127, 127).to(torch.int8)
     return wq, scale
+
+
+# the erf polynomial's coefficients as the kernel's float literals
+_ERF_FASTPOLY_F32 = torch.tensor(_ERF_FASTPOLY, dtype=torch.float32).double().tolist()
+
+
+def _gelu_poly_fma(h: torch.Tensor) -> torch.Tensor:
+    """The gelu as the int8 MLP kernel evaluates it
+    (csrc/encoder_common.cuh:gelu_poly): each ``p * v + c`` of the erf
+    polynomial and ``1 + p * uc`` one fused multiply-add, as nvcc contracts
+    them. Emulated in f64, where the f32 product is exact, then rounded once
+    to f32 (a true FMA rounds once; the f64 step adds a second rounding that
+    differs in about one case in 2^29). PyTorch's separate multiply and add
+    round twice: on an H100 that moved about one gelu scale in three by an
+    ulp and flipped codes, up to a mean |d| of 5.8e-5 on 5 rows, against none
+    with this (tools/k10_seed_sweep.py, PERF.md)."""
+    uc = torch.clamp(h * 0.7071067811865476, -3.4, 3.4)
+    v = uc * uc
+    uc64, v64 = uc.double(), v.double()
+    p = torch.full_like(v, _ERF_FASTPOLY[-1])
+    for c in _ERF_FASTPOLY_F32[-2::-1]:
+        p = (p.double() * v64 + c).float()
+    return (0.5 * h) * (p.double() * uc64 + 1.0).float()
+
 
 
 def _quant_rows(xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -79,7 +105,7 @@ def reference_mlp_int8_block(x, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias, ln_
     for c in range(ff_chunks):
         sl = slice(c * ch, (c + 1) * ch)
         h = matmul_codes(xq, w1q[:, sl]) * (rs * s1[sl].float()) + b1[sl].float()
-        hq, hs = _quant_rows(_gelu_poly(h))
+        hq, hs = _quant_rows(_gelu_poly_fma(h))
         acc = acc + matmul_codes(hq, w2q[sl, :]) * (hs * s2.float())
     return _layer_norm_f32(acc, ln_scale, ln_bias, ln_eps).to(x.dtype).reshape(b, l, hid)
 

@@ -12,8 +12,9 @@ Pallas kernel).
 The quantizers are host numpy code, copied from the JAX package, so codes
 and scales are bit-identical. The scan runs torch ops: an int8 product as
 the f32 product of the codes (exact while 127²·D < 2²⁴, i.e. D ≤ 1040,
-checked) with TF32 kept out (``ops.matmul_codes``). The top-k is exact:
-the JAX package's ``approx=True`` (``lax.approx_max_k``, a TPU hardware
+checked) with TF32 kept out (``ops.matmul_codes``). The top-k is exact,
+ties to the lower row as in JAX (``ops.topk_lowest_first``); the JAX
+package's ``approx=True`` (``lax.approx_max_k``, a TPU hardware
 top-k) has no counterpart here, so ``mips_approx_topk`` changes nothing.
 """
 
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from matchmaker_tpu_torch.ops import matmul_codes, over_127
+from matchmaker_tpu_torch.ops import matmul_codes, over_127, topk_lowest_first
 
 
 def quantize_corpus(vectors: np.ndarray, per_row: bool = True) -> Tuple[np.ndarray, np.ndarray]:
@@ -103,12 +104,12 @@ def quantized_blocked_topk(
         scores = raw if global_scale else raw * q_scale * scales[base:base + block_size][None, :]
         rows = base + torch.arange(block_size, device=scores.device)
         scores = torch.where(rows[None, :] < limit, scores, float("-inf"))
-        v, i = torch.topk(scores, k_block, dim=1)
+        v, i = topk_lowest_first(scores, k_block)
         block_vals.append(v)
         block_idx.append(base + i)
     all_vals = torch.cat(block_vals, dim=1)
     all_idx = torch.cat(block_idx, dim=1)
-    vals, pos = torch.topk(all_vals, min(k, all_vals.shape[1]), dim=1)
+    vals, pos = topk_lowest_first(all_vals, min(k, all_vals.shape[1]))
     idx = torch.gather(all_idx, 1, pos)
     if global_scale:
         vals = vals * scales * q_scale

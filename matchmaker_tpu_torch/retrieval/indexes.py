@@ -1,5 +1,11 @@
 """Nearest-neighbour index layer: counterpart of
-``matchmaker_tpu/retrieval/indexes.py`` (single device).
+``matchmaker_tpu/retrieval/indexes.py`` (single device), with
+``retrieval/scann_tree_ah.py`` (ScaNN's tree-AH shape) and
+``retrieval/hnsw.py`` (the native HNSW graph) beside it. ``build_index``
+serves every ``faiss_index_type`` the JAX factory does: ``flat`` (also
+``exact``, ``full``), ``scann`` (binmax, or ``scann_backend: tree_ah``),
+``ivf``, ``hnsw``, ``streaming`` (also ``sharded_ondisk``) and
+``dynamic``. Every index reads the folder the JAX index of its kind saves.
 
 ``FlatIndex`` keeps the corpus matrix on the device and serves these routes:
 
@@ -7,6 +13,9 @@
   bf16, searched by the binmax scan (ops/mips_binmax.py), or by the exact
   bf16 scan (ops/mips_f16.py) when the corpus is too small for the candidate
   pool to oversample k by 8x;
+- ``mips_quantization: float16`` with ``mips_kernel: scan``: rows stored
+  float16, the exact bf16 scan, in blocks of ``mips_block_size`` rows above
+  that size;
 - ``mips_quantization: int8`` (or ``int8-global``) with ``mips_kernel:
   binmax``: int8 codes with one scale per 128-row bin
   (ops/mips_quant.py:quantize_corpus_binwise), searched by the mixed scan
@@ -17,7 +26,9 @@
   the same 8x gate falls back to the exact int8 scan;
 - ``mips_quantization: int8`` / ``int8-global`` with ``mips_kernel: scan``:
   the exact int8 scan (ops/mips_quant.py:quantized_blocked_topk) with
-  per-row or one global scale; ``mips_approx_topk`` gives the exact top-k;
+  per-row or one global scale, and with ``mips_twostage`` its candidates
+  rescored exactly (ops/mips_twostage.py) against the codes or, with
+  ``mips_rescore_dtype: float16``, float16 rows;
 - ``mips_quantization: none``: rows stored f32, exact blocked scan
   (ops/mips.py).
 
@@ -28,15 +39,35 @@ so it changes results) as the JAX FlatIndex does. ``mips_q_chunk`` is
 accepted and unused: the JAX kernels split the query rows into launches of
 that many only to fit VMEM, which changes no result.
 
+``IVFIndex``: k-means centroids (a seeded subsample above
+``ivf_train_points_per_centroid``·lists rows, every row then assigned in
+device blocks) and the corpus sorted by cluster (CSR: rows, original row
+per sorted row, cluster offsets). A search probes the ``faiss_ivf_nprobe``
+best centroids, gathers each query's probed rows best probe first into a
+budget of ``ivf_candidate_slack`` x nprobe x the mean cluster (at least the
+largest cluster, rounded up to 128; ``ivf_candidate_rows`` overrides), so
+an over-budget set loses only the worst probes, and scores them in f32
+(16-bit storage rounded to bf16 first, as JAX scores it). Queries go in
+chunks that keep the gathered rows near 1 GB. ``search_rows`` makes it a
+candidate generator for ColBERT's per-token search.
+
+``StreamingFlatIndex``: the encode folder's ``token_reps_N.npy`` blocks
+are the index; a search streams them to the device (pinned host copies,
+non-blocking copies on a side stream) under a device-side running top-k,
+with no host sync until the final fetch.
+
 ``kmeans`` / ``assign_clusters`` (Lloyd from a random and, for k <= 2048,
 a k-means++ init, the lower-distortion solution kept; nearest-centroid
 assignment in blocks) and ``DynamicClusterIndex`` (TAS-Balanced's query
 clusters, cli/cluster_queries.py) run in torch on the index's device, drawn
-from an explicit ``torch.Generator``.
+from an explicit ``torch.Generator``, so clusters built independently of
+JAX's (``jax.random``) differ.
 
-Not ported yet (ROADMAP.md): ``mips_twostage`` with ``mips_kernel: scan``
-(ops/mips_twostage.py), the float16 XLA-scan route and the other index
-types.
+The top-k of the IVF, tree-AH, streaming, float16-scan and int8-scan
+routes puts the lower row first among equal scores, as ``jax.lax.top_k``
+does (``ops.topk_lowest_first``). Not ported: the mesh
+(multi-device) paths, and ``mips_approx_topk`` (``lax.approx_max_k``, a TPU
+hardware top-k: the port's top-k is exact, ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -48,11 +79,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from matchmaker_tpu_torch.ops import matmul_f32
+from matchmaker_tpu_torch.ops import matmul_f32, topk_lowest_first
 from matchmaker_tpu_torch.ops.mips import blocked_topk_scores
 from matchmaker_tpu_torch.ops.mips_binmax import BIN_WIDTH, binmax_rescore_topk, binmax_scan_topk, padding_grain
 from matchmaker_tpu_torch.ops.mips_f16 import f16_scan_topk
 from matchmaker_tpu_torch.ops.mips_quant import quantize_corpus, quantize_corpus_binwise, quantized_blocked_topk
+from matchmaker_tpu_torch.ops.mips_twostage import twostage_exact_topk
 
 
 def gather_ids(ids_array: np.ndarray, idx: np.ndarray, row_count: int, scores: np.ndarray):
@@ -102,21 +134,18 @@ class FlatIndex(BaseNNIndexer):
         quant = config.get("mips_quantization", "none")
         self.mips_kernel = config.get("mips_kernel", "binmax")
         if quant not in ("none", "float16", "int8", "int8-global"):
-            raise NotImplementedError(f"mips_quantization {quant!r} is not ported yet (ROADMAP.md)")
-        if self.mips_kernel not in ("binmax", "scan") or (quant == "float16" and self.mips_kernel != "binmax"):
-            raise NotImplementedError(f"mips_kernel {self.mips_kernel!r} with mips_quantization {quant!r} "
-                                      "is not ported yet (ROADMAP.md)")
+            raise ValueError(f"unknown mips_quantization {quant!r} (none, float16, int8 or int8-global)")
+        if self.mips_kernel not in ("binmax", "scan"):
+            raise ValueError(f"unknown mips_kernel {self.mips_kernel!r} (binmax or scan)")
         self.quantized = quant in ("int8", "int8-global")
         self.global_scale = quant == "int8-global"
+        self.f16_scan = quant == "float16"
         self.twostage = config.get("mips_twostage", False)
-        if self.quantized and self.twostage and self.mips_kernel == "scan":
-            raise NotImplementedError("mips_twostage with mips_kernel: scan needs ops/mips_twostage.py, "
-                                      "not ported yet (ROADMAP.md, queue 1 item 5)")
         self.oversample = config.get("mips_oversample", 4)
         self.rescore_dtype = config.get("mips_rescore_dtype", "int8")  # int8 | float16
         self.int8_queries = config.get("mips_int8_queries", "int8")  # int8 | float (the mixed scan)
         # the binmax routes: bf16 rows (float16) or int8 codes with bin scales
-        self.binmax = (quant == "float16" or self.quantized) and self.mips_kernel == "binmax"
+        self.binmax = (self.f16_scan or self.quantized) and self.mips_kernel == "binmax"
         self.block_size = config.get("mips_block_size", 65536)
         self.per_bin_override = config.get("mips_per_bin")
         self.tile_rows = config.get("mips_tile_rows") or 2048
@@ -162,8 +191,13 @@ class FlatIndex(BaseNNIndexer):
             self._device_vectors = dev
         elif self.quantized:
             values, scales = quantize_corpus(vectors, per_row=not self.global_scale)
+            rescore = None
+            if self.twostage and self.rescore_dtype == "float16":
+                rescore = torch.from_numpy(np.ascontiguousarray(vectors, dtype=np.float16)).to(self.device)
             self._device_vectors = (torch.from_numpy(values).to(self.device),
-                                    torch.from_numpy(np.asarray(scales)).to(self.device))
+                                    torch.from_numpy(np.asarray(scales)).to(self.device), rescore)
+        elif self.f16_scan:
+            self._device_vectors = torch.from_numpy(np.ascontiguousarray(vectors, dtype=np.float16)).to(self.device)
         else:
             self._device_vectors = torch.from_numpy(np.ascontiguousarray(vectors, dtype=np.float32)).to(self.device)
 
@@ -183,6 +217,9 @@ class FlatIndex(BaseNNIndexer):
         corpus, rows = self._device_vectors, self._row_count
         if self.quantized:
             return self._search_int8(q, k)
+        if self.f16_scan and not self.binmax:
+            return f16_scan_topk(q, corpus, k, n_valid=rows,
+                                 block_size=self.block_size if rows > self.block_size else None)
         if not self.binmax:
             return blocked_topk_scores(q, corpus, k, self.block_size)
         per_bin = self._per_bin(k)
@@ -195,7 +232,10 @@ class FlatIndex(BaseNNIndexer):
         on one device."""
         rows = self._row_count
         if not self.binmax:
-            values, scales = self._device_vectors
+            values, scales, rescore = self._device_vectors
+            if self.twostage:
+                return twostage_exact_topk(q, values, scales, k, oversample=self.oversample,
+                                           block_size=self.block_size, rescore_corpus=rescore, n_valid=rows)
             return quantized_blocked_topk(q, values, scales, k, block_size=self.block_size, n_valid=rows)
         values, bin_scales, rescore = self._device_vectors
         per_bin = self._per_bin(k)
@@ -382,15 +422,317 @@ class DynamicClusterIndex(BaseNNIndexer):
         self._ids = data["ids"]
 
 
+_TORCH_DTYPES = {np.dtype(np.float16): torch.float16, np.dtype(np.float32): torch.float32}
+# the gathered (queries, candidates, D) rows of one chunk of an IVF search stay near this many bytes
+IVF_GATHER_BYTES = 1e9
+
+
+class IVFIndex(BaseNNIndexer):
+    """Inverted-file index: k-means centroids + the corpus sorted by cluster
+    (CSR: no padding, the flat footprint). See the module docstring."""
+
+    def __init__(self, config=None, device="cuda"):
+        super().__init__(config, device)
+        config = config or {}
+        self.n_clusters = config.get("faiss_ivf_list_count", 100)
+        self.nprobe = config.get("faiss_ivf_nprobe", 8)
+        self.train_iters = config.get("ivf_train_iters", 10)
+        self.candidate_rows = config.get("ivf_candidate_rows")
+        self.candidate_slack = config.get("ivf_candidate_slack", 2.0)
+        self.train_points_per_centroid = config.get("ivf_train_points_per_centroid", 256)
+        self.train_max_rows = config.get("ivf_train_max_rows", 2_500_000)
+        self._centroids: Optional[np.ndarray] = None
+        self._sorted_vectors: Optional[np.ndarray] = None  # (N, D) corpus sorted by cluster
+        self._sorted_rows: Optional[np.ndarray] = None  # (N,) original row of each sorted row
+        self._offsets: Optional[np.ndarray] = None  # (C + 1,) cluster starts in the sorted rows
+        self._ids: Optional[np.ndarray] = None
+        self._dev: dict = {}
+
+    def index(self, ids: np.ndarray, vectors: np.ndarray) -> None:
+        self._ids = np.asarray(ids)
+        vectors = np.asarray(vectors, dtype=np.float32)
+        n = vectors.shape[0]
+        k = min(self.n_clusters, n)
+        # at most ivf_train_points_per_centroid rows a list (faiss's max_points_per_centroid), never
+        # fewer than 131,072, at most ivf_train_max_rows; every row then assigned in device blocks
+        sample_cap = min(max(self.train_points_per_centroid * k, 131072), self.train_max_rows)
+        if n > sample_cap:
+            sel = np.random.default_rng(42).choice(n, sample_cap, replace=False)
+            centroids, _ = kmeans(torch.from_numpy(vectors[sel]).to(self.device), k, self.train_iters)
+            assign = assign_clusters(vectors, centroids.cpu().numpy(), device=self.device)
+        else:
+            centroids, assign = kmeans(torch.from_numpy(vectors).to(self.device), k, self.train_iters)
+            assign = assign.cpu().numpy()
+        order = np.argsort(assign, kind="stable")
+        self._centroids = centroids.cpu().numpy()
+        self._sorted_vectors = vectors[order].astype(self.dtype)
+        self._sorted_rows = order.astype(np.int64)
+        counts = np.bincount(assign, minlength=k)
+        self._offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        self.n_clusters_eff = k
+        self._dev = {}
+
+    def _max_cluster_rows(self) -> int:
+        return int(np.diff(self._offsets).max()) if self._offsets is not None else 0
+
+    def _budget(self, nprobe: int) -> int:
+        """Candidate rows a query: slack x nprobe x the mean cluster, at least
+        the largest cluster (a probed mega-cluster keeps its tail), rounded up
+        to 128, at most the corpus."""
+        if self.candidate_rows:
+            return int(self.candidate_rows)
+        n = self._sorted_vectors.shape[0]
+        mean_cluster = max(1.0, n / self.n_clusters_eff)
+        r = max(int(self.candidate_slack * nprobe * mean_cluster), self._max_cluster_rows())
+        return min(n, -(-r // 128) * 128)
+
+    def _device_state(self, *names: str) -> Tuple[torch.Tensor, ...]:
+        """The index's arrays on the device, uploaded at first use: centroids
+        (f32), offsets, and the sorted corpus as ``corpus`` (scored: bf16 for
+        16-bit storage, else f32) or ``stored`` (its stored values, for an
+        exact rescore)."""
+        for name in names:
+            if name not in self._dev:
+                if name == "centroids":
+                    arr = torch.from_numpy(np.asarray(self._centroids, np.float32))
+                elif name == "offsets":
+                    arr = torch.from_numpy(np.asarray(self._offsets, np.int64))
+                elif name == "corpus":
+                    arr = torch.from_numpy(np.ascontiguousarray(self._sorted_vectors))
+                    arr = arr.to(self.device).to(torch.bfloat16 if arr.element_size() == 2 else torch.float32)
+                else:
+                    arr = self._state_array(name)
+                self._dev[name] = arr.to(self.device)
+        return tuple(self._dev[name] for name in names)
+
+    def _state_array(self, name: str) -> torch.Tensor:
+        if name == "stored":
+            return torch.from_numpy(np.ascontiguousarray(self._sorted_vectors))
+        raise KeyError(name)
+
+    def _candidates(self, qc: torch.Tensor, nprobe: int, r_budget: int):
+        """Probe the nprobe best centroids (best first) and lay each query's
+        probed rows out in a row budget: → (centroid scores (Qc, C), sorted-row
+        index (Qc, R), valid (Qc, R)); slot j of a query falls in the probe
+        whose prefix of cluster sizes it passes."""
+        centroids, offsets = self._device_state("centroids", "offsets")
+        cent_scores = matmul_f32(qc, centroids.T)
+        _, probe = topk_lowest_first(cent_scores, nprobe)
+        starts = offsets[probe]
+        lens = offsets[probe + 1] - starts
+        prefix = torch.cat([torch.zeros_like(lens[:, :1]), torch.cumsum(lens, dim=1)], dim=1)
+        total = prefix[:, -1]
+        j = torch.arange(r_budget, device=qc.device)
+        seg = torch.searchsorted(prefix, j.expand(qc.shape[0], r_budget).contiguous(), right=True) - 1
+        seg = seg.clamp(0, nprobe - 1)
+        idx = torch.gather(starts, 1, seg) + (j[None, :] - torch.gather(prefix, 1, seg))
+        valid = j[None, :] < total[:, None]
+        return cent_scores, torch.where(valid, idx, 0), valid
+
+    def _chunked(self, queries: np.ndarray, chunk_q: int, run_chunk) -> Tuple[np.ndarray, np.ndarray]:
+        """run_chunk over query chunks on the device; one fetch at the end."""
+        q = torch.from_numpy(np.ascontiguousarray(queries, dtype=np.float32)).to(self.device)
+        vals, rows = [], []
+        with torch.inference_mode():
+            for start in range(0, q.shape[0], chunk_q):
+                v, r = run_chunk(q[start:start + chunk_q])
+                vals.append(v)
+                rows.append(r)
+            vals, sorted_rows = torch.cat(vals).cpu().numpy(), torch.cat(rows).cpu().numpy()
+        rows = np.where(sorted_rows >= 0, self._sorted_rows[np.clip(sorted_rows, 0, None)], -1)
+        return vals, rows
+
+    @staticmethod
+    def _pad(vals: np.ndarray, rows: np.ndarray, top_n: int) -> Tuple[np.ndarray, np.ndarray]:
+        if vals.shape[1] < top_n:
+            pad = top_n - vals.shape[1]
+            vals = np.pad(vals, ((0, 0), (0, pad)), constant_values=-np.inf)
+            rows = np.pad(rows, ((0, 0), (0, pad)), constant_values=-1)
+        return vals, rows
+
+    def search_rows(self, queries: np.ndarray, top_n: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Like :meth:`search` but returns original row indices (-1 for an
+        empty place): the integer path ColBERT's per-token merge reads."""
+        nprobe = min(self.nprobe, self.n_clusters_eff)
+        r_budget = self._budget(nprobe)
+        dim = self._sorted_vectors.shape[1]
+        chunk_q = max(1, int(IVF_GATHER_BYTES / (r_budget * dim * self._sorted_vectors.dtype.itemsize)))
+        k = min(top_n, r_budget)
+        (corpus,) = self._device_state("corpus")
+
+        def run_chunk(qc):
+            _, idx, valid = self._candidates(qc, nprobe, r_budget)
+            scores = matmul_f32(corpus[idx], qc.to(corpus.dtype)[:, :, None])[..., 0]
+            scores = torch.where(valid, scores, float("-inf"))
+            vals, pos = topk_lowest_first(scores, k)
+            return vals, torch.where(torch.isfinite(vals), torch.gather(idx, 1, pos), -1)
+
+        return self._pad(*self._chunked(queries, chunk_q, run_chunk), top_n)
+
+    def search(self, queries: np.ndarray, top_n: int) -> Tuple[np.ndarray, np.ndarray]:
+        vals, rows = self.search_rows(queries, top_n)
+        return gather_ids(self._ids, rows, len(self._ids), vals)
+
+    @property
+    def row_ids(self) -> np.ndarray:
+        """Sequence id of each original corpus row (aligns with search_rows)."""
+        return self._ids
+
+    def storage_bytes(self) -> int:
+        """Index footprint: the sorted rows, their original rows, the offsets
+        and the centroids (about the flat corpus)."""
+        return (self._sorted_vectors.nbytes + self._sorted_rows.nbytes + self._offsets.nbytes
+                + self._centroids.nbytes)
+
+    def save(self, folder: str) -> None:
+        os.makedirs(folder, exist_ok=True)
+        np.savez_compressed(os.path.join(folder, "ivf_index.npz"), centroids=self._centroids,
+                            sorted_vectors=self._sorted_vectors, sorted_rows=self._sorted_rows,
+                            offsets=self._offsets, ids=self._ids)
+
+    def load(self, folder: str) -> None:
+        data = np.load(os.path.join(folder, "ivf_index.npz"), allow_pickle=True)
+        self._centroids = data["centroids"]
+        self._sorted_vectors = data["sorted_vectors"]
+        self._sorted_rows = data["sorted_rows"]
+        self._offsets = data["offsets"]
+        self._ids = data["ids"]
+        self.n_clusters_eff = self._centroids.shape[0]
+        self._dev = {}
+
+
+class StreamingFlatIndex(BaseNNIndexer):
+    """Exact MIPS over a corpus streamed from disk blocks: the encode
+    folder's ``token_reps_N.npy`` blocks are the index (see the module
+    docstring and :meth:`search`). Capacity is bounded by disk, not device
+    memory."""
+
+    def __init__(self, config=None, device="cuda"):
+        super().__init__(config, device)
+        self.encode_folder: Optional[str] = (config or {}).get("encode_folder")
+        self._blocks: list = []
+        self._row_ids: Optional[np.ndarray] = None
+        self._offsets = np.array([0])
+
+    def index_from_folder(self, folder: str) -> None:
+        """Memory-map the folder's blocks (retrieval/encode.py's format) and
+        map every row to its sequence id."""
+        with open(os.path.join(folder, "encode_meta.json")) as f:
+            meta = json.load(f)
+        self._blocks = [np.load(os.path.join(folder, f"token_reps_{i}.npy"), mmap_mode="r")
+                        for i in range(meta["blocks"])]
+        data = np.load(os.path.join(folder, "doc_infos.npz"), allow_pickle=True)
+        ids, spans = data["ids"], data["spans"]
+        offsets = np.cumsum([0] + [b.shape[0] for b in self._blocks])
+        row_ids = np.empty(int(offsets[-1]), dtype=ids.dtype)
+        for sid, (block, start, end) in zip(ids, spans):
+            row_ids[offsets[block] + start:offsets[block] + end] = sid
+        self._row_ids = row_ids
+        self._offsets = offsets
+
+    def index(self, ids: np.ndarray, vectors: np.ndarray) -> None:
+        """In memory: the matrix is one block."""
+        self._blocks = [np.asarray(vectors, dtype=self.dtype)]
+        self._row_ids = np.asarray(ids)
+        self._offsets = np.array([0, len(vectors)])
+
+    @property
+    def row_ids(self) -> np.ndarray:
+        return self._row_ids
+
+    def search(self, queries: np.ndarray, top_n: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Streamed exact top-k (f32 products of the f32 queries and the
+        stored rows), merged on the device with no host sync in the loop.
+
+        Each block is copied on the host into a pinned buffer of the uniform
+        block shape (its tail zeroed) and sent to the device by a
+        non-blocking copy on a side stream, which the compute stream waits
+        for by an event: the copy of block i + 1 and the host's disk read
+        run while the device scores block i. A block's top min(top_n, block
+        rows), its padded tail masked by its row count (a zero row scores 0.0
+        and could displace real sub-zero hits), merges into a running top
+        min(top_n, rows) on the device. Nothing comes back until the final
+        fetch; PyTorch's pinned-memory allocator reuses a host buffer only
+        once the copy that read it has finished, without the host waiting."""
+        q_host = np.ascontiguousarray(queries, dtype=np.float32)
+        if not self._blocks:
+            return (np.full((len(q_host), top_n), -np.inf, np.float32), np.full((len(q_host), top_n), -1))
+        block_rows = max(b.shape[0] for b in self._blocks)
+        block_k = min(top_n, block_rows)
+        k = min(top_n, int(self._offsets[-1]))
+        dim = self._blocks[0].shape[1]
+        cuda = self.device.type == "cuda"
+        copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        with torch.inference_mode():
+            q = torch.from_numpy(q_host).to(self.device)
+            merged_v = torch.full((len(q_host), k), float("-inf"), device=self.device)
+            merged_i = torch.full((len(q_host), k), -1, dtype=torch.int64, device=self.device)
+            cols = torch.arange(block_rows, device=self.device)
+            for bi, block in enumerate(self._blocks):
+                n = block.shape[0]
+                host = torch.empty((block_rows, dim), dtype=_TORCH_DTYPES[block.dtype], pin_memory=cuda)
+                host.numpy()[:n] = block  # the disk read
+                host[n:] = 0
+                if cuda:
+                    with torch.cuda.stream(copy_stream):
+                        dev = host.to(self.device, non_blocking=True)
+                    torch.cuda.current_stream(self.device).wait_stream(copy_stream)
+                    dev.record_stream(torch.cuda.current_stream(self.device))
+                else:
+                    dev = host
+                scores = matmul_f32(q, dev.T)
+                scores = torch.where(cols[None, :] < n, scores, float("-inf"))
+                v, i = topk_lowest_first(scores, block_k)
+                i = torch.where(torch.isfinite(v), i + int(self._offsets[bi]), -1)
+                v, pos = topk_lowest_first(torch.cat([merged_v, v], dim=1), k)
+                merged_v, merged_i = v, torch.gather(torch.cat([merged_i, i], dim=1), 1, pos)
+            vals, idx = merged_v.cpu().numpy(), merged_i.cpu().numpy()  # the one sync
+        if vals.shape[1] < top_n:
+            pad = top_n - vals.shape[1]
+            vals = np.pad(vals, ((0, 0), (0, pad)), constant_values=-np.inf)
+            idx = np.pad(idx, ((0, 0), (0, pad)), constant_values=-1)
+        return gather_ids(self._row_ids, idx, len(self._row_ids), vals)
+
+    def save(self, folder: str) -> None:
+        """The encode folder is the on-disk index: record where it is."""
+        os.makedirs(folder, exist_ok=True)
+        with open(os.path.join(folder, "streaming_meta.json"), "w") as f:
+            json.dump({"encode_folder": self.encode_folder}, f)
+
+    def load(self, folder: str) -> None:
+        with open(os.path.join(folder, "streaming_meta.json")) as f:
+            self.encode_folder = json.load(f)["encode_folder"]
+        self.index_from_folder(self.encode_folder)
+
+
 def build_index(config, device="cuda") -> BaseNNIndexer:
-    """Index factory keyed on ``faiss_index_type``: ``flat`` (also ``exact``,
-    ``full``) and ``scann`` (the binmax operating point: float16 + binmax)."""
+    """Index factory keyed on ``faiss_index_type``: ``flat`` (also
+    ``exact``, ``full``); ``scann``: the binmax operating point (float16 +
+    binmax) or, with ``scann_backend: tree_ah``, ScaNN's tree-AH shape
+    (retrieval/scann_tree_ah.py); ``ivf``; ``hnsw`` (retrieval/hnsw.py: the
+    native graph, built from ``native/hnsw.cpp`` at first use; raises when
+    it cannot be built, where the JAX factory quietly builds an IVF index);
+    ``streaming`` (also ``sharded_ondisk``); ``dynamic``."""
     kind = config.get("faiss_index_type", "flat")
     if kind in ("flat", "exact", "full"):
         return FlatIndex(config, device)
-    if kind == "scann" and config.get("scann_backend") != "tree_ah":
+    if kind == "scann":
+        if config.get("scann_backend") == "tree_ah":
+            from matchmaker_tpu_torch.retrieval.scann_tree_ah import ScaNNTreeAHIndex
+
+            return ScaNNTreeAHIndex(config, device)
         cfg = dict(config)
         cfg.setdefault("mips_quantization", "float16")
         cfg.setdefault("mips_kernel", "binmax")
         return FlatIndex(cfg, device)
-    raise NotImplementedError(f"faiss_index_type {kind!r} is not ported yet (ROADMAP.md)")
+    if kind == "hnsw":
+        from matchmaker_tpu_torch.retrieval.hnsw import HNSWIndex
+
+        return HNSWIndex(config, device)
+    if kind == "ivf":
+        return IVFIndex(config, device)
+    if kind in ("sharded_ondisk", "streaming"):
+        return StreamingFlatIndex(config, device)
+    if kind == "dynamic":
+        return DynamicClusterIndex(config, device)
+    raise ValueError(f"unknown faiss_index_type: {kind}")

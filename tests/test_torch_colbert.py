@@ -7,6 +7,7 @@ collection, queries, qrels and weights (tiny encoder, f32, fused layers,
 compression 32, float16 storage, the binmax token index)."""
 
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -406,3 +407,36 @@ def test_colbert_slice_rescore_scores_are_exact_maxsim(runs):
             assert float(score) == pytest.approx(best[live].sum(), rel=1e-4, abs=1e-4)
             checked += 1
     assert checked == N_QUERIES * TOP_N
+
+
+def test_colbert_search_with_ivf_as_the_candidate_generator(runs, tmp_path):
+    """IVF as ColBERT's per-token candidate generator (``search_rows``):
+    the JAX CLI indexes the JAX run's token vectors into an IVF index (32
+    lists, 4 probed, one device) and searches; the port's CLI searches a
+    copy of that run folder, so the same index, in ``search`` mode. The
+    same documents and ranking at the slice's bars above, scores within
+    2e-4 relative."""
+    root, folders = runs
+    config = dict(_config(root, 0), faiss_index_type="ivf", faiss_ivf_list_count=32, faiss_ivf_nprobe=4)
+    jax_folder, torch_folder = str(tmp_path / "jax"), str(tmp_path / "torch")
+    shutil.copytree(folders["jax"], jax_folder)
+    shutil.rmtree(os.path.join(jax_folder, "index"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_cli, "make_mesh", lambda: make_mesh(devices=jax.devices()[:1]))
+        assert jax_cli.run("index+search", dict(config), jax_folder) == 0
+    shutil.copytree(jax_folder, torch_folder)
+    os.remove(os.path.join(torch_folder, "dev0-output.txt"))
+    _build.reset_launches()
+    assert torch_run("search", dict(config), torch_folder) == 0
+    assert not any(_build.LAUNCHES.values())
+    assert os.path.isfile(os.path.join(torch_folder, "index", "ivf_index.npz"))
+    rj = _ranking(os.path.join(jax_folder, "dev0-output.txt"))
+    rt = _ranking(os.path.join(torch_folder, "dev0-output.txt"))
+    assert rj.keys() == rt.keys() and len(rt) == N_QUERIES and all(len(v) == TOP_N for v in rt.values())
+    same = np.mean([rj[q] == rt[q] for q in rj])
+    overlap = np.mean([len(set(rj[q]) & set(rt[q])) / TOP_N for q in rj])
+    assert overlap >= 0.98 and same >= 0.9, (overlap, same)
+    sj = _scores(os.path.join(jax_folder, "dev0-output.txt"))
+    st = _scores(os.path.join(torch_folder, "dev0-output.txt"))
+    for key in set(sj) & set(st):
+        assert abs(st[key] - sj[key]) <= 2e-4 * max(1.0, abs(sj[key])), (key, st[key], sj[key])

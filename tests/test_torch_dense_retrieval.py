@@ -187,3 +187,79 @@ def test_missing_trained_model_raises(runs, tmp_path):
     config = dict(_config(os.path.dirname(runs["torch"])), trained_model=str(tmp_path / "nowhere"))
     with pytest.raises(FileNotFoundError, match="best-model.npz"):
         torch_run("search", config, runs["torch"])
+
+
+# ---- the other index kinds through both CLIs -----------------------------------
+
+# IVF probing every list (exact, so the packages' independent k-means give the
+# same ranking) and the streaming index over the encode folder's blocks
+_INDEX_KINDS = {"ivf": {"faiss_index_type": "ivf", "faiss_ivf_list_count": 16, "faiss_ivf_nprobe": 16},
+                "streaming": {"faiss_index_type": "streaming"}}
+
+
+# the exact FlatIndex route that scores as each kind does: IVF the 16-bit rows
+# and the query rounded to bf16, streaming the stored rows and the query in f32
+_EXACT_OF = {"ivf": {"faiss_index_type": "flat", "mips_quantization": "float16", "mips_kernel": "scan"},
+             "streaming": {"faiss_index_type": "flat", "mips_quantization": "none", "token_dtype": "float32"}}
+
+
+@pytest.fixture(scope="module")
+def index_runs(runs, tmp_path_factory):
+    """index+search of each CLI with each kind on a copy of the JAX run's
+    folder: both search the same encoded corpus (each package encodes its
+    own queries)."""
+    root = str(tmp_path_factory.mktemp("index_kinds"))
+    config = _config(os.path.dirname(runs["jax"]))
+    folders = {}
+    for kind, extra in _INDEX_KINDS.items():
+        for name, fn in (("jax", jax_run), ("torch", torch_run)):
+            folder = os.path.join(root, kind, name)
+            shutil.copytree(runs["jax"], folder)
+            shutil.rmtree(os.path.join(folder, "index"))
+            os.remove(os.path.join(folder, "dev-output.txt"))
+            _build.reset_launches()
+            assert fn("index+search", dict(config, **extra), folder) == 0
+            assert not any(_build.LAUNCHES.values())
+            folders[kind, name] = folder
+    return config, folders
+
+
+@pytest.mark.parametrize("kind", sorted(_INDEX_KINDS))
+def test_index_kinds_match_the_jax_cli(index_runs, kind):
+    """The same index files; the same top-10 for >= 90 % of the places and
+    MRR@10 within 0.02, the bar of the flat slice above (each package
+    encodes its own queries; 0.977 and 1.0 measured)."""
+    _, folders = index_runs
+    assert _files(folders[kind, "torch"]) == _files(folders[kind, "jax"])
+    rj = _ranking(os.path.join(folders[kind, "jax"], "dev-output.txt"))
+    rt = _ranking(os.path.join(folders[kind, "torch"], "dev-output.txt"))
+    assert rj.keys() == rt.keys() and all(len(v) == TOP_N for v in rt.values())
+    overlap = np.mean([len(set(rj[q]) & set(rt[q])) / TOP_N for q in rj])
+    assert overlap >= 0.9, overlap
+    mj = _metrics(os.path.join(folders[kind, "jax"], "dev-metrics.csv"))
+    mt = _metrics(os.path.join(folders[kind, "torch"], "dev-metrics.csv"))
+    assert abs(mj["MRR@10"] - mt["MRR@10"]) <= 0.02, (mj["MRR@10"], mt["MRR@10"])
+
+
+@pytest.mark.parametrize("kind", sorted(_INDEX_KINDS))
+def test_index_kinds_search_from_the_saved_index(index_runs, kind, tmp_path):
+    """``search`` reloads the kind's index from the run folder (streaming:
+    the encode folder it names) and ranks as index+search did. The ranking
+    is the exact FlatIndex's that scores as the kind does: every query for
+    streaming (f32), >= 95 % of the queries for IVF probing every list (bf16
+    operands summed in f32 in another order, so a near-tie may swap; all
+    of them measured)."""
+    config, folders = index_runs
+    folder = str(tmp_path / "again")
+    shutil.copytree(folders[kind, "torch"], folder)
+    os.remove(os.path.join(folder, "dev-output.txt"))
+    assert torch_run("search", dict(config, **_INDEX_KINDS[kind]), folder) == 0
+    ranking = _ranking(os.path.join(folder, "dev-output.txt"))
+    assert ranking == _ranking(os.path.join(folders[kind, "torch"], "dev-output.txt"))
+    exact = str(tmp_path / "exact")
+    shutil.copytree(folders[kind, "torch"], exact)
+    shutil.rmtree(os.path.join(exact, "index"))
+    assert torch_run("index+search", dict(config, **_EXACT_OF[kind]), exact) == 0
+    flat = _ranking(os.path.join(exact, "dev-output.txt"))
+    same = np.mean([ranking[q] == flat[q] for q in flat])
+    assert same >= (1.0 if kind == "streaming" else 0.95), same

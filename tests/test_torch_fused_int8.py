@@ -173,7 +173,7 @@ def _mlp_int8_per_row_gelu_codes(x, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias,
     xq, rs = tf._quant_rows(xf)
     ch = w1q.shape[1] // ff_chunks
     chunks = [slice(c * ch, (c + 1) * ch) for c in range(ff_chunks)]
-    gelu = [tf._gelu_poly(matmul_codes(xq, w1q[:, sl]) * (rs * s1[sl]) + b1[sl]) for sl in chunks]
+    gelu = [tf._gelu_poly_fma(matmul_codes(xq, w1q[:, sl]) * (rs * s1[sl]) + b1[sl]) for sl in chunks]
     _, hs = tf._quant_rows(torch.cat(gelu, dim=1))
     acc = xf + b2
     for sl, h in zip(chunks, gelu):

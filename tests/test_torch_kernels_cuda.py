@@ -833,6 +833,21 @@ def _int8_layer(hid, ff, device, seed):
     return attn, mlp, (v(hid, 0.1, 1.0), v(hid, 0.1))
 
 
+def _int8_case(b, l, hid, ff, device, seed):
+    """One case of the int8 halves: the layer's weights and the input x and
+    mask, each drawn from a ``torch.Generator`` seeded from ``seed`` (never
+    the device's global generator, whose state depends on the tests run
+    before). Example 0 keeps its first l // 2 + 1 positions, the others a
+    random length in [1, l]."""
+    attn, mlp, ln = _int8_layer(hid, ff, device, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    x = torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
+    lengths = torch.randint(1, l + 1, (b,), generator=g, device=device)
+    lengths[0] = l // 2 + 1
+    mask = (torch.arange(l, device=device)[None, :] < lengths[:, None]).float()
+    return attn, mlp, ln, x, mask
+
+
 def _int8_kmajor(attn, mlp):
     """The weights as the encoder holds them for the card: K-major codes,
     Q/K/V packed."""
@@ -854,10 +869,7 @@ def test_int8_halves_kernels_match_plain(device, b, l, hid, ff):
     per FF chunk, attention codes per row instead of per head group) moves
     the mean |d| to >= 1e-3 at this width."""
     heads = hid // 64
-    attn, mlp, ln = _int8_layer(hid, ff, device, seed=b * 1000 + l)
-    x = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
-    mask = torch.ones(b, l, device=device)
-    mask[0, l // 2 + 1:] = 0.0
+    attn, mlp, ln, x, mask = _int8_case(b, l, hid, ff, device, seed=b * 1000 + l)
     attn_t, mlp_t = _int8_kmajor(attn, mlp)
     for kernel, kmajor, plain, args, args_t in (
             (fi.fused_attention_int8_block, fi.fused_attention_int8_block_qkv_kmajor,
@@ -1850,3 +1862,125 @@ def test_idcm_cascade_on_the_card_matches_plain(device, monkeypatch):
     cos = float(torch.nn.functional.cosine_similarity(scores[0], scores[1], dim=0))
     err = float((scores[0] - scores[1]).abs().max())
     assert cos >= 0.999 and err <= 0.1 * max(1.0, float(scores[1].abs().max())), (cos, err)
+
+
+# ---- the index layer on the card -------------------------------------------------
+
+def _same_hits(got, want, rtol=1e-5, atol=1e-6):
+    """Two searches' (scores, ids): scores within rtol / atol, ids equal but
+    where a score ties a neighbour's within that tolerance (f32 sums in
+    another order may swap them)."""
+    import numpy as np
+
+    (gv, gi), (wv, wi) = got, want
+    gv, wv = np.asarray(gv, np.float64), np.asarray(wv, np.float64)
+    finite = np.isfinite(wv)
+    assert (np.isfinite(gv) == finite).all()
+    np.testing.assert_allclose(gv[finite], wv[finite], rtol=rtol, atol=atol)
+    tol = atol + rtol * np.abs(wv)
+    with np.errstate(invalid="ignore"):
+        gap = np.abs(np.diff(wv, axis=1))
+    near = np.zeros_like(finite)
+    near[:, 1:] |= gap <= tol[:, 1:]
+    near[:, :-1] |= gap <= tol[:, :-1]
+    assert not ((np.asarray(gi) != np.asarray(wi)) & ~near).any()
+
+
+def _index_corpus(n=20000, d=64, seed=3):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(32, d)).astype(np.float32)
+    rows = centers[rng.integers(0, 32, n)] + 0.5 * rng.normal(size=(n, d)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    queries = rows[rng.integers(0, n, 16)] + 0.05 * rng.normal(size=(16, d)).astype(np.float32)
+    return rows, queries
+
+
+_CARD_INDEXES = {
+    "ivf": {"faiss_index_type": "ivf", "faiss_ivf_list_count": 64, "faiss_ivf_nprobe": 8},
+    "ivf-float32": {"faiss_index_type": "ivf", "faiss_ivf_list_count": 64, "faiss_ivf_nprobe": 8,
+                    "token_dtype": "float32"},
+    "tree_ah": {"faiss_index_type": "scann", "scann_backend": "tree_ah", "scann_leaves_to_search": 20,
+                "scann_reorder_mult": 2},
+    "float16-scan": {"mips_quantization": "float16", "mips_kernel": "scan", "mips_block_size": 8192},
+    "int8-scan-twostage": {"mips_quantization": "int8", "mips_kernel": "scan", "mips_twostage": True,
+                           "mips_rescore_dtype": "float16", "mips_block_size": 8192},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(_CARD_INDEXES))
+def test_index_search_on_the_card_matches_the_cpu(device, kind, tmp_path):
+    """IVF (16-bit and f32 storage) and tree-AH built on the CPU, saved, and
+    loaded into an index on the card; FlatIndex's scan routes built from the
+    same rows on both: the card's search and search_rows equal the CPU's
+    (ids but near-ties, scores to 1e-5 relative). No kernel is launched."""
+    import numpy as np
+
+    from matchmaker_tpu_torch.retrieval.indexes import build_index
+
+    rows, queries = _index_corpus()
+    config = _CARD_INDEXES[kind]
+    cpu = build_index(config, "cpu")
+    cpu.prepare(rows.shape[1])
+    cpu.index(np.arange(len(rows)), rows)
+    card = build_index(config, device)
+    if hasattr(cpu, "storage_bytes"):
+        cpu.save(str(tmp_path))
+        card.load(str(tmp_path))
+    else:
+        card.index(np.arange(len(rows)), rows)
+    _build.reset_launches()
+    for top_n in (10, 100):
+        _same_hits(card.search(queries, top_n), cpu.search(queries, top_n))
+        if kind.startswith("ivf"):
+            _same_hits(card.search_rows(queries, top_n), cpu.search_rows(queries, top_n))
+    assert not any(_build.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_streaming_search_on_the_card_syncs_only_at_the_end(device, tmp_path):
+    """The streaming index over 1 block and over 8 blocks of the same rows
+    on the card: the CPU's results, and as many synchronising calls under
+    ``torch.cuda.set_sync_debug_mode("warn")`` for 8 blocks as for 1 (none
+    in the block loop)."""
+    import json
+    import warnings
+
+    import numpy as np
+
+    from matchmaker_tpu_torch.retrieval.encode import BlockWriter
+    from matchmaker_tpu_torch.retrieval.indexes import StreamingFlatIndex
+
+    rows, queries = _index_corpus(n=16000)
+    writer = BlockWriter(str(tmp_path), rows.shape[1], 2000)
+    spans = [writer.append(rows[i:i + 100]) for i in range(0, len(rows), 100)]
+    writer.flush()
+    ids = np.array([f"s{i}" for i in range(len(spans))])
+    np.savez_compressed(tmp_path / "doc_infos.npz", ids=ids, spans=np.array(spans, dtype=np.int64))
+    with open(tmp_path / "encode_meta.json", "w") as f:
+        json.dump({"dim": rows.shape[1], "dtype": "float16", "blocks": writer.block_num, "sequences": len(ids)}, f)
+    syncs, results = [], []
+    for folder in (True, False):
+        index = StreamingFlatIndex({}, device)
+        if folder:
+            index.index_from_folder(str(tmp_path))
+            assert len(index._blocks) == 8
+        else:
+            index.index(np.repeat(ids, 100), rows.astype(np.float16))
+        index.search(queries, 100)  # warm: the side stream, the allocators
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                results.append(index.search(queries, 100))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+    cpu = StreamingFlatIndex({}, "cpu")
+    cpu.index_from_folder(str(tmp_path))
+    for got in results:
+        _same_hits(got, cpu.search(queries, 100))
+    assert syncs[0] == syncs[1], syncs

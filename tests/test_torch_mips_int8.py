@@ -142,6 +142,9 @@ _ROUTES = {
     "twostage-float16": {"mips_quantization": "int8", "mips_twostage": True, "mips_rescore_dtype": "float16"},
     "int8-scan": {"mips_quantization": "int8", "mips_kernel": "scan"},
     "int8-global-scan": {"mips_quantization": "int8-global", "mips_kernel": "scan"},
+    "int8-scan-twostage": {"mips_quantization": "int8", "mips_kernel": "scan", "mips_twostage": True},
+    "int8-global-scan-twostage-float16": {"mips_quantization": "int8-global", "mips_kernel": "scan",
+                                          "mips_twostage": True, "mips_rescore_dtype": "float16"},
 }
 
 
@@ -149,8 +152,10 @@ _ROUTES = {
 @pytest.mark.parametrize("n", [160, 8 * 2048])
 def test_flat_index_int8_routes_match_jax(route, n):
     """FlatIndex's int8 routes on tests/test_perf_ops.py's corpora: the same
-    hits as the JAX FlatIndex (self-retrieval on top), at 160 rows through
-    the exact int8 fallback and at 16,384 through the binmax scans."""
+    hits as the JAX FlatIndex (self-retrieval on top), the binmax routes at
+    160 rows through the exact int8 fallback and at 16,384 through the
+    binmax scans, the scan routes (the two-stage rescore included) through
+    the exact int8 scan at both."""
     rng = np.random.default_rng(23)
     d, k = 24, 5
     vectors = rng.normal(size=(n, d)).astype(np.float32)
@@ -168,11 +173,6 @@ def test_flat_index_int8_routes_match_jax(route, n):
     assert tids[0][0] == "d3" and tids[1][0] == f"d{n - 5}", tids
     np.testing.assert_array_equal(tids, jids)
     np.testing.assert_allclose(ts, js, rtol=1e-5, atol=1e-6)
-
-
-def test_flat_index_twostage_scan_not_ported():
-    with pytest.raises(NotImplementedError, match="mips_twostage"):
-        FlatIndex({"mips_quantization": "int8", "mips_kernel": "scan", "mips_twostage": True}, "cpu")
 
 
 # ---- the int8 serving slice through both CLIs --------------------------------
