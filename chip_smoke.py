@@ -60,9 +60,10 @@ Phases (any failed check raises, and the script exits non-zero):
    at the re-rankers' (B, L) = (16, 230) (a BERT_CAT training batch of 30 +
    200 tokens), (128, 230) (its eval batch), (64, 94) (the maxP / PARADE
    chunks of a training batch), (384, 94) (IDCM's cascade at eval batch
-   128: 3 chunks a document) and (640, 94) (IDCM's 40 chunks a document at
-   batch 16: stage 1's and the full path's pass), each with its device time
-   and bound;
+   128: 3 chunks a document), (640, 94) (IDCM's 40 chunks a document at
+   batch 16: stage 1's and the full path's pass) and (32, 200) (phase 12's
+   list batch: 4 lists of 8 documents), each with its device time and
+   bound;
 4. the main path, ``cli.dense_retrieval.run("encode+index+search")``, on a
    seeded 16,384-passage collection with a DistilBERT-width BERT_DOT
    (random weights from a seed), searching one query set at top-100 and one
@@ -188,9 +189,40 @@ Phases (any failed check raises, and the script exits non-zero):
    float16 blocks of 50,000 rows written under build/ (no miss past a
    near-tie against the exact search of the stored rows), each with its
    build seconds, index bytes, recall and QPS, and HNSW on the host at
-   65,536 rows (adds/s); (c) each route's state in a port index on the
+   32,768 rows (adds/s); (c) each route's state in a port index on the
    CPU: 8 queries' scores within 1e-3 relative and no miss past a 1e-3
-   near-tie.
+   near-tie. The host's int8 codes and tree-AH's residual codes run
+   row-parallel on every core (bit for bit the serial ones).
+12. the rest of the model zoo and of the losses, in phase 10's directory
+   (its planted corpus, 400,000-entry vocabulary and embedding file), run
+   after phase 10: (a) PACRR, CO-PACRR (configs/train/models/pacrr.yaml),
+   DRMM, MatchPyramid and Duet, 20 steps of 32 triples each through
+   cli.train's Trainer with one validation and the test pass: a finite loss
+   every step, no kernel launched, the run files, one batch scored on the
+   card and on the CPU from the same weights (cosine >= 0.9999, max |d| <=
+   1e-3; DRMM's histogram entries that change bin counted, each within 1e-6
+   of a bin edge), triples/s device-only, a one-batch overfit (30 steps
+   halve RankNet); (b) from a seeded DistilBERT checkpoint directory the
+   phase writes: TK over ``bert_vectors`` frozen and trainable (K1/K2
+   launches as predicted; frozen, no K11/K12 and no encoder gradient;
+   trainable, K11/K12 as often as K1/K2 in training and every gradient's
+   cosine >= 0.99 against the plain versions' under a pointwise loss), one
+   eval batch against the plain versions, and KNRM over
+   ``bert_embedding`` (its table the checkpoint's word embeddings bit for
+   bit, no kernel); (c) listwise BERT_DOT on the list sampler (4 lists of
+   8 over a candidate run the phase writes) under listnet, lambdarank and
+   mrr, 20 steps each through the Trainer: launches as predicted, one
+   step's loss (1e-2) and gradients (cosine >= 0.99) against the plain
+   versions', lists/s device-only, 30 steps on one list batch putting the
+   positive (for mrr, a labelled document) first in >= 90 % of its lists;
+   (d) BERT_CAT with the QA heads (batch 16, 30 + 200 tokens) over QA
+   triples the phase writes, with and without the uncertainty weighting,
+   20 steps each and one validation with QA answer evaluation: launches as
+   predicted (the answer walk's forwards counted), one step's loss and
+   gradients against the plain versions' (``qa_span_layer`` and
+   ``mtl_log_vars`` included), 30 steps on one batch halving the span
+   loss, QA EM/F1; (e) (c)'s encoder exported by utils/hf_export.py and
+   re-read bit for bit, (a)'s PACRR and DRMM runs fused by RRF.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Details go to build/chip_smoke.json.
@@ -257,8 +289,9 @@ FULL = dict(
     probe_args={"attn_inner": [], "int8_matmul": [], "mlp_rows": []},
     # phase 3: K1, K2, K12 and K11 at the re-rankers' (B, L): a BERT_CAT
     # training batch (16 x (30 + 200)), its eval batch, the maxP / PARADE
-    # chunks of a training batch (16 x 4 chunks of 30 + 50 + 2 x 7 tokens)
-    rerank_shapes=[(16, 230), (128, 230), (64, 94), (384, 94), (640, 94)],
+    # chunks of a training batch (16 x 4 chunks of 30 + 50 + 2 x 7 tokens),
+    # IDCM's (phase 10), phase 12's list batch (4 lists x 8 documents of 200)
+    rerank_shapes=[(16, 230), (128, 230), (64, 94), (384, 94), (640, 94), (32, 200)],
     # phase 9: the re-rankers on the planted corpus (data/synthetic.py)
     rerank_batch=16, rerank_query_len=30, rerank_doc_len=200, rerank_steps=40, rerank_validate_every=20,
     rerank_eval_batch=128, rerank_val_queries=32, rerank_val_docs=8, rerank_docs=2048, rerank_other_steps=10,
@@ -278,9 +311,17 @@ FULL = dict(
     idcm_batch=16, idcm_steps=10, idcm_grad_rows=4, idcm_timing_pairs=4096,
     # phase 11 (b): the index routes at scale_rows (IVF at the reference's
     # mean list size: 8.8M rows / 20,000 lists ~ 1M / 2,048), the streaming
-    # index's blocks, HNSW on the host at hnsw_rows; (c) the CPU's queries
+    # index's blocks, HNSW on the host at hnsw_rows (65,536 until phase 12
+    # came: its host build, the phase's longest step, cut in half to keep the
+    # run near 780 s); (c) the CPU's queries
     scale_ivf_lists=2048, scale_ivf_nprobe=64, scale_ah_leaves=1024, scale_ah_search=100, stream_block_rows=50_000,
-    hnsw_rows=65_536, index_cpu_queries=8,
+    hnsw_rows=32_768, index_cpu_queries=8,
+    # phase 12: the classic models over phase 10's vocabulary and embedding
+    # file (batch pool_batch), TK over bert_vectors and KNRM over
+    # bert_embedding (batch pool_batch), listwise BERT_DOT (list_queries lists
+    # of list_size documents, list_candidates a query in the run file),
+    # BERT_CAT with QA heads (batch rerank_batch)
+    zoo_steps=20, zoo_ctx_steps=10, list_steps=20, list_queries=4, list_size=8, list_candidates=20, qa_steps=20,
 )
 
 
@@ -2612,7 +2653,7 @@ def plain_maxsim():
         ts.maxsim_all_pairs = saved
 
 
-def _kernels_vs_plain_step(model, config, batch, smooth_config, tag, unreached=()):
+def _kernels_vs_plain_step(model, config, batch, smooth_config, tag, unreached=(), exact_zero=None):
     """One step's loss and gradients from the same parameters through the
     kernels and through the plain versions (encoder halves, and the
     all-pairs MaxSim where the model has one). The configured loss is
@@ -2624,7 +2665,10 @@ def _kernels_vs_plain_step(model, config, batch, smooth_config, tag, unreached=(
     compute; the number of picks that move is reported. Every parameter
     gets a gradient in both runs but those whose names start with one of
     ``unreached`` (the parts of the model the loss does not reach), which
-    get none in either."""
+    get none in either. ``exact_zero``: {parameter: reference parameter}
+    for gradients zero in exact arithmetic (as each key bias's): their
+    rounding noise is bounded by 2e-2 of the reference's largest gradient
+    instead."""
     import torch
 
     from matchmaker_tpu_torch.losses import get_loss
@@ -2662,6 +2706,11 @@ def _kernels_vs_plain_step(model, config, batch, smooth_config, tag, unreached=(
             key_bias = max(key_bias, ratio)
             check(ratio <= 2e-2, f"{name}: gradient noise {ratio:.4g} of the query bias's, above 2e-2")
             continue
+        if name in (exact_zero or {}):
+            ratio = float((a - b).abs().max()) / float(gp[exact_zero[name]].abs().max())
+            key_bias = max(key_bias, ratio)
+            check(ratio <= 2e-2, f"{name}: gradient noise {ratio:.4g} of {exact_zero[name]}'s, above 2e-2")
+            continue
         cosines[name] = float(torch.nn.functional.cosine_similarity(a.reshape(-1), b.reshape(-1), dim=0))
     worst = sorted(cosines.items(), key=lambda kv: kv[1])[:3]
     n_queries = len(hk) if hk is not None else 0
@@ -2669,17 +2718,19 @@ def _kernels_vs_plain_step(model, config, batch, smooth_config, tag, unreached=(
           f"hardest negative moved for {moved} of {n_queries} queries; gradients of {len(cosines)} parameters "
           f"under {smooth_config.get('in_batch_neg_loss') if smooth_config.get('in_batch_negatives') else 'no'} "
           f"in-batch loss, worst cosines " + ", ".join(f"{n} {c:.6f}" for n, c in worst)
-          + f"; key-bias noise {key_bias:.4g} of the query bias's (bar 2e-2)")
+          + f"; noise of the gradients zero in exact arithmetic (key biases) {key_bias:.4g} of their references' "
+          "(bar 2e-2)")
     check(rel <= 1e-2, f"{tag}: loss with the kernels {lk} vs plain {lp}")
     check(worst[0][1] >= 0.99, f"{tag}: gradient cosine {worst[0][1]} at {worst[0][0]}")
     return {"plain_loss_gap": rel, "plain_grad_cos": worst[0][1], "hardest_negatives_moved": moved,
             "key_bias_noise": key_bias}
 
 
-def _train_through_trainer(sz, device, config, run_folder, steps, tag):
+def _train_through_trainer(sz, device, config, run_folder, steps, tag, before=None):
     """cli.train's Trainer on ``config`` for ``steps`` steps, its step
     recorded: the launch counts of the run, a finite loss every step, the
-    Trainer's triples/s (validation included); the trainer, the result."""
+    Trainer's triples/s (validation included); the trainer, the result.
+    ``before(trainer)`` runs before the training."""
     import torch
 
     from matchmaker_tpu_torch.ops import _build
@@ -2688,6 +2739,8 @@ def _train_through_trainer(sz, device, config, run_folder, steps, tag):
     os.makedirs(run_folder)
     fresh_perf_monitor()
     trainer = Trainer(config, run_folder)
+    if before is not None:
+        before(trainer)
     step_losses = []
     trainer_step = trainer.train_step
 
@@ -2728,21 +2781,21 @@ def _step_speed(sz, device, trainer, batch, tag):
     return result
 
 
-def _overfit(sz, trainer, config, batch, tag, lr=1e-4):
+def _overfit(sz, trainer, config, batch, tag, lr=1e-4, key="ranking_loss"):
     """A one-batch overfit from the current weights, no warmup, a constant
     learning rate: ``overfit_steps`` (30) steps must halve the ranking loss
-    (Margin-MSE, RankNet). ``lr``: the encoder's learning rate, the heads'
-    ten times it."""
+    (Margin-MSE, RankNet), or the step's ``key`` stat. ``lr``: the
+    encoder's learning rate, the heads' ten times it."""
     from matchmaker_tpu_torch.training.optim import build_optimizer
     from matchmaker_tpu_torch.training.train_step import make_train_step
 
     fit_config = dict(config, lr_schedule="constant", optimizer_warmup_steps=0, param_group0_learning_rate=lr,
                       embedding_optimizer_learning_rate=lr, param_group1_learning_rate=10 * lr)
     fit_step = make_train_step(trainer.model, trainer.losses, build_optimizer(fit_config, trainer.model), fit_config)
-    fit = [float(fit_step(batch)["ranking_loss"]) for _ in range(sz["overfit_steps"])]
-    print(f"[{tag}] one-batch overfit, {sz['overfit_steps']} steps: {config['loss']} {fit[0]:.4f} -> {fit[-1]:.4f}")
-    check(fit[-1] <= 0.5 * fit[0], f"{tag}: overfitting one batch took {config['loss']} only from {fit[0]} to "
-          f"{fit[-1]}")
+    fit = [float(fit_step(batch)[key]) for _ in range(sz["overfit_steps"])]
+    name = config["loss"] if key == "ranking_loss" else key
+    print(f"[{tag}] one-batch overfit, {sz['overfit_steps']} steps: {name} {fit[0]:.4f} -> {fit[-1]:.4f}")
+    check(fit[-1] <= 0.5 * fit[0], f"{tag}: overfitting one batch took {name} only from {fit[0]} to {fit[-1]}")
     return {"overfit_first": fit[0], "overfit_last": fit[-1]}
 
 
@@ -2902,7 +2955,7 @@ def phase_rerank_kernels(sz, device, kern):
     """K1, K2, K12 and K11 against their plain versions at the re-rankers'
     shapes (``rerank_shapes``: a BERT_CAT training batch of 30 + 200 = 230
     tokens, its eval batch, the 94-token maxP / PARADE chunks of a training
-    batch), ragged masks; each timed beside its plain version, with its
+    batch, IDCM's, phase 12's list batch), ragged masks; each timed beside its plain version, with its
     device time and bound, into the kernel's timings (``path: rerank``)."""
     import torch
 
@@ -3371,16 +3424,17 @@ def _pooling_data(root, sz):
     return paths
 
 
-def _pooling_config(paths, sz, device, model):
+def _pooling_config(paths, sz, device, model, steps=None):
     """configs/train/defaults.yaml + the model's file, 300-d embeddings from
     the seeded embedding file over the 400,000-entry vocabulary, batch 32,
-    query 30 / doc 200 (TKL 2,000), the run cut to ``pool_steps`` steps with
-    one validation at the end and the test pass."""
+    query 30 / doc 200 (TKL 2,000), the run cut to ``steps`` (phase 10:
+    ``pool_steps``) steps with one validation at the end and the test
+    pass. Phase 12's classic models take the same configuration."""
     from matchmaker_tpu_torch.config import auto_fill
 
     long_docs = model == "tkl"
     val = {"tsv": paths["long_val" if long_docs else "val"], "qrels": paths["qrels"], "binarization_point": 1}
-    steps = sz["pool_steps"]
+    steps = steps or sz["pool_steps"]
     return auto_fill({
         "model": model, "random_seed": 1234, "device": str(device), "enable_tensorboard": False,
         "token_embedder_type": "embedding", "vocab_directory": paths["pool_vocab"],
@@ -3392,7 +3446,7 @@ def _pooling_config(paths, sz, device, model):
         "max_query_length": sz["rerank_query_len"], "max_doc_length": sz["rerank_doc_len"], "epochs": 1,
         "validate_every_n_batches": steps, "max_training_batches": steps, "validation_metric": "MRR@10",
         "train_tsv": paths["long_train" if long_docs else "train_tsv"], "validation_cont": val,
-        "test": {"planted": dict(val)}, **POOLING_CONFIGS[model],
+        "test": {"planted": dict(val)}, **{**POOLING_CONFIGS, **ZOO_CONFIGS}[model],
         **({"max_doc_length": sz["pool_long_words"]} if long_docs else {})})
 
 
@@ -3418,10 +3472,10 @@ def _exact_match_acts(model, name, ids, mask):
     return torch.diagonal(acts, dim1=1, dim2=2)[mask > 0]
 
 
-def _card_vs_cpu(trainer, path, device, name, rows):
-    """The first eval batch of ``path`` (its first ``rows`` pairs) scored on
-    the card and on the CPU from the same weights: cosine >= 0.9999, max |d|
-    <= 1e-3; the exact-match guard on its queries (>= 0.99)."""
+def _scores_on_card_and_cpu(trainer, path, device, rows):
+    """The first eval batch of ``path`` (its first ``rows`` pairs, on the
+    CPU), the model's copy on the CPU, and the batch's scores on the card and
+    on the CPU from the same weights with their cosine and max |d|."""
     import copy
 
     import torch
@@ -3435,9 +3489,15 @@ def _card_vs_cpu(trainer, path, device, name, rows):
     with torch.inference_mode():
         got = trainer.model({k: v.to(device) for k, v in batch.items()})["score"].float().cpu()
         want = cpu_model(batch)["score"].float()
-    del cpu_model
     cos = float(torch.nn.functional.cosine_similarity(got, want, dim=0))
-    err = float((got - want).abs().max())
+    return batch, cpu_model, cos, float((got - want).abs().max())
+
+
+def _card_vs_cpu(trainer, path, device, name, rows):
+    """The first eval batch of ``path`` (its first ``rows`` pairs) scored on
+    the card and on the CPU from the same weights: cosine >= 0.9999, max |d|
+    <= 1e-3; the exact-match guard on its queries (>= 0.99)."""
+    batch, _, cos, err = _scores_on_card_and_cpu(trainer, path, device, rows)
     acts = _exact_match_acts(trainer.model, name, batch["query_ids"].to(device), batch["query_mask"].to(device))
     print(f"[pooling] {name}: {rows} pairs on the card vs the CPU: cosine {cos:.7f}, max |d| {err:.4g}; "
           f"exact-match kernel activation of a token against itself: min {float(acts.min()):.6f} over {acts.numel()}")
@@ -3682,6 +3742,541 @@ def phase_kernel_pooling(sz, device, root):
     result = {"data_s": data_s, "pooling": phase_pooling(sz, device, paths)}
     result["idcm"] = phase_idcm(sz, device, paths)
     result["launches"] = result["idcm"]["launches"]
+    result["paths"] = paths  # phase 12 runs over the same files
+    return result
+
+
+# ---- phase 12: the rest of the model zoo and of the losses ----------------------
+
+ZOO_MODELS = ("pacrr", "co_pacrr", "drmm", "matchpyramid", "duet")
+# configs/train/models/pacrr.yaml (CO-PACRR takes it too); DRMM, MatchPyramid
+# and Duet have no file: the JAX defaults
+PACRR_CONFIG = {"pacrr_unified_query_length": 30, "pacrr_unified_document_length": 200,
+                "pacrr_max_conv_kernel_size": 3, "pacrr_conv_output_size": 32, "pacrr_kmax_pooling_size": 5}
+ZOO_CONFIGS = {"pacrr": PACRR_CONFIG, "co_pacrr": PACRR_CONFIG, "drmm": {}, "matchpyramid": {}, "duet": {}}
+LIST_LOSSES = ("listnet", "lambdarank", "mrr")
+# TK over the encoder's 768-wide vectors: 8 heads (the JAX default; the
+# repo's 10 heads do not divide 768), the rest of configs/train/models/tk.yaml
+TK_VECTORS_CONFIG = dict(POOLING_CONFIGS["tk"], tk_att_heads=8)
+
+
+def _zoo_card_vs_cpu(trainer, path, device, name, rows):
+    """The first eval batch of ``path`` (its first ``rows`` pairs) scored on
+    the card and on the CPU from the same weights: cosine >= 0.9999, max |d|
+    <= 1e-3 (phase 10's bar). DRMM: the histogram bin of every live (query,
+    document) cosine on the card against the CPU's, the moved entries
+    counted, each of them within 1e-6 of a bin edge."""
+    import torch
+
+    from matchmaker_tpu_torch.models.drmm import histogram_bins
+    from matchmaker_tpu_torch.ops.kernel_pooling import cosine_match_matrix
+
+    batch, cpu_model, cos, err = _scores_on_card_and_cpu(trainer, path, device, rows)
+    card_batch = {k: v.to(device) for k, v in batch.items()}
+    result = {"cpu_cos": cos, "cpu_max_abs": err}
+    note = ""
+    if name == "drmm":
+        with torch.inference_mode():
+            match = {}
+            for side, (model, b) in (("card", (trainer.model, card_batch)), ("cpu", (cpu_model, batch))):
+                q = model.embedder(b["query_ids"], b["query_mask"])
+                d = model.embedder(b["doc_ids"], b["doc_mask"])
+                match[side] = cosine_match_matrix(q, d).cpu()
+        live = (batch["query_mask"][:, :, None] * batch["doc_mask"][:, None, :]) > 0
+        bins = cpu_model.bin_count
+        moved = (histogram_bins(match["card"], bins) != histogram_bins(match["cpu"], bins)) & live
+        scaled = (match["cpu"].double() + 1.0) * bins / 2.0
+        near_edge = (scaled - scaled.round()).abs() <= 1e-6 * bins / 2.0
+        result.update(histogram_entries=int(live.sum()), histogram_moved=int(moved.sum()),
+                      histogram_moved_off_edge=int((moved & ~near_edge).sum()),
+                      max_cosine_gap=float((match["card"] - match["cpu"]).abs().max()))
+        note = (f"; histogram: {result['histogram_moved']} of {result['histogram_entries']} live cosines changed bin "
+                f"({result['histogram_moved_off_edge']} of them farther than 1e-6 from an edge), largest cosine "
+                f"gap {result['max_cosine_gap']:.3g}")
+        check(result["histogram_moved_off_edge"] == 0, f"DRMM: {result['histogram_moved_off_edge']} cosines changed "
+              "bin on the card away from a bin edge")
+    del cpu_model
+    print(f"[zoo] {name}: {rows} pairs on the card vs the CPU: cosine {cos:.7f}, max |d| {err:.4g}{note}")
+    check(cos >= 0.9999 and err <= 1e-3, f"{name}: card vs CPU scores: cosine {cos}, max |d| {err}")
+    return result
+
+
+def phase_classic(sz, device, paths):
+    """Phase 12 (a): PACRR, CO-PACRR, DRMM, MatchPyramid and Duet through
+    cli.train's Trainer over phase 10's vocabulary and embedding file
+    (``zoo_steps`` steps, one validation, the test pass): a finite loss
+    every step, no kernel launched, the run files, one batch's scores on the
+    card against the CPU (DRMM's moved histogram entries counted), triples/s
+    device-only (CUDA events over 10 steps) and a one-batch overfit (30
+    steps halve RankNet)."""
+    result = {}
+    psz = dict(sz, train_batch=sz["pool_batch"])
+    for name in ZOO_MODELS:
+        t0 = time.perf_counter()
+        config = _pooling_config(paths, sz, device, name, steps=sz["zoo_steps"])
+        folder = os.path.join(os.path.dirname(paths["glove"]), f"{name}_run")
+        trainer, res = _train_through_trainer(psz, device, config, folder, sz["zoo_steps"], f"zoo {name}")
+        check(not any(res["launches"].values()), f"{name}: a kernel launched: {res['launches']}")
+        for rel in ("validation-metrics-cont.csv", "best-model.npz", "test-planted-output.txt",
+                    "test-planted-metrics.csv"):
+            check(os.path.isfile(os.path.join(folder, rel)), f"missing {rel} in the {name} run folder")
+        res.update(_zoo_card_vs_cpu(trainer, config["test"]["planted"]["tsv"], device, name, sz["pool_cpu_rows"]))
+        batch = _device_batch(config, trainer.tokenizer, config["train_tsv"], device)
+        res.update(_step_speed(psz, device, trainer, batch, f"zoo {name}"))
+        if "profile" in res:
+            res["busy_share"] = res.pop("profile")["busy_share"]
+        res.update(_overfit(psz, trainer, config, batch, f"zoo {name}", lr=1e-3))
+        res["part_s"] = time.perf_counter() - t0
+        print(f"[zoo] {name} {sz['zoo_steps']} steps: loss {res['loss_first']:.4f} -> {res['loss_last']:.4f}, "
+              f"{res['cli_triples_per_s']:.1f} triples/s through the Trainer (validation included), "
+              f"{res['device_triples_per_s']:.1f} device-only ({res['step_ms']:.2f} ms a step); the model's part "
+              f"{res['part_s']:.1f} s, {res['wall_s']:.1f} s of it the Trainer's train()")
+        res["run_file"] = os.path.join(folder, "test-planted-output.txt")
+        result[name] = res
+        _free(trainer, device)
+    return result
+
+
+def _zoo_checkpoint(sz, root):
+    """A seeded DistilBERT checkpoint directory at the phase's width
+    (``model.safetensors`` + ``config.json``), as phase 9 writes one."""
+    from matchmaker_tpu_torch.models import hf_import
+    from matchmaker_tpu_torch.models.encoder import EncoderConfig
+
+    cfg = EncoderConfig(vocab_size=sz["vocab"], hidden_size=sz["hid"], num_layers=sz["n_layers"],
+                        num_heads=sz["heads"], intermediate_size=sz["ff"], max_position_embeddings=512)
+    config, sd = hf_import.seeded_distilbert_checkpoint(cfg, seed=21)
+    path = os.path.join(root, "zoo_ckpt")
+    hf_import.save_hf_checkpoint(path, config, sd, True)
+    return path
+
+
+def _zoo_bert_config(paths, sz, device, model, ckpt, steps, batch, **kw):
+    """configs/train/defaults.yaml at DistilBERT width (bf16, fused layers)
+    from the phase's checkpoint, query 30 / doc 200, the run cut to
+    ``steps`` steps with one validation at the end."""
+    from matchmaker_tpu_torch.config import auto_fill
+
+    val = {"tsv": paths["val"], "qrels": paths["qrels"], "binarization_point": 1}
+    return auto_fill({
+        "model": model, "bert_pretrained_model": ckpt, "random_seed": 1234, "use_fp16": True,
+        "encoder_fused_attention": True, "device": str(device), "enable_tensorboard": False, "loss": "ranknet",
+        "param_group0_learning_rate": 7.0e-6, "param_group1_learning_rate": 7.0e-4,
+        "embedding_optimizer_learning_rate": 7.0e-6, "weight_decay": 0.0, "lr_schedule": "cosine",
+        "optimizer_warmup_steps": 1000, "max_training_steps": 300000, "gradient_clip_norm": 1.0,
+        "batch_size_train": batch, "batch_size_eval": sz["pool_eval_batch"],
+        "max_query_length": sz["rerank_query_len"], "max_doc_length": sz["rerank_doc_len"], "epochs": 1,
+        "validate_every_n_batches": steps, "max_training_batches": steps, "validation_metric": "MRR@10",
+        "train_tsv": paths["train_tsv"], "validation_cont": val, **kw})
+
+
+def _val_batches(sz):
+    return -(-sz["pool_val_queries"] * sz["pool_val_docs"] // sz["pool_eval_batch"])
+
+
+def predicted_encode_launches(sz, steps, encodes_per_step, backward, eval_forwards):
+    """K1/K2 once a layer and encode; K11/K12 once a layer and encode of a
+    training step when the encoder trains. ``eval_forwards``: encodes
+    outside training (eval batches, the QA answer forwards)."""
+    layers = sz["n_layers"]
+    train = steps * encodes_per_step * layers
+    forward = train + eval_forwards * layers
+    return {"fused_attention_block": forward, "fused_mlp_block": forward,
+            "fused_attention_block_bwd": train if backward else 0, "fused_mlp_block_bwd": train if backward else 0}
+
+
+def phase_contextual(sz, device, paths, ckpt):
+    """Phase 12 (b): TK over ``bert_vectors`` (DistilBERT from the phase's
+    checkpoint directory) frozen and trainable, and KNRM over
+    ``bert_embedding`` from the same directory, through the Trainer
+    (``zoo_ctx_steps`` steps, one validation): launches as predicted (a
+    step encodes the query and the document of both passes; frozen, no
+    backward kernel), one eval batch's scores against the plain versions'
+    (the encoder halves' bar), trainable, every gradient's cosine >= 0.99
+    under a pointwise loss; KNRM's table the checkpoint's word embeddings
+    bit for bit and no kernel launched."""
+    import torch
+
+    from matchmaker_tpu_torch.models import get_model, init_params
+    from matchmaker_tpu_torch.models.hf_import import load_hf_encoder
+
+    result = {"launches": {}}
+    steps, batch_size = sz["zoo_ctx_steps"], sz["pool_batch"]
+    csz = dict(sz, train_batch=batch_size)
+    root = os.path.dirname(paths["glove"])
+    for frozen in (True, False):
+        tag = f"zoo tk bert_vectors {'frozen' if frozen else 'trainable'}"
+        config = _zoo_bert_config(paths, sz, device, "tk", ckpt, steps, batch_size, token_embedder_type="bert_vectors",
+                                  train_embedding=not frozen, **TK_VECTORS_CONFIG)
+        folder = os.path.join(root, f"tk_vectors_{'frozen' if frozen else 'trainable'}")
+        trainer, res = _train_through_trainer(csz, device, config, folder, steps, tag)
+        for k, v in res["launches"].items():
+            result["launches"][k] = result["launches"].get(k, 0) + v
+        # a step: the query and the document of both passes; an eval batch: its query and document
+        _check_launches(res["launches"], predicted_encode_launches(sz, steps, 4, not frozen, 2 * _val_batches(sz)),
+                        tag, device)
+        check(type(trainer.model).__name__ == "ContextualVectorsAdapter" and not hasattr(trainer.model.inner, "embedder"),
+              f"{tag}: not a bert_vectors adapter over a table-less TK")
+        res.update(_eval_batch_vs_plain(trainer, paths["val"], device, tag))
+        batch = _device_batch(config, trainer.tokenizer, config["train_tsv"], device)
+        if frozen:
+            from matchmaker_tpu_torch.training.train_step import make_loss_fn
+
+            trainer.model.zero_grad(set_to_none=True)
+            make_loss_fn(trainer.model, trainer.losses, config)(batch)[0].backward()
+            reached = [n for n, p in trainer.model.named_parameters() if n.startswith("encoder.") and p.grad is not None]
+            check(not reached, f"{tag}: a gradient reached the frozen encoder: {reached[:3]}")
+            trainer.model.zero_grad(set_to_none=True)
+        else:
+            trainer.model.train()
+            res.update(_kernels_vs_plain_step(trainer.model, config, batch, dict(config, loss="MSETeacherPointwise"),
+                                              tag))
+        res.update(_step_speed(csz, device, trainer, batch, tag))
+        res.pop("profile", None)
+        print(f"[zoo] {tag}: {steps} steps, loss {res['loss_first']:.4f} -> {res['loss_last']:.4f}, "
+              f"{res['device_triples_per_s']:.1f} triples/s device-only; launches {res['launches']}")
+        result["tk_vectors_frozen" if frozen else "tk_vectors_trainable"] = res
+        _free(trainer, device)
+
+    config = _zoo_bert_config(paths, sz, device, "knrm", ckpt, steps, batch_size, token_embedder_type="bert_embedding",
+                              loss="margin", param_group1_learning_rate=1.0e-3)
+    folder = os.path.join(root, "knrm_bert_embedding")
+    trainer, res = _train_through_trainer(csz, device, config, folder, steps, "zoo knrm bert_embedding")
+    check(not any(res["launches"].values()), f"KNRM over bert_embedding launched a kernel: {res['launches']}")
+    table = load_hf_encoder(ckpt)[1]["word_embeddings.embedding"]
+    res["table_shape"] = list(trainer.model.embedder.token_embedding.embedding.shape)
+    check(res["table_shape"] == list(table.shape), f"KNRM over bert_embedding: table {res['table_shape']}")
+    # the Trainer's start: get_model + init_params on the same config
+    fresh = get_model(config, trainer.tokenizer)
+    init_params(fresh, config, torch.Generator().manual_seed(config["random_seed"]))
+    check(torch.equal(fresh.embedder.token_embedding.embedding, table), "KNRM over bert_embedding: the table is not "
+          "the checkpoint's word embeddings")
+    del fresh
+    print(f"[zoo] knrm over bert_embedding: a {tuple(table.shape)} table from the checkpoint, {steps} steps, loss "
+          f"{res['loss_first']:.4f} -> {res['loss_last']:.4f}, no kernel launched")
+    result["knrm_bert_embedding"] = res
+    _free(trainer, device)
+    return result
+
+
+def _list_files(root, paths, sz, seed=22):
+    """A candidate run for the list sampler: every eval query of phase 10's
+    planted corpus with ``list_candidates`` random documents of the
+    collection in rank order (its relevant one among them for half the
+    queries, which the sampler drops from the candidates)."""
+    import random
+
+    rng = random.Random(seed)
+    with open(paths["collection"]) as f:
+        ids = sorted(line.split("\t", 1)[0] for line in f)
+    with open(paths["qrels"]) as f:
+        rel = {line.split()[0]: line.split()[2] for line in f}
+    run = os.path.join(root, "list_candidates.txt")
+    with open(run, "w") as f:
+        for i, qid in enumerate(sorted(rel)):
+            cands = rng.sample(ids, sz["list_candidates"]) + ([rel[qid]] if i % 2 else [])
+            for rank, did in enumerate(cands, 1):
+                f.write(f"{qid} Q0 {did} {rank} {1.0 / rank:.6f} smoke\n")
+    return run
+
+
+def _list_scores(model, batch):
+    """(Q, L) f32 scores of a list batch's (query, document) pairs, no autograd."""
+    import torch
+
+    from matchmaker_tpu_torch.training.train_step import list_scores
+
+    with torch.no_grad():
+        return list_scores(model, batch).float()
+
+
+def _positive_first(model, batch):
+    """The shares of a list batch's lists whose positive (slot 0), and whose
+    labelled document (the positive or a candidate: what the smooth MRR
+    loss counts as relevant), the model scores above every other one."""
+    import torch
+
+    top = _list_scores(model, batch).argmax(dim=1)
+    labelled = torch.gather(batch["list_labels"], 1, top[:, None])[:, 0] > 0
+    return float((top == 0).float().mean()), float(labelled.float().mean())
+
+
+def _list_scores_vs_plain(model, losses, batch, tag, bounded_loss):
+    """A list batch's scores with the kernels and with the plain versions,
+    held to the encoder halves' bar; the lists whose predicted order moved
+    and those whose best-scored labelled document (the one the smooth MRR
+    loss takes its max at) moved, counted. With ``bounded_loss`` the loss
+    is compared over the lists whose order did not move, within 1e-2
+    relative plus the first-order change the score differences make (sum
+    |dL/ds| |s_kernels - s_plain| at the plain scores): LambdaLoss weighs
+    each pair by the documents' places in the predicted order, a step
+    function of the scores, and sums log-sigmoids of score differences, so
+    a bf16-sized score error moves it by far more than 1e-2 of its value
+    where the differences are a few units; the smooth MRR loss of a list
+    already ranked right is near 0 (1e-5), where a relative gap says
+    nothing. The scores themselves are held to the encoder halves' bar."""
+    import torch
+
+    got = _list_scores(model, batch)
+    with plain_encoder_blocks():
+        want = _list_scores(model, batch)
+    cos = float(torch.nn.functional.cosine_similarity(got.reshape(-1), want.reshape(-1), dim=0))
+    err = float((got - want).abs().max())
+    same = (torch.argsort(-got, dim=1, stable=True) == torch.argsort(-want, dim=1, stable=True)).all(dim=1)
+    labelled = batch["list_labels"] > 0
+    picks = [torch.where(labelled, x, float("-inf")).argmax(dim=1) for x in (got, want)]
+    picks_moved = int((picks[0] != picks[1]).sum())
+    moved = int((~same).sum())
+    check(cos >= 0.999 and err <= 0.1 * max(1.0, float(want.abs().max())),
+          f"{tag}: list scores, kernels vs plain: cosine {cos}, max |d| {err}")
+    result = {"scores_cos": cos, "scores_max_abs": err, "lists_reordered": moved, "labelled_pick_moved": picks_moved}
+    note = ""
+    if bounded_loss:
+        labels = batch["list_labels"][same]
+        mask = torch.ones_like(labels)
+        plain_scores = want[same].clone().requires_grad_(True)
+        with torch.enable_grad():
+            lp_t = losses.ranking_loss(plain_scores, labels, mask)
+            lp_t.backward()
+        lk, lp = float(losses.ranking_loss(got[same], labels, mask)), float(lp_t)
+        first_order = float((plain_scores.grad.abs() * (got[same] - want[same]).abs()).sum())
+        gap = abs(lk - lp) / max(abs(lp), 1e-12)
+        note = (f"; the loss over the {int(same.sum())} lists ordered alike {lk:.6g} vs {lp:.6g} (relative gap "
+                f"{gap:.3g}; first-order change of the score differences {first_order:.4g})")
+        check(abs(lk - lp) <= 1e-2 * abs(lp) + first_order, f"{tag}: the loss over the lists ordered alike, kernels "
+              f"{lk} vs plain {lp}, beyond 1e-2 and the first-order change {first_order}")
+        result.update(ordered_loss_gap=gap, ordered_loss_first_order=first_order)
+    print(f"[{tag}] list scores, kernels vs plain: cosine {cos:.6f}, max |d| {err:.4g}; {moved} of {got.shape[0]} "
+          f"lists ordered differently, {picks_moved} with another best-scored labelled document{note}")
+    return result
+
+
+def phase_listwise(sz, device, paths, ckpt):
+    """Phase 12 (c): BERT_DOT (DistilBERT from the phase's checkpoint) on the
+    list sampler's batches (``queries_per_batch`` lists of ``list_size``
+    documents: the positive, candidates of a run file the phase writes and
+    random documents) under listnet, lambdarank and mrr, ``list_steps``
+    steps each through the Trainer with one validation: K1/K2/K11/K12 as
+    predicted (a step encodes its Q·L repeated queries and its Q·L
+    documents once each: K11/K12 at (32, 30) and (32, 200)), one step's
+    loss and gradients against the plain versions' (phase 6's bar), lists/s
+    device-only, 30 steps on one list batch putting the positive first in
+    >= 90 % of its lists. Returns the last run's trainer for (e)."""
+    import torch
+
+    from matchmaker_tpu_torch.data.list_sampler import ListwiseDynamicSampler
+    from matchmaker_tpu_torch.training.optim import build_optimizer
+    from matchmaker_tpu_torch.training.train_step import make_train_step
+
+    result = {"launches": {}}
+    root = os.path.dirname(paths["glove"])
+    steps, qpb, lsize = sz["list_steps"], sz["list_queries"], sz["list_size"]
+    run = _list_files(root, paths, sz)
+    lsz = dict(sz, train_batch=qpb)
+    sampler_files = {"dynamic_sampler_collection": paths["collection"], "dynamic_sampler_queries": paths["queries"],
+                     "dynamic_sampler_qrels": paths["qrels"], "dynamic_sampler_candidates": run}
+    trainer = None
+    for loss in LIST_LOSSES:
+        if trainer is not None:
+            _free(trainer, device)
+        config = _zoo_bert_config(paths, sz, device, "bert_dot", ckpt, steps, qpb, loss=loss, dynamic_sampler="listwise",
+                                  list_size=lsize, queries_per_batch=qpb, tas_batches_per_epoch=steps, **sampler_files)
+        tag = f"zoo listwise {loss}"
+        trainer, res = _train_through_trainer(lsz, device, config, os.path.join(root, f"list_{loss}"), steps, tag)
+        for k, v in res["launches"].items():
+            result["launches"][k] = result["launches"].get(k, 0) + v
+        _check_launches(res["launches"], predicted_encode_launches(sz, steps, 2, True, 2 * _val_batches(sz)), tag,
+                        device)
+        sampler = ListwiseDynamicSampler(collection_file=paths["collection"], query_file=paths["queries"],
+                                         qrels_file=paths["qrels"], candidate_file=run, list_size=lsize,
+                                         queries_per_batch=qpb, seed=7)
+        host = next(iter(sampler.batches(config, trainer.tokenizer, max_batches=1)))
+        batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        check(tuple(batch["list_doc_ids"].shape) == (qpb, lsize, sz["rerank_doc_len"]), "list batch shape")
+        trainer.model.train()
+        res.update(_list_scores_vs_plain(trainer.model, trainer.losses, batch, tag, loss != "listnet"))
+        # the loss and the gradients under ListNet: LambdaLoss's pair
+        # weights step with the predicted order, and the smooth MRR takes a
+        # max over the labelled documents, whose pick can move with
+        # rounding (as phase 6's in-batch hardest negative can); their own
+        # losses are compared above
+        smooth = dict(config, loss="listnet")
+        res.update(_kernels_vs_plain_step(trainer.model, smooth, batch, smooth, tag))
+        ms = _time_ms(lambda: trainer.train_step(batch), device, sz["reps"])
+        res.update(step_ms=ms, device_lists_per_s=qpb / ms * 1e3, device_pairs_per_s=qpb * lsize / ms * 1e3)
+        before, _ = _positive_first(trainer.model, batch)
+        fit_config = dict(config, lr_schedule="constant", optimizer_warmup_steps=0, param_group0_learning_rate=1e-4,
+                          embedding_optimizer_learning_rate=1e-4, param_group1_learning_rate=1e-3)
+        fit_step = make_train_step(trainer.model, trainer.losses, build_optimizer(fit_config, trainer.model), fit_config)
+        fit = [float(fit_step(batch)["loss"]) for _ in range(sz["overfit_steps"])]
+        after, labelled = _positive_first(trainer.model, batch)
+        res.update(overfit_first=fit[0], overfit_last=fit[-1], positive_first_before=before,
+                   positive_first_after=after, labelled_first_after=labelled)
+        print(f"[zoo] {tag}: {steps} steps of {qpb} lists x {lsize}, loss {res['loss_first']:.4f} -> "
+              f"{res['loss_last']:.4f}; {res['device_lists_per_s']:.1f} lists/s device-only ({ms:.2f} ms a step); "
+              f"one-batch overfit {fit[0]:.4f} -> {fit[-1]:.4f}, positive first in {before:.2f} -> {after:.2f} of "
+              f"the lists, a labelled document first in {labelled:.2f}")
+        # the smooth MRR loss counts the candidates (label 1) as relevant too: it puts a labelled document first
+        first = labelled if loss == "mrr" else after
+        check(first >= 0.9, f"{tag}: after {sz['overfit_steps']} steps on one list batch the "
+              f"{'labelled document' if loss == 'mrr' else 'positive'} leads only {first:.2f} of its lists")
+        result[loss] = res
+    return result, trainer
+
+
+def _qa_files(root, paths, sz):
+    """QA triples from phase 10's train triples: the positive's answer is
+    the char span of its first occurrence of the query's first word
+    (``start,end``); the validation's gold answers, each eval query's first
+    word."""
+    qa_train = os.path.join(root, "qa_train.tsv")
+    with open(paths["train_tsv"]) as f, open(qa_train, "w") as g:
+        for line in f:
+            query, pos, neg = line.rstrip("\n").split("\t")
+            word, start = query.split()[0], 0
+            for token in pos.split(" "):
+                if token == word:
+                    break
+                start += len(token) + 1
+            span = f"{start},{start + len(word)}" if start < len(pos) else ""
+            g.write(f"{span}\t{query}\t{pos}\t{neg}\n")
+    answers = os.path.join(root, "qa_answers.tsv")
+    with open(paths["queries"]) as f, open(answers, "w") as g:
+        for line in f:
+            qid, query = line.rstrip("\n").split("\t", 1)
+            g.write(f"{qid}\t{query.split()[0]}\n")
+    return qa_train, answers
+
+
+def phase_qa(sz, device, paths, ckpt):
+    """Phase 12 (d): BERT_CAT with ``train_qa_spans`` (ranknet + the span
+    and answerability losses) at batch 16 of 30 + 200 tokens over QA
+    triples the phase writes, with the uncertainty weighting
+    (``mtl_log_vars``) and without, ``qa_steps`` steps each through the
+    Trainer and one validation, the weighted run's with ``qa_answers``:
+    K1/K2/K11/K12 as predicted (the QA answer walk's forwards counted),
+    one step's loss and gradients (``qa_span_layer`` and ``mtl_log_vars``
+    included, under a pointwise ranking loss) against the plain versions',
+    30 steps on one batch halving the span loss, QA EM/F1 and the answers
+    file."""
+    import csv
+
+    result = {"launches": {}}
+    root = os.path.dirname(paths["glove"])
+    steps, batch_size = sz["qa_steps"], sz["rerank_batch"]
+    qa_train, answers = _qa_files(root, paths, sz)
+    qsz = dict(sz, train_batch=batch_size)
+    for weighting in (True, False):
+        tag = f"zoo qa {'weighted' if weighting else 'lambda'}"
+        val = {"tsv": paths["val"], "qrels": paths["qrels"], "binarization_point": 1,
+               **({"qa_answers": answers} if weighting else {})}
+        config = _zoo_bert_config(paths, sz, device, "bert_cat", ckpt, steps, batch_size, train_qa_spans=True,
+                                  qa_loss="StartEndCrossEntropy", qa_uncertainty_weighting=weighting, train_tsv=qa_train,
+                                  validation_cont=val, batch_size_eval=sz["rerank_eval_batch"])
+        folder = os.path.join(root, f"qa_{'weighted' if weighting else 'lambda'}")
+        qa_forwards = []
+
+        def count_qa_forwards(trainer):
+            step = trainer.eval_step
+
+            def counting(batch, **kw):
+                if batch["seq_ids"].shape[0] == 1:
+                    qa_forwards.append(1)
+                return step(batch, **kw)
+
+            trainer.eval_step = counting
+
+        trainer, res = _train_through_trainer(qsz, device, config, folder, steps, tag, before=count_qa_forwards)
+        for k, v in res["launches"].items():
+            result["launches"][k] = result["launches"].get(k, 0) + v
+        eval_batches = -(-sz["pool_val_queries"] * sz["pool_val_docs"] // sz["rerank_eval_batch"])
+        _check_launches(res["launches"], predicted_encode_launches(sz, steps, 2, True, eval_batches + len(qa_forwards)),
+                        tag, device)
+        check(weighting == hasattr(trainer.model, "mtl_log_vars"), f"{tag}: mtl_log_vars")
+        batch = _device_batch(config, trainer.tokenizer, qa_train, device)
+        trainer.model.train()
+        # the span bias shifts every start (end) logit alike: the cross entropy's gradient is zero in exact arithmetic
+        res.update(_kernels_vs_plain_step(trainer.model, config, batch, dict(config, loss="MSETeacherPointwise"), tag,
+                                          exact_zero={"qa_span_layer.bias": "qa_span_layer.kernel"}))
+        ms = _time_ms(lambda: trainer.train_step(batch), device, sz["reps"])
+        res.update(step_ms=ms, device_triples_per_s=batch_size / ms * 1e3, qa_forwards=len(qa_forwards))
+        res.update(_overfit(qsz, trainer, config, batch, tag, lr=3e-4, key="qa_span_loss"))
+        if weighting:
+            check(os.path.isfile(os.path.join(folder, "last-qa-output.tsv")), f"{tag}: no last-qa-output.tsv")
+            with open(os.path.join(folder, "validation-metrics-cont.csv")) as f:
+                row = list(csv.DictReader(f))[-1]
+            res.update(qa_em=float(row["QA/ExactMatch_TopRanked"]), qa_f1=float(row["QA/F1_TopRanked"]),
+                       mtl_log_vars=[float(v) for v in trainer.model.mtl_log_vars.detach().cpu()])
+        print(f"[zoo] {tag}: {steps} steps of {batch_size}, loss {res['loss_first']:.4f} -> {res['loss_last']:.4f}, "
+              f"{res['device_triples_per_s']:.1f} triples/s device-only ({ms:.2f} ms a step); {len(qa_forwards)} QA "
+              f"answer forwards" + (f"; QA EM {res['qa_em']:.4f} F1 {res['qa_f1']:.4f}, mtl_log_vars "
+                                     f"{res['mtl_log_vars']}" if weighting else ""))
+        result["weighted" if weighting else "lambda"] = res
+        _free(trainer, device)
+    return result
+
+
+def phase_export(sz, device, root, trainer, classic):
+    """Phase 12 (e): (c)'s trained BERT_DOT encoder through
+    utils/hf_export.py, re-read through models/hf_import.py (every tensor
+    bit for bit); utils/ensemble.py fusing (a)'s PACRR and DRMM run files
+    (RRF)."""
+    import torch
+
+    from matchmaker_tpu_torch.evaluation import save_sorted_results
+    from matchmaker_tpu_torch.metrics import load_ranking
+    from matchmaker_tpu_torch.models.hf_import import load_hf_encoder
+    from matchmaker_tpu_torch.utils.ensemble import fuse_runs
+    from matchmaker_tpu_torch.utils.hf_export import export_to_huggingface
+
+    out = os.path.join(root, "hf_export")
+    t0 = time.perf_counter()
+    export_to_huggingface(trainer.model, trainer.model.encoder_cfg, out, model_type="distilbert")
+    export_s = time.perf_counter() - t0
+    cfg, enc = load_hf_encoder(out)
+    mine = {k: v.detach().cpu() for k, v in trainer.model.encoder.state_dict().items()}
+    check(set(enc) == set(mine) and all(torch.equal(enc[k], mine[k]) for k in mine),
+          "the exported checkpoint does not re-read as the trained encoder")
+    check((cfg.hidden_size, cfg.num_layers) == (sz["hid"], sz["n_layers"]), f"exported config {cfg}")
+    runs = [classic["pacrr"]["run_file"], classic["drmm"]["run_file"]]
+    fused = fuse_runs(runs, "rrf")
+    fused_path = os.path.join(root, "fused-output.txt")
+    save_sorted_results(fused, fused_path)
+    queries = [set(load_ranking(p)) for p in runs]
+    check(set(load_ranking(fused_path)) == queries[0] | queries[1], "the fused run lost a query")
+    n_bytes = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+    print(f"[zoo] (e) the listwise run's encoder exported ({n_bytes / 1e6:.1f} MB, {export_s:.2f} s) and re-read bit "
+          f"for bit ({len(mine)} tensors); PACRR + DRMM fused by RRF over {len(fused)} queries")
+    return {"export_mb": n_bytes / 1e6, "export_s": export_s, "tensors": len(mine), "fused_queries": len(fused)}
+
+
+def phase_zoo(sz, device, root, paths):
+    """Phase 12, in phase 10's directory (its corpus, vocabulary and
+    embedding file): (a) the classic models, (b) the contextual embedders,
+    (c) listwise BERT_DOT, (d) BERT_CAT's QA multi-task training, (e) the
+    export and the run fusion."""
+    result = {"launches": {}}
+    t0 = time.perf_counter()
+    result["classic"] = phase_classic(sz, device, paths)
+    result["classic_s"] = time.perf_counter() - t0
+    ckpt = _zoo_checkpoint(sz, root)
+    parts = {}
+    t0 = time.perf_counter()
+    parts["contextual"] = phase_contextual(sz, device, paths, ckpt)
+    result["contextual_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts["listwise"], trainer = phase_listwise(sz, device, paths, ckpt)
+    result["listwise_s"] = time.perf_counter() - t0
+    result["export"] = phase_export(sz, device, root, trainer, result["classic"])
+    _free(trainer, device)
+    t0 = time.perf_counter()
+    parts["qa"] = phase_qa(sz, device, paths, ckpt)
+    result["qa_s"] = time.perf_counter() - t0
+    for name, part in parts.items():
+        for k, v in part.pop("launches").items():
+            result["launches"][k] = result["launches"].get(k, 0) + v
+        result[name] = part
+    print(f"[zoo] launches in phase 12's runs: {result['launches']}")
     return result
 
 
@@ -4214,7 +4809,11 @@ def run_phases(sz, device, card: str) -> dict:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
         report["pooling"] = phase_kernel_pooling(sz, device, root)
-    report["pooling_s"] = time.perf_counter() - t0
+        report["pooling_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report["zoo"] = phase_zoo(sz, device, root, report["pooling"].pop("paths"))
+        report["zoo_s"] = time.perf_counter() - t0
+    print(f"[zoo] phase 12 took {report['zoo_s']:.1f} s")
     t0 = time.perf_counter()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as root:  # the streaming blocks on disk
@@ -4230,8 +4829,9 @@ def run_phases(sz, device, card: str) -> dict:
         # path; "launches_rerank": phase 9's runs (K1, K2, K11, K12 and the
         # student's dense retrieval); "launches_phase10": phase 10's IDCM runs
         # (K1, K2, K11, K12); "launches_phase11": phase 11's CLI runs over the IVF,
-        # tree-AH, HNSW and streaming indexes (K1, K2); "launches_scale": the scale search of the same route (bf16
-        # or int8; training and the probes: the bf16)
+        # tree-AH, HNSW and streaming indexes (K1, K2); "launches_phase12": phase 12's runs (TK over bert_vectors,
+        # listwise BERT_DOT, BERT_CAT with QA heads: K1, K2, K11, K12); "launches_scale": the scale search of the
+        # same route (bf16 or int8; training and the probes: the bf16)
         runs = {"serve": report["main"]["launches"][name], "train": report["train"]["launches"][name],
                 **{f"serve_int8_{r}": report["main_int8"][r]["launches"][name] for r, _, _ in INT8_RUNS},
                 "serve_colbert": report["colbert"]["launches"][name],
@@ -4240,7 +4840,8 @@ def run_phases(sz, device, card: str) -> dict:
                 "probes": report["probes"]["launches"].get(name, 0),
                 "rerank": report["rerank"]["launches"].get(name, 0),
                 "phase10": report["pooling"]["launches"].get(name, 0),
-                "phase11": report["indexes"]["launches"].get(name, 0)}
+                "phase11": report["indexes"]["launches"].get(name, 0),
+                "phase12": report["zoo"]["launches"].get(name, 0)}
         scale_runs = {"scale_bf16": report["scale"]["launches"][name],
                       **{f"scale_int8_{r}": report["scale_int8"][r]["launches"][name]
                          for r, _, _ in SCALE_INT8_RUNS}}
@@ -4330,6 +4931,28 @@ def print_indexes(card, report) -> None:
         f"{r[f'recall@{k}']:.4f} ({r['reference']})" for name, r in ix["scale"].items()))
 
 
+def print_zoo(card, report) -> None:
+    zoo = report["zoo"]
+    print(f"[{card}] classic models through the Trainer at batch {FULL['pool_batch']} (query {FULL['rerank_query_len']}, "
+          f"doc {FULL['rerank_doc_len']}, {FULL['pool_vocab']} x {FULL['pool_dim']} embeddings), device-only "
+          "triples/s: " + ", ".join(f"{n} {zoo['classic'][n]['device_triples_per_s']:.1f}" for n in ZOO_MODELS)
+          + f"; DRMM histogram entries moved on the card {zoo['classic']['drmm']['histogram_moved']} of "
+          f"{zoo['classic']['drmm']['histogram_entries']}")
+    ctx = zoo["contextual"]
+    print(f"[{card}] TK over bert_vectors: frozen {ctx['tk_vectors_frozen']['device_triples_per_s']:.1f}, trainable "
+          f"{ctx['tk_vectors_trainable']['device_triples_per_s']:.1f} triples/s device-only (worst gradient cosine "
+          f"{ctx['tk_vectors_trainable']['plain_grad_cos']:.6f}); KNRM over bert_embedding "
+          f"{ctx['knrm_bert_embedding']['cli_triples_per_s']:.1f} triples/s through the Trainer")
+    print(f"[{card}] listwise BERT_DOT ({FULL['list_queries']} lists x {FULL['list_size']}): " + ", ".join(
+        f"{loss} {zoo['listwise'][loss]['device_lists_per_s']:.1f} lists/s device-only, positive first "
+        f"{zoo['listwise'][loss]['positive_first_after']:.2f} after the overfit" for loss in LIST_LOSSES))
+    qa = zoo["qa"]
+    print(f"[{card}] BERT_CAT + QA heads: {qa['weighted']['device_triples_per_s']:.1f} (weighted) / "
+          f"{qa['lambda']['device_triples_per_s']:.1f} triples/s device-only, QA EM {qa['weighted']['qa_em']:.4f} F1 "
+          f"{qa['weighted']['qa_f1']:.4f}; span loss overfit {qa['weighted']['overfit_first']:.4f} -> "
+          f"{qa['weighted']['overfit_last']:.4f}; phase 12 {report['zoo_s']:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4387,6 +5010,7 @@ def main() -> int:
     print_rerank(card, report)
     print_pooling(card, report)
     print_indexes(card, report)
+    print_zoo(card, report)
     for k in report["kernels"]:
         device = (f" (device {k['device_ms']:.4f} ms, {k['x_bound']:.2f}x bound; library device "
                   f"{_fmt(k.get('library_device_ms'))})" if k.get("x_bound") else "")
@@ -4394,7 +5018,7 @@ def main() -> int:
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}) at {k['timed_shape']}, max |d| {k['max_abs_err']:.3g}, "
               f"launches {k['launches']} in its path's run ({k['path']}), {k['launches_rerank']} in phase 9's runs, "
               f"{k['launches_phase10']} in phase 10's, {k['launches_phase11']} in phase 11's, "
-              f"{k['launches_scale']} in the scale search")
+              f"{k['launches_phase12']} in phase 12's, {k['launches_scale']} in the scale search")
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({"kernels": report["kernels"]}))

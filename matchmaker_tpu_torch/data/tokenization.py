@@ -17,6 +17,7 @@ max length.
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -189,8 +190,6 @@ class HuggingfaceTokenizer:
                 model_name_or_path, use_fast=True, local_files_only=True
             )
         except Exception:
-            import os
-
             if os.environ.get("MM_TPU_ALLOW_HUB_DOWNLOAD"):
                 self.tok = AutoTokenizer.from_pretrained(model_name_or_path, use_fast=True)
             else:
@@ -329,12 +328,20 @@ class HashBertTokenizer:
         return ids, mask, type_ids
 
 
+# the files a Hugging Face tokenizer is read from; a checkpoint directory
+# holding none of them has no vocabulary
+_TOKENIZER_FILES = ("tokenizer.json", "vocab.txt", "vocab.json", "spiece.model", "sentencepiece.bpe.model")
+
+
 def build_tokenizer(config):
     """Tokenizer factory keyed on ``token_embedder_type``: a vocabulary
     tokenizer for ``embedding`` (``vocab_directory`` or ``vocab_path``), a
     local Hugging Face tokenizer, else the hash-vocab tokenizer sized to the encoder's
     vocabulary so ids stay in range (zero-egress fallback, as in the JAX
-    package)."""
+    package). A checkpoint directory without a vocabulary file takes the
+    hash tokenizer too: some ``transformers`` versions raise there, others
+    build a tokenizer of its five special tokens alone, which maps every
+    word to [UNK]."""
     kind = config.get("token_embedder_type", "huggingface_bpe")
     if kind == "embedding":
         vocab_path = config.get("vocab_directory") or config.get("vocab_path")
@@ -343,9 +350,11 @@ def build_tokenizer(config):
         return VocabTokenizer(Vocabulary.from_file(vocab_path), mask_oov=config.get("mask_oov", False),
                               idf_path=config.get("idf_path"))
     name = config.get("bert_pretrained_model", "distilbert-base-uncased")
-    try:
-        return HuggingfaceTokenizer(name)
-    except (ImportError, OSError, ValueError, TypeError):  # TypeError: a checkpoint directory without a vocabulary
-        from matchmaker_tpu_torch.models.encoder import encoder_config_from_model_name
+    if not (os.path.isdir(name) and not any(os.path.isfile(os.path.join(name, f)) for f in _TOKENIZER_FILES)):
+        try:
+            return HuggingfaceTokenizer(name)
+        except (ImportError, OSError, ValueError, TypeError):  # TypeError: a directory without a vocabulary
+            pass
+    from matchmaker_tpu_torch.models.encoder import encoder_config_from_model_name
 
-        return HashBertTokenizer(encoder_config_from_model_name(config).vocab_size)
+    return HashBertTokenizer(encoder_config_from_model_name(config).vocab_size)

@@ -12,8 +12,13 @@ runs one process, so every file is written by it. With
 ``submodel_validation_cache_path`` the first pass writes IDCM's chunk scores
 (the model's ``passage_scores``) to a replay cache and every later pass
 (also in a later run) hands them back to the model as ``bert_part_cached``,
-batch by batch in the same order (utils/replay_cache.py). QA answer
-evaluation is not ported yet (ROADMAP.md, queue 1 item 6).
+batch by batch in the same order (utils/replay_cache.py). With
+``train_qa_spans`` and a set's ``qa_answers`` file, ``qa_evaluate`` walks
+each query's ranking, takes the first answerable document's extracted span
+(one (query, document) QA forward each) and scores it against the gold
+answers (SQuAD exact match and F1, ``QA/ExactMatch_TopRanked`` and
+``QA/F1_TopRanked`` in the metrics), writing ``last-qa-output.tsv``
+(validation) or ``<test name>-qa-output.tsv``.
 """
 
 from __future__ import annotations
@@ -27,17 +32,17 @@ import numpy as np
 import torch
 
 from matchmaker_tpu_torch.data.loaders import device_prefetch, reranking_inference_loader
+from matchmaker_tpu_torch.data.readers import read_reranking_tuples
 from matchmaker_tpu_torch.experiment import parse_candidate_set
 from matchmaker_tpu_torch.metrics import (
     calculate_metrics_along_candidate_depth,
     calculate_metrics_plain,
     load_qrels,
+    qa_metric_battery,
     unrolled_to_ranked_result,
 )
 from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
 from matchmaker_tpu_torch.utils.replay_cache import CrossExperimentReplayCache
-
-_QA_NOT_PORTED = "QA answer evaluation is not ported yet (ROADMAP.md, queue 1 item 6)"
 
 
 def evaluate_model(eval_step: Callable, config, tokenizer, tuples_path: str, device: torch.device,
@@ -98,8 +103,6 @@ def validate_model(kind: str, eval_step, config, tokenizer, run_folder: str, val
                    cache: Optional[Dict[str, list]] = None) -> Tuple[Dict[str, float], float, Dict[str, List[str]]]:
     """Score + metric battery + CSV bookkeeping. Returns (metrics, the
     validation metric's value, ranked results)."""
-    if config.get("train_qa_spans", False) and validation_config.get("qa_answers"):
-        raise NotImplementedError(_QA_NOT_PORTED)
     results = evaluate_model(eval_step, config, tokenizer, validation_config["tsv"], device, cache)
     ranked = unrolled_to_ranked_result(results)
     qrels = load_qrels(validation_config["qrels"])
@@ -119,6 +122,8 @@ def validate_model(kind: str, eval_step, config, tokenizer, run_folder: str, val
     else:
         metrics = calculate_metrics_plain(ranked, qrels, binarization)
         metrics["cs@n"] = "-"
+    qa_answer_metrics(eval_step, config, tokenizer, validation_config, ranked, device, metrics,
+                      os.path.join(run_folder, "last-qa-output.tsv"))
     append_metrics_csv(os.path.join(run_folder, f"validation-metrics-{kind}.csv"), metrics, epoch, batch_number)
     return metrics, float(metrics[metric_name]), ranked
 
@@ -130,8 +135,6 @@ def test_model(eval_step, config, tokenizer, run_folder: str, test_name: str, te
     ``save_secondary_output`` the secondary tensors of each query's top
     ``secondary_output.top_n`` (100) ranked pairs, and the small parameters
     of ``model``, in ``<test_name>-secondary.npz``."""
-    if config.get("train_qa_spans", False) and test_config.get("qa_answers"):
-        raise NotImplementedError(_QA_NOT_PORTED)
     want_secondary = bool(test_config.get("save_secondary_output", False))
     results = evaluate_model(eval_step, config, tokenizer, test_config["tsv"], device,
                              output_secondary=want_secondary)
@@ -160,7 +163,93 @@ def test_model(eval_step, config, tokenizer, run_folder: str, test_name: str, te
                 ranked, qrels, parse_candidate_set(test_config["candidate_set_path"], hi), (lo, hi), binarization)
             for depth, m in sweep.items():
                 append_metrics_csv(os.path.join(run_folder, f"{test_name}-metrics-cs_{depth}.csv"), m, -1, -1)
+    qa_answer_metrics(eval_step, config, tokenizer, test_config, unrolled_to_ranked_result(results), device, metrics,
+                      os.path.join(run_folder, f"{test_name}-qa-output.tsv"))
     return metrics
+
+
+def qa_answer_metrics(eval_step, config, tokenizer, set_config: dict, ranked, device, metrics: Dict, path: str):
+    """With ``train_qa_spans`` and the set's ``qa_answers``: the QA answers'
+    exact match and F1 on the top-ranked documents into ``metrics``, the
+    answers to ``path``."""
+    if not (config.get("train_qa_spans", False) and set_config.get("qa_answers")):
+        return
+    gold = read_qa_answers(set_config["qa_answers"])
+    qa_stats, predictions = qa_evaluate(eval_step, config, tokenizer, set_config["tsv"], gold, device, ranked)
+    metrics["QA/ExactMatch_TopRanked"] = qa_stats.get("QA_EM", 0.0)
+    metrics["QA/F1_TopRanked"] = qa_stats.get("QA_F1", 0.0)
+    save_qa_answers(predictions, gold, path)
+
+
+def read_qa_answers(path: str) -> Dict[str, List[str]]:
+    """``qid \\t answer1 \\t answer2 ...`` gold-answer file."""
+    out: Dict[str, List[str]] = {}
+    with open(path, "r", encoding="utf-8") as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            if len(parts) >= 2:
+                out[parts[0]] = [p for p in parts[1:] if p]
+    return out
+
+
+def _extract_answer(eval_step, config, tokenizer, query: str, doc: str, device: torch.device):
+    """One (query, doc) QA forward → (answer string, answerable flag): the
+    start at the argmax of the document's start logits, the end at the
+    argmax of its end logits from the start on."""
+    max_q = config.get("max_query_length", 30)
+    max_d = config.get("max_doc_length", 200)
+    q_ids, q_mask = tokenizer.encode(query, max_q)
+    d_ids, d_mask, offsets = tokenizer.encode_with_offsets(doc, max_d)
+    batch = {"seq_ids": np.concatenate([q_ids, d_ids])[None, :],
+             "seq_mask": np.concatenate([q_mask, d_mask])[None, :],
+             "seq_type_ids": np.concatenate([np.zeros(max_q, np.int32), (d_mask > 0).astype(np.int32)])[None, :]}
+    out = eval_step({k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+    if "qa_logits_start" not in out:
+        raise ValueError("model has no QA head (set train_qa_spans)")
+    answerable = True
+    if out.get("answerability_logits") is not None:
+        answerable = int(out["answerability_logits"][0].float().argmax()) != 0
+    start_logits = out["qa_logits_start"][0, q_ids.shape[0]:].float().cpu().numpy()
+    end_logits = out["qa_logits_end"][0, q_ids.shape[0]:].float().cpu().numpy()
+    s = int(start_logits.argmax())
+    e = int(end_logits[s:].argmax()) + s
+    if offsets[s] is None or offsets[e] is None:
+        return "", answerable
+    return doc[offsets[s][0]: offsets[e][1]], answerable
+
+
+def qa_evaluate(eval_step, config, tokenizer, tuples_path: str, gold_answers: Dict[str, List[str]],
+                device: torch.device, ranked: Optional[Dict[str, List[str]]] = None,
+                max_depth: int = 10) -> Tuple[Dict[str, float], Dict[str, str]]:
+    """Extractive-QA answer evaluation: for each query, walk its ranking (the
+    tuples' file order without ``ranked``) down to ``max_depth``, take the
+    first answerable document's extracted span, and score the answers
+    against ``gold_answers`` {query id: [answer ...]} → (SQuAD EM/F1 stats,
+    {query id: answer})."""
+    texts: Dict[Tuple[str, str], Tuple[str, str]] = {}
+    order: Dict[str, List[str]] = {}
+    for sample in read_reranking_tuples(tuples_path):
+        texts[(sample.query_id, sample.doc_id)] = (sample.query, sample.doc)
+        order.setdefault(sample.query_id, []).append(sample.doc_id)
+    predictions: Dict[str, str] = {}
+    for qid, doc_ids in (ranked if ranked is not None else order).items():
+        predictions[qid] = ""
+        for did in doc_ids[:max_depth]:
+            if (qid, did) not in texts:
+                continue
+            answer, answerable = _extract_answer(eval_step, config, tokenizer, *texts[(qid, did)], device)
+            if answerable:
+                predictions[qid] = answer
+                break
+    return qa_metric_battery(predictions, gold_answers), predictions
+
+
+def save_qa_answers(predictions: Dict[str, str], gold: Dict[str, List[str]], path: str) -> None:
+    """``qid \\t predicted \\t gold...`` for every query with gold answers."""
+    with open(path, "w", encoding="utf-8") as f:
+        for qid, pred in predictions.items():
+            if qid in gold:
+                f.write("\t".join([qid, pred] + list(gold[qid])) + "\n")
 
 
 def save_secondary_output(secondary: Dict[str, dict], path: str, model: Optional[torch.nn.Module] = None,

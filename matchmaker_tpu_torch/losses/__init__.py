@@ -1,6 +1,5 @@
 """Ranking losses of the port: counterpart of ``matchmaker_tpu/losses``
-(the pairwise and listwise losses and the dispatch; the QA losses are queued
-in ROADMAP.md)."""
+(the pairwise, listwise and QA losses and the dispatch)."""
 
 from matchmaker_tpu_torch.losses.pairwise import (
     kldiv_teacher_pointwise,
@@ -21,4 +20,5 @@ from matchmaker_tpu_torch.losses.listwise import (
     smooth_mrr,
     soft_cross_entropy,
 )
+from matchmaker_tpu_torch.losses.qa import qa_start_end_cross_entropy
 from matchmaker_tpu_torch.losses.dispatch import LossBundle, get_loss, merge_loss

@@ -1,11 +1,12 @@
 """Loss config dispatch and the uncertainty-weighted multi-loss merge:
 counterpart of ``matchmaker_tpu/losses/dispatch.py``, same config names.
 
-The top-level listwise losses (``loss: mrr | listnet | lambdarank``) train on
-list batches, whose sampler and loss branch are not ported yet, and the QA
-loss is not ported yet: their names raise ``NotImplementedError`` naming
-their ROADMAP.md item instead of falling back. The in-batch listwise losses
-(``KLDivTeacherList``, ``listnet``, ``lambdarank``) are ported.
+The pairwise and passage losses score triples; the top-level listwise
+losses (``loss: mrr | listnet | lambdarank``) score the list batches of
+``dynamic_sampler: listwise`` (data/list_sampler.py; ``use_list_loss``); the
+in-batch listwise losses (``KLDivTeacherList``, ``listnet``,
+``lambdarank``) score the B x 2B in-batch matrix; ``train_qa_spans`` adds
+the QA span and answerability loss (losses/qa.py).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from matchmaker_tpu_torch.losses import listwise, pairwise
+from matchmaker_tpu_torch.losses.qa import qa_start_end_cross_entropy
 
 
 @dataclass(frozen=True)
@@ -41,7 +43,11 @@ _PAIRWISE = {
     "margin": pairwise.margin_ranking,
 }
 
-_LISTWISE = ("mrr", "listnet", "lambdarank")
+_LISTWISE = {
+    "mrr": listwise.smooth_mrr,
+    "listnet": listwise.listnet,
+    "lambdarank": lambda s, t, valid=None: listwise.lambda_loss(s, t, valid, scheme="ndcgLoss2"),
+}
 
 _INBATCH_PAIRWISE = {
     "ranknet": pairwise.ranknet,
@@ -57,14 +63,18 @@ _INBATCH_LISTWISE = {
 
 def get_loss(config) -> LossBundle:
     name = config["loss"]
-    if name in _LISTWISE:
-        raise NotImplementedError(f"listwise loss {name!r}: its list batches (data/list_sampler.py) are not "
-                                  "ported yet (ROADMAP.md, queue 1 item 6)")
-    if name not in _PAIRWISE:
+    if name in _PAIRWISE:
+        ranking = _PAIRWISE[name]
+    elif name in _LISTWISE:
+        ranking = _LISTWISE[name]
+    else:
         raise ValueError(f"Loss not known: {name}")
+
+    qa_loss = None
     if config.get("train_qa_spans", False):
-        raise NotImplementedError(f"the QA loss {config.get('qa_loss')!r} is not ported yet "
-                                  "(ROADMAP.md, queue 1 item 6)")
+        if config.get("qa_loss") != "StartEndCrossEntropy":
+            raise ValueError("qa_loss must be StartEndCrossEntropy when train_qa_spans is set")
+        qa_loss = qa_start_end_cross_entropy
 
     inbatch = None
     use_inbatch_list = False
@@ -79,10 +89,10 @@ def get_loss(config) -> LossBundle:
             raise ValueError(f"in_batch_neg_loss not known: {ib_name}")
 
     return LossBundle(
-        ranking_loss=_PAIRWISE[name],
-        qa_loss=None,
+        ranking_loss=ranking,
+        qa_loss=qa_loss,
         inbatch_loss=inbatch,
-        use_list_loss=False,
+        use_list_loss=name in _LISTWISE,
         use_inbatch_list_loss=use_inbatch_list,
         is_passage_loss=name in ("MSETeacherPointwisePassages", "MarginMSE_InterPassageLoss"),
     )

@@ -1,16 +1,25 @@
 """Model factory: counterpart of ``matchmaker_tpu/models/__init__.py``.
 
-The BERT_DOT family, ColBERT, the transformer re-rankers (BERT_CAT,
-PreTTR, PARADE), the kernel-pooling family (KNRM, Conv-KNRM, TK, TKL,
-TK-Sparse) and IDCM are ported, as are the ``maxP->`` / ``meanP->`` chunk
-adapters around any of them. Every other model, and the
-``bert_embedding`` / ``bert_vectors`` token embedders, raise
-``NotImplementedError`` naming the ROADMAP.md item that holds them. The
-vocabulary models take ``token_embedder_type: embedding`` with an optional
-text-format ``pre_trained_embedding`` file (GloVe's format,
-``load_glove_embeddings``). A local Hugging Face checkpoint named by
-``bert_pretrained_model`` is imported into every encoder of the model
-(models/hf_import.py).
+Every model of the JAX package is ported: the BERT_DOT family, ColBERT,
+the transformer re-rankers (BERT_CAT with its QA heads, PreTTR, PARADE),
+the kernel-pooling family (KNRM, Conv-KNRM, TK, TKL, TK-Sparse), IDCM, the
+classic interaction models (PACRR, CO-PACRR, DRMM, MatchPyramid, Duet), the
+``maxP->`` / ``meanP->`` chunk adapters around any of them, and the token
+embedders. The vocabulary models take ``token_embedder_type: embedding``
+with an optional text-format ``pre_trained_embedding`` file (GloVe's
+format, ``load_glove_embeddings``); ``bert_embedding``, a local Hugging Face
+checkpoint's word-embedding table as their (trainable) table, its width as
+``token_embedding_size`` (the upstream embedder's behaviour; the JAX
+factory raises "Model not known" there, ROADMAP.md §3); ``bert_vectors``,
+a transformer's contextual vectors in place of the table for a model with
+``score_embeddings`` (models/bert_vectors.py). A local Hugging Face
+checkpoint named by ``bert_pretrained_model`` is imported into every
+encoder of the model (models/hf_import.py). With ``train_qa_spans`` and
+``qa_uncertainty_weighting`` (default on) the model carries the
+uncertainty weighting's learned log-variances ``mtl_log_vars`` (3,) at its
+top level, where the JAX trainer puts them in the param tree: the
+optimizer trains them, the snapshots keep them, and a run folder's config
+rebuilds them.
 """
 
 from __future__ import annotations
@@ -24,11 +33,17 @@ import torch.nn as nn
 from matchmaker_tpu_torch.models.adapters import ChunkPoolAdapter
 from matchmaker_tpu_torch.models.bert_cat import BertCat
 from matchmaker_tpu_torch.models.bert_dot import BertDot, BertDotDualEncoder
+from matchmaker_tpu_torch.models.bert_vectors import ContextualVectorsAdapter
 from matchmaker_tpu_torch.models.colbert import ColBert
 from matchmaker_tpu_torch.models.conv_knrm import ConvKNRM
+from matchmaker_tpu_torch.models.drmm import DRMM
+from matchmaker_tpu_torch.models.duet import Duet
+from matchmaker_tpu_torch.models.encoder import encoder_config_from_model_name
 from matchmaker_tpu_torch.models.hf_import import encoder_checkpoint_available, load_hf_encoder
 from matchmaker_tpu_torch.models.idcm import IDCM, IDCMInferenceOnly
 from matchmaker_tpu_torch.models.knrm import KNRM
+from matchmaker_tpu_torch.models.matchpyramid import MatchPyramid
+from matchmaker_tpu_torch.models.pacrr import PACRR, CoPACRR
 from matchmaker_tpu_torch.models.parade import Parade
 from matchmaker_tpu_torch.models.prettr import PreTTR
 from matchmaker_tpu_torch.models.tk import TK
@@ -50,9 +65,12 @@ _REGISTRY = {
     "tk": TK,
     "tkl": TKL,
     "tk_sparse": TKSparse,
+    "pacrr": PACRR,
+    "co_pacrr": CoPACRR,
+    "drmm": DRMM,
+    "matchpyramid": MatchPyramid,
+    "duet": Duet,
 }
-# the JAX package's other models, by the ROADMAP.md item that holds them
-_QUEUED = dict.fromkeys(("pacrr", "co_pacrr", "duet", "drmm", "matchpyramid"), "queue 1 item 10")
 _ENCODER_SLOTS = ("encoder", "query_encoder", "doc_encoder")
 
 
@@ -83,26 +101,39 @@ def get_model(config, tokenizer) -> nn.Module:
     name = model_base_name(config["model"])
     wrapper = config["model"].split("->")[0].strip().lower() if "->" in config["model"] else None
     if name not in _REGISTRY:
-        if name in _QUEUED:
-            raise NotImplementedError(f"model {config['model']!r} is not ported yet (ROADMAP.md, {_QUEUED[name]})")
         raise ValueError(f"Model not known: {config['model']}")
     if wrapper not in (None, "maxp", "meanp"):
         raise ValueError(f"unknown model adapter {wrapper!r} in {config['model']!r}")
-    if config.get("token_embedder_type") in ("bert_embedding", "bert_vectors"):
-        raise NotImplementedError(
-            f"token_embedder_type {config['token_embedder_type']!r} is not ported yet (ROADMAP.md, queue 1 item 10)")
-    pretrained = None
-    if config.get("token_embedder_type") == "embedding" and config.get("pre_trained_embedding"):
-        pretrained = load_glove_embeddings(config["pre_trained_embedding"], tokenizer.vocab,
-                                           config.get("token_embedding_size", 300))
     # as in the JAX package: the vocabulary models size their token table by
     # ``_vocab_size``; the encoder models ignore it and ``pretrained``
-    model = _REGISTRY[name].from_config(dict(config, _vocab_size=tokenizer.vocab_size), pretrained)
+    cfg = dict(config, _vocab_size=tokenizer.vocab_size)
+    if wrapper is not None:  # the inner model sees chunks (Duet's widths follow their length)
+        cfg["_inner_doc_length"] = config.get("idcm_chunk_size", 50) + 2 * config.get("idcm_overlap", 7)
+    embedder = config.get("token_embedder_type")
+    pretrained = None
+    if embedder == "embedding" and config.get("pre_trained_embedding"):
+        pretrained = load_glove_embeddings(config["pre_trained_embedding"], tokenizer.vocab,
+                                           config.get("token_embedding_size", 300))
+    elif embedder == "bert_embedding":
+        # a checkpoint's word-embedding table as the model's table
+        # (upstream modules/bert_embedding_token_embedder.py)
+        checkpoint = str(config.get("bert_pretrained_model", ""))
+        if checkpoint and encoder_checkpoint_available(checkpoint):
+            pretrained = load_hf_encoder(checkpoint)[1]["word_embeddings.embedding"].numpy()
+            cfg["token_embedding_size"] = pretrained.shape[1]
+    if embedder == "bert_vectors":
+        cfg.update(_external_embedding=True, token_embedding_size=encoder_config_from_model_name(config).hidden_size)
+        model = ContextualVectorsAdapter.from_config(cfg, _REGISTRY[name].from_config(cfg, pretrained))
+    else:
+        model = _REGISTRY[name].from_config(cfg, pretrained)
     encoder_cfg = getattr(model, "encoder_cfg", None)
     if encoder_cfg is not None and tokenizer.vocab_size > encoder_cfg.vocab_size:
         raise ValueError(f"tokenizer vocabulary {tokenizer.vocab_size} exceeds the encoder's {encoder_cfg.vocab_size}")
     if wrapper is not None:
         model = ChunkPoolAdapter.from_config(config, model, pool=wrapper[:-1])
+    if config.get("train_qa_spans", False) and config.get("qa_uncertainty_weighting", True):
+        # [ranking, qa span, answerability] (the JAX trainer's params["mtl_log_vars"])
+        model.register_parameter("mtl_log_vars", nn.Parameter(torch.zeros(3)))
     return model
 
 

@@ -5,7 +5,9 @@ The cosine matrix masked by the joint query x document mask, 11 gaussian
 kernels, the sum over document positions, ``log(clamp(·, 1e-10)) · 0.01``,
 the masked sum over query positions, and a bias-free linear layer
 (``kernel_weights``, U(-0.014, 0.014) at init, models/weights.py). Plain
-PyTorch, as the JAX package's is jnp (ops/kernel_pooling.py).
+PyTorch, as the JAX package's is jnp (ops/kernel_pooling.py). With
+``_external_embedding`` (set under ``bert_vectors``) it holds no token
+table and scores the vectors ``score_embeddings`` is handed.
 """
 
 from __future__ import annotations
@@ -38,16 +40,18 @@ def kernel_buffers(module: torch.nn.Module, mus, sigmas) -> None:
 
 
 class KNRM(Ranker):
-    def __init__(self, vocab_size: int, dim: int, n_kernels: int = 11, pretrained: Optional[np.ndarray] = None):
+    def __init__(self, vocab_size: int, dim: int, n_kernels: int = 11, pretrained: Optional[np.ndarray] = None,
+                 external_embedding: bool = False):
         super().__init__()
-        self.embedder = TokenEmbedder(vocab_size, dim, pretrained)
+        if not external_embedding:  # a bert_vectors adapter hands in the vectors (models/bert_vectors.py)
+            self.embedder = TokenEmbedder(vocab_size, dim, pretrained)
         kernel_buffers(self, gaussian_kernel_mus(n_kernels), gaussian_kernel_sigmas(n_kernels))
         self.kernel_weights = ScoreLayer(n_kernels, use_bias=False)
 
     @classmethod
     def from_config(cls, config, pretrained=None):
         return cls(config["_vocab_size"], config.get("token_embedding_size", 300), config.get("knrm_kernels", 11),
-                   pretrained)
+                   pretrained, config.get("_external_embedding", False))
 
     def forward(self, batch: Batch, output_secondary: bool = False) -> Output:
         q_emb = self.embedder(batch["query_ids"], batch["query_mask"])

@@ -7,7 +7,9 @@ raw and the contextualized embeddings (``mixer``, with
 ``mix_hybrid_context``) → cosine match matrix → gaussian kernels with a
 learned per-kernel ``kernel_alpha_scaler`` → masked log-sum pooling → a
 bias-free linear layer (``kernel_bin_weights``). ``score_embeddings``
-scores embeddings a caller hands in.
+scores embeddings a caller hands in; with ``_external_embedding`` (set
+under ``bert_vectors``, models/bert_vectors.py) the model holds no token
+table.
 """
 
 from __future__ import annotations
@@ -35,10 +37,12 @@ class TK(Ranker):
     def __init__(self, vocab_size: int, dim: int, kernels_mu: Optional[List[float]] = None,
                  kernels_sigma: Optional[List[float]] = None, att_heads: int = 8, att_layers: int = 2,
                  att_ff_dim: int = 100, max_length: int = 200, use_diff_posencoding: bool = True,
-                 mix_hybrid_context: bool = True, pretrained: Optional[np.ndarray] = None):
+                 mix_hybrid_context: bool = True, pretrained: Optional[np.ndarray] = None,
+                 external_embedding: bool = False):
         super().__init__()
         self.mix_hybrid_context = mix_hybrid_context
-        self.embedder = TokenEmbedder(vocab_size, dim, pretrained)
+        if not external_embedding:  # a bert_vectors adapter hands in the vectors (models/bert_vectors.py)
+            self.embedder = TokenEmbedder(vocab_size, dim, pretrained)
         mus = kernels_mu or gaussian_kernel_mus(11)
         sigmas = kernels_sigma or gaussian_kernel_sigmas(11)
         if len(mus) != len(sigmas):
@@ -62,7 +66,8 @@ class TK(Ranker):
                     att_heads=config.get("tk_att_heads", 8), att_layers=config.get("tk_att_layer", 2),
                     att_ff_dim=config.get("tk_att_ff_dim", 100), max_length=config.get("max_doc_length", 200),
                     use_diff_posencoding=config.get("tk_use_diff_posencoding", True),
-                    mix_hybrid_context=config.get("tk_mix_hybrid_context", True), pretrained=pretrained)
+                    mix_hybrid_context=config.get("tk_mix_hybrid_context", True), pretrained=pretrained,
+                    external_embedding=config.get("_external_embedding", False))
 
     @classmethod
     def from_config(cls, config, pretrained=None):

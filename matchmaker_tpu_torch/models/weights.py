@@ -17,13 +17,18 @@ dim) and bias, the re-rankers' ``score_layer`` / ``score_reduction`` kernels
 / ``mlm_norm`` and its top-level vocabulary bias ``mlm_bias``
 (``modules/mlm_head.py``). A flax ``nn.Conv`` kernel (n, in, out) is
 stored (out, in, n), as ``nn.Conv1d`` stores its weight (Conv-KNRM's
-``conv_{n}gram``, IDCM's ``sample_cnn3``: modules/conv.py). The kernel-pooling
+``conv_{n}gram``, IDCM's ``sample_cnn3``, Duet's VALID ``dist_q_conv`` /
+``dist_d_conv``: modules/conv.py); a 2-D one keeps flax's (kh, kw, in, out)
+(PACRR's ``conv_{n}``, MatchPyramid's ``conv_{i}``), as do the classic
+models' Dense kernels (in, out). The kernel-pooling
 family's scalars and rows (``mixer``, ``mixer_stop``,
 ``kernel_alpha_scaler``, ``kernel_mult``, ``chunk_scoring``,
-``top_k_scoring``) and the token table
-(``embedder/token_embedding/embedding``) keep their flax shapes. A chunk
-adapter's inner model sits under ``inner``. A ``.npz`` holds the port's
-arrays keyed by the flax path.
+``top_k_scoring``), the token table
+(``embedder/token_embedding/embedding``) and the uncertainty weighting's
+``mtl_log_vars`` (3,) at the top level of a QA-trained model keep their
+flax shapes. A chunk adapter's inner model sits under ``inner``, a
+``bert_vectors`` adapter's under ``inner`` beside its ``encoder``. A
+``.npz`` holds the port's arrays keyed by the flax path.
 """
 
 from __future__ import annotations
@@ -38,12 +43,15 @@ import torch.nn as nn
 # normal truncated to [-2, 2])
 _TRUNC_STD = 0.87962566103423978
 # the JAX modules' own initialisers, by the parameter's last two path parts
-# (or its name): U(-a, a) kernels of the kernel-pooling heads, the
-# constants of the learned scalars and rows, TK-Sparse's gate bias 1, the
+# (or its name): U(lo, hi) kernels of the kernel-pooling heads and of
+# Duet's combination layers, the constants of the learned scalars and rows,
+# TK-Sparse's gate bias 1, the uncertainty weighting's log-variances 0, the
 # token table's normal(0.1)
-_UNIFORM = {"kernel_weights.kernel": 0.014, "kernel_bin_weights.kernel": 0.014, "sampling_binweights.kernel": 0.01}
+_UNIFORM = {"kernel_weights.kernel": (-0.014, 0.014), "kernel_bin_weights.kernel": (-0.014, 0.014),
+            "sampling_binweights.kernel": (-0.01, 0.01), "comb_fc1.kernel": (0.0, 0.01),
+            "comb_fc2.kernel": (0.0, 0.01), "comb_out.kernel": (0.0, 0.01)}
 _CONSTANT = {"mixer": 0.5, "mixer_stop": 0.5, "kernel_alpha_scaler": 1.0, "kernel_mult": 1.0, "chunk_scoring": 1.0,
-             "top_k_scoring": 1.0, "stop_word_reducer2.bias": 1.0}
+             "top_k_scoring": 1.0, "stop_word_reducer2.bias": 1.0, "mtl_log_vars": 0.0}
 
 
 def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -104,7 +112,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     kernels lecun-normal (truncated normal, std sqrt(1/fan_in)/0.8796,
     cut at ±2 std; fan_in the input width, rows of an (in, out) kernel,
     columns of an (out, in) ``self_attention`` one, in x n of an (out, in, n)
-    convolution), embeddings normal with std sqrt(1/features), PARADE's
+    convolution, kh x kw x in of a (kh, kw, in, out) one), embeddings normal with std sqrt(1/features), PARADE's
     ``agg_cls`` normal with std 0.02, biases zero, LayerNorm scales one; the
     kernel-pooling family's own (``_UNIFORM``, ``_CONSTANT``, the token
     table normal(0.1)), then a ``TokenEmbedder``'s ``pretrained`` matrix
@@ -115,13 +123,14 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
         leaf = name.rsplit(".", 1)[-1]
         last_two = ".".join(name.split(".")[-2:])
         if last_two in _UNIFORM:
-            p.uniform_(-_UNIFORM[last_two], _UNIFORM[last_two], generator=generator)
+            p.uniform_(*_UNIFORM[last_two], generator=generator)
         elif leaf in _CONSTANT or last_two in _CONSTANT:
             p.fill_(_CONSTANT.get(last_two, _CONSTANT.get(leaf)))
         elif last_two == "token_embedding.embedding":
             p.normal_(0.0, 0.1, generator=generator)
-        elif leaf == "kernel" and p.dim() == 3:  # a convolution's (out, in, n)
-            std = (1.0 / (p.shape[1] * p.shape[2])) ** 0.5 / _TRUNC_STD
+        elif leaf == "kernel" and p.dim() in (3, 4):  # a convolution's (out, in, n) or (kh, kw, in, out)
+            fan_in = p.shape[1] * p.shape[2] if p.dim() == 3 else p.shape[0] * p.shape[1] * p.shape[2]
+            std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
             nn.init.trunc_normal_(p, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
         elif leaf == "kernel":
             fan_in = p.shape[1] if ".self_attention." in name else p.shape[0]

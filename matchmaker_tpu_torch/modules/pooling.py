@@ -28,19 +28,27 @@ def topk_values(x: torch.Tensor, k: int, dim: int = -1) -> torch.Tensor:
     return torch.topk(x, k, dim=-1).values
 
 
+def _adaptive_windows(n: int, out: int, device):
+    """Cell i of an adaptive pooling spans [floor(i·n/out), ceil((i+1)·n/out)):
+    (out, width) indices of each cell's positions (clamped past its end) and
+    which of them lie inside it."""
+    starts = torch.tensor([(i * n) // out for i in range(out)], device=device)
+    ends = torch.tensor([-(-((i + 1) * n) // out) for i in range(out)], device=device)
+    width = int((ends - starts).max())
+    idx = starts[:, None] + torch.arange(width, device=device)[None, :]
+    return torch.minimum(idx, ends[:, None] - 1), idx < ends[:, None]
+
+
 def adaptive_max_pool_2d(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """AdaptiveMaxPool2d on (B, H, W, C): cell i spans [floor(i·H/oh), ceil((i+1)·H/oh))."""
-    b, h, w, c = x.shape
-    oh, ow = out_hw
-    rows = []
-    for i in range(oh):
-        h0, h1 = (i * h) // oh, -(-((i + 1) * h) // oh)
-        cols = []
-        for j in range(ow):
-            w0, w1 = (j * w) // ow, -(-((j + 1) * w) // ow)
-            cols.append(x[:, h0:h1, w0:w1, :].amax(dim=(1, 2)))
-        rows.append(torch.stack(cols, dim=1))
-    return torch.stack(rows, dim=1)  # (B, oh, ow, C)
+    """AdaptiveMaxPool2d on (B, H, W, C): cell (i, j) spans [floor(i·H/oh),
+    ceil((i+1)·H/oh)) x [floor(j·W/ow), ceil((j+1)·W/ow)). All cells in one
+    gather, the positions outside a cell set to -inf; the gradient of the
+    max is split evenly among a cell's ties, as jnp's is."""
+    rows, row_in = _adaptive_windows(x.shape[1], out_hw[0], x.device)
+    cols, col_in = _adaptive_windows(x.shape[2], out_hw[1], x.device)
+    cells = x[:, rows][:, :, :, cols]  # (B, oh, kh, ow, kw, C)
+    inside = row_in[:, :, None, None] & col_in[None, None, :, :]
+    return cells.masked_fill(~inside[None, ..., None], float("-inf")).amax(dim=(2, 4))  # (B, oh, ow, C)
 
 
 def sliding_window_max(x: torch.Tensor, window: int, stride: int = 1) -> torch.Tensor:

@@ -10,7 +10,10 @@ Pallas kernel).
   falls back to for corpora too small for the candidate pool.
 
 The quantizers are host numpy code, copied from the JAX package, so codes
-and scales are bit-identical. The scan runs torch ops: an int8 product as
+and scales are bit-identical. They run row-parallel over a thread pool
+(``row_parallel``: numpy releases the GIL in its loops), each block of
+rows (of whole bins) through the same per-row arithmetic, so the codes
+and scales are the serial ones bit for bit. The scan runs torch ops: an int8 product as
 the f32 product of the codes (exact while 127²·D < 2²⁴, i.e. D ≤ 1040,
 checked) with TF32 kept out (``ops.matmul_codes``). The top-k is exact,
 ties to the lower row as in JAX (``ops.topk_lowest_first``); the JAX
@@ -20,7 +23,9 @@ top-k) has no counterpart here, so ``mips_approx_topk`` changes nothing.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,18 +34,46 @@ import torch.nn.functional as F
 from matchmaker_tpu_torch.ops import matmul_codes, over_127, topk_lowest_first
 
 
+# rows a block of the host's row-parallel work (a few MB of f32 rows at 768 wide)
+ROW_BLOCK = 4096
+
+
+def row_parallel(n: int, fn: Callable[[int, int], object], block: int = ROW_BLOCK) -> list:
+    """``fn(start, stop)`` over the blocks of ``block`` rows that cover
+    [0, n), on a pool of a thread a core; the results in block order."""
+    ranges = [(a, min(n, a + block)) for a in range(0, n, block)]
+    workers = min(len(ranges), os.cpu_count() or 1)
+    if workers <= 1:
+        return [fn(a, b) for a, b in ranges]
+    with ThreadPoolExecutor(workers) as pool:
+        return list(pool.map(lambda r: fn(*r), ranges))
+
+
 def quantize_corpus(vectors: np.ndarray, per_row: bool = True) -> Tuple[np.ndarray, np.ndarray]:
     """(N, D) float → (int8 values, f32 scales): per-row absmax scales (N,),
     or with ``per_row=False`` one global scale (shape ``()``), under which
-    score order is scale-free and only the k winners are rescaled."""
+    score order is scale-free and only the k winners are rescaled. Row
+    blocks on a thread pool (``row_parallel``)."""
     vectors = np.asarray(vectors, dtype=np.float32)
+    values = np.empty(vectors.shape, dtype=np.int8)
     if per_row:
-        scales = np.abs(vectors).max(axis=1, keepdims=True) / 127.0
-        scales = np.maximum(scales, 1e-10)
-        values = np.clip(np.round(vectors / scales), -127, 127).astype(np.int8)
-        return values, scales.astype(np.float32).squeeze(1)
-    scale = np.float32(max(np.abs(vectors).max() / 127.0, 1e-10))
-    values = np.clip(np.round(vectors / scale), -127, 127).astype(np.int8)
+        scales_out = np.empty(vectors.shape[0], dtype=np.float32)
+
+        def part(a, b):
+            scales = np.abs(vectors[a:b]).max(axis=1, keepdims=True) / 127.0
+            scales = np.maximum(scales, 1e-10)
+            values[a:b] = np.clip(np.round(vectors[a:b] / scales), -127, 127).astype(np.int8)
+            scales_out[a:b] = scales.astype(np.float32).squeeze(1)
+
+        row_parallel(vectors.shape[0], part)
+        return values, scales_out
+    absmax = max(row_parallel(vectors.shape[0], lambda a, b: np.abs(vectors[a:b]).max()))
+    scale = np.float32(max(absmax / 127.0, 1e-10))
+
+    def part_global(a, b):
+        values[a:b] = np.clip(np.round(vectors[a:b] / scale), -127, 127).astype(np.int8)
+
+    row_parallel(vectors.shape[0], part_global)
     return values, np.asarray(scale, dtype=np.float32)
 
 
@@ -48,18 +81,25 @@ def quantize_corpus_binwise(vectors: np.ndarray, bin_width: int = 128) -> Tuple[
     """(N, D) float → (int8 values padded to a bin multiple, (N'/bin_width, 1)
     f32 bin scales): one absmax scale per ``bin_width`` consecutive rows.
     FlatIndex permutes the rows first, so each bin is an i.i.d. sample of the
-    corpus and the bin's absmax is a tight envelope of its rows'."""
+    corpus and the bin's absmax is a tight envelope of its rows'. Blocks of
+    whole bins on a thread pool (``row_parallel``)."""
     vectors = np.asarray(vectors, dtype=np.float32)
     n, d = vectors.shape
     n_pad = -(-n // bin_width) * bin_width
     if n_pad != n:
         vectors = np.pad(vectors, ((0, n_pad - n), (0, 0)))
-    scales = np.abs(vectors).reshape(-1, bin_width, d).max(axis=(1, 2)) / 127.0
-    scales = np.maximum(scales, 1e-10).astype(np.float32)
-    values = np.clip(
-        np.round(vectors / np.repeat(scales, bin_width)[:, None]), -127, 127
-    ).astype(np.int8)
-    return values, scales.reshape(-1, 1)
+    values = np.empty((n_pad, d), dtype=np.int8)
+    scales_out = np.empty(n_pad // bin_width, dtype=np.float32)
+
+    def part(a, b):
+        scales = np.abs(vectors[a:b]).reshape(-1, bin_width, d).max(axis=(1, 2)) / 127.0
+        scales = np.maximum(scales, 1e-10).astype(np.float32)
+        values[a:b] = np.clip(np.round(vectors[a:b] / np.repeat(scales, bin_width)[:, None]), -127, 127
+                              ).astype(np.int8)
+        scales_out[a // bin_width: b // bin_width] = scales
+
+    row_parallel(n_pad, part, -(-ROW_BLOCK // bin_width) * bin_width)
+    return values, scales_out.reshape(-1, 1)
 
 
 def quantize_queries(queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -10,7 +10,9 @@
   the score-direction error by (d − 1)·T²/(1 − T²) (T =
   ``scann_anisotropic_threshold``, 0.2). The codes are host numpy code
   copied from the JAX package, so given the same leaves they are JAX's bit
-  for bit. A candidate scores q·centroid(leaf) + scale·(q·codes), the query
+  for bit; the index computes them by blocks of rows on a thread pool
+  (``ah_codes_parallel``), each row through the same arithmetic, so bit
+  for bit the serial ones too. A candidate scores q·centroid(leaf) + scale·(q·codes), the query
   rounded to bf16 and the products summed in f32;
 - **reorder**: the top ``scann_reorder_mult``·top_n AH candidates are
   rescored exactly (f32 products of the f32 query and the stored rows) and
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from matchmaker_tpu_torch.ops import matmul_f32, topk_lowest_first
+from matchmaker_tpu_torch.ops.mips_quant import row_parallel
 from matchmaker_tpu_torch.retrieval.indexes import IVF_GATHER_BYTES, IVFIndex, gather_ids
 
 
@@ -53,6 +56,21 @@ def ah_codes(v: np.ndarray, centroids: np.ndarray, leaf: np.ndarray, aniso_thres
     return codes, (s * gamma).astype(np.float32)
 
 
+def ah_codes_parallel(vectors: np.ndarray, rows: np.ndarray, centroids: np.ndarray, leaf: np.ndarray,
+                      aniso_threshold: float):
+    """``ah_codes(vectors[rows], centroids, leaf, aniso_threshold)``, by
+    blocks of rows on a thread pool (``row_parallel``), bit for bit."""
+    codes = np.empty((len(rows), vectors.shape[1]), dtype=np.int8)
+    scales = np.empty(len(rows), dtype=np.float32)
+
+    def part(a, b):
+        codes[a:b], scales[a:b] = ah_codes(np.asarray(vectors[rows[a:b]], dtype=np.float32), centroids, leaf[a:b],
+                                           aniso_threshold)
+
+    row_parallel(len(rows), part)
+    return codes, scales
+
+
 class ScaNNTreeAHIndex(IVFIndex):
     """tree (k-means leaves) → AH int8 scan → exact reorder."""
 
@@ -70,9 +88,9 @@ class ScaNNTreeAHIndex(IVFIndex):
     def index(self, ids: np.ndarray, vectors: np.ndarray) -> None:
         self.n_clusters = int(self.num_leaves or max(1, int(sqrt(len(vectors)))))
         super().index(ids, vectors)  # the tree: k-means + the CSR sort
-        v = np.asarray(vectors, dtype=np.float32)[self._sorted_rows]
         leaf = np.repeat(np.arange(self.n_clusters_eff, dtype=np.int32), np.diff(self._offsets).astype(np.int64))
-        self._codes, self._scales = ah_codes(v, self._centroids, leaf, self.aniso_threshold)
+        self._codes, self._scales = ah_codes_parallel(vectors, self._sorted_rows, self._centroids, leaf,
+                                                      self.aniso_threshold)
         self._leaf_of_row = leaf
 
     def _state_array(self, name: str) -> torch.Tensor:

@@ -21,16 +21,23 @@ of the two passes), backward (through the fused layers' backward kernels on
 a card), the global gradient norm before clipping, and the optimizer
 update, in the JAX loss's order. With ``submodel_train_cache_path`` the
 passage scores are handed to the trainer's replay cache (``_cache_*``
-stats). List batches raise ``NotImplementedError`` naming their ROADMAP.md
-item (the top-level listwise and the QA losses already raise in
-``get_loss``).
+stats). With ``train_qa_spans`` the QA heads' span and answerability
+losses on the positive pass (the negative pass's answerability against
+label 0, weighted 0.1), merged with the ranking loss by the uncertainty
+weighting over the model's ``mtl_log_vars`` (slots [0] ranking, [1] span,
+[2] answerability; ``losses.merge_loss``), else added as
+``qa_loss_lambda`` x (span + answerability). A list batch
+(``dynamic_sampler: listwise``, data/list_sampler.py) scores all Q·L
+(query, document) pairs in one forward, the query repeated L times as in
+the JAX step, under a top-level listwise loss (``mrr``, ``listnet``,
+``lambdarank``): the positive sits in slot 0.
 """
 
 from __future__ import annotations
 
 import torch
 
-from matchmaker_tpu_torch.losses import LossBundle
+from matchmaker_tpu_torch.losses import LossBundle, merge_loss
 from matchmaker_tpu_torch.ops.maxsim import maxsim_all_pairs
 from matchmaker_tpu_torch.training.optim import Optimizer
 
@@ -65,21 +72,93 @@ def forward_triple(model, batch):
     return model(pos_batch), model(neg_batch)
 
 
+def list_scores(model, batch):
+    """(Q, L) scores of a list batch (query (Q, Lq), documents (Q, L, Ld)):
+    every (query, document) pair in one forward, the query repeated L
+    times."""
+    d_ids, d_mask = batch["list_doc_ids"], batch["list_doc_mask"]
+    qn, l, ld = d_ids.shape
+    flat = {"query_ids": torch.repeat_interleave(batch["query_ids"], l, dim=0),
+            "query_mask": torch.repeat_interleave(batch["query_mask"], l, dim=0),
+            "doc_ids": d_ids.reshape(qn * l, ld), "doc_mask": d_mask.reshape(qn * l, ld)}
+    return model(flat)["score"].reshape(qn, l)
+
+
+def list_loss_fn(model, losses: LossBundle, batch):
+    """A list batch (``list_scores``, labels (Q, L)): the listwise loss over
+    its (Q, L) scores."""
+    if not losses.use_list_loss:
+        raise ValueError("list batches require a listwise loss (ListNet/LambdaLoss/...)")
+    scores = list_scores(model, batch)
+    qn = scores.shape[0]
+    valid = batch.get("valid")
+    if valid is None:
+        valid = torch.ones(qn, device=scores.device)
+    loss = losses.ranking_loss(scores, batch["list_labels"], valid[:, None] * torch.ones_like(scores))
+    n = torch.clamp(valid.sum(), min=1)
+    return loss, {"ranking_loss": loss, "loss": loss, "score_pos_mean": (scores[:, 0] * valid).sum() / n,
+                  "score_neg_mean": (scores[:, 1:].mean(dim=1) * valid).sum() / n}
+
+
+def qa_loss_terms(model, losses: LossBundle, batch, pos_out, neg_out, loss, qa_weight):
+    """The QA multi-task terms added to the ranking ``loss`` → (loss, stats)."""
+    stats = {}
+    span_loss, answer_loss = losses.qa_loss(pos_out["qa_logits_start"], pos_out["qa_logits_end"], batch["qa_start"],
+                                            batch["qa_end"], pos_out.get("answerability_logits"),
+                                            batch.get("qa_has_answer"))
+    if span_loss is not None:
+        stats["qa_span_loss"] = span_loss
+    if answer_loss is not None:
+        stats["qa_answerability_loss"] = answer_loss
+        if neg_out.get("answerability_logits") is not None:
+            # a negative document is unanswerable (label 0), weighted 0.1
+            neg_logits = neg_out["answerability_logits"]
+            _, answer_loss_neg = losses.qa_loss(None, None, None, None, neg_logits,
+                                                torch.zeros(neg_logits.shape[0], dtype=torch.long,
+                                                            device=neg_logits.device))
+            stats["qa_answerability_loss_neg"] = answer_loss_neg
+            answer_loss = answer_loss + 0.1 * answer_loss_neg
+    log_vars_all = getattr(model, "mtl_log_vars", None)
+    if log_vars_all is not None:
+        # fixed slots: a missing span loss must not move answerability onto the span slot
+        parts, slots = [loss], [0]
+        if span_loss is not None:
+            parts.append(span_loss)
+            slots.append(1)
+        if answer_loss is not None:
+            parts.append(answer_loss)
+            slots.append(2)
+        log_vars = log_vars_all[slots]
+        loss, weighted = merge_loss(parts, log_vars)
+        stats["qa_weighted_ranking_loss"] = weighted[0]
+        if span_loss is not None:
+            stats["qa_weighted_qa_loss"] = weighted[1]
+        stats["mtl_log_var_ranking"] = log_vars[0]
+    else:
+        qa_total = 0.0
+        if span_loss is not None:
+            qa_total = qa_total + span_loss
+        if answer_loss is not None:
+            qa_total = qa_total + answer_loss
+        loss = loss + qa_weight * qa_total
+    return loss, stats
+
+
 def make_loss_fn(model, losses: LossBundle, config):
-    """``loss_fn(batch) -> (loss, stats)`` with the JAX loss's triple branch
-    (through the model's packed ``forward_triple``), passage-loss,
-    selection-loss, term-level distillation, in-batch and sparsity
-    branches, in the JAX loss's order."""
+    """``loss_fn(batch) -> (loss, stats)`` with the JAX loss's list branch,
+    triple branch (through the model's packed ``forward_triple``),
+    passage-loss, selection-loss, term-level distillation, QA, in-batch and
+    sparsity branches, in the JAX loss's order."""
     sparsity_weight = config.get("minimize_sparsity_weight", 0.0)
     cache_passage_scores = bool(config.get("submodel_train_cache_path"))
     ib_main_weight = config.get("in_batch_main_weight", 1.0)
     ib_weight = config.get("in_batch_neg_weight", 1.0)
     per_term_weight = config.get("per_term_loss_weight", 0.5)
+    qa_weight = config.get("qa_loss_lambda", 0.2)
 
     def loss_fn(batch):
         if "list_doc_ids" in batch:
-            raise NotImplementedError("list batches (listwise training, data/list_sampler.py) are not ported yet "
-                                      "(ROADMAP.md, queue 1 item 6)")
+            return list_loss_fn(model, losses, batch)
         pos_out, neg_out = forward_triple(model, batch)
         pos_score, neg_score = pos_out["score"], neg_out["score"]
         valid = batch.get("valid")
@@ -87,7 +166,11 @@ def make_loss_fn(model, losses: LossBundle, config):
             valid = torch.ones_like(pos_score)
         t_pos = batch.get("pos_score", torch.zeros_like(pos_score))
         t_neg = batch.get("neg_score", torch.zeros_like(neg_score))
-        if losses.is_passage_loss:
+        if losses.use_list_loss:
+            scores = torch.stack([pos_score, neg_score], dim=1)
+            labels = torch.stack([torch.ones_like(pos_score), torch.zeros_like(neg_score)], dim=1)
+            loss = losses.ranking_loss(scores, labels, valid[:, None] * torch.ones_like(scores))
+        elif losses.is_passage_loss:
             if "passage_scores" not in pos_out:
                 raise ValueError(f"the passage loss {config.get('loss')!r} needs a model with passage scores")
             pos_psg, neg_psg = pos_out["passage_scores"], neg_out["passage_scores"]
@@ -117,6 +200,10 @@ def make_loss_fn(model, losses: LossBundle, config):
                        ) / (2.0 * denom)
             stats["per_term_loss"] = pt_loss
             loss = loss + per_term_weight * pt_loss
+
+        if losses.qa_loss is not None and "qa_logits_start" in pos_out:
+            loss, qa_stats = qa_loss_terms(model, losses, batch, pos_out, neg_out, loss, qa_weight)
+            stats.update(qa_stats)
 
         if losses.inbatch_loss is not None and "query_vecs" in pos_out:
             q = pos_out["query_vecs"].float()

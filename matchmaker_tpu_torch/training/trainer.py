@@ -6,9 +6,12 @@ Hugging Face checkpoint in ``bert_pretrained_model`` fills every encoder,
 ``warmstart_model_path`` loads a whole ``.npz`` snapshot and
 ``warmstart_encoder_path`` grafts an encoder snapshot, e.g. an MLM
 pre-train's, into the fresh model), epoch
-loop over the triple loader (``data/loaders.py:triple_training_loader``) or,
-with ``dynamic_sampler: true``, the TAS-Balanced sampler
-(``data/tas_balanced.py``, ``tas_batches_per_epoch`` batches an epoch),
+loop over the triple loader (``data/loaders.py:triple_training_loader``),
+with ``dynamic_sampler: true`` the TAS-Balanced sampler
+(``data/tas_balanced.py``) or with ``dynamic_sampler: listwise`` the list
+sampler (``data/list_sampler.py``: ``queries_per_batch`` lists of
+``list_size`` documents from the qrels and a candidate run, for the
+top-level listwise losses), ``tas_batches_per_epoch`` batches an epoch,
 batches placed on the device ahead by ``device_prefetch`` and, with
 ``dynamic_teacher``, scored by the dynamic teacher
 (``distillation/dynamic_teacher.py``) before the step, continuous validation every ``validate_every_n_batches``
@@ -23,9 +26,18 @@ validation/test/leaderboard passes, ``efficiency-metrics.json`` and, with
 ``run_dense_retrieval_eval``, the port's dense-retrieval CLI on the best
 weights. Extra config key: ``device`` (default ``"cuda"``).
 
+With ``train_qa_spans`` and ``qa_uncertainty_weighting`` (default on) the
+uncertainty weighting's log-variances ``mtl_log_vars`` (3,), zeros at the
+start, are a top-level parameter of the model itself, which
+``models.get_model`` adds (the JAX trainer adds them to the param tree): so
+the optimizer trains them ("head" group), ``best-model.npz`` and the
+train-state snapshots keep them, and ``flax_to_state_dict`` maps a JAX
+param tree holding them onto the model. The QA answers of a validation or
+test set with ``qa_answers`` are evaluated by ``evaluation.qa_evaluate``.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP.md item: ``dynamic_sampler: listwise``, a JAX checkpoint (``.flax``)
-as ``warmstart_model_path`` and multi-process launches.
+ROADMAP.md item: a JAX checkpoint (``.flax``) as ``warmstart_model_path``
+and multi-process launches.
 """
 
 from __future__ import annotations
@@ -63,9 +75,6 @@ _CACHE_KEYS = ("_cache_pos_passage_scores", "_cache_neg_passage_scores")
 
 
 def _refuse_unported(config) -> None:
-    if config.get("dynamic_sampler") == "listwise":
-        raise NotImplementedError("dynamic_sampler: listwise needs data/list_sampler.py and the list-batch loss, "
-                                  "which are not ported yet (ROADMAP.md, queue 1 item 6)")
     if str(config.get("warmstart_model_path") or "").endswith(".flax"):
         raise NotImplementedError("warmstart_model_path: reading a JAX checkpoint (.flax) is not ported yet; the "
                                   "port loads its own .npz snapshots (ROADMAP.md, queue 1 item 2)")
@@ -201,6 +210,21 @@ class Trainer:
             seed=config.get("random_seed", 42),
         )
 
+    def _list_sampler(self):
+        from matchmaker_tpu_torch.data.list_sampler import ListwiseDynamicSampler
+
+        config = self.config
+        # one device: JAX's rounding of queries_per_batch up to the mesh size leaves it as configured
+        return ListwiseDynamicSampler(
+            collection_file=config["dynamic_sampler_collection"],
+            query_file=config["dynamic_sampler_queries"],
+            qrels_file=config["dynamic_sampler_qrels"],
+            candidate_file=config["dynamic_sampler_candidates"],
+            list_size=config.get("list_size", 8),
+            queries_per_batch=config.get("queries_per_batch", 4),
+            seed=config.get("random_seed", 42),
+        )
+
     def _submodel_cache(self):
         """(cache, writing) for ``submodel_train_cache_path``: a run finding
         no ``cache-meta.json`` there writes the cache, every later run
@@ -222,7 +246,7 @@ class Trainer:
 
     def _epoch_batches(self, sampler, teacher, replay=None):
         """One epoch's batches on the device, from the current data cursor:
-        the TAS-Balanced sampler's or the triple file's, with ``replay``'s
+        the sampler's (TAS-Balanced or listwise) or the triple file's, with ``replay``'s
         cached chunk scores, scored by the dynamic teacher when there is
         one."""
         config = self.config
@@ -250,7 +274,10 @@ class Trainer:
             from matchmaker_tpu_torch.distillation.dynamic_teacher import DynamicTeacher
 
             teacher = DynamicTeacher(config, teacher_config=self.teacher_config)
-        sampler = self._tas_sampler() if config.get("dynamic_sampler", False) else None
+        if config.get("dynamic_sampler", False) == "listwise":
+            sampler = self._list_sampler()
+        else:
+            sampler = self._tas_sampler() if config.get("dynamic_sampler", False) else None
         cache, cache_write = self._submodel_cache()
         self.model.train()
         self.perf.start_block("train")

@@ -165,20 +165,20 @@ def test_config_from_model_name_matches_jax(name):
 
 def test_unported_models_raise():
     tok = build_tokenizer(_bert_dot_config())
+    # ported since the model-zoo slice: the classic models and both contextual embedders
     for model in ("pacrr", "co_pacrr", "duet", "drmm", "matchpyramid", "maxP->pacrr"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 10"):
-            get_model(_bert_dot_config(model=model), tok)
+        get_model(_bert_dot_config(model=model), tok)
     for embedder in ("bert_embedding", "bert_vectors"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 10"):
-            get_model(_bert_dot_config(model="tk", token_embedder_type=embedder), tok)
+        get_model(_bert_dot_config(model="tk", token_embedder_type=embedder), tok)
     for model in ("bert_cat", "prettr", "parade", "maxP->bert_cat", "meanP->bert_cat", "maxP->bert_dot"):
         get_model(_bert_dot_config(model=model), tok)  # ported since the re-rankers' slice
     for model in ("knrm", "conv_knrm", "tk", "tkl", "tk_sparse", "idcm", "idcm_inference_only", "maxP->knrm"):
         get_model(_bert_dot_config(model=model), tok)  # ported since the kernel-pooling slice
-    # ColBERT serves and trains on the port; listwise dynamic sampling is refused
+    # ColBERT serves and trains on the port, listwise dynamic sampling too (the model-zoo slice)
     _refuse_unported(_bert_dot_config(model="colbert"))
+    _refuse_unported(_bert_dot_config(model="colbert", dynamic_sampler="listwise"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _refuse_unported(_bert_dot_config(model="colbert", dynamic_sampler="listwise"))
+        _refuse_unported(_bert_dot_config(model="colbert", warmstart_model_path="best-model.flax"))
     # the int8 halves are ported for inference; under autograd they are refused
     enc = TransformerEncoderLM(EncoderConfig.tiny(fused_attention=True, int8_mlp=True))
     ids, mask = _ids_mask(2)

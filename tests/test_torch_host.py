@@ -149,15 +149,18 @@ def test_scalar_writer_and_perf_monitor(tmp_path):
 
 
 @pytest.mark.parametrize("module", ["data/mlm.py", "data/synthetic.py", "data/tas_balanced.py",
-                                    "distillation/score_files.py", "utils/replay_cache.py"])
+                                    "distillation/score_files.py", "utils/replay_cache.py", "data/list_sampler.py",
+                                    "utils/ensemble.py"])
 def test_verbatim_copies_differ_only_in_imports(module):
     """The MLM loader, the planted corpora, the TAS-Balanced sampler, the
-    teacher score files' utilities and the replay cache are the JAX
-    package's modules with only ``matchmaker_tpu.`` imports turned into
-    ``matchmaker_tpu_torch.`` ones (the first three are held to the
-    originals' behaviour in tests/test_torch_tasb.py, the score files in
-    test_score_files_equal, the replay cache in
-    test_replay_cache_writes_and_replays_as_the_original)."""
+    teacher score files' utilities, the replay cache, the list sampler and
+    the run fusion are the JAX package's modules with only
+    ``matchmaker_tpu.`` imports turned into ``matchmaker_tpu_torch.`` ones
+    (the first three are held to the originals' behaviour in
+    tests/test_torch_tasb.py, the score files in test_score_files_equal, the
+    replay cache in test_replay_cache_writes_and_replays_as_the_original,
+    the list sampler in tests/test_torch_listwise.py, the fusion in
+    tests/test_torch_hf_export.py)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(repo, "matchmaker_tpu", module), encoding="utf-8") as f:
         original = f.read().replace("matchmaker_tpu.", "matchmaker_tpu_torch.")

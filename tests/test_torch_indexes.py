@@ -500,3 +500,30 @@ def test_encoded_folder_meta_is_the_jax_format(encoded_folder):
     with open(os.path.join(encoded_folder, "encode_meta.json")) as f:
         meta = json.load(f)
     assert meta == {"dim": 16, "dtype": "float16", "blocks": 4, "sequences": 150}
+
+
+@pytest.mark.parametrize("n", [1, 9000, 12289])
+def test_row_parallel_host_codes_equal_the_serial_ones(n):
+    """The host quantizers and tree-AH's residual codes by blocks of 4,096
+    rows (of whole bins) on a thread pool equal one serial pass bit for
+    bit: the JAX package's quantizers (codes, scales, the global scale) and
+    the serial ``ah_codes``; 9,000 and 12,289 rows span three and four
+    blocks, the last one partial."""
+    from matchmaker_tpu.ops import mips_quant as jq
+    from matchmaker_tpu_torch.ops import mips_quant as tq
+    from matchmaker_tpu_torch.retrieval.scann_tree_ah import ah_codes_parallel
+
+    rng = np.random.default_rng(n)
+    v = (rng.normal(size=(n, 24)) * rng.uniform(0.1, 3.0, size=(n, 1))).astype(np.float32)
+    for threaded, serial in ((tq.quantize_corpus(v, True), jq.quantize_corpus(v, True)),
+                             (tq.quantize_corpus(v, False), jq.quantize_corpus(v, False)),
+                             (tq.quantize_corpus_binwise(v), jq.quantize_corpus_binwise(v))):
+        np.testing.assert_array_equal(threaded[0], serial[0])
+        np.testing.assert_array_equal(np.asarray(threaded[1]).view(np.int32), np.asarray(serial[1]).view(np.int32))
+    centroids = rng.normal(size=(5, 24)).astype(np.float32)
+    rows = rng.permutation(n)
+    leaf = np.sort(rng.integers(0, 5, size=n)).astype(np.int32)
+    want = ah_codes(v[rows], centroids, leaf, 0.2)
+    got = ah_codes_parallel(v, rows, centroids, leaf, 0.2)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1].view(np.int32), want[1].view(np.int32))

@@ -1984,3 +1984,146 @@ def test_streaming_search_on_the_card_syncs_only_at_the_end(device, tmp_path):
     for got in results:
         _same_hits(got, cpu.search(queries, 100))
     assert syncs[0] == syncs[1], syncs
+
+
+# ---- the model zoo's encoder paths: listwise BERT_DOT, BERT_CAT's QA heads, bert_vectors ----
+
+def _step_grads_vs_plain(model, loss_fn, batch, monkeypatch, exact_zero=None):
+    """(loss with the kernels, loss with the plain versions, worst gradient
+    cosine, its parameter) of one backward of ``loss_fn`` from the same
+    parameters; each key bias's gradient and each of ``exact_zero``'s
+    ({parameter: reference}), zero in exact arithmetic, checked as rounding
+    noise within 2e-2 of the reference's largest gradient."""
+    exact_zero = dict(exact_zero or {})
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(batch)[0]
+        loss.backward()
+        return float(loss), {n: p.grad.float().clone() for n, p in model.named_parameters() if p.grad is not None}
+
+    lk, gk = run()
+    _plain_halves(monkeypatch)
+    lp, gp = run()
+    assert set(gk) == set(gp)
+    worst = (2.0, None)
+    for name, a in gk.items():
+        ref = exact_zero.get(name) or (name.replace("key.bias", "query.bias") if name.endswith("key.bias") else None)
+        if ref:
+            assert float((a - gp[name]).abs().max()) <= 2e-2 * float(gp[ref].abs().max()), name
+            continue
+        cos = float(torch.nn.functional.cosine_similarity(a.reshape(-1), gp[name].reshape(-1), dim=0))
+        worst = min(worst, (cos, name))
+    return lk, lp, worst
+
+
+def _random_ids(g, device, b, l, lo=1000, hi=30522):
+    return torch.randint(lo, hi, (b, l), generator=g, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", ["listnet", "lambdarank", "mrr"])
+def test_list_step_on_the_card_matches_plain(device, monkeypatch, loss):
+    """One list-batch step of a DistilBERT-width BERT_DOT (2 layers, bf16,
+    fused halves): 4 lists of 8 documents of 200 tokens, the query repeated
+    8 times, all 32 pairs in one forward: K1/K2 and K12/K11 twice a layer
+    (the 32 queries of 30, the 32 documents of 200); the loss within 1e-2
+    relative and every gradient's cosine >= 0.99 against the plain
+    versions' (phase 6's bar)."""
+    from matchmaker_tpu_torch.losses import get_loss
+    from matchmaker_tpu_torch.models.bert_dot import BertDot
+    from matchmaker_tpu_torch.training.train_step import make_loss_fn
+
+    model = BertDot(EncoderConfig.distilbert(fused_attention=True, num_layers=2), compute_dtype=torch.bfloat16)
+    init_parameters(model, torch.Generator().manual_seed(7))
+    model.to(device)
+    g = torch.Generator(device=device).manual_seed(8)
+    batch = {"query_ids": _random_ids(g, device, 4, 30), "query_mask": torch.ones(4, 30, device=device),
+             "list_doc_ids": _random_ids(g, device, 4 * 8, 200).reshape(4, 8, 200),
+             "list_doc_mask": torch.ones(4, 8, 200, device=device),
+             "list_labels": torch.tensor([[3.0, 1, 1, 1, 0, 0, 0, 0]] * 4, device=device),
+             "valid": torch.ones(4, device=device)}
+    batch["query_mask"][1, 7:] = 0
+    batch["list_doc_mask"][2, 3, 60:] = 0
+    config = {"loss": loss}
+    loss_fn = make_loss_fn(model, get_loss(config), config)
+    _build.reset_launches()
+    lk, lp, (cos, name) = _step_grads_vs_plain(model, loss_fn, batch, monkeypatch)
+    assert abs(lk - lp) <= 1e-2 * max(abs(lp), 1e-12), (lk, lp)
+    assert cos >= 0.99, (name, cos)
+    assert _build.LAUNCHES["fused_attention_block"] == 4 and _build.LAUNCHES["fused_attention_block_bwd"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighting", [True, False])
+def test_qa_step_on_the_card_matches_plain(device, monkeypatch, weighting):
+    """One step of a DistilBERT-width BERT_CAT with the QA heads (2 layers,
+    bf16, fused halves; 4 triples of 30 + 200 tokens, span labels, a sample
+    without an answer): the ranking (pointwise: a pairwise loss cancels for
+    parameters that move both passes alike), span and answerability losses
+    merged by ``mtl_log_vars`` or by ``qa_loss_lambda``: the loss within
+    1e-2 relative and every gradient's cosine >= 0.99 against the plain
+    versions', ``qa_span_layer``, ``answerability_layer`` and
+    ``mtl_log_vars`` included; the span bias's gradient, zero in exact
+    arithmetic (a shift of every logit), as noise."""
+    import torch.nn as nn
+
+    from matchmaker_tpu_torch.losses import get_loss
+    from matchmaker_tpu_torch.models.bert_cat import BertCat
+    from matchmaker_tpu_torch.training.train_step import make_loss_fn
+
+    model = BertCat(EncoderConfig.distilbert(fused_attention=True, num_layers=2), torch.bfloat16, qa_head=True)
+    if weighting:
+        model.register_parameter("mtl_log_vars", nn.Parameter(torch.zeros(3)))
+    init_parameters(model, torch.Generator().manual_seed(9))
+    model.to(device)
+    g = torch.Generator(device=device).manual_seed(10)
+    batch = {}
+    for side in ("pos", "neg"):
+        batch[f"{side}_ids"] = _random_ids(g, device, 4, 230)
+        batch[f"{side}_mask"] = torch.ones(4, 230, device=device)
+        batch[f"{side}_mask"][0, 100:] = 0
+        batch[f"{side}_type_ids"] = torch.cat([torch.zeros(4, 30), torch.ones(4, 200)], 1).long().to(device)
+    batch["qa_start"] = torch.tensor([[40, -1], [35, 50], [-1, -1], [200, -1]], device=device)
+    batch["qa_end"] = torch.tensor([[42, -1], [36, 55], [-1, -1], [201, -1]], device=device)
+    batch["qa_has_answer"] = torch.tensor([1, 1, 0, 1], device=device)
+    config = {"loss": "MSETeacherPointwise", "train_qa_spans": True, "qa_loss": "StartEndCrossEntropy"}
+    loss_fn = make_loss_fn(model, get_loss(config), config)
+    lk, lp, (cos, name) = _step_grads_vs_plain(model, loss_fn, batch, monkeypatch,
+                                               {"qa_span_layer.bias": "qa_span_layer.kernel"})
+    assert abs(lk - lp) <= 1e-2 * max(abs(lp), 1e-12), (lk, lp)
+    assert cos >= 0.99, (name, cos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trainable", [False, True])
+def test_bert_vectors_launches_the_backward_only_when_trainable(device, trainable):
+    """TK over a DistilBERT-width encoder's vectors (2 layers, bf16, fused
+    halves), one ranknet step of 4 triples: K1/K2 twice a layer a pass
+    (query and document); frozen, no K11/K12 launch and no gradient in the
+    encoder; trainable, K11/K12 as often as K1/K2 and every encoder
+    parameter with a gradient."""
+    from matchmaker_tpu_torch.losses import get_loss
+    from matchmaker_tpu_torch.models.bert_vectors import ContextualVectorsAdapter
+    from matchmaker_tpu_torch.models.tk import TK
+    from matchmaker_tpu_torch.training.train_step import make_loss_fn
+
+    inner = TK(1, 768, att_heads=8, external_embedding=True)
+    model = ContextualVectorsAdapter(inner, EncoderConfig.distilbert(fused_attention=True, num_layers=2), trainable,
+                                     torch.bfloat16)
+    init_parameters(model, torch.Generator().manual_seed(11))
+    model.to(device)
+    g = torch.Generator(device=device).manual_seed(12)
+    batch = {"query_ids": _random_ids(g, device, 4, 30), "query_mask": torch.ones(4, 30, device=device),
+             "doc_pos_ids": _random_ids(g, device, 4, 200), "doc_pos_mask": torch.ones(4, 200, device=device),
+             "doc_neg_ids": _random_ids(g, device, 4, 200), "doc_neg_mask": torch.ones(4, 200, device=device)}
+    config = {"loss": "ranknet"}
+    _build.reset_launches()
+    loss = make_loss_fn(model, get_loss(config), config)(batch)[0]
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert _build.LAUNCHES["fused_attention_block"] == _build.LAUNCHES["fused_mlp_block"] == 8
+    want = 8 if trainable else 0
+    assert _build.LAUNCHES["fused_attention_block_bwd"] == _build.LAUNCHES["fused_mlp_block_bwd"] == want
+    enc = [p.grad for n, p in model.named_parameters() if n.startswith("encoder.")]
+    assert all((grad is not None) == trainable for grad in enc)

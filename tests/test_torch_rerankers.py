@@ -230,8 +230,10 @@ def test_factory_builds_the_rerankers_and_their_example_batches():
         want = {"seq_ids": (2, LQ + LD)} if model == "bert_cat" else {"query_ids": (2, LQ), "doc_ids": (2, LD)}
         assert all(shapes[k] == s for k, s in want.items())
     assert get_model(auto_fill(dict(base, model="meanP->bert_cat")), tok).pool == "mean"
-    with pytest.raises(NotImplementedError, match="item 6"):
-        get_model(dict(base, model="bert_cat", train_qa_spans=True), tok)
+    # the QA heads are ported since the model-zoo slice
+    qa = get_model(auto_fill(dict(base, model="bert_cat", train_qa_spans=True)), tok)
+    assert type(qa) is BertCat and qa.qa_head and tuple(qa.mtl_log_vars.shape) == (3,)
+    assert tuple(qa.qa_span_layer.kernel.shape) == (qa.encoder_cfg.hidden_size, 2)
     with pytest.raises(NotImplementedError, match="not a dense encoder"):
         BertCat(EncoderConfig(**TINY)).encode(torch.zeros(1, 4, dtype=torch.long), torch.ones(1, 4))
 
