@@ -223,6 +223,34 @@ Phases (any failed check raises, and the script exits non-zero):
    ``mtl_log_vars`` included), 30 steps on one batch halving the span
    loss, QA EM/F1; (e) (c)'s encoder exported by utils/hf_export.py and
    re-read bit for bit, (a)'s PACRR and DRMM runs fused by RRF.
+13. JAX run folders, gradient accumulation, hub teachers, the fused
+   effectiveness check and MiniLM's width (phase 3 holds the attention
+   cores at head widths 32 and 16, hidden 384, against their plain
+   versions at (16, 230), K1/K2/K11/K12 at (128, 30), (128, 200), (8, 30)
+   and (8, 200), and bench.py's encoder_int8_mlp mix, K1 + K9, at (1024,
+   128)): (a) in phase 4's directory, a seeded DistilBERT-width BERT_DOT
+   written as a JAX run folder (``best-model.flax`` by
+   ``state_dict_to_flax`` + ``write_flax``) and as a port run
+   (``best-model.npz``), both served by cli.dense_retrieval over phase 4's
+   collection (run files and encoded rows equal bit for bit); cli.train
+   warm-started from the ``.flax`` with ``gradient_accumulation_steps: 4``
+   at batch 8 for 40 micro-steps (launches as predicted, a finite loss
+   every step, the parameters unchanged bit for bit after micro-steps 1-3),
+   and one accumulated update of 4 x 8 triples against one step over the
+   32 from the same weights (every parameter's update cosine >= 0.99); (b)
+   the ColBERT hub teacher (configs/huggingface_modelhub/) from a seeded
+   DistilBERT checkpoint in a temporary ``HF_HUB_CACHE``, the stub's keys
+   handed in, teaching a BERT_DOT student with in-batch scoring for 10
+   steps (its encoder the checkpoint's bit for bit; K14's all-pairs form
+   once a step); (c) phase 8's effectiveness check with the mini encoder
+   (4 x 256) through the fused halves, MRR@10 >= 0.5; (d) BERT_CAT at
+   cross-encoder/ms-marco-MiniLM-L-6-v2's published widths (6 layers,
+   hidden 384, 12 heads of 32, FF 1,536, vocabulary 30,522; seeded
+   weights written as a BERT checkpoint) at batch 16 x 230: 10 steps
+   through the Trainer (launches as predicted), one eval batch and one
+   step's gradients (cosine >= 0.99, pointwise loss) against the plain
+   versions, the int8 forward (K10 + K9) on one eval batch against its
+   plain versions.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Details go to build/chip_smoke.json.
@@ -322,6 +350,16 @@ FULL = dict(
     # of list_size documents, list_candidates a query in the run file),
     # BERT_CAT with QA heads (batch rerank_batch)
     zoo_steps=20, zoo_ctx_steps=10, list_steps=20, list_queries=4, list_size=8, list_candidates=20, qa_steps=20,
+    # phase 3: K1, K2, K12 and K11 at the training shapes no other phase
+    # times: batch 128 (query 30, doc 200) and phase 13 (a)'s accumulation
+    # micro-batch of 8; bench.py's encoder_int8_mlp mix (K1 + K9) at its
+    # (B, L); the attention cores at head widths 32 and 16 at phase 13 (d)'s
+    # BERT_CAT batch
+    train_shapes=[(128, 30), (128, 200), (8, 30), (8, 200)], int8_mlp_mix_shape=(1024, 128),
+    head_width_shape=(16, 230),
+    # phase 13: (a) the warm start's micro-steps, micro-batch and k; (b) the
+    # hub teacher's student steps; (d) MiniLM's BERT_CAT steps
+    accum_steps=40, accum_batch=8, accum_k=4, hub_steps=10, minilm_steps=10,
 )
 
 
@@ -2726,11 +2764,12 @@ def _kernels_vs_plain_step(model, config, batch, smooth_config, tag, unreached=(
             "key_bias_noise": key_bias}
 
 
-def _train_through_trainer(sz, device, config, run_folder, steps, tag, before=None):
+def _train_through_trainer(sz, device, config, run_folder, steps, tag, before=None, teacher_config=None):
     """cli.train's Trainer on ``config`` for ``steps`` steps, its step
     recorded: the launch counts of the run, a finite loss every step, the
     Trainer's triples/s (validation included); the trainer, the result.
-    ``before(trainer)`` runs before the training."""
+    ``before(trainer)`` runs before the training; ``teacher_config``: the
+    dynamic teacher's config, handed to the Trainer."""
     import torch
 
     from matchmaker_tpu_torch.ops import _build
@@ -2738,7 +2777,7 @@ def _train_through_trainer(sz, device, config, run_folder, steps, tag, before=No
 
     os.makedirs(run_folder)
     fresh_perf_monitor()
-    trainer = Trainer(config, run_folder)
+    trainer = Trainer(config, run_folder, teacher_config=teacher_config)
     if before is not None:
         before(trainer)
     step_losses = []
@@ -2951,11 +2990,12 @@ def phase_recipe(sz, device, root):
 
 # ---- phase 3, the re-rankers' shapes -------------------------------------------
 
-def phase_rerank_kernels(sz, device, kern):
+def phase_rerank_kernels(sz, device, kern, shapes=None, path="rerank"):
     """K1, K2, K12 and K11 against their plain versions at the re-rankers'
     shapes (``rerank_shapes``: a BERT_CAT training batch of 30 + 200 = 230
     tokens, its eval batch, the 94-token maxP / PARADE chunks of a training
-    batch, IDCM's, phase 12's list batch), ragged masks; each timed beside its plain version, with its
+    batch, IDCM's, phase 12's list batch), or at ``shapes`` (``path``
+    names them), ragged masks; each timed beside its plain version, with its
     device time and bound, into the kernel's timings (``path: rerank``)."""
     import torch
 
@@ -2967,7 +3007,7 @@ def phase_rerank_kernels(sz, device, kern):
     wqkv, bqkv = torch.cat([wq, wk, wv], dim=1), torch.cat([bq, bk, bv])
     w1, b1, w2, _ = mlp
     heads, hid, ff = sz["heads"], sz["hid"], sz["ff"]
-    for i, (b, l) in enumerate(sz["rerank_shapes"]):
+    for i, (b, l) in enumerate(shapes or sz["rerank_shapes"]):
         x, mask, g = _half_inputs(sz, b, l, device, 300 + i)
         dy = torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
         a_args, m_args = (*attn, mask, heads, *ln1), (*mlp, *ln2)
@@ -2978,7 +3018,7 @@ def phase_rerank_kernels(sz, device, kern):
                 ("fused_mlp_block", fa.fused_mlp_block, fa.reference_mlp_block, m_args, dict(bf16=4 * b * l * hid * ff))):
             got, want = kernel(x, *args), plain(x, *args)
             cos, err = _rows_close(got, want)
-            print(f"[kernels] {name} B={b} L={l} (re-rankers): min row cosine {cos:.6f}, max |d| {err:.4g}")
+            print(f"[kernels] {name} B={b} L={l} ({path}): min row cosine {cos:.6f}, max |d| {err:.4g}")
             check(got.shape == x.shape and bool(torch.isfinite(got.float()).all()), f"{name} output at {(b, l)}")
             check(cos >= 0.999 and err <= 0.1, f"{name} vs plain at {(b, l)}: cos {cos}, max |d| {err}")
             entry = kern[name]
@@ -2987,7 +3027,7 @@ def phase_rerank_kernels(sz, device, kern):
             _record(entry, [b, l, hid], run, lambda p=plain, a=args: p(x, *a), device, sz["reps"], headline=False,
                     bound_of=bound(nbytes(x, args, got), **ops))
             _device_beside(entry, run, device, headline=False)
-            entry["timings"][-1]["path"] = "rerank"
+            entry["timings"][-1]["path"] = path
         _, a_saved = fb.attention_block_fwd(x, wqkv, bqkv, wo, bo, mask, heads, *ln1)
         _, a_acc = fa.reference_attention_block(x, *attn, mask, heads, *ln1, save_acc=True)
         _, m_saved = fb.mlp_block_fwd(x, *mlp, *ln2)
@@ -3008,14 +3048,14 @@ def phase_rerank_kernels(sz, device, kern):
             check(got["dx"].shape == x.shape and all(bool(torch.isfinite(t).all()) for t in got.values()),
                   f"{name} gradients at {(b, l)}")
             err = grads_close(got, want, scale_of)
-            print(f"[kernels] {name} B={b} L={l} (re-rankers): {len(got)} gradients within cosine 0.999, "
+            print(f"[kernels] {name} B={b} L={l} ({path}): {len(got)} gradients within cosine 0.999, "
                   f"max |d| <= 2e-2 max |plain| (largest |d| {err:.4g})")
             entry = kern[name]
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             _record(entry, [b, l, hid], kernel, plain, device, sz["bwd_reps"], headline=False,
                     bound_of=bound(nbytes(inputs, list(got.values())), **ops))
             _device_beside(entry, kernel, device, headline=False)
-            entry["timings"][-1]["path"] = "rerank"
+            entry["timings"][-1]["path"] = path
     return kern
 
 
@@ -4280,6 +4320,541 @@ def phase_zoo(sz, device, root, paths):
     return result
 
 
+# ---- phase 3, the attention cores at head widths 16 and 32 -------------------
+
+# cross-encoder/ms-marco-MiniLM-L-6-v2's published config.json (typed in,
+# nothing fetched): BERT layout, 6 layers, hidden 384, 12 heads of 32, FF
+# 1,536, WordPiece vocabulary 30,522, 2 token types
+MINILM = dict(vocab=30522, hid=384, n_layers=6, heads=12, ff=1536, type_vocab=2)
+# the head-width instances beside the 64-wide ones: (entry, wrapper counter,
+# head width); at hidden 384 12 heads of 32 (MiniLM) and 24 of 16
+HEAD_WIDTH_KERNELS = [(f"{name}@hd{hd}", name, hd)
+                      for hd in (32, 16)
+                      for name in ("fused_attention_block", "fused_mha", "fused_attention_int8_block",
+                                   "fused_attention_block_bwd")]
+
+
+def phase_head_width_kernels(sz, device):
+    """K1, K13, K10 and K12 at head widths 32 and 16 (hidden 384: MiniLM's
+    12 heads of 32, and 24 heads of 16) against their plain versions at
+    phase 13 (d)'s shape, a BERT_CAT batch of 16 x 230: the encoder halves'
+    bar for the forwards (row cosine >= 0.999, max |d| <= 0.1; K10 also its
+    mean |d|), the backward's for K12 (every gradient's cosine >= 0.999, max
+    |d| <= 2e-2 max |plain|); each timed beside its plain version with its
+    device time and bound; K13 beside one scaled_dot_product_attention."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import fused_attention as fa
+    from matchmaker_tpu_torch.ops import fused_backward as fb
+    from matchmaker_tpu_torch.ops import fused_int8 as fi
+    from matchmaker_tpu_torch.probes import attn_inner as ai
+
+    hid, ff = MINILM["hid"], MINILM["ff"]
+    hsz = dict(sz, hid=hid, ff=ff)
+    b, l = sz["head_width_shape"]
+    out = {}
+    for hd in (32, 16):
+        heads, group = hid // hd, 64 // hd
+        attn, ln1, _, _ = _layer_params(hsz, device, seed=40 + hd)
+        wq, wk, wv, wo, bq, bk, bv, bo = attn
+        wqkv, bqkv = torch.cat([wq, wk, wv], dim=1), torch.cat([bq, bk, bv])
+        x, mask, g = _half_inputs(hsz, b, l, device, 41 + hd)
+        dy = torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
+        proj, core = _attention_ops(b, l, hid, heads)
+        q8, _, q8ln, _ = _int8_layer_params(hsz, device, seed=42 + hd)
+        q8_t = fi.kmajor_attention_weights(*q8)
+        q, k, v = (torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
+        mha_ops = 4 * hid * l * int(mask.sum())  # QK^T and PV over the live keys
+        _, a_saved = fb.attention_block_fwd(x, wqkv, bqkv, wo, bo, mask, heads, *ln1)
+        _, a_acc = fa.reference_attention_block(x, *attn, mask, heads, *ln1, save_acc=True)
+        forwards = (
+            ("fused_attention_block", lambda: fa.fused_attention_block(x, *attn, mask, heads, *ln1),
+             lambda: fa.reference_attention_block(x, *attn, mask, heads, *ln1), (x, attn, mask, ln1),
+             dict(bf16=proj + core), None),
+            ("fused_mha", lambda: fa.fused_mha(q, k, v, mask, heads), lambda: fa.mha_reference(q, k, v, mask, heads),
+             (q, k, v, mask), dict(bf16=mha_ops), lambda: ai.sdpa(q, k, v, mask, heads)),
+            ("fused_attention_int8_block",
+             lambda: fi.fused_attention_int8_block_qkv_kmajor(x, *q8_t, mask, heads, *q8ln, group_heads=group),
+             lambda: fi.reference_attention_int8_block(x, *q8, mask, heads, *q8ln, group_heads=group),
+             (x, q8_t, mask, q8ln), dict(int8=proj, bf16=core), None))
+        for name, kernel, plain, inputs, ops, library in forwards:
+            entry = out[f"{name}@hd{hd}"] = {"max_abs_err": 0.0, "library_ms": None}
+            got, want = kernel(), plain()
+            cos, err = _rows_close(got, want)
+            mean = _mean_abs(got, want)
+            print(f"[kernels] {name} at head width {hd} ({heads} heads) B={b} L={l}: min row cosine {cos:.6f}, "
+                  f"max |d| {err:.4g}, mean |d| {mean:.4g}")
+            check(got.shape == x.shape and bool(torch.isfinite(got.float()).all()), f"{name}@hd{hd} output")
+            check(cos >= 0.999 and err <= 0.1, f"{name}@hd{hd} vs plain: cos {cos}, max |d| {err}")
+            if name == "fused_attention_int8_block":
+                check(mean <= INT8_HALF_MEAN_ABS, f"{name}@hd{hd} vs plain: mean |d| {mean}")
+            entry["max_abs_err"] = err
+            _record(entry, [b, l, hid, hd], kernel, plain, device, sz["reps"], headline=True,
+                    bound_of=bound(nbytes(inputs, got), **ops))
+            _device_beside(entry, kernel, device, headline=True)
+            if library is not None and device.type == "cuda":
+                entry["library_ms"] = _time_ms(library, device, sz["reps"])
+                print(f"[kernels]   library scaled_dot_product_attention {entry['library_ms']:.4f} ms")
+        name = "fused_attention_block_bwd"
+        entry = out[f"{name}@hd{hd}"] = {"max_abs_err": 0.0, "library_ms": None}
+        kernel = lambda: fb.attention_block_bwd(x, wqkv, bqkv, wo, mask, heads, ln1[0], dy, a_saved)  # noqa: E731
+        plain = lambda: fb.reference_attention_block_bwd(x, wq, wk, wv, wo, bq, bk, bv, mask, heads,  # noqa: E731
+                                                         ln1[0], dy, a_acc)
+        got, want = _named_attention_grads(*kernel()), dict(zip(_ATTN_GRADS, plain()))
+        check(all(bool(torch.isfinite(t).all()) for t in got.values()), f"{name}@hd{hd} gradients")
+        err = grads_close(got, want, _zero_attention_grads(l))
+        print(f"[kernels] {name} at head width {hd} B={b} L={l}: {len(got)} gradients within cosine 0.999, max "
+              f"|d| <= 2e-2 max |plain| (largest |d| {err:.4g})")
+        entry["max_abs_err"] = err
+        _record(entry, [b, l, hid, hd], kernel, plain, device, sz["bwd_reps"], headline=True,
+                bound_of=bound(nbytes((x, wqkv, bqkv, wo, mask, ln1[0], dy, a_saved), list(got.values())),
+                               bf16=2 * proj + 5 * core // 2))
+        _device_beside(entry, kernel, device, headline=True)
+    return out
+
+
+def phase_int8_mlp_mix(sz, device, kern):
+    """bench.py's ``encoder_int8_mlp`` mix (bf16 attention half K1, int8 MLP
+    half K9) at its (B, L) = (1024, 128): a layer's two halves in turn, each
+    against its plain version at the encoder halves' bar (K9 also its mean
+    |d|), timed into the kernels' timings (``path: int8_mlp_mix``)."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import fused_attention as fa
+    from matchmaker_tpu_torch.ops import fused_int8 as fi
+
+    b, l = sz["int8_mlp_mix_shape"]
+    attn, ln1, _, _ = _layer_params(sz, device, seed=23)
+    _, mlp, _, ln2 = _int8_layer_params(sz, device, seed=24)
+    w1q, s1, b1, w2q, s2, b2 = mlp
+    mlp_t = (fi.kmajor_codes(w1q), s1, b1, fi.kmajor_codes(w2q), s2, b2)
+    x, mask, _ = _half_inputs(sz, b, l, device, 25)
+    proj, core = _attention_ops(b, l, sz["hid"], sz["heads"])
+    h = fa.fused_attention_block(x, *attn, mask, sz["heads"], *ln1)
+    cases = (("fused_attention_block", lambda: fa.fused_attention_block(x, *attn, mask, sz["heads"], *ln1),
+              lambda: fa.reference_attention_block(x, *attn, mask, sz["heads"], *ln1), x, (x, attn, mask, ln1),
+              dict(bf16=proj + core)),
+             ("fused_mlp_int8_block", lambda: fi.fused_mlp_int8_block_kmajor(h, *mlp_t, *ln2),
+              lambda: fi.reference_mlp_int8_block(h, *mlp, *ln2), h, (h, mlp_t, ln2),
+              dict(int8=4 * b * l * sz["hid"] * sz["ff"])))
+    for name, kernel, plain, inp, inputs, ops in cases:
+        got, want = kernel(), plain()
+        cos, err = _rows_close(got, want)
+        mean = _mean_abs(got, want)
+        print(f"[kernels] {name} B={b} L={l} (the encoder_int8_mlp mix): min row cosine {cos:.6f}, max |d| "
+              f"{err:.4g}, mean |d| {mean:.4g}")
+        check(got.shape == inp.shape and bool(torch.isfinite(got.float()).all()), f"{name} output at {(b, l)}")
+        check(cos >= 0.999 and err <= 0.1, f"{name} vs plain at {(b, l)}: cos {cos}, max |d| {err}")
+        if name == "fused_mlp_int8_block":
+            check(mean <= INT8_HALF_MEAN_ABS, f"{name} vs plain at {(b, l)}: mean |d| {mean}")
+        entry = kern[name]
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        _record(entry, [b, l, sz["hid"]], kernel, plain, device, sz["reps"], headline=False,
+                bound_of=bound(nbytes(inputs, got), **ops))
+        _device_beside(entry, kernel, device, headline=False)
+        entry["timings"][-1]["path"] = "int8_mlp_mix"
+    return kern
+
+
+# ---- phase 13: JAX run folders, accumulation, hub teachers, the fused check ----
+
+# configs/huggingface_modelhub/sebastian-hofstaetter/colbert-distilbert-margin_mse-T2-msmarco.yaml, key for key
+# (the card has no PyYAML; tests/test_torch_jax_runs.py holds this dict to the file)
+HUB_TEACHER = "sebastian-hofstaetter/colbert-distilbert-margin_mse-T2-msmarco"
+HUB_TEACHER_STUB = {"model": "colbert", "model_input_type": "independent", "token_embedder_type": "huggingface_bpe",
+                    "bert_pretrained_model": HUB_TEACHER, "colbert_compression_dim": 768,
+                    "query_augment_mask_number": 8, "use_fp16": True, "train_embedding": True,
+                    "max_doc_length": 200, "max_query_length": 30, "min_doc_length": -1, "min_query_length": -1,
+                    "random_seed": 208973249}
+# phase 13 (c): cli/effectiveness_check.py's own config on the 4 x 256 mini
+# encoder (4 heads of 64) through the fused halves, bf16 (the kernels' type);
+# its learning rate and epochs (1e-3, phase 8's 6) as the CPU run of the
+# plain versions set them (PERF.md, PR 19)
+EFFECTIVENESS_FUSED = {"bert_pretrained_model": "mini", "encoder_fused_attention": True, "use_fp16": True}
+
+
+def predicted_accumulation_launches(sz):
+    """K1/K2 and K11/K12 once per layer and encode of each micro-step (two
+    encodes: the queries, the packed documents); nothing else runs."""
+    n = sz["accum_steps"] * sz["n_layers"] * 2
+    return {"fused_attention_block": n, "fused_mlp_block": n, "fused_attention_block_bwd": n,
+            "fused_mlp_block_bwd": n}
+
+
+def predicted_hub_teacher_launches(sz):
+    """The student's two encodes a step (forward and backward) and the
+    ColBERT teacher's two (forward) per layer; K14's all-pairs form once a
+    step (the teacher's in-batch matrix); nothing of K14's training form."""
+    steps, layers = sz["hub_steps"], sz["n_layers"]
+    return {"fused_attention_block": 4 * steps * layers, "fused_mlp_block": 4 * steps * layers,
+            "fused_attention_block_bwd": 2 * steps * layers, "fused_mlp_block_bwd": 2 * steps * layers,
+            "maxsim_all_pairs": steps, "maxsim_all_pairs_argmax": 0, "maxsim_all_pairs_bwd": 0}
+
+
+def _run_files(folder):
+    out = {}
+    for name, _, _ in QUERY_SETS:
+        with open(os.path.join(folder, f"{name}-output.txt"), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def _update_cosines(start, end_a, end_b, tag, what):
+    """Per parameter, the cosine between two updates from ``start`` (the
+    key biases, zero in exact arithmetic: their noise against the query
+    bias's largest update, bar 2e-2)."""
+    import torch
+
+    worst, noise = (None, 2.0), 0.0
+    for name, p0 in start.items():
+        da, db = (end_a[name] - p0).float().reshape(-1), (end_b[name] - p0).float().reshape(-1)
+        if name.endswith("attention.key.bias"):
+            ref = float((end_b[name.replace("key.bias", "query.bias")] - start[name.replace("key.bias", "query.bias")])
+                        .abs().max())
+            noise = max(noise, float((da - db).abs().max()) / ref)
+            continue
+        cos = float(torch.nn.functional.cosine_similarity(da, db, dim=0))
+        if cos < worst[1]:
+            worst = (name, cos)
+    print(f"[{tag}] {what}: worst cosine {worst[1]:.6f} at "
+          f"{worst[0]}; key-bias noise {noise:.4g} of the query bias's update")
+    check(worst[1] >= 0.99, f"{tag}: update cosine {worst[1]} at {worst[0]}")
+    check(noise <= 2e-2, f"{tag}: key-bias update noise {noise}")
+    return {"update_cos": worst[1], "update_cos_at": worst[0], "key_bias_noise": noise}
+
+
+def phase_jax_run(sz, device, root):
+    """Phase 13 (a), in phase 4's directory: a seeded DistilBERT-width
+    BERT_DOT written as a JAX run folder (``best-model.flax`` alone, by
+    ``state_dict_to_flax`` + ``write_flax``) and as a port run
+    (``best-model.npz``); cli.dense_retrieval serves both over phase 4's
+    collection (run files and encoded rows equal bit for bit); cli.train
+    warm-starts from the ``.flax`` with ``gradient_accumulation_steps: 4``
+    at batch 8 for ``accum_steps`` micro-steps, a constant learning rate
+    without warmup (a warmup's first update has lr 0) (launches against the
+    prediction, a finite loss every step, the parameters unchanged bit for
+    bit after micro-steps 1-3 and moved after the 4th); then one
+    accumulated update of 4 x 8 triples against one step over the 32 from
+    the same weights under Margin-MSE without in-batch negatives."""
+    import torch
+
+    from matchmaker_tpu_torch.cli.dense_retrieval import run
+    from matchmaker_tpu_torch.data.tokenization import build_tokenizer
+    from matchmaker_tpu_torch.losses import get_loss
+    from matchmaker_tpu_torch.models import get_model, init_params
+    from matchmaker_tpu_torch.ops import _build
+    from matchmaker_tpu_torch.retrieval.encode import load_encoded
+    from matchmaker_tpu_torch.training import checkpoints as ckpt
+    from matchmaker_tpu_torch.training.optim import build_optimizer
+    from matchmaker_tpu_torch.training.train_step import make_train_step
+
+    result = {}
+    config = _main_config(root, sz, device)
+    model = get_model(config, build_tokenizer(config))
+    init_params(model, config, torch.Generator().manual_seed(31))
+    jax_dir, npz_dir = os.path.join(root, "jax_run"), os.path.join(root, "npz_run")
+    os.makedirs(jax_dir)
+    os.makedirs(npz_dir)
+    t0 = time.perf_counter()
+    ckpt.write_flax(os.path.join(jax_dir, ckpt.BEST_MODEL_FLAX), ckpt.state_dict_to_flax(model))
+    result["write_flax_s"] = time.perf_counter() - t0
+    ckpt.save_params(os.path.join(npz_dir, ckpt.BEST_MODEL), model)
+    t0 = time.perf_counter()
+    back = ckpt.load_state(jax_dir)
+    result["read_flax_s"] = time.perf_counter() - t0
+    start = model.state_dict()
+    check(back.keys() == start.keys() and all(torch.equal(back[k], start[k]) for k in start),
+          "the .flax run folder does not load the weights written")
+    served = {}
+    for tag, folder in (("flax", jax_dir), ("npz", npz_dir)):
+        out = os.path.join(root, f"served_{tag}")
+        os.makedirs(out)
+        fresh_perf_monitor()
+        _build.reset_launches()
+        check(run("encode+index+search", dict(config, trained_model=folder), out) == 0, f"serving the {tag} run")
+        served[tag] = (_run_files(out), load_encoded(os.path.join(out, "encoded")), dict(_build.LAUNCHES))
+    (files_f, (vec_f, ids_f), launches), (files_n, (vec_n, ids_n), _) = served["flax"], served["npz"]
+    check(files_f == files_n, "the run files from the .flax and the .npz differ")
+    check(np.array_equal(vec_f, vec_n) and np.array_equal(ids_f, ids_n), "the encoded rows differ")
+    for name in SERVING:
+        check(launches[name] > 0 or device.type != "cuda", f"serving the JAX run launched no {name} kernel")
+    result["serve_launches"] = launches
+    print(f"[jax_run] (a) a JAX run folder ({os.path.getsize(os.path.join(jax_dir, ckpt.BEST_MODEL_FLAX)) / 1e6:.1f} "
+          f"MB best-model.flax, written in {result['write_flax_s']:.2f} s, read in {result['read_flax_s']:.2f} s) "
+          f"served over {sz['passages']} passages: run files and encoded rows equal the .npz run's bit for bit; "
+          f"launches {({k: v for k, v in launches.items() if v})}")
+    del model
+
+    # warm start from the .flax with gradient accumulation
+    os.makedirs(os.path.join(root, "accum"))
+    paths = _write_train_data(os.path.join(root, "accum"), dict(sz, train_batches=sz["accum_steps"]))
+    tcfg = dict(_train_config(paths, sz, device), batch_size_train=sz["accum_batch"],
+                gradient_accumulation_steps=sz["accum_k"], max_training_batches=sz["accum_steps"],
+                warmstart_model_path=jax_dir, validate_every_n_batches=-1, validation_cont=None, test=None,
+                run_dense_retrieval_eval=False, lr_schedule="constant", optimizer_warmup_steps=0)
+    seen = {"unchanged": [], "moved": None}
+
+    def watch(trainer):
+        inner = trainer.train_step
+        weights = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+
+        def step(batch):
+            stats = inner(batch)
+            i = len(seen["unchanged"]) + (seen["moved"] is not None) + 1
+            same = all(torch.equal(p, weights[n]) for n, p in trainer.model.named_parameters())
+            if i < sz["accum_k"]:
+                seen["unchanged"].append(same)
+            elif i == sz["accum_k"]:
+                seen["moved"] = not same
+            return stats
+
+        trainer.train_step = step
+
+    rsz = dict(sz, train_batch=sz["accum_batch"])
+    trainer, res = _train_through_trainer(rsz, device, tcfg, os.path.join(root, "accum_run"), sz["accum_steps"],
+                                          "jax_run", before=watch)
+    _check_launches(res["launches"], predicted_accumulation_launches(sz), "the accumulation run", device)
+    check(seen["unchanged"] == [True] * (sz["accum_k"] - 1) and seen["moved"],
+          f"the parameters after micro-steps 1-{sz['accum_k']}: unchanged {seen['unchanged']}, moved "
+          f"{seen['moved']}")
+    check(trainer.optimizer.count == sz["accum_steps"] // sz["accum_k"] and trainer.global_step == sz["accum_steps"],
+          f"{trainer.global_step} micro-steps, {trainer.optimizer.count} updates")
+    print(f"[jax_run] (a) cli.train warm-started from the .flax, k = {sz['accum_k']} at batch {sz['accum_batch']}: "
+          f"{sz['accum_steps']} micro-steps, {trainer.optimizer.count} updates, loss {res['loss_first']:.4f} -> "
+          f"{res['loss_last']:.4f}; parameters unchanged after micro-steps 1-{sz['accum_k'] - 1}, moved after "
+          f"the {sz['accum_k']}th; {res['cli_triples_per_s']:.1f} triples/s through the Trainer")
+    result["train"] = res
+
+    # one accumulated update against one big step, from the warm-start weights:
+    # Margin-MSE alone (each micro-batch's loss a mean over its triples, so the
+    # mean of the four gradients is the big batch's); lr 1 and Adam's eps 1
+    # make the first update g / (|g| + 1), proportional to the gradient
+    cmp_cfg = dict(tcfg, in_batch_negatives=False, lr_schedule="constant", optimizer_warmup_steps=0,
+                   param_group0_learning_rate=1.0, param_group1_learning_rate=1.0,
+                   embedding_optimizer_learning_rate=1.0, adam_eps=1.0, weight_decay=0.0)
+    big = _device_batch(dict(cmp_cfg, batch_size_train=sz["accum_k"] * sz["accum_batch"]), trainer.tokenizer,
+                        paths["train"], device)
+    model = trainer.model
+    ends = {}
+    for k in (sz["accum_k"], 1):
+        model.load_state_dict(ckpt.load_state(jax_dir))
+        w0 = {n: t.detach().clone() for n, t in model.state_dict().items()}
+        step = make_train_step(model, get_loss(cmp_cfg), build_optimizer(dict(cmp_cfg, gradient_accumulation_steps=k),
+                                                                         model), cmp_cfg)
+        if k > 1:
+            n = sz["accum_batch"]
+            for i in range(k):
+                step({key: t[i * n:(i + 1) * n] for key, t in big.items()})
+        else:
+            step(big)
+        ends[k] = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    result["accumulated_vs_big"] = _update_cosines(
+        w0, ends[sz["accum_k"]], ends[1], "jax_run",
+        f"accumulated update ({sz['accum_k']} x {sz['accum_batch']} triples) vs one step over the "
+        f"{sz['accum_k'] * sz['accum_batch']}")
+    result["launches"] = res["launches"]
+    _free(trainer, device)
+    return result
+
+
+def phase_hub_teacher(sz, device, root):
+    """Phase 13 (b): a hub teacher from a seeded DistilBERT checkpoint
+    (random weights) in a temporary ``HF_HUB_CACHE``, the hub stub's keys
+    handed in as ``teacher_config`` with the fused layers on, teaching a
+    BERT_DOT student with in-batch scoring for ``hub_steps`` steps: the
+    teacher's encoder tensors equal the checkpoint's bit for bit, its
+    launches (K14's all-pairs form once a step) against the prediction."""
+    import torch
+
+    from matchmaker_tpu_torch.distillation.dynamic_teacher import load_teacher
+    from matchmaker_tpu_torch.models import hf_import
+    from matchmaker_tpu_torch.models.encoder import EncoderConfig
+
+    cache = os.path.join(root, "hf_cache")
+    snapshot = os.path.join(cache, "models--" + HUB_TEACHER.replace("/", "--"), "snapshots", "0" * 40)
+    t0 = time.perf_counter()
+    hf_config, sd = hf_import.seeded_distilbert_checkpoint(EncoderConfig.distilbert(), seed=33)
+    hf_import.save_hf_checkpoint(snapshot, hf_config, sd, True)
+    write_s = time.perf_counter() - t0
+    teacher_config = dict(HUB_TEACHER_STUB, encoder_fused_attention=True, device=str(device))
+    saved_env = {k: os.environ.get(k) for k in ("HF_HUB_CACHE", "HF_HUB_OFFLINE")}
+    os.environ.update(HF_HUB_CACHE=cache, HF_HUB_OFFLINE="1")
+    try:
+        teacher, _, _ = load_teacher(HUB_TEACHER, config=teacher_config, device=str(device))
+        _, enc = hf_import.load_hf_encoder(snapshot)
+        state = teacher.encoder.state_dict()
+        check(state.keys() == enc.keys() and all(torch.equal(state[k].cpu(), enc[k]) for k in enc),
+              "the hub teacher's encoder is not the checkpoint's")
+        del teacher
+        os.makedirs(os.path.join(root, "hub"))
+        paths = _write_train_data(os.path.join(root, "hub"), dict(sz, train_batches=sz["hub_steps"]))
+        config = dict(_train_config(paths, sz, device), dynamic_teacher=True, dynamic_teacher_path=HUB_TEACHER,
+                      dynamic_teacher_in_batch_scoring=True, in_batch_neg_loss="KLDivTeacherList",
+                      max_training_batches=sz["hub_steps"], validate_every_n_batches=-1, validation_cont=None,
+                      test=None, run_dense_retrieval_eval=False)
+        trainer, res = _train_through_trainer(sz, device, config, os.path.join(root, "hub_run"), sz["hub_steps"],
+                                              "hub_teacher", teacher_config=teacher_config)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    _check_launches(res["launches"], predicted_hub_teacher_launches(sz), "the hub teacher's run", device)
+    print(f"[hub_teacher] (b) {HUB_TEACHER} from a seeded checkpoint in a temporary cache (written in "
+          f"{write_s:.1f} s): encoder equal to the checkpoint's; BERT_DOT student {sz['hub_steps']} steps, loss "
+          f"{res['loss_first']:.4f} -> {res['loss_last']:.4f}, {res['cli_triples_per_s']:.1f} triples/s through "
+          f"the Trainer (teacher included)")
+    _free(trainer, device)
+    return dict(res, checkpoint_write_s=write_s)
+
+
+def phase_fused_effectiveness(sz, device, root):
+    """Phase 13 (c): phase 8's effectiveness check on the same planted
+    corpus and seed with the mini encoder through the fused halves (K1/K2
+    forward, K11/K12 backward), gated at the same floor, MRR@10 >= 0.5."""
+    from matchmaker_tpu_torch.cli.effectiveness_check import run_check
+    from matchmaker_tpu_torch.ops import _build
+
+    fresh_perf_monitor()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = run_check(os.path.join(root, "eff_fused"), device=str(device), overrides=EFFECTIVENESS_FUSED,
+                    **sz["effectiveness_args"])
+    launches = dict(_build.LAUNCHES)
+    result = dict(out, wall_s=time.perf_counter() - t0, launches=launches)
+    print(f"[fused_check] (c) effectiveness check {sz['effectiveness_args']} on {EFFECTIVENESS_FUSED}: MRR@10 "
+          f"{out['MRR@10']:.4f}, Recall@100 {out['Recall@100']:.4f} in {result['wall_s']:.1f} s; launches "
+          f"{({k: v for k, v in launches.items() if v})}")
+    if device.type == "cuda":
+        for name in ("fused_attention_block", "fused_mlp_block", "fused_attention_block_bwd", "fused_mlp_block_bwd"):
+            check(launches[name] > 0, f"the fused effectiveness check launched no {name} kernel")
+    check(out["MRR@10"] >= 0.5, f"the fused effectiveness check's MRR@10 {out['MRR@10']} below 0.5")
+    return result
+
+
+@contextlib.contextmanager
+def plain_int8_blocks():
+    """Route the encoder's int8 halves (K-major codes, Q/K/V packed) to
+    their plain versions on the same device."""
+    import matchmaker_tpu_torch.models.encoder as enc
+    from matchmaker_tpu_torch.ops import fused_int8 as fi
+
+    def attention(x, wqkv_t, sqkv, bqkv, wo_t, so, bo, mask, n_heads, *ln, **kw):
+        hid = x.shape[-1]
+        (wq, wk, wv), (sq, sk, sv), (bq, bk, bv) = (t.split(hid) for t in (wqkv_t, sqkv, bqkv))
+        return fi.reference_attention_int8_block(x, wq.t(), sq, wk.t(), sk, wv.t(), sv, wo_t.t(), so, bq, bk, bv,
+                                                 bo, mask, n_heads, *ln, **kw)
+
+    def mlp(x, w1_t, s1, b1, w2_t, s2, b2, *ln, **kw):
+        return fi.reference_mlp_int8_block(x, w1_t.t(), s1, b1, w2_t.t(), s2, b2, *ln, **kw)
+
+    names = ("fused_attention_int8_block_qkv_kmajor", "fused_mlp_int8_block_kmajor")
+    saved = {n: getattr(enc, n) for n in names}
+    enc.fused_attention_int8_block_qkv_kmajor, enc.fused_mlp_int8_block_kmajor = attention, mlp
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(enc, n, fn)
+
+
+def _minilm_checkpoint(root):
+    """A seeded encoder at MiniLM-L6's published widths, written as a BERT
+    checkpoint folder (utils/hf_export.py), for ``bert_pretrained_model``."""
+    import torch
+
+    from matchmaker_tpu_torch.models.encoder import EncoderConfig, TransformerEncoderLM
+    from matchmaker_tpu_torch.models.weights import init_parameters
+    from matchmaker_tpu_torch.utils.hf_export import export_to_huggingface
+
+    m = MINILM
+    cfg = EncoderConfig(vocab_size=m["vocab"], hidden_size=m["hid"], num_layers=m["n_layers"], num_heads=m["heads"],
+                        intermediate_size=m["ff"], max_position_embeddings=512, type_vocab_size=m["type_vocab"])
+    enc = TransformerEncoderLM(cfg)
+    init_parameters(enc, torch.Generator().manual_seed(35))
+    return export_to_huggingface({f"encoder.{k}": v for k, v in enc.state_dict().items()}, cfg,
+                                 os.path.join(root, "minilm"), "bert")
+
+
+def phase_minilm(sz, device, root):
+    """Phase 13 (d): BERT_CAT at MiniLM-L6's widths (12 heads of 32) through
+    the fused halves at batch 16 x 230: one eval batch against the plain
+    versions, ``minilm_steps`` training steps through the Trainer
+    (launches against the prediction), every gradient's cosine >= 0.99
+    under a pointwise loss, and the int8 forward (K10 + K9) on one eval
+    batch against its plain versions, all at the encoder halves' bar."""
+    import torch
+
+    from matchmaker_tpu_torch.data.loaders import reranking_inference_loader
+    from matchmaker_tpu_torch.models import get_model
+    from matchmaker_tpu_torch.ops import _build
+
+    msz = dict(sz, hid=MINILM["hid"], heads=MINILM["heads"], ff=MINILM["ff"], n_layers=MINILM["n_layers"])
+    paths = _rerank_data(root, sz)
+    ckpt = _minilm_checkpoint(root)
+    steps = sz["minilm_steps"]
+    config = _rerank_config(paths, sz, device, "bert_cat", ckpt, steps)
+    rsz = dict(msz, train_batch=sz["rerank_batch"])
+    trainer, res = _train_through_trainer(rsz, device, config, os.path.join(root, "minilm_run"), steps, "minilm")
+    _check_launches(res["launches"], predicted_rerank_launches(msz, "bert_cat", steps,
+                                                               steps // config["validate_every_n_batches"]),
+                    "MiniLM BERT_CAT", device)
+    check(trainer.model.encoder.cfg.num_heads == MINILM["heads"] and trainer.model.encoder.cfg.hidden_size == 384,
+          "the BERT_CAT encoder is not at MiniLM's widths")
+    res.update(_eval_batch_vs_plain(trainer, paths["val"], device, "minilm bert_cat"))
+    batch = _device_batch(config, trainer.tokenizer, paths["train_tsv"], device)
+    res.update(_kernels_vs_plain_step(trainer.model, config, batch, dict(config, loss="MSETeacherPointwise"),
+                                      "minilm"))
+    # the int8 halves on one eval batch, the trained weights quantized
+    i8 = get_model(dict(config, encoder_int8=True), trainer.tokenizer).to(device)
+    i8.load_state_dict(trainer.model.state_dict())
+    eval_batch, _, _ = next(iter(reranking_inference_loader(config, trainer.tokenizer, paths["val"])))
+    eval_batch = {k: torch.from_numpy(v).to(device) for k, v in eval_batch.items()}
+    valid = eval_batch["valid"] > 0
+    _build.reset_launches()
+    with torch.inference_mode():
+        i8.eval()
+        got = i8(eval_batch)["score"].float()[valid]
+        int8_launches = dict(_build.LAUNCHES)
+        with plain_int8_blocks():
+            want = i8(eval_batch)["score"].float()[valid]
+    cos = float(torch.nn.functional.cosine_similarity(got, want, dim=0))
+    err = float((got - want).abs().max())
+    print(f"[minilm] int8 forward (K10 + K9) on one eval batch ({int(valid.sum())} pairs), kernels vs plain: cosine "
+          f"{cos:.6f}, max |d| {err:.4g}; launches {({k: v for k, v in int8_launches.items() if v})}")
+    check(cos >= 0.999 and err <= 0.1, f"MiniLM int8 scores, kernels vs plain: cosine {cos}, max |d| {err}")
+    if device.type == "cuda":
+        for name in ("fused_attention_int8_block", "fused_mlp_int8_block"):
+            check(int8_launches[name] == MINILM["n_layers"], f"the int8 forward launched {int8_launches[name]} {name}")
+    res.update(int8_eval_cos=cos, int8_eval_max_abs=err, int8_launches=int8_launches)
+    print(f"[minilm] (d) BERT_CAT at MiniLM-L6's widths, {steps} steps: loss {res['loss_first']:.4f} -> "
+          f"{res['loss_last']:.4f}, {res['cli_triples_per_s']:.1f} triples/s through the Trainer")
+    _free(trainer, device)
+    return res
+
+
+def phase_jax_runs(sz, device, root):
+    """Phase 13: (a) in phase 4's directory, then (b), (c) and (d) in their
+    own; ``launches``: those of every run the parts drive (the .flax
+    serving run, the accumulation run, the hub teacher's, the check's,
+    MiniLM's training run and its int8 forward)."""
+    result = {"jax_run": phase_jax_run(sz, device, root)}
+    with tempfile.TemporaryDirectory() as sub:
+        result["hub_teacher"] = phase_hub_teacher(sz, device, sub)
+    with tempfile.TemporaryDirectory() as sub:
+        result["fused_check"] = phase_fused_effectiveness(sz, device, sub)
+    with tempfile.TemporaryDirectory() as sub:
+        result["minilm"] = phase_minilm(sz, device, sub)
+    launches = {}
+    for runs in (result["jax_run"]["serve_launches"], result["jax_run"]["launches"], result["hub_teacher"]["launches"],
+                 result["fused_check"]["launches"], result["minilm"]["launches"], result["minilm"]["int8_launches"]):
+        for k, v in runs.items():
+            launches[k] = launches.get(k, 0) + v
+    result["launches"] = launches
+    return result
+
+
 # ---- phase 11: the index layer through the CLI and at 1M rows ------------------
 
 # (a) the CLI's other index kinds over phase 4's collection; the files each saves
@@ -4782,6 +5357,9 @@ def run_phases(sz, device, card: str) -> dict:
     kern.update(phase_maxsim_training(sz, device))
     kern.update(phase_mha_kernel(sz, device))
     phase_rerank_kernels(sz, device, kern)
+    phase_rerank_kernels(sz, device, kern, sz["train_shapes"], "train")
+    phase_int8_mlp_mix(sz, device, kern)
+    kern.update(phase_head_width_kernels(sz, device))
     t0 = time.perf_counter()
     kern.update(phase_probe_kernels(sz, device))
     report["probe_kernels_s"] = time.perf_counter() - t0
@@ -4789,6 +5367,10 @@ def run_phases(sz, device, card: str) -> dict:
         report["main"] = phase_main_path(sz, device, root)
         report["main_int8"] = phase_main_path_int8(sz, device, root, os.path.join(root, "run"))
         report["colbert"] = phase_colbert(sz, device, root)
+        t0 = time.perf_counter()
+        report["jax_runs"] = phase_jax_runs(sz, device, root)
+        report["jax_runs_s"] = time.perf_counter() - t0
+    print(f"[jax_runs] phase 13 took {report['jax_runs_s']:.1f} s")
     report["scale"] = phase_scale(sz, device)
     report["scale_int8"] = phase_scale_int8(sz, device)
     with tempfile.TemporaryDirectory() as root:
@@ -4841,7 +5423,8 @@ def run_phases(sz, device, card: str) -> dict:
                 "rerank": report["rerank"]["launches"].get(name, 0),
                 "phase10": report["pooling"]["launches"].get(name, 0),
                 "phase11": report["indexes"]["launches"].get(name, 0),
-                "phase12": report["zoo"]["launches"].get(name, 0)}
+                "phase12": report["zoo"]["launches"].get(name, 0),
+                "phase13": report["jax_runs"]["launches"].get(name, 0)}
         scale_runs = {"scale_bf16": report["scale"]["launches"][name],
                       **{f"scale_int8_{r}": report["scale_int8"][r]["launches"][name]
                          for r, _, _ in SCALE_INT8_RUNS}}
@@ -4870,6 +5453,25 @@ def run_phases(sz, device, card: str) -> dict:
              "bound_ms": kern[name]["bound_ms"], "bound_by": kern[name]["bound_by"],
              "library_ms": kern[name].get("library_ms"),
              "timed_shape": kern[name]["timed_shape"], **{k: kern[name][k] for k in BESIDE if k in kern[name]}})
+    # the attention cores' head-width instances: at width 32 on phase 13
+    # (d)'s path (MiniLM: K1 and K12 in its training run, K10 in its int8
+    # forward; every launch there is at width 32), K13 and width 16 on none
+    minilm = report["jax_runs"]["minilm"]
+    minilm_launches = {k: minilm["launches"].get(k, 0) + minilm["int8_launches"].get(k, 0)
+                       for k in minilm["launches"]}
+    sources = {k[0]: (k[1], k[2]) for k in KERNELS}
+    for name, counter, hd in HEAD_WIDTH_KERNELS:
+        on_path = hd == 32 and counter != "fused_mha"
+        launches = minilm_launches[counter] if on_path else 0
+        if on_path and device.type == "cuda":
+            check(launches > 0, f"phase 13 (d) launched no {counter} kernel at head width 32")
+        e = kern[name]
+        report["kernels"].append(
+            {"name": name, "route": "cuda", "source": sources[counter][0], "replaces": sources[counter][1],
+             "head_dim": hd, "path": "minilm" if on_path else None, "launches": launches,
+             "max_abs_err": e["max_abs_err"], "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+             "bound_by": e["bound_by"], "library_ms": e.get("library_ms"), "timed_shape": e["timed_shape"],
+             "device_ms": e.get("device_ms"), "x_bound": e.get("x_bound")})
     report["kernel_timings"] = {k[0]: kern[k[0]]["timings"] for k in KERNELS}
     if report["scale"]["level2_reduce"]:
         report["kernel_timings"]["level2_reduce"].append(dict(report["scale"]["level2_reduce"], path="scale_bf16"))
@@ -4953,6 +5555,19 @@ def print_zoo(card, report) -> None:
           f"{qa['weighted']['overfit_last']:.4f}; phase 12 {report['zoo_s']:.1f} s")
 
 
+def print_jax_runs(card, report) -> None:
+    jr = report["jax_runs"]
+    a, b, c, d = jr["jax_run"], jr["hub_teacher"], jr["fused_check"], jr["minilm"]
+    print(f"[{card}] JAX run folder: best-model.flax served bit for bit as the .npz; warm start + accumulation "
+          f"(k {FULL['accum_k']}, batch {FULL['accum_batch']}) {a['train']['cli_triples_per_s']:.1f} triples/s "
+          f"through the Trainer, accumulated vs big-batch update worst cosine "
+          f"{a['accumulated_vs_big']['update_cos']:.6f}; hub teacher: student {b['cli_triples_per_s']:.1f} "
+          f"triples/s with the ColBERT teacher; fused effectiveness check (mini) MRR@10 {c['MRR@10']:.4f}; "
+          f"MiniLM BERT_CAT {d['cli_triples_per_s']:.1f} triples/s through the Trainer, eval cosine "
+          f"{d['eval_cos']:.6f}, int8 eval cosine {d['int8_eval_cos']:.6f}, worst gradient cosine "
+          f"{d['plain_grad_cos']:.6f}; phase 13 {report['jax_runs_s']:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -5011,14 +5626,17 @@ def main() -> int:
     print_pooling(card, report)
     print_indexes(card, report)
     print_zoo(card, report)
+    print_jax_runs(card, report)
     for k in report["kernels"]:
         device = (f" (device {k['device_ms']:.4f} ms, {k['x_bound']:.2f}x bound; library device "
                   f"{_fmt(k.get('library_device_ms'))})" if k.get("x_bound") else "")
         print(f"[{card}] {k['name']}: kernel {k['ms']:.4f} ms{device}, plain {k['plain_ms']:.4f} ms, bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}) at {k['timed_shape']}, max |d| {k['max_abs_err']:.3g}, "
-              f"launches {k['launches']} in its path's run ({k['path']}), {k['launches_rerank']} in phase 9's runs, "
-              f"{k['launches_phase10']} in phase 10's, {k['launches_phase11']} in phase 11's, "
-              f"{k['launches_phase12']} in phase 12's, {k['launches_scale']} in the scale search")
+              f"launches {k['launches']} in its path's run ({k['path']})" + (
+                  f", {k['launches_rerank']} in phase 9's runs, {k['launches_phase10']} in phase 10's, "
+                  f"{k['launches_phase11']} in phase 11's, {k['launches_phase12']} in phase 12's, "
+                  f"{k['launches_phase13']} in phase 13's, {k['launches_scale']} in the scale search"
+                  if "launches_scale" in k else f" (head width {k['head_dim']})"))
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({"kernels": report["kernels"]}))

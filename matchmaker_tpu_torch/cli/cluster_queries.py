@@ -1,8 +1,8 @@
 """TAS-B query clustering of the port: counterpart of
 ``matchmaker_tpu/cli/cluster_queries.py``.
 
-Encode every training query with a baseline dense retriever (a port run
-folder: ``best-model.npz``), cluster the vectors with k-means on the card
+Encode every training query with a baseline dense retriever (a run
+folder: ``best-model.npz``, or a JAX run's ``best-model.flax``), cluster the vectors with k-means on the card
 (retrieval/indexes.py:DynamicClusterIndex), and write one cluster of query
 ids per line (the file the TAS-Balanced sampler reads). A multi-vector
 encoder (ColBERT) gives a query its token vectors' masked mean.

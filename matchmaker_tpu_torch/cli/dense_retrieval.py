@@ -8,8 +8,9 @@ keys and run-folder files:
     search              : reuse the saved index of the run folder
 
 Extra key: ``device`` (default ``"cuda"``). Weights come from
-``trained_model`` (a ``best-model.npz`` file or the folder holding one; see
-models/weights.py); without it the model starts from seeded random weights.
+``trained_model`` (a ``best-model.npz`` or a JAX run's ``best-model.flax``,
+or the folder holding one; see training/checkpoints.py); without it the
+model starts from seeded random weights.
 
 Every ``faiss_index_type`` of retrieval/indexes.py:build_index is served
 (``flat``, ``scann`` binmax or ``tree_ah``, ``ivf``, ``hnsw``,
@@ -46,12 +47,12 @@ from matchmaker_tpu_torch.evaluation import save_sorted_results
 from matchmaker_tpu_torch.experiment import get_parser, prepare_experiment
 from matchmaker_tpu_torch.metrics import calculate_metrics_plain, load_qrels, print_metric_summary, unrolled_to_ranked_result
 from matchmaker_tpu_torch.models import get_model, init_params
-from matchmaker_tpu_torch.models.weights import load_npz
 from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
 from matchmaker_tpu_torch.retrieval.colbert_search import TokenVectorStore, colbert_search_queries
 from matchmaker_tpu_torch.retrieval.encode import encode_corpus, load_encoded
 from matchmaker_tpu_torch.retrieval.indexes import StreamingFlatIndex, build_index
 from matchmaker_tpu_torch.retrieval.search import search_queries
+from matchmaker_tpu_torch.training.checkpoints import load_state
 
 
 def make_encode_fn(model, sequence_type: str):
@@ -65,10 +66,10 @@ def make_encode_fn(model, sequence_type: str):
 
 
 def _trained_weights(path: str):
-    ckpt = os.path.join(path, "best-model.npz") if os.path.isdir(path) else path
-    if not os.path.isfile(ckpt):
-        raise FileNotFoundError(f"trained_model: no weights at {ckpt} (expected best-model.npz)")
-    return load_npz(ckpt)
+    try:
+        return load_state(path)
+    except FileNotFoundError as e:
+        raise FileNotFoundError(f"trained_model: {e}") from None
 
 
 def run(mode: str, config, run_folder: str) -> int:

@@ -22,7 +22,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 
 def run_check(
@@ -35,7 +35,12 @@ def run_check(
     top_n: int = 100,
     seed: int = 7,
     device: str = "cuda",
+    overrides: Optional[dict] = None,
 ) -> Dict[str, float]:
+    """Train, encode, index and search the planted corpus; MRR@10 and
+    Recall@min(top_n, 100) over its eval queries. ``overrides``: config keys
+    set on top of the check's own, in training and retrieval alike (another
+    encoder, the fused layers, another learning rate)."""
     from matchmaker_tpu_torch.config import Config, auto_fill
     from matchmaker_tpu_torch.data.synthetic import make_planted_corpus
     from matchmaker_tpu_torch.training.trainer import Trainer
@@ -59,6 +64,7 @@ def run_check(
         "random_seed": seed,
         "device": device,
     }
+    overrides = dict(overrides or {})
     train_cfg = Config(auto_fill({
         **base,
         "batch_size_train": 64,
@@ -79,6 +85,7 @@ def run_check(
         "validation_metric": "MRR@10",
         "expirement_base_path": work_dir,
         "train_tsv": paths["train_tsv"],
+        **overrides,
     }))
     trainer = Trainer(train_cfg, train_folder)
     trainer.train()  # saves best-model.npz in the run folder
@@ -104,6 +111,7 @@ def run_check(
                 "binarization_point": 1.0,
             }
         },
+        **overrides,
     }))
     rc = dr_run("encode+index+search", dr_cfg, retrieval_folder)
     if rc != 0:

@@ -33,8 +33,10 @@ from matchmaker_tpu_torch.training.train_step import forward_triple
 def score_triples(teacher_path: str, triples: str, out: str, batch_size: int = 64, config=None,
                   device: Optional[str] = None) -> int:
     """Score every triple of ``triples`` with the teacher of ``teacher_path``
-    (its weights ``best-model.npz``; its config ``config`` if given, else the
-    folder's ``config.yaml``) on ``device`` (default: the config's, else
+    (a run folder: its weights ``best-model.npz`` or a JAX run's
+    ``best-model.flax``; a hub name: its config stub, the cached checkpoint's
+    encoder; its config ``config`` if given, else the folder's
+    ``config.yaml``) on ``device`` (default: the config's, else
     ``"cuda"``) and write the 5-column file ``out``. Returns the number of
     triples written."""
     model, config, tokenizer = load_teacher(teacher_path, config=config, device=device)

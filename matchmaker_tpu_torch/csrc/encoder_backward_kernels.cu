@@ -26,7 +26,7 @@
 // a fixed order. The column sums (biases, LayerNorm) are two-pass reductions
 // too: no float atomics, so a gradient is the same run to run.
 //
-// The attention core backward (head width 64) runs all five products on the
+// The attention core backward (head width 16, 32 or 64) runs all five products on the
 // tensor cores (mma.sync m16n8k16, operands through ldmatrix): S = QK^T,
 // dP = dA.V^T, dV = P^T.dA, dQ = dS.K, dK = dS^T.Q. The TPU kept P and dS
 // f32 into their products; here P enters dV and dS enters dQ as bf16, and dS
@@ -185,32 +185,46 @@ cudaError_t launch_ln_bwd(const float* acc, const bf16* dy, const float* gamma, 
 }
 
 // ---- attention core backward -------------------------------------------------
-constexpr int AH = 64;            // head width
+// The head width HD is a template parameter, instanced for 16, 32 and 64
+// (attention_bwd): the products that contract the head width (S = QK^T,
+// dP = dA.V^T) take HD / 16 k-steps, those that produce it (dQ, dK, dV)
+// HD / 8 n-tiles of 8; the 64-wide key tiles and the score fragments do not
+// change with it.
 constexpr int AT = 64;            // query or key rows of a tile
 constexpr int A_THREADS = 128;    // 4 warps, 16 rows of the block's own tile each
-constexpr int T_LD = AH + 8;      // padded bf16 tile rows: 144 bytes, ldmatrix rows on distinct banks
-constexpr int TILE_ELEMS = AT * T_LD;
 constexpr int MAX_KEYS = 512;
-constexpr size_t DQ_SMEM_BYTES = (size_t)6 * TILE_ELEMS * 2 + MAX_KEYS * 4;
-constexpr size_t DKV_SMEM_BYTES = (size_t)6 * TILE_ELEMS * 2 + 2 * 3 * AT * 4;
+template <int HD>
+__host__ __device__ constexpr int a_ld() { return HD + 8; }  // padded bf16 tile rows: ldmatrix rows on distinct banks
+template <int HD>
+__host__ __device__ constexpr int a_tile() { return AT * a_ld<HD>(); }
+template <int HD>
+__host__ __device__ constexpr size_t dq_smem_bytes() { return (size_t)6 * a_tile<HD>() * 2 + MAX_KEYS * 4; }
+template <int HD>
+__host__ __device__ constexpr size_t dkv_smem_bytes() { return (size_t)6 * a_tile<HD>() * 2 + 2 * 3 * AT * 4; }
 
-// rows [r0, r0 + 64) of one head's 64 columns (column offset col0 in rows of
-// row_w) into a [64][T_LD] tile; rows past L read as zero
+// rows [r0, r0 + 64) of one head's HD columns (column offset col0 in rows of
+// row_w) into a [64][HD + 8] tile; rows past L read as zero
+template <int HD>
 __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* base, int row_w, int col0, int r0, int L) {
-  for (int c = threadIdx.x; c < AT * AH / 8; c += A_THREADS) {
-    const int row = c >> 3, col = (c & 7) * 8;
+  constexpr int SHIFT = HD == 64 ? 3 : (HD == 32 ? 2 : 1);  // log2 of the 16-byte pieces a row
+  for (int c = threadIdx.x; c < (AT << SHIFT); c += A_THREADS) {
+    const int row = c >> SHIFT, col = (c & ((1 << SHIFT) - 1)) * 8;
     const bool ok = r0 + row < L;
-    cp_async16(dst + row * T_LD + col, base + (size_t)(ok ? r0 + row : 0) * row_w + col0 + col, ok);
+    cp_async16(dst + row * a_ld<HD>() + col, base + (size_t)(ok ? r0 + row : 0) * row_w + col0 + col, ok);
   }
 }
 
-// A fragments (16 rows x 64 columns, four 16-deep blocks) of a [row][col] tile
+// A fragments (16 rows x HD columns, HD / 16 blocks 16 deep) of a [row][col]
+// tile into the first HD / 16 of a's four blocks: a holds a 64-key row of P
+// or dS as well (c_to_a), one array for both as at HD = 64
+template <int HD>
 __device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* tile, int row0, int lane) {
 #pragma unroll
-  for (int kb = 0; kb < 4; ++kb) ldsm_x4(a[kb], tile + (row0 + (lane & 15)) * T_LD + kb * 16 + (lane >> 4) * 8);
+  for (int kb = 0; kb < HD / 16; ++kb)
+    ldsm_x4(a[kb], tile + (row0 + (lane & 15)) * a_ld<HD>() + kb * 16 + (lane >> 4) * 8);
 }
 
-// the 16 x 64 f32 C fragments as bf16 A fragments over their 64 columns
+// the 16 x 64 f32 C fragments (a row of 64 keys) as bf16 A fragments over their 64 columns
 __device__ __forceinline__ void c_to_a(uint32_t (&a)[4][4], const float (&c)[8][4]) {
 #pragma unroll
   for (int kb = 0; kb < 4; ++kb) {
@@ -221,47 +235,51 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4][4], const float (&c)[8][
   }
 }
 
-// c (16 x 64) = a (16 x 64) . tile^T, tile [n][k]: the other side's 64 rows
+// c (16 x 64) = a (16 x HD) . tile^T, tile [n][k]: the other side's 64 rows
+template <int HD>
 __device__ __forceinline__ void mma_nt(float (&c)[8][4], const uint32_t (&a)[4][4], const bf16* tile, int lane) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.0f;
 #pragma unroll
-  for (int kb = 0; kb < 4; ++kb) {
+  for (int kb = 0; kb < HD / 16; ++kb) {
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
       uint32_t b[4];
-      ldsm_x4(b, tile + (16 * np + (lane & 7) + ((lane >> 4) << 3)) * T_LD + kb * 16 + ((lane >> 3) & 1) * 8);
+      ldsm_x4(b, tile + (16 * np + (lane & 7) + ((lane >> 4) << 3)) * a_ld<HD>() + kb * 16 + ((lane >> 3) & 1) * 8);
       mma16816(c[2 * np], a[kb], b[0], b[1]);
       mma16816(c[2 * np + 1], a[kb], b[2], b[3]);
     }
   }
 }
 
-// c (16 x 64) += a (16 x 64, contracting the tile's rows) . tile, tile [k][n]
-__device__ __forceinline__ void mma_nn(float (&c)[8][4], const uint32_t (&a)[4][4], const bf16* tile, int lane) {
+// c (16 x HD) += a (16 x 64, contracting the tile's rows) . tile, tile [k][n]
+template <int HD>
+__device__ __forceinline__ void mma_nn(float (&c)[HD / 8][4], const uint32_t (&a)[4][4], const bf16* tile,
+                                       int lane) {
 #pragma unroll
   for (int kb = 0; kb < 4; ++kb) {
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int np = 0; np < HD / 16; ++np) {
       uint32_t b[4];
-      ldsm_x4_t(b, tile + (16 * kb + (lane & 7) + (((lane >> 3) & 1) << 3)) * T_LD + 16 * np + (lane >> 4) * 8);
+      ldsm_x4_t(b, tile + (16 * kb + (lane & 7) + (((lane >> 3) & 1) << 3)) * a_ld<HD>() + 16 * np + (lane >> 4) * 8);
       mma16816(c[2 * np], a[kb], b[0], b[1]);
       mma16816(c[2 * np + 1], a[kb], b[2], b[3]);
     }
   }
 }
 
-// the 16 x 64 C fragments as bf16 rows of a (rows, row_w) tensor at column
+// the 16 x HD C fragments as bf16 rows of a (rows, row_w) tensor at column
 // col0 (rows past L are skipped); fragment [j][2i + e] holds row lane/4 + 8i,
 // column 8j + 2(lane%4) + e
-__device__ __forceinline__ void store_rows(bf16* out, const float (&c)[8][4], int row0, int L, int row_w, int col0,
-                                           int lane) {
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&c)[HD / 8][4], int row0, int L, int row_w,
+                                           int col0, int lane) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + lane / 4 + 8 * i;
     if (row >= L) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<uint32_t*>(out + (size_t)row * row_w + col0 + 8 * j + 2 * (lane & 3)) =
           pack_bf16(c[j][2 * i], c[j][2 * i + 1]);
   }
@@ -271,10 +289,12 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&c)[8][4], in
 // from the forward, da (B, L, HID) the gradient of the attention output.
 // Writes dq into dqkv[:, :, 0:HID] and each query's row statistics (max,
 // sum of exp, D = sum_j P_ij dP_ij) into stats (3, B, H, L) for kernel 2.
+template <int HD>
 __global__ void __launch_bounds__(A_THREADS, 3)
     attention_bwd_q_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
                                const bf16* __restrict__ da, bf16* __restrict__ dqkv, float* __restrict__ stats,
                                int L, int H, float scale) {
+  constexpr int TILE_ELEMS = a_tile<HD>();
   extern __shared__ __align__(128) char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ds = Qs + TILE_ELEMS;
@@ -283,13 +303,13 @@ __global__ void __launch_bounds__(A_THREADS, 3)
   float* negk = reinterpret_cast<float*>(Vb + 2 * TILE_ELEMS);
 
   const int q0 = blockIdx.x * AT, h = blockIdx.y, b = blockIdx.z;
-  const int HID = H * AH, ROW = 3 * HID;
+  const int HID = H * HD, ROW = 3 * HID;
   const bf16* base = qkv + (size_t)b * L * ROW;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tiles = (L + AT - 1) / AT;
   auto stage_kv = [&](int t) {
-    stage_tile(Kb + (t & 1) * TILE_ELEMS, base, ROW, HID + h * AH, t * AT, L);
-    stage_tile(Vb + (t & 1) * TILE_ELEMS, base, ROW, 2 * HID + h * AH, t * AT, L);
+    stage_tile<HD>(Kb + (t & 1) * TILE_ELEMS, base, ROW, HID + h * HD, t * AT, L);
+    stage_tile<HD>(Vb + (t & 1) * TILE_ELEMS, base, ROW, 2 * HID + h * HD, t * AT, L);
     cp_async_commit();
   };
   // tile t's K and V are in their buffers, the next tile's on their way
@@ -305,8 +325,8 @@ __global__ void __launch_bounds__(A_THREADS, 3)
 
   for (int j = tid; j < tiles * AT; j += A_THREADS)
     negk[j] = j < L ? (mask[(size_t)b * L + j] - 1.0f) * 1e9f : -INFINITY;
-  stage_tile(Qs, base, ROW, h * AH, q0, L);
-  stage_tile(Ds, da + (size_t)b * L * HID, HID, h * AH, q0, L);
+  stage_tile<HD>(Qs, base, ROW, h * HD, q0, L);
+  stage_tile<HD>(Ds, da + (size_t)b * L * HID, HID, h * HD, q0, L);
   stage_kv(0);
 
   // pass 1: S and dP over the key tiles, for each row's max m, sum of
@@ -317,10 +337,10 @@ __global__ void __launch_bounds__(A_THREADS, 3)
     next_tile(t);
     uint32_t fa[4][4];
     float s[8][4], dp[8][4];
-    load_a(fa, Qs, warp * 16, lane);
-    mma_nt(s, fa, Kb + (t & 1) * TILE_ELEMS, lane);
-    load_a(fa, Ds, warp * 16, lane);
-    mma_nt(dp, fa, Vb + (t & 1) * TILE_ELEMS, lane);
+    load_a<HD>(fa, Qs, warp * 16, lane);
+    mma_nt<HD>(s, fa, Kb + (t & 1) * TILE_ELEMS, lane);
+    load_a<HD>(fa, Ds, warp * 16, lane);
+    mma_nt<HD>(dp, fa, Vb + (t & 1) * TILE_ELEMS, lane);
     float tm[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -370,18 +390,18 @@ __global__ void __launch_bounds__(A_THREADS, 3)
 
   // pass 2: P from the statistics, dP = dA V^T, dS = P (dP - D) scale, dQ += dS K
   stage_kv(0);
-  float dq[8][4];
+  float dq[HD / 8][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.0f;
+  for (int j = 0; j < HD / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.0f;
   for (int t = 0; t < tiles; ++t) {
     next_tile(t);
     const bf16* kt = Kb + (t & 1) * TILE_ELEMS;
     uint32_t fa[4][4];
-    load_a(fa, Qs, warp * 16, lane);
+    load_a<HD>(fa, Qs, warp * 16, lane);
     float s[8][4], dp[8][4];
-    mma_nt(s, fa, kt, lane);
-    load_a(fa, Ds, warp * 16, lane);
-    mma_nt(dp, fa, Vb + (t & 1) * TILE_ELEMS, lane);
+    mma_nt<HD>(s, fa, kt, lane);
+    load_a<HD>(fa, Ds, warp * 16, lane);
+    mma_nt<HD>(dp, fa, Vb + (t & 1) * TILE_ELEMS, lane);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -391,20 +411,22 @@ __global__ void __launch_bounds__(A_THREADS, 3)
         s[j][e] = p * (dp[j][e] - dd[i]) * scale;  // dS in place of S
       }
     c_to_a(fa, s);
-    mma_nn(dq, fa, kt, lane);
+    mma_nn<HD>(dq, fa, kt, lane);
     __syncthreads();
   }
-  store_rows(dqkv + (size_t)b * L * ROW, dq, q0 + warp * 16, L, ROW, h * AH, lane);
+  store_rows<HD>(dqkv + (size_t)b * L * ROW, dq, q0 + warp * 16, L, ROW, h * HD, lane);
 }
 
 // Kernel 2: one block per (64-key tile, head, example), looping over every
 // 64-query tile: P^T = exp(K Q^T scale + mask - max) / sum from kernel 1's
 // statistics, dP^T = V dA^T, dS^T = P^T (dP^T - D) scale; dV += P^T dA and
 // dK += dS^T Q, kept in registers for the whole loop.
+template <int HD>
 __global__ void __launch_bounds__(A_THREADS, 3)
     attention_bwd_kv_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
                                 const bf16* __restrict__ da, bf16* __restrict__ dqkv, const float* __restrict__ stats,
                                 int L, int H, float scale) {
+  constexpr int TILE_ELEMS = a_tile<HD>();
   extern __shared__ __align__(128) char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + TILE_ELEMS;
@@ -413,7 +435,7 @@ __global__ void __launch_bounds__(A_THREADS, 3)
   float* qst = reinterpret_cast<float*>(Db + 2 * TILE_ELEMS);  // [2][3][64]: max, 1 / sum, D
 
   const int k0 = blockIdx.x * AT, h = blockIdx.y, b = blockIdx.z;
-  const int HID = H * AH, ROW = 3 * HID;
+  const int HID = H * HD, ROW = 3 * HID;
   const bf16* base = qkv + (size_t)b * L * ROW;
   const bf16* dbase = da + (size_t)b * L * HID;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -437,22 +459,22 @@ __global__ void __launch_bounds__(A_THREADS, 3)
     const int key = k0 + warp * 16 + lane / 4 + 8 * i;
     nk[i] = key < L ? (mask[(size_t)b * L + key] - 1.0f) * 1e9f : -INFINITY;
   }
-  stage_tile(Ks, base, ROW, HID + h * AH, k0, L);
-  stage_tile(Vs, base, ROW, 2 * HID + h * AH, k0, L);
-  stage_tile(Qb, base, ROW, h * AH, 0, L);
-  stage_tile(Db, dbase, HID, h * AH, 0, L);
+  stage_tile<HD>(Ks, base, ROW, HID + h * HD, k0, L);
+  stage_tile<HD>(Vs, base, ROW, 2 * HID + h * HD, k0, L);
+  stage_tile<HD>(Qb, base, ROW, h * HD, 0, L);
+  stage_tile<HD>(Db, dbase, HID, h * HD, 0, L);
   cp_async_commit();
   load_stats(0);
 
-  float dk[8][4], dv[8][4];
+  float dk[HD / 8][4], dv[HD / 8][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.0f;
   for (int t = 0; t < tiles; ++t) {
     if (t + 1 < tiles) {
-      stage_tile(Qb + ((t + 1) & 1) * TILE_ELEMS, base, ROW, h * AH, (t + 1) * AT, L);
-      stage_tile(Db + ((t + 1) & 1) * TILE_ELEMS, dbase, HID, h * AH, (t + 1) * AT, L);
+      stage_tile<HD>(Qb + ((t + 1) & 1) * TILE_ELEMS, base, ROW, h * HD, (t + 1) * AT, L);
+      stage_tile<HD>(Db + ((t + 1) & 1) * TILE_ELEMS, dbase, HID, h * HD, (t + 1) * AT, L);
       cp_async_commit();
       load_stats(t + 1);
       cp_async_wait<1>();
@@ -464,11 +486,11 @@ __global__ void __launch_bounds__(A_THREADS, 3)
     const bf16* dt = Db + (t & 1) * TILE_ELEMS;
     const float* qm = qst + (t & 1) * 3 * AT;
     uint32_t fa[4][4];
-    load_a(fa, Ks, warp * 16, lane);
+    load_a<HD>(fa, Ks, warp * 16, lane);
     float s[8][4], dp[8][4];
-    mma_nt(s, fa, qt, lane);
-    load_a(fa, Vs, warp * 16, lane);
-    mma_nt(dp, fa, dt, lane);
+    mma_nt<HD>(s, fa, qt, lane);
+    load_a<HD>(fa, Vs, warp * 16, lane);
+    mma_nt<HD>(dp, fa, dt, lane);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -479,23 +501,47 @@ __global__ void __launch_bounds__(A_THREADS, 3)
         dp[j][e] = p * (dp[j][e] - qm[2 * AT + c]) * scale;  // dS^T in place of dP^T
       }
     c_to_a(fa, s);
-    mma_nn(dv, fa, dt, lane);
+    mma_nn<HD>(dv, fa, dt, lane);
     // dS^T as a bf16 hi + lo pair into dK: the key-bias gradient sums dK over
     // the keys, where each row of dS sums to zero; one bf16 rounding of dS
     // would leave noise of the order of that gradient's bar
     c_to_a(fa, dp);
-    mma_nn(dk, fa, qt, lane);
+    mma_nn<HD>(dk, fa, qt, lane);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[j][e] -= __bfloat162float(__float2bfloat16(dp[j][e]));
     c_to_a(fa, dp);
-    mma_nn(dk, fa, qt, lane);
+    mma_nn<HD>(dk, fa, qt, lane);
     __syncthreads();
   }
   bf16* out = dqkv + (size_t)b * L * ROW;
-  store_rows(out, dk, k0 + warp * 16, L, ROW, HID + h * AH, lane);
-  store_rows(out, dv, k0 + warp * 16, L, ROW, 2 * HID + h * AH, lane);
+  store_rows<HD>(out, dk, k0 + warp * 16, L, ROW, HID + h * HD, lane);
+  store_rows<HD>(out, dv, k0 + warp * 16, L, ROW, 2 * HID + h * HD, lane);
+}
+
+template <int HD>
+int attention_bwd(const void* qkv, const void* mask, const void* da, void* dqkv, void* stats, int B, int L, int H,
+                  float scale, void* stream) {
+  if (L < 1 || L > MAX_KEYS) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_q_mma_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem_bytes<HD>());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(attention_bwd_kv_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dkv_smem_bytes<HD>());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L + AT - 1) / AT, H, B);
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const float* m = static_cast<const float*>(mask);
+  const bf16* d = static_cast<const bf16*>(da);
+  bf16* out = static_cast<bf16*>(dqkv);
+  float* st = static_cast<float*>(stats);
+  attention_bwd_q_mma_kernel<HD><<<grid, A_THREADS, dq_smem_bytes<HD>(), s>>>(q, m, d, out, st, L, H, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_bwd_kv_mma_kernel<HD><<<grid, A_THREADS, dkv_smem_bytes<HD>(), s>>>(q, m, d, out, st, L, H, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // column sums of x (M, C), bf16 or f32, into out (C) f32: two passes
@@ -589,29 +635,17 @@ int mm_wg_wgrad(const void* A, const void* B, void* partial, void* out, int R, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// dqkv (B,L,3*H*64) bf16 from qkv (B,L,3*H*64), mask (B,L) f32 and da
-// (B,L,H*64) bf16; stats (3,B,H,L) f32 is scratch passed between the kernels.
+// dqkv (B,L,3*H*hd) bf16 from qkv (B,L,3*H*hd), mask (B,L) f32 and da
+// (B,L,H*hd) bf16, head width hd 16, 32 or 64; stats (3,B,H,L) f32 is
+// scratch passed between the kernels.
 int mm_attention_bwd(const void* qkv, const void* mask, const void* da, void* dqkv, void* stats, int B, int L, int H,
-                     float scale, void* stream) {
-  if (L < 1 || L > MAX_KEYS) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_q_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)DQ_SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attention_bwd_kv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)DKV_SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + AT - 1) / AT, H, B);
-  const bf16* q = static_cast<const bf16*>(qkv);
-  const float* m = static_cast<const float*>(mask);
-  const bf16* d = static_cast<const bf16*>(da);
-  bf16* out = static_cast<bf16*>(dqkv);
-  float* st = static_cast<float*>(stats);
-  attention_bwd_q_mma_kernel<<<grid, A_THREADS, DQ_SMEM_BYTES, s>>>(q, m, d, out, st, L, H, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_kv_mma_kernel<<<grid, A_THREADS, DKV_SMEM_BYTES, s>>>(q, m, d, out, st, L, H, scale);
-  return static_cast<int>(cudaGetLastError());
+                     int hd, float scale, void* stream) {
+  switch (hd) {
+    case 16: return attention_bwd<16>(qkv, mask, da, dqkv, stats, B, L, H, scale, stream);
+    case 32: return attention_bwd<32>(qkv, mask, da, dqkv, stats, B, L, H, scale, stream);
+    case 64: return attention_bwd<64>(qkv, mask, da, dqkv, stats, B, L, H, scale, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"
@@ -669,7 +703,7 @@ int attention_block_bwd(Arena& ar, const void* x, const void* wqkv, const void* 
   MM_TRY(colsum(ln_part, false, ln_col, sums, ln_blocks(M), 3 * HID, s));  // dgamma | dbeta | dbo
   MM_TRY(mm_wg_wgrad(attn, dacc_lp, wo_part, dwo, M, HID, HID, wo_splits, wo_per, s));
   MM_TRY(mm_wg_gemm(dacc_lp, wo, nullptr, da, M, HID, HID, wg::EPI_BF16, s));
-  MM_TRY(mm_attention_bwd(qkv, mask, da, dqkv, stats, B, L, H, scale, s));
+  MM_TRY(mm_attention_bwd(qkv, mask, da, dqkv, stats, B, L, H, HID / H, scale, s));
   MM_TRY(mm_wg_wgrad(x, dqkv, wqkv_part, dwqkv, M, HID, 3 * HID, wqkv_splits, wqkv_per, s));
   MM_TRY(colsum(dqkv, true, b_col, sums + 3 * HID, M, 3 * HID, s));  // dbqkv
   MM_TRY(mm_wg_gemm(dqkv, wqkv, dacc, dx, M, HID, 3 * HID, wg::EPI_RESID_BF16, s));

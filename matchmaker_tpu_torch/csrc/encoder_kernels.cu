@@ -65,36 +65,45 @@ using bf16 = __nv_bfloat16;
 // p = 0, key tiles past an example's last unmasked key are skipped; query
 // rows past L are not stored. Shared memory (Q, two K and two V tiles, the
 // mask row) does not grow with L.
-constexpr int HD = 64;          // head width
+// The head width HD is a template parameter, instanced for 16, 32 and 64
+// (launch_attention_core): the QK^T reduction takes HD / 16 k-steps of 16,
+// P.V HD / 8 n-tiles of 8, and the tiles' padded rows stay on distinct banks
+// for ldmatrix at each width (rows of 48, 80 and 144 bytes).
 constexpr int QT = 64;          // query rows a block
 constexpr int KT = 64;          // keys a tile
 constexpr int ATT_THREADS = 128;
 constexpr int MAX_KEYS = 512;
-constexpr int T_LD = HD + 8;    // bf16 tile rows of 144 bytes: ldmatrix rows on distinct banks
-constexpr int TILE = KT * T_LD;
+template <int HD>
+__host__ __device__ constexpr int t_ld() { return HD + 8; }  // padded bf16 tile rows: ldmatrix rows on distinct banks
+template <int HD>
+__host__ __device__ constexpr int tile_elems() { return KT * t_ld<HD>(); }
 
-// rows [r0, r0 + 64) of one head's 64 columns (rows ld apart) into a
-// [64][T_LD] tile; rows past L read as zero
+// rows [r0, r0 + 64) of one head's HD columns (rows ld apart) into a
+// [64][HD + 8] tile; rows past L read as zero
+template <int HD>
 __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* base, int ld, int r0, int L) {
-  for (int c = threadIdx.x; c < KT * HD / 8; c += ATT_THREADS) {
-    const int row = c >> 3, col = (c & 7) * 8;
+  constexpr int SHIFT = HD == 64 ? 3 : (HD == 32 ? 2 : 1);  // log2 of the 16-byte pieces a row
+  for (int c = threadIdx.x; c < (KT << SHIFT); c += ATT_THREADS) {
+    const int row = c >> SHIFT, col = (c & ((1 << SHIFT) - 1)) * 8;
     const bool ok = r0 + row < L;
-    cp_async16(dst + row * T_LD + col, base + (size_t)(ok ? r0 + row : 0) * ld + col, ok);
+    cp_async16(dst + row * t_ld<HD>() + col, base + (size_t)(ok ? r0 + row : 0) * ld + col, ok);
   }
 }
 
 // s (16 query rows x 64 keys of the warp) = Q K^T * scale + neg, fragment
 // [j][2i + e] at row lane/4 + 8i, key 8j + 2(lane%4) + e of the tile
-__device__ __forceinline__ void score_tile(float (&s)[8][4], const uint32_t (&fq)[4][4], const bf16* kt,
+template <int HD>
+__device__ __forceinline__ void score_tile(float (&s)[8][4], const uint32_t (&fq)[HD / 16][4], const bf16* kt,
                                            const float* neg, float scale, int lane) {
+  constexpr int LD = t_ld<HD>();
 #pragma unroll
   for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
-  for (int kb = 0; kb < 4; ++kb)
+  for (int kb = 0; kb < HD / 16; ++kb)
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
       uint32_t bb[4];
-      ldsm_x4(bb, kt + (16 * np + (lane & 7) + ((lane >> 4) << 3)) * T_LD + kb * 16 + ((lane >> 3) & 1) * 8);
+      ldsm_x4(bb, kt + (16 * np + (lane & 7) + ((lane >> 4) << 3)) * LD + kb * 16 + ((lane >> 3) & 1) * 8);
       mma16816(s[2 * np], fq[kb], bb[0], bb[1]);
       mma16816(s[2 * np + 1], fq[kb], bb[2], bb[3]);
     }
@@ -117,11 +126,13 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// four blocks an SM: 48 KB of shared memory and at most 128 registers a thread each
-template <typename OutT, bool ROUND_P>
+// four blocks an SM: at most 48 KB of shared memory (at HD = 64) and 128
+// registers a thread each
+template <typename OutT, bool ROUND_P, int HD>
 __global__ void __launch_bounds__(ATT_THREADS, 4)
     attention_core_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in, const bf16* __restrict__ v_in,
                           int ld, const float* __restrict__ mask, OutT* __restrict__ out, int L, int H, float scale) {
+  constexpr int T_LD = t_ld<HD>(), TILE = tile_elems<HD>();
   __shared__ __align__(128) bf16 Qs[TILE];
   __shared__ __align__(128) bf16 Kb[2 * TILE];
   __shared__ __align__(128) bf16 Vb[2 * TILE];
@@ -164,18 +175,18 @@ __global__ void __launch_bounds__(ATT_THREADS, 4)
     any_one |= live[ATT_THREADS / 32 + w];
   }
   if (any_one) tiles = (end + KT - 1) / KT;
-  stage_tile(Qs, qb, ld, q0, L);
-  stage_tile(Kb, kb, ld, 0, L);
+  stage_tile<HD>(Qs, qb, ld, q0, L);
+  stage_tile<HD>(Kb, kb, ld, 0, L);
   cp_async_commit();
 
   // pass 1: each row's max and sum of exponentials. m is the same in the
   // four lanes of a quad (they hold one row); l is this lane's share of the
   // sum until the quad adds its shares after the last tile.
-  uint32_t fq[4][4];
+  uint32_t fq[HD / 16][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
   for (int t = 0; t < tiles; ++t) {
     if (t + 1 < tiles) {
-      stage_tile(Kb + ((t + 1) & 1) * TILE, kb, ld, (t + 1) * KT, L);
+      stage_tile<HD>(Kb + ((t + 1) & 1) * TILE, kb, ld, (t + 1) * KT, L);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -184,9 +195,10 @@ __global__ void __launch_bounds__(ATT_THREADS, 4)
     __syncthreads();
     if (t == 0)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) ldsm_x4(fq[k], Qs + (warp * 16 + (lane & 15)) * T_LD + k * 16 + (lane >> 4) * 8);
+      for (int k = 0; k < HD / 16; ++k)
+        ldsm_x4(fq[k], Qs + (warp * 16 + (lane & 15)) * T_LD + k * 16 + (lane >> 4) * 8);
     float s[8][4];
-    score_tile(s, fq, Kb + (t & 1) * TILE, neg + t * KT, scale, lane);
+    score_tile<HD>(s, fq, Kb + (t & 1) * TILE, neg + t * KT, scale, lane);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float mx = m[i];
@@ -206,16 +218,16 @@ __global__ void __launch_bounds__(ATT_THREADS, 4)
   for (int i = 0; i < 2; ++i) den[i] = quad_sum(l[i]);
 
   // pass 2: O = P V
-  stage_tile(Kb, kb, ld, 0, L);
-  stage_tile(Vb, vb, ld, 0, L);
+  stage_tile<HD>(Kb, kb, ld, 0, L);
+  stage_tile<HD>(Vb, vb, ld, 0, L);
   cp_async_commit();
-  float o[8][4];
+  float o[HD / 8][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
   for (int t = 0; t < tiles; ++t) {
     if (t + 1 < tiles) {
-      stage_tile(Kb + ((t + 1) & 1) * TILE, kb, ld, (t + 1) * KT, L);
-      stage_tile(Vb + ((t + 1) & 1) * TILE, vb, ld, (t + 1) * KT, L);
+      stage_tile<HD>(Kb + ((t + 1) & 1) * TILE, kb, ld, (t + 1) * KT, L);
+      stage_tile<HD>(Vb + ((t + 1) & 1) * TILE, vb, ld, (t + 1) * KT, L);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -223,7 +235,7 @@ __global__ void __launch_bounds__(ATT_THREADS, 4)
     }
     __syncthreads();
     float s[8][4];
-    score_tile(s, fq, Kb + (t & 1) * TILE, neg + t * KT, scale, lane);
+    score_tile<HD>(s, fq, Kb + (t & 1) * TILE, neg + t * KT, scale, lane);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -245,7 +257,7 @@ __global__ void __launch_bounds__(ATT_THREADS, 4)
           r[e] = make_float2(r[e].x - __low2float(t), r[e].y - __high2float(t));  // exact
         }
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < HD / 16; ++np) {
         uint32_t bb[4];
         ldsm_x4_t(bb, vt + (16 * k + (lane & 7) + (((lane >> 3) & 1) << 3)) * T_LD + 16 * np + (lane >> 4) * 8);
 #pragma unroll
@@ -266,7 +278,7 @@ __global__ void __launch_bounds__(ATT_THREADS, 4)
     if (row >= L) continue;
     OutT* dst = out + ((size_t)b * L + row) * HID + h * HD + 2 * (lane & 3);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < HD / 8; ++j) {
       if constexpr (sizeof(OutT) == 4)
         *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(o[j][2 * i], o[j][2 * i + 1]);
       else
@@ -303,21 +315,35 @@ __global__ void __launch_bounds__(256) layernorm_kernel(const float* __restrict_
 
 template <typename OutT, bool ROUND_P>
 int launch_attention_core(const bf16* q, const bf16* k, const bf16* v, int ld, const void* mask, void* out, int B,
-                          int L, int H, float scale, void* stream) {
+                          int L, int H, int hd, float scale, void* stream) {
   if (B < 1 || H < 1 || L < 1 || L > MAX_KEYS) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((L + QT - 1) / QT, H, B);
-  attention_core_kernel<OutT, ROUND_P><<<grid, ATT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, ld, static_cast<const float*>(mask), static_cast<OutT*>(out), L, H, scale);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mask);
+  OutT* o = static_cast<OutT*>(out);
+  switch (hd) {
+    case 16:
+      attention_core_kernel<OutT, ROUND_P, 16><<<grid, ATT_THREADS, 0, s>>>(q, k, v, ld, m, o, L, H, scale);
+      break;
+    case 32:
+      attention_core_kernel<OutT, ROUND_P, 32><<<grid, ATT_THREADS, 0, s>>>(q, k, v, ld, m, o, L, H, scale);
+      break;
+    case 64:
+      attention_core_kernel<OutT, ROUND_P, 64><<<grid, ATT_THREADS, 0, s>>>(q, k, v, ld, m, o, L, H, scale);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // K1's packed QKV product output (B, L, 3*HID): Q, K, V side by side in a row
 template <typename OutT>
-int launch_packed_attention_core(const void* qkv, const void* mask, void* out, int B, int L, int H, float scale,
-                                 void* stream) {
+int launch_packed_attention_core(const void* qkv, const void* mask, void* out, int B, int L, int H, int hd,
+                                 float scale, void* stream) {
   const bf16* p = static_cast<const bf16*>(qkv);
-  const int hid = H * HD;
-  return launch_attention_core<OutT, false>(p, p + hid, p + 2 * hid, 3 * hid, mask, out, B, L, H, scale, stream);
+  const int hid = H * hd;
+  return launch_attention_core<OutT, false>(p, p + hid, p + 2 * hid, 3 * hid, mask, out, B, L, H, hd, scale, stream);
 }
 
 }  // namespace mm
@@ -352,24 +378,26 @@ int mm_wg_gemm_fwd(const void* A, const void* B, const void* bias, const void* r
   }
 }
 
-// out (B,L,H*64) bf16 = per-head softmax(QK^T*scale + mask) V from qkv (B,L,3*H*64).
-int mm_attention_core(const void* qkv, const void* mask, void* out, int B, int L, int H, float scale,
+// out (B,L,H*hd) bf16 = per-head softmax(QK^T*scale + mask) V from qkv
+// (B,L,3*H*hd); head width hd 16, 32 or 64.
+int mm_attention_core(const void* qkv, const void* mask, void* out, int B, int L, int H, int hd, float scale,
                       void* stream) {
-  return launch_packed_attention_core<bf16>(qkv, mask, out, B, L, H, scale, stream);
+  return launch_packed_attention_core<bf16>(qkv, mask, out, B, L, H, hd, scale, stream);
 }
 
-// The same with out (B,L,H*64) f32, P.V's f32 sums uncast (int8 attention half).
-int mm_attention_core_f32(const void* qkv, const void* mask, void* out, int B, int L, int H, float scale,
+// The same with out (B,L,H*hd) f32, P.V's f32 sums uncast (int8 attention half).
+int mm_attention_core_f32(const void* qkv, const void* mask, void* out, int B, int L, int H, int hd, float scale,
                           void* stream) {
-  return launch_packed_attention_core<float>(qkv, mask, out, B, L, H, scale, stream);
+  return launch_packed_attention_core<float>(qkv, mask, out, B, L, H, hd, scale, stream);
 }
 
-// K13: out (B,L,H*64) bf16 = per-head softmax(QK^T*scale + mask) V from
-// separate q, k, v (B,L,H*64) bf16, the probabilities rounded to bf16.
+// K13: out (B,L,H*hd) bf16 = per-head softmax(QK^T*scale + mask) V from
+// separate q, k, v (B,L,H*hd) bf16, the probabilities rounded to bf16.
 int mm_fused_mha(const void* q, const void* k, const void* v, const void* mask, void* out, int B, int L, int H,
-                 float scale, void* stream) {
+                 int hd, float scale, void* stream) {
   return launch_attention_core<bf16, true>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                                           static_cast<const bf16*>(v), H * HD, mask, out, B, L, H, scale, stream);
+                                           static_cast<const bf16*>(v), H * hd, mask, out, B, L, H, hd, scale,
+                                           stream);
 }
 
 // out (M,N) bf16 = LayerNorm(x (M,N) f32) * gamma + beta

@@ -13,11 +13,15 @@ stream ahead of the student's step (the host never waits for its scores).
 The teacher's config comes from the caller (``teacher_config``; the TAS-B
 recipe keeps each stage's config in process) or, when a user names a run
 folder, from its ``config.yaml`` (which needs PyYAML); its weights from the
-folder's ``best-model.npz``. A teacher without a packed ``forward_triple``
-(a cross-encoder, PreTTR, a chunk adapter) scores the positive and the
-negative pairs in two passes, as the training step does. A Hugging Face hub
-teacher (a config stub whose weights come from the local cache, heads
-included) is not ported yet (ROADMAP.md, queue 1 item 2).
+folder's ``best-model.npz``, else a JAX run's ``best-model.flax``. A
+Hugging Face hub name that ``config.resolve_hub_config`` knows
+(``configs/huggingface_modelhub/``) is a hub teacher: its config is the
+stub's, its encoder the checkpoint in the local Hugging Face cache (through
+``init_params``), and its heads keep their seed-0 init, as the JAX
+package's do (its ``init_params`` replaces only the encoder subtrees). A
+teacher without a packed ``forward_triple`` (a cross-encoder, PreTTR, a
+chunk adapter) scores the positive and the negative pairs in two passes,
+as the training step does.
 """
 
 from __future__ import annotations
@@ -31,22 +35,23 @@ from matchmaker_tpu_torch.config import Config, get_config_single, resolve_hub_c
 
 
 def load_teacher(teacher_path: str, overrides: Optional[dict] = None, config=None, device=None):
-    """(model, config, tokenizer) of a trained run: ``config`` the run's
-    config as the caller holds it, else read from ``teacher_path``'s
-    ``config.yaml``; the weights from ``teacher_path/best-model.npz`` when
-    it exists. The model sits on ``device`` (default: the config's
-    ``device``, else ``"cuda"``) in eval mode."""
+    """(model, config, tokenizer) of a trained run or a hub teacher:
+    ``config`` the run's (or the stub's) config as the caller holds it,
+    else read from ``teacher_path``'s ``config.yaml`` or its hub stub; the
+    weights from the run folder's snapshot when it has one (``.npz`` first,
+    else ``.flax``), a hub teacher's encoder from the local Hugging Face
+    cache. The model sits on ``device`` (default: the config's ``device``,
+    else ``"cuda"``) in eval mode."""
     from matchmaker_tpu_torch.data.tokenization import build_tokenizer
     from matchmaker_tpu_torch.models import get_model, init_params
-    from matchmaker_tpu_torch.training.checkpoints import BEST_MODEL, load_params
+    from matchmaker_tpu_torch.training.checkpoints import load_params, resolve_snapshot
 
     if config is not None:
         config = Config(dict(config))
     elif os.path.isdir(teacher_path):
         config = get_config_single(os.path.join(teacher_path, "config.yaml"))
     elif resolve_hub_config(teacher_path):
-        raise NotImplementedError(f"the hub teacher {teacher_path!r} (a config stub with the cached checkpoint's "
-                                  "heads) is not ported yet (ROADMAP.md, queue 1 item 2)")
+        config = get_config_single(teacher_path)  # the stub; the encoder from the local HF cache
     else:
         raise FileNotFoundError(f"teacher {teacher_path} is neither a run folder nor a known hub config")
     if overrides:
@@ -54,9 +59,13 @@ def load_teacher(teacher_path: str, overrides: Optional[dict] = None, config=Non
     tokenizer = build_tokenizer(config)
     model = get_model(config, tokenizer)
     init_params(model, config, torch.Generator().manual_seed(0))
-    ckpt = os.path.join(teacher_path, BEST_MODEL)
-    if os.path.exists(ckpt):
-        load_params(ckpt, model)
+    if os.path.isdir(teacher_path):
+        try:
+            snapshot = resolve_snapshot(teacher_path)
+        except FileNotFoundError:
+            snapshot = None
+        if snapshot is not None:
+            load_params(snapshot, model)
     model.to(torch.device(device or config.get("device", "cuda"))).eval()
     return model, config, tokenizer
 

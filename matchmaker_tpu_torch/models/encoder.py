@@ -19,10 +19,16 @@ parameters, kept until a parameter moves. The int8 halves are forward-only,
 so with autograd on an int8 flag is refused. Otherwise the layer follows the
 flax modules' dtype semantics in plain PyTorch, differentiated by autograd.
 
-No dropout is applied: like the JAX package's BERT_DOT training, every pass
-is deterministic (see ROADMAP.md §3); a non-deterministic pass with dropout
-> 0 warns on the fused layers, as the JAX package does, and is refused on the
-unfused ones, whose dropout is not ported.
+Dropout runs where the flax modules put it, on a pass with
+``deterministic=False`` (no entry point of either package trains so; every
+trainer pass is deterministic, see ROADMAP.md §3): after the embeddings'
+LayerNorm on every path; on the unfused layers also on the attention
+probabilities (flax's ``broadcast_dropout``: one keep mask over the (query,
+key) plane, shared by the batch and the heads) and on the MLP output before
+its residual. The fused halves apply none and warn once, as the JAX
+package's do. The keep masks come from an explicit ``torch.Generator`` (the
+``generator`` argument, else the module's own, seeded from
+``dropout_seed``); jax.random's bits are not reproduced, only their law.
 """
 
 from __future__ import annotations
@@ -49,6 +55,20 @@ from matchmaker_tpu_torch.ops.fused_int8 import (
 )
 
 _warned_fused_dropout = False
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator, shape=None) -> torch.Tensor:
+    """flax ``nn.Dropout``: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate) in x's dtype, the keep mask drawn from
+    ``generator``. ``shape``: the keep mask's shape, broadcast against x
+    (flax's ``broadcast_dropout`` of the attention probabilities, where the
+    multiplier keep / (1 - rate) is formed in x's dtype first)."""
+    keep_prob = 1.0 - rate
+    keep = torch.empty(shape if shape is not None else x.shape, device=x.device).bernoulli_(keep_prob,
+                                                                                           generator=generator)
+    if shape is not None:
+        return x * (keep.to(x.dtype) / torch.tensor(keep_prob, dtype=x.dtype, device=x.device))
+    return torch.where(keep.bool(), x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _warn_fused_dropout_noop():
@@ -220,17 +240,23 @@ class EncoderLayer(nn.Module):
         self._fused_cache = None
         self._int8_cache = None
 
-    def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
-        """x (B, L, HID); key_mask (B, L) f32, 1 = real token."""
+    def forward(self, x: torch.Tensor, key_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, L, HID); key_mask (B, L) f32, 1 = real token. ``generator``:
+        apply dropout from it (a non-deterministic pass; the fused halves
+        apply none)."""
         if self.cfg.fused_attention:
             return self._fused(x, key_mask)
         cfg, cd = self.cfg, self.compute_dtype
         ln_dtype = cd if cfg.norms_in_compute_dtype else None
-        x = self.attention_norm(x + self._attention(x, key_mask), cfg.layer_norm_eps, ln_dtype)
+        x = self.attention_norm(x + self._attention(x, key_mask, generator), cfg.layer_norm_eps, ln_dtype)
         h = self.mlp_out(F.gelu(self.mlp_in(x, cd)), cd)
+        if generator is not None:
+            h = dropout(h, cfg.dropout, generator)
         return self.mlp_norm(x + h, cfg.layer_norm_eps, ln_dtype)
 
-    def _attention(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+    def _attention(self, x: torch.Tensor, key_mask: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cd, a = self.compute_dtype, self.attention
         b, l, hid = x.shape
         h = self.cfg.num_heads
@@ -241,6 +267,8 @@ class EncoderLayer(nn.Module):
         s = torch.einsum("bqhd,bkhd->bhqk", q, k)
         s = torch.where(key_mask[:, None, None, :] > 0, s, torch.finfo(cd).min)
         p = torch.softmax(s, dim=-1).to(cd)
+        if generator is not None:
+            p = dropout(p, self.cfg.dropout, generator, shape=(1, 1, l, l))
         o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, l, hid)
         return a.out(o, cd)
 
@@ -326,11 +354,29 @@ class TransformerEncoderLM(nn.Module):
         self.embeddings_norm = LayerNorm(cfg.hidden_size)
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", EncoderLayer(cfg, compute_dtype))
+        # the keep masks of a non-deterministic pass given no generator
+        self.dropout_seed = 0
+        self._dropout_generator = None
+
+    def _dropout_rng(self, deterministic: bool, generator: Optional[torch.Generator],
+                     device: torch.device) -> Optional[torch.Generator]:
+        """The generator a pass draws its keep masks from, or None where it
+        applies no dropout (deterministic, or rate 0)."""
+        if deterministic or self.cfg.dropout <= 0:
+            return None
+        if generator is not None:
+            return generator
+        g = self._dropout_generator
+        if g is None or g.device != torch.device(device):
+            g = self._dropout_generator = torch.Generator(device=device).manual_seed(self.dropout_seed)
+        return g
 
     def embed(self, ids: torch.Tensor, type_ids: Optional[torch.Tensor] = None, skip_position: bool = False,
-              position_offset: int = 0) -> torch.Tensor:
-        """word (+ position, + type) embeddings → LayerNorm. ``position_offset``
-        shifts the position ids (PreTTR's document tower starts at the query
+              position_offset: int = 0, deterministic: bool = True,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """word (+ position, + type) embeddings → LayerNorm → dropout (a
+        non-deterministic pass, on every path). ``position_offset`` shifts
+        the position ids (PreTTR's document tower starts at the query
         length); ``skip_position`` leaves the position embeddings out."""
         cfg = self.cfg
         x = self.word_embeddings(ids)
@@ -342,30 +388,34 @@ class TransformerEncoderLM(nn.Module):
                 type_ids = torch.zeros_like(ids)
             x = x + self.token_type_embeddings(type_ids)
         ln_dtype = self.compute_dtype if cfg.norms_in_compute_dtype else None
-        return self.embeddings_norm(x, cfg.layer_norm_eps, ln_dtype)
+        x = self.embeddings_norm(x, cfg.layer_norm_eps, ln_dtype)
+        g = self._dropout_rng(deterministic, generator, ids.device)
+        return x if g is None else dropout(x, cfg.dropout, g)
 
-    def encode_layers(self, x: torch.Tensor, mask: torch.Tensor, start: int, end: int) -> torch.Tensor:
+    def encode_layers(self, x: torch.Tensor, mask: torch.Tensor, start: int, end: int, deterministic: bool = True,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Layers [start, end) on embedded inputs x (B, L, H); mask (B, L), >0
         = real token; f32 out. Each layer runs as in a full pass (the fused
         halves where configured), so PreTTR's towers and its join take the
         same kernels."""
+        g = self._dropout_rng(deterministic, generator, x.device)
+        if g is not None and self.cfg.fused_attention:
+            _warn_fused_dropout_noop()
         key_mask = (mask > 0).float()
         x = x.to(self.compute_dtype).contiguous()
         for i in range(start, end):
-            x = getattr(self, f"layer_{i}")(x, key_mask)
+            x = getattr(self, f"layer_{i}")(x, key_mask, g)
         return x.float()
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor, type_ids: Optional[torch.Tensor] = None,
                 deterministic: bool = True, num_layers: Optional[int] = None, skip_position: bool = False,
-                position_offset: int = 0) -> torch.Tensor:
+                position_offset: int = 0, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Final hidden states (B, L, H), f32; mask (B, L), >0 = real token;
         ``num_layers`` runs only the first N layers. ``deterministic=False``
-        asks for dropout, which the port does not apply: the fused layers warn
-        once (as the JAX package's do), the unfused ones raise."""
-        if not deterministic and self.cfg.dropout > 0:
-            if not self.cfg.fused_attention:
-                raise NotImplementedError(
-                    "dropout on the unfused encoder is not ported yet (ROADMAP.md, queue 1 item 2)")
-            _warn_fused_dropout_noop()
-        x = self.embed(ids, type_ids, skip_position, position_offset)
-        return self.encode_layers(x, mask, 0, self.cfg.num_layers if num_layers is None else num_layers)
+        applies dropout as the flax modules do (the fused layers apply none
+        and warn once), its keep masks drawn from ``generator`` (default: the
+        module's own)."""
+        g = self._dropout_rng(deterministic, generator, ids.device)
+        x = self.embed(ids, type_ids, skip_position, position_offset, deterministic, g)
+        return self.encode_layers(x, mask, 0, self.cfg.num_layers if num_layers is None else num_layers,
+                                  deterministic, g)

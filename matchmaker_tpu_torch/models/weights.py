@@ -97,6 +97,58 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     }
 
 
+def _flax_shape(path: str, arr: np.ndarray, heads: Dict[str, int]) -> np.ndarray:
+    """Undo :func:`_port_shape`: ``heads`` maps the path of each attention
+    module (an encoder layer's ``attention``, a ``self_attention``) to its
+    head count, which the 2-D port shapes no longer carry."""
+    parts = path.split("/")
+    owner = "/".join(parts[:-2])
+    if len(parts) >= 3 and parts[-3] in ("attention", "self_attention") and owner in heads:
+        h, (proj, leaf) = heads[owner], parts[-2:]
+        if parts[-3] == "self_attention":
+            if leaf == "bias":
+                return arr if proj == "out" else arr.reshape(h, -1)
+            if proj == "out":  # (D, h·d) → (h, d, D)
+                return arr.T.reshape(h, -1, arr.shape[0])
+            return arr.T.reshape(arr.shape[1], h, -1)  # (h·d, D) → (D, h, d)
+        if proj == "out":
+            return arr.reshape(h, -1, arr.shape[-1]) if leaf == "kernel" else arr
+        return arr.reshape(arr.shape[0], h, -1) if leaf == "kernel" else arr.reshape(h, -1)
+    if parts[-1] == "kernel" and arr.ndim == 3:  # a Conv's (out, in, n) → (n, in, out)
+        return arr.transpose(2, 1, 0)
+    return arr
+
+
+def state_dict_to_flax(model: nn.Module) -> Dict:
+    """The inverse of :func:`flax_to_state_dict`: the model's parameters as
+    the JAX package's nested param tree of f32 numpy arrays, at flax's
+    shapes (the attention kernels 3-D, the convolutions (n, in, out)), keys
+    sorted at every level as ``jax.device_get`` leaves a param tree."""
+    from matchmaker_tpu_torch.models.encoder import EncoderLayer
+    from matchmaker_tpu_torch.modules.transformer import SelfAttention
+
+    heads = {}
+    for name, module in model.named_modules():
+        path = name.replace(".", "/")
+        if isinstance(module, EncoderLayer):
+            heads[f"{path}/attention" if path else "attention"] = module.cfg.num_heads
+        elif isinstance(module, SelfAttention):
+            heads[path] = module.num_heads
+    tree: Dict = {}
+    for key, value in model.state_dict().items():
+        path = key.replace(".", "/")
+        node = tree
+        *parents, leaf = path.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(_flax_shape(path, value.detach().cpu().float().numpy(), heads))
+
+    def ordered(node):
+        return {k: ordered(node[k]) for k in sorted(node)} if isinstance(node, dict) else node
+
+    return ordered(tree)
+
+
 def save_npz(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:
     np.savez(path, **{k.replace(".", "/"): v.detach().cpu().float().numpy() for k, v in state_dict.items()})
 

@@ -57,9 +57,9 @@ LAUNCHES = {
 
 _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "mm_attention_core": [_p, _p, _p, _i, _i, _i, _f, _p],
-    "mm_attention_core_f32": [_p, _p, _p, _i, _i, _i, _f, _p],
-    "mm_fused_mha": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _p],
+    "mm_attention_core": [_p, _p, _p, _i, _i, _i, _i, _f, _p],
+    "mm_attention_core_f32": [_p, _p, _p, _i, _i, _i, _i, _f, _p],
+    "mm_fused_mha": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _p],
     "mm_maxsim": [_p] * 7 + [_i] * 6 + [_f, _p],
     "mm_maxsim_argmax": [_p] * 6 + [_i] * 5 + [_f, _p],
     "mm_maxsim_bwd": [_p] * 8 + [_i] * 5 + [_p],
@@ -76,7 +76,7 @@ _SIGNATURES = {
     "mm_wg_gemm_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _p],
     "mm_wg_gemm_dz": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
     "mm_wg_wgrad": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
-    "mm_attention_bwd": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _p],
+    "mm_attention_bwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _p],
     "mm_attention_block_bwd": [_p] * 14 + [_i, _i, _i, _i, _f, _f, _i, _i, _i, _i, _p],
     "mm_mlp_block_bwd": [_p] * 13 + [_i, _i, _i, _f, _i, _i, _i, _i, _p],
     "mm_probe_attn_inner": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _i, _p],

@@ -37,8 +37,17 @@ from matchmaker_tpu_torch.ops import _build, matmul_f32
 
 # The forward epilogues of the wgmma GEMM (csrc/wgmma_gemm.cuh, wg::Epilogue)
 _EPI_BIAS_BF16, _EPI_BIAS_GELU_BF16, _EPI_BIAS_RESID_F32 = 4, 5, 6
-_KERNEL_HEAD_DIM = 64
+# the head widths the attention core is instanced for (csrc/encoder_kernels.cu)
+_KERNEL_HEAD_DIMS = (16, 32, 64)
 _KERNEL_MAX_LEN = 512
+
+
+def kernel_head_dim(name: str, hid: int, n_heads: int) -> int:
+    """The head width of ``hid`` split into ``n_heads``, or ValueError unless
+    the card's attention cores (K1, K10, K12, K13) are instanced for it."""
+    if n_heads <= 0 or hid % n_heads or hid // n_heads not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: the CUDA kernel takes head widths {_KERNEL_HEAD_DIMS}, got {hid}/{n_heads}")
+    return hid // n_heads
 
 
 def _erf_poly(z: torch.Tensor) -> torch.Tensor:
@@ -158,9 +167,7 @@ def _attention_block_cuda(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bia
     sums and the bf16 QKV projections and attention output the backward
     (K12) reads instead of recomputing them."""
     b, l, hid = x.shape
-    if hid % n_heads or hid // n_heads != _KERNEL_HEAD_DIM:
-        raise ValueError(f"fused_attention_block: the CUDA kernel takes head width "
-                         f"{_KERNEL_HEAD_DIM}, got {hid}/{n_heads}")
+    d = kernel_head_dim("fused_attention_block", hid, n_heads)
     if not 1 <= l <= _KERNEL_MAX_LEN:
         raise ValueError(f"fused_attention_block: the CUDA kernel takes 1 <= L <= {_KERNEL_MAX_LEN}, got {l}")
     _check_gemm_dims("fused_attention_block", hid, hid)
@@ -172,7 +179,7 @@ def _attention_block_cuda(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bia
         _gemm(x, wqkv, _f32(bqkv), qkv, _EPI_BIAS_BF16)
         attn = torch.empty((b, l, hid), dtype=bf16, device=x.device)
         _build.call("mm_attention_core", _build.ptr(qkv), _build.ptr(_f32(mask)), _build.ptr(attn),
-                    b, l, n_heads, 1.0 / _KERNEL_HEAD_DIM ** 0.5, _build.stream(x.device))
+                    b, l, n_heads, d, 1.0 / d ** 0.5, _build.stream(x.device))
         acc = torch.empty((b, l, hid), dtype=torch.float32, device=x.device)
         _gemm(attn, wo, _f32(bo), acc, _EPI_BIAS_RESID_F32, resid=x)
         out = torch.empty_like(x)
@@ -215,7 +222,7 @@ def fused_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, mask, n_heads,
                           ln_scale, ln_bias, ln_eps: float = 1e-12, save_acc: bool = False):
     """LN(x + OutProj(MHA(QKV-proj(x)))): x (B, L, HID); wq/wk/wv/wo (HID, HID)
     in x's dtype; biases and LN params (HID,); mask (B, L), 1 = real key.
-    CUDA tensors: bf16, head width 64, 1 <= L <= 512. ``save_acc``: return
+    CUDA tensors: bf16, head width 16, 32 or 64, 1 <= L <= 512. ``save_acc``: return
     (out, acc) with acc the f32 pre-LN sum (B, L, HID)."""
     if not x.is_cuda:
         return reference_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, mask, n_heads,
@@ -264,8 +271,7 @@ def _mha_cuda(q, k, v, mask, n_heads):
     row stride H·D, the normalised probabilities rounded to bf16 (csrc
     mm_fused_mha)."""
     b, l, hd = q.shape
-    if hd % n_heads or hd // n_heads != _KERNEL_HEAD_DIM:
-        raise ValueError(f"fused_mha: the CUDA kernel takes head width {_KERNEL_HEAD_DIM}, got {hd}/{n_heads}")
+    d = kernel_head_dim("fused_mha", hd, n_heads)
     if not 1 <= l <= _KERNEL_MAX_LEN:
         raise ValueError(f"fused_mha: the CUDA kernel takes 1 <= L <= {_KERNEL_MAX_LEN}, got {l}")
     if k.shape != q.shape or v.shape != q.shape or tuple(mask.shape) != (b, l):
@@ -277,7 +283,7 @@ def _mha_cuda(q, k, v, mask, n_heads):
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
         _build.call("mm_fused_mha", _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask), _build.ptr(out),
-                    b, l, n_heads, 1.0 / _KERNEL_HEAD_DIM ** 0.5, _build.stream(q.device))
+                    b, l, n_heads, d, 1.0 / d ** 0.5, _build.stream(q.device))
     _build.LAUNCHES["fused_mha"] += 1
     return out
 
@@ -285,7 +291,7 @@ def _mha_cuda(q, k, v, mask, n_heads):
 def fused_mha(q, k, v, mask, n_heads):
     """Multi-head self-attention, forward only: q, k, v (B, L, H·D), mask
     (B, L) with 1 = real key; output (B, L, H·D) in q's dtype. CUDA tensors:
-    bf16, head width 64, 1 <= L <= 512."""
+    bf16, head width 16, 32 or 64, 1 <= L <= 512."""
     if not q.is_cuda:
         return mha_reference(q, k, v, mask, n_heads)
     return _mha_cuda(q, k, v, mask, n_heads)

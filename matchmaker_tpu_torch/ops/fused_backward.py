@@ -232,10 +232,11 @@ def _attention_core_bwd_cuda(qkv, mask, da, n_heads):
     dqkv (B, L, 3·HID) bf16 from the forward's qkv and the output gradient
     da."""
     b, l, hid = da.shape
+    d = hid // n_heads
     dqkv = torch.empty((b, l, 3 * hid), dtype=torch.bfloat16, device=da.device)
     stats = torch.empty((3, b, n_heads, l), dtype=torch.float32, device=da.device)
     _build.call("mm_attention_bwd", _build.ptr(qkv), _build.ptr(fa._f32(mask)), _build.ptr(da), _build.ptr(dqkv),
-                _build.ptr(stats), b, l, n_heads, 1.0 / fa._KERNEL_HEAD_DIM ** 0.5, _build.stream(da.device))
+                _build.ptr(stats), b, l, n_heads, d, 1.0 / d ** 0.5, _build.stream(da.device))
     return dqkv
 
 
@@ -243,12 +244,12 @@ def attention_core_bwd(qkv, mask, da, n_heads):
     """Backward of the attention core alone (part of K12): qkv (B, L, 3·HID)
     packed Q/K/V, mask (B, L) and da the output gradient (B, L, HID) → dqkv
     (B, L, 3·HID) in qkv's dtype. On a CUDA tensor the kernel (bf16, head
-    width 64, 1 <= L <= 512); on a CPU tensor the plain version."""
+    width 16, 32 or 64, 1 <= L <= 512); on a CPU tensor the plain version."""
     b, l, hid = da.shape
     if qkv.is_cuda:
-        if hid % n_heads or hid // n_heads != fa._KERNEL_HEAD_DIM or not 1 <= l <= fa._KERNEL_MAX_LEN:
-            raise ValueError(f"attention_core_bwd: the CUDA kernel takes head width {fa._KERNEL_HEAD_DIM} and "
-                             f"1 <= L <= {fa._KERNEL_MAX_LEN}, got {hid}/{n_heads}, L={l}")
+        fa.kernel_head_dim("attention_core_bwd", hid, n_heads)
+        if not 1 <= l <= fa._KERNEL_MAX_LEN:
+            raise ValueError(f"attention_core_bwd: the CUDA kernel takes 1 <= L <= {fa._KERNEL_MAX_LEN}, got L={l}")
         for name, t in (("qkv", qkv), ("da", da)):
             _build.check_cuda(t, f"attention_core_bwd.{name}", torch.bfloat16)
         with torch.cuda.device(qkv.device):
@@ -304,9 +305,10 @@ def _attention_block_bwd_cuda(x, wqkv, wo, mask, n_heads, ln_scale, dy, saved, l
     weights are."""
     acc, qkv, attn = saved
     b, l, hid = x.shape
-    if hid % n_heads or hid // n_heads != fa._KERNEL_HEAD_DIM or not 1 <= l <= fa._KERNEL_MAX_LEN:
-        raise ValueError(f"fused_attention_block_bwd: the CUDA kernel takes head width {fa._KERNEL_HEAD_DIM} "
-                         f"and 1 <= L <= {fa._KERNEL_MAX_LEN}, got {hid}/{n_heads}, L={l}")
+    d = fa.kernel_head_dim("fused_attention_block_bwd", hid, n_heads)
+    if not 1 <= l <= fa._KERNEL_MAX_LEN:
+        raise ValueError(f"fused_attention_block_bwd: the CUDA kernel takes 1 <= L <= {fa._KERNEL_MAX_LEN}, "
+                         f"got L={l}")
     fa._check_gemm_dims("fused_attention_block_bwd", hid, hid)
     _check_bwd("fused_attention_block_bwd", x, dy, (("wqkv", wqkv), ("wo", wo)))
     m = b * l
@@ -323,7 +325,7 @@ def _attention_block_bwd_cuda(x, wqkv, wo, mask, n_heads, ln_scale, dy, saved, l
                     _build.ptr(fa._f32(mask)), _build.ptr(fa._f32(ln_scale)), _build.ptr(dy), _build.ptr(acc),
                     _build.ptr(qkv), _build.ptr(attn), _build.ptr(dx), _build.ptr(dwqkv), _build.ptr(dwo),
                     _build.ptr(sums), _build.ptr(scratch), b, l, n_heads, hid, ln_eps,
-                    1.0 / fa._KERNEL_HEAD_DIM ** 0.5, *wo_plan, *wqkv_plan, _build.stream(dev))
+                    1.0 / d ** 0.5, *wo_plan, *wqkv_plan, _build.stream(dev))
     _build.LAUNCHES["fused_attention_block_bwd"] += 1
     dg, dbe, dbo, dbqkv = sums.split((hid, hid, hid, 3 * hid))
     return dx, dwqkv, dbqkv, dwo, dbo, dg, dbe

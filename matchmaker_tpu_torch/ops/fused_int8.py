@@ -23,7 +23,7 @@ and scales are the kernel's bit for bit.
 
 On a CUDA tensor each half runs the hand-written kernels of
 ``csrc/encoder_int8_kernels.cu`` (bf16 x, int8 codes, f32 scales and
-biases; head width 64): int8 ``wgmma`` products fed by TMA, which take both
+biases; head width 16, 32 or 64): int8 ``wgmma`` products fed by TMA, which take both
 operands K-major, so the weights' codes go in transposed, (OUT, IN).
 :func:`fused_mlp_int8_block_kmajor` and
 :func:`fused_attention_int8_block_qkv_kmajor` take them so (the encoder
@@ -45,11 +45,10 @@ from typing import Tuple
 import torch
 
 from matchmaker_tpu_torch.ops import _build, matmul_codes, matmul_f32, over_127
-from matchmaker_tpu_torch.ops.fused_attention import _ERF_FASTPOLY, _f32, _layer_norm_f32
+from matchmaker_tpu_torch.ops.fused_attention import _ERF_FASTPOLY, _f32, _layer_norm_f32, kernel_head_dim
 
 # Epilogues of mm_wg_gemm_s8 (csrc/encoder_int8_kernels.cu)
 _EPI_S8_BIAS_BF16, _EPI_S8_CHUNKS_RESID_F32 = 0, 1
-_KERNEL_HEAD_DIM = 64
 _KERNEL_MAX_LEN = 512
 _CHUNK_STEP = 64  # a K chunk of the card's products: whole 64-code steps
 
@@ -194,18 +193,19 @@ def check_mlp_int8_geometry(hid: int, ff: int, ff_chunks: int) -> None:
 
 def check_attention_int8_geometry(hid: int, n_heads: int, group_heads: int, length: int) -> None:
     """Raise ValueError, with the reason, unless the card path of
-    :func:`fused_attention_int8_block` takes this layer: head width 64
-    (K1's attention core), whole groups of heads, 1 <= L <= 512, and the Wo
-    product over HID in chunks of one head group."""
+    :func:`fused_attention_int8_block` takes this layer: head width 16, 32
+    or 64 (K1's attention core), whole groups of heads, 1 <= L <= 512, and
+    the Wo product over HID in chunks of one head group (whole 64-code
+    steps: two heads of 32, four of 16)."""
     name = "fused_attention_int8_block"
-    if n_heads <= 0 or group_heads <= 0 or hid % n_heads or hid // n_heads != _KERNEL_HEAD_DIM \
-            or n_heads % group_heads:
-        raise ValueError(f"{name}: the CUDA kernel takes head width {_KERNEL_HEAD_DIM} and whole head groups, "
-                         f"got {hid}/{n_heads}, group_heads={group_heads}")
+    d = kernel_head_dim(name, hid, n_heads)
+    if group_heads <= 0 or n_heads % group_heads:
+        raise ValueError(f"{name}: the CUDA kernel takes whole head groups, got {n_heads} heads, "
+                         f"group_heads={group_heads}")
     if not 1 <= length <= _KERNEL_MAX_LEN:
         raise ValueError(f"{name}: the CUDA kernel takes 1 <= L <= {_KERNEL_MAX_LEN}, got {length}")
     _check_chunked_dims(name, hid, 3 * hid, hid)
-    _check_chunked_dims(name, hid, hid, group_heads * _KERNEL_HEAD_DIM)
+    _check_chunked_dims(name, hid, hid, group_heads * d)
 
 
 def _check_int8_weights(name: str, **weights) -> None:
@@ -260,7 +260,8 @@ def _attention_int8_cuda(x, wqkv_t, sqkv, bqkv, wo_t, so, bo, mask, n_heads, ln_
     check_attention_int8_geometry(hid, n_heads, group_heads, l)
     _check_kmajor(name, "wqkv_t", wqkv_t, 3 * hid, hid)
     _check_kmajor(name, "wo_t", wo_t, hid, hid)
-    gw = group_heads * _KERNEL_HEAD_DIM
+    d = hid // n_heads
+    gw = group_heads * d
     _build.check_cuda(x, f"{name}.x", torch.bfloat16)
     _check_int8_weights(name, wqkv_t=wqkv_t, wo_t=wo_t)
     sqkv, bqkv, so, bo, mask, ln_scale, ln_bias = _f32_on_card(name, sqkv, bqkv, so, bo, mask, ln_scale, ln_bias)
@@ -271,7 +272,7 @@ def _attention_int8_cuda(x, wqkv_t, sqkv, bqkv, wo_t, so, bo, mask, n_heads, ln_
         _gemm_s8(xq, wqkv_t, rs, sqkv, bqkv, qkv, _EPI_S8_BIAS_BF16, hid)
         attn = torch.empty((m, hid), dtype=torch.float32, device=x.device)
         _build.call("mm_attention_core_f32", _build.ptr(qkv), _build.ptr(mask), _build.ptr(attn),
-                    b, l, n_heads, 1.0 / _KERNEL_HEAD_DIM ** 0.5, _build.stream(x.device))
+                    b, l, n_heads, d, 1.0 / d ** 0.5, _build.stream(x.device))
         aq, as_ = _quant_groups_cuda(attn, n_heads // group_heads)
         acc = torch.empty((m, hid), dtype=torch.float32, device=x.device)
         _gemm_s8(aq, wo_t, as_, so, bo, acc, _EPI_S8_CHUNKS_RESID_F32, gw, resid=x)
@@ -323,7 +324,7 @@ def fused_attention_int8_block(x, wqq, sq, wkq, sk, wvq, sv, woq, so, bq, bk, bv
     """LN(x + OutProj(MHA(QKV-proj(x)))) with int8 projections: x (B, L,
     HID); wqq/wkq/wvq/woq (HID, HID) int8 with (HID,) f32 column scales;
     biases and LN parameters (HID,); mask (B, L), 1 = real key. CUDA
-    tensors: x bf16, head width 64, 1 <= L <= 512."""
+    tensors: x bf16, head width 16, 32 or 64, 1 <= L <= 512."""
     if not x.is_cuda:
         return reference_attention_int8_block(x, wqq, sq, wkq, sk, wvq, sv, woq, so, bq, bk, bv, bo, mask,
                                               n_heads, ln_scale, ln_bias, ln_eps, group_heads)

@@ -18,7 +18,16 @@ labels "embedding", "encoder" and "head". Here the same update, step for step:
   as optax sees it, so it is decayed and its step count kept with the
   others' (``torch.optim.AdamW`` skips a parameter without a gradient);
 - clipping scales every gradient by ``max/norm`` when ``norm > max``
-  (optax's formula, not ``clip_grad_norm_``'s ``max/(norm + 1e-6)``).
+  (optax's formula, not ``clip_grad_norm_``'s ``max/(norm + 1e-6)``);
+- ``gradient_accumulation_steps: k > 1`` is ``optax.MultiSteps(chain,
+  every_k_schedule=k)``: each ``step()`` is a micro-step that folds the
+  gradients into their running mean (Welford's update, optax's
+  ``use_grad_mean``: acc += (g - acc) / (n + 1)) and leaves the parameters
+  as they are; the k-th clips that mean by its global norm and applies the
+  AdamW update, the only step that advances the schedule's count and
+  AdamW's own, then starts a new mean. ``state_dict`` keeps the mean and
+  the micro-step index, so a run resumed mid-accumulation goes on as if it
+  had never stopped.
 """
 
 from __future__ import annotations
@@ -89,13 +98,42 @@ class Optimizer:
         self.adamw = torch.optim.AdamW(groups, betas=(config.get("adam_beta1", 0.9), config.get("adam_beta2", 0.999)),
                                        eps=config.get("adam_eps", 1e-8))
         self.count = 0
+        self.accumulate = max(1, int(config.get("gradient_accumulation_steps", 0) or 0))
+        self.mini_step = 0  # micro-steps folded into acc since the last update
+        self.acc = None  # the running mean of the micro-steps' gradients, one f32 tensor a parameter
 
     def global_norm(self) -> torch.Tensor:
         """sqrt of the sum of squares of every gradient (optax.global_norm)."""
         return torch.sqrt(sum((p.grad.float() ** 2).sum() for p in self.params if p.grad is not None))
 
     @torch.no_grad()
-    def step(self, grad_norm: torch.Tensor = None) -> None:
+    def step(self, grad_norm: torch.Tensor = None) -> bool:
+        """One update from the parameters' ``.grad`` (``grad_norm``: their
+        global norm, if the caller has it); with accumulation one micro-step,
+        which updates only every k-th time. True if the parameters moved."""
+        if self.accumulate == 1:
+            self._update(grad_norm)
+            return True
+        if self.acc is None:
+            self.acc = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        n = self.mini_step
+        for p, acc in zip(self.params, self.acc):
+            if p.grad is not None:
+                acc.add_((p.grad.float() - acc) / (n + 1))
+            else:
+                acc.sub_(acc / (n + 1))
+        self.mini_step += 1
+        if self.mini_step < self.accumulate:
+            return False
+        for p, acc in zip(self.params, self.acc):
+            p.grad = acc.to(p.dtype, copy=True)
+        self._update(None)  # clipped by the mean's norm
+        for acc in self.acc:
+            acc.zero_()
+        self.mini_step = 0
+        return True
+
+    def _update(self, grad_norm: torch.Tensor = None) -> None:
         if self.clip:
             norm = self.global_norm() if grad_norm is None else grad_norm
             factor = torch.where(norm < self.clip, torch.ones_like(norm), self.clip / norm)
@@ -114,15 +152,21 @@ class Optimizer:
         self.adamw.zero_grad(set_to_none=True)
 
     def state_dict(self) -> dict:
-        return {"adamw": self.adamw.state_dict(), "count": self.count}
+        state = {"adamw": self.adamw.state_dict(), "count": self.count}
+        if self.accumulate > 1:
+            state["mini_step"] = self.mini_step
+            state["acc"] = [a.clone() for a in self.acc] if self.acc is not None else None
+        return state
 
     def load_state_dict(self, state: dict) -> None:
         self.adamw.load_state_dict(state["adamw"])
         self.count = int(state["count"])
+        if self.accumulate > 1:
+            self.mini_step = int(state.get("mini_step", 0))
+            acc = state.get("acc")
+            self.acc = None if acc is None else [a.to(p.device, torch.float32).clone()
+                                                 for a, p in zip(acc, self.params)]
 
 
 def build_optimizer(config, model: torch.nn.Module) -> Optimizer:
-    accum = config.get("gradient_accumulation_steps", 0)
-    if accum and accum > 1:
-        raise NotImplementedError("gradient_accumulation_steps > 1 is not ported yet (ROADMAP.md, queue 1 item 7)")
     return Optimizer(model.named_parameters(), config)

@@ -35,9 +35,16 @@ train-state snapshots keep them, and ``flax_to_state_dict`` maps a JAX
 param tree holding them onto the model. The QA answers of a validation or
 test set with ``qa_answers`` are evaluated by ``evaluation.qa_evaluate``.
 
+``warmstart_model_path`` and ``warmstart_encoder_path`` take the port's
+``.npz``, a JAX run's ``best-model.flax``, or a run folder holding either
+(training/checkpoints.py). With ``gradient_accumulation_steps: k > 1``
+every batch is one micro-step (``global_step``, the validation cadence and
+the loss CSV count micro-steps, as in the JAX trainer) and the parameters
+move on every k-th (training/optim.py); a batch skipped for running out of
+device memory is left out of the mean.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP.md item: a JAX checkpoint (``.flax``) as ``warmstart_model_path``
-and multi-process launches.
+ROADMAP.md item: multi-process launches.
 """
 
 from __future__ import annotations
@@ -75,9 +82,6 @@ _CACHE_KEYS = ("_cache_pos_passage_scores", "_cache_neg_passage_scores")
 
 
 def _refuse_unported(config) -> None:
-    if str(config.get("warmstart_model_path") or "").endswith(".flax"):
-        raise NotImplementedError("warmstart_model_path: reading a JAX checkpoint (.flax) is not ported yet; the "
-                                  "port loads its own .npz snapshots (ROADMAP.md, queue 1 item 2)")
     # the JAX package's multi-process launch (parallel/multihost.py)
     if os.environ.get("MATCHMAKER_COORDINATOR") or os.environ.get("MATCHMAKER_MULTIHOST"):
         raise NotImplementedError("multi-process training is not ported yet (ROADMAP.md, queue 1 item 11)")

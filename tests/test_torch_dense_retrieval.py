@@ -189,6 +189,24 @@ def test_missing_trained_model_raises(runs, tmp_path):
         torch_run("search", config, runs["torch"])
 
 
+def test_slice_serves_a_jax_run_folder(runs, tmp_path):
+    """``trained_model`` naming a JAX run folder (its ``best-model.flax``
+    alone) serves the JAX weights: the encoded vectors and the ranking equal
+    bit for bit those of the ``.npz`` of the same parameters, so they match
+    the JAX run's as the slice's do."""
+    root = os.path.dirname(runs["torch"])
+    jax_model = str(tmp_path / "jax_model")
+    os.makedirs(jax_model)
+    shutil.copy(os.path.join(root, "model", "best-model.flax"), jax_model)
+    folder = str(tmp_path / "served")
+    os.makedirs(folder)
+    assert torch_run("encode+index+search", dict(_config(root), trained_model=jax_model), folder) == 0
+    vf, jf = load_encoded(os.path.join(folder, "encoded"))
+    vt, jt = load_encoded(os.path.join(runs["torch"], "encoded"))
+    assert (jf == jt).all() and np.array_equal(vf, vt)
+    assert _ranking(os.path.join(folder, "dev-output.txt")) == _ranking(os.path.join(runs["torch"], "dev-output.txt"))
+
+
 # ---- the other index kinds through both CLIs -----------------------------------
 
 # IVF probing every list (exact, so the packages' independent k-means give the

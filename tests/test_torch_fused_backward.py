@@ -223,17 +223,29 @@ def test_fused_encoder_training_grads_match_jax(jax_fused, monkeypatch):
 
 
 def test_encoder_dropout_request_warns_or_raises():
-    """No dropout is ported: a non-deterministic pass warns once on the
-    fused layers (as the JAX package does) and raises on the unfused ones."""
+    """A non-deterministic pass warns once on the fused layers (as the JAX
+    package does: their halves apply no dropout) and applies dropout on the
+    unfused ones, from the generator it is given; with rate 0 it is the
+    deterministic pass."""
     import matchmaker_tpu_torch.models.encoder as enc
 
     ids, mask = torch.ones(2, 5, dtype=torch.long), torch.ones(2, 5)
     enc._warned_fused_dropout = False
     with pytest.warns(UserWarning, match="dropout is a NO-OP"):
         TransformerEncoderLM(EncoderConfig.tiny(fused_attention=True))(ids, mask, deterministic=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerEncoderLM(EncoderConfig.tiny())(ids, mask, deterministic=False)
-    TransformerEncoderLM(EncoderConfig.tiny(dropout=0.0))(ids, mask, deterministic=False)
+    torch.manual_seed(0)
+    tm = TransformerEncoderLM(EncoderConfig.tiny())
+    for p in tm.parameters():
+        torch.nn.init.normal_(p, std=0.2)
+    with torch.no_grad():
+        base = tm(ids, mask)
+        dropped = [tm(ids, mask, deterministic=False, generator=torch.Generator().manual_seed(s)) for s in (1, 1, 2)]
+    assert not torch.equal(dropped[0], base) and torch.equal(dropped[0], dropped[1])
+    assert not torch.equal(dropped[0], dropped[2])
+    tm0 = TransformerEncoderLM(EncoderConfig.tiny(dropout=0.0))
+    tm0.load_state_dict(tm.state_dict())
+    with torch.no_grad():
+        assert torch.equal(tm0(ids, mask, deterministic=False), base)
 
 
 # weight gradients of one layer: (name, I, J); rows of the four backward shapes

@@ -305,7 +305,11 @@ def _seed_mlp_rule(hid, ff, ff_chunks):
 
 
 def _seed_attention_rule(hid, n_heads, group_heads, length):
-    return (hid % n_heads == 0 and hid // n_heads == 64 and n_heads % group_heads == 0
+    """The earlier card path's rule (head width 64), widened to the head
+    widths 16 and 32 the attention core is now instanced for, where a head
+    group's Wo chunk must still be whole 64-code steps."""
+    d = hid // n_heads if hid % n_heads == 0 else 0
+    return (d in (16, 32, 64) and n_heads % group_heads == 0 and (group_heads * d) % 64 == 0
             and 1 <= length <= 512 and hid % 64 == 0)
 
 
@@ -358,7 +362,12 @@ def test_attention_int8_card_geometry_accepts_what_the_earlier_kernels_took():
     (tf.check_mlp_int8_geometry, (96, 384, 4), "chunk % 64"),
     (tf.check_attention_int8_geometry, (768, 12, 2, 128), None),
     (tf.check_attention_int8_geometry, (768, 12, 1, 1), None),  # Wo chunks of one head: 64 codes
-    (tf.check_attention_int8_geometry, (768, 24, 2, 128), "head width 64"),
+    (tf.check_attention_int8_geometry, (768, 24, 2, 128), None),  # heads of 32: Wo chunks of 64 codes
+    (tf.check_attention_int8_geometry, (384, 12, 2, 230), None),  # MiniLM-L6: 12 heads of 32
+    (tf.check_attention_int8_geometry, (256, 16, 4, 128), None),  # heads of 16, four a group
+    (tf.check_attention_int8_geometry, (384, 12, 1, 128), "chunk % 64"),  # one head of 32 a group
+    (tf.check_attention_int8_geometry, (312, 12, 2, 128), "head widths"),  # TinyBERT: heads of 26
+    (tf.check_attention_int8_geometry, (768, 6, 2, 128), "head widths"),  # heads of 128
     (tf.check_attention_int8_geometry, (768, 12, 5, 128), "whole head groups"),
     (tf.check_attention_int8_geometry, (768, 12, 0, 128), "whole head groups"),
     (tf.check_attention_int8_geometry, (768, 12, 2, 513), "L <= 512"),

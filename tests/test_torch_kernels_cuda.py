@@ -1241,6 +1241,108 @@ def test_fused_mha_kernel_matches_plain(device, b, l):
     assert cos >= 0.999 and err <= 0.1, (cos, err)
 
 
+# The attention cores at head widths 16 and 32 (K1, K13, K10 forward; K12
+# backward), beside the 64-wide instances above: hidden 384 as MiniLM-L6
+# (12 heads of 32) and 24 heads of 16 at the same width, FF 1,536.
+HEAD_WIDTHS = [(384, 12), (384, 24)]
+HEAD_WIDTH_SHAPES = [(16, 230), (3, 77), (2, 1), (1, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,heads", HEAD_WIDTHS)
+@pytest.mark.parametrize("b,l", HEAD_WIDTH_SHAPES)
+def test_attention_and_mlp_halves_at_head_widths_16_and_32(device, hid, heads, b, l):
+    """K1 and K2 at hidden 384 against their plain versions, the encoder
+    halves' bar (row cosine >= 0.999, max |d| <= 0.1)."""
+    attn, mlp = _layer_weights(hid, 4 * hid, device, seed=b * 1000 + l + heads)
+    x = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    mask = torch.ones(b, l, device=device)
+    mask[0, l // 2 + 1:] = 0.0
+    args = (attn["wq"], attn["wk"], attn["wv"], attn["wo"], attn["bq"], attn["bk"], attn["bv"],
+            attn["bo"], mask, heads, attn["ln_scale"], attn["ln_bias"])
+    margs = (mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"], mlp["ln_scale"], mlp["ln_bias"])
+    _build.reset_launches()
+    for got, want in ((fa.fused_attention_block(x, *args), fa.reference_attention_block(x, *args)),
+                      (fa.fused_mlp_block(x, *margs), fa.reference_mlp_block(x, *margs))):
+        torch.cuda.synchronize()
+        cos, err = _rows_close(got, want)
+        assert cos >= 0.999 and err <= 0.1, (cos, err)
+    assert _build.LAUNCHES["fused_attention_block"] == _build.LAUNCHES["fused_mlp_block"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,heads", HEAD_WIDTHS)
+@pytest.mark.parametrize("b,l", HEAD_WIDTH_SHAPES)
+def test_fused_mha_kernel_at_head_widths_16_and_32(device, hid, heads, b, l):
+    g = torch.Generator(device=device).manual_seed(b + l + heads)
+    q, k, v = (torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones(b, l, device=device)
+    mask[0, l // 2 + 1:] = 0.0
+    _build.reset_launches()
+    got = fa.fused_mha(q, k, v, mask, heads)
+    want = fa.mha_reference(q, k, v, mask, heads)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_mha"] == 1
+    cos, err = _rows_close(got, want)
+    assert cos >= 0.999 and err <= 0.1, (cos, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,heads", HEAD_WIDTHS)
+@pytest.mark.parametrize("b,l", HEAD_WIDTH_SHAPES)
+def test_attention_block_bwd_kernel_at_head_widths_16_and_32(device, hid, heads, b, l):
+    """K12 (with the attention core's backward at these widths) and, through
+    the same inputs, the core's backward alone, at the backward's bar."""
+    attn, _ = _layer_weights(hid, 4 * hid, device, seed=b * 1000 + l + heads + 5)
+    x = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    dy = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    mask = torch.ones(b, l, device=device)
+    mask[0, l // 2 + 1:] = 0.0
+    got, want = attention_bwd_pair(x, attn, mask, heads, dy)
+    torch.cuda.synchronize()
+    grads_close(got, want, scale_of=zero_attention_grads(l))
+    g = torch.Generator(device=device).manual_seed(l + heads)
+    qkv = torch.randn(b, l, 3 * hid, generator=g, device=device).to(torch.bfloat16)
+    da = torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
+    got = fb.attention_core_bwd(qkv, mask, da, heads)
+    want = fb.attention_core_bwd(qkv.cpu(), mask.cpu(), da.cpu(), heads)
+    torch.cuda.synchronize()
+    got = dict(zip(("dq", "dk", "dv"), got.chunk(3, dim=-1)))
+    want = dict(zip(("dq", "dk", "dv"), want.to(device).chunk(3, dim=-1)))
+    grads_close(got, want, scale_of={"dq": "dv", "dk": "dv"} if l == 1 else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,heads", HEAD_WIDTHS)
+@pytest.mark.parametrize("b,l", HEAD_WIDTH_SHAPES)
+def test_int8_halves_at_head_widths_16_and_32(device, hid, heads, b, l):
+    """K10 and K9 at hidden 384 against their plain versions, at
+    test_int8_halves_kernels_match_plain's bars; a head group is 64 columns
+    (two heads of 32, four of 16), the Wo product's whole 64-code step."""
+    group = 64 // (hid // heads)
+    attn, mlp, ln, x, mask = _int8_case(b, l, hid, 4 * hid, device, seed=b * 1000 + l + heads)
+    for kernel, plain, args in (
+            (fi.fused_attention_int8_block, fi.reference_attention_int8_block, (*attn, mask, heads, *ln)),
+            (fi.fused_mlp_int8_block, fi.reference_mlp_int8_block, (*mlp, *ln))):
+        kw = {"group_heads": group} if kernel is fi.fused_attention_int8_block else {}
+        got, want = kernel(x, *args, **kw), plain(x, *args, **kw)
+        torch.cuda.synchronize()
+        cos, err = _rows_close(got, want)
+        mean = float((got.float() - want.float()).abs().mean())
+        assert cos >= 0.999 and err <= 0.1, (kernel.__name__, cos, err)
+        assert mean <= 5e-5, (kernel.__name__, mean)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_other_head_widths(device):
+    """Head widths the cores are not instanced for (TinyBERT's 26, 128) are
+    refused before any launch, naming the widths taken."""
+    for hid, heads in ((312, 12), (768, 6)):
+        x = torch.zeros(1, 8, hid, device=device, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head widths"):
+            fa.fused_mha(x, x, x, torch.ones(1, 8, device=device), heads)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bq,lq,bd,ld,dim", [(1, 32, 64, 128, 768), (2, 200, 9, 77, 768), (3, 129, 5, 40, 1024),
                                              (2, 512, 3, 64, 8), (4, 13, 7, 30, 264)])

@@ -99,15 +99,16 @@ def card_stages(x, wqkv_t, sqkv, bqkv, wo_t, so, bo, mask, n_heads, ln_scale, ln
 
     b, l, hid = x.shape
     m = b * l
-    gw = group_heads * 64
+    d = hid // n_heads
+    gw = group_heads * d
     sqkv, bqkv, so, bo, mask, ln_scale, ln_bias = (t.float().contiguous() for t in
                                                    (sqkv, bqkv, so, bo, mask, ln_scale, ln_bias))
     xq, rs = fi._quant_groups_cuda(x.reshape(m, hid), 1)
     qkv = torch.empty((b, l, 3 * hid), dtype=torch.bfloat16, device=x.device)
     fi._gemm_s8(xq, wqkv_t, rs, sqkv, bqkv, qkv, fi._EPI_S8_BIAS_BF16, hid)
     core = torch.empty((m, hid), dtype=torch.float32, device=x.device)
-    _build.call("mm_attention_core_f32", _build.ptr(qkv), _build.ptr(mask), _build.ptr(core), b, l, n_heads,
-                1.0 / 64 ** 0.5, _build.stream(x.device))
+    _build.call("mm_attention_core_f32", _build.ptr(qkv), _build.ptr(mask), _build.ptr(core), b, l, n_heads, d,
+                1.0 / d ** 0.5, _build.stream(x.device))
     aq, as_ = fi._quant_groups_cuda(core, n_heads // group_heads)
     acc = torch.empty((m, hid), dtype=torch.float32, device=x.device)
     fi._gemm_s8(aq, wo_t, as_, so, bo, acc, fi._EPI_S8_CHUNKS_RESID_F32, gw, resid=x)
