@@ -251,6 +251,32 @@ Phases (any failed check raises, and the script exits non-zero):
    step's gradients (cosine >= 0.99, pointwise loss) against the plain
    versions, the int8 forward (K10 + K9) on one eval batch against its
    plain versions.
+14. more than one device: (a) at phase 5's 1,048,576 x 768 rows, Q 256,
+   k 1000, FlatIndex's bf16 binmax, int8 (default), mixed, int8 rescore
+   and float16-scan routes over a mesh of four cuda:0 entries (four shards
+   of 262,144 rows, views of one upload) against the same route unsharded
+   on the same rows: the launches of one sharded search as predicted (one
+   scan and one unpack a shard; level 2 where the gate, read on a shard's
+   rows, picks it), every row that both return scored alike, the sharded
+   search never below the unsharded one rank by rank and every unsharded
+   hit it drops scoring no more than its last (scores with their low 14
+   mantissa bits cleared; a near tie of 1e-6 of the query's largest
+   allowed), recall@1000 against the exact search at phase 5's floors (the
+   default int8 route reported), shard 1's scan against its plain version
+   (K7 bit for bit), QPS beside the unsharded route's (four shards on one
+   card: not a multi-card rate); (b) IVF (2,048 lists, 64 probed) and
+   tree-AH over the same mesh on the unsharded IVF's state: recall against
+   it >= 0.99, every returned score the row's exact score within 1e-3 of
+   the query's largest; (c) two processes on the one card over gloo (the
+   backend rule), BERT_DOT at DistilBERT width, a global batch of 32 (16 a
+   process), query 30, doc 200, Margin-MSE + in-batch negatives: one step
+   against the one-process step on the same global batch (loss within
+   1e-2 relative, every parameter's update cosine >= 0.99, phase 13's lr 1
+   and Adam eps 1), then 10 steps through the Trainer in each process
+   (K1/K2/K11/K12 as predicted in each), the run folder written by the
+   primary alone, triples/s (host-paced, two ranks on one card); with two
+   cards or more, the same over nccl on two cards ("skipped: one card"
+   otherwise).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Details go to build/chip_smoke.json.
@@ -360,6 +386,10 @@ FULL = dict(
     # phase 13: (a) the warm start's micro-steps, micro-batch and k; (b) the
     # hub teacher's student steps; (d) MiniLM's BERT_CAT steps
     accum_steps=40, accum_batch=8, accum_k=4, hub_steps=10, minilm_steps=10,
+    # phase 14: (a) and (b) over a mesh of multi_shards cuda:0 entries at
+    # phase 5's rows; (c) two processes, a global batch of mp_batch, mp_steps
+    # steps through the Trainer
+    multi_shards=4, mp_batch=32, mp_steps=10,
 )
 
 
@@ -3772,6 +3802,29 @@ def phase_idcm(sz, device, paths):
     return result
 
 
+@contextlib.contextmanager
+def embedding_file_read_once():
+    """Phases 10 (a) and 12 (a) build every model from the one embedding
+    file over the one vocabulary: the port's ``load_glove_embeddings``
+    reads it once (each model gets its own copy of the matrix) where it
+    read the file and seeded its 400,000 rows again for every model."""
+    from matchmaker_tpu_torch import models
+
+    original, read = models.load_glove_embeddings, {}
+
+    def once(path, vocab, dim):
+        key = (path, len(vocab), dim)
+        if key not in read:
+            read[key] = original(path, vocab, dim)
+        return read[key].copy()
+
+    models.load_glove_embeddings = once
+    try:
+        yield
+    finally:
+        models.load_glove_embeddings = original
+
+
 def phase_kernel_pooling(sz, device, root):
     """Phase 10: (a) the kernel-pooling family, (b) IDCM."""
     t0 = time.perf_counter()
@@ -3779,7 +3832,8 @@ def phase_kernel_pooling(sz, device, root):
     data_s = time.perf_counter() - t0
     print(f"[pooling] data written in {data_s:.1f} s: a {sz['pool_vocab']}-entry vocabulary, {sz['pool_glove_rows']} "
           f"embedding rows of {sz['pool_dim']}, documents of {sz['pool_long_words']} tokens for TKL and IDCM")
-    result = {"data_s": data_s, "pooling": phase_pooling(sz, device, paths)}
+    with embedding_file_read_once():
+        result = {"data_s": data_s, "pooling": phase_pooling(sz, device, paths)}
     result["idcm"] = phase_idcm(sz, device, paths)
     result["launches"] = result["idcm"]["launches"]
     result["paths"] = paths  # phase 12 runs over the same files
@@ -4297,7 +4351,8 @@ def phase_zoo(sz, device, root, paths):
     export and the run fusion."""
     result = {"launches": {}}
     t0 = time.perf_counter()
-    result["classic"] = phase_classic(sz, device, paths)
+    with embedding_file_read_once():
+        result["classic"] = phase_classic(sz, device, paths)
     result["classic_s"] = time.perf_counter() - t0
     ckpt = _zoo_checkpoint(sz, root)
     parts = {}
@@ -5232,6 +5287,423 @@ def phase_probes(sz, device):
     return result
 
 
+# ---- phase 14: more than one device ----------------------------------------
+
+# (a)'s routes: name, FlatIndex config, the scan kernel a shard launches. The
+# three binmax int8 routes share one index's storage (the same codes and bin
+# scales): a route is the index's search flags.
+MULTI_ROUTES = (
+    ("bf16", {"mips_quantization": "float16", "mips_kernel": "binmax"}, "binmax_candidates"),
+    ("int8", {"mips_quantization": "int8", "mips_kernel": "binmax"}, "binmax_candidates_int8"),
+    ("mixed", {"mips_quantization": "int8", "mips_kernel": "binmax", "mips_int8_queries": "float"},
+     "binmax_candidates_int8f"),
+    ("rescore", {"mips_quantization": "int8", "mips_kernel": "binmax", "mips_twostage": True},
+     "binmax_candidates_int8"),
+    ("float16_scan", {"mips_quantization": "float16", "mips_kernel": "scan"}, None),
+)
+# phase 5's and 5b's recall floors against the exact search (the default int8 route's: reported)
+MULTI_RECALL_FLOORS = {"bf16": 0.95, "mixed": 0.95, "rescore": 0.95}
+
+
+def _stored(index):
+    return index._device_vectors[0] if isinstance(index._device_vectors, tuple) else index._device_vectors
+
+
+def predicted_sharded_launches(index, k, scan):
+    """One sharded binmax search call: a scan (``scan``) and an unpack (K6)
+    a shard, and level 2 (K4) a shard when the gate, read on the fullest
+    shard's real rows, picks it (the rescore route's scan fetches
+    oversample·k at per_bin >= 4); none for the float16 scan."""
+    from matchmaker_tpu_torch.ops import mips_binmax as mb
+
+    if scan is None:
+        return {}
+    rows, per_bin, fetch = _stored(index).rows, index._per_bin(k), k
+    if index.twostage and index.int8_queries != "float":
+        per_bin = max(per_bin, 4)
+        fetch = min(k * index.oversample, rows, max(rows // mb.BIN_WIDTH * per_bin, k))
+    level2 = min(rows, index._row_count) // mb.BIN_WIDTH * per_bin >= 16 * fetch
+    n = index.n_shards
+    return {scan: n, "level2_reduce": n if level2 else 0, "unpack_candidates": n}
+
+
+def _sharded_agreement(s_vals, s_ids, u_vals, u_ids, rel=NEAR_TIE_REL):
+    """A sharded search (S) against the same route unsharded (U) on the same
+    rows. Each shard's candidate pool holds U's (the same 128-row bins; the
+    level-2 gate, read on a shard's rows, keeps at least as many), and a
+    row scores the same in both, so: an id in both has one score, S is at
+    least U rank by rank, and an id of U missing from S scores no more than
+    S's last; all within ``rel`` of the query's largest |score|. Scores are
+    compared with their low 14 mantissa bits cleared (a monotone map): a
+    search through level 2 returns them so (its lanes' bits), one without
+    with 7 cleared. → the hits of one search the other has not (summed
+    over the queries), and the violations of each rule."""
+    out = {"hits_not_unsharded": 0, "score_mismatches": 0, "rank_below": 0, "unexplained_misses": 0}
+    lanes = ~np.int32((1 << 14) - 1)
+    s_vals, u_vals = ((np.asarray(v, np.float32).view(np.int32) & lanes).view(np.float32) for v in (s_vals, u_vals))
+    for sv, si, uv, ui in zip(s_vals, s_ids, u_vals, u_ids):
+        tol = rel * float(np.abs(uv[np.isfinite(uv)]).max())
+        out["hits_not_unsharded"] += len(set(si.tolist()) - set(ui.tolist()))
+        s_of = dict(zip(si.tolist(), sv.tolist()))
+        for x, v in zip(ui.tolist(), uv.tolist()):
+            if x in s_of:
+                out["score_mismatches"] += abs(s_of[x] - v) > tol
+            elif v > sv[-1] + tol:
+                out["unexplained_misses"] += 1
+        out["rank_below"] += int((sv < uv - tol).sum())
+    return out
+
+
+def _qps(index, queries, k, reps=3):
+    """Queries a second over ``reps`` searches (host clock), after the
+    caller's first search."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        index.search_rows(queries, k)
+    return len(queries) * reps / (time.perf_counter() - t0)
+
+
+def _shard_scan_check(index, route, q, k, device):
+    """Shard 1's scan (its row view) against its plain version on the card:
+    K7 bit for bit, K3 and K8 by identical candidates (>= 0.999) and their
+    values."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import mips_binmax as mb
+    from matchmaker_tpu_torch.ops.mips_quant import quantize_queries
+
+    shard, tile, per_bin = _stored(index).parts[1], 2048, index._per_bin(k)
+    rows = shard.shape[0]
+    if route == "bf16":
+        qb = q.to(torch.bfloat16)
+        got, want = mb._scan_cuda(qb, shard, rows, per_bin, tile), mb._scan_plain(qb, shard, rows, per_bin, tile)
+    else:
+        scales = index._device_vectors[1].parts[1]
+        if route == "mixed":
+            qb = q.to(torch.bfloat16)
+            got = mb._scan_int8f_cuda(qb, shard, scales, rows, per_bin, tile)
+            want = mb._scan_int8f_plain(qb, shard, scales, rows, per_bin, tile)
+        else:
+            q8, qs = quantize_queries(q)
+            got = mb._scan_int8_cuda(q8, shard, scales, qs, rows, per_bin, tile)
+            want = mb._scan_int8_plain(q8, shard, scales, qs, rows, per_bin, tile)
+            return {"bit_identical": bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))}
+    pos = torch.arange(got.shape[1], device=device).expand_as(got).contiguous()
+    gv, gi = mb._unpack_plain(got, pos, tile, per_bin)
+    wv, wi = mb._unpack_plain(want, pos, tile, per_bin)
+    same = gi == wi
+    return {"identical": float(same.float().mean()),
+            "max_abs_err": float((gv - wv).abs()[same & torch.isfinite(wv)].max())}
+
+
+def phase_sharded_flat(sz, device):
+    """Phase 14 (a): FlatIndex's binmax and float16-scan routes over a mesh
+    of ``multi_shards`` cuda:0 entries (four shards of 262,144 rows, K3/K7's
+    headline shape) against the same route unsharded on phase 5's rows."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import _build
+    from matchmaker_tpu_torch.parallel.mesh import make_mesh
+    from matchmaker_tpu_torch.retrieval.indexes import FlatIndex
+
+    n, k = sz["scale_rows"], sz["scale_k"]
+    rows, q = _clustered(n, sz["hid"], sz["scale_clusters"], device, seed=9, n_queries=256)
+    _, exact = _exact_topk(q.bfloat16().float(), rows.bfloat16().float(), k)
+    vectors, queries = rows.cpu().numpy(), q.cpu().numpy()
+    del rows
+    mesh = make_mesh(devices=[device] * sz["multi_shards"])
+    result, pair = {"launches": {}}, []
+    for name, extra, scan in MULTI_ROUTES:
+        config = {"token_dtype": "float16", **extra}
+        if name in ("bf16", "int8", "float16_scan"):  # a new storage (the int8 routes share one)
+            del pair
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            pair = []
+            t0 = time.perf_counter()
+            for m in (None, mesh):
+                index = FlatIndex(config, device, m)
+                index.index(np.arange(n), vectors)
+                index._ensure_device()
+                pair.append(index)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        one, four = pair
+        for index in pair:  # the search flags of this route
+            index.int8_queries = extra.get("mips_int8_queries", "int8")
+            index.twostage = extra.get("mips_twostage", False)
+        u_vals, u_ids = one.search_rows(queries, k)
+        _build.reset_launches()
+        s_vals, s_ids = four.search_rows(queries, k)
+        launches = {c: v for c, v in _build.LAUNCHES.items() if v}
+        want = predicted_sharded_launches(four, k, scan) if device.type == "cuda" else {}
+        check(launches == {c: v for c, v in want.items() if v},
+              f"phase 14 {name}: launches {launches}, predicted {want}")
+        agree = _sharded_agreement(s_vals, s_ids, u_vals, u_ids)
+        check(agree["score_mismatches"] == agree["rank_below"] == agree["unexplained_misses"] == 0,
+              f"phase 14 {name}: the sharded search against the unsharded one: {agree}")
+        rec = {"launches": launches, "build_s_both": build_s, **agree,
+               "recall": _overlap(four.row_ids[s_ids], exact), "recall_unsharded": _overlap(one.row_ids[u_ids], exact),
+               "qps_four_shards_one_card": _qps(four, queries, k), "qps_unsharded": _qps(one, queries, k)}
+        if scan is None:
+            rec["misses_past_ties"] = _misses_past_ties(s_ids.tolist(), u_ids.tolist(), u_vals.tolist())
+            check(rec["misses_past_ties"] == 0, f"phase 14 {name}: {rec['misses_past_ties']} misses past ties")
+        elif device.type == "cuda":  # a kernel against its plain version
+            rec["shard_scan_vs_plain"] = _shard_scan_check(four, name, torch.from_numpy(queries).to(device), k, device)
+            sv = rec["shard_scan_vs_plain"]
+            check(sv.get("bit_identical", sv.get("identical", 0) >= 0.999),
+                  f"phase 14 {name}: shard 1's scan against its plain version: {sv}")
+        if name in MULTI_RECALL_FLOORS:
+            check(rec["recall"] >= MULTI_RECALL_FLOORS[name], f"phase 14 {name}: recall@{k} {rec['recall']}")
+        for c, v in launches.items():
+            result["launches"][c] = result["launches"].get(c, 0) + v
+        print(f"[multi] (a) {name}: {sz['multi_shards']} shards of {_stored(four).rows} rows on one card, Q 256, "
+              f"k {k}: launches {launches}; {agree['hits_not_unsharded']} hits the unsharded search has not "
+              f"(none unexplained); recall@{k} {rec['recall']:.4f} (unsharded {rec['recall_unsharded']:.4f}); "
+              f"{rec['qps_four_shards_one_card']:.1f} QPS as {sz['multi_shards']} shards on one card (not a "
+              f"multi-card rate), {rec['qps_unsharded']:.1f} unsharded")
+        result[name] = rec
+        del one, four
+    del pair
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    result["vectors"], result["queries"] = vectors, queries
+    return result
+
+
+def phase_sharded_ivf(sz, device, vectors, queries):
+    """Phase 14 (b): IVF (2,048 lists, 64 probed) and tree-AH over the same
+    mesh, both on the unsharded IVF's state, against its search: recall
+    against it >= 0.99, every returned score the row's exact score (f32
+    products of the stored rows) within 1e-3 of the query's largest."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import _build, matmul_f32
+    from matchmaker_tpu_torch.parallel.mesh import make_mesh
+    from matchmaker_tpu_torch.retrieval.indexes import IVFIndex
+    from matchmaker_tpu_torch.retrieval.scann_tree_ah import ScaNNTreeAHIndex
+
+    k, n = sz["scale_k"], len(vectors)
+    mesh = make_mesh(devices=[device] * sz["multi_shards"])
+    # k-means on the 131,072-row floor of the training sample (phase 11 trains on 256 rows a list): the
+    # comparison holds the sharded search to the unsharded one on whatever state they share
+    config = {"token_dtype": "float16", "faiss_ivf_list_count": sz["scale_ivf_lists"],
+              "faiss_ivf_nprobe": sz["scale_ivf_nprobe"], "ivf_train_points_per_centroid": 64}
+    t0 = time.perf_counter()
+    one = IVFIndex(config, device)
+    one.index(np.arange(n), vectors)
+    build_s = time.perf_counter() - t0
+    sharded = {"ivf": IVFIndex(config, device, mesh),
+               "tree_ah": ScaNNTreeAHIndex({"token_dtype": "float16", "scann_leaves_to_search": sz["scale_ivf_nprobe"]},
+                                           device, mesh)}
+    u_vals, u_ids = one.search(queries, k)
+    result = {"ivf_build_s": build_s, "qps_unsharded": _qps(one, queries, k, reps=1)}
+    stored = torch.from_numpy(np.asarray(vectors, np.float16)).to(device)
+    qd = torch.from_numpy(queries).to(device)
+    for name, index in sharded.items():
+        for attr in ("_centroids", "_sorted_vectors", "_sorted_rows", "_offsets", "_ids", "n_clusters_eff"):
+            setattr(index, attr, getattr(one, attr))  # the same state
+        _build.reset_launches()
+        s_vals, s_ids = index.search(queries, k)
+        check(not any(_build.LAUNCHES.values()), f"phase 14 (b) {name}: a kernel was launched")
+        with torch.inference_mode():
+            ids = torch.from_numpy(np.where(s_ids >= 0, s_ids, 0).astype(np.int64)).to(device)
+            exact = matmul_f32(stored[ids], qd[:, :, None])[..., 0].cpu().numpy()
+        scale = np.abs(exact).max(axis=1, keepdims=True)
+        rel = float((np.abs(s_vals - exact) / scale)[s_ids >= 0].max())
+        rec = {"recall_vs_unsharded": _overlap(s_ids, u_ids), "max_rel_vs_exact": rel,
+               "qps_four_shards_one_card": _qps(index, queries, k, reps=1) if name == "ivf" else None}
+        print(f"[multi] (b) {name} over {sz['multi_shards']} shards ({sz['scale_ivf_lists']} lists, "
+              f"{sz['scale_ivf_nprobe']} probed): recall@{k} vs the unsharded IVF {rec['recall_vs_unsharded']:.4f}, "
+              f"scores vs exact max rel {rel:.3g}; " + (f"{rec['qps_four_shards_one_card']:.1f} QPS as four shards "
+              "on one card" if name == "ivf" else "the IVF search's rate") +
+              f", unsharded {result['qps_unsharded']:.1f}")
+        check(rec["recall_vs_unsharded"] >= 0.99 and rel <= 1e-3, f"phase 14 (b) {name}: {rec}")
+        result[name] = rec
+    return result
+
+
+def _mp_configs(paths, sz, device):
+    """Phase 6's BERT_DOT configuration at phase 14's batch and steps,
+    without validation or dense retrieval, a constant learning rate; and
+    the one-step comparison's (phase 13's: lr 1 and Adam's eps 1 make the
+    first update g / (|g| + 1), near proportional to the gradient)."""
+    run = dict(_train_config(paths, sz, device), batch_size_train=sz["mp_batch"], max_training_batches=sz["mp_steps"],
+               validation_cont=None, test=None, run_dense_retrieval_eval=False, validate_every_n_batches=-1,
+               lr_schedule="constant", optimizer_warmup_steps=0)
+    step = dict(run, param_group0_learning_rate=1.0, param_group1_learning_rate=1.0,
+                embedding_optimizer_learning_rate=1.0, adam_eps=1.0, weight_decay=0.0)
+    return run, step
+
+
+def two_process_worker(spec_path: str) -> int:
+    """One rank of phase 14 (c) (``python3 chip_smoke.py --two-process-worker
+    spec.json``): one step of the comparison's configuration on this rank's
+    half of the first global batch, then, from the same start,
+    ``mp_steps`` steps through the Trainer; rank 0 writes the step's
+    parameters, every rank its counts."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import _build
+    from matchmaker_tpu_torch.parallel import multihost
+    from matchmaker_tpu_torch.training.optim import build_optimizer
+    from matchmaker_tpu_torch.training.train_step import make_train_step
+    from matchmaker_tpu_torch.training.trainer import Trainer
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    config, step_config = spec["config"], spec["step_config"]
+    multihost.maybe_initialize_distributed(config)
+    rank = multihost.process_index()
+    on_card = torch.device(config["device"]).type == "cuda"
+    out = {"rank": rank, "backend": multihost.backend(), "device": str(multihost.rank_device()) if on_card else "cpu",
+           "visible_cards": torch.cuda.device_count()}
+    folder = os.path.join(spec["root"], "mp_run")
+    multihost.on_primary(lambda: os.makedirs(folder, exist_ok=True))
+    trainer = Trainer(config, folder)
+    start = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    step = make_train_step(trainer.model, trainer.losses, build_optimizer(step_config, trainer.model), step_config)
+    stats = step(next(iter(trainer._epoch_batches(None, None))))
+    if rank == 0:
+        torch.save({"params": {k: v.detach().float().cpu() for k, v in trainer.model.state_dict().items()},
+                    "loss": float(stats["loss"])}, os.path.join(spec["root"], "mp_step.pt"))
+    trainer.model.load_state_dict(start)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    if on_card:
+        torch.cuda.synchronize()
+    out.update(wall_s=time.perf_counter() - t0, steps=trainer.global_step, launches=dict(_build.LAUNCHES))
+    with open(os.path.join(folder, f"efficiency-metrics-p{rank}.json")) as f:
+        out["train_s"] = json.load(f)[-1]["blocks"]["train"]["total_seconds"]
+    with open(os.path.join(spec["root"], f"mp_out_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    multihost.barrier()
+    multihost.shutdown()
+    return 0
+
+
+def _launch_two(root, config, step_config, cards, timeout=600):
+    """Both ranks of phase 14 (c) on ``cards`` (CUDA_VISIBLE_DEVICES); every
+    process ends before this returns. → their outputs."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    spec = os.path.join(root, "mp_spec.json")
+    with open(spec, "w") as f:
+        json.dump({"root": root, "config": config, "step_config": step_config}, f)
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, MATCHMAKER_COORDINATOR=f"127.0.0.1:{port}", MATCHMAKER_NUM_PROCESSES="2",
+                   MATCHMAKER_PROCESS_ID=str(rank), CUDA_VISIBLE_DEVICES=cards)
+        procs.append(subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--two-process-worker",
+                                       spec], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"phase 14 (c) rank {rank} exited {p.returncode}:\n{text[-3000:]}")
+    results = []
+    for rank in range(2):
+        with open(os.path.join(root, f"mp_out_{rank}.json")) as f:
+            results.append(json.load(f))
+    return results, outs
+
+
+def phase_two_processes(sz, device, root):
+    """Phase 14 (c): two processes on the one card over gloo (the backend
+    rule: NCCL refuses two ranks on one card), BERT_DOT at DistilBERT width,
+    a global batch of ``mp_batch`` (half a process), query 30, doc 200,
+    Margin-MSE + in-batch negatives: one step against the one-process step
+    on the same global batch, ``mp_steps`` steps through the Trainer in each
+    process (K1/K2/K11/K12 counted in each), the primary alone writing the
+    run folder; on a machine with two cards or more, the same over nccl."""
+    import torch
+
+    from matchmaker_tpu_torch.training.trainer import Trainer
+
+    paths = _write_train_data(root, dict(sz, train_batches=sz["mp_steps"] + 1, train_batch=sz["mp_batch"]))
+    config, step_config = _mp_configs(paths, sz, device)
+    fresh_perf_monitor()
+    os.makedirs(os.path.join(root, "one_step"))
+    one = Trainer(step_config, os.path.join(root, "one_step"))
+    start = {k: v.detach().float().cpu().clone() for k, v in one.model.state_dict().items()}
+    stats = one.train_step(next(iter(one._epoch_batches(None, None))))
+    after_one = {k: v.detach().float().cpu() for k, v in one.model.state_dict().items()}
+    loss_one = float(stats["loss"])
+    del one
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = visible.split(",") if visible else [str(i) for i in range(torch.cuda.device_count())]
+    result = {}
+    for tag, use in (("gloo_one_card", cards[:1]), ("nccl_two_cards", cards[:2])):
+        if tag == "nccl_two_cards" and len(cards) < 2:
+            result[tag] = "skipped: one card"
+            print("[multi] (c) nccl on two cards: skipped: one card")
+            continue
+        run_root = os.path.join(root, tag)
+        os.makedirs(run_root)
+        t0 = time.perf_counter()
+        ranks, outs = _launch_two(run_root, config, step_config, ",".join(use))
+        wall = time.perf_counter() - t0
+        mp_step = torch.load(os.path.join(run_root, "mp_step.pt"), weights_only=True)
+        loss_gap = abs(mp_step["loss"] - loss_one) / abs(loss_one)
+        cos = _update_cosines(start, mp_step["params"], after_one, "multi", f"{tag}: two-process step vs one-process")
+        check(loss_gap <= 1e-2, f"phase 14 (c) {tag}: loss {mp_step['loss']} vs one process {loss_one}")
+        want = 2 * sz["mp_steps"] * sz["n_layers"] if device.type == "cuda" else 0
+        for r in ranks:
+            got = {c: r["launches"][c] for c in ("fused_attention_block", "fused_mlp_block",
+                                                 "fused_attention_block_bwd", "fused_mlp_block_bwd")}
+            check(r["steps"] == sz["mp_steps"] and set(got.values()) == {want},
+                  f"phase 14 (c) {tag} rank {r['rank']}: {r['steps']} steps, launches {got}, predicted {want} each")
+        files = sorted(os.listdir(os.path.join(run_root, "mp_run")))
+        check(files == ["best-model.npz", "efficiency-metrics-p0.json", "efficiency-metrics-p1.json"],
+              f"phase 14 (c) {tag}: run folder {files}")
+        rate = sz["mp_steps"] * sz["mp_batch"] / max(r["train_s"] for r in ranks)
+        backends = [r["backend"] for r in ranks]
+        check(backends == (["gloo", "gloo"] if tag.startswith("gloo") else ["nccl", "nccl"]),
+              f"phase 14 (c) {tag}: backends {backends}")
+        result[tag] = {"backends": backends, "devices": [r["device"] for r in ranks], "loss_one_process": loss_one,
+                       "loss_two_processes": mp_step["loss"], "loss_rel_gap": loss_gap, **cos,
+                       "launches_rank0": ranks[0]["launches"], "launches_rank1": ranks[1]["launches"],
+                       "triples_per_s_host_paced": rate, "wall_s": wall, "run_files": files}
+        print(f"[multi] (c) {tag}: backends {backends} on {result[tag]['devices']}; one step vs one process: loss "
+              f"gap {loss_gap:.3g}, worst update cosine {cos['update_cos']:.6f}; {sz['mp_steps']} steps, "
+              f"K1/K2/K11/K12 {want} each in each process; {rate:.1f} triples/s (host-paced; "
+              f"{'two ranks on one card' if tag.startswith('gloo') else 'two cards'}); run folder {files}")
+    return result
+
+
+def phase_multi_device(sz, device, root):
+    """Phase 14: (a) the sharded FlatIndex routes, (b) the sharded IVF and
+    tree-AH, (c) two processes."""
+    t0 = time.perf_counter()
+    flat = phase_sharded_flat(sz, device)
+    vectors, queries = flat.pop("vectors"), flat.pop("queries")
+    t1 = time.perf_counter()
+    ivf = phase_sharded_ivf(sz, device, vectors, queries)
+    del vectors
+    t2 = time.perf_counter()
+    procs = phase_two_processes(sz, device, root)
+    t3 = time.perf_counter()
+    print(f"[multi] (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s")
+    launches = dict(flat["launches"])
+    for c, v in procs["gloo_one_card"]["launches_rank0"].items():
+        launches[c] = launches.get(c, 0) + v
+    return {"flat": flat, "ivf": ivf, "processes": procs, "launches": launches, "seconds": time.perf_counter() - t0,
+            "part_seconds": {"a": t1 - t0, "b": t2 - t1, "c": t3 - t2}}
+
+
 SERVING = ("fused_attention_block", "fused_mlp_block", "binmax_candidates", "level2_reduce", "unpack_candidates")
 SERVING_INT8 = ("fused_attention_int8_block", "fused_mlp_int8_block", "binmax_candidates_int8f",
                 "binmax_candidates_int8")
@@ -5401,6 +5873,9 @@ def run_phases(sz, device, card: str) -> dict:
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as root:  # the streaming blocks on disk
         report["indexes"] = phase_indexes(sz, device, root)
     report["indexes_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as root:
+        report["multi"] = phase_multi_device(sz, device, root)
+    print(f"[multi] phase 14 took {report['multi']['seconds']:.1f} s")
     check(set(report["main"]["launches"]) == {k[0] for k in KERNELS}, "a kernel without an entry")
     report["kernels"] = []
     for name, src, rep, inc in KERNELS:
@@ -5412,8 +5887,10 @@ def run_phases(sz, device, card: str) -> dict:
         # student's dense retrieval); "launches_phase10": phase 10's IDCM runs
         # (K1, K2, K11, K12); "launches_phase11": phase 11's CLI runs over the IVF,
         # tree-AH, HNSW and streaming indexes (K1, K2); "launches_phase12": phase 12's runs (TK over bert_vectors,
-        # listwise BERT_DOT, BERT_CAT with QA heads: K1, K2, K11, K12); "launches_scale": the scale search of the
-        # same route (bf16 or int8; training and the probes: the bf16)
+        # listwise BERT_DOT, BERT_CAT with QA heads: K1, K2, K11, K12); "launches_phase14": phase 14's sharded
+        # searches (one call a route: K3, K4, K6, K7, K8) and rank 0's steps in its two-process run (K1, K2, K11,
+        # K12); "launches_scale": the scale search of the same route (bf16 or int8; training and the probes: the
+        # bf16)
         runs = {"serve": report["main"]["launches"][name], "train": report["train"]["launches"][name],
                 **{f"serve_int8_{r}": report["main_int8"][r]["launches"][name] for r, _, _ in INT8_RUNS},
                 "serve_colbert": report["colbert"]["launches"][name],
@@ -5424,7 +5901,8 @@ def run_phases(sz, device, card: str) -> dict:
                 "phase10": report["pooling"]["launches"].get(name, 0),
                 "phase11": report["indexes"]["launches"].get(name, 0),
                 "phase12": report["zoo"]["launches"].get(name, 0),
-                "phase13": report["jax_runs"]["launches"].get(name, 0)}
+                "phase13": report["jax_runs"]["launches"].get(name, 0),
+                "phase14": report["multi"]["launches"].get(name, 0)}
         scale_runs = {"scale_bf16": report["scale"]["launches"][name],
                       **{f"scale_int8_{r}": report["scale_int8"][r]["launches"][name]
                          for r, _, _ in SCALE_INT8_RUNS}}
@@ -5568,9 +6046,28 @@ def print_jax_runs(card, report) -> None:
           f"{d['plain_grad_cos']:.6f}; phase 13 {report['jax_runs_s']:.1f} s")
 
 
+def print_multi(card, report) -> None:
+    mu = report["multi"]
+    flat, ivf, gloo = mu["flat"], mu["ivf"], mu["processes"]["gloo_one_card"]
+    nccl = mu["processes"]["nccl_two_cards"]
+    print(f"[{card}] phase 14: {FULL['multi_shards']} shards of {FULL['scale_rows'] // FULL['multi_shards']} rows on "
+          f"one card (not a multi-card rate), QPS sharded / unsharded: " + ", ".join(
+              f"{r} {flat[r]['qps_four_shards_one_card']:.1f} / {flat[r]['qps_unsharded']:.1f} (recall "
+              f"{flat[r]['recall']:.4f}, {flat[r]['hits_not_unsharded']} hits not unsharded)"
+              for r, _, _ in MULTI_ROUTES)
+          + f"; IVF sharded recall vs unsharded {ivf['ivf']['recall_vs_unsharded']:.4f}, tree-AH "
+          f"{ivf['tree_ah']['recall_vs_unsharded']:.4f}; two processes over {gloo['backends'][0]} on one card: "
+          f"{gloo['triples_per_s_host_paced']:.1f} triples/s (host-paced), one step vs one process loss gap "
+          f"{gloo['loss_rel_gap']:.3g}, worst update cosine {gloo['update_cos']:.6f}; nccl on two cards: "
+          f"{nccl if isinstance(nccl, str) else 'backends ' + str(nccl['backends'])}; phase 14 {mu['seconds']:.1f} s")
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--two-process-worker"]:
+        sys.path.insert(0, ROOT)
+        return two_process_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -5627,6 +6124,7 @@ def main() -> int:
     print_indexes(card, report)
     print_zoo(card, report)
     print_jax_runs(card, report)
+    print_multi(card, report)
     for k in report["kernels"]:
         device = (f" (device {k['device_ms']:.4f} ms, {k['x_bound']:.2f}x bound; library device "
                   f"{_fmt(k.get('library_device_ms'))})" if k.get("x_bound") else "")
@@ -5635,7 +6133,8 @@ def main() -> int:
               f"launches {k['launches']} in its path's run ({k['path']})" + (
                   f", {k['launches_rerank']} in phase 9's runs, {k['launches_phase10']} in phase 10's, "
                   f"{k['launches_phase11']} in phase 11's, {k['launches_phase12']} in phase 12's, "
-                  f"{k['launches_phase13']} in phase 13's, {k['launches_scale']} in the scale search"
+                  f"{k['launches_phase13']} in phase 13's, {k['launches_phase14']} in phase 14's, "
+                  f"{k['launches_scale']} in the scale search"
                   if "launches_scale" in k else f" (head width {k['head_dim']})"))
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -10,6 +10,14 @@ folder (every ``save_every_n_batches`` steps and at the end); its
 ``encoder`` warm-starts any transformer ranker
 (``warmstart_encoder_path``).
 
+Under a process group (parallel/multihost.py, joined first thing) each
+process trains on every N-th batch of the loader on its own card, the
+parameters broadcast from rank 0 at the start and the gradients averaged
+over the processes before each update (the global batch is N x
+``batch_size_train``; POD's in-batch contrast stays within a process's
+batch); the processes stop together and only process 0 writes the run
+folder.
+
 Usage:
     python -m matchmaker_tpu_torch.cli.pretrain --config-file cfg.yaml --run-name mlm
 Required config: collection_tsv, expirement_base_path; see
@@ -19,6 +27,7 @@ max_doc_length, learning rates, ...).
 
 from __future__ import annotations
 
+import itertools
 import os
 import sys
 import traceback
@@ -35,6 +44,8 @@ from matchmaker_tpu_torch.models.encoder import encoder_config_from_model_name
 from matchmaker_tpu_torch.models.weights import init_parameters
 from matchmaker_tpu_torch.modules.mlm_head import MLMPretrainModel
 from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
+from matchmaker_tpu_torch.parallel import multihost
+from matchmaker_tpu_torch.parallel.multihost import maybe_initialize_distributed
 from matchmaker_tpu_torch.training.checkpoints import BEST_MODEL, save_params
 from matchmaker_tpu_torch.training.optim import build_optimizer
 
@@ -42,9 +53,14 @@ from matchmaker_tpu_torch.training.optim import build_optimizer
 def main() -> int:
     args = get_parser().parse_args()
     config = get_config(args.config_file, args.config_overwrites)
-    run_folder = prepare_experiment(config["expirement_base_path"], args.run_name, config)
-    print(f"[matchmaker-tpu-torch] MLM pretrain run folder: {run_folder}")
-    return run(config, run_folder)
+    maybe_initialize_distributed(config)
+    try:
+        run_folder = multihost.on_primary(
+            lambda: prepare_experiment(config["expirement_base_path"], args.run_name, config))
+        print(f"[matchmaker-tpu-torch] MLM pretrain run folder: {run_folder}")
+        return run(config, run_folder)
+    finally:
+        multihost.shutdown()
 
 
 def mlm_loss_fn(model: MLMPretrainModel, pod_weight: float):
@@ -77,11 +93,15 @@ def run(config, run_folder: str) -> int:
     TAS-B recipe, cli/tasb_recipe.py); 0 on success."""
     try:
         device = torch.device(config.get("device", "cuda"))
+        n_proc, rank = multihost.process_count(), multihost.process_index()
+        if n_proc > 1 and device.type == "cuda":
+            device = multihost.rank_device()
         tokenizer = build_tokenizer(config)
         model = MLMPretrainModel(encoder_config_from_model_name(config),
                                  torch.bfloat16 if config.get("use_fp16", True) else torch.float32)
         init_parameters(model, torch.Generator().manual_seed(config.get("random_seed", 42)))
         model.to(device).train()
+        multihost.broadcast_module(model)
         optimizer = build_optimizer(config, model)
         loss_fn = mlm_loss_fn(model, config.get("pod_contrastive_weight", 0.0))
         best = os.path.join(run_folder, BEST_MODEL)
@@ -94,23 +114,29 @@ def run(config, run_folder: str) -> int:
             if max_steps and global_step >= max_steps:
                 break
             loader = mlm_training_loader(config, tokenizer, config["collection_tsv"])
-            for batch in device_prefetch(loader, device):
+            batches = device_prefetch(itertools.islice(loader, rank, None, n_proc), device)
+            if n_proc > 1:
+                batches = multihost.lockstep(batches, device)
+            for batch in batches:
                 if max_steps and global_step >= max_steps:
                     break
                 optimizer.zero_grad()
                 loss, stats = loss_fn(batch)
                 loss.backward()
+                multihost.average_gradients(optimizer.params)
                 optimizer.step()
                 global_step += 1
                 if global_step % 100 == 0:
                     print(f"epoch {epoch} step {global_step} mlm_loss={float(stats['mlm_loss'].detach()):.4f}")
-                if global_step % config.get("save_every_n_batches", 10000) == 0:
+                if global_step % config.get("save_every_n_batches", 10000) == 0 and multihost.is_primary():
                     save_params(best, model)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         perf.stop_block("pretrain", global_step)
-        save_params(best, model)
-        perf.save_summary(os.path.join(run_folder, "efficiency-metrics.json"))
+        if multihost.is_primary():
+            save_params(best, model)
+        perf.save_summary(os.path.join(run_folder, "efficiency-metrics.json" if n_proc == 1
+                                       else f"efficiency-metrics-p{rank}.json"))
         perf.print_summary()
         return 0
     except Exception:

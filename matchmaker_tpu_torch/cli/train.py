@@ -9,6 +9,12 @@ Usage (same config keys as the JAX CLI, plus ``device``, default ``"cuda"``):
 The run folder receives ``training-loss.csv``, ``validation-metrics-cont.csv``,
 ``best-model.npz`` (loadable by ``cli.dense_retrieval``'s ``trained_model``),
 ``best-info.csv``, the test run files and ``efficiency-metrics.json``.
+
+More than one process (one a card; parallel/multihost.py): start the same
+command once a process with ``MATCHMAKER_COORDINATOR=host:port``,
+``MATCHMAKER_NUM_PROCESSES`` and ``MATCHMAKER_PROCESS_ID`` set; the
+process group is joined first thing, ``batch_size_train`` is the global
+batch, and only process 0 writes the run folder (training/trainer.py).
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import traceback
 from matchmaker_tpu_torch.config import get_config, get_config_single
 from matchmaker_tpu_torch.experiment import get_parser, prepare_experiment
 from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
+from matchmaker_tpu_torch.parallel import multihost
+from matchmaker_tpu_torch.parallel.multihost import maybe_initialize_distributed
 from matchmaker_tpu_torch.training.checkpoints import BEST_MODEL, load_params
 from matchmaker_tpu_torch.training.trainer import Trainer
 
@@ -31,13 +39,16 @@ def main() -> int:
     if args.continue_folder:
         run_folder = args.continue_folder
         config = get_config_single(os.path.join(run_folder, "config.yaml"), args.config_overwrites)
+        maybe_initialize_distributed(config)
         evaluate_only = True
     else:
         if not args.config_file or not args.run_name:
             print("either --continue-folder or --config-file + --run-name are required")
             return 2
         config = get_config(args.config_file, args.config_overwrites)
-        run_folder = prepare_experiment(config["expirement_base_path"], args.run_name, config)
+        maybe_initialize_distributed(config)
+        run_folder = multihost.on_primary(
+            lambda: prepare_experiment(config["expirement_base_path"], args.run_name, config))
         evaluate_only = False
 
     print(f"[matchmaker-tpu-torch] run folder: {run_folder}")
@@ -58,6 +69,8 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         return 1
+    finally:
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

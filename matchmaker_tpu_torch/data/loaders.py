@@ -302,7 +302,11 @@ def device_prefetch(iterator: Iterable, device: torch.device, n_prefetch: int = 
     """Run the host pipeline in a background thread and keep ``n_prefetch``
     items ahead, their numpy arrays already on ``device`` (pinned host
     memory and non-blocking copies on the current stream for a GPU). An
-    exception in the pipeline is raised here, in the consumer."""
+    exception in the pipeline is raised here, in the consumer. Under a
+    process group the items are this process's own rows (the loaders'
+    ``process_stride``) and ``device`` its own card: the placement is
+    process-local, as JAX's ``place_local_rows``, and nothing crosses
+    processes here."""
     device = torch.device(device)
     q: "queue.Queue" = queue.Queue(maxsize=n_prefetch)
     end = object()

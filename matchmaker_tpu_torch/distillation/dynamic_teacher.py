@@ -32,6 +32,7 @@ from typing import Iterator, Optional
 import torch
 
 from matchmaker_tpu_torch.config import Config, get_config_single, resolve_hub_config
+from matchmaker_tpu_torch.parallel.multihost import gather_rows
 
 
 def load_teacher(teacher_path: str, overrides: Optional[dict] = None, config=None, device=None):
@@ -94,10 +95,13 @@ class DynamicTeacher:
             out["pos_per_term"] = pos_out["per_term_scores"]
             out["neg_per_term"] = neg_out["per_term_scores"]
         if self.in_batch_scoring and "query_vecs" in pos_out:
+            # this process's queries against every process's documents (the
+            # global batch's columns, as the student's in-batch scores)
             q = pos_out["query_vecs"]
-            d_all = torch.cat([pos_out["doc_vecs"], neg_out["doc_vecs"]], dim=0)
+            d_all = torch.cat([gather_rows(pos_out["doc_vecs"]), gather_rows(neg_out["doc_vecs"])], dim=0)
             if q.dim() == 3:  # ColBERT: the all-pairs MaxSim
-                d_mask = torch.cat([pos_out["doc_vecs_mask"], neg_out["doc_vecs_mask"]], dim=0)
+                d_mask = torch.cat([gather_rows(pos_out["doc_vecs_mask"]), gather_rows(neg_out["doc_vecs_mask"])],
+                                   dim=0)
                 out["matrix"] = maxsim_all_pairs(q, d_all, pos_out["query_vecs_mask"], d_mask)
             else:
                 out["matrix"] = torch.matmul(q.float(), d_all.float().t())

@@ -7,8 +7,11 @@ battery and the candidate-depth sweep and appends the metrics CSV,
 ``test_model`` writes the ranked run file and its metrics and, with
 ``save_secondary_output``, the model's secondary (interpretability) tensors
 of each query's top-ranked pairs as ``<test name>-secondary.npz``. Tokenized
-batches can be kept across validations in a cache the caller owns. The port
-runs one process, so every file is written by it. With
+batches can be kept across validations in a cache the caller owns. Under a
+process group every process scores the whole tuple stream (each a slice of
+every batch: training/train_step.py:make_eval_step) and computes the same
+metrics, so early stopping stays in lockstep; only the primary process
+writes files, and only it writes a new replay cache. With
 ``submodel_validation_cache_path`` the first pass writes IDCM's chunk scores
 (the model's ``passage_scores``) to a replay cache and every later pass
 (also in a later run) hands them back to the model as ``bert_part_cached``,
@@ -42,6 +45,7 @@ from matchmaker_tpu_torch.metrics import (
     unrolled_to_ranked_result,
 )
 from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
+from matchmaker_tpu_torch.parallel import multihost
 from matchmaker_tpu_torch.utils.replay_cache import CrossExperimentReplayCache
 
 
@@ -62,10 +66,13 @@ def evaluate_model(eval_step: Callable, config, tokenizer, tuples_path: str, dev
     replay_path = config.get("submodel_validation_cache_path")
     if replay_path:
         replay_write = not os.path.exists(os.path.join(replay_path, "cache-meta.json"))
-        replay = CrossExperimentReplayCache(replay_path, write=replay_write)
-        if not replay_write:
-            batches = replay_cached(batches, replay, lambda item, scores: (dict(item[0], bert_part_cached=scores),
-                                                                           *item[1:]))
+        if replay_write and not multihost.is_primary():
+            replay_write = False  # one writer; the other processes skip the cache this pass
+        else:
+            replay = CrossExperimentReplayCache(replay_path, write=replay_write)
+            if not replay_write:
+                batches = replay_cached(batches, replay, lambda item, scores: (dict(item[0], bert_part_cached=scores),
+                                                                               *item[1:]))
     results: Dict[str, List[Tuple[str, float]]] = {}
     secondary: Dict[str, dict] = {}
     n = 0
@@ -246,6 +253,8 @@ def qa_evaluate(eval_step, config, tokenizer, tuples_path: str, gold_answers: Di
 
 def save_qa_answers(predictions: Dict[str, str], gold: Dict[str, List[str]], path: str) -> None:
     """``qid \\t predicted \\t gold...`` for every query with gold answers."""
+    if not multihost.is_primary():
+        return
     with open(path, "w", encoding="utf-8") as f:
         for qid, pred in predictions.items():
             if qid in gold:
@@ -257,6 +266,8 @@ def save_secondary_output(secondary: Dict[str, dict], path: str, model: Optional
     """Interpretability dumps as a compressed ``.npz``: ``<qid<->did>::<name>``
     per pair and, with ``model``, each parameter of at most
     ``max_param_size`` elements under ``model::<flax path>``."""
+    if not multihost.is_primary():
+        return
     flat = {f"{pair}::{name}": arr for pair, tensors in secondary.items() for name, arr in tensors.items()}
     if model is not None:
         for name, p in model.state_dict().items():
@@ -267,6 +278,8 @@ def save_secondary_output(secondary: Dict[str, dict], path: str, model: Optional
 
 def save_sorted_results(results: Dict[str, List[Tuple[str, float]]], path: str, until_rank: int = -1) -> None:
     """4-column TREC-style output: qid did rank score."""
+    if not multihost.is_primary():
+        return
     with open(path, "w", encoding="utf-8") as f:
         for qid, pairs in results.items():
             for rank, (did, score) in enumerate(sorted(pairs, key=lambda p: p[1], reverse=True), start=1):
@@ -278,6 +291,8 @@ def save_sorted_results(results: Dict[str, List[Tuple[str, float]]], path: str, 
 def append_metrics_csv(path: str, metrics: Dict[str, float], epoch: int, batch_number: int) -> None:
     """Append one row (time, epoch, batch_number, metrics by sorted name);
     the header is written with the first row."""
+    if not multihost.is_primary():
+        return
     exists = os.path.exists(path)
     with open(path, "a", newline="", encoding="utf-8") as f:
         w = csv.writer(f)

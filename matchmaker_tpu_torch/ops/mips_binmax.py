@@ -41,6 +41,12 @@ and K8's conversion of the codes to bf16 and its score order, are emulated
 on the CPU in ``tests/test_torch_binmax_selection.py``); K7 is
 bit-identical to its plain version, K8 wherever its f32 sums are exact.
 
+Over a mesh (parallel/mesh.py), :func:`sharded_binmax_topk` and
+:func:`sharded_binmax_rescore_topk` launch the scan once a shard on its row
+view, each shard with its own validity bound (``valid_bound``: torch
+operations on the candidates around the same launches), and merge the
+(Q, k) partials into one top-k.
+
 The final top-k is ``torch.topk``, as JAX leaves it to XLA.
 :func:`binmax_rescore_topk` rescores an int8 scan's oversampled candidates
 exactly (a gather and a bf16 product with f32 sums in torch ops, as JAX
@@ -57,6 +63,7 @@ import torch.nn.functional as F
 
 from matchmaker_tpu_torch.ops import _build, matmul_codes, matmul_f32
 from matchmaker_tpu_torch.ops.mips_quant import quantize_queries
+from matchmaker_tpu_torch.parallel.mesh import Mesh, ShardedRows, merge_topk, n_shards, pad_partial
 
 BIN_WIDTH = 128
 LANE_BITS = 7
@@ -366,20 +373,45 @@ def unpack_candidates(packed_vals: torch.Tensor, positions: torch.Tensor, tile_r
     return fn(packed_vals, positions, tile_rows, per_bin, level2)
 
 
+def _column_bin_starts(n_cols: int, tile_rows: int, per_bin: int, level2: Optional[int],
+                       device: torch.device) -> torch.Tensor:
+    """The first corpus row of the earliest bin each candidate column can
+    carry, from the candidate layout alone (a level-2 column spans
+    ``level2`` level-1 columns: the least of their bins' starts)."""
+    nb = tile_rows // BIN_WIDTH
+    cols = torch.arange(n_cols, device=device)
+    if level2:
+        nb2 = _L2_BLOCK // level2
+        first = cols // (nb2 * LEVEL2_PER_BIN) * _L2_BLOCK + cols % nb2 * level2
+        span = first[:, None] + torch.arange(level2, device=device)[None, :]
+    else:
+        span = cols[:, None]
+    return (span // (per_bin * nb) * tile_rows + span % nb * BIN_WIDTH).amin(dim=1)
+
+
 def binmax_scan_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                      n_valid: Optional[int] = None, per_bin: int = 2,
                      tile_rows: int = 2048, corpus_scales: Optional[torch.Tensor] = None,
-                     mixed_queries: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                     mixed_queries: bool = False, valid_bound: Optional[int] = None,
+                     gate_rows: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k over a bf16 (or int8 + bin scales) corpus: candidate scan + one
     exact top-k; the same (values, ids) contract as :func:`f16_scan_topk`
     (ids int64, -1 for empty slots). The tournament level follows the real
-    pool size (``n_valid`` rows), as in JAX. Over an int8 corpus, float
-    queries are quantized per row here (scale max(absmax / 127, 1e-10)),
-    unless ``mixed_queries`` keeps them bf16 against the codes."""
+    pool size (``gate_rows``, else ``n_valid`` rows), as in JAX. Over an
+    int8 corpus, float queries are quantized per row here (scale
+    max(absmax / 127, 1e-10)), unless ``mixed_queries`` keeps them bf16
+    against the codes.
+
+    ``valid_bound`` (the sharded search's): every candidate column whose
+    bins all start at or past this row is set to -inf before the top-k, so
+    a tail shard's wholly padded bins (zero rows score 0.0) cannot displace
+    real hits below zero; a torch operation on the candidates, the kernels
+    unchanged."""
     query_scales = None
     if corpus.dtype == torch.int8 and not mixed_queries:
         queries, query_scales = quantize_queries(queries)
-    n_cands = (corpus.shape[0] if n_valid is None else n_valid) // BIN_WIDTH * per_bin
+    basis = gate_rows if gate_rows is not None else (corpus.shape[0] if n_valid is None else n_valid)
+    n_cands = basis // BIN_WIDTH * per_bin
     if n_cands >= 128 * k:
         level2 = L2_WIDE
     elif n_cands >= 16 * k:
@@ -389,6 +421,9 @@ def binmax_scan_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     packed = binmax_candidates(queries, corpus, n_valid=n_valid, per_bin=per_bin,
                                tile_rows=tile_rows, level2=level2, corpus_scales=corpus_scales,
                                query_scales=query_scales)
+    if valid_bound is not None and valid_bound < corpus.shape[0]:
+        starts = _column_bin_starts(packed.shape[1], tile_rows, per_bin, level2, packed.device)
+        packed = torch.where(starts[None, :] < valid_bound, packed, _NEG_INF)
     top_packed, pos = torch.topk(packed, min(k, packed.shape[1]), dim=1)
     if top_packed.is_cuda:  # topk's outputs are what K6 takes
         return _unpack_launch(top_packed, pos, tile_rows, per_bin, level2)
@@ -402,7 +437,8 @@ _RESCORE_GATHER_ELEMENTS = 1 << 26
 def binmax_rescore_topk(queries: torch.Tensor, values: torch.Tensor, bin_scales: torch.Tensor, k: int,
                         oversample: int = 4, per_bin: int = 4, n_valid: Optional[int] = None,
                         rescore_corpus: Optional[torch.Tensor] = None,
-                        tile_rows: int = 2048) -> Tuple[torch.Tensor, torch.Tensor]:
+                        tile_rows: int = 2048, valid_bound: Optional[int] = None,
+                        gate_rows: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Int8 binmax candidates + an exact rescore of oversample·k of them.
 
     The int8 scan (K7) fetches the candidates; each fetched row is then
@@ -413,7 +449,8 @@ def binmax_rescore_topk(queries: torch.Tensor, values: torch.Tensor, bin_scales:
     pool = max((n // BIN_WIDTH) * per_bin, 1)
     fetch = min(max(k * oversample, k), n, max(pool, k))
     cand_vals, cand_idx = binmax_scan_topk(queries, values, fetch, n_valid=n_valid, per_bin=per_bin,
-                                           tile_rows=tile_rows, corpus_scales=bin_scales)
+                                           tile_rows=tile_rows, corpus_scales=bin_scales,
+                                           valid_bound=valid_bound, gate_rows=gate_rows)
     valid = torch.isfinite(cand_vals) & (cand_idx >= 0)
     safe = cand_idx.clamp(0, n - 1)
     qf = queries.to(torch.bfloat16)
@@ -436,3 +473,62 @@ def binmax_rescore_topk(queries: torch.Tensor, values: torch.Tensor, bin_scales:
         vals = F.pad(vals, (0, k - k_eff), value=_NEG_INF)
         idx = F.pad(idx, (0, k - k_eff), value=-1)
     return vals, idx
+
+
+def _sharded_binmax(scan, queries: torch.Tensor, corpus: ShardedRows, k: int, n_valid: Optional[int],
+                    extras) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's per-shard composition: each shard scans its rows
+    with its own local validity bound, its partial keeps only ids before
+    ``n_valid`` (a boundary bin's padded rows), -1 on every -inf slot, ids
+    shifted by the shard's first row; then one merge."""
+    rows = corpus.rows
+    n_valid = corpus.rows * corpus.n_shards if n_valid is None else n_valid
+    partials = []
+    for s, part in corpus:
+        base = s * rows
+        local_valid = min(max(n_valid - base, 0), rows)
+        # gate on the fullest shard's real fill (rows are contiguous: shard 0's)
+        vals, idx = scan(queries.to(part.device), part, *(e[s - corpus.first] for e in extras),
+                         n_valid=rows, valid_bound=local_valid, gate_rows=min(rows, n_valid))
+        vals = torch.where((idx >= 0) & (idx + base < n_valid), vals, _NEG_INF)
+        vals, idx = pad_partial(vals, idx, k)
+        partials.append((vals, torch.where(torch.isfinite(vals) & (idx >= 0), idx + base, -1)))
+    return merge_topk(partials, k, queries.device)
+
+
+def sharded_binmax_topk(queries: torch.Tensor, corpus, k: int, mesh: Optional[Mesh] = None,
+                        n_valid: Optional[int] = None, corpus_scales=None,
+                        **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The binmax scan over a corpus row-sharded over ``mesh`` (a
+    :class:`ShardedRows`, with ``corpus_scales`` sharded alike for an int8
+    corpus; plain tensors without a mesh of more than one entry): one scan
+    launch a shard, each with its local bound (``valid_bound``), a
+    (Q, k) partial a shard, one merge. As in the JAX package, a boundary
+    bin can leave up to per_bin·(1 + 8) of its padded rows' slots at -inf
+    in a tail shard's partial."""
+    if n_shards(mesh) <= 1:
+        return binmax_scan_topk(queries, corpus, k, n_valid=n_valid, corpus_scales=corpus_scales, **kw)
+
+    def scan(q, part, *scales, **local):
+        return binmax_scan_topk(q, part, k, corpus_scales=scales[0] if scales else None, **local, **kw)
+
+    return _sharded_binmax(scan, queries, corpus, k, n_valid,
+                           [corpus_scales.parts] if corpus_scales is not None else [])
+
+
+def sharded_binmax_rescore_topk(queries: torch.Tensor, values, bin_scales, k: int, mesh: Optional[Mesh] = None,
+                                n_valid: Optional[int] = None, rescore_corpus=None,
+                                **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 scan + exact rescore over a row-sharded corpus: both stages
+    a shard on its rows (``values``, ``bin_scales`` and ``rescore_corpus``
+    :class:`ShardedRows` alike), one merge."""
+    if n_shards(mesh) <= 1:
+        return binmax_rescore_topk(queries, values, bin_scales, k, n_valid=n_valid, rescore_corpus=rescore_corpus,
+                                   **kw)
+
+    def scan(q, part, scales, *rescore, **local):
+        return binmax_rescore_topk(q, part, scales, k, rescore_corpus=rescore[0] if rescore else None, **local,
+                                   **kw)
+
+    extras = [bin_scales.parts] + ([rescore_corpus.parts] if rescore_corpus is not None else [])
+    return _sharded_binmax(scan, queries, values, k, n_valid, extras)

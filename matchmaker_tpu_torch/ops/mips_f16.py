@@ -10,7 +10,9 @@ the lower row (``ops.topk_lowest_first``). With ``block_size`` the corpus is
 scanned in blocks of that many rows, each block's top-k merged by one more
 top-k, so the (Q, rows) scores never exist at once. The top-k is exact: the
 JAX package's ``approx=True`` (``lax.approx_max_k``, a TPU hardware top-k)
-has no counterpart here.
+has no counterpart here. :func:`sharded_f16_scan_topk` runs the scan a
+shard over a row-sharded corpus, each shard masked at its local validity
+bound, and merges the partials (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from matchmaker_tpu_torch.ops import matmul_f32, topk_lowest_first
+from matchmaker_tpu_torch.parallel.mesh import Mesh, merge_topk, n_shards, pad_partial
 
 
 def f16_scan_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int, n_valid: Optional[int] = None,
@@ -45,3 +48,24 @@ def f16_scan_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int, n_valid: 
         return vals[0], ids[0]
     v, pos = topk_lowest_first(torch.cat(vals, dim=1), k)
     return v, torch.gather(torch.cat(ids, dim=1), 1, pos)
+
+
+def sharded_f16_scan_topk(queries: torch.Tensor, corpus, k: int, mesh: Optional[Mesh] = None,
+                          n_valid: Optional[int] = None,
+                          block_size: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`f16_scan_topk` over a corpus row-sharded over ``mesh`` (a
+    :class:`ShardedRows`; a plain tensor without a mesh of more than one
+    entry): a shard's rows past the global ``n_valid`` never enter its
+    partial, whose -inf slots carry id -1."""
+    if n_shards(mesh) <= 1:
+        return f16_scan_topk(queries, corpus, k, n_valid=n_valid, block_size=block_size)
+    rows = corpus.rows
+    n_valid = rows * corpus.n_shards if n_valid is None else n_valid
+    partials = []
+    for s, part in corpus:
+        base = s * rows
+        local_valid = min(max(n_valid - base, 0), rows)
+        vals, idx = pad_partial(*f16_scan_topk(queries.to(part.device), part, k, n_valid=local_valid,
+                                               block_size=block_size), k)
+        partials.append((vals, torch.where(torch.isfinite(vals) & (idx >= 0), idx + base, -1)))
+    return merge_topk(partials, k, queries.device)

@@ -19,6 +19,9 @@ checked) with TF32 kept out (``ops.matmul_codes``). The top-k is exact,
 ties to the lower row as in JAX (``ops.topk_lowest_first``); the JAX
 package's ``approx=True`` (``lax.approx_max_k``, a TPU hardware
 top-k) has no counterpart here, so ``mips_approx_topk`` changes nothing.
+:func:`sharded_quantized_topk` runs the scan a shard over a row-sharded
+corpus (per-row scales sharded alike, a global scale on every shard) and
+merges the partials (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from matchmaker_tpu_torch.ops import matmul_codes, over_127, topk_lowest_first
+from matchmaker_tpu_torch.parallel.mesh import Mesh, ShardedRows, merge_topk, n_shards, pad_partial
 
 
 # rows a block of the host's row-parallel work (a few MB of f32 rows at 768 wide)
@@ -117,8 +121,10 @@ def quantized_blocked_topk(
     k: int,
     block_size: int = 131072,
     n_valid: Optional[int] = None,
+    index_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact blocked top-k over an int8 corpus, (values (Q, k), int64 ids).
+    """Exact blocked top-k over an int8 corpus, (values (Q, k), int64 ids
+    shifted by ``index_offset``).
 
     The queries are quantized per row too, so the product is int8 × int8 and
     scores are rescaled by both sides' scales. ``n_valid`` masks zero-padded
@@ -150,7 +156,30 @@ def quantized_blocked_topk(
     all_vals = torch.cat(block_vals, dim=1)
     all_idx = torch.cat(block_idx, dim=1)
     vals, pos = topk_lowest_first(all_vals, min(k, all_vals.shape[1]))
-    idx = torch.gather(all_idx, 1, pos)
+    idx = torch.gather(all_idx, 1, pos) + index_offset
     if global_scale:
         vals = vals * scales * q_scale
     return vals, idx
+
+
+def sharded_quantized_topk(queries: torch.Tensor, values, scales, k: int, mesh: Optional[Mesh] = None,
+                           block_size: int = 131072,
+                           n_valid: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantized_blocked_topk` over a corpus row-sharded over
+    ``mesh`` (``values`` and per-row ``scales`` :class:`ShardedRows`, or a
+    0-d global scale; plain tensors without a mesh of more than one entry),
+    each shard masked at its local validity bound, -1 on its -inf slots."""
+    if n_shards(mesh) <= 1:
+        return quantized_blocked_topk(queries, values, scales, k, block_size=block_size, n_valid=n_valid)
+    rows = values.rows
+    n_valid = rows * values.n_shards if n_valid is None else n_valid
+    partials = []
+    for i, (s, part) in enumerate(values):
+        base = s * rows
+        local_valid = min(max(n_valid - base, 0), rows)
+        shard_scales = scales.parts[i] if isinstance(scales, ShardedRows) else scales.to(part.device)
+        vals, idx = pad_partial(*quantized_blocked_topk(queries.to(part.device), part, shard_scales, k,
+                                                        block_size=block_size, n_valid=local_valid,
+                                                        index_offset=base), k)
+        partials.append((vals, torch.where(torch.isfinite(vals), idx, -1)))
+    return merge_topk(partials, k, queries.device)

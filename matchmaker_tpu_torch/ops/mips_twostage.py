@@ -12,7 +12,9 @@ that module has no Pallas kernel).
            the lower stage-1 rank (``ops.topk_lowest_first``).
 
 Plain PyTorch: the rescore is a batched full-f32 product (``ops.matmul_f32``,
-no TF32) of the gathered (Q, fetch, D) rows.
+no TF32) of the gathered (Q, fetch, D) rows. :func:`sharded_twostage_topk`
+runs both stages a shard on its rows and merges the partials
+(parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 
 from matchmaker_tpu_torch.ops import matmul_f32, topk_lowest_first
 from matchmaker_tpu_torch.ops.mips_quant import quantized_blocked_topk
+from matchmaker_tpu_torch.parallel.mesh import Mesh, ShardedRows, merge_topk, n_shards, pad_partial
 
 
 def twostage_exact_topk(
@@ -58,3 +61,28 @@ def twostage_exact_topk(
         vals = F.pad(vals, (0, k - k_eff), value=float("-inf"))
         idx = F.pad(idx, (0, k - k_eff), value=-1)
     return vals, idx
+
+
+def sharded_twostage_topk(queries: torch.Tensor, values, scales, k: int, mesh: Optional[Mesh] = None,
+                          rescore_corpus=None, n_valid: Optional[int] = None,
+                          **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`twostage_exact_topk` over a corpus row-sharded over ``mesh``
+    (``values``, per-row ``scales`` and ``rescore_corpus``
+    :class:`ShardedRows` alike, or a 0-d global scale; plain tensors without
+    a mesh of more than one entry): both stages a shard, each masked at its
+    local validity bound, one merge."""
+    if n_shards(mesh) <= 1:
+        return twostage_exact_topk(queries, values, scales, k, rescore_corpus=rescore_corpus, n_valid=n_valid,
+                                   **kw)
+    rows = values.rows
+    n_valid = rows * values.n_shards if n_valid is None else n_valid
+    partials = []
+    for i, (s, part) in enumerate(values):
+        base = s * rows
+        local_valid = min(max(n_valid - base, 0), rows)
+        shard_scales = scales.parts[i] if isinstance(scales, ShardedRows) else scales.to(part.device)
+        vals, idx = pad_partial(*twostage_exact_topk(
+            queries.to(part.device), part, shard_scales, k, n_valid=local_valid,
+            rescore_corpus=rescore_corpus.parts[i] if rescore_corpus is not None else None, **kw), k)
+        partials.append((vals, torch.where(torch.isfinite(vals) & (idx >= 0), idx + base, -1)))
+    return merge_topk(partials, k, queries.device)

@@ -5,10 +5,16 @@
 Multi-vector models (ColBERT's per-token vectors) keep each sequence's
 non-zero rows (the first row of a sequence without one), as the JAX package
 does.
+
+Under a process group (parallel/multihost.py) each process encodes every
+N-th batch, the batches of a round are gathered in batch order, and the
+primary process alone writes the blocks, so the files are those of one
+process; every process returns the same ``doc_infos``.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 from typing import Callable, Dict, Optional, Tuple
@@ -18,6 +24,7 @@ import torch
 
 from matchmaker_tpu_torch.data.loaders import device_prefetch, single_sequence_loader
 from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
+from matchmaker_tpu_torch.parallel import multihost
 
 
 class BlockWriter:
@@ -50,8 +57,9 @@ class BlockWriter:
     def flush(self) -> None:
         if self._block is None:
             return
-        np.save(os.path.join(self.folder, f"token_reps_{self.block_num}.npy"),
-                self._block[:self.row_in_block])
+        if multihost.is_primary():  # one writer; every process keeps the same count
+            np.save(os.path.join(self.folder, f"token_reps_{self.block_num}.npy"),
+                    self._block[:self.row_in_block])
         self.block_num += 1
         self.row_in_block = 0
         self._block = None
@@ -71,8 +79,7 @@ def encode_corpus(encode_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor
 
     loader = single_sequence_loader(config, tokenizer, input_path, sequence_type)
     perf.start_block("encode")
-    for batch, seq_ids in device_prefetch(loader, device):
-        reps = encode_fn(batch["seq_ids"], batch["seq_mask"])[:len(seq_ids)].float().cpu().numpy()
+    for seq_ids, reps in _encoded_batches(encode_fn, loader, device):
         if writer is None:
             writer = BlockWriter(out_folder, reps.shape[-1], block_rows, dtype)
         if reps.ndim == 3:
@@ -94,15 +101,34 @@ def encode_corpus(encode_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor
     writer.flush()
     perf.stop_block("encode", n_seqs)
 
-    np.savez_compressed(
-        os.path.join(out_folder, "doc_infos.npz"),
-        ids=np.array(list(doc_infos.keys())),
-        spans=np.array(list(doc_infos.values()), dtype=np.int64),
-    )
-    with open(os.path.join(out_folder, "encode_meta.json"), "w") as f:
-        json.dump({"dim": writer.dim, "dtype": str(np.dtype(dtype)), "blocks": writer.block_num,
-                   "sequences": n_seqs}, f)
+    if multihost.is_primary():
+        np.savez_compressed(
+            os.path.join(out_folder, "doc_infos.npz"),
+            ids=np.array(list(doc_infos.keys())),
+            spans=np.array(list(doc_infos.values()), dtype=np.int64),
+        )
+        with open(os.path.join(out_folder, "encode_meta.json"), "w") as f:
+            json.dump({"dim": writer.dim, "dtype": str(np.dtype(dtype)), "blocks": writer.block_num,
+                       "sequences": n_seqs}, f)
+    multihost.barrier()  # the files are there for every process
     return doc_infos
+
+
+def _encoded_batches(encode_fn, loader, device):
+    """(sequence ids, host vectors) of every batch in order; under a process
+    group each process encodes every N-th batch and a round's batches are
+    gathered on every process."""
+    n_proc, rank = multihost.process_count(), multihost.process_index()
+    batches = device_prefetch(itertools.islice(loader, rank, None, n_proc), device)
+    while True:
+        item = next(batches, None)
+        if item is not None:
+            batch, seq_ids = item
+            item = (list(seq_ids), encode_fn(batch["seq_ids"], batch["seq_mask"])[:len(seq_ids)].float().cpu().numpy())
+        round_items = multihost.all_gather_objects(item)
+        if all(r is None for r in round_items):
+            return
+        yield from (r for r in round_items if r is not None)
 
 
 def load_encoded(folder: str) -> Tuple[np.ndarray, np.ndarray]:

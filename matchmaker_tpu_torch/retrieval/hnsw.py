@@ -105,10 +105,10 @@ def load_hnsw_library() -> ctypes.CDLL:
 
 class HNSWIndex(BaseNNIndexer):
     """Native HNSW over the corpus vectors (f32, on the host); ids resolved
-    on the host. ``device`` is accepted for the factory's signature: the
-    graph has no device part."""
+    on the host. ``device`` and ``mesh`` are accepted for the factory's
+    signature: the graph has no device part."""
 
-    def __init__(self, config=None, device="cuda"):
+    def __init__(self, config=None, device="cuda", mesh=None):
         super().__init__(config, device)
         config = config or {}
         self.m = config.get("faiss_hnsw_graph_neighbors", 16)

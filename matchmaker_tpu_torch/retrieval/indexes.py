@@ -65,9 +65,21 @@ JAX's (``jax.random``) differ.
 
 The top-k of the IVF, tree-AH, streaming, float16-scan and int8-scan
 routes puts the lower row first among equal scores, as ``jax.lax.top_k``
-does (``ops.topk_lowest_first``). Not ported: the mesh
-(multi-device) paths, and ``mips_approx_topk`` (``lax.approx_max_k``, a TPU
-hardware top-k: the port's top-k is exact, ROADMAP.md).
+does (``ops.topk_lowest_first``). Not ported: ``mips_approx_topk``
+(``lax.approx_max_k``, a TPU hardware top-k: the port's top-k is exact,
+ROADMAP.md).
+
+Over a mesh of more than one entry (parallel/mesh.py, ``mesh=``), as in the
+JAX package: ``FlatIndex`` pads the rows to the shard count times each
+route's grain and keeps every route's storage as row shards, each searched
+on its own device by the route's sharded op (ops/mips*.py: one scan launch
+a shard on the binmax routes), the (Q, k) partials merged into one top-k;
+``IVFIndex`` cuts the clusters into contiguous ranges of about equal rows,
+one a shard, each with its own CSR, probes the global nprobe best
+centroids, gathers each shard's own probed rows into a budget of 2 x
+slack x nprobe x the mean cluster / shards (at least the largest cluster),
+scores them in f32 and merges the shards' top-k; ``ScaNNTreeAHIndex``
+routes to that sharded IVF search (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -80,11 +92,13 @@ import numpy as np
 import torch
 
 from matchmaker_tpu_torch.ops import matmul_f32, topk_lowest_first
-from matchmaker_tpu_torch.ops.mips import blocked_topk_scores
-from matchmaker_tpu_torch.ops.mips_binmax import BIN_WIDTH, binmax_rescore_topk, binmax_scan_topk, padding_grain
-from matchmaker_tpu_torch.ops.mips_f16 import f16_scan_topk
-from matchmaker_tpu_torch.ops.mips_quant import quantize_corpus, quantize_corpus_binwise, quantized_blocked_topk
-from matchmaker_tpu_torch.ops.mips_twostage import twostage_exact_topk
+from matchmaker_tpu_torch.ops.mips import sharded_topk_mips
+from matchmaker_tpu_torch.ops.mips_binmax import (BIN_WIDTH, padding_grain, sharded_binmax_rescore_topk,
+                                                  sharded_binmax_topk)
+from matchmaker_tpu_torch.ops.mips_f16 import sharded_f16_scan_topk
+from matchmaker_tpu_torch.ops.mips_quant import quantize_corpus, quantize_corpus_binwise, sharded_quantized_topk
+from matchmaker_tpu_torch.ops.mips_twostage import sharded_twostage_topk
+from matchmaker_tpu_torch.parallel.mesh import Mesh, ShardedRows, host_rows, merge_topk, n_shards, shard_rows
 
 
 def gather_ids(ids_array: np.ndarray, idx: np.ndarray, row_count: int, scores: np.ndarray):
@@ -125,11 +139,22 @@ class BaseNNIndexer:
         raise NotImplementedError
 
 
-class FlatIndex(BaseNNIndexer):
-    """MIPS over the full corpus matrix on one device."""
+def _rows_of_bins(scales):
+    """(N/128, 1) bin scales → (N,) row scales (each shard's over a mesh)."""
+    if isinstance(scales, ShardedRows):
+        return ShardedRows([_rows_of_bins(p) for p in scales.parts], scales.rows * BIN_WIDTH, scales.first,
+                           scales.n_shards)
+    return scales[:, 0].repeat_interleave(BIN_WIDTH)
 
-    def __init__(self, config=None, device="cuda"):
-        super().__init__(config, device)
+
+class FlatIndex(BaseNNIndexer):
+    """MIPS over the full corpus matrix, on one device or row-sharded over a
+    mesh of more than one entry (module docstring)."""
+
+    def __init__(self, config=None, device="cuda", mesh: Optional[Mesh] = None):
+        super().__init__(config, mesh.local_devices[0] if mesh is not None else device)
+        self.mesh = mesh
+        self.n_shards = n_shards(mesh)
         config = config or {}
         quant = config.get("mips_quantization", "none")
         self.mips_kernel = config.get("mips_kernel", "binmax")
@@ -166,40 +191,53 @@ class FlatIndex(BaseNNIndexer):
             self._vectors = self._vectors[perm]
         self._device_vectors = None
 
+    def _grain(self) -> int:
+        """Rows the corpus pads to a multiple of: one grain a shard for the
+        binmax routes (per_bin 2..8, so the scan never re-pads), else the
+        shard count."""
+        if not self.binmax:
+            return self.n_shards
+        pbs = [self.per_bin_override] if self.per_bin_override else [2, 4, 8]
+        return self.n_shards * max(padding_grain(self.tile_rows, pb) for pb in pbs)
+
     def _ensure_device(self) -> None:
+        """Every route's storage, as the JAX FlatIndex places it: the rows
+        padded to ``_grain()``, in the route's dtype or as int8 codes with
+        their scales, on the device, or as row shards over the mesh
+        (parallel/mesh.py:shard_rows)."""
         if self._device_vectors is not None:
             return
         vectors = self._vectors
-        self._row_count = vectors.shape[0]
-        if self.binmax:
-            # one grain for per_bin 2..8, so the scan never re-pads the corpus
-            pbs = [self.per_bin_override] if self.per_bin_override else [2, 4, 8]
-            grain = max(padding_grain(self.tile_rows, pb) for pb in pbs)
-            pad_to = grain * -(-vectors.shape[0] // grain)
-        if self.binmax and self.quantized:
-            padded = np.zeros((pad_to, vectors.shape[1]), dtype=np.float32)
-            padded[:vectors.shape[0]] = vectors
-            values, bin_scales = quantize_corpus_binwise(padded)
-            rescore = None
-            if self.twostage and self.rescore_dtype == "float16":
-                rescore = torch.from_numpy(padded).to(self.device).to(torch.bfloat16)
-            self._device_vectors = (torch.from_numpy(values).to(self.device),
-                                    torch.from_numpy(bin_scales).to(self.device), rescore)
-        elif self.binmax:
-            dev = torch.zeros((pad_to, vectors.shape[1]), dtype=torch.bfloat16, device=self.device)
-            dev[:vectors.shape[0]] = torch.from_numpy(np.ascontiguousarray(vectors)).to(self.device).to(torch.bfloat16)
-            self._device_vectors = dev
-        elif self.quantized:
-            values, scales = quantize_corpus(vectors, per_row=not self.global_scale)
-            rescore = None
-            if self.twostage and self.rescore_dtype == "float16":
-                rescore = torch.from_numpy(np.ascontiguousarray(vectors, dtype=np.float16)).to(self.device)
-            self._device_vectors = (torch.from_numpy(values).to(self.device),
-                                    torch.from_numpy(np.asarray(scales)).to(self.device), rescore)
-        elif self.f16_scan:
-            self._device_vectors = torch.from_numpy(np.ascontiguousarray(vectors, dtype=np.float16)).to(self.device)
+        n = self._row_count = vectors.shape[0]
+        pad_to = self._grain() * -(-n // self._grain())
+
+        def put(a, dtype=None, padded_rows=None):
+            """Host rows (zero rows up to ``padded_rows`` added on the device)."""
+            if self.n_shards > 1:
+                return shard_rows(self.mesh, a, dtype, padded_rows)
+            src = host_rows(a, dtype)
+            out = torch.zeros((padded_rows or len(a),) + tuple(src.shape[1:]), dtype=dtype or src.dtype,
+                              device=self.device)
+            out[:len(a)] = src.to(self.device)
+            return out
+
+        if self.quantized:
+            padded = np.asarray(vectors, dtype=np.float32)
+            if pad_to != n:
+                padded = np.zeros((pad_to, vectors.shape[1]), dtype=np.float32)
+                padded[:n] = vectors
+            f16_rescore = self.twostage and self.rescore_dtype == "float16"
+            if self.binmax:
+                values, scales = quantize_corpus_binwise(padded)
+                rescore = put(padded, torch.bfloat16) if f16_rescore else None
+            else:
+                values, scales = quantize_corpus(padded, per_row=not self.global_scale)
+                rescore = put(padded.astype(np.float16)) if f16_rescore else None
+            scales = put(scales) if np.ndim(scales) else torch.from_numpy(np.asarray(scales)).to(self.device)
+            self._device_vectors = (put(values), scales, rescore)
         else:
-            self._device_vectors = torch.from_numpy(np.ascontiguousarray(vectors, dtype=np.float32)).to(self.device)
+            dtype = torch.bfloat16 if self.binmax else (torch.float16 if self.f16_scan else torch.float32)
+            self._device_vectors = put(vectors, dtype, pad_to)
 
     def _per_bin(self, k: int) -> Optional[int]:
         """binmax geometry for k, or None for the exact fallback: the pool
@@ -214,43 +252,44 @@ class FlatIndex(BaseNNIndexer):
         return per_bin
 
     def _search_device(self, q: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        corpus, rows = self._device_vectors, self._row_count
+        """Every route (module docstring), as the JAX FlatIndex runs it:
+        over a mesh each shard's search on its own device and one merge;
+        without one, the sharded ops take their unsharded paths."""
         if self.quantized:
             return self._search_int8(q, k)
+        corpus, rows, mesh = self._device_vectors, self._row_count, self.mesh
+        scan_block = self.block_size if rows > self.block_size else None
         if self.f16_scan and not self.binmax:
-            return f16_scan_topk(q, corpus, k, n_valid=rows,
-                                 block_size=self.block_size if rows > self.block_size else None)
+            return sharded_f16_scan_topk(q, corpus, k, mesh, n_valid=rows, block_size=scan_block)
         if not self.binmax:
-            return blocked_topk_scores(q, corpus, k, self.block_size)
+            return sharded_topk_mips(q, corpus, k, mesh, self.block_size)
         per_bin = self._per_bin(k)
         if per_bin is None:
-            return f16_scan_topk(q, corpus, k, n_valid=rows)
-        return binmax_scan_topk(q, corpus, k, n_valid=rows, per_bin=per_bin, tile_rows=self.tile_rows)
+            return sharded_f16_scan_topk(q, corpus, k, mesh, n_valid=rows, block_size=scan_block)
+        return sharded_binmax_topk(q, corpus, k, mesh, n_valid=rows, per_bin=per_bin, tile_rows=self.tile_rows)
 
     def _search_int8(self, q: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The int8 routes (module docstring), as the JAX FlatIndex runs them
-        on one device."""
-        rows = self._row_count
+        """The int8 routes (module docstring)."""
+        values, scales, rescore = self._device_vectors
+        mesh, rows = self.mesh, self._row_count
         if not self.binmax:
-            values, scales, rescore = self._device_vectors
             if self.twostage:
-                return twostage_exact_topk(q, values, scales, k, oversample=self.oversample,
-                                           block_size=self.block_size, rescore_corpus=rescore, n_valid=rows)
-            return quantized_blocked_topk(q, values, scales, k, block_size=self.block_size, n_valid=rows)
-        values, bin_scales, rescore = self._device_vectors
+                return sharded_twostage_topk(q, values, scales, k, mesh, rescore_corpus=rescore, n_valid=rows,
+                                             oversample=self.oversample, block_size=self.block_size)
+            return sharded_quantized_topk(q, values, scales, k, mesh, block_size=self.block_size, n_valid=rows)
         per_bin = self._per_bin(k)
-        if per_bin is None:  # exact int8 scan over the bin scales expanded to rows
-            row_scales = bin_scales[:, 0].repeat_interleave(BIN_WIDTH)[:values.shape[0]]
-            return quantized_blocked_topk(q, values, row_scales, k, block_size=self.block_size, n_valid=rows)
+        if per_bin is None:  # the exact int8 scan over the bin scales expanded to rows
+            return sharded_quantized_topk(q, values, _rows_of_bins(scales), k, mesh, block_size=self.block_size,
+                                          n_valid=rows)
         geom = dict(n_valid=rows, tile_rows=self.tile_rows)
         if self.int8_queries == "float":
-            return binmax_scan_topk(q, values, k, per_bin=per_bin, corpus_scales=bin_scales, mixed_queries=True,
-                                    **geom)
+            return sharded_binmax_topk(q, values, k, mesh, per_bin=per_bin, corpus_scales=scales, mixed_queries=True,
+                                       **geom)
         if self.twostage:
             # in-bin candidate loss needs per_bin >= 4; the rescore undoes the quantized ranking
-            return binmax_rescore_topk(q, values, bin_scales, k, oversample=self.oversample,
-                                       per_bin=max(per_bin, 4), rescore_corpus=rescore, **geom)
-        return binmax_scan_topk(q, values, k, per_bin=per_bin, corpus_scales=bin_scales, **geom)
+            return sharded_binmax_rescore_topk(q, values, scales, k, mesh, per_bin=max(per_bin, 4),
+                                               oversample=self.oversample, rescore_corpus=rescore, **geom)
+        return sharded_binmax_topk(q, values, k, mesh, per_bin=per_bin, corpus_scales=scales, **geom)
 
     def search_rows(self, queries: np.ndarray, top_n: int) -> Tuple[np.ndarray, np.ndarray]:
         """Like :meth:`search` but returns raw row indices (-1 for padded or
@@ -427,12 +466,26 @@ _TORCH_DTYPES = {np.dtype(np.float16): torch.float16, np.dtype(np.float32): torc
 IVF_GATHER_BYTES = 1e9
 
 
+def _probed_slots(starts: torch.Tensor, lens: torch.Tensor, budget: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each query's probed clusters (CSR ``starts``, ``lens``, best probe
+    first) laid out in ``budget`` slots: slot j falls in the probe whose
+    prefix of sizes it passes. → (sorted-row index (Q, budget), 0 where
+    invalid; valid (Q, budget))."""
+    prefix = torch.cat([torch.zeros_like(lens[:, :1]), torch.cumsum(lens, dim=1)], dim=1)
+    slots = torch.arange(budget, device=lens.device).expand(lens.shape[0], budget).contiguous()
+    seg = (torch.searchsorted(prefix, slots, right=True) - 1).clamp(0, lens.shape[1] - 1)
+    idx = torch.gather(starts, 1, seg) + (slots - torch.gather(prefix, 1, seg))
+    valid = slots < prefix[:, -1:]
+    return torch.where(valid, idx, 0), valid
+
+
 class IVFIndex(BaseNNIndexer):
     """Inverted-file index: k-means centroids + the corpus sorted by cluster
     (CSR: no padding, the flat footprint). See the module docstring."""
 
-    def __init__(self, config=None, device="cuda"):
-        super().__init__(config, device)
+    def __init__(self, config=None, device="cuda", mesh: Optional[Mesh] = None):
+        super().__init__(config, mesh.local_devices[0] if mesh is not None else device)
+        self.mesh = mesh
         config = config or {}
         self.n_clusters = config.get("faiss_ivf_list_count", 100)
         self.nprobe = config.get("faiss_ivf_nprobe", 8)
@@ -447,6 +500,7 @@ class IVFIndex(BaseNNIndexer):
         self._offsets: Optional[np.ndarray] = None  # (C + 1,) cluster starts in the sorted rows
         self._ids: Optional[np.ndarray] = None
         self._dev: dict = {}
+        self._shards: Optional[dict] = None  # the per-shard CSR of a sharded search, built at first use
 
     def index(self, ids: np.ndarray, vectors: np.ndarray) -> None:
         self._ids = np.asarray(ids)
@@ -471,6 +525,7 @@ class IVFIndex(BaseNNIndexer):
         self._offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
         self.n_clusters_eff = k
         self._dev = {}
+        self._shards = None
 
     def _max_cluster_rows(self) -> int:
         return int(np.diff(self._offsets).max()) if self._offsets is not None else 0
@@ -512,22 +567,13 @@ class IVFIndex(BaseNNIndexer):
 
     def _candidates(self, qc: torch.Tensor, nprobe: int, r_budget: int):
         """Probe the nprobe best centroids (best first) and lay each query's
-        probed rows out in a row budget: → (centroid scores (Qc, C), sorted-row
-        index (Qc, R), valid (Qc, R)); slot j of a query falls in the probe
-        whose prefix of cluster sizes it passes."""
+        probed rows out in a row budget (``_probed_slots``): → (centroid
+        scores (Qc, C), sorted-row index (Qc, R), valid (Qc, R))."""
         centroids, offsets = self._device_state("centroids", "offsets")
         cent_scores = matmul_f32(qc, centroids.T)
         _, probe = topk_lowest_first(cent_scores, nprobe)
         starts = offsets[probe]
-        lens = offsets[probe + 1] - starts
-        prefix = torch.cat([torch.zeros_like(lens[:, :1]), torch.cumsum(lens, dim=1)], dim=1)
-        total = prefix[:, -1]
-        j = torch.arange(r_budget, device=qc.device)
-        seg = torch.searchsorted(prefix, j.expand(qc.shape[0], r_budget).contiguous(), right=True) - 1
-        seg = seg.clamp(0, nprobe - 1)
-        idx = torch.gather(starts, 1, seg) + (j[None, :] - torch.gather(prefix, 1, seg))
-        valid = j[None, :] < total[:, None]
-        return cent_scores, torch.where(valid, idx, 0), valid
+        return (cent_scores, *_probed_slots(starts, offsets[probe + 1] - starts, r_budget))
 
     def _chunked(self, queries: np.ndarray, chunk_q: int, run_chunk) -> Tuple[np.ndarray, np.ndarray]:
         """run_chunk over query chunks on the device; one fetch at the end."""
@@ -550,9 +596,97 @@ class IVFIndex(BaseNNIndexer):
             rows = np.pad(rows, ((0, 0), (0, pad)), constant_values=-1)
         return vals, rows
 
+    # -- the sharded search (faiss's index_cpu_to_all_gpus analog): the
+    # clusters cut into contiguous ranges of about equal rows, one a mesh
+    # entry; every shard probes the global nprobe best centroids, gathers
+    # the probed rows it owns into its own budget, keeps a local top-k, and
+    # the partials merge (the JAX IVFIndex's _search_rows_sharded).
+
+    def _n_shards(self) -> int:
+        return n_shards(self.mesh)
+
+    def _ensure_sharded(self) -> dict:
+        """This process's shards of the CSR: each its stored rows, their
+        original rows and its clusters' local offsets, on its device."""
+        if self._shards is not None:
+            return self._shards
+        size, offsets = self._n_shards(), self._offsets
+        n, c = self._sorted_vectors.shape[0], self.n_clusters_eff
+        # cluster cuts at the row boundaries nearest s·N/shards
+        cuts = np.searchsorted(offsets, [round(s * n / size) for s in range(size + 1)], side="left")
+        cuts[0], cuts[-1] = 0, c
+        cuts = np.maximum.accumulate(np.clip(cuts, 0, c))
+        c_max = max(1, int(np.diff(cuts).max()))
+        s_rows = max(128, -(-int((offsets[cuts[1:]] - offsets[cuts[:-1]]).max()) // 128) * 128)
+        shards = []
+        for i, device in enumerate(self.mesh.local_devices):
+            s = self.mesh.first_shard + i
+            rs, re = int(offsets[cuts[s]]), int(offsets[cuts[s + 1]])
+            loffs = np.full(c_max + 1, re - rs, dtype=np.int64)
+            lo = offsets[cuts[s]:cuts[s + 1] + 1] - rs
+            loffs[:len(lo)] = lo
+            vecs = np.zeros((max(re - rs, 1), self._sorted_vectors.shape[1]), dtype=self._sorted_vectors.dtype)
+            vecs[:re - rs] = self._sorted_vectors[rs:re]
+            rows = np.zeros(max(re - rs, 1), dtype=np.int64)
+            rows[:re - rs] = self._sorted_rows[rs:re]
+            shards.append({"device": device, "c_start": int(cuts[s]), "c_count": int(cuts[s + 1] - cuts[s]),
+                           "vecs": torch.from_numpy(vecs).to(device), "rows": torch.from_numpy(rows).to(device),
+                           "loffs": torch.from_numpy(loffs).to(device)})
+        self._shards = {"parts": shards, "c_max": c_max, "s_rows": s_rows}
+        return self._shards
+
+    def _search_rows_sharded(self, queries: np.ndarray, top_n: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Original row ids (-1 for an empty place) of the sharded search.
+        Scores are f32 products of the f32 query and the stored rows, as the
+        JAX package's sharded search computes them."""
+        sd = self._ensure_sharded()
+        size = self._n_shards()
+        nprobe = min(self.nprobe, self.n_clusters_eff)
+        mean_cluster = max(1.0, self._sorted_vectors.shape[0] / self.n_clusters_eff)
+        # a shard owns about nprobe·mean/shards probed rows a query; twice the
+        # single-device slack absorbs skew, never below the largest cluster
+        if self.candidate_rows:
+            r_local = int(self.candidate_rows)
+        else:
+            r_local = max(int(2 * self.candidate_slack * nprobe * mean_cluster / size), self._max_cluster_rows())
+        r_local = min(sd["s_rows"], max(256, -(-r_local // 128) * 128))
+        k_eff = min(top_n, r_local)
+        c_max = sd["c_max"]
+        (centroids,) = self._device_state("centroids")
+        chunk_q = max(1, int(IVF_GATHER_BYTES / (r_local * self._sorted_vectors.shape[1] * 4)))
+
+        def run_chunk(qc):
+            _, probe = topk_lowest_first(matmul_f32(qc, centroids.T), nprobe)  # global, best first
+            partials = []
+            for part in sd["parts"]:
+                dev = part["device"]
+                q, pl = qc.to(dev), probe.to(dev) - part["c_start"]  # each probe's local cluster
+                own = (pl >= 0) & (pl < part["c_count"])
+                plc = pl.clamp(0, c_max - 1)
+                starts = part["loffs"][plc]
+                idx, valid = _probed_slots(starts, torch.where(own, part["loffs"][plc + 1] - starts, 0), r_local)
+                scores = matmul_f32(part["vecs"][idx], q[:, :, None])[..., 0]
+                scores = torch.where(valid, scores, float("-inf"))
+                vals, pos = topk_lowest_first(scores, k_eff)
+                sel = torch.gather(idx, 1, pos)
+                partials.append((vals, torch.where(torch.isfinite(vals), part["rows"][sel], -1)))
+            return merge_topk(partials, top_n, qc.device)
+
+        q = torch.from_numpy(np.ascontiguousarray(queries, dtype=np.float32)).to(self.device)
+        vals, rows = [], []
+        with torch.inference_mode():
+            for start in range(0, q.shape[0], chunk_q):
+                v, r = run_chunk(q[start:start + chunk_q])
+                vals.append(v)
+                rows.append(r)
+            vals, rows = torch.cat(vals).cpu().numpy(), torch.cat(rows).cpu().numpy()
+        return self._pad(vals, rows, top_n)
+
     def search_rows(self, queries: np.ndarray, top_n: int) -> Tuple[np.ndarray, np.ndarray]:
         """Like :meth:`search` but returns original row indices (-1 for an
         empty place): the integer path ColBERT's per-token merge reads."""
+        if self._n_shards() > 1:
+            return self._search_rows_sharded(queries, top_n)
         nprobe = min(self.nprobe, self.n_clusters_eff)
         r_budget = self._budget(nprobe)
         dim = self._sorted_vectors.shape[1]
@@ -599,6 +733,7 @@ class IVFIndex(BaseNNIndexer):
         self._ids = data["ids"]
         self.n_clusters_eff = self._centroids.shape[0]
         self._dev = {}
+        self._shards = None
 
 
 class StreamingFlatIndex(BaseNNIndexer):
@@ -607,8 +742,8 @@ class StreamingFlatIndex(BaseNNIndexer):
     docstring and :meth:`search`). Capacity is bounded by disk, not device
     memory."""
 
-    def __init__(self, config=None, device="cuda"):
-        super().__init__(config, device)
+    def __init__(self, config=None, device="cuda", mesh: Optional[Mesh] = None):
+        super().__init__(config, mesh.local_devices[0] if mesh is not None else device)
         self.encode_folder: Optional[str] = (config or {}).get("encode_folder")
         self._blocks: list = []
         self._row_ids: Optional[np.ndarray] = None
@@ -705,34 +840,37 @@ class StreamingFlatIndex(BaseNNIndexer):
         self.index_from_folder(self.encode_folder)
 
 
-def build_index(config, device="cuda") -> BaseNNIndexer:
+def build_index(config, device="cuda", mesh: Optional[Mesh] = None) -> BaseNNIndexer:
     """Index factory keyed on ``faiss_index_type``: ``flat`` (also
     ``exact``, ``full``); ``scann``: the binmax operating point (float16 +
     binmax) or, with ``scann_backend: tree_ah``, ScaNN's tree-AH shape
     (retrieval/scann_tree_ah.py); ``ivf``; ``hnsw`` (retrieval/hnsw.py: the
     native graph, built from ``native/hnsw.cpp`` at first use; raises when
     it cannot be built, where the JAX factory quietly builds an IVF index);
-    ``streaming`` (also ``sharded_ondisk``); ``dynamic``."""
+    ``streaming`` (also ``sharded_ondisk``); ``dynamic``. ``mesh`` goes to
+    every kind the JAX factory hands it to: FlatIndex, IVF and tree-AH
+    shard over a mesh of more than one entry; HNSW and the streaming index
+    take it and stay on its first device."""
     kind = config.get("faiss_index_type", "flat")
     if kind in ("flat", "exact", "full"):
-        return FlatIndex(config, device)
+        return FlatIndex(config, device, mesh)
     if kind == "scann":
         if config.get("scann_backend") == "tree_ah":
             from matchmaker_tpu_torch.retrieval.scann_tree_ah import ScaNNTreeAHIndex
 
-            return ScaNNTreeAHIndex(config, device)
+            return ScaNNTreeAHIndex(config, device, mesh)
         cfg = dict(config)
         cfg.setdefault("mips_quantization", "float16")
         cfg.setdefault("mips_kernel", "binmax")
-        return FlatIndex(cfg, device)
+        return FlatIndex(cfg, device, mesh)
     if kind == "hnsw":
         from matchmaker_tpu_torch.retrieval.hnsw import HNSWIndex
 
-        return HNSWIndex(config, device)
+        return HNSWIndex(config, device, mesh)
     if kind == "ivf":
-        return IVFIndex(config, device)
+        return IVFIndex(config, device, mesh)
     if kind in ("sharded_ondisk", "streaming"):
-        return StreamingFlatIndex(config, device)
+        return StreamingFlatIndex(config, device, mesh)
     if kind == "dynamic":
         return DynamicClusterIndex(config, device)
     raise ValueError(f"unknown faiss_index_type: {kind}")

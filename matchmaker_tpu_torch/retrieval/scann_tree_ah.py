@@ -20,7 +20,12 @@
 
 Plain PyTorch on the device, queries in chunks that keep the gathered codes
 near 1 GB; every top-k puts the lower candidate first among equal scores.
-``search_rows`` is IVF's (probed-exact), as in the JAX package.
+``search_rows`` is IVF's (probed-exact), as in the JAX package. Over a
+mesh of more than one entry, ``search`` is IVF's sharded search over the
+tree's leaves (exact f32 scores within the probed leaves), the route the
+JAX module's docstring gives; the JAX search itself raises
+``AttributeError`` there, calling a ``_search_sharded`` its parent lacks
+(ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -74,8 +79,8 @@ def ah_codes_parallel(vectors: np.ndarray, rows: np.ndarray, centroids: np.ndarr
 class ScaNNTreeAHIndex(IVFIndex):
     """tree (k-means leaves) → AH int8 scan → exact reorder."""
 
-    def __init__(self, config=None, device="cuda"):
-        super().__init__(config, device)
+    def __init__(self, config=None, device="cuda", mesh=None):
+        super().__init__(config, device, mesh)
         config = config or {}
         self.num_leaves = config.get("scann_num_leaves")
         self.nprobe = config.get("scann_leaves_to_search", 100)
@@ -103,6 +108,8 @@ class ScaNNTreeAHIndex(IVFIndex):
         return super()._state_array(name)
 
     def search(self, queries: np.ndarray, top_n: int) -> Tuple[np.ndarray, np.ndarray]:
+        if self._n_shards() > 1:  # IVF's sharded probed-exact search over the leaves
+            return IVFIndex.search(self, queries, top_n)
         nprobe = min(self.nprobe, self.n_clusters_eff)
         r_budget = self._budget(nprobe)
         reorder_k = min(r_budget, max(top_n, int(self.reorder_mult * top_n)))

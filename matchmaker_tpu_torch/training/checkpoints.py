@@ -28,6 +28,7 @@ import torch
 
 # state_dict_to_flax is re-exported: a JAX run's file is written as write_flax(path, state_dict_to_flax(model))
 from matchmaker_tpu_torch.models.weights import flax_to_state_dict, load_npz, save_npz, state_dict_to_flax  # noqa: F401
+from matchmaker_tpu_torch.parallel import multihost
 
 BEST_MODEL = "best-model.npz"
 BEST_MODEL_FLAX = "best-model.flax"
@@ -343,7 +344,11 @@ def rotate_best(run_folder: str, n_best: int) -> None:
 
 
 class TrainStateCheckpointer:
-    """Full train-state snapshots under ``directory/step_N.pt``."""
+    """Full train-state snapshots under ``directory/step_N.pt``. Under a
+    process group a save is collective: the primary process writes (the
+    parameters and optimizer state are the same on every process), then
+    every process waits at a barrier, so each can read the snapshot and
+    the data cursor on resume (the JAX package's collective orbax save)."""
 
     def __init__(self, directory: str):
         self.directory = os.path.abspath(directory)
@@ -353,9 +358,11 @@ class TrainStateCheckpointer:
         return os.path.join(self.directory, f"step_{step}.pt")
 
     def save(self, step: int, state: Dict[str, Any]) -> None:
-        tmp = self._path(step) + ".tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, self._path(step))  # a reader never sees a half-written file
+        if multihost.is_primary():
+            tmp = self._path(step) + ".tmp"
+            torch.save(state, tmp)
+            os.replace(tmp, self._path(step))  # a reader never sees a half-written file
+        multihost.barrier()
 
     def restore(self, step: int, map_location=None) -> Dict[str, Any]:
         # the file holds tensors and plain Python containers that this class wrote

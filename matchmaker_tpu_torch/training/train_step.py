@@ -31,6 +31,18 @@ weighting over the model's ``mtl_log_vars`` (slots [0] ranking, [1] span,
 (query, document) pairs in one forward, the query repeated L times as in
 the JAX step, under a top-level listwise loss (``mrr``, ``listnet``,
 ``lambdarank``): the positive sits in slot 0.
+
+Under a process group (parallel/multihost.py) each process steps on its own
+rows of the global batch: the in-batch negatives see the global batch, as
+JAX's jitted step does (every process's document vectors gathered in rank
+order by an all-gather that carries gradients back to their process, each
+query's positive at its global column), every gradient is averaged over the
+processes before the norm and the clipping, and the loss stats ride in the
+same all-reduce. One step of N processes on equal shares of a batch then
+leaves the parameters of one step on the whole batch
+(tests/test_torch_multiprocess.py). ``make_eval_step`` scores a slice of
+each batch a process and gathers the scores, so every process holds all of
+them.
 """
 
 from __future__ import annotations
@@ -39,6 +51,8 @@ import torch
 
 from matchmaker_tpu_torch.losses import LossBundle, merge_loss
 from matchmaker_tpu_torch.ops.maxsim import maxsim_all_pairs
+from matchmaker_tpu_torch.parallel.multihost import (all_gather, average_gradients, gather_rows, is_distributed,
+                                                     process_count, process_index, process_shard_bounds)
 from matchmaker_tpu_torch.training.optim import Optimizer
 
 
@@ -207,26 +221,31 @@ def make_loss_fn(model, losses: LossBundle, config):
 
         if losses.inbatch_loss is not None and "query_vecs" in pos_out:
             q = pos_out["query_vecs"].float()
-            d_all = torch.cat([pos_out["doc_vecs"], neg_out["doc_vecs"]], dim=0).float()
+            # every process's documents (rank order): the global batch's in-batch negatives
+            d_all = torch.cat([gather_rows(pos_out["doc_vecs"].float()), gather_rows(neg_out["doc_vecs"].float())],
+                              dim=0)
             if q.dim() == 3:  # ColBERT's token vectors: the all-pairs MaxSim
-                d_mask_all = torch.cat([pos_out["doc_vecs_mask"], neg_out["doc_vecs_mask"]], dim=0)
+                d_mask_all = torch.cat([gather_rows(pos_out["doc_vecs_mask"]), gather_rows(neg_out["doc_vecs_mask"])],
+                                       dim=0)
                 ib_scores = maxsim_all_pairs(q, d_all, pos_out["query_vecs_mask"], d_mask_all)
             else:
                 # a plain product, as the JAX package leaves this einsum to XLA
                 ib_scores = torch.matmul(q, d_all.t())
-            b = q.shape[0]
+            b, g = q.shape[0], d_all.shape[0] // 2
+            # each query's positive: its own row of the global batch
+            own = torch.zeros((b, g), dtype=torch.bool, device=q.device)
+            own[:, process_index() * b:(process_index() + 1) * b] = torch.eye(b, dtype=torch.bool, device=q.device)
             if losses.use_inbatch_list_loss:
                 teacher = batch.get("dyn_teacher_matrix")
                 if teacher is None:
-                    teacher = torch.cat([torch.eye(b, device=q.device), torch.zeros(b, b, device=q.device)], dim=1)
+                    teacher = torch.cat([own.float(), torch.zeros(b, g, device=q.device)], dim=1)
                 ib_loss = losses.inbatch_loss(ib_scores, teacher, valid[:, None] * torch.ones_like(ib_scores))
             else:
-                # positive = diagonal; hardest negative over the off-diagonal
+                # positive = own column; hardest negative over the other
                 # in-batch docs and the explicit negatives
-                pos_diag = torch.diagonal(ib_scores[:, :b])
-                eye = torch.eye(b, dtype=torch.bool, device=q.device)
-                off_diag = ib_scores[:, :b].masked_fill(eye, float("-inf"))
-                neg_max = torch.maximum(off_diag.amax(dim=1), ib_scores[:, b:].amax(dim=1))
+                pos_diag = ib_scores[:, :g][own]
+                off_diag = ib_scores[:, :g].masked_fill(own, float("-inf"))
+                neg_max = torch.maximum(off_diag.amax(dim=1), ib_scores[:, g:].amax(dim=1))
                 ib_loss = losses.inbatch_loss(pos_diag, neg_max, t_pos, t_neg, valid)
             stats["inbatch_loss"] = ib_loss
             loss = ib_main_weight * loss + ib_weight * ib_loss
@@ -255,6 +274,11 @@ def make_train_step(model, losses: LossBundle, optimizer: Optimizer, config):
         loss, stats = loss_fn(batch)
         loss.backward()
         stats = {k: v.detach() for k, v in stats.items()}
+        if is_distributed():
+            # the gradient average and the scalar stats' in one all-reduce
+            scalars = [k for k, v in stats.items() if v.dim() == 0]
+            mean = average_gradients(optimizer.params, torch.stack([stats[k].float() for k in scalars]))
+            stats.update(zip(scalars, mean))
         stats["grad_norm"] = optimizer.global_norm()
         optimizer.step(stats["grad_norm"])
         return stats
@@ -262,13 +286,47 @@ def make_train_step(model, losses: LossBundle, optimizer: Optimizer, config):
     return step
 
 
+# the batch-major outputs of a model (an eval step gathers them over the processes)
+_BATCH_MAJOR = ("score", "passage_scores", "qa_logits_start", "qa_logits_end", "answerability_logits")
+
+
+def _gathered(t: torch.Tensor, rows: int) -> torch.Tensor:
+    return torch.cat(all_gather(t.contiguous()), dim=0)[:rows]
+
+
 def make_eval_step(model, output_secondary: bool = False):
     """``step(batch, output_secondary=...) -> outputs`` without autograd
     (re-ranking evaluation); ``output_secondary`` asks for the model's
-    ``secondary`` tensors, by default as the step was made."""
+    ``secondary`` tensors, by default as the step was made.
+
+    Under a process group every process calls the step with the same
+    batch: its rows are zero-padded to a multiple of the process count,
+    each process scores its contiguous slice (``process_shard_bounds``),
+    and the batch-major outputs are all-gathered and cut back to the
+    batch's rows, so every process returns the whole batch's outputs (JAX's
+    multi-process eval step)."""
 
     def step(batch, output_secondary: bool = output_secondary):
         with torch.inference_mode():
-            return model(batch, output_secondary=output_secondary)
+            if not is_distributed():
+                return model(batch, output_secondary=output_secondary)
+            rows = next(v for v in batch.values() if isinstance(v, torch.Tensor)).shape[0]
+            padded = -(-rows // process_count()) * process_count()
+            lo, hi = process_shard_bounds(padded)
+            local = {}
+            for key, v in batch.items():
+                if isinstance(v, torch.Tensor):
+                    if padded != rows:
+                        v = torch.cat([v, v.new_zeros((padded - rows,) + tuple(v.shape[1:]))])
+                    v = v[lo:hi]
+                local[key] = v
+            out = dict(model(local, output_secondary=output_secondary))
+            for key in _BATCH_MAJOR:
+                if isinstance(out.get(key), torch.Tensor):
+                    out[key] = _gathered(out[key], rows)
+            if isinstance(out.get("secondary"), dict):
+                out["secondary"] = {k: _gathered(v, rows) if isinstance(v, torch.Tensor) and v.dim()
+                                    and v.shape[0] == hi - lo else v for k, v in out["secondary"].items()}
+            return out
 
     return step

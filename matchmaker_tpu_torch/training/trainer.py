@@ -1,5 +1,5 @@
 """The training driver: counterpart of ``matchmaker_tpu/training/trainer.py``,
-single process on one device.
+one process a device.
 
 Config-driven build (BERT_DOT, ColBERT or a transformer re-ranker; a local
 Hugging Face checkpoint in ``bert_pretrained_model`` fills every encoder,
@@ -43,8 +43,25 @@ the loss CSV count micro-steps, as in the JAX trainer) and the parameters
 move on every k-th (training/optim.py); a batch skipped for running out of
 device memory is left out of the mean.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP.md item: multi-process launches.
+Under a process group (``MATCHMAKER_COORDINATOR`` and its companions, joined
+by the CLIs' ``maybe_initialize_distributed``, parallel/multihost.py) each
+process trains on its own card (``cuda:(rank % cards)`` for a ``cuda``
+device) with ``batch_size_train`` the global batch: the triple loader
+strides whole local batches of batch_size_train / processes over the
+processes before tokenizing (``process_stride``), the samplers draw
+``queries_per_batch`` (rounded up to a multiple of the process count, as
+JAX rounds it to its devices) or batch_size_train / processes each from
+seed ``random_seed + 7919 · rank``, the parameters are broadcast from rank
+0 at the start, the step averages the gradients before the norm
+(training/train_step.py), the processes stop together when one runs out
+of batches, the teacher scores each process's own rows, validation runs on
+every process with the same metrics, and only the primary process writes
+the loss CSV, scalars, best checkpoints and the run folder's files; a
+train-state snapshot is collective (training/checkpoints.py). At the end
+the processes meet at a barrier, the primary saves the final weights as
+the best when no validation saved one, each process writes
+``efficiency-metrics-p{rank}.json``, and, as in the JAX trainer, the final
+evaluations and the dense retrieval are left to a single-process run.
 """
 
 from __future__ import annotations
@@ -66,6 +83,7 @@ from matchmaker_tpu_torch.losses import get_loss
 from matchmaker_tpu_torch.models import get_model, init_params
 from matchmaker_tpu_torch.obs.perf_monitor import PerformanceMonitor
 from matchmaker_tpu_torch.obs.scalars import ScalarWriter, collect_learned_scalars
+from matchmaker_tpu_torch.parallel import multihost
 from matchmaker_tpu_torch.training.checkpoints import (
     BEST_MODEL,
     TrainStateCheckpointer,
@@ -81,23 +99,20 @@ from matchmaker_tpu_torch.utils.replay_cache import CrossExperimentReplayCache
 _CACHE_KEYS = ("_cache_pos_passage_scores", "_cache_neg_passage_scores")
 
 
-def _refuse_unported(config) -> None:
-    # the JAX package's multi-process launch (parallel/multihost.py)
-    if os.environ.get("MATCHMAKER_COORDINATOR") or os.environ.get("MATCHMAKER_MULTIHOST"):
-        raise NotImplementedError("multi-process training is not ported yet (ROADMAP.md, queue 1 item 11)")
-
-
 class Trainer:
     def __init__(self, config, run_folder: str, teacher_config=None):
         """``teacher_config``: the dynamic teacher's config, when the caller
         holds it (else it is read from ``dynamic_teacher_path``'s
         ``config.yaml``)."""
-        _refuse_unported(config)
         self.config = config
         self.run_folder = run_folder
         self.teacher_config = teacher_config
         self.perf = PerformanceMonitor.get()
+        self.n_processes = multihost.process_count()
+        self.is_primary = multihost.is_primary()
         self.device = torch.device(config.get("device", "cuda"))
+        if self.n_processes > 1 and self.device.type == "cuda":
+            self.device = multihost.rank_device()
 
         self.tokenizer = build_tokenizer(config)
         self.model = get_model(config, self.tokenizer)
@@ -108,6 +123,7 @@ class Trainer:
             # an encoder-only graft (e.g. from an MLM pre-train run): the heads stay fresh
             load_encoder_subtree(config["warmstart_encoder_path"], self.model)
         self.model.to(self.device)
+        multihost.broadcast_module(self.model)  # every process starts from rank 0's parameters
         self.optimizer = build_optimizer(config, self.model)
         self.losses = get_loss(config)
         self.train_step = make_train_step(self.model, self.losses, self.optimizer, config)
@@ -134,6 +150,8 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _log_loss(self, epoch: int, stats: Dict[str, torch.Tensor]) -> None:
+        if not self.is_primary:
+            return  # one writer a run folder
         exists = os.path.exists(self._loss_csv)
         host_stats = {k: float(v) for k, v in stats.items()}
         self.scalars.write(host_stats, self.global_step)
@@ -154,14 +172,15 @@ class Trainer:
                                             vcfg, self.device, epoch, self.global_step, cache)
         if metric_value > self.best_metric:
             self.best_metric = metric_value
-            rotate_best(self.run_folder, self.config.get("store_n_best_checkpoints", 1))
-            save_params(os.path.join(self.run_folder, BEST_MODEL), self.model)
-            save_best_info(self.run_folder, self.config.get("validation_metric", "MRR@10"), metric_value, epoch,
-                           self.global_step)
+            if self.is_primary:  # one writer a run folder; the parameters are the same everywhere
+                rotate_best(self.run_folder, self.config.get("store_n_best_checkpoints", 1))
+                save_params(os.path.join(self.run_folder, BEST_MODEL), self.model)
+                save_best_info(self.run_folder, self.config.get("validation_metric", "MRR@10"), metric_value, epoch,
+                               self.global_step)
         if self.config.get("save_train_state", False):
             self._save_train_state()
         stats = collect_learned_scalars(self.model)
-        if stats:
+        if stats and self.is_primary:
             self.scalars.write(stats, self.global_step, prefix="params")
         min_steps = self.config.get("min_steps_training", -1)
         stop = self.early_stopping.step(metric_value)
@@ -207,36 +226,53 @@ class Trainer:
             query_file=config["dynamic_sampler_queries"],
             pairs_with_teacher_scores=config["dynamic_sampler_pairs_with_teacher_scores"],
             query_cluster_file=config["dynamic_sampler_query_cluster_file"],
-            batch_size=config.get("batch_size_train", 32),
+            batch_size=self._local_batch(),
             clusters_per_batch=config.get("tas_balanced_clusters_per_batch", 1),
             pair_balancing_strategy="bins" if config.get("tas_balanced_pair_strategy", "random") != "random"
             else "random",
-            seed=config.get("random_seed", 42),
+            seed=self._sampler_seed(),
         )
+
+    def _local_batch(self) -> int:
+        """This process's rows of the global ``batch_size_train``."""
+        return multihost.per_process_batch(self.config.get("batch_size_train", 32))
+
+    def _sampler_seed(self) -> int:
+        """The samplers' seed: decorrelated a process, as in JAX."""
+        return self.config.get("random_seed", 42) + 7919 * multihost.process_index()
 
     def _list_sampler(self):
         from matchmaker_tpu_torch.data.list_sampler import ListwiseDynamicSampler
 
         config = self.config
-        # one device: JAX's rounding of queries_per_batch up to the mesh size leaves it as configured
+        # the query dimension splits over the processes: rounded up to a
+        # multiple of them, as JAX rounds it to its mesh's devices
+        qpb = config.get("queries_per_batch", 4)
+        qpb_split = -(-qpb // self.n_processes) * self.n_processes
+        if qpb_split != qpb:
+            print(f"[trainer] queries_per_batch {qpb} not divisible by {self.n_processes} processes; "
+                  f"using {qpb_split}", flush=True)
         return ListwiseDynamicSampler(
             collection_file=config["dynamic_sampler_collection"],
             query_file=config["dynamic_sampler_queries"],
             qrels_file=config["dynamic_sampler_qrels"],
             candidate_file=config["dynamic_sampler_candidates"],
             list_size=config.get("list_size", 8),
-            queries_per_batch=config.get("queries_per_batch", 4),
-            seed=config.get("random_seed", 42),
+            queries_per_batch=qpb_split // self.n_processes,
+            seed=self._sampler_seed(),
         )
 
     def _submodel_cache(self):
         """(cache, writing) for ``submodel_train_cache_path``: a run finding
         no ``cache-meta.json`` there writes the cache, every later run
         replays it (the same data, seed and batch size give the same batch
-        order); (None, False) without the key."""
+        order); (None, False) without the key. Under a process group each
+        process keeps its own cache in ``p{rank}/`` there."""
         path = self.config.get("submodel_train_cache_path")
         if not path:
             return None, False
+        if self.n_processes > 1:  # each process caches its own rows
+            path = os.path.join(path, f"p{multihost.process_index()}")
         write = not os.path.exists(os.path.join(path, "cache-meta.json"))
         print(f"[trainer] submodel train cache {'WRITE' if write else 'REPLAY'}: {path}")
         return CrossExperimentReplayCache(path, write=write), write
@@ -259,12 +295,16 @@ class Trainer:
                                                       max_batches=config.get("tas_batches_per_epoch", 1000)),
                                       self._epoch_batch, None)
         else:
+            n_proc = self.n_processes
             loader = triple_training_loader(config, self.tokenizer, config["train_tsv"],
-                                            batch_size=config.get("batch_size_train", 32),
-                                            skip_batches=self._epoch_batch)
+                                            batch_size=self._local_batch(),
+                                            process_stride=(multihost.process_index(), n_proc) if n_proc > 1
+                                            else None, skip_batches=self._epoch_batch)
         if replay is not None:
             loader = replay_cached(loader, replay, self._split_cached)
         batches = device_prefetch(loader, self.device)
+        if self.n_processes > 1:  # a step every process takes, or none
+            batches = multihost.lockstep(batches, self.device)
         return teacher.wrap(batches) if teacher is not None else batches
 
     def train(self) -> None:
@@ -328,9 +368,20 @@ class Trainer:
         self.perf.stop_block("train", self.global_step)
         self.scalars.flush()
 
+        best_path = os.path.join(self.run_folder, BEST_MODEL)
+        if self.n_processes > 1:
+            # the processes meet before the last writes; the primary owns the run folder
+            multihost.barrier()
+            if self.is_primary and self.best_metric == -math.inf:
+                save_params(best_path, self.model)
+            self.perf.save_summary(os.path.join(self.run_folder,
+                                                f"efficiency-metrics-p{multihost.process_index()}.json"))
+            self.perf.print_summary()
+            multihost.barrier()
+            return
+
         # final evaluations on the best weights this run saved, else on the
         # last ones (saved as the best, so the dense retrieval finds them)
-        best_path = os.path.join(self.run_folder, BEST_MODEL)
         if self.best_metric > -math.inf and os.path.exists(best_path):
             load_params(best_path, self.model)
         else:

@@ -22,7 +22,6 @@ from matchmaker_tpu_torch.models import get_model, init_params
 from matchmaker_tpu_torch.models.bert_dot import BertDot, BertDotDualEncoder
 from matchmaker_tpu_torch.models.encoder import EncoderConfig, TransformerEncoderLM, encoder_config_from_model_name
 from matchmaker_tpu_torch.models.weights import flatten_params, flax_to_state_dict, load_npz, save_npz
-from matchmaker_tpu_torch.training.trainer import _refuse_unported
 
 
 def _ids_mask(seed, b=4, l=24, vocab=900):
@@ -174,11 +173,10 @@ def test_unported_models_raise():
         get_model(_bert_dot_config(model=model), tok)  # ported since the re-rankers' slice
     for model in ("knrm", "conv_knrm", "tk", "tkl", "tk_sparse", "idcm", "idcm_inference_only", "maxP->knrm"):
         get_model(_bert_dot_config(model=model), tok)  # ported since the kernel-pooling slice
-    # ColBERT serves and trains on the port, listwise dynamic sampling too (the model-zoo slice)
-    _refuse_unported(_bert_dot_config(model="colbert"))
-    _refuse_unported(_bert_dot_config(model="colbert", dynamic_sampler="listwise"))
-    # a JAX checkpoint as the warm start is read since the JAX-run-folder slice
-    _refuse_unported(_bert_dot_config(model="colbert", warmstart_model_path="best-model.flax"))
+    # ColBERT serves and trains on the port; the trainer refuses nothing since the multi-device
+    # slice ported its last refusal, multi-process launches (tests/test_torch_multiprocess.py;
+    # listwise sampling and a .flax warm start: tests/test_torch_training.py)
+    get_model(_bert_dot_config(model="colbert"), tok)
     # the int8 halves are ported for inference; under autograd they are refused
     enc = TransformerEncoderLM(EncoderConfig.tiny(fused_attention=True, int8_mlp=True))
     ids, mask = _ids_mask(2)

@@ -2229,3 +2229,57 @@ def test_bert_vectors_launches_the_backward_only_when_trainable(device, trainabl
     assert _build.LAUNCHES["fused_attention_block_bwd"] == _build.LAUNCHES["fused_mlp_block_bwd"] == want
     enc = [p.grad for n, p in model.named_parameters() if n.startswith("encoder.")]
     assert all((grad is not None) == trainable for grad in enc)
+
+
+_SHARDED_ROUTES = {
+    "bf16": ({"mips_quantization": "float16"}, "binmax_candidates"),
+    "int8": ({"mips_quantization": "int8"}, "binmax_candidates_int8"),
+    "int8-mixed": ({"mips_quantization": "int8", "mips_int8_queries": "float"}, "binmax_candidates_int8f"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(_SHARDED_ROUTES))
+def test_four_shard_search_on_one_card_matches_unsharded(device, route):
+    """FlatIndex over a mesh of four cuda:0 entries: four scan launches a
+    search (row views of one upload), one merge; the unsharded search's
+    hits (at 32,768 rows and k 100 both take per_bin 4 without level 2, so
+    the candidate pools are the same); and one shard's scan equal to its
+    plain version on the CPU."""
+    import numpy as np
+
+    from matchmaker_tpu_torch.parallel.mesh import make_mesh
+    from matchmaker_tpu_torch.retrieval.indexes import FlatIndex
+
+    extra, counter = _SHARDED_ROUTES[route]
+    rows, queries = _index_corpus(n=30_000, d=128, seed=5)
+    config = {"token_dtype": "float16", "mips_kernel": "binmax", **extra}
+    mesh = make_mesh(devices=[device] * 4)
+    one, four = FlatIndex(config, device), FlatIndex(config, device, mesh)
+    for index in (one, four):
+        index.index(np.arange(len(rows)), rows)
+    want = one.search(queries, 100)
+    _build.reset_launches()
+    got = four.search(queries, 100)
+    assert _build.LAUNCHES[counter] == 4 and four._per_bin(100) == one._per_bin(100) == 4
+    _same_hits(got, want)
+    stored = four._device_vectors[0] if isinstance(four._device_vectors, tuple) else four._device_vectors
+    assert len(stored.parts) == 4 and stored.parts[1].data_ptr() - stored.parts[0].data_ptr() == (
+        stored.rows * stored.parts[0].stride(0) * stored.parts[0].element_size())
+    shard, q = stored.parts[1], torch.from_numpy(queries).to(device)
+    if route == "bf16":
+        got_c = mb.binmax_candidates(q, shard, per_bin=4)
+        want_c = mb.binmax_candidates(q.cpu(), shard.cpu(), per_bin=4).to(device)
+        same, rel = _candidate_agreement(got_c, want_c, 2048, 4)
+        assert same >= 0.999 and rel <= 1e-4, (same, rel)
+    else:
+        scales = four._device_vectors[1].parts[1]
+        qq, qs = (q, None) if route == "int8-mixed" else mq.quantize_queries(q)
+        got_c = mb.binmax_candidates(qq, shard, per_bin=4, corpus_scales=scales, query_scales=qs)
+        want_c = mb.binmax_candidates(qq.cpu(), shard.cpu(), per_bin=4, corpus_scales=scales.cpu(),
+                                      query_scales=None if qs is None else qs.cpu()).to(device)
+        if route == "int8":  # K7: bit for bit
+            assert torch.equal(got_c.view(torch.int32), want_c.view(torch.int32))
+        else:
+            same, rel = _candidate_agreement(got_c, want_c, 2048, 4)
+            assert same >= 0.999 and rel <= 1e-4, (same, rel)

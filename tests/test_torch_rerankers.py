@@ -381,11 +381,18 @@ def test_teacher_scores_feed_a_margin_mse_student(tiny_data, tmp_path, bert_cat_
 
 
 def test_entry_points_default_to_the_card(tiny_data, tmp_path):
-    """Without a ``device`` key the Trainer and teacher scoring go to
-    ``cuda``: here, without a card, they fail instead of running on the CPU."""
+    """Without a ``device`` key the Trainer, teacher scoring and dense
+    retrieval go to ``cuda``: here, without a card, they fail instead of
+    running on the CPU."""
+    from matchmaker_tpu_torch.cli import dense_retrieval
+
     config = _rerank_config(tiny_data, "bert_cat")
     del config["device"]
     with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
         Trainer(config, str(tmp_path))
     with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
         score_triples(str(tmp_path), tiny_data["train_tsv"], str(tmp_path / "s.tsv"), config=config)
+    retrieval = dict(config, model="bert_dot", collection_tsv=tiny_data["train_tsv"])
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
+        dense_retrieval.run("encode+index+search", retrieval, str(tmp_path / "dense"))
+    assert not (tmp_path / "dense").exists()

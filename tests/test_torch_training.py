@@ -23,6 +23,7 @@ from matchmaker_tpu_torch.losses import dispatch as tdispatch
 from matchmaker_tpu_torch.models.bert_dot import BertDot
 from matchmaker_tpu_torch.models.weights import flatten_params, flax_to_state_dict, load_npz
 from matchmaker_tpu_torch.ops import _build
+from matchmaker_tpu_torch.parallel.multihost import maybe_initialize_distributed
 from matchmaker_tpu_torch.training import optim as toptim
 from matchmaker_tpu_torch.training.train_step import make_train_step
 from matchmaker_tpu_torch.training.trainer import Trainer
@@ -345,9 +346,13 @@ def test_unported_trainer_options_raise(tiny_scored, tmp_path, monkeypatch):
     # the sparsity loss and the submodel train cache are ported (the kernel-pooling slice)
     assert callable(make_train_step(None, tdispatch.get_loss({"loss": "margin-mse"}), None,
                                     {"minimize_sparsity_weight": 0.1, "submodel_train_cache_path": "cache"}))
+    # multi-process launches are ported (tests/test_torch_multiprocess.py): the launch
+    # variables alone join no group (the CLIs join it), so the Trainer runs as one process
     monkeypatch.setenv("MATCHMAKER_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        Trainer(_trainer_config(tiny_scored), str(tmp_path))
+    assert Trainer(_trainer_config(tiny_scored), str(tmp_path)).n_processes == 1
+    monkeypatch.setenv("MATCHMAKER_MULTIHOST", "tpu_pod")  # a TPU pod's launch means nothing on a GPU machine
+    with pytest.raises(ValueError, match="tpu_pod"):
+        maybe_initialize_distributed()
 
 
 def test_early_stopping_and_best_info(tmp_path):
