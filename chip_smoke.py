@@ -384,12 +384,15 @@ FULL = dict(
     train_shapes=[(128, 30), (128, 200), (8, 30), (8, 200)], int8_mlp_mix_shape=(1024, 128),
     head_width_shape=(16, 230),
     # phase 13: (a) the warm start's micro-steps, micro-batch and k; (b) the
-    # hub teacher's student steps; (d) MiniLM's BERT_CAT steps
-    accum_steps=40, accum_batch=8, accum_k=4, hub_steps=10, minilm_steps=10,
+    # hub teacher's student steps; (d) MiniLM's BERT_CAT steps; (e)
+    # TinyBERT's BERT_DOT steps
+    accum_steps=40, accum_batch=8, accum_k=4, hub_steps=10, minilm_steps=10, tinybert_steps=10,
     # phase 14: (a) and (b) over a mesh of multi_shards cuda:0 entries at
     # phase 5's rows; (c) two processes, a global batch of mp_batch, mp_steps
-    # steps through the Trainer
-    multi_shards=4, mp_batch=32, mp_steps=10,
+    # steps through the Trainer, and one step on the padded last batch of a
+    # file, mp_valid valid rows of the global batch (process 1 holds
+    # mp_valid - mp_batch / 2)
+    multi_shards=4, mp_batch=32, mp_steps=10, mp_valid=20,
 )
 
 
@@ -695,6 +698,12 @@ def _attention_ops(b, l, hid, heads):
     return 2 * m * hid * 3 * hid + 2 * m * hid * hid, 4 * b * heads * l * l * (hid // heads)
 
 
+def _mlp_bwd_ops(m, hid, ff):
+    """Operations of an MLP-half backward (K11) over m rows: the gelu'
+    recompute, dW2, dz, dW1 and dx, five M x HID x FF products."""
+    return 10 * m * hid * ff
+
+
 def _rows_close(a, b):
     import torch
 
@@ -987,8 +996,7 @@ def phase_backward_kernels(sz, device):
         # weight and input gradients of every projection (2x the forward's
         # projections), and the attention core's S recompute, dP, dV, dQ, dK
         ops = {"fused_attention_block_bwd": dict(bf16=2 * proj + 5 * core // 2),
-               # dW2, the gelu' recompute, dz, dW1, dx: five M x HID x FF products
-               "fused_mlp_block_bwd": dict(bf16=10 * m * hid * ff)}
+               "fused_mlp_block_bwd": dict(bf16=_mlp_bwd_ops(m, hid, ff))}
         inputs = {"fused_attention_block_bwd": (x, wqkv, bqkv, wo, mask, ln1[0], dy, a_saved),
                   "fused_mlp_block_bwd": (x, w1, b1, w2, ln2[0], dy, m_saved)}
         for name, kernel, plain, name_k, name_p, scale_of in cases:
@@ -1879,10 +1887,10 @@ def plain_encoder_blocks():
     import matchmaker_tpu_torch.models.encoder as enc
     from matchmaker_tpu_torch.ops import fused_attention as fa
 
-    def plain_attention(x, wqkv, bqkv, wo, bo, *rest):
+    def plain_attention(x, wqkv, bqkv, wo, bo, *rest, **kw):  # the weights as packed, heads padded or not
         wq, wk, wv = wqkv.chunk(3, dim=1)
         bq, bk, bv = bqkv.chunk(3)
-        return fa.reference_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, *rest)
+        return fa.reference_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, *rest, **kw)
 
     names = ("fused_attention_block_qkv", "fused_mlp_block", "fused_attention_block_qkv_train",
              "fused_mlp_block_train")
@@ -3073,7 +3081,7 @@ def phase_rerank_kernels(sz, device, kern, shapes=None, path="rerank"):
                 ("fused_mlp_block_bwd", lambda: fb.mlp_block_bwd(x, w1, b1, w2, ln2[0], dy, m_saved),
                  lambda: fb.reference_mlp_block_bwd(x, w1, b1, w2, ln2[0], dy, m_acc),
                  lambda r: dict(zip(_MLP_GRADS, r)), lambda r: dict(zip(_MLP_GRADS, r)), None,
-                 (x, w1, b1, w2, ln2[0], dy, m_saved), dict(bf16=10 * m * hid * ff))):
+                 (x, w1, b1, w2, ln2[0], dy, m_saved), dict(bf16=_mlp_bwd_ops(m, hid, ff)))):
             got, want = name_k(kernel()), name_p(plain())
             check(got["dx"].shape == x.shape and all(bool(torch.isfinite(t).all()) for t in got.values()),
                   f"{name} gradients at {(b, l)}")
@@ -4381,22 +4389,77 @@ def phase_zoo(sz, device, root, paths):
 # nothing fetched): BERT layout, 6 layers, hidden 384, 12 heads of 32, FF
 # 1,536, WordPiece vocabulary 30,522, 2 token types
 MINILM = dict(vocab=30522, hid=384, n_layers=6, heads=12, ff=1536, type_vocab=2)
-# the head-width instances beside the 64-wide ones: (entry, wrapper counter,
-# head width); at hidden 384 12 heads of 32 (MiniLM) and 24 of 16
-HEAD_WIDTH_KERNELS = [(f"{name}@hd{hd}", name, hd)
-                      for hd in (32, 16)
-                      for name in ("fused_attention_block", "fused_mha", "fused_attention_int8_block",
-                                   "fused_attention_block_bwd")]
+# huawei-noah/TinyBERT_General_4L_312D's config.json: 4 layers, hidden 312, 12
+# heads of 26, FF 1,200 (phase 13 (e))
+TINYBERT = dict(vocab=30522, hid=312, n_layers=4, heads=12, ff=1200, type_vocab=2)
+# (hidden, heads, FF) of the attention cores' widths beside the 64-wide ones:
+# MiniLM's 12 heads of 32 and 24 of 16 at hidden 384 (instanced widths), then
+# heads the cores run zero-padded to the next instance: TinyBERT's 12 of 26,
+# 16 of 24 and 8 of 48 at hidden 384
+HEAD_WIDTH_CASES = [(384, 12, 1536), (384, 24, 1536), (312, 12, 1200), (384, 16, 1536), (384, 8, 1536)]
+# every entry of the kernels line beside the headline ones: (entry, wrapper
+# counter, phase 13 run whose launches it takes or None): the head widths'
+# K1, K13, K10, K12; K9 and K11 at TinyBERT's hidden 312, K11 and K12 at 64
+# (the LayerNorm backward at widths that are not a multiple of 128)
+HEAD_WIDTH_KERNELS = (
+    [(f"{name}@hd{hid // heads}", name, {32: "minilm", 26: "tinybert"}.get(hid // heads))
+     for hid, heads, _ in HEAD_WIDTH_CASES
+     for name in ("fused_attention_block", "fused_mha", "fused_attention_int8_block", "fused_attention_block_bwd")]
+    + [("fused_mlp_int8_block@hid312", "fused_mlp_int8_block", "tinybert"),
+       ("fused_mlp_block_bwd@hid312", "fused_mlp_block_bwd", "tinybert"),
+       ("fused_mlp_block_bwd@hid64", "fused_mlp_block_bwd", None),
+       ("fused_attention_block_bwd@hid64", "fused_attention_block_bwd", None)])
+# the head-width entries off every path: K13 (no caller), K10 at 26 (TinyBERT
+# serves int8_mlp: a bf16 attention half)
+_OFF_PATH = ("fused_mha", "fused_attention_int8_block")
+
+
+def _unpadded_attention_grads(grads, heads, d, width):
+    """K12's gradients of zero-padded heads (width > d) cut back to the
+    real columns (the padded ones checked zero)."""
+    import torch
+
+    dx, dwqkv, dbqkv, dwo, dbo, dg, dbe = grads
+    real = (torch.arange(3 * heads * width, device=dwqkv.device) % width) < d
+    check(not dwqkv[:, ~real].any() and not dbqkv[~real].any() and not dwo[~real[:heads * width]].any(),
+          f"K12 at heads of {d} padded to {width}: a padded column's gradient is not zero")
+    return dx, dwqkv[:, real], dbqkv[real], dwo[real[:heads * width]], dbo, dg, dbe
+
+
+def _bwd_width_entry(out, key, kernel, named, plain, inputs, ops, sz, device, b, l, scale_of=None):
+    """One backward kernel against its plain version into ``out[key]``:
+    ``named`` turns ``kernel``'s result into the gradients by name (cut back
+    to the real columns where the heads were padded: outside the timing),
+    ``plain`` returns them by name."""
+    import torch
+
+    entry = out[key] = {"max_abs_err": 0.0, "library_ms": None}
+    got, want = named(kernel()), plain()
+    check(all(bool(torch.isfinite(t).all()) for t in got.values()), f"{key} gradients")
+    err = grads_close(got, want, scale_of)
+    print(f"[kernels] {key} B={b} L={l}: {len(got)} gradients within cosine 0.999, max |d| <= 2e-2 max |plain| "
+          f"(largest |d| {err:.4g})")
+    entry["max_abs_err"] = err
+    _record(entry, [b, l, inputs[0].shape[-1]], kernel, plain, device, sz["bwd_reps"], headline=True,
+            bound_of=bound(nbytes(inputs, list(got.values())), **ops))
+    _device_beside(entry, kernel, device, headline=True)
 
 
 def phase_head_width_kernels(sz, device):
-    """K1, K13, K10 and K12 at head widths 32 and 16 (hidden 384: MiniLM's
-    12 heads of 32, and 24 heads of 16) against their plain versions at
-    phase 13 (d)'s shape, a BERT_CAT batch of 16 x 230: the encoder halves'
-    bar for the forwards (row cosine >= 0.999, max |d| <= 0.1; K10 also its
-    mean |d|), the backward's for K12 (every gradient's cosine >= 0.999, max
-    |d| <= 2e-2 max |plain|); each timed beside its plain version with its
-    device time and bound; K13 beside one scaled_dot_product_attention."""
+    """K1, K13, K10 and K12 at the head widths of HEAD_WIDTH_CASES against
+    their plain versions at phase 13 (d)'s shape, a BERT_CAT batch of 16 x
+    230: 32 and 16 on their own instances, 26, 24 and 48 zero-padded to 32
+    and 64 as the encoder pads them (the weights and codes once, before the
+    timing; K13's q, k and v in the call), against the plain versions on the
+    unpadded weights. The encoder halves' bar for the forwards (row cosine
+    >= 0.999, max |d| <= 0.1; K10 also its mean |d|), the backward's for
+    K12 (every gradient's cosine >= 0.999, max |d| <= 2e-2 max |plain|, the
+    padded columns' gradients zero); each timed beside its plain version
+    with its device time and its bound counted on the unpadded work, so the
+    padding's cost shows; K13 beside one scaled_dot_product_attention. Then
+    K9 at TinyBERT's widths (hidden 312, FF 1,200 in chunks of 300, its
+    codes padded to 320) and K11 / K12 at hidden 312 and 64 (the LayerNorm
+    backward past the multiples of 128)."""
     import torch
 
     from matchmaker_tpu_torch.ops import fused_attention as fa
@@ -4404,41 +4467,49 @@ def phase_head_width_kernels(sz, device):
     from matchmaker_tpu_torch.ops import fused_int8 as fi
     from matchmaker_tpu_torch.probes import attn_inner as ai
 
-    hid, ff = MINILM["hid"], MINILM["ff"]
-    hsz = dict(sz, hid=hid, ff=ff)
     b, l = sz["head_width_shape"]
     out = {}
-    for hd in (32, 16):
-        heads, group = hid // hd, 64 // hd
+    for hid, heads, ff in HEAD_WIDTH_CASES:
+        hd = hid // heads
+        width = fa.kernel_head_dim("chip_smoke", hid, heads)
+        group = 64 // hd if hd in (16, 32) else 2  # instanced widths: one 64-code Wo chunk; else JAX's 2
+        hsz = dict(sz, hid=hid, ff=ff)
         attn, ln1, _, _ = _layer_params(hsz, device, seed=40 + hd)
         wq, wk, wv, wo, bq, bk, bv, bo = attn
         wqkv, bqkv = torch.cat([wq, wk, wv], dim=1), torch.cat([bq, bk, bv])
+        pw, pb, po = fa.pad_attention_heads(wqkv, bqkv, wo, heads)  # as the encoder packs them
         x, mask, g = _half_inputs(hsz, b, l, device, 41 + hd)
         dy = torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
         proj, core = _attention_ops(b, l, hid, heads)
         q8, _, q8ln, _ = _int8_layer_params(hsz, device, seed=42 + hd)
         q8_t = fi.kmajor_attention_weights(*q8)
+        q8_p = fi.pad_int8_attention(*q8_t[:4], heads, group) + q8_t[4:]
         q, k, v = (torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
         mha_ops = 4 * hid * l * int(mask.sum())  # QK^T and PV over the live keys
-        _, a_saved = fb.attention_block_fwd(x, wqkv, bqkv, wo, bo, mask, heads, *ln1)
+        _, a_saved = fb.attention_block_fwd(x, pw, pb, po, bo, mask, heads, *ln1, head_dim=hd)
         _, a_acc = fa.reference_attention_block(x, *attn, mask, heads, *ln1, save_acc=True)
+        unpadded_saved = (a_acc, torch.empty(b, l, 3 * hid, dtype=torch.bfloat16),
+                          torch.empty(b, l, hid, dtype=torch.bfloat16))  # bytes of the unpadded work
         forwards = (
-            ("fused_attention_block", lambda: fa.fused_attention_block(x, *attn, mask, heads, *ln1),
+            ("fused_attention_block",
+             lambda: fa.fused_attention_block_qkv(x, pw, pb, po, bo, mask, heads, *ln1, head_dim=hd),
              lambda: fa.reference_attention_block(x, *attn, mask, heads, *ln1), (x, attn, mask, ln1),
              dict(bf16=proj + core), None),
             ("fused_mha", lambda: fa.fused_mha(q, k, v, mask, heads), lambda: fa.mha_reference(q, k, v, mask, heads),
              (q, k, v, mask), dict(bf16=mha_ops), lambda: ai.sdpa(q, k, v, mask, heads)),
             ("fused_attention_int8_block",
-             lambda: fi.fused_attention_int8_block_qkv_kmajor(x, *q8_t, mask, heads, *q8ln, group_heads=group),
+             lambda: fi.fused_attention_int8_block_qkv_kmajor(x, *q8_p, mask, heads, *q8ln, group_heads=group,
+                                                              head_dim=hd),
              lambda: fi.reference_attention_int8_block(x, *q8, mask, heads, *q8ln, group_heads=group),
              (x, q8_t, mask, q8ln), dict(int8=proj, bf16=core), None))
         for name, kernel, plain, inputs, ops, library in forwards:
-            entry = out[f"{name}@hd{hd}"] = {"max_abs_err": 0.0, "library_ms": None}
+            entry = out[f"{name}@hd{hd}"] = {"max_abs_err": 0.0, "library_ms": None, "head_dim": hd,
+                                             "padded_to": width}
             got, want = kernel(), plain()
             cos, err = _rows_close(got, want)
             mean = _mean_abs(got, want)
-            print(f"[kernels] {name} at head width {hd} ({heads} heads) B={b} L={l}: min row cosine {cos:.6f}, "
-                  f"max |d| {err:.4g}, mean |d| {mean:.4g}")
+            print(f"[kernels] {name} at head width {hd} ({heads} heads{f', padded to {width}' if width != hd else ''})"
+                  f" B={b} L={l}: min row cosine {cos:.6f}, max |d| {err:.4g}, mean |d| {mean:.4g}")
             check(got.shape == x.shape and bool(torch.isfinite(got.float()).all()), f"{name}@hd{hd} output")
             check(cos >= 0.999 and err <= 0.1, f"{name}@hd{hd} vs plain: cos {cos}, max |d| {err}")
             if name == "fused_attention_int8_block":
@@ -4450,21 +4521,76 @@ def phase_head_width_kernels(sz, device):
             if library is not None and device.type == "cuda":
                 entry["library_ms"] = _time_ms(library, device, sz["reps"])
                 print(f"[kernels]   library scaled_dot_product_attention {entry['library_ms']:.4f} ms")
-        name = "fused_attention_block_bwd"
-        entry = out[f"{name}@hd{hd}"] = {"max_abs_err": 0.0, "library_ms": None}
-        kernel = lambda: fb.attention_block_bwd(x, wqkv, bqkv, wo, mask, heads, ln1[0], dy, a_saved)  # noqa: E731
-        plain = lambda: fb.reference_attention_block_bwd(x, wq, wk, wv, wo, bq, bk, bv, mask, heads,  # noqa: E731
-                                                         ln1[0], dy, a_acc)
-        got, want = _named_attention_grads(*kernel()), dict(zip(_ATTN_GRADS, plain()))
-        check(all(bool(torch.isfinite(t).all()) for t in got.values()), f"{name}@hd{hd} gradients")
-        err = grads_close(got, want, _zero_attention_grads(l))
-        print(f"[kernels] {name} at head width {hd} B={b} L={l}: {len(got)} gradients within cosine 0.999, max "
-              f"|d| <= 2e-2 max |plain| (largest |d| {err:.4g})")
-        entry["max_abs_err"] = err
-        _record(entry, [b, l, hid, hd], kernel, plain, device, sz["bwd_reps"], headline=True,
-                bound_of=bound(nbytes((x, wqkv, bqkv, wo, mask, ln1[0], dy, a_saved), list(got.values())),
-                               bf16=2 * proj + 5 * core // 2))
-        _device_beside(entry, kernel, device, headline=True)
+
+        def k12(pw=pw, pb=pb, po=po, x=x, mask=mask, heads=heads, ln1=ln1, dy=dy, a_saved=a_saved, hd=hd):
+            return fb.attention_block_bwd(x, pw, pb, po, mask, heads, ln1[0], dy, a_saved, head_dim=hd)
+
+        def named12(grads, heads=heads, hd=hd, width=width):
+            return _named_attention_grads(*(_unpadded_attention_grads(grads, heads, hd, width) if width != hd
+                                            else grads))
+
+        def plain12(x=x, attn=attn, mask=mask, heads=heads, ln1=ln1, dy=dy, a_acc=a_acc):
+            wq, wk, wv, wo, bq, bk, bv, _ = attn
+            return dict(zip(_ATTN_GRADS, fb.reference_attention_block_bwd(x, wq, wk, wv, wo, bq, bk, bv, mask, heads,
+                                                                           ln1[0], dy, a_acc)))
+
+        _bwd_width_entry(out, f"fused_attention_block_bwd@hd{hd}", k12, named12, plain12,
+                         (x, wqkv, bqkv, wo, mask, ln1[0], dy, unpadded_saved), dict(bf16=2 * proj + 5 * core // 2),
+                         sz, device, b, l, _zero_attention_grads(l))
+        out[f"fused_attention_block_bwd@hd{hd}"].update(head_dim=hd, padded_to=width)
+
+    # K9 at TinyBERT's widths, its codes padded to 320 and chunks of 320
+    t = TINYBERT
+    tsz = dict(sz, hid=t["hid"], ff=t["ff"])
+    _, mlp, _, ln2 = _int8_layer_params(tsz, device, seed=43)
+    w1q, s1, b1, w2q, s2, b2 = mlp
+    mlp_p = fi.pad_int8_mlp(fi.kmajor_codes(w1q), s1, b1, fi.kmajor_codes(w2q)) + (s2, b2)
+    x, _, g = _half_inputs(tsz, b, l, device, 44)
+    entry = out["fused_mlp_int8_block@hid312"] = {"max_abs_err": 0.0, "library_ms": None}
+    kernel = lambda: fi.fused_mlp_int8_block_kmajor(x, *mlp_p, *ln2)  # noqa: E731
+    plain = lambda: fi.reference_mlp_int8_block(x, *mlp, *ln2)  # noqa: E731
+    got, want = kernel(), plain()
+    cos, err = _rows_close(got, want)
+    mean = _mean_abs(got, want)
+    print(f"[kernels] fused_mlp_int8_block at TinyBERT's widths (312, FF 1,200 in chunks of 300, codes padded to "
+          f"{tuple(mlp_p[0].shape)}) B={b} L={l}: min row cosine {cos:.6f}, max |d| {err:.4g}, mean |d| {mean:.4g}")
+    check(cos >= 0.999 and err <= 0.1 and mean <= INT8_HALF_MEAN_ABS,
+          f"fused_mlp_int8_block@hid312 vs plain: cos {cos}, max |d| {err}, mean |d| {mean}")
+    entry["max_abs_err"] = err
+    _record(entry, [b, l, t["hid"]], kernel, plain, device, sz["reps"], headline=True,
+            bound_of=bound(nbytes((x, fi.kmajor_codes(w1q), s1, b1, fi.kmajor_codes(w2q), s2, b2, ln2), got),
+                           int8=4 * b * l * t["hid"] * t["ff"]))
+    _device_beside(entry, kernel, device, headline=True)
+
+    # K11 at 312 and 64, K12 at 64 (4 heads of 16): the LayerNorm backward
+    for hid, heads, ff in ((312, 12, 1200), (64, 4, 256)):
+        wsz = dict(sz, hid=hid, ff=ff)
+        attn, ln1, mlp, ln2 = _layer_params(wsz, device, seed=45 + hid)
+        x, mask, g = _half_inputs(wsz, b, l, device, 46 + hid)
+        dy = torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
+        w1, b1, w2, b2 = mlp
+        _, m_saved = fb.mlp_block_fwd(x, *mlp, *ln2)
+        _, m_acc = fa.reference_mlp_block(x, *mlp, *ln2, save_acc=True)
+        _bwd_width_entry(out, f"fused_mlp_block_bwd@hid{hid}",
+                         lambda x=x, w1=w1, b1=b1, w2=w2, ln2=ln2, dy=dy, s=m_saved: fb.mlp_block_bwd(
+                             x, w1, b1, w2, ln2[0], dy, s), lambda r: dict(zip(_MLP_GRADS, r)),
+                         lambda x=x, w1=w1, b1=b1, w2=w2, ln2=ln2, dy=dy, a=m_acc: dict(zip(
+                             _MLP_GRADS, fb.reference_mlp_block_bwd(x, w1, b1, w2, ln2[0], dy, a))),
+                         (x, w1, b1, w2, ln2[0], dy, m_saved), dict(bf16=_mlp_bwd_ops(b * l, hid, ff)), sz, device,
+                         b, l)
+        if hid == 64:
+            wq, wk, wv, wo, bq, bk, bv, bo = attn
+            wqkv, bqkv = torch.cat([wq, wk, wv], dim=1), torch.cat([bq, bk, bv])
+            _, a_saved = fb.attention_block_fwd(x, wqkv, bqkv, wo, bo, mask, heads, *ln1)
+            _, a_acc = fa.reference_attention_block(x, *attn, mask, heads, *ln1, save_acc=True)
+            proj, core = _attention_ops(b, l, hid, heads)
+            _bwd_width_entry(out, "fused_attention_block_bwd@hid64",
+                             lambda: fb.attention_block_bwd(x, wqkv, bqkv, wo, mask, heads, ln1[0], dy, a_saved),
+                             lambda r: _named_attention_grads(*r),
+                             lambda: dict(zip(_ATTN_GRADS, fb.reference_attention_block_bwd(
+                                 x, wq, wk, wv, wo, bq, bk, bv, mask, heads, ln1[0], dy, a_acc))),
+                             (x, wqkv, bqkv, wo, mask, ln1[0], dy, a_saved), dict(bf16=2 * proj + 5 * core // 2),
+                             sz, device, b, l, _zero_attention_grads(l))
     return out
 
 
@@ -4795,9 +4921,8 @@ def plain_int8_blocks():
     import matchmaker_tpu_torch.models.encoder as enc
     from matchmaker_tpu_torch.ops import fused_int8 as fi
 
-    def attention(x, wqkv_t, sqkv, bqkv, wo_t, so, bo, mask, n_heads, *ln, **kw):
-        hid = x.shape[-1]
-        (wq, wk, wv), (sq, sk, sv), (bq, bk, bv) = (t.split(hid) for t in (wqkv_t, sqkv, bqkv))
+    def attention(x, wqkv_t, sqkv, bqkv, wo_t, so, bo, mask, n_heads, *ln, **kw):  # codes padded or not
+        (wq, wk, wv), (sq, sk, sv), (bq, bk, bv) = (t.chunk(3) for t in (wqkv_t, sqkv, bqkv))
         return fi.reference_attention_int8_block(x, wq.t(), sq, wk.t(), sk, wv.t(), sv, wo_t.t(), so, bq, bk, bv,
                                                  bo, mask, n_heads, *ln, **kw)
 
@@ -4889,11 +5014,121 @@ def phase_minilm(sz, device, root):
     return res
 
 
+def _tinybert_checkpoint(root):
+    """A seeded encoder at TinyBERT-General-4L-312D's published widths (no
+    checkpoint is in the repository: random weights), written as a BERT
+    checkpoint folder as :func:`_minilm_checkpoint` writes MiniLM's."""
+    import torch
+
+    from matchmaker_tpu_torch.models.encoder import EncoderConfig, TransformerEncoderLM
+    from matchmaker_tpu_torch.models.weights import init_parameters
+    from matchmaker_tpu_torch.utils.hf_export import export_to_huggingface
+
+    t = TINYBERT
+    cfg = EncoderConfig(vocab_size=t["vocab"], hidden_size=t["hid"], num_layers=t["n_layers"], num_heads=t["heads"],
+                        intermediate_size=t["ff"], max_position_embeddings=512, type_vocab_size=t["type_vocab"])
+    enc = TransformerEncoderLM(cfg)
+    init_parameters(enc, torch.Generator().manual_seed(36))
+    return export_to_huggingface({f"encoder.{k}": v for k, v in enc.state_dict().items()}, cfg,
+                                 os.path.join(root, "tinybert"), "bert")
+
+
+def phase_tinybert(sz, device, root):
+    """Phase 13 (e), in phase 4's directory: BERT_DOT at
+    TinyBERT-General-4L-312D's widths (hidden 312, 12 heads of 26 padded to
+    32, FF 1,200), a seeded checkpoint. cli.dense_retrieval encodes phase
+    4's collection with ``encoder_int8_mlp`` (bench.py's encoder: K1 at
+    heads of 26, K9 with its codes padded to 320 and FF chunks of 320) and
+    searches it (K3, K6, K4): launches against the prediction, the encoded
+    rows finite, one batch's encode with the kernels against the plain
+    versions at the encoder halves' bar; then ``tinybert_steps`` Trainer
+    steps with the fused halves (K1, K2, K12, K11 at 312: the LayerNorm
+    backward past the multiples of 128) against the prediction, and one
+    step's loss and gradients against the plain versions'."""
+    import torch
+
+    from matchmaker_tpu_torch.cli.dense_retrieval import run
+    from matchmaker_tpu_torch.data.tokenization import build_tokenizer
+    from matchmaker_tpu_torch.models import get_model, init_params
+    from matchmaker_tpu_torch.ops import _build
+    from matchmaker_tpu_torch.retrieval.encode import load_encoded
+
+    t = TINYBERT
+    tsz = dict(sz, hid=t["hid"], heads=t["heads"], ff=t["ff"], n_layers=t["n_layers"])
+    ckpt = _tinybert_checkpoint(root)
+    result = {}
+    config = dict(_main_config(root, sz, device), bert_pretrained_model=ckpt, encoder_int8_mlp=True)
+    out = os.path.join(root, "served_tinybert")
+    os.makedirs(out)
+    fresh_perf_monitor()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    check(run("encode+index+search", dict(config), out) == 0, "serving TinyBERT with encoder_int8_mlp")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = predicted_int8_serving_launches(tsz)
+    _check_launches(launches, {"fused_attention_block": want, "fused_mlp_int8_block": want, "fused_mlp_block": 0,
+                               "fused_attention_int8_block": 0}, "TinyBERT int8_mlp serving", device)
+    for name in ("binmax_candidates", "unpack_candidates"):
+        check(launches[name] > 0 or device.type != "cuda", f"TinyBERT serving launched no {name} kernel")
+    vectors, _ = load_encoded(os.path.join(out, "encoded"))
+    check(vectors.shape == (sz["passages"], t["hid"]) and bool(np.isfinite(vectors).all()), "TinyBERT's rows")
+    with open(os.path.join(out, "efficiency-metrics.json")) as f:
+        blocks = json.load(f)[-1]["blocks"]
+    result.update(serve_launches=launches, serve_wall_s=time.perf_counter() - t0,
+                  encode_psg_per_s=blocks["encode"]["items_per_second"],
+                  search_qps=blocks["search_total"]["items_per_second"])
+    # one batch of passages, the kernels against the plain versions (the int8
+    # MLP half's and the bf16 attention half's)
+    tokenizer = build_tokenizer(config)
+    model = get_model(config, tokenizer)
+    init_params(model, config, torch.Generator().manual_seed(37))
+    model = model.to(device).eval()
+    got, _ = _encode_file(model, config, tokenizer, config["collection_tsv"], "doc", sz["batch"], device,
+                          limit=sz["batch"])
+    with plain_encoder_blocks(), plain_int8_blocks():
+        plain, _ = _encode_file(model, config, tokenizer, config["collection_tsv"], "doc", sz["batch"], device,
+                                limit=sz["batch"])
+    cos, err = _rows_close(got, plain)
+    print(f"[tinybert] (e) one batch of {got.shape[0]} passages encoded with encoder_int8_mlp, kernels vs plain: "
+          f"min row cosine {cos:.6f}, max |d| {err:.4g}")
+    check(cos >= 0.999 and err <= 0.1, f"TinyBERT encode, kernels vs plain: cosine {cos}, max |d| {err}")
+    result.update(encode_cos=cos, encode_max_abs=err)
+    print(f"[tinybert] (e) cli.dense_retrieval over {sz['passages']} passages: {result['encode_psg_per_s']:.1f} "
+          f"psg/s, {result['search_qps']:.1f} QPS; launches {({k: v for k, v in launches.items() if v})}")
+    del model
+
+    # BERT_DOT training through the fused halves at 312 wide
+    steps = sz["tinybert_steps"]
+    os.makedirs(os.path.join(root, "tinybert_train"))
+    paths = _write_train_data(os.path.join(root, "tinybert_train"), dict(sz, train_batches=steps))
+    tcfg = dict(_train_config(paths, sz, device), bert_pretrained_model=ckpt, max_training_batches=steps,
+                validate_every_n_batches=-1, validation_cont=None, test=None, run_dense_retrieval_eval=False)
+    trainer, res = _train_through_trainer(sz, device, tcfg, os.path.join(root, "tinybert_run"), steps, "tinybert")
+    n = steps * t["n_layers"] * 2
+    _check_launches(res["launches"], {"fused_attention_block": n, "fused_mlp_block": n,
+                                      "fused_attention_block_bwd": n, "fused_mlp_block_bwd": n},
+                    "TinyBERT BERT_DOT training", device)
+    cfg = trainer.model.encoder.cfg
+    check((cfg.hidden_size, cfg.num_heads, cfg.intermediate_size) == (t["hid"], t["heads"], t["ff"]),
+          "the BERT_DOT encoder is not at TinyBERT's widths")
+    batch = _device_batch(tcfg, trainer.tokenizer, paths["train"], device)
+    res.update(_kernels_vs_plain_step(trainer.model, tcfg, batch, dict(tcfg, in_batch_negatives=False), "tinybert"))
+    print(f"[tinybert] (e) BERT_DOT at TinyBERT's widths, {steps} steps: loss {res['loss_first']:.4f} -> "
+          f"{res['loss_last']:.4f}, {res['cli_triples_per_s']:.1f} triples/s through the Trainer")
+    result["train"] = res
+    result["launches"] = res["launches"]
+    _free(trainer, device)
+    return result
+
+
 def phase_jax_runs(sz, device, root):
-    """Phase 13: (a) in phase 4's directory, then (b), (c) and (d) in their
-    own; ``launches``: those of every run the parts drive (the .flax
+    """Phase 13: (a) and (e) in phase 4's directory, (b), (c) and (d) in
+    their own; ``launches``: those of every run the parts drive (the .flax
     serving run, the accumulation run, the hub teacher's, the check's,
-    MiniLM's training run and its int8 forward)."""
+    MiniLM's training run and its int8 forward, TinyBERT's serving and
+    training runs)."""
     result = {"jax_run": phase_jax_run(sz, device, root)}
     with tempfile.TemporaryDirectory() as sub:
         result["hub_teacher"] = phase_hub_teacher(sz, device, sub)
@@ -4901,9 +5136,13 @@ def phase_jax_runs(sz, device, root):
         result["fused_check"] = phase_fused_effectiveness(sz, device, sub)
     with tempfile.TemporaryDirectory() as sub:
         result["minilm"] = phase_minilm(sz, device, sub)
+    t0 = time.perf_counter()
+    result["tinybert"] = phase_tinybert(sz, device, root)
+    result["tinybert"]["seconds"] = time.perf_counter() - t0
     launches = {}
     for runs in (result["jax_run"]["serve_launches"], result["jax_run"]["launches"], result["hub_teacher"]["launches"],
-                 result["fused_check"]["launches"], result["minilm"]["launches"], result["minilm"]["int8_launches"]):
+                 result["fused_check"]["launches"], result["minilm"]["launches"], result["minilm"]["int8_launches"],
+                 result["tinybert"]["serve_launches"], result["tinybert"]["launches"]):
         for k, v in runs.items():
             launches[k] = launches.get(k, 0) + v
     result["launches"] = launches
@@ -5563,11 +5802,18 @@ def two_process_worker(spec_path: str) -> int:
     multihost.on_primary(lambda: os.makedirs(folder, exist_ok=True))
     trainer = Trainer(config, folder)
     start = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
-    step = make_train_step(trainer.model, trainer.losses, build_optimizer(step_config, trainer.model), step_config)
-    stats = step(next(iter(trainer._epoch_batches(None, None))))
-    if rank == 0:
-        torch.save({"params": {k: v.detach().float().cpu() for k, v in trainer.model.state_dict().items()},
-                    "loss": float(stats["loss"])}, os.path.join(spec["root"], "mp_step.pt"))
+    first = next(iter(trainer._epoch_batches(None, None)))
+    # one step on this rank's half of the first global batch, and one from the
+    # same start on the padded global batch (rows from mp_valid on: zeros, valid 0)
+    local = first["valid"].shape[0]
+    for tag, batch in (("", first), ("_padded", _padded_rows(first, spec["mp_valid"] - rank * local))):
+        trainer.model.load_state_dict(start)
+        step = make_train_step(trainer.model, trainer.losses, build_optimizer(step_config, trainer.model),
+                               step_config)
+        stats = step(batch)
+        if rank == 0:
+            torch.save({"params": {k: v.detach().float().cpu() for k, v in trainer.model.state_dict().items()},
+                        "loss": float(stats["loss"])}, os.path.join(spec["root"], f"mp_step{tag}.pt"))
     trainer.model.load_state_dict(start)
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -5584,7 +5830,18 @@ def two_process_worker(spec_path: str) -> int:
     return 0
 
 
-def _launch_two(root, config, step_config, cards, timeout=600):
+def _padded_rows(batch, first):
+    """``batch`` with its rows from ``first`` on as the loader pads the last
+    batch of a file (data/batching.py): zeros, ``valid`` 0."""
+    out = {}
+    for key, t in batch.items():
+        t = t.clone()
+        t[max(first, 0):] = 0
+        out[key] = t
+    return out
+
+
+def _launch_two(root, config, step_config, cards, timeout=600, mp_valid=0):
     """Both ranks of phase 14 (c) on ``cards`` (CUDA_VISIBLE_DEVICES); every
     process ends before this returns. → their outputs."""
     import socket
@@ -5594,7 +5851,7 @@ def _launch_two(root, config, step_config, cards, timeout=600):
         port = s.getsockname()[1]
     spec = os.path.join(root, "mp_spec.json")
     with open(spec, "w") as f:
-        json.dump({"root": root, "config": config, "step_config": step_config}, f)
+        json.dump({"root": root, "config": config, "step_config": step_config, "mp_valid": mp_valid}, f)
     procs = []
     for rank in range(2):
         env = dict(os.environ, MATCHMAKER_COORDINATOR=f"127.0.0.1:{port}", MATCHMAKER_NUM_PROCESSES="2",
@@ -5624,11 +5881,16 @@ def phase_two_processes(sz, device, root):
     rule: NCCL refuses two ranks on one card), BERT_DOT at DistilBERT width,
     a global batch of ``mp_batch`` (half a process), query 30, doc 200,
     Margin-MSE + in-batch negatives: one step against the one-process step
-    on the same global batch, ``mp_steps`` steps through the Trainer in each
+    on the same global batch, and one on the padded last batch of a file
+    (``mp_valid`` valid rows: process 0 holds half the batch's, process 1
+    the rest; JAX's one mean over the global batch's valid rows, whatever
+    each process holds), ``mp_steps`` steps through the Trainer in each
     process (K1/K2/K11/K12 counted in each), the primary alone writing the
     run folder; on a machine with two cards or more, the same over nccl."""
     import torch
 
+    from matchmaker_tpu_torch.training.optim import build_optimizer
+    from matchmaker_tpu_torch.training.train_step import make_train_step
     from matchmaker_tpu_torch.training.trainer import Trainer
 
     paths = _write_train_data(root, dict(sz, train_batches=sz["mp_steps"] + 1, train_batch=sz["mp_batch"]))
@@ -5636,10 +5898,15 @@ def phase_two_processes(sz, device, root):
     fresh_perf_monitor()
     os.makedirs(os.path.join(root, "one_step"))
     one = Trainer(step_config, os.path.join(root, "one_step"))
-    start = {k: v.detach().float().cpu().clone() for k, v in one.model.state_dict().items()}
-    stats = one.train_step(next(iter(one._epoch_batches(None, None))))
-    after_one = {k: v.detach().float().cpu() for k, v in one.model.state_dict().items()}
-    loss_one = float(stats["loss"])
+    start_dev = {k: v.detach().clone() for k, v in one.model.state_dict().items()}
+    start = {k: v.float().cpu().clone() for k, v in start_dev.items()}
+    first = next(iter(one._epoch_batches(None, None)))
+    after_one, loss_one = {}, {}
+    for tag, batch in (("", first), ("_padded", _padded_rows(first, sz["mp_valid"]))):
+        one.model.load_state_dict(start_dev)
+        step = make_train_step(one.model, one.losses, build_optimizer(step_config, one.model), step_config)
+        loss_one[tag] = float(step(batch)["loss"])
+        after_one[tag] = {k: v.detach().float().cpu().clone() for k, v in one.model.state_dict().items()}
     del one
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -5654,12 +5921,18 @@ def phase_two_processes(sz, device, root):
         run_root = os.path.join(root, tag)
         os.makedirs(run_root)
         t0 = time.perf_counter()
-        ranks, outs = _launch_two(run_root, config, step_config, ",".join(use))
+        ranks, outs = _launch_two(run_root, config, step_config, ",".join(use), mp_valid=sz["mp_valid"])
         wall = time.perf_counter() - t0
-        mp_step = torch.load(os.path.join(run_root, "mp_step.pt"), weights_only=True)
-        loss_gap = abs(mp_step["loss"] - loss_one) / abs(loss_one)
-        cos = _update_cosines(start, mp_step["params"], after_one, "multi", f"{tag}: two-process step vs one-process")
-        check(loss_gap <= 1e-2, f"phase 14 (c) {tag}: loss {mp_step['loss']} vs one process {loss_one}")
+        steps = {}
+        for which in ("", "_padded"):
+            mp_step = torch.load(os.path.join(run_root, f"mp_step{which}.pt"), weights_only=True)
+            gap = abs(mp_step["loss"] - loss_one[which]) / abs(loss_one[which])
+            what = "padded two-process step" if which else "two-process step"
+            steps[which] = (mp_step["loss"], gap, _update_cosines(start, mp_step["params"], after_one[which], "multi",
+                                                                  f"{tag}: {what} vs one-process"))
+            check(gap <= 1e-2, f"phase 14 (c) {tag}: {what}'s loss {mp_step['loss']} vs one process "
+                               f"{loss_one[which]}")
+        (mp_loss, loss_gap, cos), (pad_loss, pad_gap, pad_cos) = steps[""], steps["_padded"]
         want = 2 * sz["mp_steps"] * sz["n_layers"] if device.type == "cuda" else 0
         for r in ranks:
             got = {c: r["launches"][c] for c in ("fused_attention_block", "fused_mlp_block",
@@ -5673,12 +5946,16 @@ def phase_two_processes(sz, device, root):
         backends = [r["backend"] for r in ranks]
         check(backends == (["gloo", "gloo"] if tag.startswith("gloo") else ["nccl", "nccl"]),
               f"phase 14 (c) {tag}: backends {backends}")
-        result[tag] = {"backends": backends, "devices": [r["device"] for r in ranks], "loss_one_process": loss_one,
-                       "loss_two_processes": mp_step["loss"], "loss_rel_gap": loss_gap, **cos,
+        result[tag] = {"backends": backends, "devices": [r["device"] for r in ranks], "loss_one_process": loss_one[""],
+                       "loss_two_processes": mp_loss, "loss_rel_gap": loss_gap, **cos,
+                       "padded": {"valid_rows": sz["mp_valid"], "loss_one_process": loss_one["_padded"],
+                                  "loss_two_processes": pad_loss, "loss_rel_gap": pad_gap, **pad_cos},
                        "launches_rank0": ranks[0]["launches"], "launches_rank1": ranks[1]["launches"],
                        "triples_per_s_host_paced": rate, "wall_s": wall, "run_files": files}
         print(f"[multi] (c) {tag}: backends {backends} on {result[tag]['devices']}; one step vs one process: loss "
-              f"gap {loss_gap:.3g}, worst update cosine {cos['update_cos']:.6f}; {sz['mp_steps']} steps, "
+              f"gap {loss_gap:.3g}, worst update cosine {cos['update_cos']:.6f}; on the padded batch ({sz['mp_valid']} "
+              f"valid rows of {sz['mp_batch']}) loss gap {pad_gap:.3g}, worst update cosine "
+              f"{pad_cos['update_cos']:.6f}; {sz['mp_steps']} steps, "
               f"K1/K2/K11/K12 {want} each in each process; {rate:.1f} triples/s (host-paced; "
               f"{'two ranks on one card' if tag.startswith('gloo') else 'two cards'}); run folder {files}")
     return result
@@ -5931,25 +6208,29 @@ def run_phases(sz, device, card: str) -> dict:
              "bound_ms": kern[name]["bound_ms"], "bound_by": kern[name]["bound_by"],
              "library_ms": kern[name].get("library_ms"),
              "timed_shape": kern[name]["timed_shape"], **{k: kern[name][k] for k in BESIDE if k in kern[name]}})
-    # the attention cores' head-width instances: at width 32 on phase 13
-    # (d)'s path (MiniLM: K1 and K12 in its training run, K10 in its int8
-    # forward; every launch there is at width 32), K13 and width 16 on none
-    minilm = report["jax_runs"]["minilm"]
-    minilm_launches = {k: minilm["launches"].get(k, 0) + minilm["int8_launches"].get(k, 0)
-                       for k in minilm["launches"]}
+    # the attention cores' other head widths and the other hidden widths:
+    # at width 32 on phase 13 (d)'s path (MiniLM: K1 and K12 in its training
+    # run, K10 in its int8 forward; every launch there is at width 32), at
+    # width 26 and hidden 312 on phase 13 (e)'s (TinyBERT: K1 and K9 in its
+    # int8_mlp serving run, K1, K12 and K11 in its training run; every
+    # launch there is at hidden 312), K13, K10 at 26 and the other widths on
+    # none
+    j = report["jax_runs"]
+    runs = {"minilm": (j["minilm"]["launches"], j["minilm"]["int8_launches"]),
+            "tinybert": (j["tinybert"]["serve_launches"], j["tinybert"]["launches"])}
     sources = {k[0]: (k[1], k[2]) for k in KERNELS}
-    for name, counter, hd in HEAD_WIDTH_KERNELS:
-        on_path = hd == 32 and counter != "fused_mha"
-        launches = minilm_launches[counter] if on_path else 0
+    for name, counter, run in HEAD_WIDTH_KERNELS:
+        on_path = run is not None and counter not in _OFF_PATH
+        launches = sum(r.get(counter, 0) for r in runs[run]) if on_path else 0
         if on_path and device.type == "cuda":
-            check(launches > 0, f"phase 13 (d) launched no {counter} kernel at head width 32")
+            check(launches > 0, f"phase 13's {run} run launched no {counter} kernel ({name})")
         e = kern[name]
         report["kernels"].append(
             {"name": name, "route": "cuda", "source": sources[counter][0], "replaces": sources[counter][1],
-             "head_dim": hd, "path": "minilm" if on_path else None, "launches": launches,
-             "max_abs_err": e["max_abs_err"], "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-             "bound_by": e["bound_by"], "library_ms": e.get("library_ms"), "timed_shape": e["timed_shape"],
-             "device_ms": e.get("device_ms"), "x_bound": e.get("x_bound")})
+             **{k: e[k] for k in ("head_dim", "padded_to") if k in e}, "path": run if on_path else None,
+             "launches": launches, "max_abs_err": e["max_abs_err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
+             "bound_ms": e["bound_ms"], "bound_by": e["bound_by"], "library_ms": e.get("library_ms"),
+             "timed_shape": e["timed_shape"], "device_ms": e.get("device_ms"), "x_bound": e.get("x_bound")})
     report["kernel_timings"] = {k[0]: kern[k[0]]["timings"] for k in KERNELS}
     if report["scale"]["level2_reduce"]:
         report["kernel_timings"]["level2_reduce"].append(dict(report["scale"]["level2_reduce"], path="scale_bf16"))
@@ -6035,7 +6316,7 @@ def print_zoo(card, report) -> None:
 
 def print_jax_runs(card, report) -> None:
     jr = report["jax_runs"]
-    a, b, c, d = jr["jax_run"], jr["hub_teacher"], jr["fused_check"], jr["minilm"]
+    a, b, c, d, e = jr["jax_run"], jr["hub_teacher"], jr["fused_check"], jr["minilm"], jr["tinybert"]
     print(f"[{card}] JAX run folder: best-model.flax served bit for bit as the .npz; warm start + accumulation "
           f"(k {FULL['accum_k']}, batch {FULL['accum_batch']}) {a['train']['cli_triples_per_s']:.1f} triples/s "
           f"through the Trainer, accumulated vs big-batch update worst cosine "
@@ -6043,7 +6324,10 @@ def print_jax_runs(card, report) -> None:
           f"triples/s with the ColBERT teacher; fused effectiveness check (mini) MRR@10 {c['MRR@10']:.4f}; "
           f"MiniLM BERT_CAT {d['cli_triples_per_s']:.1f} triples/s through the Trainer, eval cosine "
           f"{d['eval_cos']:.6f}, int8 eval cosine {d['int8_eval_cos']:.6f}, worst gradient cosine "
-          f"{d['plain_grad_cos']:.6f}; phase 13 {report['jax_runs_s']:.1f} s")
+          f"{d['plain_grad_cos']:.6f}; TinyBERT-4L-312D int8_mlp encode {e['encode_psg_per_s']:.1f} psg/s (cosine "
+          f"{e['encode_cos']:.6f} to plain), BERT_DOT {e['train']['cli_triples_per_s']:.1f} triples/s through the "
+          f"Trainer, worst gradient cosine {e['train']['plain_grad_cos']:.6f} ({e['seconds']:.1f} s); phase 13 "
+          f"{report['jax_runs_s']:.1f} s")
 
 
 def print_multi(card, report) -> None:
@@ -6135,7 +6419,7 @@ def main() -> int:
                   f"{k['launches_phase11']} in phase 11's, {k['launches_phase12']} in phase 12's, "
                   f"{k['launches_phase13']} in phase 13's, {k['launches_phase14']} in phase 14's, "
                   f"{k['launches_scale']} in the scale search"
-                  if "launches_scale" in k else f" (head width {k['head_dim']})"))
+                  if "launches_scale" in k else f" ({k['name'].split('@')[1]})"))
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({"kernels": report["kernels"]}))

@@ -76,13 +76,16 @@ __global__ void __launch_bounds__(256) colsum_partial_kernel(const T* __restrict
 }
 
 // ---- LayerNorm backward ------------------------------------------------------
-// One block = LNB_ROWS rows of N = 128 * C columns, a warp per row at a time;
+// One block = LNB_ROWS rows of N <= 128 * C columns, a warp per row at a time;
 // lane l holds columns 128c + 4l .. + 3 of its row in registers, read once:
 // two-pass mean and variance as the forward, then
 // dacc = rstd.(dy.g - mean(dy.g) - yhat.mean(dy.g.yhat)) (f32 and bf16 copies).
 // Each warp sums its rows' dgamma += dy.yhat, dbeta += dy, dbias += dacc into
 // its own shared-memory row; the block then adds the eight warps' rows in
 // order into this block's row of partial (blocks, 3N) for the second pass.
+// A width that is a multiple of 128 runs N = 128 * C (TAIL false); any other
+// multiple of 8 runs the next chunk count with the columns from n on masked
+// (TAIL true): read as zeros, left out of the variance, never written.
 constexpr int LNB_ROWS = 32;
 constexpr int LNB_WARPS = 8;
 
@@ -92,13 +95,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int C>
+template <int C, bool TAIL>
 __global__ void __launch_bounds__(32 * LNB_WARPS) ln_bwd_kernel(const float* __restrict__ acc,
                                                                 const bf16* __restrict__ dy,
                                                                 const float* __restrict__ gamma,
                                                                 float* __restrict__ dacc, bf16* __restrict__ dacc_lp,
-                                                                float* __restrict__ partial, int M, float eps) {
-  constexpr int N = 128 * C;
+                                                                float* __restrict__ partial, int M, int n, float eps) {
+  const int N = TAIL ? n : 128 * C;
   extern __shared__ float ws[];  // [LNB_WARPS][3N]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* mine = ws + warp * 3 * N;
@@ -109,6 +112,11 @@ __global__ void __launch_bounds__(32 * LNB_WARPS) ln_bwd_kernel(const float* __r
     float x[C][4], d[C][4];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
+      if (TAIL && 128 * c + 4 * lane >= N) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[c][e] = 0.0f, d[c][e] = 0.0f;
+        continue;
+      }
       const size_t off = (size_t)row * N + 128 * c + 4 * lane;
       const float4 xv = *reinterpret_cast<const float4*>(acc + off);
       const uint2 raw = *reinterpret_cast<const uint2*>(dy + off);
@@ -125,13 +133,16 @@ __global__ void __launch_bounds__(32 * LNB_WARPS) ln_bwd_kernel(const float* __r
     const float mean = warp_sum(sum) / N;
     float q = 0.0f;
 #pragma unroll
-    for (int c = 0; c < C; ++c)
+    for (int c = 0; c < C; ++c) {
+      if (TAIL && 128 * c + 4 * lane >= N) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e) q += (x[c][e] - mean) * (x[c][e] - mean);
+    }
     const float rstd = rsqrtf(warp_sum(q) / N + eps);
     float m1 = 0.0f, m2 = 0.0f;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
+      if (TAIL && 128 * c + 4 * lane >= N) continue;
       const float4 g = *reinterpret_cast<const float4*>(gamma + 128 * c + 4 * lane);
       const float gv[4] = {g.x, g.y, g.z, g.w};
 #pragma unroll
@@ -147,6 +158,7 @@ __global__ void __launch_bounds__(32 * LNB_WARPS) ln_bwd_kernel(const float* __r
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int col = 128 * c + 4 * lane;
+      if (TAIL && col >= N) continue;
       const float4 g = *reinterpret_cast<const float4*>(gamma + col);
       const float gv[4] = {g.x, g.y, g.z, g.w};
       float v[4];
@@ -173,14 +185,15 @@ __global__ void __launch_bounds__(32 * LNB_WARPS) ln_bwd_kernel(const float* __r
   }
 }
 
-template <int C>
+template <int C, bool TAIL>
 cudaError_t launch_ln_bwd(const float* acc, const bf16* dy, const float* gamma, float* dacc, bf16* dacc_lp,
-                          float* partial, int M, float eps, cudaStream_t s) {
-  const int smem = LNB_WARPS * 3 * 128 * C * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ln_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                          float* partial, int M, int N, float eps, cudaStream_t s) {
+  const int smem = LNB_WARPS * 3 * N * (int)sizeof(float);
+  cudaError_t err =
+      cudaFuncSetAttribute(ln_bwd_kernel<C, TAIL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  ln_bwd_kernel<C><<<(M + LNB_ROWS - 1) / LNB_ROWS, 32 * LNB_WARPS, smem, s>>>(acc, dy, gamma, dacc, dacc_lp,
-                                                                              partial, M, eps);
+  ln_bwd_kernel<C, TAIL><<<(M + LNB_ROWS - 1) / LNB_ROWS, 32 * LNB_WARPS, smem, s>>>(acc, dy, gamma, dacc,
+                                                                                    dacc_lp, partial, M, N, eps);
   return cudaGetLastError();
 }
 
@@ -562,7 +575,7 @@ cudaError_t colsum(const void* x, bool is_bf16, float* partial, float* out, int 
   return cudaGetLastError();
 }
 
-// LayerNorm backward over M rows of N (a multiple of 128, at most 1024):
+// LayerNorm backward over M rows of N (a multiple of 8, at most 1024):
 // dacc f32 and bf16, and per-block column partials (ln_blocks(M), 3N) of
 // dgamma, dbeta and sum(dacc).
 inline int ln_blocks(int M) { return (M + LNB_ROWS - 1) / LNB_ROWS; }
@@ -570,12 +583,23 @@ inline int ln_blocks(int M) { return (M + LNB_ROWS - 1) / LNB_ROWS; }
 cudaError_t ln_bwd(const float* acc, const bf16* dy, const float* gamma, float* dacc, bf16* dacc_lp, float* partial,
                    int M, int N, float eps, cudaStream_t s) {
   switch (N) {
-    case 256: return launch_ln_bwd<2>(acc, dy, gamma, dacc, dacc_lp, partial, M, eps, s);
-    case 384: return launch_ln_bwd<3>(acc, dy, gamma, dacc, dacc_lp, partial, M, eps, s);
-    case 512: return launch_ln_bwd<4>(acc, dy, gamma, dacc, dacc_lp, partial, M, eps, s);
-    case 768: return launch_ln_bwd<6>(acc, dy, gamma, dacc, dacc_lp, partial, M, eps, s);
-    case 1024: return launch_ln_bwd<8>(acc, dy, gamma, dacc, dacc_lp, partial, M, eps, s);
-    default: return cudaErrorInvalidValue;
+    case 256: return launch_ln_bwd<2, false>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
+    case 384: return launch_ln_bwd<3, false>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
+    case 512: return launch_ln_bwd<4, false>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
+    case 768: return launch_ln_bwd<6, false>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
+    case 1024: return launch_ln_bwd<8, false>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
+    default: break;
+  }
+  if (N <= 0 || N > 1024 || N % 8) return cudaErrorInvalidValue;
+  switch ((N + 127) / 128) {
+    case 1: return launch_ln_bwd<1, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
+    case 2: return launch_ln_bwd<2, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
+    case 3: return launch_ln_bwd<3, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
+    case 4: return launch_ln_bwd<4, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
+    case 5: return launch_ln_bwd<5, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
+    case 6: return launch_ln_bwd<6, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
+    case 7: return launch_ln_bwd<7, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
+    default: return launch_ln_bwd<8, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
   }
 }
 
@@ -675,38 +699,40 @@ struct Arena {
     if (err_ != 0) return err_;                 \
   } while (0)
 
-// K12: x (M, HID) bf16 the block input, wqkv (HID, 3HID), wo (HID, HID) bf16,
-// mask (B, L) f32, gamma (HID) f32, dy (M, HID) bf16, acc (M, HID) f32, qkv
-// (M, 3HID) and attn (M, HID) bf16 from the forward. Writes dx (M, HID) bf16,
-// dwqkv (HID, 3HID) and dwo (HID, HID) f32, and vec f32 = [dgamma | dbeta |
-// dbo | dbqkv] (6HID). The weight gradients split their rows by the given
-// plans (ops/fused_backward.py:wgrad_plan).
+// K12: x (M, HID) bf16 the block input, wqkv (HID, 3A), wo (A, HID) bf16 with
+// A = H * hd the heads' width (HID, or the heads zero-padded to an instanced
+// width: ops/fused_attention.py:pad_attention_heads), mask (B, L) f32, gamma
+// (HID) f32, dy (M, HID) bf16, acc (M, HID) f32, qkv (M, 3A) and attn (M, A)
+// bf16 from the forward. Writes dx (M, HID) bf16, dwqkv (HID, 3A) and dwo (A,
+// HID) f32, and vec f32 = [dgamma | dbeta | dbo | dbqkv] (3HID + 3A). The
+// weight gradients split their rows by the given plans
+// (ops/fused_backward.py:wgrad_plan).
 int attention_block_bwd(Arena& ar, const void* x, const void* wqkv, const void* wo, const void* mask,
                         const void* gamma, const void* dy, const void* acc, const void* qkv, const void* attn,
-                        void* dx, void* dwqkv, void* dwo, void* vec, int B, int L, int H, int HID, float eps,
+                        void* dx, void* dwqkv, void* dwo, void* vec, int B, int L, int H, int HID, int A, float eps,
                         float scale, int wo_splits, int wo_per, int wqkv_splits, int wqkv_per, cudaStream_t s) {
   const int M = B * L;
   float* dacc = ar.take<float>((size_t)M * HID);
   bf16* dacc_lp = ar.take<bf16>((size_t)M * HID);
   float* ln_part = ar.take<float>((size_t)ln_blocks(M) * 3 * HID);
   float* ln_col = ar.take<float>((size_t)colsum_splits(ln_blocks(M)) * 3 * HID);
-  float* wo_part = ar.take<float>(wo_splits > 1 ? (size_t)wo_splits * HID * HID : 0);
-  bf16* da = ar.take<bf16>((size_t)M * HID);
-  bf16* dqkv = ar.take<bf16>((size_t)M * 3 * HID);
+  float* wo_part = ar.take<float>(wo_splits > 1 ? (size_t)wo_splits * A * HID : 0);
+  bf16* da = ar.take<bf16>((size_t)M * A);
+  bf16* dqkv = ar.take<bf16>((size_t)M * 3 * A);
   float* stats = ar.take<float>((size_t)3 * M * H);
-  float* wqkv_part = ar.take<float>(wqkv_splits > 1 ? (size_t)wqkv_splits * HID * 3 * HID : 0);
-  float* b_col = ar.take<float>((size_t)colsum_splits(M) * 3 * HID);
+  float* wqkv_part = ar.take<float>(wqkv_splits > 1 ? (size_t)wqkv_splits * HID * 3 * A : 0);
+  float* b_col = ar.take<float>((size_t)colsum_splits(M) * 3 * A);
   if (ar.base == nullptr) return 0;
   float* sums = static_cast<float*>(vec);
   MM_TRY(ln_bwd(static_cast<const float*>(acc), static_cast<const bf16*>(dy), static_cast<const float*>(gamma), dacc,
                 dacc_lp, ln_part, M, HID, eps, s));
   MM_TRY(colsum(ln_part, false, ln_col, sums, ln_blocks(M), 3 * HID, s));  // dgamma | dbeta | dbo
-  MM_TRY(mm_wg_wgrad(attn, dacc_lp, wo_part, dwo, M, HID, HID, wo_splits, wo_per, s));
-  MM_TRY(mm_wg_gemm(dacc_lp, wo, nullptr, da, M, HID, HID, wg::EPI_BF16, s));
-  MM_TRY(mm_attention_bwd(qkv, mask, da, dqkv, stats, B, L, H, HID / H, scale, s));
-  MM_TRY(mm_wg_wgrad(x, dqkv, wqkv_part, dwqkv, M, HID, 3 * HID, wqkv_splits, wqkv_per, s));
-  MM_TRY(colsum(dqkv, true, b_col, sums + 3 * HID, M, 3 * HID, s));  // dbqkv
-  MM_TRY(mm_wg_gemm(dqkv, wqkv, dacc, dx, M, HID, 3 * HID, wg::EPI_RESID_BF16, s));
+  MM_TRY(mm_wg_wgrad(attn, dacc_lp, wo_part, dwo, M, A, HID, wo_splits, wo_per, s));
+  MM_TRY(mm_wg_gemm(dacc_lp, wo, nullptr, da, M, A, HID, wg::EPI_BF16, s));
+  MM_TRY(mm_attention_bwd(qkv, mask, da, dqkv, stats, B, L, H, A / H, scale, s));
+  MM_TRY(mm_wg_wgrad(x, dqkv, wqkv_part, dwqkv, M, HID, 3 * A, wqkv_splits, wqkv_per, s));
+  MM_TRY(colsum(dqkv, true, b_col, sums + 3 * HID, M, 3 * A, s));  // dbqkv
+  MM_TRY(mm_wg_gemm(dqkv, wqkv, dacc, dx, M, HID, 3 * A, wg::EPI_RESID_BF16, s));
   return 0;
 }
 
@@ -748,17 +774,17 @@ extern "C" {
 // mm_attention_block_bwd_bytes bytes (mm::attention_block_bwd).
 int mm_attention_block_bwd(const void* x, const void* wqkv, const void* wo, const void* mask, const void* gamma,
                            const void* dy, const void* acc, const void* qkv, const void* attn, void* dx, void* dwqkv,
-                           void* dwo, void* vec, void* ws, int B, int L, int H, int HID, float eps, float scale,
-                           int wo_splits, int wo_per, int wqkv_splits, int wqkv_per, void* stream) {
+                           void* dwo, void* vec, void* ws, int B, int L, int H, int HID, int A, float eps,
+                           float scale, int wo_splits, int wo_per, int wqkv_splits, int wqkv_per, void* stream) {
   Arena ar{static_cast<char*>(ws), 0};
-  return attention_block_bwd(ar, x, wqkv, wo, mask, gamma, dy, acc, qkv, attn, dx, dwqkv, dwo, vec, B, L, H, HID,
+  return attention_block_bwd(ar, x, wqkv, wo, mask, gamma, dy, acc, qkv, attn, dx, dwqkv, dwo, vec, B, L, H, HID, A,
                              eps, scale, wo_splits, wo_per, wqkv_splits, wqkv_per, static_cast<cudaStream_t>(stream));
 }
 
-long long mm_attention_block_bwd_bytes(int B, int L, int H, int HID, int wo_splits, int wqkv_splits) {
+long long mm_attention_block_bwd_bytes(int B, int L, int H, int HID, int A, int wo_splits, int wqkv_splits) {
   Arena ar{nullptr, 0};
   attention_block_bwd(ar, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                      nullptr, nullptr, nullptr, B, L, H, HID, 0.0f, 0.0f, wo_splits, 0, wqkv_splits, 0, nullptr);
+                      nullptr, nullptr, nullptr, B, L, H, HID, A, 0.0f, 0.0f, wo_splits, 0, wqkv_splits, 0, nullptr);
   return static_cast<long long>(ar.used);
 }
 

@@ -66,14 +66,18 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 // One warp per (row, group) of x (M, G*W): codes and the group's scale
-// (matchmaker_tpu/ops/fused_int8.py:_quant_rows over each group).
+// (matchmaker_tpu/ops/fused_int8.py:_quant_rows over each group). The codes
+// go to q (M, G*WP), each group's W codes followed by WP - W zero codes: a
+// product's contraction padded to whole 64-code steps.
 template <typename T>
 __global__ void __launch_bounds__(256) quant_groups_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                                                           float* __restrict__ scales, int M, int G, int W) {
+                                                           float* __restrict__ scales, int M, int G, int W, int WP) {
   const long long wid = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (wid >= (long long)M * G) return;
   const size_t base = (size_t)wid * W;  // row-major (M, G*W): group g of row r starts at (r*G + g)*W
+  int8_t* qg = q + (size_t)wid * WP;
+  for (int j = W + lane; j < WP; j += 32) qg[j] = 0;
   float amax = 0.0f;
   for (int j = lane; j < W; j += 32) amax = fmaxf(amax, fabsf(to_f32(x[base + j])));
 #pragma unroll
@@ -81,7 +85,7 @@ __global__ void __launch_bounds__(256) quant_groups_kernel(const T* __restrict__
   const float s = fmaxf(__fdiv_rn(amax, 127.0f), 1e-12f);
   for (int j = lane; j < W; j += 32) {
     const float c = fminf(fmaxf(rintf(__fdiv_rn(to_f32(x[base + j]), s)), -127.0f), 127.0f);
-    q[base + j] = static_cast<int8_t>(c);
+    qg[j] = static_cast<int8_t>(c);
   }
   if (lane == 0) scales[wid] = s;
 }
@@ -509,18 +513,20 @@ using namespace mm;
 
 extern "C" {
 
-// q (M, G*W) int8 codes and scales (M, G) f32 of x (M, G*W), bf16
-// (x_is_f32 = 0) or f32 (x_is_f32 = 1), quantized per row and group of W.
-int mm_quant_groups(const void* x, void* q, void* scales, int M, int G, int W, int x_is_f32, void* stream) {
+// q (M, G*WP) int8 codes and scales (M, G) f32 of x (M, G*W), bf16
+// (x_is_f32 = 0) or f32 (x_is_f32 = 1), quantized per row and group of W,
+// each group's codes padded with zeros to WP >= W.
+int mm_quant_groups(const void* x, void* q, void* scales, int M, int G, int W, int WP, int x_is_f32, void* stream) {
+  if (WP < W) return static_cast<int>(cudaErrorInvalidValue);
   const long long warps = (long long)M * G;
   const unsigned blocks = (unsigned)((warps + 7) / 8);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_f32)
     quant_groups_kernel<float><<<blocks, 256, 0, s>>>(static_cast<const float*>(x), static_cast<int8_t*>(q),
-                                                       static_cast<float*>(scales), M, G, W);
+                                                       static_cast<float*>(scales), M, G, W, WP);
   else
     quant_groups_kernel<bf16><<<blocks, 256, 0, s>>>(static_cast<const bf16*>(x), static_cast<int8_t*>(q),
-                                                      static_cast<float*>(scales), M, G, W);
+                                                      static_cast<float*>(scales), M, G, W, WP);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,7 @@ import torch
 
 from matchmaker_tpu_torch.losses import listwise, pairwise
 from matchmaker_tpu_torch.losses.qa import qa_start_end_cross_entropy
+from matchmaker_tpu_torch.losses.global_batch import LOCAL, GlobalBatch
 
 
 @dataclass(frozen=True)
@@ -46,7 +47,7 @@ _PAIRWISE = {
 _LISTWISE = {
     "mrr": listwise.smooth_mrr,
     "listnet": listwise.listnet,
-    "lambdarank": lambda s, t, valid=None: listwise.lambda_loss(s, t, valid, scheme="ndcgLoss2"),
+    "lambdarank": lambda s, t, valid=None, gb=LOCAL: listwise.lambda_loss(s, t, valid, scheme="ndcgLoss2", gb=gb),
 }
 
 _INBATCH_PAIRWISE = {
@@ -57,7 +58,8 @@ _INBATCH_PAIRWISE = {
 _INBATCH_LISTWISE = {
     "KLDivTeacherList": listwise.kldiv_teacher_list,
     "listnet": listwise.listnet,
-    "lambdarank": lambda s, t, valid=None: listwise.lambda_loss_teacher(s, t, valid, scheme="ndcgLoss2"),
+    "lambdarank": lambda s, t, valid=None, gb=LOCAL: listwise.lambda_loss_teacher(s, t, valid, scheme="ndcgLoss2",
+                                                                                  gb=gb),
 }
 
 
@@ -98,12 +100,14 @@ def get_loss(config) -> LossBundle:
     )
 
 
-def merge_loss(losses: List[torch.Tensor], log_vars: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+def merge_loss(losses: List[torch.Tensor], log_vars: torch.Tensor,
+               gb: GlobalBatch = LOCAL) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Uncertainty-weighted multi-task merge: sum(exp(-logvar_i) * loss_i + logvar_i)."""
     weighted = []
     total = 0.0
     for i, loss in enumerate(losses):
-        wl = torch.exp(-log_vars[i]) * loss + log_vars[i]
+        # the log variance once over the global batch (each process adds its share)
+        wl = torch.exp(-log_vars[i]) * loss + log_vars[i] * gb.share
         total = total + wl
         weighted.append(wl)
     return total, weighted

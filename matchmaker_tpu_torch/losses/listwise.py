@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from matchmaker_tpu_torch.losses.global_batch import LOCAL
+
 _EPS = 1e-6
 _NEG_BIG = -1e9
 
@@ -21,21 +23,21 @@ def _masked_softmax(x, valid, dim=-1):
     return torch.softmax(x, dim=dim)
 
 
-def listnet(y_pred, y_true, valid=None):
+def listnet(y_pred, y_true, valid=None, gb=LOCAL):
     """Cross entropy between the scores' softmax and the labels' softmax."""
     p = _masked_softmax(y_pred, valid) + _EPS
     t = _masked_softmax(y_true, valid)
-    return torch.mean(-torch.sum(t * torch.log(p), dim=1))
+    return gb.mean(-torch.sum(t * torch.log(p), dim=1))
 
 
-def kldiv_teacher_list(y_pred, y_true, valid=None):
+def kldiv_teacher_list(y_pred, y_true, valid=None, gb=LOCAL):
     """torch KLDivLoss(batchmean)(softmax(scores), softmax(labels)): the
     reference feeds probabilities (not log-probabilities) as the input, so
     this is target * (log(target) - input)."""
     p = _masked_softmax(y_pred, valid)
     t = _masked_softmax(y_true, valid)
     per = t * (torch.log(torch.clamp(t, min=1e-10)) - p)
-    return per.sum() / y_pred.shape[0]
+    return per.sum() / gb.rows(y_pred.shape[0])
 
 
 def smooth_rank(scores):
@@ -44,24 +46,24 @@ def smooth_rank(scores):
     return torch.sigmoid(diff).sum(dim=-1) + 0.5
 
 
-def smooth_mrr(scores, labels, valid=None):
+def smooth_mrr(scores, labels, valid=None, gb=LOCAL):
     """1 - max(label / soft rank)."""
     ranks = smooth_rank(scores)
     binary = (labels > 0).to(scores.dtype)
     if valid is not None:
         binary = binary * valid
     rr = binary / ranks
-    return torch.mean(1.0 - rr.amax(dim=-1))
+    return gb.mean(1.0 - rr.amax(dim=-1))
 
 
-def soft_cross_entropy(logits, target, valid=None):
+def soft_cross_entropy(logits, target, valid=None, gb=LOCAL):
     """Cross entropy with a soft target distribution."""
     logits = logits.reshape(logits.shape[0], -1)
     target = target.reshape(target.shape[0], -1)
     if valid is not None:
         logits = torch.where(valid.reshape(valid.shape[0], -1) > 0, logits, torch.full_like(logits, _NEG_BIG))
     logp = torch.log_softmax(logits, dim=1)
-    return torch.mean(-torch.sum(target * logp, dim=1))
+    return gb.mean(-torch.sum(target * logp, dim=1))
 
 
 def _lambda_weights(scheme: str, G, D, mu, true_sorted):
@@ -88,7 +90,7 @@ def _lambda_weights(scheme: str, G, D, mu, true_sorted):
 
 
 def lambda_loss(y_pred, y_true, valid=None, scheme: str = "ndcgLoss2", k: Optional[int] = None,
-                sigma: float = 1.0, mu: float = 10.0, eps: float = _EPS, reduction: str = "sum"):
+                sigma: float = 1.0, mu: float = 10.0, eps: float = _EPS, reduction: str = "sum", gb=LOCAL):
     """The LambdaLoss framework with a static slate length, padding by the
     ``valid`` mask."""
     b, n = y_pred.shape
@@ -131,7 +133,7 @@ def lambda_loss(y_pred, y_true, valid=None, scheme: str = "ndcgLoss2", k: Option
     masked = losses * pair_mask * at_k[None, :, :]
     if reduction == "sum":
         return -masked.sum()
-    return -masked.sum() / torch.clamp((pair_mask * at_k[None]).sum(), min=1.0)
+    return -masked.sum() / torch.clamp(gb.count((pair_mask * at_k[None]).sum()), min=1.0)
 
 
 def lambda_loss_teacher(y_pred, teacher_scores, valid=None, scheme: str = "ndcgLoss2", **kw):

@@ -11,18 +11,20 @@ from __future__ import annotations
 
 import torch
 
+from matchmaker_tpu_torch.losses.global_batch import LOCAL, GlobalBatch
 
-def _ce_ignore_index(logits: torch.Tensor, labels: torch.Tensor, ignore: int = -1) -> torch.Tensor:
+
+def _ce_ignore_index(logits: torch.Tensor, labels: torch.Tensor, gb: GlobalBatch, ignore: int = -1) -> torch.Tensor:
     """Mean cross entropy over the samples whose label is not ``ignore``."""
     logp = torch.log_softmax(logits, dim=-1)
     labels = labels.long()
     picked = torch.gather(logp, -1, torch.clamp(labels, min=0)[:, None]).squeeze(-1)
     mask = (labels != ignore).to(logits.dtype)
-    return -(picked * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return -(picked * mask).sum() / torch.clamp(gb.count(mask.sum()), min=1.0)
 
 
 def qa_start_end_cross_entropy(start_logits, end_logits, start_labels, end_labels, answerability_logits=None,
-                               answerability_labels=None):
+                               answerability_labels=None, gb=LOCAL):
     """start (B, L), end (B, L) or (B, S, L) logits, (B, S) labels, optional
     answerability logits (B, C) and labels (B,) → (span_loss,
     answerability_loss); either is None where its inputs are."""
@@ -30,11 +32,11 @@ def qa_start_end_cross_entropy(start_logits, end_logits, start_labels, end_label
     if start_logits is not None:
         starts, ends = [], []
         for s in range(start_labels.shape[1]):
-            starts.append(_ce_ignore_index(start_logits, start_labels[:, s]))
+            starts.append(_ce_ignore_index(start_logits, start_labels[:, s], gb))
             end_s = end_logits[:, s] if end_logits.dim() == 3 else end_logits
-            ends.append(_ce_ignore_index(end_s, end_labels[:, s]))
+            ends.append(_ce_ignore_index(end_s, end_labels[:, s], gb))
         span_loss = (torch.stack(starts).mean() + torch.stack(ends).mean()) / 2.0
     answer_loss = None
     if answerability_logits is not None:
-        answer_loss = _ce_ignore_index(answerability_logits, answerability_labels)
+        answer_loss = _ce_ignore_index(answerability_logits, answerability_labels, gb)
     return span_loss, answer_loss

@@ -44,13 +44,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from matchmaker_tpu_torch.ops.fused_attention import fused_attention_block_qkv, fused_mlp_block
+from matchmaker_tpu_torch.ops.fused_attention import fused_attention_block_qkv, fused_mlp_block, pad_attention_heads
 from matchmaker_tpu_torch.ops.fused_backward import fused_attention_block_qkv_train, fused_mlp_block_train
 from matchmaker_tpu_torch.ops.fused_int8 import (
     fused_attention_int8_block_qkv_kmajor,
     fused_mlp_int8_block_kmajor,
     kmajor_attention_weights,
     kmajor_codes,
+    pad_int8_attention,
+    pad_int8_mlp,
     quantize_weights_per_col,
 )
 
@@ -274,11 +276,14 @@ class EncoderLayer(nn.Module):
 
     def _fused_weights(self):
         """The fused halves' weights: Q/K/V packed, kernels in the compute
-        dtype. With autograd they are built on every call, so the packing
-        and casts carry gradients back to the f32 parameters. Without
-        autograd they are built once and kept until a parameter moves
-        (``.to``) or is written (``load_state_dict``), which changes its data
-        pointer or version counter."""
+        dtype, the heads zero-padded to a width the card's attention core is
+        instanced for where they are narrower (26 → 32, 8 → 16; the plain
+        versions take them so as well: ``pad_attention_heads``). With
+        autograd they are built on every call, so the packing, padding and
+        casts carry gradients back to the f32 parameters. Without autograd
+        they are built once and kept until a parameter moves (``.to``) or is
+        written (``load_state_dict``), which changes its data pointer or
+        version counter."""
         cd, a = self.compute_dtype, self.attention
         params = (a.query.kernel, a.key.kernel, a.value.kernel, a.query.bias, a.key.bias, a.value.bias,
                   a.out.kernel, self.mlp_in.kernel, self.mlp_out.kernel)
@@ -287,7 +292,8 @@ class EncoderLayer(nn.Module):
             with torch.inference_mode(False):  # plain tensors, usable outside inference mode too
                 wqkv = torch.cat([a.query.kernel, a.key.kernel, a.value.kernel], dim=1).to(cd)
                 bqkv = torch.cat([a.query.bias, a.key.bias, a.value.bias])
-                weights = (wqkv, bqkv, a.out.kernel.to(cd), self.mlp_in.kernel.to(cd), self.mlp_out.kernel.to(cd))
+                wqkv, bqkv, wo = pad_attention_heads(wqkv, bqkv, a.out.kernel.to(cd), self.cfg.num_heads)
+                weights = (wqkv, bqkv, wo, self.mlp_in.kernel.to(cd), self.mlp_out.kernel.to(cd))
             if torch.is_grad_enabled():
                 return weights
             self._fused_cache = (key, weights)
@@ -298,19 +304,26 @@ class EncoderLayer(nn.Module):
         quantized from the f32 parameters (as the JAX encoder does, not from
         their bf16 casts), Q/K/V packed, each weight's codes K-major ((OUT,
         IN) contiguous, the transpose of ``quantize_weights_per_col``'s) as
-        the card's int8 products read them. Built without autograd, kept
-        until a parameter moves or is written, like :meth:`_fused_weights`."""
+        the card's int8 products read them, then padded with zero codes of
+        scale 1 and bias 0 (``pad_int8_attention``, ``pad_int8_mlp``): each
+        head to an instanced width, x's contraction, each FF chunk and each
+        head group's Wo columns to whole 64-code steps. Built without
+        autograd, kept until a parameter moves or is written, like
+        :meth:`_fused_weights`."""
         a = self.attention
         kernels = (a.query.kernel, a.key.kernel, a.value.kernel, a.out.kernel, self.mlp_in.kernel,
                    self.mlp_out.kernel)
         biases = (a.query.bias, a.key.bias, a.value.bias)
-        key = tuple((p.data_ptr(), p._version) for p in kernels + biases)
+        key = tuple((p.data_ptr(), p._version) for p in kernels + biases + (self.mlp_in.bias,))
         if self._int8_cache is None or self._int8_cache[0] != key:
             with torch.inference_mode(False), torch.no_grad():
                 q, k, v, o, w1, w2 = (quantize_weights_per_col(p) for p in kernels)
                 wqkv_t, sqkv, bqkv, wo_t, so, _ = kmajor_attention_weights(*q, *k, *v, *o, *biases, None)
-                weights = dict(wqkv_t=wqkv_t, sqkv=sqkv, bqkv=bqkv, wo_t=wo_t, so=so, w1_t=kmajor_codes(w1[0]),
-                               s1=w1[1], w2_t=kmajor_codes(w2[0]), s2=w2[1])
+                wqkv_t, sqkv, bqkv, wo_t = pad_int8_attention(wqkv_t, sqkv, bqkv, wo_t, self.cfg.num_heads)
+                w1_t, s1, b1, w2_t = pad_int8_mlp(kmajor_codes(w1[0]), w1[1], self.mlp_in.bias.detach().float(),
+                                                  kmajor_codes(w2[0]))
+                weights = dict(wqkv_t=wqkv_t, sqkv=sqkv, bqkv=bqkv, wo_t=wo_t, so=so, w1_t=w1_t, s1=s1, b1=b1,
+                               w2_t=w2_t, s2=w2[1])
             self._int8_cache = (key, weights)
         return self._int8_cache[1]
 
@@ -329,14 +342,16 @@ class EncoderLayer(nn.Module):
             wqkv, bqkv, wo, w1, w2 = self._fused_weights()
         ln1 = (self.attention_norm.scale, self.attention_norm.bias, cfg.layer_norm_eps)
         ln2 = (self.mlp_norm.scale, self.mlp_norm.bias, cfg.layer_norm_eps)
+        head_dim = cfg.hidden_size // cfg.num_heads
         if cfg.int8_attention:
             x = fused_attention_int8_block_qkv_kmajor(x.to(cd), q8["wqkv_t"], q8["sqkv"], q8["bqkv"], q8["wo_t"],
-                                                      q8["so"], a.out.bias, key_mask, cfg.num_heads, *ln1)
+                                                      q8["so"], a.out.bias, key_mask, cfg.num_heads, *ln1,
+                                                      head_dim=head_dim)
         else:
             attention = fused_attention_block_qkv_train if grad else fused_attention_block_qkv
-            x = attention(x.to(cd), wqkv, bqkv, wo, a.out.bias, key_mask, cfg.num_heads, *ln1)
+            x = attention(x.to(cd), wqkv, bqkv, wo, a.out.bias, key_mask, cfg.num_heads, *ln1, head_dim=head_dim)
         if cfg.int8_mlp:
-            return fused_mlp_int8_block_kmajor(x.to(cd), q8["w1_t"], q8["s1"], self.mlp_in.bias, q8["w2_t"],
+            return fused_mlp_int8_block_kmajor(x.to(cd), q8["w1_t"], q8["s1"], q8["b1"], q8["w2_t"],
                                                q8["s2"], self.mlp_out.bias, *ln2)
         mlp = fused_mlp_block_train if grad else fused_mlp_block
         return mlp(x.to(cd), w1, self.mlp_in.bias, w2, self.mlp_out.bias, *ln2)

@@ -10,7 +10,9 @@ top ``idcm_top_k_chunks`` BERT chunk scores. ``idcm_sample_n: -1`` runs
 BERT on every chunk (stage 1, trained with a passage loss). With
 ``idcm_train_selection`` (stage 2) BERT scores every chunk without
 gradient and the sampler learns to rank chunks as BERT does (``mseloss``,
-``kldivloss``, ``crossentropy`` or ``lambdaloss``: ``selection_loss``);
+``kldivloss``, ``crossentropy`` or ``lambdaloss``: ``selection_loss``,
+over the global batch where the batch carries the train step's
+``global_batch``);
 ``bert_part_cached`` in the batch replays BERT's chunk scores from a
 replay cache (utils/replay_cache.py) in place of computing them.
 
@@ -33,6 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from matchmaker_tpu_torch.losses.global_batch import LOCAL, GlobalBatch
 from matchmaker_tpu_torch.losses.listwise import kldiv_teacher_list, lambda_loss, soft_cross_entropy
 from matchmaker_tpu_torch.models.adapters import NEG_SENTINEL, chunk_document
 from matchmaker_tpu_torch.models.base import Batch, Output, Ranker
@@ -137,20 +140,21 @@ class IDCM(Ranker):
         top = torch.where(top <= NEG_SENTINEL + 100.0, 0.0, top)
         return (top * self.top_k_scoring).sum(dim=1)
 
-    def _selection_loss(self, sampling: torch.Tensor, bert_scores: torch.Tensor, non_empty: torch.Tensor):
+    def _selection_loss(self, sampling: torch.Tensor, bert_scores: torch.Tensor, non_empty: torch.Tensor,
+                        gb: GlobalBatch):
         target = (bert_scores * non_empty).detach()
         valid = non_empty.float()
         kind = self.sample_train_type
         if kind == "mseloss":
-            return (((sampling - target) * valid) ** 2).sum() / torch.clamp(valid.sum(), min=1.0)
+            return (((sampling - target) * valid) ** 2).sum() / torch.clamp(gb.count(valid.sum()), min=1.0)
         if kind == "kldivloss":
-            return kldiv_teacher_list(sampling, target, valid)
+            return kldiv_teacher_list(sampling, target, valid, gb)
         masked_target = torch.where(valid > 0, target, NEG_SENTINEL)
         if kind == "crossentropy":
-            return soft_cross_entropy(sampling, torch.softmax(masked_target, dim=-1), valid)
+            return soft_cross_entropy(sampling, torch.softmax(masked_target, dim=-1), valid, gb)
         ranks = torch.argsort(torch.argsort(-masked_target, dim=1, stable=True), dim=1, stable=True)
         gains = torch.clamp(self.sample_n - ranks, min=0).float() * valid
-        return lambda_loss(sampling, gains, valid, scheme="ndcgLoss2")
+        return lambda_loss(sampling, gains, valid, scheme="ndcgLoss2", gb=gb)
 
     # ------------------------------------------------------------------
     def forward(self, batch: Batch, output_secondary: bool = False) -> Output:
@@ -191,7 +195,8 @@ class IDCM(Ranker):
             out["score"] = self._final_score(bert_scores, non_empty)
             out["passage_scores"] = bert_scores * non_empty
             if self.sample_n > -1 and self.train_selection:
-                out["selection_loss"] = self._selection_loss(sampling, bert_scores, non_empty)
+                out["selection_loss"] = self._selection_loss(sampling, bert_scores, non_empty,
+                                                             batch.get("global_batch", LOCAL))
 
         if output_secondary:
             out["secondary"] = {"packed_indices": non_empty, "bert_scores": out["passage_scores"],

@@ -63,7 +63,7 @@ _SIGNATURES = {
     "mm_maxsim": [_p] * 7 + [_i] * 6 + [_f, _p],
     "mm_maxsim_argmax": [_p] * 6 + [_i] * 5 + [_f, _p],
     "mm_maxsim_bwd": [_p] * 8 + [_i] * 5 + [_p],
-    "mm_quant_groups": [_p, _p, _p, _i, _i, _i, _i, _p],
+    "mm_quant_groups": [_p, _p, _p, _i, _i, _i, _i, _i, _p],
     "mm_wg_gemm_s8": [_p] * 7 + [_i] * 5 + [_p],
     "mm_wg_gemm_s8_gelu_quant": [_p] * 7 + [_i] * 4 + [_p],
     "mm_layernorm": [_p, _p, _p, _p, _i, _i, _f, _p],
@@ -77,7 +77,7 @@ _SIGNATURES = {
     "mm_wg_gemm_dz": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
     "mm_wg_wgrad": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
     "mm_attention_bwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _p],
-    "mm_attention_block_bwd": [_p] * 14 + [_i, _i, _i, _i, _f, _f, _i, _i, _i, _i, _p],
+    "mm_attention_block_bwd": [_p] * 14 + [_i, _i, _i, _i, _i, _f, _f, _i, _i, _i, _i, _p],
     "mm_mlp_block_bwd": [_p] * 13 + [_i, _i, _i, _f, _i, _i, _i, _i, _p],
     "mm_probe_attn_inner": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _i, _p],
     "mm_probe_int8_matmul": [_p, _p, _p, _i, _i, _i, _p],
@@ -85,7 +85,7 @@ _SIGNATURES = {
 }
 # entry points that return the bytes of workspace a launch above needs
 _SIZE_SIGNATURES = {
-    "mm_attention_block_bwd_bytes": [_i] * 6,
+    "mm_attention_block_bwd_bytes": [_i] * 7,
     "mm_mlp_block_bwd_bytes": [_i] * 5,
 }
 

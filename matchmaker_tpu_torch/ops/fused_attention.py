@@ -10,6 +10,17 @@
   (B, L, H·D) (TPU kernel K13, ``_attn_kernel``). No encoder path calls it,
   in either package; its plain version is :func:`mha_reference`.
 
+The card's attention core is instanced for heads of 16, 32 and 64. A
+narrower head runs on the next wider instance, zero-padded
+(:func:`pad_attention_heads`): each head's Q, K and V columns of the packed
+weight and bias, and the matching rows of Wo, with the true scale 1/√d
+(``head_dim``). Zero columns add nothing to QKᵀ, the padded output columns
+are zero and meet zero rows of Wo, and in the backward the padded columns'
+gradients are exactly zero: the function is the unpadded one's, up to the
+order of the sums. The encoder pads once when it packs its weights; the
+functions here pad in the wrapper when given unpadded weights on a card.
+The plain versions take either.
+
 On a CUDA tensor each runs the hand-written kernels of
 ``csrc/encoder_kernels.cu`` (bf16 activations and weights, f32 biases and
 LayerNorm parameters). On a CPU tensor each runs its plain version,
@@ -42,12 +53,46 @@ _KERNEL_HEAD_DIMS = (16, 32, 64)
 _KERNEL_MAX_LEN = 512
 
 
+def instanced_head_width(d: int) -> int:
+    """The narrowest head width the card's attention cores are instanced
+    for that holds a head of ``d`` (``d`` itself past 64: none does)."""
+    return next((w for w in _KERNEL_HEAD_DIMS if d <= w), d)
+
+
 def kernel_head_dim(name: str, hid: int, n_heads: int) -> int:
-    """The head width of ``hid`` split into ``n_heads``, or ValueError unless
-    the card's attention cores (K1, K10, K12, K13) are instanced for it."""
-    if n_heads <= 0 or hid % n_heads or hid // n_heads not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: the CUDA kernel takes head widths {_KERNEL_HEAD_DIMS}, got {hid}/{n_heads}")
-    return hid // n_heads
+    """The instanced width the card's attention cores (K1, K10, K12, K13)
+    run a head of ``hid`` / ``n_heads`` at (the head zero-padded to it), or
+    ValueError: heads wider than 64 need an instance of their own."""
+    if n_heads <= 0 or hid % n_heads or hid // n_heads > _KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"{name}: the CUDA kernel takes head widths up to {_KERNEL_HEAD_DIMS[-1]} (instanced for "
+                         f"{_KERNEL_HEAD_DIMS}, narrower heads zero-padded), got {hid}/{n_heads}")
+    return instanced_head_width(hid // n_heads)
+
+
+def pad_groups(t: torch.Tensor, groups: int, width: int, dim: int, value: float = 0.0) -> torch.Tensor:
+    """``t`` with its axis ``dim`` (``groups`` equal groups side by side:
+    heads, FF chunks) holding each group padded with ``value`` (zeros) to
+    ``width``; differentiable, so autograd cuts the gradients back."""
+    dim %= t.dim()
+    g = t.shape[dim] // groups
+    if width == g:
+        return t
+    split = t.reshape(t.shape[:dim] + (groups, g) + t.shape[dim + 1:])
+    pad = [0, 0] * (t.dim() - dim - 1) + [0, width - g]
+    return torch.nn.functional.pad(split, pad, value=value).reshape(
+        t.shape[:dim] + (groups * width,) + t.shape[dim + 1:])
+
+
+def pad_attention_heads(wqkv, bqkv, wo, n_heads: int):
+    """The packed attention weights, wqkv (HID, 3·H·d), bqkv (3·H·d,), wo
+    (H·d, HID), with every head zero-padded to :func:`instanced_head_width`
+    (the inputs themselves where d is instanced, or wider than 64)."""
+    d = wo.shape[0] // n_heads
+    width = instanced_head_width(d)
+    if width == d:
+        return wqkv, bqkv, wo
+    return (pad_groups(wqkv, 3 * n_heads, width, 1), pad_groups(bqkv, 3 * n_heads, width, 0),
+            pad_groups(wo, n_heads, width, 0))
 
 
 def _erf_poly(z: torch.Tensor) -> torch.Tensor:
@@ -100,10 +145,15 @@ def _layer_norm_f32(acc: torch.Tensor, ln_scale, ln_bias, ln_eps: float) -> torc
 
 
 def reference_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, mask, n_heads,
-                              ln_scale, ln_bias, ln_eps: float = 1e-12, save_acc: bool = False):
-    """Plain version of the attention-half kernel (same math, same casts)."""
+                              ln_scale, ln_bias, ln_eps: float = 1e-12, save_acc: bool = False,
+                              head_dim=None):
+    """Plain version of the attention-half kernel (same math, same casts).
+    The weights' heads may be zero-padded (:func:`pad_attention_heads`):
+    ``head_dim``, the true head width, sets the scale (default: the
+    weights' own)."""
     b, l, hid = x.shape
-    d = hid // n_heads
+    width = wq.shape[1]
+    d = width // n_heads
     cd = x.dtype
     x2 = x.reshape(b * l, hid)
 
@@ -112,12 +162,12 @@ def reference_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, mask, n_heads,
         return h.reshape(b, l, n_heads, d).transpose(1, 2)
 
     q, k, v = proj(wq, bq), proj(wk, bk), proj(wv, bv)
-    s = matmul_f32(q, k.transpose(-1, -2)) * (1.0 / d ** 0.5)
+    s = matmul_f32(q, k.transpose(-1, -2)) * (1.0 / (head_dim or d) ** 0.5)
     s = s + ((mask.float() - 1.0) * 1e9)[:, None, None, :]
     s = s - s.amax(dim=-1, keepdim=True)
     p = torch.exp(s)
     p = p / p.sum(dim=-1, keepdim=True)
-    a = matmul_f32(p, v).to(cd).transpose(1, 2).reshape(b * l, hid)
+    a = matmul_f32(p, v).to(cd).transpose(1, 2).reshape(b * l, width)
     acc = x2.float() + bo.float() + matmul_f32(a, wo)
     return _finish(acc, ln_scale, ln_bias, ln_eps, cd, (b, l, hid), save_acc)
 
@@ -161,13 +211,31 @@ def _gemm(a, w, bias, out, epilogue, resid=None):
                 _build.ptr(out), m, n, k, epilogue, _build.stream(a.device))
 
 
+def card_heads(name: str, wqkv, bqkv, wo, n_heads: int, head_dim=None):
+    """(wqkv, bqkv, wo, head_dim) for the card's attention core: the heads
+    zero-padded to an instanced width where they are not at one, and the
+    true head width (``head_dim``, default: the weights' own)."""
+    hid = wo.shape[1]
+    if wo.shape[0] % max(n_heads, 1) or tuple(wqkv.shape) != (hid, 3 * wo.shape[0]):
+        raise ValueError(f"{name}: wqkv {tuple(wqkv.shape)} and wo {tuple(wo.shape)} do not fit {n_heads} heads")
+    kernel_head_dim(name, wo.shape[0], n_heads)
+    head_dim = head_dim or wo.shape[0] // n_heads
+    return (*pad_attention_heads(wqkv, bqkv, wo, n_heads), head_dim)
+
+
 def _attention_block_cuda(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bias, ln_eps,
-                          save: bool = False):
-    """K1 on the card. ``save``: also return (acc, qkv, attn), the f32 pre-LN
-    sums and the bf16 QKV projections and attention output the backward
-    (K12) reads instead of recomputing them."""
+                          save: bool = False, head_dim=None):
+    """K1 on the card: wqkv (HID, 3·A), wo (A, HID) with A = H·width, the
+    heads at an instanced width (:func:`card_heads`), ``head_dim`` the true
+    one. ``save``: also return (acc, qkv, attn), the f32 pre-LN sums and
+    the bf16 QKV projections and attention output the backward (K12) reads
+    instead of recomputing them."""
     b, l, hid = x.shape
-    d = kernel_head_dim("fused_attention_block", hid, n_heads)
+    width = wo.shape[0]
+    d = width // n_heads
+    if d not in _KERNEL_HEAD_DIMS or tuple(wqkv.shape) != (hid, 3 * width):
+        raise ValueError(f"fused_attention_block: the CUDA kernel takes head widths {_KERNEL_HEAD_DIMS} "
+                         f"(pad_attention_heads), got wqkv {tuple(wqkv.shape)}, wo {tuple(wo.shape)}, {n_heads} heads")
     if not 1 <= l <= _KERNEL_MAX_LEN:
         raise ValueError(f"fused_attention_block: the CUDA kernel takes 1 <= L <= {_KERNEL_MAX_LEN}, got {l}")
     _check_gemm_dims("fused_attention_block", hid, hid)
@@ -175,11 +243,11 @@ def _attention_block_cuda(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bia
     for name, t in (("x", x), ("wqkv", wqkv), ("wo", wo)):
         _build.check_cuda(t, f"fused_attention_block.{name}", bf16)
     with torch.cuda.device(x.device):
-        qkv = torch.empty((b, l, 3 * hid), dtype=bf16, device=x.device)
+        qkv = torch.empty((b, l, 3 * width), dtype=bf16, device=x.device)
         _gemm(x, wqkv, _f32(bqkv), qkv, _EPI_BIAS_BF16)
-        attn = torch.empty((b, l, hid), dtype=bf16, device=x.device)
+        attn = torch.empty((b, l, width), dtype=bf16, device=x.device)
         _build.call("mm_attention_core", _build.ptr(qkv), _build.ptr(_f32(mask)), _build.ptr(attn),
-                    b, l, n_heads, d, 1.0 / d ** 0.5, _build.stream(x.device))
+                    b, l, n_heads, d, 1.0 / (head_dim or d) ** 0.5, _build.stream(x.device))
         acc = torch.empty((b, l, hid), dtype=torch.float32, device=x.device)
         _gemm(attn, wo, _f32(bo), acc, _EPI_BIAS_RESID_F32, resid=x)
         out = torch.empty_like(x)
@@ -222,27 +290,27 @@ def fused_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, mask, n_heads,
                           ln_scale, ln_bias, ln_eps: float = 1e-12, save_acc: bool = False):
     """LN(x + OutProj(MHA(QKV-proj(x)))): x (B, L, HID); wq/wk/wv/wo (HID, HID)
     in x's dtype; biases and LN params (HID,); mask (B, L), 1 = real key.
-    CUDA tensors: bf16, head width 16, 32 or 64, 1 <= L <= 512. ``save_acc``: return
+    CUDA tensors: bf16, head width at most 64, 1 <= L <= 512. ``save_acc``: return
     (out, acc) with acc the f32 pre-LN sum (B, L, HID)."""
-    if not x.is_cuda:
-        return reference_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, mask, n_heads,
-                                         ln_scale, ln_bias, ln_eps, save_acc)
-    return _acc_only(_attention_block_cuda(x, torch.cat([wq, wk, wv], dim=1), torch.cat([bq, bk, bv]), wo, bo,
-                                           mask, n_heads, ln_scale, ln_bias, ln_eps, save_acc), save_acc)
+    return fused_attention_block_qkv(x, torch.cat([wq, wk, wv], dim=1), torch.cat([bq, bk, bv]), wo, bo, mask,
+                                     n_heads, ln_scale, ln_bias, ln_eps, save_acc)
 
 
 def fused_attention_block_qkv(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bias,
-                              ln_eps: float = 1e-12, save_acc: bool = False):
+                              ln_eps: float = 1e-12, save_acc: bool = False, head_dim=None):
     """:func:`fused_attention_block` with the Q, K and V projections packed
-    side by side: wqkv (HID, 3·HID), bqkv (3·HID,). The encoder keeps them
-    packed once per set of weights, so no call concatenates them."""
+    side by side: wqkv (HID, 3·A), bqkv (3·A,), wo (A, HID), A = HID or the
+    heads zero-padded (:func:`pad_attention_heads`, ``head_dim`` the true
+    head width). The encoder keeps them packed once per set of weights, so
+    no call concatenates them."""
     if not x.is_cuda:
         wq, wk, wv = wqkv.chunk(3, dim=1)
         bq, bk, bv = bqkv.chunk(3)
         return reference_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, mask, n_heads,
-                                         ln_scale, ln_bias, ln_eps, save_acc)
+                                         ln_scale, ln_bias, ln_eps, save_acc, head_dim)
+    wqkv, bqkv, wo, head_dim = card_heads("fused_attention_block", wqkv, bqkv, wo, n_heads, head_dim)
     return _acc_only(_attention_block_cuda(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bias, ln_eps,
-                                           save_acc), save_acc)
+                                           save_acc, head_dim), save_acc)
 
 
 def mha_reference(q, k, v, mask, n_heads):
@@ -269,9 +337,10 @@ def mha_reference(q, k, v, mask, n_heads):
 def _mha_cuda(q, k, v, mask, n_heads):
     """K13 on the card: K1's attention core reading separate Q, K, V with
     row stride H·D, the normalised probabilities rounded to bf16 (csrc
-    mm_fused_mha)."""
+    mm_fused_mha). Heads not at an instanced width are zero-padded to one
+    per head and the output cut back."""
     b, l, hd = q.shape
-    d = kernel_head_dim("fused_mha", hd, n_heads)
+    width = kernel_head_dim("fused_mha", hd, n_heads)
     if not 1 <= l <= _KERNEL_MAX_LEN:
         raise ValueError(f"fused_mha: the CUDA kernel takes 1 <= L <= {_KERNEL_MAX_LEN}, got {l}")
     if k.shape != q.shape or v.shape != q.shape or tuple(mask.shape) != (b, l):
@@ -279,19 +348,24 @@ def _mha_cuda(q, k, v, mask, n_heads):
                          f"{tuple(mask.shape)} do not fit")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check_cuda(t, f"fused_mha.{name}", torch.bfloat16)
+    d = hd // n_heads
+    if width != d:
+        q, k, v = (pad_groups(t, n_heads, width, -1) for t in (q, k, v))
     mask = _f32(mask)  # held in a name until the launch: the kernel reads it on the stream
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
         _build.call("mm_fused_mha", _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask), _build.ptr(out),
-                    b, l, n_heads, d, 1.0 / d ** 0.5, _build.stream(q.device))
+                    b, l, n_heads, width, 1.0 / d ** 0.5, _build.stream(q.device))
     _build.LAUNCHES["fused_mha"] += 1
+    if width != d:
+        out = out.reshape(b, l, n_heads, width)[..., :d].reshape(b, l, hd)
     return out
 
 
 def fused_mha(q, k, v, mask, n_heads):
     """Multi-head self-attention, forward only: q, k, v (B, L, H·D), mask
     (B, L) with 1 = real key; output (B, L, H·D) in q's dtype. CUDA tensors:
-    bf16, head width 16, 32 or 64, 1 <= L <= 512."""
+    bf16, head width at most 64, 1 <= L <= 512."""
     if not q.is_cuda:
         return mha_reference(q, k, v, mask, n_heads)
     return _mha_cuda(q, k, v, mask, n_heads)

@@ -55,8 +55,8 @@ _SMS = 132
 _WGRAD_MAX_SPLITS = 4
 _WGRAD_MIN_K_TILES = 4
 # row widths of the LayerNorm backward kernel (csrc ln_bwd: 128 columns a
-# register chunk, at most 8 chunks)
-_LN_BWD_WIDTHS = (256, 384, 512, 768, 1024)
+# register chunk, at most 8 chunks, the last one masked past the width)
+_LN_BWD_MAX_WIDTH, _LN_BWD_WIDTH_STEP = 1024, 8
 
 
 def _gelu_grad(z: torch.Tensor) -> torch.Tensor:
@@ -130,14 +130,17 @@ def _attention_core_plain(q, k, v, da, mask, scale):
 
 
 def reference_attention_block_bwd(x, wq, wk, wv, wo, bq, bk, bv, mask, n_heads, ln_scale, dy, acc,
-                                  ln_eps: float = 1e-12):
+                                  ln_eps: float = 1e-12, head_dim=None):
     """Plain version of K12. Returns (dx in x's dtype, dwq, dwk, dwv, dwo, dbq,
     dbk, dbv, dbo, dg, dbe in f32); q/k/v, p and the attention output are
-    recomputed from x as the TPU kernel does."""
+    recomputed from x as the TPU kernel does. The weights' heads may be
+    zero-padded (ops/fused_attention.py:pad_attention_heads), ``head_dim``
+    the true head width."""
     b, l, hid = x.shape
-    d = hid // n_heads
+    width = wq.shape[1]
+    d = width // n_heads
     cd = x.dtype
-    scale = 1.0 / d ** 0.5
+    scale = 1.0 / (head_dim or d) ** 0.5
     x2 = x.reshape(-1, hid)
     dacc, dg, dbe = _ln_backward(acc.reshape(-1, hid).float(), dy.reshape(-1, hid).float(), ln_scale, ln_eps)
     dbo = dacc.sum(dim=0)
@@ -153,8 +156,8 @@ def reference_attention_block_bwd(x, wq, wk, wv, wo, bq, bk, bv, mask, n_heads, 
     da = heads(matmul_f32(dacc_lp, wo.t()).to(cd))
     a, dq, dk, dv = _attention_core_plain(q, k, v, da, mask, scale)
 
-    def rows(t):  # (B, heads, L, d) → (B·L, H)
-        return t.transpose(1, 2).reshape(-1, hid)
+    def rows(t):  # (B, heads, L, d) → (B·L, H·d)
+        return t.transpose(1, 2).reshape(-1, width)
 
     dwo = matmul_f32(rows(a).t(), dacc_lp)
     dx = dacc
@@ -227,16 +230,16 @@ def _workspace(name: str, *sizes) -> int:
     return _build.workspace_bytes(name + "_bytes", *sizes)
 
 
-def _attention_core_bwd_cuda(qkv, mask, da, n_heads):
+def _attention_core_bwd_cuda(qkv, mask, da, n_heads, head_dim):
     """The attention core's backward on the card (csrc mm_attention_bwd):
-    dqkv (B, L, 3·HID) bf16 from the forward's qkv and the output gradient
-    da."""
-    b, l, hid = da.shape
-    d = hid // n_heads
-    dqkv = torch.empty((b, l, 3 * hid), dtype=torch.bfloat16, device=da.device)
+    dqkv (B, L, 3·A) bf16 from the forward's qkv and the output gradient
+    da, heads at an instanced width, ``head_dim`` the true one."""
+    b, l, width = da.shape
+    d = width // n_heads
+    dqkv = torch.empty((b, l, 3 * width), dtype=torch.bfloat16, device=da.device)
     stats = torch.empty((3, b, n_heads, l), dtype=torch.float32, device=da.device)
     _build.call("mm_attention_bwd", _build.ptr(qkv), _build.ptr(fa._f32(mask)), _build.ptr(da), _build.ptr(dqkv),
-                _build.ptr(stats), b, l, n_heads, d, 1.0 / d ** 0.5, _build.stream(da.device))
+                _build.ptr(stats), b, l, n_heads, d, 1.0 / head_dim ** 0.5, _build.stream(da.device))
     return dqkv
 
 
@@ -244,17 +247,22 @@ def attention_core_bwd(qkv, mask, da, n_heads):
     """Backward of the attention core alone (part of K12): qkv (B, L, 3·HID)
     packed Q/K/V, mask (B, L) and da the output gradient (B, L, HID) → dqkv
     (B, L, 3·HID) in qkv's dtype. On a CUDA tensor the kernel (bf16, head
-    width 16, 32 or 64, 1 <= L <= 512); on a CPU tensor the plain version."""
+    width at most 64: narrower heads than an instance zero-padded to it and
+    cut back, 1 <= L <= 512); on a CPU tensor the plain version."""
     b, l, hid = da.shape
+    d = hid // n_heads
     if qkv.is_cuda:
-        fa.kernel_head_dim("attention_core_bwd", hid, n_heads)
+        width = fa.kernel_head_dim("attention_core_bwd", hid, n_heads)
         if not 1 <= l <= fa._KERNEL_MAX_LEN:
             raise ValueError(f"attention_core_bwd: the CUDA kernel takes 1 <= L <= {fa._KERNEL_MAX_LEN}, got L={l}")
         for name, t in (("qkv", qkv), ("da", da)):
             _build.check_cuda(t, f"attention_core_bwd.{name}", torch.bfloat16)
         with torch.cuda.device(qkv.device):
-            return _attention_core_bwd_cuda(qkv, mask, da, n_heads)
-    d = hid // n_heads
+            if width == d:
+                return _attention_core_bwd_cuda(qkv, mask, da, n_heads, d)
+            padded = _attention_core_bwd_cuda(fa.pad_groups(qkv, 3 * n_heads, width, -1), mask,
+                                              fa.pad_groups(da, n_heads, width, -1), n_heads, d)
+            return padded.reshape(b, l, 3 * n_heads, width)[..., :d].reshape(b, l, 3 * hid)
 
     def heads(t):  # (B, L, HID) → (B, heads, L, d)
         return t.reshape(b, l, n_heads, d).transpose(1, 2)
@@ -264,10 +272,16 @@ def attention_core_bwd(qkv, mask, da, n_heads):
     return torch.cat([g.transpose(1, 2).reshape(b, l, hid) for g in (dq, dk, dv)], dim=-1)
 
 
+def check_ln_bwd_width(name: str, width: int) -> None:
+    """Raise ValueError unless the LayerNorm backward kernel (K11's and
+    K12's) takes rows of ``width`` columns: a multiple of 8 up to 1,024."""
+    if not 0 < width <= _LN_BWD_MAX_WIDTH or width % _LN_BWD_WIDTH_STEP:
+        raise ValueError(f"{name}: the LayerNorm backward kernel takes rows of a multiple of {_LN_BWD_WIDTH_STEP} "
+                         f"columns up to {_LN_BWD_MAX_WIDTH}, got {width}")
+
+
 def _check_bwd(name, x, dy, weights):
-    if x.shape[-1] not in _LN_BWD_WIDTHS:
-        raise ValueError(f"{name}: the LayerNorm backward kernel takes rows of {_LN_BWD_WIDTHS} columns, "
-                         f"got {x.shape[-1]}")
+    check_ln_bwd_width(name, x.shape[-1])
     bf16 = torch.bfloat16
     for label, t in (("x", x), ("dy", dy), *weights):
         _build.check_cuda(t, f"{name}.{label}", bf16)
@@ -299,49 +313,58 @@ def _mlp_block_bwd_cuda(x, w1, b1, w2, ln_scale, dy, saved, ln_eps):
     return dx, dw1, db1, dw2, db2, dg, dbe
 
 
-def _attention_block_bwd_cuda(x, wqkv, wo, mask, n_heads, ln_scale, dy, saved, ln_eps):
+def _attention_block_bwd_cuda(x, wqkv, wo, mask, n_heads, ln_scale, dy, saved, ln_eps, head_dim=None):
     """K12 on the card, one C call (csrc mm_attention_block_bwd): (dx bf16,
     dwqkv, dbqkv, dwo, dbo, dg, dbe f32), the Q/K/V gradients packed as the
-    weights are."""
+    weights are. wqkv (HID, 3·A) and wo (A, HID) with the heads at an
+    instanced width, as the forward took them; ``head_dim`` the true one."""
     acc, qkv, attn = saved
     b, l, hid = x.shape
-    d = fa.kernel_head_dim("fused_attention_block_bwd", hid, n_heads)
+    width = wo.shape[0]
+    d = width // n_heads
+    if d not in fa._KERNEL_HEAD_DIMS or tuple(wqkv.shape) != (hid, 3 * width):
+        raise ValueError(f"fused_attention_block_bwd: the CUDA kernel takes head widths {fa._KERNEL_HEAD_DIMS} "
+                         f"(pad_attention_heads), got wqkv {tuple(wqkv.shape)}, wo {tuple(wo.shape)}, "
+                         f"{n_heads} heads")
     if not 1 <= l <= fa._KERNEL_MAX_LEN:
         raise ValueError(f"fused_attention_block_bwd: the CUDA kernel takes 1 <= L <= {fa._KERNEL_MAX_LEN}, "
                          f"got L={l}")
-    fa._check_gemm_dims("fused_attention_block_bwd", hid, hid)
+    fa._check_gemm_dims("fused_attention_block_bwd", hid, width)
     _check_bwd("fused_attention_block_bwd", x, dy, (("wqkv", wqkv), ("wo", wo)))
     m = b * l
-    wo_plan, wqkv_plan = wgrad_plan(m, hid, hid), wgrad_plan(m, hid, 3 * hid)
+    wo_plan, wqkv_plan = wgrad_plan(m, width, hid), wgrad_plan(m, hid, 3 * width)
     f32, dev = torch.float32, x.device
     with torch.cuda.device(dev):
         dx = torch.empty_like(x)
-        dwqkv = torch.empty((hid, 3 * hid), dtype=f32, device=dev)
-        dwo = torch.empty((hid, hid), dtype=f32, device=dev)
-        sums = torch.empty((6 * hid,), dtype=f32, device=dev)
-        scratch = torch.empty((_workspace("mm_attention_block_bwd", b, l, n_heads, hid, wo_plan[0], wqkv_plan[0]),),
-                              dtype=torch.uint8, device=dev)
+        dwqkv = torch.empty((hid, 3 * width), dtype=f32, device=dev)
+        dwo = torch.empty((width, hid), dtype=f32, device=dev)
+        sums = torch.empty((3 * hid + 3 * width,), dtype=f32, device=dev)
+        scratch = torch.empty((_workspace("mm_attention_block_bwd", b, l, n_heads, hid, width, wo_plan[0],
+                                          wqkv_plan[0]),), dtype=torch.uint8, device=dev)
         _build.call("mm_attention_block_bwd", _build.ptr(x), _build.ptr(wqkv), _build.ptr(wo),
                     _build.ptr(fa._f32(mask)), _build.ptr(fa._f32(ln_scale)), _build.ptr(dy), _build.ptr(acc),
                     _build.ptr(qkv), _build.ptr(attn), _build.ptr(dx), _build.ptr(dwqkv), _build.ptr(dwo),
-                    _build.ptr(sums), _build.ptr(scratch), b, l, n_heads, hid, ln_eps,
-                    1.0 / d ** 0.5, *wo_plan, *wqkv_plan, _build.stream(dev))
+                    _build.ptr(sums), _build.ptr(scratch), b, l, n_heads, hid, width, ln_eps,
+                    1.0 / (head_dim or d) ** 0.5, *wo_plan, *wqkv_plan, _build.stream(dev))
     _build.LAUNCHES["fused_attention_block_bwd"] += 1
-    dg, dbe, dbo, dbqkv = sums.split((hid, hid, hid, 3 * hid))
+    dg, dbe, dbo, dbqkv = sums.split((hid, hid, hid, 3 * width))
     return dx, dwqkv, dbqkv, dwo, dbo, dg, dbe
 
 
-def attention_block_bwd(x, wqkv, bqkv, wo, mask, n_heads, ln_scale, dy, saved, ln_eps: float = 1e-12):
+def attention_block_bwd(x, wqkv, bqkv, wo, mask, n_heads, ln_scale, dy, saved, ln_eps: float = 1e-12,
+                        head_dim=None):
     """Backward of the attention half with packed Q/K/V: K12 on a CUDA tensor
-    (``saved`` = (acc, qkv, attn) of the card's forward), the plain version on
-    a CPU tensor (``saved`` = (acc,)). Returns (dx, dwqkv, dbqkv, dwo, dbo,
-    dg, dbe), weight and LayerNorm gradients in f32."""
+    (``saved`` = (acc, qkv, attn) of the card's forward, the heads at an
+    instanced width), the plain version on a CPU tensor (``saved`` =
+    (acc,)). ``head_dim``: the true head width of zero-padded heads.
+    Returns (dx, dwqkv, dbqkv, dwo, dbo, dg, dbe), weight and LayerNorm
+    gradients in f32."""
     if x.is_cuda:
-        return _attention_block_bwd_cuda(x, wqkv, wo, mask, n_heads, ln_scale, dy, saved, ln_eps)
+        return _attention_block_bwd_cuda(x, wqkv, wo, mask, n_heads, ln_scale, dy, saved, ln_eps, head_dim)
     wq, wk, wv = wqkv.chunk(3, dim=1)
     bq, bk, bv = bqkv.chunk(3)
     dx, dwq, dwk, dwv, dwo, dbq, dbk, dbv, dbo, dg, dbe = reference_attention_block_bwd(
-        x, wq, wk, wv, wo, bq, bk, bv, mask, n_heads, ln_scale, dy, saved[0], ln_eps)
+        x, wq, wk, wv, wo, bq, bk, bv, mask, n_heads, ln_scale, dy, saved[0], ln_eps, head_dim)
     return dx, torch.cat([dwq, dwk, dwv], dim=1), torch.cat([dbq, dbk, dbv]), dwo, dbo, dg, dbe
 
 
@@ -354,13 +377,14 @@ def mlp_block_bwd(x, w1, b1, w2, ln_scale, dy, saved, ln_eps: float = 1e-12):
     return reference_mlp_block_bwd(x, w1, b1, w2, ln_scale, dy, saved[0], ln_eps)
 
 
-def attention_block_fwd(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bias, ln_eps: float = 1e-12):
+def attention_block_fwd(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bias, ln_eps: float = 1e-12,
+                        head_dim=None):
     """The training forward: (out, saved) for :func:`attention_block_bwd`."""
     if x.is_cuda:
         return fa._attention_block_cuda(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bias, ln_eps,
-                                        save=True)
+                                        save=True, head_dim=head_dim)
     out, acc = fa.fused_attention_block_qkv(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bias, ln_eps,
-                                            save_acc=True)
+                                            save_acc=True, head_dim=head_dim)
     return out, (acc,)
 
 
@@ -374,19 +398,20 @@ def mlp_block_fwd(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps: float = 1e-12):
 
 class _AttentionBlockTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, wqkv, bqkv, wo, bo, mask, ln_scale, ln_bias, n_heads, ln_eps):
-        out, saved = attention_block_fwd(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bias, ln_eps)
+    def forward(ctx, x, wqkv, bqkv, wo, bo, mask, ln_scale, ln_bias, n_heads, ln_eps, head_dim):
+        out, saved = attention_block_fwd(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bias, ln_eps, head_dim)
         ctx.save_for_backward(x, wqkv, bqkv, wo, bo, mask, ln_scale, ln_bias, *saved)
-        ctx.n_heads, ctx.ln_eps = n_heads, ln_eps
+        ctx.n_heads, ctx.ln_eps, ctx.head_dim = n_heads, ln_eps, head_dim
         return out
 
     @staticmethod
     def backward(ctx, dy):
         x, wqkv, bqkv, wo, bo, mask, ln_scale, ln_bias, *saved = ctx.saved_tensors
         dx, dwqkv, dbqkv, dwo, dbo, dg, dbe = attention_block_bwd(
-            x, wqkv, bqkv, wo, mask, ctx.n_heads, ln_scale, dy.to(x.dtype).contiguous(), saved, ctx.ln_eps)
+            x, wqkv, bqkv, wo, mask, ctx.n_heads, ln_scale, dy.to(x.dtype).contiguous(), saved, ctx.ln_eps,
+            ctx.head_dim)
         return (dx, dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype), dwo.to(wo.dtype), dbo.to(bo.dtype), None,
-                dg.to(ln_scale.dtype), dbe.to(ln_bias.dtype), None, None)
+                dg.to(ln_scale.dtype), dbe.to(ln_bias.dtype), None, None, None)
 
 
 class _MlpBlockTrain(torch.autograd.Function):
@@ -407,10 +432,15 @@ class _MlpBlockTrain(torch.autograd.Function):
 
 
 def fused_attention_block_qkv_train(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bias,
-                                    ln_eps: float = 1e-12):
+                                    ln_eps: float = 1e-12, head_dim=None):
     """Differentiable attention half with packed Q/K/V (the encoder's entry):
-    K1 forward, K12 backward on the card."""
-    return _AttentionBlockTrain.apply(x, wqkv, bqkv, wo, bo, mask, ln_scale, ln_bias, n_heads, ln_eps)
+    K1 forward, K12 backward on the card. Weights whose heads are not at an
+    instanced width are zero-padded on the card by differentiable ops, so
+    autograd cuts their gradients back; ``head_dim``: the true head width of
+    weights padded already (ops/fused_attention.py:pad_attention_heads)."""
+    if x.is_cuda:
+        wqkv, bqkv, wo, head_dim = fa.card_heads("fused_attention_block", wqkv, bqkv, wo, n_heads, head_dim)
+    return _AttentionBlockTrain.apply(x, wqkv, bqkv, wo, bo, mask, ln_scale, ln_bias, n_heads, ln_eps, head_dim)
 
 
 def fused_attention_block_train(x, wq, wk, wv, wo, bq, bk, bv, bo, mask, n_heads, ln_scale, ln_bias,

@@ -66,6 +66,10 @@ from matchmaker_tpu_torch.ops.mips_quant import quantize_queries
 from matchmaker_tpu_torch.parallel.mesh import Mesh, ShardedRows, merge_topk, n_shards, pad_partial
 
 BIN_WIDTH = 128
+# the vector width of every binmax scan kernel is a multiple of this (K3 and
+# K8 take 32-value steps, K7 64-code ones): FlatIndex pads its rows' columns
+# with zeros to it on the card
+DIM_GRAIN = 64
 LANE_BITS = 7
 LANE_MASK = BIN_WIDTH - 1
 LEVEL2_PER_BIN = 8

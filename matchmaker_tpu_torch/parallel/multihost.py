@@ -226,22 +226,36 @@ def gather_rows(t: torch.Tensor) -> torch.Tensor:
     return torch.cat(all_gather(t), dim=0)
 
 
-def average_gradients(params: Sequence[torch.Tensor], extra: Optional[torch.Tensor] = None):
-    """Average every parameter's gradient over the ranks in one all-reduce,
-    in place; ``extra`` (a float vector) rides along and comes back
-    averaged. → the averaged ``extra`` (None without one)."""
+def _reduce_gradients(params: Sequence[torch.Tensor], extra: Optional[torch.Tensor], divisor: int):
     if not is_distributed():
         return extra
     grads = [p.grad for p in params if p.grad is not None]
     parts = [g.reshape(-1).float() for g in grads] + ([extra.float().reshape(-1)] if extra is not None else [])
     if not parts:
         return extra
-    flat = all_reduce_sum(torch.cat(parts)) / process_count()
+    flat = all_reduce_sum(torch.cat(parts))
+    if divisor != 1:
+        flat = flat / divisor
     start = 0
     for g in grads:
         g.copy_(flat[start:start + g.numel()].view_as(g))
         start += g.numel()
     return flat[start:] if extra is not None else None
+
+
+def average_gradients(params: Sequence[torch.Tensor], extra: Optional[torch.Tensor] = None):
+    """Average every parameter's gradient over the ranks in one all-reduce,
+    in place; ``extra`` (a float vector) rides along and comes back
+    averaged. → the averaged ``extra`` (None without one)."""
+    return _reduce_gradients(params, extra, process_count())
+
+
+def sum_gradients(params: Sequence[torch.Tensor], extra: Optional[torch.Tensor] = None):
+    """Sum every parameter's gradient over the ranks in one all-reduce, in
+    place; ``extra`` rides along and comes back summed: the train step's,
+    whose losses are each process's share of one mean over the global batch
+    (losses/global_batch.py). → the summed ``extra`` (None without one)."""
+    return _reduce_gradients(params, extra, 1)
 
 
 def broadcast_module(module: torch.nn.Module, src: int = 0) -> None:

@@ -93,7 +93,7 @@ import torch
 
 from matchmaker_tpu_torch.ops import matmul_f32, topk_lowest_first
 from matchmaker_tpu_torch.ops.mips import sharded_topk_mips
-from matchmaker_tpu_torch.ops.mips_binmax import (BIN_WIDTH, padding_grain, sharded_binmax_rescore_topk,
+from matchmaker_tpu_torch.ops.mips_binmax import (BIN_WIDTH, DIM_GRAIN, padding_grain, sharded_binmax_rescore_topk,
                                                   sharded_binmax_topk)
 from matchmaker_tpu_torch.ops.mips_f16 import sharded_f16_scan_topk
 from matchmaker_tpu_torch.ops.mips_quant import quantize_corpus, quantize_corpus_binwise, sharded_quantized_topk
@@ -178,6 +178,7 @@ class FlatIndex(BaseNNIndexer):
         self._ids: Optional[np.ndarray] = None
         self._device_vectors = None
         self._row_count = 0
+        self._dim = 0
 
     def index(self, ids: np.ndarray, vectors: np.ndarray) -> None:
         self._ids = np.asarray(ids)
@@ -209,6 +210,10 @@ class FlatIndex(BaseNNIndexer):
             return
         vectors = self._vectors
         n = self._row_count = vectors.shape[0]
+        if self.binmax and self.device.type == "cuda" and vectors.shape[1] % DIM_GRAIN:
+            # the binmax scans' D grain: zero columns (the queries' too, at search) add nothing
+            vectors = np.pad(vectors, ((0, 0), (0, -vectors.shape[1] % DIM_GRAIN)))
+        self._dim = vectors.shape[1]
         pad_to = self._grain() * -(-n // self._grain())
 
         def put(a, dtype=None, padded_rows=None):
@@ -255,6 +260,8 @@ class FlatIndex(BaseNNIndexer):
         """Every route (module docstring), as the JAX FlatIndex runs it:
         over a mesh each shard's search on its own device and one merge;
         without one, the sharded ops take their unsharded paths."""
+        if q.shape[1] < self._dim:
+            q = torch.nn.functional.pad(q, (0, self._dim - q.shape[1]))
         if self.quantized:
             return self._search_int8(q, k)
         corpus, rows, mesh = self._device_vectors, self._row_count, self.mesh

@@ -36,13 +36,19 @@ Under a process group (parallel/multihost.py) each process steps on its own
 rows of the global batch: the in-batch negatives see the global batch, as
 JAX's jitted step does (every process's document vectors gathered in rank
 order by an all-gather that carries gradients back to their process, each
-query's positive at its global column), every gradient is averaged over the
-processes before the norm and the clipping, and the loss stats ride in the
-same all-reduce. One step of N processes on equal shares of a batch then
-leaves the parameters of one step on the whole batch
-(tests/test_torch_multiprocess.py). ``make_eval_step`` scores a slice of
-each batch a process and gathers the scores, so every process holds all of
-them.
+query's positive at its global column). Every loss term is JAX's one mean
+over the global batch: the step all-reduces the global batch's count of
+valid rows once before the forward and hands the losses a
+``losses.global_batch.GlobalBatch``, and a process divides its own sums by
+the global batch's counts of valid rows or elements, so the processes'
+terms are shares that add up to the global mean, whatever each holds of the
+padded last batch (none at all included). Every gradient is summed over the
+processes before the norm and the clipping, and the stats that are shares
+of a mean (``SHARES_OF_A_MEAN``) ride in the same all-reduce. One step of N
+processes on their shares of a batch, padded or not, then leaves the
+parameters of one step on the whole batch (tests/test_torch_multiprocess.py).
+``make_eval_step`` scores a slice of each batch a process and gathers the
+scores, so every process holds all of them.
 """
 
 from __future__ import annotations
@@ -50,16 +56,19 @@ from __future__ import annotations
 import torch
 
 from matchmaker_tpu_torch.losses import LossBundle, merge_loss
+from matchmaker_tpu_torch.losses.global_batch import LOCAL, GlobalBatch
 from matchmaker_tpu_torch.ops.maxsim import maxsim_all_pairs
-from matchmaker_tpu_torch.parallel.multihost import (all_gather, average_gradients, gather_rows, is_distributed,
-                                                     process_count, process_index, process_shard_bounds)
+from matchmaker_tpu_torch.parallel.multihost import (all_gather, all_reduce_sum, gather_rows, is_distributed,
+                                                     process_count, process_index, process_shard_bounds,
+                                                     sum_gradients)
 from matchmaker_tpu_torch.training.optim import Optimizer
 
 
-def split_triple_batch(batch):
+def split_triple_batch(batch, gb: GlobalBatch = LOCAL):
     """Triple batch → (positive pairs' batch, negative pairs' batch): the
     concatenated sequences of a cross-encoder's triples, or the query with
-    each document."""
+    each document; each carries ``gb`` as ``global_batch`` under a process
+    group (IDCM's selection loss reads it)."""
     if "pos_ids" in batch:  # concatenated input
         pos = {"seq_ids": batch["pos_ids"], "seq_mask": batch["pos_mask"], "seq_type_ids": batch["pos_type_ids"]}
         neg = {"seq_ids": batch["neg_ids"], "seq_mask": batch["neg_mask"], "seq_type_ids": batch["neg_type_ids"]}
@@ -73,16 +82,18 @@ def split_triple_batch(batch):
         if "bert_part_cached_pos" in batch:
             pos["bert_part_cached"] = batch["bert_part_cached_pos"]
             neg["bert_part_cached"] = batch["bert_part_cached_neg"]
+    if gb is not LOCAL:
+        pos["global_batch"] = neg["global_batch"] = gb
     return pos, neg
 
 
-def forward_triple(model, batch):
+def forward_triple(model, batch, gb: GlobalBatch = LOCAL):
     """(pos_out, neg_out) of a triple batch: the model's packed
     ``forward_triple`` where it has one and the batch has separate
     documents, else two passes."""
     if hasattr(model, "forward_triple") and "doc_pos_ids" in batch:
         return model.forward_triple(batch)
-    pos_batch, neg_batch = split_triple_batch(batch)
+    pos_batch, neg_batch = split_triple_batch(batch, gb)
     return model(pos_batch), model(neg_batch)
 
 
@@ -98,7 +109,7 @@ def list_scores(model, batch):
     return model(flat)["score"].reshape(qn, l)
 
 
-def list_loss_fn(model, losses: LossBundle, batch):
+def list_loss_fn(model, losses: LossBundle, batch, gb: GlobalBatch = LOCAL):
     """A list batch (``list_scores``, labels (Q, L)): the listwise loss over
     its (Q, L) scores."""
     if not losses.use_list_loss:
@@ -108,18 +119,18 @@ def list_loss_fn(model, losses: LossBundle, batch):
     valid = batch.get("valid")
     if valid is None:
         valid = torch.ones(qn, device=scores.device)
-    loss = losses.ranking_loss(scores, batch["list_labels"], valid[:, None] * torch.ones_like(scores))
-    n = torch.clamp(valid.sum(), min=1)
+    loss = losses.ranking_loss(scores, batch["list_labels"], valid[:, None] * torch.ones_like(scores), gb=gb)
+    n = torch.clamp(gb.valid_count(valid), min=1)
     return loss, {"ranking_loss": loss, "loss": loss, "score_pos_mean": (scores[:, 0] * valid).sum() / n,
                   "score_neg_mean": (scores[:, 1:].mean(dim=1) * valid).sum() / n}
 
 
-def qa_loss_terms(model, losses: LossBundle, batch, pos_out, neg_out, loss, qa_weight):
+def qa_loss_terms(model, losses: LossBundle, batch, pos_out, neg_out, loss, qa_weight, gb: GlobalBatch = LOCAL):
     """The QA multi-task terms added to the ranking ``loss`` → (loss, stats)."""
     stats = {}
     span_loss, answer_loss = losses.qa_loss(pos_out["qa_logits_start"], pos_out["qa_logits_end"], batch["qa_start"],
                                             batch["qa_end"], pos_out.get("answerability_logits"),
-                                            batch.get("qa_has_answer"))
+                                            batch.get("qa_has_answer"), gb=gb)
     if span_loss is not None:
         stats["qa_span_loss"] = span_loss
     if answer_loss is not None:
@@ -129,7 +140,7 @@ def qa_loss_terms(model, losses: LossBundle, batch, pos_out, neg_out, loss, qa_w
             neg_logits = neg_out["answerability_logits"]
             _, answer_loss_neg = losses.qa_loss(None, None, None, None, neg_logits,
                                                 torch.zeros(neg_logits.shape[0], dtype=torch.long,
-                                                            device=neg_logits.device))
+                                                            device=neg_logits.device), gb=gb)
             stats["qa_answerability_loss_neg"] = answer_loss_neg
             answer_loss = answer_loss + 0.1 * answer_loss_neg
     log_vars_all = getattr(model, "mtl_log_vars", None)
@@ -143,7 +154,7 @@ def qa_loss_terms(model, losses: LossBundle, batch, pos_out, neg_out, loss, qa_w
             parts.append(answer_loss)
             slots.append(2)
         log_vars = log_vars_all[slots]
-        loss, weighted = merge_loss(parts, log_vars)
+        loss, weighted = merge_loss(parts, log_vars, gb)
         stats["qa_weighted_ranking_loss"] = weighted[0]
         if span_loss is not None:
             stats["qa_weighted_qa_loss"] = weighted[1]
@@ -170,10 +181,10 @@ def make_loss_fn(model, losses: LossBundle, config):
     per_term_weight = config.get("per_term_loss_weight", 0.5)
     qa_weight = config.get("qa_loss_lambda", 0.2)
 
-    def loss_fn(batch):
+    def loss_fn(batch, gb: GlobalBatch = LOCAL):
         if "list_doc_ids" in batch:
-            return list_loss_fn(model, losses, batch)
-        pos_out, neg_out = forward_triple(model, batch)
+            return list_loss_fn(model, losses, batch, gb)
+        pos_out, neg_out = forward_triple(model, batch, gb)
         pos_score, neg_score = pos_out["score"], neg_out["score"]
         valid = batch.get("valid")
         if valid is None:
@@ -183,15 +194,15 @@ def make_loss_fn(model, losses: LossBundle, config):
         if losses.use_list_loss:
             scores = torch.stack([pos_score, neg_score], dim=1)
             labels = torch.stack([torch.ones_like(pos_score), torch.zeros_like(neg_score)], dim=1)
-            loss = losses.ranking_loss(scores, labels, valid[:, None] * torch.ones_like(scores))
+            loss = losses.ranking_loss(scores, labels, valid[:, None] * torch.ones_like(scores), gb=gb)
         elif losses.is_passage_loss:
             if "passage_scores" not in pos_out:
                 raise ValueError(f"the passage loss {config.get('loss')!r} needs a model with passage scores")
             pos_psg, neg_psg = pos_out["passage_scores"], neg_out["passage_scores"]
             loss = losses.ranking_loss(pos_psg, neg_psg, batch.get("pos_passage_scores", torch.zeros_like(pos_psg)),
-                                       batch.get("neg_passage_scores", torch.zeros_like(neg_psg)), valid)
+                                       batch.get("neg_passage_scores", torch.zeros_like(neg_psg)), valid, gb=gb)
         else:
-            loss = losses.ranking_loss(pos_score, neg_score, t_pos, t_neg, valid)
+            loss = losses.ranking_loss(pos_score, neg_score, t_pos, t_neg, valid, gb=gb)
         stats = {"ranking_loss": loss}
 
         if "selection_loss" in pos_out:
@@ -208,7 +219,7 @@ def make_loss_fn(model, losses: LossBundle, config):
             # term-level distillation: the student's per-term MaxSim against
             # the teacher's (masked MSE)
             q_mask = batch["query_mask"] * valid[:, None]
-            denom = torch.clamp(q_mask.sum(), min=1.0)
+            denom = torch.clamp(gb.count(q_mask.sum()), min=1.0)
             pt_loss = (((pos_out["per_term_scores"] - batch["dyn_teacher_pos_per_term"]) ** 2 * q_mask).sum()
                        + ((neg_out["per_term_scores"] - batch["dyn_teacher_neg_per_term"]) ** 2 * q_mask).sum()
                        ) / (2.0 * denom)
@@ -216,7 +227,7 @@ def make_loss_fn(model, losses: LossBundle, config):
             loss = loss + per_term_weight * pt_loss
 
         if losses.qa_loss is not None and "qa_logits_start" in pos_out:
-            loss, qa_stats = qa_loss_terms(model, losses, batch, pos_out, neg_out, loss, qa_weight)
+            loss, qa_stats = qa_loss_terms(model, losses, batch, pos_out, neg_out, loss, qa_weight, gb)
             stats.update(qa_stats)
 
         if losses.inbatch_loss is not None and "query_vecs" in pos_out:
@@ -239,28 +250,54 @@ def make_loss_fn(model, losses: LossBundle, config):
                 teacher = batch.get("dyn_teacher_matrix")
                 if teacher is None:
                     teacher = torch.cat([own.float(), torch.zeros(b, g, device=q.device)], dim=1)
-                ib_loss = losses.inbatch_loss(ib_scores, teacher, valid[:, None] * torch.ones_like(ib_scores))
+                ib_loss = losses.inbatch_loss(ib_scores, teacher, valid[:, None] * torch.ones_like(ib_scores), gb=gb)
             else:
                 # positive = own column; hardest negative over the other
                 # in-batch docs and the explicit negatives
                 pos_diag = ib_scores[:, :g][own]
                 off_diag = ib_scores[:, :g].masked_fill(own, float("-inf"))
                 neg_max = torch.maximum(off_diag.amax(dim=1), ib_scores[:, g:].amax(dim=1))
-                ib_loss = losses.inbatch_loss(pos_diag, neg_max, t_pos, t_neg, valid)
+                ib_loss = losses.inbatch_loss(pos_diag, neg_max, t_pos, t_neg, valid, gb=gb)
             stats["inbatch_loss"] = ib_loss
             loss = ib_main_weight * loss + ib_weight * ib_loss
 
         if sparsity_weight > 0.0 and "sparsity" in pos_out:
-            sp = (pos_out["sparsity"].abs().mean() + neg_out["sparsity"].abs().mean()) / 2.0
+            sp = (gb.mean(pos_out["sparsity"].abs()) + gb.mean(neg_out["sparsity"].abs())) / 2.0
             stats["sparsity_loss"] = sp
             loss = loss + sparsity_weight * sp
 
         stats["loss"] = loss
-        stats["score_pos_mean"] = (pos_score * valid).sum() / torch.clamp(valid.sum(), min=1)
-        stats["score_neg_mean"] = (neg_score * valid).sum() / torch.clamp(valid.sum(), min=1)
+        n_valid = torch.clamp(gb.valid_count(valid), min=1)
+        stats["score_pos_mean"] = (pos_score * valid).sum() / n_valid
+        stats["score_neg_mean"] = (neg_score * valid).sum() / n_valid
         return loss, stats
 
     return loss_fn
+
+
+# the loss stats that are a process's share of a mean over the global batch:
+# the multi-process step sums them over the processes (a stat not named here,
+# such as ``mtl_log_var_ranking``, a parameter's value, stays the process's own)
+SHARES_OF_A_MEAN = ("loss", "ranking_loss", "selection_loss", "per_term_loss", "qa_span_loss",
+                    "qa_answerability_loss", "qa_answerability_loss_neg", "qa_weighted_ranking_loss",
+                    "qa_weighted_qa_loss", "inbatch_loss", "sparsity_loss", "score_pos_mean", "score_neg_mean")
+
+
+def global_batch_of(batch) -> GlobalBatch:
+    """``LOCAL`` for one process; under a process group the counts that
+    make each process's loss terms its shares of JAX's means over the
+    global batch: its valid rows (one all-reduce, before the forward), the
+    process count, and an all-reduce for the terms that count valid
+    elements (passage labels, query tokens, QA labels, LambdaLoss pairs)."""
+    if not is_distributed():
+        return LOCAL
+    valid = batch.get("valid")
+    if valid is None:
+        rows = next(v for v in batch.values() if isinstance(v, torch.Tensor)).shape[0]
+        valid_rows = torch.tensor(float(rows * process_count()))
+    else:
+        valid_rows = all_reduce_sum(valid.sum())
+    return GlobalBatch(valid_rows=valid_rows, processes=process_count(), count=all_reduce_sum)
 
 
 def make_train_step(model, losses: LossBundle, optimizer: Optimizer, config):
@@ -271,14 +308,15 @@ def make_train_step(model, losses: LossBundle, optimizer: Optimizer, config):
 
     def step(batch):
         optimizer.zero_grad()
-        loss, stats = loss_fn(batch)
+        loss, stats = loss_fn(batch, global_batch_of(batch))
         loss.backward()
         stats = {k: v.detach() for k, v in stats.items()}
         if is_distributed():
-            # the gradient average and the scalar stats' in one all-reduce
-            scalars = [k for k, v in stats.items() if v.dim() == 0]
-            mean = average_gradients(optimizer.params, torch.stack([stats[k].float() for k in scalars]))
-            stats.update(zip(scalars, mean))
+            # each process's shares of the global means: the gradients and
+            # the stats that are shares summed in one all-reduce
+            shares = [k for k in SHARES_OF_A_MEAN if k in stats]
+            total = sum_gradients(optimizer.params, torch.stack([stats[k].float() for k in shares]))
+            stats.update(zip(shares, total))
         stats["grad_norm"] = optimizer.global_norm()
         optimizer.step(stats["grad_norm"])
         return stats

@@ -3,7 +3,8 @@
 Started once a rank with MATCHMAKER_COORDINATOR, MATCHMAKER_NUM_PROCESSES
 and MATCHMAKER_PROCESS_ID set; the processes join one gloo group on the CPU
 and, in one launch, run: one BERT_DOT and one ColBERT train step with
-in-batch negatives on their halves of a global batch; the eval step on a
+in-batch negatives on their halves of a global batch, and on padded
+global batches; the eval step on a
 13-row batch; a Trainer run stopped at step 2 with a train-state snapshot,
 resumed, and an uninterrupted run of the same config; and
 cli.dense_retrieval's run.
@@ -47,16 +48,19 @@ def main() -> int:
 
     # one train step on this rank's half of the global batch: BERT_DOT
     # (pairwise in-batch loss), ColBERT (listwise over the all-pairs MaxSim)
-    batch = dict(np.load(os.path.join(work, "batch.npz")))
-    for name, cls in (("colbert", ColBert), ("step", BertDot)):
+    # and on the padded global batches (process 1 holding one valid row, or none)
+    runs = [("colbert", ColBert, ""), ("colbert", ColBert, "_padded"), ("step", BertDot, "_padded"),
+            ("step", BertDot, "_empty"), ("step", BertDot, "")]
+    for name, cls, suffix in runs:
+        batch = dict(np.load(os.path.join(work, f"batch{suffix}.npz")))
         cfg = configs[name]
         model = cls.from_config(cfg)
         model.load_state_dict(load_npz(os.path.join(work, f"start_{name}.npz")))
         step = make_train_step(model, get_loss(cfg), build_optimizer(cfg, model), cfg)
         stats = step(_local(batch, rank, n_proc))
         if rank == 0:
-            save_npz(os.path.join(work, f"{name}_params.npz"), model.state_dict())
-            with open(os.path.join(work, f"{name}_stats.json"), "w") as f:
+            save_npz(os.path.join(work, f"{name}{suffix}_params.npz"), model.state_dict())
+            with open(os.path.join(work, f"{name}{suffix}_stats.json"), "w") as f:
                 json.dump({k: float(v) for k, v in stats.items()}, f)
     # the eval step over 13 rows: padded to 14, a slice a process, gathered
     eval_batch = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(work, "eval_batch.npz")).items()}

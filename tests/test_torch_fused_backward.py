@@ -310,7 +310,7 @@ def test_each_backward_half_is_one_c_call(half, monkeypatch):
         out = tfb._attention_block_bwd_cuda(x, torch.zeros(hid, 3 * hid, dtype=bf), torch.zeros(hid, hid, dtype=bf),
                                             torch.ones(b, l), heads, g, dy, (acc, qkv, attn), 1e-12)
         name, plans = "mm_attention_block_bwd", tfb.wgrad_plan(m, hid, hid) + tfb.wgrad_plan(m, hid, 3 * hid)
-        want_sizes = (name + "_bytes", b, l, heads, hid, plans[0], plans[2])
+        want_sizes = (name + "_bytes", b, l, heads, hid, hid, plans[0], plans[2])
         shapes = [(b, l, hid), (hid, 3 * hid), (3 * hid,), (hid, hid), (hid,), (hid,), (hid,)]
     else:
         out = tfb._mlp_block_bwd_cuda(x, torch.zeros(hid, ff, dtype=bf), torch.zeros(ff), torch.zeros(ff, hid, dtype=bf),

@@ -1335,12 +1335,178 @@ def test_int8_halves_at_head_widths_16_and_32(device, hid, heads, b, l):
 
 @pytest.mark.cuda
 def test_attention_kernels_refuse_other_head_widths(device):
-    """Head widths the cores are not instanced for (TinyBERT's 26, 128) are
-    refused before any launch, naming the widths taken."""
-    for hid, heads in ((312, 12), (768, 6)):
-        x = torch.zeros(1, 8, hid, device=device, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="head widths"):
-            fa.fused_mha(x, x, x, torch.ones(1, 8, device=device), heads)
+    """Heads wider than 64 (no core is instanced for 128) are refused before
+    any launch, naming the widths taken; TinyBERT's 26 now runs padded."""
+    x = torch.zeros(1, 8, 768, device=device, dtype=torch.bfloat16)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="head widths up to 64"):
+        fa.fused_mha(x, x, x, torch.ones(1, 8, device=device), 6)
+    assert _build.LAUNCHES["fused_mha"] == 0
+    x = torch.zeros(1, 8, 312, device=device, dtype=torch.bfloat16)
+    assert fa.fused_mha(x, x, x, torch.ones(1, 8, device=device), 12).shape == x.shape
+
+
+# Heads narrower than an instance (K1, K13, K10 forward; K12 backward), run
+# zero-padded to the next one: TinyBERT-General-4L-312D's 12 heads of 26
+# (hidden 312, FF 1,200), 16 heads of 24 and 8 heads of 48 at hidden 384,
+# against the plain versions on the unpadded weights.
+ODD_HEAD_WIDTHS = [(312, 12, 1200), (384, 16, 1536), (384, 8, 1536)]
+ODD_HEAD_SHAPES = [(16, 230), (3, 77), (2, 1)]
+
+
+def padded_attention_bwd_pair(x, attn, mask, heads, dy):
+    """K12 on the heads zero-padded as the encoder pads them (after the K1
+    training forward), its gradients cut back to the real columns, and the
+    plain backward on the unpadded weights: two dicts of named gradients."""
+    wqkv = torch.cat([attn["wq"], attn["wk"], attn["wv"]], dim=1)
+    bqkv = torch.cat([attn["bq"], attn["bk"], attn["bv"]])
+    g, be = attn["ln_scale"], attn["ln_bias"]
+    hid = x.shape[-1]
+    d = hid // heads
+    pw, pb, po, _ = fa.card_heads("test", wqkv, bqkv, attn["wo"], heads)
+    width = po.shape[0] // heads
+    _, saved = fb.attention_block_fwd(x, pw, pb, po, attn["bo"], mask, heads, g, be, head_dim=d)
+    dx, dwqkv, dbqkv, dwo, dbo, dg, dbe = fb.attention_block_bwd(x, pw, pb, po, mask, heads, g, dy, saved,
+                                                                  head_dim=d)
+    real = (torch.arange(3 * heads * width, device=x.device) % width) < d
+    assert not dwqkv[:, ~real].any() and not dbqkv[~real].any() and not dwo[~real[:heads * width]].any()
+    dwqkv, dbqkv, dwo = dwqkv[:, real], dbqkv[real], dwo[real[:heads * width]]
+    got = dict(dx=dx, dwo=dwo, dbo=dbo, dg=dg, dbe=dbe)
+    for i, n in enumerate("qkv"):
+        got[f"dw{n}"] = dwqkv.chunk(3, dim=1)[i]
+        got[f"db{n}"] = dbqkv.chunk(3)[i]
+    _, acc = fa.reference_attention_block(x, attn["wq"], attn["wk"], attn["wv"], attn["wo"], attn["bq"], attn["bk"],
+                                          attn["bv"], attn["bo"], mask, heads, g, be, save_acc=True)
+    names = ("dx", "dwq", "dwk", "dwv", "dwo", "dbq", "dbk", "dbv", "dbo", "dg", "dbe")
+    want = dict(zip(names, fb.reference_attention_block_bwd(
+        x, attn["wq"], attn["wk"], attn["wv"], attn["wo"], attn["bq"], attn["bk"], attn["bv"], mask, heads, g, dy,
+        acc)))
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,heads,ff", ODD_HEAD_WIDTHS)
+@pytest.mark.parametrize("b,l", ODD_HEAD_SHAPES)
+def test_attention_halves_and_mha_at_padded_head_widths(device, hid, heads, ff, b, l):
+    """K1 (weights padded in the wrapper), K2 at the same hidden width, K13
+    (q, k, v padded per head) against their plain versions on the unpadded
+    weights: the encoder halves' bar (row cosine >= 0.999, max |d| <= 0.1)."""
+    attn, mlp = _layer_weights(hid, ff, device, seed=b * 1000 + l + heads + 7)
+    x = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    mask = torch.ones(b, l, device=device)
+    mask[0, l // 2 + 1:] = 0.0
+    args = (attn["wq"], attn["wk"], attn["wv"], attn["wo"], attn["bq"], attn["bk"], attn["bv"],
+            attn["bo"], mask, heads, attn["ln_scale"], attn["ln_bias"])
+    margs = (mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"], mlp["ln_scale"], mlp["ln_bias"])
+    q, k, v = (torch.randn(b, l, hid, device=device).to(torch.bfloat16) for _ in range(3))
+    _build.reset_launches()
+    for got, want in ((fa.fused_attention_block(x, *args), fa.reference_attention_block(x, *args)),
+                      (fa.fused_mlp_block(x, *margs), fa.reference_mlp_block(x, *margs)),
+                      (fa.fused_mha(q, k, v, mask, heads), fa.mha_reference(q, k, v, mask, heads))):
+        torch.cuda.synchronize()
+        assert got.shape == want.shape
+        cos, err = _rows_close(got, want)
+        assert cos >= 0.999 and err <= 0.1, (cos, err)
+    assert _build.LAUNCHES["fused_attention_block"] == _build.LAUNCHES["fused_mlp_block"] == 1
+    assert _build.LAUNCHES["fused_mha"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,heads,ff", ODD_HEAD_WIDTHS)
+@pytest.mark.parametrize("b,l", ODD_HEAD_SHAPES)
+def test_attention_block_bwd_kernel_at_padded_head_widths(device, hid, heads, ff, b, l):
+    """K12 on zero-padded heads (its LayerNorm backward at 312 columns for
+    TinyBERT), the padded columns' gradients exactly zero, and the core's
+    backward alone (padded per head in the wrapper), at the backward's bar."""
+    attn, _ = _layer_weights(hid, ff, device, seed=b * 1000 + l + heads + 9)
+    x = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    dy = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    mask = torch.ones(b, l, device=device)
+    mask[0, l // 2 + 1:] = 0.0
+    got, want = padded_attention_bwd_pair(x, attn, mask, heads, dy)
+    torch.cuda.synchronize()
+    grads_close(got, want, scale_of=zero_attention_grads(l))
+    g = torch.Generator(device=device).manual_seed(l + heads + 1)
+    qkv = torch.randn(b, l, 3 * hid, generator=g, device=device).to(torch.bfloat16)
+    da = torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
+    got = fb.attention_core_bwd(qkv, mask, da, heads)
+    want = fb.attention_core_bwd(qkv.cpu(), mask.cpu(), da.cpu(), heads)
+    torch.cuda.synchronize()
+    got = dict(zip(("dq", "dk", "dv"), got.chunk(3, dim=-1)))
+    want = dict(zip(("dq", "dk", "dv"), want.to(device).chunk(3, dim=-1)))
+    grads_close(got, want, scale_of={"dq": "dv", "dk": "dv"} if l == 1 else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,heads,ff", [(64, 4, 256), (128, 2, 512), (312, 12, 1200), (392, 8, 1024)])
+@pytest.mark.parametrize("b,l", [(4, 30), (2, 77)])
+def test_ln_backward_at_any_multiple_of_8(device, hid, heads, ff, b, l):
+    """The LayerNorm backward at widths that are not a multiple of 128 (the
+    tiny encoder's 64, TinyBERT's 312, 392) and at 128, through K11 and K12,
+    at the backward's bar."""
+    attn, mlp = _layer_weights(hid, ff, device, seed=b * 1000 + l + hid)
+    x = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    dy = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    mask = torch.ones(b, l, device=device)
+    mask[0, l // 2 + 1:] = 0.0
+    _build.reset_launches()
+    got, want = mlp_bwd_pair(x, mlp, dy)
+    torch.cuda.synchronize()
+    grads_close(got, want)
+    got, want = padded_attention_bwd_pair(x, attn, mask, heads, dy)
+    torch.cuda.synchronize()
+    grads_close(got, want, scale_of=zero_attention_grads(l))
+    assert _build.LAUNCHES["fused_mlp_block_bwd"] == _build.LAUNCHES["fused_attention_block_bwd"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,heads,ff", ODD_HEAD_WIDTHS + [(96, 4, 384)])
+@pytest.mark.parametrize("b,l", [(16, 230), (3, 77), (1, 5)])
+def test_int8_halves_at_padded_widths(device, hid, heads, ff, b, l):
+    """K10 and K9 where the codes are padded for the card (hidden 312 and 96
+    to 320 and 128; FF chunks of 300 and 96 to 320 and 128; heads of 26 and
+    24 to 32, 48 to 64; two heads a group), through the public functions
+    and the K-major entry points on codes padded once (the same bits),
+    against the plain versions on the unpadded codes, at
+    test_int8_halves_kernels_match_plain's bars."""
+    attn, mlp, ln, x, mask = _int8_case(b, l, hid, ff, device, seed=b * 1000 + l + heads)
+    attn_t, mlp_t = _int8_kmajor(attn, mlp)
+    d = hid // heads
+    attn_p = fi.pad_int8_attention(*attn_t[:4], heads) + attn_t[4:]
+    mlp_p = fi.pad_int8_mlp(mlp_t[0], mlp_t[1], mlp_t[2], mlp_t[3]) + mlp_t[4:]
+    for kernel, kmajor, plain, args, args_t, kw in (
+            (fi.fused_attention_int8_block, fi.fused_attention_int8_block_qkv_kmajor,
+             fi.reference_attention_int8_block, (*attn, mask, heads, *ln), (*attn_p, mask, heads, *ln),
+             {"head_dim": d}),
+            (fi.fused_mlp_int8_block, fi.fused_mlp_int8_block_kmajor, fi.reference_mlp_int8_block, (*mlp, *ln),
+             (*mlp_p, *ln), {})):
+        got, want = kernel(x, *args), plain(x, *args)
+        torch.cuda.synchronize()
+        assert got.shape == x.shape and got.dtype == torch.bfloat16
+        assert torch.equal(kmajor(x, *args_t, **kw), got)
+        cos, err = _rows_close(got, want)
+        mean = float((got.float() - want.float()).abs().mean())
+        assert cos >= 0.999 and err <= 0.1, (kernel.__name__, cos, err)
+        assert mean <= 5e-5, (kernel.__name__, mean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,cols,groups,padded", [(torch.bfloat16, 312, 1, 320), (torch.float32, 312, 6, 64),
+                                                      (torch.float32, 384, 12, 64)])
+def test_int8_quantize_kernel_writes_a_padded_row_stride(device, dtype, cols, groups, padded):
+    """The activation quantizer writing each group's codes into a padded
+    stride (x's 312 into 320; six groups of 52 into 64): the plain
+    version's codes and scales, zero codes in the padding."""
+    x = (torch.randn(1000, cols, device=device) * 3).to(dtype)
+    x[7] = 0.0
+    q, s = fi._quant_groups_cuda(x, groups, padded)
+    w = cols // groups
+    parts = [fi._quant_rows(x[:, g * w:(g + 1) * w].float()) for g in range(groups)]
+    assert tuple(q.shape) == (1000, groups * padded)
+    assert torch.equal(s, torch.cat([p[1] for p in parts], dim=1))
+    q = q.reshape(1000, groups, padded)
+    assert torch.equal(q[:, :, :w], torch.stack([p[0] for p in parts], dim=1))
+    assert not q[:, :, w:].any()
 
 
 @pytest.mark.cuda
@@ -1782,10 +1948,10 @@ def _plain_halves(monkeypatch):
     under autograd, PyTorch's own backward), on the card."""
     import matchmaker_tpu_torch.models.encoder as enc
 
-    def plain_attention(x, wqkv, bqkv, wo, bo, *rest):
+    def plain_attention(x, wqkv, bqkv, wo, bo, *rest, **kw):  # the weights as packed, heads padded or not
         wq, wk, wv = wqkv.chunk(3, dim=1)
         bq, bk, bv = bqkv.chunk(3)
-        return fa.reference_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, *rest)
+        return fa.reference_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, *rest, **kw)
 
     for name, fn in (("fused_attention_block_qkv", plain_attention), ("fused_mlp_block", fa.reference_mlp_block),
                      ("fused_attention_block_qkv_train", plain_attention),
@@ -2039,6 +2205,40 @@ def test_index_search_on_the_card_matches_the_cpu(device, kind, tmp_path):
         if kind.startswith("ivf"):
             _same_hits(card.search_rows(queries, top_n), cpu.search_rows(queries, top_n))
     assert not any(_build.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [{"mips_quantization": "float16"}, {"mips_quantization": "int8"},
+                                   {"mips_quantization": "int8", "mips_int8_queries": "float"},
+                                   {"mips_quantization": "int8", "mips_twostage": True}])
+def test_binmax_routes_take_rows_off_the_scans_width_grain(device, route):
+    """FlatIndex's binmax routes over 312-wide rows (TinyBERT's; the scans
+    take widths in whole steps of 32 or 64): on the card the rows' columns
+    are zero-padded to 320 at upload and the queries at search, so the hits
+    are bit for bit those of the same rows and queries padded by the
+    caller, the scan kernel runs, and recall@100 against the exact f32
+    search is at the binmax floor (0.95, tests/test_binmax_recall.py:99)."""
+    import numpy as np
+
+    from matchmaker_tpu_torch.retrieval.indexes import build_index
+
+    rows, queries = _index_corpus(n=32768, d=312)
+    config = dict(route, faiss_index_type="flat", mips_kernel="binmax")
+    results = []
+    for r, q in ((rows, queries), (np.pad(rows, ((0, 0), (0, 8))), np.pad(queries, ((0, 0), (0, 8))))):
+        index = build_index(config, device)
+        index.prepare(r.shape[1])
+        index.index(np.arange(len(r)), r)
+        _build.reset_launches()
+        results.append(index.search_rows(q, 100))
+        assert sum(v for k, v in _build.LAUNCHES.items() if k.startswith("binmax_candidates")) == 1
+    (gv, gi), (wv, wi) = results
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(gv, wv)
+    exact = np.argsort(-(queries @ rows.T), axis=1, kind="stable")[:, :100]
+    ids = index._ids[gi]
+    recall = np.mean([len(set(a) & set(b)) / 100 for a, b in zip(ids, exact)])
+    assert recall >= 0.95, recall
 
 
 @pytest.mark.cuda

@@ -1,13 +1,16 @@
 """The port on two real processes over gloo on the CPU
 (tests/_torch_multiprocess_worker.py, one launch): one BERT_DOT and one
 ColBERT train step with in-batch negatives on each process's half of a
-global batch against JAX's make_train_step on the whole batch; the eval step's padding (13 rows
+global batch against JAX's make_train_step on the whole batch, also on a
+padded global batch whose valid rows the processes share unevenly or one
+process holds none of; the eval step's padding (13 rows
 over two processes); a Trainer run stopped at step 2 and resumed, bit for
 bit the uninterrupted run, with only the primary writing the run folder;
 cli.dense_retrieval's run on two processes (the mesh spans them, a shard
 each) writing the run file of one process. The launch contract, the backend
 rule and the loader's striding are in tests/test_torch_parallel.py."""
 
+import functools
 import json
 import os
 import random
@@ -53,14 +56,27 @@ def _ids_mask(rng, b, length, vocab=900):
     return ids, mask
 
 
-def _global_batch(b=8, lq=8, ld=24):
+def _global_batch(b=8, lq=8, ld=24, n_valid=None):
+    """The global batch; with ``n_valid`` the padded last batch of a file
+    (data/batching.py): rows past ``n_valid`` all zeros, ``valid`` 0."""
     rng = np.random.default_rng(12)
     q, qm = _ids_mask(rng, b, lq)
     p, pm = _ids_mask(rng, b, ld)
     n, nm = _ids_mask(rng, b, ld)
-    return {"query_ids": q, "query_mask": qm, "doc_pos_ids": p, "doc_pos_mask": pm, "doc_neg_ids": n,
-            "doc_neg_mask": nm, "pos_score": rng.uniform(5, 10, b).astype(np.float32),
-            "neg_score": rng.uniform(0, 5, b).astype(np.float32)}
+    batch = {"query_ids": q, "query_mask": qm, "doc_pos_ids": p, "doc_pos_mask": pm, "doc_neg_ids": n,
+             "doc_neg_mask": nm, "pos_score": rng.uniform(5, 10, b).astype(np.float32),
+             "neg_score": rng.uniform(0, 5, b).astype(np.float32)}
+    if n_valid is not None:
+        for v in batch.values():
+            v[n_valid:] = 0
+        batch["valid"] = (np.arange(b) < n_valid).astype(np.float32)
+    return batch
+
+
+# padded global batches of 8, 4 rows a process: process 1 holds one valid
+# row ("padded": each of its rows would weigh 4x process 0's under a mean a
+# process) or none ("empty")
+PADDED_VALID = {"padded": 5, "empty": 4}
 
 
 def _eval_batch(rows=13):
@@ -90,6 +106,34 @@ def _jax_start(name="step"):
     return jm, params["params"], batch
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_step(name):
+    """JAX's jitted step of ``name`` and its start (compiled once for every
+    batch of the module)."""
+    config = COLBERT_CONFIG if name == "colbert" else STEP_CONFIG
+    jm, params, _ = _jax_start(name)
+    tx = joptim.build_optimizer(config, params)
+    return jax_make_train_step(jm, jdispatch.get_loss(config), tx, config), params, tx.init(params)
+
+
+def _check_step_against_jax(work, name, suffix, batch):
+    """The two processes' step (loss and grad_norm rtol 1e-4, parameters
+    atol 1e-5, as tests/test_torch_training.py holds one process to JAX)
+    against JAX's step on the global batch."""
+    jstep, params, opt_state = _jax_step(name)
+    new_params, _, jstats = jstep(params, opt_state, {k: jnp.asarray(v) for k, v in batch.items()})
+    with open(work / f"{name}{suffix}_stats.json") as f:
+        tstats = json.load(f)
+    for key in ("loss", "grad_norm", "ranking_loss", "inbatch_loss", "score_pos_mean", "score_neg_mean"):
+        np.testing.assert_allclose(tstats[key], float(jstats[key]), rtol=1e-4, err_msg=key)
+    want, start = flax_to_state_dict(new_params), flax_to_state_dict(params)
+    moved = 0.0
+    for key, p in load_npz(str(work / f"{name}{suffix}_params.npz")).items():
+        np.testing.assert_allclose(p.numpy(), want[key].numpy(), atol=1e-5, err_msg=key)
+        moved = max(moved, float((p - start[key]).abs().max()))
+    assert moved > 1e-3
+
+
 @pytest.fixture(scope="module")
 def two_processes(tmp_path_factory):
     """Both processes' launch and the work directory they wrote."""
@@ -98,6 +142,8 @@ def two_processes(tmp_path_factory):
         _, params, batch = _jax_start(name)
         save_npz(str(work / f"start_{name}.npz"), flax_to_state_dict(params))
     np.savez(work / "batch.npz", **batch)
+    for pad, n_valid in PADDED_VALID.items():
+        np.savez(work / f"batch_{pad}.npz", **_global_batch(n_valid=n_valid))
     np.savez(work / "eval_batch.npz", **_eval_batch())
     paths = make_tiny_dataset(str(work / "data"))
     rng = random.Random(0)
@@ -148,22 +194,18 @@ def test_one_step_on_two_processes_matches_jax_on_the_global_batch(two_processes
     column, the gradients averaged: loss and grad_norm rtol 1e-4,
     parameters atol 1e-5, as tests/test_torch_training.py holds one
     process to JAX."""
-    work = two_processes["work"]
-    config = COLBERT_CONFIG if name == "colbert" else STEP_CONFIG
-    jm, params, batch = _jax_start(name)
-    tx = joptim.build_optimizer(config, params)
-    jstep = jax_make_train_step(jm, jdispatch.get_loss(config), tx, config)
-    new_params, _, jstats = jstep(params, tx.init(params), {k: jnp.asarray(v) for k, v in batch.items()})
-    with open(work / f"{name}_stats.json") as f:
-        tstats = json.load(f)
-    for key in ("loss", "grad_norm", "ranking_loss", "inbatch_loss"):
-        np.testing.assert_allclose(tstats[key], float(jstats[key]), rtol=1e-4, err_msg=key)
-    want, start = flax_to_state_dict(new_params), flax_to_state_dict(params)
-    moved = 0.0
-    for key, p in load_npz(str(work / f"{name}_params.npz")).items():
-        np.testing.assert_allclose(p.numpy(), want[key].numpy(), atol=1e-5, err_msg=key)
-        moved = max(moved, float((p - start[key]).abs().max()))
-    assert moved > 1e-3
+    _check_step_against_jax(two_processes["work"], name, "", _global_batch())
+
+
+@pytest.mark.parametrize("name,pad", [("step", "padded"), ("step", "empty"), ("colbert", "padded")])
+def test_one_step_on_a_padded_global_batch_matches_jax(two_processes, name, pad):
+    """The padded last batch: 5 (or 4) valid rows of 8, process 1 holding
+    one (or none). Every loss term and stat is one mean over the global
+    batch's valid rows (BERT_DOT's Margin-MSE and in-batch Margin-MSE), or
+    over its rows (ColBERT's in-batch KLDivTeacherList), as JAX's
+    one-program step takes it: the processes' gradients summed, not
+    averaged."""
+    _check_step_against_jax(two_processes["work"], name, f"_{pad}", _global_batch(n_valid=PADDED_VALID[pad]))
 
 
 def test_eval_step_pads_13_rows_over_two_processes(two_processes):
