@@ -317,11 +317,14 @@ FULL = dict(
     maxsim_shapes=[(128, 32, 256, 200, 128, -1000.0, False), (32, 32, 64, 200, 128, -1000.0, False),
                    (1, 32, 64, 128, 128, float("-inf"), False), (7, 30, 21, 77, 128, -1000.0, True),
                    (1, 32, 64, 128, 768, float("-inf"), False), (8, 200, 64, 200, 128, -1000.0, False)],
-    # K14's training form and the backward kernel (Bq, Lq, Bd, Ld, D, fill,
+    # the training form and the backward kernels (Bq, Lq, Bd, Ld, D, fill,
     # live dots below -1000, exact ties): the ColBERT training phase's
-    # in-batch shape (the headline), an odd padded shape, exact ties
+    # in-batch shape (the headline), an odd padded shape, exact ties, a
+    # ColBERT batch of 128 against its 256 in-batch docs, the public
+    # checkpoint's width 768
     maxsim_train_shapes=[(32, 30, 64, 200, 128, -1000.0, False, False), (7, 30, 21, 77, 128, -1000.0, True, False),
-                         (4, 30, 16, 200, 128, -1000.0, False, True)],
+                         (4, 30, 16, 200, 128, -1000.0, False, True), (128, 30, 256, 200, 128, -1000.0, False, False),
+                         (32, 30, 64, 200, 768, -1000.0, False, False)],
     colbert_train_batches=30,
     # phase 8: cli/tasb_recipe.py's run_recipe (the JAX recipe's own
     # configuration, mini-lm) cut in scale to fit the time limit, and the
@@ -580,6 +583,46 @@ def _device_beside(entry, kernel, device, headline):
     print(f"[kernels]   device {_fmt(dev)}" + (f", {timing['x_bound']:.2f}x bound" if dev is not None else ""))
     if headline:
         entry.update(device_ms=dev, x_bound=timing["x_bound"])
+
+
+def _split_ties(q, d, dm, fill):
+    """(Bq, Lq, Bd) bool: the (b, l, k) whose max among the plain f32 dots
+    (reference_maxsim_all_pairs' own product) two doc rows hold that are
+    not equal element for element. Autograd through the plain version splits
+    the gradient between them; the kernels and reference_maxsim_bwd give it
+    all to the first (ops/maxsim.py), so the two gradients differ there by
+    design (a batch of 128 x 256 docs meets about one such tie)."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import matmul_f32
+
+    bq, lq, dim = q.shape
+    bd, ld, _ = d.shape
+    flat = matmul_f32(q.reshape(bq * lq, dim), d.reshape(bd * ld, dim).T).reshape(bq, lq, bd, ld)
+    live = dm > 0
+    top = torch.where(live[None, None], flat, fill).topk(min(2, ld), dim=-1)
+    del flat
+    split = torch.zeros(bq, lq, bd, dtype=torch.bool, device=q.device)
+    if ld < 2:
+        return split
+    tie = (top.values[..., 0] == top.values[..., 1]).nonzero().tolist()
+    for b, l, k in tie:
+        i1, i2 = int(top.indices[b, l, k, 0]), int(top.indices[b, l, k, 1])
+        split[b, l, k] = bool(live[k, i1] and live[k, i2]) and not bool((d[k, i1] == d[k, i2]).all())
+    return split
+
+
+def _library_beside(entry, library, device, reps, headline, call):
+    """The time of ``library``, the chain of PyTorch calls that computes the
+    kernel's function, by CUDA events (``library_ms``) and device time, into
+    the timing _record just wrote and, at the headline, into the entry."""
+    timing = entry["timings"][-1]
+    timing.update(library_ms=_time_ms(library, device, reps), library_device_ms=_device_ms(library, device),
+                  library_call=call)
+    print(f"[kernels]   library chain ({call}): events {timing['library_ms']:.4f} ms, device "
+          f"{_fmt(timing['library_device_ms'])}")
+    if headline:
+        entry.update(library_ms=timing["library_ms"], library_device_ms=timing["library_device_ms"], library_call=call)
 
 
 def _library_level2(x, width):
@@ -1587,21 +1630,58 @@ def _maxsim_training_inputs(bq, lq, bd, ld, dim, below_fill, ties, device, seed)
     return q, d, qm, dm
 
 
+def _library_maxsim_argmax(q, d, qm, dm, fill):
+    """The training form as a chain of PyTorch calls: one einsum for every
+    dot, the masked fill, max with its argmax (-1 where a masked slot holds
+    it), the masked sum over query tokens (a yardstick; the port never
+    calls it)."""
+    import torch
+
+    live = dm > 0
+    s = torch.einsum("bld,kmd->blkm", q, d).masked_fill(~live[None, None], fill)
+    best, idx = s.max(dim=-1)
+    idx = torch.where(torch.gather(live.expand(q.shape[0], q.shape[1], -1, -1), -1, idx[..., None])[..., 0], idx, -1)
+    out = torch.where(qm[:, :, None] != 0, best * qm[:, :, None], torch.zeros((), device=q.device)).sum(dim=1)
+    return out, idx.int()
+
+
+def _library_maxsim_bwd(q, d, qm, dm, argmax, g):
+    """The backward as a chain of PyTorch calls: the saved tokens' doc rows
+    gathered for dq, w q added into them by index_add_ for dd (exact ties
+    not split: a yardstick; the port never calls it)."""
+    import torch
+
+    bd, ld, dim = d.shape
+    a = argmax.long()
+    w = torch.where(a >= 0, g[:, None, :] * qm[:, :, None], torch.zeros((), device=q.device))
+    rows = torch.arange(bd, device=q.device)[None, None, :] * ld + a.clamp(min=0)
+    dq = (w[..., None] * d.reshape(-1, dim)[rows]).sum(dim=2)
+    dd = torch.zeros(bd * ld, dim, device=q.device).index_add_(0, rows.reshape(-1),
+                                                              (w[..., None] * q[:, :, None, :]).reshape(-1, dim))
+    return dq, dd.reshape(bd, ld, dim)
+
+
 def phase_maxsim_training(sz, device):
-    """K14's training form (the all-pairs launch that also saves each (query
-    token, doc)'s max doc token) and the backward kernel against plain
+    """The training form (the all-pairs launch that also saves each (query
+    token, doc)'s max doc token) and the backward kernels against plain
     autograd through reference_maxsim_all_pairs, at the ColBERT training
-    phase's shape (the headline), an odd shape with live dots below -1000
-    and a shape with exact ties. Gates: the forward at K14's bar (rtol =
-    atol = 1e-4); the saved tokens equal to the plain argmax on >= 99.99 %
-    of (b, l, k), every other one a near tie (|top1 - top2| <= 1e-5 |top1|);
-    dq and dd within rtol = atol = 1e-4 on the query rows and docs whose
-    tokens all agree; the tie's two rows equal dd; reruns bit-identical.
-    Bounds: the training form as K14 (its TF32 products over the live
-    pairs), plus its int32 tokens; the backward by its bytes (q, docs, the
-    tokens and g read once, dq and dd written once) against its f32 FMAs
-    over the (b, l, k) whose max is a live token. No single library call
-    computes either."""
+    phase's shape (the headline), an odd shape with live dots below -1000,
+    a shape with exact ties, a batch of 128 against its 256 in-batch docs
+    and the public checkpoint's width 768. Gates: the forward at K14's bar
+    (rtol = atol = 1e-4); the saved tokens equal to the plain argmax on >=
+    99.99 % of (b, l, k), every other one a near tie (|top1 - top2| <= 1e-5
+    |top1|); dq and dd within rtol = atol = 1e-4 of autograd on the query
+    rows and docs whose tokens all agree and whose maxima no two unequal
+    rows share (_split_ties), and of reference_maxsim_bwd everywhere; the
+    tie's two rows equal dd; reruns bit-identical. Bounds: the training form by its TF32 products over the
+    live pairs (three a multiply-add) against its bytes; the backward by its
+    bytes (q, docs, the tokens and g read once, dq and dd written once)
+    against its f32 FMAs over the (b, l, k) whose max is a live token. At
+    every shape the device time and its multiple of the bound, and as
+    ``library_ms`` the chain of PyTorch calls that computes the same
+    function (no single call does): einsum + max / argmax for the forward,
+    a gather + index_add_ for the backward (CUDA events; its device time
+    beside it)."""
     import torch
 
     from matchmaker_tpu_torch.ops import maxsim as ms
@@ -1627,9 +1707,13 @@ def phase_maxsim_training(sz, device):
         qg, dg = q.clone().requires_grad_(), d.clone().requires_grad_()
         ref = ms.reference_maxsim_all_pairs(qg, dg, qm, dm, fill)
         pq, pd = torch.autograd.grad(ref, (qg, dg), g, retain_graph=True)
-        rows, docs = agree.all(dim=2), agree.all(dim=(0, 1))
+        split = _split_ties(q, d, dm, fill)
+        sure = agree & ~split  # the max's token is one row for the kernel and for autograd
+        rows, docs = sure.all(dim=2), sure.all(dim=(0, 1))
+        rq, rd = ms.reference_maxsim_bwd(q, d, qm, dm, idx, g)
         err = 0.0
-        for name, a, b in (("dq", dq[rows], pq[rows]), ("dd", dd[docs], pd[docs])):
+        for name, a, b in (("dq", dq[rows], pq[rows]), ("dd", dd[docs], pd[docs]), ("dq vs its plain version", dq, rq),
+                           ("dd vs its plain version", dd, rd)):
             close = bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs()).all())
             err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
             check(close, f"the MaxSim backward's {name} at {shape}: max |d| {err}")
@@ -1643,20 +1727,32 @@ def phase_maxsim_training(sz, device):
         check(torch.equal(again[0], dq) and torch.equal(again[1], dd), f"the backward's reruns differ at {shape}")
         bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
         print(f"[kernels] maxsim backward {shape}: dq on {int(rows.sum())} of {rows.numel()} query rows, dd on "
-              f"{int(docs.sum())} of {bd} docs, max |d| {err:.4g}; max |plain| dq "
+              f"{int(docs.sum())} of {bd} docs against autograd ({int(split.sum())} maxima tied between unequal "
+              f"rows left out), all against reference_maxsim_bwd, max |d| {err:.4g}; max |plain| dq "
               f"{float(pq.abs().max()):.4g}, dd {float(pd.abs().max()):.4g}")
-        agreement.append({"shape": shape, "tokens_agree": share, "differ": int((~agree).sum()), "ties": ties})
+        agreement.append({"shape": shape, "tokens_agree": share, "differ": int((~agree).sum()), "ties": ties,
+                          "maxima_tied_between_unequal_rows": int(split.sum())})
         headline = i == 0
         live = 2 * dim * int((qm > 0).sum()) * int((dm > 0).sum())
         _record(fwd, shape, lambda a=(q, d, qm, dm), f=fill: ms.maxsim_all_pairs_argmax(*a, f),
                 lambda a=(q, d, qm, dm), f=fill: ms.reference_maxsim_argmax(*a, f), device, sz["reps"], headline,
                 bound_of=bound(nbytes(q, d, qm, dm, got, idx), tf32=3 * live))
         _device_beside(fwd, lambda a=(q, d, qm, dm), f=fill: ms.maxsim_all_pairs_argmax(*a, f), device, headline)
+        lib_out, lib_idx = _library_maxsim_argmax(q, d, qm, dm, fill)
+        lib_agree = lib_idx == want_idx
+        check(float(lib_agree.float().mean()) >= 0.9999
+              and bool(((top1 - top2).abs() <= 1e-5 * top1.abs())[~lib_agree].all())
+              and bool(((lib_out - want).abs() <= 1e-4 + 1e-4 * want.abs()).all()),
+              f"the forward's chain of library calls disagrees with the plain version at {shape}")
+        _library_beside(fwd, lambda a=(q, d, qm, dm), f=fill: _library_maxsim_argmax(*a, f), device, sz["reps"],
+                        headline, "einsum + masked_fill + max (argmax) + masked sum")
         used = int(((g[:, None, :] * qm[:, :, None] != 0) & (idx >= 0)).sum())
         _record(bwd, shape, lambda a=(q, d, qm, dm, idx, g): ms.maxsim_all_pairs_bwd(*a),
                 lambda a=(q, d, qm, dm, idx, g): ms.reference_maxsim_bwd(*a), device, sz["reps"], headline,
                 bound_of=bound(nbytes(q, d, qm, dm, idx, g, dq, dd), f32=4 * dim * used))
         _device_beside(bwd, lambda a=(q, d, qm, dm, idx, g): ms.maxsim_all_pairs_bwd(*a), device, headline)
+        _library_beside(bwd, lambda a=(q, d, qm, dm, idx, g): _library_maxsim_bwd(*a), device, sz["reps"], headline,
+                        "gather of the tokens' doc rows (dq) + index_add_ (dd), ties not split")
     fwd["headline"] = ("the ColBERT training phase's in-batch all-pairs MaxSim (32 queries x 30 tokens against "
                        "64 docs x 200), forward with each max's doc token saved")
     bwd["headline"] = "its backward at the same shape"
@@ -2665,11 +2761,12 @@ def _device_batch(config, tokenizer, path, device):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def _profile_steps(step, batch, step_ms, n=3, tag="train"):
+def _profile_steps(step, batch, step_ms, n=3, tag="train", watch=None):
     """Device time by kernel over n calls of ``step(batch)`` (torch.profiler),
     and the device's busy share of ``step_ms``, the call's time CUDA events
     measured without the profiler (whose own overhead stretches the wall
-    time)."""
+    time); ``watch`` {name: substring}: the ms a call of the kernels whose
+    names hold each substring."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2687,8 +2784,11 @@ def _profile_steps(step, batch, step_ms, n=3, tag="train"):
           f"{step_ms:.2f} ms call without the profiler ({wall_ms / n:.2f} ms wall under it)")
     for key, ms, count in rows[:14]:
         print(f"[{tag}]   {ms:8.3f} ms/call {ms / busy if busy else 0:6.1%}  x{count:<4d} {key[:110]}")
-    return {"device_ms_per_step": busy, "busy_share": busy / step_ms, "profiled_wall_ms_per_step": wall_ms / n,
-            "top": [{"kernel": k[:200], "ms_per_step": ms, "calls_per_step": c} for k, ms, c in rows[:25]]}
+    out = {"device_ms_per_step": busy, "busy_share": busy / step_ms, "profiled_wall_ms_per_step": wall_ms / n,
+           "top": [{"kernel": k[:200], "ms_per_step": ms, "calls_per_step": c} for k, ms, c in rows[:25]]}
+    if watch:
+        out["watch"] = {name: sum(ms for k, ms, _ in rows if key in k) for name, key in watch.items()}
+    return out
 
 
 def _hardest_negatives(model, batch):
@@ -2848,13 +2948,14 @@ def _train_through_trainer(sz, device, config, run_folder, steps, tag, before=No
     return trainer, result
 
 
-def _step_speed(sz, device, trainer, batch, tag):
+def _step_speed(sz, device, trainer, batch, tag, watch=None):
     """Device-only triples/s of the Trainer's step on one batch (CUDA
-    events) and, on a card, a profile of three steps."""
+    events) and, on a card, a profile of three steps (``watch``: see
+    _profile_steps)."""
     ms = _time_ms(lambda: trainer.train_step(batch), device, sz["reps"])
     result = {"step_ms": ms, "device_triples_per_s": sz["train_batch"] / ms * 1e3}
     if device.type == "cuda":
-        result["profile"] = _profile_steps(trainer.train_step, batch, ms, tag=tag)
+        result["profile"] = _profile_steps(trainer.train_step, batch, ms, tag=tag, watch=watch)
     return result
 
 
@@ -2968,10 +3069,19 @@ def phase_train_colbert(sz, device, root):
         check(os.path.isfile(os.path.join(run_folder, rel)), f"missing {rel} in the ColBERT training run folder")
 
     batch = _device_batch(config, trainer.tokenizer, paths["train"], device)
-    result.update(_step_speed(sz, device, trainer, batch, "train_colbert"))
+    # the MaxSim pair's kernels and the step's copies (the f32 copies of
+    # bf16 MaxSim inputs among them) beside the step's kernel time
+    result.update(_step_speed(sz, device, trainer, batch, "train_colbert",
+                              watch={"training form": "msim_train::", "backward": "msim_bwd::", "copies": "copy"}))
     print(f"[train_colbert] {steps} steps: loss {result['loss_first']:.4f} -> {result['loss_last']:.4f}; "
           f"{result['cli_triples_per_s']:.1f} triples/s through the Trainer (validation included), "
-          f"{result['device_triples_per_s']:.1f} device-only ({result['step_ms']:.2f} ms a step)")
+          f"{result['device_triples_per_s']:.1f} device-only ({result['step_ms']:.2f} ms a step; with the "
+          f"first training kernels, PERF.md: 912.9-1,003.2 device-only)")
+    if "profile" in result:
+        part = result["maxsim_pair_ms_per_step"] = result["profile"]["watch"]
+        print(f"[train_colbert] the MaxSim pair a step: training form {part['training form']:.4f} ms, backward "
+              f"{part['backward']:.4f} ms, copy kernels {part['copies']:.4f} ms, of "
+              f"{result['profile']['device_ms_per_step']:.2f} ms of kernels")
     result.update(_kernels_vs_plain_step(trainer.model, config, batch, dict(config, in_batch_neg_loss="KLDivTeacherList"),
                                          "train_colbert"))
     result.update(_overfit(sz, trainer, config, batch, "train_colbert"))
@@ -6010,11 +6120,11 @@ KERNELS = [  # name, source, TPU kernel it replaces, TPU kernels folded into it
      "matchmaker_tpu/ops/mips_binmax.py:259", None),
     ("maxsim_all_pairs", "matchmaker_tpu_torch/csrc/maxsim_kernels.cu",
      "matchmaker_tpu/ops/pallas_kernels.py:62", None),
-    ("maxsim_all_pairs_argmax", "matchmaker_tpu_torch/csrc/maxsim_kernels.cu",
+    ("maxsim_all_pairs_argmax", "matchmaker_tpu_torch/csrc/maxsim_train_kernels.cu",
      "matchmaker_tpu/ops/pallas_kernels.py:62",
      "matchmaker_tpu/ops/maxsim.py:34 (the jnp all-pairs MaxSim JAX trains through: K14's all-pairs form that also "
      "saves each max's doc token; no pallas_call of its own)"),
-    ("maxsim_all_pairs_bwd", "matchmaker_tpu_torch/csrc/maxsim_kernels.cu", "matchmaker_tpu/ops/maxsim.py:34",
+    ("maxsim_all_pairs_bwd", "matchmaker_tpu_torch/csrc/maxsim_train_kernels.cu", "matchmaker_tpu/ops/maxsim.py:34",
      "the gradient JAX takes by autodiff of the jnp all-pairs MaxSim (matchmaker_tpu/training/train_step.py:212-221);"
      " no pallas_call"),
     ("fused_mha", "matchmaker_tpu_torch/csrc/encoder_kernels.cu",
@@ -6063,14 +6173,20 @@ DESIGN = {
                   "m64n192k16; the LayerNorm's row sums and centred squares exchanged over distributed shared "
                   "memory and added in CTA order; y out by TMA store; neither h nor the pre-LN sums reach device "
                   "memory",
-    "maxsim_all_pairs_argmax": "K14's all-pairs kernel (ARGMAX instances): each running max carries its doc token "
-                               "through the lanes, the quad shuffles and the warps' shared-memory merge (the first "
-                               "of equal maxima, -1 where the fill wins), written as int32 (Bq, Lq, Bd)",
-    "maxsim_all_pairs_bwd": "one launch, two block roles, no float atomics: a block a (doc, 128-column slab) holds "
-                            "the doc's dd rows in shared memory and adds g[b,k] w(b,l) q[b,l] into the saved token's "
-                            "row over (b, l) in order, exact ties (bit-equal rows, found by a hash and a compare) "
-                            "sharing w / count; a block of four warps owns 8 dq rows, each summed over the docs in "
-                            "order from the saved tokens' rows",
+    "maxsim_all_pairs_argmax": "persistent, one CTA an SM over the (128-row query tile, doc) items: two consumer "
+                               "warpgroups run split-TF32 wgmma m64nNk8 (N 64/104/128 tokens a chunk) with the "
+                               "tile's hi and lo resident in shared memory (streamed beside each doc slab past D "
+                               "160); a producer warpgroup loads doc slabs two stages ahead, splits them once into "
+                               "hi and lo, and fills a 2-4 slot ring under full / empty mbarriers; the row max and "
+                               "its token in registers, across the quad by shuffles (the first of equal maxima, -1 "
+                               "where the fill wins); a small second kernel sums the rows in order",
+    "maxsim_all_pairs_bwd": "two launches, no float atomics: (1) a block a doc builds its classes of bit-equal rows "
+                            "once (lane-parallel hashes, a full compare where they agree) while warps compute dq, a "
+                            "query row each, gathering 16 doc rows at a time and summing over the docs in order; "
+                            "(2) dd, a block a (doc, range of <= 40 rows, 128 columns): the (b, l) whose token's "
+                            "class lead lies in its range listed in order by a block scan, four column groups "
+                            "summing a quarter of each list chunk apart, the groups added in order and each "
+                            "class's members given the lead's sum over its size",
     "maxsim_all_pairs": "split-TF32 mma.sync m16n8k8 (hi + lo of each f32 operand, three products; two for float16 "
                         "tokens), whole queries packed in row tiles of Lq rounded to 16, token chunks of 64 through a "
                         "3-stage cp.async ring, the max in registers, across the quad by shuffles and across warps in "

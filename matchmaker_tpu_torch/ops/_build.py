@@ -61,8 +61,8 @@ _SIGNATURES = {
     "mm_attention_core_f32": [_p, _p, _p, _i, _i, _i, _i, _f, _p],
     "mm_fused_mha": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _p],
     "mm_maxsim": [_p] * 7 + [_i] * 6 + [_f, _p],
-    "mm_maxsim_argmax": [_p] * 6 + [_i] * 5 + [_f, _p],
-    "mm_maxsim_bwd": [_p] * 8 + [_i] * 5 + [_p],
+    "mm_maxsim_train": [_p] * 7 + [_i] * 9 + [_f, _p],
+    "mm_maxsim_bwd": [_p] * 9 + [_i] * 6 + [_p],
     "mm_quant_groups": [_p, _p, _p, _i, _i, _i, _i, _i, _p],
     "mm_wg_gemm_s8": [_p] * 7 + [_i] * 5 + [_p],
     "mm_wg_gemm_s8_gelu_quant": [_p] * 7 + [_i] * 4 + [_p],

@@ -25,19 +25,21 @@ and 1 <= Lq <= 512 (:func:`check_kernel_geometry`, which runs on any
 device).
 
 Under autograd on the card, the all-pairs form runs as
-:class:`MaxSimAllPairs`: K14's training form, which also saves each (query
-token, doc)'s max doc token (int32 (Bq, Lq, Bd)), and a hand-written
-backward kernel that gathers dq from those tokens and scatters dd into them,
-each output row owned by one block and summed in a fixed order (no float
-atomics, reruns bit-identical), with Ld <= 1024. A max that the fill wins
-(a masked or padded doc slot) passes no gradient, nor do the masks. Exactly
-equal maxima split their gradient evenly, as ``torch.amax`` and JAX's
-``max`` do; the kernel finds them as the doc's rows equal bit for bit to the
-first (a repeated token; two different rows whose products round to the same
-f32 give it all to the first). The gathered form is a serving form and stays
+:class:`MaxSimAllPairs`: the training form, which also saves each (query
+token, doc)'s max doc token (int32 (Bq, Lq, Bd)), and a backward that
+gathers dq from those tokens and scatters dd into them, both hand-written
+for the in-batch shape in ``csrc/maxsim_train_kernels.cu`` (wgmma products,
+persistent over the docs; :func:`train_plan` and :func:`bwd_plan` size their
+launches), each output summed in a fixed order (no float atomics, reruns
+bit-identical), with Ld <= 1024. A max that the fill wins (a masked or
+padded doc slot) passes no gradient, nor do the masks. Exactly equal maxima
+split their gradient evenly, as ``torch.amax`` and JAX's ``max`` do; the
+kernel finds them as the doc's rows equal bit for bit to the first (a
+repeated token; two different rows whose products round to the same f32
+give it all to the first). The gathered form is a serving form and stays
 forward-only: on the card, inputs that require grad are refused there.
 
-The kernel's products run on the tensor cores in split TF32 (each f32
+The kernels' products run on the tensor cores in split TF32 (each f32
 operand a TF32 hi + lo pair, three products; two for float16 tokens, exact
 in TF32), which keeps the TPU kernel's default ``compute_dtype=float32``
 within rtol = atol = 1e-4 of the plain f32 version; TF32 alone would not
@@ -49,6 +51,8 @@ is real and the two fills give different scores.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from matchmaker_tpu_torch.ops import _build, matmul_f32
@@ -58,9 +62,61 @@ NEG_FILL = -1000.0
 # position limit), and the widest D whose 16-row query tile fits shared memory
 _KERNEL_MAX_LQ = 512
 _KERNEL_MAX_DIM = 2048
-# the backward kernel: the most doc tokens whose dd rows a block holds in
-# shared memory (a 32-column slab of 1024 rows)
+# the training kernels: the most doc tokens (the backward holds a doc's
+# rows' hashes in shared memory to find its tie classes)
 _KERNEL_MAX_LD_BWD = 1024
+# csrc/maxsim_train_kernels.cu: a training-form tile's query rows, its token
+# chunks, the shared memory a block can use and the part of it that is
+# neither the query tile nor the ring; the backward's dd rows a block
+# (their sums in shared memory) and its entry list
+_TRAIN_ROWS = 128
+_TRAIN_CHUNKS = (64, 104, 128)
+_TRAIN_MAX_SLOTS = 4
+_SMEM_MAX = 232448
+_TRAIN_SMEM_FIXED = 2048
+_BWD_ROWS_MAX = 40
+_BWD_LIST = 1024
+_BWD_GROUPS = 4
+
+
+def train_plan(bq: int, lq: int, bd: int, ld: int, dim: int, sms: int = 132) -> dict:
+    """The training form's launch on a card of ``sms`` SMs: ``chunk`` doc
+    tokens a stage (the size of {64, 104, 128} that pads Ld the least, the
+    larger on a tie), ``slabs`` of 32 floats of D, whether the 128-row query
+    tile stays ``resident`` in shared memory (split into TF32 hi and lo once;
+    when it leaves room for two ring slots) or streams beside every doc
+    slab, the ring's ``slots`` (as many as fit, at most 4), the block's shared
+    memory, the row ``tiles``, the (tile, doc) ``items`` and ``ctas``
+    blocks, one an SM, that split them evenly."""
+    chunk = min(_TRAIN_CHUNKS, key=lambda n: (-(-ld // n) * n, -n))
+    slabs = -(-dim // 32)
+    tile = 2 * _TRAIN_ROWS * 128  # a slab of the tile, hi and lo
+    room = _SMEM_MAX - _TRAIN_SMEM_FIXED
+    slot = 2 * chunk * 128 + 1024  # doc hi and lo, the chunk's token masks
+    resident = room - slabs * tile >= 2 * slot
+    if not resident:
+        slot += tile  # the query slab streams beside the doc slab
+    slots = min(_TRAIN_MAX_SLOTS, (room - (slabs * tile if resident else 0)) // slot)
+    tiles = -(-(bq * lq) // _TRAIN_ROWS)
+    items = tiles * bd
+    return {"chunk": chunk, "slabs": slabs, "resident": resident, "slots": slots,
+            "smem": _TRAIN_SMEM_FIXED + (slabs * tile if resident else 0) + slots * slot, "tiles": tiles,
+            "items": items, "ctas": max(1, min(items, sms))}
+
+
+def bwd_plan(bq: int, lq: int, bd: int, ld: int, dim: int, sms: int = 132) -> dict:
+    """The backward's launches: the first takes ``bd`` class blocks and
+    ``dq_blocks`` of eight query rows; the second cuts each doc's dd into
+    ``parts`` row ranges (at most 40 rows each, and enough blocks for about
+    two an SM) by ``slabs`` of 128 columns, ``dd_blocks`` in all, each with
+    ``dd_smem`` bytes of shared memory (four column groups' sums of its
+    rows, the doc's classes, the entry list)."""
+    slabs = -(-dim // 128)
+    parts = min(ld, max(-(-ld // _BWD_ROWS_MAX), -(-2 * sms // max(1, bd * slabs))))
+    rows = -(-ld // parts)
+    return {"parts": parts, "slabs": slabs, "rows": rows, "dq_blocks": -(-(bq * lq) // 8),
+            "dd_blocks": bd * parts * slabs,
+            "dd_smem": _BWD_GROUPS * rows * 128 * 4 + ld * 4 + _BWD_LIST * 12 + _BWD_GROUPS * 4 * 4}
 
 
 def maxsim_pairwise(q_vecs: torch.Tensor, d_vecs: torch.Tensor, q_mask: torch.Tensor,
@@ -163,7 +219,7 @@ def check_kernel_geometry(q_vecs, d_vecs, q_mask, d_mask) -> None:
 
 
 def check_backward_geometry(q_vecs, d_vecs, q_mask, d_mask) -> None:
-    """Raise ValueError unless K14's training form and its backward kernel
+    """Raise ValueError unless the training form and its backward kernels
     take these shapes: :func:`check_kernel_geometry` and Ld <= 1024."""
     check_kernel_geometry(q_vecs, d_vecs, q_mask, d_mask)
     if d_vecs.shape[1] > _KERNEL_MAX_LD_BWD:
@@ -221,10 +277,15 @@ def _maxsim_cuda(q_vecs, d_vecs, q_mask, d_mask, fill):
     return _launch(q_vecs, q_mask, d_vecs, d_mask, None, None, d_vecs.shape[1], d_vecs.shape[0], fill)
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch_argmax(q, q_mask, d, d_mask, fill):
-    """K14's training form: f32 q (Bq, Lq, D), q_mask, d (Bd, Ld, D),
-    d_mask on the card → (out (Bq, Bd) f32, argmax (Bq, Lq, Bd) int32, the
-    doc token of each max, -1 where the fill is the max)."""
+    """The training form: f32 q (Bq, Lq, D), q_mask, d (Bd, Ld, D), d_mask
+    on the card → (out (Bq, Bd) f32, argmax (Bq, Lq, Bd) int32, the doc
+    token of each max, -1 where the fill is the max)."""
     for name, t in (("q_vecs", q), ("q_mask", q_mask), ("d_vecs", d), ("d_mask", d_mask)):
         _build.check_cuda(t, f"maxsim.{name}", torch.float32)
     (bq, lq, dim), (bd, ld) = q.shape, d.shape[:2]
@@ -233,14 +294,17 @@ def _launch_argmax(q, q_mask, d, d_mask, fill):
         out = torch.empty((bq, bd), dtype=torch.float32, device=dev)
         argmax = torch.empty((bq, lq, bd), dtype=torch.int32, device=dev)
         if bq and bd:
-            _build.call("mm_maxsim_argmax", q.data_ptr(), q_mask.data_ptr(), d.data_ptr(), d_mask.data_ptr(),
-                        out.data_ptr(), argmax.data_ptr(), bq, lq, bd, dim, ld, float(fill), _build.stream(dev))
+            best = torch.empty((bq, lq, bd), dtype=torch.float32, device=dev)  # each row's max, summed after
+            plan = train_plan(bq, lq, bd, ld, dim, _sm_count(q.get_device()))
+            _build.call("mm_maxsim_train", q.data_ptr(), q_mask.data_ptr(), d.data_ptr(), d_mask.data_ptr(),
+                        best.data_ptr(), out.data_ptr(), argmax.data_ptr(), bq, lq, bd, ld, dim, plan["chunk"],
+                        int(plan["resident"]), plan["slots"], plan["ctas"], float(fill), _build.stream(dev))
             _build.LAUNCHES["maxsim_all_pairs_argmax"] += 1
     return out, argmax
 
 
 def _launch_bwd(q, q_mask, d, d_mask, argmax, g):
-    """The backward kernel: (dq (Bq, Lq, D), dd (Bd, Ld, D)) f32 from g
+    """The backward kernels: (dq (Bq, Lq, D), dd (Bd, Ld, D)) f32 from g
     (Bq, Bd) and the training form's argmax over the same inputs."""
     g = _f32(g)
     for name, t, dtype in (("q_vecs", q, torch.float32), ("q_mask", q_mask, torch.float32),
@@ -253,9 +317,11 @@ def _launch_bwd(q, q_mask, d, d_mask, argmax, g):
         dq = torch.empty_like(q)
         dd = torch.empty_like(d)
         if bq and bd:
+            info = torch.empty((bd, ld), dtype=torch.int32, device=dev)  # each doc row's tie class
+            plan = bwd_plan(bq, lq, bd, ld, dim, _sm_count(q.get_device()))
             _build.call("mm_maxsim_bwd", q.data_ptr(), q_mask.data_ptr(), d.data_ptr(), d_mask.data_ptr(),
-                        argmax.data_ptr(), g.data_ptr(), dq.data_ptr(), dd.data_ptr(), bq, lq, bd, ld, dim,
-                        _build.stream(dev))
+                        argmax.data_ptr(), g.data_ptr(), info.data_ptr(), dq.data_ptr(), dd.data_ptr(), bq, lq, bd,
+                        ld, dim, plan["parts"], _build.stream(dev))
             _build.LAUNCHES["maxsim_all_pairs_bwd"] += 1
         else:
             dq.zero_()
@@ -266,8 +332,8 @@ def _launch_bwd(q, q_mask, d, d_mask, argmax, g):
 def maxsim_all_pairs_argmax(q_vecs: torch.Tensor, d_vecs: torch.Tensor, q_mask: torch.Tensor,
                             d_mask: torch.Tensor, fill: float = NEG_FILL):
     """The training form: (out (Bq, Bd) f32, argmax (Bq, Lq, Bd) int32, each
-    max's doc token, -1 where the fill is the max). CUDA tensors launch
-    K14's training form (shapes of :func:`check_backward_geometry`), CPU
+    max's doc token, -1 where the fill is the max). CUDA tensors launch the
+    training form's kernel (shapes of :func:`check_backward_geometry`), CPU
     ones run :func:`reference_maxsim_argmax`."""
     if not q_vecs.is_cuda:
         return reference_maxsim_argmax(q_vecs, d_vecs, q_mask, d_mask, fill)
@@ -278,7 +344,7 @@ def maxsim_all_pairs_argmax(q_vecs: torch.Tensor, d_vecs: torch.Tensor, q_mask: 
 def maxsim_all_pairs_bwd(q_vecs: torch.Tensor, d_vecs: torch.Tensor, q_mask: torch.Tensor, d_mask: torch.Tensor,
                          argmax: torch.Tensor, grad: torch.Tensor):
     """(dq, dd) f32 from the upstream gradient (Bq, Bd) and the training
-    form's argmax. CUDA tensors launch the backward kernel, CPU ones run
+    form's argmax. CUDA tensors launch the backward kernels, CPU ones run
     :func:`reference_maxsim_bwd`."""
     if not q_vecs.is_cuda:
         return reference_maxsim_bwd(q_vecs, d_vecs, q_mask, d_mask, argmax, grad)
@@ -287,9 +353,9 @@ def maxsim_all_pairs_bwd(q_vecs: torch.Tensor, d_vecs: torch.Tensor, q_mask: tor
 
 
 class MaxSimAllPairs(torch.autograd.Function):
-    """The all-pairs MaxSim on the card under autograd: K14's training form
-    forward (saving each max's doc token), the backward kernel backward. The
-    masks get no gradient."""
+    """The all-pairs MaxSim on the card under autograd: the training form
+    forward (saving each max's doc token), the backward kernels backward.
+    The masks get no gradient."""
 
     @staticmethod
     def forward(ctx, q_vecs, d_vecs, q_mask, d_mask, fill):

@@ -1167,7 +1167,12 @@ def _plain_maxsim_grads(q, d, qm, dm, g, fill):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,below,ties", [((32, 30, 64, 200, 128), False, False),
                                               ((7, 30, 21, 77, 128), True, False),
-                                              ((4, 16, 6, 40, 64), False, True)])
+                                              ((4, 16, 6, 40, 64), False, True),
+                                              ((128, 30, 256, 200, 128), False, False),
+                                              ((32, 30, 64, 200, 768), False, False),
+                                              ((16, 1, 32, 200, 128), False, False),
+                                              ((4, 30, 8, 1024, 128), False, True),
+                                              ((5, 13, 9, 30, 40), True, False)])
 def test_maxsim_training_form_and_backward_match_plain(device, shape, below, ties):
     """K14's training form and the backward kernel against plain autograd
     through reference_maxsim_all_pairs: the forward at K14's bar (rtol =

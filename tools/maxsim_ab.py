@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time ColBERT's MaxSim (K14) and exact rescore of two checkouts on one card, in turns.
+"""Time ColBERT's MaxSim (K14), its training kernels and the exact rescore of two checkouts on one card, in turns.
 
     python3 tools/maxsim_ab.py BASE_DIR NEW_DIR [--turns ABBA] [--reps 10] [--out FILE]
 
@@ -13,6 +13,18 @@ checkout's ``build/``, and times on data made from seeds:
   its headline (Bq, Lq, Bd, Ld, D) = (128, 32, 256, 200, 128) with fill
   -1000 and at one query's rescore, (1, 32, 64, 128, 128) with fill -inf
   (f32 tokens and masks as ``chip_smoke.py`` phase 3 makes them);
+- the training form (``maxsim_all_pairs_argmax``) and the backward
+  (``maxsim_all_pairs_bwd``) by device time (the durations of the kernels
+  they launch, from torch.profiler, after two warm-up calls; each kernel's
+  under ``kernel_ms``) at the ColBERT training step's in-batch shape (32,
+  30, 64, 200, 128), a batch of 128 against its 256 in-batch docs and the
+  public checkpoint's width 768, on chip_smoke.py's phase-3 data (random
+  f32 vectors, a fifth of the slots masked);
+- K14's serving launches at every shape of ``chip_smoke.py``'s
+  ``maxsim_shapes`` and the gathered form at the ColBERT run's batched
+  rescore: a SHA-256 of each output's bytes (the summary says whether every
+  turn gave the same bits) and, for the headline all-pairs shape and the
+  gathered form, the device time;
 - the exact rescore of 256 queries of 32 tokens against 64 candidates each,
   from a token store of 16,384 documents of 1-128 float16 vectors of width
   128 written once to a temporary folder (the ColBERT run's shapes), on the
@@ -41,9 +53,16 @@ import time
 
 TURN_TAG = "TURN "
 FULL = dict(all_pairs=(128, 32, 256, 200, 128), rescore_shape=(1, 32, 64, 128, 128), queries=256, query_len=32,
-            candidates=64, docs=16_384, max_tokens=128, dim=128)
+            candidates=64, docs=16_384, max_tokens=128, dim=128,
+            # chip_smoke.py's FULL["maxsim_shapes"] (Bq, Lq, Bd, Ld, D, fill, live dots below -1000)
+            serving=[(128, 32, 256, 200, 128, -1000.0, False), (32, 32, 64, 200, 128, -1000.0, False),
+                     (1, 32, 64, 128, 128, float("-inf"), False), (7, 30, 21, 77, 128, -1000.0, True),
+                     (1, 32, 64, 128, 768, float("-inf"), False), (8, 200, 64, 200, 128, -1000.0, False)],
+            train=[(32, 30, 64, 200, 128), (128, 30, 256, 200, 128), (32, 30, 64, 200, 768)])
 TINY = dict(all_pairs=(4, 8, 16, 24, 64), rescore_shape=(1, 8, 16, 24, 64), queries=16, query_len=8, candidates=16,
-            docs=256, max_tokens=24, dim=64)
+            docs=256, max_tokens=24, dim=64,
+            serving=[(4, 8, 16, 24, 64, -1000.0, False), (3, 5, 7, 13, 64, -1000.0, True)],
+            train=[(4, 6, 8, 24, 64), (8, 6, 16, 24, 64)])
 
 
 def write_store(folder: str, sz: dict, seed: int = 3) -> None:
@@ -85,17 +104,82 @@ def _time_ms(fn, device, reps: int) -> float:
     return begin.elapsed_time(end) / reps
 
 
-def _all_pairs_inputs(shape, device, seed):
+def _kernel_ms(fn, device, reps: int) -> dict:
+    """Device time a call of each kernel ``fn`` launches, by name: the
+    kernels' durations from torch.profiler over ``reps`` calls after two
+    warm-up calls (the host's time between launches does not count); on a
+    CPU the host clock of the whole call under the name "cpu"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return {"cpu": _time_ms(fn, device, reps)}
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # now and then a window comes back without its kernels
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        parts = {ev.key[:80]: getattr(ev, "self_device_time_total", 0) / 1e3 / reps for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)
+                 and getattr(ev, "self_device_time_total", 0) > 0}
+        if parts:
+            return parts
+    raise RuntimeError("torch.profiler recorded no kernel in three windows")
+
+
+def _device_ms(fn, device, reps: int) -> float:
+    """Device time a call: the sum of _kernel_ms."""
+    return sum(_kernel_ms(fn, device, reps).values())
+
+
+def _all_pairs_inputs(shape, device, seed, below_fill=False):
+    """chip_smoke.py's _maxsim_inputs without its padded rows when not
+    ``below_fill``; with it, its every-third doc of live dots below -1000,
+    a half-masked last query and an all-padding last doc."""
     import torch
 
     bq, lq, bd, ld, dim = shape
     g = torch.Generator(device=device).manual_seed(seed)
     q = torch.randn(bq, lq, dim, generator=g, device=device)
     d = torch.randn(bd, ld, dim, generator=g, device=device)
+    if below_fill:
+        q, d[::3] = q.abs() * 5, -d[::3].abs() * 40
     q_mask = (torch.rand(bq, lq, generator=g, device=device) > 0.2).float()
     d_mask = (torch.rand(bd, ld, generator=g, device=device) > 0.2).float()
     q_mask[:, 0] = d_mask[:, 0] = 1.0
+    if below_fill:
+        q_mask[-1, lq // 2:] = 0.0
+        d_mask[-1] = 0.0
     return q, d, q_mask, d_mask
+
+
+def _gathered_inputs(sz, device, seed):
+    """The batched rescore's launch: ``queries`` x ``query_len`` queries (8
+    padded tokens in every fourth), float16 token rows of ``docs`` documents
+    of 1..``max_tokens`` rows, ``candidates`` spans a query drawn with
+    replacement, on the CPU."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, lq, c, dim, pad = sz["queries"], sz["query_len"], sz["candidates"], sz["dim"], sz["max_tokens"]
+    counts = torch.randint(1, pad + 1, (sz["docs"],), generator=g, device=device)
+    starts = torch.cumsum(counts, 0) - counts
+    tokens = (torch.randn(int(counts.sum()), dim, generator=g, device=device) * 2).half()
+    pick = torch.randint(0, sz["docs"], (b, c), generator=g, device=device)
+    q = torch.randn(b, lq, dim, generator=g, device=device) * 2
+    qm = torch.ones(b, lq, device=device)
+    qm[::4, lq - 8:] = 0.0
+    return q, qm, tokens, starts[pick].cpu(), counts[pick].int().cpu(), pad
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
 def run_turn(checkout: str, store_dir: str, reps: int, device_name: str, tiny: bool) -> dict:
@@ -123,6 +207,31 @@ def run_turn(checkout: str, store_dir: str, reps: int, device_name: str, tiny: b
                                     ("K14 one query's rescore", sz["rescore_shape"], float("-inf"), 2)):
         args = _all_pairs_inputs(shape, device, seed)
         times[name] = _time_ms(lambda a=args, f=fill: ms.maxsim_all_pairs(*a, fill=f), device, reps)
+        if name == "K14 all pairs":
+            times["K14 all pairs, device"] = _device_ms(lambda a=args: ms.maxsim_all_pairs(*a), device, reps)
+
+    # the training kernels, by device time, and each of their kernels'
+    parts = {}
+    for i, shape in enumerate(sz["train"]):
+        q, d, qm, dm = _all_pairs_inputs(shape, device, 10 + i)
+        g = torch.randn(shape[0], shape[2], generator=torch.Generator(device=device).manual_seed(20 + i),
+                        device=device)
+        _, idx = ms.maxsim_all_pairs_argmax(q, d, qm, dm)
+        for name, fn in (("training form", lambda a=(q, d, qm, dm): ms.maxsim_all_pairs_argmax(*a)),
+                         ("backward", lambda a=(q, d, qm, dm, idx, g): ms.maxsim_all_pairs_bwd(*a))):
+            parts[f"{name} {list(shape)}"] = _kernel_ms(fn, device, reps)
+            times[f"{name} {list(shape)}"] = sum(parts[f"{name} {list(shape)}"].values())
+
+    # K14's serving launches: their output bits, and the gathered form's device time
+    digests = {}
+    with torch.no_grad():
+        for i, (*shape, fill, below) in enumerate(sz["serving"]):
+            args = _all_pairs_inputs(tuple(shape), device, 400 + i, below_fill=below)
+            digests[f"all pairs {shape} fill {fill}"] = _digest(ms.maxsim_all_pairs(*args, fill=fill))
+        q, qm, tokens, first, count, pad = _gathered_inputs(sz, device, 409)
+        gathered = lambda: ms.maxsim_gathered(q, qm, tokens, first, count, pad, fill=float("-inf"))  # noqa: E731
+        digests["gathered"] = _digest(gathered())
+        times["K14 gathered, device"] = _device_ms(gathered, device, reps)
 
     store = cs.TokenVectorStore(store_dir)
     rng = np.random.default_rng(4)
@@ -154,7 +263,7 @@ def run_turn(checkout: str, store_dir: str, reps: int, device_name: str, tiny: b
         torch.cuda.synchronize()
     times[f"rescore of {sz['queries']} queries"] = (time.perf_counter() - start) * 1e3 / max(1, reps // 5)
     return {"checkout": checkout, "rescore_form": "batched" if batched else "per-query loop", "sizes": sz,
-            "ms": times, "top_score": result[0][0][1]}
+            "ms": times, "kernel_ms": parts, "serving_digests": digests, "top_score": result[0][0][1]}
 
 
 def _card_line() -> str:
@@ -208,9 +317,14 @@ def main() -> int:
         mine = [t for t in turns if t["turn"] == letter]
         means[letter] = {"checkout": checkouts[letter], "rescore_form": mine[0]["rescore_form"],
                          **{name: sum(t["ms"][name] for t in mine) / len(mine) for name in mine[0]["ms"]}}
+    if len(means) == 2:
+        means["B/A"] = {name: means["B"][name] / means["A"][name] for name in turns[0]["ms"]
+                        if name in means["B"] and means["A"][name] > 0}
+    digests = [t["serving_digests"] for t in turns]
     card = _card_line() if args.device == "cuda" else "cpu"
     print(card)
-    summary = {"card": card, "reps": args.reps, "turns": args.turns, "means": means}
+    summary = {"card": card, "reps": args.reps, "turns": args.turns, "means": means,
+               "serving_bits_identical": all(d == digests[0] for d in digests)}
     print(json.dumps(summary))
     if args.out:
         with open(args.out, "w") as f:
