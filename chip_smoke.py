@@ -287,6 +287,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -369,16 +370,17 @@ FULL = dict(
     # phase 11 (b): the index routes at scale_rows (IVF at the reference's
     # mean list size: 8.8M rows / 20,000 lists ~ 1M / 2,048), the streaming
     # index's blocks, HNSW on the host at hnsw_rows (65,536 until phase 12
-    # came: its host build, the phase's longest step, cut in half to keep the
-    # run near 780 s); (c) the CPU's queries
+    # came, 32,768 until phase 13 (f) came: its host build, 18.0 s, the
+    # phase's longest step, each time cut in half to keep the run's time);
+    # (c) the CPU's queries
     scale_ivf_lists=2048, scale_ivf_nprobe=64, scale_ah_leaves=1024, scale_ah_search=100, stream_block_rows=50_000,
-    hnsw_rows=32_768, index_cpu_queries=8,
+    hnsw_rows=16_384, index_cpu_queries=8,
     # phase 12: the classic models over phase 10's vocabulary and embedding
     # file (batch pool_batch), TK over bert_vectors and KNRM over
     # bert_embedding (batch pool_batch), listwise BERT_DOT (list_queries lists
     # of list_size documents, list_candidates a query in the run file),
     # BERT_CAT with QA heads (batch rerank_batch)
-    zoo_steps=20, zoo_ctx_steps=10, list_steps=20, list_queries=4, list_size=8, list_candidates=20, qa_steps=20,
+    zoo_steps=10, zoo_ctx_steps=10, list_steps=20, list_queries=4, list_size=8, list_candidates=20, qa_steps=20,
     # phase 3: K1, K2, K12 and K11 at the training shapes no other phase
     # times: batch 128 (query 30, doc 200) and phase 13 (a)'s accumulation
     # micro-batch of 8; bench.py's encoder_int8_mlp mix (K1 + K9) at its
@@ -390,6 +392,10 @@ FULL = dict(
     # hub teacher's student steps; (d) MiniLM's BERT_CAT steps; (e)
     # TinyBERT's BERT_DOT steps
     accum_steps=40, accum_batch=8, accum_k=4, hub_steps=10, minilm_steps=10, tinybert_steps=10,
+    # phase 13 (f): BERT-large's Trainer steps; the new widths' layers and
+    # steps; phase 3's shapes of the new widths (B, L)
+    bert_large_steps=10, bert_large_grad_rows=8, width_layers=4, width_steps=3,
+    wide_width_shapes=[(32, 200), (256, 128)],
     # phase 14: (a) and (b) over a mesh of multi_shards cuda:0 entries at
     # phase 5's rows; (c) two processes, a global batch of mp_batch, mp_steps
     # steps through the Trainer, and one step on the padded last batch of a
@@ -520,12 +526,14 @@ def _host_ms(fn, device, reps: int = 100):
     return host
 
 
-def _pair_ms(kernel, plain, device, reps):
-    """Kernel and plain timed in turns (plain, kernel, kernel, plain)."""
-    p1 = _time_ms(plain, device, reps)
+def _pair_ms(kernel, plain, device, reps, plain_reps=None):
+    """Kernel and plain timed in turns (plain, kernel, kernel, plain), the
+    plain over ``plain_reps`` calls a turn (default ``reps``)."""
+    plain_reps = plain_reps or reps
+    p1 = _time_ms(plain, device, plain_reps)
     k1 = _time_ms(kernel, device, reps)
     k2 = _time_ms(kernel, device, reps)
-    p2 = _time_ms(plain, device, reps)
+    p2 = _time_ms(plain, device, plain_reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -559,8 +567,10 @@ def nbytes(*tensors):
 def _record(entry, shape, kernel, plain, device, reps, headline, bound_of=None):
     """Time kernel and plain at one shape into entry["timings"]; the
     headline shape also gives the entry's "ms" / "plain_ms" and, from
-    ``bound_of`` = (bound_ms, bound_by), its bound."""
-    ms, plain_ms = _pair_ms(kernel, plain, device, reps)
+    ``bound_of`` = (bound_ms, bound_by), its bound. The plain version, 10
+    to 100 times the kernel's time and only a reference beside it, is timed
+    over reps // 5 calls a turn: at ``reps`` it took most of phase 3's time."""
+    ms, plain_ms = _pair_ms(kernel, plain, device, reps, plain_reps=max(2, reps // 5))
     timing = {"shape": shape, "ms": ms, "plain_ms": plain_ms}
     if bound_of:
         timing.update(bound_ms=bound_of[0], bound_by=bound_of[1])
@@ -573,12 +583,12 @@ def _record(entry, shape, kernel, plain, device, reps, headline, bound_of=None):
             entry.update(bound_ms=bound_of[0], bound_by=bound_of[1])
 
 
-def _device_beside(entry, kernel, device, headline):
-    """The device time of ``kernel`` (``_device_ms``) and its multiple of
-    the bound, into the timing _record just wrote and, at the headline,
-    into the entry."""
+def _device_beside(entry, kernel, device, headline, reps=100):
+    """The device time of ``kernel`` (``_device_ms`` over ``reps`` calls)
+    and its multiple of the bound, into the timing _record just wrote and,
+    at the headline, into the entry."""
     timing = entry["timings"][-1]
-    dev = _device_ms(kernel, device)
+    dev = _device_ms(kernel, device, reps)
     timing.update(device_ms=dev, x_bound=dev / timing["bound_ms"] if dev is not None else None)
     print(f"[kernels]   device {_fmt(dev)}" + (f", {timing['x_bound']:.2f}x bound" if dev is not None else ""))
     if headline:
@@ -850,7 +860,7 @@ _MLP_PRODUCTS = (("W1", "hid", "ff"), ("W2", "ff", "hid"))
 HALF_PRODUCTS = {"fused_attention_block": _ATTENTION_PRODUCTS, "fused_mlp_block": _MLP_PRODUCTS,
                  "fused_attention_int8_block": _ATTENTION_PRODUCTS, "fused_mlp_int8_block": _MLP_PRODUCTS}
 HALF_OTHER_PARTS = {"mm_attention_core": "attention core", "mm_attention_core_f32": "attention core",
-                    "mm_layernorm": "LayerNorm"}
+                    "mm_layernorm": "LayerNorm", "mm_layernorm_ld": "LayerNorm"}
 
 
 def _core_part(rec, sz, b, l, mask, g, device, reps):
@@ -1984,14 +1994,19 @@ def plain_encoder_blocks():
     from matchmaker_tpu_torch.ops import fused_attention as fa
 
     def plain_attention(x, wqkv, bqkv, wo, bo, *rest, **kw):  # the weights as packed, heads padded or not
-        wq, wk, wv = wqkv.chunk(3, dim=1)
+        hid = x.shape[-1]  # on a card the packing pads the hidden width too: cut back
+        wq, wk, wv = wqkv[:hid].chunk(3, dim=1)
         bq, bk, bv = bqkv.chunk(3)
-        return fa.reference_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, *rest, **kw)
+        return fa.reference_attention_block(x, wq, wk, wv, wo[:, :hid], bq, bk, bv, bo, *rest, **kw)
+
+    def plain_mlp(x, w1, b1, w2, *rest, **kw):
+        hid, ff = x.shape[-1], b1.shape[0]
+        return fa.reference_mlp_block(x, w1[:hid, :ff], b1, w2[:ff, :hid], *rest, **kw)
 
     names = ("fused_attention_block_qkv", "fused_mlp_block", "fused_attention_block_qkv_train",
              "fused_mlp_block_train")
     saved = {n: getattr(enc, n) for n in names}
-    for n, fn in zip(names, (plain_attention, fa.reference_mlp_block) * 2):
+    for n, fn in zip(names, (plain_attention, plain_mlp) * 2):
         setattr(enc, n, fn)
     try:
         yield
@@ -2872,14 +2887,16 @@ def _kernels_vs_plain_step(model, config, batch, smooth_config, tag, unreached=(
               f"a gradient; expected {sorted(expected)}")
     rel = abs(lk - lp) / max(abs(lp), 1e-12)
     moved = int((hk != hp).sum()) if hk is not None else 0
-    cosines, key_bias = {}, 0.0
+    cosines, key_bias, plain_noise = {}, 0.0, 0.0
     for name, a in gk.items():
         b = gp[name]
         if name.endswith("attention.key.bias"):
             # zero in exact arithmetic (each softmax row's gradient sums to
             # zero): rounding noise, bounded by the query bias's gradient
-            ratio = float((a - b).abs().max()) / float(gp[name.replace("key.bias", "query.bias")].abs().max())
+            ref = float(gp[name.replace("key.bias", "query.bias")].abs().max())
+            ratio = float((a - b).abs().max()) / ref
             key_bias = max(key_bias, ratio)
+            plain_noise = max(plain_noise, float(b.abs().max()) / ref)  # the plain version's own noise, reported
             check(ratio <= 2e-2, f"{name}: gradient noise {ratio:.4g} of the query bias's, above 2e-2")
             continue
         if name in (exact_zero or {}):
@@ -2895,11 +2912,107 @@ def _kernels_vs_plain_step(model, config, batch, smooth_config, tag, unreached=(
           f"under {smooth_config.get('in_batch_neg_loss') if smooth_config.get('in_batch_negatives') else 'no'} "
           f"in-batch loss, worst cosines " + ", ".join(f"{n} {c:.6f}" for n, c in worst)
           + f"; noise of the gradients zero in exact arithmetic (key biases) {key_bias:.4g} of their references' "
-          "(bar 2e-2)")
+          f"(bar 2e-2; the plain version's own key-bias gradient {plain_noise:.4g} of them)")
     check(rel <= 1e-2, f"{tag}: loss with the kernels {lk} vs plain {lp}")
     check(worst[0][1] >= 0.99, f"{tag}: gradient cosine {worst[0][1]} at {worst[0][0]}")
     return {"plain_loss_gap": rel, "plain_grad_cos": worst[0][1], "hardest_negatives_moved": moved,
-            "key_bias_noise": key_bias}
+            "key_bias_noise": key_bias, "key_bias_plain_noise": plain_noise}
+
+
+def _f32_twin(model):
+    """A copy of ``model`` that computes in f32 (its parameters are f32
+    already): the plain versions on it are the function without bf16
+    rounding."""
+    import copy
+
+    import torch
+
+    caches = {}
+    for m in model.modules():  # the packed weights a layer keeps: rebuilt from the parameters
+        for attr in ("_fused_cache", "_int8_cache"):
+            if getattr(m, attr, None) is not None:
+                caches[m, attr] = getattr(m, attr)
+                setattr(m, attr, None)
+    try:
+        twin = copy.deepcopy(model)
+    finally:
+        for (m, attr), v in caches.items():
+            setattr(m, attr, v)
+    for m in twin.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float32
+    return twin
+
+
+def _step_vs_f32(model, config, batch, smooth_config, tag, grad_rows=None):
+    """One step through the kernels (bf16) and through the plain versions
+    (bf16), each against the plain versions on an f32 twin of the model
+    (:func:`_f32_twin`): the same function without bf16 rounding. Where a
+    deep bf16 stack leaves a quantity at its rounding noise in both bf16
+    runs (BERT-large at random weights: the plain bf16 key-bias gradient,
+    zero in exact arithmetic, reaches 0.79 of the query bias's; deep
+    layers' key-kernel gradients of the two bf16 runs agree to cosine 0.008;
+    a Margin-MSE loss over 8 triples moves 1.6-5.3 % with the rounding),
+    kernels vs plain compares noise with noise; so each is held to the f32
+    twin instead, the kernels' error at most twice the plain bf16
+    version's plus 1e-3 (the two round at different points: independent
+    errors of one size): the batch's scores (mean |d| over the mean |score|,
+    every triple, no gradient) and every parameter's gradient (relative
+    norm of the difference, on the first ``grad_rows`` triples: the plain
+    versions' f32 intermediates of the whole batch do not fit the card).
+    The configured loss is reported against both. Returns the errors and
+    the kernels-vs-plain-bf16 loss gap and worst gradient cosine (reported,
+    not gated)."""
+    import torch
+
+    from matchmaker_tpu_torch.losses import get_loss
+    from matchmaker_tpu_torch.training.train_step import forward_triple, make_loss_fn
+
+    part = {k: v[:grad_rows] for k, v in batch.items()} if grad_rows else batch
+
+    def run(m):
+        full = make_loss_fn(m, get_loss(config), config)
+        smooth = make_loss_fn(m, get_loss(smooth_config), smooth_config)
+        with torch.no_grad():
+            loss = float(full(batch)[0])
+            pos, neg = forward_triple(m, batch)
+            scores = torch.cat([pos["score"], neg["score"]]).float()
+        m.zero_grad(set_to_none=True)
+        smooth(part)[0].backward()
+        grads = {n: p.grad.detach().float().clone() for n, p in m.named_parameters() if p.grad is not None}
+        m.zero_grad(set_to_none=True)
+        return loss, scores, grads
+
+    lk, sk, gk = run(model)
+    with plain_encoder_blocks(), plain_maxsim():
+        lp, sp, gp = run(model)
+        twin = _f32_twin(model)
+        lf, sf, gf = run(twin)
+        del twin
+    check(set(gk) == set(gp) == set(gf), f"{tag}: the three runs' gradients cover other parameters")
+    worst, cos_bf16 = (0.0, None), (1.0, None)
+    for name, f in gf.items():
+        scale = float(f.norm())
+        ek, ep = float((gk[name] - f).norm()) / scale, float((gp[name] - f).norm()) / scale
+        check(ek <= 2 * ep + 1e-3, f"{tag}: {name}'s gradient, kernels {ek:.4g} from f32 against the plain bf16 "
+              f"version's {ep:.4g}")
+        worst = max(worst, (ek / max(ep, 1e-12), name))
+        if not name.endswith("attention.key.bias"):  # zero in exact arithmetic: no direction to compare
+            c = float(torch.nn.functional.cosine_similarity(gk[name].reshape(-1), gp[name].reshape(-1), dim=0))
+            cos_bf16 = min(cos_bf16, (c, name))
+    mean = float(sf.abs().mean())
+    score_k, score_p = float((sk - sf).abs().mean()) / mean, float((sp - sf).abs().mean()) / mean
+    res = {"f32_score_err": score_k, "plain_f32_score_err": score_p, "f32_grad_error_ratio": worst[0],
+           "f32_loss_gap": abs(lk - lf) / abs(lf), "plain_f32_loss_gap": abs(lp - lf) / abs(lf),
+           "plain_loss_gap": abs(lk - lp) / abs(lp), "plain_grad_cos": cos_bf16[0]}
+    print(f"[{tag}] one step against the f32 twin: scores' mean |d| kernels {score_k:.4g}, plain bf16 {score_p:.4g} "
+          f"of the mean |score| ({sk.numel()} scores); every gradient's error from f32 within twice the plain bf16 "
+          f"version's + 1e-3 (largest ratio {worst[0]:.3g} at {worst[1]}, {part['query_ids'].shape[0]} triples); "
+          f"loss kernels {lk:.6g}, plain bf16 {lp:.6g}, f32 {lf:.6g}; kernels vs plain bf16 (reported): loss gap "
+          f"{res['plain_loss_gap']:.3g}, worst gradient cosine {cos_bf16[0]:.6f} at {cos_bf16[1]}")
+    check(score_k <= 2 * score_p + 1e-3, f"{tag}: the scores with the kernels {score_k} from f32, the plain bf16 "
+          f"{score_p}")
+    return res
 
 
 def _train_through_trainer(sz, device, config, run_folder, steps, tag, before=None, teacher_config=None):
@@ -2915,7 +3028,9 @@ def _train_through_trainer(sz, device, config, run_folder, steps, tag, before=No
 
     os.makedirs(run_folder)
     fresh_perf_monitor()
+    t0 = time.perf_counter()
     trainer = Trainer(config, run_folder, teacher_config=teacher_config)
+    setup_s = time.perf_counter() - t0
     if before is not None:
         before(trainer)
     step_losses = []
@@ -2936,7 +3051,7 @@ def _train_through_trainer(sz, device, config, run_folder, steps, tag, before=No
     launches = dict(_build.LAUNCHES)
     trainer.train_step = trainer_step
     print(f"[{tag}] launches in the cli.train run: {launches}")
-    result = {"wall_s": wall, "launches": launches, "steps": trainer.global_step}
+    result = {"wall_s": wall, "setup_s": setup_s, "launches": launches, "steps": trainer.global_step}
     check(trainer.global_step == steps and len(step_losses) == steps,
           f"{tag}: {trainer.global_step} training steps, {len(step_losses)} losses")
     losses = torch.stack(step_losses).float().cpu()
@@ -2948,13 +3063,13 @@ def _train_through_trainer(sz, device, config, run_folder, steps, tag, before=No
     return trainer, result
 
 
-def _step_speed(sz, device, trainer, batch, tag, watch=None):
+def _step_speed(sz, device, trainer, batch, tag, watch=None, profile=True):
     """Device-only triples/s of the Trainer's step on one batch (CUDA
-    events) and, on a card, a profile of three steps (``watch``: see
-    _profile_steps)."""
+    events) and, on a card and with ``profile``, a profile of three steps
+    (``watch``: see _profile_steps)."""
     ms = _time_ms(lambda: trainer.train_step(batch), device, sz["reps"])
     result = {"step_ms": ms, "device_triples_per_s": sz["train_batch"] / ms * 1e3}
-    if device.type == "cuda":
+    if device.type == "cuda" and profile:
         result["profile"] = _profile_steps(trainer.train_step, batch, ms, tag=tag, watch=watch)
     return result
 
@@ -4032,17 +4147,22 @@ def phase_classic(sz, device, paths):
         for rel in ("validation-metrics-cont.csv", "best-model.npz", "test-planted-output.txt",
                     "test-planted-metrics.csv"):
             check(os.path.isfile(os.path.join(folder, rel)), f"missing {rel} in the {name} run folder")
+        spans = {}
+        t1 = time.perf_counter()
         res.update(_zoo_card_vs_cpu(trainer, config["test"]["planted"]["tsv"], device, name, sz["pool_cpu_rows"]))
+        spans["card_vs_cpu_s"], t1 = time.perf_counter() - t1, time.perf_counter()
         batch = _device_batch(config, trainer.tokenizer, config["train_tsv"], device)
-        res.update(_step_speed(psz, device, trainer, batch, f"zoo {name}"))
-        if "profile" in res:
-            res["busy_share"] = res.pop("profile")["busy_share"]
+        # no three-step profile here: it took 13 s of the phase's 55 (the spans below); PERF.md §5 keeps the busy shares
+        res.update(_step_speed(psz, device, trainer, batch, f"zoo {name}", profile=False))
+        spans["speed_s"], t1 = time.perf_counter() - t1, time.perf_counter()
         res.update(_overfit(psz, trainer, config, batch, f"zoo {name}", lr=1e-3))
+        spans["overfit_s"] = time.perf_counter() - t1
         res["part_s"] = time.perf_counter() - t0
+        res["spans"] = dict(spans, setup_s=res["setup_s"], train_s=res["wall_s"])
         print(f"[zoo] {name} {sz['zoo_steps']} steps: loss {res['loss_first']:.4f} -> {res['loss_last']:.4f}, "
               f"{res['cli_triples_per_s']:.1f} triples/s through the Trainer (validation included), "
               f"{res['device_triples_per_s']:.1f} device-only ({res['step_ms']:.2f} ms a step); the model's part "
-              f"{res['part_s']:.1f} s, {res['wall_s']:.1f} s of it the Trainer's train()")
+              f"{res['part_s']:.1f} s: " + ", ".join(f"{k[:-2]} {v:.1f}" for k, v in res["spans"].items()))
         res["run_file"] = os.path.join(folder, "test-planted-output.txt")
         result[name] = res
         _free(trainer, device)
@@ -4502,6 +4622,15 @@ MINILM = dict(vocab=30522, hid=384, n_layers=6, heads=12, ff=1536, type_vocab=2)
 # huawei-noah/TinyBERT_General_4L_312D's config.json: 4 layers, hidden 312, 12
 # heads of 26, FF 1,200 (phase 13 (e))
 TINYBERT = dict(vocab=30522, hid=312, n_layers=4, heads=12, ff=1200, type_vocab=2)
+# bert-large-uncased's config.json: 24 layers, hidden 1,024, 16 heads of 64,
+# FF 4,096, 512 positions, 2 token types, LayerNorm eps 1e-12 (phase 13 (f))
+BERT_LARGE = dict(vocab=30522, hid=1024, n_layers=24, heads=16, ff=4096, type_vocab=2)
+# phase 13 (f)'s widths the card took last, (hidden, heads, FF) at
+# ``width_layers`` layers: 8 heads of 128 at 1,024; 12 of 128 at 1,536 (the
+# LayerNorm backward past 1,024); 8 of 80 padded to 128 at 640; hidden 100 in
+# 4 heads of 25 with FF 400 and hidden 32 in 4 heads of 8 with FF 36 (widths
+# that are not a multiple of 8)
+WIDTH_GEOMETRIES = [(1024, 8, 4096), (1536, 12, 6144), (640, 8, 2560), (100, 4, 400), (32, 4, 36)]
 # (hidden, heads, FF) of the attention cores' widths beside the 64-wide ones:
 # MiniLM's 12 heads of 32 and 24 of 16 at hidden 384 (instanced widths), then
 # heads the cores run zero-padded to the next instance: TinyBERT's 12 of 26,
@@ -4536,23 +4665,26 @@ def _unpadded_attention_grads(grads, heads, d, width):
     return dx, dwqkv[:, real], dbqkv[real], dwo[real[:heads * width]], dbo, dg, dbe
 
 
-def _bwd_width_entry(out, key, kernel, named, plain, inputs, ops, sz, device, b, l, scale_of=None):
-    """One backward kernel against its plain version into ``out[key]``:
-    ``named`` turns ``kernel``'s result into the gradients by name (cut back
-    to the real columns where the heads were padded: outside the timing),
-    ``plain`` returns them by name."""
+def _bwd_width_entry(out, key, kernel, named, plain, inputs, ops, sz, device, b, l, scale_of=None, headline=True,
+                     device_reps=100):
+    """One backward kernel against its plain version into ``out[key]`` (a
+    timing more where the entry exists): ``named`` turns ``kernel``'s
+    result into the gradients by name (cut back to the real columns where
+    the heads were padded: outside the timing), ``plain`` returns them by
+    name."""
     import torch
 
-    entry = out[key] = {"max_abs_err": 0.0, "library_ms": None}
+    entry = out.setdefault(key, {"max_abs_err": 0.0, "library_ms": None})
     got, want = named(kernel()), plain()
     check(all(bool(torch.isfinite(t).all()) for t in got.values()), f"{key} gradients")
+    check(all(got[k].shape == want[k].shape for k in want), f"{key}: a gradient's shape is not its input's")
     err = grads_close(got, want, scale_of)
     print(f"[kernels] {key} B={b} L={l}: {len(got)} gradients within cosine 0.999, max |d| <= 2e-2 max |plain| "
           f"(largest |d| {err:.4g})")
-    entry["max_abs_err"] = err
-    _record(entry, [b, l, inputs[0].shape[-1]], kernel, plain, device, sz["bwd_reps"], headline=True,
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    _record(entry, [b, l, inputs[0].shape[-1]], kernel, plain, device, sz["bwd_reps"], headline=headline,
             bound_of=bound(nbytes(inputs, list(got.values())), **ops))
-    _device_beside(entry, kernel, device, headline=True)
+    _device_beside(entry, kernel, device, headline=headline, reps=device_reps)
 
 
 def phase_head_width_kernels(sz, device):
@@ -4613,24 +4745,9 @@ def phase_head_width_kernels(sz, device):
              lambda: fi.reference_attention_int8_block(x, *q8, mask, heads, *q8ln, group_heads=group),
              (x, q8_t, mask, q8ln), dict(int8=proj, bf16=core), None))
         for name, kernel, plain, inputs, ops, library in forwards:
-            entry = out[f"{name}@hd{hd}"] = {"max_abs_err": 0.0, "library_ms": None, "head_dim": hd,
-                                             "padded_to": width}
-            got, want = kernel(), plain()
-            cos, err = _rows_close(got, want)
-            mean = _mean_abs(got, want)
-            print(f"[kernels] {name} at head width {hd} ({heads} heads{f', padded to {width}' if width != hd else ''})"
-                  f" B={b} L={l}: min row cosine {cos:.6f}, max |d| {err:.4g}, mean |d| {mean:.4g}")
-            check(got.shape == x.shape and bool(torch.isfinite(got.float()).all()), f"{name}@hd{hd} output")
-            check(cos >= 0.999 and err <= 0.1, f"{name}@hd{hd} vs plain: cos {cos}, max |d| {err}")
-            if name == "fused_attention_int8_block":
-                check(mean <= INT8_HALF_MEAN_ABS, f"{name}@hd{hd} vs plain: mean |d| {mean}")
-            entry["max_abs_err"] = err
-            _record(entry, [b, l, hid, hd], kernel, plain, device, sz["reps"], headline=True,
-                    bound_of=bound(nbytes(inputs, got), **ops))
-            _device_beside(entry, kernel, device, headline=True)
-            if library is not None and device.type == "cuda":
-                entry["library_ms"] = _time_ms(library, device, sz["reps"])
-                print(f"[kernels]   library scaled_dot_product_attention {entry['library_ms']:.4f} ms")
+            _wide_forward(out, f"{name}@hd{hd}", kernel, plain, inputs, ops, sz, device, [b, l, hid, hd], True,
+                          library=library, int8=name == "fused_attention_int8_block", device_reps=100)
+            out[f"{name}@hd{hd}"].update(head_dim=hd, padded_to=width)
 
         def k12(pw=pw, pb=pb, po=po, x=x, mask=mask, heads=heads, ln1=ln1, dy=dy, a_saved=a_saved, hd=hd):
             return fb.attention_block_bwd(x, pw, pb, po, mask, heads, ln1[0], dy, a_saved, head_dim=hd)
@@ -4745,6 +4862,279 @@ def phase_int8_mlp_mix(sz, device, kern):
         _device_beside(entry, kernel, device, headline=False)
         entry["timings"][-1]["path"] = "int8_mlp_mix"
     return kern
+
+
+# ---- phase 3, the widths the card took last: heads of 128, wide LayerNorm
+# rows, widths that are not a multiple of 8, K14 at D 100 ----------------------
+
+# (hidden, heads, FF): heads of 128 on their instance (8 at 1,024), the
+# 64-wide instance at equal FLOPs (16 heads of 64 at 1,024: BERT-large's
+# layer), heads of 80 zero-padded to 128 (8 at 640), 12 heads of 128 at
+# 1,536 (the LayerNorm backward past 1,024 columns), hidden widths that are
+# not a multiple of 8 (the products at the next one): 100 in 4 heads of
+# 25 with FF 400, 32 in 4 heads of 8 with FF 36
+WIDE_WIDTH_CASES = [(1024, 8, 4096), (1024, 16, 4096), (640, 8, 2560), (1536, 12, 6144), (100, 4, 400),
+                    (32, 4, 36)]
+# K14, its training form and its backward at D 100 (run at 104): (Bq, Lq,
+# Bd, Ld, D), the ColBERT training shape and a rescore-size all-pairs batch
+WIDE_MAXSIM_SHAPES = [(32, 30, 64, 200, 100), (128, 32, 256, 200, 100)]
+
+
+def _wide_tag(hid, heads, ff):
+    """The kernels line's suffix of a WIDE_WIDTH_CASES geometry."""
+    d = hid // heads
+    if hid % 8 or ff % 8 or hid > 1024:
+        return f"hid{hid}"
+    return f"hd{d}" if d != 64 else f"hd64@{hid}"
+
+
+def _wide_kernels(hid, heads, ff):
+    """The kernels a geometry is timed with: the attention ones for the
+    heads, the LayerNorm backward's for 1,536, every encoder half for the
+    widths that are not a multiple of 8."""
+    if hid % 8 or ff % 8:
+        return ("fused_attention_block", "fused_mlp_block", "fused_attention_int8_block", "fused_mlp_int8_block",
+                "fused_attention_block_bwd", "fused_mlp_block_bwd")
+    if hid > 1024:
+        return ("fused_attention_block_bwd", "fused_mlp_block_bwd")
+    if hid // heads == 64:
+        return ("fused_attention_block", "fused_mha", "fused_attention_block_bwd")
+    return ("fused_attention_block", "fused_mha", "fused_attention_int8_block", "fused_attention_block_bwd")
+
+
+def _wide_forward(out, key, kernel, plain, inputs, ops, sz, device, shape, headline, library=None, int8=False,
+                  device_reps=20):
+    """One forward kernel against its plain version at the encoder halves'
+    bar (K9/K10 also their mean |d|), timed with its plain version, its
+    device time (over ``device_reps`` calls) and bound into ``out[key]``
+    (a timing more where the entry exists); ``library`` beside it where
+    one call computes the same function."""
+    import torch
+
+    entry = out.setdefault(key, {"max_abs_err": 0.0, "library_ms": None})
+    got, want = kernel(), plain()
+    cos, err = _rows_close(got, want)
+    mean = _mean_abs(got, want)
+    print(f"[kernels] {key} {shape}: min row cosine {cos:.6f}, max |d| {err:.4g}, mean |d| {mean:.4g}")
+    check(got.shape == want.shape and bool(torch.isfinite(got.float()).all()), f"{key} output at {shape}")
+    check(cos >= 0.999 and err <= 0.1, f"{key} vs plain at {shape}: cos {cos}, max |d| {err}")
+    if int8:
+        check(mean <= INT8_HALF_MEAN_ABS, f"{key} vs plain at {shape}: mean |d| {mean}")
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    _record(entry, shape, kernel, plain, device, sz["reps"], headline, bound_of=bound(nbytes(inputs, got), **ops))
+    _device_beside(entry, kernel, device, headline, reps=device_reps)
+    if library is not None and device.type == "cuda":
+        lib = entry["timings"][-1]["library_ms"] = _time_ms(library, device, sz["reps"])
+        print(f"[kernels]   library scaled_dot_product_attention {lib:.4f} ms")
+        if headline:
+            entry["library_ms"] = lib
+
+
+def phase_wide_width_kernels(sz, device):
+    """The widths of WIDE_WIDTH_CASES at each (B, L) of
+    ``wide_width_shapes`` (the first the headline): K1, K13 (beside one
+    scaled_dot_product_attention), K10 and K12 at heads of 128 and of 80
+    (padded to 128 as the encoder pads them, the weights and codes once
+    before the timing), and at 16 heads of 64 at hidden 1,024 (the same
+    FLOPs on the 64-wide instance); K12 and K11 at hidden 1,536 (the
+    LayerNorm backward past 1,024 columns); every encoder half (K1, K2, K9,
+    K10, K11, K12) at hidden 100 and 32; then K14, its training form and
+    its backward at D 100. Each against its plain version on the unpadded
+    weights: the forwards at the encoder halves' bar (row cosine >= 0.999,
+    max |d| <= 0.1; K9/K10 also mean |d| <= 5e-5), the backwards at the
+    backward's (every gradient's cosine >= 0.999, max |d| <= 2e-2 max
+    |plain|, padded heads' columns zero), K14's at rtol = atol = 1e-4;
+    timed beside the plain version with the device time and the bound on
+    the unpadded work."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import fused_attention as fa
+    from matchmaker_tpu_torch.ops import fused_backward as fb
+    from matchmaker_tpu_torch.ops import fused_int8 as fi
+    from matchmaker_tpu_torch.ops import maxsim as ms
+    from matchmaker_tpu_torch.probes import attn_inner as ai
+
+    out = {}
+    for i, (b, l) in enumerate(sz["wide_width_shapes"]):
+        headline = i == 0
+        for hid, heads, ff in WIDE_WIDTH_CASES:
+            tag, hd = _wide_tag(hid, heads, ff), hid // heads
+            kernels = _wide_kernels(hid, heads, ff)
+            width = fa.kernel_head_dim("chip_smoke", hid, heads)
+            hsz = dict(sz, hid=hid, ff=ff)
+            seed = 60 + hid + heads
+            attn, ln1, mlp, ln2 = _layer_params(hsz, device, seed=seed)
+            wq, wk, wv, wo, bq, bk, bv, bo = attn
+            wqkv, bqkv = torch.cat([wq, wk, wv], dim=1), torch.cat([bq, bk, bv])
+            pw, pb, po = fa.pad_attention_heads(wqkv, bqkv, wo, heads)  # as the encoder packs them
+            x, mask, g = _half_inputs(hsz, b, l, device, seed + 1)
+            dy = torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
+            proj, core = _attention_ops(b, l, hid, heads)
+            shape = [b, l, hid, hd]
+            if "fused_attention_block" in kernels:
+                _wide_forward(out, f"fused_attention_block@{tag}",
+                              lambda: fa.fused_attention_block_qkv(x, pw, pb, po, bo, mask, heads, *ln1, head_dim=hd),
+                              lambda: fa.reference_attention_block(x, *attn, mask, heads, *ln1), (x, attn, mask, ln1),
+                              dict(bf16=proj + core), sz, device, shape, headline)
+            if "fused_mlp_block" in kernels:
+                _wide_forward(out, f"fused_mlp_block@{tag}", lambda: fa.fused_mlp_block(x, *mlp, *ln2),
+                              lambda: fa.reference_mlp_block(x, *mlp, *ln2), (x, mlp, ln2),
+                              dict(bf16=4 * b * l * hid * ff), sz, device, shape, headline)
+            if "fused_mha" in kernels:
+                q, k, v = (torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
+                _wide_forward(out, f"fused_mha@{tag}", lambda: fa.fused_mha(q, k, v, mask, heads),
+                              lambda: fa.mha_reference(q, k, v, mask, heads), (q, k, v, mask),
+                              dict(bf16=4 * hid * l * int(mask.sum())), sz, device, shape, headline,
+                              library=lambda: ai.sdpa(q, k, v, mask, heads))
+            if "fused_attention_int8_block" in kernels:
+                q8, m8, q8ln, q8ln2 = _int8_layer_params(hsz, device, seed=seed + 2)
+                q8_t = fi.kmajor_attention_weights(*q8)
+                q8_p = fi.pad_int8_attention(*q8_t[:4], heads, 2) + q8_t[4:]
+                _wide_forward(out, f"fused_attention_int8_block@{tag}",
+                              lambda: fi.fused_attention_int8_block_qkv_kmajor(x, *q8_p, mask, heads, *q8ln,
+                                                                               head_dim=hd),
+                              lambda: fi.reference_attention_int8_block(x, *q8, mask, heads, *q8ln),
+                              (x, q8_t, mask, q8ln), dict(int8=proj, bf16=core), sz, device, shape, headline,
+                              int8=True)
+            if "fused_mlp_int8_block" in kernels:
+                w1q, s1, b1, w2q, s2, b2 = m8
+                m8_p = fi.pad_int8_mlp(fi.kmajor_codes(w1q), s1, b1, fi.kmajor_codes(w2q)) + (s2, b2)
+                _wide_forward(out, f"fused_mlp_int8_block@{tag}",
+                              lambda: fi.fused_mlp_int8_block_kmajor(x, *m8_p, *q8ln2),
+                              lambda: fi.reference_mlp_int8_block(x, *m8, *q8ln2), (x, m8, q8ln2),
+                              dict(int8=4 * b * l * hid * ff), sz, device, shape, headline, int8=True)
+            if "fused_attention_block_bwd" in kernels:
+                _, a_saved = fb.attention_block_fwd(x, pw, pb, po, bo, mask, heads, *ln1, head_dim=hd)
+                _, a_acc = fa.reference_attention_block(x, *attn, mask, heads, *ln1, save_acc=True)
+                unpadded_saved = (a_acc, torch.empty(b, l, 3 * hid, dtype=torch.bfloat16),
+                                  torch.empty(b, l, hid, dtype=torch.bfloat16))  # bytes of the unpadded work
+
+                def named12(grads, heads=heads, hd=hd, width=width):
+                    return _named_attention_grads(*(_unpadded_attention_grads(grads, heads, hd, width)
+                                                    if width != hd else grads))
+
+                _bwd_width_entry(out, f"fused_attention_block_bwd@{tag}",
+                                 lambda: fb.attention_block_bwd(x, pw, pb, po, mask, heads, ln1[0], dy, a_saved,
+                                                                head_dim=hd), named12,
+                                 lambda: dict(zip(_ATTN_GRADS, fb.reference_attention_block_bwd(
+                                     x, wq, wk, wv, wo, bq, bk, bv, mask, heads, ln1[0], dy, a_acc))),
+                                 (x, wqkv, bqkv, wo, mask, ln1[0], dy, unpadded_saved),
+                                 dict(bf16=2 * proj + 5 * core // 2), sz, device, b, l, _zero_attention_grads(l),
+                                 headline=headline, device_reps=20)
+                del a_saved, a_acc
+            if "fused_mlp_block_bwd" in kernels:
+                w1, b1, w2, b2 = mlp
+                _, m_saved = fb.mlp_block_fwd(x, *mlp, *ln2)
+                _, m_acc = fa.reference_mlp_block(x, *mlp, *ln2, save_acc=True)
+                _bwd_width_entry(out, f"fused_mlp_block_bwd@{tag}",
+                                 lambda: fb.mlp_block_bwd(x, w1, b1, w2, ln2[0], dy, m_saved),
+                                 lambda r: dict(zip(_MLP_GRADS, r)),
+                                 lambda: dict(zip(_MLP_GRADS, fb.reference_mlp_block_bwd(x, w1, b1, w2, ln2[0], dy,
+                                                                                         m_acc))),
+                                 (x, w1, b1, w2, ln2[0], dy, m_acc), dict(bf16=_mlp_bwd_ops(b * l, hid, ff)), sz,
+                                 device, b, l, headline=headline, device_reps=20)
+                del m_saved, m_acc
+            for key in [k for k in out if k.endswith(f"@{tag}")]:
+                out[key].update(hidden=hid, heads=heads, ff=ff, head_dim=hd, padded_to=width,
+                                hidden_padded_to=fa.card_width(hid))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # K14, the training form and the backward at D 100
+    for name in ("maxsim_all_pairs", "maxsim_all_pairs_argmax", "maxsim_all_pairs_bwd"):
+        out[f"{name}@d100"] = {"max_abs_err": 0.0, "library_ms": None, "dim": 100, "padded_to": 104}
+    for i, (bq, lq, bd, ld, dim) in enumerate(WIDE_MAXSIM_SHAPES):
+        shape, headline = [bq, lq, bd, ld, dim], i == 0
+        q, d, qm, dm = _maxsim_inputs(bq, lq, bd, ld, dim, False, device, 700 + i)
+        gr = torch.randn(bq, bd, generator=torch.Generator(device=device).manual_seed(71 + i), device=device)
+        fill = -1000.0
+        _k14_check(out["maxsim_all_pairs@d100"], ms.maxsim_all_pairs(q, d, qm, dm, fill=fill),
+                   ms.reference_maxsim_all_pairs(q, d, qm, dm, fill), shape, fill)
+        got, idx = ms.maxsim_all_pairs_argmax(q, d, qm, dm, fill)
+        want, want_idx, top1, top2 = ms.reference_maxsim_argmax(q, d, qm, dm, fill, with_top2=True)
+        _k14_check(out["maxsim_all_pairs_argmax@d100"], got, want, shape, fill)
+        agree = idx == want_idx
+        check(float(agree.float().mean()) >= 0.9999 and bool(((top1 - top2).abs() <= 1e-5 * top1.abs())[~agree].all()),
+              f"K14's training form at {shape}: saved tokens off a near tie")
+        dq, dd = ms.maxsim_all_pairs_bwd(q, d, qm, dm, idx, gr)
+        rq, rd = ms.reference_maxsim_bwd(q, d, qm, dm, idx, gr)
+        check(dq.shape == q.shape and dd.shape == d.shape, f"the MaxSim backward's shapes at {shape}")
+        err = max(float((dq - rq).abs().max()), float((dd - rd).abs().max()))
+        check(bool(((dq - rq).abs() <= 1e-4 + 1e-4 * rq.abs()).all() and ((dd - rd).abs() <= 1e-4 + 1e-4 * rd.abs()).all()),
+              f"the MaxSim backward at {shape}: max |d| {err}")
+        out["maxsim_all_pairs_bwd@d100"]["max_abs_err"] = max(out["maxsim_all_pairs_bwd@d100"]["max_abs_err"], err)
+        print(f"[kernels] maxsim training form and backward {shape}: tokens agree on "
+              f"{float(agree.float().mean()):.6f}, dq / dd vs reference_maxsim_bwd max |d| {err:.4g}")
+        live = 2 * dim * int((qm > 0).sum()) * int((dm > 0).sum())
+        used = int(((gr[:, None, :] * qm[:, :, None] != 0) & (idx >= 0)).sum())
+        for name, kernel, plain, bound_of in (
+                ("maxsim_all_pairs", lambda: ms.maxsim_all_pairs(q, d, qm, dm, fill=fill),
+                 lambda: ms.reference_maxsim_all_pairs(q, d, qm, dm, fill), bound(nbytes(q, d, qm, dm, got),
+                                                                                   tf32=3 * live)),
+                ("maxsim_all_pairs_argmax", lambda: ms.maxsim_all_pairs_argmax(q, d, qm, dm, fill),
+                 lambda: ms.reference_maxsim_argmax(q, d, qm, dm, fill), bound(nbytes(q, d, qm, dm, got, idx),
+                                                                              tf32=3 * live)),
+                ("maxsim_all_pairs_bwd", lambda: ms.maxsim_all_pairs_bwd(q, d, qm, dm, idx, gr),
+                 lambda: ms.reference_maxsim_bwd(q, d, qm, dm, idx, gr),
+                 bound(nbytes(q, d, qm, dm, idx, gr, dq, dd), f32=4 * dim * used))):
+            entry = out[f"{name}@d100"]
+            _record(entry, shape, kernel, plain, device, sz["reps"], headline, bound_of=bound_of)
+            _device_beside(entry, kernel, device, headline, reps=20)
+    return out
+
+
+WIDE_TAGS = {_wide_tag(*c) for c in WIDE_WIDTH_CASES} | {"d100"}
+
+
+def wide_kernel_entries(f, kern, device):
+    """The kernels line's entries of phase 3's new widths: on phase 13
+    (f)'s paths (``f``, its result) where its runs launch them (BERT-large
+    for the 64-wide instance at 1,024, each WIDTH_GEOMETRIES run for its own
+    width: K1 and K9 in the encode, K1, K2, K12 and K11 in the steps); K13,
+    K10 and K14 at D 100 on none."""
+    sources = {k[0]: (k[1], k[2]) for k in KERNELS}
+    runs = {"hd64@1024": ("bert_large", f["launches"]),
+            **{_wide_tag(h, n, ff): (f"width_{h}x{n}", f["widths"][f"{h}x{n}"]["launches_all"])
+               for h, n, ff in WIDTH_GEOMETRIES}}
+    entries = []
+    for key in sorted(k for k in kern if k.split("@", 1)[-1] in WIDE_TAGS):
+        name, tag = key.split("@", 1)
+        run, counts = runs.get(tag, (None, {}))
+        on_path = run is not None and name not in _OFF_PATH and not name.startswith("maxsim")
+        launches = counts.get(name, 0) if on_path else 0
+        if on_path and device.type == "cuda":
+            check(launches > 0, f"phase 13 (f)'s {run} run launched no {name} kernel ({key})")
+        e = kern[key]
+        entries.append(
+            {"name": key, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
+             **{k: e[k] for k in ("hidden", "heads", "ff", "head_dim", "padded_to", "hidden_padded_to", "dim")
+                if k in e}, "path": run if on_path else None, "launches": launches,
+             "max_abs_err": e["max_abs_err"], "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+             "bound_by": e["bound_by"], "library_ms": e.get("library_ms"), "timed_shape": e["timed_shape"],
+             "device_ms": e.get("device_ms"), "x_bound": e.get("x_bound")})
+    return entries
+
+
+def wide_width_summary(kern):
+    """The 128-wide instances' device ms beside the 64-wide instance's at
+    the same FLOPs (8 heads of 128 and 16 of 64 at hidden 1,024), and K13
+    at 128 beside scaled_dot_product_attention, at each timed shape."""
+    rows = []
+    for name in ("fused_attention_block", "fused_mha", "fused_attention_block_bwd"):
+        wide, narrow = kern.get(f"{name}@hd128"), kern.get(f"{name}@hd64@1024")
+        if not wide or not narrow:
+            continue
+        for tw, tn in zip(wide["timings"], narrow["timings"]):
+            row = {"kernel": name, "shape": tw["shape"][:3], "hd128_device_ms": tw.get("device_ms"),
+                   "hd64_device_ms": tn.get("device_ms"), "hd128_ms": tw["ms"], "hd64_ms": tn["ms"]}
+            if name == "fused_mha":
+                row["library_ms"] = tw.get("library_ms")
+            rows.append(row)
+            print(f"[kernels] {name} at {row['shape']}: 8 heads of 128 device {_fmt(row['hd128_device_ms'])} vs 16 "
+                  f"heads of 64 {_fmt(row['hd64_device_ms'])} (the same FLOPs)"
+                  + (f"; scaled_dot_product_attention at 128 {row['library_ms']:.4f} ms (events)"
+                     if row.get("library_ms") is not None else ""))
+    return rows
 
 
 # ---- phase 13: JAX run folders, accumulation, hub teachers, the fused check ----
@@ -5124,73 +5514,71 @@ def phase_minilm(sz, device, root):
     return res
 
 
-def _tinybert_checkpoint(root):
-    """A seeded encoder at TinyBERT-General-4L-312D's published widths (no
-    checkpoint is in the repository: random weights), written as a BERT
-    checkpoint folder as :func:`_minilm_checkpoint` writes MiniLM's."""
+def _seeded_checkpoint(root, name, dims, seed):
+    """A seeded BERT encoder at ``dims``' widths (vocab, hid, n_layers,
+    heads, ff, type_vocab: random weights, no checkpoint is in the
+    repository) written as a Hugging Face checkpoint folder by the port's
+    export, as :func:`_minilm_checkpoint` writes MiniLM's."""
     import torch
 
     from matchmaker_tpu_torch.models.encoder import EncoderConfig, TransformerEncoderLM
     from matchmaker_tpu_torch.models.weights import init_parameters
     from matchmaker_tpu_torch.utils.hf_export import export_to_huggingface
 
-    t = TINYBERT
+    t = dims
     cfg = EncoderConfig(vocab_size=t["vocab"], hidden_size=t["hid"], num_layers=t["n_layers"], num_heads=t["heads"],
                         intermediate_size=t["ff"], max_position_embeddings=512, type_vocab_size=t["type_vocab"])
     enc = TransformerEncoderLM(cfg)
-    init_parameters(enc, torch.Generator().manual_seed(36))
+    init_parameters(enc, torch.Generator().manual_seed(seed))
     return export_to_huggingface({f"encoder.{k}": v for k, v in enc.state_dict().items()}, cfg,
-                                 os.path.join(root, "tinybert"), "bert")
+                                 os.path.join(root, name), "bert")
 
 
-def phase_tinybert(sz, device, root):
-    """Phase 13 (e), in phase 4's directory: BERT_DOT at
-    TinyBERT-General-4L-312D's widths (hidden 312, 12 heads of 26 padded to
-    32, FF 1,200), a seeded checkpoint. cli.dense_retrieval encodes phase
-    4's collection with ``encoder_int8_mlp`` (bench.py's encoder: K1 at
-    heads of 26, K9 with its codes padded to 320 and FF chunks of 320) and
-    searches it (K3, K6, K4): launches against the prediction, the encoded
-    rows finite, one batch's encode with the kernels against the plain
-    versions at the encoder halves' bar; then ``tinybert_steps`` Trainer
-    steps with the fused halves (K1, K2, K12, K11 at 312: the LayerNorm
-    backward past the multiples of 128) against the prediction, and one
-    step's loss and gradients against the plain versions'."""
+def _tinybert_checkpoint(root):
+    """TinyBERT-General-4L-312D's widths, seeded (phase 13 (e))."""
+    return _seeded_checkpoint(root, "tinybert", TINYBERT, 36)
+
+
+def _layers_vs_plain(model, ids, mask, tag):
+    """Each layer of the document tower on the same input through the
+    kernels and through the plain versions (its input the kernels' output
+    of the layer before): the encoder halves' bar, row cosine >= 0.999 and
+    max |d| <= 0.1, at every layer. Returns the worst (cosine, max |d|)."""
     import torch
 
-    from matchmaker_tpu_torch.cli.dense_retrieval import run
+    enc = model.tower("doc")
+    worst_cos, worst_err = 1.0, 0.0
+    with torch.inference_mode():
+        x = enc.embed(ids).to(enc.compute_dtype)
+        for i in range(enc.cfg.num_layers):
+            layer = getattr(enc, f"layer_{i}")
+            got = layer(x, mask)
+            with plain_encoder_blocks(), plain_int8_blocks():
+                want = layer(x, mask)
+            cos, err = _rows_close(got, want)
+            check(cos >= 0.999 and err <= 0.1, f"{tag} layer {i}, kernels vs plain on the same input: cosine {cos}, "
+                  f"max |d| {err}")
+            worst_cos, worst_err = min(worst_cos, cos), max(worst_err, err)
+            x = got
+    return worst_cos, worst_err
+
+
+def _encode_batch_vs_plain(sz, device, config, tag, what, per_layer=False):
+    """One batch of the collection encoded by the model ``config`` builds
+    (its checkpoint's weights), through the kernels and through the plain
+    versions: the encoder halves' bar (row cosine >= 0.999, max |d| <=
+    0.1). ``per_layer``: the max |d| bar taken by each layer on the same
+    input (:func:`_layers_vs_plain`), the whole stack's max |d| reported
+    and its cosine gated: over 24 layers the int8 halves' single-code and
+    single-ulp differences add up past the bar of one half (BERT-large: each
+    layer within 0.047, the stack 0.1016: PERF.md §6). Returns
+    (cosine, max |d|) of the stack, and the per-layer worst where taken."""
+    import torch
+
+    from matchmaker_tpu_torch.data.loaders import single_sequence_loader
     from matchmaker_tpu_torch.data.tokenization import build_tokenizer
     from matchmaker_tpu_torch.models import get_model, init_params
-    from matchmaker_tpu_torch.ops import _build
-    from matchmaker_tpu_torch.retrieval.encode import load_encoded
 
-    t = TINYBERT
-    tsz = dict(sz, hid=t["hid"], heads=t["heads"], ff=t["ff"], n_layers=t["n_layers"])
-    ckpt = _tinybert_checkpoint(root)
-    result = {}
-    config = dict(_main_config(root, sz, device), bert_pretrained_model=ckpt, encoder_int8_mlp=True)
-    out = os.path.join(root, "served_tinybert")
-    os.makedirs(out)
-    fresh_perf_monitor()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    check(run("encode+index+search", dict(config), out) == 0, "serving TinyBERT with encoder_int8_mlp")
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    want = predicted_int8_serving_launches(tsz)
-    _check_launches(launches, {"fused_attention_block": want, "fused_mlp_int8_block": want, "fused_mlp_block": 0,
-                               "fused_attention_int8_block": 0}, "TinyBERT int8_mlp serving", device)
-    for name in ("binmax_candidates", "unpack_candidates"):
-        check(launches[name] > 0 or device.type != "cuda", f"TinyBERT serving launched no {name} kernel")
-    vectors, _ = load_encoded(os.path.join(out, "encoded"))
-    check(vectors.shape == (sz["passages"], t["hid"]) and bool(np.isfinite(vectors).all()), "TinyBERT's rows")
-    with open(os.path.join(out, "efficiency-metrics.json")) as f:
-        blocks = json.load(f)[-1]["blocks"]
-    result.update(serve_launches=launches, serve_wall_s=time.perf_counter() - t0,
-                  encode_psg_per_s=blocks["encode"]["items_per_second"],
-                  search_qps=blocks["search_total"]["items_per_second"])
-    # one batch of passages, the kernels against the plain versions (the int8
-    # MLP half's and the bf16 attention half's)
     tokenizer = build_tokenizer(config)
     model = get_model(config, tokenizer)
     init_params(model, config, torch.Generator().manual_seed(37))
@@ -5201,44 +5589,182 @@ def phase_tinybert(sz, device, root):
         plain, _ = _encode_file(model, config, tokenizer, config["collection_tsv"], "doc", sz["batch"], device,
                                 limit=sz["batch"])
     cos, err = _rows_close(got, plain)
-    print(f"[tinybert] (e) one batch of {got.shape[0]} passages encoded with encoder_int8_mlp, kernels vs plain: "
-          f"min row cosine {cos:.6f}, max |d| {err:.4g}")
-    check(cos >= 0.999 and err <= 0.1, f"TinyBERT encode, kernels vs plain: cosine {cos}, max |d| {err}")
-    result.update(encode_cos=cos, encode_max_abs=err)
-    print(f"[tinybert] (e) cli.dense_retrieval over {sz['passages']} passages: {result['encode_psg_per_s']:.1f} "
-          f"psg/s, {result['search_qps']:.1f} QPS; launches {({k: v for k, v in launches.items() if v})}")
+    result = {"encode_cos": cos, "encode_max_abs": err}
+    layers = ""
+    if per_layer:
+        b, _ = next(iter(single_sequence_loader(dict(config, batch_size_inference=sz["batch"]), tokenizer,
+                                                config["collection_tsv"], "doc")))
+        lcos, lerr = _layers_vs_plain(model, torch.from_numpy(b["seq_ids"]).to(device),
+                                      torch.from_numpy(b["seq_mask"]).to(device), tag)
+        result.update(layer_cos=lcos, layer_max_abs=lerr)
+        layers = f"; each layer on the same input: worst cosine {lcos:.6f}, max |d| {lerr:.4g}"
+    print(f"[{tag}] one batch of {got.shape[0]} passages encoded with {what}, kernels vs plain: min row cosine "
+          f"{cos:.6f}, max |d| {err:.4g}{layers}")
+    check(got.shape[-1] == model.tower("doc").cfg.hidden_size and bool(torch.isfinite(got).all()),
+          f"{tag} encode rows")
+    check(cos >= 0.999 and (per_layer or err <= 0.1), f"{tag} encode, kernels vs plain: cosine {cos}, max |d| {err}")
     del model
+    return result
 
-    # BERT_DOT training through the fused halves at 312 wide
-    steps = sz["tinybert_steps"]
-    os.makedirs(os.path.join(root, "tinybert_train"))
-    paths = _write_train_data(os.path.join(root, "tinybert_train"), dict(sz, train_batches=steps))
+
+def _serve_checkpoint(sz, device, root, ckpt, dims, tag, per_layer=False):
+    """cli.dense_retrieval over phase 4's collection with the checkpoint at
+    ``ckpt`` and ``encoder_int8_mlp`` (bench.py's encoder: K1 and K9; the
+    search K3, K6, K4): launches against the prediction, the encoded rows
+    finite, one batch's encode with the kernels against the plain versions
+    at the encoder halves' bar (``per_layer``: see _encode_batch_vs_plain)."""
+    import torch
+
+    from matchmaker_tpu_torch.cli.dense_retrieval import run
+    from matchmaker_tpu_torch.ops import _build
+    from matchmaker_tpu_torch.retrieval.encode import load_encoded
+
+    tsz = dict(sz, hid=dims["hid"], heads=dims["heads"], ff=dims["ff"], n_layers=dims["n_layers"])
+    result = {}
+    config = dict(_main_config(root, sz, device), bert_pretrained_model=ckpt, encoder_int8_mlp=True)
+    out = os.path.join(root, f"served_{tag}")
+    os.makedirs(out)
+    fresh_perf_monitor()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    check(run("encode+index+search", dict(config), out) == 0, f"serving {tag} with encoder_int8_mlp")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = predicted_int8_serving_launches(tsz)
+    _check_launches(launches, {"fused_attention_block": want, "fused_mlp_int8_block": want, "fused_mlp_block": 0,
+                               "fused_attention_int8_block": 0}, f"{tag} int8_mlp serving", device)
+    for name in ("binmax_candidates", "unpack_candidates"):
+        check(launches[name] > 0 or device.type != "cuda", f"{tag} serving launched no {name} kernel")
+    vectors, _ = load_encoded(os.path.join(out, "encoded"))
+    check(vectors.shape == (sz["passages"], dims["hid"]) and bool(np.isfinite(vectors).all()), f"{tag}'s rows")
+    with open(os.path.join(out, "efficiency-metrics.json")) as f:
+        blocks = json.load(f)[-1]["blocks"]
+    result.update(serve_launches=launches, serve_wall_s=time.perf_counter() - t0,
+                  encode_psg_per_s=blocks["encode"]["items_per_second"],
+                  search_qps=blocks["search_total"]["items_per_second"])
+    result.update(_encode_batch_vs_plain(sz, device, config, tag, "encoder_int8_mlp", per_layer))
+    print(f"[{tag}] cli.dense_retrieval over {sz['passages']} passages: {result['encode_psg_per_s']:.1f} "
+          f"psg/s, {result['search_qps']:.1f} QPS; launches {({k: v for k, v in launches.items() if v})}")
+    return result
+
+
+def _train_checkpoint(sz, device, root, ckpt, dims, tag, steps, speed=False, grad_rows=None, against_f32=False):
+    """``steps`` BERT_DOT Trainer steps (Margin-MSE, in-batch negatives,
+    batch ``train_batch``, query / doc ``train_query_len`` /
+    ``train_doc_len``) from the checkpoint at ``ckpt`` with the fused
+    halves (K1, K2, K12, K11) against the prediction, and one step's loss
+    and gradients against the plain versions'; ``speed``: also the step's
+    device-only triples/s; ``against_f32``: the step held to an f32 twin
+    (:func:`_step_vs_f32`, its gradients on the first ``grad_rows``
+    triples) in place of kernels vs plain bf16."""
+    os.makedirs(os.path.join(root, f"{tag}_train"))
+    paths = _write_train_data(os.path.join(root, f"{tag}_train"), dict(sz, train_batches=steps))
     tcfg = dict(_train_config(paths, sz, device), bert_pretrained_model=ckpt, max_training_batches=steps,
                 validate_every_n_batches=-1, validation_cont=None, test=None, run_dense_retrieval_eval=False)
-    trainer, res = _train_through_trainer(sz, device, tcfg, os.path.join(root, "tinybert_run"), steps, "tinybert")
-    n = steps * t["n_layers"] * 2
+    trainer, res = _train_through_trainer(sz, device, tcfg, os.path.join(root, f"{tag}_run"), steps, tag)
+    n = steps * dims["n_layers"] * 2
     _check_launches(res["launches"], {"fused_attention_block": n, "fused_mlp_block": n,
                                       "fused_attention_block_bwd": n, "fused_mlp_block_bwd": n},
-                    "TinyBERT BERT_DOT training", device)
+                    f"{tag} BERT_DOT training", device)
     cfg = trainer.model.encoder.cfg
-    check((cfg.hidden_size, cfg.num_heads, cfg.intermediate_size) == (t["hid"], t["heads"], t["ff"]),
-          "the BERT_DOT encoder is not at TinyBERT's widths")
+    check((cfg.hidden_size, cfg.num_heads, cfg.intermediate_size, cfg.num_layers)
+          == (dims["hid"], dims["heads"], dims["ff"], dims["n_layers"]), f"the {tag} encoder is not at its widths")
     batch = _device_batch(tcfg, trainer.tokenizer, paths["train"], device)
-    res.update(_kernels_vs_plain_step(trainer.model, tcfg, batch, dict(tcfg, in_batch_negatives=False), "tinybert"))
-    print(f"[tinybert] (e) BERT_DOT at TinyBERT's widths, {steps} steps: loss {res['loss_first']:.4f} -> "
-          f"{res['loss_last']:.4f}, {res['cli_triples_per_s']:.1f} triples/s through the Trainer")
-    result["train"] = res
-    result["launches"] = res["launches"]
+    if speed:
+        res.update(_step_speed(sz, device, trainer, batch, tag))
+        res.pop("profile", None)
+    smooth = dict(tcfg, in_batch_negatives=False)
+    if against_f32:
+        res.update(_step_vs_f32(trainer.model, tcfg, batch, smooth, tag, grad_rows))
+    else:
+        res.update(_kernels_vs_plain_step(trainer.model, tcfg, batch, smooth, tag))
+    print(f"[{tag}] BERT_DOT, {steps} steps: loss {res['loss_first']:.4f} -> {res['loss_last']:.4f}, "
+          f"{res['cli_triples_per_s']:.1f} triples/s through the Trainer"
+          + (f", {res['device_triples_per_s']:.1f} device-only ({res['step_ms']:.2f} ms a step)" if speed else ""))
     _free(trainer, device)
+    return res
+
+
+def phase_tinybert(sz, device, root):
+    """Phase 13 (e), in phase 4's directory: BERT_DOT at
+    TinyBERT-General-4L-312D's widths (hidden 312, 12 heads of 26 padded to
+    32, FF 1,200), a seeded checkpoint, served through cli.dense_retrieval
+    with ``encoder_int8_mlp`` (K1 at heads of 26, K9 with its codes padded
+    to 320 and FF chunks of 320; :func:`_serve_checkpoint`), then
+    ``tinybert_steps`` Trainer steps with the fused halves (K1, K2, K12,
+    K11 at 312: the LayerNorm backward past the multiples of 128;
+    :func:`_train_checkpoint`)."""
+    ckpt = _tinybert_checkpoint(root)
+    result = _serve_checkpoint(sz, device, root, ckpt, TINYBERT, "tinybert")
+    result["train"] = _train_checkpoint(sz, device, root, ckpt, TINYBERT, "tinybert", sz["tinybert_steps"])
+    result["launches"] = result["train"]["launches"]
+    return result
+
+
+def phase_bert_large(sz, device, root):
+    """Phase 13 (f), in phase 4's directory: BERT-large (bert-large-uncased's
+    widths: 24 layers, hidden 1,024 in 16 heads of 64, FF 4,096) from a
+    seeded checkpoint written by the port's export, served through
+    cli.dense_retrieval with ``encoder_int8_mlp`` (K1, K9, K3, K4, K6) and
+    trained ``bert_large_steps`` Trainer steps of BERT_DOT under
+    Margin-MSE (K1, K2, K12, K11; the LayerNorm backward at 1,024), its
+    encode psg/s and device-only triples/s printed. Then the widths the card
+    took last, 4 layers each at full width (WIDTH_GEOMETRIES), each a
+    checkpoint, one encode batch with ``encoder_int8_mlp`` and
+    ``width_steps`` Trainer steps. The encodes at the encoder halves' bar
+    (BERT-large's each layer on the same input, its stack's cosine), every
+    step held to its f32 twin (:func:`_step_vs_f32`): kernels against plain
+    bf16 reached a 1.07 % loss gap and a 0.985 gradient cosine at 8 heads of
+    128 in 4 layers and noise against noise at BERT-large's depth."""
+    t0 = time.perf_counter()
+    ckpt = _seeded_checkpoint(root, "bert_large", BERT_LARGE, 38)
+    result = {"checkpoint_s": time.perf_counter() - t0}
+    result.update(_serve_checkpoint(sz, device, root, ckpt, BERT_LARGE, "bert_large", per_layer=True))
+    result["train"] = _train_checkpoint(sz, device, root, ckpt, BERT_LARGE, "bert_large", sz["bert_large_steps"],
+                                        speed=True, grad_rows=sz["bert_large_grad_rows"], against_f32=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    result["launches"] = {k: result["serve_launches"].get(k, 0) + result["train"]["launches"].get(k, 0)
+                          for k in result["train"]["launches"]}
+    print(f"[bert_large] (f) BERT-large: encode {result['encode_psg_per_s']:.1f} psg/s through cli.dense_retrieval "
+          f"(encoder_int8_mlp), BERT_DOT training {result['train']['device_triples_per_s']:.1f} triples/s "
+          f"device-only ({result['train']['cli_triples_per_s']:.1f} through the Trainer)")
+    result["widths"] = {}
+    for hid, heads, ff in WIDTH_GEOMETRIES:
+        t0 = time.perf_counter()
+        tag = f"width_{hid}x{heads}"
+        dims = dict(BERT_LARGE, hid=hid, heads=heads, ff=ff, n_layers=sz["width_layers"])
+        ckpt = _seeded_checkpoint(root, tag, dims, 39 + hid)
+        config = dict(_main_config(root, sz, device), bert_pretrained_model=ckpt, encoder_int8_mlp=True)
+        from matchmaker_tpu_torch.ops import _build
+
+        _build.reset_launches()
+        enc = _encode_batch_vs_plain(sz, device, config, tag, "encoder_int8_mlp")
+        encode_launches = dict(_build.LAUNCHES)
+        cos = enc["encode_cos"]
+        res = _train_checkpoint(sz, device, root, ckpt, dims, tag, sz["width_steps"], against_f32=True)
+        res.update(enc, encode_launches=encode_launches,
+                   launches_all={k: encode_launches.get(k, 0) + v for k, v in res["launches"].items()},
+                   seconds=time.perf_counter() - t0, hidden=hid, heads=heads, ff=ff)
+        for name in ("fused_attention_block", "fused_mlp_int8_block"):
+            check(encode_launches[name] > 0 or device.type != "cuda", f"{tag}: the encode launched no {name}")
+        result["widths"][f"{hid}x{heads}"] = res
+        print(f"[widths] (f) hidden {hid}, {heads} heads of {hid // heads}, FF {ff}, {dims['n_layers']} layers: encode "
+              f"batch cosine {cos:.6f}, {sz['width_steps']} steps; against the f32 twin: scores {res['f32_score_err']:.3g} "
+              f"(plain bf16 {res['plain_f32_score_err']:.3g}), gradients within {res['f32_grad_error_ratio']:.3g}x the "
+              f"plain bf16 version's error; kernels vs plain bf16: loss gap {res['plain_loss_gap']:.3g}, worst "
+              f"gradient cosine {res['plain_grad_cos']:.6f} ({res['seconds']:.1f} s)")
+        shutil.rmtree(ckpt, ignore_errors=True)
     return result
 
 
 def phase_jax_runs(sz, device, root):
-    """Phase 13: (a) and (e) in phase 4's directory, (b), (c) and (d) in
-    their own; ``launches``: those of every run the parts drive (the .flax
-    serving run, the accumulation run, the hub teacher's, the check's,
-    MiniLM's training run and its int8 forward, TinyBERT's serving and
-    training runs)."""
+    """Phase 13: (a), (e) and (f) in phase 4's directory, (b), (c) and (d)
+    in their own; ``launches``: those of every run the parts drive (the
+    .flax serving run, the accumulation run, the hub teacher's, the
+    check's, MiniLM's training run and its int8 forward, TinyBERT's and
+    BERT-large's serving and training runs, the new widths' encodes and
+    steps)."""
     result = {"jax_run": phase_jax_run(sz, device, root)}
     with tempfile.TemporaryDirectory() as sub:
         result["hub_teacher"] = phase_hub_teacher(sz, device, sub)
@@ -5249,10 +5775,15 @@ def phase_jax_runs(sz, device, root):
     t0 = time.perf_counter()
     result["tinybert"] = phase_tinybert(sz, device, root)
     result["tinybert"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result["bert_large"] = phase_bert_large(sz, device, root)
+    result["bert_large"]["seconds"] = time.perf_counter() - t0
+    print(f"[jax_runs] phase 13 (f) took {result['bert_large']['seconds']:.1f} s")
     launches = {}
     for runs in (result["jax_run"]["serve_launches"], result["jax_run"]["launches"], result["hub_teacher"]["launches"],
                  result["fused_check"]["launches"], result["minilm"]["launches"], result["minilm"]["int8_launches"],
-                 result["tinybert"]["serve_launches"], result["tinybert"]["launches"]):
+                 result["tinybert"]["serve_launches"], result["tinybert"]["launches"], result["bert_large"]["launches"],
+                 *(w["launches_all"] for w in result["bert_large"]["widths"].values())):
         for k, v in runs.items():
             launches[k] = launches.get(k, 0) + v
     result["launches"] = launches
@@ -6206,7 +6737,12 @@ def run_phases(sz, device, card: str) -> dict:
 
     from matchmaker_tpu_torch.ops import _build
 
-    report = {"card": card}
+    report = {"card": card, "clock": []}
+    start = time.perf_counter()
+
+    def mark(label):  # seconds from the start of the phases at the end of each
+        report["clock"].append([label, round(time.perf_counter() - start, 1)])
+
     if device.type == "cuda":
         t0 = time.perf_counter()
         _build.library()
@@ -6226,49 +6762,70 @@ def run_phases(sz, device, card: str) -> dict:
     phase_int8_mlp_mix(sz, device, kern)
     kern.update(phase_head_width_kernels(sz, device))
     t0 = time.perf_counter()
+    kern.update(phase_wide_width_kernels(sz, device))
+    report["wide_widths"] = wide_width_summary(kern)
+    report["wide_width_kernels_s"] = time.perf_counter() - t0
+    print(f"[kernels] phase 3's new widths took {report['wide_width_kernels_s']:.1f} s")
+    t0 = time.perf_counter()
     kern.update(phase_probe_kernels(sz, device))
     report["probe_kernels_s"] = time.perf_counter() - t0
+    mark("3: kernels against their plain versions")
     with tempfile.TemporaryDirectory() as root:
         report["main"] = phase_main_path(sz, device, root)
+        mark("4: the main path")
         report["main_int8"] = phase_main_path_int8(sz, device, root, os.path.join(root, "run"))
+        mark("4b: int8 serving")
         report["colbert"] = phase_colbert(sz, device, root)
+        mark("4c: ColBERT serving")
         t0 = time.perf_counter()
         report["jax_runs"] = phase_jax_runs(sz, device, root)
         report["jax_runs_s"] = time.perf_counter() - t0
+        mark("13: JAX runs, MiniLM, TinyBERT, BERT-large and the new widths")
     print(f"[jax_runs] phase 13 took {report['jax_runs_s']:.1f} s")
     report["scale"] = phase_scale(sz, device)
     report["scale_int8"] = phase_scale_int8(sz, device)
+    mark("5, 5b: 1M-row searches")
     with tempfile.TemporaryDirectory() as root:
         report["train"] = phase_train(sz, device, root)
+    mark("6: training")
     with tempfile.TemporaryDirectory() as root:
         report["train_colbert"] = phase_train_colbert(sz, device, root)
+    mark("6b: ColBERT training")
     t0 = time.perf_counter()
     report["probes"] = phase_probes(sz, device)
     report["probes_s"] = time.perf_counter() - t0
+    mark("7: the probes")
     print(f"[probes] the probes' kernels against their plain versions took {report['probe_kernels_s']:.1f} s, "
           f"their own path {report['probes_s']:.1f} s")
     with tempfile.TemporaryDirectory() as root:
         report["recipe"] = phase_recipe(sz, device, root)
+    mark("8: the TAS-B recipe")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
         report["rerank"] = phase_rerank(sz, device, root)
     report["rerank_s"] = time.perf_counter() - t0
+    mark("9: re-rankers")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
         report["pooling"] = phase_kernel_pooling(sz, device, root)
         report["pooling_s"] = time.perf_counter() - t0
+        mark("10: kernel pooling and IDCM")
         t0 = time.perf_counter()
         report["zoo"] = phase_zoo(sz, device, root, report["pooling"].pop("paths"))
         report["zoo_s"] = time.perf_counter() - t0
+        mark("12: the model zoo")
     print(f"[zoo] phase 12 took {report['zoo_s']:.1f} s")
     t0 = time.perf_counter()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as root:  # the streaming blocks on disk
         report["indexes"] = phase_indexes(sz, device, root)
     report["indexes_s"] = time.perf_counter() - t0
+    mark("11: the index layer")
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as root:
         report["multi"] = phase_multi_device(sz, device, root)
     print(f"[multi] phase 14 took {report['multi']['seconds']:.1f} s")
+    mark("14: more than one device")
+    print("[clock] seconds at the end of each phase: " + ", ".join(f"{k} {v}" for k, v in report["clock"]))
     check(set(report["main"]["launches"]) == {k[0] for k in KERNELS}, "a kernel without an entry")
     report["kernels"] = []
     for name, src, rep, inc in KERNELS:
@@ -6347,7 +6904,9 @@ def run_phases(sz, device, card: str) -> dict:
              "launches": launches, "max_abs_err": e["max_abs_err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
              "bound_ms": e["bound_ms"], "bound_by": e["bound_by"], "library_ms": e.get("library_ms"),
              "timed_shape": e["timed_shape"], "device_ms": e.get("device_ms"), "x_bound": e.get("x_bound")})
+    report["kernels"] += wide_kernel_entries(report["jax_runs"]["bert_large"], kern, device)
     report["kernel_timings"] = {k[0]: kern[k[0]]["timings"] for k in KERNELS}
+    report["kernel_timings"].update({k: kern[k]["timings"] for k in kern if k.split("@", 1)[-1] in WIDE_TAGS})
     if report["scale"]["level2_reduce"]:
         report["kernel_timings"]["level2_reduce"].append(dict(report["scale"]["level2_reduce"], path="scale_bf16"))
     report["torch"] = torch.__version__
@@ -6444,6 +7003,14 @@ def print_jax_runs(card, report) -> None:
           f"{e['encode_cos']:.6f} to plain), BERT_DOT {e['train']['cli_triples_per_s']:.1f} triples/s through the "
           f"Trainer, worst gradient cosine {e['train']['plain_grad_cos']:.6f} ({e['seconds']:.1f} s); phase 13 "
           f"{report['jax_runs_s']:.1f} s")
+    f = jr["bert_large"]
+    print(f"[{card}] BERT-large (24 x 1,024, 16 heads of 64, FF 4,096; a seeded checkpoint): int8_mlp encode "
+          f"{f['encode_psg_per_s']:.1f} psg/s through cli.dense_retrieval (cosine {f['encode_cos']:.6f} to plain), "
+          f"BERT_DOT {f['train']['device_triples_per_s']:.1f} triples/s device-only, "
+          f"{f['train']['cli_triples_per_s']:.1f} through the Trainer, worst gradient cosine "
+          f"{f['train']['plain_grad_cos']:.6f}; the new widths: "
+          + "; ".join(f"{w['hidden']}/{w['heads']}/{w['ff']} encode cosine {w['encode_cos']:.6f}, gradient cosine "
+                      f"{w['plain_grad_cos']:.6f}" for w in f["widths"].values()) + f" ({f['seconds']:.1f} s)")
 
 
 def print_multi(card, report) -> None:
@@ -6535,7 +7102,7 @@ def main() -> int:
                   f"{k['launches_phase11']} in phase 11's, {k['launches_phase12']} in phase 12's, "
                   f"{k['launches_phase13']} in phase 13's, {k['launches_phase14']} in phase 14's, "
                   f"{k['launches_scale']} in the scale search"
-                  if "launches_scale" in k else f" ({k['name'].split('@')[1]})"))
+                  if "launches_scale" in k else f" ({k['name'].split('@', 1)[1]})"))
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({"kernels": report["kernels"]}))

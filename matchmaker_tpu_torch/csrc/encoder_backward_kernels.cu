@@ -26,7 +26,7 @@
 // a fixed order. The column sums (biases, LayerNorm) are two-pass reductions
 // too: no float atomics, so a gradient is the same run to run.
 //
-// The attention core backward (head width 16, 32 or 64) runs all five products on the
+// The attention core backward (head width 16, 32, 64 or 128) runs all five products on the
 // tensor cores (mma.sync m16n8k16, operands through ldmatrix): S = QK^T,
 // dP = dA.V^T, dV = P^T.dA, dQ = dS.K, dK = dS^T.Q. The TPU kept P and dS
 // f32 into their products; here P enters dV and dS enters dQ as bf16, and dS
@@ -76,18 +76,34 @@ __global__ void __launch_bounds__(256) colsum_partial_kernel(const T* __restrict
 }
 
 // ---- LayerNorm backward ------------------------------------------------------
-// One block = LNB_ROWS rows of N <= 128 * C columns, a warp per row at a time;
-// lane l holds columns 128c + 4l .. + 3 of its row in registers, read once:
-// two-pass mean and variance as the forward, then
-// dacc = rstd.(dy.g - mean(dy.g) - yhat.mean(dy.g.yhat)) (f32 and bf16 copies).
-// Each warp sums its rows' dgamma += dy.yhat, dbeta += dy, dbias += dacc into
-// its own shared-memory row; the block then adds the eight warps' rows in
-// order into this block's row of partial (blocks, 3N) for the second pass.
-// A width that is a multiple of 128 runs N = 128 * C (TAIL false); any other
-// multiple of 8 runs the next chunk count with the columns from n on masked
-// (TAIL true): read as zeros, left out of the variance, never written.
+// Rows of n columns, ld apart (ld = n, or n rounded up to a multiple of 8
+// where the products run padded; the padded columns of acc, dy and gamma
+// are zeros, and those of dacc are written as zeros). Each output row
+// gives dacc = rstd.(dy.g - mean(dy.g) - yhat.mean(dy.g.yhat)) (f32 and
+// bf16 copies) and adds dgamma += dy.yhat, dbeta += dy, dbias += dacc into
+// its block's row of partial (blocks, 3 ld) for the second pass (colsum).
+//
+// ld <= 1024 (ln_bwd_kernel): one block = LNB_ROWS rows, a warp per row at
+// a time; lane l holds columns 128c + 4l .. + 3 of its row in registers,
+// read once: two-pass mean and variance as the forward. Each warp sums its
+// rows' columns into its own shared-memory row; the block then adds the
+// eight warps' rows in order. A width that is a multiple of 128 runs
+// n = ld = 128 * C (TAIL false); any other multiple of 8 runs the next chunk
+// count with the 4-column groups from n on masked (TAIL true): read as
+// zeros, left out of the variance, never written; a row narrower than its
+// stride (n < ld, PAD true) masks column by column and writes the columns
+// from n on as zeros.
+//
+// 1024 < ld <= LNW_MAX (ln_bwd_wide_kernel): eight warps' rows of 3 ld
+// floats no longer fit a block's shared memory (at 1,024 they take 96 KB),
+// so a block of LNW_THREADS threads takes one row at a time, thread t
+// holding columns 1024c + 4t .. + 3; the row's sums are block reductions,
+// and each column's sums stay in one shared-memory row of 3 ld that only the
+// thread holding the column adds to: the same order every run, no atomics.
 constexpr int LNB_ROWS = 32;
 constexpr int LNB_WARPS = 8;
+constexpr int LNW_THREADS = 256;
+constexpr int LNW_MAX = 8 * 4 * LNW_THREADS;  // 8 register chunks of 1,024 columns
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -95,17 +111,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int C, bool TAIL>
+template <int C, bool TAIL, bool PAD>
 __global__ void __launch_bounds__(32 * LNB_WARPS) ln_bwd_kernel(const float* __restrict__ acc,
                                                                 const bf16* __restrict__ dy,
                                                                 const float* __restrict__ gamma,
                                                                 float* __restrict__ dacc, bf16* __restrict__ dacc_lp,
-                                                                float* __restrict__ partial, int M, int n, float eps) {
-  const int N = TAIL ? n : 128 * C;
-  extern __shared__ float ws[];  // [LNB_WARPS][3N]
+                                                                float* __restrict__ partial, int M, int n, int ld,
+                                                                float eps) {
+  const int N = TAIL ? n : 128 * C;   // the row's width
+  const int LD = TAIL ? ld : 128 * C;  // and its stride
+  extern __shared__ float ws[];  // [LNB_WARPS][3 LD]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* mine = ws + warp * 3 * N;
-  for (int c = lane; c < 3 * N; c += 32) mine[c] = 0.0f;
+  float* mine = ws + warp * 3 * LD;
+  for (int c = lane; c < 3 * LD; c += 32) mine[c] = 0.0f;
   for (int rr = warp; rr < LNB_ROWS; rr += LNB_WARPS) {
     const int row = blockIdx.x * LNB_ROWS + rr;
     if (row >= M) break;
@@ -117,13 +135,18 @@ __global__ void __launch_bounds__(32 * LNB_WARPS) ln_bwd_kernel(const float* __r
         for (int e = 0; e < 4; ++e) x[c][e] = 0.0f, d[c][e] = 0.0f;
         continue;
       }
-      const size_t off = (size_t)row * N + 128 * c + 4 * lane;
+      const size_t off = (size_t)row * LD + 128 * c + 4 * lane;
       const float4 xv = *reinterpret_cast<const float4*>(acc + off);
       const uint2 raw = *reinterpret_cast<const uint2*>(dy + off);
       const bf16* db = reinterpret_cast<const bf16*>(&raw);
       x[c][0] = xv.x, x[c][1] = xv.y, x[c][2] = xv.z, x[c][3] = xv.w;
 #pragma unroll
       for (int e = 0; e < 4; ++e) d[c][e] = __bfloat162float(db[e]);
+      if constexpr (PAD) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (128 * c + 4 * lane + e >= N) x[c][e] = 0.0f, d[c][e] = 0.0f;
+      }
     }
     float sum = 0.0f;
 #pragma unroll
@@ -136,7 +159,8 @@ __global__ void __launch_bounds__(32 * LNB_WARPS) ln_bwd_kernel(const float* __r
     for (int c = 0; c < C; ++c) {
       if (TAIL && 128 * c + 4 * lane >= N) continue;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) q += (x[c][e] - mean) * (x[c][e] - mean);
+      for (int e = 0; e < 4; ++e)
+        if (!PAD || 128 * c + 4 * lane + e < N) q += (x[c][e] - mean) * (x[c][e] - mean);
     }
     const float rstd = rsqrtf(warp_sum(q) / N + eps);
     float m1 = 0.0f, m2 = 0.0f;
@@ -148,6 +172,7 @@ __global__ void __launch_bounds__(32 * LNB_WARPS) ln_bwd_kernel(const float* __r
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         x[c][e] = (x[c][e] - mean) * rstd;  // yhat from here on
+        if (PAD && 128 * c + 4 * lane + e >= N) x[c][e] = 0.0f;
         const float dyh = d[c][e] * gv[e];
         m1 += dyh;
         m2 += dyh * x[c][e];
@@ -158,7 +183,7 @@ __global__ void __launch_bounds__(32 * LNB_WARPS) ln_bwd_kernel(const float* __r
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int col = 128 * c + 4 * lane;
-      if (TAIL && col >= N) continue;
+      if (TAIL && col >= (PAD ? LD : N)) continue;
       const float4 g = *reinterpret_cast<const float4*>(gamma + col);
       const float gv[4] = {g.x, g.y, g.z, g.w};
       float v[4];
@@ -166,43 +191,185 @@ __global__ void __launch_bounds__(32 * LNB_WARPS) ln_bwd_kernel(const float* __r
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         v[e] = rstd * (d[c][e] * gv[e] - m1 - x[c][e] * m2);
+        if (PAD && col + e >= N) v[e] = 0.0f;
         lp[e] = __float2bfloat16(v[e]);
         mine[col + e] += d[c][e] * x[c][e];
-        mine[N + col + e] += d[c][e];
-        mine[2 * N + col + e] += v[e];
+        mine[LD + col + e] += d[c][e];
+        mine[2 * LD + col + e] += v[e];
       }
-      const size_t off = (size_t)row * N + col;
+      const size_t off = (size_t)row * LD + col;
       *reinterpret_cast<float4*>(dacc + off) = make_float4(v[0], v[1], v[2], v[3]);
       *reinterpret_cast<uint2*>(dacc_lp + off) = *reinterpret_cast<const uint2*>(lp);
     }
   }
   __syncthreads();  // every warp's column sums are in shared memory
-  for (int c = threadIdx.x; c < 3 * N; c += 32 * LNB_WARPS) {
+  for (int c = threadIdx.x; c < 3 * LD; c += 32 * LNB_WARPS) {
     float t = 0.0f;
 #pragma unroll
-    for (int w = 0; w < LNB_WARPS; ++w) t += ws[w * 3 * N + c];
-    partial[(size_t)blockIdx.x * 3 * N + c] = t;
+    for (int w = 0; w < LNB_WARPS; ++w) t += ws[w * 3 * LD + c];
+    partial[(size_t)blockIdx.x * 3 * LD + c] = t;
   }
+}
+
+template <int C, bool TAIL, bool PAD>
+cudaError_t launch_ln_bwd_as(const float* acc, const bf16* dy, const float* gamma, float* dacc, bf16* dacc_lp,
+                             float* partial, int M, int n, int ld, float eps, cudaStream_t s) {
+  const int smem = LNB_WARPS * 3 * ld * (int)sizeof(float);
+  cudaError_t err =
+      cudaFuncSetAttribute(ln_bwd_kernel<C, TAIL, PAD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  ln_bwd_kernel<C, TAIL, PAD><<<(M + LNB_ROWS - 1) / LNB_ROWS, 32 * LNB_WARPS, smem, s>>>(
+      acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps);
+  return cudaGetLastError();
 }
 
 template <int C, bool TAIL>
 cudaError_t launch_ln_bwd(const float* acc, const bf16* dy, const float* gamma, float* dacc, bf16* dacc_lp,
-                          float* partial, int M, int N, float eps, cudaStream_t s) {
-  const int smem = LNB_WARPS * 3 * N * (int)sizeof(float);
+                          float* partial, int M, int n, int ld, float eps, cudaStream_t s) {
+  return n == ld ? launch_ln_bwd_as<C, TAIL, false>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s)
+                 : launch_ln_bwd_as<C, TAIL, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+}
+
+// the block's sums of v[0..K) (K <= 2) in every thread: two turns of
+// [2][LNW_THREADS / 32] slots of shared memory, used in turn, so one barrier
+// a call (the barrier of the call between two uses of a turn orders their
+// reads and writes)
+template <int K>
+__device__ __forceinline__ void block_sums(float (&v)[K], float* slots, int& turn) {
+  constexpr int W = LNW_THREADS / 32;
+  float* mine = slots + turn * 2 * W;
+  turn ^= 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v[k] = warp_sum(v[k]);
+    if (lane == 0) mine[k * W + warp] = v[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float t = 0.0f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) t += mine[k * W + w];
+    v[k] = t;
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(LNW_THREADS) ln_bwd_wide_kernel(const float* __restrict__ acc,
+                                                                  const bf16* __restrict__ dy,
+                                                                  const float* __restrict__ gamma,
+                                                                  float* __restrict__ dacc,
+                                                                  bf16* __restrict__ dacc_lp,
+                                                                  float* __restrict__ partial, int M, int n, int ld,
+                                                                  float eps) {
+  extern __shared__ float ws[];  // [3 ld] column sums, then 2 x 2 x 8 reduction slots
+  float* slots = ws + 3 * ld;
+  const int t = threadIdx.x;
+  for (int c = t; c < 3 * ld; c += LNW_THREADS) ws[c] = 0.0f;
+  int turn = 0;
+  for (int rr = 0; rr < LNB_ROWS; ++rr) {
+    const int row = blockIdx.x * LNB_ROWS + rr;
+    if (row >= M) break;
+    float x[C][4], d[C][4];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = 1024 * c + 4 * t;
+      if (col >= ld) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[c][e] = 0.0f, d[c][e] = 0.0f;
+        continue;
+      }
+      const size_t off = (size_t)row * ld + col;
+      const float4 xv = *reinterpret_cast<const float4*>(acc + off);
+      const uint2 raw = *reinterpret_cast<const uint2*>(dy + off);
+      const bf16* db = reinterpret_cast<const bf16*>(&raw);
+      const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = col + e < n;
+        x[c][e] = ok ? xs[e] : 0.0f;
+        d[c][e] = ok ? __bfloat162float(db[e]) : 0.0f;
+      }
+    }
+    float sum[1] = {0.0f};
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[0] += x[c][e];
+    block_sums(sum, slots, turn);
+    const float mean = sum[0] / n;
+    float q[1] = {0.0f};
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (1024 * c + 4 * t + e < n) q[0] += (x[c][e] - mean) * (x[c][e] - mean);
+    block_sums(q, slots, turn);
+    const float rstd = rsqrtf(q[0] / n + eps);
+    float r[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = 1024 * c + 4 * t;
+      if (col >= ld) continue;
+      const float4 g = *reinterpret_cast<const float4*>(gamma + col);
+      const float gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[c][e] = col + e < n ? (x[c][e] - mean) * rstd : 0.0f;  // yhat from here on
+        const float dyh = d[c][e] * gv[e];
+        r[0] += dyh;
+        r[1] += dyh * x[c][e];
+      }
+    }
+    block_sums(r, slots, turn);
+    const float m1 = r[0] / n, m2 = r[1] / n;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = 1024 * c + 4 * t;
+      if (col >= ld) continue;
+      const float4 g = *reinterpret_cast<const float4*>(gamma + col);
+      const float gv[4] = {g.x, g.y, g.z, g.w};
+      float v[4];
+      __align__(8) bf16 lp[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = col + e < n ? rstd * (d[c][e] * gv[e] - m1 - x[c][e] * m2) : 0.0f;
+        lp[e] = __float2bfloat16(v[e]);
+        ws[col + e] += d[c][e] * x[c][e];
+        ws[ld + col + e] += d[c][e];
+        ws[2 * ld + col + e] += v[e];
+      }
+      const size_t off = (size_t)row * ld + col;
+      *reinterpret_cast<float4*>(dacc + off) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<uint2*>(dacc_lp + off) = *reinterpret_cast<const uint2*>(lp);
+    }
+  }
+  __syncthreads();
+  for (int c = t; c < 3 * ld; c += LNW_THREADS) partial[(size_t)blockIdx.x * 3 * ld + c] = ws[c];
+}
+
+template <int C>
+cudaError_t launch_ln_bwd_wide(const float* acc, const bf16* dy, const float* gamma, float* dacc, bf16* dacc_lp,
+                               float* partial, int M, int n, int ld, float eps, cudaStream_t s) {
+  const int smem = (3 * ld + 2 * 2 * LNW_THREADS / 32) * (int)sizeof(float);
   cudaError_t err =
-      cudaFuncSetAttribute(ln_bwd_kernel<C, TAIL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(ln_bwd_wide_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  ln_bwd_kernel<C, TAIL><<<(M + LNB_ROWS - 1) / LNB_ROWS, 32 * LNB_WARPS, smem, s>>>(acc, dy, gamma, dacc,
-                                                                                    dacc_lp, partial, M, N, eps);
+  ln_bwd_wide_kernel<C><<<(M + LNB_ROWS - 1) / LNB_ROWS, LNW_THREADS, smem, s>>>(acc, dy, gamma, dacc, dacc_lp,
+                                                                                 partial, M, n, ld, eps);
   return cudaGetLastError();
 }
 
 // ---- attention core backward -------------------------------------------------
-// The head width HD is a template parameter, instanced for 16, 32 and 64
-// (attention_bwd): the products that contract the head width (S = QK^T,
+// The head width HD is a template parameter, instanced for 16, 32, 64 and
+// 128 (attention_bwd): the products that contract the head width (S = QK^T,
 // dP = dA.V^T) take HD / 16 k-steps, those that produce it (dQ, dK, dV)
 // HD / 8 n-tiles of 8; the 64-wide key tiles and the score fragments do not
-// change with it.
+// change with it. At 128 a row's A fragments take eight 16-deep blocks
+// (a_frag) and dQ, or dK and dV, 64 to 128 accumulator registers a thread:
+// the kernels run two blocks an SM there (up to 255 registers a thread,
+// 104 KB of shared memory each) instead of three.
 constexpr int AT = 64;            // query or key rows of a tile
 constexpr int A_THREADS = 128;    // 4 warps, 16 rows of the block's own tile each
 constexpr int MAX_KEYS = 512;
@@ -219,7 +386,7 @@ __host__ __device__ constexpr size_t dkv_smem_bytes() { return (size_t)6 * a_til
 // row_w) into a [64][HD + 8] tile; rows past L read as zero
 template <int HD>
 __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* base, int row_w, int col0, int r0, int L) {
-  constexpr int SHIFT = HD == 64 ? 3 : (HD == 32 ? 2 : 1);  // log2 of the 16-byte pieces a row
+  constexpr int SHIFT = HD == 128 ? 4 : (HD == 64 ? 3 : (HD == 32 ? 2 : 1));  // log2 of the 16-byte pieces a row
   for (int c = threadIdx.x; c < (AT << SHIFT); c += A_THREADS) {
     const int row = c >> SHIFT, col = (c & ((1 << SHIFT) - 1)) * 8;
     const bool ok = r0 + row < L;
@@ -227,18 +394,23 @@ __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* base, int row_
   }
 }
 
-// A fragments (16 rows x HD columns, HD / 16 blocks 16 deep) of a [row][col]
-// tile into the first HD / 16 of a's four blocks: a holds a 64-key row of P
-// or dS as well (c_to_a), one array for both as at HD = 64
+// A fragments of 16 rows: HD / 16 blocks 16 deep, or the four of a 64-key
+// row of P or dS (c_to_a), one array for both
 template <int HD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* tile, int row0, int lane) {
+__host__ __device__ constexpr int a_blocks() { return HD / 16 > 4 ? HD / 16 : 4; }
+
+// A fragments (16 rows x HD columns, HD / 16 blocks 16 deep) of a [row][col]
+// tile into the first HD / 16 of a's blocks
+template <int HD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[a_blocks<HD>()][4], const bf16* tile, int row0, int lane) {
 #pragma unroll
   for (int kb = 0; kb < HD / 16; ++kb)
     ldsm_x4(a[kb], tile + (row0 + (lane & 15)) * a_ld<HD>() + kb * 16 + (lane >> 4) * 8);
 }
 
 // the 16 x 64 f32 C fragments (a row of 64 keys) as bf16 A fragments over their 64 columns
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4][4], const float (&c)[8][4]) {
+template <int NB>
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[NB][4], const float (&c)[8][4]) {
 #pragma unroll
   for (int kb = 0; kb < 4; ++kb) {
     a[kb][0] = pack_bf16(c[2 * kb][0], c[2 * kb][1]);
@@ -250,7 +422,8 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4][4], const float (&c)[8][
 
 // c (16 x 64) = a (16 x HD) . tile^T, tile [n][k]: the other side's 64 rows
 template <int HD>
-__device__ __forceinline__ void mma_nt(float (&c)[8][4], const uint32_t (&a)[4][4], const bf16* tile, int lane) {
+__device__ __forceinline__ void mma_nt(float (&c)[8][4], const uint32_t (&a)[a_blocks<HD>()][4], const bf16* tile,
+                                       int lane) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.0f;
 #pragma unroll
@@ -267,8 +440,8 @@ __device__ __forceinline__ void mma_nt(float (&c)[8][4], const uint32_t (&a)[4][
 
 // c (16 x HD) += a (16 x 64, contracting the tile's rows) . tile, tile [k][n]
 template <int HD>
-__device__ __forceinline__ void mma_nn(float (&c)[HD / 8][4], const uint32_t (&a)[4][4], const bf16* tile,
-                                       int lane) {
+__device__ __forceinline__ void mma_nn(float (&c)[HD / 8][4], const uint32_t (&a)[a_blocks<HD>()][4],
+                                       const bf16* tile, int lane) {
 #pragma unroll
   for (int kb = 0; kb < 4; ++kb) {
 #pragma unroll
@@ -303,7 +476,7 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&c)[HD / 8][4
 // Writes dq into dqkv[:, :, 0:HID] and each query's row statistics (max,
 // sum of exp, D = sum_j P_ij dP_ij) into stats (3, B, H, L) for kernel 2.
 template <int HD>
-__global__ void __launch_bounds__(A_THREADS, 3)
+__global__ void __launch_bounds__(A_THREADS, HD > 64 ? 2 : 3)
     attention_bwd_q_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
                                const bf16* __restrict__ da, bf16* __restrict__ dqkv, float* __restrict__ stats,
                                int L, int H, float scale) {
@@ -348,7 +521,7 @@ __global__ void __launch_bounds__(A_THREADS, 3)
   float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f}, dsum[2] = {0.0f, 0.0f};
   for (int t = 0; t < tiles; ++t) {
     next_tile(t);
-    uint32_t fa[4][4];
+    uint32_t fa[a_blocks<HD>()][4];
     float s[8][4], dp[8][4];
     load_a<HD>(fa, Qs, warp * 16, lane);
     mma_nt<HD>(s, fa, Kb + (t & 1) * TILE_ELEMS, lane);
@@ -409,7 +582,7 @@ __global__ void __launch_bounds__(A_THREADS, 3)
   for (int t = 0; t < tiles; ++t) {
     next_tile(t);
     const bf16* kt = Kb + (t & 1) * TILE_ELEMS;
-    uint32_t fa[4][4];
+    uint32_t fa[a_blocks<HD>()][4];
     load_a<HD>(fa, Qs, warp * 16, lane);
     float s[8][4], dp[8][4];
     mma_nt<HD>(s, fa, kt, lane);
@@ -435,7 +608,7 @@ __global__ void __launch_bounds__(A_THREADS, 3)
 // statistics, dP^T = V dA^T, dS^T = P^T (dP^T - D) scale; dV += P^T dA and
 // dK += dS^T Q, kept in registers for the whole loop.
 template <int HD>
-__global__ void __launch_bounds__(A_THREADS, 3)
+__global__ void __launch_bounds__(A_THREADS, HD > 64 ? 2 : 3)
     attention_bwd_kv_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
                                 const bf16* __restrict__ da, bf16* __restrict__ dqkv, const float* __restrict__ stats,
                                 int L, int H, float scale) {
@@ -498,7 +671,7 @@ __global__ void __launch_bounds__(A_THREADS, 3)
     const bf16* qt = Qb + (t & 1) * TILE_ELEMS;
     const bf16* dt = Db + (t & 1) * TILE_ELEMS;
     const float* qm = qst + (t & 1) * 3 * AT;
-    uint32_t fa[4][4];
+    uint32_t fa[a_blocks<HD>()][4];
     load_a<HD>(fa, Ks, warp * 16, lane);
     float s[8][4], dp[8][4];
     mma_nt<HD>(s, fa, qt, lane);
@@ -575,31 +748,44 @@ cudaError_t colsum(const void* x, bool is_bf16, float* partial, float* out, int 
   return cudaGetLastError();
 }
 
-// LayerNorm backward over M rows of N (a multiple of 8, at most 1024):
-// dacc f32 and bf16, and per-block column partials (ln_blocks(M), 3N) of
-// dgamma, dbeta and sum(dacc).
+// LayerNorm backward over M rows of n columns, ld apart (ld a multiple of 8,
+// n <= ld <= LNW_MAX): dacc f32 and bf16, and per-block column partials
+// (ln_blocks(M), 3 ld) of dgamma, dbeta and sum(dacc).
 inline int ln_blocks(int M) { return (M + LNB_ROWS - 1) / LNB_ROWS; }
 
 cudaError_t ln_bwd(const float* acc, const bf16* dy, const float* gamma, float* dacc, bf16* dacc_lp, float* partial,
-                   int M, int N, float eps, cudaStream_t s) {
-  switch (N) {
-    case 256: return launch_ln_bwd<2, false>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
-    case 384: return launch_ln_bwd<3, false>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
-    case 512: return launch_ln_bwd<4, false>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
-    case 768: return launch_ln_bwd<6, false>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
-    case 1024: return launch_ln_bwd<8, false>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
-    default: break;
+                   int M, int n, int ld, float eps, cudaStream_t s) {
+  if (n == ld) {
+    switch (n) {
+      case 256: return launch_ln_bwd_as<2, false, false>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+      case 384: return launch_ln_bwd_as<3, false, false>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+      case 512: return launch_ln_bwd_as<4, false, false>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+      case 768: return launch_ln_bwd_as<6, false, false>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+      case 1024: return launch_ln_bwd_as<8, false, false>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+      default: break;
+    }
   }
-  if (N <= 0 || N > 1024 || N % 8) return cudaErrorInvalidValue;
-  switch ((N + 127) / 128) {
-    case 1: return launch_ln_bwd<1, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
-    case 2: return launch_ln_bwd<2, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
-    case 3: return launch_ln_bwd<3, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
-    case 4: return launch_ln_bwd<4, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
-    case 5: return launch_ln_bwd<5, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
-    case 6: return launch_ln_bwd<6, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
-    case 7: return launch_ln_bwd<7, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
-    default: return launch_ln_bwd<8, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, N, eps, s);
+  if (n <= 0 || n > ld || ld % 8 || ld > LNW_MAX) return cudaErrorInvalidValue;
+  if (ld > 1024) {
+    switch ((ld + 1023) / 1024) {
+      case 2: return launch_ln_bwd_wide<2>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+      case 3: return launch_ln_bwd_wide<3>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+      case 4: return launch_ln_bwd_wide<4>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+      case 5: return launch_ln_bwd_wide<5>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+      case 6: return launch_ln_bwd_wide<6>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+      case 7: return launch_ln_bwd_wide<7>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+      default: return launch_ln_bwd_wide<8>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+    }
+  }
+  switch ((ld + 127) / 128) {
+    case 1: return launch_ln_bwd<1, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+    case 2: return launch_ln_bwd<2, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+    case 3: return launch_ln_bwd<3, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+    case 4: return launch_ln_bwd<4, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+    case 5: return launch_ln_bwd<5, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+    case 6: return launch_ln_bwd<6, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+    case 7: return launch_ln_bwd<7, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
+    default: return launch_ln_bwd<8, true>(acc, dy, gamma, dacc, dacc_lp, partial, M, n, ld, eps, s);
   }
 }
 
@@ -660,7 +846,7 @@ int mm_wg_wgrad(const void* A, const void* B, void* partial, void* out, int R, i
 }
 
 // dqkv (B,L,3*H*hd) bf16 from qkv (B,L,3*H*hd), mask (B,L) f32 and da
-// (B,L,H*hd) bf16, head width hd 16, 32 or 64; stats (3,B,H,L) f32 is
+// (B,L,H*hd) bf16, head width hd 16, 32, 64 or 128; stats (3,B,H,L) f32 is
 // scratch passed between the kernels.
 int mm_attention_bwd(const void* qkv, const void* mask, const void* da, void* dqkv, void* stats, int B, int L, int H,
                      int hd, float scale, void* stream) {
@@ -668,6 +854,7 @@ int mm_attention_bwd(const void* qkv, const void* mask, const void* da, void* dq
     case 16: return attention_bwd<16>(qkv, mask, da, dqkv, stats, B, L, H, scale, stream);
     case 32: return attention_bwd<32>(qkv, mask, da, dqkv, stats, B, L, H, scale, stream);
     case 64: return attention_bwd<64>(qkv, mask, da, dqkv, stats, B, L, H, scale, stream);
+    case 128: return attention_bwd<128>(qkv, mask, da, dqkv, stats, B, L, H, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -703,14 +890,17 @@ struct Arena {
 // A = H * hd the heads' width (HID, or the heads zero-padded to an instanced
 // width: ops/fused_attention.py:pad_attention_heads), mask (B, L) f32, gamma
 // (HID) f32, dy (M, HID) bf16, acc (M, HID) f32, qkv (M, 3A) and attn (M, A)
-// bf16 from the forward. Writes dx (M, HID) bf16, dwqkv (HID, 3A) and dwo (A,
+// bf16 from the forward. The LayerNorm's rows are n <= HID wide (HID the
+// next multiple of 8, its columns from n on zeros: ops/fused_attention.py
+// card_hidden). Writes dx (M, HID) bf16, dwqkv (HID, 3A) and dwo (A,
 // HID) f32, and vec f32 = [dgamma | dbeta | dbo | dbqkv] (3HID + 3A). The
 // weight gradients split their rows by the given plans
 // (ops/fused_backward.py:wgrad_plan).
 int attention_block_bwd(Arena& ar, const void* x, const void* wqkv, const void* wo, const void* mask,
                         const void* gamma, const void* dy, const void* acc, const void* qkv, const void* attn,
-                        void* dx, void* dwqkv, void* dwo, void* vec, int B, int L, int H, int HID, int A, float eps,
-                        float scale, int wo_splits, int wo_per, int wqkv_splits, int wqkv_per, cudaStream_t s) {
+                        void* dx, void* dwqkv, void* dwo, void* vec, int B, int L, int H, int HID, int n, int A,
+                        float eps, float scale, int wo_splits, int wo_per, int wqkv_splits, int wqkv_per,
+                        cudaStream_t s) {
   const int M = B * L;
   float* dacc = ar.take<float>((size_t)M * HID);
   bf16* dacc_lp = ar.take<bf16>((size_t)M * HID);
@@ -725,7 +915,7 @@ int attention_block_bwd(Arena& ar, const void* x, const void* wqkv, const void* 
   if (ar.base == nullptr) return 0;
   float* sums = static_cast<float*>(vec);
   MM_TRY(ln_bwd(static_cast<const float*>(acc), static_cast<const bf16*>(dy), static_cast<const float*>(gamma), dacc,
-                dacc_lp, ln_part, M, HID, eps, s));
+                dacc_lp, ln_part, M, n, HID, eps, s));
   MM_TRY(colsum(ln_part, false, ln_col, sums, ln_blocks(M), 3 * HID, s));  // dgamma | dbeta | dbo
   MM_TRY(mm_wg_wgrad(attn, dacc_lp, wo_part, dwo, M, A, HID, wo_splits, wo_per, s));
   MM_TRY(mm_wg_gemm(dacc_lp, wo, nullptr, da, M, A, HID, wg::EPI_BF16, s));
@@ -738,11 +928,13 @@ int attention_block_bwd(Arena& ar, const void* x, const void* wqkv, const void* 
 
 // K11: x (M, HID) bf16, w1 (HID, FF), w2 (FF, HID) bf16, b1 (FF) and gamma
 // (HID) f32, dy (M, HID) bf16, acc (M, HID) f32 and h (M, FF) bf16 from the
-// forward. Writes dx (M, HID) bf16, dw1 (HID, FF) and dw2 (FF, HID) f32, and
-// vec f32 = [dgamma | dbeta | db2 | db1] (3HID + FF).
+// forward, the LayerNorm's rows n <= HID wide as K12's. Writes dx (M, HID)
+// bf16, dw1 (HID, FF) and dw2 (FF, HID) f32, and vec f32 = [dgamma | dbeta |
+// db2 | db1] (3HID + FF).
 int mlp_block_bwd(Arena& ar, const void* x, const void* w1, const void* b1, const void* w2, const void* gamma,
                   const void* dy, const void* acc, const void* h, void* dx, void* dw1, void* dw2, void* vec, int M,
-                  int HID, int FF, float eps, int w2_splits, int w2_per, int w1_splits, int w1_per, cudaStream_t s) {
+                  int HID, int n, int FF, float eps, int w2_splits, int w2_per, int w1_splits, int w1_per,
+                  cudaStream_t s) {
   float* dacc = ar.take<float>((size_t)M * HID);
   bf16* dacc_lp = ar.take<bf16>((size_t)M * HID);
   float* ln_part = ar.take<float>((size_t)ln_blocks(M) * 3 * HID);
@@ -754,7 +946,7 @@ int mlp_block_bwd(Arena& ar, const void* x, const void* w1, const void* b1, cons
   if (ar.base == nullptr) return 0;
   float* sums = static_cast<float*>(vec);
   MM_TRY(ln_bwd(static_cast<const float*>(acc), static_cast<const bf16*>(dy), static_cast<const float*>(gamma), dacc,
-                dacc_lp, ln_part, M, HID, eps, s));
+                dacc_lp, ln_part, M, n, HID, eps, s));
   MM_TRY(colsum(ln_part, false, ln_col, sums, ln_blocks(M), 3 * HID, s));  // dgamma | dbeta | db2
   MM_TRY(mm_wg_wgrad(h, dacc_lp, w2_part, dw2, M, FF, HID, w2_splits, w2_per, s));
   MM_TRY(mm_wg_gemm_dz(x, w1, b1, dacc_lp, w2, dz, M, FF, HID, s));
@@ -774,17 +966,19 @@ extern "C" {
 // mm_attention_block_bwd_bytes bytes (mm::attention_block_bwd).
 int mm_attention_block_bwd(const void* x, const void* wqkv, const void* wo, const void* mask, const void* gamma,
                            const void* dy, const void* acc, const void* qkv, const void* attn, void* dx, void* dwqkv,
-                           void* dwo, void* vec, void* ws, int B, int L, int H, int HID, int A, float eps,
+                           void* dwo, void* vec, void* ws, int B, int L, int H, int HID, int n, int A, float eps,
                            float scale, int wo_splits, int wo_per, int wqkv_splits, int wqkv_per, void* stream) {
   Arena ar{static_cast<char*>(ws), 0};
-  return attention_block_bwd(ar, x, wqkv, wo, mask, gamma, dy, acc, qkv, attn, dx, dwqkv, dwo, vec, B, L, H, HID, A,
-                             eps, scale, wo_splits, wo_per, wqkv_splits, wqkv_per, static_cast<cudaStream_t>(stream));
+  return attention_block_bwd(ar, x, wqkv, wo, mask, gamma, dy, acc, qkv, attn, dx, dwqkv, dwo, vec, B, L, H, HID, n,
+                             A, eps, scale, wo_splits, wo_per, wqkv_splits, wqkv_per,
+                             static_cast<cudaStream_t>(stream));
 }
 
 long long mm_attention_block_bwd_bytes(int B, int L, int H, int HID, int A, int wo_splits, int wqkv_splits) {
   Arena ar{nullptr, 0};
   attention_block_bwd(ar, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                      nullptr, nullptr, nullptr, B, L, H, HID, A, 0.0f, 0.0f, wo_splits, 0, wqkv_splits, 0, nullptr);
+                      nullptr, nullptr, nullptr, B, L, H, HID, HID, A, 0.0f, 0.0f, wo_splits, 0, wqkv_splits, 0,
+                      nullptr);
   return static_cast<long long>(ar.used);
 }
 
@@ -792,17 +986,17 @@ long long mm_attention_block_bwd_bytes(int B, int L, int H, int HID, int A, int 
 // bytes (mm::mlp_block_bwd).
 int mm_mlp_block_bwd(const void* x, const void* w1, const void* b1, const void* w2, const void* gamma, const void* dy,
                      const void* acc, const void* h, void* dx, void* dw1, void* dw2, void* vec, void* ws, int M,
-                     int HID, int FF, float eps, int w2_splits, int w2_per, int w1_splits, int w1_per,
+                     int HID, int n, int FF, float eps, int w2_splits, int w2_per, int w1_splits, int w1_per,
                      void* stream) {
   Arena ar{static_cast<char*>(ws), 0};
-  return mlp_block_bwd(ar, x, w1, b1, w2, gamma, dy, acc, h, dx, dw1, dw2, vec, M, HID, FF, eps, w2_splits, w2_per,
-                       w1_splits, w1_per, static_cast<cudaStream_t>(stream));
+  return mlp_block_bwd(ar, x, w1, b1, w2, gamma, dy, acc, h, dx, dw1, dw2, vec, M, HID, n, FF, eps, w2_splits,
+                       w2_per, w1_splits, w1_per, static_cast<cudaStream_t>(stream));
 }
 
 long long mm_mlp_block_bwd_bytes(int M, int HID, int FF, int w2_splits, int w1_splits) {
   Arena ar{nullptr, 0};
   mlp_block_bwd(ar, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                nullptr, M, HID, FF, 0.0f, w2_splits, 0, w1_splits, 0, nullptr);
+                nullptr, M, HID, HID, FF, 0.0f, w2_splits, 0, w1_splits, 0, nullptr);
   return static_cast<long long>(ar.used);
 }
 

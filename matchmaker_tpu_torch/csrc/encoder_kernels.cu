@@ -65,10 +65,16 @@ using bf16 = __nv_bfloat16;
 // p = 0, key tiles past an example's last unmasked key are skipped; query
 // rows past L are not stored. Shared memory (Q, two K and two V tiles, the
 // mask row) does not grow with L.
-// The head width HD is a template parameter, instanced for 16, 32 and 64
-// (launch_attention_core): the QK^T reduction takes HD / 16 k-steps of 16,
-// P.V HD / 8 n-tiles of 8, and the tiles' padded rows stay on distinct banks
-// for ldmatrix at each width (rows of 48, 80 and 144 bytes).
+// The head width HD is a template parameter, instanced for 16, 32, 64 and
+// 128 (launch_attention_core): the QK^T reduction takes HD / 16 k-steps of
+// 16, P.V HD / 8 n-tiles of 8, and the tiles' padded rows stay on distinct
+// banks for ldmatrix at each width (rows of 48, 80, 144 and 272 bytes).
+// Heads of 128 keep the same warp layout (16 query rows a warp, 64-key
+// tiles) in attention_core_wide_kernel: its five tiles take 87 KB, past
+// the 48 KB of static shared memory, so they come as dynamic shared
+// memory, and Q's fragments and the output's sums (96 registers a thread
+// at 128) leave the 128 registers of four blocks an SM behind: two blocks
+// an SM, up to 255 registers a thread.
 constexpr int QT = 64;          // query rows a block
 constexpr int KT = 64;          // keys a tile
 constexpr int ATT_THREADS = 128;
@@ -82,7 +88,7 @@ __host__ __device__ constexpr int tile_elems() { return KT * t_ld<HD>(); }
 // [64][HD + 8] tile; rows past L read as zero
 template <int HD>
 __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* base, int ld, int r0, int L) {
-  constexpr int SHIFT = HD == 64 ? 3 : (HD == 32 ? 2 : 1);  // log2 of the 16-byte pieces a row
+  constexpr int SHIFT = HD == 128 ? 4 : (HD == 64 ? 3 : (HD == 32 ? 2 : 1));  // log2 of the 16-byte pieces a row
   for (int c = threadIdx.x; c < (KT << SHIFT); c += ATT_THREADS) {
     const int row = c >> SHIFT, col = (c & ((1 << SHIFT) - 1)) * 8;
     const bool ok = r0 + row < L;
@@ -126,18 +132,14 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// four blocks an SM: at most 48 KB of shared memory (at HD = 64) and 128
-// registers a thread each
+// The core of one block, on the shared-memory tiles its kernel gives it:
+// Qs (one tile), Kb and Vb (two each), neg (MAX_KEYS), live (2 * warps).
 template <typename OutT, bool ROUND_P, int HD>
-__global__ void __launch_bounds__(ATT_THREADS, 4)
-    attention_core_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in, const bf16* __restrict__ v_in,
-                          int ld, const float* __restrict__ mask, OutT* __restrict__ out, int L, int H, float scale) {
+__device__ __forceinline__ void attention_core(bf16* Qs, bf16* Kb, bf16* Vb, float* neg, int* live,
+                                               const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
+                                               const bf16* __restrict__ v_in, int ld, const float* __restrict__ mask,
+                                               OutT* __restrict__ out, int L, int H, float scale) {
   constexpr int T_LD = t_ld<HD>(), TILE = tile_elems<HD>();
-  __shared__ __align__(128) bf16 Qs[TILE];
-  __shared__ __align__(128) bf16 Kb[2 * TILE];
-  __shared__ __align__(128) bf16 Vb[2 * TILE];
-  __shared__ float neg[MAX_KEYS];
-  __shared__ int live[2 * ATT_THREADS / 32];
 
   // bf16 terms of p into P.V: the rounded p (K13); hi + lo, 16 significant
   // bits, under a bf16 output (K1); hi + mid + lo, all 24 of f32, under the
@@ -287,15 +289,53 @@ __global__ void __launch_bounds__(ATT_THREADS, 4)
   }
 }
 
+// four blocks an SM: at most 48 KB of shared memory (at HD = 64) and 128
+// registers a thread each
+template <typename OutT, bool ROUND_P, int HD>
+__global__ void __launch_bounds__(ATT_THREADS, 4)
+    attention_core_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in, const bf16* __restrict__ v_in,
+                          int ld, const float* __restrict__ mask, OutT* __restrict__ out, int L, int H, float scale) {
+  constexpr int TILE = tile_elems<HD>();
+  __shared__ __align__(128) bf16 Qs[TILE];
+  __shared__ __align__(128) bf16 Kb[2 * TILE];
+  __shared__ __align__(128) bf16 Vb[2 * TILE];
+  __shared__ float neg[MAX_KEYS];
+  __shared__ int live[2 * ATT_THREADS / 32];
+  attention_core<OutT, ROUND_P, HD>(Qs, Kb, Vb, neg, live, q_in, k_in, v_in, ld, mask, out, L, H, scale);
+}
+
+// heads of 128: the same core on dynamic shared memory, two blocks an SM
+constexpr int WIDE_HD = 128;
+constexpr size_t WIDE_SMEM = (size_t)5 * tile_elems<WIDE_HD>() * sizeof(bf16) + MAX_KEYS * sizeof(float) +
+                             2 * ATT_THREADS / 32 * sizeof(int);
+
+template <typename OutT, bool ROUND_P>
+__global__ void __launch_bounds__(ATT_THREADS, 2)
+    attention_core_wide_kernel(const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
+                               const bf16* __restrict__ v_in, int ld, const float* __restrict__ mask,
+                               OutT* __restrict__ out, int L, int H, float scale) {
+  constexpr int TILE = tile_elems<WIDE_HD>();
+  extern __shared__ __align__(128) char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Kb = Qs + TILE;
+  bf16* Vb = Kb + 2 * TILE;
+  float* neg = reinterpret_cast<float*>(Vb + 2 * TILE);
+  int* live = reinterpret_cast<int*>(neg + MAX_KEYS);
+  attention_core<OutT, ROUND_P, WIDE_HD>(Qs, Kb, Vb, neg, live, q_in, k_in, v_in, ld, mask, out, L, H, scale);
+}
+
 // ---- row LayerNorm ----------------------------------------------------------
 // One warp per row of the f32 pre-LN sums; two-pass mean/variance as in the
-// TPU kernel, eps inside the rsqrt, bf16 out.
+// TPU kernel, eps inside the rsqrt, bf16 out. Rows of N columns, ld_in and
+// ld_out apart (a width that is not a multiple of 8 runs its products at
+// the next one: the padded columns are read past, and written as zeros up
+// to ld_out).
 __global__ void __launch_bounds__(256) layernorm_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                                                         const float* __restrict__ beta, bf16* __restrict__ out,
-                                                        int M, int N, float eps) {
+                                                        int M, int N, int ld_in, int ld_out, float eps) {
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= M) return;
-  const float* xr = x + (size_t)row * N;
+  const float* xr = x + (size_t)row * ld_in;
   float s = 0.0f;
   for (int j = lane; j < N; j += 32) s += xr[j];
 #pragma unroll
@@ -309,8 +349,9 @@ __global__ void __launch_bounds__(256) layernorm_kernel(const float* __restrict_
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
   const float inv = rsqrtf(q / N + eps);
-  for (int j = lane; j < N; j += 32)
-    out[(size_t)row * N + j] = __float2bfloat16((xr[j] - mean) * inv * gamma[j] + beta[j]);
+  bf16* orow = out + (size_t)row * ld_out;
+  for (int j = lane; j < N; j += 32) orow[j] = __float2bfloat16((xr[j] - mean) * inv * gamma[j] + beta[j]);
+  for (int j = N + lane; j < ld_out; j += 32) orow[j] = __float2bfloat16(0.0f);
 }
 
 template <typename OutT, bool ROUND_P>
@@ -331,6 +372,13 @@ int launch_attention_core(const bf16* q, const bf16* k, const bf16* v, int ld, c
     case 64:
       attention_core_kernel<OutT, ROUND_P, 64><<<grid, ATT_THREADS, 0, s>>>(q, k, v, ld, m, o, L, H, scale);
       break;
+    case WIDE_HD: {
+      const cudaError_t err = cudaFuncSetAttribute(attention_core_wide_kernel<OutT, ROUND_P>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WIDE_SMEM);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      attention_core_wide_kernel<OutT, ROUND_P><<<grid, ATT_THREADS, WIDE_SMEM, s>>>(q, k, v, ld, m, o, L, H, scale);
+      break;
+    }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -379,7 +427,7 @@ int mm_wg_gemm_fwd(const void* A, const void* B, const void* bias, const void* r
 }
 
 // out (B,L,H*hd) bf16 = per-head softmax(QK^T*scale + mask) V from qkv
-// (B,L,3*H*hd); head width hd 16, 32 or 64.
+// (B,L,3*H*hd); head width hd 16, 32, 64 or 128.
 int mm_attention_core(const void* qkv, const void* mask, void* out, int B, int L, int H, int hd, float scale,
                       void* stream) {
   return launch_packed_attention_core<bf16>(qkv, mask, out, B, L, H, hd, scale, stream);
@@ -400,13 +448,21 @@ int mm_fused_mha(const void* q, const void* k, const void* v, const void* mask, 
                                            stream);
 }
 
+// out (M,N) bf16 = LayerNorm(x (M,N) f32) * gamma + beta; x's rows ld_in
+// apart, out's ld_out apart (columns N .. ld_out - 1 written as zeros)
+int mm_layernorm_ld(const void* x, const void* gamma, const void* beta, void* out, int M, int N, int ld_in,
+                    int ld_out, float eps, void* stream) {
+  if (N < 1 || ld_in < N || ld_out < N) return static_cast<int>(cudaErrorInvalidValue);
+  layernorm_kernel<<<(M + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<bf16*>(out), M, N, ld_in, ld_out, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // out (M,N) bf16 = LayerNorm(x (M,N) f32) * gamma + beta
 int mm_layernorm(const void* x, const void* gamma, const void* beta, void* out, int M, int N, float eps,
                  void* stream) {
-  layernorm_kernel<<<(M + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<bf16*>(out), M, N, eps);
-  return static_cast<int>(cudaGetLastError());
+  return mm_layernorm_ld(x, gamma, beta, out, M, N, N, N, eps, stream);
 }
 
 }  // extern "C"

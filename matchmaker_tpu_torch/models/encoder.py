@@ -44,7 +44,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from matchmaker_tpu_torch.ops.fused_attention import fused_attention_block_qkv, fused_mlp_block, pad_attention_heads
+from matchmaker_tpu_torch.ops.fused_attention import (
+    card_width,
+    fused_attention_block_qkv,
+    fused_mlp_block,
+    pad_attention_heads,
+    pad_attention_hidden,
+    pad_mlp_hidden,
+)
 from matchmaker_tpu_torch.ops.fused_backward import fused_attention_block_qkv_train, fused_mlp_block_train
 from matchmaker_tpu_torch.ops.fused_int8 import (
     fused_attention_int8_block_qkv_kmajor,
@@ -277,8 +284,10 @@ class EncoderLayer(nn.Module):
     def _fused_weights(self):
         """The fused halves' weights: Q/K/V packed, kernels in the compute
         dtype, the heads zero-padded to a width the card's attention core is
-        instanced for where they are narrower (26 → 32, 8 → 16; the plain
-        versions take them so as well: ``pad_attention_heads``). With
+        instanced for where they are narrower (26 → 32, 8 → 16, 80 → 128;
+        the plain versions take them so as well: ``pad_attention_heads``);
+        on a card also the hidden and FF widths zero-padded to the next
+        multiple of 8 the products run them at (``card_width``). With
         autograd they are built on every call, so the packing, padding and
         casts carry gradients back to the f32 parameters. Without autograd
         they are built once and kept until a parameter moves (``.to``) or is
@@ -293,7 +302,12 @@ class EncoderLayer(nn.Module):
                 wqkv = torch.cat([a.query.kernel, a.key.kernel, a.value.kernel], dim=1).to(cd)
                 bqkv = torch.cat([a.query.bias, a.key.bias, a.value.bias])
                 wqkv, bqkv, wo = pad_attention_heads(wqkv, bqkv, a.out.kernel.to(cd), self.cfg.num_heads)
-                weights = (wqkv, bqkv, wo, self.mlp_in.kernel.to(cd), self.mlp_out.kernel.to(cd))
+                w1, w2 = self.mlp_in.kernel.to(cd), self.mlp_out.kernel.to(cd)
+                if wqkv.is_cuda:
+                    hid = card_width(self.cfg.hidden_size)
+                    wqkv, wo = pad_attention_hidden(wqkv, wo, hid)
+                    w1, w2 = pad_mlp_hidden(w1, w2, hid, card_width(self.cfg.intermediate_size))
+                weights = (wqkv, bqkv, wo, w1, w2)
             if torch.is_grad_enabled():
                 return weights
             self._fused_cache = (key, weights)

@@ -37,11 +37,12 @@ _EXACT_CODES_DEPTH = (1 << 24) // (127 * 127)
 
 def matmul_codes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (..., K) @ b (K, N) of int8 codes: the int32 sums of an int8 x int8
-    product, as exact f32 (K <= 1040, checked)."""
-    if a.shape[-1] > _EXACT_CODES_DEPTH:
-        raise ValueError(f"an f32 product of int8 codes is exact up to depth {_EXACT_CODES_DEPTH}, "
-                         f"got {a.shape[-1]}")
-    return matmul_f32(a, b)
+    product as f32, each rounded once to nearest as a kernel converts its
+    int32 sums: an f32 product up to K = 1040 (127²·K < 2²⁴: exact), an f64
+    one past it (exact sums, then the rounding)."""
+    if a.shape[-1] <= _EXACT_CODES_DEPTH:
+        return matmul_f32(a, b)
+    return torch.matmul(a.double(), b.double()).float()
 
 
 def topk_lowest_first(x: torch.Tensor, k: int):

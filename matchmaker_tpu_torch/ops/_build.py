@@ -67,6 +67,7 @@ _SIGNATURES = {
     "mm_wg_gemm_s8": [_p] * 7 + [_i] * 5 + [_p],
     "mm_wg_gemm_s8_gelu_quant": [_p] * 7 + [_i] * 4 + [_p],
     "mm_layernorm": [_p, _p, _p, _p, _i, _i, _f, _p],
+    "mm_layernorm_ld": [_p, _p, _p, _p, _i, _i, _i, _i, _f, _p],
     "mm_binmax_scan": [_p, _p, _p, _i, _i, _i, _i, _i, _i, _i64, _p],
     "mm_binmax_scan_int8": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i64, _i, _p],
     "mm_level2": [_p, _p, _i, _i, _i, _i64, _i64, _p],
@@ -77,8 +78,8 @@ _SIGNATURES = {
     "mm_wg_gemm_dz": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
     "mm_wg_wgrad": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
     "mm_attention_bwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _p],
-    "mm_attention_block_bwd": [_p] * 14 + [_i, _i, _i, _i, _i, _f, _f, _i, _i, _i, _i, _p],
-    "mm_mlp_block_bwd": [_p] * 13 + [_i, _i, _i, _f, _i, _i, _i, _i, _p],
+    "mm_attention_block_bwd": [_p] * 14 + [_i, _i, _i, _i, _i, _i, _f, _f, _i, _i, _i, _i, _p],
+    "mm_mlp_block_bwd": [_p] * 13 + [_i, _i, _i, _i, _f, _i, _i, _i, _i, _p],
     "mm_probe_attn_inner": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _i, _p],
     "mm_probe_int8_matmul": [_p, _p, _p, _i, _i, _i, _p],
     "mm_probe_mlp_rows": [_p] * 8 + [_i, _i, _f, _p],

@@ -10,7 +10,7 @@
   (B, L, H·D) (TPU kernel K13, ``_attn_kernel``). No encoder path calls it,
   in either package; its plain version is :func:`mha_reference`.
 
-The card's attention core is instanced for heads of 16, 32 and 64. A
+The card's attention core is instanced for heads of 16, 32, 64 and 128. A
 narrower head runs on the next wider instance, zero-padded
 (:func:`pad_attention_heads`): each head's Q, K and V columns of the packed
 weight and bias, and the matching rows of Wo, with the true scale 1/√d
@@ -19,7 +19,18 @@ are zero and meet zero rows of Wo, and in the backward the padded columns'
 gradients are exactly zero: the function is the unpadded one's, up to the
 order of the sums. The encoder pads once when it packs its weights; the
 functions here pad in the wrapper when given unpadded weights on a card.
-The plain versions take either.
+The plain versions take either. Heads wider than 128 are refused.
+
+The card's products read their operands through TMA maps whose rows must
+be a multiple of 16 bytes, so a hidden or FF width that is not a multiple
+of 8 runs at the next one (:func:`card_width`): the weights' rows and
+columns zero-padded (:func:`pad_attention_hidden`, :func:`pad_mlp_hidden`;
+the encoder once when it packs them, the wrappers otherwise), x copied
+into zero-padded rows, and the LayerNorm taken over the true width from the
+padded pre-LN sums (csrc ``mm_layernorm_ld``), its output written unpadded.
+Zero columns add nothing to any product, so the function is the unpadded
+one's; the backward (ops/fused_backward.py) cuts each gradient back to its
+input's shape.
 
 On a CUDA tensor each runs the hand-written kernels of
 ``csrc/encoder_kernels.cu`` (bf16 activations and weights, f32 biases and
@@ -49,23 +60,34 @@ from matchmaker_tpu_torch.ops import _build, matmul_f32
 # The forward epilogues of the wgmma GEMM (csrc/wgmma_gemm.cuh, wg::Epilogue)
 _EPI_BIAS_BF16, _EPI_BIAS_GELU_BF16, _EPI_BIAS_RESID_F32 = 4, 5, 6
 # the head widths the attention core is instanced for (csrc/encoder_kernels.cu)
-_KERNEL_HEAD_DIMS = (16, 32, 64)
+_KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _KERNEL_MAX_LEN = 512
+# the products' TMA maps: rows of a multiple of 16 bytes, 8 bf16
+_WIDTH_STEP = 8
+
+
+def card_width(n: int) -> int:
+    """The width the card's products run a hidden or FF width of ``n`` at:
+    the next multiple of 8."""
+    return -(-n // _WIDTH_STEP) * _WIDTH_STEP
 
 
 def instanced_head_width(d: int) -> int:
     """The narrowest head width the card's attention cores are instanced
-    for that holds a head of ``d`` (``d`` itself past 64: none does)."""
+    for that holds a head of ``d`` (``d`` itself past 128: none does)."""
     return next((w for w in _KERNEL_HEAD_DIMS if d <= w), d)
 
 
 def kernel_head_dim(name: str, hid: int, n_heads: int) -> int:
     """The instanced width the card's attention cores (K1, K10, K12, K13)
     run a head of ``hid`` / ``n_heads`` at (the head zero-padded to it), or
-    ValueError: heads wider than 64 need an instance of their own."""
+    ValueError: a head wider than 128 needs an instance of its own, whose
+    Q fragments and output sums (at least 192 registers a thread) and tiles
+    the 128-wide design no longer holds."""
     if n_heads <= 0 or hid % n_heads or hid // n_heads > _KERNEL_HEAD_DIMS[-1]:
         raise ValueError(f"{name}: the CUDA kernel takes head widths up to {_KERNEL_HEAD_DIMS[-1]} (instanced for "
-                         f"{_KERNEL_HEAD_DIMS}, narrower heads zero-padded), got {hid}/{n_heads}")
+                         f"{_KERNEL_HEAD_DIMS}, narrower heads zero-padded; a wider head's registers and tiles "
+                         f"need an instance of its own), got {hid}/{n_heads}")
     return instanced_head_width(hid // n_heads)
 
 
@@ -86,13 +108,32 @@ def pad_groups(t: torch.Tensor, groups: int, width: int, dim: int, value: float 
 def pad_attention_heads(wqkv, bqkv, wo, n_heads: int):
     """The packed attention weights, wqkv (HID, 3·H·d), bqkv (3·H·d,), wo
     (H·d, HID), with every head zero-padded to :func:`instanced_head_width`
-    (the inputs themselves where d is instanced, or wider than 64)."""
+    (the inputs themselves where d is instanced, or wider than 128)."""
     d = wo.shape[0] // n_heads
     width = instanced_head_width(d)
     if width == d:
         return wqkv, bqkv, wo
     return (pad_groups(wqkv, 3 * n_heads, width, 1), pad_groups(bqkv, 3 * n_heads, width, 0),
             pad_groups(wo, n_heads, width, 0))
+
+
+def pad_attention_hidden(wqkv, wo, width: int):
+    """wqkv (HID, 3·A) and wo (A, HID) with HID zero-padded to ``width``
+    (:func:`card_width`): wqkv's rows, wo's columns; differentiable, and the
+    inputs themselves where HID is ``width`` already."""
+    return pad_groups(wqkv, 1, width, 0), pad_groups(wo, 1, width, 1)
+
+
+def pad_mlp_hidden(w1, w2, width: int, ff_width: int):
+    """w1 (HID, FF) and w2 (FF, HID) with HID zero-padded to ``width`` and
+    FF to ``ff_width``; differentiable, a no-op where nothing needs it."""
+    return (pad_groups(pad_groups(w1, 1, width, 0), 1, ff_width, 1),
+            pad_groups(pad_groups(w2, 1, ff_width, 0), 1, width, 1))
+
+
+def pad_vectors(width: int, *vectors):
+    """Each (N,) vector zero-padded to ``width``."""
+    return tuple(pad_groups(v, 1, width, 0) for v in vectors)
 
 
 def _erf_poly(z: torch.Tensor) -> torch.Tensor:
@@ -196,9 +237,10 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 def _check_gemm_dims(name: str, k: int, n: int) -> None:
     # the TMA tensor maps of wgmma_gemm.cuh: rows of A (K) and of the weight
-    # (N) a multiple of 16 bytes
-    if k % 8 or n % 8:
-        raise ValueError(f"{name}: the CUDA kernel needs K % 8 == 0 and N % 8 == 0, got K={k}, N={n}")
+    # (N) a multiple of 16 bytes; the wrappers pad to card_width first
+    if k % _WIDTH_STEP or n % _WIDTH_STEP:
+        raise ValueError(f"{name}: the CUDA kernel needs K % 8 == 0 and N % 8 == 0 (pad to card_width), "
+                         f"got K={k}, N={n}")
 
 
 def _gemm(a, w, bias, out, epilogue, resid=None):
@@ -209,6 +251,15 @@ def _gemm(a, w, bias, out, epilogue, resid=None):
     _build.call("mm_wg_gemm_fwd", _build.ptr(a), _build.ptr(w), _build.ptr(bias),
                 _build.ptr(resid) if resid is not None else ctypes.c_void_p(),
                 _build.ptr(out), m, n, k, epilogue, _build.stream(a.device))
+
+
+def _layernorm(acc, ln_scale, ln_bias, n: int, ln_eps: float, out):
+    """out (M, n) = LayerNorm over the first n of acc's (M, ld) columns
+    (csrc mm_layernorm_ld)."""
+    ld = acc.shape[-1]
+    g, be = pad_vectors(ld, _f32(ln_scale), _f32(ln_bias))
+    _build.call("mm_layernorm_ld", _build.ptr(acc), _build.ptr(g), _build.ptr(be), _build.ptr(out),
+                acc.numel() // ld, n, ld, n, ln_eps, _build.stream(acc.device))
 
 
 def card_heads(name: str, wqkv, bqkv, wo, n_heads: int, head_dim=None):
@@ -227,54 +278,66 @@ def _attention_block_cuda(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bia
                           save: bool = False, head_dim=None):
     """K1 on the card: wqkv (HID, 3·A), wo (A, HID) with A = H·width, the
     heads at an instanced width (:func:`card_heads`), ``head_dim`` the true
-    one. ``save``: also return (acc, qkv, attn), the f32 pre-LN sums and
-    the bf16 QKV projections and attention output the backward (K12) reads
-    instead of recomputing them."""
-    b, l, hid = x.shape
+    one; HID x's width or already padded to :func:`card_width` (x's rows
+    are then copied into padded ones). ``save``: also return (acc, qkv,
+    attn), the f32 pre-LN sums (at the padded width) and the bf16 QKV
+    projections and attention output the backward (K12) reads instead of
+    recomputing them."""
+    b, l, n = x.shape
+    hid = card_width(n)
     width = wo.shape[0]
     d = width // n_heads
-    if d not in _KERNEL_HEAD_DIMS or tuple(wqkv.shape) != (hid, 3 * width):
+    wqkv, wo = pad_attention_hidden(wqkv, wo, hid)
+    if d not in _KERNEL_HEAD_DIMS or tuple(wqkv.shape) != (hid, 3 * width) or wo.shape[1] != hid:
         raise ValueError(f"fused_attention_block: the CUDA kernel takes head widths {_KERNEL_HEAD_DIMS} "
-                         f"(pad_attention_heads), got wqkv {tuple(wqkv.shape)}, wo {tuple(wo.shape)}, {n_heads} heads")
+                         f"(pad_attention_heads), got wqkv {tuple(wqkv.shape)}, wo {tuple(wo.shape)}, {n_heads} heads "
+                         f"for x {tuple(x.shape)}")
     if not 1 <= l <= _KERNEL_MAX_LEN:
         raise ValueError(f"fused_attention_block: the CUDA kernel takes 1 <= L <= {_KERNEL_MAX_LEN}, got {l}")
     _check_gemm_dims("fused_attention_block", hid, hid)
     bf16 = torch.bfloat16
     for name, t in (("x", x), ("wqkv", wqkv), ("wo", wo)):
         _build.check_cuda(t, f"fused_attention_block.{name}", bf16)
+    xp = pad_groups(x, 1, hid, -1)
+    bo, = pad_vectors(hid, _f32(bo))
     with torch.cuda.device(x.device):
         qkv = torch.empty((b, l, 3 * width), dtype=bf16, device=x.device)
-        _gemm(x, wqkv, _f32(bqkv), qkv, _EPI_BIAS_BF16)
+        _gemm(xp, wqkv, _f32(bqkv), qkv, _EPI_BIAS_BF16)
         attn = torch.empty((b, l, width), dtype=bf16, device=x.device)
         _build.call("mm_attention_core", _build.ptr(qkv), _build.ptr(_f32(mask)), _build.ptr(attn),
                     b, l, n_heads, d, 1.0 / (head_dim or d) ** 0.5, _build.stream(x.device))
         acc = torch.empty((b, l, hid), dtype=torch.float32, device=x.device)
-        _gemm(attn, wo, _f32(bo), acc, _EPI_BIAS_RESID_F32, resid=x)
+        _gemm(attn, wo, _f32(bo), acc, _EPI_BIAS_RESID_F32, resid=xp)
         out = torch.empty_like(x)
-        _build.call("mm_layernorm", _build.ptr(acc), _build.ptr(_f32(ln_scale)), _build.ptr(_f32(ln_bias)),
-                    _build.ptr(out), b * l, hid, ln_eps, _build.stream(x.device))
+        _layernorm(acc, ln_scale, ln_bias, n, ln_eps, out)
     _build.LAUNCHES["fused_attention_block"] += 1
     return (out, (acc, qkv, attn)) if save else out
 
 
 def _mlp_block_cuda(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps, save: bool = False):
-    """K2 on the card. ``save``: also return (acc, h), the f32 pre-LN sums and
-    the bf16 gelu output the backward (K11) reads."""
-    b, l, hid = x.shape
-    ff = w1.shape[1]
+    """K2 on the card, HID and FF run at :func:`card_width` (the weights
+    padded here where the encoder has not padded them). ``save``: also
+    return (acc, h), the f32 pre-LN sums and the bf16 gelu output the
+    backward (K11) reads, at the padded widths."""
+    b, l, n = x.shape
+    hid, ff = card_width(n), card_width(w1.shape[1])
+    w1, w2 = pad_mlp_hidden(w1, w2, hid, ff)
+    if tuple(w1.shape) != (hid, ff) or tuple(w2.shape) != (ff, hid):
+        raise ValueError(f"fused_mlp_block: w1 {tuple(w1.shape)} and w2 {tuple(w2.shape)} do not fit x "
+                         f"{tuple(x.shape)}")
     _check_gemm_dims("fused_mlp_block", hid, ff)
-    _check_gemm_dims("fused_mlp_block", ff, hid)
     bf16 = torch.bfloat16
     for name, t in (("x", x), ("w1", w1), ("w2", w2)):
         _build.check_cuda(t, f"fused_mlp_block.{name}", bf16)
+    xp = pad_groups(x, 1, hid, -1)
+    b1, b2 = pad_vectors(ff, _f32(b1))[0], pad_vectors(hid, _f32(b2))[0]
     with torch.cuda.device(x.device):
         h = torch.empty((b, l, ff), dtype=bf16, device=x.device)
-        _gemm(x, w1, _f32(b1), h, _EPI_BIAS_GELU_BF16)
+        _gemm(xp, w1, _f32(b1), h, _EPI_BIAS_GELU_BF16)
         acc = torch.empty((b, l, hid), dtype=torch.float32, device=x.device)
-        _gemm(h, w2, _f32(b2), acc, _EPI_BIAS_RESID_F32, resid=x)
+        _gemm(h, w2, _f32(b2), acc, _EPI_BIAS_RESID_F32, resid=xp)
         out = torch.empty_like(x)
-        _build.call("mm_layernorm", _build.ptr(acc), _build.ptr(_f32(ln_scale)), _build.ptr(_f32(ln_bias)),
-                    _build.ptr(out), b * l, hid, ln_eps, _build.stream(x.device))
+        _layernorm(acc, ln_scale, ln_bias, n, ln_eps, out)
     _build.LAUNCHES["fused_mlp_block"] += 1
     return (out, (acc, h)) if save else out
 
@@ -290,8 +353,9 @@ def fused_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, mask, n_heads,
                           ln_scale, ln_bias, ln_eps: float = 1e-12, save_acc: bool = False):
     """LN(x + OutProj(MHA(QKV-proj(x)))): x (B, L, HID); wq/wk/wv/wo (HID, HID)
     in x's dtype; biases and LN params (HID,); mask (B, L), 1 = real key.
-    CUDA tensors: bf16, head width at most 64, 1 <= L <= 512. ``save_acc``: return
-    (out, acc) with acc the f32 pre-LN sum (B, L, HID)."""
+    CUDA tensors: bf16, head width at most 128, 1 <= L <= 512. ``save_acc``:
+    return (out, acc) with acc the f32 pre-LN sum (B, L, HID; on a card at
+    :func:`card_width`)."""
     return fused_attention_block_qkv(x, torch.cat([wq, wk, wv], dim=1), torch.cat([bq, bk, bv]), wo, bo, mask,
                                      n_heads, ln_scale, ln_bias, ln_eps, save_acc)
 
@@ -365,7 +429,7 @@ def _mha_cuda(q, k, v, mask, n_heads):
 def fused_mha(q, k, v, mask, n_heads):
     """Multi-head self-attention, forward only: q, k, v (B, L, H·D), mask
     (B, L) with 1 = real key; output (B, L, H·D) in q's dtype. CUDA tensors:
-    bf16, head width at most 64, 1 <= L <= 512."""
+    bf16, head width at most 128, 1 <= L <= 512."""
     if not q.is_cuda:
         return mha_reference(q, k, v, mask, n_heads)
     return _mha_cuda(q, k, v, mask, n_heads)
@@ -373,8 +437,9 @@ def fused_mha(q, k, v, mask, n_heads):
 
 def fused_mlp_block(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps: float = 1e-12, save_acc: bool = False):
     """LN(x + W2·gelu(W1·x + b1) + b2): x (B, L, HID); w1 (HID, FF) and
-    w2 (FF, HID) in x's dtype. CUDA tensors: bf16. ``save_acc``: return
-    (out, acc) with acc the f32 pre-LN sum."""
+    w2 (FF, HID) in x's dtype. CUDA tensors: bf16, any HID and FF (run at
+    :func:`card_width`). ``save_acc``: return (out, acc) with acc the f32
+    pre-LN sum (on a card at the padded width)."""
     if not x.is_cuda:
         return reference_mlp_block(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps, save_acc)
     return _acc_only(_mlp_block_cuda(x, w1, b1, w2, b2, ln_scale, ln_bias, ln_eps, save_acc), save_acc)

@@ -54,9 +54,10 @@ _TILE, _K_TILE = 128, 64
 _SMS = 132
 _WGRAD_MAX_SPLITS = 4
 _WGRAD_MIN_K_TILES = 4
-# row widths of the LayerNorm backward kernel (csrc ln_bwd: 128 columns a
-# register chunk, at most 8 chunks, the last one masked past the width)
-_LN_BWD_MAX_WIDTH, _LN_BWD_WIDTH_STEP = 1024, 8
+# the widest row of the LayerNorm backward kernels (csrc ln_bwd: up to
+# 1,024 columns a warp a row, past that a block a row, 8 register chunks of
+# 1,024 columns); any width up to it, run at fa.card_width
+_LN_BWD_MAX_WIDTH = 8192
 
 
 def _gelu_grad(z: torch.Tensor) -> torch.Tensor:
@@ -247,7 +248,7 @@ def attention_core_bwd(qkv, mask, da, n_heads):
     """Backward of the attention core alone (part of K12): qkv (B, L, 3·HID)
     packed Q/K/V, mask (B, L) and da the output gradient (B, L, HID) → dqkv
     (B, L, 3·HID) in qkv's dtype. On a CUDA tensor the kernel (bf16, head
-    width at most 64: narrower heads than an instance zero-padded to it and
+    width at most 128: narrower heads than an instance zero-padded to it and
     cut back, 1 <= L <= 512); on a CPU tensor the plain version."""
     b, l, hid = da.shape
     d = hid // n_heads
@@ -273,82 +274,107 @@ def attention_core_bwd(qkv, mask, da, n_heads):
 
 
 def check_ln_bwd_width(name: str, width: int) -> None:
-    """Raise ValueError unless the LayerNorm backward kernel (K11's and
-    K12's) takes rows of ``width`` columns: a multiple of 8 up to 1,024."""
-    if not 0 < width <= _LN_BWD_MAX_WIDTH or width % _LN_BWD_WIDTH_STEP:
-        raise ValueError(f"{name}: the LayerNorm backward kernel takes rows of a multiple of {_LN_BWD_WIDTH_STEP} "
-                         f"columns up to {_LN_BWD_MAX_WIDTH}, got {width}")
+    """Raise ValueError unless the LayerNorm backward kernels (K11's and
+    K12's) take rows of ``width`` columns: any width up to 8,192 (run at
+    :func:`fa.card_width`; past 8,192 a row's register chunks would not fit a
+    block's threads)."""
+    if not 0 < width <= _LN_BWD_MAX_WIDTH:
+        raise ValueError(f"{name}: the LayerNorm backward kernel takes rows of 1 to {_LN_BWD_MAX_WIDTH} columns "
+                         f"(eight register chunks of 1,024 a block's row), got {width}")
 
 
 def _check_bwd(name, x, dy, weights):
-    check_ln_bwd_width(name, x.shape[-1])
     bf16 = torch.bfloat16
     for label, t in (("x", x), ("dy", dy), *weights):
         _build.check_cuda(t, f"{name}.{label}", bf16)
 
 
+def _cut(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` cut back to ``like``'s shape (the gradient of a zero-padded input)."""
+    return t if t.shape == like.shape else t[tuple(slice(0, s) for s in like.shape)]
+
+
 def _mlp_block_bwd_cuda(x, w1, b1, w2, ln_scale, dy, saved, ln_eps):
     """K11 on the card, one C call (csrc mm_mlp_block_bwd): (dx bf16, dw1,
-    db1, dw2, db2, dg, dbe f32)."""
+    db1, dw2, db2, dg, dbe f32), each cut back to its input's shape. HID and
+    FF run at fa.card_width, as the forward ran them (``saved`` = (acc, h)
+    at those widths)."""
     acc, h = saved
-    hid, ff = w1.shape
+    n = x.shape[-1]
+    hid, ff = fa.card_width(n), fa.card_width(w1.shape[1])
+    check_ln_bwd_width("fused_mlp_block_bwd", n)
+    pw1, pw2 = fa.pad_mlp_hidden(w1, w2, hid, ff)
     fa._check_gemm_dims("fused_mlp_block_bwd", hid, ff)
-    _check_bwd("fused_mlp_block_bwd", x, dy, (("w1", w1), ("w2", w2)))
-    m = x.numel() // hid
+    if tuple(pw1.shape) != (hid, ff) or tuple(pw2.shape) != (ff, hid) or acc.shape[-1] != hid or h.shape[-1] != ff:
+        raise ValueError(f"fused_mlp_block_bwd: w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}, acc {tuple(acc.shape)} "
+                         f"and h {tuple(h.shape)} do not fit x {tuple(x.shape)}")
+    _check_bwd("fused_mlp_block_bwd", x, dy, (("w1", pw1), ("w2", pw2)))
+    m = x.numel() // n
     w2_plan, w1_plan = wgrad_plan(m, ff, hid), wgrad_plan(m, hid, ff)
     f32, dev = torch.float32, x.device
+    xp, dyp = fa.pad_groups(x, 1, hid, -1), fa.pad_groups(dy, 1, hid, -1)
+    pb1, = fa.pad_vectors(ff, fa._f32(b1))
+    g, = fa.pad_vectors(hid, fa._f32(ln_scale))
     with torch.cuda.device(dev):
-        dx = torch.empty_like(x)
+        dx = torch.empty_like(xp)
         dw1 = torch.empty((hid, ff), dtype=f32, device=dev)
         dw2 = torch.empty((ff, hid), dtype=f32, device=dev)
         sums = torch.empty((3 * hid + ff,), dtype=f32, device=dev)
         scratch = torch.empty((_workspace("mm_mlp_block_bwd", m, hid, ff, w2_plan[0], w1_plan[0]),),
                               dtype=torch.uint8, device=dev)
-        _build.call("mm_mlp_block_bwd", _build.ptr(x), _build.ptr(w1), _build.ptr(fa._f32(b1)), _build.ptr(w2),
-                    _build.ptr(fa._f32(ln_scale)), _build.ptr(dy), _build.ptr(acc), _build.ptr(h), _build.ptr(dx),
-                    _build.ptr(dw1), _build.ptr(dw2), _build.ptr(sums), _build.ptr(scratch), m, hid, ff, ln_eps,
+        _build.call("mm_mlp_block_bwd", _build.ptr(xp), _build.ptr(pw1), _build.ptr(pb1), _build.ptr(pw2),
+                    _build.ptr(g), _build.ptr(dyp), _build.ptr(acc), _build.ptr(h), _build.ptr(dx),
+                    _build.ptr(dw1), _build.ptr(dw2), _build.ptr(sums), _build.ptr(scratch), m, hid, n, ff, ln_eps,
                     *w2_plan, *w1_plan, _build.stream(dev))
     _build.LAUNCHES["fused_mlp_block_bwd"] += 1
     dg, dbe, db2, db1 = sums.split((hid, hid, hid, ff))
-    return dx, dw1, db1, dw2, db2, dg, dbe
+    return (_cut(dx, x), _cut(dw1, w1), _cut(db1, b1), _cut(dw2, w2), db2[:n], dg[:n], dbe[:n])
 
 
 def _attention_block_bwd_cuda(x, wqkv, wo, mask, n_heads, ln_scale, dy, saved, ln_eps, head_dim=None):
     """K12 on the card, one C call (csrc mm_attention_block_bwd): (dx bf16,
     dwqkv, dbqkv, dwo, dbo, dg, dbe f32), the Q/K/V gradients packed as the
-    weights are. wqkv (HID, 3·A) and wo (A, HID) with the heads at an
-    instanced width, as the forward took them; ``head_dim`` the true one."""
+    weights are, each cut back to its input's shape. wqkv (HID, 3·A) and wo
+    (A, HID) with the heads at an instanced width, as the forward took them;
+    ``head_dim`` the true one; HID run at fa.card_width as the forward ran
+    it."""
     acc, qkv, attn = saved
-    b, l, hid = x.shape
+    b, l, n = x.shape
+    hid = fa.card_width(n)
     width = wo.shape[0]
     d = width // n_heads
-    if d not in fa._KERNEL_HEAD_DIMS or tuple(wqkv.shape) != (hid, 3 * width):
+    pwqkv, pwo = fa.pad_attention_hidden(wqkv, wo, hid)
+    if d not in fa._KERNEL_HEAD_DIMS or tuple(pwqkv.shape) != (hid, 3 * width) or pwo.shape[1] != hid:
         raise ValueError(f"fused_attention_block_bwd: the CUDA kernel takes head widths {fa._KERNEL_HEAD_DIMS} "
                          f"(pad_attention_heads), got wqkv {tuple(wqkv.shape)}, wo {tuple(wo.shape)}, "
-                         f"{n_heads} heads")
+                         f"{n_heads} heads for x {tuple(x.shape)}")
     if not 1 <= l <= fa._KERNEL_MAX_LEN:
         raise ValueError(f"fused_attention_block_bwd: the CUDA kernel takes 1 <= L <= {fa._KERNEL_MAX_LEN}, "
                          f"got L={l}")
+    check_ln_bwd_width("fused_attention_block_bwd", n)
     fa._check_gemm_dims("fused_attention_block_bwd", hid, width)
-    _check_bwd("fused_attention_block_bwd", x, dy, (("wqkv", wqkv), ("wo", wo)))
+    _check_bwd("fused_attention_block_bwd", x, dy, (("wqkv", pwqkv), ("wo", pwo)))
     m = b * l
     wo_plan, wqkv_plan = wgrad_plan(m, width, hid), wgrad_plan(m, hid, 3 * width)
     f32, dev = torch.float32, x.device
+    xp, dyp = fa.pad_groups(x, 1, hid, -1), fa.pad_groups(dy, 1, hid, -1)
+    g, = fa.pad_vectors(hid, fa._f32(ln_scale))
+    mask = fa._f32(mask)
     with torch.cuda.device(dev):
-        dx = torch.empty_like(x)
+        dx = torch.empty_like(xp)
         dwqkv = torch.empty((hid, 3 * width), dtype=f32, device=dev)
         dwo = torch.empty((width, hid), dtype=f32, device=dev)
         sums = torch.empty((3 * hid + 3 * width,), dtype=f32, device=dev)
         scratch = torch.empty((_workspace("mm_attention_block_bwd", b, l, n_heads, hid, width, wo_plan[0],
                                           wqkv_plan[0]),), dtype=torch.uint8, device=dev)
-        _build.call("mm_attention_block_bwd", _build.ptr(x), _build.ptr(wqkv), _build.ptr(wo),
-                    _build.ptr(fa._f32(mask)), _build.ptr(fa._f32(ln_scale)), _build.ptr(dy), _build.ptr(acc),
+        _build.call("mm_attention_block_bwd", _build.ptr(xp), _build.ptr(pwqkv), _build.ptr(pwo),
+                    _build.ptr(mask), _build.ptr(g), _build.ptr(dyp), _build.ptr(acc),
                     _build.ptr(qkv), _build.ptr(attn), _build.ptr(dx), _build.ptr(dwqkv), _build.ptr(dwo),
-                    _build.ptr(sums), _build.ptr(scratch), b, l, n_heads, hid, width, ln_eps,
+                    _build.ptr(sums), _build.ptr(scratch), b, l, n_heads, hid, n, width, ln_eps,
                     1.0 / (head_dim or d) ** 0.5, *wo_plan, *wqkv_plan, _build.stream(dev))
     _build.LAUNCHES["fused_attention_block_bwd"] += 1
     dg, dbe, dbo, dbqkv = sums.split((hid, hid, hid, 3 * width))
-    return dx, dwqkv, dbqkv, dwo, dbo, dg, dbe
+    return _cut(dx, x), _cut(dwqkv, wqkv), dbqkv, _cut(dwo, wo), dbo[:n], dg[:n], dbe[:n]
 
 
 def attention_block_bwd(x, wqkv, bqkv, wo, mask, n_heads, ln_scale, dy, saved, ln_eps: float = 1e-12,

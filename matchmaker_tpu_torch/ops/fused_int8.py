@@ -23,7 +23,7 @@ and scales are the kernel's bit for bit.
 
 On a CUDA tensor each half runs the hand-written kernels of
 ``csrc/encoder_int8_kernels.cu`` (bf16 x, int8 codes, f32 scales and
-biases; head width at most 64): int8 ``wgmma`` products fed by TMA, which take both
+biases; head width at most 128): int8 ``wgmma`` products fed by TMA, which take both
 operands K-major, so the weights' codes go in transposed, (OUT, IN).
 :func:`fused_mlp_int8_block_kmajor` and
 :func:`fused_attention_int8_block_qkv_kmajor` take them so (the encoder
@@ -38,12 +38,17 @@ a multiple of 64. A zero column's gelu is 0, meets zero rows of W2, and
 leaves every row's, chunk's and group's amax, and so every real code,
 JAX's; the activations' codes are written into the padded row stride by
 the quantization kernel itself. The plain versions take the padded codes
-as well as the unpadded ones. :func:`check_mlp_int8_geometry`
+as well as the unpadded ones. A hidden width that is not a multiple of 8
+runs at the next one on the card (``card_width``, as the bf16 halves): x
+copied into zero-padded rows, the output products' rows padded with zero
+codes of scale 1 and bias 0 in the wrapper, the LayerNorm over the true
+width. :func:`check_mlp_int8_geometry`
 and :func:`check_attention_int8_geometry` say which shapes the card path
 takes. On a CPU tensor each half runs its plain version,
 :func:`reference_mlp_int8_block` / :func:`reference_attention_int8_block`,
 which repeat the kernels' arithmetic: the int8 products as f32 products of
-the codes, exact while 127²·K < 2²⁴ (K ≤ 1040, checked), with TF32 kept out
+the codes, exact while 127²·K < 2²⁴ (K ≤ 1040), f64 past it (the exact
+sums rounded once to f32, as the kernels convert theirs), TF32 kept out
 (``ops.matmul_codes``).
 """
 
@@ -55,8 +60,8 @@ from typing import Tuple
 import torch
 
 from matchmaker_tpu_torch.ops import _build, matmul_codes, matmul_f32, over_127
-from matchmaker_tpu_torch.ops.fused_attention import (_ERF_FASTPOLY, _f32, _layer_norm_f32, instanced_head_width,
-                                                      kernel_head_dim, pad_groups)
+from matchmaker_tpu_torch.ops.fused_attention import (_ERF_FASTPOLY, _f32, _layer_norm_f32, _layernorm, card_width,
+                                                      instanced_head_width, kernel_head_dim, pad_groups)
 
 # Epilogues of mm_wg_gemm_s8 (csrc/encoder_int8_kernels.cu)
 _EPI_S8_BIAS_BF16, _EPI_S8_CHUNKS_RESID_F32 = 0, 1
@@ -89,7 +94,7 @@ def pad_int8_attention(wqkv_t, sqkv, bqkv, wo_t, n_heads: int, group_heads: int 
     0), the contraction over x (HID) and each group of ``group_heads``
     heads' Wo columns padded with zero codes to whole 64-code steps. →
     (wqkv_t, sqkv, bqkv, wo_t); the inputs where nothing needs padding.
-    Heads wider than 64 stay as they are (the card refuses them)."""
+    Heads wider than 128 stay as they are (the card refuses them)."""
     d = wqkv_t.shape[0] // (3 * n_heads)
     width = instanced_head_width(d)
     wqkv_t, sqkv, bqkv = (pad_groups(t, 3 * n_heads, width, 0, v) for t, v in ((wqkv_t, 0.0), (sqkv, 1.0),
@@ -245,29 +250,33 @@ def _check_chunked_dims(name: str, k: int, n: int, chunk: int) -> None:
 
 
 def _check_hidden(name: str, hid: int) -> None:
-    if hid <= 0 or hid % 8:
-        raise ValueError(f"{name}: the CUDA kernel takes a hidden width that is a multiple of 8, got {hid}")
+    if hid <= 0:
+        raise ValueError(f"{name}: the CUDA kernel takes a positive hidden width, got {hid}")
 
 
 def check_mlp_int8_geometry(hid: int, ff: int, ff_chunks: int) -> None:
     """Raise ValueError, with the reason, unless the card path of
-    :func:`fused_mlp_int8_block` takes this layer: a hidden width that is a
-    multiple of 8 and FF in ``ff_chunks`` equal chunks. The W1 product runs
-    over HID as one chunk and the W2 product over FF chunk by chunk, each
-    padded to whole 64-code steps (:func:`pad_int8_mlp`; any chunk width:
-    the W1 kernel runs a chunk wider than 768 columns in passes)."""
+    :func:`fused_mlp_int8_block` takes this layer: any hidden width (run at
+    ``card_width``) and FF in ``ff_chunks`` equal chunks. The W1 product
+    runs over HID as one chunk and the W2 product over FF chunk by chunk,
+    each padded to whole 64-code steps (:func:`pad_int8_mlp`; any chunk
+    width: the W1 kernel runs a chunk wider than 768 columns in passes).
+    An FF that ``ff_chunks`` does not divide is refused: JAX's fused int8
+    MLP drops its last FF % ff_chunks columns there (ROADMAP.md §3) and its
+    unfused MLP keeps them, so the two references disagree."""
     name = "fused_mlp_int8_block"
     if ff_chunks <= 0:
         raise ValueError(f"{name}: ff_chunks must be positive, got {ff_chunks}")
     _check_hidden(name, hid)
     if ff % ff_chunks:
-        raise ValueError(f"{name}: the CUDA kernel takes FF in equal chunks, got FF={ff}, ff_chunks={ff_chunks}")
+        raise ValueError(f"{name}: the CUDA kernel takes FF in equal chunks (JAX's fused int8 MLP drops the last "
+                         f"FF % ff_chunks columns, its unfused MLP keeps them), got FF={ff}, ff_chunks={ff_chunks}")
 
 
 def check_attention_int8_geometry(hid: int, n_heads: int, group_heads: int, length: int) -> None:
     """Raise ValueError, with the reason, unless the card path of
-    :func:`fused_attention_int8_block` takes this layer: a hidden width that
-    is a multiple of 8, heads at most 64 wide (K1's attention core, a head
+    :func:`fused_attention_int8_block` takes this layer: any hidden width
+    (run at ``card_width``), heads at most 128 wide (K1's attention core, a head
     zero-padded to the next width it is instanced for), whole groups of
     heads and 1 <= L <= 512. The Wo product runs over the heads in chunks
     of one head group, each padded to whole 64-code steps
@@ -310,22 +319,24 @@ def _mlp_int8_cuda(x, w1_t, s1, b1, w2_t, s2, b2, ln_scale, ln_bias, ln_eps, ff_
     check_mlp_int8_geometry(hid, w1_t.shape[0], ff_chunks)
     w1_t, s1, b1, w2_t = pad_int8_mlp(w1_t, s1, b1, w2_t, ff_chunks)  # a no-op on padded codes
     ff, k = w1_t.shape
+    width = card_width(hid)  # W2's output columns and the residual's rows
+    w2_t, s2, b2 = (pad_groups(t, 1, width, 0, v) for t, v in ((w2_t, 0.0), (s2, 1.0), (b2, 0.0)))
     _check_chunked_dims(name, k, ff, k)
-    _check_chunked_dims(name, ff, hid, ff // ff_chunks)
+    _check_chunked_dims(name, ff, width, ff // ff_chunks)
     _check_kmajor(name, "w1_t", w1_t, ff, _round_up(hid))
-    _check_kmajor(name, "w2_t", w2_t, hid, ff)
+    _check_kmajor(name, "w2_t", w2_t, width, ff)
     _build.check_cuda(x, f"{name}.x", torch.bfloat16)
     _check_int8_weights(name, w1_t=w1_t, w2_t=w2_t)
     s1, b1, s2, b2, ln_scale, ln_bias = _f32_on_card(name, s1, b1, s2, b2, ln_scale, ln_bias)
     m = b * l
+    xp = pad_groups(x.reshape(m, hid), 1, width, 1)
     with torch.cuda.device(x.device):
-        xq, rs = _quant_groups_cuda(x.reshape(m, hid), 1, k)
+        xq, rs = _quant_groups_cuda(xp, 1, k)
         hq, hs = _gemm_s8_gelu_quant(xq, w1_t, rs, s1, b1, ff_chunks)
-        acc = torch.empty((m, hid), dtype=torch.float32, device=x.device)
-        _gemm_s8(hq, w2_t, hs, s2, b2, acc, _EPI_S8_CHUNKS_RESID_F32, ff // ff_chunks, resid=x)
+        acc = torch.empty((m, width), dtype=torch.float32, device=x.device)
+        _gemm_s8(hq, w2_t, hs, s2, b2, acc, _EPI_S8_CHUNKS_RESID_F32, ff // ff_chunks, resid=xp)
         out = torch.empty_like(x)
-        _build.call("mm_layernorm", _build.ptr(acc), _build.ptr(ln_scale), _build.ptr(ln_bias),
-                    _build.ptr(out), m, hid, ln_eps, _build.stream(x.device))
+        _layernorm(acc, ln_scale, ln_bias, hid, ln_eps, out)
     _build.LAUNCHES[name] += 1
     return out
 
@@ -345,27 +356,29 @@ def _attention_int8_cuda(x, wqkv_t, sqkv, bqkv, wo_t, so, bo, mask, n_heads, ln_
     gw = group_heads * d
     groups = n_heads // group_heads
     k, chunk = wqkv_t.shape[1], wo_t.shape[1] // groups
+    hidp = card_width(hid)  # Wo's output columns and the residual's rows
+    wo_t, so, bo = (pad_groups(t, 1, hidp, 0, v) for t, v in ((wo_t, 0.0), (so, 1.0), (bo, 0.0)))
     _check_kmajor(name, "wqkv_t", wqkv_t, 3 * n_heads * kernel_head_dim(name, width, n_heads), _round_up(hid))
-    _check_kmajor(name, "wo_t", wo_t, hid, groups * _round_up(gw))
+    _check_kmajor(name, "wo_t", wo_t, hidp, groups * _round_up(gw))
     _check_chunked_dims(name, k, 3 * width, k)
-    _check_chunked_dims(name, groups * chunk, hid, chunk)
+    _check_chunked_dims(name, groups * chunk, hidp, chunk)
     _build.check_cuda(x, f"{name}.x", torch.bfloat16)
     _check_int8_weights(name, wqkv_t=wqkv_t, wo_t=wo_t)
     sqkv, bqkv, so, bo, mask, ln_scale, ln_bias = _f32_on_card(name, sqkv, bqkv, so, bo, mask, ln_scale, ln_bias)
     m = b * l
+    xp = pad_groups(x.reshape(m, hid), 1, hidp, 1)
     with torch.cuda.device(x.device):
-        xq, rs = _quant_groups_cuda(x.reshape(m, hid), 1, k)
+        xq, rs = _quant_groups_cuda(xp, 1, k)
         qkv = torch.empty((b, l, 3 * width), dtype=torch.bfloat16, device=x.device)
         _gemm_s8(xq, wqkv_t, rs, sqkv, bqkv, qkv, _EPI_S8_BIAS_BF16, k)
         attn = torch.empty((m, width), dtype=torch.float32, device=x.device)
         _build.call("mm_attention_core_f32", _build.ptr(qkv), _build.ptr(mask), _build.ptr(attn),
                     b, l, n_heads, d, 1.0 / (head_dim or d) ** 0.5, _build.stream(x.device))
         aq, as_ = _quant_groups_cuda(attn, groups, chunk)
-        acc = torch.empty((m, hid), dtype=torch.float32, device=x.device)
-        _gemm_s8(aq, wo_t, as_, so, bo, acc, _EPI_S8_CHUNKS_RESID_F32, chunk, resid=x)
+        acc = torch.empty((m, hidp), dtype=torch.float32, device=x.device)
+        _gemm_s8(aq, wo_t, as_, so, bo, acc, _EPI_S8_CHUNKS_RESID_F32, chunk, resid=xp)
         out = torch.empty_like(x)
-        _build.call("mm_layernorm", _build.ptr(acc), _build.ptr(ln_scale), _build.ptr(ln_bias),
-                    _build.ptr(out), m, hid, ln_eps, _build.stream(x.device))
+        _layernorm(acc, ln_scale, ln_bias, hid, ln_eps, out)
     _build.LAUNCHES[name] += 1
     return out
 
@@ -387,8 +400,8 @@ def fused_mlp_int8_block(x, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias, ln_eps:
                          ff_chunks: int = 4):
     """LN(x + W2q·gelu(W1q·x + b1) + b2): x (B, L, HID); w1q (HID, FF) and
     w2q (FF, HID) int8 with (FF,) / (HID,) f32 column scales; biases and LN
-    parameters f32. CUDA tensors: x bf16, HID a multiple of 8, FF in
-    ``ff_chunks`` equal chunks."""
+    parameters f32. CUDA tensors: x bf16, any HID, FF in ``ff_chunks``
+    equal chunks."""
     if not x.is_cuda:
         return reference_mlp_int8_block(x, w1q, s1, b1, w2q, s2, b2, ln_scale, ln_bias, ln_eps, ff_chunks)
     return _mlp_int8_cuda(x, kmajor_codes(w1q), s1, b1, kmajor_codes(w2q), s2, b2, ln_scale, ln_bias, ln_eps,
@@ -411,7 +424,7 @@ def fused_attention_int8_block(x, wqq, sq, wkq, sk, wvq, sv, woq, so, bq, bk, bv
     """LN(x + OutProj(MHA(QKV-proj(x)))) with int8 projections: x (B, L,
     HID); wqq/wkq/wvq/woq (HID, HID) int8 with (HID,) f32 column scales;
     biases and LN parameters (HID,); mask (B, L), 1 = real key. CUDA
-    tensors: x bf16, head width at most 64, 1 <= L <= 512."""
+    tensors: x bf16, head width at most 128, 1 <= L <= 512."""
     if not x.is_cuda:
         return reference_attention_int8_block(x, wqq, sq, wkq, sk, wvq, sv, woq, so, bq, bk, bv, bo, mask,
                                               n_heads, ln_scale, ln_bias, ln_eps, group_heads)

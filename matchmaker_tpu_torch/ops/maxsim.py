@@ -20,9 +20,12 @@ CPU tensors run the plain versions (:func:`reference_maxsim_all_pairs`,
 :func:`reference_maxsim_gathered`), differentiated by autograd; CUDA tensors
 launch the hand-written kernel of ``csrc/maxsim_kernels.cu`` (K14), which
 serves both forms (the all-pairs docs as dense Ld-row blocks of their flat
-rows with the doc mask), or raise. The kernel takes D % 8 == 0 up to 2048
-and 1 <= Lq <= 512 (:func:`check_kernel_geometry`, which runs on any
-device).
+rows with the doc mask), or raise. The kernels take D up to 2048 and
+1 <= Lq <= 512 (:func:`check_kernel_geometry`, which runs on any device);
+their tiles are read 16 bytes at a time, so a D that is not a multiple of
+8 runs at the next one, q and the doc tokens copied into zero-padded rows
+(:func:`_pad_dim`): zero columns add nothing to a dot product, and the
+backward's gradients are cut back to D.
 
 Under autograd on the card, the all-pairs form runs as
 :class:`MaxSimAllPairs`: the training form, which also saves each (query
@@ -56,6 +59,7 @@ import functools
 import torch
 
 from matchmaker_tpu_torch.ops import _build, matmul_f32
+from matchmaker_tpu_torch.ops.fused_attention import card_width, pad_groups
 
 NEG_FILL = -1000.0
 # csrc/maxsim_kernels.cu: the most query rows a block sums (the encoder's
@@ -208,8 +212,9 @@ def reference_maxsim_gathered(q_vecs: torch.Tensor, q_mask: torch.Tensor, tokens
 
 def check_kernel_geometry(q_vecs, d_vecs, q_mask, d_mask) -> None:
     """Raise ValueError unless K14 takes these shapes: q (Bq, Lq, D), d
-    (Bd, Ld, D), masks (Bq, Lq) / (Bd, Ld), D % 8 == 0, D <= 2048 and
-    1 <= Lq <= 512. Reads shapes only, so it runs on tensors on any device."""
+    (Bd, Ld, D), masks (Bq, Lq) / (Bd, Ld), 1 <= D <= 2048 (run at the
+    next multiple of 8) and 1 <= Lq <= 512. Reads shapes only, so it runs on
+    tensors on any device."""
     bq, lq, dim = q_vecs.shape
     bd, ld, dim_d = d_vecs.shape
     if dim != dim_d or tuple(q_mask.shape) != (bq, lq) or tuple(d_mask.shape) != (bd, ld):
@@ -227,9 +232,15 @@ def check_backward_geometry(q_vecs, d_vecs, q_mask, d_mask) -> None:
 
 
 def _check_widths(dim: int, lq: int) -> None:
-    if dim < 8 or dim % 8 or dim > _KERNEL_MAX_DIM or not 1 <= lq <= _KERNEL_MAX_LQ:
-        raise ValueError(f"maxsim: the CUDA kernel takes D % 8 == 0 with D <= {_KERNEL_MAX_DIM} and "
-                         f"1 <= Lq <= {_KERNEL_MAX_LQ}, got D={dim}, Lq={lq}")
+    if not 1 <= dim <= _KERNEL_MAX_DIM or not 1 <= lq <= _KERNEL_MAX_LQ:
+        raise ValueError(f"maxsim: the CUDA kernel takes 1 <= D <= {_KERNEL_MAX_DIM} (run at the next multiple "
+                         f"of 8) and 1 <= Lq <= {_KERNEL_MAX_LQ}, got D={dim}, Lq={lq}")
+
+
+def _pad_dim(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with its last axis (D) zero-padded to the next multiple of 8,
+    the width the kernels read (``t`` itself where D is one)."""
+    return pad_groups(t, 1, card_width(t.shape[-1]), -1)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -246,6 +257,7 @@ def _launch(q, q_mask, tokens, tok_mask, first, count, pad_tokens: int, n_cands:
             tok_mask is not None and tok_mask.requires_grad)):
         raise NotImplementedError("maxsim: the gathered form is a forward-only serving form; only "
                                   "maxsim_all_pairs has a backward")
+    q, tokens = _pad_dim(q), _pad_dim(tokens)
     b, lq, dim = q.shape
     c = n_cands if first is None else first.shape[1]
     dev = q.device
@@ -288,6 +300,7 @@ def _launch_argmax(q, q_mask, d, d_mask, fill):
     token of each max, -1 where the fill is the max)."""
     for name, t in (("q_vecs", q), ("q_mask", q_mask), ("d_vecs", d), ("d_mask", d_mask)):
         _build.check_cuda(t, f"maxsim.{name}", torch.float32)
+    q, d = _f32(_pad_dim(q)), _f32(_pad_dim(d))
     (bq, lq, dim), (bd, ld) = q.shape, d.shape[:2]
     dev = q.device
     with _build.on(dev):
@@ -305,12 +318,15 @@ def _launch_argmax(q, q_mask, d, d_mask, fill):
 
 def _launch_bwd(q, q_mask, d, d_mask, argmax, g):
     """The backward kernels: (dq (Bq, Lq, D), dd (Bd, Ld, D)) f32 from g
-    (Bq, Bd) and the training form's argmax over the same inputs."""
+    (Bq, Bd) and the training form's argmax over the same inputs (run at D
+    padded to a multiple of 8, the gradients cut back)."""
     g = _f32(g)
     for name, t, dtype in (("q_vecs", q, torch.float32), ("q_mask", q_mask, torch.float32),
                            ("d_vecs", d, torch.float32), ("d_mask", d_mask, torch.float32),
                            ("argmax", argmax, torch.int32), ("grad", g, torch.float32)):
         _build.check_cuda(t, f"maxsim_bwd.{name}", dtype)
+    width = q.shape[-1]
+    q, d = _f32(_pad_dim(q)), _f32(_pad_dim(d))
     (bq, lq, dim), (bd, ld) = q.shape, d.shape[:2]
     dev = q.device
     with _build.on(dev):
@@ -326,7 +342,7 @@ def _launch_bwd(q, q_mask, d, d_mask, argmax, g):
         else:
             dq.zero_()
             dd.zero_()
-    return dq, dd
+    return dq[..., :width], dd[..., :width]
 
 
 def maxsim_all_pairs_argmax(q_vecs: torch.Tensor, d_vecs: torch.Tensor, q_mask: torch.Tensor,
@@ -378,8 +394,8 @@ def maxsim_all_pairs(q_vecs: torch.Tensor, d_vecs: torch.Tensor, q_mask: torch.T
                      *, fill: float = NEG_FILL) -> torch.Tensor:
     """All-pairs MaxSim matrix (Bq, Bd) f32: q_vecs (Bq, Lq, D), d_vecs
     (Bd, Ld, D), q_mask (Bq, Lq), d_mask (Bd, Ld). Padded doc tokens
-    (mask <= 0) take ``fill``. CUDA tensors: D % 8 == 0 up to 2048,
-    1 <= Lq <= 512; under autograd also Ld <= 1024 (:class:`MaxSimAllPairs`)."""
+    (mask <= 0) take ``fill``. CUDA tensors: D up to 2048, 1 <= Lq <= 512;
+    under autograd also Ld <= 1024 (:class:`MaxSimAllPairs`)."""
     if not q_vecs.is_cuda:
         return reference_maxsim_all_pairs(q_vecs, d_vecs, q_mask, d_mask, fill)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q_vecs, d_vecs, q_mask, d_mask)):

@@ -104,8 +104,17 @@ def test_attention_int8_block_matches_jax_kernel(packed):
 
 
 def test_int8_dot_refuses_an_inexact_depth():
-    with pytest.raises(ValueError, match="exact"):
-        matmul_codes(torch.ones(2, 2048, dtype=torch.int8), torch.ones(2048, 3, dtype=torch.int8))
+    """Past depth 1,040 an f32 product of int8 codes would round its sums
+    on the way (127² · 2,047 > 2²⁴): the product runs in f64 instead, and
+    each exact integer sum is rounded once to f32, as the card's kernels
+    convert their int32 sums (BERT-large-wide int8 halves: hidden 1,536)."""
+    rng = np.random.default_rng(0)
+    a = rng.choice([127, 125, 123], size=(3, 2047)).astype(np.int8)
+    b = rng.choice([127, 121], size=(2047, 5)).astype(np.int8)
+    exact = a.astype(np.int64) @ b.astype(np.int64)
+    assert np.abs(exact).min() > 1 << 24 and (exact.astype(np.float32).astype(np.int64) != exact).any()
+    got = matmul_codes(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.float32 and torch.equal(got, torch.from_numpy(exact).float())
 
 
 def _ids_mask(seed, b=4, l=24, vocab=900):
@@ -329,16 +338,18 @@ def _seed_attention_rule(hid, n_heads, group_heads, length):
 
 def _padded_mlp_rule(hid, ff, ff_chunks):
     """The card path's MLP geometry since the codes are padded to whole
-    64-code steps (ops/fused_int8.py:pad_int8_mlp): a hidden width that is a
-    multiple of 8, FF in equal chunks."""
-    return ff_chunks > 0 and hid % 8 == 0 and ff % ff_chunks == 0
+    64-code steps (ops/fused_int8.py:pad_int8_mlp) and a hidden width that
+    is not a multiple of 8 runs at the next one: any hidden width, FF in
+    equal chunks."""
+    return ff_chunks > 0 and hid > 0 and ff % ff_chunks == 0
 
 
 def _padded_attention_rule(hid, n_heads, group_heads, length):
     """Since heads narrower than an instance are zero-padded to it and each
-    head group's Wo codes to whole 64-code steps: heads at most 64 wide."""
+    head group's Wo codes to whole 64-code steps, with the 128-wide
+    instance: heads at most 128 wide, any hidden width."""
     d = hid // n_heads if hid % n_heads == 0 else 0
-    return (0 < d <= 64 and n_heads % group_heads == 0 and 1 <= length <= 512 and hid % 8 == 0)
+    return (0 < d <= 128 and n_heads % group_heads == 0 and 1 <= length <= 512 and hid > 0)
 
 
 def _accepts(check, *args):
@@ -371,9 +382,11 @@ def test_mlp_int8_card_geometry_accepts_what_the_earlier_kernels_took():
 
 def test_attention_int8_card_geometry_accepts_what_the_earlier_kernels_took():
     """Every layer the earlier card path took is taken, and exactly the
-    padded path's rule: heads up to 64 wide (TinyBERT's 12 of 26 included)."""
+    padded path's rule: heads up to 128 wide (TinyBERT's 12 of 26 and
+    BERT-large's 16 of 64 included), hidden widths that are not a multiple
+    of 8 among them."""
     seen = {True: 0, False: 0}
-    for hid in (64, 128, 192, 312, 384, 512, 768, 1024):
+    for hid in (64, 100, 128, 192, 312, 384, 512, 768, 1024, 1536):
         for n_heads in (1, 2, 3, 4, 6, 8, 12, 16):
             for group_heads in (1, 2, 3, 4):
                 for length in (1, 5, 512, 513):
@@ -394,7 +407,8 @@ def test_attention_int8_card_geometry_accepts_what_the_earlier_kernels_took():
     (tf.check_mlp_int8_geometry, (768, 3072, 0), "positive"),
     (tf.check_mlp_int8_geometry, (96, 384, 4), None),  # chunks of 96, padded to 128
     (tf.check_mlp_int8_geometry, (312, 1200, 4), None),  # TinyBERT: chunks of 300, HID 312 padded to 320
-    (tf.check_mlp_int8_geometry, (300, 1200, 4), "multiple of 8"),
+    (tf.check_mlp_int8_geometry, (300, 1200, 4), None),  # HID 300 run at 304
+    (tf.check_mlp_int8_geometry, (1200, 37, 4), "equal chunks"),  # JAX's fused MLP drops FF 37's last column
     (tf.check_attention_int8_geometry, (768, 12, 2, 128), None),
     (tf.check_attention_int8_geometry, (768, 12, 1, 1), None),  # Wo chunks of one head: 64 codes
     (tf.check_attention_int8_geometry, (768, 24, 2, 128), None),  # heads of 32: Wo chunks of 64 codes
@@ -402,7 +416,8 @@ def test_attention_int8_card_geometry_accepts_what_the_earlier_kernels_took():
     (tf.check_attention_int8_geometry, (256, 16, 4, 128), None),  # heads of 16, four a group
     (tf.check_attention_int8_geometry, (384, 12, 1, 128), None),  # one head of 32 a group, padded to 64
     (tf.check_attention_int8_geometry, (312, 12, 2, 128), None),  # TinyBERT: heads of 26, padded to 32
-    (tf.check_attention_int8_geometry, (768, 6, 2, 128), "head widths"),  # heads of 128
+    (tf.check_attention_int8_geometry, (768, 6, 2, 128), None),  # heads of 128
+    (tf.check_attention_int8_geometry, (1536, 6, 2, 128), "head widths"),  # heads of 256
     (tf.check_attention_int8_geometry, (768, 12, 5, 128), "whole head groups"),
     (tf.check_attention_int8_geometry, (768, 12, 0, 128), "whole head groups"),
     (tf.check_attention_int8_geometry, (768, 12, 2, 513), "L <= 512"),

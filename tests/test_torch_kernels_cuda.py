@@ -1136,10 +1136,11 @@ def test_maxsim_kernel_refuses_autograd_and_bad_shapes(device):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["maxsim_all_pairs_argmax"] == 1 and _build.LAUNCHES["maxsim_all_pairs_bwd"] == 1
     assert _build.LAUNCHES["maxsim_all_pairs"] == 0
-    with pytest.raises(ValueError, match="D % 8"):
-        ms.maxsim_all_pairs(q.detach()[..., :12], d[..., :12], qm, dm)
-    with pytest.raises(ValueError, match="D % 8"):
-        ms.maxsim_all_pairs(q[..., :12].clone().requires_grad_(), d[..., :12], qm, dm)
+    wide_q, wide_d = (torch.zeros(*t.shape[:2], 2056, device=device) for t in (q, d))  # D past 2,048
+    with pytest.raises(ValueError, match="D <= 2048"):
+        ms.maxsim_all_pairs(wide_q, wide_d, qm, dm)
+    with pytest.raises(ValueError, match="D <= 2048"):
+        ms.maxsim_all_pairs(wide_q.clone().requires_grad_(), wide_d, qm, dm)
     long_d = torch.randn(3, 1025, 32, device=device)
     with pytest.raises(ValueError, match="Ld <= 1024"):
         ms.maxsim_all_pairs(q.clone().requires_grad_(), long_d, qm, torch.ones(3, 1025, device=device))
@@ -1340,11 +1341,11 @@ def test_int8_halves_at_head_widths_16_and_32(device, hid, heads, b, l):
 
 @pytest.mark.cuda
 def test_attention_kernels_refuse_other_head_widths(device):
-    """Heads wider than 64 (no core is instanced for 128) are refused before
-    any launch, naming the widths taken; TinyBERT's 26 now runs padded."""
-    x = torch.zeros(1, 8, 768, device=device, dtype=torch.bfloat16)
+    """Heads wider than 128 (no core is instanced past 128) are refused
+    before any launch, naming the widths taken; TinyBERT's 26 runs padded."""
+    x = torch.zeros(1, 8, 1536, device=device, dtype=torch.bfloat16)
     _build.reset_launches()
-    with pytest.raises(ValueError, match="head widths up to 64"):
+    with pytest.raises(ValueError, match="head widths up to 128"):
         fa.fused_mha(x, x, x, torch.ones(1, 8, device=device), 6)
     assert _build.LAUNCHES["fused_mha"] == 0
     x = torch.zeros(1, 8, 312, device=device, dtype=torch.bfloat16)
@@ -1493,6 +1494,156 @@ def test_int8_halves_at_padded_widths(device, hid, heads, ff, b, l):
         mean = float((got.float() - want.float()).abs().mean())
         assert cos >= 0.999 and err <= 0.1, (kernel.__name__, cos, err)
         assert mean <= 5e-5, (kernel.__name__, mean)
+
+
+# Heads of 128 on the 128-wide instances of the attention cores, and heads
+# of 80 zero-padded to them (K1, K13, K10 forward; K12 backward), FF 4 x
+# hidden; the LayerNorm backward past 1,024 columns (K11, K12 on the
+# block-a-row kernel); hidden and FF widths that are not a multiple of 8
+# (the products at the next one, the LayerNorm over the true width; K1, K2,
+# K9, K10, K11, K12); K14 at D that is not a multiple of 8. All against the
+# plain versions on the unpadded weights, at the bars of the tests above.
+WIDE_HEADS = [(1024, 8, 4096), (640, 8, 2560)]
+WIDE_SHAPES = [(4, 128), (3, 77), (2, 1), (1, 512)]
+ODD_HIDDEN = [(100, 4, 400), (32, 4, 36), (36, 4, 37)]
+ODD_HIDDEN_SHAPES = [(16, 230), (3, 77), (2, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,heads,ff", WIDE_HEADS + ODD_HIDDEN)
+def test_halves_and_mha_at_wide_heads_and_odd_widths(device, hid, heads, ff):
+    """K1, K2 and K13 at heads of 128 and 80 and at hidden widths that are
+    not a multiple of 8, against their plain versions: the encoder halves'
+    bar (row cosine >= 0.999, max |d| <= 0.1), the output unpadded."""
+    shapes = WIDE_SHAPES if hid // heads > 64 else ODD_HIDDEN_SHAPES
+    for b, l in shapes:
+        attn, mlp = _layer_weights(hid, ff, device, seed=b * 1000 + l + hid)
+        x = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+        mask = torch.ones(b, l, device=device)
+        mask[0, l // 2 + 1:] = 0.0
+        args = (attn["wq"], attn["wk"], attn["wv"], attn["wo"], attn["bq"], attn["bk"], attn["bv"],
+                attn["bo"], mask, heads, attn["ln_scale"], attn["ln_bias"])
+        margs = (mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"], mlp["ln_scale"], mlp["ln_bias"])
+        q, k, v = (torch.randn(b, l, hid, device=device).to(torch.bfloat16) for _ in range(3))
+        _build.reset_launches()
+        for got, want in ((fa.fused_attention_block(x, *args), fa.reference_attention_block(x, *args)),
+                          (fa.fused_mlp_block(x, *margs), fa.reference_mlp_block(x, *margs)),
+                          (fa.fused_mha(q, k, v, mask, heads), fa.mha_reference(q, k, v, mask, heads))):
+            torch.cuda.synchronize()
+            assert got.shape == want.shape and bool(torch.isfinite(got.float()).all())
+            cos, err = _rows_close(got, want)
+            assert cos >= 0.999 and err <= 0.1, (b, l, cos, err)
+        assert (_build.LAUNCHES["fused_attention_block"], _build.LAUNCHES["fused_mlp_block"],
+                _build.LAUNCHES["fused_mha"]) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,heads,ff", WIDE_HEADS + ODD_HIDDEN)
+def test_backward_halves_at_wide_heads_and_odd_widths(device, hid, heads, ff):
+    """K12 (its attention core at 128, padded heads' columns exactly zero)
+    and K11 at heads of 128 and 80 and at odd hidden and FF widths, every
+    gradient unpadded, and the core's backward alone at the wide heads, at
+    the backward's bar."""
+    shapes = WIDE_SHAPES if hid // heads > 64 else ODD_HIDDEN_SHAPES
+    for b, l in shapes:
+        attn, mlp = _layer_weights(hid, ff, device, seed=b * 1000 + l + hid + 3)
+        x = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+        dy = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+        mask = torch.ones(b, l, device=device)
+        mask[0, l // 2 + 1:] = 0.0
+        _build.reset_launches()
+        got, want = padded_attention_bwd_pair(x, attn, mask, heads, dy)
+        torch.cuda.synchronize()
+        assert all(got[k].shape == want[k].shape for k in want)
+        grads_close(got, want, scale_of=zero_attention_grads(l))
+        got, want = mlp_bwd_pair(x, mlp, dy)
+        torch.cuda.synchronize()
+        assert all(got[k].shape == want[k].shape for k in want)
+        grads_close(got, want)
+        assert _build.LAUNCHES["fused_mlp_block_bwd"] == _build.LAUNCHES["fused_attention_block_bwd"] == 1
+        if hid // heads > 64:
+            g = torch.Generator(device=device).manual_seed(l + hid)
+            qkv = torch.randn(b, l, 3 * hid, generator=g, device=device).to(torch.bfloat16)
+            da = torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
+            got = fb.attention_core_bwd(qkv, mask, da, heads)
+            want = fb.attention_core_bwd(qkv.cpu(), mask.cpu(), da.cpu(), heads)
+            torch.cuda.synchronize()
+            got = dict(zip(("dq", "dk", "dv"), got.chunk(3, dim=-1)))
+            want = dict(zip(("dq", "dk", "dv"), want.to(device).chunk(3, dim=-1)))
+            grads_close(got, want, scale_of={"dq": "dv", "dk": "dv"} if l == 1 else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,heads,ff", [(1032, 12, 1032), (1536, 12, 1536), (4096, 32, 1024), (8192, 64, 512)])
+@pytest.mark.parametrize("b,l", [(4, 30), (2, 77)])
+def test_ln_backward_past_1024_columns(device, hid, heads, ff, b, l):
+    """The LayerNorm backward on its block-a-row kernel (1,032 in 12 heads
+    of 86 padded to 128, 1,536, 4,096 and 8,192 in heads of 128), through
+    K11 and K12, at the backward's bar; reruns give the same bits."""
+    attn, mlp = _layer_weights(hid, ff, device, seed=b * 1000 + l + hid)
+    x = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    dy = torch.randn(b, l, hid, device=device).to(torch.bfloat16)
+    mask = torch.ones(b, l, device=device)
+    mask[0, l // 2 + 1:] = 0.0
+    _build.reset_launches()
+    got, want = mlp_bwd_pair(x, mlp, dy)
+    again, _ = mlp_bwd_pair(x, mlp, dy)
+    torch.cuda.synchronize()
+    grads_close(got, want)
+    assert all(torch.equal(got[k], again[k]) for k in got)
+    got, want = padded_attention_bwd_pair(x, attn, mask, heads, dy)
+    torch.cuda.synchronize()
+    grads_close(got, want, scale_of=zero_attention_grads(l))
+    assert _build.LAUNCHES["fused_mlp_block_bwd"] == 2 and _build.LAUNCHES["fused_attention_block_bwd"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,heads,ff", WIDE_HEADS + ODD_HIDDEN[:2])
+@pytest.mark.parametrize("b,l", [(16, 230), (3, 77), (1, 5)])
+def test_int8_halves_at_wide_heads_and_odd_widths(device, hid, heads, ff, b, l):
+    """K10 at heads of 128 and 80 (two heads a group) and at hidden 100 and
+    32, and K9 at those widths, against the plain versions on the unpadded
+    codes, at test_int8_halves_kernels_match_plain's bars."""
+    attn, mlp, ln, x, mask = _int8_case(b, l, hid, ff, device, seed=b * 1000 + l + hid)
+    for kernel, plain, args in (
+            (fi.fused_attention_int8_block, fi.reference_attention_int8_block, (*attn, mask, heads, *ln)),
+            (fi.fused_mlp_int8_block, fi.reference_mlp_int8_block, (*mlp, *ln))):
+        got, want = kernel(x, *args), plain(x, *args)
+        torch.cuda.synchronize()
+        assert got.shape == x.shape and got.dtype == torch.bfloat16
+        cos, err = _rows_close(got, want)
+        mean = float((got.float() - want.float()).abs().mean())
+        assert cos >= 0.999 and err <= 0.1, (kernel.__name__, cos, err)
+        assert mean <= 5e-5, (kernel.__name__, mean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [100, 12, 3])
+def test_maxsim_kernels_at_d_not_a_multiple_of_8(device, dim):
+    """K14 (all pairs and the gathered form), its training form and its
+    backward at D = 100, 12 and 3, run on zero-padded columns: the scores
+    at K14's bar (rtol = atol = 1e-4), the gradients cut back to D at the
+    training tests' bar."""
+    q, d, qm, dm = _maxsim_training_case(8, 30, 16, 77, dim, device, seed=dim)
+    _build.reset_launches()
+    got = ms.maxsim_all_pairs(q, d, qm, dm)
+    torch.testing.assert_close(got, ms.reference_maxsim_all_pairs(q, d, qm, dm), rtol=1e-4, atol=1e-4)
+    first = (torch.arange(16) * 77).reshape(2, 8)
+    count = torch.full((2, 8), 70, dtype=torch.int32)
+    tokens = d.reshape(-1, dim)
+    got = ms.maxsim_gathered(q[:2], qm[:2], tokens, first, count, 77)
+    want = ms.reference_maxsim_gathered(q[:2], qm[:2], tokens, first, count, 77)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    qg, dg = q.clone().requires_grad_(), d.clone().requires_grad_()
+    torch.logsumexp(ms.maxsim_all_pairs(qg, dg, qm, dm), dim=1).sum().backward()
+    pq, pd = q.clone().requires_grad_(), d.clone().requires_grad_()
+    torch.logsumexp(ms.reference_maxsim_all_pairs(pq, pd, qm, dm), dim=1).sum().backward()
+    torch.cuda.synchronize()
+    assert qg.grad.shape == q.shape and dg.grad.shape == d.shape
+    torch.testing.assert_close(qg.grad, pq.grad, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dg.grad, pd.grad, rtol=1e-4, atol=1e-4)
+    assert (_build.LAUNCHES["maxsim_all_pairs"], _build.LAUNCHES["maxsim_all_pairs_argmax"],
+            _build.LAUNCHES["maxsim_all_pairs_bwd"]) == (2, 1, 1)
 
 
 @pytest.mark.cuda

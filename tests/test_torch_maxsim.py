@@ -242,8 +242,8 @@ def test_kernel_geometry_takes_wide_and_long_queries(bq, lq, dim):
                               torch.ones(5, 13))
 
 
-@pytest.mark.parametrize("q_shape,d_shape,match", [((1, 32, 12), (5, 13, 12), "D % 8"),
-                                                   ((1, 32, 4), (5, 13, 4), "D % 8"),
+@pytest.mark.parametrize("q_shape,d_shape,match", [((1, 32, 2056), (5, 13, 2056), "D <= 2048"),
+                                                   ((1, 32, 0), (5, 13, 0), "1 <= D"),
                                                    ((1, 513, 768), (5, 13, 768), "Lq <= 512"),
                                                    ((1, 32, 768), (5, 13, 128), "do not fit")])
 def test_kernel_geometry_refuses_what_the_kernel_cannot_take(q_shape, d_shape, match):

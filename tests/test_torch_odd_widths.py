@@ -83,18 +83,31 @@ def test_head_padding_is_exact_on_the_plain_versions(hid, heads):
 
 
 def test_only_heads_wider_than_64_are_refused():
-    for hid, heads in [(312, 12), (64, 8), (192, 3), (768, 12), (20, 1)]:
+    """The card's head-width limit, since the 128-wide instance of the
+    attention cores: every head width from 1 to 128 runs (on the next
+    instance of 16, 32, 64, 128), a head wider than 128 is refused with
+    the reason, and a width that does not split into the heads is too."""
+    for d in range(1, 129):
+        want = next(w for w in (16, 32, 64, 128) if d <= w)
+        assert tfa.kernel_head_dim("k", 4 * d, 4) == want
+    for hid, heads in [(312, 12), (64, 8), (192, 3), (768, 12), (20, 1), (768, 6), (130, 2), (1536, 12)]:
         assert tfa.kernel_head_dim("k", hid, heads) >= hid // heads
-    for hid, heads in [(768, 6), (130, 2), (64, 3)]:
-        with pytest.raises(ValueError, match="head widths up to 64"):
+    for hid, heads in [(1548, 12), (258, 2), (129, 1), (4096, 16)]:
+        with pytest.raises(ValueError, match="head widths up to 128"):
             tfa.kernel_head_dim("k", hid, heads)
+    with pytest.raises(ValueError, match="head widths up to 128"):
+        tfa.kernel_head_dim("k", 64, 3)
 
 
 def test_ln_backward_takes_every_multiple_of_8_up_to_1024():
-    for width in (8, 64, 128, 312, 392, 1000, 1024, 256, 768):
+    """The LayerNorm backward's width limit: every width from 1 to 8,192
+    (multiples of 8 up to 1,024 on the warp-a-row kernel as before, the
+    rest run at the next multiple of 8, past 1,024 on the block-a-row
+    kernel); past 8,192 refused with the reason."""
+    for width in (8, 64, 128, 312, 392, 1000, 1024, 256, 768, 1, 12, 100, 1030, 1032, 1536, 2048, 4096, 8191, 8192):
         tfb.check_ln_bwd_width("k", width)
-    for width in (0, 12, 1030, 1032, 2048):
-        with pytest.raises(ValueError, match="multiple of 8"):
+    for width in (0, -8, 8193, 16384):
+        with pytest.raises(ValueError, match="1 to 8192 columns"):
             tfb.check_ln_bwd_width("k", width)
 
 

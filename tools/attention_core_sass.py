@@ -7,12 +7,13 @@ OLD and NEW are checkouts (for instance the parent commit unpacked with
 ``git archive`` under ``build/``). Both trees' ``csrc/encoder_kernels.cu``
 and ``csrc/encoder_backward_kernels.cu`` are compiled with the flags of
 ``ops/_build.py`` (all four ``nvcc`` at once), and each attention-core
-kernel of OLD (the forward core's three instances, the backward's two
-kernels) is compared, instruction for instruction, with the NEW kernel of
-the same template arguments at head width 64 (a tree whose cores take no
-head-width argument counts as width 64). Prints one line a kernel and a
-JSON summary last; exit 1 if a kernel differs or has no counterpart. Needs
-the CUDA toolkit (``nvcc``, ``cuobjdump``); no card.
+kernel of OLD at head widths 16, 32 and 64 (the forward core's three
+instances a width, the backward's two kernels) is compared, instruction for
+instruction, with the NEW kernel of the same template arguments and width
+(a tree whose cores take no head-width argument counts as width 64). Prints
+one line a kernel and a JSON summary last; exit 1 if a kernel differs or
+has no counterpart. Needs the CUDA toolkit (``nvcc``, ``cuobjdump``); no
+card.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import sys
 import tempfile
 
 SOURCES = ("encoder_kernels", "encoder_backward_kernels")
+WIDTHS = (16, 32, 64)
 KERNELS = ("attention_core_kernel", "attention_bwd_q_mma_kernel", "attention_bwd_kv_mma_kernel")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
@@ -92,16 +94,16 @@ def main(argv=None) -> int:
             old, new = ({template_key(k): v for k, v in sass_functions(objects[tree, src]).items()
                          if any(n in k for n in KERNELS)} for tree in (args.old, args.new))
             for key, code in sorted(old.items()):
-                if key is None or key[2] != 64:
+                if key is None or key[2] not in WIDTHS:
                     continue
                 other = new.get(key)
                 same = other == code
                 ok &= same
                 diff = None if other is None else sum(a != b for a, b in zip(code, other)) + abs(len(code) - len(other))
-                rows.append({"kernel": key[0], "template": key[1], "old_instructions": len(code),
+                rows.append({"kernel": key[0], "template": key[1], "head_width": key[2], "old_instructions": len(code),
                              "new_instructions": None if other is None else len(other), "identical": same,
                              "differing": diff})
-                print(f"{src}: {key[0]}{key[1]} old {len(code)} vs new (head width 64) "
+                print(f"{src}: {key[0]}{key[1]} old {len(code)} vs new (head width {key[2]}) "
                       f"{'-' if other is None else len(other)} instructions: {'identical' if same else 'DIFFERENT'}")
     print(json.dumps({"identical": ok, "kernels": rows}))
     return 0 if ok and rows else 1
