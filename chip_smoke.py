@@ -173,12 +173,13 @@ Phases (any failed check raises, and the script exits non-zero):
    one's pairs/s over the tuples repeated to ``idcm_timing_pairs``.
 
 11. the rest of the index layer: (a) ``cli.dense_retrieval.run``
-   ("encode+index+search", then "search" from the saved index) over phase
-   4's collection and model once per index kind: IVF (64 lists, 8 probed),
-   ScaNN tree-AH (sqrt N leaves, 100 searched), HNSW (M 16, efC 80,
-   efSearch 128) and streaming (the encode folder's blocks): the run and
-   index files, K1/K2 launches as predicted and no other kernel, the
-   reloaded index ranking as the first run, the four encodes identical,
+   ("encode+index+search" for the first kind, "index+search" on a copy of
+   its encoded blocks for the others, then "search" from the saved index)
+   over phase 4's collection and model once per index kind: IVF (64
+   lists, 8 probed), ScaNN tree-AH (sqrt N leaves, 100 searched), HNSW (M
+   16, efC 80, efSearch 128) and streaming (the encode folder's blocks):
+   the run and index files, K1/K2 launches as predicted and no other
+   kernel, the reloaded index ranking as the first run,
    recall@100 against the exact f32 search of the stored rows (streaming:
    no miss past a near-tie); (b) at phase 5's 1,048,576 x 768 clustered
    rows, Q 256, k 1000: IVF (2,048 lists, 64 probed: the reference's mean
@@ -327,6 +328,14 @@ FULL = dict(
                          (4, 30, 16, 200, 128, -1000.0, False, True), (128, 30, 256, 200, 128, -1000.0, False, False),
                          (32, 30, 64, 200, 768, -1000.0, False, False)],
     colbert_train_batches=30,
+    # phase 3's sequences past 512: the attention kernels' timed (B, L), the
+    # headline first; phase 15: 2,000-token documents whole through BERT_DOT
+    # and ColBERT from a checkpoint of 2,048 positions (passages, queries,
+    # the CLI's encode batch, the passages held to the plain versions,
+    # Trainer steps at a batch of triples, the triples of the plain step)
+    long_timed_shapes=[(4, 2048), (8, 1024), (1, 8192), (4, 512)],
+    long_positions=2048, long_passages=2048, long_queries=64, long_doc_len=2000, long_encode_batch=64,
+    long_plain_docs=8, long_steps=10, long_batch=16, long_grad_rows=4,
     # phase 8: cli/tasb_recipe.py's run_recipe (the JAX recipe's own
     # configuration, mini-lm) cut in scale to fit the time limit, and the
     # effectiveness check at tests/test_effectiveness.py:38-45's scale
@@ -1671,6 +1680,79 @@ def _library_maxsim_bwd(q, d, qm, dm, argmax, g):
     return dq, dd.reshape(bd, ld, dim)
 
 
+def _maxsim_training_shape(fwd, bwd, case, seed, sz, device, headline):
+    """One shape of phase_maxsim_training (its gates, timings, bounds and
+    library chains) into the entries ``fwd`` and ``bwd``; ``case`` is
+    (Bq, Lq, Bd, Ld, D, fill, live dots below -1000, exact ties). Returns
+    the tokens' agreement."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import maxsim as ms
+
+    bq, lq, bd, ld, dim, fill, below, ties = case
+    shape = [bq, lq, bd, ld, dim]
+    q, d, qm, dm = _maxsim_training_inputs(bq, lq, bd, ld, dim, below, ties, device, seed=seed)
+    g = torch.randn(bq, bd, generator=torch.Generator(device=device).manual_seed(seed - 493), device=device)
+    got, idx = ms.maxsim_all_pairs_argmax(q, d, qm, dm, fill)
+    want, want_idx, top1, top2 = ms.reference_maxsim_argmax(q, d, qm, dm, fill, with_top2=True)
+    _k14_check(fwd, got, want, shape, fill)
+    agree = idx == want_idx
+    share = float(agree.float().mean())
+    near = bool(((top1 - top2).abs() <= 1e-5 * top1.abs())[~agree].all())
+    print(f"[kernels] maxsim training form {shape}: tokens agree on {share:.6f} of (b, l, k), "
+          f"{int((~agree).sum())} differ, all near ties: {near}")
+    check(share >= 0.9999 and near, f"K14's training form at {shape}: tokens agree on {share}, near ties {near}")
+    dq, dd = ms.maxsim_all_pairs_bwd(q, d, qm, dm, idx, g)
+    qg, dg = q.clone().requires_grad_(), d.clone().requires_grad_()
+    ref = ms.reference_maxsim_all_pairs(qg, dg, qm, dm, fill)
+    pq, pd = torch.autograd.grad(ref, (qg, dg), g, retain_graph=True)
+    split = _split_ties(q, d, dm, fill)
+    sure = agree & ~split  # the max's token is one row for the kernel and for autograd
+    rows, docs = sure.all(dim=2), sure.all(dim=(0, 1))
+    rq, rd = ms.reference_maxsim_bwd(q, d, qm, dm, idx, g)
+    err = 0.0
+    for name, a, b in (("dq", dq[rows], pq[rows]), ("dd", dd[docs], pd[docs]), ("dq vs its plain version", dq, rq),
+                       ("dd vs its plain version", dd, rd)):
+        close = bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs()).all())
+        err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
+        check(close, f"the MaxSim backward's {name} at {shape}: max |d| {err}")
+    check(bool((dd[dm <= 0] == 0).all()), f"a gradient reached a masked doc token at {shape}")
+    if ties:
+        check(bool(docs.all()) and bool((idx == 3).any()) and torch.equal(dd[:, 3], dd[:, 5])
+              and bool(dd[:, 3].abs().max() > 0), f"the exact ties did not split evenly at {shape}")
+    again = ms.maxsim_all_pairs_argmax(q, d, qm, dm, fill)
+    check(torch.equal(again[0], got) and torch.equal(again[1], idx), f"the training form's reruns differ at {shape}")
+    again = ms.maxsim_all_pairs_bwd(q, d, qm, dm, idx, g)
+    check(torch.equal(again[0], dq) and torch.equal(again[1], dd), f"the backward's reruns differ at {shape}")
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
+    print(f"[kernels] maxsim backward {shape}: dq on {int(rows.sum())} of {rows.numel()} query rows, dd on "
+          f"{int(docs.sum())} of {bd} docs against autograd ({int(split.sum())} maxima tied between unequal "
+          f"rows left out), all against reference_maxsim_bwd, max |d| {err:.4g}; max |plain| dq "
+          f"{float(pq.abs().max()):.4g}, dd {float(pd.abs().max()):.4g}")
+    live = 2 * dim * int((qm > 0).sum()) * int((dm > 0).sum())
+    _record(fwd, shape, lambda a=(q, d, qm, dm), f=fill: ms.maxsim_all_pairs_argmax(*a, f),
+            lambda a=(q, d, qm, dm), f=fill: ms.reference_maxsim_argmax(*a, f), device, sz["reps"], headline,
+            bound_of=bound(nbytes(q, d, qm, dm, got, idx), tf32=3 * live))
+    _device_beside(fwd, lambda a=(q, d, qm, dm), f=fill: ms.maxsim_all_pairs_argmax(*a, f), device, headline)
+    lib_out, lib_idx = _library_maxsim_argmax(q, d, qm, dm, fill)
+    lib_agree = lib_idx == want_idx
+    check(float(lib_agree.float().mean()) >= 0.9999
+          and bool(((top1 - top2).abs() <= 1e-5 * top1.abs())[~lib_agree].all())
+          and bool(((lib_out - want).abs() <= 1e-4 + 1e-4 * want.abs()).all()),
+          f"the forward's chain of library calls disagrees with the plain version at {shape}")
+    _library_beside(fwd, lambda a=(q, d, qm, dm), f=fill: _library_maxsim_argmax(*a, f), device, sz["reps"],
+                    headline, "einsum + masked_fill + max (argmax) + masked sum")
+    used = int(((g[:, None, :] * qm[:, :, None] != 0) & (idx >= 0)).sum())
+    _record(bwd, shape, lambda a=(q, d, qm, dm, idx, g): ms.maxsim_all_pairs_bwd(*a),
+            lambda a=(q, d, qm, dm, idx, g): ms.reference_maxsim_bwd(*a), device, sz["reps"], headline,
+            bound_of=bound(nbytes(q, d, qm, dm, idx, g, dq, dd), f32=4 * dim * used))
+    _device_beside(bwd, lambda a=(q, d, qm, dm, idx, g): ms.maxsim_all_pairs_bwd(*a), device, headline)
+    _library_beside(bwd, lambda a=(q, d, qm, dm, idx, g): _library_maxsim_bwd(*a), device, sz["reps"], headline,
+                    "gather of the tokens' doc rows (dq) + index_add_ (dd), ties not split")
+    return {"shape": shape, "tokens_agree": share, "differ": int((~agree).sum()), "ties": ties,
+            "maxima_tied_between_unequal_rows": int(split.sum())}
+
+
 def phase_maxsim_training(sz, device):
     """The training form (the all-pairs launch that also saves each (query
     token, doc)'s max doc token) and the backward kernels against plain
@@ -1692,77 +1774,11 @@ def phase_maxsim_training(sz, device):
     function (no single call does): einsum + max / argmax for the forward,
     a gather + index_add_ for the backward (CUDA events; its device time
     beside it)."""
-    import torch
-
-    from matchmaker_tpu_torch.ops import maxsim as ms
-
     out = {name: {"max_abs_err": 0.0, "library_ms": None} for name in ("maxsim_all_pairs_argmax",
                                                                         "maxsim_all_pairs_bwd")}
     fwd, bwd = out["maxsim_all_pairs_argmax"], out["maxsim_all_pairs_bwd"]
-    agreement = []
-    for i, (bq, lq, bd, ld, dim, fill, below, ties) in enumerate(sz["maxsim_train_shapes"]):
-        shape = [bq, lq, bd, ld, dim]
-        q, d, qm, dm = _maxsim_training_inputs(bq, lq, bd, ld, dim, below, ties, device, seed=500 + i)
-        g = torch.randn(bq, bd, generator=torch.Generator(device=device).manual_seed(7 + i), device=device)
-        got, idx = ms.maxsim_all_pairs_argmax(q, d, qm, dm, fill)
-        want, want_idx, top1, top2 = ms.reference_maxsim_argmax(q, d, qm, dm, fill, with_top2=True)
-        _k14_check(fwd, got, want, shape, fill)
-        agree = idx == want_idx
-        share = float(agree.float().mean())
-        near = bool(((top1 - top2).abs() <= 1e-5 * top1.abs())[~agree].all())
-        print(f"[kernels] maxsim training form {shape}: tokens agree on {share:.6f} of (b, l, k), "
-              f"{int((~agree).sum())} differ, all near ties: {near}")
-        check(share >= 0.9999 and near, f"K14's training form at {shape}: tokens agree on {share}, near ties {near}")
-        dq, dd = ms.maxsim_all_pairs_bwd(q, d, qm, dm, idx, g)
-        qg, dg = q.clone().requires_grad_(), d.clone().requires_grad_()
-        ref = ms.reference_maxsim_all_pairs(qg, dg, qm, dm, fill)
-        pq, pd = torch.autograd.grad(ref, (qg, dg), g, retain_graph=True)
-        split = _split_ties(q, d, dm, fill)
-        sure = agree & ~split  # the max's token is one row for the kernel and for autograd
-        rows, docs = sure.all(dim=2), sure.all(dim=(0, 1))
-        rq, rd = ms.reference_maxsim_bwd(q, d, qm, dm, idx, g)
-        err = 0.0
-        for name, a, b in (("dq", dq[rows], pq[rows]), ("dd", dd[docs], pd[docs]), ("dq vs its plain version", dq, rq),
-                           ("dd vs its plain version", dd, rd)):
-            close = bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs()).all())
-            err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
-            check(close, f"the MaxSim backward's {name} at {shape}: max |d| {err}")
-        check(bool((dd[dm <= 0] == 0).all()), f"a gradient reached a masked doc token at {shape}")
-        if ties:
-            check(bool(docs.all()) and bool((idx == 3).any()) and torch.equal(dd[:, 3], dd[:, 5])
-                  and bool(dd[:, 3].abs().max() > 0), f"the exact ties did not split evenly at {shape}")
-        again = ms.maxsim_all_pairs_argmax(q, d, qm, dm, fill)
-        check(torch.equal(again[0], got) and torch.equal(again[1], idx), f"the training form's reruns differ at {shape}")
-        again = ms.maxsim_all_pairs_bwd(q, d, qm, dm, idx, g)
-        check(torch.equal(again[0], dq) and torch.equal(again[1], dd), f"the backward's reruns differ at {shape}")
-        bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
-        print(f"[kernels] maxsim backward {shape}: dq on {int(rows.sum())} of {rows.numel()} query rows, dd on "
-              f"{int(docs.sum())} of {bd} docs against autograd ({int(split.sum())} maxima tied between unequal "
-              f"rows left out), all against reference_maxsim_bwd, max |d| {err:.4g}; max |plain| dq "
-              f"{float(pq.abs().max()):.4g}, dd {float(pd.abs().max()):.4g}")
-        agreement.append({"shape": shape, "tokens_agree": share, "differ": int((~agree).sum()), "ties": ties,
-                          "maxima_tied_between_unequal_rows": int(split.sum())})
-        headline = i == 0
-        live = 2 * dim * int((qm > 0).sum()) * int((dm > 0).sum())
-        _record(fwd, shape, lambda a=(q, d, qm, dm), f=fill: ms.maxsim_all_pairs_argmax(*a, f),
-                lambda a=(q, d, qm, dm), f=fill: ms.reference_maxsim_argmax(*a, f), device, sz["reps"], headline,
-                bound_of=bound(nbytes(q, d, qm, dm, got, idx), tf32=3 * live))
-        _device_beside(fwd, lambda a=(q, d, qm, dm), f=fill: ms.maxsim_all_pairs_argmax(*a, f), device, headline)
-        lib_out, lib_idx = _library_maxsim_argmax(q, d, qm, dm, fill)
-        lib_agree = lib_idx == want_idx
-        check(float(lib_agree.float().mean()) >= 0.9999
-              and bool(((top1 - top2).abs() <= 1e-5 * top1.abs())[~lib_agree].all())
-              and bool(((lib_out - want).abs() <= 1e-4 + 1e-4 * want.abs()).all()),
-              f"the forward's chain of library calls disagrees with the plain version at {shape}")
-        _library_beside(fwd, lambda a=(q, d, qm, dm), f=fill: _library_maxsim_argmax(*a, f), device, sz["reps"],
-                        headline, "einsum + masked_fill + max (argmax) + masked sum")
-        used = int(((g[:, None, :] * qm[:, :, None] != 0) & (idx >= 0)).sum())
-        _record(bwd, shape, lambda a=(q, d, qm, dm, idx, g): ms.maxsim_all_pairs_bwd(*a),
-                lambda a=(q, d, qm, dm, idx, g): ms.reference_maxsim_bwd(*a), device, sz["reps"], headline,
-                bound_of=bound(nbytes(q, d, qm, dm, idx, g, dq, dd), f32=4 * dim * used))
-        _device_beside(bwd, lambda a=(q, d, qm, dm, idx, g): ms.maxsim_all_pairs_bwd(*a), device, headline)
-        _library_beside(bwd, lambda a=(q, d, qm, dm, idx, g): _library_maxsim_bwd(*a), device, sz["reps"], headline,
-                        "gather of the tokens' doc rows (dq) + index_add_ (dd), ties not split")
+    agreement = [_maxsim_training_shape(fwd, bwd, shape, 500 + i, sz, device, i == 0)
+                 for i, shape in enumerate(sz["maxsim_train_shapes"])]
     fwd["headline"] = ("the ColBERT training phase's in-batch all-pairs MaxSim (32 queries x 30 tokens against "
                        "64 docs x 200), forward with each max's doc token saved")
     bwd["headline"] = "its backward at the same shape"
@@ -4666,12 +4682,12 @@ def _unpadded_attention_grads(grads, heads, d, width):
 
 
 def _bwd_width_entry(out, key, kernel, named, plain, inputs, ops, sz, device, b, l, scale_of=None, headline=True,
-                     device_reps=100):
+                     device_reps=100, timed=True):
     """One backward kernel against its plain version into ``out[key]`` (a
-    timing more where the entry exists): ``named`` turns ``kernel``'s
-    result into the gradients by name (cut back to the real columns where
-    the heads were padded: outside the timing), ``plain`` returns them by
-    name."""
+    timing more where the entry exists and ``timed``): ``named`` turns
+    ``kernel``'s result into the gradients by name (cut back to the real
+    columns where the heads were padded: outside the timing), ``plain``
+    returns them by name."""
     import torch
 
     entry = out.setdefault(key, {"max_abs_err": 0.0, "library_ms": None})
@@ -4682,6 +4698,8 @@ def _bwd_width_entry(out, key, kernel, named, plain, inputs, ops, sz, device, b,
     print(f"[kernels] {key} B={b} L={l}: {len(got)} gradients within cosine 0.999, max |d| <= 2e-2 max |plain| "
           f"(largest |d| {err:.4g})")
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    if not timed:
+        return
     _record(entry, [b, l, inputs[0].shape[-1]], kernel, plain, device, sz["bwd_reps"], headline=headline,
             bound_of=bound(nbytes(inputs, list(got.values())), **ops))
     _device_beside(entry, kernel, device, headline=headline, reps=device_reps)
@@ -4903,12 +4921,13 @@ def _wide_kernels(hid, heads, ff):
 
 
 def _wide_forward(out, key, kernel, plain, inputs, ops, sz, device, shape, headline, library=None, int8=False,
-                  device_reps=20):
+                  device_reps=20, timed=True):
     """One forward kernel against its plain version at the encoder halves'
-    bar (K9/K10 also their mean |d|), timed with its plain version, its
-    device time (over ``device_reps`` calls) and bound into ``out[key]``
-    (a timing more where the entry exists); ``library`` beside it where
-    one call computes the same function."""
+    bar (K9/K10 also their mean |d|) and, where ``timed``, timed with its
+    plain version, its device time (over ``device_reps`` calls) and bound
+    into ``out[key]`` (a timing more where the entry exists); ``library``
+    beside it (CUDA events and device time) where one call computes the
+    same function."""
     import torch
 
     entry = out.setdefault(key, {"max_abs_err": 0.0, "library_ms": None})
@@ -4921,13 +4940,17 @@ def _wide_forward(out, key, kernel, plain, inputs, ops, sz, device, shape, headl
     if int8:
         check(mean <= INT8_HALF_MEAN_ABS, f"{key} vs plain at {shape}: mean |d| {mean}")
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    if not timed:
+        return
     _record(entry, shape, kernel, plain, device, sz["reps"], headline, bound_of=bound(nbytes(inputs, got), **ops))
     _device_beside(entry, kernel, device, headline, reps=device_reps)
     if library is not None and device.type == "cuda":
-        lib = entry["timings"][-1]["library_ms"] = _time_ms(library, device, sz["reps"])
-        print(f"[kernels]   library scaled_dot_product_attention {lib:.4f} ms")
+        timing = entry["timings"][-1]
+        lib = timing["library_ms"] = _time_ms(library, device, sz["reps"])
+        lib_dev = timing["library_device_ms"] = _device_ms(library, device, device_reps)
+        print(f"[kernels]   library scaled_dot_product_attention {lib:.4f} ms, device {_fmt(lib_dev)}")
         if headline:
-            entry["library_ms"] = lib
+            entry.update(library_ms=lib, library_device_ms=lib_dev)
 
 
 def phase_wide_width_kernels(sz, device):
@@ -5111,7 +5134,8 @@ def wide_kernel_entries(f, kern, device):
                 if k in e}, "path": run if on_path else None, "launches": launches,
              "max_abs_err": e["max_abs_err"], "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
              "bound_by": e["bound_by"], "library_ms": e.get("library_ms"), "timed_shape": e["timed_shape"],
-             "device_ms": e.get("device_ms"), "x_bound": e.get("x_bound")})
+             "device_ms": e.get("device_ms"), "x_bound": e.get("x_bound"),
+             "library_device_ms": e.get("library_device_ms")})
     return entries
 
 
@@ -5135,6 +5159,188 @@ def wide_width_summary(kern):
                   + (f"; scaled_dot_product_attention at 128 {row['library_ms']:.4f} ms (events)"
                      if row.get("library_ms") is not None else ""))
     return rows
+
+
+# ---- phase 3: sequences past 512 ---------------------------------------------
+
+# (B, L) of the attention kernels past 512 keys: checked at heads of 64 and
+# of 128 (LONG_HEADS) and timed at heads of 64 at ``long_timed_shapes``
+LONG_CHECK_SHAPES = [(3, 513), (3, 1024), (3, 2048)]
+LONG_HEADS = [(768, 12, 3072), (1024, 8, 4096)]
+# K14 past 512 query rows (Bq, Lq, Bd, Ld, D; the first timed); the
+# gathered form's queries (B, Lq, C, D, slots); the training form and its
+# backward past 1,024 doc tokens (Bq, Lq, Bd, Ld, D, fill, live dots below
+# -1000, exact ties; the first the headline)
+LONG_MAXSIM_SHAPES = [(3, 1024, 64, 200, 128), (3, 513, 9, 77, 768)]
+LONG_GATHERED = [(8, 1024, 64, 128, 128), (2, 513, 9, 768, 77)]
+LONG_MAXSIM_TRAIN = [(4, 600, 8, 2000, 128, -1000.0, False, True), (8, 30, 16, 1025, 128, -1000.0, False, True)]
+
+
+def _long_mask(b, l, device, seed):
+    """Example 0 live up to a key past key 512 (the tiles after its last
+    skipped), example 1 without a live key (every tile runs), example 2
+    with random holes, the rest live."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    mask = torch.ones(b, l, device=device)
+    mask[0, 512 + (l - 512) // 2 + 1:] = 0.0
+    if b > 1:
+        mask[1] = 0.0
+    if b > 2:
+        mask[2] = (torch.rand(l, generator=g, device=device) > 0.3).float()
+        mask[2, 0] = 1.0
+    return mask
+
+
+def _needed_core_ops(mask, hid):
+    """QK^T and P.V operations of an attention core over the keys its data
+    needs: every query row against each example's keys up to its last with
+    m = 1, or against all L where none has m = 1 (the softmax then spreads
+    over every key)."""
+    import torch
+
+    l = mask.shape[1]
+    last = ((mask == 1) * torch.arange(1, l + 1, device=mask.device)).amax(dim=1)
+    return 4 * hid * l * int(torch.where(last > 0, last, l).sum())
+
+
+def _long_attention_case(out, sz, b, l, device, seed, timed, headline):
+    """K1, K10, K13 and K12 at (b, l) with _long_mask's masks against their
+    plain versions (the bars of phase_wide_width_kernels) into the entries
+    ``<kernel>@long``; where ``timed`` also timed beside the plain version,
+    by device time and against the bound of the keys the masks need
+    (K13 beside scaled_dot_product_attention)."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import fused_attention as fa
+    from matchmaker_tpu_torch.ops import fused_backward as fb
+    from matchmaker_tpu_torch.ops import fused_int8 as fi
+    from matchmaker_tpu_torch.probes import attn_inner as ai
+
+    hid, heads = sz["hid"], sz["heads"]
+    hd = hid // heads
+    attn, ln1, _, _ = _layer_params(sz, device, seed=seed)
+    wq, wk, wv, wo, bq, bk, bv, bo = attn
+    wqkv, bqkv = torch.cat([wq, wk, wv], dim=1), torch.cat([bq, bk, bv])
+    pw, pb, po = fa.pad_attention_heads(wqkv, bqkv, wo, heads)
+    x, _, g = _half_inputs(sz, b, l, device, seed + 1)
+    mask = _long_mask(b, l, device, seed + 2)
+    dy = torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
+    q, k, v = (torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
+    proj, _ = _attention_ops(b, l, hid, heads)
+    core = _needed_core_ops(mask, hid)
+    shape = [b, l, hid, hd]
+    kw = dict(timed=timed, device_reps=10)
+    _wide_forward(out, "fused_attention_block@long",
+                  lambda: fa.fused_attention_block_qkv(x, pw, pb, po, bo, mask, heads, *ln1, head_dim=hd),
+                  lambda: fa.reference_attention_block(x, *attn, mask, heads, *ln1), (x, attn, mask, ln1),
+                  dict(bf16=proj + core), sz, device, shape, headline, **kw)
+    _wide_forward(out, "fused_mha@long", lambda: fa.fused_mha(q, k, v, mask, heads),
+                  lambda: fa.mha_reference(q, k, v, mask, heads), (q, k, v, mask), dict(bf16=core), sz, device, shape,
+                  headline, library=lambda: ai.sdpa(q, k, v, mask, heads), **kw)
+    q8, _, q8ln, _ = _int8_layer_params(sz, device, seed=seed + 3)
+    q8_t = fi.kmajor_attention_weights(*q8)
+    q8_p = fi.pad_int8_attention(*q8_t[:4], heads, 2) + q8_t[4:]
+    _wide_forward(out, "fused_attention_int8_block@long",
+                  lambda: fi.fused_attention_int8_block_qkv_kmajor(x, *q8_p, mask, heads, *q8ln, head_dim=hd),
+                  lambda: fi.reference_attention_int8_block(x, *q8, mask, heads, *q8ln), (x, q8_t, mask, q8ln),
+                  dict(int8=proj, bf16=core), sz, device, shape, headline, int8=True, **kw)
+    _, a_saved = fb.attention_block_fwd(x, pw, pb, po, bo, mask, heads, *ln1, head_dim=hd)
+    _, a_acc = fa.reference_attention_block(x, *attn, mask, heads, *ln1, save_acc=True)
+    _bwd_width_entry(out, "fused_attention_block_bwd@long",
+                     lambda: fb.attention_block_bwd(x, pw, pb, po, mask, heads, ln1[0], dy, a_saved, head_dim=hd),
+                     lambda grads: _named_attention_grads(*grads),
+                     lambda: dict(zip(_ATTN_GRADS, fb.reference_attention_block_bwd(
+                         x, wq, wk, wv, wo, bq, bk, bv, mask, heads, ln1[0], dy, a_acc))),
+                     (x, wqkv, bqkv, wo, mask, ln1[0], dy, a_saved), dict(bf16=2 * proj + 5 * core // 2), sz,
+                     device, b, l, _zero_attention_grads(l), headline=headline, **kw)
+    del a_saved, a_acc
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_long_sequence_kernels(sz, device):
+    """Sequences past 512 (the attention cores' mask row in 512-key windows,
+    K14's row sums in passes of 512, the MaxSim backward's tie classes
+    sized by Ld): K1, K10, K13 and K12 at LONG_CHECK_SHAPES, heads of 64
+    and of 128, and timed at ``long_timed_shapes`` (heads of 64; L 8,192
+    at B 1), each with _long_mask's masks; K14 at Lq 513 and 1,024, all
+    pairs (LONG_MAXSIM_SHAPES, the first timed) and gathered
+    (LONG_GATHERED); the training form and the backward at
+    LONG_MAXSIM_TRAIN (_maxsim_training_shape's gates and timings). The
+    bars are phase 3's: the encoder halves' (K10 also its mean |d|), the
+    backward's, K14's rtol = atol = 1e-4."""
+    import torch
+
+    from matchmaker_tpu_torch.ops import maxsim as ms
+
+    out = {}
+    for hid, heads, ff in LONG_HEADS:
+        hsz = dict(sz, hid=hid, heads=heads, ff=ff)
+        cases = [(shape, False) for shape in LONG_CHECK_SHAPES]
+        if (hid, heads, ff) == LONG_HEADS[0]:
+            cases += [(tuple(shape), True) for shape in sz["long_timed_shapes"]]
+        for (b, l), timed in cases:
+            _long_attention_case(out, hsz, b, l, device, 80 + l + hid, timed,
+                                 timed and (b, l) == tuple(sz["long_timed_shapes"][0]))
+    entry = out["maxsim_all_pairs@long"] = {"max_abs_err": 0.0, "library_ms": None}
+    for i, (bq, lq, bd, ld, dim) in enumerate(LONG_MAXSIM_SHAPES):
+        shape = [bq, lq, bd, ld, dim]
+        q, d, qm, dm = _maxsim_inputs(bq, lq, bd, ld, dim, False, device, 950 + i)
+        for fill in (-1000.0, float("-inf")):
+            got = ms.maxsim_all_pairs(q, d, qm, dm, fill=fill)
+            _k14_check(entry, got, ms.reference_maxsim_all_pairs(q, d, qm, dm, fill), shape, fill)
+            check(torch.equal(got, ms.maxsim_all_pairs(q, d, qm, dm, fill=fill)), f"K14's reruns differ at {shape}")
+        if i == 0:
+            live = 2 * dim * int((qm > 0).sum()) * int((dm > 0).sum())
+            _record(entry, shape, lambda a=(q, d, qm, dm): ms.maxsim_all_pairs(*a),
+                    lambda a=(q, d, qm, dm): ms.reference_maxsim_all_pairs(*a), device, sz["reps"], True,
+                    bound_of=bound(nbytes(q, d, qm, dm, got), tf32=3 * live))
+            _device_beside(entry, lambda a=(q, d, qm, dm): ms.maxsim_all_pairs(*a), device, True, reps=20)
+    for i, (b, lq, c, dim, pad) in enumerate(LONG_GATHERED):
+        g = torch.Generator(device=device).manual_seed(960 + i)
+        counts = torch.randint(0, pad + 1, (50,), generator=g, device=device)
+        starts = torch.cumsum(counts, 0) - counts
+        tokens = (torch.randn(int(counts.sum()), dim, generator=g, device=device) * 2).half()
+        pick = torch.randint(0, 50, (b, c), generator=g, device=device)
+        q = torch.randn(b, lq, dim, generator=g, device=device) * 2
+        qm = (torch.rand(b, lq, generator=g, device=device) > 0.2).float()
+        qm[:, 0] = 1.0
+        first, count = starts[pick].cpu(), counts[pick].int().cpu()
+        got = ms.maxsim_gathered(q, qm, tokens, first, count, pad, fill=float("-inf"))
+        _k14_check(entry, got, ms.reference_maxsim_gathered(q, qm, tokens, first, count, pad, float("-inf")),
+                   [b, lq, c, dim, pad], float("-inf"))
+    fwd = out["maxsim_all_pairs_argmax@long"] = {"max_abs_err": 0.0, "library_ms": None}
+    bwd = out["maxsim_all_pairs_bwd@long"] = {"max_abs_err": 0.0, "library_ms": None}
+    fwd["token_agreement"] = [_maxsim_training_shape(fwd, bwd, case, 970 + i, sz, device, i == 0)
+                              for i, case in enumerate(LONG_MAXSIM_TRAIN)]
+    return out
+
+
+def long_kernel_entries(long_docs, kern, device):
+    """The kernels line's entries of phase 3's sequences past 512, their
+    launches those of phase 15's runs (``long_docs``, its result): K1 in
+    every run, K10 in the encoder_int8 batch, K12 in both training runs,
+    the training form and the backward in ColBERT's; K13 and K14 on no
+    path there."""
+    sources = {k[0]: (k[1], k[2]) for k in KERNELS}
+    entries = []
+    for key in sorted(k for k in kern if k.endswith("@long")):
+        name = key.split("@", 1)[0]
+        launches = long_docs["launches"].get(name, 0)
+        on_path = name not in ("fused_mha", "maxsim_all_pairs")
+        if on_path and device.type == "cuda":
+            check(launches > 0, f"phase 15's runs launched no {name} kernel ({key})")
+        e = kern[key]
+        entries.append(
+            {"name": key, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
+             "path": "long_docs" if on_path else None, "launches": launches if on_path else 0,
+             "max_abs_err": e["max_abs_err"], "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+             "bound_by": e["bound_by"], "library_ms": e.get("library_ms"), "timed_shape": e["timed_shape"],
+             "device_ms": e.get("device_ms"), "x_bound": e.get("x_bound"),
+             "library_device_ms": e.get("library_device_ms")})
+    return entries
 
 
 # ---- phase 13: JAX run folders, accumulation, hub teachers, the fused check ----
@@ -5790,6 +5996,234 @@ def phase_jax_runs(sz, device, root):
     return result
 
 
+# ---- phase 15: 2,000-token documents through BERT_DOT and ColBERT ---------------
+
+def _long_checkpoint(root, sz):
+    """A seeded checkpoint at DistilBERT's widths with ``long_positions``
+    (2,048) positions (models/hf_import.py: seeded_distilbert_checkpoint,
+    save_hf_checkpoint), the encoder that takes 2,000-token documents
+    whole."""
+    from matchmaker_tpu_torch.models.encoder import EncoderConfig
+    from matchmaker_tpu_torch.models.hf_import import save_hf_checkpoint, seeded_distilbert_checkpoint
+
+    cfg = EncoderConfig(vocab_size=sz["vocab"], hidden_size=sz["hid"], num_layers=sz["n_layers"],
+                        num_heads=sz["heads"], intermediate_size=sz["ff"],
+                        max_position_embeddings=sz["long_positions"], type_vocab_size=0)
+    config, state = seeded_distilbert_checkpoint(cfg, seed=41)
+    path = os.path.join(root, "long_distilbert")
+    save_hf_checkpoint(path, config, state, safetensors=True)
+    return path
+
+
+def _write_long_data(root, sz, seed=15):
+    """``long_passages`` synthetic passages, every other one long enough to
+    fill ``long_doc_len`` hash-tokenizer tokens (one a word), the others
+    shorter (the masks' tails), queries of 3-6 of a target passage's words
+    with their qrels, and ``long_steps`` x ``long_batch`` training triples
+    of such passages with teacher scores."""
+    rng = np.random.default_rng(seed)
+    words = np.array([f"t{i}" for i in range(20_000)])
+    n, full = sz["long_passages"], sz["long_doc_len"]
+    lens = np.where(np.arange(n) % 2 == 0, rng.integers(full, full + 400, size=n),
+                    rng.integers(full // 10, full - 100, size=n))
+    passages = [" ".join(words[rng.integers(0, len(words), size=int(k))]) for k in lens]
+    paths = {k: os.path.join(root, f) for k, f in (("collection", "collection.tsv"), ("queries", "queries.tsv"),
+                                                    ("qrels", "qrels.txt"), ("train", "train.tsv"))}
+    with open(paths["collection"], "w") as f:
+        f.writelines(f"{i}\t{p}\n" for i, p in enumerate(passages))
+    targets = rng.choice(n, size=sz["long_queries"], replace=False)
+    with open(paths["queries"], "w") as fq, open(paths["qrels"], "w") as fr:
+        for qi, t in enumerate(targets):
+            fq.write(f"{qi}\t{' '.join(rng.choice(passages[t].split(), size=int(rng.integers(3, 7))))}\n")
+            fr.write(f"{qi} 0 {t} 1\n")
+    with open(paths["train"], "w") as f:
+        for _ in range(sz["long_steps"] * sz["long_batch"]):
+            pos, neg = rng.integers(0, n, size=2)
+            query = " ".join(rng.choice(passages[pos].split(), size=int(rng.integers(3, 12))))
+            f.write(f"{rng.uniform(5, 10):.3f}\t{rng.uniform(0, 5):.3f}\t{query}\t{passages[pos]}\t{passages[neg]}\n")
+    return paths
+
+
+def _long_serve(sz, device, root, config, tag, want):
+    """cli.dense_retrieval encode+index+search over the long collection with
+    ``config``: launches against ``want``, every query's 100 hits, recall@100
+    of the run against an exact search of the rows it encoded (the queries
+    encoded by the same model) at phase 4's floor, psg/s and QPS from the
+    CLI's efficiency metrics; the model, for further checks."""
+    import torch
+
+    from matchmaker_tpu_torch.cli.dense_retrieval import run
+    from matchmaker_tpu_torch.data.tokenization import build_tokenizer
+    from matchmaker_tpu_torch.models import get_model, init_params
+    from matchmaker_tpu_torch.ops import _build
+    from matchmaker_tpu_torch.retrieval.encode import load_encoded
+
+    out = os.path.join(root, f"served_{tag}")
+    os.makedirs(out)
+    fresh_perf_monitor()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    check(run("encode+index+search", dict(config), out) == 0, f"{tag}: cli.dense_retrieval returned non-zero")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    _check_launches(launches, want, f"{tag} serving", device)
+    with open(os.path.join(out, "efficiency-metrics.json")) as f:
+        blocks = json.load(f)[-1]["blocks"]
+    result = {"launches": launches, "wall_s": time.perf_counter() - t0,
+              "encode_psg_per_s": blocks["encode"]["items_per_second"],
+              "search_qps": blocks["search_total"]["items_per_second"]}
+    ranking = {}
+    with open(os.path.join(out, "dev-output.txt")) as f:
+        for line in f:
+            qid, did, _, _ = line.split()
+            ranking.setdefault(qid, []).append(did)
+    k = sz["top_n"]
+    check(len(ranking) == sz["long_queries"] and all(len(v) == k for v in ranking.values()),
+          f"{tag}: every query must have {k} hits")
+    tokenizer = build_tokenizer(config)
+    model = get_model(config, tokenizer)
+    init_params(model, config, torch.Generator().manual_seed(config["random_seed"]))
+    model.to(device).eval()
+    check(model.tower("doc").cfg.max_position_embeddings == sz["long_positions"], f"{tag}: the encoder's positions")
+    q_vecs, qids = _encode_file(model, config, tokenizer, config["query_sets"]["dev"]["queries_tsv"], "query", 32,
+                                device)
+    vectors, row_ids = load_encoded(os.path.join(out, "encoded"))
+    check(vectors.shape == (sz["long_passages"], sz["hid"]) and bool(np.isfinite(vectors).all()), f"{tag}'s rows")
+    rows = torch.from_numpy(vectors).to(device).to(torch.bfloat16).float()
+    with torch.inference_mode():
+        top = torch.topk(q_vecs.to(torch.bfloat16).float() @ rows.T, k, dim=1).indices.cpu().tolist()
+    recall = float(np.mean([len({str(row_ids[i]) for i in idx} & set(ranking[q])) / k for q, idx in zip(qids, top)]))
+    result[f"recall@{k}"] = recall
+    print(f"[long_docs] {tag}: {result['encode_psg_per_s']:.1f} psg/s, {result['search_qps']:.1f} QPS through "
+          f"cli.dense_retrieval ({sz['long_passages']} passages of up to {sz['long_doc_len']} tokens); recall@{k} "
+          f"vs the exact search of its encoded rows {recall:.4f}; launches {({n: v for n, v in launches.items() if v})}")
+    check(recall >= QUERY_SETS[0][2], f"{tag}: recall@{k} {recall} < {QUERY_SETS[0][2]}")
+    return result, model, tokenizer
+
+
+def _long_batch_vs_plain(model, config, tokenizer, sz, device, tag):
+    """The first ``long_plain_docs`` passages (long and short ones) encoded
+    through the kernels and through the plain versions: the encoder halves'
+    bar (row cosine >= 0.999, max |d| <= 0.1)."""
+    n = sz["long_plain_docs"]
+    got, _ = _encode_file(model, config, tokenizer, config["collection_tsv"], "doc", n, device, limit=n)
+    with plain_encoder_blocks(), plain_int8_blocks():
+        want, _ = _encode_file(model, config, tokenizer, config["collection_tsv"], "doc", n, device, limit=n)
+    cos, err = _rows_close(got, want)
+    print(f"[long_docs] {tag}: {n} passages of up to {sz['long_doc_len']} tokens, kernels vs plain: min row cosine "
+          f"{cos:.6f}, max |d| {err:.4g}")
+    check(cos >= 0.999 and err <= 0.1, f"{tag} encode, kernels vs plain: cosine {cos}, max |d| {err}")
+    return {"encode_cos": cos, "encode_max_abs": err}
+
+
+def _long_train(sz, device, root, config, tag, want, smooth):
+    """``long_steps`` Trainer steps of ``config`` at batch ``long_batch``:
+    launches against ``want``, a finite loss every step, device-only
+    triples/s, and one step held to an f32 twin of the model
+    (:func:`_step_vs_f32`: the batch's scores and, under ``smooth``'s loss,
+    every gradient on its first ``long_grad_rows`` triples, the plain
+    versions' (B, 12, L, L) f32 intermediates of the whole batch taking
+    about 6 GB a layer, each within twice the plain bf16 version's error
+    from f32 plus 1e-3). Kernels against plain bf16 is noise against noise
+    at 2,000 tokens (PERF.md §6: bias-gradient cosines of 0.64 between two
+    bf16 runs), so it is reported, not gated."""
+    lsz = dict(sz, train_batch=sz["long_batch"])
+    trainer, res = _train_through_trainer(lsz, device, config, os.path.join(root, f"{tag}_run"), sz["long_steps"], tag)
+    _check_launches(res["launches"], want, tag, device)
+    batch = _device_batch(config, trainer.tokenizer, config["train_tsv"], device)
+    check(batch["doc_pos_ids"].shape[-1] == sz["long_doc_len"] and int(batch["doc_pos_mask"].sum(dim=1).max())
+          == sz["long_doc_len"], f"{tag}: the documents are not {sz['long_doc_len']} tokens")
+    res.update(_step_speed(lsz, device, trainer, batch, tag, profile=False))
+    res.update(_step_vs_f32(trainer.model, config, batch, smooth, tag, sz["long_grad_rows"]))
+    print(f"[long_docs] {tag}: {sz['long_steps']} steps, loss {res['loss_first']:.4f} -> {res['loss_last']:.4f}, "
+          f"{res['device_triples_per_s']:.1f} triples/s device-only ({res['step_ms']:.2f} ms a step), "
+          f"{res['cli_triples_per_s']:.1f} through the Trainer")
+    _free(trainer, device)
+    return res
+
+
+def phase_long_documents(sz, device, root):
+    """Phase 15: 2,000-token documents whole through the encoder, DistilBERT
+    widths (6 x 768, 12 heads of 64, FF 3,072) from a seeded checkpoint of
+    2,048 positions, queries of 30 tokens, ``max_doc_length`` 2,000: (a)
+    BERT_DOT served through cli.dense_retrieval over ``long_passages``
+    passages with the bf16 halves (K1, K2) and with ``encoder_int8_mlp``
+    (K1, K9), each run's recall@100 gated against an exact search of its
+    encoded rows, one batch of each against the plain versions, and one
+    encode batch with ``encoder_int8`` (K10, K9); (b) ``long_steps``
+    BERT_DOT Trainer steps at batch ``long_batch`` under Margin-MSE +
+    in-batch negatives (K1, K2, K12, K11); (c) as many ColBERT steps,
+    compression 128 (the MaxSim training form and backward at Ld 2,000).
+    Launches against the prediction in every run."""
+    import torch
+
+    from matchmaker_tpu_torch.models import get_model, init_params
+    from matchmaker_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    long_root = os.path.join(root, "long_docs")
+    os.makedirs(long_root)
+    ckpt = _long_checkpoint(long_root, sz)
+    paths = _write_long_data(long_root, sz)
+    result = {"setup_s": time.perf_counter() - t0}
+    n = sz["long_doc_len"]
+    base = dict(_main_config(long_root, sz, device), bert_pretrained_model=ckpt, max_doc_length=n,
+                collection_batch_size=sz["long_encode_batch"],
+                query_sets={"dev": {"queries_tsv": paths["queries"], "qrels": paths["qrels"], "top_n": sz["top_n"],
+                                    "binarization_point": 1}})
+    layers = sz["n_layers"]
+    encodes = layers * (-(-sz["long_passages"] // sz["long_encode_batch"]) + -(-sz["long_queries"] // 32))
+    serve = {}
+    serve["bf16"], model, tokenizer = _long_serve(
+        sz, device, long_root, base, "bf16", {"fused_attention_block": encodes, "fused_mlp_block": encodes,
+                                              "fused_mlp_int8_block": 0, "fused_attention_int8_block": 0})
+    serve["bf16"].update(_long_batch_vs_plain(model, base, tokenizer, sz, device, "bf16"))
+    del model
+    int8_mlp = dict(base, encoder_int8_mlp=True)
+    serve["int8_mlp"], model, tokenizer = _long_serve(
+        sz, device, long_root, int8_mlp, "int8_mlp", {"fused_attention_block": encodes, "fused_mlp_int8_block": encodes,
+                                                      "fused_mlp_block": 0, "fused_attention_int8_block": 0})
+    serve["int8_mlp"].update(_long_batch_vs_plain(model, int8_mlp, tokenizer, sz, device, "int8_mlp"))
+    del model
+    int8 = dict(base, encoder_int8=True)
+    model = get_model(int8, tokenizer)
+    init_params(model, int8, torch.Generator().manual_seed(int8["random_seed"]))
+    model.to(device).eval()
+    _build.reset_launches()
+    serve["int8"] = _long_batch_vs_plain(model, int8, tokenizer, sz, device, "encoder_int8")
+    serve["int8"]["launches"] = dict(_build.LAUNCHES)
+    _check_launches(serve["int8"]["launches"], {"fused_attention_int8_block": layers, "fused_mlp_int8_block": layers,
+                                                 "fused_attention_block": 0, "fused_mlp_block": 0}, "encoder_int8", device)
+    del model
+    result["serve"] = serve
+
+    train = dict(_train_config(dict(paths, val=None, val_qrels=None), sz, device), bert_pretrained_model=ckpt,
+                 batch_size_train=sz["long_batch"], max_doc_length=n, max_training_batches=sz["long_steps"],
+                 validate_every_n_batches=-1, validation_cont=None, test=None, run_dense_retrieval_eval=False)
+    steps = sz["long_steps"] * layers * 2
+    halves = {"fused_attention_block": steps, "fused_mlp_block": steps, "fused_attention_block_bwd": steps,
+              "fused_mlp_block_bwd": steps}
+    result["bert_dot"] = _long_train(sz, device, long_root, train, "long_bert_dot", halves,
+                                     dict(train, in_batch_negatives=False))
+    colbert = dict(train, model="colbert", colbert_compression_dim=128, query_augment_mask_number=8,
+                   in_batch_neg_loss="margin-mse")
+    result["colbert"] = _long_train(
+        sz, device, long_root, colbert, "long_colbert",
+        dict(halves, maxsim_all_pairs_argmax=sz["long_steps"], maxsim_all_pairs_bwd=sz["long_steps"], maxsim_all_pairs=0),
+        dict(colbert, in_batch_neg_loss="KLDivTeacherList"))
+    launches = {}
+    for runs in (serve["bf16"]["launches"], serve["int8_mlp"]["launches"], serve["int8"]["launches"],
+                 result["bert_dot"]["launches"], result["colbert"]["launches"]):
+        for k, v in runs.items():
+            launches[k] = launches.get(k, 0) + v
+    result["launches"] = launches
+    result["seconds"] = time.perf_counter() - t0
+    shutil.rmtree(long_root, ignore_errors=True)
+    print(f"[long_docs] phase 15 took {result['seconds']:.1f} s (set-up {result['setup_s']:.1f} s)")
+    return result
+
+
 # ---- phase 11: the index layer through the CLI and at 1M rows ------------------
 
 # (a) the CLI's other index kinds over phase 4's collection; the files each saves
@@ -5848,8 +6282,10 @@ def _exact_topk(q, rows, k):
 
 
 def phase_index_cli(sz, device, root):
-    """Phase 11 (a): ``run("encode+index+search")`` once per index kind, then
-    ``run("search")`` from the saved index."""
+    """Phase 11 (a): ``run("encode+index+search")`` for the first index
+    kind and ``run("index+search")`` on a copy of its encoded blocks for
+    the others (the collection encoded once), each then ``run("search")``
+    from the saved index."""
     import torch
 
     from matchmaker_tpu_torch.cli.dense_retrieval import run
@@ -5864,12 +6300,16 @@ def phase_index_cli(sz, device, root):
     k = sz["top_n"]
     result, total = {}, {}
     vectors = None
-    for kind, (extra, files) in CLI_INDEX_KINDS.items():
+    for i, (kind, (extra, files)) in enumerate(CLI_INDEX_KINDS.items()):
         config = dict(base, **extra)
         folder = os.path.join(root, f"run_{kind}")
-        os.makedirs(folder)
+        if i:
+            shutil.copytree(os.path.join(root, f"run_{next(iter(CLI_INDEX_KINDS))}", "encoded"),
+                            os.path.join(folder, "encoded"))
+        else:
+            os.makedirs(folder)
         rec = {}
-        for mode in ("encode+index+search", "search"):
+        for mode in ("index+search" if i else "encode+index+search", "search"):
             fresh_perf_monitor()
             _build.reset_launches()
             t0 = time.perf_counter()
@@ -5889,19 +6329,18 @@ def phase_index_cli(sz, device, root):
             ranking = _read_run(os.path.join(folder, "dev-output.txt"))
             check(len(ranking[0]) == sz["queries"] and all(len(v) == k for v in ranking[0].values()),
                   f"{kind} {mode}: every query must have {k} hits")
-            rec[mode] = {"wall_s": wall, "launches": {n: launches[n] for n in want},
-                         "search_qps": blocks["search_total"]["items_per_second"],
-                         "indexing_s": blocks["indexing"]["total_seconds"] if "indexing" in blocks else None}
-            if mode == "encode+index+search":
+            rec["run" if mode != "search" else mode] = {
+                "mode": mode, "wall_s": wall, "launches": {n: launches[n] for n in want},
+                "search_qps": blocks["search_total"]["items_per_second"],
+                "indexing_s": blocks["indexing"]["total_seconds"] if "indexing" in blocks else None}
+            if mode != "search":
                 first = ranking
                 os.remove(os.path.join(folder, "dev-output.txt"))
         for rel in ("encoded/encode_meta.json", "dev-metrics.csv") + tuple(f"index/{f}" for f in files):
             check(os.path.isfile(os.path.join(folder, rel)), f"{kind}: missing {rel}")
         check(ranking[0] == first[0], f"{kind}: the search from the saved index ranks otherwise")
-        v, row_ids = load_encoded(os.path.join(folder, "encoded"))
         if vectors is None:
-            vectors = v
-        check(np.array_equal(v, vectors), f"{kind}: the encode differs from the first kind's")
+            vectors, row_ids = load_encoded(os.path.join(folder, "encoded"))
         rec["ranking"] = first
         result[kind] = rec
 
@@ -5919,9 +6358,9 @@ def phase_index_cli(sz, device, root):
         rec["recall@%d" % k] = float(np.mean([len(set(g) & set(w)) / k for g, w in zip(got, exact_ids)]))
         rec["misses_past_ties"] = _misses_past_ties(got, exact_ids, ex_v.tolist())
         print(f"[index-cli] {kind}: recall@{k} vs the exact f32 search of the stored rows {rec['recall@%d' % k]:.4f}"
-              f" ({rec['misses_past_ties']} misses past near-ties); indexing {rec['encode+index+search']['indexing_s']:.3f} s,"
-              f" search {rec['encode+index+search']['search_qps']:.1f} QPS in the CLI, {rec['search']['search_qps']:.1f}"
-              f" QPS from the saved index; K1/K2 launches {rec['encode+index+search']['launches']['fused_attention_block']}"
+              f" ({rec['misses_past_ties']} misses past near-ties); indexing {rec['run']['indexing_s']:.3f} s,"
+              f" search {rec['run']['search_qps']:.1f} QPS in the CLI, {rec['search']['search_qps']:.1f}"
+              f" QPS from the saved index; K1/K2 launches {rec['run']['launches']['fused_attention_block']}"
               f" + {rec['search']['launches']['fused_attention_block']} (as predicted)")
         if kind == "streaming":
             check(rec["misses_past_ties"] == 0, f"streaming: {rec['misses_past_ties']} misses against the exact search")
@@ -6767,6 +7206,10 @@ def run_phases(sz, device, card: str) -> dict:
     report["wide_width_kernels_s"] = time.perf_counter() - t0
     print(f"[kernels] phase 3's new widths took {report['wide_width_kernels_s']:.1f} s")
     t0 = time.perf_counter()
+    kern.update(phase_long_sequence_kernels(sz, device))
+    report["long_sequence_kernels_s"] = time.perf_counter() - t0
+    print(f"[kernels] phase 3's sequences past 512 took {report['long_sequence_kernels_s']:.1f} s")
+    t0 = time.perf_counter()
     kern.update(phase_probe_kernels(sz, device))
     report["probe_kernels_s"] = time.perf_counter() - t0
     mark("3: kernels against their plain versions")
@@ -6782,6 +7225,9 @@ def run_phases(sz, device, card: str) -> dict:
         report["jax_runs_s"] = time.perf_counter() - t0
         mark("13: JAX runs, MiniLM, TinyBERT, BERT-large and the new widths")
     print(f"[jax_runs] phase 13 took {report['jax_runs_s']:.1f} s")
+    with tempfile.TemporaryDirectory() as root:
+        report["long_docs"] = phase_long_documents(sz, device, root)
+    mark("15: 2,000-token documents")
     report["scale"] = phase_scale(sz, device)
     report["scale_int8"] = phase_scale_int8(sz, device)
     mark("5, 5b: 1M-row searches")
@@ -6839,8 +7285,9 @@ def run_phases(sz, device, card: str) -> dict:
         # tree-AH, HNSW and streaming indexes (K1, K2); "launches_phase12": phase 12's runs (TK over bert_vectors,
         # listwise BERT_DOT, BERT_CAT with QA heads: K1, K2, K11, K12); "launches_phase14": phase 14's sharded
         # searches (one call a route: K3, K4, K6, K7, K8) and rank 0's steps in its two-process run (K1, K2, K11,
-        # K12); "launches_scale": the scale search of the same route (bf16 or int8; training and the probes: the
-        # bf16)
+        # K12); "launches_phase15": phase 15's runs over 2,000-token documents (K1, K2, K9, K10, K11, K12, the
+        # MaxSim training form and backward); "launches_scale": the scale search of the same route (bf16 or int8;
+        # training and the probes: the bf16)
         runs = {"serve": report["main"]["launches"][name], "train": report["train"]["launches"][name],
                 **{f"serve_int8_{r}": report["main_int8"][r]["launches"][name] for r, _, _ in INT8_RUNS},
                 "serve_colbert": report["colbert"]["launches"][name],
@@ -6852,7 +7299,8 @@ def run_phases(sz, device, card: str) -> dict:
                 "phase11": report["indexes"]["launches"].get(name, 0),
                 "phase12": report["zoo"]["launches"].get(name, 0),
                 "phase13": report["jax_runs"]["launches"].get(name, 0),
-                "phase14": report["multi"]["launches"].get(name, 0)}
+                "phase14": report["multi"]["launches"].get(name, 0),
+                "phase15": report["long_docs"]["launches"].get(name, 0)}
         scale_runs = {"scale_bf16": report["scale"]["launches"][name],
                       **{f"scale_int8_{r}": report["scale_int8"][r]["launches"][name]
                          for r, _, _ in SCALE_INT8_RUNS}}
@@ -6905,8 +7353,10 @@ def run_phases(sz, device, card: str) -> dict:
              "bound_ms": e["bound_ms"], "bound_by": e["bound_by"], "library_ms": e.get("library_ms"),
              "timed_shape": e["timed_shape"], "device_ms": e.get("device_ms"), "x_bound": e.get("x_bound")})
     report["kernels"] += wide_kernel_entries(report["jax_runs"]["bert_large"], kern, device)
+    report["kernels"] += long_kernel_entries(report["long_docs"], kern, device)
     report["kernel_timings"] = {k[0]: kern[k[0]]["timings"] for k in KERNELS}
-    report["kernel_timings"].update({k: kern[k]["timings"] for k in kern if k.split("@", 1)[-1] in WIDE_TAGS})
+    report["kernel_timings"].update({k: kern[k]["timings"] for k in kern
+                                     if k.split("@", 1)[-1] in WIDE_TAGS | {"long"}})
     if report["scale"]["level2_reduce"]:
         report["kernel_timings"]["level2_reduce"].append(dict(report["scale"]["level2_reduce"], path="scale_bf16"))
     report["torch"] = torch.__version__
@@ -6960,7 +7410,7 @@ def print_indexes(card, report) -> None:
     ix = report["indexes"]
     k, n = FULL["scale_k"], FULL["scale_rows"]
     print(f"[{card}] index kinds through the CLI ({FULL['passages']} passages, top-{FULL['top_n']}): " + ", ".join(
-        f"{kind} recall {r['recall@%d' % FULL['top_n']]:.4f}, {r['encode+index+search']['search_qps']:.1f} QPS"
+        f"{kind} recall {r['recall@%d' % FULL['top_n']]:.4f}, {r['run']['search_qps']:.1f} QPS"
         for kind, r in ix["cli"].items() if kind != "launches"))
     print(f"[{card}] index routes at {n} x {FULL['hid']}, Q 256, k {k}: " + ", ".join(
         f"{name} build {r['build_s']:.2f} s, {r['index_bytes'] / 1e9:.3f} GB, {r['qps']:.1f} QPS, recall@{k} "
@@ -7011,6 +7461,19 @@ def print_jax_runs(card, report) -> None:
           f"{f['train']['plain_grad_cos']:.6f}; the new widths: "
           + "; ".join(f"{w['hidden']}/{w['heads']}/{w['ff']} encode cosine {w['encode_cos']:.6f}, gradient cosine "
                       f"{w['plain_grad_cos']:.6f}" for w in f["widths"].values()) + f" ({f['seconds']:.1f} s)")
+
+
+def print_long_docs(card, report) -> None:
+    ld, k = report["long_docs"], FULL["top_n"]
+    sv, bd, cb = ld["serve"], ld["bert_dot"], ld["colbert"]
+    print(f"[{card}] phase 15, {FULL['long_doc_len']}-token documents (DistilBERT widths, {FULL['long_positions']} "
+          f"positions): BERT_DOT through cli.dense_retrieval bf16 {sv['bf16']['encode_psg_per_s']:.1f} psg/s "
+          f"(recall@{k} {sv['bf16'][f'recall@{k}']:.4f}), int8_mlp {sv['int8_mlp']['encode_psg_per_s']:.1f} psg/s "
+          f"(recall@{k} {sv['int8_mlp'][f'recall@{k}']:.4f}); BERT_DOT training "
+          f"{bd['device_triples_per_s']:.1f} triples/s device-only ({bd['step_ms']:.2f} ms a step, worst gradient "
+          f"cosine {bd['plain_grad_cos']:.6f}), ColBERT {cb['device_triples_per_s']:.1f} ({cb['step_ms']:.2f} ms, "
+          f"{cb['plain_grad_cos']:.6f}); phase 15 {ld['seconds']:.1f} s; phase 3's sequences past 512 "
+          f"{report['long_sequence_kernels_s']:.1f} s")
 
 
 def print_multi(card, report) -> None:
@@ -7092,6 +7555,7 @@ def main() -> int:
     print_zoo(card, report)
     print_jax_runs(card, report)
     print_multi(card, report)
+    print_long_docs(card, report)
     for k in report["kernels"]:
         device = (f" (device {k['device_ms']:.4f} ms, {k['x_bound']:.2f}x bound; library device "
                   f"{_fmt(k.get('library_device_ms'))})" if k.get("x_bound") else "")
@@ -7101,6 +7565,7 @@ def main() -> int:
                   f", {k['launches_rerank']} in phase 9's runs, {k['launches_phase10']} in phase 10's, "
                   f"{k['launches_phase11']} in phase 11's, {k['launches_phase12']} in phase 12's, "
                   f"{k['launches_phase13']} in phase 13's, {k['launches_phase14']} in phase 14's, "
+                  f"{k['launches_phase15']} in phase 15's, "
                   f"{k['launches_scale']} in the scale search"
                   if "launches_scale" in k else f" ({k['name'].split('@', 1)[1]})"))
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:

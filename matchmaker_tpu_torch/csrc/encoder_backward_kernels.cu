@@ -372,13 +372,14 @@ cudaError_t launch_ln_bwd_wide(const float* acc, const bf16* dy, const float* ga
 // 104 KB of shared memory each) instead of three.
 constexpr int AT = 64;            // query or key rows of a tile
 constexpr int A_THREADS = 128;    // 4 warps, 16 rows of the block's own tile each
-constexpr int MAX_KEYS = 512;
+constexpr int NEG_KEYS = 512;     // the dq kernel's window of the mask row: eight key tiles
+constexpr int NEG_TILES = NEG_KEYS / AT;
 template <int HD>
 __host__ __device__ constexpr int a_ld() { return HD + 8; }  // padded bf16 tile rows: ldmatrix rows on distinct banks
 template <int HD>
 __host__ __device__ constexpr int a_tile() { return AT * a_ld<HD>(); }
 template <int HD>
-__host__ __device__ constexpr size_t dq_smem_bytes() { return (size_t)6 * a_tile<HD>() * 2 + MAX_KEYS * 4; }
+__host__ __device__ constexpr size_t dq_smem_bytes() { return (size_t)6 * a_tile<HD>() * 2 + NEG_KEYS * 4; }
 template <int HD>
 __host__ __device__ constexpr size_t dkv_smem_bytes() { return (size_t)6 * a_tile<HD>() * 2 + 2 * 3 * AT * 4; }
 
@@ -475,6 +476,10 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&c)[HD / 8][4
 // from the forward, da (B, L, HID) the gradient of the attention output.
 // Writes dq into dqkv[:, :, 0:HID] and each query's row statistics (max,
 // sum of exp, D = sum_j P_ij dP_ij) into stats (3, B, H, L) for kernel 2.
+// The additive mask sits in shared memory as a window of NEG_KEYS keys,
+// refilled every eighth key tile of a pass between the barriers that close
+// and open a tile (at L <= 512 the whole row, filled once), so the shared
+// memory does not grow with L.
 template <int HD>
 __global__ void __launch_bounds__(A_THREADS, HD > 64 ? 2 : 3)
     attention_bwd_q_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
@@ -509,8 +514,13 @@ __global__ void __launch_bounds__(A_THREADS, HD > 64 ? 2 : 3)
     __syncthreads();
   };
 
-  for (int j = tid; j < tiles * AT; j += A_THREADS)
-    negk[j] = j < L ? (mask[(size_t)b * L + j] - 1.0f) * 1e9f : -INFINITY;
+  // keys [k0, k0 + NEG_KEYS) of the additive mask, -inf past L
+  auto fill_negk = [&](int k0) {
+    for (int j = tid; j < NEG_KEYS && k0 + j < tiles * AT; j += A_THREADS)
+      negk[j] = k0 + j < L ? (mask[(size_t)b * L + k0 + j] - 1.0f) * 1e9f : -INFINITY;
+  };
+
+  fill_negk(0);
   stage_tile<HD>(Qs, base, ROW, h * HD, q0, L);
   stage_tile<HD>(Ds, da + (size_t)b * L * HID, HID, h * HD, q0, L);
   stage_kv(0);
@@ -520,6 +530,7 @@ __global__ void __launch_bounds__(A_THREADS, HD > 64 ? 2 : 3)
   // last over the second, exactly the plain version's sum_j P_ij dP_ij
   float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f}, dsum[2] = {0.0f, 0.0f};
   for (int t = 0; t < tiles; ++t) {
+    if (t % NEG_TILES == 0 && t > 0) fill_negk(t * AT);  // the last window was read before the last barrier
     next_tile(t);
     uint32_t fa[a_blocks<HD>()][4];
     float s[8][4], dp[8][4];
@@ -532,7 +543,7 @@ __global__ void __launch_bounds__(A_THREADS, HD > 64 ? 2 : 3)
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = s[j][e] * scale + negk[t * AT + 8 * j + 2 * (lane & 3) + (e & 1)];
+        s[j][e] = s[j][e] * scale + negk[t % NEG_TILES * AT + 8 * j + 2 * (lane & 3) + (e & 1)];
         tm[e >> 1] = fmaxf(tm[e >> 1], s[j][e]);
       }
 #pragma unroll
@@ -575,11 +586,13 @@ __global__ void __launch_bounds__(A_THREADS, HD > 64 ? 2 : 3)
   }
 
   // pass 2: P from the statistics, dP = dA V^T, dS = P (dP - D) scale, dQ += dS K
+  if (tiles > NEG_TILES) fill_negk(0);
   stage_kv(0);
   float dq[HD / 8][4];
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.0f;
   for (int t = 0; t < tiles; ++t) {
+    if (t % NEG_TILES == 0 && t > 0) fill_negk(t * AT);
     next_tile(t);
     const bf16* kt = Kb + (t & 1) * TILE_ELEMS;
     uint32_t fa[a_blocks<HD>()][4];
@@ -593,7 +606,8 @@ __global__ void __launch_bounds__(A_THREADS, HD > 64 ? 2 : 3)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
-        const float p = __expf(s[j][e] * scale + negk[t * AT + 8 * j + 2 * (lane & 3) + (e & 1)] - mx[i]) * inv[i];
+        const float p =
+            __expf(s[j][e] * scale + negk[t % NEG_TILES * AT + 8 * j + 2 * (lane & 3) + (e & 1)] - mx[i]) * inv[i];
         s[j][e] = p * (dp[j][e] - dd[i]) * scale;  // dS in place of S
       }
     c_to_a(fa, s);
@@ -709,7 +723,7 @@ __global__ void __launch_bounds__(A_THREADS, HD > 64 ? 2 : 3)
 template <int HD>
 int attention_bwd(const void* qkv, const void* mask, const void* da, void* dqkv, void* stats, int B, int L, int H,
                   float scale, void* stream) {
-  if (L < 1 || L > MAX_KEYS) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || H < 1 || L < 1 || B > 65535 || H > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaFuncSetAttribute(attention_bwd_q_mma_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem_bytes<HD>());

@@ -63,8 +63,11 @@ using bf16 = __nv_bfloat16;
 // f32 output is re-quantized, and 16 bits of p flip a few int8 codes against
 // the plain version's f32 p). Keys past L (up to a multiple of 64) take
 // p = 0, key tiles past an example's last unmasked key are skipped; query
-// rows past L are not stored. Shared memory (Q, two K and two V tiles, the
-// mask row) does not grow with L.
+// rows past L are not stored. Shared memory (Q, two K and two V tiles, a
+// window of the mask row) does not grow with L: the window holds NEG_KEYS
+// keys, eight 64-key tiles, and is refilled from the mask row every eighth
+// tile of a pass, between the barriers that already close and open a tile
+// (at L <= 512 it holds the whole row, filled once).
 // The head width HD is a template parameter, instanced for 16, 32, 64 and
 // 128 (launch_attention_core): the QK^T reduction takes HD / 16 k-steps of
 // 16, P.V HD / 8 n-tiles of 8, and the tiles' padded rows stay on distinct
@@ -78,7 +81,8 @@ using bf16 = __nv_bfloat16;
 constexpr int QT = 64;          // query rows a block
 constexpr int KT = 64;          // keys a tile
 constexpr int ATT_THREADS = 128;
-constexpr int MAX_KEYS = 512;
+constexpr int NEG_KEYS = 512;       // the mask row's window in shared memory
+constexpr int NEG_TILES = NEG_KEYS / KT;
 template <int HD>
 __host__ __device__ constexpr int t_ld() { return HD + 8; }  // padded bf16 tile rows: ldmatrix rows on distinct banks
 template <int HD>
@@ -132,8 +136,15 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// keys [k0, k0 + NEG_KEYS) of the additive mask row (keys from `end` on
+// left as they are): (m - 1) * 1e9 as the plain version adds it, -inf past L
+__device__ __forceinline__ void fill_neg(float* neg, const float* __restrict__ mrow, int k0, int end, int L) {
+  for (int j = threadIdx.x; j < NEG_KEYS && k0 + j < end; j += ATT_THREADS)
+    neg[j] = k0 + j < L ? (mrow[k0 + j] - 1.0f) * 1e9f : -INFINITY;
+}
+
 // The core of one block, on the shared-memory tiles its kernel gives it:
-// Qs (one tile), Kb and Vb (two each), neg (MAX_KEYS), live (2 * warps).
+// Qs (one tile), Kb and Vb (two each), neg (NEG_KEYS), live (2 * warps).
 template <typename OutT, bool ROUND_P, int HD>
 __device__ __forceinline__ void attention_core(bf16* Qs, bf16* Kb, bf16* Vb, float* neg, int* live,
                                                const bf16* __restrict__ q_in, const bf16* __restrict__ k_in,
@@ -155,11 +166,12 @@ __device__ __forceinline__ void attention_core(bf16* Qs, bf16* Kb, bf16* Vb, flo
   // Where some key has m = 1, a key with m = 0 takes exp(-1e9 + ...) = 0
   // exactly, so the tiles past the last key with m != 0 add nothing to either
   // pass and are skipped (the same values); without a key of m = 1 every tile
-  // runs.
+  // runs. The scan reads the whole row; the window takes its first NEG_KEYS.
+  const float* mrow = mask + (size_t)b * L;
   int last = 0, one = 0;
   for (int j = tid; j < (L + KT - 1) / KT * KT; j += ATT_THREADS) {
-    const float mj = j < L ? mask[(size_t)b * L + j] : 0.0f;
-    neg[j] = j < L ? (mj - 1.0f) * 1e9f : -INFINITY;
+    const float mj = j < L ? mrow[j] : 0.0f;
+    if (j < NEG_KEYS) neg[j] = j < L ? (mj - 1.0f) * 1e9f : -INFINITY;
     if (mj != 0.0f) last = j + 1;
     one |= mj == 1.0f;
   }
@@ -187,6 +199,8 @@ __device__ __forceinline__ void attention_core(bf16* Qs, bf16* Kb, bf16* Vb, flo
   uint32_t fq[HD / 16][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
   for (int t = 0; t < tiles; ++t) {
+    // a new window: the last one's tiles were read before the last barrier
+    if (t % NEG_TILES == 0 && t > 0) fill_neg(neg, mrow, t * KT, tiles * KT, L);
     if (t + 1 < tiles) {
       stage_tile<HD>(Kb + ((t + 1) & 1) * TILE, kb, ld, (t + 1) * KT, L);
       cp_async_commit();
@@ -200,7 +214,7 @@ __device__ __forceinline__ void attention_core(bf16* Qs, bf16* Kb, bf16* Vb, flo
       for (int k = 0; k < HD / 16; ++k)
         ldsm_x4(fq[k], Qs + (warp * 16 + (lane & 15)) * T_LD + k * 16 + (lane >> 4) * 8);
     float s[8][4];
-    score_tile<HD>(s, fq, Kb + (t & 1) * TILE, neg + t * KT, scale, lane);
+    score_tile<HD>(s, fq, Kb + (t & 1) * TILE, neg + t % NEG_TILES * KT, scale, lane);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float mx = m[i];
@@ -220,6 +234,7 @@ __device__ __forceinline__ void attention_core(bf16* Qs, bf16* Kb, bf16* Vb, flo
   for (int i = 0; i < 2; ++i) den[i] = quad_sum(l[i]);
 
   // pass 2: O = P V
+  if (tiles > NEG_TILES) fill_neg(neg, mrow, 0, tiles * KT, L);
   stage_tile<HD>(Kb, kb, ld, 0, L);
   stage_tile<HD>(Vb, vb, ld, 0, L);
   cp_async_commit();
@@ -227,6 +242,7 @@ __device__ __forceinline__ void attention_core(bf16* Qs, bf16* Kb, bf16* Vb, flo
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
   for (int t = 0; t < tiles; ++t) {
+    if (t % NEG_TILES == 0 && t > 0) fill_neg(neg, mrow, t * KT, tiles * KT, L);
     if (t + 1 < tiles) {
       stage_tile<HD>(Kb + ((t + 1) & 1) * TILE, kb, ld, (t + 1) * KT, L);
       stage_tile<HD>(Vb + ((t + 1) & 1) * TILE, vb, ld, (t + 1) * KT, L);
@@ -237,7 +253,7 @@ __device__ __forceinline__ void attention_core(bf16* Qs, bf16* Kb, bf16* Vb, flo
     }
     __syncthreads();
     float s[8][4];
-    score_tile<HD>(s, fq, Kb + (t & 1) * TILE, neg + t * KT, scale, lane);
+    score_tile<HD>(s, fq, Kb + (t & 1) * TILE, neg + t % NEG_TILES * KT, scale, lane);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -299,14 +315,14 @@ __global__ void __launch_bounds__(ATT_THREADS, 4)
   __shared__ __align__(128) bf16 Qs[TILE];
   __shared__ __align__(128) bf16 Kb[2 * TILE];
   __shared__ __align__(128) bf16 Vb[2 * TILE];
-  __shared__ float neg[MAX_KEYS];
+  __shared__ float neg[NEG_KEYS];
   __shared__ int live[2 * ATT_THREADS / 32];
   attention_core<OutT, ROUND_P, HD>(Qs, Kb, Vb, neg, live, q_in, k_in, v_in, ld, mask, out, L, H, scale);
 }
 
 // heads of 128: the same core on dynamic shared memory, two blocks an SM
 constexpr int WIDE_HD = 128;
-constexpr size_t WIDE_SMEM = (size_t)5 * tile_elems<WIDE_HD>() * sizeof(bf16) + MAX_KEYS * sizeof(float) +
+constexpr size_t WIDE_SMEM = (size_t)5 * tile_elems<WIDE_HD>() * sizeof(bf16) + NEG_KEYS * sizeof(float) +
                              2 * ATT_THREADS / 32 * sizeof(int);
 
 template <typename OutT, bool ROUND_P>
@@ -320,7 +336,7 @@ __global__ void __launch_bounds__(ATT_THREADS, 2)
   bf16* Kb = Qs + TILE;
   bf16* Vb = Kb + 2 * TILE;
   float* neg = reinterpret_cast<float*>(Vb + 2 * TILE);
-  int* live = reinterpret_cast<int*>(neg + MAX_KEYS);
+  int* live = reinterpret_cast<int*>(neg + NEG_KEYS);
   attention_core<OutT, ROUND_P, WIDE_HD>(Qs, Kb, Vb, neg, live, q_in, k_in, v_in, ld, mask, out, L, H, scale);
 }
 
@@ -357,7 +373,7 @@ __global__ void __launch_bounds__(256) layernorm_kernel(const float* __restrict_
 template <typename OutT, bool ROUND_P>
 int launch_attention_core(const bf16* q, const bf16* k, const bf16* v, int ld, const void* mask, void* out, int B,
                           int L, int H, int hd, float scale, void* stream) {
-  if (B < 1 || H < 1 || L < 1 || L > MAX_KEYS) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || H < 1 || L < 1 || B > 65535 || H > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((L + QT - 1) / QT, H, B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mask);

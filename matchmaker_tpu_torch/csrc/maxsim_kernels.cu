@@ -34,7 +34,7 @@
 // row tile of at most 128 rows; the batched rescore: one) and `cpb` of
 // their candidates. The tile's query rows (qpb*Lq rounded up to the MMA's
 // 16, never 128 for a short query) sit in shared memory in f32 over all of
-// D; a query longer than a tile (Lq up to 512, or wide D) walks its rows in
+// D; a query longer than a tile (Lq past 128, or wide D) walks its rows in
 // tiles, reloading them per candidate. The candidates' tokens stream through
 // a 3-stage cp.async ring in chunks of 64 tokens x 128 bytes of D (32 f32 or
 // 64 float16); the block's candidate spans wait in shared memory and a
@@ -49,6 +49,11 @@
 // warps through shared memory in a fixed order, and one thread per query
 // sums its rows in order l = 0..Lq-1: every order is fixed, so reruns give
 // identical bits, and the (B, Lq, C, Ld) scores never reach device memory.
+// The row maxima wait in shared memory for SUM_ROWS rows at most: a longer
+// query (one a block, in tiles; the kernel's PASSES instance) sums them a
+// pass of whole tiles at a time, its thread carrying the running sum from
+// pass to pass, so the order stays l = 0..Lq-1 and any Lq runs in the same
+// shared memory.
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,7 +68,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int TOK = 64;            // tokens of a chunk
 constexpr int STAGES = 3;          // cp.async ring depth
 constexpr int MAX_ROWS = 128;      // query rows of a tile
-constexpr int MAX_LQ = 512;        // query rows a block sums (the encoder's position limit)
+constexpr int SUM_ROWS = 512;      // row maxima a block holds for a pass of its row sums
 constexpr int SMEM_MAX = 232448;   // shared memory a block can use
 constexpr int MAX_CPB = 128;       // candidates a block (their spans sit in shared memory)
 
@@ -201,11 +206,14 @@ __device__ __forceinline__ void load_queries(const Params& p, int b0, int row0, 
 }
 
 // MSW strips of 16 rows x NTW n8 token tiles a warp; WT warps across a
-// chunk's tokens, WARPS / WT across the tile's rows. FULL: every strip of
-// every tile holds query rows, so the products test none
-template <typename DT, int MSW, int NTW, bool FULL>
+// chunk's tokens, WARPS / WT across the tile's rows. MODE FULL_TILES:
+// every strip of every tile holds query rows, so the products test none;
+// PASSES: Lq > SUM_ROWS, the rows summed a pass at a time
+constexpr int PARTIAL = 0, FULL_TILES = 1, PASSES = 2;
+template <typename DT, int MSW, int NTW, int MODE>
 __global__ void __launch_bounds__(THREADS) maxsim_kernel(const Params p) {
   constexpr int KS = Tok<DT>::KS, LD = Tok<DT>::LD, PRODUCTS = Tok<DT>::PRODUCTS;
+  constexpr bool FULL = MODE == FULL_TILES;
   constexpr int WT = TOK / (8 * NTW);
   static_assert(WARPS % WT == 0, "warps split a chunk's tokens evenly");
   extern __shared__ __align__(16) float smem[];
@@ -214,8 +222,8 @@ __global__ void __launch_bounds__(THREADS) maxsim_kernel(const Params p) {
   float* Qs = reinterpret_cast<float*>(s_count + MAX_CPB);                   // [rows][ldq]
   DT* ring = reinterpret_cast<DT*>(Qs + p.rows * p.ldq);                     // [STAGES][TOK][LD]
   float* red = reinterpret_cast<float*>(ring + STAGES * stage_elems<DT>());  // [WT][rows]
-  float* best = red + WT * p.rows;                                           // [max(rows, Lq)]
-  float* wts = best + max(p.rows, p.Lq);                                     // the queries' masks, [nq * Lq]
+  float* best = red + WT * p.rows;                                           // [max(rows, Lq or SUM_ROWS)]
+  float* wts = best + max(p.rows, MODE == PASSES ? SUM_ROWS : p.Lq);         // the masks, [nq * Lq] (not PASSES)
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int wt = warp % WT, strip0 = (warp / WT) * MSW;
@@ -232,7 +240,8 @@ __global__ void __launch_bounds__(THREADS) maxsim_kernel(const Params p) {
     s_first[i] = p.first ? p.first[j] : (long long)(c0 + i) * p.Lpad;  // dense docs: Lpad rows each
     s_count[i] = p.first ? p.count[j] : p.Lpad;
   }
-  for (int i = threadIdx.x; i < nq * p.Lq; i += THREADS) wts[i] = p.q_mask[(size_t)b0 * p.Lq + i];
+  if (MODE != PASSES)
+    for (int i = threadIdx.x; i < nq * p.Lq; i += THREADS) wts[i] = p.q_mask[(size_t)b0 * p.Lq + i];
   __syncthreads();
   const Spans sp{s_first, s_count, c0};
   Cursor prod{c0, 0, 0, 0, 0, 0, 0};
@@ -377,23 +386,54 @@ __global__ void __launch_bounds__(THREADS) maxsim_kernel(const Params p) {
             rmax[s][h] = -INFINITY;
           }
         __syncthreads();
-        const int row_off = cons.tile * p.rows;
-        for (int r = threadIdx.x; r < tile_rows; r += THREADS) {
-          float m = red[r];
-          for (int w = 1; w < WT; ++w) m = fmaxf(m, red[w * p.rows + r]);
-          if (cons.count < p.Lpad) m = fmaxf(m, p.fill);
-          best[row_off + r] = m;
-        }
-        if (cons.tile == p.tiles - 1) {
-          __syncthreads();
-          for (int qi = threadIdx.x; qi < nq; qi += THREADS) {
-            const float* w = wts + qi * p.Lq;
-            float sum = 0.0f;
-            for (int l = 0; l < p.Lq; ++l) {
-              const float m = w[l];
-              if (m != 0.0f) sum += best[qi * p.Lq + l] * m;
+        if constexpr (MODE != PASSES) {
+          const int row_off = cons.tile * p.rows;
+          for (int r = threadIdx.x; r < tile_rows; r += THREADS) {
+            float m = red[r];
+            for (int w = 1; w < WT; ++w) m = fmaxf(m, red[w * p.rows + r]);
+            if (cons.count < p.Lpad) m = fmaxf(m, p.fill);
+            best[row_off + r] = m;
+          }
+          if (cons.tile == p.tiles - 1) {
+            __syncthreads();
+            for (int qi = threadIdx.x; qi < nq; qi += THREADS) {
+              const float* w = wts + qi * p.Lq;
+              float sum = 0.0f;
+              for (int l = 0; l < p.Lq; ++l) {
+                const float m = w[l];
+                if (m != 0.0f) sum += best[qi * p.Lq + l] * m;
+              }
+              p.out[(size_t)(b0 + qi) * p.C + cons.c] = sum;
             }
-            p.out[(size_t)(b0 + qi) * p.C + cons.c] = sum;
+          }
+        } else {
+          // one query: its tiles in passes of SUM_ROWS rows, each pass's rows
+          // l0 .. l1 - 1 added on in order by thread 0 (the next tile's rows
+          // are written after the barrier that opens it)
+          __shared__ float carried;  // the running sum from pass to pass
+          const int pass_tiles = max(1, SUM_ROWS / p.rows);
+          const int pass0 = cons.tile - cons.tile % pass_tiles;  // the pass's first tile
+          for (int r = threadIdx.x; r < tile_rows; r += THREADS) {
+            float m = red[r];
+            for (int w = 1; w < WT; ++w) m = fmaxf(m, red[w * p.rows + r]);
+            if (cons.count < p.Lpad) m = fmaxf(m, p.fill);
+            best[(cons.tile - pass0) * p.rows + r] = m;
+          }
+          if (cons.tile == p.tiles - 1 || cons.tile - pass0 == pass_tiles - 1) {
+            __syncthreads();
+            if (threadIdx.x == 0) {
+              const float* w = p.q_mask + (size_t)b0 * p.Lq;
+              const int l0 = pass0 * p.rows, l1 = min(p.Lq, (cons.tile + 1) * p.rows);
+              float sum = pass0 == 0 ? 0.0f : carried;
+              for (int l = l0; l < l1; ++l) {
+                const float m = w[l];
+                if (m != 0.0f) sum += best[l - l0] * m;
+              }
+              if (cons.tile == p.tiles - 1)
+                p.out[(size_t)b0 * p.C + cons.c] = sum;
+              else
+                carried = sum;
+            }
           }
         }
       }
@@ -405,11 +445,14 @@ __global__ void __launch_bounds__(THREADS) maxsim_kernel(const Params p) {
 
 template <typename DT, int MSW, int NTW>
 cudaError_t launch(const Params& p, size_t smem, dim3 grid, cudaStream_t stream) {
-  // FULL when each tile's rows fill the warps' strips: one tile of exactly
-  // that many rows, or tiles of it that divide Lq
+  // FULL_TILES when each tile's rows fill the warps' strips: one tile of
+  // exactly that many rows, or tiles of it that divide Lq; PASSES past
+  // SUM_ROWS query rows
   constexpr int STRIPS = MSW * (WARPS / (TOK / (8 * NTW)));
   const bool full = p.rows == STRIPS * 16 && (p.tiles == 1 ? p.qpb * p.Lq == p.rows : p.Lq % p.rows == 0);
-  auto kernel = full ? maxsim_kernel<DT, MSW, NTW, true> : maxsim_kernel<DT, MSW, NTW, false>;
+  auto kernel = p.Lq > SUM_ROWS ? maxsim_kernel<DT, MSW, NTW, PASSES>
+                : full        ? maxsim_kernel<DT, MSW, NTW, FULL_TILES>
+                              : maxsim_kernel<DT, MSW, NTW, PARTIAL>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, THREADS, smem, stream>>>(p);
@@ -451,11 +494,11 @@ extern "C" {
 // given) taking `fill`. first/count (B, C) int64/int32: a query's own
 // candidates (the caller checks that the spans lie inside tokens); both
 // null: candidate c the Lpad rows from c * Lpad for every query (all pairs
-// over dense docs). D % 8 == 0, D <= 2048, 1 <= Lq <= 512.
+// over dense docs). D % 8 == 0, D <= 2048, Lq >= 1.
 int mm_maxsim(const void* q, const void* q_mask, const void* tokens, const void* tok_mask, const void* first,
               const void* count, void* out, int B, int Lq, int C, int D, int Lpad, int tok_f16, float fill,
               void* stream) {
-  if (D < 8 || D % 8 || D > 2048 || Lq < 1 || Lq > MAX_LQ || Lpad < 0 || (first == nullptr) != (count == nullptr))
+  if (D < 8 || D % 8 || D > 2048 || Lq < 1 || Lpad < 0 || (first == nullptr) != (count == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || C <= 0) return static_cast<int>(cudaSuccess);
   Params p;
@@ -475,7 +518,7 @@ int mm_maxsim(const void* q, const void* q_mask, const void* tokens, const void*
   p.fill = fill;
   p.ldq = D + (40 - D % 32) % 32;  // % 32 == 8: a warp's float2 A loads hit distinct banks
   const size_t ring = (size_t)STAGES * TOK * (tok_f16 ? Tok<__half>::LD * 2 : Tok<float>::LD * 4);
-  const size_t fixed = (size_t)MAX_CPB * 12 + ring + (size_t)(WARPS + 1) * MAX_ROWS * 4 + (size_t)MAX_LQ * 8;
+  const size_t fixed = (size_t)MAX_CPB * 12 + ring + (size_t)(WARPS + 1) * MAX_ROWS * 4 + (size_t)SUM_ROWS * 8;
   const int fit = (int)((SMEM_MAX - fixed) / ((size_t)p.ldq * 4)) / 16 * 16;  // rows the tile can hold
   const int max_rows = fit < MAX_ROWS ? fit : MAX_ROWS;
   if (max_rows < 16) return static_cast<int>(cudaErrorInvalidValue);
@@ -497,7 +540,8 @@ int mm_maxsim(const void* q, const void* q_mask, const void* tokens, const void*
   const dim3 grid(blocks, groups);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int wt = p.rows <= 32 ? 4 : 2;  // warps across a chunk's tokens (launch_rows)
-  const int best = Lq > p.rows ? Lq : p.rows;  // + the queries' masks, as many
+  const int pass_rows = Lq < SUM_ROWS ? Lq : SUM_ROWS;
+  const int best = pass_rows > p.rows ? pass_rows : p.rows;  // + the queries' masks, as many
   const size_t spans = (size_t)MAX_CPB * 12;
   const size_t smem = spans + (size_t)p.rows * p.ldq * 4 + ring + (size_t)wt * p.rows * 4 + (size_t)best * 8;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

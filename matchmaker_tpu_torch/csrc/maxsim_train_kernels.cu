@@ -63,7 +63,12 @@
 //    row; each hash's lowest row from an open-addressed table in shared
 //    memory; a row's lead that row when the two are equal in full, else the
 //    earlier rows of its hash compared in order) into `info` (lead | size
-//    << 16); two blocks an SM; the other blocks compute dq, a warp a query
+//    << 16; past 32,767 rows two planes, the lead, -1 - m for a masked row
+//    m, and the size); the doc's table is dynamic shared memory sized by
+//    Ld (at least 1,024 rows), or, where that would not fit (Ld past
+//    8,192), the same arrays in a global workspace; two blocks an SM; the
+//    other blocks
+//    compute dq, a warp a query
 //    row: the row's Bd tokens and weights loaded 32 at a time and broadcast
 //    by shuffles, the d rows gathered 16 bytes a lane, sixteen in flight,
 //    summed over k in order;
@@ -75,6 +80,8 @@
 //    chunk of 1024 (b, l), in order; it writes every row of those classes:
 //    the groups' sums added in order g = 0..3 over the class size. A skewed
 //    doc (every (b, l) on one token) still spreads over the four groups.
+//    The doc's packed classes wait in shared memory beside the sums; past
+//    32,767 rows the two planes are read where they lie.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -523,8 +530,9 @@ constexpr int DD_THREADS = 128 * GROUPS;
 constexpr int LIST = 1024;       // (b, l) entries a dd block filters at once
 constexpr int GATHER = 16;       // rows a thread has in flight (dq, dd) or pieces (the hashes)
 constexpr int ROWS_MAX = 40;     // doc rows a dd block owns (a group's sums in shared memory)
-constexpr int LD_MAX = 1024;
-constexpr int TABLE = 2 * LD_MAX;  // the hash table of a doc's classes
+constexpr int CLASS_ROWS = 1024; // a doc's class arrays hold at least this many rows
+constexpr int PACKED_LD = 32767; // the most rows whose lead and class size share one int
+constexpr int SMEM_MAX = 232448;
 
 struct Params {
   const float* q;       // (E, D), E = Bq * Lq
@@ -533,11 +541,26 @@ struct Params {
   const float* d_mask;  // (Bd, Ld)
   const int* argmax;    // (E, Bd)
   const float* g;       // (Bq, Bd)
-  int* info;            // (Bd, Ld): the class lead | the class size << 16 (0 for a masked row)
+  int* info;            // (Bd, Ld): each row's class lead | its size << 16 (0 for a masked row); past
+                        // PACKED_LD rows (2, Bd, Ld): the lead (-1 - m for a masked row m), the size
+  int* ws;              // the classes' arrays in global memory (Bd docs, class_ints ints each), or null
   float* dq;            // (E, D)
   float* dd;            // (Bd, Ld, D)
   int Bq, Lq, Bd, Ld, D, E, parts, slabs;
+  int rows_cap, table;  // a doc's class arrays' rows, its hash table's entries (a power of two)
 };
+
+// a doc's class arrays: hash, lead and size (rows_cap each), the table,
+// then the live flags (rows_cap bytes)
+__host__ __device__ inline int class_rows(int Ld) { return Ld > CLASS_ROWS ? Ld : CLASS_ROWS; }
+__host__ __device__ inline int class_table(int Ld) {
+  int t = 2 * CLASS_ROWS;
+  while (t < 2 * Ld) t *= 2;
+  return t;
+}
+__host__ __device__ inline size_t class_bytes(int Ld) {
+  return ((size_t)3 * class_rows(Ld) + class_table(Ld)) * 4 + (size_t)(class_rows(Ld) + 3) / 4 * 4;
+}
 
 __device__ __forceinline__ uint32_t mix(float x, int c) {
   return (__float_as_uint(x) ^ ((uint32_t)c * 0x9E3779B1u)) * 0x85EBCA77u;
@@ -551,11 +574,15 @@ __device__ bool rows_equal(const float* a, const float* b, int D) {
   return true;
 }
 
-// doc k's classes of bit-equal live rows into p.info
-__device__ void classes_block(const Params& p, int k) {
-  __shared__ uint32_t hash[LD_MAX];
-  __shared__ int lead[LD_MAX], size[LD_MAX], table[TABLE];
-  __shared__ bool live[LD_MAX];
+// doc k's classes of bit-equal live rows into p.info, on its class arrays
+// at `arrays` (class_bytes(Ld) of shared or global memory)
+__device__ __forceinline__ void classes_block(const Params& p, int k, uint8_t* arrays) {
+  const int TABLE = p.table;
+  uint32_t* hash = reinterpret_cast<uint32_t*>(arrays);
+  int* lead = reinterpret_cast<int*>(hash + p.rows_cap);
+  int* size = lead + p.rows_cap;
+  int* table = size + p.rows_cap;
+  bool* live = reinterpret_cast<bool*>(table + TABLE);
   const float* doc = p.d + (size_t)k * p.Ld * p.D;
   for (int m = threadIdx.x; m < p.Ld; m += THREADS) {
     hash[m] = 0u;
@@ -634,7 +661,15 @@ __device__ void classes_block(const Params& p, int k) {
   for (int m = threadIdx.x; m < p.Ld; m += THREADS)
     if (lead[m] != m) atomicAdd(&size[lead[m]], 1);  // integer counts: any order gives the same
   __syncthreads();
-  for (int m = threadIdx.x; m < p.Ld; m += THREADS) p.info[(size_t)k * p.Ld + m] = lead[m] | (size[lead[m]] << 16);
+  const size_t plane = (size_t)p.Bd * p.Ld;
+  for (int m = threadIdx.x; m < p.Ld; m += THREADS) {
+    if (p.Ld <= PACKED_LD) {
+      p.info[(size_t)k * p.Ld + m] = lead[m] | (size[lead[m]] << 16);
+    } else {
+      p.info[(size_t)k * p.Ld + m] = live[m] ? lead[m] : -1 - m;
+      p.info[plane + (size_t)k * p.Ld + m] = size[lead[m]];
+    }
+  }
 }
 
 // dq rows [8 blk, 8 blk + 8), a warp each
@@ -683,9 +718,13 @@ __device__ void dq_block(const Params& p, int blk) {
   }
 }
 
+// GLOBAL: the class arrays in p.ws (a doc's too large for shared memory)
+template <bool GLOBAL>
 __global__ void __launch_bounds__(THREADS, 2) classes_dq_kernel(const Params p) {
+  extern __shared__ __align__(16) uint8_t class_smem[];
   if ((int)blockIdx.x < p.Bd)
-    classes_block(p, blockIdx.x);
+    classes_block(p, blockIdx.x,
+                  GLOBAL ? reinterpret_cast<uint8_t*>(p.ws) + blockIdx.x * class_bytes(p.Ld) : class_smem);
   else
     dq_block(p, blockIdx.x - p.Bd);
 }
@@ -696,6 +735,10 @@ __global__ void __launch_bounds__(THREADS, 2) classes_dq_kernel(const Params p) 
 // 256) of the chunk, in order, into its own rows), and a row's dd is the
 // groups' sums added in order g = 0..3: skewed tokens (every (b, l) on one
 // row) still spread over four groups, and the order is fixed
+// WIDE: a doc past PACKED_LD rows, its leads and sizes in info's two
+// planes, read where they lie; else each row's lead | size << 16, the doc's
+// copied into shared memory first
+template <bool WIDE>
 __global__ void __launch_bounds__(DD_THREADS) dd_kernel(const Params p) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int per_doc = p.parts * p.slabs;
@@ -705,14 +748,17 @@ __global__ void __launch_bounds__(DD_THREADS) dd_kernel(const Params p) {
   const int warp = tid >> 5, lane = tid & 31;
   const bool active = col < p.D;
   float* acc = reinterpret_cast<float*>(smem);                            // [GROUPS][rows][128]
-  int* info = reinterpret_cast<int*>(acc + GROUPS * rows * 128);          // [Ld]
-  int* l_e = info + p.Ld;                                                 // [LIST] the listed (b, l)
+  int* info = reinterpret_cast<int*>(acc + GROUPS * rows * 128);          // [Ld] (not WIDE)
+  int* l_e = info + (WIDE ? 0 : p.Ld);                                    // [LIST] the listed (b, l)
   int* l_r = l_e + LIST;                                                  // [LIST] their rows in acc
   float* l_w = reinterpret_cast<float*>(l_r + LIST);                      // [LIST] their weights
   int* warp_n = reinterpret_cast<int*>(l_w + LIST);                       // [DD_THREADS / 32]
   float* my = acc + grp * rows * 128 + (tid & 127);
+  const int* leads = p.info + (size_t)k * p.Ld;                           // WIDE: the leads' plane
+  const int* sizes = leads + (size_t)p.Bd * p.Ld;                         // WIDE: the sizes' plane
   for (int i = tid; i < GROUPS * rows * 128; i += DD_THREADS) acc[i] = 0.0f;
-  for (int m = tid; m < p.Ld; m += DD_THREADS) info[m] = p.info[(size_t)k * p.Ld + m];
+  if (!WIDE)
+    for (int m = tid; m < p.Ld; m += DD_THREADS) info[m] = p.info[(size_t)k * p.Ld + m];
   __syncthreads();
 
   constexpr int PER = LIST / DD_THREADS;  // consecutive entries a thread filters
@@ -731,8 +777,13 @@ __global__ void __launch_bounds__(DD_THREADS) dd_kernel(const Params p) {
     for (int j = 0; j < PER; ++j) {
       row[j] = -1;
       if (a[j] >= 0 && a[j] < p.Ld && w[j] != 0.0f) {
-        const int inf = info[a[j]], ld = inf & 0xFFFF;
-        if ((inf >> 16) > 0 && ld >= m0 && ld < m1) row[j] = ld - m0;
+        if constexpr (WIDE) {
+          const int ld = leads[a[j]];  // a masked row's is negative
+          if (ld >= m0 && ld < m1) row[j] = ld - m0;
+        } else {
+          const int inf = info[a[j]], ld = inf & 0xFFFF;
+          if ((inf >> 16) > 0 && ld >= m0 && ld < m1) row[j] = ld - m0;
+        }
       }
       n += row[j] >= 0;
     }
@@ -778,7 +829,15 @@ __global__ void __launch_bounds__(DD_THREADS) dd_kernel(const Params p) {
   if (!active) return;
   // group g writes rows m = g, g + 4, ...: the lead's groups' sums in order over its class's size
   for (int m = grp; m < p.Ld; m += GROUPS) {
-    const int inf = info[m], ld = inf & 0xFFFF, size = inf >> 16;
+    int ld, size;
+    if constexpr (WIDE) {
+      ld = leads[m] >= 0 ? leads[m] : -1 - leads[m];  // a masked row: itself, its size 0
+      size = sizes[m];
+    } else {
+      const int inf = info[m];
+      ld = inf & 0xFFFF;
+      size = inf >> 16;
+    }
     if (ld < m0 || ld >= m1) continue;
     const float* row = acc + (ld - m0) * 128 + (tid & 127);
     float v = row[0];
@@ -788,9 +847,12 @@ __global__ void __launch_bounds__(DD_THREADS) dd_kernel(const Params p) {
   }
 }
 
+// dd's shared memory: the groups' sums, the doc's packed classes (not
+// past PACKED_LD rows), the list
 inline size_t dd_smem(int Ld, int parts) {
   const int rows = (Ld + parts - 1) / parts;
-  return (size_t)GROUPS * rows * 128 * 4 + (size_t)Ld * 4 + (size_t)LIST * 12 + (size_t)DD_THREADS / 32 * 4;
+  return (size_t)GROUPS * rows * 128 * 4 + (Ld > PACKED_LD ? 0 : (size_t)Ld * 4) + (size_t)LIST * 12 +
+         (size_t)DD_THREADS / 32 * 4;
 }
 
 }  // namespace msim_bwd
@@ -803,12 +865,12 @@ extern "C" {
 // is the max) of q (Bq, Lq, D), q_mask (Bq, Lq), docs (Bd, Ld, D) and d_mask
 // (Bd, Ld), all f32; best (Bq, Lq, Bd) f32 scratch. The plan (chunk in {64,
 // 104, 128}, resident, ring slots, ctas) comes from ops/maxsim.py:train_plan.
-// D % 8 == 0, D <= 2048, 1 <= Lq <= 512, 1 <= Ld <= 1024.
+// D % 8 == 0, D <= 2048, Lq >= 1, Ld >= 1.
 int mm_maxsim_train(const void* q, const void* q_mask, const void* d, const void* d_mask, void* best, void* out,
                     void* argmax, int Bq, int Lq, int Bd, int Ld, int D, int chunk, int resident, int slots,
                     int ctas, float fill, void* stream) {
   namespace tr = mm::msim_train;
-  if (D < 8 || D % 8 || D > 2048 || Lq < 1 || Lq > 512 || Ld < 1 || Ld > 1024 || ctas < 1 ||
+  if (D < 8 || D % 8 || D > 2048 || Lq < 1 || Ld < 1 || ctas < 1 ||
       (chunk != 64 && chunk != 104 && chunk != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Bq <= 0 || Bd <= 0) return static_cast<int>(cudaSuccess);
@@ -850,16 +912,26 @@ int mm_maxsim_train(const void* q, const void* q_mask, const void* d, const void
   return static_cast<int>(err);
 }
 
+// the global workspace mm_maxsim_bwd needs for Bd docs of Ld rows: 0 where
+// a doc's class arrays fit shared memory
+long long mm_maxsim_bwd_ws_bytes(int Bd, int Ld) {
+  namespace bw = mm::msim_bwd;
+  return Bd < 1 || Ld < 1 || bw::class_bytes(Ld) <= (size_t)bw::SMEM_MAX ? 0
+                                                                       : (long long)Bd * bw::class_bytes(Ld);
+}
+
 // dq (Bq, Lq, D) and dd (Bd, Ld, D) f32 from g (Bq, Bd) and the argmax of
 // mm_maxsim_train over the same q, q_mask, docs and d_mask; info (Bd, Ld)
-// int32 scratch; `parts` row ranges a doc's dd is cut into (ops/maxsim.py:
-// bwd_plan). D % 8 == 0, D <= 2048, Lq >= 1, 1 <= Ld <= 1024.
+// int32 scratch, (2, Bd, Ld) past 32,767 doc tokens; ws
+// mm_maxsim_bwd_ws_bytes(Bd, Ld) bytes of scratch (or
+// null where that is 0); `parts` row ranges a doc's dd is cut into
+// (ops/maxsim.py:bwd_plan). D % 8 == 0, D <= 2048, Lq >= 1, Ld >= 1.
 int mm_maxsim_bwd(const void* q, const void* q_mask, const void* d, const void* d_mask, const void* argmax,
-                  const void* g, void* info, void* dq, void* dd, int Bq, int Lq, int Bd, int Ld, int D, int parts,
-                  void* stream) {
+                  const void* g, void* info, void* ws, void* dq, void* dd, int Bq, int Lq, int Bd, int Ld, int D,
+                  int parts, void* stream) {
   namespace bw = mm::msim_bwd;
-  if (D < 8 || D % 8 || D > 2048 || Lq < 1 || Ld < 1 || Ld > bw::LD_MAX || parts < 1 || parts > Ld ||
-      (Ld + parts - 1) / parts > bw::ROWS_MAX)
+  if (D < 8 || D % 8 || D > 2048 || Lq < 1 || Ld < 1 || parts < 1 || parts > Ld ||
+      (Ld + parts - 1) / parts > bw::ROWS_MAX || (ws == nullptr && mm_maxsim_bwd_ws_bytes(Bd, Ld) > 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (Bq <= 0 || Bd <= 0) return static_cast<int>(cudaSuccess);
   bw::Params p;
@@ -870,6 +942,7 @@ int mm_maxsim_bwd(const void* q, const void* q_mask, const void* d, const void* 
   p.argmax = static_cast<const int*>(argmax);
   p.g = static_cast<const float*>(g);
   p.info = static_cast<int*>(info);
+  p.ws = static_cast<int*>(ws);
   p.dq = static_cast<float*>(dq);
   p.dd = static_cast<float*>(dd);
   p.Bq = Bq;
@@ -879,6 +952,8 @@ int mm_maxsim_bwd(const void* q, const void* q_mask, const void* d, const void* 
   p.D = D;
   p.parts = parts;
   p.slabs = (D + 127) / 128;
+  p.rows_cap = bw::class_rows(Ld);
+  p.table = bw::class_table(Ld);
   const long long E = (long long)Bq * Lq;
   const long long blocks1 = Bd + (E + bw::THREADS / 32 - 1) / (bw::THREADS / 32);
   const long long blocks2 = (long long)Bd * parts * p.slabs;
@@ -886,13 +961,23 @@ int mm_maxsim_bwd(const void* q, const void* q_mask, const void* d, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   p.E = (int)E;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bw::classes_dq_kernel<<<(unsigned)blocks1, bw::THREADS, 0, s>>>(p);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if (mm_maxsim_bwd_ws_bytes(Bd, Ld) > 0) {
+    bw::classes_dq_kernel<true><<<(unsigned)blocks1, bw::THREADS, 0, s>>>(p);
+  } else {
+    const size_t smem1 = bw::class_bytes(Ld);
+    err = cudaFuncSetAttribute(bw::classes_dq_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bw::classes_dq_kernel<false><<<(unsigned)blocks1, bw::THREADS, smem1, s>>>(p);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = bw::dd_smem(Ld, parts);
-  err = cudaFuncSetAttribute(bw::dd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto dd_fn = Ld > bw::PACKED_LD ? bw::dd_kernel<true> : bw::dd_kernel<false>;
+  err = cudaFuncSetAttribute(dd_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bw::dd_kernel<<<(unsigned)blocks2, bw::DD_THREADS, smem, s>>>(p);
+  dd_fn<<<(unsigned)blocks2, bw::DD_THREADS, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

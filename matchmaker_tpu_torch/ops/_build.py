@@ -62,7 +62,7 @@ _SIGNATURES = {
     "mm_fused_mha": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _p],
     "mm_maxsim": [_p] * 7 + [_i] * 6 + [_f, _p],
     "mm_maxsim_train": [_p] * 7 + [_i] * 9 + [_f, _p],
-    "mm_maxsim_bwd": [_p] * 9 + [_i] * 6 + [_p],
+    "mm_maxsim_bwd": [_p] * 10 + [_i] * 6 + [_p],
     "mm_quant_groups": [_p, _p, _p, _i, _i, _i, _i, _i, _p],
     "mm_wg_gemm_s8": [_p] * 7 + [_i] * 5 + [_p],
     "mm_wg_gemm_s8_gelu_quant": [_p] * 7 + [_i] * 4 + [_p],
@@ -88,6 +88,7 @@ _SIGNATURES = {
 _SIZE_SIGNATURES = {
     "mm_attention_block_bwd_bytes": [_i] * 7,
     "mm_mlp_block_bwd_bytes": [_i] * 5,
+    "mm_maxsim_bwd_ws_bytes": [_i] * 2,
 }
 
 _lib = None

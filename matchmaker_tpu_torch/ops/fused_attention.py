@@ -61,7 +61,6 @@ from matchmaker_tpu_torch.ops import _build, matmul_f32
 _EPI_BIAS_BF16, _EPI_BIAS_GELU_BF16, _EPI_BIAS_RESID_F32 = 4, 5, 6
 # the head widths the attention core is instanced for (csrc/encoder_kernels.cu)
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-_KERNEL_MAX_LEN = 512
 # the products' TMA maps: rows of a multiple of 16 bytes, 8 bf16
 _WIDTH_STEP = 8
 
@@ -292,8 +291,6 @@ def _attention_block_cuda(x, wqkv, bqkv, wo, bo, mask, n_heads, ln_scale, ln_bia
         raise ValueError(f"fused_attention_block: the CUDA kernel takes head widths {_KERNEL_HEAD_DIMS} "
                          f"(pad_attention_heads), got wqkv {tuple(wqkv.shape)}, wo {tuple(wo.shape)}, {n_heads} heads "
                          f"for x {tuple(x.shape)}")
-    if not 1 <= l <= _KERNEL_MAX_LEN:
-        raise ValueError(f"fused_attention_block: the CUDA kernel takes 1 <= L <= {_KERNEL_MAX_LEN}, got {l}")
     _check_gemm_dims("fused_attention_block", hid, hid)
     bf16 = torch.bfloat16
     for name, t in (("x", x), ("wqkv", wqkv), ("wo", wo)):
@@ -353,7 +350,7 @@ def fused_attention_block(x, wq, wk, wv, wo, bq, bk, bv, bo, mask, n_heads,
                           ln_scale, ln_bias, ln_eps: float = 1e-12, save_acc: bool = False):
     """LN(x + OutProj(MHA(QKV-proj(x)))): x (B, L, HID); wq/wk/wv/wo (HID, HID)
     in x's dtype; biases and LN params (HID,); mask (B, L), 1 = real key.
-    CUDA tensors: bf16, head width at most 128, 1 <= L <= 512. ``save_acc``:
+    CUDA tensors: bf16, head width at most 128, any L. ``save_acc``:
     return (out, acc) with acc the f32 pre-LN sum (B, L, HID; on a card at
     :func:`card_width`)."""
     return fused_attention_block_qkv(x, torch.cat([wq, wk, wv], dim=1), torch.cat([bq, bk, bv]), wo, bo, mask,
@@ -405,8 +402,6 @@ def _mha_cuda(q, k, v, mask, n_heads):
     per head and the output cut back."""
     b, l, hd = q.shape
     width = kernel_head_dim("fused_mha", hd, n_heads)
-    if not 1 <= l <= _KERNEL_MAX_LEN:
-        raise ValueError(f"fused_mha: the CUDA kernel takes 1 <= L <= {_KERNEL_MAX_LEN}, got {l}")
     if k.shape != q.shape or v.shape != q.shape or tuple(mask.shape) != (b, l):
         raise ValueError(f"fused_mha: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} and mask "
                          f"{tuple(mask.shape)} do not fit")
@@ -429,7 +424,7 @@ def _mha_cuda(q, k, v, mask, n_heads):
 def fused_mha(q, k, v, mask, n_heads):
     """Multi-head self-attention, forward only: q, k, v (B, L, H·D), mask
     (B, L) with 1 = real key; output (B, L, H·D) in q's dtype. CUDA tensors:
-    bf16, head width at most 128, 1 <= L <= 512."""
+    bf16, head width at most 128, any L."""
     if not q.is_cuda:
         return mha_reference(q, k, v, mask, n_heads)
     return _mha_cuda(q, k, v, mask, n_heads)

@@ -249,13 +249,11 @@ def attention_core_bwd(qkv, mask, da, n_heads):
     packed Q/K/V, mask (B, L) and da the output gradient (B, L, HID) → dqkv
     (B, L, 3·HID) in qkv's dtype. On a CUDA tensor the kernel (bf16, head
     width at most 128: narrower heads than an instance zero-padded to it and
-    cut back, 1 <= L <= 512); on a CPU tensor the plain version."""
+    cut back, any L); on a CPU tensor the plain version."""
     b, l, hid = da.shape
     d = hid // n_heads
     if qkv.is_cuda:
         width = fa.kernel_head_dim("attention_core_bwd", hid, n_heads)
-        if not 1 <= l <= fa._KERNEL_MAX_LEN:
-            raise ValueError(f"attention_core_bwd: the CUDA kernel takes 1 <= L <= {fa._KERNEL_MAX_LEN}, got L={l}")
         for name, t in (("qkv", qkv), ("da", da)):
             _build.check_cuda(t, f"attention_core_bwd.{name}", torch.bfloat16)
         with torch.cuda.device(qkv.device):
@@ -348,9 +346,6 @@ def _attention_block_bwd_cuda(x, wqkv, wo, mask, n_heads, ln_scale, dy, saved, l
         raise ValueError(f"fused_attention_block_bwd: the CUDA kernel takes head widths {fa._KERNEL_HEAD_DIMS} "
                          f"(pad_attention_heads), got wqkv {tuple(wqkv.shape)}, wo {tuple(wo.shape)}, "
                          f"{n_heads} heads for x {tuple(x.shape)}")
-    if not 1 <= l <= fa._KERNEL_MAX_LEN:
-        raise ValueError(f"fused_attention_block_bwd: the CUDA kernel takes 1 <= L <= {fa._KERNEL_MAX_LEN}, "
-                         f"got L={l}")
     check_ln_bwd_width("fused_attention_block_bwd", n)
     fa._check_gemm_dims("fused_attention_block_bwd", hid, width)
     _check_bwd("fused_attention_block_bwd", x, dy, (("wqkv", pwqkv), ("wo", pwo)))

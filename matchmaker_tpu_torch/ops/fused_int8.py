@@ -65,7 +65,6 @@ from matchmaker_tpu_torch.ops.fused_attention import (_ERF_FASTPOLY, _f32, _laye
 
 # Epilogues of mm_wg_gemm_s8 (csrc/encoder_int8_kernels.cu)
 _EPI_S8_BIAS_BF16, _EPI_S8_CHUNKS_RESID_F32 = 0, 1
-_KERNEL_MAX_LEN = 512
 _CHUNK_STEP = 64  # a K chunk of the card's products: whole 64-code steps
 
 
@@ -278,7 +277,7 @@ def check_attention_int8_geometry(hid: int, n_heads: int, group_heads: int, leng
     :func:`fused_attention_int8_block` takes this layer: any hidden width
     (run at ``card_width``), heads at most 128 wide (K1's attention core, a head
     zero-padded to the next width it is instanced for), whole groups of
-    heads and 1 <= L <= 512. The Wo product runs over the heads in chunks
+    heads and L >= 1. The Wo product runs over the heads in chunks
     of one head group, each padded to whole 64-code steps
     (:func:`pad_int8_attention`)."""
     name = "fused_attention_int8_block"
@@ -287,8 +286,8 @@ def check_attention_int8_geometry(hid: int, n_heads: int, group_heads: int, leng
     if group_heads <= 0 or n_heads % group_heads:
         raise ValueError(f"{name}: the CUDA kernel takes whole head groups, got {n_heads} heads, "
                          f"group_heads={group_heads}")
-    if not 1 <= length <= _KERNEL_MAX_LEN:
-        raise ValueError(f"{name}: the CUDA kernel takes 1 <= L <= {_KERNEL_MAX_LEN}, got {length}")
+    if length < 1:
+        raise ValueError(f"{name}: the CUDA kernel takes L >= 1, got {length}")
 
 
 def _check_int8_weights(name: str, **weights) -> None:
@@ -424,7 +423,7 @@ def fused_attention_int8_block(x, wqq, sq, wkq, sk, wvq, sv, woq, so, bq, bk, bv
     """LN(x + OutProj(MHA(QKV-proj(x)))) with int8 projections: x (B, L,
     HID); wqq/wkq/wvq/woq (HID, HID) int8 with (HID,) f32 column scales;
     biases and LN parameters (HID,); mask (B, L), 1 = real key. CUDA
-    tensors: x bf16, head width at most 128, 1 <= L <= 512."""
+    tensors: x bf16, head width at most 128, any L."""
     if not x.is_cuda:
         return reference_attention_int8_block(x, wqq, sq, wkq, sk, wvq, sv, woq, so, bq, bk, bv, bo, mask,
                                               n_heads, ln_scale, ln_bias, ln_eps, group_heads)

@@ -20,8 +20,8 @@ CPU tensors run the plain versions (:func:`reference_maxsim_all_pairs`,
 :func:`reference_maxsim_gathered`), differentiated by autograd; CUDA tensors
 launch the hand-written kernel of ``csrc/maxsim_kernels.cu`` (K14), which
 serves both forms (the all-pairs docs as dense Ld-row blocks of their flat
-rows with the doc mask), or raise. The kernels take D up to 2048 and
-1 <= Lq <= 512 (:func:`check_kernel_geometry`, which runs on any device);
+rows with the doc mask), or raise. The kernels take D up to 2048 and any
+Lq and Ld (:func:`check_kernel_geometry`, which runs on any device);
 their tiles are read 16 bytes at a time, so a D that is not a multiple of
 8 runs at the next one, q and the doc tokens copied into zero-padded rows
 (:func:`_pad_dim`): zero columns add nothing to a dot product, and the
@@ -34,7 +34,7 @@ gathers dq from those tokens and scatters dd into them, both hand-written
 for the in-batch shape in ``csrc/maxsim_train_kernels.cu`` (wgmma products,
 persistent over the docs; :func:`train_plan` and :func:`bwd_plan` size their
 launches), each output summed in a fixed order (no float atomics, reruns
-bit-identical), with Ld <= 1024. A max that the fill wins (a masked or
+bit-identical), at any Ld. A max that the fill wins (a masked or
 padded doc slot) passes no gradient, nor do the masks. Exactly equal maxima
 split their gradient evenly, as ``torch.amax`` and JAX's ``max`` do; the
 kernel finds them as the doc's rows equal bit for bit to the first (a
@@ -62,13 +62,9 @@ from matchmaker_tpu_torch.ops import _build, matmul_f32
 from matchmaker_tpu_torch.ops.fused_attention import card_width, pad_groups
 
 NEG_FILL = -1000.0
-# csrc/maxsim_kernels.cu: the most query rows a block sums (the encoder's
-# position limit), and the widest D whose 16-row query tile fits shared memory
-_KERNEL_MAX_LQ = 512
+# csrc/maxsim_kernels.cu: the widest D whose 16-row query tile fits shared
+# memory
 _KERNEL_MAX_DIM = 2048
-# the training kernels: the most doc tokens (the backward holds a doc's
-# rows' hashes in shared memory to find its tie classes)
-_KERNEL_MAX_LD_BWD = 1024
 # csrc/maxsim_train_kernels.cu: a training-form tile's query rows, its token
 # chunks, the shared memory a block can use and the part of it that is
 # neither the query tile nor the ring; the backward's dd rows a block
@@ -81,6 +77,12 @@ _TRAIN_SMEM_FIXED = 2048
 _BWD_ROWS_MAX = 40
 _BWD_LIST = 1024
 _BWD_GROUPS = 4
+# the backward's tie classes: a doc's arrays hold at least 1,024 rows, its
+# hash table at least twice as many entries (a power of two)
+_BWD_CLASS_ROWS = 1024
+# the most doc rows whose class lead and size share one int32 (lead | size
+# << 16, staged in dd's shared memory); past it two planes, read in place
+_BWD_PACKED_LD = 32767
 
 
 def train_plan(bq: int, lq: int, bd: int, ld: int, dim: int, sms: int = 132) -> dict:
@@ -110,17 +112,28 @@ def train_plan(bq: int, lq: int, bd: int, ld: int, dim: int, sms: int = 132) -> 
 
 def bwd_plan(bq: int, lq: int, bd: int, ld: int, dim: int, sms: int = 132) -> dict:
     """The backward's launches: the first takes ``bd`` class blocks and
-    ``dq_blocks`` of eight query rows; the second cuts each doc's dd into
+    ``dq_blocks`` of eight query rows, a doc's tie-class arrays
+    (``class_bytes``: hashes, leads, sizes, the hash table, live flags) in
+    shared memory where they fit, else in a global workspace of
+    ``class_ws`` bytes (Ld past 8,192), its classes into ``info_planes``
+    int32 planes of (Bd, Ld) (a row's lead and class size packed in one,
+    or past 32,767 rows apart); the second cuts each doc's dd into
     ``parts`` row ranges (at most 40 rows each, and enough blocks for about
     two an SM) by ``slabs`` of 128 columns, ``dd_blocks`` in all, each with
     ``dd_smem`` bytes of shared memory (four column groups' sums of its
-    rows, the doc's classes, the entry list)."""
+    rows, the doc's packed classes, the entry list)."""
     slabs = -(-dim // 128)
     parts = min(ld, max(-(-ld // _BWD_ROWS_MAX), -(-2 * sms // max(1, bd * slabs))))
     rows = -(-ld // parts)
+    cap, table = max(ld, _BWD_CLASS_ROWS), 2 * _BWD_CLASS_ROWS
+    while table < 2 * ld:
+        table *= 2
+    class_bytes = (3 * cap + table) * 4 + -(-cap // 4) * 4
+    packed = ld <= _BWD_PACKED_LD
     return {"parts": parts, "slabs": slabs, "rows": rows, "dq_blocks": -(-(bq * lq) // 8),
-            "dd_blocks": bd * parts * slabs,
-            "dd_smem": _BWD_GROUPS * rows * 128 * 4 + ld * 4 + _BWD_LIST * 12 + _BWD_GROUPS * 4 * 4}
+            "class_bytes": class_bytes, "class_ws": 0 if class_bytes <= _SMEM_MAX else bd * class_bytes,
+            "info_planes": 1 if packed else 2, "dd_blocks": bd * parts * slabs,
+            "dd_smem": _BWD_GROUPS * rows * 128 * 4 + (ld * 4 if packed else 0) + _BWD_LIST * 12 + _BWD_GROUPS * 4 * 4}
 
 
 def maxsim_pairwise(q_vecs: torch.Tensor, d_vecs: torch.Tensor, q_mask: torch.Tensor,
@@ -213,8 +226,8 @@ def reference_maxsim_gathered(q_vecs: torch.Tensor, q_mask: torch.Tensor, tokens
 def check_kernel_geometry(q_vecs, d_vecs, q_mask, d_mask) -> None:
     """Raise ValueError unless K14 takes these shapes: q (Bq, Lq, D), d
     (Bd, Ld, D), masks (Bq, Lq) / (Bd, Ld), 1 <= D <= 2048 (run at the
-    next multiple of 8) and 1 <= Lq <= 512. Reads shapes only, so it runs on
-    tensors on any device."""
+    next multiple of 8) and Lq >= 1, any Ld. Reads shapes only, so it runs
+    on tensors on any device."""
     bq, lq, dim = q_vecs.shape
     bd, ld, dim_d = d_vecs.shape
     if dim != dim_d or tuple(q_mask.shape) != (bq, lq) or tuple(d_mask.shape) != (bd, ld):
@@ -225,16 +238,17 @@ def check_kernel_geometry(q_vecs, d_vecs, q_mask, d_mask) -> None:
 
 def check_backward_geometry(q_vecs, d_vecs, q_mask, d_mask) -> None:
     """Raise ValueError unless the training form and its backward kernels
-    take these shapes: :func:`check_kernel_geometry` and Ld <= 1024."""
+    take these shapes: :func:`check_kernel_geometry` and Ld >= 1 (a doc's
+    tie classes in shared memory, or past 8,192 rows in a workspace)."""
     check_kernel_geometry(q_vecs, d_vecs, q_mask, d_mask)
-    if d_vecs.shape[1] > _KERNEL_MAX_LD_BWD:
-        raise ValueError(f"maxsim: the backward kernel takes Ld <= {_KERNEL_MAX_LD_BWD}, got Ld={d_vecs.shape[1]}")
+    if d_vecs.shape[1] < 1:
+        raise ValueError(f"maxsim: the backward kernel takes Ld >= 1, got Ld={d_vecs.shape[1]}")
 
 
 def _check_widths(dim: int, lq: int) -> None:
-    if not 1 <= dim <= _KERNEL_MAX_DIM or not 1 <= lq <= _KERNEL_MAX_LQ:
+    if not 1 <= dim <= _KERNEL_MAX_DIM or lq < 1:
         raise ValueError(f"maxsim: the CUDA kernel takes 1 <= D <= {_KERNEL_MAX_DIM} (run at the next multiple "
-                         f"of 8) and 1 <= Lq <= {_KERNEL_MAX_LQ}, got D={dim}, Lq={lq}")
+                         f"of 8) and Lq >= 1, got D={dim}, Lq={lq}")
 
 
 def _pad_dim(t: torch.Tensor) -> torch.Tensor:
@@ -333,11 +347,12 @@ def _launch_bwd(q, q_mask, d, d_mask, argmax, g):
         dq = torch.empty_like(q)
         dd = torch.empty_like(d)
         if bq and bd:
-            info = torch.empty((bd, ld), dtype=torch.int32, device=dev)  # each doc row's tie class
             plan = bwd_plan(bq, lq, bd, ld, dim, _sm_count(q.get_device()))
+            info = torch.empty((plan["info_planes"], bd, ld), dtype=torch.int32, device=dev)  # the tie classes
+            ws = torch.empty(plan["class_ws"], dtype=torch.uint8, device=dev) if plan["class_ws"] else None
             _build.call("mm_maxsim_bwd", q.data_ptr(), q_mask.data_ptr(), d.data_ptr(), d_mask.data_ptr(),
-                        argmax.data_ptr(), g.data_ptr(), info.data_ptr(), dq.data_ptr(), dd.data_ptr(), bq, lq, bd,
-                        ld, dim, plan["parts"], _build.stream(dev))
+                        argmax.data_ptr(), g.data_ptr(), info.data_ptr(), None if ws is None else ws.data_ptr(),
+                        dq.data_ptr(), dd.data_ptr(), bq, lq, bd, ld, dim, plan["parts"], _build.stream(dev))
             _build.LAUNCHES["maxsim_all_pairs_bwd"] += 1
         else:
             dq.zero_()
@@ -349,7 +364,7 @@ def maxsim_all_pairs_argmax(q_vecs: torch.Tensor, d_vecs: torch.Tensor, q_mask: 
                             d_mask: torch.Tensor, fill: float = NEG_FILL):
     """The training form: (out (Bq, Bd) f32, argmax (Bq, Lq, Bd) int32, each
     max's doc token, -1 where the fill is the max). CUDA tensors launch the
-    training form's kernel (shapes of :func:`check_backward_geometry`), CPU
+    training form's kernel (shapes of :func:`check_kernel_geometry`), CPU
     ones run :func:`reference_maxsim_argmax`."""
     if not q_vecs.is_cuda:
         return reference_maxsim_argmax(q_vecs, d_vecs, q_mask, d_mask, fill)
@@ -394,8 +409,9 @@ def maxsim_all_pairs(q_vecs: torch.Tensor, d_vecs: torch.Tensor, q_mask: torch.T
                      *, fill: float = NEG_FILL) -> torch.Tensor:
     """All-pairs MaxSim matrix (Bq, Bd) f32: q_vecs (Bq, Lq, D), d_vecs
     (Bd, Ld, D), q_mask (Bq, Lq), d_mask (Bd, Ld). Padded doc tokens
-    (mask <= 0) take ``fill``. CUDA tensors: D up to 2048, 1 <= Lq <= 512;
-    under autograd also Ld <= 1024 (:class:`MaxSimAllPairs`)."""
+    (mask <= 0) take ``fill``. CUDA tensors: D up to 2048, any Lq and Ld;
+    under autograd the training form and its backward
+    (:class:`MaxSimAllPairs`)."""
     if not q_vecs.is_cuda:
         return reference_maxsim_all_pairs(q_vecs, d_vecs, q_mask, d_mask, fill)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q_vecs, d_vecs, q_mask, d_mask)):

@@ -1126,7 +1126,8 @@ def test_maxsim_kernel_matches_plain(device, shape, fill, below):
 def test_maxsim_kernel_refuses_autograd_and_bad_shapes(device):
     """The gathered form is forward-only; the all-pairs form under autograd
     launches the training form and its backward kernel, never the plain
-    version; shapes the kernels cannot take raise."""
+    version, also past 1,024 doc tokens (refused until the backward's tie
+    classes moved to memory sized by Ld); D past 2,048 raises."""
     q, d, qm, dm = _maxsim_case(2, 8, 3, 16, 32, device, seed=1)
     first, count = torch.zeros(2, 3, dtype=torch.int64), torch.full((2, 3), 16, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="forward-only"):
@@ -1142,8 +1143,10 @@ def test_maxsim_kernel_refuses_autograd_and_bad_shapes(device):
     with pytest.raises(ValueError, match="D <= 2048"):
         ms.maxsim_all_pairs(wide_q.clone().requires_grad_(), wide_d, qm, dm)
     long_d = torch.randn(3, 1025, 32, device=device)
-    with pytest.raises(ValueError, match="Ld <= 1024"):
-        ms.maxsim_all_pairs(q.clone().requires_grad_(), long_d, qm, torch.ones(3, 1025, device=device))
+    _build.reset_launches()
+    ms.maxsim_all_pairs(q.clone().requires_grad_(), long_d, qm, torch.ones(3, 1025, device=device)).sum().backward()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["maxsim_all_pairs_argmax"] == 1 and _build.LAUNCHES["maxsim_all_pairs_bwd"] == 1
 
 
 def _maxsim_training_case(bq, lq, bd, ld, dim, device, seed, below_fill=False, ties=False):
@@ -1173,13 +1176,18 @@ def _plain_maxsim_grads(q, d, qm, dm, g, fill):
                                               ((32, 30, 64, 200, 768), False, False),
                                               ((16, 1, 32, 200, 128), False, False),
                                               ((4, 30, 8, 1024, 128), False, True),
-                                              ((5, 13, 9, 30, 40), True, False)])
+                                              ((5, 13, 9, 30, 40), True, False),
+                                              ((8, 30, 16, 1025, 128), False, True),
+                                              ((4, 600, 8, 2000, 128), False, True),
+                                              ((2, 8, 3, 8200, 16), False, True)])
 def test_maxsim_training_form_and_backward_match_plain(device, shape, below, ties):
     """K14's training form and the backward kernel against plain autograd
     through reference_maxsim_all_pairs: the forward at K14's bar (rtol =
     atol = 1e-4), the saved doc tokens equal to the plain argmax but for
     near ties, dq and dd at rtol = atol = 1e-4 on the rows whose tokens
-    agree, the exact ties split evenly, reruns bit-identical."""
+    agree, the exact ties split evenly, reruns bit-identical; past 1,024
+    doc tokens too (Ld 1,025 and 2,000 with 600 query tokens; Ld 8,200, the
+    tie classes in a global workspace)."""
     fill = ms.NEG_FILL
     q, d, qm, dm = _maxsim_training_case(*shape, device, seed=sum(shape), below_fill=below, ties=ties)
     g = torch.randn(shape[0], shape[2], device=device, generator=torch.Generator(device=device).manual_seed(3))
@@ -2639,3 +2647,164 @@ def test_four_shard_search_on_one_card_matches_unsharded(device, route):
         else:
             same, rel = _candidate_agreement(got_c, want_c, 2048, 4)
             assert same >= 0.999 and rel <= 1e-4, (same, rel)
+
+
+# ---- sequences past 512 ------------------------------------------------------
+# The attention cores keep a 512-key window of the mask row in shared memory
+# and refill it every eighth key tile; K14 sums a long query's rows in
+# passes of 512; the MaxSim backward sizes its tie classes by Ld.
+LONG_LENGTHS = [513, 1024, 2048]
+LONG_HEADS = [(768, 12), (1024, 8)]  # heads of 64 and of 128
+
+
+def _long_mask(b, l, device, seed):
+    """Example 0 live up to a key past key 512 (its last tiles skipped),
+    example 1 without a live key (every tile runs), example 2 with random
+    holes."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    mask = torch.ones(b, l, device=device)
+    mask[0, 512 + (l - 512) // 2 + 1:] = 0.0
+    if b > 1:
+        mask[1] = 0.0
+    if b > 2:
+        mask[2] = (torch.rand(l, generator=g, device=device) > 0.3).float()
+        mask[2, 0] = 1.0
+    return mask
+
+
+def _long_attention_checks(device, hid, heads, b, l, seed):
+    """K1, K13, K10 and K12 at (b, l) with _long_mask's masks against their
+    plain versions: the encoder halves' bar (K10 also its mean |d|), the
+    backward's per-gradient bar; each launching once."""
+    attn, _ = _layer_weights(hid, 4 * hid, device, seed=seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    x = torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
+    dy = torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16)
+    q, k, v = (torch.randn(b, l, hid, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
+    mask = _long_mask(b, l, device, seed)
+    wqkv = torch.cat([attn["wq"], attn["wk"], attn["wv"]], dim=1)
+    bqkv = torch.cat([attn["bq"], attn["bk"], attn["bv"]])
+    ln1 = (attn["ln_scale"], attn["ln_bias"])
+    _build.reset_launches()
+    forwards = [("fused_attention_block", fa.fused_attention_block_qkv(x, wqkv, bqkv, attn["wo"], attn["bo"], mask,
+                                                                       heads, *ln1),
+                 fa.reference_attention_block(x, attn["wq"], attn["wk"], attn["wv"], attn["wo"], attn["bq"],
+                                              attn["bk"], attn["bv"], attn["bo"], mask, heads, *ln1)),
+                ("fused_mha", fa.fused_mha(q, k, v, mask, heads), fa.mha_reference(q, k, v, mask, heads))]
+    a8, _, ln8 = _int8_layer(hid, 4 * hid, device, seed + 2)
+    forwards.append(("fused_attention_int8_block", fi.fused_attention_int8_block(x, *a8, mask, heads, *ln8),
+                     fi.reference_attention_int8_block(x, *a8, mask, heads, *ln8)))
+    torch.cuda.synchronize()
+    for name, got, want in forwards:
+        assert _build.LAUNCHES[name] == 1, name
+        assert got.shape == (b, l, hid) and bool(torch.isfinite(got.float()).all()), name
+        cos, err = _rows_close(got, want)
+        mean = float((got.float() - want.float()).abs().mean())
+        print(f"{name} B={b} L={l} HID={hid}/{heads}: min row cosine {cos}, max |d| {err}, mean |d| {mean}")
+        assert cos >= 0.999 and err <= 0.1, (name, cos, err)
+        if name == "fused_attention_int8_block":
+            assert mean <= 5e-5, (name, mean)
+    del forwards
+    got, want = attention_bwd_pair(x, attn, mask, heads, dy)
+    torch.cuda.synchronize()
+    grads_close(got, want, scale_of={"dbk": "dbq"})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,heads", LONG_HEADS)
+@pytest.mark.parametrize("l", LONG_LENGTHS)
+def test_attention_kernels_past_512_keys_match_plain(device, hid, heads, l):
+    """K1, K13, K10 and K12 at L 513, 1,024 and 2,048, heads of 64 and 128,
+    three examples: one live up to a key past 512, one without a live key,
+    one with holes."""
+    _long_attention_checks(device, hid, heads, 3, l, seed=l + hid)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_at_8192_keys_match_plain(device):
+    """K1, K13, K10 and K12 at L 8,192, B 1, heads of 64, the example live
+    up to key 4,352: sixteen windows of the mask row, the last half of the
+    key tiles skipped."""
+    _long_attention_checks(device, 768, 12, 1, 8192, seed=8192)
+
+
+@pytest.mark.cuda
+def test_attention_core_bwd_at_long_sequences_matches_plain(device):
+    """K12's attention core alone at L 1,024 and 2,048 with _long_mask's
+    masks (the example without a live key included)."""
+    for l in (1024, 2048):
+        g = torch.Generator(device=device).manual_seed(l)
+        qkv = torch.randn(3, l, 3 * 768, generator=g, device=device).to(torch.bfloat16)
+        da = torch.randn(3, l, 768, generator=g, device=device).to(torch.bfloat16)
+        mask = _long_mask(3, l, device, l)
+        got = dict(zip(("dq", "dk", "dv"), fb.attention_core_bwd(qkv, mask, da, 12).chunk(3, dim=-1)))
+        want = fb.attention_core_bwd(qkv.cpu(), mask.cpu(), da.cpu(), 12).to(device)
+        torch.cuda.synchronize()
+        grads_close(got, dict(zip(("dq", "dk", "dv"), want.chunk(3, dim=-1))))
+
+
+@pytest.mark.cuda
+def test_wrappers_launch_at_513_where_they_refused(device):
+    """Each wrapper that refused L (Lq, Ld) past 512 (1,024) before now
+    launches its kernel there, once: K1, K13, K10, K12, K14 at Lq 513 (all
+    pairs and gathered), the training form and its backward at Ld 1,025."""
+    hid, heads, l = 768, 12, 513
+    attn, _ = _layer_weights(hid, 3072, device, seed=513)
+    x = torch.randn(2, l, hid, device=device).to(torch.bfloat16)
+    mask = _long_mask(2, l, device, 1)
+    wqkv = torch.cat([attn["wq"], attn["wk"], attn["wv"]], dim=1)
+    bqkv = torch.cat([attn["bq"], attn["bk"], attn["bv"]])
+    a8, _, ln8 = _int8_layer(hid, 3072, device, 514)
+    _build.reset_launches()
+    _, saved = fb.attention_block_fwd(x, wqkv, bqkv, attn["wo"], attn["bo"], mask, heads, attn["ln_scale"],
+                                      attn["ln_bias"])
+    fb.attention_block_bwd(x, wqkv, bqkv, attn["wo"], mask, heads, attn["ln_scale"], x, saved)
+    fa.fused_mha(x, x, x, mask, heads)
+    fi.fused_attention_int8_block(x, *a8, mask, heads, *ln8)
+    q, d, qm, dm = _maxsim_case(2, l, 3, 40, 128, device, seed=5)
+    ms.maxsim_all_pairs(q, d, qm, dm)
+    ms.maxsim_gathered(q, qm, d.reshape(-1, 128), torch.zeros(2, 3, dtype=torch.int64),
+                       torch.full((2, 3), 40, dtype=torch.int32), 40)
+    q, d, qm, dm = _maxsim_case(2, 30, 3, 1025, 128, device, seed=6)
+    ms.maxsim_all_pairs(q.clone().requires_grad_(), d.clone().requires_grad_(), qm, dm).sum().backward()
+    torch.cuda.synchronize()
+    for name, n in (("fused_attention_block", 1), ("fused_attention_block_bwd", 1), ("fused_mha", 1),
+                    ("fused_attention_int8_block", 1), ("maxsim_all_pairs", 2), ("maxsim_all_pairs_argmax", 1),
+                    ("maxsim_all_pairs_bwd", 1)):
+        assert _build.LAUNCHES[name] == n, (name, _build.LAUNCHES[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq", [513, 1024])
+@pytest.mark.parametrize("dim", [128, 768])
+def test_maxsim_kernel_at_long_queries_matches_plain(device, lq, dim):
+    """K14 at Lq 513 and 1,024 (a query's rows summed in passes of 512):
+    all pairs and the gathered form against their plain versions at rtol =
+    atol = 1e-4 with both fills, reruns bit-identical, and the two forms of
+    the same docs equal bit for bit."""
+    q, d, qm, dm = _maxsim_case(3, lq, 9, 77, dim, device, seed=lq + dim)
+    for fill in (ms.NEG_FILL, float("-inf")):
+        got = ms.maxsim_all_pairs(q, d, qm, dm, fill=fill)
+        want = ms.reference_maxsim_all_pairs(q, d, qm, dm, fill)
+        fin = torch.isfinite(want)
+        assert torch.equal(fin, torch.isfinite(got)) and torch.equal(got[~fin], want[~fin])
+        torch.testing.assert_close(got[fin], want[fin], rtol=1e-4, atol=1e-4)
+        assert torch.equal(got, ms.maxsim_all_pairs(q, d, qm, dm, fill=fill))
+    qg, qmg, tokens, first, count = _gathered_case(2, lq, 9, dim, 77, device, seed=lq + dim + 1)
+    got = ms.maxsim_gathered(qg, qmg, tokens, first, count, 77, fill=float("-inf"))
+    slots = torch.arange(77, device=device)
+    rows = (first.to(device)[..., None] + slots).clamp(max=tokens.shape[0] - 1)
+    live = (slots < count.to(device)[..., None]).float()
+    want = torch.stack([ms.reference_maxsim_all_pairs(qg[i:i + 1], tokens[rows[i]].float(), qmg[i:i + 1], live[i],
+                                                      float("-inf"))[0] for i in range(2)])
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-4, atol=1e-4)
+    count9 = torch.randint(0, 78, (9,), device=device, dtype=torch.int32)
+    prefix = (torch.arange(77, device=device)[None, :] < count9[:, None]).float()
+    spans = (torch.arange(9, device=device) * 77)[None, :].expand(3, 9)
+    pairs = ms.maxsim_all_pairs(q, d, qm, prefix, fill=float("-inf"))
+    gathered = ms.maxsim_gathered(q, qm, d.reshape(-1, dim), spans.cpu(), count9[None, :].expand(3, 9).cpu(), 77,
+                                  fill=float("-inf"))
+    torch.cuda.synchronize()
+    assert torch.equal(pairs, gathered)

@@ -233,18 +233,19 @@ def test_maxsim_gathered_refuses_spans_outside_the_tokens(first, count):
         tms.maxsim_gathered(torch.zeros(2, 4, 8), torch.ones(2, 4), tokens, f, c, 16)
 
 
-@pytest.mark.parametrize("bq,lq,dim", [(1, 32, 768), (64, 180, 768), (2, 200, 768), (1, 512, 1024), (3, 7, 8)])
+@pytest.mark.parametrize("bq,lq,dim", [(1, 32, 768), (64, 180, 768), (2, 200, 768), (1, 512, 1024), (3, 7, 8),
+                                       (1, 513, 768), (2, 8192, 128)])
 def test_kernel_geometry_takes_wide_and_long_queries(bq, lq, dim):
     """K14's geometry check reads shapes only, so it runs here on CPU
     tensors: ColBERT's default width 768 and query rows past one 128-row
-    tile, up to the encoder's 512 positions, are taken."""
+    tile, past 512 too (the rows summed in passes of 512), are taken."""
     tms.check_kernel_geometry(torch.zeros(bq, lq, dim), torch.zeros(5, 13, dim), torch.ones(bq, lq),
                               torch.ones(5, 13))
 
 
 @pytest.mark.parametrize("q_shape,d_shape,match", [((1, 32, 2056), (5, 13, 2056), "D <= 2048"),
                                                    ((1, 32, 0), (5, 13, 0), "1 <= D"),
-                                                   ((1, 513, 768), (5, 13, 768), "Lq <= 512"),
+                                                   ((1, 0, 768), (5, 13, 768), "Lq >= 1"),
                                                    ((1, 32, 768), (5, 13, 128), "do not fit")])
 def test_kernel_geometry_refuses_what_the_kernel_cannot_take(q_shape, d_shape, match):
     with pytest.raises(ValueError, match=match):

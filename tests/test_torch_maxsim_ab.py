@@ -3,8 +3,8 @@ their own processes against a checkout's port and a token store the script
 writes once, and the summary holds each checkout's time of K14 at its two
 shapes, of the training form and the backward at the training shapes and
 of the rescore of a query batch, their ratios, and whether K14's serving
-launches gave the same bits in every turn (on the CPU the plain versions
-run; this checkout has the batched rescore)."""
+launches and the training kernels gave the same bits in every turn (on the
+CPU the plain versions run; this checkout has the batched rescore)."""
 
 import json
 import os
@@ -19,7 +19,7 @@ import maxsim_ab  # noqa: E402
 
 TIMES = ("K14 all pairs", "K14 all pairs, device", "K14 one query's rescore", "training form [4, 6, 8, 24, 64]",
          "backward [4, 6, 8, 24, 64]", "training form [8, 6, 16, 24, 64]", "backward [8, 6, 16, 24, 64]",
-         "K14 gathered, device", "rescore of 16 queries")
+         "K14 gathered, device", "rescore of 16 queries", "K14 all pairs [4, 6, 8, 24, 64], device")
 
 
 def test_maxsim_ab_times_two_checkouts_in_turns(tmp_path):
@@ -35,7 +35,10 @@ def test_maxsim_ab_times_two_checkouts_in_turns(tmp_path):
     assert summary == saved["summary"]
     assert [t["turn"] for t in saved["turns"]] == ["A", "B"]
     assert saved["turns"][0]["top_score"] == saved["turns"][1]["top_score"]  # the same seeded data
-    assert summary["serving_bits_identical"] is True
+    assert summary["serving_bits_identical"] is True and summary["training_bits_identical"] is True
+    assert set(saved["turns"][0]["training_digests"]) == {
+        "training form [4, 6, 8, 24, 64]", "backward [4, 6, 8, 24, 64]", "ties [4, 6, 8, 24, 64]",
+        "training form [8, 6, 16, 24, 64]", "backward [8, 6, 16, 24, 64]"}
     assert set(saved["turns"][0]["serving_digests"]) == {"all pairs [4, 8, 16, 24, 64] fill -1000.0",
                                                          "all pairs [3, 5, 7, 13, 64] fill -1000.0", "gathered"}
     for turn in saved["turns"]:

@@ -20,6 +20,10 @@ checkout's ``build/``, and times on data made from seeds:
   30, 64, 200, 128), a batch of 128 against its 256 in-batch docs and the
   public checkpoint's width 768, on chip_smoke.py's phase-3 data (random
   f32 vectors, a fifth of the slots masked);
+- the same two by a SHA-256 of their outputs' bytes (out and argmax; dq
+  and dd) at each of those shapes and at the first with exact ties (token
+  5 of every doc a copy of token 3), the summary saying whether every turn
+  gave the same bits; K14 all pairs at the first of them by device time;
 - K14's serving launches at every shape of ``chip_smoke.py``'s
   ``maxsim_shapes`` and the gathered form at the ColBERT run's batched
   rescore: a SHA-256 of each output's bytes (the summary says whether every
@@ -210,17 +214,30 @@ def run_turn(checkout: str, store_dir: str, reps: int, device_name: str, tiny: b
         if name == "K14 all pairs":
             times["K14 all pairs, device"] = _device_ms(lambda a=args: ms.maxsim_all_pairs(*a), device, reps)
 
-    # the training kernels, by device time, and each of their kernels'
-    parts = {}
+    # the training kernels, by device time, and each of their kernels'; their outputs' bits
+    parts, train_digests = {}, {}
+    first = sz["train"][0]
+    times[f"K14 all pairs {list(first)}, device"] = _device_ms(
+        lambda a=_all_pairs_inputs(first, device, 3): ms.maxsim_all_pairs(*a), device, reps)
     for i, shape in enumerate(sz["train"]):
         q, d, qm, dm = _all_pairs_inputs(shape, device, 10 + i)
         g = torch.randn(shape[0], shape[2], generator=torch.Generator(device=device).manual_seed(20 + i),
                         device=device)
-        _, idx = ms.maxsim_all_pairs_argmax(q, d, qm, dm)
+        out, idx = ms.maxsim_all_pairs_argmax(q, d, qm, dm)
+        train_digests[f"training form {list(shape)}"] = _digest(torch.cat([out.flatten(), idx.flatten().float()]))
+        dq, dd = ms.maxsim_all_pairs_bwd(q, d, qm, dm, idx, g)
+        train_digests[f"backward {list(shape)}"] = _digest(torch.cat([dq.flatten(), dd.flatten()]))
         for name, fn in (("training form", lambda a=(q, d, qm, dm): ms.maxsim_all_pairs_argmax(*a)),
                          ("backward", lambda a=(q, d, qm, dm, idx, g): ms.maxsim_all_pairs_bwd(*a))):
             parts[f"{name} {list(shape)}"] = _kernel_ms(fn, device, reps)
             times[f"{name} {list(shape)}"] = sum(parts[f"{name} {list(shape)}"].values())
+        if i == 0:  # exact ties: every doc's token 5 a copy of token 3
+            d[:, 3] = q.sum(dim=(0, 1))
+            d[:, 5], dm[:, 3], dm[:, 5] = d[:, 3], 1.0, 1.0
+            out, idx = ms.maxsim_all_pairs_argmax(q, d, qm, dm)
+            dq, dd = ms.maxsim_all_pairs_bwd(q, d, qm, dm, idx, g)
+            train_digests[f"ties {list(shape)}"] = _digest(torch.cat([out.flatten(), idx.flatten().float(),
+                                                                      dq.flatten(), dd.flatten()]))
 
     # K14's serving launches: their output bits, and the gathered form's device time
     digests = {}
@@ -263,7 +280,8 @@ def run_turn(checkout: str, store_dir: str, reps: int, device_name: str, tiny: b
         torch.cuda.synchronize()
     times[f"rescore of {sz['queries']} queries"] = (time.perf_counter() - start) * 1e3 / max(1, reps // 5)
     return {"checkout": checkout, "rescore_form": "batched" if batched else "per-query loop", "sizes": sz,
-            "ms": times, "kernel_ms": parts, "serving_digests": digests, "top_score": result[0][0][1]}
+            "ms": times, "kernel_ms": parts, "serving_digests": digests, "training_digests": train_digests,
+            "top_score": result[0][0][1]}
 
 
 def _card_line() -> str:
@@ -323,8 +341,10 @@ def main() -> int:
     digests = [t["serving_digests"] for t in turns]
     card = _card_line() if args.device == "cuda" else "cpu"
     print(card)
+    trained = [t["training_digests"] for t in turns]
     summary = {"card": card, "reps": args.reps, "turns": args.turns, "means": means,
-               "serving_bits_identical": all(d == digests[0] for d in digests)}
+               "serving_bits_identical": all(d == digests[0] for d in digests),
+               "training_bits_identical": all(d == trained[0] for d in trained)}
     print(json.dumps(summary))
     if args.out:
         with open(args.out, "w") as f:
